@@ -37,6 +37,9 @@ if os.environ.get("MEGATRON_TPU_TEST_PLATFORM", "cpu") == "cpu":
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-minute test (subprocess compiles etc.)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); "
+        "skips without one")
 
 
 import pytest  # noqa: E402
