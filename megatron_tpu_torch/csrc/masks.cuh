@@ -45,4 +45,26 @@ __device__ __forceinline__ void live_tile_range(int block_k, int n_k,
   *hi = h;
 }
 
+// The inverse range: [lo, hi) q tiles of block_q rows (query row i at
+// global position i + delta) holding any row that can see a key in
+// [k_lo, k_hi] — the loop bounds of the dk/dv kernel (masks.py
+// live_q_tile_range).
+__device__ __forceinline__ void live_q_tile_range(int block_q, int n_q,
+                                                  int k_lo, int k_hi,
+                                                  bool causal, int window,
+                                                  int delta, int* lo,
+                                                  int* hi) {
+  // causal edge: the tile's last row reaches k_lo
+  int l = causal ? floor_div(k_lo - delta, block_q) : 0;
+  l = l < 0 ? 0 : l;
+  int h = n_q;
+  if (window > 0) {
+    // window edge: the tile's first row still sees k_hi
+    h = floor_div(k_hi + window - 1 - delta, block_q) + 1;
+    h = h < 0 ? 0 : (h > n_q ? n_q : h);
+  }
+  *lo = l;
+  *hi = h;
+}
+
 }  // namespace mtt

@@ -1,19 +1,23 @@
 """The transformer decoder block (counterpart of
-megatron_tpu/models/transformer.py), for the dense bf16 serving path.
+megatron_tpu/models/transformer.py), for serving and training.
 
 Pre-LN Llama/GPT block: norm -> attention (GQA, RoPE, optional window)
 -> residual -> norm -> MLP -> residual. KV caches are dense
 [B, max_seq, nkv, D] buffers written IN PLACE (the JAX package threads
 them functionally and donates them under jit; PyTorch mutates the
-buffer instead). fp8, weight quantization, MoE, paging, int8 caches and
-explicit TP/CP collectives are not ported yet.
+buffer instead). The training form is the same block without a cache,
+with positions from the batch; selective recompute checkpoints its core
+attention. fp8, weight quantization, MoE, paging, int8 caches, dropout
+and explicit TP/CP collectives are not ported yet.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.ops.activations import apply_activation
@@ -38,8 +42,13 @@ def attention_block(
     kv_cache: Optional[KVCache] = None,
     cache_index=None,
     padding_mask: Optional[torch.Tensor] = None,
+    recompute_core: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (out [B, S, h], kv_cache).
+
+    recompute_core: checkpoint the core attention (selective recompute):
+    its forward runs again in the backward instead of saving its
+    internals — the reference's checkpointed core attention.
 
     cache_index: an int writes this pass's K/V at positions
     cache_index..cache_index+S-1 of every row and attends causally from
@@ -91,8 +100,8 @@ def attention_block(
         raise ValueError(
             "attn_mask_type='padding' requires an attention_mask input — "
             "running without one would silently attend to pad tokens")
-    ctx = attention(
-        q, k, v,
+    core = functools.partial(
+        attention,
         mask_type=("bidirectional" if cfg.attn_mask_type == "padding"
                    else cfg.attn_mask_type),
         padding_mask=padding_mask,
@@ -101,7 +110,12 @@ def attention_block(
         impl=cfg.attention_impl,
         softmax_fp32=cfg.softmax_fp32,
         kv_lengths=kv_lengths,
+        flash_bwd=cfg.flash_bwd,
     )
+    if recompute_core and torch.is_grad_enabled():
+        ctx = checkpoint(core, q, k, v, use_reentrant=False)
+    else:
+        ctx = core(q, k, v)
     out = torch.matmul(ctx.reshape(b, s, nq * D), p["wo"])
     if "bo" in p:
         out = out + p["bo"]
@@ -129,12 +143,13 @@ def block_forward(
     kv_cache: Optional[KVCache] = None,
     cache_index=None,
     padding_mask: Optional[torch.Tensor] = None,
+    recompute_core: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """One pre-LN decoder layer -> (y, kv_cache)."""
     attn_out, kv_cache = attention_block(
         cfg, lp["attn"], _norm(cfg, lp["ln1"], x), rope, positions,
         kv_cache=kv_cache, cache_index=cache_index,
-        padding_mask=padding_mask)
+        padding_mask=padding_mask, recompute_core=recompute_core)
     y = x + attn_out
     y = y + mlp_block(cfg, lp["mlp"], _norm(cfg, lp["ln2"], y))
     return y, kv_cache

@@ -11,11 +11,14 @@ Two implementations behind one dispatch:
 
 Routing under impl="pallas" follows the JAX package: kv_lengths goes to
 flash_decode; a full-sequence causal pass (q_len == kv_len) goes to
-flash_fwd; other shapes (a chunk into cached context, bidirectional
+flash_mha (flash_fwd forward, the flash_bwd_dq / flash_bwd_dkv kernels
+backward); other shapes (a chunk into cached context, bidirectional
 masks) take the dense path. Padding masks and dropout, which no kernel
-covers, fall back to the dense path with a loud warning. A kernel that
-is asked for and cannot take a CUDA tensor raises instead of falling
-back.
+covers, fall back to the dense path with a loud warning, and so does
+flash_bwd=False (--no_flash_bwd), the escape hatch that puts the dense
+O(S^2) attention and its autograd gradient on the training path. A
+kernel that is asked for and cannot take a CUDA tensor raises instead
+of falling back.
 
 Layout is [batch, seq, heads, head_dim] throughout.
 """
@@ -60,6 +63,7 @@ def attention(
     impl: str = "xla",
     softmax_fp32: bool = True,
     kv_lengths: Optional[torch.Tensor] = None,  # [B] valid-prefix lengths
+    flash_bwd: bool = True,
 ) -> torch.Tensor:
     """Scaled dot-product attention with GQA. Returns [B, Sq, Hq, D].
 
@@ -78,13 +82,20 @@ def attention(
                                                sliding_window=sliding_window)
     elif (impl == "pallas" and mask_type == "causal"
           and q.shape[1] == k.shape[1]):
-        if dropout == 0.0 and padding_mask is None:
+        if dropout == 0.0 and padding_mask is None and flash_bwd:
             return flash_template.flash_mha(q, k, v,
                                             sliding_window=sliding_window)
-        warnings.warn(
-            "attention_impl='pallas': the flash kernel covers neither "
-            "padding masks nor attention dropout; falling back to the "
-            "O(S^2) dense path", stacklevel=2)
+        if dropout == 0.0 and padding_mask is None:
+            # escape hatch (--no_flash_bwd): deliberate, but still loud —
+            # the step now pays the O(S^2) dense attention gradient
+            warnings.warn(
+                "flash_bwd disabled: full-sequence attention (and its "
+                "gradient) runs on the O(S^2) dense path", stacklevel=2)
+        else:
+            warnings.warn(
+                "attention_impl='pallas': the flash kernel covers neither "
+                "padding masks nor attention dropout; falling back to the "
+                "O(S^2) dense path", stacklevel=2)
 
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape

@@ -29,8 +29,9 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 
-#: kernel name -> source file in csrc/
-KERNELS = {"flash_fwd": "flash_fwd.cu", "flash_decode": "flash_decode.cu"}
+#: library name -> source file in csrc/ (flash_bwd holds two kernels)
+KERNELS = {"flash_fwd": "flash_fwd.cu", "flash_decode": "flash_decode.cu",
+           "flash_bwd": "flash_bwd.cu"}
 _HEADERS = ("masks.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -90,7 +91,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         os.replace(tmp, path)  # atomic: a concurrent loader never sees half
         out[name] = {"path": str(path), "seconds": seconds,
                      "ptxas": [ln.strip() for ln in log.splitlines()
-                               if "ptxas" in ln],
+                               if "ptxas" in ln or "spill" in ln],
                      "cached": False}
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -98,3 +98,24 @@ def live_tile_range(block_k: int, n_k: int, q_lo: int, q_hi: int, *,
         # visible position)  <=>  ki >= floor((q_lo - W + 1) / BK)
         lo = max(0, (q_lo - window + 1) // block_k)
     return lo, hi
+
+
+def live_q_tile_range(block_q: int, n_q: int, k_lo: int, k_hi: int, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      delta: int = 0):
+    """The inverse of live_tile_range: [first, last) q tiles (query row i
+    at global position i + delta) holding any row that can see a key in
+    [k_lo, k_hi] — the loop bounds of the dk/dv kernel (masks.cuh
+    live_q_tile_range). Tile qi is in it exactly when
+    prefill_block_live(qi, ...) holds for a kv tile spanning [k_lo, k_hi].
+    Empty when first >= last."""
+    # causal edge: qi*BQ + BQ - 1 + delta >= k_lo
+    #   <=>  qi >= floor((k_lo - delta) / BQ)
+    lo = max(0, (k_lo - delta) // block_q) if causal else 0
+    hi = n_q
+    if window is not None:
+        # window edge: the tile's first row still sees k_hi,
+        # k_hi > qi*BQ + delta - W  <=>  qi*BQ + delta <= k_hi + W - 1
+        #   <=>  qi <= floor((k_hi + W - 1 - delta) / BQ)
+        hi = min(n_q, max(0, (k_hi + window - 1 - delta) // block_q + 1))
+    return lo, hi

@@ -39,7 +39,7 @@ def _window(torch, name, fn, card, top=8):
     """Time fn() on the host clock (ending in a synchronize), then run it
     again under the profiler for the kernels' device times, and print
     the window's breakdown. The profiler's own host overhead stays out
-    of wall_ms."""
+    of wall_ms. Returns (wall_ms, {kernel name: (device ms, count)})."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -70,6 +70,7 @@ def _window(torch, name, fn, card, top=8):
         "top_kernels": [{"kernel": k[:90], "ms": ms, "count": c,
                          "share_of_device": ms / device_ms}
                         for k, (ms, c) in ranked]}), flush=True)
+    return wall_ms, kernels
 
 
 def main(argv=None) -> int:

@@ -7,11 +7,16 @@ on the card run them without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Each kernel is held against its plain version on the same bf16 inputs
-(computed in fp32) with |kernel - plain| <= 2e-2 + 2e-2 * |plain|, at
-small shapes that hit the ragged edges: sequence lengths that are not a
-multiple of the 64-row tile, GQA, sliding windows, the q-vs-k offset and
-ragged per-slot prefixes.
+Each forward kernel is held against its plain version on the same bf16
+inputs (computed in fp32) with |kernel - plain| <= 2e-2 + 2e-2 * |plain|,
+at small shapes that hit the ragged edges: sequence lengths that are not
+a multiple of the 64-row tile, GQA, sliding windows, the q-vs-k offset
+and ragged per-slot prefixes. The backward kernels (dq, dk/dv) are held
+against the plain fp32 backward of the same bf16 inputs and the same
+o/lse, relative to each tensor's largest plain magnitude M:
+|kernel - plain| <= 2e-3 * M + 2e-2 * |plain| (the tolerance of the JAX
+package's own backward test, tests/test_pallas_attention.py; the kernels
+round p and ds to bf16 for the tensor cores).
 """
 
 import dataclasses
@@ -91,6 +96,65 @@ def test_flash_decode_reads_a_strided_cache(gen):
                                             v.float(), lens))
 
 
+def _assert_close_rel(got, want, name):
+    want = want.float()
+    m = float(want.abs().max())
+    err = (got.float() - want).abs()
+    assert bool((err <= 2e-3 * m + 2e-2 * want.abs()).all()), \
+        (name, float(err.max()), m)
+
+
+@pytest.mark.parametrize("s,hq,hkv,d,causal,window,delta", [
+    (3, 4, 4, 128, True, None, 0), (63, 4, 2, 128, True, None, 0),
+    (130, 8, 2, 64, True, None, 0), (130, 4, 1, 128, True, 17, 0),
+    (100, 4, 4, 128, True, None, 30), (70, 2, 2, 64, True, 9, -5),
+    (96, 4, 2, 128, False, None, 0), (200, 4, 4, 64, False, 33, 0),
+])
+def test_flash_bwd_kernels_match_plain(gen, s, hq, hkv, d, causal, window,
+                                       delta):
+    # (S = 1 is left out: there dq is 0 in exact arithmetic and both sides
+    # hold only rounding noise, which a relative tolerance cannot judge)
+    q = _randn(gen, 2, s, hq, d)
+    k, v = _randn(gen, 2, s, hkv, d), _randn(gen, 2, s, hkv, d)
+    do = _randn(gen, 2, s, hq, d)
+    o, lse = ft.flash_fwd(q, k, v, causal=causal, sliding_window=window,
+                          delta=delta)
+    before = (ft.flash_bwd_dq.launches, ft.flash_bwd_dkv.launches)
+    got = ft.flash_bwd(q, k, v, o, lse, do, causal=causal,
+                       sliding_window=window, delta=delta)
+    torch.cuda.synchronize()
+    assert (ft.flash_bwd_dq.launches, ft.flash_bwd_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = ft.flash_bwd_reference(q.float(), k.float(), v.float(), o, lse,
+                                  do, causal=causal, sliding_window=window,
+                                  delta=delta)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        _assert_close_rel(a, b, name)
+
+
+def test_flash_mha_autograd_runs_the_backward_kernels(gen):
+    """flash_mha on CUDA tensors that require a gradient: one forward and
+    one dq + one dk/dv launch, gradients equal to the plain backward."""
+    q = _randn(gen, 1, 150, 4, 128).requires_grad_()
+    k = _randn(gen, 1, 150, 2, 128).requires_grad_()
+    v = _randn(gen, 1, 150, 2, 128).requires_grad_()
+    do = _randn(gen, 1, 150, 4, 128)
+    before = (ft.flash_fwd.launches, ft.flash_bwd_dq.launches,
+              ft.flash_bwd_dkv.launches)
+    o = ft.flash_mha(q, k, v)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (ft.flash_fwd.launches, ft.flash_bwd_dq.launches,
+            ft.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    with torch.no_grad():
+        o2, lse = ft.flash_fwd(q, k, v)
+    want = ft.flash_bwd_reference(q.detach().float(), k.detach().float(),
+                                  v.detach().float(), o2, lse, do)
+    for name, t, w in zip(("dq", "dk", "dv"), (q, k, v), want):
+        _assert_close_rel(t.grad, w, name)
+
+
 def test_kernels_refuse_what_they_do_not_cover(gen):
     q = _randn(gen, 1, 8, 2, 128)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -131,3 +195,50 @@ def test_lm_forward_kernel_route_matches_dense_route(gen):
         ld, _ = lm_forward(dense, params, step, kv_caches=cd,
                            cache_index=depth)
         _assert_close(lk, ld.float())
+
+
+def test_train_step_runs_the_attention_kernels(gen):
+    """make_train_step on a 2-layer bf16 model (D 128, GQA 4/2, ragged S
+    200), 2 microbatches, selective recompute: every step launches
+    flash_fwd twice per layer and microbatch (forward + recompute) and
+    the dq and dk/dv kernels once, and its losses track the same steps
+    taken through the dense attention with autograd within 3e-2 (bf16
+    weights; both runs round differently, and three Adam steps carry
+    the differences along)."""
+    from megatron_tpu_torch.config import OptimizerConfig, TrainingConfig
+    from megatron_tpu_torch.models import presets
+    from megatron_tpu_torch.models.params import init_params
+    from megatron_tpu_torch.training.optimizer import (init_train_state,
+                                                       leaf_paths)
+    from megatron_tpu_torch.training.train_step import make_train_step
+
+    cfg = presets.tiny(hidden_size=512, num_attention_heads=4,
+                       num_kv_heads=2, vocab_size=128, seq_length=200,
+                       params_dtype="bfloat16", attention_impl="pallas")
+    opt = OptimizerConfig(lr=1e-3, lr_decay_style="constant")
+    tc = TrainingConfig(micro_batch_size=1, global_batch_size=2,
+                        train_iters=3, recompute_granularity="selective")
+    toks = torch.randint(0, 128, (3, 2, 201), generator=gen, device="cuda")
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    losses, launched = {}, {}
+    for impl in ("pallas", "xla"):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        params = init_params(c, 0)
+        for _, p in leaf_paths(params):
+            p.requires_grad_(True)
+        state = init_train_state(opt, params)
+        step = make_train_step(c, opt, tc, 2)
+        before = [getattr(ft, n).launches for n in names]
+        losses[impl] = []
+        for i in range(3):
+            state, m = step(state, {"tokens": toks[i, :, :-1],
+                                    "labels": toks[i, :, 1:]})
+            assert float(m["skipped"]) == 0.0
+            losses[impl].append(float(m["loss"]))
+        torch.cuda.synchronize()
+        launched[impl] = [getattr(ft, n).launches - b
+                          for n, b in zip(names, before)]
+    assert launched["pallas"] == [2 * 2 * 2 * 3, 2 * 2 * 3, 2 * 2 * 3]
+    assert launched["xla"] == [0, 0, 0]
+    for a, b in zip(losses["pallas"], losses["xla"]):
+        assert abs(a - b) <= 3e-2, (losses["pallas"], losses["xla"])

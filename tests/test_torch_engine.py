@@ -185,18 +185,27 @@ def test_http_server_api_health_metrics(weights):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Import every module of megatron_tpu_torch, and chip_smoke.py, in a
-    fresh interpreter: neither jax nor megatron_tpu may be loaded."""
+    """Import every module of megatron_tpu_torch (the serving, training
+    and data modules alike), and chip_smoke.py, in a fresh interpreter:
+    neither jax nor megatron_tpu may be loaded."""
+    expected = ["megatron_tpu_torch." + m for m in (
+        "inference.server", "ops.flash.flash_template", "ops.cross_entropy",
+        "training.pretrain", "training.optimizer", "training.train_step",
+        "training.scheduler", "training.microbatches", "data.gpt_dataset",
+        "data.indexed_dataset", "data.samplers", "data.helpers",
+        "data.blendable_dataset", "arguments", "tools.pretrain_gpt",
+        "tools.profile_training")]
     code = (
         "import importlib, pkgutil, sys\n"
         "import megatron_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        f"missing = [m for m in {expected!r} if m not in sys.modules]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'megatron_tpu' or m.startswith('megatron_tpu.')]\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "print(bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

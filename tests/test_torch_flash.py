@@ -10,8 +10,12 @@ bidirectional, sliding window, the q-vs-k offset delta, GQA, ragged
 kv_lengths, a multi-query decode, and sequence lengths that are not a
 multiple of the CUDA kernels' 64-row tile.
 
+The backward kernels' plain version is held against the Pallas backward
+in tests/test_torch_flash_bwd.py.
+
 Also: masks.py against the JAX masks module, and the kernels' loop
-bounds (live_tile_range) against the block predicates they replace.
+bounds (live_tile_range, live_q_tile_range) against the block predicates
+they replace.
 """
 
 import jax.numpy as jnp
@@ -97,6 +101,35 @@ def test_live_tile_range_is_exactly_the_live_tiles(causal, window):
             live = [ki for ki in range(n_k) if bool(jmasks.block_live(
                 ki, blk, q_lo, q_hi, causal=causal, window=window))]
             assert list(range(lo, hi)) == live, (q_lo, q_hi)
+
+
+@pytest.mark.parametrize("window", [None, 1, 7, 64])
+@pytest.mark.parametrize("causal", [True, False])
+def test_live_q_tile_range_is_exactly_the_live_q_tiles(causal, window):
+    """The dk/dv kernel loops its kv tile over q tiles [lo, hi): for a kv
+    tile spanning a whole block, exactly the q tiles prefill_block_live
+    accepts; for any key span, exactly the q tiles holding a row that
+    sees one of its keys (every edge, offsets of both signs)."""
+    bq, bk, n_q = 8, 8, 9
+    for delta in (-13, 0, 5, 64):
+        for ki in range(9):
+            lo, hi = tmasks.live_q_tile_range(
+                bq, n_q, ki * bk, ki * bk + bk - 1, causal=causal,
+                window=window, delta=delta)
+            live = [qi for qi in range(n_q) if bool(jmasks.prefill_block_live(
+                qi, ki, bq, bk, causal=causal, window=window, delta=delta))]
+            assert list(range(lo, hi)) == live, (delta, ki)
+        for k_lo in range(-3, 75, 4):
+            for span in (0, 3, 11):
+                k_hi = k_lo + span
+                lo, hi = tmasks.live_q_tile_range(
+                    bq, n_q, k_lo, k_hi, causal=causal, window=window,
+                    delta=delta)
+                k_pos = np.arange(k_lo, k_hi + 1)[None, :]
+                live = [qi for qi in range(n_q) if tmasks.visible(
+                    np.arange(qi * bq, qi * bq + bq)[:, None] + delta, k_pos,
+                    causal=causal, window=window).any()]
+                assert list(range(lo, hi)) == live, (delta, k_lo, k_hi)
 
 
 # ---------------------------------------------------------------------------
@@ -226,3 +259,8 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="unsupported device"):
         tft.flash_decode(q[:, :1], q, q,
                          torch.empty(1, dtype=torch.int32, device="meta"))
+    lse = torch.empty(1, 2, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tft.flash_bwd_dq(q, q, q, q, lse, lse)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tft.flash_bwd_dkv(q, q, q, q, lse, lse)
