@@ -19,6 +19,17 @@ still run, so one call shows every failure):
               and one PyTorch library call (scaled_dot_product_attention,
               a yardstick the port never calls) with CUDA events, and
               compute each case's bound from its shapes.
+  2c. paged    the paged decode kernel (paged_flash_decode) against its
+              plain version (gather + the fp32 decode reference), same
+              tolerance as phase 2: B 8, 128 table entries of ps 16 (2048
+              positions), H 32, D 128, Sq 1, kv_lengths 1..2048, physical
+              pages a seeded permutation of the pool with two rows sharing
+              their first 32 pages; Hq 32 / Hkv 8, Sq 5 with window 256
+              and scratch entries behind the window; ps 8 and ps 64. Time
+              the kernel, the plain version, SDPA on the gathered dense
+              view (the library yardstick) and the dense flash_decode
+              kernel on that view (what paging costs), and compute each
+              shape's bound.
   2b. backward  the dq and dk/dv kernels at the training shapes (S 4096,
               H 32, D 128 causal; GQA G=4 with window 256; ragged S 1000)
               against the plain fp32 backward of the same bf16 inputs and
@@ -41,6 +52,16 @@ still run, so one call shows every failure):
               to equal 32 x prefills and 32 x decode ticks with no
               dense-fallback warning. The model and cache are freed
               before training.
+  3b. paged   the same server with kv_paging (16-token pages, 32-token
+              prefill chunks, the default pool): the phase-3 traffic and
+              its repeat, then two requests sharing the first 512 tokens
+              of the 700-token prompt; then the paged engine in-process
+              with a 147-page pool on the four prompts, which preempts the
+              1500-token request. Gates: every request answers prompt +
+              32 tokens, >= 2 prefix hits, >= 1 preemption, the
+              teacher-forced gate on every sequence, paged_flash_decode
+              launched 32 x decode ticks with flash_decode and flash_fwd
+              at 0, and no dense-fallback warning.
   4. training write a synthetic corpus (Zipf token ids, 32000 vocab, from
               SEED) with the port's MMapIndexedDatasetBuilder into
               megatron_tpu_torch/build/, then call
@@ -60,8 +81,9 @@ still run, so one call shows every failure):
               gradient norm and every gradient leaf must agree (gates at
               the constants below).
   5. report   one JSON line listing each kernel with its launches on its
-              path (serving and training), then the card's name and power
-              limit, then {"ok": true, "device": {...}} as the last line.
+              path (serving, paged_serving and training), then the
+              card's name and power limit, then {"ok": true, "device":
+              {...}} as the last line.
 
 It needs one CUDA card; with none (or outside a checkout) it exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -97,6 +119,15 @@ NUM_LAYERS = 32
 PROMPT_LENS = (5, 100, 700, 1500)
 NEW_TOKENS = 32
 MATCH_GATE = 0.99
+# phase 3b: the paged engine. At ps 16 the four prompts need 1 + 7 + 44 +
+# 94 = 146 pages at admission, so a 147-page pool (146 + scratch) admits
+# all four at once and is dry when the 5-token request's decode first
+# crosses a page (position 16): nothing is cache-only then, so the
+# youngest request (the 1500-token one, still mid-prefill) is preempted
+PAGE_SIZE = 16
+PREFILL_CHUNK = 32
+PRESSURE_PAGES = 147
+SHARED_PREFIX, OWN_SUFFIX = 512, 64
 
 # phase 4: Llama-2-7B width cut to TRAIN_LAYERS layers
 TRAIN_LAYERS = 8
@@ -306,6 +337,110 @@ def check_flash_decode(torch, F, ft, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: the paged decode kernel vs its plain version
+# ---------------------------------------------------------------------------
+
+
+def paged_case(torch, gen, B, S, ps, sq, hq, hkv, window, D=128):
+    """Pools, a page table and kv_lengths as the paged engine builds them:
+    physical pages a seeded permutation of the pool, rows 0 and 1 sharing
+    their first 32 pages (a prefix-cache hit), entries past a row's
+    length and pages fully behind the window on the scratch page 0."""
+    max_pages = S // ps
+    n_pages = 1 + B * max_pages
+    base = [1, 63, 64, 2047, 2048, 500, 1000, 1500]
+    lens_list = [min(n, S - sq + 1) for n in base]
+    q = torch.randn(B, sq, hq, D, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    kp = torch.randn(n_pages, ps, hkv, D, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    vp = torch.randn(n_pages, ps, hkv, D, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    table = perm.view(B, max_pages).to(torch.int32)
+    shared = min(32, max_pages)
+    table[1, :shared] = table[0, :shared]
+    for b, n in enumerate(lens_list):
+        used = -(-(n + sq - 1) // ps)
+        table[b, used:] = 0
+        if window is not None:
+            # the engine releases pages whose positions all lie at or
+            # below kv_len - 1 - window
+            table[b, :max(0, n - 1 - window) // ps] = 0
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    return q, kp, vp, table.contiguous(), lens, lens_list
+
+
+def check_paged_flash_decode(torch, F, ft, card):
+    """The serving path's shape (ps 16, Sq 1, H 32) is the reported one;
+    also GQA with Sq 5 and a window, and page sizes 8 and 64."""
+    B, S, D = 8, 2048, 128
+    cases = [dict(ps=16, sq=1, hq=32, hkv=32, window=None),
+             dict(ps=16, sq=5, hq=32, hkv=8, window=256),
+             dict(ps=8, sq=1, hq=32, hkv=32, window=None),
+             dict(ps=64, sq=1, hq=32, hkv=32, window=None)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    worst, report = 0.0, None
+    for c in cases:
+        ps, sq, hq, hkv, W = (c[k] for k in ("ps", "sq", "hq", "hkv",
+                                              "window"))
+        q, kp, vp, table, lens, lens_list = paged_case(
+            torch, gen, B, S, ps, sq, hq, hkv, W, D)
+        fn = ft.paged_flash_decode if sq == 1 else ft.paged_flash_decode_mq
+        o = fn(q, kp, vp, table, lens, sliding_window=W)
+        torch.cuda.synchronize()
+        o_ref = ft.paged_flash_decode_reference(
+            q.float(), kp.float(), vp.float(), table, lens, W)
+        err, ok = compare(torch, o, o_ref)
+        ms = cuda_ms(torch, lambda: fn(q, kp, vp, table, lens,
+                                       sliding_window=W))
+        plain_ms = cuda_ms(torch, lambda: ft.paged_flash_decode_reference(
+            q, kp, vp, table, lens, W))
+        # the dense view the pages hold, gathered once outside the timing
+        kd = kp[table.long()].reshape(B, S, hkv, D)
+        vd = vp[table.long()].reshape(B, S, hkv, D)
+        dense_ms = cuda_ms(torch, lambda: ft.flash_decode(
+            q, kd, vd, lens, sliding_window=W))
+        kpos = torch.arange(S, device="cuda")
+        qpos = lens[:, None].long() - 1 + torch.arange(sq, device="cuda")
+        mask = kpos[None, None, :] <= qpos[:, :, None]
+        if W is not None:
+            mask &= kpos[None, None, :] > qpos[:, :, None] - W
+        library_ms = cuda_ms(torch, sdpa(F, q, kd, vd,
+                                         attn_mask=mask[:, None]))
+        del kd, vd
+        lo = [max(0, n - W) if W else 0 for n in lens_list]
+        visible_kv = sum(min(S, n + sq - 1) - l
+                         for n, l in zip(lens_list, lo))
+        pairs = sum(min(S, n + j) - (max(0, n + j - W) if W else 0)
+                    for n in lens_list for j in range(sq))
+        flops = 4.0 * D * hq * pairs
+        pages_read = sum(-(-min(S, n + sq - 1) // ps) - l // ps
+                         for n, l in zip(lens_list, lo))
+        nbytes = (2.0 * 2 * visible_kv * hkv * D + 2.0 * 2 * B * sq * hq * D
+                  + 4.0 * B + 4.0 * pages_read)
+        bound_ms, bound_by = bound(flops, nbytes)
+        line = {"phase": "kernel", "name": "paged_flash_decode",
+                "card": card,
+                "shape": f"B={B} ps={ps} max_pages={S // ps} Sq={sq} "
+                         f"Hq={hq} Hkv={hkv} D={D} window={W} "
+                         f"kv_lengths={lens_list}",
+                "max_abs_err": err, "ok": ok, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "dense_flash_decode_ms": dense_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+        emit(line)
+        if not ok:
+            raise AssertionError(f"paged_flash_decode disagrees with its "
+                                 f"plain version: {line}")
+        worst = max(worst, err)
+        if ps == PAGE_SIZE and sq == 1:
+            report = line
+        del q, kp, vp, table, lens, o, o_ref
+        torch.cuda.empty_cache()
+    return dict(report, max_abs_err=worst)
+
+
+# ---------------------------------------------------------------------------
 # phase 2b: backward kernels vs the plain backward
 # ---------------------------------------------------------------------------
 
@@ -430,6 +565,16 @@ def _metric(text: str, name: str) -> float:
     raise KeyError(name)
 
 
+def _zero_decode_counts(ft):
+    for name in ("flash_fwd", "flash_decode", "paged_flash_decode"):
+        getattr(ft, name).launches = 0
+
+
+def _decode_counts(ft):
+    return {name: getattr(ft, name).launches
+            for name in ("flash_fwd", "flash_decode", "paged_flash_decode")}
+
+
 def serve(torch, ft, card):
     import dataclasses
 
@@ -479,8 +624,7 @@ def serve(torch, ft, card):
 
         eng = service.engine
         # the main path's run: every count starts at 0 here
-        ft.flash_fwd.launches = 0
-        ft.flash_decode.launches = 0
+        _zero_decode_counts(ft)
         prefills0, ticks0 = eng.stats["admitted"], eng.stats["ticks"]
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -495,8 +639,7 @@ def serve(torch, ft, card):
             status, repeat = _put(base + "/api", {
                 "prompts": [" ".join(map(str, prompts[1]))],
                 "tokens_to_generate": NEW_TOKENS, "temperature": 0.0})
-        launches = {"flash_fwd": ft.flash_fwd.launches,
-                    "flash_decode": ft.flash_decode.launches}
+        launches = _decode_counts(ft)
         prefills = eng.stats["admitted"] - prefills0
         ticks = eng.stats["ticks"] - ticks0
 
@@ -518,7 +661,7 @@ def serve(torch, ft, card):
         if fallbacks:
             raise AssertionError(f"dense fallback fired: {fallbacks}")
         want = {"flash_fwd": NUM_LAYERS * prefills,
-                "flash_decode": NUM_LAYERS * ticks}
+                "flash_decode": NUM_LAYERS * ticks, "paged_flash_decode": 0}
         if launches != want or prefills != len(prompts) + 1:
             raise AssertionError(f"launches {launches} != {want} "
                                  f"(prefills {prefills}, ticks {ticks})")
@@ -557,7 +700,198 @@ def serve(torch, ft, card):
             f"teacher-forced match {tf['teacher_forced_match']:.4f} < "
             f"{MATCH_GATE} (argmax or a near-tie within the plain bf16 "
             "path's own error)")
-    return launches
+    return {"launches": launches, "generated": generated}
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: paged serving
+# ---------------------------------------------------------------------------
+
+
+def _check_launches(where, launches, ticks):
+    want = {"flash_fwd": 0, "flash_decode": 0,
+            "paged_flash_decode": NUM_LAYERS * ticks}
+    if launches != want or ticks < 1:
+        raise AssertionError(f"{where}: launches {launches} != {want} "
+                             f"(decode ticks {ticks})")
+
+
+def serve_paged(torch, ft, card, dense_tokens):
+    """The phase-3 server with kv_paging, then the paged engine under
+    pool pressure. dense_tokens: phase 3's generated tokens per prompt
+    (None if phase 3 failed), compared for information only."""
+    import dataclasses
+
+    import numpy as np
+
+    from megatron_tpu_torch.inference.engine import Request
+    from megatron_tpu_torch.inference.paging import PagedInferenceEngine
+    from megatron_tpu_torch.inference.server import run_server
+    from megatron_tpu_torch.models import presets
+    from megatron_tpu_torch.models.params import init_params
+    from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
+    from megatron_tpu_torch.tokenizer import NullTokenizer
+
+    cfg = presets.from_model_name("llama2-7B")
+    params = init_params(cfg, SEED, device="cuda")
+    tokenizer = NullTokenizer(cfg.vocab_size)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size - 1, size=n).tolist()
+               for n in PROMPT_LENS]
+    # the same draws as phase 3, then two prompts sharing a prefix of
+    # the 700-token prompt
+    shared = [prompts[2][:SHARED_PREFIX]
+              + rng.integers(0, cfg.vocab_size - 1, size=OWN_SUFFIX).tolist()
+              for _ in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    ready, handles = threading.Event(), []
+    thread = threading.Thread(
+        target=run_server, daemon=True, name="smoke-paged-server",
+        kwargs=dict(cfg=cfg, params=params, tokenizer=tokenizer,
+                    host="127.0.0.1", port=0, engine_slots=8,
+                    engine_max_seq_len=2048, device="cuda", ready=ready,
+                    service_out=handles, kv_paging=True,
+                    page_size=PAGE_SIZE, prefill_chunk=PREFILL_CHUNK))
+    thread.start()
+    if not ready.wait(300):
+        raise RuntimeError("paged server did not start")
+    service, server = handles
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    eng = service.engine
+    seqs = []                      # (prompt, generated) of every request
+    try:
+        def put_all(batch):
+            out = [None] * len(batch)
+
+            def one(i):
+                t = time.monotonic()
+                status, body = _put(base + "/api", {
+                    "prompts": [" ".join(map(str, batch[i]))],
+                    "tokens_to_generate": NEW_TOKENS, "temperature": 0.0})
+                out[i] = (status, body, time.monotonic() - t)
+
+            workers = [threading.Thread(target=one, args=(i,))
+                       for i in range(len(batch))]
+            for w in workers:
+                w.start()
+            for w in workers:
+                w.join(900)
+            for i, res in enumerate(out):
+                if res is None or res[0] != 200:
+                    raise AssertionError(f"paged request {i} failed: {res}")
+                toks = [int(t) for t in res[1]["text"][0].split()]
+                if toks[:len(batch[i])] != batch[i] or \
+                        len(toks) != len(batch[i]) + NEW_TOKENS:
+                    raise AssertionError(
+                        f"paged request {i}: {len(toks)} tokens for a "
+                        f"{len(batch[i])}-token prompt + {NEW_TOKENS}")
+                seqs.append((batch[i], toks[len(batch[i]):]))
+            return out
+
+        # the main path's run: every count starts at 0 here
+        _zero_decode_counts(ft)
+        ticks0 = eng.stats["ticks"]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t_conc = time.monotonic()
+            first = put_all(prompts)
+            conc_s = time.monotonic() - t_conc
+            put_all([prompts[1]])
+            put_all(shared)
+        launches = _decode_counts(ft)
+        ticks = eng.stats["ticks"] - ticks0
+        stats = dict(eng.stats)
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        server.shutdown()
+        thread.join(120)
+    if thread.is_alive():
+        raise RuntimeError("paged server thread did not stop")
+    del service, server, handles, eng
+    torch.cuda.empty_cache()
+    if seqs[4][1] != seqs[1][1]:
+        raise AssertionError("repeated greedy request changed its tokens")
+    fallbacks = [str(w.message) for w in caught
+                 if "falling back" in str(w.message)]
+    _check_launches("paged serving", launches, ticks)
+
+    # the paged engine in-process under pool pressure
+    pressure = PagedInferenceEngine(
+        cfg, params, num_slots=8, max_seq_len=2048, page_size=PAGE_SIZE,
+        prefill_chunk=PREFILL_CHUNK, num_pages=PRESSURE_PAGES,
+        vocab_size=tokenizer.vocab_size, metrics=MetricsRegistry(),
+        device="cuda")
+    _zero_decode_counts(ft)
+    with warnings.catch_warnings(record=True) as caught2:
+        warnings.simplefilter("always")
+        t0 = time.monotonic()
+        reqs = [pressure.submit(Request(prompt=np.asarray(p, np.int32),
+                                        max_new_tokens=NEW_TOKENS))
+                for p in prompts]
+        pressure.run_until_idle()
+        pressure_s = time.monotonic() - t0
+    p_launches = _decode_counts(ft)
+    p_stats = dict(pressure.stats)
+    fallbacks += [str(w.message) for w in caught2
+                  if "falling back" in str(w.message)]
+    for p, r in zip(prompts, reqs):
+        if r.error or len(r.generated) != NEW_TOKENS:
+            raise AssertionError(f"pressure run: {len(p)}-token request "
+                                 f"{r.error or len(r.generated)}")
+        seqs.append((p, list(r.generated)))
+    _check_launches("paged engine under pressure", p_launches,
+                    p_stats["ticks"])
+    del pressure, reqs
+    torch.cuda.empty_cache()
+
+    tf = teacher_force(torch, dataclasses, cfg, params,
+                       [s[0] for s in seqs], [s[1] for s in seqs])
+    same_as_dense = None
+    if dense_tokens is not None:
+        pairs = [(a, b) for (_, a), b in zip(seqs[:4], dense_tokens)]
+        same_as_dense = (sum(x == y for a, b in pairs for x, y in zip(a, b))
+                         / sum(len(a) for a, _ in pairs))
+    ttft = (_metric(metrics, "engine_ttft_seconds_sum")
+            / _metric(metrics, "engine_ttft_seconds_count"))
+    tpot = (_metric(metrics, "engine_time_per_output_token_seconds_sum")
+            / _metric(metrics, "engine_time_per_output_token_seconds_count"))
+    keys = ("prefix_hits", "prefix_misses", "prefix_tokens_saved",
+            "prefill_chunks", "prefill_tokens", "preemptions", "ticks",
+            "admitted", "retired")
+    line = {"phase": "paged_serving", "card": card, "model": "llama2-7B",
+            "layers": NUM_LAYERS, "slots": 8, "max_seq_len": 2048,
+            "page_size": PAGE_SIZE, "prefill_chunk": PREFILL_CHUNK,
+            "pool_pages": _metric(metrics, "engine_pages_total") + 1,
+            "requests": [{"prompt_tokens": len(p), "new_tokens": len(g),
+                          "wall_s": res[2]}
+                         for p, g, res in zip(prompts, [s[1] for s in seqs],
+                                              first)],
+            "concurrent_wall_s": conc_s,
+            "tokens_per_s": len(prompts) * NEW_TOKENS / conc_s,
+            "ttft_mean_s": ttft, "per_token_mean_s": tpot,
+            "max_memory_allocated_gib": peak_gib,
+            "stats": {k: stats[k] for k in keys}, "launches": launches,
+            "pressure": {"num_pages": PRESSURE_PAGES, "wall_s": pressure_s,
+                         "stats": {k: p_stats[k] for k in keys},
+                         "launches": p_launches},
+            "share_equal_to_dense_engine_tokens": same_as_dense,
+            "fallback_warnings": fallbacks, **tf}
+    emit(line)
+    problems = []
+    if stats["prefix_hits"] < 2:
+        problems.append(f"prefix hits {stats['prefix_hits']} < 2")
+    if p_stats["preemptions"] < 1:
+        problems.append("no preemption under the 147-page pool")
+    if fallbacks:
+        problems.append(f"dense fallback fired: {fallbacks}")
+    if tf["teacher_forced_match"] < MATCH_GATE:
+        problems.append(f"teacher-forced match "
+                        f"{tf['teacher_forced_match']:.4f} < {MATCH_GATE}")
+    if problems:
+        raise AssertionError("paged serving: " + "; ".join(problems))
+    return {n: launches[n] + p_launches[n] for n in launches}
 
 
 def teacher_force(torch, dataclasses, cfg, params, prompts, generated):
@@ -585,8 +919,9 @@ def teacher_force(torch, dataclasses, cfg, params, prompts, generated):
     params32 = up(params)
     strict = near = plain_vs_fp32 = total = 0
     worst_gap = 0.0
+    misses = []          # the positions outside the near-tie band
     with torch.no_grad():
-        for prompt, gen in zip(prompts, generated):
+        for seq_i, (prompt, gen) in enumerate(zip(prompts, generated)):
             seq = torch.tensor([prompt + gen[:-1]], device="cuda")
             p0 = len(prompt) - 1          # logits from the last prompt row
             lb = lm_forward(plain, params, seq)[0, p0:].float()
@@ -596,6 +931,9 @@ def teacher_force(torch, dataclasses, cfg, params, prompts, generated):
             band = (lb - l32).abs().max(-1).values
             strict += int((lb.argmax(-1) == tok).sum())
             near += int((gap <= band).sum())
+            misses += [{"sequence": seq_i, "position": j,
+                        "gap": float(gap[j]), "band": float(band[j])}
+                       for j in (gap > band).nonzero().flatten().tolist()]
             plain_vs_fp32 += int((lb.argmax(-1) == l32.argmax(-1)).sum())
             total += len(gen)
             worst_gap = max(worst_gap, float(gap.max()))
@@ -605,7 +943,8 @@ def teacher_force(torch, dataclasses, cfg, params, prompts, generated):
             "teacher_forced_strict_argmax": strict / total,
             "plain_bf16_vs_fp32_argmax": plain_vs_fp32 / total,
             "teacher_forced_worst_gap": worst_gap,
-            "teacher_forced_positions": total}
+            "teacher_forced_positions": total,
+            "teacher_forced_misses": misses}
 
 
 # ---------------------------------------------------------------------------
@@ -656,7 +995,12 @@ def expected_train_launches(n_micro: int) -> dict:
     n_evals = TRAIN_ITERS // EVAL_INTERVAL
     bwd = TRAIN_LAYERS * n_micro * TRAIN_ITERS
     return {"flash_fwd": 2 * bwd + TRAIN_LAYERS * n_evals * EVAL_ITERS,
-            "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd, "flash_decode": 0}
+            "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd, "flash_decode": 0,
+            "paged_flash_decode": 0}
+
+
+TRAIN_COUNTED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "flash_decode", "paged_flash_decode")
 
 
 def train(torch, np, ft, card):
@@ -686,8 +1030,7 @@ def train(torch, np, ft, card):
 
     torch.cuda.reset_peak_memory_stats()
     # the main path's run: every count starts at 0 here
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                 "flash_decode"):
+    for name in TRAIN_COUNTED:
         getattr(ft, name).launches = 0
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -695,9 +1038,7 @@ def train(torch, np, ft, card):
         loop = pretrain_gpt.main(argv, log=log)
         torch.cuda.synchronize()
         wall_s = time.monotonic() - t0
-    launches = {n: getattr(ft, n).launches for n in
-                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                 "flash_decode")}
+    launches = {n: getattr(ft, n).launches for n in TRAIN_COUNTED}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     cfg = loop.cfg.model
@@ -875,26 +1216,33 @@ def main() -> int:
 
     phase("flash_fwd", check_flash_fwd, torch, F, ft, card)
     phase("flash_decode", check_flash_decode, torch, F, ft, card)
+    phase("paged_flash_decode", check_paged_flash_decode, torch, F, ft, card)
     phase("flash_bwd", check_flash_bwd, torch, F, ft, card)
     phase("serving", serve, torch, ft, card)
+    phase("paged_serving", serve_paged, torch, ft, card,
+          results.get("serving", {}).get("generated"))
     phase("training", train, torch, np, ft, card)
     phase("kernel_vs_dense_step", step_vs_dense, torch, np, ft, card)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
 
-    serving, training = results["serving"], results["training"]
+    paths = {"serving": results["serving"]["launches"],
+             "paged_serving": results["paged_serving"],
+             "training": results["training"]}
     reports = {"flash_fwd": results["flash_fwd"],
                "flash_decode": results["flash_decode"],
+               "paged_flash_decode": results["paged_flash_decode"],
                **results["flash_bwd"]}
     kernels = []
     for name, source, line in (("flash_fwd", "flash_fwd.cu", 92),
                                ("flash_decode", "flash_decode.cu", 419),
+                               ("paged_flash_decode", "flash_decode.cu", 553),
                                ("flash_bwd_dq", "flash_bwd.cu", 197),
                                ("flash_bwd_dkv", "flash_bwd.cu", 235)):
         rep = reports[name]
-        by_path = {"serving": serving.get(name, 0),
-                   "training": training.get(name, 0)}
+        by_path = {path: counts.get(name, 0)
+                   for path, counts in paths.items()}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"megatron_tpu_torch/csrc/{source}",

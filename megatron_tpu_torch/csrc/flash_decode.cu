@@ -1,10 +1,17 @@
-// flash_decode: Sq-small attention over a dense per-slot KV cache for
-// Hopper (sm_90a), bf16 in/out — one decode tick of the continuous-batching
+// flash_decode: Sq-small attention over a per-slot KV cache for Hopper
+// (sm_90a), bf16 in/out — one decode tick of the continuous-batching
 // engine (Sq = 1), and the speculative verify pass later (Sq = k + 1).
+// Two launches of one kernel body, as in the TPU package:
 //
-// Replaces the TPU kernel megatron_tpu/ops/pallas/flash_template.py
-// _decode_kernel in its dense launch (_decode_call with no page table).
-// Plain version: ops/flash/flash_template.py flash_decode_reference.
+//  * dense (PAGED = false): the [B, S, Hkv, D] slot cache. Replaces
+//    megatron_tpu/ops/pallas/flash_template.py _decode_kernel in its dense
+//    launch (_decode_call with no page table). Plain version:
+//    ops/flash/flash_template.py flash_decode_reference.
+//  * paged (PAGED = true): the shared page pools [P, ps, Hkv, D] and a
+//    [B, max_pages] int32 page table; row b's logical position pos lives
+//    at pool[table[b, pos / ps], pos % ps]. Replaces the same
+//    _decode_kernel in its paged launch (_with_page_table, _decode_call
+//    with a page table). Plain version: paged_flash_decode_reference.
 //
 // What bounds it: bytes. Every visible cache position is read once as
 // K and V (2 * Hkv * D * 2 bytes) for 4 * Sq * G * D FLOPs, about one
@@ -26,9 +33,23 @@
 //  * The cache is read in its stored [B, S, Hkv, D] layout through
 //    strides. The TPU launch transposed the whole cache to [B, Hkv, S, D]
 //    on every call, a full copy of the cache per tick.
-//  * kv_lengths stays on the device and is read by the kernel.
+//  * Paged: the TPU grid fetched one page per step through the scalar-
+//    prefetched table. Here a kv tile is still BK positions, which may
+//    span several pages (ps < BK) or part of one (ps > BK), and pages
+//    that are consecutive in a row are scattered in the pool (LIFO free
+//    list, shared prefixes). So every thread resolves the physical page
+//    of each row it loads from the table (one int32 read, shared through
+//    L1 by the row's 16 loaders) and addresses it in int64 from the
+//    layer's pool pointer: one layer's pool passes 2^31 bytes at
+//    serving sizes. ps must be a power of two (the position splits into
+//    page and row with a shift and a mask). The table and kv_lengths
+//    are read on the device: nothing syncs with the host per layer, so
+//    the wrapper cannot check the entries; the kernel reads an entry
+//    outside [0, P) as the scratch page instead of outside the pool.
 //  * Masked scores take the finite NEG_INF and l is clamped at 1e-30, as
-//    in the TPU kernel; p, l and acc stay fp32.
+//    in the TPU kernel; p, l and acc stay fp32. Scratch-page entries
+//    (idle rows, pages released behind a sliding window) hold finite
+//    values and are masked to p = 0, never NaN.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,11 +91,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D>
+// Dense: k/v strides are (slot, position, head). Paged: (page, row in
+// page, head), S = max_pages << page_shift, page_table [B, max_pages]
+// with entries in [0, n_pages).
+template <int D, bool PAGED>
 __global__ void __launch_bounds__(THREADS)
     flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
                         const int* __restrict__ kv_lengths,
+                        const int* __restrict__ page_table, int n_pages,
+                        int max_pages, int page_shift,
                         bf16* __restrict__ o, int Sq, int S, int Hq, int Hkv,
                         long long q_sb, long long q_ss, long long q_sh,
                         long long k_sb, long long k_ss, long long k_sh,
@@ -117,8 +143,14 @@ __global__ void __launch_bounds__(THREADS)
                        true, window, &lo, &hi);
   __syncthreads();
 
-  const bf16* kb = k + b * k_sb + h * k_sh;
-  const bf16* vb = v + b * v_sb + h * v_sh;
+  const bf16* kb = k + h * k_sh;
+  const bf16* vb = v + h * v_sh;
+  if constexpr (!PAGED) {
+    kb += b * k_sb;
+    vb += b * v_sb;
+  }
+  const int* table = PAGED ? page_table + (long long)b * max_pages : nullptr;
+  const int row_mask = (1 << page_shift) - 1;
   constexpr int VPR = D / 8;  // 16-byte vectors per row
   constexpr int ITER = BK * VPR / THREADS;
 
@@ -132,11 +164,19 @@ __global__ void __launch_bounds__(THREADS)
       const int r = i / VPR, c = (i % VPR) * 8;
       const int kp = k0 + r;
       const bool ok = kp < k_end;
-      kr[it] = ok ? __ldg(reinterpret_cast<const uint4*>(
-                        kb + (long long)kp * k_ss + c))
+      long long ko = (long long)kp * k_ss, vo = (long long)kp * v_ss;
+      if constexpr (PAGED) {
+        // this row's physical page, resolved per row: a tile may span
+        // several scattered pages
+        int page = ok ? __ldg(table + (kp >> page_shift)) : 0;
+        page = (unsigned)page < (unsigned)n_pages ? page : 0;
+        const long long rp = kp & row_mask;
+        ko = (long long)page * k_sb + rp * k_ss;
+        vo = (long long)page * v_sb + rp * v_ss;
+      }
+      kr[it] = ok ? __ldg(reinterpret_cast<const uint4*>(kb + ko + c))
                   : make_uint4(0u, 0u, 0u, 0u);
-      vr[it] = ok ? __ldg(reinterpret_cast<const uint4*>(
-                        vb + (long long)kp * v_ss + c))
+      vr[it] = ok ? __ldg(reinterpret_cast<const uint4*>(vb + vo + c))
                   : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
@@ -223,33 +263,63 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int D>
+template <int D, bool PAGED>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* kv_lengths, void* o, int B, int Sq, int S,
-                   int Hq, int Hkv, const long long* qs, const long long* ks,
-                   const long long* vs, const long long* os, float scale,
-                   int window, cudaStream_t stream) {
+                   const int* kv_lengths, const int* page_table,
+                   int n_pages, int max_pages, int page_shift, void* o,
+                   int B, int Sq,
+                   int S, int Hq, int Hkv, const long long* qs,
+                   const long long* ks, const long long* vs,
+                   const long long* os, float scale, int window,
+                   cudaStream_t stream) {
   const int R = Sq * (Hq / Hkv);
   const size_t smem = DecSmem<D>::bytes(R);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_decode_kernel<D, PAGED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(Hkv, B);
-  flash_decode_kernel<D><<<grid, THREADS, smem, stream>>>(
+  flash_decode_kernel<D, PAGED><<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), kv_lengths, static_cast<bf16*>(o), Sq, S,
-      Hq, Hkv, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
-      os[0], os[1], os[2], scale, window);
+      static_cast<const bf16*>(v), kv_lengths, page_table, n_pages,
+      max_pages, page_shift, static_cast<bf16*>(o), Sq, S, Hq, Hkv, qs[0], qs[1], qs[2],
+      ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], os[0], os[1], os[2], scale,
+      window);
   return cudaGetLastError();
+}
+
+template <bool PAGED>
+int dispatch(const void* q, const void* k, const void* v,
+             const void* kv_lengths, const void* page_table, int n_pages,
+             int max_pages, int page_shift, void* o, int B, int Sq, int S,
+             int Hq, int Hkv,
+             int D, const long long* qs, const long long* ks,
+             const long long* vs, const long long* os, float scale,
+             int window, void* stream) {
+  if (B < 1 || Sq < 1 || S < 1 || Hkv < 1 || Hq % Hkv ||
+      Sq * (Hq / Hkv) > MAX_ROWS)
+    return (int)cudaErrorInvalidValue;
+  const int* lens = static_cast<const int*>(kv_lengths);
+  const int* table = static_cast<const int*>(page_table);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 128)
+    return (int)launch<128, PAGED>(q, k, v, lens, table, n_pages, max_pages,
+                                   page_shift, o, B, Sq, S, Hq, Hkv, qs, ks,
+                                   vs, os, scale, window, st);
+  if (D == 64)
+    return (int)launch<64, PAGED>(q, k, v, lens, table, n_pages, max_pages,
+                                  page_shift, o, B, Sq, S, Hq, Hkv, qs, ks,
+                                  vs, os, scale, window, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C entry for ctypes. q/o are [B, Sq, Hq, D], k/v [B, S, Hkv, D],
-// kv_lengths [B] int32 on the device; strides in elements as (batch, seq,
-// head), head dim contiguous. window <= 0 means no sliding window.
-// Returns the cudaError_t of the launch.
+// Plain C entries for ctypes. Each returns the cudaError_t of the launch.
+//
+// Dense: q/o are [B, Sq, Hq, D], k/v [B, S, Hkv, D], kv_lengths [B] int32
+// on the device; strides in elements as (batch, seq, head), head dim
+// contiguous. window <= 0 means no sliding window.
 extern "C" int mtt_flash_decode_bf16(const void* q, const void* k,
                                      const void* v, const void* kv_lengths,
                                      void* o, int B, int Sq, int S, int Hq,
@@ -262,20 +332,37 @@ extern "C" int mtt_flash_decode_bf16(const void* q, const void* k,
                                      long long o_sh, float scale, int window,
                                      void* stream) {
   cudaGetLastError();  // clear any stale error of this runtime
-  if (B < 1 || Sq < 1 || S < 1 || Hkv < 1 || Hq % Hkv ||
-      Sq * (Hq / Hkv) > MAX_ROWS)
-    return (int)cudaErrorInvalidValue;
   const long long qs[3] = {q_sb, q_ss, q_sh};
   const long long ks[3] = {k_sb, k_ss, k_sh};
   const long long vs[3] = {v_sb, v_ss, v_sh};
   const long long os[3] = {o_sb, o_ss, o_sh};
-  const int* lens = static_cast<const int*>(kv_lengths);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return (int)launch<128>(q, k, v, lens, o, B, Sq, S, Hq, Hkv, qs, ks, vs,
-                            os, scale, window, st);
-  if (D == 64)
-    return (int)launch<64>(q, k, v, lens, o, B, Sq, S, Hq, Hkv, qs, ks, vs,
-                           os, scale, window, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(q, k, v, kv_lengths, nullptr, 0, 0, 0, o, B, Sq, S,
+                         Hq, Hkv, D, qs, ks, vs, os, scale, window, stream);
+}
+
+// Paged: k/v are one layer's page pools [P, ps, Hkv, D] (P = n_pages)
+// with strides in elements as (page, row in page, head), page_table
+// [B, max_pages] int32 contiguous on the device (entries in [0, P); 0 is
+// the scratch page), ps = 1 << page_shift.
+extern "C" int mtt_paged_flash_decode_bf16(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* page_table, const void* kv_lengths, void* o, int B, int Sq,
+    int n_pages, int max_pages, int page_shift, int Hq, int Hkv, int D,
+    long long q_sb,
+    long long q_ss, long long q_sh, long long k_sp, long long k_sr,
+    long long k_sh, long long v_sp, long long v_sr, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh, float scale, int window,
+    void* stream) {
+  cudaGetLastError();
+  if (n_pages < 1 || max_pages < 1 || page_shift < 0 || page_shift > 20)
+    return (int)cudaErrorInvalidValue;
+  const long long S = (long long)max_pages << page_shift;
+  if (S > (1LL << 30)) return (int)cudaErrorInvalidValue;
+  const long long qs[3] = {q_sb, q_ss, q_sh};
+  const long long ks[3] = {k_sp, k_sr, k_sh};
+  const long long vs[3] = {v_sp, v_sr, v_sh};
+  const long long os[3] = {o_sb, o_ss, o_sh};
+  return dispatch<true>(q, k_pages, v_pages, kv_lengths, page_table,
+                        n_pages, max_pages, page_shift, o, B, Sq, (int)S, Hq,
+                        Hkv, D, qs, ks, vs, os, scale, window, stream);
 }

@@ -20,9 +20,15 @@ Differences from the JAX engine, by design:
   * Prompt token ids outside the embedding table are rejected at submit
     (an out-of-range index faults the CUDA device; jax clamps it).
 
-Speculative decoding, paging, migration, weight reload, profiling,
-fault injection, bounded queues and request deadlines are not ported
-yet.
+The paged engine (inference/paging/engine.py) subclasses this one and
+overrides the cache and shape hooks (_kernel_seq_multiple,
+_fresh_caches, _decode_rows, _decode_extra_args, _decode_write_span).
+Admission resumes a preempted request by recompute: prompt + generated
+is teacher-forced and the next token is sampled with the generator state
+saved at preemption (Request.resume_key).
+
+Speculative decoding, migration, weight reload, profiling, fault
+injection, bounded queues and request deadlines are not ported yet.
 """
 
 from __future__ import annotations
@@ -74,6 +80,11 @@ class Request:
     error: Optional[str] = None
     submit_time: Optional[float] = None
     first_token_time: Optional[float] = None
+    # preemption/resume (paged engine): the state of the request's
+    # torch.Generator at preemption (torch.Generator.get_state()), so a
+    # recompute-resumed request samples the exact tokens it would have
+    # sampled without the preemption (the JAX package saves its PRNG key)
+    resume_key: Optional[torch.Tensor] = None
 
     @property
     def tokens(self) -> np.ndarray:
@@ -106,8 +117,7 @@ class InferenceEngine:
         self.max_seq_len = self._round_seq_len(
             int(max_seq_len or cfg.seq_length))
         self.vocab_size = vocab_size
-        self.caches = _init_caches(cfg, num_slots, self.max_seq_len,
-                                   device=self.device)
+        self.caches = self._fresh_caches()
         self.rope = precompute_rope(cfg.head_dim, self.max_seq_len,
                                     cfg.rope_theta, cfg.rope_scaling_factor,
                                     device=self.device)
@@ -162,20 +172,31 @@ class InferenceEngine:
 
     # ----- cache + shape policy -------------------------------------------
 
+    def _kernel_seq_multiple(self) -> int:
+        """Cache-length multiple the engine rounds max_seq_len up to: on
+        the CUDA kernel path the decode kernel's kv tile, so no tile of
+        the cache is ragged; 1 (no constraint) elsewhere. The paged
+        engine overrides it with its page size."""
+        if self.cfg.attention_impl == "pallas" and self.device.type == "cuda":
+            return DECODE_BLOCK
+        return 1
+
     def _round_seq_len(self, n: int) -> int:
-        """On the CUDA kernel path, round the cache length up to the
-        decode kernel's kv tile, so no tile of the cache is ragged."""
-        if self.cfg.attention_impl != "pallas" or self.device.type != "cuda":
-            return n
-        m = DECODE_BLOCK
-        if n % m == 0:
+        m = self._kernel_seq_multiple()
+        if m <= 1 or n % m == 0:
             return n
         rounded = -(-n // m) * m
         warnings.warn(
             f"engine max_seq_len {n} is not a multiple of {m}; rounding up "
-            f"to {rounded} (the flash-decode kernel's kv tile)",
+            f"to {rounded} (the decode kernel's kv tile or the page size)",
             stacklevel=3)
         return rounded
+
+    def _fresh_caches(self):
+        """Zeroed KV storage: [L, num_slots, max_seq_len, nkv, D] x2 (the
+        paged engine builds page pools instead)."""
+        return _init_caches(self.cfg, self.num_slots, self.max_seq_len,
+                            device=self.device)
 
     def _bucket(self, p: int) -> int:
         b = PREFILL_BUCKET
@@ -184,10 +205,11 @@ class InferenceEngine:
     # ----- device steps ----------------------------------------------------
 
     @torch.no_grad()
-    def _prefill(self, i: int, req: Request):
-        """Bucketed prefill of req's prompt into slot i, then sample its
-        first token. Returns (token, logprob, prompt logprobs)."""
-        prompt = np.asarray(req.prompt, np.int64)
+    def _prefill(self, i: int, req: Request, prompt: np.ndarray):
+        """Bucketed prefill of `prompt` (req's prompt, or prompt +
+        generated on a resume) into slot i, then sample the next token.
+        Returns (token, logprob, prompt logprobs)."""
+        prompt = np.asarray(prompt, np.int64)
         p = len(prompt)
         P = self._bucket(p)
         toks = np.zeros((1, P), np.int64)
@@ -222,7 +244,7 @@ class InferenceEngine:
         lens = torch.from_numpy(self.lengths).to(self.device)
         logits, _ = lm_forward(self.cfg, self.params, last,
                                kv_caches=self.caches, cache_index=lens,
-                               rope=self.rope)
+                               rope=self.rope, **self._decode_extra_args())
         logits = logits[:, 0]
         toks = sample_logits_batched(
             logits, self.generators, torch.from_numpy(self.temps),
@@ -312,22 +334,40 @@ class InferenceEngine:
                 self.last_progress_time = time.monotonic()
         return n
 
-    def _admit_one(self, i: int, req: Request) -> int:
-        """Prefill `req` into free slot `i`; returns 1 if admitted."""
-        gen = None
-        if req.temperature > 0:
-            gen = torch.Generator(device=self.device)
+    def _generator(self, req: Request) -> Optional[torch.Generator]:
+        """A sampled request's generator: seeded with its seed, or
+        restored to the state saved at its preemption. None for a greedy
+        request (it draws nothing)."""
+        if req.temperature <= 0:
+            return None
+        gen = torch.Generator(device=self.device)
+        if req.resume_key is not None:
+            gen.set_state(req.resume_key)
+        else:
             gen.manual_seed(int(req.seed))
-        self.generators[i] = gen
+        return gen
+
+    def _admit_one(self, i: int, req: Request) -> int:
+        """Prefill `req` into free slot `i`; returns 1 if admitted.
+
+        A resumed request (already-generated tokens and/or a saved
+        generator state: recompute-resume after preemption) teacher-forces
+        prompt + generated in one prefill and samples the NEXT token at
+        the final position with the saved generator: the token the
+        interrupted decode tick would have sampled, greedy or not."""
+        resumed = req.resume_key is not None or bool(req.generated)
+        full = (req.tokens if resumed
+                else np.asarray(req.prompt, np.int32))
+        self.generators[i] = self._generator(req)
         t_prefill = time.monotonic()
         try:
-            tok, lp, plp = self._prefill(i, req)
+            tok, lp, plp = self._prefill(i, req, full)
         except Exception as e:  # noqa: BLE001 - a failing prefill must
             # fail THIS request, not strand it or kill the step loop
             self.generators[i] = None
             self._reject(req, f"prefill failed: {e}")
             return 0
-        p = len(req.prompt)
+        p = len(full)
         self.slots[i] = req
         self.lengths[i] = p
         self.last_tok[i] = tok
@@ -336,13 +376,16 @@ class InferenceEngine:
         self.top_ps[i] = req.top_p
         req.generated.append(tok)
         req.logprobs.append(lp)
-        req.prompt_logprobs = plp
+        if not resumed:
+            req.prompt_logprobs = plp
         self.stats["admitted"] += 1
         now = time.monotonic()
         self._m_prefill.observe(now - t_prefill)
-        req.first_token_time = now
-        if req.submit_time is not None:
-            self._m_ttft.observe(now - req.submit_time)
+        if not resumed:
+            # TTFT is first-admission only: a resume's clock restarted
+            req.first_token_time = now
+            if req.submit_time is not None:
+                self._m_ttft.observe(now - req.submit_time)
         self._m_admitted.inc()
         self._m_tokens.inc()
         self._m_active.set(self.num_active)
@@ -364,10 +407,25 @@ class InferenceEngine:
         self._admit()
         return self._decode_tick()
 
+    def _decode_rows(self) -> List[int]:
+        """Slot indices the batched decode serves this tick (the paged
+        engine excludes slots still mid-chunked-prefill)."""
+        return [i for i, s in enumerate(self.slots) if s is not None]
+
+    def _decode_extra_args(self) -> dict:
+        """Extra lm_forward keyword arguments of the decode step (the
+        paged engine passes its device page table)."""
+        return {}
+
+    def _decode_write_span(self) -> int:
+        """Cache positions one decode tick writes per slot (the paged
+        engine sizes page allocation off this)."""
+        return 1
+
     def _decode_tick(self) -> int:
-        """One batched decode for every active slot; returns how many were
-        served (0 = nothing to decode)."""
-        active = [i for i, s in enumerate(self.slots) if s is not None]
+        """One batched decode for every decodable slot; returns how many
+        were served (0 = nothing to decode)."""
+        active = self._decode_rows()
         if not active:
             return 0
         t_tick = time.monotonic()

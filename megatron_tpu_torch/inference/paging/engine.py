@@ -1,0 +1,548 @@
+"""PagedInferenceEngine: the serving engine over a shared page pool
+(counterpart of megatron_tpu/inference/paging/engine.py).
+
+The paged mode of the slot engine (inference/engine.py,
+``--serve_kv_paging``). The per-slot ``[N, max_seq_len, ...]`` cache rows
+become one pool of fixed-size pages shared by every slot:
+
+  * admission allocates pages for the PROMPT span only (a young sequence
+    holds the pages it has, not its worst case); decode grows a slot one
+    page at a time as its length crosses page boundaries;
+  * requests sharing a prompt prefix alias the same refcounted pages via
+    the radix tree (radix.py) and skip prefill for the shared span;
+  * prompts enter the cache ``prefill_chunk`` tokens per tick, one chunk
+    before each batched decode (scheduler.py), so one long prompt can
+    never stall the whole batch;
+  * under memory pressure the engine first evicts cache-only prefix
+    pages (LRU), then preempts the lowest-priority slot — the most
+    recently admitted request (LIFO, so later arrivals yield to earlier
+    ones). A preempted request keeps its sampled tokens and its
+    generator's state (Request.resume_key) and resumes by teacher-forced
+    recompute of prompt + generated, which is exact: it finishes with
+    the tokens it would have produced without the preemption.
+
+The decode tick runs every slot's row through lm_forward with the
+[N, max_pages] device page table (idle and mid-prefill rows point at
+the scratch page): K/V writes go through the table, and attention is the
+paged flash-decode kernel (csrc/flash_decode.cu) on CUDA tensors under
+attention_impl="pallas". A prefill chunk gathers its row's pages into a
+dense view and takes the dense attention path, as the JAX package
+routes it.
+
+Differences from the JAX engine, by design:
+  * The steps are eager torch.no_grad methods (the JAX engine jits and
+    donates); the pools are updated in place.
+  * Sampling draws from the request's torch.Generator, and only on the
+    final chunk of a prompt: a draw advances the generator, so sampling
+    on every chunk (as JAX's split keys allow for free) would make a
+    sampled request's tokens depend on the chunk size.
+  * The page size follows the CUDA kernel's rule (a power of two, see
+    flash_template.check_page_size) under attention_impl="pallas", and
+    raises ValueError otherwise; the TPU's multiple-of-8 rule is gone.
+
+Not ported: int8 pools, speculative decoding and its draft pools,
+migration and prefix export/import, context-parallel paging, TP comm
+byte counters, weight reload and fault injection.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from megatron_tpu_torch.config import ModelConfig
+from megatron_tpu_torch.inference.engine import InferenceEngine, Request
+from megatron_tpu_torch.inference.paging.pool import SCRATCH_PAGE, PagePool
+from megatron_tpu_torch.inference.paging.radix import RadixPrefixCache
+from megatron_tpu_torch.inference.paging.scheduler import (
+    ChunkedPrefillQueue, PrefillTask,
+)
+from megatron_tpu_torch.inference.sampling import sample_logits_batched
+from megatron_tpu_torch.models.language_model import lm_forward
+from megatron_tpu_torch.ops.flash.flash_template import check_page_size
+from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
+
+
+class PagedInferenceEngine(InferenceEngine):
+    """Slot scheduler + paged KV pool + radix prefix cache.
+
+    Same threading contract as the base engine: submit() from any
+    thread, step()/run_until_idle() from one driver thread.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, num_slots: int = 8,
+                 max_seq_len: Optional[int] = None,
+                 page_size: int = 16, prefill_chunk: int = 32,
+                 num_pages: Optional[int] = None,
+                 vocab_size: Optional[int] = None,
+                 metrics: Optional[MetricsRegistry] = None, device="cuda"):
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if num_pages is not None and num_pages < 2:
+            raise ValueError(
+                f"num_pages must be >= 2 (page 0 is scratch), got {num_pages}")
+        if cfg.attention_impl == "pallas":
+            check_page_size(page_size)
+        self.page_size = int(page_size)
+        self.prefill_chunk = int(prefill_chunk)  # validated by the queue
+        self.num_pages = num_pages
+        self.max_pages = 0          # set by _fresh_caches (needs max_seq_len)
+        super().__init__(cfg, params, num_slots=num_slots,
+                         max_seq_len=max_seq_len, vocab_size=vocab_size,
+                         metrics=metrics, device=device)
+        if self.num_pages - 1 < self.max_pages:
+            raise ValueError(
+                f"num_pages={self.num_pages} cannot hold even one full "
+                f"sequence ({self.max_pages} pages of {self.page_size} for "
+                f"max_seq_len {self.max_seq_len}, + the scratch page)")
+
+        N = num_slots
+        self.pool = PagePool(self.num_pages)
+        self.prefix_cache = RadixPrefixCache(self.pool, self.page_size)
+        # host page tables: tables[i] is slot i's logical->physical map.
+        # Mid-prefill slots keep their REAL row in _pending_rows and a
+        # scratch row here, so the shared decode table can never route an
+        # idle-row write into a half-filled (possibly shared) page.
+        self.tables = np.zeros((N, self.max_pages), np.int32)
+        self._pending_rows = {}
+        self._device_table: Optional[torch.Tensor] = None
+        self._table_dirty = True
+        self.prefill_queue = ChunkedPrefillQueue(self.prefill_chunk)
+        # admission order for the preemption policy (higher = younger)
+        self._admit_seq = [0] * N
+        self._admit_counter = 0
+        # sliding-window release cursor: first page index of each slot
+        # NOT yet released (lengths never shrink, so release progress is
+        # monotone — the per-tick scan starts here instead of at page 0)
+        self._window_cursor = [0] * N
+
+        self.stats.update({
+            "prefix_hits": 0, "prefix_misses": 0,
+            "prefix_tokens_saved": 0, "prefill_tokens": 0,
+            "prefill_chunks": 0, "preemptions": 0,
+            "window_pages_released": 0,
+        })
+        m = self.metrics
+        self._m_pages_total = m.gauge("engine_pages_total",
+                                      "KV pool pages (minus scratch)")
+        self._m_pages_free = m.gauge("engine_pages_free",
+                                     "KV pool pages on the free list")
+        self._m_prefix_hits = m.counter(
+            "engine_prefix_cache_hits_total",
+            "admissions that aliased cached prefix pages")
+        self._m_prefix_misses = m.counter(
+            "engine_prefix_cache_misses_total",
+            "admissions with no cached prefix")
+        self._m_prefix_saved = m.counter(
+            "engine_prefix_tokens_saved_total",
+            "prefill positions skipped via the prefix cache")
+        self._m_preempted = m.counter(
+            "engine_preemptions_total",
+            "slots preempted under page-pool pressure")
+        self._m_chunks = m.counter("engine_prefill_chunks_total",
+                                   "chunked-prefill steps executed")
+        self._m_window_released = m.counter(
+            "engine_window_pages_released_total",
+            "pages freed from behind the sliding attention window")
+        self._m_chunk = m.histogram("engine_prefill_chunk_seconds",
+                                    "one prefill chunk's wall time")
+        self._m_pages_total.set(self.num_pages - 1)
+        self._m_pages_free.set(self.pool.free_pages)
+
+    # ----- cache + shape policy -------------------------------------------
+
+    def _kernel_seq_multiple(self) -> int:
+        # logical capacity is whole pages (on every device, as in JAX)
+        return self.page_size
+
+    def _fresh_caches(self):
+        """Paged pools [L, num_pages, page_size, nkv, D] x2 in the model
+        dtype on the engine's device, zeroed (so every page, scratch
+        included, holds finite values). The default pool is the slot
+        engine's capacity: every slot can grow to max_seq_len."""
+        self.max_pages = -(-self.max_seq_len // self.page_size)
+        if self.num_pages is None:
+            self.num_pages = self.num_slots * self.max_pages + 1
+        cfg = self.cfg
+        shape = (cfg.num_layers, self.num_pages, self.page_size,
+                 cfg.n_kv_heads, cfg.head_dim)
+        return (torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+                torch.zeros(shape, dtype=cfg.dtype, device=self.device))
+
+    # ----- device steps ----------------------------------------------------
+
+    @torch.no_grad()
+    def _chunk_step(self, task: PrefillTask, req: Request, final: bool):
+        """One prefill chunk of one prompt: positions task.off ..
+        task.off + C - 1 through the slot's pending table row. Writes
+        outside [task.write_start, task.total) land on the scratch page
+        (shared-prefix overlap + padded tail).
+
+        The chunk also scores the NEXT prompt token after its last
+        position (tokens_ext is the chunk plus one token), so its
+        teacher-forced logprobs never wait for the next chunk. Only the
+        final chunk samples: from the logits at position total - 1, with
+        the request's generator restored from task.key. Returns (token,
+        logprob, generator) — None for a non-final chunk — and the
+        chunk's prompt logprobs [C]."""
+        C, off, dev = self.prefill_chunk, task.off, self.device
+        toks_ext = np.zeros((1, C + 1), np.int64)
+        avail = task.tokens[off:off + C + 1]
+        toks_ext[0, :len(avail)] = avail
+        tokens = torch.from_numpy(toks_ext).to(dev)
+        # padded-tail positions past the table clamp to the rope's last
+        # row (their outputs and writes are discarded)
+        positions = (off + torch.arange(C, device=dev)).clamp(
+            max=self.max_seq_len - 1)[None]
+        table = torch.tensor(self._pending_rows[task.slot][None], device=dev)
+        logits, _ = lm_forward(self.cfg, self.params, tokens[:, :C],
+                               positions=positions, kv_caches=self.caches,
+                               cache_index=off, rope=self.rope,
+                               page_table=table,
+                               page_write_start=task.write_start,
+                               page_write_end=task.total)
+        lsm = torch.log_softmax(logits[0].float(), dim=-1)
+        plp = torch.gather(lsm, 1, tokens[0, 1:, None])[:, 0].cpu().numpy()
+        if not final:
+            return None, plp
+        last = logits[:, task.total - 1 - off]
+        gen = None
+        if task.key is not None:
+            gen = torch.Generator(device=dev)
+            gen.set_state(task.key)
+        tok = sample_logits_batched(
+            last, [gen], torch.tensor([req.temperature]),
+            torch.tensor([req.top_k]), torch.tensor([req.top_p]),
+            self.vocab_size)
+        lp = float(torch.log_softmax(last.float(), dim=-1)[0, tok[0]])
+        return (int(tok[0]), lp, gen), plp
+
+    # ----- page accounting -------------------------------------------------
+
+    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        """n fresh pages, evicting LRU cache-only prefix pages if the
+        free list can't cover it. None = still dry (caller defers or
+        preempts)."""
+        pages = self.pool.alloc(n)
+        if pages is None:
+            self.prefix_cache.evict(n - self.pool.free_pages)
+            pages = self.pool.alloc(n)
+        if pages is not None:
+            self._m_pages_free.set(self.pool.free_pages)
+        return pages
+
+    def _release_slot_pages(self, i: int) -> None:
+        row = self._pending_rows.pop(i, self.tables[i])
+        live = [int(p) for p in row if p != SCRATCH_PAGE]
+        if live:
+            self.pool.release(live)
+        self.tables[i] = SCRATCH_PAGE
+        self._table_dirty = True
+        self._m_pages_free.set(self.pool.free_pages)
+
+    def _clear_slot(self, i: int):
+        self._release_slot_pages(i)
+        self.prefill_queue.drop_slot(i)
+        self._window_cursor[i] = 0
+        super()._clear_slot(i)
+
+    # ----- admission -------------------------------------------------------
+
+    def _admit(self) -> int:
+        n = 0
+        for i in range(self.num_slots):
+            if self.slots[i] is not None:
+                continue
+            with self._cv:
+                req = self._queue.popleft() if self._queue else None
+                if req is not None:
+                    # visible to stalled(): popped but not yet in a slot
+                    self._admitting += 1
+            if req is None:
+                break
+            try:
+                if not self._try_assign(i, req):
+                    # pool can't cover the prompt right now: keep arrival
+                    # order (front of the queue) and stop admitting —
+                    # active slots retiring will free pages
+                    with self._cv:
+                        self._queue.appendleft(req)
+                        self._m_queue.set(len(self._queue))
+                    break
+                n += 1
+                with self._cv:
+                    self._m_queue.set(len(self._queue))
+            finally:
+                with self._cv:
+                    self._admitting -= 1
+                self.last_progress_time = time.monotonic()
+        return n
+
+    def _try_assign(self, i: int, req: Request) -> bool:
+        """Give req slot i: alias cached prefix pages, allocate the rest
+        of the prompt span, queue the chunked prefill. False = defer
+        (req untouched); a request no idle engine could EVER fit is
+        failed loudly instead (returns True: req was consumed)."""
+        resumed = req.resume_key is not None or bool(req.generated)
+        toks = req.tokens if resumed else np.asarray(req.prompt, np.int32)
+        p_ext = len(toks)
+        ps = self.page_size
+        hit_pages, hit_lps = self.prefix_cache.lookup(toks)
+        span = len(hit_pages) * ps
+        n_prompt_pages = -(-p_ext // ps)
+        # retain the hits BEFORE allocating: _alloc_pages may evict
+        # cache-only pages, and un-pinned hit pages are exactly that —
+        # an eviction here would free a hit page and hand it back as
+        # "fresh", mapping one physical page at two logical blocks
+        self.pool.retain(hit_pages)
+        fresh = self._alloc_pages(n_prompt_pages - len(hit_pages))
+        if fresh is None:
+            self.pool.release(hit_pages)
+            if self.num_active == 0:
+                self._reject(
+                    req, f"prompt needs {n_prompt_pages} pages but the pool "
+                         f"has {self.pool.free_pages} free with no active "
+                         f"slots to wait for (num_pages={self.num_pages})")
+                return True
+            return False
+        self._m_pages_free.set(self.pool.free_pages)
+
+        row = np.zeros(self.max_pages, np.int32)
+        row[:len(hit_pages)] = hit_pages
+        row[len(hit_pages):n_prompt_pages] = fresh
+        self._pending_rows[i] = row
+        self.slots[i] = req
+        self._admit_counter += 1
+        self._admit_seq[i] = self._admit_counter
+
+        # recompute starts one position INSIDE the shared span so the
+        # boundary token's teacher-forced logprob comes from real logits;
+        # its K/V write is fenced onto scratch (write_start = span)
+        start = max(span - 1, 0)
+        gen = self._generator(req)
+        task = PrefillTask(
+            slot=i, tokens=toks, start=start, off=start, write_start=span,
+            key=None if gen is None else gen.get_state(),
+            resumed=resumed, t_start=time.monotonic())
+        if not resumed and span > 0:
+            # cached teacher-forced logprobs for tokens 1..span-1; the
+            # recomputed chunks continue seamlessly from token `span`
+            task.plp_parts.extend(hit_lps)
+        self.prefill_queue.add(task)
+
+        if span > 0:
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_tokens_saved"] += start
+            self._m_prefix_hits.inc()
+            self._m_prefix_saved.inc(start)
+        else:
+            self.stats["prefix_misses"] += 1
+            self._m_prefix_misses.inc()
+        self.stats["admitted"] += 1
+        self._m_admitted.inc()
+        self._m_active.set(self.num_active)
+        return True
+
+    # ----- chunked prefill -------------------------------------------------
+
+    def _prefill_tick(self) -> int:
+        """Run at most ONE chunk of the oldest incomplete prefill.
+        Returns 1 when a chunk ran (progress signal for run_until_idle)."""
+        task = self.prefill_queue.peek()
+        if task is None:
+            return 0
+        i = task.slot
+        req = self.slots[i]
+        C = self.prefill_chunk
+        off = task.off
+        t0 = time.monotonic()
+        try:
+            sampled, plp = self._chunk_step(task, req,
+                                            final=off + C >= task.total)
+        except Exception as e:  # noqa: BLE001 - a failing chunk must fail
+            # THIS request, not strand it un-signalled and kill the loop
+            self._clear_slot(i)
+            self._reject(req, f"prefill failed: {e}")
+            self._m_active.set(self.num_active)
+            return 1
+        n = min(C, task.total - off)
+        task.plp_parts.append(plp)
+        self.stats["prefill_chunks"] += 1
+        self.stats["prefill_tokens"] += n
+        self._m_chunks.inc()
+        self._m_chunk.observe(time.monotonic() - t0)
+        if self.prefill_queue.advance(task, n):
+            self._finish_prefill(i, task, *sampled)
+        return 1
+
+    def _finish_prefill(self, i: int, task: PrefillTask, tok: int,
+                        lp: float, gen: Optional[torch.Generator]):
+        """The prompt is fully in the cache: publish the slot's table row
+        to the shared decode table, arm the decode mirrors, record the
+        first sampled token, and register the prompt's full pages in the
+        radix tree."""
+        req = self.slots[i]
+        row = self._pending_rows.pop(i)
+        self.tables[i] = row
+        self._table_dirty = True
+        p_ext = task.total
+        self.lengths[i] = p_ext
+        self.last_tok[i] = tok
+        self.temps[i] = req.temperature
+        self.top_ks[i] = req.top_k
+        self.top_ps[i] = req.top_p
+        self.generators[i] = gen
+        req.generated.append(tok)
+        req.logprobs.append(lp)
+        if not task.resumed:
+            req.prompt_logprobs = [
+                float(x) for x in np.concatenate(task.plp_parts)[:p_ext - 1]
+            ] if task.plp_parts else []
+        p0 = len(req.prompt)
+        if p0 >= self.page_size:
+            # only FULL pages of the ORIGINAL prompt enter the tree (the
+            # partially-filled tail page stays private — decode writes
+            # into it); resumes re-register recomputed pages, and insert
+            # skips paths already cached
+            self.prefix_cache.insert(
+                req.prompt, [int(p) for p in row[:p0 // self.page_size]],
+                req.prompt_logprobs)
+        now = time.monotonic()
+        self._m_prefill.observe(now - task.t_start)
+        if not task.resumed:
+            req.first_token_time = now
+            if req.submit_time is not None:
+                self._m_ttft.observe(now - req.submit_time)
+        self._m_tokens.inc()
+        if self._req_finished(req):
+            self._retire(i)
+
+    # ----- preemption ------------------------------------------------------
+
+    def _preempt_one(self) -> bool:
+        """Preempt the youngest active slot (LIFO — later arrivals yield
+        pages to earlier ones). Its request re-enters the queue FRONT and
+        resumes by exact teacher-forced recompute."""
+        cands = [i for i in range(self.num_slots) if self.slots[i] is not None]
+        if not cands:
+            return False
+        i = max(cands, key=lambda j: self._admit_seq[j])
+        req = self.slots[i]
+        gen = self.generators[i]
+        if i not in self.prefill_queue.slots and gen is not None:
+            # mid-decode: save the generator so the resumed request
+            # samples exactly the tokens it would have sampled
+            req.resume_key = gen.get_state()
+        self._clear_slot(i)
+        with self._cv:
+            self._queue.appendleft(req)
+            self._m_queue.set(len(self._queue))
+        self.stats["preemptions"] += 1
+        self._m_preempted.inc()
+        self._m_active.set(self.num_active)
+        return True
+
+    def _ensure_decode_pages(self) -> None:
+        """Before a decode tick, every decodable slot needs real pages
+        under its write span (lengths[i] .. lengths[i] + span - 1; shared
+        prefix pages are never in the span). Allocate across page
+        boundaries, preempting the youngest slot when the pool is dry.
+        Each preemption frees that slot's pages, so this terminates."""
+        span = self._decode_write_span()
+        ps = self.page_size
+        while True:
+            dry = False
+            for i in self._decode_rows():
+                first = int(self.lengths[i]) // ps
+                last_pg = (int(self.lengths[i]) + span - 1) // ps
+                for pg in range(first, last_pg + 1):
+                    if self.tables[i, pg] != SCRATCH_PAGE:
+                        continue
+                    pages = self._alloc_pages(1)
+                    if pages is None:
+                        if not self._preempt_one():
+                            # unreachable: slot i itself is preemptible
+                            return
+                        dry = True
+                        break  # re-derive rows (the victim may be gone)
+                    self.tables[i, pg] = pages[0]
+                    self._table_dirty = True
+                if dry:
+                    break
+            if not dry:
+                return
+
+    # ----- stepping --------------------------------------------------------
+
+    def _decode_rows(self) -> List[int]:
+        busy = self.prefill_queue.slots
+        return [i for i, s in enumerate(self.slots)
+                if s is not None and i not in busy]
+
+    def _decode_extra_args(self) -> dict:
+        # the [N, max_pages] table goes to the device again only after a
+        # host edit, not every tick
+        if self._table_dirty or self._device_table is None:
+            self._device_table = torch.tensor(self.tables,
+                                              device=self.device)
+            self._table_dirty = False
+        return {"page_table": self._device_table}
+
+    def _release_window_pages(self) -> None:
+        """Sliding-window page release: pages every position of which
+        sits fully behind a slot's attention window can never be attended
+        again — the decode mask only allows k_pos >= length + 1 - window
+        and lengths never shrink — so the slot's reference goes back to
+        the pool and the table entry parks on scratch (reads of it are
+        exactly masked; scratch holds finite values, so the masked scores
+        stay well-defined). Pages the radix prefix cache also holds keep
+        their cache reference: a later request sharing the prompt still
+        hits them."""
+        window = self.cfg.sliding_window_size
+        if window is None:
+            return
+        ps = self.page_size
+        freed = 0
+        for i in self._decode_rows():
+            limit = int(self.lengths[i]) - int(window)
+            if limit < ps:
+                continue
+            # O(1) amortized: at most one page per slot newly crosses the
+            # window per tick, and the cursor never rewinds (a cleared or
+            # preempted slot resets it in _clear_slot)
+            for pg in range(self._window_cursor[i], limit // ps):
+                if self.tables[i, pg] != SCRATCH_PAGE:
+                    self.pool.release([int(self.tables[i, pg])])
+                    self.tables[i, pg] = SCRATCH_PAGE
+                    self._table_dirty = True
+                    freed += 1
+            self._window_cursor[i] = max(self._window_cursor[i],
+                                         limit // ps)
+        if freed:
+            self.stats["window_pages_released"] += freed
+            self._m_window_released.inc(freed)
+            self._m_pages_free.set(self.pool.free_pages)
+
+    def step(self) -> int:
+        """One engine tick: admit, run one prefill chunk, then one
+        batched decode for every slot whose prompt is fully cached.
+        Returns slots served + chunks run (0 = idle)."""
+        self._admit()
+        chunked = self._prefill_tick()
+        if chunked:
+            # chunked prefill with no decodable slots is still progress —
+            # without this a long multi-chunk prompt would trip the
+            # stalled() readiness check while prefilling normally
+            self.last_progress_time = time.monotonic()
+        self._release_window_pages()
+        self._ensure_decode_pages()
+        return self._decode_tick() + chunked
+
+    def _retire(self, i: int):
+        # base _retire -> _clear_slot releases this slot's page refs;
+        # pages also held by the radix tree stay cached for future hits
+        super()._retire(i)
+        self._m_pages_free.set(self.pool.free_pages)

@@ -8,14 +8,16 @@ PUT/POST /api takes the JAX server's request schema:
    "random_seed": S}
 
 and answers {"text": [...], "segments": [...], "logprobs": [...]?}.
-Every request goes through the continuous-batching InferenceEngine, so
-concurrent handlers share each decode tick. GET /metrics serves the
+Every request goes through the continuous-batching InferenceEngine, or
+with kv_paging through the PagedInferenceEngine (shared page pool, radix
+prefix cache, chunked prefill, preemption), so concurrent handlers share
+each decode tick. GET /metrics serves the
 metrics registry in Prometheus text format, GET /healthz is liveness
 ("the step loop exists"), GET /readyz readiness (503 while the step
 loop has work but makes no progress).
 
 Not ported yet: the one-shot path (engine_slots == 0), beam search,
-scoring, warmup, bounded queues and deadlines, paging, speculative
+scoring, warmup, bounded queues and deadlines, int8 caches, speculative
 decoding, sharded serving and the fleet control plane (/admin/*).
 """
 
@@ -30,6 +32,7 @@ from typing import Any, Optional
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.inference.api import generate_and_post_process
 from megatron_tpu_torch.inference.engine import InferenceEngine
+from megatron_tpu_torch.inference.paging import PagedInferenceEngine
 from megatron_tpu_torch.telemetry.metrics import (
     MetricsRegistry, default_registry,
 )
@@ -47,9 +50,14 @@ class GenerationService:
 
     def __init__(self, cfg: ModelConfig, params: Any, tokenizer,
                  engine_slots: int = 8, engine_max_seq_len=None,
-                 metrics: Optional[MetricsRegistry] = None, device="cuda"):
+                 metrics: Optional[MetricsRegistry] = None, device="cuda",
+                 kv_paging: bool = False, page_size: int = 16,
+                 prefill_chunk: int = 32, num_pages: Optional[int] = None):
         """engine_slots KV-cache slots (>= 1) with a background step-loop
-        thread."""
+        thread. kv_paging swaps in the PagedInferenceEngine with
+        page_size-token pages, prefill_chunk-token prefill chunks and a
+        pool of num_pages pages (default: every slot can grow to
+        engine_max_seq_len)."""
         if engine_slots < 1:
             raise ValueError("the port serves through the continuous-"
                              "batching engine: engine_slots must be >= 1")
@@ -61,11 +69,15 @@ class GenerationService:
             label_names=("status",))
         self._m_latency = self.metrics.histogram(
             "server_request_seconds", "API request wall time")
-        self.engine = InferenceEngine(
-            cfg, params, num_slots=engine_slots,
-            max_seq_len=engine_max_seq_len,
-            vocab_size=tokenizer.vocab_size, metrics=self.metrics,
-            device=device)
+        kw = dict(num_slots=engine_slots, max_seq_len=engine_max_seq_len,
+                  vocab_size=tokenizer.vocab_size, metrics=self.metrics,
+                  device=device)
+        if kv_paging:
+            self.engine = PagedInferenceEngine(
+                cfg, params, page_size=page_size,
+                prefill_chunk=prefill_chunk, num_pages=num_pages, **kw)
+        else:
+            self.engine = InferenceEngine(cfg, params, **kw)
         self.engine.start()
 
     def shutdown(self) -> None:
@@ -172,22 +184,30 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
                host: str = "0.0.0.0", port: int = 5000,
                engine_slots: int = 8, engine_max_seq_len=None,
                device="cuda", ready: Optional[threading.Event] = None,
-               service_out: Optional[list] = None) -> None:
+               service_out: Optional[list] = None, kv_paging: bool = False,
+               page_size: int = 16, prefill_chunk: int = 32,
+               num_pages: Optional[int] = None) -> None:
     """Serve until interrupted (KeyboardInterrupt) or until
     ``server.shutdown()`` is called from another thread; port=0 binds an
     ephemeral port. In-process callers may pass `service_out` (a list
-    that receives (service, server)) and `ready` (set once listening)."""
+    that receives (service, server)) and `ready` (set once listening).
+    kv_paging, page_size, prefill_chunk and num_pages select and size
+    the paged engine (GenerationService)."""
     service = GenerationService(cfg, params, tokenizer,
                                 engine_slots=engine_slots,
                                 engine_max_seq_len=engine_max_seq_len,
-                                device=device)
+                                device=device, kv_paging=kv_paging,
+                                page_size=page_size,
+                                prefill_chunk=prefill_chunk,
+                                num_pages=num_pages)
     server = ThreadingHTTPServer((host, port), make_handler(service))
     bound_port = server.server_address[1]
     if service_out is not None:
         service_out.extend([service, server])
+    mode = (f"paged KV, {page_size}-token pages, {prefill_chunk}-token "
+            "prefill chunks" if kv_paging else "continuous batching")
     print(f"serving generation API on http://{host}:{bound_port}/api "
-          f"(continuous batching, {engine_slots} slots, {device})",
-          flush=True)
+          f"({mode}, {engine_slots} slots, {device})", flush=True)
     if ready is not None:
         ready.set()
     try:

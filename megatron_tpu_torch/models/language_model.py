@@ -6,8 +6,8 @@ params with lax.scan). Each layer reads its slice of the stacked
 [L, ...] tensors through one unbind per leaf, whose backward stacks the
 L slices' gradients in a single pass (indexing v[i] per layer would
 build a full-size zero gradient per layer instead). Each layer's cache
-is a view of the stacked [L, B, S, nkv, D] cache, so in-place cache
-writes land in the stack.
+is a view of the stacked [L, B, S, nkv, D] cache (or of the paged pools
+[L, P, ps, nkv, D]), so in-place cache writes land in the stack.
 
 Activation recompute maps the JAX package's scan_with_remat policies onto
 torch.utils.checkpoint (use_reentrant=False):
@@ -75,6 +75,9 @@ def lm_forward(
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     recompute: str = "none",
     return_hidden: bool = False,
+    page_table: Optional[torch.Tensor] = None,     # [B, max_pages] int32
+    page_write_start: Optional[int] = None,
+    page_write_end: Optional[int] = None,
 ):
     """Forward pass to logits [B, S, V] (or, with return_hidden, the
     final-normed hidden states [B, S, h]).
@@ -84,9 +87,16 @@ def lm_forward(
     int (every row at the same depth) or a [B] tensor (continuous-batching
     slot cache, every row at its own depth).
 
+    page_table: the caches are PAGED pools [L, num_pages, page_size, nkv,
+    D] (inference/paging/) shared by every slot; row b's logical context
+    is the pages page_table[b], the same table for every layer.
+    page_write_start/end fence a prefill chunk's writes
+    (transformer.attention_block).
+
     rope: a precomputed (cos, sin) table covering every position this
-    call uses; None builds one here (at the cache length with caches, as
-    the JAX package does). A serving engine builds its table once.
+    call uses; None builds one here (at the cache length with caches, or
+    max_pages * page_size with paged pools, as the JAX package does). A
+    serving engine builds its table once.
 
     recompute: the activation-recompute policy of a training pass (see
     the module docstring); it takes effect only while autograd records
@@ -107,8 +117,14 @@ def lm_forward(
     x = embed_tokens(cfg, params, tokens)
 
     if rope is None:
-        rope_len = (kv_caches[0].shape[2] if kv_caches is not None
-                    else max(cfg.seq_length, tokens.shape[1]))
+        if kv_caches is not None and page_table is not None:
+            # paged pools are [L, num_pages, page_size, ...]: the logical
+            # max length is the table width x page size, not shape[2]
+            rope_len = page_table.shape[-1] * kv_caches[0].shape[2]
+        elif kv_caches is not None:
+            rope_len = kv_caches[0].shape[2]
+        else:
+            rope_len = max(cfg.seq_length, tokens.shape[1])
         rope = precompute_rope(cfg.head_dim, rope_len, cfg.rope_theta,
                                cfg.rope_scaling_factor, device=x.device)
 
@@ -119,7 +135,9 @@ def lm_forward(
             block_forward, cfg, lp, rope=rope, positions=positions,
             kv_cache=cache, cache_index=cache_index,
             padding_mask=attention_mask,
-            recompute_core=recompute == "selective")
+            recompute_core=recompute == "selective",
+            page_table=page_table, page_write_start=page_write_start,
+            page_write_end=page_write_end)
         if recompute == "full":
             x, _ = checkpoint(layer, x, use_reentrant=False)
         else:

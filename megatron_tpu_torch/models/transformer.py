@@ -7,8 +7,10 @@ Pre-LN Llama/GPT block: norm -> attention (GQA, RoPE, optional window)
 them functionally and donates them under jit; PyTorch mutates the
 buffer instead). The training form is the same block without a cache,
 with positions from the batch; selective recompute checkpoints its core
-attention. fp8, weight quantization, MoE, paging, int8 caches, dropout
-and explicit TP/CP collectives are not ported yet.
+attention. The paged form writes K/V through a page table into the
+shared page pools [P, ps, nkv, D] (inference/paging/). fp8, weight
+quantization, MoE, int8 caches (dense or paged), dropout, explicit TP/CP
+collectives and context-parallel paging are not ported yet.
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ def attention_block(
     cache_index=None,
     padding_mask: Optional[torch.Tensor] = None,
     recompute_core: bool = False,
+    page_table: Optional[torch.Tensor] = None,
+    page_write_start: Optional[int] = None,
+    page_write_end: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (out [B, S, h], kv_cache).
 
@@ -55,7 +60,19 @@ def attention_block(
     q_offset = cache_index; a [B] tensor is the continuous-batching slot
     cache, where row b writes at its own depth cache_index[b] and
     attends its own valid prefix (kv_lengths = cache_index + 1). S == 1
-    is plain decode, S > 1 the speculative verify."""
+    is plain decode, S > 1 the speculative verify.
+
+    page_table [B, max_pages] int32: kv_cache is this layer's paged pools
+    [P, ps, nkv, D]. A [B] cache_index writes row b's new K/V at its own
+    depth through its table row (decode, or the multi-token verify form);
+    an int cache_index is a prefill chunk of ONE row at positions
+    cache_index..cache_index+S-1. Chunk writes at positions outside
+    [page_write_start, page_write_end) go to the scratch page 0: the first
+    chunk after a prefix-cache hit starts one position inside the shared
+    span, and the start fence keeps that overlap query from rewriting a
+    refcount-shared page (shared pages are copy-on-write: never written
+    through a sharer's table); the end fence parks the final chunk's
+    padded-tail writes on scratch."""
     b, s, _ = x.shape
     D = cfg.head_dim
     nq, nkv = cfg.num_attention_heads, cfg.n_kv_heads
@@ -72,13 +89,53 @@ def attention_block(
     q, k = apply_rotary_emb(q, k, rope[0], rope[1], positions)
 
     per_slot = isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1
+    paged = page_table is not None
+    if paged:
+        if kv_cache is None:
+            raise ValueError("page_table requires a (paged) kv_cache")
+        if not per_slot and b != 1:
+            raise ValueError(
+                f"paged chunked prefill is single-row (batch {b})")
+
+    def _paged_write(store, new):
+        """Scatter new [B, s, nkv, D] rows through the page table into
+        store [P, ps, nkv, D], in place. Logical pages past the table
+        clamp to its last entry (only fenced or never-read positions get
+        there, as with the JAX package's clipped take)."""
+        ps, max_pages = store.shape[1], page_table.shape[-1]
+        steps = torch.arange(s, device=x.device)
+        table = page_table.to(x.device, torch.long)
+        if per_slot:
+            pos = cache_index.to(x.device, torch.long)[:, None] + steps
+            phys = torch.gather(table, 1, (pos // ps).clamp(max=max_pages - 1))
+            store[phys, pos % ps] = new.to(store.dtype)
+            return
+        pos = int(cache_index) + steps                      # [C]
+        phys = table[0, (pos // ps).clamp(max=max_pages - 1)]
+        if page_write_start is not None:
+            # overlap queries below the write fence read the shared pages
+            # but park their (identical-valued) K/V on scratch
+            phys = torch.where(pos >= page_write_start, phys, 0)
+        if page_write_end is not None:
+            # padded-tail queries past the prompt park on scratch too
+            phys = torch.where(pos < page_write_end, phys, 0)
+        store[phys, pos % ps] = new[0].to(store.dtype)
+
     q_offset = 0
     kv_lengths = None
     if kv_cache is not None:
         # in-place cache writes take the place of the JAX package's
         # functional update + buffer donation
         kc, vc = kv_cache
-        if per_slot:
+        if paged:
+            _paged_write(kc, k)
+            _paged_write(vc, v)
+            if per_slot:
+                kv_lengths = (cache_index.to(x.device, torch.long)
+                              + 1).to(torch.int32)
+            else:
+                q_offset = int(cache_index)
+        elif per_slot:
             rows = torch.arange(b, device=x.device)
             idx = cache_index.to(device=x.device, dtype=torch.long)
             if s == 1:
@@ -111,6 +168,7 @@ def attention_block(
         softmax_fp32=cfg.softmax_fp32,
         kv_lengths=kv_lengths,
         flash_bwd=cfg.flash_bwd,
+        page_table=page_table,
     )
     if recompute_core and torch.is_grad_enabled():
         ctx = checkpoint(core, q, k, v, use_reentrant=False)
@@ -144,12 +202,17 @@ def block_forward(
     cache_index=None,
     padding_mask: Optional[torch.Tensor] = None,
     recompute_core: bool = False,
+    page_table: Optional[torch.Tensor] = None,
+    page_write_start: Optional[int] = None,
+    page_write_end: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """One pre-LN decoder layer -> (y, kv_cache)."""
     attn_out, kv_cache = attention_block(
         cfg, lp["attn"], _norm(cfg, lp["ln1"], x), rope, positions,
         kv_cache=kv_cache, cache_index=cache_index,
-        padding_mask=padding_mask, recompute_core=recompute_core)
+        padding_mask=padding_mask, recompute_core=recompute_core,
+        page_table=page_table, page_write_start=page_write_start,
+        page_write_end=page_write_end)
     y = x + attn_out
     y = y + mlp_block(cfg, lp["mlp"], _norm(cfg, lp["ln2"], y))
     return y, kv_cache

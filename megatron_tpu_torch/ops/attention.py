@@ -10,15 +10,18 @@ Two implementations behind one dispatch:
     their plain versions.
 
 Routing under impl="pallas" follows the JAX package: kv_lengths goes to
-flash_decode; a full-sequence causal pass (q_len == kv_len) goes to
-flash_mha (flash_fwd forward, the flash_bwd_dq / flash_bwd_dkv kernels
-backward); other shapes (a chunk into cached context, bidirectional
-masks) take the dense path. Padding masks and dropout, which no kernel
-covers, fall back to the dense path with a loud warning, and so does
+flash_decode, or with a page_table to paged_flash_decode (Sq == 1) or
+paged_flash_decode_mq; a full-sequence causal pass (q_len == kv_len,
+q_offset 0) goes to flash_mha (flash_fwd forward, the flash_bwd_dq /
+flash_bwd_dkv kernels backward); other shapes (a chunk into cached
+context, bidirectional masks, a paged chunk after its pages are
+gathered) take the dense path. Padding masks and dropout, which no
+kernel covers, fall back to the dense path with a loud warning, and so
+does
 flash_bwd=False (--no_flash_bwd), the escape hatch that puts the dense
 O(S^2) attention and its autograd gradient on the training path. A
 kernel that is asked for and cannot take a CUDA tensor raises instead
-of falling back.
+of falling back (the JAX package warns and falls back there).
 
 Layout is [batch, seq, heads, head_dim] throughout.
 """
@@ -64,6 +67,7 @@ def attention(
     softmax_fp32: bool = True,
     kv_lengths: Optional[torch.Tensor] = None,  # [B] valid-prefix lengths
     flash_bwd: bool = True,
+    page_table: Optional[torch.Tensor] = None,  # [B, max_pages] int32
 ) -> torch.Tensor:
     """Scaled dot-product attention with GQA. Returns [B, Sq, Hq, D].
 
@@ -72,7 +76,26 @@ def attention(
     kv_lengths: per-row valid KV prefix (continuous-batching decode). Query
     j of row b sits at position kv_lengths[b] - 1 + j and sees
     k_pos < kv_lengths[b] + j; a sliding window W adds
-    k_pos >= kv_lengths[b] + j - W."""
+    k_pos >= kv_lengths[b] + j - W.
+
+    page_table: paged KV cache (inference/paging/): k/v are one layer's
+    shared page pools [num_pages, page_size, Hkv, D] and row b's logical
+    context is the pages page_table[b]. With kv_lengths under
+    impl="pallas" this is the paged flash-decode kernel; otherwise (a
+    prefill chunk with q_offset, or impl="xla") the pages are gathered
+    into a dense [B, max_pages * page_size, Hkv, D] view (an exact copy)
+    and the paths below compute the same values."""
+    if page_table is not None:
+        if kv_lengths is not None and impl == "pallas":
+            if dropout > 0.0 or padding_mask is not None:
+                raise ValueError("kv_lengths is a serving-decode path: no "
+                                 "dropout / padding masks")
+            paged = (flash_template.paged_flash_decode if q.shape[1] == 1
+                     else flash_template.paged_flash_decode_mq)
+            return paged(q, k, v, page_table, kv_lengths,
+                         sliding_window=sliding_window)
+        k = flash_template._gather_pages(k, page_table)
+        v = flash_template._gather_pages(v, page_table)
     if kv_lengths is not None:
         if dropout > 0.0 or padding_mask is not None:
             raise ValueError("kv_lengths is a serving-decode path: no "
@@ -81,7 +104,7 @@ def attention(
             return flash_template.flash_decode(q, k, v, kv_lengths,
                                                sliding_window=sliding_window)
     elif (impl == "pallas" and mask_type == "causal"
-          and q.shape[1] == k.shape[1]):
+          and q.shape[1] == k.shape[1] and q_offset == 0):
         if dropout == 0.0 and padding_mask is None and flash_bwd:
             return flash_template.flash_mha(q, k, v,
                                             sliding_window=sliding_window)

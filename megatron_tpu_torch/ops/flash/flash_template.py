@@ -1,24 +1,28 @@
 """The flash-attention kernels' wrappers and plain versions
 (counterpart of megatron_tpu/ops/pallas/flash_template.py).
 
-Four kernels, each a hand-written CUDA C++ kernel for Hopper in csrc/:
+Five kernels, each a hand-written CUDA C++ kernel for Hopper in csrc/:
 
-  wrapper         kernel (csrc/)      replaces (TPU kernel)
-  flash_fwd       flash_fwd.cu        flash_template.py _fwd_kernel (_fwd)
-  flash_bwd_dq    flash_bwd.cu        flash_template.py _dq_kernel (_bwd)
-  flash_bwd_dkv   flash_bwd.cu        flash_template.py _dkv_kernel (_bwd)
-  flash_decode    flash_decode.cu     flash_template.py _decode_kernel
-                                      (_decode_call, dense launch)
+  wrapper             kernel (csrc/)    replaces (TPU kernel)
+  flash_fwd           flash_fwd.cu      flash_template.py _fwd_kernel (_fwd)
+  flash_bwd_dq        flash_bwd.cu      flash_template.py _dq_kernel (_bwd)
+  flash_bwd_dkv       flash_bwd.cu      flash_template.py _dkv_kernel (_bwd)
+  flash_decode        flash_decode.cu   flash_template.py _decode_kernel
+                                        (_decode_call, dense launch)
+  paged_flash_decode  flash_decode.cu   flash_template.py _decode_kernel
+                                        (_with_page_table, paged launch)
 
 Beside the wrappers are their plain PyTorch versions (flash_fwd_reference,
-flash_bwd_reference for both backward kernels, flash_decode_reference):
-the same functions in fp32, which the CPU tests use and which the card's
-smoke run holds the kernels against. A wrapper takes the plain version
-only for tensors on the CPU. For CUDA tensors it launches its kernel or
-raises; there is no fallback. Each wrapper counts its kernel launches in
-a plain integer attribute (flash_fwd.launches, flash_bwd_dq.launches,
-flash_bwd_dkv.launches, flash_decode.launches), incremented where the
-kernel is launched and nowhere else.
+flash_bwd_reference for both backward kernels, flash_decode_reference,
+paged_flash_decode_reference): the same functions in fp32, which the CPU
+tests use and which the card's smoke run holds the kernels against. A
+wrapper takes the plain version only for tensors on the CPU. For CUDA
+tensors it launches its kernel or raises; there is no fallback. Each
+wrapper counts its kernel launches in a plain integer attribute
+(flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches,
+flash_decode.launches, paged_flash_decode.launches, which
+paged_flash_decode_mq shares), incremented where the kernel is launched
+and nowhere else.
 
 _FlashAttention, the torch.autograd.Function behind flash_mha, takes the
 place of the JAX package's jax.custom_vjp _flash_bhsd: its forward runs
@@ -26,8 +30,8 @@ flash_fwd and saves (q, k, v, o, lse), its backward runs flash_bwd (the
 dq and dk/dv kernels). On CPU tensors the same Function runs the plain
 forward and the plain backward.
 
-Layouts are the framework's [B, S, H, D] throughout; the kernels read
-them through strides. The paged decode launch is not ported yet.
+Layouts are the framework's [B, S, H, D] throughout, and the paged
+pools' [P, ps, Hkv, D]; the kernels read them through strides.
 """
 
 from __future__ import annotations
@@ -61,6 +65,8 @@ _SIGNATURES = {
                       + [_F, _I, _I, _I, _P]),
     "flash_decode": ("flash_decode", "mtt_flash_decode_bf16",
                      [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _I, _P]),
+    "paged_flash_decode": ("flash_decode", "mtt_paged_flash_decode_bf16",
+                           [_P] * 6 + [_I] * 8 + [_L] * 12 + [_F, _I, _P]),
 }
 _entries = {}
 
@@ -478,3 +484,132 @@ flash_decode.launches = 0
 
 #: the speculative verify pass (Sq > 1) is the same kernel
 flash_decode_mq = flash_decode
+
+
+# ---------------------------------------------------------------------------
+# paged decode: the same kernel reading K/V through a page table
+# (replaces _decode_kernel in its paged launch, _with_page_table)
+# ---------------------------------------------------------------------------
+
+
+def check_page_size(page_size: int) -> None:
+    """The paged kernel's page-size rule: a power of two (>= 1). The
+    kernel splits a position into page and row with a shift and a mask,
+    and resolves the physical page of every row it loads, so a page may
+    be smaller or larger than its 64-position kv tile. (The TPU kernel's
+    multiple-of-8 rule was a sublane rule and does not apply.) Raises
+    ValueError otherwise."""
+    ps = int(page_size)
+    if ps < 1 or ps & (ps - 1):
+        raise ValueError(
+            f"page_size {page_size} is not a power of two: the paged "
+            "flash-decode kernel takes page sizes 1, 2, 4, ..., e.g. 8, 16 "
+            "or 64")
+
+
+def _gather_pages(pages: torch.Tensor, page_table: torch.Tensor
+                  ) -> torch.Tensor:
+    """[P, ps, Hkv, D] pool -> [B, max_pages * ps, Hkv, D] dense view of
+    each row's logical context (an exact copy of the pages' values)."""
+    b = page_table.shape[0]
+    idx = page_table.to(pages.device, torch.long)
+    return pages[idx].reshape(b, -1, *pages.shape[2:])
+
+
+def paged_flash_decode_reference(q: torch.Tensor, k_pages: torch.Tensor,
+                                 v_pages: torch.Tensor,
+                                 page_table: torch.Tensor,
+                                 kv_lengths: torch.Tensor,
+                                 sliding_window: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """Plain version of the paged_flash_decode kernel, in fp32: gather
+    each row's pages into its dense logical view, then
+    flash_decode_reference.
+
+    q [B, Sq, Hq, D]; k_pages/v_pages the shared pools [P, ps, Hkv, D];
+    page_table [B, max_pages] (row b's logical position pos lives at
+    pool[page_table[b, pos // ps], pos % ps]); kv_lengths [B] as in
+    flash_decode_reference. Returns [B, Sq, Hq, D] in q's dtype."""
+    return flash_decode_reference(q, _gather_pages(k_pages, page_table),
+                                  _gather_pages(v_pages, page_table),
+                                  kv_lengths, sliding_window)
+
+
+def _paged_decode(name: str, q, k_pages, v_pages, page_table, kv_lengths,
+                  sliding_window):
+    if q.device.type == "cpu":
+        return paged_flash_decode_reference(q, k_pages, v_pages, page_table,
+                                            kv_lengths, sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    b, sq, hq, d = q.shape
+    n_pages, ps, hkv, dk = k_pages.shape
+    _check_heads(hq, hkv)
+    check_page_size(ps)
+    if dk != d or tuple(v_pages.shape) != tuple(k_pages.shape):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} k_pages "
+                         f"{tuple(k_pages.shape)} v_pages "
+                         f"{tuple(v_pages.shape)}")
+    if sq * (hq // hkv) > DECODE_MAX_ROWS:
+        raise ValueError(f"{name}: Sq * G = {sq * (hq // hkv)} query "
+                         f"rows per kv head exceeds {DECODE_MAX_ROWS}")
+    _check_cuda_inputs(name, (q, k_pages, v_pages), d)
+    for t, what, dims in ((page_table, "page_table", 2),
+                          (kv_lengths, "kv_lengths", 1)):
+        if (t.device != q.device or t.dtype != torch.int32
+                or not t.is_contiguous() or t.dim() != dims
+                or t.shape[0] != b or t.numel() == 0):
+            raise ValueError(f"{name}: {what} must be a contiguous "
+                             f"{dims}-d int32 tensor on {q.device} with {b} "
+                             "rows")
+    max_pages = page_table.shape[1]
+    o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    rc = _entry("paged_flash_decode")(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), kv_lengths.data_ptr(), o.data_ptr(), b, sq,
+        n_pages, max_pages, ps.bit_length() - 1, hq, hkv, d,
+        *_strides(q), *_strides(k_pages), *_strides(v_pages), *_strides(o),
+        1.0 / math.sqrt(d), _window_arg(sliding_window),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    paged_flash_decode.launches += 1
+    return o
+
+
+def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, page_table: torch.Tensor,
+                       kv_lengths: torch.Tensor,
+                       sliding_window: Optional[int] = None) -> torch.Tensor:
+    """Single-token decode attention over paged KV with per-row prefix
+    masking -> [B, 1, Hq, D] (the JAX package's paged_flash_decode).
+
+    q [B, 1, Hq, D]; k_pages/v_pages one layer's pools [P, ps, Hkv, D]
+    (any strides with a contiguous head dim); page_table [B, max_pages]
+    int32; kv_lengths [B] int32. CPU tensors: the plain version. CUDA
+    tensors: the csrc/flash_decode.cu kernel in its paged form (bf16,
+    head dim 64 or 128, ps a power of two, see check_page_size), or
+    ValueError. Table entries belong in [0, P): the kernel reads them on
+    the device, where no host check reaches, and reads an entry outside
+    that range as the scratch page 0."""
+    if q.shape[1] != 1:
+        raise ValueError(
+            f"paged_flash_decode is single-token only (q_len={q.shape[1]})")
+    return _paged_decode("paged_flash_decode", q, k_pages, v_pages,
+                         page_table, kv_lengths, sliding_window)
+
+
+paged_flash_decode.launches = 0
+
+
+def paged_flash_decode_mq(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, page_table: torch.Tensor,
+                          kv_lengths: torch.Tensor,
+                          sliding_window: Optional[int] = None
+                          ) -> torch.Tensor:
+    """Multi-query paged decode (the speculative verify pass, Sq > 1:
+    query j sees k_pos < kv_lengths + j) -> [B, Sq, Hq, D]. The same
+    kernel as paged_flash_decode, counted in paged_flash_decode.launches;
+    Sq * G <= 64."""
+    return _paged_decode("paged_flash_decode_mq", q, k_pages, v_pages,
+                         page_table, kv_lengths, sliding_window)

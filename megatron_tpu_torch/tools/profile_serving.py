@@ -1,6 +1,7 @@
 """Where a serving tick's time goes on the card.
 
     python -m megatron_tpu_torch.tools.profile_serving [--ticks 10]
+    python -m megatron_tpu_torch.tools.profile_serving --kv_paging
 
 Builds the engine as the server does (Llama-2-7B at full width and
 depth, random init, bf16, 8 slots x 2048 positions), fills every slot
@@ -10,6 +11,13 @@ times under torch.profiler:
   * --ticks batched decode ticks with all 8 slots active, and
   * one admission (prefill + first token) of a 1500-token prompt into
     the 1536 bucket.
+
+With --kv_paging it builds the paged engine instead (16-token pages,
+32-token prefill chunks, the default pool), fills the 8 slots through
+chunked prefill, and times --ticks paged decode ticks with all 8 slots
+active (page allocation included) and one 32-token prefill chunk of a
+1500-token prompt, whose attention gathers the row's 2048 positions of
+pages into a dense view in every layer.
 
 For each window it prints one JSON line: the host wall time of a run
 without the profiler (ending in a synchronize), the summed device time
@@ -67,6 +75,7 @@ def _window(torch, name, fn, card, top=8):
         "device_idle_share": (1 - device_ms / wall_ms) if kernels
         else "not measured",
         "kernel_launches": sum(c for _, c in kernels.values()),
+        "launches_per_step": sum(c for _, c in kernels.values()) / n,
         "top_kernels": [{"kernel": k[:90], "ms": ms, "count": c,
                          "share_of_device": ms / device_ms}
                         for k, (ms, c) in ranked]}), flush=True)
@@ -80,6 +89,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--ticks", type=int, default=10)
     p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--kv_paging", action="store_true",
+                   help="profile the paged engine (decode ticks and one "
+                        "prefill chunk)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serving: needs a CUDA device", file=sys.stderr)
@@ -87,6 +99,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from megatron_tpu_torch.inference.engine import InferenceEngine, Request
+    from megatron_tpu_torch.inference.paging import PagedInferenceEngine
     from megatron_tpu_torch.models import presets
     from megatron_tpu_torch.models.params import init_params
     from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
@@ -94,10 +107,13 @@ def main(argv=None) -> int:
     card = _card()
     cfg = presets.from_model_name("llama2-7B")
     params = init_params(cfg, args.seed)
-    eng = InferenceEngine(cfg, params, num_slots=8, max_seq_len=2048,
-                          metrics=MetricsRegistry())
     rng = np.random.default_rng(args.seed)
     lens = (5, 100, 300, 500, 700, 1000, 1200, 1500)
+    if args.kv_paging:
+        return _profile_paged(torch, np, args, card, cfg, params, rng, lens,
+                              PagedInferenceEngine, Request, MetricsRegistry)
+    eng = InferenceEngine(cfg, params, num_slots=8, max_seq_len=2048,
+                          metrics=MetricsRegistry())
     new = 20 + 2 * args.ticks
     for n in lens:
         eng.submit(Request(prompt=rng.integers(0, cfg.vocab_size - 1,
@@ -123,6 +139,42 @@ def main(argv=None) -> int:
 
     prefill()                          # warm this bucket once
     _window(torch, f"prefill_bucket_{eng._bucket(lens[-1])}", prefill, card)
+    return 0
+
+
+def _profile_paged(torch, np, args, card, cfg, params, rng, lens,
+                   PagedInferenceEngine, Request, MetricsRegistry) -> int:
+    eng = PagedInferenceEngine(cfg, params, num_slots=8, max_seq_len=2048,
+                               page_size=16, prefill_chunk=32,
+                               metrics=MetricsRegistry())
+    # room for the ~170 ticks of chunked prefill that fill the slots,
+    # the warm ticks and both runs of the decode window
+    new = 2048 - max(lens) - 1
+    for n in lens:
+        eng.submit(Request(prompt=rng.integers(0, cfg.vocab_size - 1,
+                                               size=n).astype(np.int32),
+                           max_new_tokens=new))
+    while len(eng._decode_rows()) < len(lens):
+        eng.step()
+    for _ in range(5):                 # warm decode ticks
+        eng.step()
+
+    def ticks():
+        for _ in range(args.ticks):
+            eng._ensure_decode_pages()
+            eng._decode_tick()
+        return args.ticks
+
+    _window(torch, "paged_decode_ticks_8_slots", ticks, card)
+    # free one slot for a fresh long prompt and time its prefill chunks
+    eng._retire(eng._decode_rows()[-1])
+    eng.submit(Request(prompt=rng.integers(0, cfg.vocab_size - 1,
+                                           size=lens[-1]).astype(np.int32),
+                       max_new_tokens=1))
+    eng._admit()
+    eng._prefill_tick()                # warm one chunk
+    _window(torch, f"paged_prefill_chunk_{eng.prefill_chunk}",
+            eng._prefill_tick, card)
     return 0
 
 

@@ -2,7 +2,8 @@
 
     python -m megatron_tpu_torch.tools.run_text_generation_server \\
         --model_name llama2-7B --tokenizer_type null \\
-        --serve_num_slots 8 --serve_max_seq_len 2048 --port 5000
+        --serve_num_slots 8 --serve_max_seq_len 2048 --port 5000 \\
+        [--serve_kv_paging --serve_page_size 16 --serve_prefill_chunk 32]
 
 The flag names are the JAX CLI's (tools/run_text_generation_server.py)
 for what the port supports, plus --device (default cuda). Weights are
@@ -31,6 +32,26 @@ def parse_args(argv=None):
     p.add_argument("--serve_max_seq_len", type=int, default=None,
                    help="per-slot KV-cache length (default "
                         "min(seq_length, 2048))")
+    p.add_argument("--serve_kv_paging", action="store_true",
+                   help="paged KV cache: one shared page pool + radix "
+                        "prefix cache + chunked prefill instead of "
+                        "per-slot cache rows — shared prompt prefixes "
+                        "skip prefill and long prompts can't stall the "
+                        "decode batch")
+    p.add_argument("--serve_page_size", type=int, default=16,
+                   help="tokens per KV page (paged mode); a power of two "
+                        "(1, 2, 4, ..., e.g. 8, 16, 64) for the paged "
+                        "flash-decode kernel, else the engine refuses it")
+    p.add_argument("--serve_prefill_chunk", type=int, default=32,
+                   help="prompt tokens prefilled per engine tick (paged "
+                        "mode): chunked prefill interleaves with decode "
+                        "so one long prompt never stalls the batch")
+    p.add_argument("--serve_num_pages", type=int, default=None,
+                   help="KV pool size in pages (paged mode; default = "
+                        "slots x pages-per-sequence + the scratch page, "
+                        "i.e. the slot engine's capacity). Smaller "
+                        "oversubscribes: the engine evicts cached prefixes "
+                        "and preempts the youngest request under pressure")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions")
@@ -53,14 +74,27 @@ def main(argv=None):
     print("WARNING: serving randomly initialized weights (no checkpoint "
           "loading in the port yet)", flush=True)
     max_seq_len = args.serve_max_seq_len or min(cfg.seq_length, 2048)
-    gib = (2 * cfg.num_layers * args.serve_num_slots * max_seq_len
-           * cfg.n_kv_heads * cfg.head_dim
-           * torch.finfo(cfg.dtype).bits / 8) / 2**30
-    print(f"persistent KV cache: {args.serve_num_slots} slots x "
-          f"{max_seq_len} tokens = {gib:.2f} GiB", flush=True)
+    row_bytes = (2 * cfg.num_layers * cfg.n_kv_heads * cfg.head_dim
+                 * torch.finfo(cfg.dtype).bits / 8)
+    if args.serve_kv_paging:
+        ps = args.serve_page_size
+        pages = (args.serve_num_pages
+                 or args.serve_num_slots * (-(-max_seq_len // ps)) + 1)
+        print(f"paged KV pool: {pages} pages x {ps} tokens = "
+              f"{row_bytes * pages * ps / 2**30:.2f} GiB ({cfg.dtype})",
+              flush=True)
+    else:
+        print(f"persistent KV cache: {args.serve_num_slots} slots x "
+              f"{max_seq_len} tokens = "
+              f"{row_bytes * args.serve_num_slots * max_seq_len / 2**30:.2f}"
+              " GiB", flush=True)
     run_server(cfg, params, tokenizer, host=args.host, port=args.port,
                engine_slots=args.serve_num_slots,
-               engine_max_seq_len=max_seq_len, device=args.device)
+               engine_max_seq_len=max_seq_len, device=args.device,
+               kv_paging=args.serve_kv_paging,
+               page_size=args.serve_page_size,
+               prefill_chunk=args.serve_prefill_chunk,
+               num_pages=args.serve_num_pages)
 
 
 if __name__ == "__main__":

@@ -11,7 +11,9 @@ Each forward kernel is held against its plain version on the same bf16
 inputs (computed in fp32) with |kernel - plain| <= 2e-2 + 2e-2 * |plain|,
 at small shapes that hit the ragged edges: sequence lengths that are not
 a multiple of the 64-row tile, GQA, sliding windows, the q-vs-k offset
-and ragged per-slot prefixes. The backward kernels (dq, dk/dv) are held
+and ragged per-slot prefixes; the paged decode kernel also at page
+sizes 8, 16 and 64 with scattered, shared and scratch pages. The
+backward kernels (dq, dk/dv) are held
 against the plain fp32 backward of the same bf16 inputs and the same
 o/lse, relative to each tensor's largest plain magnitude M:
 |kernel - plain| <= 2e-3 * M + 2e-2 * |plain| (the tolerance of the JAX
@@ -94,6 +96,73 @@ def test_flash_decode_reads_a_strided_cache(gen):
     _assert_close(ft.flash_decode(q, k, v, lens),
                   ft.flash_decode_reference(q.float(), k.float(),
                                             v.float(), lens))
+
+
+@pytest.mark.parametrize("ps,sq,hq,hkv,window", [
+    (8, 1, 4, 4, None), (16, 3, 8, 2, 40), (64, 1, 4, 2, None),
+])
+def test_paged_flash_decode_kernel_matches_plain(gen, ps, sq, hq, hkv,
+                                                 window):
+    """Pages out of order, two rows sharing their first pages, entries
+    past a row's length and behind its window on the scratch page."""
+    B, max_pages = 4, 256 // ps
+    n_pages = 1 + B * max_pages
+    q = _randn(gen, B, sq, hq, 128)
+    kp, vp = (_randn(gen, n_pages, ps, hkv, 128) for _ in range(2))
+    table = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+             ).view(B, max_pages).to(torch.int32)
+    table[1, :2] = table[0, :2]
+    lens_list = [1, 70, 130, 256 - sq + 1]
+    for b, n in enumerate(lens_list):
+        table[b, -(-(n + sq - 1) // ps):] = 0
+        if window is not None:
+            table[b, :max(0, n - 1 - window) // ps] = 0
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    fn = ft.paged_flash_decode if sq == 1 else ft.paged_flash_decode_mq
+    given = table.clone()
+    if window is not None:
+        # an entry outside the pool, in a tile the kernel loads (the last
+        # page released behind row 3's window): read as the scratch
+        # page, not out of bounds
+        given[3, (lens_list[3] - 1 - window) // ps - 1] = n_pages + 7
+    before = ft.paged_flash_decode.launches
+    o = fn(q, kp, vp, given, lens, sliding_window=window)
+    torch.cuda.synchronize()
+    assert ft.paged_flash_decode.launches == before + 1
+    _assert_close(o, ft.paged_flash_decode_reference(
+        q.float(), kp.float(), vp.float(), table, lens, window))
+    with pytest.raises(ValueError, match="int32"):
+        fn(q, kp, vp, table.long(), lens)
+
+
+def test_paged_engine_decodes_through_the_paged_kernel(gen):
+    """A 2-layer bf16 model served by the paged engine on the card: each
+    decode tick launches the paged kernel once per layer, chunks launch
+    no kernel, and the engine's greedy logprobs stay finite."""
+    import numpy as np
+
+    from megatron_tpu_torch.inference.engine import Request
+    from megatron_tpu_torch.inference.paging import PagedInferenceEngine
+    from megatron_tpu_torch.models import presets
+    from megatron_tpu_torch.models.params import init_params
+    from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
+
+    cfg = presets.tiny(hidden_size=512, num_attention_heads=4,
+                       num_kv_heads=2, vocab_size=128, params_dtype="bfloat16",
+                       attention_impl="pallas")
+    eng = PagedInferenceEngine(cfg, init_params(cfg, 0), num_slots=3,
+                               max_seq_len=128, page_size=8, prefill_chunk=16,
+                               vocab_size=128, metrics=MetricsRegistry())
+    counts = ("flash_fwd", "flash_decode", "paged_flash_decode")
+    before = [getattr(ft, n).launches for n in counts]
+    reqs = [eng.submit(Request(prompt=np.arange(1, n + 1, dtype=np.int32),
+                               max_new_tokens=9)) for n in (3, 40, 70)]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    assert all(r.error is None and len(r.generated) == 9 for r in reqs)
+    assert all(np.isfinite(r.logprobs).all() for r in reqs)
+    ran = [getattr(ft, n).launches - b for n, b in zip(counts, before)]
+    assert ran == [0, 0, cfg.num_layers * eng.stats["ticks"]]
 
 
 def _assert_close_rel(got, want, name):
