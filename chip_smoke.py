@@ -11,14 +11,19 @@ still run, so one call shows every failure):
               seconds and -Xptxas -v lines.
   2. kernels  call each forward kernel's wrapper on the card at the serving
               and training paths' shapes (Llama-2-7B: H=32, D=128; S up
-              to 2047 for serving, 4096 for training) and hold it against
-              its plain PyTorch version on the same bf16 inputs, computed
-              in fp32. Tolerance: |kernel - plain| <= 2e-2 + 2e-2 * |plain|
-              elementwise (bf16 inputs and outputs; the kernels also round
-              P to bf16 for the tensor cores). Time kernel, plain version
-              and one PyTorch library call (scaled_dot_product_attention,
-              a yardstick the port never calls) with CUDA events, and
-              compute each case's bound from its shapes.
+              to 2047 for serving, 4096 for training; flash_fwd also at
+              S 1, 127, 129 and 1000 around its 128-row tiles, a ring
+              stripe with Sq != Skv and delta != 0, bidirectional, D 64,
+              GQA 4 and q/k/v as views of a fused [B, S, 3, H, D] buffer:
+              FWD_CASES) and hold it against its plain PyTorch version on
+              the same bf16 inputs, computed in fp32. Tolerance:
+              |kernel - plain| <= 2e-2 + 2e-2 * |plain| elementwise (bf16
+              inputs and outputs; the kernels also round P to bf16 for the
+              tensor cores). Time kernel, plain version and one PyTorch
+              library call (scaled_dot_product_attention, a yardstick the
+              port never calls) with CUDA events, and compute each case's
+              bound from its shapes and mask; print TFLOP/s and the bound's
+              share of the kernel time.
   2c. paged    the paged decode kernel (paged_flash_decode) against its
               plain version (gather + the fp32 decode reference), same
               tolerance as phase 2: B 8, 128 table entries of ps 16 (2048
@@ -31,7 +36,8 @@ still run, so one call shows every failure):
               kernel on that view (what paging costs), and compute each
               shape's bound.
   2b. backward  the dq and dk/dv kernels at the training shapes (S 4096,
-              H 32, D 128 causal; GQA G=4 with window 256; ragged S 1000)
+              H 32, D 128 causal; GQA G=4 with window 256; ragged S 1000;
+              and the forward's extra shapes: BWD_CASES)
               against the plain fp32 backward of the same bf16 inputs and
               the same o/lse. Tolerance relative to each tensor's largest
               plain magnitude M: |kernel - plain| <= 2e-3 * M + 2e-2 *
@@ -226,59 +232,131 @@ def compare(torch, got, want):
 # ---------------------------------------------------------------------------
 
 
+def attn_case(S=None, Sq=None, Skv=None, hq=32, hkv=32, D=128, causal=True,
+              window=None, delta=0, fused=False):
+    """One prefill attention shape of phases 2 and 2b. fused: q, k and v
+    are strided views of one [B, S, 3, H, D] buffer (the layout of a fused
+    QKV projection), which the kernels read through their tensor maps."""
+    Sq = Sq or S
+    return dict(Sq=Sq, Skv=Skv or Sq, hq=hq, hkv=hkv, D=D, causal=causal,
+                window=window, delta=delta, fused=fused)
+
+
+def case_name(c) -> str:
+    return (f"B=1 Sq={c['Sq']} Skv={c['Skv']} Hq={c['hq']} Hkv={c['hkv']} "
+            f"D={c['D']} causal={c['causal']} window={c['window']} "
+            f"delta={c['delta']}" + (" fused_qkv" if c["fused"] else ""))
+
+
+def case_inputs(torch, gen, c, with_do=False):
+    """q [1, Sq, Hq, D], k/v [1, Skv, Hkv, D] (and dO like q) in bf16,
+    drawn in the original order (q, dO, k, v), so the original shapes
+    keep their inputs."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+    if c["fused"]:
+        assert c["Sq"] == c["Skv"] and c["hq"] == c["hkv"]
+        buf = randn(1, c["Sq"], 3, c["hq"], c["D"])
+        q, k, v = buf[:, :, 0], buf[:, :, 1], buf[:, :, 2]
+        do = randn(1, c["Sq"], c["hq"], c["D"]) if with_do else None
+    else:
+        q = randn(1, c["Sq"], c["hq"], c["D"])
+        do = randn(1, c["Sq"], c["hq"], c["D"]) if with_do else None
+        k = randn(1, c["Skv"], c["hkv"], c["D"])
+        v = randn(1, c["Skv"], c["hkv"], c["D"])
+    return (q, k, v, do) if with_do else (q, k, v)
+
+
+def visible_pairs(torch, c) -> float:
+    """(query, key) pairs the mask lets through, per head: the work the
+    bound counts (this run's mask, not the dense S x S)."""
+    pos = torch.arange(c["Sq"], dtype=torch.float64) + c["delta"]
+    hi = ((pos + 1).clamp(0, c["Skv"]) if c["causal"]
+          else torch.full_like(pos, c["Skv"]))
+    lo = ((pos - c["window"] + 1).clamp(0, c["Skv"]) if c["window"]
+          else torch.zeros_like(pos))
+    return float((hi - lo).clamp(min=0).sum())
+
+
+def sdpa_mask_kw(torch, c) -> dict:
+    """scaled_dot_product_attention's arguments for the case's mask."""
+    if (c["causal"] and c["window"] is None and c["delta"] == 0
+            and c["Sq"] == c["Skv"]):
+        return dict(is_causal=True)
+    if not c["causal"] and c["window"] is None:
+        return {}
+    qp = torch.arange(c["Sq"], device="cuda")[:, None] + c["delta"]
+    kp = torch.arange(c["Skv"], device="cuda")[None, :]
+    mask = (kp <= qp) if c["causal"] else torch.ones_like(kp == qp)
+    if c["window"] is not None:
+        mask = mask & (kp > qp - c["window"])
+    return dict(attn_mask=mask)
+
+
+def mask_kw(c) -> dict:
+    return dict(causal=c["causal"], sliding_window=c["window"],
+                delta=c["delta"])
+
+
+def rates(flops, ms, bound_ms) -> dict:
+    return {"tflops": flops / ms / 1e9, "bound_share": bound_ms / ms}
+
+
+# phase 2: the forward's shapes. The first five are the original ones (S
+# 2047, the serving prefill's largest bucket, is the reported case, S 4096
+# the training path's sequence); then the 128-row tile's edges, a ring stripe (Sq !=
+# Skv, delta != 0), bidirectional, D 64, GQA and a fused QKV buffer
+FWD_CASES = [attn_case(64), attn_case(512), attn_case(2047),
+             attn_case(2047, hkv=8, window=256), attn_case(4096),
+             attn_case(1), attn_case(127), attn_case(129), attn_case(1000),
+             attn_case(Sq=1024, Skv=4096, delta=3072),
+             attn_case(2047, causal=False), attn_case(2047, D=64),
+             attn_case(2047, hkv=8), attn_case(2047, fused=True)]
+
+
 def check_flash_fwd(torch, F, ft, card):
-    """Prefill forward at Llama-2-7B widths; S = 2047 is the engine's
-    largest bucket at 2048-token slots (its reported case), S = 4096 the
-    training path's sequence."""
-    cases = [dict(S=64, hq=32, hkv=32, window=None),
-             dict(S=512, hq=32, hkv=32, window=None),
-             dict(S=2047, hq=32, hkv=32, window=None),
-             dict(S=2047, hq=32, hkv=8, window=256),
-             dict(S=4096, hq=32, hkv=32, window=None)]
+    """Prefill forward at Llama-2-7B widths (FWD_CASES); every case runs,
+    and the phase fails after the last if any disagreed."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    D, worst, report = 128, 0.0, None
-    for c in cases:
-        S, hq, hkv, W = c["S"], c["hq"], c["hkv"], c["window"]
-        q = torch.randn(1, S, hq, D, generator=gen, device="cuda",
-                        dtype=torch.bfloat16)
-        k = torch.randn(1, S, hkv, D, generator=gen, device="cuda",
-                        dtype=torch.bfloat16)
-        v = torch.randn(1, S, hkv, D, generator=gen, device="cuda",
-                        dtype=torch.bfloat16)
-        o, lse = ft.flash_fwd(q, k, v, causal=True, sliding_window=W)
+    worst, report, failed = 0.0, None, []
+    for c in FWD_CASES:
+        q, k, v = case_inputs(torch, gen, c)
+        kw = mask_kw(c)
+        o, lse = ft.flash_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
-        o_ref, lse_ref = ft.flash_fwd_reference(
-            q.float(), k.float(), v.float(), causal=True, sliding_window=W)
+        o_ref, lse_ref = ft.flash_fwd_reference(q.float(), k.float(),
+                                                v.float(), **kw)
         err, ok = compare(torch, o, o_ref)
         lerr, lok = compare(torch, lse, lse_ref)
-        ms = cuda_ms(torch, lambda: ft.flash_fwd(q, k, v, sliding_window=W))
-        plain_ms = cuda_ms(torch, lambda: ft.flash_fwd_reference(
-            q, k, v, sliding_window=W))
-        if W is None:
-            library_ms = cuda_ms(torch, sdpa(F, q, k, v, is_causal=True))
-        else:
-            i = torch.arange(S, device="cuda")
-            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
-            library_ms = cuda_ms(torch, sdpa(F, q, k, v, attn_mask=mask))
-        rows = torch.arange(S, dtype=torch.float64)
-        pairs = float((rows + 1).clamp(max=W).sum() if W else
-                      (rows + 1).sum())
-        flops = 4.0 * D * hq * pairs
-        nbytes = 2.0 * (2 * S * hq * D + 2 * S * hkv * D) + 4.0 * hq * S
+        del o_ref, lse_ref
+        ms = cuda_ms(torch, lambda: ft.flash_fwd(q, k, v, **kw))
+        plain_ms = cuda_ms(torch, lambda: ft.flash_fwd_reference(q, k, v,
+                                                                 **kw))
+        library_ms = cuda_ms(torch,
+                             sdpa(F, q, k, v, **sdpa_mask_kw(torch, c)))
+        D, hq, hkv = c["D"], c["hq"], c["hkv"]
+        flops = 4.0 * D * hq * visible_pairs(torch, c)
+        nbytes = (2.0 * (2 * c["Sq"] * hq * D + 2 * c["Skv"] * hkv * D)
+                  + 4.0 * hq * c["Sq"])
         bound_ms, bound_by = bound(flops, nbytes)
         line = {"phase": "kernel", "name": "flash_fwd", "card": card,
-                "shape": f"B=1 S={S} Hq={hq} Hkv={hkv} D={D} window={W}",
-                "max_abs_err": err, "lse_max_abs_err": lerr,
-                "ok": ok and lok, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": library_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by}
+                "shape": case_name(c), "max_abs_err": err,
+                "lse_max_abs_err": lerr, "ok": ok and lok, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                **rates(flops, ms, bound_ms)}
         emit(line)
         if not (ok and lok):
-            raise AssertionError(f"flash_fwd disagrees with its plain "
-                                 f"version: {line}")
+            failed.append(line["shape"])
         worst = max(worst, err, lerr)
-        if S == 2047 and W is None:
+        if c == FWD_CASES[2]:
             report = line
+        del q, k, v, o, lse
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"flash_fwd disagrees with its plain version "
+                             f"at {failed}")
     return dict(report, max_abs_err=worst)
 
 
@@ -325,7 +403,7 @@ def check_flash_decode(torch, F, ft, card):
                          f"kv_lengths={lens_list}",
                 "max_abs_err": err, "ok": ok, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by}
+                "bound_by": bound_by, **rates(flops, ms, bound_ms)}
         emit(line)
         if not ok:
             raise AssertionError(f"flash_decode disagrees with its plain "
@@ -427,7 +505,8 @@ def check_paged_flash_decode(torch, F, ft, card):
                          f"kv_lengths={lens_list}",
                 "max_abs_err": err, "ok": ok, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "dense_flash_decode_ms": dense_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by}
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                **rates(flops, ms, bound_ms)}
         emit(line)
         if not ok:
             raise AssertionError(f"paged_flash_decode disagrees with its "
@@ -456,34 +535,41 @@ def sdpa_backward(torch, F, q, k, v, do, **kw):
                                        retain_graph=True)
 
 
-def compare_rel(got, want):
-    """(max |err|, max |plain|, ok) under the backward tolerance."""
+def compare_rel(got, want, m=None):
+    """(max |err|, M, ok) under the backward tolerance, M the largest
+    plain magnitude of the tensor unless given."""
     want = want.float()
-    m = float(want.abs().max())
+    m = float(want.abs().max()) if m is None else m
     err = (got.float() - want).abs()
     ok = bool((err <= BWD_ATOL_REL * m + BWD_RTOL * want.abs()).all())
     return float(err.max()), m, ok
 
 
+# phase 2b: the backward's shapes. The first three are the original ones
+# (S 4096 the reported case); then S 1 and the 128-row kv tile's edges, a ring stripe,
+# bidirectional, D 64, GQA and a fused QKV buffer
+BWD_CASES = [attn_case(4096), attn_case(4096, hkv=8, window=256),
+             attn_case(1000), attn_case(1), attn_case(127), attn_case(129),
+             attn_case(Sq=1024, Skv=4096, delta=3072),
+             attn_case(2047, causal=False), attn_case(2047, D=64),
+             attn_case(2047, hkv=8), attn_case(2047, fused=True)]
+
+
 def check_flash_bwd(torch, F, ft, card):
-    """dq and dk/dv at the training shapes. Bounds: dq does 3 products of
-    2·D FLOPs per visible (q, k) pair and query head (S = q·kᵀ, dP =
-    dO·vᵀ, dQ = dS·k), dk/dv 4 (S, dP, dV = Pᵀ·dO, dK = dSᵀ·q); bytes are
-    each input read once and each output written once."""
-    cases = [dict(S=4096, hq=32, hkv=32, window=None),
-             dict(S=4096, hq=32, hkv=8, window=256),
-             dict(S=1000, hq=32, hkv=32, window=None)]
+    """dq and dk/dv at BWD_CASES. Bounds: dq does 3 products of 2·D FLOPs
+    per visible (q, k) pair and query head (S = q·kᵀ, dP = dO·vᵀ, dQ =
+    dS·k), dk/dv 4 (S, dP, dV = Pᵀ·dO, dK = dSᵀ·q); bytes are each input
+    read once and each output written once. At S = 1 the single key gives
+    p = 1 and dp = dsum, so dq and dk are 0 in exact arithmetic and both
+    sides hold only rounding noise: there M is the largest plain
+    magnitude of the three gradients (dv = dO), not each tensor's own.
+    Every case runs; the phase fails after the last if any disagreed."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    D = 128
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    report = {}
-    for c in cases:
-        S, hq, hkv, W = c["S"], c["hq"], c["hkv"], c["window"]
-        q, do = (torch.randn(1, S, hq, D, generator=gen, device="cuda",
-                             dtype=torch.bfloat16) for _ in range(2))
-        k, v = (torch.randn(1, S, hkv, D, generator=gen, device="cuda",
-                            dtype=torch.bfloat16) for _ in range(2))
-        kw = dict(causal=True, sliding_window=W)
+    report, failed = {}, []
+    for c in BWD_CASES:
+        q, k, v, do = case_inputs(torch, gen, c, with_do=True)
+        kw = mask_kw(c)
         o, lse = ft.flash_fwd(q, k, v, **kw)
         dsum = ft._bwd_dsum(o, do)
         dq = ft.flash_bwd_dq(q, k, v, do, lse, dsum, **kw)
@@ -491,7 +577,9 @@ def check_flash_bwd(torch, F, ft, card):
         torch.cuda.synchronize()
         want = ft.flash_bwd_reference(q.float(), k.float(), v.float(), o,
                                       lse, do, **kw)
-        errs = {n: compare_rel(g, w)
+        scale_m = (max(float(w.float().abs().max()) for w in want)
+                   if c["Sq"] == 1 else None)
+        errs = {n: compare_rel(g, w, scale_m)
                 for n, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
         del want
         ms = {"flash_bwd_dq": cuda_ms(torch, lambda: ft.flash_bwd_dq(
@@ -501,20 +589,14 @@ def check_flash_bwd(torch, F, ft, card):
         # the plain version of both kernels is one function (the CPU path
         # of both wrappers); it computes dq, dk and dv together
         plain_ms = cuda_ms(torch, lambda: ft._bwd_plain(
-            q, k, v, do, lse, dsum, True, W, 0))
-        if W is None:
-            lib = sdpa_backward(torch, F, q, k, v, do, is_causal=True)
-        else:
-            i = torch.arange(S, device="cuda")
-            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
-            lib = sdpa_backward(torch, F, q, k, v, do, attn_mask=mask)
+            q, k, v, do, lse, dsum, c["causal"], c["window"], c["delta"]))
+        lib = sdpa_backward(torch, F, q, k, v, do, **sdpa_mask_kw(torch, c))
         library_ms = cuda_ms(torch, lib)
         del lib
-        rows = torch.arange(S, dtype=torch.float64)
-        pairs = float((rows + 1).clamp(max=W).sum() if W else
-                      (rows + 1).sum())
-        stats = 4.0 * 2 * hq * S                       # lse and dsum
-        q_bytes, kv_bytes = 2.0 * S * hq * D, 2.0 * S * hkv * D
+        D, hq, hkv = c["D"], c["hq"], c["hkv"]
+        pairs = visible_pairs(torch, c)
+        stats = 4.0 * 2 * hq * c["Sq"]                  # lse and dsum
+        q_bytes, kv_bytes = 2.0 * c["Sq"] * hq * D, 2.0 * c["Skv"] * hkv * D
         work = {
             "flash_bwd_dq": (6.0 * D * hq * pairs,
                              3 * q_bytes + 2 * kv_bytes + stats),
@@ -526,23 +608,25 @@ def check_flash_bwd(torch, F, ft, card):
             err = max(errs[t][0] for t in tensors)
             ok = all(errs[t][2] for t in tensors)
             line = {"phase": "kernel", "name": name, "card": card,
-                    "shape": f"B=1 S={S} Hq={hq} Hkv={hkv} D={D} window={W}",
-                    "max_abs_err": err,
+                    "shape": case_name(c), "max_abs_err": err,
                     "max_abs_plain": {t: errs[t][1] for t in tensors},
                     "ok": ok, "ms": ms[name], "plain_ms": plain_ms,
                     "plain_computes": "dq, dk and dv",
                     "library_ms": library_ms,
                     "library_computes": "dq, dk and dv (SDPA backward)",
-                    "bound_ms": bound_ms, "bound_by": bound_by}
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    **rates(work[name][0], ms[name], bound_ms)}
             emit(line)
             if not ok:
-                raise AssertionError(f"{name} disagrees with the plain "
-                                     f"backward: {line}")
+                failed.append((name, line["shape"]))
             worst[name] = max(worst[name], err)
-            if S == 4096 and W is None:
+            if c == BWD_CASES[0]:
                 report[name] = line
         del q, k, v, do, o, lse, dsum, dq, dk, dv
         torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"disagreement with the plain backward at "
+                             f"{failed}")
     return {n: dict(report[n], max_abs_err=worst[n]) for n in report}
 
 
@@ -1238,8 +1322,8 @@ def main() -> int:
     for name, source, line in (("flash_fwd", "flash_fwd.cu", 92),
                                ("flash_decode", "flash_decode.cu", 419),
                                ("paged_flash_decode", "flash_decode.cu", 553),
-                               ("flash_bwd_dq", "flash_bwd.cu", 197),
-                               ("flash_bwd_dkv", "flash_bwd.cu", 235)):
+                               ("flash_bwd_dq", "flash_bwd_dq.cu", 197),
+                               ("flash_bwd_dkv", "flash_bwd_dkv.cu", 235)):
         rep = reports[name]
         by_path = {path: counts.get(name, 0)
                    for path, counts in paths.items()}
@@ -1251,7 +1335,8 @@ def main() -> int:
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"],
-            "library_ms": rep["library_ms"], "shape": rep["shape"]})
+            "library_ms": rep["library_ms"], "shape": rep["shape"],
+            "tflops": rep["tflops"], "bound_share": rep["bound_share"]})
     emit({"kernels": kernels, "card": card})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

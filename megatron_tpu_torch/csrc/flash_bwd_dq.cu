@@ -1,54 +1,40 @@
-// flash_bwd: the FlashAttention-2 recompute backward for Hopper (sm_90a),
-// bf16 in/out, as two kernels:
+// flash_bwd_dq: the dq kernel of the FlashAttention-2 recompute backward
+// for Hopper (sm_90a), bf16 in/out. Replaces
+// megatron_tpu/ops/pallas/flash_template.py _dq_kernel (launched by _bwd,
+// :288). Its partner, the dk/dv kernel, is flash_bwd_dkv.cu.
 //
-//   flash_bwd_dq_kernel   replaces megatron_tpu/ops/pallas/flash_template.py
-//                         _dq_kernel (launched by _bwd, :288)
-//   flash_bwd_dkv_kernel  replaces the same file's _dkv_kernel (launched by
-//                         _bwd, :313)
-//
-// Both recompute p = exp(q·kᵀ·scale − lse) from the forward's lse instead of
-// storing the [S, S] probabilities, then
+// It recomputes p = exp(q·kᵀ·scale − lse) from the forward's lse instead
+// of storing the [S, S] probabilities, then
 //   dp = do·vᵀ,  ds = p·(dp − dsum)  with dsum = rowsum(do·o) per query row,
-//   dq = scale·Σ_k ds·k,  dk = scale·Σ_q dsᵀ·q,  dv = Σ_q pᵀ·do.
+//   dq = scale·Σ_k ds·k.
 // Masking is the forward's: causal / bidirectional, sliding window, and a
 // runtime q-vs-k position offset `delta`; p is 0 wherever `visible` is
 // false (never exp of a huge number), so fully masked rows give zero
 // gradients. Plain version: ops/flash/flash_template.py
 // flash_bwd_reference.
 //
-// What bounds them: training attention at Llama-2-7B widths (H=32, D=128,
-// S=4096 causal) is operation-bound: the dq kernel does 3 products of
-// 2·D FLOPs per visible (q, k) pair (6·D), the dk/dv kernel 4 (8·D), against
-// ~2·D bytes per row of each operand — far above the card's ~295 FLOP/byte
-// ridge. So every product runs on the tensor cores (WMMA m16n16k16 bf16,
-// fp32 accumulate) and each K/V (dq) or Q/dO (dk/dv) tile loaded into
-// shared memory is reused by the block's 64 rows. Simple first: no wgmma,
-// no TMA, no pipelining of the next tile's loads — those are later work.
+// What bounds it: training attention at Llama-2-7B widths (H=32, D=128,
+// S=4096 causal) is operation-bound: 3 products of 2·D FLOPs per visible
+// (q, k) pair (6·D) against ~2·D bytes per row of each operand — far above
+// the card's ~295 FLOP/byte ridge. So every product runs on the tensor
+// cores (WMMA m16n16k16 bf16, fp32 accumulate) and each K/V tile loaded
+// into shared memory is reused by the block's 64 rows. Simple first: no
+// wgmma, no TMA, no pipelining of the next tile's loads — those are later
+// work (flash_fwd.cu and flash_bwd_dkv.cu show the shape, sm90.cuh the
+// pieces).
 //
-// Design, against the TPU kernels:
-//  * Pallas ran each as a sequential grid axis carrying dq (or dk/dv) in
-//    VMEM scratch. Here a thread block owns its output tile and LOOPS:
-//    the dq block (batch, q head, 64-row q tile) over its live kv tiles
-//    (masks.cuh live_tile_range, the forward's bounds), the dk/dv block
-//    (batch, kv head, 64-row kv tile) over its live q tiles
-//    (masks.cuh live_q_tile_range, the inverse range).
-//  * GQA: the dk/dv block loops over the G query heads of its kv head and
-//    sums their contributions in its own fp32 accumulators. The TPU launch
-//    repeated K/V per query head (jnp.repeat) and group-summed dk/dv in
-//    the repeat's vjp; here no copy of K/V exists, and the group sum needs
-//    no atomics, so it is deterministic. The dq block reads K/V at kv head
-//    h / G through strides.
+// Design, against the TPU kernel:
+//  * Pallas ran it as a sequential grid axis carrying dq in VMEM scratch.
+//    Here a thread block (batch, q head, 64-row q tile) owns its output
+//    tile and LOOPS over its live kv tiles (masks.cuh live_tile_range, the
+//    forward's bounds), reading K/V at kv head h / G through strides.
 //  * Each of the 4 warps owns 16 rows of the block's output tile end to
 //    end, so only the shared input tile loads need block barriers. The
-//    accumulators live in shared memory in fp32 (as in flash_fwd.cu).
-//  * The TPU kernel pre-scaled q in fp32 before its dk product; here q
-//    stays bf16 for the tensor cores and the scale multiplies the fp32 dk
-//    accumulator at the end — the same product without rounding q·scale
-//    to bf16.
-//  * p and ds are rounded to bf16 for the tensor-core products (the TPU
-//    kernels keep them fp32); the rest is fp32.
-//  * q/k/v/do/dq/dk/dv in the framework layout [B, S, H, D] through
-//    strides (last dim contiguous); lse and dsum as plain [B, Hq, Sq] fp32.
+//    accumulator lives in shared memory in fp32.
+//  * ds is rounded to bf16 for the tensor-core product (the TPU kernel
+//    keeps it fp32); the rest is fp32.
+//  * q/k/v/do/dq in the framework layout [B, S, H, D] through strides
+//    (last dim contiguous); lse and dsum as plain [B, Hq, Sq] fp32.
 //  * Any S >= 1: ragged last tiles are masked in-kernel (rows past Sq or
 //    columns past Skv contribute nothing and are not written).
 
@@ -83,12 +69,9 @@ struct BwdSmem {
   static constexpr size_t p_bytes = size_t(64) * LDP * 2;
   static constexpr size_t acc_bytes = size_t(64) * LDA * 4;
   static constexpr size_t stat_bytes = size_t(2) * 64 * 4;
-  // dq: Q, dO, K, V tiles; S, dP; dS; dQ accumulator; lse, dsum
+  // Q, dO, K, V tiles; S, dP; dS; dQ accumulator; lse, dsum
   static constexpr size_t dq_total =
       4 * tile_bytes + 2 * s_bytes + p_bytes + acc_bytes + stat_bytes;
-  // dk/dv: K, V, Q, dO tiles; Sᵀ, dPᵀ; Pᵀ, dSᵀ; dK, dV accumulators; stats
-  static constexpr size_t dkv_total =
-      4 * tile_bytes + 2 * s_bytes + 2 * p_bytes + 2 * acc_bytes + stat_bytes;
 };
 
 // rows [row0, row0 + 64) of a [rows, D] bf16 matrix with row stride
@@ -280,110 +263,6 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dkv_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ dsum,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
-                         int Skv, int Hq, int Hkv, Strides qs, Strides ks,
-                         Strides vs, Strides dos, Strides dks, Strides dvs,
-                         float scale, int causal, int window, int delta) {
-  using L = BwdSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* p = smem;
-  bf16* Ks = reinterpret_cast<bf16*>(p);   p += L::tile_bytes;
-  bf16* Vs = reinterpret_cast<bf16*>(p);   p += L::tile_bytes;
-  bf16* Qs = reinterpret_cast<bf16*>(p);   p += L::tile_bytes;
-  bf16* dOs = reinterpret_cast<bf16*>(p);  p += L::tile_bytes;
-  float* St = reinterpret_cast<float*>(p); p += L::s_bytes;
-  float* dPt = reinterpret_cast<float*>(p); p += L::s_bytes;
-  bf16* Pt = reinterpret_cast<bf16*>(p);   p += L::p_bytes;
-  bf16* dSt = reinterpret_cast<bf16*>(p);  p += L::p_bytes;
-  float* AccK = reinterpret_cast<float*>(p); p += L::acc_bytes;
-  float* AccV = reinterpret_cast<float*>(p); p += L::acc_bytes;
-  float* lse_s = reinterpret_cast<float*>(p);
-  float* dsum_s = lse_s + BQ;
-
-  const int kvi = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int G = Hq / Hkv;
-  const int k0 = kvi * BK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bool is_causal = causal != 0;
-
-  load_tile<D>(Ks, L::LDT, k + b * ks.b + hk * ks.h, ks.s, k0, Skv);
-  load_tile<D>(Vs, L::LDT, v + b * vs.b + hk * vs.h, vs.s, k0, Skv);
-  for (int i = threadIdx.x; i < BK * L::LDA; i += THREADS) {
-    AccK[i] = 0.f;
-    AccV[i] = 0.f;
-  }
-
-  // q tiles whose valid rows can see any of the block's valid kv columns
-  const int k_last = min(k0 + BK, Skv) - 1;
-  int lo, hi;
-  mtt::live_q_tile_range(BQ, (Sq + BQ - 1) / BQ, k0, k_last, is_causal,
-                         window, delta, &lo, &hi);
-  __syncthreads();  // K/V tiles and zeroed accumulators visible to all
-
-  const int row0 = warp * 16;  // this warp's 16 kv rows
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    const bf16* qb = q + b * qs.b + h * qs.h;
-    const bf16* dob = dout + b * dos.b + h * dos.h;
-    const long long stat0 = ((long long)b * Hq + h) * Sq;
-    for (int qi = lo; qi < hi; ++qi) {
-      const int q0 = qi * BQ;
-      __syncthreads();  // every warp is done with the previous Q/dO tile
-      load_tile<D>(Qs, L::LDT, qb, qs.s, q0, Sq);
-      load_tile<D>(dOs, L::LDT, dob, dos.s, q0, Sq);
-      if (threadIdx.x < BQ) {
-        const int row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < Sq ? lse[stat0 + row] : 0.f;
-        dsum_s[threadIdx.x] = row < Sq ? dsum[stat0 + row] : 0.f;
-      }
-      __syncthreads();
-
-      // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ for this warp's 16 kv rows x 64 q cols
-      warp_abt<D>(St + row0 * L::LDS, Ks + row0 * L::LDT, Qs);
-      warp_abt<D>(dPt + row0 * L::LDS, Vs + row0 * L::LDT, dOs);
-      __syncwarp();
-
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = row0 + rr;
-        const int k_pos = k0 + r;
-        const bool col_ok = k_pos < Skv;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int j = lane + 32 * c;
-          const int qrow = q0 + j;
-          const bool vis = col_ok && qrow < Sq &&
-                           mtt::visible(qrow + delta, k_pos, is_causal,
-                                        window);
-          const float pr =
-              vis ? __expf(St[r * L::LDS + j] * scale - lse_s[j]) : 0.f;
-          Pt[r * L::LDP + j] = __float2bfloat16(pr);
-          dSt[r * L::LDP + j] =
-              __float2bfloat16(pr * (dPt[r * L::LDS + j] - dsum_s[j]));
-        }
-      }
-      __syncwarp();
-
-      // dV += Pᵀ dO,  dK += dSᵀ Q  (dK's scale is applied at the end)
-      warp_acc_ab<D>(AccV + row0 * L::LDA, Pt + row0 * L::LDP, dOs);
-      warp_acc_ab<D>(AccK + row0 * L::LDA, dSt + row0 * L::LDP, Qs);
-      __syncwarp();
-    }
-  }
-
-  emit_rows<D>(dk + b * dks.b + hk * dks.h, dks.s, AccK, row0, k0, Skv,
-               scale, lane);
-  emit_rows<D>(dv + b * dvs.b + hk * dvs.h, dvs.s, AccV, row0, k0, Skv, 1.f,
-               lane);
-}
-
-template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* dsum,
                       void* dq, int B, int Sq, int Skv, int Hq, int Hkv,
@@ -405,39 +284,16 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* dsum,
-                       void* dk, void* dv, int B, int Sq, int Skv, int Hq,
-                       int Hkv, Strides qs, Strides ks, Strides vs,
-                       Strides dos, Strides dks, Strides dvs, float scale,
-                       int causal, int window, int delta,
-                       cudaStream_t stream) {
-  constexpr size_t bytes = BwdSmem<D>::dkv_total;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Skv + BK - 1) / BK, Hkv, B);
-  flash_bwd_dkv_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dsum),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, Hq, Hkv, qs,
-      ks, vs, dos, dks, dvs, scale, causal, window, delta);
-  return cudaGetLastError();
-}
-
 bool bad_geometry(int B, int Sq, int Skv, int Hq, int Hkv) {
   return B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv;
 }
 
 }  // namespace
 
-// Plain C entries for ctypes. Strides are in elements, (batch, seq, head)
+// Plain C entry for ctypes. Strides are in elements, (batch, seq, head)
 // for each [B, S, H, D] tensor; the head dim must be contiguous. lse and
 // dsum are contiguous [B, Hq, Sq] fp32. window <= 0 means no sliding
-// window. Each returns the cudaError_t of its launch.
+// window. Returns the cudaError_t of the launch.
 extern "C" int mtt_flash_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* dsum, void* dq, int B, int Sq, int Skv,
@@ -460,31 +316,5 @@ extern "C" int mtt_flash_bwd_dq_bf16(
     return (int)launch_dq<64>(q, k, v, dout, lse, dsum, dq, B, Sq, Skv, Hq,
                               Hkv, qs, ks, vs, dos, dqs, scale, causal,
                               window, delta, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int mtt_flash_bwd_dkv_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* dsum, void* dk, void* dv, int B, int Sq,
-    int Skv, int Hq, int Hkv, int D, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, long long do_sb,
-    long long do_ss, long long do_sh, long long dk_sb, long long dk_ss,
-    long long dk_sh, long long dv_sb, long long dv_ss, long long dv_sh,
-    float scale, int causal, int window, int delta, void* stream) {
-  cudaGetLastError();
-  if (bad_geometry(B, Sq, Skv, Hq, Hkv)) return (int)cudaErrorInvalidValue;
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
-      vs{v_sb, v_ss, v_sh}, dos{do_sb, do_ss, do_sh},
-      dks{dk_sb, dk_ss, dk_sh}, dvs{dv_sb, dv_ss, dv_sh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return (int)launch_dkv<128>(q, k, v, dout, lse, dsum, dk, dv, B, Sq, Skv,
-                                Hq, Hkv, qs, ks, vs, dos, dks, dvs, scale,
-                                causal, window, delta, st);
-  if (D == 64)
-    return (int)launch_dkv<64>(q, k, v, dout, lse, dsum, dk, dv, B, Sq, Skv,
-                               Hq, Hkv, qs, ks, vs, dos, dks, dvs, scale,
-                               causal, window, delta, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -45,6 +45,29 @@ __device__ __forceinline__ void live_tile_range(int block_k, int n_k,
   *hi = h;
 }
 
+// What a (q tile, kv tile) pair needs (masks.py tile_class). The tile is
+// query rows [q0, q0 + bq) (row i at position i + delta) against key
+// columns [k0, k0 + bk); a pair counts when its row < Sq, its column < Skv
+// and `visible` holds. FULL: every pair of the tile counts, so no
+// per-element mask. DEAD: none does. EDGE: anything else.
+enum { TILE_DEAD = 0, TILE_EDGE = 1, TILE_FULL = 2 };
+
+__device__ __forceinline__ int tile_class(int q0, int bq, int k0, int bk,
+                                          int Sq, int Skv, bool causal,
+                                          int window, int delta) {
+  const int q_end = q0 + bq < Sq ? q0 + bq : Sq;
+  const int k_end = k0 + bk < Skv ? k0 + bk : Skv;
+  if (q_end <= q0 || k_end <= k0) return TILE_DEAD;
+  // the union of the valid rows' bands is (p_lo - W, p_hi]
+  const int p_lo = q0 + delta, p_hi = q_end - 1 + delta;
+  if (causal && k0 > p_hi) return TILE_DEAD;
+  if (window > 0 && k_end - 1 <= p_lo - window) return TILE_DEAD;
+  const bool full = q0 + bq <= Sq && k0 + bk <= Skv &&
+                    (!causal || k0 + bk - 1 <= p_lo) &&
+                    (window <= 0 || k0 > p_hi - window);
+  return full ? TILE_FULL : TILE_EDGE;
+}
+
 // The inverse range: [lo, hi) q tiles of block_q rows (query row i at
 // global position i + delta) holding any row that can see a key in
 // [k_lo, k_hi] — the loop bounds of the dk/dv kernel (masks.py

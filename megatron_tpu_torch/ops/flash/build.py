@@ -1,16 +1,18 @@
 """Build the CUDA kernels at first use and load them with ctypes.
 
 Each kernel source in megatron_tpu_torch/csrc/ compiles with nvcc into
-its own shared library with a plain C interface:
+its own shared library with a plain C interface (headers: masks.cuh,
+sm90.cuh):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so <name>.cu
 
 into megatron_tpu_torch/build/ (listed in .gitignore). The file name
-carries a hash of the sources and flags, so an edited source never loads
-a stale library. build() starts one nvcc per missing library, all at
-once, and returns each build's seconds and the -Xptxas -v lines
-(registers, shared memory, spills). Nothing here runs at import time.
+carries a hash of the flags, the kernel's source and every header in
+csrc/, so an edited source or header never loads a stale library.
+build() starts one nvcc per missing library, all at once, and returns
+each build's seconds and the -Xptxas -v lines (registers, shared
+memory, spills). Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -29,10 +31,10 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 
-#: library name -> source file in csrc/ (flash_bwd holds two kernels)
+#: library name -> source file in csrc/
 KERNELS = {"flash_fwd": "flash_fwd.cu", "flash_decode": "flash_decode.cu",
-           "flash_bwd": "flash_bwd.cu"}
-_HEADERS = ("masks.cuh",)
+           "flash_bwd_dq": "flash_bwd_dq.cu",
+           "flash_bwd_dkv": "flash_bwd_dkv.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -53,9 +55,16 @@ def nvcc() -> str:
     return found
 
 
+def headers() -> list:
+    """Every header in csrc/ (*.cuh), sorted: each library's hash covers
+    them all, whichever it includes."""
+    return sorted(p.name for p in CSRC.glob("*.cuh"))
+
+
 def lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (KERNELS[name],) + _HEADERS:
+    for f in [KERNELS[name]] + headers():
+        h.update(f.encode())
         h.update((CSRC / f).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

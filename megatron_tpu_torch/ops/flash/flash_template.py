@@ -5,8 +5,8 @@ Five kernels, each a hand-written CUDA C++ kernel for Hopper in csrc/:
 
   wrapper             kernel (csrc/)    replaces (TPU kernel)
   flash_fwd           flash_fwd.cu      flash_template.py _fwd_kernel (_fwd)
-  flash_bwd_dq        flash_bwd.cu      flash_template.py _dq_kernel (_bwd)
-  flash_bwd_dkv       flash_bwd.cu      flash_template.py _dkv_kernel (_bwd)
+  flash_bwd_dq        flash_bwd_dq.cu   flash_template.py _dq_kernel (_bwd)
+  flash_bwd_dkv       flash_bwd_dkv.cu  flash_template.py _dkv_kernel (_bwd)
   flash_decode        flash_decode.cu   flash_template.py _decode_kernel
                                         (_decode_call, dense launch)
   paged_flash_decode  flash_decode.cu   flash_template.py _decode_kernel
@@ -58,9 +58,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _SIGNATURES = {
     "flash_fwd": ("flash_fwd", "mtt_flash_fwd_bf16",
                   [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _I, _I, _I, _P]),
-    "flash_bwd_dq": ("flash_bwd", "mtt_flash_bwd_dq_bf16",
+    "flash_bwd_dq": ("flash_bwd_dq", "mtt_flash_bwd_dq_bf16",
                      [_P] * 7 + [_I] * 6 + [_L] * 15 + [_F, _I, _I, _I, _P]),
-    "flash_bwd_dkv": ("flash_bwd", "mtt_flash_bwd_dkv_bf16",
+    "flash_bwd_dkv": ("flash_bwd_dkv", "mtt_flash_bwd_dkv_bf16",
                       [_P] * 8 + [_I] * 6 + [_L] * 18
                       + [_F, _I, _I, _I, _P]),
     "flash_decode": ("flash_decode", "mtt_flash_decode_bf16",
@@ -279,7 +279,7 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """dq [B, Sq, Hq, D] of the recompute backward; dsum = rowsum(do·o)
     as [B, Hq, Sq] fp32.
 
-    CUDA tensors: the csrc/flash_bwd.cu dq kernel (bf16, head dim 64 or
+    CUDA tensors: the csrc/flash_bwd_dq.cu kernel (bf16, head dim 64 or
     128, any S >= 1), or ValueError. CPU tensors: the plain version."""
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, do, lse, dsum, causal, sliding_window,
@@ -314,7 +314,7 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dk, dv) [B, Skv, Hkv, D] of the recompute backward, summed over
     each kv head's G query heads.
 
-    CUDA tensors: the csrc/flash_bwd.cu dk/dv kernel (bf16, head dim 64
+    CUDA tensors: the csrc/flash_bwd_dkv.cu kernel (bf16, head dim 64
     or 128, any S >= 1), or ValueError. CPU tensors: the plain version."""
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, do, lse, dsum, causal, sliding_window,

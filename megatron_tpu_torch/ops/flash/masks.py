@@ -100,6 +100,35 @@ def live_tile_range(block_k: int, n_k: int, q_lo: int, q_hi: int, *,
     return lo, hi
 
 
+#: tile_class results
+TILE_DEAD, TILE_EDGE, TILE_FULL = 0, 1, 2
+
+
+def tile_class(q0: int, block_q: int, k0: int, block_k: int, sq: int,
+               skv: int, *, causal: bool = True,
+               window: Optional[int] = None, delta: int = 0) -> int:
+    """What a (q tile, kv tile) pair needs (masks.cuh tile_class): query
+    rows [q0, q0 + block_q) (row i at position i + delta) against key
+    columns [k0, k0 + block_k). A pair counts when its row < sq, its
+    column < skv and ``visible`` holds. TILE_FULL: every pair of the
+    tile counts, so the kernels skip the per-element mask; TILE_DEAD:
+    none does; TILE_EDGE: anything else. The forward classifies (its q
+    tile, each kv tile), the dk/dv kernel (each q tile, its kv tile)."""
+    q_end, k_end = min(q0 + block_q, sq), min(k0 + block_k, skv)
+    if q_end <= q0 or k_end <= k0:
+        return TILE_DEAD
+    # the union of the valid rows' bands is (p_lo - W, p_hi]
+    p_lo, p_hi = q0 + delta, q_end - 1 + delta
+    if causal and k0 > p_hi:
+        return TILE_DEAD
+    if window is not None and k_end - 1 <= p_lo - window:
+        return TILE_DEAD
+    full = (q0 + block_q <= sq and k0 + block_k <= skv
+            and (not causal or k0 + block_k - 1 <= p_lo)
+            and (window is None or k0 > p_hi - window))
+    return TILE_FULL if full else TILE_EDGE
+
+
 def live_q_tile_range(block_q: int, n_q: int, k_lo: int, k_hi: int, *,
                       causal: bool = True, window: Optional[int] = None,
                       delta: int = 0):

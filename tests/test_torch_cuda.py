@@ -9,9 +9,10 @@ on the card run them without it:
 
 Each forward kernel is held against its plain version on the same bf16
 inputs (computed in fp32) with |kernel - plain| <= 2e-2 + 2e-2 * |plain|,
-at small shapes that hit the ragged edges: sequence lengths that are not
-a multiple of the 64-row tile, GQA, sliding windows, the q-vs-k offset
-and ragged per-slot prefixes; the paged decode kernel also at page
+at small shapes that hit the ragged edges: sequence lengths around the
+kernels' 64- and 128-row tiles, GQA, sliding windows, the q-vs-k offset
+with Sq != Skv, q/k/v as strided views of a fused buffer, and ragged
+per-slot prefixes; the paged decode kernel also at page
 sizes 8, 16 and 64 with scattered, shared and scratch pages. The
 backward kernels (dq, dk/dv) are held
 against the plain fp32 backward of the same bf16 inputs and the same
@@ -55,6 +56,9 @@ def _assert_close(got, want):
     (1, 4, 4, 128, None, 0), (63, 4, 2, 128, None, 0),
     (130, 8, 2, 64, None, 0), (130, 4, 1, 128, 17, 0),
     (100, 4, 4, 128, None, 30), (70, 2, 2, 64, 9, -5),
+    # the 128-row tile's edges
+    (127, 4, 4, 128, None, 0), (128, 4, 2, 64, None, 0),
+    (129, 4, 4, 128, 17, 0), (255, 8, 2, 128, None, 0),
 ])
 def test_flash_fwd_kernel_matches_plain(gen, s, hq, hkv, d, window, delta):
     q = _randn(gen, 2, s, hq, d)
@@ -178,6 +182,9 @@ def _assert_close_rel(got, want, name):
     (130, 8, 2, 64, True, None, 0), (130, 4, 1, 128, True, 17, 0),
     (100, 4, 4, 128, True, None, 30), (70, 2, 2, 64, True, 9, -5),
     (96, 4, 2, 128, False, None, 0), (200, 4, 4, 64, False, 33, 0),
+    # the 128-row kv tile's and the 64-row q tile's edges
+    (127, 4, 4, 128, True, None, 0), (128, 4, 2, 64, True, None, 0),
+    (129, 4, 4, 128, False, None, 0), (255, 8, 2, 128, True, 33, 0),
 ])
 def test_flash_bwd_kernels_match_plain(gen, s, hq, hkv, d, causal, window,
                                        delta):
@@ -199,6 +206,31 @@ def test_flash_bwd_kernels_match_plain(gen, s, hq, hkv, d, causal, window,
                                   delta=delta)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        _assert_close_rel(a, b, name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_take_a_ring_stripe_and_a_fused_qkv_buffer(gen,
+                                                                causal):
+    """Sq != Skv with a runtime offset (a ring stripe: 200 queries at
+    positions 500..699 against 700 keys), q/k/v as strided views of one
+    [B, S, 3, H, D] buffer (the TMA descriptors' strides), GQA 4: the
+    forward and the dk/dv and dq kernels against their plain versions."""
+    fused = _randn(gen, 2, 700, 3, 8, 128)
+    q = fused[:, 500:, 0]
+    k, v = fused[:, :, 1, :2], fused[:, :, 2, :2]
+    do = _randn(gen, 2, 200, 8, 128)
+    kw = dict(causal=causal, sliding_window=None, delta=500)
+    o, lse = ft.flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = ft.flash_fwd_reference(q.float(), k.float(), v.float(),
+                                            **kw)
+    _assert_close(o, o_ref)
+    _assert_close(lse, lse_ref)
+    got = ft.flash_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = ft.flash_bwd_reference(q.float(), k.float(), v.float(), o, lse,
+                                  do, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
         _assert_close_rel(a, b, name)
 
 

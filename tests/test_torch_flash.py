@@ -13,9 +13,10 @@ multiple of the CUDA kernels' 64-row tile.
 The backward kernels' plain version is held against the Pallas backward
 in tests/test_torch_flash_bwd.py.
 
-Also: masks.py against the JAX masks module, and the kernels' loop
-bounds (live_tile_range, live_q_tile_range) against the block predicates
-they replace.
+Also: masks.py against the JAX masks module, the kernels' loop bounds
+(live_tile_range, live_q_tile_range) against the block predicates they
+replace, the kernels' tile classification (tile_class) against the dense
+mask, and the kernel build's hash over every csrc header.
 """
 
 import jax.numpy as jnp
@@ -130,6 +131,100 @@ def test_live_q_tile_range_is_exactly_the_live_q_tiles(causal, window):
                     np.arange(qi * bq, qi * bq + bq)[:, None] + delta, k_pos,
                     causal=causal, window=window).any()]
                 assert list(range(lo, hi)) == live, (delta, k_lo, k_hi)
+
+
+def _dense_tile(q0, bq, k0, bk, sq, skv, causal, window, delta):
+    """The pairs of a tile that count: row < sq, column < skv, visible."""
+    rows = np.arange(q0, q0 + bq)[:, None]
+    cols = np.arange(k0, k0 + bk)[None, :]
+    return (tmasks.visible(rows + delta, cols, causal=causal, window=window)
+            & (rows < sq) & (cols < skv))
+
+
+@pytest.mark.parametrize("direction", ["fwd", "dkv"])
+@pytest.mark.parametrize("delta", [-5, 0, 30])
+@pytest.mark.parametrize("window", [None, 1, 17, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tile_class_matches_the_dense_mask(causal, window, delta, direction):
+    """tile_class is exact against the dense boolean mask: FULL iff every
+    pair of the tile counts, DEAD iff none does, on ragged Sq/Skv, in the
+    forward's direction (a 128-row q tile against each 128-column kv
+    tile, the kv tiles of live_tile_range) and the dk/dv kernel's (each
+    64-row q tile of live_q_tile_range against a 128-row kv tile). Tiles
+    outside the kernels' loop bounds are DEAD."""
+    bq, bk = (128, 128) if direction == "fwd" else (64, 128)
+    kw = dict(causal=causal, window=window, delta=delta)
+    seen = set()
+    for sq, skv in ((1, 1), (127, 129), (300, 200), (257, 1000)):
+        n_q, n_k = -(-sq // bq), -(-skv // bk)
+        for qi in range(n_q):
+            lo, hi = tmasks.live_tile_range(
+                bk, n_k, qi * bq + delta, min(qi * bq + bq, sq) - 1 + delta,
+                causal=causal, window=window)
+            for ki in range(n_k):
+                cls = tmasks.tile_class(qi * bq, bq, ki * bk, bk, sq, skv,
+                                        **kw)
+                m = _dense_tile(qi * bq, bq, ki * bk, bk, sq, skv, causal,
+                                window, delta)
+                want = (tmasks.TILE_FULL if m.all() else
+                        tmasks.TILE_DEAD if not m.any() else tmasks.TILE_EDGE)
+                assert cls == want, (sq, skv, qi, ki)
+                seen.add(cls)
+                if direction == "fwd" and not lo <= ki < hi:
+                    assert cls == tmasks.TILE_DEAD, (sq, skv, qi, ki)
+        if direction == "dkv":
+            for ki in range(n_k):
+                lo, hi = tmasks.live_q_tile_range(
+                    bq, n_q, ki * bk, min(ki * bk + bk, skv) - 1, **kw)
+                for qi in set(range(n_q)) - set(range(lo, hi)):
+                    assert tmasks.tile_class(
+                        qi * bq, bq, ki * bk, bk, sq, skv, **kw) == \
+                        tmasks.TILE_DEAD, (sq, skv, qi, ki)
+    assert tmasks.TILE_EDGE in seen
+
+
+def test_tile_class_full_tiles_are_the_bulk_of_a_causal_pass():
+    """What the kernels save: at S 4096 causal, 496 of the forward's 528
+    live 128 x 128 tiles are FULL (only the 32 diagonal tiles are
+    masked); with a window of 256 each q tile sees at most 3 kv tiles,
+    and the window's lower-edge tile is masked beside the diagonal."""
+    def count(window):
+        n = 4096 // 128
+        cls = [tmasks.tile_class(qi * 128, 128, ki * 128, 128, 4096, 4096,
+                                 causal=True, window=window)
+               for qi in range(n) for ki in range(n)]
+        return cls.count(tmasks.TILE_FULL), cls.count(tmasks.TILE_EDGE)
+    assert count(None) == (496, 32)
+    assert count(256) == (31, 32 + 30)
+
+
+# ---------------------------------------------------------------------------
+# kernel build: the library hash covers every header
+# ---------------------------------------------------------------------------
+
+
+def test_build_hashes_every_header(tmp_path, monkeypatch):
+    """lib_path hashes each kernel's source and every *.cuh in csrc/, so
+    an edit to any header (masks.cuh, sm90.cuh, ...) builds a new
+    library instead of loading a stale one."""
+    from megatron_tpu_torch.ops.flash import build
+    assert build.headers() == sorted(p.name for p in build.CSRC.glob("*.cuh"))
+    assert {"masks.cuh", "sm90.cuh"} <= set(build.headers())
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in build.CSRC.iterdir():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build.lib_path(name) for name in build.KERNELS}
+    assert before == {name: build.lib_path(name) for name in build.KERNELS}
+    for header in build.headers():
+        (csrc / header).write_bytes((csrc / header).read_bytes() + b"\n")
+        after = {name: build.lib_path(name) for name in build.KERNELS}
+        assert all(after[n] != before[n] for n in build.KERNELS), header
+        before = after
+    (csrc / "extra.cuh").write_bytes(b"#pragma once\n")
+    assert "extra.cuh" in build.headers()
+    assert all(build.lib_path(n) != before[n] for n in build.KERNELS)
 
 
 # ---------------------------------------------------------------------------
