@@ -13,158 +13,263 @@
 // gradients. Plain version: ops/flash/flash_template.py
 // flash_bwd_reference.
 //
-// What bounds it: training attention at Llama-2-7B widths (H=32, D=128,
-// S=4096 causal) is operation-bound: 3 products of 2·D FLOPs per visible
-// (q, k) pair (6·D) against ~2·D bytes per row of each operand — far above
-// the card's ~295 FLOP/byte ridge. So every product runs on the tensor
-// cores (WMMA m16n16k16 bf16, fp32 accumulate) and each K/V tile loaded
-// into shared memory is reused by the block's 64 rows. Simple first: no
-// wgmma, no TMA, no pipelining of the next tile's loads — those are later
-// work (flash_fwd.cu and flash_bwd_dkv.cu show the shape, sm90.cuh the
-// pieces).
+// What bounds it: at Llama-2-7B widths (H=32, D=128, S=4096 causal) it is
+// operation-bound: 3 products of 2·D FLOPs per visible (q, k) pair (6·D)
+// against ~2·D bytes per row of each operand, far above the card's ~295
+// FLOP/byte ridge (4 products with the split of ds below). So every
+// product is a wgmma with its accumulator in registers, and the K/V tiles
+// stream in by TMA while the tensor cores work. It is the dq counterpart
+// of flash_bwd_dkv.cu: the same header (sm90.cuh), layout rule and ring.
 //
 // Design, against the TPU kernel:
-//  * Pallas ran it as a sequential grid axis carrying dq in VMEM scratch.
-//    Here a thread block (batch, q head, 64-row q tile) owns its output
-//    tile and LOOPS over its live kv tiles (masks.cuh live_tile_range, the
-//    forward's bounds), reading K/V at kv head h / G through strides.
-//  * Each of the 4 warps owns 16 rows of the block's output tile end to
-//    end, so only the shared input tile loads need block barriers. The
-//    accumulator lives in shared memory in fp32.
-//  * ds is rounded to bf16 for the tensor-core product (the TPU kernel
-//    keeps it fp32); the rest is fp32.
+//  * Pallas ran a sequential kv grid axis carrying dq in VMEM scratch.
+//    Here one block owns (batch, q head, 128-row q tile) and loops over
+//    its live kv tiles (masks.cuh live_tile_range, the forward's bounds),
+//    reading K/V at kv head h / G. blockIdx.z runs the q tiles backwards,
+//    so under a causal mask the tiles that see the most kv tiles start
+//    first (the mirror of the dk/dv kernel's order).
+//  * Warp specialisation: warpgroups 0 and 1 each own 64 of the q rows and
+//    run the math (setmaxnreg 240); one thread of warpgroup 2 (setmaxnreg
+//    24) loads Q and dO once and streams 64-row K and V tiles through a
+//    2-stage TMA ring (full / empty mbarriers). Each consumer thread reads
+//    the lse·log2 e and dsum of its two rows into registers once.
+//  * Per kv tile, each a wgmma with its accumulator in registers:
+//    S = Q·Kᵀ and dP = dO·Vᵀ (m64n64k16, all operands K-major in shared
+//    memory); p = exp2(S·scale·log2 e − lse·log2 e) and dS = p·(dP − dsum)
+//    in registers, masked only on tiles that masks.cuh tile_class does
+//    not call FULL; then dQ += dS·K with dS packed to bf16 pairs in place
+//    as the register A operand and K as the MN-major B operand (transpose
+//    flag), exactly as dK += dSᵀ·Q in the dk/dv kernel.
+//  * dS is split into a bf16 high part and the bf16 rounding of what is
+//    left (dS − hi), and both go through the tensor cores against the same
+//    K tile. One bf16 rounding of ds (relative 2^-9) summed over thousands
+//    of keys left dq outside the JAX package's backward gate on some
+//    inputs; the split cuts it to about 2^-17, for a fourth product per
+//    tile.
+//  * dQ stays in fp32 registers for the whole loop (64 a thread at D 128):
+//    no atomics and no separate dq pass. The scale multiplies it once at
+//    the end; scale·dQ leaves as bf16 through the warpgroup's own Q rows in
+//    shared memory, in 16-byte stores.
 //  * q/k/v/do/dq in the framework layout [B, S, H, D] through strides
-//    (last dim contiguous); lse and dsum as plain [B, Hq, Sq] fp32.
-//  * Any S >= 1: ragged last tiles are masked in-kernel (rows past Sq or
-//    columns past Skv contribute nothing and are not written).
+//    (4-d tensor maps {D, H, S, B}); lse and dsum as plain [B, Hq, Sq]
+//    fp32. Any S >= 1: TMA fills rows past Sq/Skv with zeros, the mask
+//    removes kv columns past Skv, and q rows past Sq are not written.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "masks.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
+constexpr int BQ = 128;  // q rows per block: 2 consumer warpgroups x 64
+constexpr int BK = 64;   // kv rows per ring stage
+constexpr int STAGES = 2;
+constexpr int THREADS = 384;
+constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared-memory plan. Leading dimensions (elements) are padded against
-// bank conflicts and kept at multiples WMMA accepts (8 for 16-bit types,
-// 4 for float); every section starts at a multiple of 32 bytes.
+// Shared-memory plan (byte offsets from a 1024-aligned base); tiles as in
+// sm90.cuh: D / 64 column blocks of rows x 128 bytes.
 template <int D>
-struct BwdSmem {
-  static constexpr int LDT = D + 8;   // bf16 input tiles (64 rows)
-  static constexpr int LDS = 64 + 4;  // fp32 score-shaped tiles [64, 64]
-  static constexpr int LDP = 64 + 8;  // bf16 score-shaped tiles [64, 64]
-  static constexpr int LDA = D + 4;   // fp32 accumulators [64, D]
-  static constexpr size_t tile_bytes = size_t(64) * LDT * 2;
-  static constexpr size_t s_bytes = size_t(64) * LDS * 4;
-  static constexpr size_t p_bytes = size_t(64) * LDP * 2;
-  static constexpr size_t acc_bytes = size_t(64) * LDA * 4;
-  static constexpr size_t stat_bytes = size_t(2) * 64 * 4;
-  // Q, dO, K, V tiles; S, dP; dS; dQ accumulator; lse, dsum
-  static constexpr size_t dq_total =
-      4 * tile_bytes + 2 * s_bytes + p_bytes + acc_bytes + stat_bytes;
+struct DqSmem {
+  static constexpr int CB = D / 64;
+  static constexpr uint32_t q_bytes = BQ * D * 2;   // Q or dO
+  static constexpr uint32_t kv_bytes = BK * D * 2;  // one K or V tile
+  static constexpr uint32_t q_off = 0;
+  static constexpr uint32_t do_off = q_bytes;
+  static constexpr uint32_t k_off = 2 * q_bytes;  // + stage * kv_bytes
+  static constexpr uint32_t v_off = k_off + STAGES * kv_bytes;
+  // mbarriers: q_full, full[STAGES], empty[STAGES]
+  static constexpr uint32_t bar_off = v_off + STAGES * kv_bytes;
+  static constexpr uint32_t total = bar_off + 8 * (1 + 2 * STAGES) + 1024;
 };
 
-// rows [row0, row0 + 64) of a [rows, D] bf16 matrix with row stride
-// `row_stride` (elements) into shared memory; rows >= nrows read as 0.
-// All loads are issued before any store so they overlap in flight.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld,
-                                          const bf16* __restrict__ base,
-                                          long long row_stride, int row0,
-                                          int nrows) {
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  constexpr int ITER = 64 * VPR / THREADS;
-  uint4 reg[ITER];
-#pragma unroll
-  for (int it = 0; it < ITER; ++it) {
-    const int i = threadIdx.x + it * THREADS;
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const int gr = row0 + r;
-    reg[it] = gr < nrows
-                  ? __ldg(reinterpret_cast<const uint4*>(
-                        base + (long long)gr * row_stride + c))
-                  : make_uint4(0u, 0u, 0u, 0u);
-  }
-#pragma unroll
-  for (int it = 0; it < ITER; ++it) {
-    const int i = threadIdx.x + it * THREADS;
-    const int r = i / VPR, c = (i % VPR) * 8;
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = reg[it];
-  }
+// the two floats of a bf16 pair packed by sm90::pack_bf16
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
-// out[16, 64] (fp32, ld LDS) = A[16, D] · B[64, D]ᵀ for one warp: A rows
-// start at `a` (bf16, ld LDT), B's 64 rows at `b` (bf16, ld LDT).
 template <int D>
-__device__ __forceinline__ void warp_abt(float* out, const bf16* a,
-                                         const bf16* b) {
-  using L = BwdSmem<D>;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-    wmma::load_matrix_sync(af, a + kk * 16, L::LDT);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      // B stored [row, d] row-major is Bᵀ [d, row] column-major
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bf;
-      wmma::load_matrix_sync(bf, b + (n * 16) * L::LDT + kk * 16, L::LDT);
-      wmma::mma_sync(acc[n], af, bf, acc[n]);
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ dsum,
+                        bf16* __restrict__ dq, int Sq, int Skv, int Hq,
+                        int Hkv, long long dq_sb, long long dq_ss,
+                        long long dq_sh, float scale, int causal, int window,
+                        int delta) {
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw);
+  const uint32_t q_full = base + L::bar_off;
+  const uint32_t full0 = q_full + 8, empty0 = q_full + 8 * (1 + STAGES);
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int hk = h / (Hq / Hkv);
+  const bool is_causal = causal != 0;
+  int lo, hi;
+  mtt::live_tile_range(BK, (Skv + BK - 1) / BK, q0 + delta,
+                       min(q0 + BQ, Sq) - 1 + delta, is_causal, window, &lo,
+                       &hi);
+  const int n = hi > lo ? hi - lo : 0;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(full0 + 8 * s, 1);
+      sm90::mbar_init(empty0 + 8 * s, 8);  // one arrival per consumer warp
     }
+    sm90::fence_barrier_init();
   }
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-    wmma::store_matrix_sync(out + n * 16, acc[n], L::LDS, wmma::mem_row_major);
-}
+  __syncthreads();
 
-// acc[16, D] (fp32, ld LDA) += A[16, 64] · B[64, D] for one warp: A is a
-// bf16 score-shaped tile (ld LDP), B a bf16 input tile (ld LDT).
-template <int D>
-__device__ __forceinline__ void warp_acc_ab(float* acc, const bf16* a,
-                                            const bf16* b) {
-  using L = BwdSmem<D>;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf;
-    wmma::load_matrix_sync(cf, acc + n * 16, L::LDA, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::load_matrix_sync(af, a + kk * 16, L::LDP);
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf;
-      wmma::load_matrix_sync(bf, b + (kk * 16) * L::LDT + n * 16, L::LDT);
-      wmma::mma_sync(cf, af, bf, cf);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread issues every TMA load ----
+    sm90::reg_dealloc<24>();
+    if (threadIdx.x == 256 && n > 0) {
+      sm90::mbar_arrive_expect_tx(q_full, 2 * L::q_bytes);
+      for (int cb = 0; cb < L::CB; ++cb) {
+        sm90::tma_load_4d(base + L::q_off + cb * BQ * 128, &tq, q_full,
+                          cb * 64, h, q0, b);
+        sm90::tma_load_4d(base + L::do_off + cb * BQ * 128, &tdo, q_full,
+                          cb * 64, h, q0, b);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES)
+          sm90::mbar_wait(empty0 + 8 * s, ((i / STAGES) & 1) ^ 1);
+        const int k0 = (lo + i) * BK;
+        const uint32_t full = full0 + 8 * s;
+        sm90::mbar_arrive_expect_tx(full, 2 * L::kv_bytes);
+        for (int cb = 0; cb < L::CB; ++cb) {
+          sm90::tma_load_4d(base + L::k_off + s * L::kv_bytes + cb * BK * 128,
+                            &tk, full, cb * 64, hk, k0, b);
+          sm90::tma_load_4d(base + L::v_off + s * L::kv_bytes + cb * BK * 128,
+                            &tv, full, cb * 64, hk, k0, b);
+        }
+      }
     }
-    wmma::store_matrix_sync(acc + n * 16, cf, L::LDA, wmma::mem_row_major);
-  }
-}
+  } else {
+    // ---- consumers: warpgroup wg owns q rows [q0 + 64 wg, + 64) ----
+    sm90::reg_alloc<240>();
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int r0 = (t / 32) * 16 + lane / 4;  // rows r0 and r0 + 8
+    const int c0 = 2 * (lane % 4);            // columns 8 j + c0 and + 1
+    const float sl2 = scale * LOG2E;
+    const int qrow = q0 + 64 * wg + r0;  // row r0 (query index)
+    const uint32_t q_wg = base + L::q_off + wg * 64 * 128;
+    const uint32_t do_wg = base + L::do_off + wg * 64 * 128;
 
-// one warp writes rows [row0, row0 + 16) of a fp32 accumulator, times
-// `mul`, as bf16 rows of `out` (row stride `ss`), rows < nrows only
-template <int D>
-__device__ __forceinline__ void emit_rows(bf16* out, long long ss,
-                                          const float* acc, int row0,
-                                          int grow0, int nrows, float mul,
-                                          int lane) {
-  using L = BwdSmem<D>;
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = row0 + rr;
-    if (grow0 + r >= nrows) break;
-    bf16* orow = out + (long long)(grow0 + r) * ss;
-    for (int c = lane; c < D; c += 32)
-      orow[c] = __float2bfloat16(acc[r * L::LDA + c] * mul);
+    // this thread's two rows' lse·log2 e and dsum (0 past Sq)
+    float l2[2], dsr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qrow + 8 * r;
+      const long long at = ((long long)b * Hq + h) * Sq + row;
+      l2[r] = row < Sq ? lse[at] * LOG2E : 0.f;
+      dsr[r] = row < Sq ? dsum[at] : 0.f;
+    }
+
+    float dqa[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+
+    if (n > 0) sm90::mbar_wait(q_full, 0);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % STAGES;
+      const int k0 = (lo + i) * BK;
+      sm90::mbar_wait(full0 + 8 * s, (i / STAGES) & 1);
+      const uint32_t k_s = base + L::k_off + s * L::kv_bytes;
+      const uint32_t v_s = base + L::v_off + s * L::kv_bytes;
+
+      // S = Q Kᵀ and dP = dO Vᵀ: 64 q rows x BK kv columns, k = D
+      float sc[BK / 2], dp[BK / 2];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::Wgmma<BK>::ss(
+            sc, sm90::desc_kmajor(q_wg + (kk / 4) * BQ * 128 + (kk % 4) * 32),
+            sm90::desc_kmajor(k_s + (kk / 4) * BK * 128 + (kk % 4) * 32),
+            kk > 0);
+      sm90::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::Wgmma<BK>::ss(
+            dp,
+            sm90::desc_kmajor(do_wg + (kk / 4) * BQ * 128 + (kk % 4) * 32),
+            sm90::desc_kmajor(v_s + (kk / 4) * BK * 128 + (kk % 4) * 32),
+            kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(dp);
+
+      // dS as the A operand of dQ += dS K: k step kk covers kv columns
+      // [16 kk, +16); hi is dS rounded to bf16, lo the rounding of the rest
+      const bool full_tile =
+          mtt::tile_class(q0, BQ, k0, BK, Sq, Skv, is_causal, window,
+                          delta) == mtt::TILE_FULL;
+      uint32_t sa[BK / 16][4], sl[BK / 16][4];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        float d[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(sc[4 * j + e], sl2, -l2[e >> 1]));
+          if (!full_tile) {
+            const int col = k0 + 8 * j + c0 + (e & 1);
+            if (!(col < Skv && mtt::visible(qrow + 8 * (e >> 1) + delta, col,
+                                            is_causal, window)))
+              p = 0.f;
+          }
+          d[e] = p * (dp[4 * j + e] - dsr[e >> 1]);
+        }
+        const uint32_t h01 = sm90::pack_bf16(d[0], d[1]);
+        const uint32_t h23 = sm90::pack_bf16(d[2], d[3]);
+        sa[j / 2][2 * (j % 2)] = h01;
+        sa[j / 2][2 * (j % 2) + 1] = h23;
+        const float2 f01 = unpack_bf16(h01), f23 = unpack_bf16(h23);
+        sl[j / 2][2 * (j % 2)] = sm90::pack_bf16(d[0] - f01.x, d[1] - f01.y);
+        sl[j / 2][2 * (j % 2) + 1] =
+            sm90::pack_bf16(d[2] - f23.x, d[3] - f23.y);
+      }
+
+      // dQ += dS K: k = BK in steps of 16 kv rows, K as the MN-major B
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        sm90::Wgmma<D>::rs(dqa, sa[kk],
+                           sm90::desc_mnmajor(k_s + kk * 16 * 128, BK * 128));
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        sm90::Wgmma<D>::rs(dqa, sl[kk],
+                           sm90::desc_mnmajor(k_s + kk * 16 * 128, BK * 128));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dqa);
+      if (lane == 0) sm90::mbar_arrive(empty0 + 8 * s);
+    }
+
+    // ---- epilogue: scale·dQ through the warpgroup's Q rows ----
+    sm90::fence_proxy_async();
+    unsigned char* q_tile = sbase + L::q_off;
+    sm90::stage_rows<D>(q_tile, BQ, 64 * wg, dqa, scale, scale);
+    sm90::named_barrier_sync(1 + wg, 128);
+    sm90::copy_rows_out<D>(q_tile, BQ, 64 * wg, dq + b * dq_sb + h * dq_sh,
+                           dq_ss, q0 + 64 * wg, Sq);
   }
 }
 
@@ -173,127 +278,46 @@ struct Strides {
 };
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const bf16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ dsum, bf16* __restrict__ dq,
-                        int Sq, int Skv, int Hq, int Hkv, Strides qs,
-                        Strides ks, Strides vs, Strides dos, Strides dqs,
-                        float scale, int causal, int window, int delta) {
-  using L = BwdSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* p = smem;
-  bf16* Qs = reinterpret_cast<bf16*>(p);   p += L::tile_bytes;
-  bf16* dOs = reinterpret_cast<bf16*>(p);  p += L::tile_bytes;
-  bf16* Ks = reinterpret_cast<bf16*>(p);   p += L::tile_bytes;
-  bf16* Vs = reinterpret_cast<bf16*>(p);   p += L::tile_bytes;
-  float* Ss = reinterpret_cast<float*>(p); p += L::s_bytes;
-  float* dPs = reinterpret_cast<float*>(p); p += L::s_bytes;
-  bf16* dSs = reinterpret_cast<bf16*>(p);  p += L::p_bytes;
-  float* Acc = reinterpret_cast<float*>(p); p += L::acc_bytes;
-  float* lse_s = reinterpret_cast<float*>(p);
-  float* dsum_s = lse_s + BQ;
-
-  const int qi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = qi * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bool is_causal = causal != 0;
-
-  load_tile<D>(Qs, L::LDT, q + b * qs.b + h * qs.h, qs.s, q0, Sq);
-  load_tile<D>(dOs, L::LDT, dout + b * dos.b + h * dos.h, dos.s, q0, Sq);
-  for (int i = threadIdx.x; i < BQ * L::LDA; i += THREADS) Acc[i] = 0.f;
-  if (threadIdx.x < BQ) {
-    const int row = q0 + threadIdx.x;
-    const long long at = ((long long)b * Hq + h) * Sq + row;
-    lse_s[threadIdx.x] = row < Sq ? lse[at] : 0.f;
-    dsum_s[threadIdx.x] = row < Sq ? dsum[at] : 0.f;
-  }
-  __syncthreads();
-
-  // kv tiles the block's valid query rows can see (the forward's bounds)
-  const int q_last = min(q0 + BQ, Sq) - 1;
-  int lo, hi;
-  mtt::live_tile_range(BK, (Skv + BK - 1) / BK, q0 + delta, q_last + delta,
-                       is_causal, window, &lo, &hi);
-
-  const bf16* kb = k + b * ks.b + hk * ks.h;
-  const bf16* vb = v + b * vs.b + hk * vs.h;
-  const int row0 = warp * 16;
-  for (int ki = lo; ki < hi; ++ki) {
-    const int k0 = ki * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(Ks, L::LDT, kb, ks.s, k0, Skv);
-    load_tile<D>(Vs, L::LDT, vb, vs.s, k0, Skv);
-    __syncthreads();
-
-    // S = Q Kᵀ and dP = dO Vᵀ for this warp's 16 rows x 64 kv columns
-    warp_abt<D>(Ss + row0 * L::LDS, Qs + row0 * L::LDT, Ks);
-    warp_abt<D>(dPs + row0 * L::LDS, dOs + row0 * L::LDT, Vs);
-    __syncwarp();
-
-    // ds = p (dp - dsum), p = exp(s scale - lse) where visible, else 0
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = row0 + rr;
-      const bool row_ok = q0 + r < Sq;
-      const int q_pos = q0 + r + delta;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int j = lane + 32 * c;
-        const int k_pos = k0 + j;
-        const bool vis = row_ok && k_pos < Skv &&
-                         mtt::visible(q_pos, k_pos, is_causal, window);
-        const float pr =
-            vis ? __expf(Ss[r * L::LDS + j] * scale - lse_s[r]) : 0.f;
-        dSs[r * L::LDP + j] =
-            __float2bfloat16(pr * (dPs[r * L::LDS + j] - dsum_s[r]));
-      }
-    }
-    __syncwarp();
-
-    // dQ += dS K  (the scale is applied once, at the end)
-    warp_acc_ab<D>(Acc + row0 * L::LDA, dSs + row0 * L::LDP, Ks);
-    __syncwarp();
-  }
-
-  emit_rows<D>(dq + b * dqs.b + h * dqs.h, dqs.s, Acc, row0, q0, Sq, scale,
-               lane);
-}
-
-template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* dsum,
                       void* dq, int B, int Sq, int Skv, int Hq, int Hkv,
                       Strides qs, Strides ks, Strides vs, Strides dos,
                       Strides dqs, float scale, int causal, int window,
-                      int delta, cudaStream_t stream) {
-  constexpr size_t bytes = BwdSmem<D>::dq_total;
+                      int delta, cudaStream_t stream, int* map_error) {
+  using L = DqSmem<D>;
+  CUtensorMap mq, mk, mv, mdo;
+  *map_error =
+      sm90::make_tile_map(&mq, q, D, Hq, Sq, B, qs.b, qs.s, qs.h, BQ);
+  if (!*map_error)
+    *map_error =
+        sm90::make_tile_map(&mdo, dout, D, Hq, Sq, B, dos.b, dos.s, dos.h, BQ);
+  if (!*map_error)
+    *map_error =
+        sm90::make_tile_map(&mk, k, D, Hkv, Skv, B, ks.b, ks.s, ks.h, BK);
+  if (!*map_error)
+    *map_error =
+        sm90::make_tile_map(&mv, v, D, Hkv, Skv, B, vs.b, vs.s, vs.h, BK);
+  if (*map_error) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      flash_bwd_dq_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::total);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(dsum),
-      static_cast<bf16*>(dq), Sq, Skv, Hq, Hkv, qs, ks, vs, dos, dqs, scale,
-      causal, window, delta);
+  dim3 grid(Hq, B, (Sq + BQ - 1) / BQ);
+  flash_bwd_dq_kernel<D><<<grid, THREADS, L::total, stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(dsum), static_cast<bf16*>(dq), Sq, Skv, Hq,
+      Hkv, dqs.b, dqs.s, dqs.h, scale, causal, window, delta);
   return cudaGetLastError();
-}
-
-bool bad_geometry(int B, int Sq, int Skv, int Hq, int Hkv) {
-  return B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv;
 }
 
 }  // namespace
 
 // Plain C entry for ctypes. Strides are in elements, (batch, seq, head)
-// for each [B, S, H, D] tensor; the head dim must be contiguous. lse and
-// dsum are contiguous [B, Hq, Sq] fp32. window <= 0 means no sliding
-// window. Returns the cudaError_t of the launch.
+// for each [B, S, H, D] tensor; the head dim must be contiguous and the
+// other strides multiples of 8 elements (TMA's 16-byte rule). lse and dsum
+// are contiguous [B, Hq, Sq] fp32. window <= 0 means no sliding window.
+// Returns the cudaError_t of the launch, or sm90::kTensorMapError + the
+// CUresult when a tensor map cannot be built.
 extern "C" int mtt_flash_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* dsum, void* dq, int B, int Sq, int Skv,
@@ -303,18 +327,21 @@ extern "C" int mtt_flash_bwd_dq_bf16(
     long long do_sh, long long dq_sb, long long dq_ss, long long dq_sh,
     float scale, int causal, int window, int delta, void* stream) {
   cudaGetLastError();  // clear any stale error of this runtime
-  if (bad_geometry(B, Sq, Skv, Hq, Hkv)) return (int)cudaErrorInvalidValue;
+  if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv)
+    return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, dos{do_sb, do_ss, do_sh},
       dqs{dq_sb, dq_ss, dq_sh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int map_error = 0;
+  cudaError_t err = cudaErrorInvalidValue;
   if (D == 128)
-    return (int)launch_dq<128>(q, k, v, dout, lse, dsum, dq, B, Sq, Skv, Hq,
-                               Hkv, qs, ks, vs, dos, dqs, scale, causal,
-                               window, delta, st);
-  if (D == 64)
-    return (int)launch_dq<64>(q, k, v, dout, lse, dsum, dq, B, Sq, Skv, Hq,
-                              Hkv, qs, ks, vs, dos, dqs, scale, causal,
-                              window, delta, st);
-  return (int)cudaErrorInvalidValue;
+    err = launch_dq<128>(q, k, v, dout, lse, dsum, dq, B, Sq, Skv, Hq, Hkv, qs,
+                         ks, vs, dos, dqs, scale, causal, window, delta, s,
+                         &map_error);
+  else if (D == 64)
+    err = launch_dq<64>(q, k, v, dout, lse, dsum, dq, B, Sq, Skv, Hq, Hkv, qs,
+                        ks, vs, dos, dqs, scale, causal, window, delta, s,
+                        &map_error);
+  return map_error ? map_error : (int)err;
 }

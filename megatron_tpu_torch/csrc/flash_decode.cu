@@ -1,7 +1,7 @@
 // flash_decode: Sq-small attention over a per-slot KV cache for Hopper
 // (sm_90a), bf16 in/out — one decode tick of the continuous-batching
-// engine (Sq = 1), and the speculative verify pass later (Sq = k + 1).
-// Two launches of one kernel body, as in the TPU package:
+// engine (Sq = 1), and the speculative verify pass (Sq = k + 1). Two
+// launches of one kernel body, as in the TPU package:
 //
 //  * dense (PAGED = false): the [B, S, Hkv, D] slot cache. Replaces
 //    megatron_tpu/ops/pallas/flash_template.py _decode_kernel in its dense
@@ -15,133 +15,192 @@
 //
 // What bounds it: bytes. Every visible cache position is read once as
 // K and V (2 * Hkv * D * 2 bytes) for 4 * Sq * G * D FLOPs, about one
-// FLOP per byte at G = 1, far below the card's ~295 FLOP/byte ridge. So
-// the kernel reads only the visible prefix of each slot, once, with
-// 16-byte coalesced loads, and does its arithmetic with plain fp32 FMAs
-// from shared memory. Simple first: no split-K over the sequence (one
-// block walks a slot's whole prefix), no cp.async/TMA double buffering —
-// those are later work.
+// FLOP per byte at G = 1 and 20 in the Sq-5 GQA-4 verify form, far below
+// the card's ~295 FLOP/byte ridge. So the design spreads the bytes over
+// every SM, keeps them in flight, and keeps the arithmetic off the
+// critical path.
 //
 // Design, against the TPU kernel:
-//  * One thread block per (slot, kv head) holds all R = Sq * G query rows
-//    of that kv head (GQA without replicating K/V). Row r is query
-//    j = r / G at position kv_len - 1 + j and sees k_pos < kv_len + j.
-//  * The block loops over kv tiles only from the window's first live tile
-//    to ceil((kv_len + Sq - 1) / BK) (masks.cuh live_tile_range): the TPU
-//    kernel's decode_block_live predicate as loop bounds, so a young slot
-//    in a long cache pays only for its own prefix.
-//  * The cache is read in its stored [B, S, Hkv, D] layout through
-//    strides. The TPU launch transposed the whole cache to [B, Hkv, S, D]
-//    on every call, a full copy of the cache per tick.
-//  * Paged: the TPU grid fetched one page per step through the scalar-
-//    prefetched table. Here a kv tile is still BK positions, which may
-//    span several pages (ps < BK) or part of one (ps > BK), and pages
-//    that are consecutive in a row are scattered in the pool (LIFO free
-//    list, shared prefixes). So every thread resolves the physical page
-//    of each row it loads from the table (one int32 read, shared through
-//    L1 by the row's 16 loaders) and addresses it in int64 from the
-//    layer's pool pointer: one layer's pool passes 2^31 bytes at
-//    serving sizes. ps must be a power of two (the position splits into
-//    page and row with a shift and a mask). The table and kv_lengths
-//    are read on the device: nothing syncs with the host per layer, so
-//    the wrapper cannot check the entries; the kernel reads an entry
-//    outside [0, P) as the scratch page instead of outside the pool.
-//  * Masked scores take the finite NEG_INF and l is clamped at 1e-30, as
-//    in the TPU kernel; p, l and acc stay fp32. Scratch-page entries
-//    (idle rows, pages released behind a sliding window) hold finite
-//    values and are masked to p = 0, never NaN.
+//  * Split-K. The TPU grid walked a slot's kv blocks in sequence; one
+//    block per (slot, kv head) walking a 2048-position prefix leaves most
+//    SMs idle while the longest slots finish. Here the grid is
+//    (Hkv, B, splits): split s owns a fixed run of split_tiles 64-position
+//    tiles of its slot's live range (masks.cuh decode_split_range; the
+//    host picks split_tiles from the cache length and B * Hkv alone,
+//    masks.py decode_split_tiles, since kv_lengths stay on the device). A
+//    split past its slot's live range, or behind its window, exits at
+//    once.
+//  * In-kernel merge. Each warp writes its unnormalised partial o (fp32
+//    [R, D]) with its row max m (log2 units) and sum l to a workspace the
+//    wrapper allocates. The last split of a (slot, kv head) to finish, told
+//    by an atomic ticket it then resets to 0, merges the partials in split
+//    order (deterministic) and writes o. A partial that saw nothing has
+//    m = NEG_INF and l = 0 and adds nothing; a row that sees nothing gets
+//    o = 0 (l clamped at 1e-30). One launch per call: no second merge
+//    kernel on a host-bound tick.
+//  * Loads: the K and V tiles are double-buffered with 16-byte cp.async
+//    (cp.async.cg, zero-filled past the slot's frontier), so the next
+//    tile's bytes are in flight while this tile's math runs. Shared tiles
+//    are XOR-swizzled by 16-byte chunk, so ldmatrix reads are
+//    conflict-free. Paged: every thread resolves the physical page of each
+//    row it loads from the table (one int32 read, shared through L1 by the
+//    row's loaders) and addresses it in int64 from the layer's pool
+//    pointer; a tile may span several scattered pages (ps < 64) or part of
+//    one. ps is a power of two. An entry outside [0, P) reads as the
+//    scratch page 0.
+//  * Math on the tensor cores: mma.sync m16n8k16 (bf16 in, fp32 out) for
+//    S = Q·Kᵀ and O += P·V, with the R = Sq * G query rows of a kv head
+//    padded to M m16 tiles (M = 1, 2, 4 for R <= 16, 32, 64). The 4 warps
+//    split each 64-key tile: warp w takes m16 tile w / (4 / M) and 16 M
+//    keys, keeps its own S, P and O in registers (P is S's accumulator
+//    repacked as the A fragment), and runs its own online softmax in the
+//    log2 domain; its partial joins the split merge, so no warp waits on
+//    another inside the loop. At R = 1 the padding costs tensor-core
+//    cycles, which are not the limit there; at R = 20 (the verify form)
+//    the products no longer run on the CUDA cores.
+//  * GQA without replicating K/V: row r is query j = r / G of head
+//    h * G + r % G, at position kv_len - 1 + j, seeing k_pos < kv_len + j
+//    (and, with a window W, k_pos > its position - W). The cache is read
+//    in its stored layout through strides.
+//  * Masked scores are -inf before the max (p = 0, never NaN); m starts at
+//    the finite NEG_INF as in the TPU kernel. Scratch-page entries (idle
+//    rows, pages released behind a window) hold finite values and are
+//    masked to p = 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "masks.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BK = 64;
+constexpr int BK = 64;  // kv positions per tile
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_ROWS = 64;
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+// m16 tiles for R query rows (the wrapper sizes the workspace by the same
+// rule: flash_template.decode_plan)
+constexpr int m_tiles(int R) { return R <= 16 ? 1 : (R <= 32 ? 2 : 4); }
+
+// Shared-memory plan: Q [16 M rows][D], then K and V [2 stages][BK][D],
+// bf16, each row D * 2 bytes with 16-byte chunk g of row r at g ^ (r % 8).
+template <int D, int M>
 struct DecSmem {
-  // bf16 K/V row stride: D + 2 elements is an odd number of 4-byte words,
-  // so threads reading different rows at the same column hit distinct
-  // banks in the score loop
-  static constexpr int LDK = D + 2;
-  static size_t bytes(int R) {
-    return (size_t(2) * R * D + size_t(R) * BK + size_t(3) * R) * 4 +
-           size_t(2) * BK * LDK * 2;
-  }
+  static constexpr uint32_t q_bytes = 16 * M * D * 2;
+  static constexpr uint32_t kv_bytes = BK * D * 2;
+  static constexpr uint32_t k_off = q_bytes;  // + stage * kv_bytes
+  static constexpr uint32_t v_off = k_off + 2 * kv_bytes;
+  static constexpr uint32_t total = v_off + 2 * kv_bytes;
 };
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+template <int D>
+__device__ __forceinline__ uint32_t swz(int r, int g) {
+  return r * (D * 2) + ((g ^ (r & 7)) << 4);
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += A · B, m16n8k16, bf16 in, fp32 accumulate. Thread l holds d[0..1]
+// at row l / 4, columns 2 (l % 4) and + 1, d[2..3] at row l / 4 + 8.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Dense: k/v strides are (slot, position, head). Paged: (page, row in
-// page, head), S = max_pages << page_shift, page_table [B, max_pages]
-// with entries in [0, n_pages).
-template <int D, bool PAGED>
+// page, head), S = max_pages << page_shift, page_table [B, max_pages].
+// Workspace: part_o [B * Hkv][splits * 4 / M][R][D] and part_ml
+// [B * Hkv][splits * 4 / M][R][2] fp32, tickets [B * Hkv] int32 (0 at
+// launch; left at 0).
+template <int D, int M, bool PAGED>
 __global__ void __launch_bounds__(THREADS)
     flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
                         const int* __restrict__ kv_lengths,
                         const int* __restrict__ page_table, int n_pages,
-                        int max_pages, int page_shift,
-                        bf16* __restrict__ o, int Sq, int S, int Hq, int Hkv,
+                        int max_pages, int page_shift, bf16* __restrict__ o,
+                        float* __restrict__ part_o,
+                        float* __restrict__ part_ml, int* __restrict__ tickets,
+                        int Sq, int S, int Hq, int Hkv, int split_tiles,
                         long long q_sb, long long q_ss, long long q_sh,
                         long long k_sb, long long k_ss, long long k_sh,
                         long long v_sb, long long v_ss, long long v_sh,
                         long long o_sb, long long o_ss, long long o_sh,
                         float scale, int window) {
-  constexpr int LDK = DecSmem<D>::LDK;
-  const int h = blockIdx.x, b = blockIdx.y;
+  using L = DecSmem<D, M>;
+  constexpr int WPM = WARPS / M;  // warps per m16 tile
+  constexpr int KPW = BK / WPM;   // keys of each tile per warp (16 M)
+  constexpr int NT = KPW / 8;     // n8 tiles of S per warp
+  constexpr int CPR = D / 8;      // 16-byte chunks per row
+  const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int G = Hq / Hkv;
   const int R = Sq * G;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);  // [R][D], unscaled
-  float* Acc = Qs + R * D;                     // [R][D]
-  float* Ss = Acc + R * D;                     // [R][BK] scores, then p
-  float* m_s = Ss + R * BK;
-  float* l_s = m_s + R;
-  float* a_s = l_s + R;
-  bf16* Ks = reinterpret_cast<bf16*>(a_s + R);  // [BK][LDK]
-  bf16* Vs = Ks + BK * LDK;
-
-  for (int i = tid; i < R * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    const int j = r / G, g = r % G;
-    Qs[i] = __bfloat162float(
-        q[b * q_sb + j * q_ss + (long long)(h * G + g) * q_sh + d]);
-    Acc[i] = 0.f;
-  }
-  for (int r = tid; r < R; r += THREADS) {
-    m_s[r] = mtt::NEG_INF;
-    l_s[r] = 0.f;
-  }
   const int kv_len = kv_lengths[b];
-  // queries sit at [kv_len - 1, kv_len + Sq - 2]; positions past the
-  // deepest query (or past the cache) are never read
-  const int k_end = min(S, kv_len + Sq - 1);
   int lo, hi;
   mtt::live_tile_range(BK, (S + BK - 1) / BK, kv_len - 1, kv_len + Sq - 2,
                        true, window, &lo, &hi);
-  __syncthreads();
+  const int n_live = mtt::decode_live_splits(lo, hi, split_tiles);
+  if (split >= n_live) return;
+  int t0, t1;
+  mtt::decode_split_range(split, split_tiles, lo, hi, &t0, &t1);
+  const int nt = t1 - t0;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sb = sm90::smem_u32(smem);
+
+  // Q rows r < R (query r / G, head h * G + r % G), zero padding after
+  for (int i = tid; i < 16 * M * CPR; i += THREADS) {
+    const int r = i / CPR, c = i % CPR;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < R)
+      val = *reinterpret_cast<const uint4*>(
+          q + b * q_sb + (r / G) * q_ss + (long long)(h * G + r % G) * q_sh +
+          c * 8);
+    *reinterpret_cast<uint4*>(smem + swz<D>(r, c)) = val;
+  }
 
   const bf16* kb = k + h * k_sh;
   const bf16* vb = v + h * v_sh;
@@ -151,218 +210,315 @@ __global__ void __launch_bounds__(THREADS)
   }
   const int* table = PAGED ? page_table + (long long)b * max_pages : nullptr;
   const int row_mask = (1 << page_shift) - 1;
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  constexpr int ITER = BK * VPR / THREADS;
+  // positions past the deepest query (or past the cache) are never read
+  const int k_end = min(S, kv_len + Sq - 1);
 
-  for (int ki = lo; ki < hi; ++ki) {
-    const int k0 = ki * BK;
-    // K/V tile: issue every load before the first store
-    uint4 kr[ITER], vr[ITER];
+  auto load_tile = [&](int ti, int stage) {
+    const int k0 = ti * BK;
 #pragma unroll
-    for (int it = 0; it < ITER; ++it) {
+    for (int it = 0; it < BK * CPR / THREADS; ++it) {
       const int i = tid + it * THREADS;
-      const int r = i / VPR, c = (i % VPR) * 8;
+      const int r = i / CPR, c = i % CPR;
       const int kp = k0 + r;
       const bool ok = kp < k_end;
       long long ko = (long long)kp * k_ss, vo = (long long)kp * v_ss;
       if constexpr (PAGED) {
-        // this row's physical page, resolved per row: a tile may span
-        // several scattered pages
         int page = ok ? __ldg(table + (kp >> page_shift)) : 0;
         page = (unsigned)page < (unsigned)n_pages ? page : 0;
         const long long rp = kp & row_mask;
         ko = (long long)page * k_sb + rp * k_ss;
         vo = (long long)page * v_sb + rp * v_ss;
       }
-      kr[it] = ok ? __ldg(reinterpret_cast<const uint4*>(kb + ko + c))
-                  : make_uint4(0u, 0u, 0u, 0u);
-      vr[it] = ok ? __ldg(reinterpret_cast<const uint4*>(vb + vo + c))
-                  : make_uint4(0u, 0u, 0u, 0u);
+      const uint32_t so = stage * L::kv_bytes + swz<D>(r, c);
+      cp_async16(sb + L::k_off + so, ok ? kb + ko + c * 8 : kb, ok ? 16 : 0);
+      cp_async16(sb + L::v_off + so, ok ? vb + vo + c * 8 : vb, ok ? 16 : 0);
+    }
+  };
+
+  const int mt = warp / WPM;  // this warp's m16 tile
+  const int ksl = warp % WPM;  // and its key slice of each tile
+  const int r0 = lane / 4, c2 = 2 * (lane % 4);
+  const float sl2 = scale * LOG2E;
+  int qpos[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    qpos[hh] = kv_len - 1 + (mt * 16 + r0 + 8 * hh) / G;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m[2] = {mtt::NEG_INF, mtt::NEG_INF}, l[2] = {0.f, 0.f};
+
+  if (nt > 0) load_tile(t0, 0);
+  cp_async_commit();
+  for (int i = 0; i < nt; ++i) {
+    if (i + 1 < nt) load_tile(t0 + i + 1, (i + 1) & 1);
+    cp_async_commit();  // possibly empty: wait_group 1 then covers tile i
+    cp_async_wait<1>();
+    __syncthreads();
+    const uint32_t k_s = sb + L::k_off + (i & 1) * L::kv_bytes;
+    const uint32_t v_s = sb + L::v_off + (i & 1) * L::kv_bytes;
+    const int key0 = ksl * KPW;  // the warp's first key within the tile
+    const int kpos0 = (t0 + i) * BK + key0;
+
+    // S = Q Kᵀ: 16 rows x KPW keys, k = D
+    float sc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(sb + swz<D>(mt * 16 + (lane & 7) + 8 * ((lane >> 3) & 1),
+                          2 * kk + (lane >> 4)),
+              a);
+#pragma unroll
+      for (int nn = 0; nn < NT; nn += 2) {
+        uint32_t bk[4];
+        ldsm_x4(k_s + swz<D>(key0 + 8 * nn + (lane & 7) + 8 * (lane >> 4),
+                             2 * kk + ((lane >> 3) & 1)),
+                bk);
+        mma_bf16(sc[nn], a, bk[0], bk[1]);
+        mma_bf16(sc[nn + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // mask, then the online softmax in the log2 domain (m is
+    // max(s) * scale * log2 e); the 4 lanes of a row reduce with shuffles
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nn = 0; nn < NT; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = kpos0 + 8 * nn + c2 + (e & 1);
+        if (!(kpos < S && mtt::visible(qpos[e >> 1], kpos, true, window)))
+          sc[nn][e] = -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[nn][e]);
+      }
+    float alpha[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh] * sl2);
+      alpha[hh] = exp2f(m[hh] - m_new);
+      m[hh] = m_new;
+    }
+    // P as the A operand of P·V: k step s covers keys [16 s, +16) of the
+    // warp's slice, i.e. S's n8 tiles 2 s and 2 s + 1
+    uint32_t pa[NT / 2][4];
+#pragma unroll
+    for (int nn = 0; nn < NT; ++nn) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2f(fmaf(sc[nn][e], sl2, -m[e >> 1]));
+        ps[e >> 1] += p[e];
+      }
+      pa[nn / 2][2 * (nn % 2)] = sm90::pack_bf16(p[0], p[1]);
+      pa[nn / 2][2 * (nn % 2) + 1] = sm90::pack_bf16(p[2], p[3]);
     }
 #pragma unroll
-    for (int it = 0; it < ITER; ++it) {
-      const int i = tid + it * THREADS;
-      const int r = i / VPR, c = (i % VPR) * 8;
-      uint32_t* kd = reinterpret_cast<uint32_t*>(Ks + r * LDK + c);
-      uint32_t* vd = reinterpret_cast<uint32_t*>(Vs + r * LDK + c);
-      kd[0] = kr[it].x; kd[1] = kr[it].y; kd[2] = kr[it].z; kd[3] = kr[it].w;
-      vd[0] = vr[it].x; vd[1] = vr[it].y; vd[2] = vr[it].z; vd[3] = vr[it].w;
-    }
-    __syncthreads();
-
-    // scores s[r][j] = q[r] . k[j] * scale
-    for (int i = tid; i < R * BK; i += THREADS) {
-      const int r = i / BK, j = i % BK;
-      const float* qr = Qs + r * D;
-      const __nv_bfloat162* krow =
-          reinterpret_cast<const __nv_bfloat162*>(Ks + j * LDK);
-      float acc = 0.f;
-#pragma unroll 16
-      for (int d2 = 0; d2 < D / 2; ++d2) {
-        const float2 kf = __bfloat1622float2(krow[d2]);
-        acc = fmaf(qr[2 * d2], kf.x, acc);
-        acc = fmaf(qr[2 * d2 + 1], kf.y, acc);
-      }
-      Ss[i] = acc * scale;
-    }
-    __syncthreads();
-
-    // online softmax, one warp per row
-    for (int r = warp; r < R; r += WARPS) {
-      const int q_pos = kv_len - 1 + r / G;
-      float sv[2];
-      bool mk[2];
-      float mx = mtt::NEG_INF;
+    for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + ps[hh];
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int j = lane + 32 * c;
-        const int k_pos = k0 + j;
-        mk[c] = k_pos < S && mtt::visible(q_pos, k_pos, true, window);
-        sv[c] = mk[c] ? Ss[r * BK + j] : mtt::NEG_INF;
-        mx = fmaxf(mx, sv[c]);
-      }
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float psum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float p = mk[c] ? __expf(sv[c] - m_new) : 0.f;
-        psum += p;
-        Ss[r * BK + lane + 32 * c] = p;
-      }
-      psum = warp_sum(psum);
-      if (lane == 0) {
-        const float alpha = __expf(m_prev - m_new);
-        l_s[r] = l_s[r] * alpha + psum;
-        m_s[r] = m_new;
-        a_s[r] = alpha;
-      }
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
     }
-    __syncthreads();
 
-    // acc[r][d] = acc[r][d] * alpha[r] + sum_j p[r][j] * v[j][d]
-    for (int i = tid; i < R * D; i += THREADS) {
-      const int r = i / D, d = i % D;
-      const float* pr = Ss + r * BK;
-      float a = Acc[i] * a_s[r];
-#pragma unroll 16
-      for (int j = 0; j < BK; ++j)
-        a = fmaf(pr[j], __bfloat162float(Vs[j * LDK + d]), a);
-      Acc[i] = a;
-    }
-    __syncthreads();  // K/V/S are reused by the next tile
+    // O += P V: k = the warp's KPW keys, n = D
+#pragma unroll
+    for (int s = 0; s < NT / 2; ++s)
+#pragma unroll
+      for (int nd = 0; nd < D / 8; nd += 2) {
+        uint32_t bv[4];
+        ldsm_x4_t(v_s + swz<D>(key0 + 16 * s + (lane & 7) +
+                                   8 * ((lane >> 3) & 1),
+                               nd + (lane >> 4)),
+                  bv);
+        mma_bf16(acc[nd], pa[s], bv[0], bv[1]);
+        mma_bf16(acc[nd + 1], pa[s], bv[2], bv[3]);
+      }
+    __syncthreads();  // every warp is done with this stage
   }
 
-  for (int i = tid; i < R * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    const int j = r / G, g = r % G;
-    const float l = fmaxf(l_s[r], 1e-30f);
-    o[b * o_sb + j * o_ss + (long long)(h * G + g) * o_sh + d] =
-        __float2bfloat16(Acc[i] / l);
+  // ---- this warp's partial: unnormalised o, m and l of its rows ----
+  const long long bh = (long long)b * Hkv + h;
+  const int n_part = gridDim.z * WPM;
+  const int part = split * WPM + ksl;
+  float* po = part_o + (bh * n_part + part) * R * D;
+  float* pml = part_ml + (bh * n_part + part) * R * 2;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    const int row = mt * 16 + r0 + 8 * hh;
+    if (row < R) {
+      if (lane % 4 == 0) {
+        pml[row * 2] = m[hh];
+        pml[row * 2 + 1] = l[hh];
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(po + row * D + 8 * j + c2) =
+            make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
+    }
+  }
+
+  // ---- the last live split of (slot, kv head) merges, in split order ----
+  __shared__ int is_last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    is_last = atomicAdd(tickets + bh, 1) == n_live - 1;
+    if (is_last) tickets[bh] = 0;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const int np = n_live * WPM;
+  const float* mo = part_o + bh * n_part * R * D;
+  const float* mml = part_ml + bh * n_part * R * 2;
+  for (int i = tid; i < R * (D / 4); i += THREADS) {
+    const int row = i / (D / 4), c = (i % (D / 4)) * 4;
+    float mx = mtt::NEG_INF, den = 0.f;
+    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int p = 0; p < np; ++p) {
+      const long long pr = (long long)p * R + row;
+      const float2 ml = __ldcg(reinterpret_cast<const float2*>(mml + pr * 2));
+      const float4 a =
+          __ldcg(reinterpret_cast<const float4*>(mo + pr * D + c));
+      const float m_new = fmaxf(mx, ml.x);
+      const float s1 = exp2f(mx - m_new), s2 = exp2f(ml.x - m_new);
+      den = den * s1 + ml.y * s2;
+      num.x = num.x * s1 + a.x * s2;
+      num.y = num.y * s1 + a.y * s2;
+      num.z = num.z * s1 + a.z * s2;
+      num.w = num.w * s1 + a.w * s2;
+      mx = m_new;
+    }
+    const float inv = 1.f / fmaxf(den, 1e-30f);
+    uint2 out;
+    out.x = sm90::pack_bf16(num.x * inv, num.y * inv);
+    out.y = sm90::pack_bf16(num.z * inv, num.w * inv);
+    *reinterpret_cast<uint2*>(o + b * o_sb + (row / G) * o_ss +
+                              (long long)(h * G + row % G) * o_sh + c) = out;
   }
 }
 
-template <int D, bool PAGED>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* kv_lengths, const int* page_table,
-                   int n_pages, int max_pages, int page_shift, void* o,
-                   int B, int Sq,
-                   int S, int Hq, int Hkv, const long long* qs,
-                   const long long* ks, const long long* vs,
-                   const long long* os, float scale, int window,
-                   cudaStream_t stream) {
-  const int R = Sq * (Hq / Hkv);
-  const size_t smem = DecSmem<D>::bytes(R);
+struct Args {
+  const void *q, *k, *v;
+  const int *lens, *table;
+  int n_pages, max_pages, page_shift;
+  void* o;
+  float *part_o, *part_ml;
+  int* tickets;
+  int B, Sq, S, Hq, Hkv, split_tiles, n_split;
+  long long qs[3], ks[3], vs[3], os[3];
+  float scale;
+  int window;
+  cudaStream_t stream;
+};
+
+template <int D, int M, bool PAGED>
+cudaError_t launch(const Args& a) {
+  using L = DecSmem<D, M>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_kernel<D, PAGED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_decode_kernel<D, M, PAGED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::total);
   if (err != cudaSuccess) return err;
-  dim3 grid(Hkv, B);
-  flash_decode_kernel<D, PAGED><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), kv_lengths, page_table, n_pages,
-      max_pages, page_shift, static_cast<bf16*>(o), Sq, S, Hq, Hkv, qs[0], qs[1], qs[2],
-      ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], os[0], os[1], os[2], scale,
-      window);
+  dim3 grid(a.Hkv, a.B, a.n_split);
+  flash_decode_kernel<D, M, PAGED><<<grid, THREADS, L::total, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), a.lens, a.table, a.n_pages, a.max_pages,
+      a.page_shift, static_cast<bf16*>(a.o), a.part_o, a.part_ml, a.tickets,
+      a.Sq, a.S, a.Hq, a.Hkv, a.split_tiles, a.qs[0], a.qs[1], a.qs[2],
+      a.ks[0], a.ks[1], a.ks[2], a.vs[0], a.vs[1], a.vs[2], a.os[0], a.os[1],
+      a.os[2], a.scale, a.window);
   return cudaGetLastError();
 }
 
+template <int D, bool PAGED>
+cudaError_t launch_rows(const Args& a) {
+  switch (m_tiles(a.Sq * (a.Hq / a.Hkv))) {
+    case 1: return launch<D, 1, PAGED>(a);
+    case 2: return launch<D, 2, PAGED>(a);
+    default: return launch<D, 4, PAGED>(a);
+  }
+}
+
 template <bool PAGED>
-int dispatch(const void* q, const void* k, const void* v,
-             const void* kv_lengths, const void* page_table, int n_pages,
-             int max_pages, int page_shift, void* o, int B, int Sq, int S,
-             int Hq, int Hkv,
-             int D, const long long* qs, const long long* ks,
-             const long long* vs, const long long* os, float scale,
-             int window, void* stream) {
-  if (B < 1 || Sq < 1 || S < 1 || Hkv < 1 || Hq % Hkv ||
-      Sq * (Hq / Hkv) > MAX_ROWS)
+int dispatch(const Args& a, int D) {
+  const int n_tiles = (a.S + BK - 1) / BK;
+  if (a.B < 1 || a.Sq < 1 || a.S < 1 || a.Hkv < 1 || a.Hq % a.Hkv ||
+      a.Sq * (a.Hq / a.Hkv) > MAX_ROWS || a.split_tiles < 1 ||
+      a.n_split < 1 || (long long)a.n_split * a.split_tiles < n_tiles ||
+      a.n_split > 65535)
     return (int)cudaErrorInvalidValue;
-  const int* lens = static_cast<const int*>(kv_lengths);
-  const int* table = static_cast<const int*>(page_table);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return (int)launch<128, PAGED>(q, k, v, lens, table, n_pages, max_pages,
-                                   page_shift, o, B, Sq, S, Hq, Hkv, qs, ks,
-                                   vs, os, scale, window, st);
-  if (D == 64)
-    return (int)launch<64, PAGED>(q, k, v, lens, table, n_pages, max_pages,
-                                  page_shift, o, B, Sq, S, Hq, Hkv, qs, ks,
-                                  vs, os, scale, window, st);
+  if (D == 128) return (int)launch_rows<128, PAGED>(a);
+  if (D == 64) return (int)launch_rows<64, PAGED>(a);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C entries for ctypes. Each returns the cudaError_t of the launch.
+// Both take the split schedule (split_tiles kv tiles of 64 positions a
+// split, n_split splits with n_split * split_tiles >= ceil(S / 64)) and
+// its workspace: part_o fp32 [B * Hkv * n_split * 4 / M * R * D], part_ml
+// fp32 [B * Hkv * n_split * 4 / M * R * 2] (R = Sq * Hq / Hkv, M = 1, 2, 4
+// for R <= 16, 32, 64) and tickets int32 [B * Hkv], zero before the
+// launch and left at zero by it.
 //
 // Dense: q/o are [B, Sq, Hq, D], k/v [B, S, Hkv, D], kv_lengths [B] int32
 // on the device; strides in elements as (batch, seq, head), head dim
 // contiguous. window <= 0 means no sliding window.
-extern "C" int mtt_flash_decode_bf16(const void* q, const void* k,
-                                     const void* v, const void* kv_lengths,
-                                     void* o, int B, int Sq, int S, int Hq,
-                                     int Hkv, int D, long long q_sb,
-                                     long long q_ss, long long q_sh,
-                                     long long k_sb, long long k_ss,
-                                     long long k_sh, long long v_sb,
-                                     long long v_ss, long long v_sh,
-                                     long long o_sb, long long o_ss,
-                                     long long o_sh, float scale, int window,
-                                     void* stream) {
+extern "C" int mtt_flash_decode_bf16(
+    const void* q, const void* k, const void* v, const void* kv_lengths,
+    void* o, void* part_o, void* part_ml, void* tickets, int B, int Sq, int S,
+    int Hq, int Hkv, int D, int split_tiles, int n_split, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh, float scale, int window,
+    void* stream) {
   cudaGetLastError();  // clear any stale error of this runtime
-  const long long qs[3] = {q_sb, q_ss, q_sh};
-  const long long ks[3] = {k_sb, k_ss, k_sh};
-  const long long vs[3] = {v_sb, v_ss, v_sh};
-  const long long os[3] = {o_sb, o_ss, o_sh};
-  return dispatch<false>(q, k, v, kv_lengths, nullptr, 0, 0, 0, o, B, Sq, S,
-                         Hq, Hkv, D, qs, ks, vs, os, scale, window, stream);
+  const Args a{q, k, v, static_cast<const int*>(kv_lengths), nullptr, 0, 0, 0,
+               o, static_cast<float*>(part_o), static_cast<float*>(part_ml),
+               static_cast<int*>(tickets), B, Sq, S, Hq, Hkv, split_tiles,
+               n_split, {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
+               {v_sb, v_ss, v_sh}, {o_sb, o_ss, o_sh}, scale, window,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<false>(a, D);
 }
 
 // Paged: k/v are one layer's page pools [P, ps, Hkv, D] (P = n_pages)
 // with strides in elements as (page, row in page, head), page_table
 // [B, max_pages] int32 contiguous on the device (entries in [0, P); 0 is
-// the scratch page), ps = 1 << page_shift.
+// the scratch page), ps = 1 << page_shift, S = max_pages * ps.
 extern "C" int mtt_paged_flash_decode_bf16(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* page_table, const void* kv_lengths, void* o, int B, int Sq,
-    int n_pages, int max_pages, int page_shift, int Hq, int Hkv, int D,
-    long long q_sb,
-    long long q_ss, long long q_sh, long long k_sp, long long k_sr,
-    long long k_sh, long long v_sp, long long v_sr, long long v_sh,
-    long long o_sb, long long o_ss, long long o_sh, float scale, int window,
-    void* stream) {
+    const void* page_table, const void* kv_lengths, void* o, void* part_o,
+    void* part_ml, void* tickets, int B, int Sq, int n_pages, int max_pages,
+    int page_shift, int Hq, int Hkv, int D, int split_tiles, int n_split,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sp,
+    long long k_sr, long long k_sh, long long v_sp, long long v_sr,
+    long long v_sh, long long o_sb, long long o_ss, long long o_sh,
+    float scale, int window, void* stream) {
   cudaGetLastError();
   if (n_pages < 1 || max_pages < 1 || page_shift < 0 || page_shift > 20)
     return (int)cudaErrorInvalidValue;
   const long long S = (long long)max_pages << page_shift;
   if (S > (1LL << 30)) return (int)cudaErrorInvalidValue;
-  const long long qs[3] = {q_sb, q_ss, q_sh};
-  const long long ks[3] = {k_sp, k_sr, k_sh};
-  const long long vs[3] = {v_sp, v_sr, v_sh};
-  const long long os[3] = {o_sb, o_ss, o_sh};
-  return dispatch<true>(q, k_pages, v_pages, kv_lengths, page_table,
-                        n_pages, max_pages, page_shift, o, B, Sq, (int)S, Hq,
-                        Hkv, D, qs, ks, vs, os, scale, window, stream);
+  const Args a{q, k_pages, v_pages, static_cast<const int*>(kv_lengths),
+               static_cast<const int*>(page_table), n_pages, max_pages,
+               page_shift, o, static_cast<float*>(part_o),
+               static_cast<float*>(part_ml), static_cast<int*>(tickets), B, Sq,
+               (int)S, Hq, Hkv, split_tiles, n_split, {q_sb, q_ss, q_sh},
+               {k_sp, k_sr, k_sh}, {v_sp, v_sr, v_sh}, {o_sb, o_ss, o_sh},
+               scale, window, static_cast<cudaStream_t>(stream)};
+  return dispatch<true>(a, D);
 }

@@ -90,4 +90,24 @@ __device__ __forceinline__ void live_q_tile_range(int block_q, int n_q,
   *hi = h;
 }
 
+// The split-K decode schedule (masks.py decode_live_splits,
+// decode_split_range). A slot's live kv tiles [lo, hi) are cut into fixed
+// runs of split_tiles tiles from lo; split s owns [lo + s * split_tiles,
+// + split_tiles) clipped to hi. At least one split is live, so a slot with
+// no live tile still writes its (zero) output.
+__device__ __forceinline__ int decode_live_splits(int lo, int hi,
+                                                  int split_tiles) {
+  return hi > lo ? (hi - lo + split_tiles - 1) / split_tiles : 1;
+}
+
+__device__ __forceinline__ void decode_split_range(int split,
+                                                   int split_tiles, int lo,
+                                                   int hi, int* first,
+                                                   int* last) {
+  const int f = lo + split * split_tiles;
+  const int l = f + split_tiles < hi ? f + split_tiles : hi;
+  *first = f;
+  *last = l > f ? l : f;
+}
+
 }  // namespace mtt

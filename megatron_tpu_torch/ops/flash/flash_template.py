@@ -43,7 +43,10 @@ from typing import Optional, Tuple
 import torch
 
 from megatron_tpu_torch.ops.flash import build
-from megatron_tpu_torch.ops.flash.masks import NEG_INF, visible
+from megatron_tpu_torch.ops.flash.masks import (
+    NEG_INF, decode_live_splits, decode_split_range, decode_split_tiles,
+    decode_splits, live_tile_range, visible,
+)
 
 #: head dims the kernels are instantiated for
 KERNEL_HEAD_DIMS = (64, 128)
@@ -64,9 +67,9 @@ _SIGNATURES = {
                       [_P] * 8 + [_I] * 6 + [_L] * 18
                       + [_F, _I, _I, _I, _P]),
     "flash_decode": ("flash_decode", "mtt_flash_decode_bf16",
-                     [_P] * 5 + [_I] * 6 + [_L] * 12 + [_F, _I, _P]),
+                     [_P] * 8 + [_I] * 8 + [_L] * 12 + [_F, _I, _P]),
     "paged_flash_decode": ("flash_decode", "mtt_paged_flash_decode_bf16",
-                           [_P] * 6 + [_I] * 8 + [_L] * 12 + [_F, _I, _P]),
+                           [_P] * 9 + [_I] * 10 + [_L] * 12 + [_F, _I, _P]),
 }
 _entries = {}
 
@@ -436,6 +439,98 @@ def flash_decode_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
 
 
+def decode_plan(s_len: int, b: int, hkv: int, rows: int,
+                sm_count: int = 132) -> dict:
+    """The split-K launch of the decode kernel for a cache of s_len
+    positions (paged: max_pages * ps), b slots, hkv kv heads and
+    rows = Sq * G query rows per kv head: kv tiles per split
+    (masks.decode_split_tiles), splits, grid (Hkv, B, splits), the m16
+    tiles the rows pad to (1, 2, 4 for rows <= 16, 32, 64) and the
+    partials each (slot, kv head) may write (4 warps / m16 tiles a
+    split). csrc/flash_decode.cu m_tiles holds the same row rule."""
+    n_tiles = -(-s_len // DECODE_BLOCK)
+    tiles = decode_split_tiles(n_tiles, b * hkv, sm_count)
+    splits = decode_splits(n_tiles, tiles)
+    m = 1 if rows <= 16 else 2 if rows <= 32 else 4
+    return {"split_tiles": tiles, "splits": splits, "grid": (hkv, b, splits),
+            "m_tiles": m, "partials": splits * (4 // m)}
+
+
+_plans = {}
+_tickets = {}
+
+
+def _decode_launch(s_len: int, b: int, hkv: int, rows: int, d: int, device):
+    """(plan, part_o, part_ml, tickets, stream) of one decode launch on
+    `device`'s current stream. The plan is cached per shape and card. The
+    partials are one fresh torch.empty buffer (every live split writes its
+    own before the merge reads it). The tickets are one int32 per (slot,
+    kv head), kept per (device, stream) and zeroed once: the kernel leaves
+    them at zero, and launches on one stream run in order, so no two
+    launches in flight share a ticket."""
+    key = (s_len, b, hkv, rows, device)
+    plan = _plans.get(key)
+    if plan is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = decode_plan(s_len, b, hkv, rows, sms)
+        _plans[key] = plan
+    n = b * hkv * plan["partials"] * rows
+    work = torch.empty(n * (d + 2), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    tickets = _tickets.get((device, stream))
+    if tickets is None or tickets.numel() < b * hkv:
+        tickets = torch.zeros(max(b * hkv, 1024), dtype=torch.int32,
+                              device=device)
+        _tickets[(device, stream)] = tickets
+    return plan, work[:n * d], work[n * d:], tickets, stream
+
+
+def flash_decode_split_reference(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, kv_lengths: torch.Tensor,
+                                 sliding_window: Optional[int] = None, *,
+                                 split_tiles: int = 1) -> torch.Tensor:
+    """The split-K decode kernel's schedule in plain fp32, for the tests:
+    each slot's live kv tiles (64 positions, masks.live_tile_range) cut
+    into runs of split_tiles (masks.decode_split_range), one unnormalised
+    partial (m, l, o) per split, merged in split order as the kernel's
+    last split does. A split or a row that sees nothing has m = NEG_INF
+    and l = 0, and a row that sees nothing anywhere gives o = 0. Equals
+    flash_decode_reference up to rounding. Shapes as there."""
+    b, sq, hq, d = q.shape
+    s_len, hkv = k.shape[1], k.shape[2]
+    _check_heads(hq, hkv)
+    g = hq // hkv
+    qg = (q.float() / math.sqrt(d)).reshape(b, sq, hkv, g, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    k_pos = torch.arange(s_len, device=q.device)
+    n_tiles = -(-s_len // DECODE_BLOCK)
+    out = torch.zeros(b, hkv, g, sq, d, dtype=torch.float32, device=q.device)
+    for bi, n in enumerate(int(x) for x in kv_lengths):
+        q_pos = n - 1 + torch.arange(sq, device=q.device)
+        vis = visible(q_pos[:, None], k_pos[None, :], causal=True,
+                      window=sliding_window)                     # [Sq, S]
+        lo, hi = live_tile_range(DECODE_BLOCK, n_tiles, n - 1, n + sq - 2,
+                                 causal=True, window=sliding_window)
+        mx = torch.full((hkv, g, sq, 1), NEG_INF, device=q.device)
+        den = torch.zeros_like(mx)
+        num = torch.zeros(hkv, g, sq, d, device=q.device)
+        for split in range(decode_live_splits(lo, hi, split_tiles)):
+            t0, t1 = decode_split_range(split, split_tiles, lo, hi)
+            mask = vis & (k_pos >= t0 * DECODE_BLOCK) & (
+                k_pos < t1 * DECODE_BLOCK)
+            sp = torch.where(mask, s[bi], NEG_INF)
+            m = sp.amax(-1, keepdim=True)
+            p = torch.where(mask, torch.exp(sp - m), 0.0)
+            m_new = torch.maximum(mx, m)
+            s1, s2 = torch.exp(mx - m_new), torch.exp(m - m_new)
+            den = den * s1 + p.sum(-1, keepdim=True) * s2
+            num = num * s1 + torch.einsum("hgqk,khd->hgqd", p,
+                                          v[bi].float()) * s2
+            mx = m_new
+        out[bi] = num / den.clamp_min(1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  kv_lengths: torch.Tensor,
                  sliding_window: Optional[int] = None) -> torch.Tensor:
@@ -466,13 +561,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_decode: kv_lengths must be a contiguous "
                          f"[{b}] int32 tensor on {q.device}")
     window = _window_arg(sliding_window)
+    plan, part_o, part_ml, tickets, stream = _decode_launch(
+        s_len, b, hkv, sq * (hq // hkv), d, q.device)
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     rc = _entry("flash_decode")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lengths.data_ptr(),
-        o.data_ptr(), b, sq, s_len, hq, hkv, d,
+        o.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
+        tickets.data_ptr(), b, sq, s_len, hq, hkv, d, plan["split_tiles"],
+        plan["splits"],
         *_strides(q), *_strides(k), *_strides(v), *_strides(o),
-        1.0 / math.sqrt(d), window,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        1.0 / math.sqrt(d), window, stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_decode kernel launch failed: cudaError {rc}")
@@ -563,14 +661,17 @@ def _paged_decode(name: str, q, k_pages, v_pages, page_table, kv_lengths,
                              f"{dims}-d int32 tensor on {q.device} with {b} "
                              "rows")
     max_pages = page_table.shape[1]
+    plan, part_o, part_ml, tickets, stream = _decode_launch(
+        max_pages * ps, b, hkv, sq * (hq // hkv), d, q.device)
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     rc = _entry("paged_flash_decode")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), kv_lengths.data_ptr(), o.data_ptr(), b, sq,
+        page_table.data_ptr(), kv_lengths.data_ptr(), o.data_ptr(),
+        part_o.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), b, sq,
         n_pages, max_pages, ps.bit_length() - 1, hq, hkv, d,
+        plan["split_tiles"], plan["splits"],
         *_strides(q), *_strides(k_pages), *_strides(v_pages), *_strides(o),
-        1.0 / math.sqrt(d), _window_arg(sliding_window),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        1.0 / math.sqrt(d), _window_arg(sliding_window), stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     paged_flash_decode.launches += 1

@@ -129,6 +129,45 @@ def tile_class(q0: int, block_q: int, k0: int, block_k: int, sq: int,
     return TILE_FULL if full else TILE_EDGE
 
 
+#: decode blocks the split schedule aims to start per streaming
+#: multiprocessor (a few waves of the decode kernel's small blocks)
+DECODE_BLOCKS_PER_SM = 4
+
+
+def decode_split_tiles(n_tiles: int, pairs: int, sm_count: int = 132,
+                       min_tiles: int = 2) -> int:
+    """Kv tiles per split of the split-K decode kernel: enough splits
+    that pairs (B * Hkv, one per slot and kv head) x splits fills about
+    DECODE_BLOCKS_PER_SM blocks per SM, and at least min_tiles a split so
+    its double-buffered loads overlap its math. A function of what the
+    host knows without a sync (the cache's tile count, the batch and the
+    card); the slots' lengths stay on the device."""
+    n_tiles = max(1, n_tiles)
+    want = max(1, -(-sm_count * DECODE_BLOCKS_PER_SM // max(1, pairs)))
+    return min(n_tiles, max(min_tiles, -(-n_tiles // want)))
+
+
+def decode_splits(n_tiles: int, split_tiles: int) -> int:
+    """Splits of the grid: every tile of the cache lies in one of them."""
+    return -(-max(1, n_tiles) // split_tiles)
+
+
+def decode_live_splits(lo: int, hi: int, split_tiles: int) -> int:
+    """Splits that hold a tile of the live range [lo, hi); at least 1,
+    so a row with no live tile still has one split that writes its zero
+    output (masks.cuh decode_live_splits)."""
+    return -(-(hi - lo) // split_tiles) if hi > lo else 1
+
+
+def decode_split_range(split: int, split_tiles: int, lo: int, hi: int):
+    """[first, last) kv tiles of split `split` of a slot whose live tiles
+    are [lo, hi) (live_tile_range): fixed runs of split_tiles tiles from
+    lo, so the splits are disjoint, their union is [lo, hi), and a split
+    past the range is empty (masks.cuh decode_split_range)."""
+    first = lo + split * split_tiles
+    return first, max(first, min(hi, first + split_tiles))
+
+
 def live_q_tile_range(block_q: int, n_q: int, k_lo: int, k_hi: int, *,
                       causal: bool = True, window: Optional[int] = None,
                       delta: int = 0):

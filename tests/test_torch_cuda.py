@@ -139,6 +139,84 @@ def test_paged_flash_decode_kernel_matches_plain(gen, ps, sq, hq, hkv,
         fn(q, kp, vp, table.long(), lens)
 
 
+def _split_edge_lengths(plan, sq, window, s_len):
+    """kv_lengths at the split edges (split size - 1, + 0, + 1 positions,
+    whose deepest query reaches one past, to, or into the next split) and
+    at a window's lower edge on a tile boundary."""
+    edge = plan["split_tiles"] * ft.DECODE_BLOCK
+    lens = [edge - sq, edge - sq + 1, edge - sq + 2]
+    lens.append((window or 0) + 2 * ft.DECODE_BLOCK)
+    lens.append((window or 0) + 2 * ft.DECODE_BLOCK + 1)
+    lens.append(s_len - sq + 1)
+    return [max(1, min(n, s_len - sq + 1)) for n in lens]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("sq,hq,hkv,window", [
+    (1, 8, 8, None), (1, 8, 2, 64), (5, 8, 2, None), (5, 16, 4, 100),
+])
+def test_decode_kernels_at_split_and_window_edges(gen, paged, sq, hq, hkv,
+                                                  window):
+    """The split-K decode (dense and paged) with kv_lengths on the edges
+    of its own splits and of the window: every split's partial and the
+    in-kernel merge against the plain version."""
+    B, S, ps = 6, 1024, 16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ft.decode_plan(S, B, hkv, sq * (hq // hkv), sms)
+    lens_list = _split_edge_lengths(plan, sq, window, S)
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    q = _randn(gen, B, sq, hq, 128)
+    if paged:
+        n_pages = 1 + B * (S // ps)
+        kp, vp = (_randn(gen, n_pages, ps, hkv, 128) for _ in range(2))
+        table = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
+                 + 1).view(B, S // ps).to(torch.int32)
+        fn = ft.paged_flash_decode if sq == 1 else ft.paged_flash_decode_mq
+        before = ft.paged_flash_decode.launches
+        o = fn(q, kp, vp, table, lens, sliding_window=window)
+        torch.cuda.synchronize()
+        assert ft.paged_flash_decode.launches == before + 1
+        want = ft.paged_flash_decode_reference(q.float(), kp.float(),
+                                               vp.float(), table, lens,
+                                               window)
+    else:
+        k, v = _randn(gen, B, S, hkv, 128), _randn(gen, B, S, hkv, 128)
+        before = ft.flash_decode.launches
+        o = ft.flash_decode(q, k, v, lens, sliding_window=window)
+        torch.cuda.synchronize()
+        assert ft.flash_decode.launches == before + 1
+        want = ft.flash_decode_reference(q.float(), k.float(), v.float(),
+                                         lens, window)
+    _assert_close(o, want)
+    # the kernel left every ticket at zero: a second call agrees
+    again = (fn(q, kp, vp, table, lens, sliding_window=window) if paged
+             else ft.flash_decode(q, k, v, lens, sliding_window=window))
+    torch.cuda.synchronize()
+    assert torch.equal(again, o)
+
+
+def test_decode_launches_on_two_streams_keep_their_own_tickets(gen):
+    """Decode launches in flight at once on two streams of one card each
+    merge their own splits: every result is bit-equal to the same call on
+    the default stream."""
+    B, S, hkv = 8, 2048, 8
+    q = _randn(gen, B, 1, 32, 128)
+    k, v = _randn(gen, B, S, hkv, 128), _randn(gen, B, S, hkv, 128)
+    lens = torch.tensor([1, 63, 64, 2047, 2048, 500, 1000, 1500],
+                        dtype=torch.int32, device="cuda")
+    want = ft.flash_decode(q, k, v, lens)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = [[], []]
+    for _ in range(20):
+        for s, out in zip(streams, outs):
+            with torch.cuda.stream(s):
+                out.append(ft.flash_decode(q, k, v, lens))
+    torch.cuda.synchronize()
+    for out in outs:
+        assert all(torch.equal(o, want) for o in out)
+
+
 def test_paged_engine_decodes_through_the_paged_kernel(gen):
     """A 2-layer bf16 model served by the paged engine on the card: each
     decode tick launches the paged kernel once per layer, chunks launch
@@ -207,6 +285,29 @@ def test_flash_bwd_kernels_match_plain(gen, s, hq, hkv, d, causal, window,
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == torch.bfloat16 and a.shape == b.shape
         _assert_close_rel(a, b, name)
+
+
+@pytest.mark.parametrize("hkv,window", [(8, None), (2, 256)])
+def test_flash_bwd_dq_at_a_second_draw(hkv, window):
+    """dq at S 1000 from a second seed (chip_smoke.py's second draw of
+    phase 2b), under the backward gate with room to spare: the kernel
+    splits ds into bf16 hi + lo parts, so one bf16 rounding of ds no
+    longer decides the result (the one-rounding form passed the first
+    draw and failed the second on the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(1234 + 13)
+    q, do = _randn(g, 1, 1000, 8, 128), _randn(g, 1, 1000, 8, 128)
+    k, v = _randn(g, 1, 1000, hkv, 128), _randn(g, 1, 1000, hkv, 128)
+    o, lse = ft.flash_fwd(q, k, v, sliding_window=window)
+    dsum = ft._bwd_dsum(o, do)
+    dq = ft.flash_bwd_dq(q, k, v, do, lse, dsum, sliding_window=window)
+    torch.cuda.synchronize()
+    want = ft.flash_bwd_reference(q.float(), k.float(), v.float(), o, lse,
+                                  do, sliding_window=window)[0].float()
+    allowed = 2e-3 * float(want.abs().max()) + 2e-2 * want.abs()
+    margin = float(((dq.float() - want).abs() / allowed).max())
+    assert margin <= 0.5, margin
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -141,7 +141,7 @@ def _dense_tile(q0, bq, k0, bk, sq, skv, causal, window, delta):
             & (rows < sq) & (cols < skv))
 
 
-@pytest.mark.parametrize("direction", ["fwd", "dkv"])
+@pytest.mark.parametrize("direction", ["fwd", "dkv", "dq"])
 @pytest.mark.parametrize("delta", [-5, 0, 30])
 @pytest.mark.parametrize("window", [None, 1, 17, 256])
 @pytest.mark.parametrize("causal", [True, False])
@@ -149,10 +149,11 @@ def test_tile_class_matches_the_dense_mask(causal, window, delta, direction):
     """tile_class is exact against the dense boolean mask: FULL iff every
     pair of the tile counts, DEAD iff none does, on ragged Sq/Skv, in the
     forward's direction (a 128-row q tile against each 128-column kv
-    tile, the kv tiles of live_tile_range) and the dk/dv kernel's (each
-    64-row q tile of live_q_tile_range against a 128-row kv tile). Tiles
-    outside the kernels' loop bounds are DEAD."""
-    bq, bk = (128, 128) if direction == "fwd" else (64, 128)
+    tile, the kv tiles of live_tile_range), the dq kernel's (a 128-row q
+    tile against each 64-row kv tile of its live_tile_range) and the dk/dv
+    kernel's (each 64-row q tile of live_q_tile_range against a 128-row kv
+    tile). Tiles outside the kernels' loop bounds are DEAD."""
+    bq, bk = {"fwd": (128, 128), "dq": (128, 64), "dkv": (64, 128)}[direction]
     kw = dict(causal=causal, window=window, delta=delta)
     seen = set()
     for sq, skv in ((1, 1), (127, 129), (300, 200), (257, 1000)):
@@ -170,7 +171,7 @@ def test_tile_class_matches_the_dense_mask(causal, window, delta, direction):
                         tmasks.TILE_DEAD if not m.any() else tmasks.TILE_EDGE)
                 assert cls == want, (sq, skv, qi, ki)
                 seen.add(cls)
-                if direction == "fwd" and not lo <= ki < hi:
+                if direction != "dkv" and not lo <= ki < hi:
                     assert cls == tmasks.TILE_DEAD, (sq, skv, qi, ki)
         if direction == "dkv":
             for ki in range(n_k):
@@ -196,6 +197,58 @@ def test_tile_class_full_tiles_are_the_bulk_of_a_causal_pass():
         return cls.count(tmasks.TILE_FULL), cls.count(tmasks.TILE_EDGE)
     assert count(None) == (496, 32)
     assert count(256) == (31, 32 + 30)
+
+
+@pytest.mark.parametrize("window", [None, 1, 7, 256])
+def test_decode_split_schedule_covers_exactly_the_live_tiles(window):
+    """The split-K decode kernel's schedule (masks.cuh mirrors it): for
+    every kv_len of a 10-tile cache, Sq 1 and 5 and several split sizes,
+    the splits' tile ranges are disjoint, their union is exactly the live
+    tiles (the tiles the JAX kernel's decode_block_live accepts), the
+    first decode_live_splits of them hold a tile and every split past
+    them is empty; the grid's splits cover the whole cache."""
+    blk, n_tiles = 64, 10
+    s_len = blk * n_tiles
+    for split_tiles in (1, 2, 3, 4, 10):
+        n_split = tmasks.decode_splits(n_tiles, split_tiles)
+        assert n_split * split_tiles >= n_tiles
+        for sq in (1, 5):
+            for kv_len in range(1, s_len - sq + 2):
+                lo, hi = tmasks.live_tile_range(
+                    blk, n_tiles, kv_len - 1, kv_len + sq - 2, causal=True,
+                    window=window)
+                live = [ki for ki in range(n_tiles) if bool(
+                    jmasks.decode_block_live(ki, blk, kv_len, sq,
+                                             window=window))]
+                assert list(range(lo, hi)) == live
+                n_live = tmasks.decode_live_splits(lo, hi, split_tiles)
+                assert 1 <= n_live <= n_split
+                seen = []
+                for split in range(n_split):
+                    first, last = tmasks.decode_split_range(
+                        split, split_tiles, lo, hi)
+                    tiles = list(range(first, last))
+                    assert len(tiles) <= split_tiles
+                    assert bool(tiles) == (split < n_live) or not live
+                    seen += tiles
+                assert seen == live, (split_tiles, sq, kv_len)
+
+
+def test_decode_split_tiles_spreads_the_slots_over_the_card():
+    """decode_split_tiles depends only on the host's knowledge: the
+    cache's tile count, B * Hkv and the SM count. More (slot, head) pairs
+    mean longer splits; a split is never shorter than 2 tiles (unless
+    the cache is shorter) nor longer than the cache."""
+    for n_tiles in (1, 2, 5, 32, 512):
+        prev = 0
+        for pairs in (1, 8, 64, 256, 4096):
+            t = tmasks.decode_split_tiles(n_tiles, pairs, 132)
+            assert min(2, n_tiles) <= t <= n_tiles
+            assert t >= prev
+            prev = t
+    # the serving shape: 8 slots x 32 kv heads over 2048 positions
+    assert tmasks.decode_split_tiles(32, 256, 132) == 11
+    assert tft.decode_plan(2048, 8, 32, 1, 132)["grid"] == (32, 8, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -322,6 +375,84 @@ def test_flash_decode_mq_matches_pallas(window):
     got = tft.flash_decode_mq(torch.from_numpy(q), torch.from_numpy(k),
                               torch.from_numpy(v), torch.from_numpy(lens),
                               sliding_window=window)
+    _close(got, want)
+
+
+def _split_case(r, b, sq, hq, hkv, s, d=16):
+    q = _arr(r, b, sq, hq, d)
+    return q, _arr(r, b, s, hkv, d), _arr(r, b, s, hkv, d)
+
+
+@pytest.mark.parametrize("split_tiles", [1, 2, 3])
+@pytest.mark.parametrize("sq,hq,hkv,window", [
+    (1, 4, 4, None), (1, 4, 2, 40), (5, 4, 2, None), (5, 4, 1, 1),
+    (3, 2, 2, 70),
+])
+def test_decode_split_merge_matches_the_plain_decode(split_tiles, sq, hq,
+                                                     hkv, window):
+    """The split-K kernel's arithmetic in plain fp32 (per-split partials
+    over fixed runs of 64-position tiles, merged in split order) equals
+    flash_decode_reference at 1e-5. The lengths put split edges inside a
+    query's reach (64, 65, 128), give splits where a row sees nothing
+    (Sq 5 at kv_len 64; window 1), and kv_len 0 gives a row that sees
+    nothing at all (o = 0)."""
+    r = np.random.default_rng(16)
+    q, k, v = (torch.from_numpy(a) for a in _split_case(r, 6, sq, hq, hkv,
+                                                         256))
+    lens = torch.tensor([0, 1, 64, 65, 128, 256 - sq + 1], dtype=torch.int32)
+    got = tft.flash_decode_split_reference(q, k, v, lens, window,
+                                           split_tiles=split_tiles)
+    want = tft.flash_decode_reference(q, k, v, lens, window)
+    _close(got, want.numpy())
+    assert torch.all(got[0, 0] == 0)
+
+
+@pytest.mark.parametrize("split_tiles", [1, 3])
+@pytest.mark.parametrize("sq,hq,hkv,window", [
+    (1, 4, 2, None), (1, 8, 2, 100), (4, 4, 1, None), (5, 4, 2, 9),
+])
+def test_decode_split_merge_matches_pallas_decode(split_tiles, sq, hq, hkv,
+                                                  window):
+    """The same split-and-merge against the JAX package's decode kernel
+    in interpret mode: flash_decode (Sq 1) or flash_decode_mq (Sq > 1)
+    on a 256-position cache."""
+    r = np.random.default_rng(17)
+    q, k, v = _split_case(r, 4, sq, hq, hkv, 256)
+    lens = np.array([1, 64, 129, 256 - sq + 1], np.int32)
+    fn = jft.flash_decode if sq == 1 else jft.flash_decode_mq
+    want = fn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+              jnp.asarray(lens), sliding_window=window, block_k=128)
+    got = tft.flash_decode_split_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(lens), window, split_tiles=split_tiles)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("sq,window", [(1, None), (3, 20)])
+def test_decode_split_merge_matches_pallas_paged_decode(sq, window):
+    """Through a page table: the split-and-merge over each row's gathered
+    pages against the JAX package's paged_flash_decode (Sq 1) /
+    paged_flash_decode_mq in interpret mode, pages scattered, two rows
+    sharing their first pages, unused entries on the scratch page 0."""
+    r = np.random.default_rng(18)
+    b, hq, hkv, d, ps, max_pages = 3, 4, 2, 16, 16, 12
+    n_pages = 1 + b * max_pages
+    q = _arr(r, b, sq, hq, d)
+    kp, vp = _arr(r, n_pages, ps, hkv, d), _arr(r, n_pages, ps, hkv, d)
+    table = (r.permutation(n_pages - 1) + 1)[:b * max_pages].reshape(
+        b, max_pages).astype(np.int32)
+    table[1, :3] = table[0, :3]
+    lens = np.array([5, 70, max_pages * ps - sq + 1], np.int32)
+    for i, n in enumerate(lens):
+        table[i, -(-(n + sq - 1) // ps):] = 0
+    fn = jft.paged_flash_decode if sq == 1 else jft.paged_flash_decode_mq
+    want = fn(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+              jnp.asarray(table), jnp.asarray(lens), sliding_window=window)
+    tk, tv = (tft._gather_pages(torch.from_numpy(a), torch.from_numpy(table))
+              for a in (kp, vp))
+    got = tft.flash_decode_split_reference(
+        torch.from_numpy(q), tk, tv, torch.from_numpy(lens), window,
+        split_tiles=1)
     _close(got, want)
 
 
