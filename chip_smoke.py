@@ -100,9 +100,33 @@ still run, so one call shows every failure):
               through the dense attention with autograd: the loss, the
               gradient norm and every gradient leaf must agree (gates at
               the constants below).
-  5. report   one JSON line listing each kernel with its launches on its
-              path (serving, paged_serving and training), then the
-              card's name and power limit, then {"ok": true, "device":
+  5. finetune the finetuning path, in a temporary directory (its df
+              printed first; the phase fails with less than 40 GB free):
+              an HF-layout Llama at Llama-2-7B width cut to 2 layers
+              (0.667 B parameters, bf16 from a seeded generator on the
+              card) written as config.json + pytorch_model.bin ->
+              tools/hf_to_native (iteration 0, 9.3 GB with the fp32
+              masters and moments; native_to_hf of it must equal the
+              input bitwise) -> 16 synthetic chats of 300 to 6000 tokens
+              through tools/preprocess_instruct_data (null tokenizer) ->
+              tools/finetune three times at S 4096, bf16, the flash
+              kernels, selective recompute, micro-batch 1, global batch
+              2, lr 1e-5 constant, scalar_loss_mask 0.1: A 4 steps from
+              the converted checkpoint (--finetune), B 2 steps and a
+              save, C resumed from B's save to step 4 and saved. Gates:
+              C's losses at steps 3-4 and its final params, masters, mu
+              and nu equal A's bitwise (the first differing tensor is
+              named); each run's launches equal expected_train_launches
+              for 2 layers. Then run_text_generation_server --load C
+              answers two greedy requests (its params must equal C's
+              masters in bf16, flash_decode 2 launches a tick, phase 3's
+              teacher-forced gate) and native_to_hf -> hf_to_native ->
+              native_to_hf of C must be an identity. Prints the losses,
+              step time, checkpoint bytes, save stall / commit / load /
+              crc32 times and the launch counts.
+  6. report   one JSON line listing each kernel with its launches on its
+              path (serving, paged_serving, training and finetune), then
+              the card's name and power limit, then {"ok": true, "device":
               {...}} as the last line.
 
 It needs one CUDA card; with none (or outside a checkout) it exits
@@ -1197,16 +1221,18 @@ def first_loss_expected(cfg) -> float:
     return math.log(cfg.vocab_size) + sigma2 / 2
 
 
-def expected_train_launches(n_micro: int) -> dict:
-    """Launch counts of the training run. Every layer of every microbatch
+def expected_train_launches(n_micro: int, layers: int = TRAIN_LAYERS,
+                            steps: int = TRAIN_ITERS,
+                            eval_batches: int = (TRAIN_ITERS // EVAL_INTERVAL
+                                                 * EVAL_ITERS)) -> dict:
+    """Launch counts of a training run. Every layer of every microbatch
     of every step runs one dq and one dk/dv launch in its backward.
     Under selective recompute each layer's core attention is
     checkpointed, so its forward runs twice per microbatch (once in the
     forward pass, once recomputed in the backward); each evaluation
     batch runs one more forward per layer."""
-    n_evals = TRAIN_ITERS // EVAL_INTERVAL
-    bwd = TRAIN_LAYERS * n_micro * TRAIN_ITERS
-    return {"flash_fwd": 2 * bwd + TRAIN_LAYERS * n_evals * EVAL_ITERS,
+    bwd = layers * n_micro * steps
+    return {"flash_fwd": 2 * bwd + layers * eval_batches,
             "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd, "flash_decode": 0,
             "paged_flash_decode": 0}
 
@@ -1373,6 +1399,372 @@ def step_vs_dense(torch, np, ft, card):
                              + "; ".join(problems))
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the finetuning path
+# ---------------------------------------------------------------------------
+
+FT_LAYERS = 2                 # 0.667 B parameters, a 9.3 GB train state
+FT_STEPS = 4                  # run A; B stops at FT_STEPS // 2, C resumes
+FT_CHATS = 16                 # 300 .. 6000 tokens: padded and truncated
+FT_MIN_FREE_GB = 40
+FT_PROMPT_LENS = (100, 700)
+FT_NEW_TOKENS = 16
+
+
+def hf_llama_dir(torch, out_dir) -> dict:
+    """An HF Llama directory at Llama-2-7B width cut to FT_LAYERS layers:
+    config.json and pytorch_model.bin, bf16 weights drawn on the card
+    from a seeded torch.Generator (normal(0, 0.02), the output-facing
+    projections scaled by 1/sqrt(2 L), the norm scales 1 + normal(0,
+    0.02)). Returns the state dict, on the CPU."""
+    h, f, L = 4096, 11008, FT_LAYERS
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def normal(*shape, std=0.02, mean=0.0):
+        t = torch.empty(shape, device="cuda").normal_(mean, std,
+                                                      generator=gen)
+        return t.to(torch.bfloat16).cpu()
+
+    out_std = 0.02 / math.sqrt(2 * L)
+    sd = {"model.embed_tokens.weight": normal(VOCAB, h)}
+    for i in range(L):
+        pre = f"model.layers.{i}."
+        sd[pre + "input_layernorm.weight"] = normal(h, mean=1.0)
+        sd[pre + "post_attention_layernorm.weight"] = normal(h, mean=1.0)
+        for n in ("q", "k", "v"):
+            sd[pre + f"self_attn.{n}_proj.weight"] = normal(h, h)
+        sd[pre + "self_attn.o_proj.weight"] = normal(h, h, std=out_std)
+        sd[pre + "mlp.gate_proj.weight"] = normal(f, h)
+        sd[pre + "mlp.up_proj.weight"] = normal(f, h)
+        sd[pre + "mlp.down_proj.weight"] = normal(h, f, std=out_std)
+    sd["model.norm.weight"] = normal(h, mean=1.0)
+    sd["lm_head.weight"] = normal(VOCAB, h)
+    config = {"model_type": "llama", "architectures": ["LlamaForCausalLM"],
+              "vocab_size": VOCAB, "hidden_size": h,
+              "intermediate_size": f, "num_hidden_layers": L,
+              "num_attention_heads": 32, "num_key_value_heads": 32,
+              "max_position_embeddings": TRAIN_SEQ, "rms_norm_eps": 1e-5,
+              "rope_theta": 10000.0, "tie_word_embeddings": False,
+              "hidden_act": "silu", "torch_dtype": "bfloat16"}
+    os.makedirs(out_dir)
+    with open(os.path.join(out_dir, "config.json"), "w") as fh:
+        json.dump(config, fh, indent=2)
+    torch.save(sd, os.path.join(out_dir, "pytorch_model.bin"))
+    return sd
+
+
+def write_chats(np, path) -> list:
+    """FT_CHATS conversations of Zipf token ids (as text for the null
+    tokenizer), 300 to 6000 tokens each in a seeded order, each a system
+    turn, then prompter and assistant twice. Returns their lengths."""
+    rng = np.random.default_rng(SEED + 5)
+    lengths = rng.permutation(np.linspace(300, 6000, FT_CHATS).astype(int))
+    roles = ("system", "prompter", "assistant", "prompter", "assistant")
+    with open(path, "w") as fh:
+        for n in lengths:
+            cuts = np.sort(rng.choice(np.arange(1, n), size=len(roles) - 1,
+                                      replace=False))
+            parts = np.split(zipf_tokens(np, rng, int(n)), cuts)
+            fh.write(json.dumps({"conversation": [
+                {"role": r, "text": " ".join(map(str, p.tolist()))}
+                for r, p in zip(roles, parts)]}) + "\n")
+    return lengths.tolist()
+
+
+def _state_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(os.path.join(path, "state"))
+               for f in fs)
+
+
+def _first_difference(torch, a, b):
+    """The first TrainState tensor where two states differ, or None."""
+    from megatron_tpu_torch.training.optimizer import leaf_paths
+
+    for field in ("params", "master", "mu", "nu"):
+        for (name, x), (_, y) in zip(leaf_paths(getattr(a, field)),
+                                     leaf_paths(getattr(b, field))):
+            if not torch.equal(x, y):
+                return f"{field}/{name}"
+    if not torch.equal(a.step, b.step):
+        return "step"
+    return None
+
+
+def _same_state_dict(torch, a, b) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def finetune(torch, np, ft, card):
+    """Phase 5 in a temporary directory, removed at the end whatever
+    happens; fails at once when the disk cannot hold the checkpoints."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="smoke_finetune_")
+    try:
+        df = subprocess.run(["df", "-B1", tmp], capture_output=True,
+                            text=True, timeout=60)
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        emit({"phase": "finetune_disk", "card": card, "dir": tmp,
+              "df": df.stdout.strip().splitlines(), "free_gb": free_gb})
+        if free_gb < FT_MIN_FREE_GB:
+            raise AssertionError(
+                f"finetune: {tmp} has {free_gb:.1f} GB free, the phase "
+                f"needs {FT_MIN_FREE_GB} GB (up to three 9.3 GB "
+                "checkpoints at once, with room)")
+        return _finetune(torch, np, ft, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _finetune(torch, np, ft, card, tmp):
+    import dataclasses
+    import shutil
+
+    from megatron_tpu_torch.data.instruction_dataset import (
+        InstructionDataset,
+    )
+    from megatron_tpu_torch.data.samplers import PretrainingRandomSampler
+    from megatron_tpu_torch.tools import (
+        hf_to_native, native_to_hf, preprocess_instruct_data,
+    )
+    from megatron_tpu_torch.tools import finetune as finetune_tool
+    from megatron_tpu_torch.training import checkpointing
+
+    d = {n: os.path.join(tmp, n) for n in (
+        "hf", "conv", "hf_rt0", "chats", "B", "C", "hf_C", "conv2",
+        "hf_C2")}
+    problems, line = [], {"phase": "finetune", "card": card,
+                          "model": "llama2-7B", "layers": FT_LAYERS,
+                          "seq_length": TRAIN_SEQ}
+
+    # 1-2: an HF directory -> iteration 0, and straight back out
+    t0 = time.monotonic()
+    sd = hf_llama_dir(torch, d["hf"])
+    line["hf_write_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    hf_to_native.main(["--model", d["hf"], "--output", d["conv"]])
+    torch.cuda.synchronize()
+    line["convert_s"] = time.monotonic() - t0
+    conv_it = checkpointing.checkpoint_dir(d["conv"], 0)
+    line["conv_bytes"] = _state_bytes(conv_it)
+    t0 = time.monotonic()
+    ok, detail = checkpointing.verify_checkpoint(conv_it, deep=True)
+    line["crc32_verify_s"] = time.monotonic() - t0
+    if not ok:
+        problems.append(f"converted checkpoint fails verification: {detail}")
+    native_to_hf.main(["--load", d["conv"], "--output", d["hf_rt0"]])
+    rt0 = torch.load(os.path.join(d["hf_rt0"], "pytorch_model.bin"),
+                     weights_only=True)
+    line["export_iter0_bitwise"] = _same_state_dict(torch, rt0, sd)
+    if not line["export_iter0_bitwise"]:
+        problems.append("native_to_hf of iteration 0 != the HF input")
+    del rt0, sd
+    shutil.rmtree(d["hf_rt0"])
+
+    # 3: chats -> the -text / -role datasets
+    chats = d["chats"] + ".jsonl"
+    line["chat_tokens"] = write_chats(np, chats)
+    preprocess_instruct_data.main([
+        "--input", chats, "--output_prefix", d["chats"], "--tokenizer_type",
+        "null", "--vocab_size", str(VOCAB)])
+    ds = InstructionDataset(d["chats"], seed=SEED)
+    sampler = iter(PretrainingRandomSampler(len(ds), 0, TRAIN_GLOBAL, 0, 1,
+                                            seed=SEED))
+    seen = [len(ds[i]["text"]) for _ in range(FT_STEPS)
+            for i in next(sampler)]
+    line["trained_sample_tokens"] = seen
+    if not (min(seen) <= TRAIN_SEQ < max(seen)):
+        problems.append(f"samples {seen} do not both pad and truncate")
+
+    # 4: A (4 steps), B (2 steps + save), C (resume B to 4 + save)
+    common = ["--model_name", "llama2-7B", "--num_layers", str(FT_LAYERS),
+              "--seq_length", str(TRAIN_SEQ), "--bf16",
+              "--attention_impl", "pallas", "--micro_batch_size",
+              str(TRAIN_MICRO), "--global_batch_size", str(TRAIN_GLOBAL),
+              "--lr", TRAIN_LR, "--lr_decay_style", "constant",
+              "--recompute_granularity", "selective",
+              "--scalar_loss_mask", "0.1", "--data_path", d["chats"],
+              "--log_interval", "1", "--seed", str(SEED),
+              "--device", "cuda"]
+    half = FT_STEPS // 2
+    runs = {"A": (["--load", d["conv"], "--finetune", "--train_iters",
+                   str(FT_STEPS)], FT_STEPS),
+            "B": (["--load", d["conv"], "--finetune", "--train_iters",
+                   str(half), "--save", d["B"], "--save_interval",
+                   str(half)], half),
+            "C": (["--load", d["B"], "--train_iters", str(FT_STEPS),
+                   "--save", d["C"], "--save_interval", str(half)], half)}
+    n_micro = TRAIN_GLOBAL // TRAIN_MICRO
+    kept, launches, fallbacks = {}, {}, []
+    for name, (argv, steps) in runs.items():
+        # the main path's runs: every count starts at 0 here
+        for k in TRAIN_COUNTED:
+            getattr(ft, k).launches = 0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.monotonic()
+            loop = finetune_tool.main(common + argv)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        fallbacks += [str(w.message) for w in caught
+                      if "falling back" in str(w.message)
+                      or "flash_bwd disabled" in str(w.message)]
+        launches[name] = {k: getattr(ft, k).launches for k in TRAIN_COUNTED}
+        want = expected_train_launches(n_micro, FT_LAYERS, steps, 0)
+        if launches[name] != want:
+            problems.append(f"run {name}: launches {launches[name]} != "
+                            f"{want}")
+        hist = loop.history
+        line[f"run_{name}"] = {
+            "wall_s": wall, "load_s": loop.load_s,
+            "iterations": [h["iteration"] for h in hist],
+            "losses": [h["lm_loss"] for h in hist],
+            "skipped": [h["skipped"] for h in hist],
+            "step_times_s": [h["window_s"] for h in hist],
+            "saves": list(loop.saves), "launches": launches[name],
+            "expected_launches_per_step": expected_train_launches(
+                n_micro, FT_LAYERS, 1, 0)}
+        if (len(hist) != steps or any(h["skipped"] for h in hist)
+                or not all(math.isfinite(h["lm_loss"]) for h in hist)):
+            problems.append(f"run {name}: {line[f'run_{name}']}")
+        # keep the states and losses only: a loop's step function holds a
+        # 2.7 GB gradient buffer
+        kept[name] = (loop.state, [h["lm_loss"] for h in hist])
+        del loop, hist
+        if name == "B":
+            shutil.rmtree(d["conv"])
+        if name == "C":
+            shutil.rmtree(d["B"])
+        free_cuda(torch)
+    steps_s = sorted(line["run_A"]["step_times_s"][1:])
+    line["step_s_median"] = steps_s[len(steps_s) // 2]
+    (a_state, a_losses), (c_state, c_losses) = kept["A"], kept["C"]
+    line["resume_losses_bitwise"] = a_losses[half:] == c_losses
+    line["resume_first_difference"] = _first_difference(torch, a_state,
+                                                        c_state)
+    line["resume_state_bitwise"] = line["resume_first_difference"] is None
+    if not line["resume_losses_bitwise"]:
+        problems.append(f"resumed losses {c_losses} != A's "
+                        f"{a_losses[half:]}")
+    if not line["resume_state_bitwise"]:
+        problems.append("resumed state differs from A's first at "
+                        f"{line['resume_first_difference']}")
+    if fallbacks:
+        problems.append(f"dense fallback fired: {fallbacks}")
+    c_master = c_state.master
+    del kept, a_state, c_state
+    free_cuda(torch)
+
+    # 5: serve C through the server entry point
+    served = serve_checkpoint(torch, np, ft, d["C"], c_master, dataclasses)
+    line["serving"] = served
+    problems += served.pop("problems")
+    del c_master
+    free_cuda(torch)
+
+    # 6: native -> HF -> native -> HF of C is an identity
+    t0 = time.monotonic()
+    # a finetuned checkpoint records no HF model type: name it
+    native_to_hf.main(["--load", d["C"], "--output", d["hf_C"],
+                       "--model_type", "llama"])
+    line["export_s"] = time.monotonic() - t0
+    hf_to_native.main(["--model", d["hf_C"], "--output", d["conv2"]])
+    native_to_hf.main(["--load", d["conv2"], "--output", d["hf_C2"]])
+    a, b = (torch.load(os.path.join(d[k], "pytorch_model.bin"),
+                       weights_only=True) for k in ("hf_C", "hf_C2"))
+    line["export_round_trip_bitwise"] = _same_state_dict(torch, a, b)
+    if not line["export_round_trip_bitwise"]:
+        problems.append("HF -> native -> HF of C is not an identity")
+    line["hf_bytes"] = os.path.getsize(os.path.join(d["hf_C"],
+                                                    "pytorch_model.bin"))
+    emit(line)
+    if problems:
+        raise AssertionError("finetune: " + "; ".join(problems))
+    total = {k: sum(launches[r][k] for r in launches) for k in TRAIN_COUNTED}
+    return {k: total[k] + served["launches"][k] for k in TRAIN_COUNTED}
+
+
+def serve_checkpoint(torch, np, ft, load, master, dataclasses) -> dict:
+    """run_text_generation_server --load, in a thread: its weights against
+    the checkpoint's masters in bf16, FT_PROMPT_LENS greedy requests of
+    FT_NEW_TOKENS tokens, the launch counts and phase 3's teacher-forced
+    check."""
+    from megatron_tpu_torch.tools import run_text_generation_server as rts
+    from megatron_tpu_torch.training.optimizer import leaf_paths
+
+    ready, handles, errors = threading.Event(), [], []
+
+    def run():
+        try:
+            rts.main(["--load", load, "--tokenizer_type", "null", "--host",
+                      "127.0.0.1", "--port", "0", "--serve_num_slots", "2",
+                      "--serve_max_seq_len", "2048"],
+                     ready=ready, service_out=handles)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+            ready.set()
+
+    t0 = time.monotonic()
+    thread = threading.Thread(target=run, daemon=True, name="ft-server")
+    thread.start()
+    if not ready.wait(600) or errors:
+        raise RuntimeError(f"server did not start: {errors}")
+    out, problems = {"ready_s": time.monotonic() - t0}, []
+    service, server = handles
+    eng = service.engine
+    cfg, params = eng.cfg, eng.params
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        mismatched = [n for (n, p), (_, m) in zip(leaf_paths(params),
+                                                  leaf_paths(master))
+                      if not torch.equal(p, m.to(p.dtype))]
+        out["params_equal_masters_bf16"] = not mismatched
+        if mismatched:
+            problems.append(f"served params differ from C's masters: "
+                            f"{mismatched[:3]}")
+        rng = np.random.default_rng(SEED + 6)
+        prompts = [rng.integers(0, VOCAB - 1, size=n).tolist()
+                   for n in FT_PROMPT_LENS]
+        _zero_decode_counts(ft)
+        prefills0, ticks0 = eng.stats["admitted"], eng.stats["ticks"]
+        generated = []
+        t1 = time.monotonic()
+        for prompt in prompts:
+            status, body = _put(base + "/api", {
+                "prompts": [" ".join(map(str, prompt))],
+                "tokens_to_generate": FT_NEW_TOKENS, "temperature": 0.0})
+            toks = [int(t) for t in body["text"][0].split()]
+            if status != 200 or toks[:len(prompt)] != prompt or \
+                    len(toks) != len(prompt) + FT_NEW_TOKENS:
+                raise AssertionError(f"request of {len(prompt)} tokens: "
+                                     f"{status} {len(toks)} tokens")
+            generated.append(toks[len(prompt):])
+        out["requests_wall_s"] = time.monotonic() - t1
+        launches = _decode_counts(ft)
+        prefills = eng.stats["admitted"] - prefills0
+        ticks = eng.stats["ticks"] - ticks0
+        out.update(prefills=prefills, decode_ticks=ticks)
+        want = {"flash_fwd": FT_LAYERS * prefills,
+                "flash_decode": FT_LAYERS * ticks, "paged_flash_decode": 0}
+        if launches != want or prefills != len(prompts) or ticks < 1:
+            problems.append(f"server launches {launches} != {want}")
+    finally:
+        server.shutdown()
+        thread.join(120)
+    if thread.is_alive():
+        raise RuntimeError("server thread did not stop")
+    tf = teacher_force(torch, dataclasses, cfg, params, prompts, generated)
+    out.update(tf)
+    if tf["teacher_forced_match"] < MATCH_GATE:
+        problems.append(f"teacher-forced match "
+                        f"{tf['teacher_forced_match']:.4f} < {MATCH_GATE}")
+    out["launches"] = {**{k: 0 for k in TRAIN_COUNTED}, **launches}
+    out["problems"] = problems
+    return out
+
+
 def free_cuda(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -1435,13 +1827,15 @@ def main() -> int:
           results.get("serving", {}).get("generated"))
     phase("training", train, torch, np, ft, card)
     phase("kernel_vs_dense_step", step_vs_dense, torch, np, ft, card)
+    phase("finetune", finetune, torch, np, ft, card)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
 
     paths = {"serving": results["serving"]["launches"],
              "paged_serving": results["paged_serving"],
-             "training": results["training"]}
+             "training": results["training"],
+             "finetune": results["finetune"]}
     reports = {"flash_fwd": results["flash_fwd"],
                "flash_decode": results["flash_decode"],
                "paged_flash_decode": results["paged_flash_decode"],

@@ -6,13 +6,14 @@ moves between the two entry points: note that, as there, the precision
 defaults to bf16 (--fp32 / --fp16 change it) and --attention_impl to
 "xla" (the dense path; --attention_impl pallas selects the flash
 kernels). --num_layers overrides the preset's depth, and --device
-(default "cuda") picks where the run happens.
+(default "cuda") picks where the run happens. --save_interval takes an
+integer: the JAX CLI's "auto" cadence is not ported.
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 from megatron_tpu_torch.config import (ModelConfig, OptimizerConfig,
                                        RunConfig, TrainingConfig)
@@ -20,7 +21,7 @@ from megatron_tpu_torch.config import (ModelConfig, OptimizerConfig,
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="megatron_tpu_torch GPT pretraining")
+        description="megatron_tpu_torch GPT pretraining and finetuning")
     g = p.add_argument_group("model")
     g.add_argument("--model_name", default=None,
                    help="preset, optionally 'name-SIZE' (e.g. llama2-7B)")
@@ -66,9 +67,35 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--eval_iters", type=int, default=100)
     g.add_argument("--log_interval", type=int, default=100)
 
+    g = p.add_argument_group("checkpointing")
+    g.add_argument("--save", default=None)
+    g.add_argument("--load", default=None)
+    g.add_argument("--save_interval", type=_save_interval, default=None,
+                   help="checkpoint every N iterations (and once at the "
+                        "end when --save is set)")
+    g.add_argument("--finetune", action="store_true",
+                   help="load the weights only: iteration, consumed "
+                        "samples and optimizer state start fresh")
+    g.add_argument("--no_load_optim", action="store_true",
+                   help="load weights and iteration, but fresh Adam "
+                        "moments")
+    g.add_argument("--no_async_save", action="store_false", dest="async_save",
+                   default=True,
+                   help="block the train loop on each checkpoint write "
+                        "instead of overlapping it with compute")
+    g.add_argument("--keep_latest_k", type=int, default=None,
+                   help="retention: prune all but the newest K committed "
+                        "checkpoints after each save (default: keep all)")
+
     g = p.add_argument_group("data")
     g.add_argument("--data_path", nargs="*", default=None)
     g.add_argument("--split", default="969,30,1")
+    g.add_argument("--scalar_loss_mask", type=float, default=0.0,
+                   help="instruction data: loss weight of the tokens that "
+                        "are not the assistant's")
+    g.add_argument("--variable_seq_lengths", action="store_true",
+                   help="instruction data: pad each batch to a multiple of "
+                        "16 tokens instead of --seq_length")
 
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
@@ -76,8 +103,23 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    return build_parser().parse_args(argv)
+def _save_interval(value: str) -> int:
+    if value.lower() == "auto":
+        raise argparse.ArgumentTypeError(
+            "--save_interval auto is not ported yet (ROADMAP.md); give an "
+            "integer")
+    return int(value)
+
+
+def parse_args(argv: Optional[Sequence[str]] = None,
+               extra_args_provider: Optional[Callable] = None
+               ) -> argparse.Namespace:
+    """extra_args_provider(parser) -> parser adds an entry point's own
+    flags (the JAX CLI's hook)."""
+    p = build_parser()
+    if extra_args_provider is not None:
+        p = extra_args_provider(p)
+    return p.parse_args(argv)
 
 
 def _dtype_name(args) -> str:
@@ -119,6 +161,11 @@ def args_to_run_config(args) -> RunConfig:
         train_iters=args.train_iters, eval_interval=args.eval_interval,
         eval_iters=args.eval_iters, seed=args.seed,
         recompute_granularity=args.recompute_granularity,
-        log_interval=args.log_interval)
+        log_interval=args.log_interval, save=args.save, load=args.load,
+        save_interval=args.save_interval, finetune=args.finetune,
+        no_load_optim=args.no_load_optim, async_save=args.async_save,
+        keep_latest_k=args.keep_latest_k,
+        scalar_loss_mask=args.scalar_loss_mask,
+        variable_seq_lengths=args.variable_seq_lengths)
     return RunConfig(model=model, optimizer=optimizer,
                      training=training).validate()

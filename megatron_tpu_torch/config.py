@@ -9,6 +9,7 @@ a torch dtype here.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -196,7 +197,8 @@ class OptimizerConfig:
 @dataclass(frozen=True)
 class TrainingConfig:
     """The TrainingConfig fields the training path reads: batching,
-    duration, evaluation, seed, recompute and logging."""
+    duration, evaluation, seed, recompute, logging, checkpointing and
+    the instruction collator's options."""
 
     micro_batch_size: int = 1
     global_batch_size: int = 1
@@ -208,6 +210,24 @@ class TrainingConfig:
     seed: int = 1234
     recompute_granularity: str = "none"
     log_interval: int = 100
+
+    # checkpointing (training/checkpointing.py)
+    save: Optional[str] = None
+    load: Optional[str] = None
+    save_interval: Optional[int] = None
+    finetune: bool = False
+    no_load_optim: bool = False
+    # overlap the checkpoint write with training (AsyncCheckpointSaver);
+    # --no_async_save blocks the loop on each write
+    async_save: bool = True
+    # retention: keep only the newest K committed checkpoints; None = all
+    keep_latest_k: Optional[int] = None
+
+    # instruction data (data/instruction_dataset.py): the loss weight of
+    # non-assistant tokens, and padding each batch to a multiple of 16
+    # instead of seq_length
+    scalar_loss_mask: float = 0.0
+    variable_seq_lengths: bool = False
 
     def validate(self) -> "TrainingConfig":
         if self.recompute_granularity not in RECOMPUTE_POLICIES:
@@ -231,3 +251,8 @@ class RunConfig:
         self.model.validate()
         self.training.validate()
         return self
+
+    def to_dict(self) -> dict:
+        """The run config as plain JSON types, as a checkpoint's
+        meta.json records it."""
+        return dataclasses.asdict(self)

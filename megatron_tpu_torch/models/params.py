@@ -101,6 +101,15 @@ def num_params(cfg: ModelConfig) -> int:
     return sum(math.prod(s) for s, _ in _defs(cfg).values())
 
 
+def empty_params(cfg: ModelConfig, device="cuda",
+                 dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """The parameter tree, uninitialized: the target of a checkpoint
+    load (training/checkpointing.load_params_only)."""
+    dtype = dtype or cfg.dtype
+    return _nest({path: torch.empty(shape, dtype=dtype, device=device)
+                  for path, (shape, _) in sorted(_defs(cfg).items())})
+
+
 def init_params(cfg: ModelConfig, seed: int, device="cuda",
                 dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """Random-init the full parameter tree on `device`.

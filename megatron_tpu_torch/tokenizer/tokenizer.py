@@ -48,5 +48,8 @@ def build_tokenizer(tokenizer_type: str, *,
         if vocab_size is None:
             raise ValueError("NullTokenizer needs vocab_size")
         return NullTokenizer(vocab_size)
-    raise ValueError(f"tokenizer_type {tokenizer_type!r} is not ported; "
-                     "only 'null' is")
+    raise ValueError(
+        f"tokenizer_type {tokenizer_type!r} is not ported; only 'null' is. "
+        "The GPT-2 BPE (tokenizer/gpt2_bpe.py), SentencePiece and HF "
+        "tokenizers wait in ROADMAP.md, queue A (the rest of the loop and "
+        "the data)")

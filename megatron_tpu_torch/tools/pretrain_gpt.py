@@ -16,8 +16,9 @@ from __future__ import annotations
 import torch
 
 
-def main(argv=None, log=print):
-    """Returns the finished TrainLoop (training/pretrain.py)."""
+def main(argv=None, log=print, extra_args_provider=None):
+    """Returns the finished TrainLoop (training/pretrain.py).
+    extra_args_provider: a caller's own flags (tools/finetune's)."""
     from megatron_tpu_torch.arguments import args_to_run_config, parse_args
     from megatron_tpu_torch.data.gpt_dataset import build_gpt_datasets
     from megatron_tpu_torch.data.samplers import (
@@ -25,7 +26,7 @@ def main(argv=None, log=print):
     )
     from megatron_tpu_torch.training.pretrain import gpt_collate, pretrain
 
-    args = parse_args(argv)
+    args = parse_args(argv, extra_args_provider)
     cfg = args_to_run_config(args)
     if not args.data_path:
         raise SystemExit("--data_path is required")

@@ -19,8 +19,13 @@ import torch
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--model_name", default="llama2-7B",
-                   help="preset, optionally NAME-SIZE (e.g. llama2-7B)")
+    p.add_argument("--model_name", default=None,
+                   help="preset, optionally NAME-SIZE (default llama2-7B "
+                        "without --load; with --load, checked against the "
+                        "checkpoint's config)")
+    p.add_argument("--load", default=None,
+                   help="checkpoint directory to serve (the tracker's "
+                        "iteration, or the newest valid one)")
     p.add_argument("--tokenizer_type", default="null",
                    help="only 'null' is ported: ids in, ids out; its eod "
                         "id is the model's vocab size")
@@ -58,21 +63,48 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
-    from megatron_tpu_torch.inference.server import run_server
+def load_model(args):
+    """(cfg, params, iteration or None) for --load / --model_name."""
+    import dataclasses
+
+    from megatron_tpu_torch.config import ModelConfig
     from megatron_tpu_torch.models import presets
-    from megatron_tpu_torch.models.params import init_params
+    from megatron_tpu_torch.models.params import empty_params, init_params
+    from megatron_tpu_torch.training import checkpointing
+
+    if not args.load:
+        cfg = presets.from_model_name(args.model_name or "llama2-7B")
+        print("WARNING: serving randomly initialized weights (no --load)",
+              flush=True)
+        return cfg, init_params(cfg, args.seed, device=args.device), None
+    iteration, _ = checkpointing.resolve_load_iteration(args.load)
+    saved = checkpointing.saved_run_config(args.load, iteration)
+    # the serving presets' kernel route; the architecture is the saved one
+    cfg = dataclasses.replace(ModelConfig(**saved["model"]),
+                              attention_impl="pallas").validate()
+    if args.model_name:
+        checkpointing.check_config_compatibility(
+            saved, {"model": presets.from_model_name(args.model_name)
+                    .__dict__})
+    params = checkpointing.load_params_only(
+        args.load, empty_params(cfg, device=args.device), iteration)
+    print(f"loaded checkpoint at iteration {iteration} from {args.load}",
+          flush=True)
+    return cfg, params, iteration
+
+
+def main(argv=None, **server_kwargs):
+    """server_kwargs go to inference.server.run_server (in-process
+    callers pass `ready` and `service_out`)."""
+    from megatron_tpu_torch.inference.server import run_server
     from megatron_tpu_torch.tokenizer import build_tokenizer
 
     args = parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = presets.from_model_name(args.model_name)
+    cfg, params, _ = load_model(args)
     tokenizer = build_tokenizer(args.tokenizer_type,
                                 vocab_size=cfg.vocab_size)
-    params = init_params(cfg, args.seed, device=args.device)
-    print("WARNING: serving randomly initialized weights (no checkpoint "
-          "loading in the port yet)", flush=True)
     max_seq_len = args.serve_max_seq_len or min(cfg.seq_length, 2048)
     row_bytes = (2 * cfg.num_layers * cfg.n_kv_heads * cfg.head_dim
                  * torch.finfo(cfg.dtype).bits / 8)
@@ -94,7 +126,7 @@ def main(argv=None):
                kv_paging=args.serve_kv_paging,
                page_size=args.serve_page_size,
                prefill_chunk=args.serve_prefill_chunk,
-               num_pages=args.serve_num_pages)
+               num_pages=args.serve_num_pages, **server_kwargs)
 
 
 if __name__ == "__main__":

@@ -7,12 +7,18 @@ log_interval window in the JAX package's line format (iteration,
 consumed samples, lm loss, lr, grad norm, skipped, tokens/sec, model
 TFLOP/s from 3 x flops_per_token_fwd). The step itself never syncs the
 host: the log line is the one place metrics are read, and the window's
-wall clock runs from one log line (or evaluation) to the next, so
-tokens/sec counts training time only.
+wall clock runs from one log line (or evaluation, or checkpoint save) to
+the next, so tokens/sec counts training time only.
 
-Not ported yet: checkpointing, resilience (sentinels, rollback,
-preemption), the async prefetch loop, profiling windows, telemetry and
-multi-host coordination.
+With --load it resumes at start (training/checkpointing.py; nothing
+found: a fresh start, logged), and with --save it checkpoints every
+save_interval iterations and once at the end, through an
+AsyncCheckpointSaver that every exit path flushes. consumed_samples is
+restored with the state, and the data iterator is rebuilt from it, so
+a resumed run reads the samples an uninterrupted one would.
+
+Not ported yet: resilience (sentinels, rollback, preemption), the async
+prefetch loop, profiling windows, telemetry and multi-host coordination.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 
 from megatron_tpu_torch.config import RunConfig
 from megatron_tpu_torch.models.params import init_params, num_params
+from megatron_tpu_torch.training import checkpointing
 from megatron_tpu_torch.training.microbatches import MicroBatchCalculator
 from megatron_tpu_torch.training.optimizer import (
     TrainState, init_train_state, leaf_paths,
@@ -79,7 +86,9 @@ class TrainLoop:
 
     After train(), `history` holds one record per logged window
     (iteration, consumed, lm_loss, lr, grad_norm, skipped, window_s,
-    tokens_per_s, model_tflops_per_s) and `evals` one per evaluation."""
+    tokens_per_s, model_tflops_per_s), `evals` one per evaluation,
+    `saves` one per committed checkpoint (AsyncCheckpointSaver.history)
+    and `load_s` the seconds the --load took (None without one)."""
 
     def __init__(self, run_cfg: RunConfig, log: Callable[[str], None] = print,
                  device="cuda"):
@@ -109,6 +118,44 @@ class TrainLoop:
         self.eval_step = make_eval_step(model_cfg, run_cfg.training)
         self.history: List[Dict[str, float]] = []
         self.evals: List[Dict[str, float]] = []
+        self._save_config = run_cfg.to_dict()
+        self._saver: Optional[checkpointing.AsyncCheckpointSaver] = None
+        self.saves: List[Dict[str, Any]] = []
+        self.load_s: Optional[float] = None
+        if run_cfg.training.load:
+            self._load()
+
+    # -- checkpoint ---------------------------------------------------------
+
+    def _load(self) -> None:
+        t = self.cfg.training
+        t0 = time.perf_counter()
+        try:
+            self.state, it, consumed = checkpointing.load_checkpoint(
+                t.load, self.state, finetune=t.finetune,
+                no_load_optim=t.no_load_optim, config=self._save_config)
+        except FileNotFoundError:
+            self.log(f"no checkpoint found in {t.load}, starting fresh")
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.load_s = time.perf_counter() - t0
+        self.iteration, self.consumed_samples = it, consumed
+        self.log(f"loaded checkpoint at iteration {it} "
+                 f"(consumed {consumed} samples)")
+
+    def save(self) -> None:
+        """Checkpoint the state at this iteration. Returns once it is on
+        the host; the write and commit overlap the next steps unless
+        --no_async_save."""
+        t = self.cfg.training
+        if self._saver is None:
+            self._saver = checkpointing.AsyncCheckpointSaver(
+                t.save, keep_latest_k=t.keep_latest_k, log=self.log,
+                async_save=t.async_save)
+            self.saves = self._saver.history
+        self._saver.save(self.state, self.iteration, self.consumed_samples,
+                         config=self._save_config)
 
     def _train_step_for(self, num_microbatches: int) -> Callable:
         step = self._step_cache.get(num_microbatches)
@@ -193,8 +240,18 @@ class TrainLoop:
         t = self.cfg.training
         self._model_flops_per_token = \
             3.0 * self.cfg.model.flops_per_token_fwd()
+        try:
+            self._train(t, train_iter_factory, valid_iter_factory)
+        finally:
+            # the forced flush of every exit path, an exception's too
+            if self._saver is not None:
+                self._saver.close()
+        return self.state
+
+    def _train(self, t, train_iter_factory, valid_iter_factory) -> None:
         self._reset_window()
         data_iter, current_gbs = None, None
+        last_saved = None
         while self.iteration < (t.train_iters or 0):
             gbs = self.calc.global_batch(self.consumed_samples)
             if gbs != current_gbs or data_iter is None:
@@ -222,7 +279,13 @@ class TrainLoop:
                          f"ppl: {ev['ppl']:.3f}")
                 self.evals.append(dict(ev, iteration=self.iteration))
                 self._win_t0 = time.time()
-        return self.state
+            if (t.save and t.save_interval
+                    and self.iteration % t.save_interval == 0):
+                self.save()
+                last_saved = self.iteration
+                self._win_t0 = time.time()
+        if t.save and last_saved != self.iteration:
+            self.save()
 
 
 def pretrain(run_cfg: RunConfig, train_iter_factory,

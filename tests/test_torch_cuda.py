@@ -19,15 +19,25 @@ against the plain fp32 backward of the same bf16 inputs and the same
 o/lse, relative to each tensor's largest plain magnitude M:
 |kernel - plain| <= 2e-3 * M + 2e-2 * |plain| (the tolerance of the JAX
 package's own backward test, tests/test_pallas_attention.py; the kernels
-round p and ds to bf16 for the tensor cores).
+round p and ds to bf16 for the tensor cores). A CUDA TrainState saves
+and loads bitwise, an async save overlapping a train step (which updates
+the device tensors in place) keeps the state from before the step, and
+load_params_only places the params on the card.
 """
 
 import dataclasses
+import os
 
 import pytest
 import torch
 
+from megatron_tpu_torch.config import OptimizerConfig, TrainingConfig
+from megatron_tpu_torch.models import presets
+from megatron_tpu_torch.models.params import empty_params, init_params
 from megatron_tpu_torch.ops.flash import flash_template as ft
+from megatron_tpu_torch.training import checkpointing
+from megatron_tpu_torch.training.optimizer import init_train_state, leaf_paths
+from megatron_tpu_torch.training.train_step import make_train_step
 
 pytestmark = pytest.mark.cuda
 ATOL = RTOL = 2e-2
@@ -444,3 +454,78 @@ def test_train_step_runs_the_attention_kernels(gen):
     assert launched["xla"] == [0, 0, 0]
     for a, b in zip(losses["pallas"], losses["xla"]):
         assert abs(a - b) <= 3e-2, (losses["pallas"], losses["xla"])
+
+
+# ---------------------------------------------------------------------------
+# checkpoints of a CUDA TrainState (training/checkpointing.py)
+# ---------------------------------------------------------------------------
+
+
+def _cuda_state(gen, seed):
+    cfg = presets.tiny(hidden_size=256, vocab_size=128, seq_length=64,
+                       params_dtype="bfloat16", attention_impl="pallas")
+    params = init_params(cfg, seed)
+    for _, p in leaf_paths(params):
+        p.requires_grad_(True)
+    state = init_train_state(OptimizerConfig(lr=1e-3), params)
+    with torch.no_grad():
+        for tree in (state.mu, state.nu):
+            for _, t in leaf_paths(tree):
+                t.normal_(generator=gen)
+        state.step.fill_(seed + 3)
+    return cfg, state
+
+
+def _host_leaves(state):
+    return {(f, n): t.detach().cpu().clone()
+            for f in ("params", "master", "mu", "nu")
+            for n, t in leaf_paths(getattr(state, f))}
+
+
+def test_cuda_train_state_save_load_is_bitwise(gen, tmp_path):
+    _, state = _cuda_state(gen, 0)
+    checkpointing.save_checkpoint(str(tmp_path), state, 5, 50)
+    _, template = _cuda_state(gen, 1)
+    restored, it, consumed = checkpointing.load_checkpoint(str(tmp_path),
+                                                           template)
+    assert (it, consumed) == (5, 50)
+    for (f, n), t in _host_leaves(state).items():
+        got = dict(leaf_paths(getattr(restored, f)))[n]
+        assert got.is_cuda and torch.equal(got.cpu(), t), (f, n)
+    assert int(restored.step) == int(state.step)
+
+
+def test_async_save_overlapping_a_step_keeps_the_pre_step_state(gen,
+                                                                tmp_path):
+    """save() returns once the state is on the host; the train step that
+    follows updates the same device tensors in place while the files are
+    written, and the checkpoint holds the state from before the step."""
+    cfg, state = _cuda_state(gen, 0)
+    opt = OptimizerConfig(lr=1e-3, lr_decay_style="constant")
+    step = make_train_step(cfg, opt, TrainingConfig(
+        micro_batch_size=2, global_batch_size=2, train_iters=1), 1)
+    toks = torch.randint(0, 128, (2, 65), generator=gen, device="cuda")
+    before = _host_leaves(state)
+    saver = checkpointing.AsyncCheckpointSaver(str(tmp_path))
+    saver.save(state, 1, 2)
+    state, _ = step(state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    torch.cuda.synchronize()
+    saver.close()
+    assert not torch.equal(state.params["embed"]["tokens"].cpu(),
+                           before[("params", "embed/tokens")])
+    for f in ("params", "master", "mu", "nu"):
+        saved = torch.load(os.path.join(
+            checkpointing.checkpoint_dir(str(tmp_path), 1), "state",
+            f + ".pt"), weights_only=True)
+        for n, t in saved.items():
+            assert torch.equal(t, before[(f, n)]), (f, n)
+
+
+def test_load_params_only_places_params_on_the_card(gen, tmp_path):
+    cfg, state = _cuda_state(gen, 0)
+    checkpointing.save_checkpoint(str(tmp_path), state, 3)
+    params = checkpointing.load_params_only(
+        str(tmp_path), empty_params(cfg, device="cuda"))
+    for (n, p), (_, m) in zip(leaf_paths(params), leaf_paths(state.master)):
+        assert p.is_cuda and p.dtype == torch.bfloat16, n
+        assert torch.equal(p, m.to(torch.bfloat16)), n
