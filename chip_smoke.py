@@ -38,7 +38,8 @@ still run, so one call shows every failure):
               tolerance as phase 2: B 8, 128 table entries of ps 16 (2048
               positions), H 32, D 128, Sq 1, kv_lengths 1..2048, physical
               pages a seeded permutation of the pool with two rows sharing
-              their first 32 pages; Hq 32 / Hkv 8, Sq 5 with window 256
+              their first 32 pages; Sq 5 at H 32 (the paged verify form
+              phase 3c launches); Hq 32 / Hkv 8, Sq 5 with window 256
               and scratch entries behind the window; ps 8 and ps 64. Time
               the kernel, the plain version, SDPA on the gathered dense
               view (the library yardstick) and the dense flash_decode
@@ -70,8 +71,14 @@ still run, so one call shows every failure):
               the plain bf16 path's own error against fp32, at >= 99% of
               positions (teacher_force), and require the launch counters
               to equal 32 x prefills and 32 x decode ticks with no
-              dense-fallback warning. The model and cache are freed
-              before training.
+              dense-fallback warning. The engine's decode tick is one
+              CUDA graph captured at start and replayed (its launches
+              counted per replay); engine_decode_recompiles_total must
+              read 0. After that run, one more request under
+              torch.profiler: the decode counters' delta must equal the
+              flash_decode kernels the device ran (the counter under
+              replay is the capture's count, so the trace confirms it).
+              The model and cache are freed before training.
   3b. paged   the same server with kv_paging (16-token pages, 32-token
               prefill chunks, the default pool): the phase-3 traffic and
               its repeat, then two requests sharing the first 512 tokens
@@ -81,7 +88,36 @@ still run, so one call shows every failure):
               32 tokens, >= 2 prefix hits, >= 1 preemption, the
               teacher-forced gate on every sequence, paged_flash_decode
               launched 32 x decode ticks with flash_decode and flash_fwd
-              at 0, and no dense-fallback warning.
+              at 0, no dense-fallback warning and no capture beyond the
+              warm-up one.
+  3c. spec    speculative serving (--serve_speculative, k SPEC_K) through
+              the server on both engines, the phase-3 prompts plus one of
+              512 tokens repeating a 64-token pattern, four drafters:
+              ngram, model at full depth (the target's own weights:
+              near-full acceptance), model cut to the target's first
+              SPEC_DRAFT_LAYERS layers and to its first
+              SPEC_PARTIAL_LAYERS (which accepts part of its drafts: the
+              rollback after 0 < a < k, the draft cache overwritten past
+              it, paged write spans across a partial accept). Gates per
+              run: every request
+              answers prompt + 32 tokens; the launches by form equal
+              32 x ticks of the Sq k + 1 verify form (flash_decode dense,
+              paged_flash_decode paged) plus (k + 1) x draft layers x
+              ticks of the Sq 1 form for the model drafter, and flash_fwd
+              (target + draft layers) x prefills dense, 0 paged;
+              engine_decode_recompiles_total 0; a full-depth draft
+              accepts at least half its drafts; the SPEC_PARTIAL_LAYERS
+              draft accepts some but not all, with at least one
+              slot-tick of 0 < a < k (engine_spec_accept_length). Each
+              run prints its cut tokens (accepted past max_new_tokens,
+              never emitted). The n-gram engine also
+              runs in-process eagerly (cuda_graph=False) and by graph on
+              the same traffic: tokens identical, the largest logprob
+              difference and both tick means printed. Every distinct
+              sequence passes phase 3's teacher-forced gate (argmax or a
+              bf16 near-tie): speculative greedy tokens may part from the
+              plain ones only at a near-tie, since the verify's GEMMs run
+              at other shapes.
   4. training write a synthetic corpus (Zipf token ids, 32000 vocab, from
               SEED) with the port's MMapIndexedDatasetBuilder into
               megatron_tpu_torch/build/, then call
@@ -125,7 +161,8 @@ still run, so one call shows every failure):
               step time, checkpoint bytes, save stall / commit / load /
               crc32 times and the launch counts.
   6. report   one JSON line listing each kernel with its launches on its
-              path (serving, paged_serving, training and finetune), then
+              path (serving, paged_serving, speculative_serving, training
+              and finetune), then
               the card's name and power limit, then {"ok": true, "device":
               {...}} as the last line.
 
@@ -172,6 +209,18 @@ PAGE_SIZE = 16
 PREFILL_CHUNK = 32
 PRESSURE_PAGES = 147
 SHARED_PREFIX, OWN_SUFFIX = 512, 64
+# phase 3c: speculative serving, k SPEC_K, the phase-3 prompts plus one
+# of SPEC_REPEAT tokens repeating a SPEC_PATTERN-token pattern (so the
+# n-gram lookup proposes); the small draft is the target's first
+# SPEC_DRAFT_LAYERS layers. The random-init target copies no pattern and
+# agrees with its 4-layer cut nowhere, so those drafts are never
+# accepted; a cut of SPEC_PARTIAL_LAYERS layers agrees with it in part
+# (on an H100, seed 1234: 101 of 260 drafts dense, 85 of 280 paged), so
+# its ticks roll back after 0 < a < k accepted drafts
+SPEC_K = 4
+SPEC_PATTERN, SPEC_REPEAT = 64, 512
+SPEC_DRAFT_LAYERS = 4
+SPEC_PARTIAL_LAYERS = 31
 
 # phase 4: Llama-2-7B width cut to TRAIN_LAYERS layers
 TRAIN_LAYERS = 8
@@ -444,12 +493,14 @@ def decode_split(torch, ft, S, B, hkv, rows) -> dict:
 # phases 2 and 2c: one decode tick at 8 slots x 2048 positions with
 # ragged prefixes. Dense: the serving path's Sq 1, G 1 (the reported
 # case), GQA G 4 and the Sq 5 verify form; paged: the serving path's ps 16
-# (reported), GQA with Sq 5 and a window, page sizes 8 and 64
+# (reported) and its Sq 5 verify form, GQA with Sq 5 and a window, page
+# sizes 8 and 64
 DECODE_B, DECODE_S, DECODE_D = 8, 2048, 128
 DECODE_LENS = [1, 63, 64, 2047, 2048, 500, 1000, 1500]
 DECODE_CASES = [dict(sq=1, hq=32, hkv=32), dict(sq=1, hq=32, hkv=8),
                 dict(sq=5, hq=32, hkv=8), dict(sq=5, hq=32, hkv=32)]
 PAGED_CASES = [dict(ps=16, sq=1, hq=32, hkv=32, window=None),
+               dict(ps=16, sq=5, hq=32, hkv=32, window=None),
                dict(ps=16, sq=5, hq=32, hkv=8, window=256),
                dict(ps=8, sq=1, hq=32, hkv=32, window=None),
                dict(ps=64, sq=1, hq=32, hkv=32, window=None)]
@@ -804,11 +855,40 @@ def _metric(text: str, name: str) -> float:
 def _zero_decode_counts(ft):
     for name in ("flash_fwd", "flash_decode", "paged_flash_decode"):
         getattr(ft, name).launches = 0
+    for name in ("flash_decode", "paged_flash_decode"):
+        getattr(ft, name).launches_by_sq.clear()
+
+
+def _decode_forms(ft):
+    """The decode kernels' launches by query length: "sq1" the plain tick
+    and the draft model's steps, "sq<k+1>" the speculative verify."""
+    return {name: {f"sq{sq}": n for sq, n in
+                   sorted(getattr(ft, name).launches_by_sq.items())}
+            for name in ("flash_decode", "paged_flash_decode")}
 
 
 def _decode_counts(ft):
     return {name: getattr(ft, name).launches
             for name in ("flash_fwd", "flash_decode", "paged_flash_decode")}
+
+
+def _profiled_decode_launches(torch, ft, fn) -> dict:
+    """Run fn under torch.profiler: the decode counters' delta (which a
+    graph replay advances by the launches recorded at capture) beside the
+    decode kernels the device ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("flash_decode", "paged_flash_decode")
+    c0 = sum(getattr(ft, n).launches for n in names)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    seen = sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "flash_decode_kernel" in e.key)
+    return {"counter": sum(getattr(ft, n).launches for n in names) - c0,
+            "device_kernels": seen}
 
 
 def serve(torch, ft, card):
@@ -904,11 +984,24 @@ def serve(torch, ft, card):
         with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
             metrics = r.read().decode()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        capture_s = eng.capture_seconds
+        # after the main path's read: one more request under the profiler
+        profiled = _profiled_decode_launches(torch, ft, lambda: _put(
+            base + "/api", {"prompts": [" ".join(map(str, prompts[0]))],
+                            "tokens_to_generate": 8, "temperature": 0.0}))
     finally:
         server.shutdown()
         thread.join(120)
     if thread.is_alive():
         raise RuntimeError("server thread did not stop")
+    if profiled["counter"] != profiled["device_kernels"] or \
+            not profiled["counter"]:
+        raise AssertionError(f"flash_decode counter against the profiler's "
+                             f"kernels under graph replay: {profiled}")
+    recompiles = _metric(metrics, "engine_decode_recompiles_total")
+    if recompiles != 0 or capture_s is None:
+        raise AssertionError(f"decode step: {recompiles} captures beyond "
+                             f"warm-up, capture {capture_s}")
 
     del service, server, handles
     torch.cuda.empty_cache()
@@ -928,7 +1021,9 @@ def serve(torch, ft, card):
             "tokens_per_s": len(prompts) * NEW_TOKENS / conc_s,
             "ttft_mean_s": ttft, "per_token_mean_s": tpot,
             "prefills": prefills, "decode_ticks": ticks,
-            "launches": launches,
+            "launches": launches, "cuda_graph_capture_s": capture_s,
+            "decode_recompiles": recompiles,
+            "profiled_decode_launches": profiled,
             "max_memory_allocated_gib": peak_gib, **tf}
     emit(line)
     if tf["teacher_forced_match"] < MATCH_GATE:
@@ -1037,6 +1132,7 @@ def serve_paged(torch, ft, card, dense_tokens):
         launches = _decode_counts(ft)
         ticks = eng.stats["ticks"] - ticks0
         stats = dict(eng.stats)
+        capture_s = eng.capture_seconds
         with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
             metrics = r.read().decode()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1113,9 +1209,14 @@ def serve_paged(torch, ft, card, dense_tokens):
                          "stats": {k: p_stats[k] for k in keys},
                          "launches": p_launches},
             "share_equal_to_dense_engine_tokens": same_as_dense,
+            "cuda_graph_capture_s": capture_s,
+            "decode_recompiles": _metric(
+                metrics, "engine_decode_recompiles_total"),
             "fallback_warnings": fallbacks, **tf}
     emit(line)
     problems = []
+    if line["decode_recompiles"] != 0 or stats["decode_recompiles"] != 0:
+        problems.append("decode step captured again after warm-up")
     if stats["prefix_hits"] < 2:
         problems.append(f"prefix hits {stats['prefix_hits']} < 2")
     if p_stats["preemptions"] < 1:
@@ -1128,6 +1229,267 @@ def serve_paged(torch, ft, card, dense_tokens):
     if problems:
         raise AssertionError("paged serving: " + "; ".join(problems))
     return {n: launches[n] + p_launches[n] for n in launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: speculative serving
+# ---------------------------------------------------------------------------
+
+
+def _spec_want(drafter, paged, draft_layers, prefills, ticks):
+    """The launches one speculative run must count: a tick launches the
+    verify form (Sq k + 1) once per target layer and, with the model
+    drafter, the Sq 1 form once per draft layer for each of its k + 1
+    forwards; the dense engine's admissions launch flash_fwd once per
+    target and draft layer, the paged engine's chunks none."""
+    draft = draft_layers if drafter == "model" else 0
+    name = "paged_flash_decode" if paged else "flash_decode"
+    forms = {f"sq{SPEC_K + 1}": NUM_LAYERS * ticks}
+    if draft:
+        forms["sq1"] = (SPEC_K + 1) * draft * ticks
+    launches = {"flash_fwd": 0 if paged else (NUM_LAYERS + draft) * prefills,
+                "flash_decode": 0, "paged_flash_decode": 0}
+    launches[name] = sum(forms.values())
+    return launches, {"flash_decode": {}, "paged_flash_decode": {},
+                      name: dict(sorted(forms.items()))}
+
+
+def _spec_server_run(torch, ft, cfg, params, tokenizer, prompts, paged,
+                     drafter, draft_layers):
+    """One speculative server (run_text_generation_server's flags through
+    load_spec): the prompts concurrently, greedy, NEW_TOKENS each.
+    Returns the run's record and its generated tokens."""
+    from megatron_tpu_torch.inference.server import run_server
+    from megatron_tpu_torch.tools import run_text_generation_server as rts
+
+    argv = ["--serve_speculative", drafter, "--serve_spec_k", str(SPEC_K)]
+    if drafter == "model":
+        argv += ["--serve_draft_layers", str(draft_layers)]
+    speculative = rts.load_spec(rts.parse_args(argv), cfg, params)
+    kw = dict(kv_paging=True, page_size=PAGE_SIZE,
+              prefill_chunk=PREFILL_CHUNK) if paged else {}
+    ready, handles = threading.Event(), []
+    thread = threading.Thread(
+        target=run_server, daemon=True, name="smoke-spec-server",
+        kwargs=dict(cfg=cfg, params=params, tokenizer=tokenizer,
+                    host="127.0.0.1", port=0, engine_slots=8,
+                    engine_max_seq_len=2048, device="cuda", ready=ready,
+                    service_out=handles, speculative=speculative, **kw))
+    thread.start()
+    if not ready.wait(300):
+        raise RuntimeError("speculative server did not start")
+    service, server = handles
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    eng = service.engine
+    results = [None] * len(prompts)
+    try:
+        def one(i):
+            results[i] = _put(base + "/api", {
+                "prompts": [" ".join(map(str, prompts[i]))],
+                "tokens_to_generate": NEW_TOKENS, "temperature": 0.0})
+
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics0 = r.read().decode()
+        _zero_decode_counts(ft)
+        s0 = dict(eng.stats)
+        t0 = time.monotonic()
+        workers = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(900)
+        wall_s = time.monotonic() - t0
+        launches, forms = _decode_counts(ft), _decode_forms(ft)
+        st = {k: eng.stats[k] - s0.get(k, 0) for k in
+              ("admitted", "ticks", "spec_proposed", "spec_accepted",
+               "spec_emitted")}
+        recompiles = eng.stats["decode_recompiles"]
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        capture_s = eng.capture_seconds
+    finally:
+        server.shutdown()
+        thread.join(120)
+    if thread.is_alive():
+        raise RuntimeError("speculative server thread did not stop")
+
+    def accept_le(text, bound):
+        return _metric(text, "engine_spec_accept_length_bucket"
+                             f'{{le="{bound}"}}')
+
+    # slot-ticks that accepted 0 < a < k drafts (the histogram is
+    # cumulative, with bounds at a + 0.5)
+    partial = (accept_le(metrics, SPEC_K - 0.5) - accept_le(metrics, 0.5)
+               - accept_le(metrics0, SPEC_K - 0.5)
+               + accept_le(metrics0, 0.5))
+    generated = []
+    for i, res in enumerate(results):
+        if res is None or res[0] != 200:
+            raise AssertionError(f"{drafter} request {i} failed: {res}")
+        toks = [int(t) for t in res[1]["text"][0].split()]
+        if toks[:len(prompts[i])] != prompts[i] or \
+                len(toks) != len(prompts[i]) + NEW_TOKENS:
+            raise AssertionError(f"{drafter} request {i}: {len(toks)} tokens")
+        generated.append(toks[len(prompts[i]):])
+    want, want_forms = _spec_want(drafter, paged, draft_layers,
+                                  st["admitted"], st["ticks"])
+    rec = {"engine": "paged" if paged else "dense", "drafter": drafter,
+           "draft_layers": draft_layers if drafter == "model" else None,
+           "k": SPEC_K, "wall_s": wall_s, **st,
+           "accept_rate": st["spec_accepted"] / max(st["spec_proposed"], 1),
+           "tokens_per_tick": st["spec_emitted"] / max(st["ticks"], 1),
+           # per speculating slot and tick (proposed / k slot-ticks)
+           "tokens_per_slot_tick": st["spec_emitted"] * SPEC_K
+           / max(st["spec_proposed"], 1),
+           "partial_accept_slot_ticks": partial,
+           # accepted tokens past a request's end (max_new_tokens in the
+           # middle of a speculation), never emitted
+           "cut_tokens": st["spec_accepted"] + st["spec_proposed"] // SPEC_K
+           - st["spec_emitted"],
+           # the process-wide registry holds earlier servers' ticks too
+           "tick_mean_ms": 1e3 * (
+               (_metric(metrics, "engine_decode_tick_seconds_sum")
+                - _metric(metrics0, "engine_decode_tick_seconds_sum"))
+               / (_metric(metrics, "engine_decode_tick_seconds_count")
+                  - _metric(metrics0, "engine_decode_tick_seconds_count"))),
+           "cuda_graph_capture_s": capture_s,
+           "decode_recompiles": recompiles,
+           "launches": launches, "launches_by_form": forms}
+    problems = []
+    if launches != want or forms != want_forms:
+        problems.append(f"launches {launches} {forms} != {want} "
+                        f"{want_forms}")
+    if st["admitted"] != len(prompts):
+        problems.append(f"admitted {st['admitted']}")
+    if rec["decode_recompiles"] != 0:
+        problems.append("decode step captured again after warm-up")
+    rec["problems"] = problems
+    del service, server, handles, eng
+    return rec, generated
+
+
+def _eager_vs_graph(torch, cfg, params, prompts, paged):
+    """The n-gram speculative engine in-process, cuda_graph False and
+    True, on the same greedy traffic: the same kernels at the same
+    shapes, so the tokens must be identical; prints the largest logprob
+    difference and each engine's mean tick wall."""
+    from megatron_tpu_torch.inference.engine import InferenceEngine, Request
+    from megatron_tpu_torch.inference.paging import PagedInferenceEngine
+    from megatron_tpu_torch.inference.speculative import SpecConfig
+    from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
+
+    import numpy as np
+
+    out = {}
+    for graph in (False, True):
+        reg = MetricsRegistry()
+        kw = dict(num_slots=8, max_seq_len=2048, vocab_size=cfg.vocab_size,
+                  metrics=reg, device="cuda", cuda_graph=graph,
+                  speculative=SpecConfig(k=SPEC_K))
+        eng = (PagedInferenceEngine(cfg, params, page_size=PAGE_SIZE,
+                                    prefill_chunk=PREFILL_CHUNK, **kw)
+               if paged else InferenceEngine(cfg, params, **kw))
+        reqs = [eng.submit(Request(prompt=np.asarray(p, np.int32),
+                                   max_new_tokens=NEW_TOKENS))
+                for p in prompts]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        if any(r.error for r in reqs):
+            raise AssertionError([r.error for r in reqs])
+        text = reg.render()
+        out[graph] = ([r.generated for r in reqs], [r.logprobs for r in reqs],
+                      1e3 * _metric(text, "engine_decode_tick_seconds_sum")
+                      / _metric(text, "engine_decode_tick_seconds_count"),
+                      eng.stats["ticks"])
+        del eng, reqs
+        free_cuda(torch)
+    same = out[False][0] == out[True][0]
+    diff = max(abs(a - b) for la, lb in zip(out[False][1], out[True][1])
+               for a, b in zip(la, lb))
+    return {"engine": "paged" if paged else "dense", "drafter": "ngram",
+            "tokens_identical": same, "max_logprob_diff": diff,
+            "eager_tick_mean_ms": out[False][2],
+            "graph_tick_mean_ms": out[True][2],
+            "ticks": [out[False][3], out[True][3]]}
+
+
+def serve_speculative(torch, ft, card, dense_tokens):
+    """Phase 3c. dense_tokens: phase 3's generated tokens per prompt
+    (None if phase 3 failed), compared for information only."""
+    import dataclasses
+
+    import numpy as np
+
+    from megatron_tpu_torch.models import presets
+    from megatron_tpu_torch.models.params import init_params
+    from megatron_tpu_torch.tokenizer import NullTokenizer
+
+    cfg = presets.from_model_name("llama2-7B")
+    params = init_params(cfg, SEED, device="cuda")
+    tokenizer = NullTokenizer(cfg.vocab_size)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size - 1, size=n).tolist()
+               for n in PROMPT_LENS]
+    pattern = rng.integers(0, cfg.vocab_size - 1, size=SPEC_PATTERN).tolist()
+    prompts.append(pattern * (SPEC_REPEAT // SPEC_PATTERN))
+    torch.cuda.reset_peak_memory_stats()
+    runs, seqs, problems = [], {}, []
+    for paged in (False, True):
+        for drafter, layers in (("ngram", None), ("model", NUM_LAYERS),
+                                ("model", SPEC_DRAFT_LAYERS),
+                                ("model", SPEC_PARTIAL_LAYERS)):
+            rec, gen = _spec_server_run(torch, ft, cfg, params, tokenizer,
+                                        prompts, paged, drafter, layers)
+            if dense_tokens is not None:
+                pairs = list(zip(gen, dense_tokens))
+                rec["share_equal_to_plain_tokens"] = (
+                    sum(x == y for a, b in pairs for x, y in zip(a, b))
+                    / sum(len(a) for a, _ in pairs))
+            runs.append(rec)
+            problems += [f"{rec['engine']} {drafter} {layers}: {p}"
+                         for p in rec.pop("problems")]
+            for p, g in zip(prompts, gen):
+                seqs[(tuple(p), tuple(g))] = (p, g)
+            # the server's handler closure and the engine hold reference
+            # cycles: collect them before the next engine's caches
+            free_cuda(torch)
+    ab = [_eager_vs_graph(torch, cfg, params, prompts, paged)
+          for paged in (False, True)]
+    problems += [f"{r['engine']}: graph tokens differ from eager"
+                 for r in ab if not r["tokens_identical"]]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    tf = teacher_force(torch, dataclasses, cfg, params,
+                       [list(p) for p, _ in seqs.values()],
+                       [list(g) for _, g in seqs.values()])
+    full = [r for r in runs if r["draft_layers"] == NUM_LAYERS]
+    emit({"phase": "speculative_serving", "card": card,
+          "model": "llama2-7B", "layers": NUM_LAYERS, "slots": 8,
+          "max_seq_len": 2048, "k": SPEC_K,
+          "prompt_tokens": [len(p) for p in prompts],
+          "new_tokens": NEW_TOKENS, "runs": runs, "eager_vs_graph": ab,
+          "max_memory_allocated_gib": peak_gib,
+          "distinct_sequences": len(seqs), **tf})
+    if tf["teacher_forced_match"] < MATCH_GATE:
+        problems.append(f"teacher-forced match "
+                        f"{tf['teacher_forced_match']:.4f} < {MATCH_GATE}")
+    if any(r["accept_rate"] < 0.5 for r in full):
+        problems.append("a full-depth draft (the target's own weights) "
+                        "accepted under half its drafts")
+    for r in runs:
+        if r["draft_layers"] == SPEC_PARTIAL_LAYERS and not (
+                0 < r["accept_rate"] < 1
+                and r["partial_accept_slot_ticks"] > 0):
+            problems.append(f"{r['engine']} {SPEC_PARTIAL_LAYERS}-layer "
+                            f"draft: no partially accepted tick (accept "
+                            f"rate {r['accept_rate']})")
+    if problems:
+        raise AssertionError("speculative serving: " + "; ".join(problems))
+    total = {"flash_fwd": 0, "flash_decode": 0, "paged_flash_decode": 0}
+    for r in runs:
+        for n in total:
+            total[n] += r["launches"][n]
+    return total
 
 
 def teacher_force(torch, dataclasses, cfg, params, prompts, generated):
@@ -1825,6 +2187,8 @@ def main() -> int:
     phase("serving", serve, torch, ft, card)
     phase("paged_serving", serve_paged, torch, ft, card,
           results.get("serving", {}).get("generated"))
+    phase("speculative_serving", serve_speculative, torch, ft, card,
+          results.get("serving", {}).get("generated"))
     phase("training", train, torch, np, ft, card)
     phase("kernel_vs_dense_step", step_vs_dense, torch, np, ft, card)
     phase("finetune", finetune, torch, np, ft, card)
@@ -1834,6 +2198,7 @@ def main() -> int:
 
     paths = {"serving": results["serving"]["launches"],
              "paged_serving": results["paged_serving"],
+             "speculative_serving": results["speculative_serving"],
              "training": results["training"],
              "finetune": results["finetune"]}
     reports = {"flash_fwd": results["flash_fwd"],

@@ -37,9 +37,10 @@ def generate_and_post_process(engine, tokenizer, prompts: Sequence[str],
                               top_p_sampling: float = 0.0,
                               add_BOS: bool = False,
                               return_output_log_probs: bool = False,
-                              random_seed: int = 0):
+                              random_seed: int = 0, spec: bool = True):
     """(texts, segments, logprobs, tokens), like the JAX package's
-    generate_and_post_process on its engine path."""
+    generate_and_post_process on its engine path. spec=False keeps these
+    requests to one token a tick on a speculating engine."""
     if tokens_to_generate < 1:
         raise ValueError("tokens_to_generate must be >= 1 (scoring mode is "
                          "not ported yet)")
@@ -48,7 +49,8 @@ def generate_and_post_process(engine, tokenizer, prompts: Sequence[str],
     out = engine.generate(
         prompt_tokens, lengths, max_new_tokens=tokens_to_generate,
         temperature=temperature, top_k=top_k_sampling,
-        top_p=top_p_sampling, eod=tokenizer.eod, seed=random_seed)
+        top_p=top_p_sampling, eod=tokenizer.eod, seed=random_seed,
+        spec=spec)
     texts, segments = [], []
     for row, end in zip(out.tokens, out.lengths):
         toks = row[: int(end)]

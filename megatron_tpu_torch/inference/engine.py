@@ -8,11 +8,41 @@ single-token decode over all slots. Sequences of different ages share
 the batch because attention masks each slot to its own valid prefix
 (ops/attention.py kv_lengths -> the flash_decode kernel on CUDA).
 
+The decode tick (the JAX engine's one jitted step, _build_decode_step):
+one step body over static device buffers, the carry. last_tok, lengths,
+the decode-row mask, the per-request speculation mask and (n-gram) the
+drafts live on the device and are refreshed in place with copy_ from the
+host mirrors only after an admission, a retire or a preemption changed
+them (the JAX engine's _init_carry); between those the carry advances on
+the device. On CUDA the body is captured as one CUDA graph at engine
+start (inference/cuda_graph.py) and replayed every tick; it covers all N
+slots, since every tick runs every slot. The graph ends at the logits
+and, for greedy rows, their argmax and log-softmax (and the speculative
+accept count); sampled rows draw after the replay, eagerly, from each
+request's generator. On the CPU the same body runs directly on the same
+buffers. engine_decode_recompiles_total counts captures beyond the
+warm-up one (0 in steady state); a failed step fails the requests in
+flight, rebuilds the caches and captures again (counted). A capture that
+fails raises: the engine never goes on eagerly by itself.
+cuda_graph=False (a constructor argument, for A/B measurements and card
+tests) runs the body eagerly on CUDA.
+
+Speculative decoding (speculative=SpecConfig, inference/speculative.py)
+swaps the tick for the JAX engine's _decode_tick_spec: k drafts per slot
+(host n-gram lookup, or a draft model run k times inside the captured
+step over a second cache tree that the admission prefill also fills),
+one [N, k+1] target verify forward (the decode kernel's Sq = k+1 form),
+the exact accept/reject, then 1 .. k+1 tokens emitted per slot, cut at
+eod or max_new_tokens. Rejected drafts roll back by the slot's length
+alone. A speculating engine admits prompt + max_new_tokens only up to
+max_seq_len - k (the tick writes k positions past the last). Request.spec
+= False keeps a request to one token a tick on a speculating engine.
+
 Differences from the JAX engine, by design:
-  * PyTorch runs eagerly: there is no jit, donation or recompile
-    tracking. The cache is updated in place; the prefill writes straight
-    into the slot's rows of the big cache (a [1, P] view), which is what
-    the JAX engine's small-cache prefill + paste computes.
+  * PyTorch runs eagerly outside the graph: the cache is updated in
+    place; the prefill writes straight into the slot's rows of the big
+    cache (a [1, P] view), which is what the JAX engine's small-cache
+    prefill + paste computes. The prefill stays eager.
   * The RoPE table is built once per engine at the cache length.
   * Each request samples from its own torch.Generator seeded with the
     request's seed, so its tokens never depend on the other slots.
@@ -22,13 +52,13 @@ Differences from the JAX engine, by design:
 
 The paged engine (inference/paging/engine.py) subclasses this one and
 overrides the cache and shape hooks (_kernel_seq_multiple,
-_fresh_caches, _decode_rows, _decode_extra_args, _decode_write_span).
-Admission resumes a preempted request by recompute: prompt + generated
-is teacher-forced and the next token is sampled with the generator state
-saved at preemption (Request.resume_key).
+_fresh_caches, _fresh_draft_caches, _decode_rows, _decode_extra_args,
+_refresh_carry). Admission resumes a preempted request by recompute:
+prompt + generated is teacher-forced and the next token is sampled with
+the generator state saved at preemption (Request.resume_key).
 
-Speculative decoding, migration, weight reload, profiling, fault
-injection, bounded queues and request deadlines are not ported yet.
+Migration, weight reload, profiling, fault injection, bounded queues and
+request deadlines are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,10 +75,17 @@ import numpy as np
 import torch
 
 from megatron_tpu_torch.config import ModelConfig
+from megatron_tpu_torch.inference.cuda_graph import CapturedStep
 from megatron_tpu_torch.inference.generation import (
     GenerationOutput, _init_caches,
 )
-from megatron_tpu_torch.inference.sampling import sample_logits_batched
+from megatron_tpu_torch.inference.sampling import (
+    _mask_vocab, sample_logits_batched,
+)
+from megatron_tpu_torch.inference.speculative import (
+    SpecConfig, check_verify_rows, greedy_verify, ngram_propose,
+    speculative_accept, validate_spec,
+)
 from megatron_tpu_torch.models.language_model import lm_forward
 from megatron_tpu_torch.ops.flash.flash_template import DECODE_BLOCK
 from megatron_tpu_torch.ops.rotary import precompute_rope
@@ -71,6 +108,10 @@ class Request:
     top_p: float = 0.0
     eod: Optional[int] = None
     seed: int = 0
+    # per-request speculative-decoding knob: False keeps this request to
+    # one token a tick on a speculating engine (its greedy output is the
+    # same either way); a no-op on an engine built without speculative=
+    spec: bool = True
     # engine-filled
     generated: List[int] = dataclasses.field(default_factory=list)
     logprobs: List[float] = dataclasses.field(default_factory=list)
@@ -107,13 +148,25 @@ class InferenceEngine:
     def __init__(self, cfg: ModelConfig, params: Any, num_slots: int = 8,
                  max_seq_len: Optional[int] = None,
                  vocab_size: Optional[int] = None,
-                 metrics: Optional[MetricsRegistry] = None, device="cuda"):
+                 metrics: Optional[MetricsRegistry] = None, device="cuda",
+                 speculative: Optional[SpecConfig] = None,
+                 cuda_graph: bool = True):
+        """speculative: a SpecConfig turns on speculative decoding.
+        cuda_graph: on CUDA, capture the decode tick as one CUDA graph at
+        construction and replay it (False runs the same step eagerly, for
+        A/B measurements); ignored on the CPU, which has no graphs."""
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
         self.cfg = cfg
         self.params = params
         self.device = torch.device(device)
         self.num_slots = num_slots
+        self.spec = speculative
+        if speculative is not None:
+            validate_spec(cfg, speculative)
+            if (cfg.attention_impl == "pallas"
+                    and self.device.type == "cuda"):
+                check_verify_rows(cfg, speculative)
         self.max_seq_len = self._round_seq_len(
             int(max_seq_len or cfg.seq_length))
         self.vocab_size = vocab_size
@@ -121,6 +174,15 @@ class InferenceEngine:
         self.rope = precompute_rope(cfg.head_dim, self.max_seq_len,
                                     cfg.rope_theta, cfg.rope_scaling_factor,
                                     device=self.device)
+        # the model drafter's second cache tree and its RoPE table
+        self.draft_params = self.draft_caches = self.draft_rope = None
+        if self._has_draft_model():
+            dcfg = speculative.draft_cfg
+            self.draft_params = speculative.draft_params
+            self.draft_caches = self._fresh_draft_caches()
+            self.draft_rope = precompute_rope(
+                dcfg.head_dim, self.max_seq_len, dcfg.rope_theta,
+                dcfg.rope_scaling_factor, device=self.device)
 
         N = num_slots
         self.slots: List[Optional[Request]] = [None] * N
@@ -130,6 +192,7 @@ class InferenceEngine:
         self.top_ks = np.zeros(N, np.int64)
         self.top_ps = np.zeros(N, np.float32)
         self.generators: List[Optional[torch.Generator]] = [None] * N
+        self.spec_on = np.ones(N, bool)          # per-request knob mirror
 
         self._queue: deque = deque()
         self._cv = threading.Condition()
@@ -138,8 +201,14 @@ class InferenceEngine:
         # admissions popped from the queue but not yet in a slot
         self._admitting = 0
         self.last_progress_time = time.monotonic()
+        # decode_recompiles counts captures of the decode step beyond the
+        # warm-up one: the JAX engine's zero-recompiles invariant
         self.stats = {"admitted": 0, "retired": 0, "ticks": 0,
-                      "rejected": 0}
+                      "rejected": 0, "decode_recompiles": 0}
+        if self.spec is not None:
+            # spec_emitted / ticks = tokens per target forward
+            self.stats.update({"spec_proposed": 0, "spec_accepted": 0,
+                               "spec_emitted": 0})
 
         m = metrics if metrics is not None else default_registry()
         self.metrics = m
@@ -168,7 +237,39 @@ class InferenceEngine:
                                       "admission prefill wall time")
         self._m_tick = m.histogram("engine_decode_tick_seconds",
                                    "batched decode tick wall time")
+        self._m_recompiles = m.counter(
+            "engine_decode_recompiles_total",
+            "CUDA graph captures of the decode step beyond the warm-up one")
+        self._m_spec_proposed = m.counter(
+            "engine_spec_proposed_total",
+            "draft tokens proposed to the speculative verify step")
+        self._m_spec_accepted = m.counter(
+            "engine_spec_accepted_total",
+            "draft tokens accepted by the exact accept/reject")
+        self._m_spec_len = m.histogram(
+            "engine_spec_accept_length",
+            "accepted drafts per slot per tick (0..k)",
+            buckets=(0.5, 1.5, 2.5, 3.5, 4.5, 6.5, 8.5, 12.5, 16.5))
         self._m_slots.set(num_slots)
+
+        # the decode carry: static device buffers the step body reads
+        # (and a captured graph has baked in), refreshed from the host
+        # mirrors by copy_ when _carry_dirty, advanced on the device
+        # after every tick otherwise
+        dev, k = self.device, (self.spec.k if self.spec else 0)
+        self._carry = {
+            "last_tok": torch.zeros(N, dtype=torch.long, device=dev),
+            "lengths": torch.zeros(N, dtype=torch.long, device=dev),
+            "active": torch.zeros(N, dtype=torch.long, device=dev),
+            "spec_rows": torch.ones(N, dtype=torch.bool, device=dev),
+            "drafts": torch.zeros((N, k), dtype=torch.long, device=dev),
+        }
+        self._carry_dirty = True
+        self._init_static()
+        self.cuda_graph = bool(cuda_graph) and self.device.type == "cuda"
+        self._step = None
+        self.capture_seconds = None
+        self._build_step(warmup=True)
 
     # ----- cache + shape policy -------------------------------------------
 
@@ -198,6 +299,22 @@ class InferenceEngine:
         return _init_caches(self.cfg, self.num_slots, self.max_seq_len,
                             device=self.device)
 
+    def _fresh_draft_caches(self):
+        """The draft model's cache tree: the target's slots and length,
+        the draft config's own layers and heads (the paged engine builds
+        draft pools over the target's tables instead)."""
+        return _init_caches(self.spec.draft_cfg, self.num_slots,
+                            self.max_seq_len, device=self.device)
+
+    def _has_draft_model(self) -> bool:
+        return self.spec is not None and self.spec.drafter == "model"
+
+    def _capacity_margin(self) -> int:
+        """Sequence headroom a speculating engine reserves: a tick writes
+        K/V at positions length .. length + k, so the last tick of a
+        request must still fit k more positions. 0 without speculation."""
+        return self.spec.k if self.spec is not None else 0
+
     def _bucket(self, p: int) -> int:
         b = PREFILL_BUCKET
         return min(self.max_seq_len - 1, max(1, -(-p // b) * b))
@@ -207,8 +324,9 @@ class InferenceEngine:
     @torch.no_grad()
     def _prefill(self, i: int, req: Request, prompt: np.ndarray):
         """Bucketed prefill of `prompt` (req's prompt, or prompt +
-        generated on a resume) into slot i, then sample the next token.
-        Returns (token, logprob, prompt logprobs)."""
+        generated on a resume) into slot i, and into the draft cache tree
+        for the model drafter, then sample the next token. Returns
+        (token, logprob, prompt logprobs)."""
         prompt = np.asarray(prompt, np.int64)
         p = len(prompt)
         P = self._bucket(p)
@@ -222,6 +340,15 @@ class InferenceEngine:
         logits, _ = lm_forward(self.cfg, self.params, tokens,
                                positions=positions, kv_caches=rows,
                                cache_index=0, rope=self.rope)
+        if self._has_draft_model():
+            # mirror the prompt into the draft tree so the first
+            # speculative tick proposes with the full context
+            lm_forward(self.spec.draft_cfg, self.draft_params, tokens,
+                       positions=positions,
+                       kv_caches=tuple(c[:, i:i + 1, :P]
+                                       for c in self.draft_caches),
+                       cache_index=0, rope=self.draft_rope,
+                       return_hidden=True)
         last = logits[:, p - 1]
         tok = sample_logits_batched(
             last, [self.generators[i]],
@@ -235,24 +362,135 @@ class InferenceEngine:
                 .cpu().tolist()
         return int(tok[0]), lp, plp
 
+    def _init_static(self) -> None:
+        """Allocate the static device buffers the step body reads besides
+        the carry (the paged engine's page table), before the capture."""
+
     @torch.no_grad()
-    def _decode_step(self):
-        """One batched token for every slot: each slot writes K/V at its
-        own depth and attends its own valid prefix. Returns host
-        (tokens [N], logprobs [N])."""
-        last = torch.from_numpy(self.last_tok).to(self.device)[:, None]
-        lens = torch.from_numpy(self.lengths).to(self.device)
-        logits, _ = lm_forward(self.cfg, self.params, last,
+    def _step_body(self):
+        """The tick's device work on the static buffers, with no host
+        sync: what the CUDA graph captures and the CPU calls directly.
+
+        Plain: one [N, 1] forward; returns the logits and, for greedy
+        rows, their argmax and its logprob. Speculative: the model
+        drafter's k greedy single-token forwards and one write-only
+        forward (or the n-gram drafts buffer), the [N, k+1] verify
+        forward, and greedy_verify's tokens, logprobs and accept
+        counts."""
+        c, extra = self._carry, self._decode_extra_args()
+        last, lens = c["last_tok"], c["lengths"]
+        if self.spec is None:
+            logits, _ = lm_forward(self.cfg, self.params, last[:, None],
+                                   kv_caches=self.caches, cache_index=lens,
+                                   rope=self.rope, **extra)
+            logits = logits[:, 0].float()
+            toks = torch.argmax(_mask_vocab(logits, self.vocab_size), dim=-1)
+            lps = torch.gather(torch.log_softmax(logits, dim=-1), 1,
+                               toks[:, None])[:, 0]
+            return {"logits": logits, "toks": toks, "lps": lps}
+        drafts = c["drafts"]
+        if self._has_draft_model():
+            dcfg, tok, ln, proposed = self.spec.draft_cfg, last, lens, []
+            for _ in range(self.spec.k):
+                lg, _ = lm_forward(dcfg, self.draft_params, tok[:, None],
+                                   kv_caches=self.draft_caches,
+                                   cache_index=ln, rope=self.draft_rope,
+                                   **extra)
+                tok = torch.argmax(
+                    _mask_vocab(lg[:, 0].float(), self.vocab_size), dim=-1)
+                proposed.append(tok)
+                ln = ln + 1
+            # position lens + k holds draft k's K/V, so a fully accepted
+            # tick leaves the draft cache complete for the next proposal
+            lm_forward(dcfg, self.draft_params, tok[:, None],
+                       kv_caches=self.draft_caches, cache_index=ln,
+                       rope=self.draft_rope, return_hidden=True, **extra)
+            drafts = torch.stack(proposed, dim=1)
+        logits, _ = lm_forward(self.cfg, self.params,
+                               torch.cat([last[:, None], drafts], dim=1),
                                kv_caches=self.caches, cache_index=lens,
-                               rope=self.rope, **self._decode_extra_args())
-        logits = logits[:, 0]
-        toks = sample_logits_batched(
-            logits, self.generators, torch.from_numpy(self.temps),
-            torch.from_numpy(self.top_ks), torch.from_numpy(self.top_ps),
-            self.vocab_size)
-        lps = torch.gather(torch.log_softmax(logits.float(), dim=-1), 1,
-                           toks[:, None])[:, 0]
-        return toks.cpu().numpy(), lps.cpu().numpy()
+                               rope=self.rope, **extra)
+        toks, lps, accepts = greedy_verify(logits, drafts, self.vocab_size,
+                                           c["spec_rows"])
+        return {"logits": logits, "drafts": drafts, "toks": toks,
+                "lps": lps, "accepts": accepts}
+
+    def _build_step(self, warmup: bool = False) -> None:
+        """Set up the tick's step: on CUDA (cuda_graph) capture the body
+        as a CUDA graph, else call it directly. A capture past the
+        warm-up one counts in engine_decode_recompiles_total; a capture
+        that fails raises."""
+        self._step = None
+        if not self.cuda_graph:
+            self._step = self._step_body
+            return
+        step = CapturedStep(self._step_body, self.device)
+        self._step = step
+        self.capture_seconds = step.capture_seconds
+        if not warmup:
+            self.stats["decode_recompiles"] += 1
+            self._m_recompiles.inc()
+
+    def _refresh_carry(self, rows: List[int]) -> None:
+        """Copy the host mirrors into the static device buffers after an
+        admission, retire or preemption changed them (_carry_dirty), and
+        the n-gram drafts every tick."""
+        c = self._carry
+        if self._carry_dirty:
+            active = np.zeros(self.num_slots, np.int64)
+            active[rows] = 1
+            c["last_tok"].copy_(torch.from_numpy(self.last_tok))
+            c["lengths"].copy_(torch.from_numpy(self.lengths))
+            c["active"].copy_(torch.from_numpy(active))
+            c["spec_rows"].copy_(torch.from_numpy(self.spec_on))
+            self._carry_dirty = False
+        if self.spec is not None and self.spec.drafter == "ngram":
+            c["drafts"].copy_(torch.from_numpy(self._propose_ngram(rows)))
+
+    def _propose_ngram(self, rows: List[int]) -> np.ndarray:
+        """Host prompt-lookup proposals [N, k] for the decode rows with
+        speculation on; zeros elsewhere (their acceptance is forced to
+        0 or their tokens are not read)."""
+        k, n = self.spec.k, self.spec.ngram
+        drafts = np.zeros((self.num_slots, k), np.int64)
+        for i in rows:
+            if self.spec_on[i]:
+                drafts[i] = ngram_propose(self.slots[i].tokens, k, n)
+        return drafts
+
+    @torch.no_grad()
+    def _decode_step(self, rows: List[int]):
+        """One tick for every slot: refresh the carry, replay (or run)
+        the step, sample the sampled rows, advance the device carry.
+        Returns host (tokens [N, j], logprobs [N, j], accepts [N]) with
+        j = 1 plain, k + 1 speculative (accepts 0 plain)."""
+        self._refresh_carry(rows)
+        out = self._step()
+        c = self._carry
+        if self.spec is None:
+            toks, lps = out["toks"], out["lps"]
+            if (self.temps > 0).any():
+                toks = sample_logits_batched(
+                    out["logits"], self.generators,
+                    torch.from_numpy(self.temps),
+                    torch.from_numpy(self.top_ks),
+                    torch.from_numpy(self.top_ps), self.vocab_size)
+                lps = torch.gather(torch.log_softmax(out["logits"], dim=-1),
+                                   1, toks[:, None])[:, 0]
+            c["lengths"].add_(c["active"])
+            c["last_tok"].copy_(torch.where(c["active"].bool(), toks,
+                                            c["last_tok"]))
+            return (toks[:, None].cpu().numpy(), lps[:, None].cpu().numpy(),
+                    np.zeros(self.num_slots, np.int64))
+        toks, lps, accepts = speculative_accept(
+            out["logits"], out["drafts"], self.temps, self.top_ks,
+            self.top_ps, self.generators, self.vocab_size, c["spec_rows"],
+            greedy=(out["toks"], out["lps"], out["accepts"]))
+        c["lengths"].add_((accepts + 1) * c["active"])
+        nxt = torch.gather(toks, 1, accepts[:, None])[:, 0]
+        c["last_tok"].copy_(torch.where(c["active"].bool(), nxt,
+                                        c["last_tok"]))
+        return toks.cpu().numpy(), lps.cpu().numpy(), accepts.cpu().numpy()
 
     # ----- scheduling ------------------------------------------------------
 
@@ -270,10 +508,13 @@ class InferenceEngine:
             return self._reject(req, "empty prompt")
         if req.max_new_tokens < 1:
             return self._reject(req, "max_new_tokens must be >= 1")
-        if p + req.max_new_tokens > self.max_seq_len:
+        margin = self._capacity_margin()
+        if p + req.max_new_tokens > self.max_seq_len - margin:
             return self._reject(
                 req, f"prompt ({p}) + max_new_tokens ({req.max_new_tokens}) "
-                     f"exceeds engine max_seq_len {self.max_seq_len}")
+                     f"exceeds engine max_seq_len {self.max_seq_len}"
+                     + (f" minus the speculative headroom {margin}"
+                        if margin else ""))
         ids = np.asarray(req.prompt)
         if ids.min() < 0 or ids.max() >= self.cfg.vocab_size:
             return self._reject(
@@ -290,7 +531,8 @@ class InferenceEngine:
         return sum(1 for s in self.slots if s is not None)
 
     def _clear_slot(self, i: int):
-        """Reset every per-slot host mirror, sampling knobs included."""
+        """Reset every per-slot host mirror, sampling knobs and the
+        speculation knob included, and mark the device carry stale."""
         self.slots[i] = None
         self.lengths[i] = 0
         self.last_tok[i] = 0
@@ -298,6 +540,8 @@ class InferenceEngine:
         self.top_ks[i] = 0
         self.top_ps[i] = 0.0
         self.generators[i] = None
+        self.spec_on[i] = True
+        self._carry_dirty = True
 
     def _retire(self, i: int):
         req = self.slots[i]
@@ -374,6 +618,8 @@ class InferenceEngine:
         self.temps[i] = req.temperature
         self.top_ks[i] = req.top_k
         self.top_ps[i] = req.top_p
+        self.spec_on[i] = bool(req.spec)
+        self._carry_dirty = True
         req.generated.append(tok)
         req.logprobs.append(lp)
         if not resumed:
@@ -414,13 +660,37 @@ class InferenceEngine:
 
     def _decode_extra_args(self) -> dict:
         """Extra lm_forward keyword arguments of the decode step (the
-        paged engine passes its device page table)."""
+        paged engine passes its static device page table)."""
         return {}
 
     def _decode_write_span(self) -> int:
-        """Cache positions one decode tick writes per slot (the paged
-        engine sizes page allocation off this)."""
-        return 1
+        """Cache positions one decode tick writes per slot: 1 plain,
+        k + 1 speculative (the paged engine sizes page allocation off
+        this)."""
+        return 1 + self._capacity_margin()
+
+    def _fail_decode(self, e: Exception) -> None:
+        """A failed step: fail every request in flight (their waiters
+        must unblock), rebuild the caches (the step may have left them
+        half written) and capture the step again over the new ones."""
+        for i, req in enumerate(self.slots):
+            if req is not None:
+                self._clear_slot(i)
+                req._finish(f"decode step failed: {e}")
+        self._m_active.set(self.num_active)
+        self._rebuild_caches()
+        self._build_step()
+
+    def _rebuild_caches(self) -> None:
+        """Fresh cache trees (target, and the draft's for the model
+        drafter), the old ones dropped first."""
+        self._step = None
+        self.caches = None
+        self.draft_caches = None
+        self.caches = self._fresh_caches()
+        if self._has_draft_model():
+            self.draft_caches = self._fresh_draft_caches()
+        self._carry_dirty = True
 
     def _decode_tick(self) -> int:
         """One batched decode for every decodable slot; returns how many
@@ -430,28 +700,41 @@ class InferenceEngine:
             return 0
         t_tick = time.monotonic()
         try:
-            toks, lps = self._decode_step()
+            toks, lps, accepts = self._decode_step(active)
         except Exception as e:
-            for i in active:
-                req = self.slots[i]
-                self._clear_slot(i)
-                req._finish(f"decode step failed: {e}")
-            self._m_active.set(self.num_active)
+            self._fail_decode(e)
             raise
         self.stats["ticks"] += 1
         self._m_ticks.inc()
         self._m_tick.observe(time.monotonic() - t_tick)
-        self._m_tokens.inc(len(active))
+        emitted = 0
         for i in active:
             req = self.slots[i]
-            # the fed token is now in the cache; the sampled one is next up
-            self.lengths[i] += 1
-            tok = int(toks[i])
-            self.last_tok[i] = tok
-            req.generated.append(tok)
-            req.logprobs.append(float(lps[i]))
+            a = int(accepts[i])
+            # the fed token and a accepted drafts are now in the cache;
+            # toks[i, a] is next up
+            self.lengths[i] += a + 1
+            self.last_tok[i] = int(toks[i, a])
+            if self.spec is not None and self.spec_on[i]:
+                self.stats["spec_proposed"] += self.spec.k
+                self.stats["spec_accepted"] += a
+                self._m_spec_proposed.inc(self.spec.k)
+                self._m_spec_accepted.inc(a)
+                self._m_spec_len.observe(a)
+            for j in range(a + 1):
+                req.generated.append(int(toks[i, j]))
+                req.logprobs.append(float(lps[i, j]))
+                emitted += 1
+                if self._req_finished(req):
+                    # eod or max_new_tokens in the middle of a
+                    # speculation: the later accepted tokens come "after
+                    # the end", which plain decode never produces
+                    break
             if self._req_finished(req):
                 self._retire(i)
+        if self.spec is not None:
+            self.stats["spec_emitted"] += emitted
+        self._m_tokens.inc(emitted)
         self.last_progress_time = time.monotonic()
         return len(active)
 
@@ -478,7 +761,7 @@ class InferenceEngine:
                  max_new_tokens: int, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 0.0,
                  eod: Optional[int] = None,
-                 seed: int = 0) -> GenerationOutput:
+                 seed: int = 0, spec: bool = True) -> GenerationOutput:
         """Submit one request per row, drain, and repack
         [B, maxp + max_new] like the JAX engine: shorter prompts get
         maxp - p extra generated tokens (the one-shot path's row layout)."""
@@ -490,7 +773,7 @@ class InferenceEngine:
                 prompt=np.asarray(prompts[b, :p], np.int32),
                 max_new_tokens=maxp - p + max_new_tokens,
                 temperature=temperature, top_k=top_k, top_p=top_p, eod=eod,
-                seed=seed + b)))
+                seed=seed + b, spec=spec)))
         if self._thread is None:
             self.run_until_idle()
         for r in reqs:

@@ -25,12 +25,24 @@ The decode tick runs every slot's row through lm_forward with the
 [N, max_pages] device page table (idle and mid-prefill rows point at
 the scratch page): K/V writes go through the table, and attention is the
 paged flash-decode kernel (csrc/flash_decode.cu) on CUDA tensors under
-attention_impl="pallas". A prefill chunk gathers its row's pages into a
-dense view and takes the dense attention path, as the JAX package
-routes it.
+attention_impl="pallas". The table is a static device buffer, refreshed
+in place from the host tables after an edit, so the tick is captured as
+one CUDA graph like the dense engine's (inference/engine.py). A prefill
+chunk gathers its row's pages into a dense view and takes the dense
+attention path, as the JAX package routes it; chunks stay eager.
+
+Speculative decoding (speculative=SpecConfig) writes k+1 positions a
+tick (_decode_write_span), so page allocation covers the whole span. The
+model drafter's page pools have the target pools' page count and size
+and are addressed through the SAME page tables: every prefill chunk is
+mirrored into them through the same table row and write fences, so a
+prefix-cache hit aliases pages in both trees, and a preempted request
+recomputes both trees on resume. Uncommitted draft positions are never
+registered in the radix tree (only the original prompt's full pages
+are).
 
 Differences from the JAX engine, by design:
-  * The steps are eager torch.no_grad methods (the JAX engine jits and
+  * The chunks are eager torch.no_grad methods (the JAX engine jits and
     donates); the pools are updated in place.
   * Sampling draws from the request's torch.Generator, and only on the
     final chunk of a prompt: a draw advances the generator, so sampling
@@ -40,9 +52,9 @@ Differences from the JAX engine, by design:
     flash_template.check_page_size) under attention_impl="pallas", and
     raises ValueError otherwise; the TPU's multiple-of-8 rule is gone.
 
-Not ported: int8 pools, speculative decoding and its draft pools,
-migration and prefix export/import, context-parallel paging, TP comm
-byte counters, weight reload and fault injection.
+Not ported: int8 pools, migration and prefix export/import,
+context-parallel paging, TP comm byte counters, weight reload and fault
+injection.
 """
 
 from __future__ import annotations
@@ -61,6 +73,7 @@ from megatron_tpu_torch.inference.paging.scheduler import (
     ChunkedPrefillQueue, PrefillTask,
 )
 from megatron_tpu_torch.inference.sampling import sample_logits_batched
+from megatron_tpu_torch.inference.speculative import SpecConfig
 from megatron_tpu_torch.models.language_model import lm_forward
 from megatron_tpu_torch.ops.flash.flash_template import check_page_size
 from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
@@ -78,7 +91,9 @@ class PagedInferenceEngine(InferenceEngine):
                  page_size: int = 16, prefill_chunk: int = 32,
                  num_pages: Optional[int] = None,
                  vocab_size: Optional[int] = None,
-                 metrics: Optional[MetricsRegistry] = None, device="cuda"):
+                 metrics: Optional[MetricsRegistry] = None, device="cuda",
+                 speculative: Optional[SpecConfig] = None,
+                 cuda_graph: bool = True):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if num_pages is not None and num_pages < 2:
@@ -92,7 +107,8 @@ class PagedInferenceEngine(InferenceEngine):
         self.max_pages = 0          # set by _fresh_caches (needs max_seq_len)
         super().__init__(cfg, params, num_slots=num_slots,
                          max_seq_len=max_seq_len, vocab_size=vocab_size,
-                         metrics=metrics, device=device)
+                         metrics=metrics, device=device,
+                         speculative=speculative, cuda_graph=cuda_graph)
         if self.num_pages - 1 < self.max_pages:
             raise ValueError(
                 f"num_pages={self.num_pages} cannot hold even one full "
@@ -108,7 +124,6 @@ class PagedInferenceEngine(InferenceEngine):
         # idle-row write into a half-filled (possibly shared) page.
         self.tables = np.zeros((N, self.max_pages), np.int32)
         self._pending_rows = {}
-        self._device_table: Optional[torch.Tensor] = None
         self._table_dirty = True
         self.prefill_queue = ChunkedPrefillQueue(self.prefill_chunk)
         # admission order for the preemption policy (higher = younger)
@@ -172,6 +187,30 @@ class PagedInferenceEngine(InferenceEngine):
         return (torch.zeros(shape, dtype=cfg.dtype, device=self.device),
                 torch.zeros(shape, dtype=cfg.dtype, device=self.device))
 
+    def _fresh_draft_caches(self):
+        """The draft model's page pools: the target pools' page count and
+        page size, the draft config's own layers and heads, addressed
+        through the same page tables (a page shared through the radix
+        tree is shared in both pools)."""
+        dcfg = self.spec.draft_cfg
+        shape = (dcfg.num_layers, self.num_pages, self.page_size,
+                 dcfg.n_kv_heads, dcfg.head_dim)
+        return (torch.zeros(shape, dtype=dcfg.dtype, device=self.device),
+                torch.zeros(shape, dtype=dcfg.dtype, device=self.device))
+
+    def _init_static(self) -> None:
+        # the [N, max_pages] device page table the captured tick reads:
+        # allocated once, refreshed in place (all scratch until then)
+        self._device_table = torch.full(
+            (self.num_slots, self.max_pages), SCRATCH_PAGE,
+            dtype=torch.int32, device=self.device)
+
+    def _rebuild_caches(self) -> None:
+        # the radix tree's pages lose their contents with the pools
+        self.prefix_cache.clear()
+        self._m_pages_free.set(self.pool.free_pages)
+        super()._rebuild_caches()
+
     # ----- device steps ----------------------------------------------------
 
     @torch.no_grad()
@@ -204,6 +243,15 @@ class PagedInferenceEngine(InferenceEngine):
                                page_table=table,
                                page_write_start=task.write_start,
                                page_write_end=task.total)
+        if self._has_draft_model():
+            # mirror the chunk into the draft pools through the same
+            # table row and write fences (write-only)
+            lm_forward(self.spec.draft_cfg, self.draft_params,
+                       tokens[:, :C], positions=positions,
+                       kv_caches=self.draft_caches, cache_index=off,
+                       rope=self.draft_rope, page_table=table,
+                       page_write_start=task.write_start,
+                       page_write_end=task.total, return_hidden=True)
         lsm = torch.log_softmax(logits[0].float(), dim=-1)
         plp = torch.gather(lsm, 1, tokens[0, 1:, None])[:, 0].cpu().numpy()
         if not final:
@@ -395,6 +443,8 @@ class PagedInferenceEngine(InferenceEngine):
         self.top_ks[i] = req.top_k
         self.top_ps[i] = req.top_p
         self.generators[i] = gen
+        self.spec_on[i] = bool(req.spec)
+        self._carry_dirty = True
         req.generated.append(tok)
         req.logprobs.append(lp)
         if not task.resumed:
@@ -483,13 +533,15 @@ class PagedInferenceEngine(InferenceEngine):
                 if s is not None and i not in busy]
 
     def _decode_extra_args(self) -> dict:
-        # the [N, max_pages] table goes to the device again only after a
-        # host edit, not every tick
-        if self._table_dirty or self._device_table is None:
-            self._device_table = torch.tensor(self.tables,
-                                              device=self.device)
-            self._table_dirty = False
         return {"page_table": self._device_table}
+
+    def _refresh_carry(self, rows: List[int]) -> None:
+        # the host tables go to the static device table only after an
+        # edit, not every tick
+        if self._table_dirty:
+            self._device_table.copy_(torch.from_numpy(self.tables))
+            self._table_dirty = False
+        super()._refresh_carry(rows)
 
     def _release_window_pages(self) -> None:
         """Sliding-window page release: pages every position of which

@@ -5,20 +5,22 @@ PUT/POST /api takes the JAX server's request schema:
 
   {"prompts": [...], "tokens_to_generate": N, "temperature": T,
    "top_k": K, "top_p": P, "add_BOS": bool, "logprobs": bool,
-   "random_seed": S}
+   "random_seed": S, "spec": bool}
 
 and answers {"text": [...], "segments": [...], "logprobs": [...]?}.
 Every request goes through the continuous-batching InferenceEngine, or
 with kv_paging through the PagedInferenceEngine (shared page pool, radix
 prefix cache, chunked prefill, preemption), so concurrent handlers share
-each decode tick. GET /metrics serves the
-metrics registry in Prometheus text format, GET /healthz is liveness
+each decode tick. With speculative (a SpecConfig: "ngram" or "model")
+either engine speculates (inference/speculative.py); "spec": false in a
+request keeps it to one token a tick. GET /metrics serves the metrics
+registry in Prometheus text format, GET /healthz is liveness
 ("the step loop exists"), GET /readyz readiness (503 while the step
 loop has work but makes no progress).
 
 Not ported yet: the one-shot path (engine_slots == 0), beam search,
-scoring, warmup, bounded queues and deadlines, int8 caches, speculative
-decoding, sharded serving and the fleet control plane (/admin/*).
+scoring, warmup, bounded queues and deadlines, int8 caches, sharded
+serving and the fleet control plane (/admin/*).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.inference.api import generate_and_post_process
 from megatron_tpu_torch.inference.engine import InferenceEngine
 from megatron_tpu_torch.inference.paging import PagedInferenceEngine
+from megatron_tpu_torch.inference.speculative import SpecConfig
 from megatron_tpu_torch.telemetry.metrics import (
     MetricsRegistry, default_registry,
 )
@@ -52,12 +55,14 @@ class GenerationService:
                  engine_slots: int = 8, engine_max_seq_len=None,
                  metrics: Optional[MetricsRegistry] = None, device="cuda",
                  kv_paging: bool = False, page_size: int = 16,
-                 prefill_chunk: int = 32, num_pages: Optional[int] = None):
+                 prefill_chunk: int = 32, num_pages: Optional[int] = None,
+                 speculative: Optional[SpecConfig] = None):
         """engine_slots KV-cache slots (>= 1) with a background step-loop
         thread. kv_paging swaps in the PagedInferenceEngine with
         page_size-token pages, prefill_chunk-token prefill chunks and a
         pool of num_pages pages (default: every slot can grow to
-        engine_max_seq_len)."""
+        engine_max_seq_len). speculative turns on speculative decoding
+        in the engine."""
         if engine_slots < 1:
             raise ValueError("the port serves through the continuous-"
                              "batching engine: engine_slots must be >= 1")
@@ -71,7 +76,7 @@ class GenerationService:
             "server_request_seconds", "API request wall time")
         kw = dict(num_slots=engine_slots, max_seq_len=engine_max_seq_len,
                   vocab_size=tokenizer.vocab_size, metrics=self.metrics,
-                  device=device)
+                  device=device, speculative=speculative)
         if kv_paging:
             self.engine = PagedInferenceEngine(
                 cfg, params, page_size=page_size,
@@ -105,6 +110,11 @@ class GenerationService:
                 f"tokens_to_generate in [1, {MAX_TOKENS_TO_GENERATE}]")
         if req.get("beam_width"):
             raise ValueError("beam search is not ported yet")
+        # per-request speculation knob; a no-op unless the engine
+        # speculates (greedy output is the same either way)
+        spec = req.get("spec", True)
+        if not isinstance(spec, bool):
+            raise ValueError("spec must be a JSON boolean")
         texts, segments, logprobs, _ = generate_and_post_process(
             self.engine, self.tokenizer, prompts, tokens_to_generate=n,
             temperature=float(req.get("temperature", 1.0)),
@@ -112,7 +122,7 @@ class GenerationService:
             top_p_sampling=float(req.get("top_p", 0.0)),
             add_BOS=bool(req.get("add_BOS", False)),
             return_output_log_probs=bool(req.get("logprobs", False)),
-            random_seed=int(req.get("random_seed", 0)))
+            random_seed=int(req.get("random_seed", 0)), spec=spec)
         out = {"text": texts, "segments": segments}
         if logprobs is not None:
             out["logprobs"] = [list(map(float, row)) for row in logprobs]
@@ -186,26 +196,30 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
                device="cuda", ready: Optional[threading.Event] = None,
                service_out: Optional[list] = None, kv_paging: bool = False,
                page_size: int = 16, prefill_chunk: int = 32,
-               num_pages: Optional[int] = None) -> None:
+               num_pages: Optional[int] = None,
+               speculative: Optional[SpecConfig] = None) -> None:
     """Serve until interrupted (KeyboardInterrupt) or until
     ``server.shutdown()`` is called from another thread; port=0 binds an
     ephemeral port. In-process callers may pass `service_out` (a list
     that receives (service, server)) and `ready` (set once listening).
     kv_paging, page_size, prefill_chunk and num_pages select and size
-    the paged engine (GenerationService)."""
+    the paged engine; speculative (a SpecConfig) turns on speculative
+    decoding (GenerationService)."""
     service = GenerationService(cfg, params, tokenizer,
                                 engine_slots=engine_slots,
                                 engine_max_seq_len=engine_max_seq_len,
                                 device=device, kv_paging=kv_paging,
                                 page_size=page_size,
                                 prefill_chunk=prefill_chunk,
-                                num_pages=num_pages)
+                                num_pages=num_pages, speculative=speculative)
     server = ThreadingHTTPServer((host, port), make_handler(service))
     bound_port = server.server_address[1]
     if service_out is not None:
         service_out.extend([service, server])
     mode = (f"paged KV, {page_size}-token pages, {prefill_chunk}-token "
             "prefill chunks" if kv_paging else "continuous batching")
+    if speculative:
+        mode += f", speculative {speculative.drafter} k={speculative.k}"
     print(f"serving generation API on http://{host}:{bound_port}/api "
           f"({mode}, {engine_slots} slots, {device})", flush=True)
     if ready is not None:

@@ -22,7 +22,12 @@ wrapper counts its kernel launches in a plain integer attribute
 (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches,
 flash_decode.launches, paged_flash_decode.launches, which
 paged_flash_decode_mq shares), incremented where the kernel is launched
-and nowhere else.
+and nowhere else; the two decode wrappers also count by query length
+(launches_by_sq: Sq 1 is the plain tick, Sq k + 1 the speculative
+verify). A CUDA graph replay launches kernels without calling the
+wrappers, so whoever captures a graph reads launch_counts() around the
+capture and adds that difference with add_launch_counts() at each
+replay (inference/cuda_graph.py does).
 
 _FlashAttention, the torch.autograd.Function behind flash_mha, takes the
 place of the JAX package's jax.custom_vjp _flash_bhsd: its forward runs
@@ -467,7 +472,17 @@ def _decode_launch(s_len: int, b: int, hkv: int, rows: int, d: int, device):
     own before the merge reads it). The tickets are one int32 per (slot,
     kv head), kept per (device, stream) and zeroed once: the kernel leaves
     them at zero, and launches on one stream run in order, so no two
-    launches in flight share a ticket."""
+    launches in flight share a ticket.
+
+    Under CUDA graph capture the partials come from the graph's private
+    pool, which keeps them for every replay, and the tickets are those of
+    the capturing stream, which an eager launch on that stream (the
+    warm-up that every capture needs) must have created: zeroing them
+    inside the capture would allocate them in the graph's pool and zero
+    them only when it replays, so this raises instead. A graph keeps the
+    capturing stream's tickets, so it must not be replayed while another
+    launch that uses them runs: one graph is never replayed on two
+    streams at once, and nothing else launches on its capture stream."""
     key = (s_len, b, hkv, rows, device)
     plan = _plans.get(key)
     if plan is None:
@@ -479,6 +494,11 @@ def _decode_launch(s_len: int, b: int, hkv: int, rows: int, d: int, device):
     stream = torch.cuda.current_stream(device).cuda_stream
     tickets = _tickets.get((device, stream))
     if tickets is None or tickets.numel() < b * hkv:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "decode kernel captured on a stream it never ran on: run "
+                "the captured work once on the capture stream first (the "
+                "warm-up creates and zeroes that stream's tickets)")
         tickets = torch.zeros(max(b * hkv, 1024), dtype=torch.int32,
                               device=device)
         _tickets[(device, stream)] = tickets
@@ -575,10 +595,12 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(
             f"flash_decode kernel launch failed: cudaError {rc}")
     flash_decode.launches += 1
+    _count_sq(flash_decode, sq)
     return o
 
 
 flash_decode.launches = 0
+flash_decode.launches_by_sq = {}
 
 #: the speculative verify pass (Sq > 1) is the same kernel
 flash_decode_mq = flash_decode
@@ -675,6 +697,7 @@ def _paged_decode(name: str, q, k_pages, v_pages, page_table, kv_lengths,
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     paged_flash_decode.launches += 1
+    _count_sq(paged_flash_decode, sq)
     return o
 
 
@@ -701,6 +724,7 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_flash_decode.launches = 0
+paged_flash_decode.launches_by_sq = {}
 
 
 def paged_flash_decode_mq(q: torch.Tensor, k_pages: torch.Tensor,
@@ -714,3 +738,51 @@ def paged_flash_decode_mq(q: torch.Tensor, k_pages: torch.Tensor,
     Sq * G <= 64."""
     return _paged_decode("paged_flash_decode_mq", q, k_pages, v_pages,
                          page_table, kv_lengths, sliding_window)
+
+
+# ---------------------------------------------------------------------------
+# launch counters
+# ---------------------------------------------------------------------------
+
+
+def _count_sq(wrapper, sq: int, n: int = 1) -> None:
+    wrapper.launches_by_sq[sq] = wrapper.launches_by_sq.get(sq, 0) + n
+
+
+def _counted():
+    return (flash_fwd, flash_bwd_dq, flash_bwd_dkv, flash_decode,
+            paged_flash_decode)
+
+
+def launch_counts() -> dict:
+    """Every wrapper's launch count, by name, and the decode wrappers'
+    counts by query length under "name/sq<Sq>"."""
+    out = {}
+    for w in _counted():
+        out[w.__name__] = w.launches
+        for sq, n in getattr(w, "launches_by_sq", {}).items():
+            out[f"{w.__name__}/sq{sq}"] = n
+    return out
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Add a launch_counts() difference to the counters: what one replay
+    of a captured CUDA graph launched."""
+    by_name = {w.__name__: w for w in _counted()}
+    for key, n in delta.items():
+        name, _, sq = key.partition("/sq")
+        w = by_name[name]
+        if sq:
+            _count_sq(w, int(sq), n)
+        else:
+            w.launches += n
+
+
+def set_launch_counts(counts: dict) -> None:
+    """Set the counters to a launch_counts() snapshot (a capture launches
+    nothing, so it puts back what it counted)."""
+    for w in _counted():
+        w.launches = counts.get(w.__name__, 0)
+        if hasattr(w, "launches_by_sq"):
+            w.launches_by_sq.clear()
+    add_launch_counts({k: n for k, n in counts.items() if "/sq" in k})

@@ -3,11 +3,18 @@
     python -m megatron_tpu_torch.tools.run_text_generation_server \\
         --model_name llama2-7B --tokenizer_type null \\
         --serve_num_slots 8 --serve_max_seq_len 2048 --port 5000 \\
-        [--serve_kv_paging --serve_page_size 16 --serve_prefill_chunk 32]
+        [--serve_kv_paging --serve_page_size 16 --serve_prefill_chunk 32] \
+        [--serve_speculative {ngram,model} --serve_spec_k 4 \
+         --serve_draft_layers N --serve_draft_checkpoint DIR]
 
 The flag names are the JAX CLI's (tools/run_text_generation_server.py)
 for what the port supports, plus --device (default cuda). Weights are
-random from --seed: loading checkpoints is not ported yet.
+random from --seed, or loaded with --load. With --serve_speculative
+model the draft is the target's architecture cut to its first
+--serve_draft_layers layers: loaded from --serve_draft_checkpoint (its
+first N layers when the checkpoint is deeper), or else the target's own
+first N layers (the stacked [L, ...] weights sliced, sharing their
+memory), with a warning.
 """
 
 from __future__ import annotations
@@ -57,6 +64,25 @@ def parse_args(argv=None):
                         "i.e. the slot engine's capacity). Smaller "
                         "oversubscribes: the engine evicts cached prefixes "
                         "and preempts the youngest request under pressure")
+    p.add_argument("--serve_speculative", choices=("ngram", "model"),
+                   default=None,
+                   help="speculative decoding in the engine: per-slot "
+                        "drafts + one batched [N, k+1] verify forward per "
+                        "tick, exact accept/reject (greedy output is "
+                        "token-identical to plain decode). 'ngram' is the "
+                        "zero-weight prompt-lookup drafter; 'model' a "
+                        "draft network (see --serve_draft_*)")
+    p.add_argument("--serve_spec_k", type=int, default=4,
+                   help="drafted tokens per slot per tick (the engine "
+                        "reserves k positions of sequence headroom)")
+    p.add_argument("--serve_draft_layers", type=int, default=None,
+                   help="draft model depth (--serve_speculative model): "
+                        "the target architecture cut to its first N "
+                        "layers (default: the target's depth)")
+    p.add_argument("--serve_draft_checkpoint", default=None,
+                   help="checkpoint directory for the draft's weights "
+                        "(its first --serve_draft_layers layers); without "
+                        "it the draft serves the target's first layers")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions")
@@ -93,6 +119,55 @@ def load_model(args):
     return cfg, params, iteration
 
 
+def load_spec(args, cfg, params):
+    """The engine's SpecConfig for --serve_speculative (None without it);
+    with "model" it carries the draft's config and weights."""
+    import dataclasses
+
+    from megatron_tpu_torch.inference.speculative import SpecConfig
+    from megatron_tpu_torch.models.params import empty_params
+    from megatron_tpu_torch.training import checkpointing
+
+    if not args.serve_speculative:
+        return None
+    spec = SpecConfig(k=args.serve_spec_k, drafter=args.serve_speculative)
+    if spec.drafter != "model":
+        return spec
+    layers = args.serve_draft_layers or cfg.num_layers
+    if not 1 <= layers <= cfg.num_layers:
+        raise SystemExit(f"--serve_draft_layers {layers} not in [1, "
+                         f"{cfg.num_layers}]")
+    dcfg = dataclasses.replace(cfg, num_layers=layers).validate()
+
+    def first(tree, copy):
+        return {k: first(v, copy) if isinstance(v, dict)
+                else (v[:layers].clone() if copy else v[:layers])
+                for k, v in tree.items()}
+
+    if args.serve_draft_checkpoint:
+        ck = args.serve_draft_checkpoint
+        iteration, _ = checkpointing.resolve_load_iteration(ck)
+        depth = checkpointing.saved_run_config(ck, iteration).get(
+            "model", {}).get("num_layers", cfg.num_layers)
+        if depth < layers:
+            raise SystemExit(f"--serve_draft_checkpoint {ck} has {depth} "
+                             f"layers, fewer than the draft's {layers}")
+        full = checkpointing.load_params_only(
+            ck, empty_params(dataclasses.replace(cfg, num_layers=depth),
+                             device=args.device), iteration)
+        print(f"loaded draft checkpoint at iteration {iteration} from {ck} "
+              f"(its first {layers} of {depth} layers)", flush=True)
+        return dataclasses.replace(
+            spec, draft_cfg=dcfg,
+            draft_params={**full, "layers": first(full["layers"], True)})
+    print(f"WARNING: draft model serving the target's first {layers} of "
+          f"{cfg.num_layers} layers (no --serve_draft_checkpoint)",
+          flush=True)
+    return dataclasses.replace(
+        spec, draft_cfg=dcfg,
+        draft_params={**params, "layers": first(params["layers"], False)})
+
+
 def main(argv=None, **server_kwargs):
     """server_kwargs go to inference.server.run_server (in-process
     callers pass `ready` and `service_out`)."""
@@ -103,6 +178,7 @@ def main(argv=None, **server_kwargs):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, params, _ = load_model(args)
+    speculative = load_spec(args, cfg, params)
     tokenizer = build_tokenizer(args.tokenizer_type,
                                 vocab_size=cfg.vocab_size)
     max_seq_len = args.serve_max_seq_len or min(cfg.seq_length, 2048)
@@ -126,7 +202,8 @@ def main(argv=None, **server_kwargs):
                kv_paging=args.serve_kv_paging,
                page_size=args.serve_page_size,
                prefill_chunk=args.serve_prefill_chunk,
-               num_pages=args.serve_num_pages, **server_kwargs)
+               num_pages=args.serve_num_pages,
+               speculative=speculative, **server_kwargs)
 
 
 if __name__ == "__main__":

@@ -23,6 +23,15 @@ round p and ds to bf16 for the tensor cores). A CUDA TrainState saves
 and loads bitwise, an async save overlapping a train step (which updates
 the device tensors in place) keeps the state from before the step, and
 load_params_only places the params on the card.
+
+The engines' captured decode step: the CUDA graph gives the eager
+engine's tokens and logprobs exactly (plain, n-gram and draft-model
+speculation, dense and paged) and its launch counters count every replay
+by query length; speculative greedy tokens equal the plain ones or part
+at a bf16 near-tie (teacher-forced, >= 99% of positions); a failed step
+recaptures; a capture that fails raises; the decode kernel under capture
+refuses a stream it never ran on and then replays bit for bit; and a
+verify past the kernel's 64 query rows fails at engine construction.
 """
 
 import dataclasses
@@ -529,3 +538,245 @@ def test_load_params_only_places_params_on_the_card(gen, tmp_path):
     for (n, p), (_, m) in zip(leaf_paths(params), leaf_paths(state.master)):
         assert p.is_cuda and p.dtype == torch.bfloat16, n
         assert torch.equal(p, m.to(torch.bfloat16)), n
+
+
+# ---------------------------------------------------------------------------
+# the captured decode step and speculative decoding on the card
+# ---------------------------------------------------------------------------
+
+
+def _serving_model():
+    """A 2-layer bf16 model with the kernels' head dim 128 and GQA 2."""
+    cfg = presets.tiny(hidden_size=512, num_attention_heads=4,
+                       num_kv_heads=2, vocab_size=128, seq_length=256,
+                       params_dtype="bfloat16", attention_impl="pallas")
+    return cfg, init_params(cfg, 0)
+
+
+def _serve(eng, prompts, n=12, **kw):
+    import numpy as np
+
+    from megatron_tpu_torch.inference.engine import Request
+
+    reqs = [eng.submit(Request(prompt=np.asarray(p, dtype=np.int32),
+                               max_new_tokens=n, **kw)) for p in prompts]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    assert all(r.error is None for r in reqs), [r.error for r in reqs]
+    return reqs
+
+
+_PROMPTS = ([3, 7, 11, 2], list(range(1, 41)), [5, 9, 5, 9, 5, 9, 5, 9],
+            list(range(50, 127)))
+
+
+def _engine(cfg, params, paged=False, **kw):
+    from megatron_tpu_torch.inference.engine import InferenceEngine
+    from megatron_tpu_torch.inference.paging import PagedInferenceEngine
+    from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
+
+    kw.setdefault("num_slots", 4)
+    kw.setdefault("max_seq_len", 256)
+    if paged:
+        return PagedInferenceEngine(cfg, params, page_size=16,
+                                    prefill_chunk=32, vocab_size=128,
+                                    metrics=MetricsRegistry(), **kw)
+    return InferenceEngine(cfg, params, vocab_size=128,
+                           metrics=MetricsRegistry(), **kw)
+
+
+def _spec(cfg, params, drafter, layers=1):
+    from megatron_tpu_torch.inference.speculative import SpecConfig
+
+    if drafter == "ngram":
+        return SpecConfig(k=4)
+    dcfg = dataclasses.replace(cfg, num_layers=layers).validate()
+    return SpecConfig(k=4, drafter="model", draft_cfg=dcfg, draft_params={
+        **params, "layers": {k: {n: t[:layers] for n, t in v.items()}
+                             for k, v in params["layers"].items()}})
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("drafter", [None, "ngram", "model"])
+def test_graph_engine_matches_the_eager_engine(gen, paged, drafter):
+    """The captured tick replays the eager tick's kernels at its shapes:
+    greedy and sampled tokens identical, logprobs identical, and the
+    launch counters count every replay (the decode kernel once per
+    layer a tick, by form: Sq 1 plain and for the draft's k + 1
+    forwards, Sq k + 1 the verify)."""
+    cfg, params = _serving_model()
+    runs = []
+    for graph in (False, True):
+        spec = _spec(cfg, params, drafter) if drafter else None
+        eng = _engine(cfg, params, paged, cuda_graph=graph, speculative=spec)
+        assert (eng.capture_seconds is not None) == graph
+        c0 = ft.launch_counts()
+        reqs = _serve(eng, _PROMPTS) + _serve(eng, _PROMPTS[:2],
+                                              temperature=0.8, seed=3)
+        c1 = ft.launch_counts()
+        name = "paged_flash_decode" if paged else "flash_decode"
+        ticks = eng.stats["ticks"]
+        forms = {k[len(name) + 1:]: c1[k] - c0.get(k, 0) for k in c1
+                 if k.startswith(name + "/") and c1[k] != c0.get(k, 0)}
+        if drafter is None:
+            want = {"sq1": 2 * ticks}
+        elif drafter == "ngram":
+            want = {"sq5": 2 * ticks}
+        else:
+            want = {"sq1": 5 * 1 * ticks, "sq5": 2 * ticks}
+        assert forms == want
+        assert eng.stats["decode_recompiles"] == 0
+        runs.append([(r.generated, r.logprobs) for r in reqs])
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("drafter", ["ngram", "model"])
+def test_speculative_tokens_match_plain_or_part_at_a_near_tie(gen, paged,
+                                                              drafter):
+    """Greedy speculative output against plain decode in bf16: the verify
+    forward's GEMMs run at [N, k+1] rows, so a token may part from the
+    plain one at a bf16 near-tie. Every speculative token is the plain
+    teacher-forced argmax or within that position's bf16 error band
+    (the largest |bf16 - fp32| logit difference there), at >= 99% of
+    positions; the full-depth draft accepts most drafts."""
+    from megatron_tpu_torch.models.language_model import lm_forward
+
+    cfg, params = _serving_model()
+    spec = _spec(cfg, params, drafter, layers=2)
+    plain = _serve(_engine(cfg, params, paged), _PROMPTS, n=24)
+    eng = _engine(cfg, params, paged, speculative=spec)
+    fast = _serve(eng, _PROMPTS, n=24)
+    if drafter == "model":
+        assert eng.stats["spec_accepted"] > 0.5 * eng.stats["spec_proposed"]
+    dense = dataclasses.replace(cfg, attention_impl="xla")
+    ref = dataclasses.replace(dense, params_dtype="float32")
+    p32 = {k: ({kk: ({n: t.float() for n, t in vv.items()}
+                     if isinstance(vv, dict) else vv.float())
+                for kk, vv in v.items()} if isinstance(v, dict)
+               else v.float()) for k, v in params.items()}
+    near = total = same = 0
+    with torch.no_grad():
+        for prompt, a, b in zip(_PROMPTS, plain, fast):
+            seq = torch.tensor([list(prompt) + b.generated[:-1]],
+                               device="cuda")
+            lb = lm_forward(dense, params, seq)[0, len(prompt) - 1:].float()
+            l32 = lm_forward(ref, p32, seq)[0, len(prompt) - 1:]
+            tok = torch.tensor(b.generated, device="cuda")
+            gap = lb.max(-1).values - lb.gather(1, tok[:, None])[:, 0]
+            band = (lb - l32).abs().max(-1).values
+            near += int((gap <= band).sum())
+            total += len(b.generated)
+            same += sum(x == y for x, y in zip(a.generated, b.generated))
+    assert near / total >= 0.99, (near, total, same)
+
+
+def test_failed_step_recaptures_the_graph(gen):
+    """A replay that raises fails the requests in flight, rebuilds the
+    caches and captures again (counted in decode_recompiles); the engine
+    then serves what a fresh engine serves."""
+    import numpy as np
+
+    from megatron_tpu_torch.inference.engine import Request
+
+    cfg, params = _serving_model()
+    eng = _engine(cfg, params, speculative=_spec(cfg, params, "ngram"))
+    first = eng._step
+    reqs = [eng.submit(Request(prompt=np.arange(1, 9, dtype=np.int32),
+                               max_new_tokens=20))]
+    eng.step()
+
+    def broken():
+        raise RuntimeError("injected replay failure")
+
+    eng._step = broken
+    with pytest.raises(RuntimeError, match="injected"):
+        eng.step()
+    assert reqs[0].done.is_set() and "decode step failed" in reqs[0].error
+    assert eng._step is not first and eng._step is not broken
+    assert eng.stats["decode_recompiles"] == 1
+    got = _serve(eng, _PROMPTS)
+    want = _serve(_engine(cfg, params,
+                          speculative=_spec(cfg, params, "ngram")), _PROMPTS)
+    assert [r.generated for r in got] == [r.generated for r in want]
+
+
+def test_capture_failure_raises_and_nothing_goes_eager():
+    """A step body that syncs with the host cannot be captured: engine
+    construction raises instead of serving eagerly (run in a child
+    process, so the failed capture cannot touch this one's context)."""
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    code = (
+        "import sys, torch\n"
+        "sys.path.insert(0, '.')\n"
+        "from megatron_tpu_torch.inference.engine import InferenceEngine\n"
+        "from megatron_tpu_torch.models import presets\n"
+        "from megatron_tpu_torch.models.params import init_params\n"
+        "from megatron_tpu_torch.telemetry.metrics import MetricsRegistry\n"
+        "cfg = presets.tiny(hidden_size=512, num_attention_heads=4,"
+        " num_kv_heads=2, vocab_size=128, params_dtype='bfloat16',"
+        " attention_impl='pallas')\n"
+        "body = InferenceEngine._step_body\n"
+        "def syncing(self):\n"
+        "    out = body(self)\n"
+        "    out['toks'][0].item()\n"
+        "    return out\n"
+        "InferenceEngine._step_body = syncing\n"
+        "try:\n"
+        "    InferenceEngine(cfg, init_params(cfg, 0), num_slots=2,"
+        " max_seq_len=128, metrics=MetricsRegistry())\n"
+        "except RuntimeError as e:\n"
+        "    print('RAISED', 'capture' in str(e))\n"
+        "    sys.exit(0)\n"
+        "print('NO ERROR')\n"
+        "sys.exit(1)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.dirname(
+                              os.path.abspath(__file__))))
+    assert proc.returncode == 0 and "RAISED True" in proc.stdout, \
+        proc.stdout + proc.stderr[-3000:]
+
+
+def test_decode_workspace_and_tickets_under_capture(gen):
+    """The decode kernel captured in a graph: without a launch on the
+    capture stream first it raises (its tickets would be zeroed only by
+    replays); after the warm-up the replays give the eager result bit
+    for bit, and CapturedStep adds the captured launches per replay."""
+    from megatron_tpu_torch.inference.cuda_graph import CapturedStep
+
+    B, S, hkv = 8, 2048, 8
+    q = _randn(gen, B, 5, 32, 128)
+    k, v = _randn(gen, B, S, hkv, 128), _randn(gen, B, S, hkv, 128)
+    lens = torch.tensor([1, 63, 64, 500, 1000, 1500, 2000, 2044],
+                        dtype=torch.int32, device="cuda")
+    want = ft.flash_decode(q, k, v, lens)
+    side = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="never ran on"):
+        with torch.cuda.graph(graph, stream=side):
+            ft.flash_decode(q, k, v, lens)
+    torch.cuda.synchronize()
+    step = CapturedStep(lambda: {"o": ft.flash_decode(q, k, v, lens)},
+                        torch.device("cuda"))
+    assert step.launch_delta == {"flash_decode": 1, "flash_decode/sq5": 1}
+    before = ft.flash_decode.launches
+    for _ in range(3):
+        assert torch.equal(step()["o"], want)
+    assert ft.flash_decode.launches == before + 3
+
+
+def test_engine_refuses_a_verify_past_the_kernel_rows(gen):
+    """(k + 1) * G query rows per kv head must fit the decode kernel's 64:
+    the engine raises at construction, not at its first tick."""
+    from megatron_tpu_torch.inference.speculative import SpecConfig
+
+    cfg = presets.tiny(hidden_size=2048, num_attention_heads=16,
+                       num_kv_heads=1, vocab_size=128,
+                       params_dtype="bfloat16", attention_impl="pallas")
+    with pytest.raises(ValueError, match="query rows per kv head"):
+        _engine(cfg, init_params(cfg, 0), speculative=SpecConfig(k=4))

@@ -194,7 +194,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "training.scheduler", "training.microbatches", "data.gpt_dataset",
         "data.indexed_dataset", "data.samplers", "data.helpers",
         "data.blendable_dataset", "arguments", "tools.pretrain_gpt",
-        "tools.profile_training")]
+        "tools.profile_training", "inference.speculative",
+        "inference.cuda_graph", "tools.profile_serving")]
     code = (
         "import importlib, pkgutil, sys\n"
         "import megatron_tpu_torch as pkg\n"
