@@ -118,6 +118,42 @@ still run, so one call shows every failure):
               bf16 near-tie): speculative greedy tokens may part from the
               plain ones only at a near-tie, since the verify's GEMMs run
               at other shapes.
+  3d. control serving control at full width and depth unless stated:
+              (a) a one-shot server (engine_slots 0) answers the phase-3
+              prompts x 32 greedy tokens, serialized, through the dense
+              attention (no kernel launch), under the teacher-forced
+              gate; (b) a "tokens_to_generate": 0 request scores the four
+              prompts in one flash_fwd pass (32 launches) and agrees with
+              the plain path's logprobs within twice each position's bf16
+              band (the largest |bf16 - fp32| logit difference there) at
+              >= 99% of positions; (c) beam search, BEAM_WIDTH beams of
+              BEAM_TOKENS tokens on the 100-token prompt: the best beam
+              scores at least the greedy sequence's length-penalised
+              logprob and every beam re-scores through score_tokens to its
+              score, both within twice the plain bf16 path's mean
+              |bf16 - fp32| logprob error over the sequence's own
+              BEAM_TOKENS positions; (d) an 8-slot
+              engine with max_queue CONTROL_QUEUE answers CONTROL_BURST
+              concurrent 1500-token requests with some 503s (each with
+              Retry-After) and the rest in full, a deadline_s of
+              CONTROL_DEADLINE_S with 504 and "timeout": true, then the
+              phase-3 traffic with phase 3's tokens and launches; (e) on
+              the same server /readyz is 503 (warmed false) with /healthz
+              200 until warmup() ran, then a drain answers /api 503 with
+              Retry-After and /readyz 503, and readmit serves again; (f)
+              the depth cut to RELOAD_LAYERS (printed): POST /admin/reload
+              of RELOAD_SEED's weights from save_params_checkpoint under
+              replay, after which the tokens equal a fresh engine's on
+              those weights and differ from before, with no capture beyond
+              the warm-up one, the decode counter at RELOAD_LAYERS x
+              ticks, weights_version 1 in every response and a torn
+              checkpoint answered 409; the reload's wall and bytes are
+              printed; (g) the phase-3 traffic through int8 servers on
+              both engines (flash_fwd 32 x prefills dense, the decode
+              kernels 32 x ticks) under the teacher-forced gate run with
+              the same int8 round trip, then each engine's graph tick with
+              bf16 and int8 caches over 8 slots of 5 .. 1500-token prompts
+              (device and wall ms a tick, cache bytes, peak memory).
   4. training write a synthetic corpus (Zipf token ids, 32000 vocab, from
               SEED) with the port's MMapIndexedDatasetBuilder into
               megatron_tpu_torch/build/, then call
@@ -161,8 +197,8 @@ still run, so one call shows every failure):
               step time, checkpoint bytes, save stall / commit / load /
               crc32 times and the launch counts.
   6. report   one JSON line listing each kernel with its launches on its
-              path (serving, paged_serving, speculative_serving, training
-              and finetune), then
+              path (serving, paged_serving, speculative_serving,
+              serving_control, training and finetune), then
               the card's name and power limit, then {"ok": true, "device":
               {...}} as the last line.
 
@@ -181,6 +217,7 @@ import sys
 import threading
 import time
 import traceback
+import urllib.error
 import urllib.request
 import warnings
 
@@ -221,6 +258,25 @@ SPEC_K = 4
 SPEC_PATTERN, SPEC_REPEAT = 64, 512
 SPEC_DRAFT_LAYERS = 4
 SPEC_PARTIAL_LAYERS = 31
+
+# phase 3d: serving control. The lifecycle run's engine takes at most
+# CONTROL_QUEUE waiting requests and gets CONTROL_BURST concurrent
+# 1500-token requests (each prefill takes tens of ms, so most arrive while
+# the queue is full); CONTROL_DEADLINE_S is far below the decode of
+# CONTROL_DEADLINE_TOKENS tokens (about 10 ms a tick on an H100). Beam search: BEAM_WIDTH beams of BEAM_TOKENS tokens on
+# the 100-token prompt. The reload run cuts the depth to RELOAD_LAYERS
+# (a 1.35 GB checkpoint) and reloads RELOAD_SEED's weights. The int8
+# ticks are timed with the 8 slots filled as tools/profile_serving.py
+# fills them (its TICK_LENS prompts of 5 .. 1500 tokens).
+CONTROL_QUEUE = 2
+CONTROL_BURST = 8
+CONTROL_DEADLINE_S = 0.05
+CONTROL_DEADLINE_TOKENS = 256
+BEAM_WIDTH = 4
+BEAM_TOKENS = 16
+RELOAD_LAYERS = 2
+RELOAD_SEED = SEED + 1
+TICK_COUNT = 10
 
 # phase 4: Llama-2-7B width cut to TRAIN_LAYERS layers
 TRAIN_LAYERS = 8
@@ -352,38 +408,39 @@ def compare(torch, got, want):
 
 
 def attn_case(S=None, Sq=None, Skv=None, hq=32, hkv=32, D=128, causal=True,
-              window=None, delta=0, fused=False):
+              window=None, delta=0, fused=False, B=1):
     """One prefill attention shape of phases 2 and 2b. fused: q, k and v
     are strided views of one [B, S, 3, H, D] buffer (the layout of a fused
     QKV projection), which the kernels read through their tensor maps."""
     Sq = Sq or S
     return dict(Sq=Sq, Skv=Skv or Sq, hq=hq, hkv=hkv, D=D, causal=causal,
-                window=window, delta=delta, fused=fused)
+                window=window, delta=delta, fused=fused, B=B)
 
 
 def case_name(c) -> str:
-    return (f"B=1 Sq={c['Sq']} Skv={c['Skv']} Hq={c['hq']} Hkv={c['hkv']} "
+    return (f"B={c['B']} Sq={c['Sq']} Skv={c['Skv']} Hq={c['hq']} Hkv={c['hkv']} "
             f"D={c['D']} causal={c['causal']} window={c['window']} "
             f"delta={c['delta']}" + (" fused_qkv" if c["fused"] else ""))
 
 
 def case_inputs(torch, gen, c, with_do=False):
-    """q [1, Sq, Hq, D], k/v [1, Skv, Hkv, D] (and dO like q) in bf16,
+    """q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D] (and dO like q) in bf16,
     drawn in the original order (q, dO, k, v), so the original shapes
     keep their inputs."""
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda",
                            dtype=torch.bfloat16)
+    B = c["B"]
     if c["fused"]:
         assert c["Sq"] == c["Skv"] and c["hq"] == c["hkv"]
-        buf = randn(1, c["Sq"], 3, c["hq"], c["D"])
+        buf = randn(B, c["Sq"], 3, c["hq"], c["D"])
         q, k, v = buf[:, :, 0], buf[:, :, 1], buf[:, :, 2]
-        do = randn(1, c["Sq"], c["hq"], c["D"]) if with_do else None
+        do = randn(B, c["Sq"], c["hq"], c["D"]) if with_do else None
     else:
-        q = randn(1, c["Sq"], c["hq"], c["D"])
-        do = randn(1, c["Sq"], c["hq"], c["D"]) if with_do else None
-        k = randn(1, c["Skv"], c["hkv"], c["D"])
-        v = randn(1, c["Skv"], c["hkv"], c["D"])
+        q = randn(B, c["Sq"], c["hq"], c["D"])
+        do = randn(B, c["Sq"], c["hq"], c["D"]) if with_do else None
+        k = randn(B, c["Skv"], c["hkv"], c["D"])
+        v = randn(B, c["Skv"], c["hkv"], c["D"])
     return (q, k, v, do) if with_do else (q, k, v)
 
 
@@ -425,13 +482,16 @@ def rates(flops, ms, bound_ms) -> dict:
 # phase 2: the forward's shapes. The first five are the original ones (S
 # 2047, the serving prefill's largest bucket, is the reported case, S 4096
 # the training path's sequence); then the 128-row tile's edges, a ring stripe (Sq !=
-# Skv, delta != 0), bidirectional, D 64, GQA and a fused QKV buffer
+# Skv, delta != 0), bidirectional, D 64, GQA, a fused QKV buffer and
+# phase 3d's scored batch (the four phase-3 prompts padded to 1500, less
+# the last position: B 4, S 1499, which ends inside a 128-row tile)
 FWD_CASES = [attn_case(64), attn_case(512), attn_case(2047),
              attn_case(2047, hkv=8, window=256), attn_case(4096),
              attn_case(1), attn_case(127), attn_case(129), attn_case(1000),
              attn_case(Sq=1024, Skv=4096, delta=3072),
              attn_case(2047, causal=False), attn_case(2047, D=64),
-             attn_case(2047, hkv=8), attn_case(2047, fused=True)]
+             attn_case(2047, hkv=8), attn_case(2047, fused=True),
+             attn_case(1499, B=4)]
 
 
 def check_flash_fwd(torch, F, ft, card):
@@ -456,10 +516,10 @@ def check_flash_fwd(torch, F, ft, card):
                                                                  **kw))
         library_ms = cuda_ms(torch,
                              sdpa(F, q, k, v, **sdpa_mask_kw(torch, c)))
-        D, hq, hkv = c["D"], c["hq"], c["hkv"]
-        flops = 4.0 * D * hq * visible_pairs(torch, c)
-        nbytes = (2.0 * (2 * c["Sq"] * hq * D + 2 * c["Skv"] * hkv * D)
-                  + 4.0 * hq * c["Sq"])
+        B, D, hq, hkv = c["B"], c["D"], c["hq"], c["hkv"]
+        flops = 4.0 * B * D * hq * visible_pairs(torch, c)
+        nbytes = B * (2.0 * (2 * c["Sq"] * hq * D + 2 * c["Skv"] * hkv * D)
+                      + 4.0 * hq * c["Sq"])
         bound_ms, bound_by = bound(flops, nbytes)
         line = {"phase": "kernel", "name": "flash_fwd", "card": card,
                 "shape": case_name(c), "max_abs_err": err,
@@ -1492,7 +1552,614 @@ def serve_speculative(torch, ft, card, dense_tokens):
     return total
 
 
-def teacher_force(torch, dataclasses, cfg, params, prompts, generated):
+# ---------------------------------------------------------------------------
+# phase 3d: serving control
+# ---------------------------------------------------------------------------
+
+
+def _call(url, body=None, method="PUT", timeout=600):
+    """(status, payload, headers) of one JSON request; an HTTP error is a
+    result here, not an exception."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read().decode()), \
+                dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode()), dict(e.headers)
+
+
+def _start_server(cfg, params, tokenizer, **kw):
+    """run_server on a thread: (service, server, thread, base url)."""
+    from megatron_tpu_torch.inference.server import run_server
+
+    ready, handles = threading.Event(), []
+    thread = threading.Thread(
+        target=run_server, daemon=True, name="smoke-control-server",
+        kwargs=dict(cfg=cfg, params=params, tokenizer=tokenizer,
+                    host="127.0.0.1", port=0, device="cuda", ready=ready,
+                    service_out=handles, **kw))
+    thread.start()
+    if not ready.wait(300):
+        raise RuntimeError("server did not start")
+    service, server = handles
+    return service, server, thread, \
+        f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _stop_server(server, thread):
+    server.shutdown()
+    thread.join(120)
+    if thread.is_alive():
+        raise RuntimeError("server thread did not stop")
+
+
+def _traffic(base, prompts, engine=None):
+    """The prompts as concurrent greedy requests of one prompt each:
+    (results [(status, payload, headers)], wall seconds). With `engine`,
+    each request is sent once the previous one is admitted, so the queue
+    never holds more than one (a bounded queue takes the traffic whole)
+    while the requests still decode together."""
+    results = [None] * len(prompts)
+
+    def one(i):
+        results[i] = _call(base + "/api", {
+            "prompts": [" ".join(map(str, prompts[i]))],
+            "tokens_to_generate": NEW_TOKENS, "temperature": 0.0})
+
+    t0 = time.monotonic()
+    workers = []
+    for i in range(len(prompts)):
+        admitted = engine.stats["admitted"] if engine else 0
+        workers.append(threading.Thread(target=one, args=(i,)))
+        workers[-1].start()
+        while engine and engine.stats["admitted"] == admitted and \
+                time.monotonic() - t0 < 300:
+            time.sleep(0.001)
+    for w in workers:
+        w.join(900)
+    return results, time.monotonic() - t0
+
+
+def _generated(results, prompts):
+    """Each answer's generated tokens; fails unless every answer is a
+    200 of prompt + NEW_TOKENS tokens."""
+    out = []
+    for i, res in enumerate(results):
+        if res is None or res[0] != 200:
+            raise AssertionError(f"request {i} failed: {res}")
+        toks = [int(t) for t in res[1]["text"][0].split()]
+        if toks[:len(prompts[i])] != prompts[i] or \
+                len(toks) != len(prompts[i]) + NEW_TOKENS:
+            raise AssertionError(f"request {i}: {len(toks)} tokens for a "
+                                 f"{len(prompts[i])}-token prompt + "
+                                 f"{NEW_TOKENS}")
+        out.append(toks[len(prompts[i]):])
+    return out
+
+
+class _Counted:
+    """One counted run of a phase-3d path: every decode and forward count
+    set to 0 on entry and read on exit (added to `totals`)."""
+
+    def __init__(self, ft, totals):
+        self.ft, self.totals = ft, totals
+
+    def __enter__(self):
+        _zero_decode_counts(self.ft)
+        return self
+
+    def __exit__(self, *exc):
+        self.launches = _decode_counts(self.ft)
+        for name, n in self.launches.items():
+            self.totals[name] = self.totals.get(name, 0) + n
+        return False
+
+
+def _score_plain(torch, dataclasses, cfg, params, tokens):
+    """The plain path's teacher-forced logprobs of a padded batch (dense
+    attention in bf16), each position's bf16 error band, the largest
+    |bf16 - fp32| logit difference there (teacher_force's band), and each
+    logprob's own |bf16 - fp32| error: three [B, S-1] CPU tensors."""
+    from megatron_tpu_torch.models.language_model import lm_forward
+
+    plain = dataclasses.replace(cfg, attention_impl="xla")
+    ref = dataclasses.replace(plain, params_dtype="float32")
+    t = torch.tensor(tokens, device="cuda")
+    t = torch.where(t >= cfg.vocab_size, 0, t)
+    idx = t[:, 1:, None]
+    with torch.no_grad():
+        lb = lm_forward(plain, params, t[:, :-1]).float()
+        p32 = _upcast(params)
+        l32 = lm_forward(ref, p32, t[:, :-1])
+        del p32
+        band = (lb - l32).abs().amax(-1).cpu()
+        lp = torch.gather(torch.log_softmax(lb, -1), 2, idx)[..., 0]
+        del lb
+        lp32 = torch.gather(torch.log_softmax(l32, -1), 2, idx)[..., 0]
+        del l32
+        lp_err = (lp - lp32).abs().cpu()
+        lp = lp.cpu()
+    torch.cuda.empty_cache()
+    return lp, band, lp_err
+
+
+def _upcast(tree):
+    return {k: _upcast(v) if isinstance(v, dict) else v.float()
+            for k, v in tree.items()}
+
+
+def _real_positions(torch, lengths, width):
+    """[B, width] mask of the scored positions inside each prompt."""
+    return (torch.arange(width)[None, :]
+            < torch.tensor(lengths)[:, None] - 1)
+
+
+def _control_one_shot(torch, ft, cfg, params, tokenizer, prompts, totals):
+    """(a) one-shot serving, (b) scoring and (c) beam search through an
+    engine-less server (engine_slots=0)."""
+    import dataclasses
+
+    import numpy as np
+
+    from megatron_tpu_torch.inference.generation import (
+        generate_tokens, score_tokens,
+    )
+
+    service, server, thread, base = _start_server(
+        cfg, params, tokenizer, engine_slots=0)
+    rec = {}
+    try:
+        with _Counted(ft, totals) as run:
+            results, wall_s = _traffic(base, prompts)
+        generated = _generated(results, prompts)
+        rec["one_shot"] = {"wall_s": wall_s, "launches": run.launches}
+        if any(run.launches.values()):
+            raise AssertionError(f"one-shot launches {run.launches}: the "
+                                 "one-shot prefill and decode take the "
+                                 "dense path")
+        lengths = [len(p) for p in prompts]
+        with _Counted(ft, totals) as run:
+            t0 = time.monotonic()
+            status, body, _ = _call(base + "/api", {
+                "prompts": [" ".join(map(str, p)) for p in prompts],
+                "tokens_to_generate": 0})
+            score_s = time.monotonic() - t0
+        if status != 200:
+            raise AssertionError(f"scoring: {status} {body}")
+        want = {"flash_fwd": NUM_LAYERS, "flash_decode": 0,
+                "paged_flash_decode": 0}
+        if run.launches != want:
+            raise AssertionError(f"scoring launches {run.launches} != "
+                                 f"{want} (one scored batch)")
+        padded = np.full((len(prompts), max(lengths)), tokenizer.pad,
+                         np.int64)
+        for i, p in enumerate(prompts):
+            padded[i, :len(p)] = p
+        plain, band, _ = _score_plain(torch, dataclasses, cfg, params,
+                                      padded)
+        got = torch.tensor(body["logprobs"])
+        real = _real_positions(torch, lengths, padded.shape[1] - 1)
+        diff, band = (got - plain).abs()[real], band[real]
+        # a logprob is a logit less the log-sum-exp, each off by up to
+        # the position's band on a bf16 path
+        within = float((diff <= 2 * band).float().mean())
+        rec["scoring"] = {"wall_s": score_s, "launches": run.launches,
+                          "positions": int(real.sum()),
+                          "max_abs_err_vs_plain": float(diff.max()),
+                          "mean_abs_err_vs_plain": float(diff.mean()),
+                          "share_within_2x_band": within,
+                          "band_max": float(band.max())}
+        if within < MATCH_GATE:
+            raise AssertionError(f"scoring: {rec['scoring']} (gate: "
+                                 f"|kernel - plain| <= 2 x the position's "
+                                 f"bf16 band at >= {MATCH_GATE})")
+
+        # (c) beam search on the 100-token prompt
+        prompt = prompts[1]
+        with _Counted(ft, totals) as run:
+            t0 = time.monotonic()
+            status, body, _ = _call(base + "/api", {
+                "prompts": [" ".join(map(str, prompt))],
+                "tokens_to_generate": BEAM_TOKENS,
+                "beam_width": BEAM_WIDTH})
+            beam_s = time.monotonic() - t0
+        if status != 200:
+            raise AssertionError(f"beam search: {status} {body}")
+        scores = body["scores"]
+        beams = [[int(t) for t in text.split()] for text in body["text"]]
+        greedy = generate_tokens(cfg, params, np.asarray([prompt]),
+                                 np.asarray([len(prompt)]), BEAM_TOKENS,
+                                 temperature=0.0, vocab_size=tokenizer.vocab_size,
+                                 eod=tokenizer.eod)
+        p0 = len(prompt) - 1
+        greedy_score = float(greedy.logprobs[0, p0:p0 + BEAM_TOKENS].sum()
+                             / BEAM_TOKENS)
+        width = len(prompt) + BEAM_TOKENS
+        body_tokens = np.asarray([b[:width] for b in beams])
+        scored = score_tokens(cfg, params, body_tokens)
+        rescored = scored[:, p0:p0 + BEAM_TOKENS].sum(1) / BEAM_TOKENS
+        scores_np = np.asarray(scores)
+        rescore_err = np.abs(rescored - scores_np)
+        # each sequence's tolerance comes from its own scored positions: a
+        # beam score is the mean of BEAM_TOKENS logprobs; the beam's path
+        # and the re-score are two bf16 paths, each taken as far from
+        # fp32 as the plain path's logprob there (rows: the beams, then
+        # greedy)
+        _, _, lp_err = _score_plain(
+            torch, dataclasses, cfg, params,
+            np.concatenate([body_tokens, greedy.tokens[:1, :width]]))
+        tols = 2 * lp_err[:, p0:p0 + BEAM_TOKENS].double().mean(1).numpy()
+        beam_tol, greedy_tol = tols[:-1], float(tols[-1])
+        # the same readout one position off (the window a cache written
+        # at the wrong index would score): how far a position fault lands
+        shifted = scored[:, p0 - 1:p0 - 1 + BEAM_TOKENS].sum(1) / BEAM_TOKENS
+        rec["beam"] = {"width": BEAM_WIDTH, "new_tokens": BEAM_TOKENS,
+                       "wall_s": beam_s, "scores": scores,
+                       "greedy_score": greedy_score,
+                       "rescored": rescored.tolist(),
+                       "rescore_err": rescore_err.tolist(),
+                       "tolerance": beam_tol.tolist(),
+                       "greedy_tolerance": greedy_tol,
+                       "off_by_one_err": np.abs(shifted - scores_np).tolist(),
+                       "launches": run.launches}
+        if not (len(beams) == BEAM_WIDTH
+                and all(b[:len(prompt)] == prompt for b in beams)):
+            raise AssertionError("beam search: beams lost their prompt")
+        if not scores[0] >= greedy_score - beam_tol[0] - greedy_tol:
+            raise AssertionError(f"beam search: best beam {scores[0]} below "
+                                 f"the greedy sequence's {greedy_score}")
+        if not (rescore_err <= beam_tol).all():
+            raise AssertionError(f"beam scores re-score {rescore_err} apart "
+                                 f"(tolerances {beam_tol})")
+    finally:
+        _stop_server(server, thread)
+    del service, server
+    free_cuda(torch)
+    return rec, generated
+
+
+def _control_lifecycle(torch, ft, cfg, params, tokenizer, prompts,
+                       dense_tokens, totals):
+    """(d) bounded queue and deadlines, (e) warmup, drain and readmit, on
+    one 8-slot engine with max_queue CONTROL_QUEUE. The service is built
+    as run_server builds it and served on a thread here, so the probe
+    before warmup() is sure to see an unwarmed server."""
+    from http.server import ThreadingHTTPServer
+
+    from megatron_tpu_torch.inference.server import (
+        GenerationService, make_handler,
+    )
+
+    service = GenerationService(cfg, params, tokenizer, engine_slots=8,
+                                engine_max_seq_len=2048, device="cuda",
+                                engine_max_queue=CONTROL_QUEUE, warmup=True)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    eng = service.engine
+    rec = {}
+    try:
+        # (e) readiness waits for warmup; liveness does not
+        r0, h0 = _call(base + "/readyz", method="GET"), \
+            _call(base + "/healthz", method="GET")
+        t0 = time.monotonic()
+        service.warmup()
+        warm_s = time.monotonic() - t0
+        r1 = _call(base + "/readyz", method="GET")
+        rec["warmup"] = {"readyz_before": r0[0], "healthz_before": h0[0],
+                         "readyz_after": r1[0], "warmup_s": warm_s}
+        if (r0[0], r0[1]["warmed"], h0[0], r1[0]) != (503, False, 200, 200):
+            raise AssertionError(f"warmup gate: {rec['warmup']}")
+
+        # (d) CONTROL_BURST concurrent long requests against a queue of
+        # CONTROL_QUEUE: the rest answer 503 with Retry-After
+        burst = [prompts[-1]] * CONTROL_BURST
+        s0 = dict(eng.stats)
+        results, _ = _traffic(base, burst)
+        codes = [r[0] for r in results]
+        ok = [r for r in results if r[0] == 200]
+        _generated(ok, burst[:len(ok)])
+        full = [r for r in results if r[0] == 503]
+        rec["overload"] = {"max_queue": CONTROL_QUEUE,
+                           "requests": CONTROL_BURST,
+                           "statuses": sorted(codes),
+                           "rejected": eng.stats["rejected"] - s0["rejected"]}
+        if not full or len(ok) + len(full) != CONTROL_BURST or not all(
+                r[2].get("Retry-After") for r in full):
+            raise AssertionError(f"overload: {rec['overload']}")
+
+        status, body, _ = _call(base + "/api", {
+            "prompts": [" ".join(map(str, prompts[1]))],
+            "tokens_to_generate": CONTROL_DEADLINE_TOKENS,
+            "temperature": 0.0, "deadline_s": CONTROL_DEADLINE_S})
+        rec["deadline"] = {"deadline_s": CONTROL_DEADLINE_S,
+                           "status": status, "message": body.get("message"),
+                           "timeouts": eng.stats["timeouts"]}
+        if status != 504 or body.get("timeout") is not True:
+            raise AssertionError(f"deadline: {rec['deadline']}")
+
+        # then the phase-3 traffic: the engine serves on, token for token
+        with _Counted(ft, totals) as run:
+            s0 = dict(eng.stats)
+            results, wall_s = _traffic(base, prompts, engine=eng)
+        generated = _generated(results, prompts)
+        prefills = eng.stats["admitted"] - s0["admitted"]
+        ticks = eng.stats["ticks"] - s0["ticks"]
+        want = {"flash_fwd": NUM_LAYERS * prefills,
+                "flash_decode": NUM_LAYERS * ticks, "paged_flash_decode": 0}
+        rec["after"] = {"wall_s": wall_s, "launches": run.launches,
+                        "prefills": prefills, "ticks": ticks,
+                        "tokens_equal_phase3": (generated == dense_tokens
+                                                if dense_tokens else None)}
+        if run.launches != want:
+            raise AssertionError(f"launches {run.launches} != {want}")
+        if dense_tokens is not None and generated != dense_tokens:
+            raise AssertionError("after overload and a deadline the "
+                                 "engine's tokens differ from phase 3's")
+
+        # (e) drain, then readmit
+        d = _call(base + "/admin/drain", {"timeout_s": 60}, method="POST")
+        refused = _call(base + "/api", {"prompts": ["1 2"],
+                                        "tokens_to_generate": 2})
+        r_drain = _call(base + "/readyz", method="GET")[0]
+        h_drain = _call(base + "/healthz", method="GET")[0]
+        st = _call(base + "/admin/status", method="GET")[1]
+        back = _call(base + "/admin/readmit", {}, method="POST")[0]
+        r_back = _call(base + "/readyz", method="GET")[0]
+        served = _call(base + "/api", {"prompts": ["1 2"],
+                                       "tokens_to_generate": 2,
+                                       "temperature": 0.0})[0]
+        rec["drain"] = {"drained": d[1].get("drained"),
+                        "api_while_draining": refused[0],
+                        "retry_after": refused[2].get("Retry-After"),
+                        "readyz_draining": r_drain,
+                        "healthz_draining": h_drain,
+                        "status_draining": st.get("draining"),
+                        "readmit": back, "readyz_after": r_back,
+                        "api_after": served}
+        if (d[0], d[1].get("drained"), refused[0], r_drain, h_drain,
+                st.get("draining"), back, r_back, served) != (
+                200, True, 503, 503, 200, True, 200, 200, 200) or \
+                not refused[2].get("Retry-After"):
+            raise AssertionError(f"drain/readmit: {rec['drain']}")
+        rec["decode_recompiles"] = eng.stats["decode_recompiles"]
+        if rec["decode_recompiles"]:
+            raise AssertionError("the decode step was captured again")
+    finally:
+        server.shutdown()
+        thread.join(120)
+        server.server_close()
+        service.shutdown()
+    del service, server, eng
+    free_cuda(torch)
+    return rec
+
+
+def _tick_times(torch, cfg, params, paged, int8, card):
+    """One engine (graph) filled as profile_serving fills it (8 slots of
+    5 .. 1500-token prompts), TICK_COUNT decode ticks timed as it times
+    them: (record)."""
+    import numpy as np
+
+    from megatron_tpu_torch.tools.profile_serving import (
+        _window, decode_ticks, filled_engine,
+    )
+
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    eng = filled_engine(np, cfg, params, np.random.default_rng(SEED),
+                        paged=paged, int8=int8)
+    ticks = decode_ticks(eng, TICK_COUNT, paged)
+    kv = "int8" if int8 else "bf16"
+    wall_ms, kernels = _window(
+        torch, f"control_{'paged' if paged else 'dense'}_tick_{kv}", ticks,
+        card)
+    rec = {"engine": "paged" if paged else "dense", "kv": kv,
+           "cache_bytes": sum(c.nbytes for c in eng.caches),
+           "tick_wall_ms": wall_ms / TICK_COUNT,
+           "tick_device_ms": (sum(ms for ms, _ in kernels.values())
+                              / TICK_COUNT if kernels else "not measured"),
+           "max_memory_allocated_gib":
+               torch.cuda.max_memory_allocated() / 2**30}
+    eng.stop()
+    del eng
+    free_cuda(torch)
+    return rec
+
+
+def _control_int8(torch, ft, cfg, params, tokenizer, prompts, totals, card):
+    """(g) the phase-3 traffic through int8 servers on both engines,
+    under the teacher-forced gate with the same int8 round trip; then
+    each engine's decode tick with int8 and bf16 caches."""
+    import dataclasses
+
+    rec, seqs = {"runs": []}, []
+    for paged in (False, True):
+        kw = dict(kv_paging=True, page_size=PAGE_SIZE,
+                  prefill_chunk=PREFILL_CHUNK) if paged else {}
+        service, server, thread, base = _start_server(
+            cfg, params, tokenizer, engine_slots=8, engine_max_seq_len=2048,
+            kv_cache_int8=True, **kw)
+        eng = service.engine
+        try:
+            with _Counted(ft, totals) as run:
+                s0 = dict(eng.stats)
+                results, wall_s = _traffic(base, prompts)
+            generated = _generated(results, prompts)
+            prefills = eng.stats["admitted"] - s0["admitted"]
+            ticks = eng.stats["ticks"] - s0["ticks"]
+            recompiles = eng.stats["decode_recompiles"]
+        finally:
+            _stop_server(server, thread)
+        name = "paged_flash_decode" if paged else "flash_decode"
+        want = {"flash_fwd": 0 if paged else NUM_LAYERS * prefills,
+                "flash_decode": 0, "paged_flash_decode": 0}
+        want[name] = NUM_LAYERS * ticks
+        rec["runs"].append({"engine": "paged" if paged else "dense",
+                            "wall_s": wall_s, "prefills": prefills,
+                            "ticks": ticks, "launches": run.launches,
+                            "decode_recompiles": recompiles})
+        if run.launches != want or recompiles:
+            raise AssertionError(f"int8 {'paged' if paged else 'dense'}: "
+                                 f"launches {run.launches} != {want}, "
+                                 f"recompiles {recompiles}")
+        seqs.append(generated)
+        del service, server, eng
+        free_cuda(torch)
+    rec["dense_vs_paged_share_equal"] = (
+        sum(x == y for a, b in zip(*seqs) for x, y in zip(a, b))
+        / sum(len(a) for a in seqs[0]))
+    rec["ticks"] = [_tick_times(torch, cfg, params, paged, int8, card)
+                    for paged in (False, True) for int8 in (False, True)]
+    tf = teacher_force(torch, dataclasses, cfg, params, prompts * 2,
+                       seqs[0] + seqs[1], int8=True)
+    rec.update(tf)
+    if tf["teacher_forced_match"] < MATCH_GATE:
+        raise AssertionError(
+            f"int8 teacher-forced match {tf['teacher_forced_match']:.4f} "
+            f"< {MATCH_GATE}")
+    return rec
+
+
+def _control_reload(torch, ft, tokenizer, prompts, totals):
+    """(f) hot reload at Llama-2-7B width cut to RELOAD_LAYERS layers:
+    serve seed SEED's weights, reload seed RELOAD_SEED's from a
+    params-only checkpoint under replay, then hold the tokens against a
+    fresh engine built on those weights; a torn checkpoint answers 409."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from megatron_tpu_torch.inference.engine import InferenceEngine, Request
+    from megatron_tpu_torch.inference.fleet.reload import (
+        save_params_checkpoint,
+    )
+    from megatron_tpu_torch.models import presets
+    from megatron_tpu_torch.models.params import init_params
+    from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
+
+    cfg = dataclasses.replace(presets.from_model_name("llama2-7B"),
+                              num_layers=RELOAD_LAYERS).validate()
+    old = init_params(cfg, SEED, device="cuda")
+    new = init_params(cfg, RELOAD_SEED, device="cuda")
+    d = tempfile.mkdtemp(prefix="smoke_reload_")
+    rec = {"layers": RELOAD_LAYERS, "cut": f"depth {NUM_LAYERS} -> "
+           f"{RELOAD_LAYERS} layers (width unchanged) to keep the "
+           "checkpoint small"}
+    try:
+        t0 = time.monotonic()
+        path = save_params_checkpoint(d, 1, new)
+        rec["save_s"] = time.monotonic() - t0
+        rec["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(r, f))
+            for r, _, fs in os.walk(path) for f in fs)
+        torn = save_params_checkpoint(d, 2, new)
+        pt = os.path.join(torn, "state", "params.pt")
+        with open(pt, "r+b") as f:
+            f.truncate(os.path.getsize(pt) // 2)
+        service, server, thread, base = _start_server(
+            cfg, old, tokenizer, engine_slots=8, engine_max_seq_len=2048,
+            reload_dir=d, weights_version=0)
+        eng = service.engine
+        try:
+            before = _generated(_traffic(base, prompts)[0], prompts)
+            t0 = time.monotonic()
+            status, body, _ = _call(base + "/admin/reload",
+                                    {"iteration": 1}, method="POST")
+            rec["reload_wall_s"] = time.monotonic() - t0
+            if status != 200 or body.get("version") != 1:
+                raise AssertionError(f"reload: {status} {body}")
+            with _Counted(ft, totals) as run:
+                s0 = dict(eng.stats)
+                results, _ = _traffic(base, prompts)
+            after = _generated(results, prompts)
+            ticks = eng.stats["ticks"] - s0["ticks"]
+            prefills = eng.stats["admitted"] - s0["admitted"]
+            versions = [r[1].get("weights_version") for r in results]
+            torn_status = _call(base + "/admin/reload", {"iteration": 2},
+                                method="POST")[0]
+            st = dict(eng.stats)
+        finally:
+            _stop_server(server, thread)
+        del service, server, eng
+        free_cuda(torch)
+        fresh = InferenceEngine(cfg, new, num_slots=8, max_seq_len=2048,
+                                metrics=MetricsRegistry(), device="cuda")
+        reqs = [fresh.submit(Request(prompt=np.asarray(p, np.int32),
+                                     max_new_tokens=NEW_TOKENS))
+                for p in prompts]
+        fresh.run_until_idle()
+        want_tokens = [r.generated for r in reqs]
+        del fresh
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    want = {"flash_fwd": RELOAD_LAYERS * prefills,
+            "flash_decode": RELOAD_LAYERS * ticks, "paged_flash_decode": 0}
+    rec.update({"launches": run.launches, "ticks": ticks,
+                "weight_reloads": st["weight_reloads"],
+                "decode_recompiles": st["decode_recompiles"],
+                "weights_version": versions, "torn_status": torn_status,
+                "tokens_equal_fresh_engine": after == want_tokens,
+                "tokens_changed": after != before})
+    if not (after == want_tokens and after != before
+            and run.launches == want and st["decode_recompiles"] == 0
+            and st["weight_reloads"] == 1 and torn_status == 409
+            and versions == [1] * len(prompts)):
+        raise AssertionError(f"reload: {rec}")
+    return rec
+
+
+def serve_control(torch, ft, card, dense_tokens):
+    """Phase 3d. dense_tokens: phase 3's generated tokens per prompt
+    (None if phase 3 failed: then the lifecycle run is not compared)."""
+    import dataclasses
+
+    import numpy as np
+
+    from megatron_tpu_torch.models import presets
+    from megatron_tpu_torch.models.params import init_params
+    from megatron_tpu_torch.tokenizer import NullTokenizer
+
+    cfg = presets.from_model_name("llama2-7B")
+    params = init_params(cfg, SEED, device="cuda")
+    tokenizer = NullTokenizer(cfg.vocab_size)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size - 1, size=n).tolist()
+               for n in PROMPT_LENS]
+    totals: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    one_shot, generated = _control_one_shot(torch, ft, cfg, params,
+                                            tokenizer, prompts, totals)
+    one_shot["one_shot"].update(teacher_force(
+        torch, dataclasses, cfg, params, prompts, generated))
+    if dense_tokens is not None:
+        one_shot["one_shot"]["share_equal_to_engine_tokens"] = (
+            sum(x == y for a, b in zip(generated, dense_tokens)
+                for x, y in zip(a, b)) / (len(prompts) * NEW_TOKENS))
+    lifecycle = _control_lifecycle(torch, ft, cfg, params, tokenizer,
+                                   prompts, dense_tokens, totals)
+    int8 = _control_int8(torch, ft, cfg, params, tokenizer, prompts, totals,
+                         card)
+    del params
+    free_cuda(torch)
+    reload = _control_reload(torch, ft, tokenizer, prompts, totals)
+    emit({"phase": "serving_control", "card": card, "model": "llama2-7B",
+          **one_shot, **lifecycle, "int8": int8, "reload": reload,
+          "launches": totals})
+    if one_shot["one_shot"]["teacher_forced_match"] < MATCH_GATE:
+        raise AssertionError("one-shot teacher-forced match "
+                             f"{one_shot['one_shot']['teacher_forced_match']}"
+                             f" < {MATCH_GATE}")
+    return totals
+
+
+def teacher_force(torch, dataclasses, cfg, params, prompts, generated,
+                  int8=False):
     """Hold the engine's greedy tokens against the plain path.
 
     Each finished sequence is teacher-forced through lm_forward with the
@@ -1504,17 +2171,22 @@ def teacher_force(torch, dataclasses, cfg, params, prompts, generated):
     in bf16 has logit gaps of the order of that band (the bf16 plain
     path's own argmax matches the fp32 one at ~90% of positions), so a
     strict argmax gate would test bf16 rounding, not the engine; the
-    strict rates are reported beside the gate."""
+    strict rates are reported beside the gate. int8=True runs both plain
+    passes with the int8 KV round trip the engine made (an int8 cache of
+    the sequence's length: K/V quantized, attention over the dequantized
+    cache)."""
+    from megatron_tpu_torch.inference.generation import _init_caches
     from megatron_tpu_torch.models.language_model import lm_forward
+
+    def forward(c, p, seq):
+        if not int8:
+            return lm_forward(c, p, seq)
+        caches = _init_caches(c, 1, seq.shape[1], device="cuda", int8=True)
+        return lm_forward(c, p, seq, kv_caches=caches, cache_index=0)[0]
 
     plain = dataclasses.replace(cfg, attention_impl="xla")
     ref = dataclasses.replace(plain, params_dtype="float32")
-
-    def up(t):
-        return ({k: up(v) for k, v in t.items()} if isinstance(t, dict)
-                else t.float())
-
-    params32 = up(params)
+    params32 = _upcast(params)
     strict = near = plain_vs_fp32 = total = 0
     worst_gap = 0.0
     misses = []          # the positions outside the near-tie band
@@ -1522,8 +2194,8 @@ def teacher_force(torch, dataclasses, cfg, params, prompts, generated):
         for seq_i, (prompt, gen) in enumerate(zip(prompts, generated)):
             seq = torch.tensor([prompt + gen[:-1]], device="cuda")
             p0 = len(prompt) - 1          # logits from the last prompt row
-            lb = lm_forward(plain, params, seq)[0, p0:].float()
-            l32 = lm_forward(ref, params32, seq)[0, p0:]
+            lb = forward(plain, params, seq)[0, p0:].float()
+            l32 = forward(ref, params32, seq)[0, p0:]
             tok = torch.tensor(gen, device="cuda")
             gap = lb.max(-1).values - lb.gather(1, tok[:, None])[:, 0]
             band = (lb - l32).abs().max(-1).values
@@ -2189,6 +2861,8 @@ def main() -> int:
           results.get("serving", {}).get("generated"))
     phase("speculative_serving", serve_speculative, torch, ft, card,
           results.get("serving", {}).get("generated"))
+    phase("serving_control", serve_control, torch, ft, card,
+          results.get("serving", {}).get("generated"))
     phase("training", train, torch, np, ft, card)
     phase("kernel_vs_dense_step", step_vs_dense, torch, np, ft, card)
     phase("finetune", finetune, torch, np, ft, card)
@@ -2199,6 +2873,7 @@ def main() -> int:
     paths = {"serving": results["serving"]["launches"],
              "paged_serving": results["paged_serving"],
              "speculative_serving": results["speculative_serving"],
+             "serving_control": results["serving_control"],
              "training": results["training"],
              "finetune": results["finetune"]}
     reports = {"flash_fwd": results["flash_fwd"],

@@ -57,8 +57,25 @@ _refresh_carry). Admission resumes a preempted request by recompute:
 prompt + generated is teacher-forced and the next token is sampled with
 the generator state saved at preemption (Request.resume_key).
 
-Migration, weight reload, profiling, fault injection, bounded queues and
-request deadlines are not ported yet.
+The request lifecycle is the JAX engine's. max_queue bounds admission:
+a submit past it fails at once with Request.overloaded
+(EngineOverloadedError from generate, HTTP 503 upstream). A request's
+deadline_s (seconds after submit) fails it with Request.timed_out
+(RequestTimeoutError, HTTP 504) whether it is still queued or already
+decoding; a slot cleared mid-decode marks the carry stale, so the next
+replay does not decode the dead row. update_params stages a weight swap
+that the step loop applies between ticks (_pre_tick): the new tensors
+are copied INTO the existing parameter tensors, because the captured
+graph has their addresses baked in (rebinding self.params would leave
+it reading the old weights without any error). A swap therefore costs
+no capture. wait_idle is the drain step of a rolling update.
+
+kv_cache_int8=True stores the slot caches (or the paged engine's pools)
+as int8 with fp32 scales (ops/kv_quant.py): the attention block
+quantizes on write and dequantizes the whole cache for attention, as the
+JAX package does. The model drafter's caches stay in the model dtype.
+
+Migration, profiling and fault injection are not ported yet.
 """
 
 from __future__ import annotations
@@ -92,10 +109,21 @@ from megatron_tpu_torch.ops.rotary import precompute_rope
 from megatron_tpu_torch.telemetry.metrics import (
     MetricsRegistry, default_registry,
 )
+from megatron_tpu_torch.training.optimizer import leaf_paths
 
 
 #: prompts are padded up to a multiple of this many tokens for prefill
 PREFILL_BUCKET = 64
+
+
+class EngineOverloadedError(RuntimeError):
+    """The engine's admission queue is at max_queue: the request was
+    rejected, not queued. HTTP serving maps this to 503 + Retry-After."""
+
+
+class RequestTimeoutError(RuntimeError):
+    """A request's deadline expired while it was queued or mid-decode.
+    HTTP serving maps this to 504 Gateway Timeout."""
 
 
 @dataclasses.dataclass
@@ -112,6 +140,10 @@ class Request:
     # one token a tick on a speculating engine (its greedy output is the
     # same either way); a no-op on an engine built without speculative=
     spec: bool = True
+    # relative deadline: seconds after submit() by which the request must
+    # complete; a queued or mid-decode request past it fails with
+    # timed_out=True (HTTP 504). None = no deadline.
+    deadline_s: Optional[float] = None
     # engine-filled
     generated: List[int] = dataclasses.field(default_factory=list)
     logprobs: List[float] = dataclasses.field(default_factory=list)
@@ -126,6 +158,12 @@ class Request:
     # recompute-resumed request samples the exact tokens it would have
     # sampled without the preemption (the JAX package saves its PRNG key)
     resume_key: Optional[torch.Tensor] = None
+    # rejected at submit because the queue was at max_queue
+    overloaded: bool = False
+    # failed on an expired deadline (error carries the detail)
+    timed_out: bool = False
+    # absolute monotonic deadline, stamped at submit
+    _deadline: Optional[float] = None
 
     @property
     def tokens(self) -> np.ndarray:
@@ -150,13 +188,21 @@ class InferenceEngine:
                  vocab_size: Optional[int] = None,
                  metrics: Optional[MetricsRegistry] = None, device="cuda",
                  speculative: Optional[SpecConfig] = None,
-                 cuda_graph: bool = True):
+                 cuda_graph: bool = True, kv_cache_int8: bool = False,
+                 max_queue: Optional[int] = None):
         """speculative: a SpecConfig turns on speculative decoding.
         cuda_graph: on CUDA, capture the decode tick as one CUDA graph at
         construction and replay it (False runs the same step eagerly, for
-        A/B measurements); ignored on the CPU, which has no graphs."""
+        A/B measurements); ignored on the CPU, which has no graphs.
+        kv_cache_int8: int8 slot caches (the paged engine: pools).
+        max_queue: at most this many requests wait for a slot; a submit
+        beyond it is rejected as overloaded (None: unbounded)."""
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
+        if max_queue is not None and max_queue < 1:
+            raise ValueError("max_queue must be >= 1 (or None: unbounded)")
+        self.kv_cache_int8 = bool(kv_cache_int8)
+        self.max_queue = max_queue
         self.cfg = cfg
         self.params = params
         self.device = torch.device(device)
@@ -200,11 +246,16 @@ class InferenceEngine:
         self._stop = False
         # admissions popped from the queue but not yet in a slot
         self._admitting = 0
+        # hot weight reload: (params, version, applied event) staged by
+        # update_params, copied in between ticks by the step loop
+        self._pending_params: Optional[tuple] = None
+        self.params_version: Any = None
         self.last_progress_time = time.monotonic()
         # decode_recompiles counts captures of the decode step beyond the
         # warm-up one: the JAX engine's zero-recompiles invariant
         self.stats = {"admitted": 0, "retired": 0, "ticks": 0,
-                      "rejected": 0, "decode_recompiles": 0}
+                      "rejected": 0, "decode_recompiles": 0,
+                      "timeouts": 0, "weight_reloads": 0}
         if self.spec is not None:
             # spec_emitted / ticks = tokens per target forward
             self.stats.update({"spec_proposed": 0, "spec_accepted": 0,
@@ -223,7 +274,13 @@ class InferenceEngine:
                                     "requests completed")
         self._m_rejected = m.counter("engine_requests_rejected_total",
                                      "requests rejected (invalid/oversized/"
-                                     "failed prefill)")
+                                     "failed prefill/queue full)")
+        self._m_timeouts = m.counter(
+            "engine_requests_timeout_total",
+            "requests failed on an expired deadline (queued or mid-decode)")
+        self._m_reloads = m.counter(
+            "engine_weight_reloads_total",
+            "hot weight swaps applied between decode ticks")
         self._m_ticks = m.counter("engine_ticks_total",
                                   "batched decode steps executed")
         self._m_tokens = m.counter("engine_tokens_generated_total",
@@ -294,15 +351,17 @@ class InferenceEngine:
         return rounded
 
     def _fresh_caches(self):
-        """Zeroed KV storage: [L, num_slots, max_seq_len, nkv, D] x2 (the
-        paged engine builds page pools instead)."""
+        """Zeroed KV storage: [L, num_slots, max_seq_len, nkv, D] x2, or
+        the int8 4-tuple with kv_cache_int8 (the paged engine builds page
+        pools instead)."""
         return _init_caches(self.cfg, self.num_slots, self.max_seq_len,
-                            device=self.device)
+                            device=self.device, int8=self.kv_cache_int8)
 
     def _fresh_draft_caches(self):
         """The draft model's cache tree: the target's slots and length,
-        the draft config's own layers and heads (the paged engine builds
-        draft pools over the target's tables instead)."""
+        the draft config's own layers and heads, always in the model
+        dtype, as in JAX (the paged engine builds draft pools over the
+        target's tables instead)."""
         return _init_caches(self.spec.draft_cfg, self.num_slots,
                             self.max_seq_len, device=self.device)
 
@@ -520,7 +579,20 @@ class InferenceEngine:
             return self._reject(
                 req, f"prompt token ids must be in [0, "
                      f"{self.cfg.vocab_size}) (the embedding table)")
+        if req.deadline_s is not None:
+            if not req.deadline_s > 0:      # NaN too
+                return self._reject(
+                    req, "deadline_s must be > 0 (or None: no deadline)")
+            req._deadline = req.submit_time + req.deadline_s
         with self._cv:
+            if (self.max_queue is not None
+                    and len(self._queue) >= self.max_queue):
+                # bounded admission: overload is a fast rejection (HTTP
+                # 503 upstream), not unbounded queue latency
+                req.overloaded = True
+                return self._reject(
+                    req, f"engine queue full ({self.max_queue} waiting); "
+                         "retry later")
             self._queue.append(req)
             self._m_queue.set(len(self._queue))
             self._cv.notify_all()
@@ -650,8 +722,119 @@ class InferenceEngine:
         """One engine tick: admit into free slots, then one batched decode
         for every active slot. Returns the number of active slots served
         (0 = idle)."""
+        self._pre_tick()
         self._admit()
         return self._decode_tick()
+
+    def _pre_tick(self) -> None:
+        """Control-plane work between ticks, shared by every engine (the
+        paged engine's step() calls it first too): a staged weight swap,
+        then deadline expiry."""
+        self._apply_pending_params()
+        self._expire_deadlines()
+
+    # ----- hot weight reload ----------------------------------------------
+
+    def update_params(self, params: Any, version: Any = None
+                      ) -> threading.Event:
+        """Stage a weight swap; the step loop applies it between decode
+        ticks, so slots in flight keep decoding (their cached prefixes
+        came from the old weights; a drained rolling update keeps every
+        request on one version).
+
+        The new tree must match the old one leaf for leaf in name, shape
+        and dtype (ValueError otherwise). The swap copies each new leaf
+        INTO the engine's existing tensor: the captured decode graph has
+        those tensors' addresses baked in, so the swap needs no capture
+        and engine_decode_recompiles_total stays 0. A draft model made of
+        views of the target's first layers (the server's default draft)
+        changes with them; a draft loaded from its own checkpoint keeps
+        its weights. Returns an Event set once the swap is applied."""
+        old, new = leaf_paths(self.params), leaf_paths(params)
+        if [n for n, _ in old] != [n for n, _ in new]:
+            raise ValueError("update_params: the new tree's leaves differ "
+                             "from the served tree's")
+        for (name, a), (_, b) in zip(old, new):
+            if (tuple(a.shape), a.dtype) != (tuple(b.shape), b.dtype):
+                raise ValueError(
+                    f"update_params shape/dtype mismatch at {name}: "
+                    f"{tuple(a.shape)}/{a.dtype} vs {tuple(b.shape)}/"
+                    f"{b.dtype}")
+        applied = threading.Event()
+        with self._cv:
+            if self._pending_params is not None:
+                # a staged swap not yet applied is superseded; its waiter
+                # unblocks too (the newer weights subsume it)
+                self._pending_params[2].set()
+            self._pending_params = (new, version, applied)
+            self._cv.notify_all()
+        return applied
+
+    @torch.no_grad()
+    def _apply_pending_params(self) -> bool:
+        """Swap in the weights update_params staged, if any (True then)."""
+        with self._cv:
+            pending = self._pending_params
+            self._pending_params = None
+        if pending is None:
+            return False
+        new, version, applied = pending
+        for (_, dst), (_, src) in zip(leaf_paths(self.params), new):
+            dst.copy_(src)
+        self.params_version = version
+        self.stats["weight_reloads"] += 1
+        self._m_reloads.inc()
+        applied.set()
+        return True
+
+    # ----- deadlines -------------------------------------------------------
+
+    def _expire_deadlines(self) -> None:
+        """Fail queued and mid-decode requests past their deadline: their
+        waiters unblock within one tick of expiry. A cleared slot marks
+        the carry stale (_clear_slot), so the next replay does not decode
+        its row."""
+        now = time.monotonic()
+        with self._cv:
+            expired = [r for r in self._queue
+                       if r._deadline is not None and now > r._deadline]
+            for req in expired:
+                self._queue.remove(req)
+            if expired:
+                self._m_queue.set(len(self._queue))
+        for req in expired:
+            self._fail_timeout(req, "queued")
+        for i in range(self.num_slots):
+            req = self.slots[i]
+            if (req is not None and req._deadline is not None
+                    and now > req._deadline):
+                self._clear_slot(i)
+                self._m_active.set(self.num_active)
+                self._fail_timeout(req, "mid-decode")
+
+    def _fail_timeout(self, req: Request, where: str) -> None:
+        req.timed_out = True
+        self.stats["timeouts"] += 1
+        self._m_timeouts.inc()
+        req._finish(
+            f"deadline exceeded while {where} (deadline_s="
+            f"{req.deadline_s}, generated {len(req.generated)} of "
+            f"{req.max_new_tokens} tokens)")
+
+    def wait_idle(self, timeout: Optional[float] = None) -> bool:
+        """Block until no request is queued, mid-admission or decoding and
+        no weight swap is pending (the drain step of a rolling update).
+        False if `timeout` seconds pass first."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            with self._cv:
+                if (not self._queue and self._admitting == 0
+                        and self.num_active == 0
+                        and self._pending_params is None):
+                    return True
+            if deadline is not None and time.monotonic() > deadline:
+                return False
+            time.sleep(0.01)
 
     def _decode_rows(self) -> List[int]:
         """Slot indices the batched decode serves this tick (the paged
@@ -760,24 +943,46 @@ class InferenceEngine:
     def generate(self, prompts: np.ndarray, lengths: np.ndarray,
                  max_new_tokens: int, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 0.0,
-                 eod: Optional[int] = None,
-                 seed: int = 0, spec: bool = True) -> GenerationOutput:
+                 eod: Optional[int] = None, seed: int = 0,
+                 deadline_s: Optional[float] = None,
+                 spec: bool = True) -> GenerationOutput:
         """Submit one request per row, drain, and repack
         [B, maxp + max_new] like the JAX engine: shorter prompts get
-        maxp - p extra generated tokens (the one-shot path's row layout)."""
+        maxp - p extra generated tokens (the one-shot path's row layout).
+        Raises EngineOverloadedError when the queue cannot take all B
+        rows (nothing is submitted then), RequestTimeoutError when a
+        row's deadline expired, ValueError for any other failure."""
         B, maxp = prompts.shape
         reqs = []
-        for b in range(B):
-            p = int(lengths[b])
-            reqs.append(self.submit(Request(
-                prompt=np.asarray(prompts[b, :p], np.int32),
-                max_new_tokens=maxp - p + max_new_tokens,
-                temperature=temperature, top_k=top_k, top_p=top_p, eod=eod,
-                seed=seed + b, spec=spec)))
+        # the capacity check and the B submits under one acquisition of
+        # the (reentrant) lock: a batch that cannot queue whole is
+        # rejected before any row runs
+        with self._cv:
+            if (self.max_queue is not None
+                    and len(self._queue) + B > self.max_queue):
+                self.stats["rejected"] += B
+                self._m_rejected.inc(B)
+                raise EngineOverloadedError(
+                    f"engine queue cannot take {B} more requests "
+                    f"(max_queue={self.max_queue}); retry later")
+            for b in range(B):
+                p = int(lengths[b])
+                reqs.append(self.submit(Request(
+                    prompt=np.asarray(prompts[b, :p], np.int32),
+                    max_new_tokens=maxp - p + max_new_tokens,
+                    temperature=temperature, top_k=top_k, top_p=top_p,
+                    eod=eod, seed=seed + b, deadline_s=deadline_s,
+                    spec=spec)))
         if self._thread is None:
             self.run_until_idle()
         for r in reqs:
             r.done.wait()
+        if any(r.overloaded for r in reqs):
+            raise EngineOverloadedError(
+                next(r.error for r in reqs if r.overloaded))
+        if any(r.timed_out for r in reqs):
+            raise RequestTimeoutError(
+                next(r.error for r in reqs if r.timed_out))
         errs = [r.error for r in reqs if r.error]
         if errs:
             raise ValueError(errs[0])
@@ -808,7 +1013,8 @@ class InferenceEngine:
             while True:
                 with self._cv:
                     while (not self._stop and self.num_active == 0
-                           and not self._queue):
+                           and not self._queue
+                           and self._pending_params is None):
                         self._cv.wait()
                     if self._stop:
                         return
@@ -849,5 +1055,10 @@ class InferenceEngine:
                 req._finish("engine stopped")
         for req in leftovers:
             req._finish("engine stopped")
+        with self._cv:
+            if self._pending_params is not None:
+                # unblock a reload waiter: the swap will never be applied
+                self._pending_params[2].set()
+                self._pending_params = None
         self._m_active.set(0)
         self._m_queue.set(0)

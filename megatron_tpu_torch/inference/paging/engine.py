@@ -52,9 +52,18 @@ Differences from the JAX engine, by design:
     flash_template.check_page_size) under attention_impl="pallas", and
     raises ValueError otherwise; the TPU's multiple-of-8 rule is gone.
 
-Not ported: int8 pools, migration and prefix export/import,
-context-parallel paging, TP comm byte counters, weight reload and fault
-injection.
+kv_cache_int8=True makes the pools int8 with fp32 scale pools [L, P,
+ps, nkv, 1]: writes through the table quantize, and attention reads the
+whole pool dequantized (the paged decode kernel over the dequantized
+pool, a chunk's gather from it), the JAX package's numerics, so the
+paged engine stays token-identical to the slot engine in int8 too. The
+draft pools stay in the model dtype. Bounded queues, deadlines, weight
+reload and wait_idle are the slot engine's (step() runs its _pre_tick
+first); a weight swap also empties the radix prefix cache, whose pages
+hold the old weights' K/V.
+
+Not ported: migration and prefix export/import, context-parallel
+paging, TP comm byte counters and fault injection.
 """
 
 from __future__ import annotations
@@ -76,6 +85,7 @@ from megatron_tpu_torch.inference.sampling import sample_logits_batched
 from megatron_tpu_torch.inference.speculative import SpecConfig
 from megatron_tpu_torch.models.language_model import lm_forward
 from megatron_tpu_torch.ops.flash.flash_template import check_page_size
+from megatron_tpu_torch.ops.kv_quant import kv_buffers
 from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
 
 
@@ -93,7 +103,8 @@ class PagedInferenceEngine(InferenceEngine):
                  vocab_size: Optional[int] = None,
                  metrics: Optional[MetricsRegistry] = None, device="cuda",
                  speculative: Optional[SpecConfig] = None,
-                 cuda_graph: bool = True):
+                 cuda_graph: bool = True, kv_cache_int8: bool = False,
+                 max_queue: Optional[int] = None):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if num_pages is not None and num_pages < 2:
@@ -108,7 +119,8 @@ class PagedInferenceEngine(InferenceEngine):
         super().__init__(cfg, params, num_slots=num_slots,
                          max_seq_len=max_seq_len, vocab_size=vocab_size,
                          metrics=metrics, device=device,
-                         speculative=speculative, cuda_graph=cuda_graph)
+                         speculative=speculative, cuda_graph=cuda_graph,
+                         kv_cache_int8=kv_cache_int8, max_queue=max_queue)
         if self.num_pages - 1 < self.max_pages:
             raise ValueError(
                 f"num_pages={self.num_pages} cannot hold even one full "
@@ -175,17 +187,17 @@ class PagedInferenceEngine(InferenceEngine):
 
     def _fresh_caches(self):
         """Paged pools [L, num_pages, page_size, nkv, D] x2 in the model
-        dtype on the engine's device, zeroed (so every page, scratch
-        included, holds finite values). The default pool is the slot
-        engine's capacity: every slot can grow to max_seq_len."""
+        dtype (int8: the 4-tuple with fp32 scale pools [..., 1]) on the
+        engine's device, zeroed (so every page, scratch included, holds
+        finite values). The default pool is the slot engine's capacity:
+        every slot can grow to max_seq_len."""
         self.max_pages = -(-self.max_seq_len // self.page_size)
         if self.num_pages is None:
             self.num_pages = self.num_slots * self.max_pages + 1
         cfg = self.cfg
         shape = (cfg.num_layers, self.num_pages, self.page_size,
                  cfg.n_kv_heads, cfg.head_dim)
-        return (torch.zeros(shape, dtype=cfg.dtype, device=self.device),
-                torch.zeros(shape, dtype=cfg.dtype, device=self.device))
+        return kv_buffers(shape, cfg.dtype, self.kv_cache_int8, self.device)
 
     def _fresh_draft_caches(self):
         """The draft model's page pools: the target pools' page count and
@@ -204,6 +216,18 @@ class PagedInferenceEngine(InferenceEngine):
         self._device_table = torch.full(
             (self.num_slots, self.max_pages), SCRATCH_PAGE,
             dtype=torch.int32, device=self.device)
+
+    def _apply_pending_params(self) -> bool:
+        # the radix tree's pages hold K/V and logprobs computed with the
+        # old weights: a swap drops them (slots in flight keep their own
+        # references), so a request after a reload prefills as on an
+        # engine built fresh on the new weights. The JAX engine keeps
+        # serving the stale pages.
+        if not super()._apply_pending_params():
+            return False
+        self.prefix_cache.clear()
+        self._m_pages_free.set(self.pool.free_pages)
+        return True
 
     def _rebuild_caches(self) -> None:
         # the radix tree's pages lose their contents with the pools
@@ -582,6 +606,7 @@ class PagedInferenceEngine(InferenceEngine):
         """One engine tick: admit, run one prefill chunk, then one
         batched decode for every slot whose prompt is fully cached.
         Returns slots served + chunks run (0 = idle)."""
+        self._pre_tick()
         self._admit()
         chunked = self._prefill_tick()
         if chunked:

@@ -69,7 +69,7 @@ def lm_forward(
     params: Dict[str, Any],
     tokens: torch.Tensor,                        # [B, S] int
     positions: Optional[torch.Tensor] = None,
-    kv_caches: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    kv_caches: Optional[Tuple[torch.Tensor, ...]] = None,
     cache_index=None,
     attention_mask: Optional[torch.Tensor] = None,  # [B, S] True = attend
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -82,7 +82,8 @@ def lm_forward(
     """Forward pass to logits [B, S, V] (or, with return_hidden, the
     final-normed hidden states [B, S, h]).
 
-    kv_caches: stacked per-layer caches [L, B, Smax, nkv, D] x2, updated
+    kv_caches: stacked per-layer caches [L, B, Smax, nkv, D] x2 (or the
+    int8 4-tuple of ops/kv_quant.py, scales [L, B, Smax, nkv, 1]), updated
     in place; when given, returns (logits, kv_caches). cache_index is an
     int (every row at the same depth) or a [B] tensor (continuous-batching
     slot cache, every row at its own depth).
@@ -129,8 +130,8 @@ def lm_forward(
                                cfg.rope_scaling_factor, device=x.device)
 
     for i, lp in enumerate(_layers(params["layers"], cfg.num_layers)):
-        cache = None if kv_caches is None else (kv_caches[0][i],
-                                                kv_caches[1][i])
+        cache = None if kv_caches is None else tuple(c[i]
+                                                     for c in kv_caches)
         layer = functools.partial(
             block_forward, cfg, lp, rope=rope, positions=positions,
             kv_cache=cache, cache_index=cache_index,

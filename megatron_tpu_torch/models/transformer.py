@@ -8,9 +8,11 @@ them functionally and donates them under jit; PyTorch mutates the
 buffer instead). The training form is the same block without a cache,
 with positions from the batch; selective recompute checkpoints its core
 attention. The paged form writes K/V through a page table into the
-shared page pools [P, ps, nkv, D] (inference/paging/). fp8, weight
-quantization, MoE, int8 caches (dense or paged), dropout, explicit TP/CP
-collectives and context-parallel paging are not ported yet.
+shared page pools [P, ps, nkv, D] (inference/paging/). A cache of four
+tensors is the int8 form (ops/kv_quant.py): int8 K/V with fp32 scales
+[..., 1], quantized on write and dequantized whole for attention. fp8,
+weight quantization, MoE, dropout, explicit TP/CP collectives and
+context-parallel paging are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,10 +26,12 @@ from torch.utils.checkpoint import checkpoint
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.ops.activations import apply_activation
 from megatron_tpu_torch.ops.attention import attention
+from megatron_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
 from megatron_tpu_torch.ops.normalization import norm_forward
 from megatron_tpu_torch.ops.rotary import apply_rotary_emb
 
-KVCache = Tuple[torch.Tensor, torch.Tensor]
+#: (k, v), or the int8 form (k_q, v_q, k_scale, v_scale)
+KVCache = Tuple[torch.Tensor, ...]
 
 
 def _norm(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor):
@@ -121,37 +125,55 @@ def attention_block(
             phys = torch.where(pos < page_write_end, phys, 0)
         store[phys, pos % ps] = new[0].to(store.dtype)
 
+    def _slot_write(store, new):
+        """Row b's new [s, ...] rows at its own depth cache_index[b]."""
+        rows = torch.arange(b, device=x.device)
+        idx = cache_index.to(device=x.device, dtype=torch.long)
+        if s == 1:
+            store[rows, idx] = new[:, 0].to(store.dtype)
+        else:
+            pos = idx[:, None] + torch.arange(s, device=x.device)
+            store[rows[:, None], pos] = new.to(store.dtype)
+
+    def _write(store, new):
+        """This pass's rows of one cache tensor, in place (in-place writes
+        take the place of the JAX package's functional update + buffer
+        donation)."""
+        if paged:
+            _paged_write(store, new)
+        elif per_slot:
+            _slot_write(store, new)
+        else:
+            ci = int(cache_index)
+            store[:, ci:ci + s] = new.to(store.dtype)
+
     q_offset = 0
     kv_lengths = None
     if kv_cache is not None:
-        # in-place cache writes take the place of the JAX package's
-        # functional update + buffer donation
-        kc, vc = kv_cache
-        if paged:
-            _paged_write(kc, k)
-            _paged_write(vc, v)
-            if per_slot:
-                kv_lengths = (cache_index.to(x.device, torch.long)
-                              + 1).to(torch.int32)
-            else:
-                q_offset = int(cache_index)
-        elif per_slot:
-            rows = torch.arange(b, device=x.device)
-            idx = cache_index.to(device=x.device, dtype=torch.long)
-            if s == 1:
-                kc[rows, idx] = k[:, 0].to(kc.dtype)
-                vc[rows, idx] = v[:, 0].to(vc.dtype)
-            else:
-                pos = idx[:, None] + torch.arange(s, device=x.device)
-                kc[rows[:, None], pos] = k.to(kc.dtype)
-                vc[rows[:, None], pos] = v.to(vc.dtype)
-            kv_lengths = (idx + 1).to(torch.int32)
+        if len(kv_cache) == 4:
+            # int8 cache or pools (k_q, v_q, k_scale, v_scale): quantize
+            # the new rows on write, then dequantize the WHOLE cache and
+            # attend over it, the JAX package's numerics (a prefill too
+            # attends over the dequantized view of its own rows, never
+            # the fresh k/v)
+            kq, vq, ks, vs = kv_cache
+            knew, ksnew = quantize_kv(k)
+            vnew, vsnew = quantize_kv(v)
+            for store, new in ((kq, knew), (vq, vnew), (ks, ksnew),
+                               (vs, vsnew)):
+                _write(store, new)
+            k = dequantize_kv(kq, ks, cfg.dtype)
+            v = dequantize_kv(vq, vs, cfg.dtype)
         else:
-            ci = int(cache_index)
-            kc[:, ci:ci + s] = k.to(kc.dtype)
-            vc[:, ci:ci + s] = v.to(vc.dtype)
-            q_offset = ci
-        k, v = kc, vc
+            kc, vc = kv_cache
+            _write(kc, k)
+            _write(vc, v)
+            k, v = kc, vc
+        if per_slot:
+            kv_lengths = (cache_index.to(x.device, torch.long)
+                          + 1).to(torch.int32)
+        else:
+            q_offset = int(cache_index)
 
     if cfg.attn_mask_type == "padding" and padding_mask is None:
         raise ValueError(

@@ -4,6 +4,8 @@
     python -m megatron_tpu_torch.tools.profile_serving --kv_paging
     python -m megatron_tpu_torch.tools.profile_serving --drafter model \\
         --draft_layers 4
+    python -m megatron_tpu_torch.tools.profile_serving --kv_cache_int8 \\
+        [--kv_paging]
 
 Builds the engine as the server does (Llama-2-7B at full width and
 depth, random init, bf16, 8 slots x 2048 positions) four times in one
@@ -16,6 +18,11 @@ pattern so the n-gram lookup has something to propose), warms up, then
 times --ticks decode ticks with all 8 slots active under torch.profiler.
 The dense engine also times one admission (prefill + first token) of a
 1500-token prompt into the 1536 bucket.
+
+With --kv_cache_int8 the four engines are the plain tick with bf16
+caches and with int8 caches (ops/kv_quant.py: quantize on write,
+dequantize the whole cache every layer), each eager and by graph; no
+speculative tick is run then.
 
 With --kv_paging it builds the paged engine instead (16-token pages,
 32-token prefill chunks, the default pool), fills the 8 slots through
@@ -31,13 +38,15 @@ overlap), the kernels the device ran and the launch calls the host made
 kernels' launches a tick by query length (Sq 1, Sq k + 1), for
 speculative ticks the tokens emitted a tick and a slot-tick, and the
 kernels with the most device time. The graph engines also print their
-capture time. Every line carries the card's name and power limit. CUDA
-only.
+capture time, and every engine's line its cache bytes and the peak
+memory allocated since the engine was built. Every line carries the
+card's name and power limit. CUDA only.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -119,6 +128,50 @@ def _prompts(np, rng, cfg, lens, repeat):
     return out
 
 
+#: the prompt lengths of the 8 slots whose decode ticks are timed
+TICK_LENS = (5, 100, 300, 500, 700, 1000, 1200, 1500)
+
+
+def filled_engine(np, cfg, params, rng, *, paged, speculative=None,
+                  graph=True, int8=False):
+    """An 8-slot x 2048 engine as the server builds it (paged: 16-token
+    pages, 32-token prefill chunks, the default pool) given one greedy
+    request per TICK_LENS prompt, stepped until all 8 decode (the dense
+    engine admits them in one step, the paged one through ~170 chunked
+    prefill ticks), then 5 warm decode ticks. max_new_tokens leaves
+    room for those and for the timed windows."""
+    from megatron_tpu_torch.inference.engine import InferenceEngine, Request
+    from megatron_tpu_torch.inference.paging import PagedInferenceEngine
+    from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
+
+    kw = dict(num_slots=8, max_seq_len=2048, metrics=MetricsRegistry(),
+              speculative=speculative, cuda_graph=graph, kv_cache_int8=int8)
+    eng = (PagedInferenceEngine(cfg, params, page_size=16, prefill_chunk=32,
+                                **kw)
+           if paged else InferenceEngine(cfg, params, **kw))
+    k1 = 1 + (speculative.k if speculative else 0)
+    for prompt in _prompts(np, rng, cfg, TICK_LENS, speculative is not None):
+        eng.submit(Request(prompt=prompt,
+                           max_new_tokens=2048 - k1 - len(prompt)))
+    while len(eng._decode_rows()) < len(TICK_LENS):
+        eng.step()
+    for _ in range(5):
+        eng.step()
+    return eng
+
+
+def decode_ticks(eng, n, paged):
+    """_window's fn for n decode ticks of a filled_engine (the paged
+    engine allocates each tick's pages first, as step() does)."""
+    def ticks():
+        for _ in range(n):
+            if paged:
+                eng._ensure_decode_pages()
+            eng._decode_tick()
+        return n
+    return ticks
+
+
 def main(argv=None) -> int:
     import numpy as np
     import torch
@@ -134,6 +187,9 @@ def main(argv=None) -> int:
     p.add_argument("--draft_layers", type=int, default=4,
                    help="the model drafter's depth: the target's first N "
                         "layers")
+    p.add_argument("--kv_cache_int8", action="store_true",
+                   help="profile the plain tick with bf16 and with int8 "
+                        "caches instead of the plain and speculative tick")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_serving: needs a CUDA device", file=sys.stderr)
@@ -152,19 +208,36 @@ def main(argv=None) -> int:
          str(args.spec_k), "--serve_draft_layers", str(args.draft_layers)]),
         cfg, params)
     run = _profile_paged if args.kv_paging else _profile_dense
-    for speculative in (None, spec):
+    if args.kv_cache_int8:
+        engines = [(None, int8) for int8 in (False, True)]
+    else:
+        engines = [(speculative, False) for speculative in (None, spec)]
+    for speculative, int8 in engines:
         for graph in (False, True):
-            run(torch, np, args, card, cfg, params, speculative, graph)
+            # the last engine's graph holds a reference cycle through its
+            # step body: collect it, so each peak is one engine's
+            gc.collect()
             torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            run(torch, np, args, card, cfg, params, speculative, graph, int8)
     return 0
 
 
-def _tag(speculative, graph, args) -> dict:
+def _tag(eng, speculative, graph, args) -> dict:
     kind = "plain" if speculative is None else (
         f"spec_{speculative.drafter}_k{speculative.k}"
         + (f"_{args.draft_layers}layers" if speculative.drafter == "model"
            else ""))
-    return {"tick": kind, "mode": "graph" if graph else "eager"}
+    return {"tick": kind, "mode": "graph" if graph else "eager",
+            "kv": "int8" if eng.kv_cache_int8 else "bf16",
+            "cache_bytes": sum(c.nbytes for c in eng.caches),
+            "capture_s": eng.capture_seconds}
+
+
+def _memory(torch) -> dict:
+    """Peak device memory since the engine was built (reset before)."""
+    return {"max_memory_allocated_gib":
+            torch.cuda.max_memory_allocated() / 2**30}
 
 
 def _spec_extra(eng, s0, speculative) -> dict:
@@ -180,94 +253,64 @@ def _spec_extra(eng, s0, speculative) -> dict:
                      / max(d["spec_proposed"], 1)}}
 
 
-def _profile_dense(torch, np, args, card, cfg, params, speculative, graph):
-    from megatron_tpu_torch.inference.engine import InferenceEngine, Request
-    from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
+def _profile_dense(torch, np, args, card, cfg, params, speculative, graph,
+                   int8):
+    from megatron_tpu_torch.inference.engine import Request
 
     rng = np.random.default_rng(args.seed)
-    lens = (5, 100, 300, 500, 700, 1000, 1200, 1500)
-    eng = InferenceEngine(cfg, params, num_slots=8, max_seq_len=2048,
-                          metrics=MetricsRegistry(), speculative=speculative,
-                          cuda_graph=graph)
-    tag = _tag(speculative, graph, args)
-    k1 = 1 + (speculative.k if speculative else 0)
-    for prompt in _prompts(np, rng, cfg, lens, speculative is not None):
-        eng.submit(Request(prompt=prompt,
-                           max_new_tokens=2048 - k1 - len(prompt)))
-    eng.step()                         # admits all 8, one decode tick
-    for _ in range(5):                 # warm decode ticks
-        eng.step()
+    eng = filled_engine(np, cfg, params, rng, paged=False,
+                        speculative=speculative, graph=graph, int8=int8)
+    tag = _tag(eng, speculative, graph, args)
     s0 = dict(eng.stats)
+    ticks = decode_ticks(eng, args.ticks, paged=False)
 
-    def ticks():
-        for _ in range(args.ticks):
-            eng._decode_tick()
-        return args.ticks
-
-    tag["capture_s"] = eng.capture_seconds
-    name = f"decode_ticks_8_slots_{tag['tick']}_{tag['mode']}"
+    name = f"decode_ticks_8_slots_{tag['tick']}_{tag['kv']}_{tag['mode']}"
     _window(torch, name, ticks, card,
-            extra=lambda: {**tag, **_spec_extra(eng, s0, speculative)})
+            extra=lambda: {**tag, **_spec_extra(eng, s0, speculative),
+                           **_memory(torch)})
     if speculative is None and graph:
         eng.run_until_idle()
 
         def prefill():
             eng.submit(Request(prompt=rng.integers(
-                0, cfg.vocab_size - 1, size=lens[-1]).astype(np.int32),
+                0, cfg.vocab_size - 1, size=TICK_LENS[-1]).astype(np.int32),
                 max_new_tokens=1))
             return eng._admit()
 
         prefill()                      # warm this bucket once
-        _window(torch, f"prefill_bucket_{eng._bucket(lens[-1])}", prefill,
-                card)
+        _window(torch, f"prefill_bucket_{eng._bucket(TICK_LENS[-1])}_"
+                f"{tag['kv']}",
+                prefill, card, extra=lambda: {"kv": tag["kv"]})
     eng.stop()
 
 
-def _profile_paged(torch, np, args, card, cfg, params, speculative, graph):
+def _profile_paged(torch, np, args, card, cfg, params, speculative, graph,
+                   int8):
     from megatron_tpu_torch.inference.engine import Request
-    from megatron_tpu_torch.inference.paging import PagedInferenceEngine
-    from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
 
     rng = np.random.default_rng(args.seed)
-    lens = (5, 100, 300, 500, 700, 1000, 1200, 1500)
-    eng = PagedInferenceEngine(cfg, params, num_slots=8, max_seq_len=2048,
-                               page_size=16, prefill_chunk=32,
-                               metrics=MetricsRegistry(),
-                               speculative=speculative, cuda_graph=graph)
-    tag = _tag(speculative, graph, args)
-    k1 = 1 + (speculative.k if speculative else 0)
-    # room for the ~170 ticks of chunked prefill that fill the slots (up
-    # to k + 1 tokens a tick each), the warm ticks and both runs of the
-    # decode window
-    for prompt in _prompts(np, rng, cfg, lens, speculative is not None):
-        eng.submit(Request(prompt=prompt,
-                           max_new_tokens=2048 - k1 - len(prompt)))
-    while len(eng._decode_rows()) < len(lens):
-        eng.step()
-    for _ in range(5):                 # warm decode ticks
-        eng.step()
+    eng = filled_engine(np, cfg, params, rng, paged=True,
+                        speculative=speculative, graph=graph, int8=int8)
+    tag = _tag(eng, speculative, graph, args)
     s0 = dict(eng.stats)
+    ticks = decode_ticks(eng, args.ticks, paged=True)
 
-    def ticks():
-        for _ in range(args.ticks):
-            eng._ensure_decode_pages()
-            eng._decode_tick()
-        return args.ticks
-
-    tag["capture_s"] = eng.capture_seconds
-    name = f"paged_decode_ticks_8_slots_{tag['tick']}_{tag['mode']}"
+    name = (f"paged_decode_ticks_8_slots_{tag['tick']}_{tag['kv']}_"
+            f"{tag['mode']}")
     _window(torch, name, ticks, card,
-            extra=lambda: {**tag, **_spec_extra(eng, s0, speculative)})
+            extra=lambda: {**tag, **_spec_extra(eng, s0, speculative),
+                           **_memory(torch)})
     if speculative is None and graph:
         # free one slot for a fresh long prompt and time its chunks
         eng._retire(eng._decode_rows()[-1])
         eng.submit(Request(prompt=rng.integers(
-            0, cfg.vocab_size - 1, size=lens[-1]).astype(np.int32),
+            0, cfg.vocab_size - 1, size=TICK_LENS[-1]).astype(np.int32),
             max_new_tokens=1))
         eng._admit()
         eng._prefill_tick()            # warm one chunk
-        _window(torch, f"paged_prefill_chunk_{eng.prefill_chunk}",
-                eng._prefill_tick, card)
+        _window(torch, f"paged_prefill_chunk_{eng.prefill_chunk}_"
+                f"{tag['kv']}", eng._prefill_tick, card,
+                extra=lambda: {"kv": tag["kv"]})
     eng.stop()
 
 

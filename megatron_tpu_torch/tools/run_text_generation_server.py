@@ -5,11 +5,18 @@
         --serve_num_slots 8 --serve_max_seq_len 2048 --port 5000 \\
         [--serve_kv_paging --serve_page_size 16 --serve_prefill_chunk 32] \
         [--serve_speculative {ngram,model} --serve_spec_k 4 \
-         --serve_draft_layers N --serve_draft_checkpoint DIR]
+         --serve_draft_layers N --serve_draft_checkpoint DIR] \
+        [--kv_cache_int8] [--serve_max_queue N] \
+        [--serve_request_timeout S] [--serve_drain_timeout S] \
+        [--serve_warmup]
 
 The flag names are the JAX CLI's (tools/run_text_generation_server.py)
 for what the port supports, plus --device (default cuda). Weights are
-random from --seed, or loaded with --load. With --serve_speculative
+random from --seed, or loaded with --load, which is also the default
+directory of POST /admin/reload. --serve_num_slots 0 serves one request
+at a time through the one-shot loop. SIGTERM or SIGINT drains (503 to
+new requests, the requests in flight finish within
+--serve_drain_timeout) and exits; a second signal exits at once. With --serve_speculative
 model the draft is the target's architecture cut to its first
 --serve_draft_layers layers: loaded from --serve_draft_checkpoint (its
 first N layers when the checkpoint is deeper), or else the target's own
@@ -40,7 +47,9 @@ def parse_args(argv=None):
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=5000)
     p.add_argument("--serve_num_slots", type=int, default=8,
-                   help="KV-cache slots of the continuous-batching engine")
+                   help="KV-cache slots of the continuous-batching engine; "
+                        "0 serves one request at a time through the "
+                        "one-shot loop")
     p.add_argument("--serve_max_seq_len", type=int, default=None,
                    help="per-slot KV-cache length (default "
                         "min(seq_length, 2048))")
@@ -83,6 +92,26 @@ def parse_args(argv=None):
                    help="checkpoint directory for the draft's weights "
                         "(its first --serve_draft_layers layers); without "
                         "it the draft serves the target's first layers")
+    p.add_argument("--kv_cache_int8", action="store_true",
+                   help="int8 KV cache (or page pools) with fp32 scales: "
+                        "half the cache bytes of bf16, so twice the tokens "
+                        "per card")
+    p.add_argument("--serve_max_queue", type=int, default=None,
+                   help="bound the engine's admission queue: requests "
+                        "beyond this many waiters get HTTP 503 + "
+                        "Retry-After (default: unbounded)")
+    p.add_argument("--serve_request_timeout", type=float, default=None,
+                   help="per-request deadline in seconds (engine path): a "
+                        "queued or mid-decode request past it fails with "
+                        "HTTP 504; a request's deadline_s may shorten it "
+                        "but never extend it (default: no deadline)")
+    p.add_argument("--serve_drain_timeout", type=float, default=30.0,
+                   help="graceful-drain budget on SIGTERM/SIGINT: stop "
+                        "admitting, wait up to this many seconds for the "
+                        "requests in flight, then exit")
+    p.add_argument("--serve_warmup", action="store_true",
+                   help="run one throwaway request (kernel builds, first "
+                        "prefill and decode) before /readyz turns 200")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions")
@@ -172,30 +201,39 @@ def main(argv=None, **server_kwargs):
     """server_kwargs go to inference.server.run_server (in-process
     callers pass `ready` and `service_out`)."""
     from megatron_tpu_torch.inference.server import run_server
+    from megatron_tpu_torch.ops.kv_quant import kv_head_bytes
     from megatron_tpu_torch.tokenizer import build_tokenizer
 
     args = parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, params, _ = load_model(args)
+    if args.serve_num_slots < 0:
+        raise SystemExit("--serve_num_slots must be >= 0 (0: one-shot)")
+    if args.serve_speculative and not args.serve_num_slots:
+        raise SystemExit("--serve_speculative runs inside the engine: "
+                         "--serve_num_slots must be > 0")
+    cfg, params, iteration = load_model(args)
     speculative = load_spec(args, cfg, params)
     tokenizer = build_tokenizer(args.tokenizer_type,
                                 vocab_size=cfg.vocab_size)
     max_seq_len = args.serve_max_seq_len or min(cfg.seq_length, 2048)
-    row_bytes = (2 * cfg.num_layers * cfg.n_kv_heads * cfg.head_dim
-                 * torch.finfo(cfg.dtype).bits / 8)
-    if args.serve_kv_paging:
+    # bytes a cached position takes over all layers, K and V: int8 values
+    # plus an fp32 scale per head, or the model dtype
+    per_head = kv_head_bytes(cfg.head_dim, cfg.dtype, args.kv_cache_int8)
+    row_bytes = 2 * cfg.num_layers * cfg.n_kv_heads * per_head
+    kind = "int8 + fp32 scales" if args.kv_cache_int8 else str(cfg.dtype)
+    if args.serve_kv_paging and args.serve_num_slots:
         ps = args.serve_page_size
         pages = (args.serve_num_pages
                  or args.serve_num_slots * (-(-max_seq_len // ps)) + 1)
         print(f"paged KV pool: {pages} pages x {ps} tokens = "
-              f"{row_bytes * pages * ps / 2**30:.2f} GiB ({cfg.dtype})",
+              f"{row_bytes * pages * ps / 2**30:.2f} GiB ({kind})",
               flush=True)
-    else:
+    elif args.serve_num_slots:
         print(f"persistent KV cache: {args.serve_num_slots} slots x "
               f"{max_seq_len} tokens = "
               f"{row_bytes * args.serve_num_slots * max_seq_len / 2**30:.2f}"
-              " GiB", flush=True)
+              f" GiB ({kind})", flush=True)
     run_server(cfg, params, tokenizer, host=args.host, port=args.port,
                engine_slots=args.serve_num_slots,
                engine_max_seq_len=max_seq_len, device=args.device,
@@ -203,7 +241,12 @@ def main(argv=None, **server_kwargs):
                page_size=args.serve_page_size,
                prefill_chunk=args.serve_prefill_chunk,
                num_pages=args.serve_num_pages,
-               speculative=speculative, **server_kwargs)
+               speculative=speculative, kv_cache_int8=args.kv_cache_int8,
+               engine_max_queue=args.serve_max_queue,
+               request_timeout=args.serve_request_timeout,
+               drain_timeout=args.serve_drain_timeout,
+               warmup=args.serve_warmup, reload_dir=args.load,
+               weights_version=iteration, **server_kwargs)
 
 
 if __name__ == "__main__":

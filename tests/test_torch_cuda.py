@@ -32,6 +32,12 @@ at a bf16 near-tie (teacher-forced, >= 99% of positions); a failed step
 recaptures; a capture that fails raises; the decode kernel under capture
 refuses a stream it never ran on and then replays bit for bit; and a
 verify past the kernel's 64 query rows fails at engine construction.
+
+Serving control under the graph: a weight reload copies new weights into
+the captured tensors between replays (no recapture) and the engine then
+serves what an engine built on the new weights serves; an int8 KV tick
+replays the eager int8 tick bit for bit; a deadline that expires in
+mid-decode clears its slot so the next replay does not decode the row.
 """
 
 import dataclasses
@@ -780,3 +786,83 @@ def test_engine_refuses_a_verify_past_the_kernel_rows(gen):
                        params_dtype="bfloat16", attention_impl="pallas")
     with pytest.raises(ValueError, match="query rows per kv head"):
         _engine(cfg, init_params(cfg, 0), speculative=SpecConfig(k=4))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_reload_under_replay_serves_the_new_weights(gen, paged):
+    """update_params between replays: the captured graph reads the new
+    weights (copied into its tensors), with no capture beyond the
+    warm-up one, and the tokens equal an engine built on them."""
+    cfg, params = _serving_model()
+    new = init_params(cfg, 1)
+    eng = _engine(cfg, params, paged)
+    graph = eng._step
+    before = _serve(eng, _PROMPTS)
+    applied = eng.update_params(new, version=7)
+    after = _serve(eng, _PROMPTS)
+    fresh = _serve(_engine(cfg, init_params(cfg, 1), paged), _PROMPTS)
+    assert applied.is_set() and eng.params_version == 7
+    assert eng._step is graph
+    assert eng.stats["decode_recompiles"] == 0
+    assert eng.stats["weight_reloads"] == 1
+    got = [(r.generated, r.logprobs) for r in after]
+    assert got == [(r.generated, r.logprobs) for r in fresh]
+    assert got != [(r.generated, r.logprobs) for r in before]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_int8_graph_tick_matches_the_eager_tick(gen, paged):
+    """int8 caches (quantize on write, dequantize the whole cache for the
+    decode kernel) under the graph: tokens and logprobs equal the eager
+    engine's bit for bit, and the decode kernel runs once per layer a
+    tick."""
+    cfg, params = _serving_model()
+    runs = []
+    for graph in (False, True):
+        eng = _engine(cfg, params, paged, cuda_graph=graph,
+                      kv_cache_int8=True)
+        assert eng.caches[0].dtype == torch.int8
+        assert eng.caches[2].dtype == torch.float32
+        c0 = ft.launch_counts()
+        reqs = _serve(eng, _PROMPTS) + _serve(eng, _PROMPTS[:2],
+                                              temperature=0.8, seed=3)
+        name = "paged_flash_decode" if paged else "flash_decode"
+        assert (ft.launch_counts()[name] - c0[name]
+                == 2 * eng.stats["ticks"])
+        assert eng.stats["decode_recompiles"] == 0
+        runs.append([(r.generated, r.logprobs) for r in reqs])
+    assert runs[0] == runs[1]
+
+
+def test_deadline_clears_a_slot_between_replays(gen):
+    """A request whose deadline expires in mid-decode fails with
+    timed_out, its slot's carry row goes inactive, so the next replays
+    leave it alone, and the other requests get the tokens they get
+    without it."""
+    import time
+
+    import numpy as np
+
+    from megatron_tpu_torch.inference.engine import Request
+
+    cfg, params = _serving_model()
+    eng = _engine(cfg, params)
+    others = [eng.submit(Request(prompt=np.asarray(p, np.int32),
+                                 max_new_tokens=20)) for p in _PROMPTS[:2]]
+    victim = eng.submit(Request(prompt=np.asarray(_PROMPTS[2], np.int32),
+                                max_new_tokens=100, deadline_s=600.0))
+    for _ in range(4):
+        eng.step()
+    i = next(j for j, r in enumerate(eng.slots) if r is victim)
+    victim._deadline = time.monotonic() - 1.0
+    eng.step()
+    assert victim.timed_out and "mid-decode" in victim.error
+    assert eng.slots[i] is None and eng.stats["timeouts"] == 1
+    held = int(eng._carry["lengths"][i])
+    assert int(eng._carry["active"][i]) == 0
+    eng.step()
+    assert int(eng._carry["lengths"][i]) == held
+    eng.run_until_idle()
+    alone = _serve(_engine(cfg, params), _PROMPTS[:2], n=20)
+    assert [r.generated for r in others] == [r.generated for r in alone]
+    assert eng.stats["decode_recompiles"] == 0
