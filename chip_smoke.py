@@ -14,9 +14,11 @@ still run, so one call shows every failure):
               to 2047 for serving, 4096 for training; flash_fwd also at
               S 1, 127, 129 and 1000 around its 128-row tiles, a ring
               stripe with Sq != Skv and delta != 0, bidirectional, D 64,
-              GQA 4 and q/k/v as views of a fused [B, S, 3, H, D] buffer:
-              FWD_CASES) and hold it against its plain PyTorch version on
-              the same bf16 inputs, computed in fp32. Tolerance:
+              GQA 4, q/k/v as views of a fused [B, S, 3, H, D] buffer,
+              and phase 5b's Falcon-7B (Hq 71 over Hkv 1, D 64, S 2048)
+              and GPT-2 1.3B (H 32, D 64, S 1024): FWD_CASES) and hold
+              it against its plain PyTorch version on the same bf16
+              inputs, computed in fp32. Tolerance:
               |kernel - plain| <= 2e-2 + 2e-2 * |plain| elementwise (bf16
               inputs and outputs; the kernels also round P to bf16 for the
               tensor cores). Time kernel, plain version and one PyTorch
@@ -31,8 +33,12 @@ still run, so one call shows every failure):
               replayed (graph_ms: without the host's launch path, which
               sets ms where the kernel is short). The decode lines (8 slots x 2048
               positions: Sq 1 with Hq/Hkv 32/32 and 32/8, Sq 5 with 32/8
-              and 32/32) also print the split-K launch: kv tiles per
-              split, splits and grid.
+              and 32/32, and past one block's 64 query rows per kv head:
+              Falcon-7B's Sq 1 and Sq 5 at 71/1 and D 64, i.e. 71 and 355
+              rows, and Sq 9 at 64/8, 72 rows; and GPT-2 1.3B's Sq 1 at
+              32/32, D 64, 1024 positions) also print the split-K
+              launch: kv tiles per split, splits and grid (kv heads x row
+              tiles on its x axis).
   2c. paged    the paged decode kernel (paged_flash_decode) against its
               plain version (gather + the fp32 decode reference), same
               tolerance as phase 2: B 8, 128 table entries of ps 16 (2048
@@ -40,7 +46,8 @@ still run, so one call shows every failure):
               pages a seeded permutation of the pool with two rows sharing
               their first 32 pages; Sq 5 at H 32 (the paged verify form
               phase 3c launches); Hq 32 / Hkv 8, Sq 5 with window 256
-              and scratch entries behind the window; ps 8 and ps 64. Time
+              and scratch entries behind the window; ps 8 and ps 64; the
+              three row-tile cases of phase 2 at ps 16. Time
               the kernel, the plain version, SDPA on the gathered dense
               view (the library yardstick) and the dense flash_decode
               kernel on that view (what paging costs), and compute each
@@ -196,9 +203,32 @@ still run, so one call shows every failure):
               native_to_hf of C must be an identity. Prints the losses,
               step time, checkpoint bytes, save stall / commit / load /
               crc32 times and the launch counts.
+  5b. families Falcon-7B at full width and depth (6.92 B parameters,
+              71 query heads over 1 kv head, D 64, parallel attention,
+              tied 65024-row vocab; random init from SEED, bf16) through
+              the HTTP server on the dense and the paged engine: the
+              phase-3 prompts x 32 greedy tokens and a repeat, every
+              answer prompt + 32 tokens, launches flash_fwd 32 x prefills
+              and flash_decode 32 x ticks (paged: paged_flash_decode 32 x
+              ticks, the rest 0), engine_decode_recompiles_total 0, then
+              phase 3's teacher-forced gate on every sequence and each
+              engine's graph tick over 8 filled slots; Falcon-7B width
+              cut to 4 layers trained 4 steps at S 2048 through
+              pretrain_gpt under selective recompute and again under
+              --recompute_granularity full --recompute_method block
+              --recompute_num_layers 2 (peak memory of both printed),
+              each with finite losses falling by FAMILY_LOSS_DROP_GATE
+              and exact launch counts (block:2 recomputes the first two
+              layers' forwards); phase 4b's kernel step against a dense
+              step at Falcon width x 2 layers, S 2048, the kernel step
+              through the chunked cross-entropy (512-token chunks of the
+              tied LM head). GPT-2 1.3B (absolute positions over 1024,
+              biases, tied 50304-row vocab) at full size: served by the
+              dense engine (prompts of 5, 100, 500 and 900 tokens, the
+              same gates) and trained 2 steps at S 1024.
   6. report   one JSON line listing each kernel with its launches on its
               path (serving, paged_serving, speculative_serving,
-              serving_control, training and finetune), then
+              serving_control, training, finetune and families), then
               the card's name and power limit, then {"ok": true, "device":
               {...}} as the last line.
 
@@ -220,6 +250,7 @@ import traceback
 import urllib.error
 import urllib.request
 import warnings
+from typing import Optional
 
 ATOL = 2e-2
 RTOL = 2e-2
@@ -482,16 +513,21 @@ def rates(flops, ms, bound_ms) -> dict:
 # phase 2: the forward's shapes. The first five are the original ones (S
 # 2047, the serving prefill's largest bucket, is the reported case, S 4096
 # the training path's sequence); then the 128-row tile's edges, a ring stripe (Sq !=
-# Skv, delta != 0), bidirectional, D 64, GQA, a fused QKV buffer and
+# Skv, delta != 0), bidirectional, D 64, GQA, a fused QKV buffer,
 # phase 3d's scored batch (the four phase-3 prompts padded to 1500, less
-# the last position: B 4, S 1499, which ends inside a 128-row tile)
+# the last position: B 4, S 1499, which ends inside a 128-row tile), and
+# phase 5b's training shapes: Falcon-7B's 71 query heads over one kv head
+# at D 64, S 2048, and GPT-2 1.3B's 32 heads at D 64, S 1024
+FALCON_ATTN = dict(hq=71, hkv=1, D=64)
+GPT2_ATTN = dict(hq=32, hkv=32, D=64)
 FWD_CASES = [attn_case(64), attn_case(512), attn_case(2047),
              attn_case(2047, hkv=8, window=256), attn_case(4096),
              attn_case(1), attn_case(127), attn_case(129), attn_case(1000),
              attn_case(Sq=1024, Skv=4096, delta=3072),
              attn_case(2047, causal=False), attn_case(2047, D=64),
              attn_case(2047, hkv=8), attn_case(2047, fused=True),
-             attn_case(1499, B=4)]
+             attn_case(1499, B=4), attn_case(2048, **FALCON_ATTN),
+             attn_case(1024, **GPT2_ATTN)]
 
 
 def check_flash_fwd(torch, F, ft, card):
@@ -554,22 +590,30 @@ def decode_split(torch, ft, S, B, hkv, rows) -> dict:
 # ragged prefixes. Dense: the serving path's Sq 1, G 1 (the reported
 # case), GQA G 4 and the Sq 5 verify form; paged: the serving path's ps 16
 # (reported) and its Sq 5 verify form, GQA with Sq 5 and a window, page
-# sizes 8 and 64
+# sizes 8 and 64. Both also past one block's 64 query rows per kv head:
+# Falcon-7B's Sq 1 (71 rows) and Sq 5 verify (355), both at D 64 over one
+# kv head, and G 8 at Sq 9 (72 rows: a k-8 verify on Llama-2-70B's heads);
+# dense also GPT-2 1.3B's tick (32 heads at D 64 over its 1024 positions)
 DECODE_B, DECODE_S, DECODE_D = 8, 2048, 128
 DECODE_LENS = [1, 63, 64, 2047, 2048, 500, 1000, 1500]
+ROW_TILE_CASES = [dict(sq=1, hq=71, hkv=1, d=64), dict(sq=5, hq=71, hkv=1,
+                                                     d=64),
+                  dict(sq=9, hq=64, hkv=8)]
 DECODE_CASES = [dict(sq=1, hq=32, hkv=32), dict(sq=1, hq=32, hkv=8),
-                dict(sq=5, hq=32, hkv=8), dict(sq=5, hq=32, hkv=32)]
+                dict(sq=5, hq=32, hkv=8), dict(sq=5, hq=32, hkv=32),
+                *ROW_TILE_CASES, dict(sq=1, hq=32, hkv=32, d=64, s=1024)]
 PAGED_CASES = [dict(ps=16, sq=1, hq=32, hkv=32, window=None),
                dict(ps=16, sq=5, hq=32, hkv=32, window=None),
                dict(ps=16, sq=5, hq=32, hkv=8, window=256),
                dict(ps=8, sq=1, hq=32, hkv=32, window=None),
-               dict(ps=64, sq=1, hq=32, hkv=32, window=None)]
+               dict(ps=64, sq=1, hq=32, hkv=32, window=None),
+               *(dict(c, ps=16, window=None) for c in ROW_TILE_CASES)]
 
 
 def decode_case(torch, gen, c):
     """q [B, Sq, Hq, D], the cache k/v [B, S, Hkv, D] and kv_lengths of
     one DECODE_CASES entry."""
-    B, S, D = DECODE_B, DECODE_S, DECODE_D
+    B, S, D = DECODE_B, c.get("s", DECODE_S), c.get("d", DECODE_D)
     sq, hq, hkv = c["sq"], c["hq"], c["hkv"]
     lens_list = [min(n, S - sq + 1) for n in DECODE_LENS]
     lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
@@ -583,13 +627,14 @@ def decode_case(torch, gen, c):
 
 
 def check_flash_decode(torch, F, ft, card):
-    """DECODE_CASES against the plain version; the G = 1, Sq = 1 case is
-    the reported one."""
-    B, S, D = DECODE_B, DECODE_S, DECODE_D
+    """DECODE_CASES against the plain version; the first G = 1, Sq = 1
+    case is the reported one."""
+    B = DECODE_B
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     worst, report = 0.0, None
     for c in DECODE_CASES:
-        sq, hq, hkv = c["sq"], c["hq"], c["hkv"]
+        sq, hq, hkv, D = c["sq"], c["hq"], c["hkv"], c.get("d", DECODE_D)
+        S = c.get("s", DECODE_S)
         q, k, v, lens, lens_list = decode_case(torch, gen, c)
         o = ft.flash_decode(q, k, v, lens)
         torch.cuda.synchronize()
@@ -624,7 +669,7 @@ def check_flash_decode(torch, F, ft, card):
             raise AssertionError(f"flash_decode disagrees with its plain "
                                  f"version: {line}")
         worst = max(worst, err)
-        if sq == 1 and hq == hkv:
+        if report is None and sq == 1 and hq == hkv:
             report = line
     return dict(report, max_abs_err=worst)
 
@@ -666,12 +711,13 @@ def paged_case(torch, gen, B, S, ps, sq, hq, hkv, window, D=128):
 def check_paged_flash_decode(torch, F, ft, card):
     """PAGED_CASES against the plain version; the serving path's shape
     (ps 16, Sq 1, H 32) is the reported one."""
-    B, S, D = DECODE_B, DECODE_S, DECODE_D
+    B, S = DECODE_B, DECODE_S
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     worst, report = 0.0, None
     for c in PAGED_CASES:
         ps, sq, hq, hkv, W = (c[k] for k in ("ps", "sq", "hq", "hkv",
                                               "window"))
+        D = c.get("d", DECODE_D)
         q, kp, vp, table, lens, lens_list = paged_case(
             torch, gen, B, S, ps, sq, hq, hkv, W, D)
         fn = ft.paged_flash_decode if sq == 1 else ft.paged_flash_decode_mq
@@ -727,7 +773,7 @@ def check_paged_flash_decode(torch, F, ft, card):
             raise AssertionError(f"paged_flash_decode disagrees with its "
                                  f"plain version: {line}")
         worst = max(worst, err)
-        if ps == PAGE_SIZE and sq == 1:
+        if report is None and ps == PAGE_SIZE and sq == 1:
             report = line
         del q, kp, vp, table, lens, o, o_ref
         torch.cuda.empty_cache()
@@ -764,12 +810,15 @@ def compare_rel(got, want, m=None):
 
 # phase 2b: the backward's shapes. The first three are the original ones
 # (S 4096 the reported case); then S 1 and the 128-row kv tile's edges, a
-# ring stripe, bidirectional, D 64, GQA and a fused QKV buffer
+# ring stripe, bidirectional, D 64, GQA, a fused QKV buffer, and phase
+# 5b's training shapes (Falcon-7B: the dk/dv kernel sums 71 query heads
+# into one kv head; GPT-2 1.3B)
 BWD_CASES = [attn_case(4096), attn_case(4096, hkv=8, window=256),
              attn_case(1000), attn_case(1), attn_case(127), attn_case(129),
              attn_case(Sq=1024, Skv=4096, delta=3072),
              attn_case(2047, causal=False), attn_case(2047, D=64),
-             attn_case(2047, hkv=8), attn_case(2047, fused=True)]
+             attn_case(2047, hkv=8), attn_case(2047, fused=True),
+             attn_case(2048, **FALCON_ATTN), attn_case(1024, **GPT2_ATTN)]
 # the three original cases again, drawn from a second seed
 BWD_DRAW2_SEED = SEED + 13
 
@@ -951,6 +1000,62 @@ def _profiled_decode_launches(torch, ft, fn) -> dict:
             "device_kernels": seen}
 
 
+def _greedy_traffic(ft, base, eng, prompts):
+    """The phase-3 traffic on a running server: the prompts as concurrent
+    greedy requests of NEW_TOKENS tokens, then the second again, with
+    every decode count set to 0 just before (the main path's run). Each
+    answer must be its prompt + NEW_TOKENS tokens and the repeat the same
+    text. Returns the generated tokens per prompt, each request's wall,
+    the concurrent wall, the launches, prefills and decode ticks of the
+    run, and the warnings it raised."""
+    results = [None] * len(prompts)
+
+    def one(i):
+        t = time.monotonic()
+        results[i] = (*_put(base + "/api", {
+            "prompts": [" ".join(map(str, prompts[i]))],
+            "tokens_to_generate": NEW_TOKENS, "temperature": 0.0}),
+            time.monotonic() - t)
+
+    _zero_decode_counts(ft)
+    prefills0, ticks0 = eng.stats["admitted"], eng.stats["ticks"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t_conc = time.monotonic()
+        workers = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(900)
+        conc_s = time.monotonic() - t_conc
+        status, repeat = _put(base + "/api", {
+            "prompts": [" ".join(map(str, prompts[1]))],
+            "tokens_to_generate": NEW_TOKENS, "temperature": 0.0})
+    run = {"launches": _decode_counts(ft),
+           "prefills": eng.stats["admitted"] - prefills0,
+           "ticks": eng.stats["ticks"] - ticks0, "concurrent_wall_s": conc_s,
+           "walls": [res and res[2] for res in results], "caught": caught}
+    generated = []
+    for i, res in enumerate(results):
+        if res is None or res[0] != 200:
+            raise AssertionError(f"request {i} failed: {res}")
+        toks = [int(t) for t in res[1]["text"][0].split()]
+        if toks[:len(prompts[i])] != prompts[i] or \
+                len(toks) != len(prompts[i]) + NEW_TOKENS:
+            raise AssertionError(
+                f"request {i}: {len(toks)} tokens for a "
+                f"{len(prompts[i])}-token prompt + {NEW_TOKENS}")
+        generated.append(toks[len(prompts[i]):])
+    if status != 200 or repeat["text"][0] != results[1][1]["text"][0]:
+        raise AssertionError("repeated greedy request changed its text")
+    fallbacks = [str(w.message) for w in caught
+                 if "falling back" in str(w.message)]
+    if fallbacks:
+        raise AssertionError(f"dense fallback fired: {fallbacks}")
+    return dict(run, generated=generated)
+
+
 def serve(torch, ft, card):
     import dataclasses
 
@@ -989,53 +1094,11 @@ def serve(torch, ft, card):
         rng = np.random.default_rng(SEED)
         prompts = [rng.integers(0, cfg.vocab_size - 1, size=n).tolist()
                    for n in PROMPT_LENS]
-        results = [None] * len(prompts)
-
-        def one(i):
-            t = time.monotonic()
-            status, body = _put(base + "/api", {
-                "prompts": [" ".join(map(str, prompts[i]))],
-                "tokens_to_generate": NEW_TOKENS, "temperature": 0.0})
-            results[i] = (status, body, time.monotonic() - t)
-
         eng = service.engine
-        # the main path's run: every count starts at 0 here
-        _zero_decode_counts(ft)
-        prefills0, ticks0 = eng.stats["admitted"], eng.stats["ticks"]
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            t_conc = time.monotonic()
-            workers = [threading.Thread(target=one, args=(i,))
-                       for i in range(len(prompts))]
-            for w in workers:
-                w.start()
-            for w in workers:
-                w.join(900)
-            conc_s = time.monotonic() - t_conc
-            status, repeat = _put(base + "/api", {
-                "prompts": [" ".join(map(str, prompts[1]))],
-                "tokens_to_generate": NEW_TOKENS, "temperature": 0.0})
-        launches = _decode_counts(ft)
-        prefills = eng.stats["admitted"] - prefills0
-        ticks = eng.stats["ticks"] - ticks0
-
-        generated = []
-        for i, res in enumerate(results):
-            if res is None or res[0] != 200:
-                raise AssertionError(f"request {i} failed: {res}")
-            toks = [int(t) for t in res[1]["text"][0].split()]
-            if toks[:len(prompts[i])] != prompts[i] or \
-                    len(toks) != len(prompts[i]) + NEW_TOKENS:
-                raise AssertionError(
-                    f"request {i}: {len(toks)} tokens for a "
-                    f"{len(prompts[i])}-token prompt + {NEW_TOKENS}")
-            generated.append(toks[len(prompts[i]):])
-        if status != 200 or repeat["text"][0] != results[1][1]["text"][0]:
-            raise AssertionError("repeated greedy request changed its text")
-        fallbacks = [str(w.message) for w in caught
-                     if "falling back" in str(w.message)]
-        if fallbacks:
-            raise AssertionError(f"dense fallback fired: {fallbacks}")
+        run = _greedy_traffic(ft, base, eng, prompts)
+        launches, prefills, ticks = (run["launches"], run["prefills"],
+                                     run["ticks"])
+        generated = run["generated"]
         want = {"flash_fwd": NUM_LAYERS * prefills,
                 "flash_decode": NUM_LAYERS * ticks, "paged_flash_decode": 0}
         if launches != want or prefills != len(prompts) + 1:
@@ -1075,10 +1138,12 @@ def serve(torch, ft, card):
             "layers": NUM_LAYERS, "slots": 8, "max_seq_len": 2048,
             "param_init_s": init_s,
             "requests": [{"prompt_tokens": len(p), "new_tokens": len(g),
-                          "wall_s": res[2]}
-                         for p, g, res in zip(prompts, generated, results)],
-            "concurrent_wall_s": conc_s,
-            "tokens_per_s": len(prompts) * NEW_TOKENS / conc_s,
+                          "wall_s": w}
+                         for p, g, w in zip(prompts, generated,
+                                            run["walls"])],
+            "concurrent_wall_s": run["concurrent_wall_s"],
+            "tokens_per_s": (len(prompts) * NEW_TOKENS
+                             / run["concurrent_wall_s"]),
             "ttft_mean_s": ttft, "per_token_mean_s": tpot,
             "prefills": prefills, "decode_ticks": ticks,
             "launches": launches, "cuda_graph_capture_s": capture_s,
@@ -1938,10 +2003,10 @@ def _control_lifecycle(torch, ft, cfg, params, tokenizer, prompts,
     return rec
 
 
-def _tick_times(torch, cfg, params, paged, int8, card):
+def _tick_times(torch, cfg, params, paged, int8, card, label="control"):
     """One engine (graph) filled as profile_serving fills it (8 slots of
-    5 .. 1500-token prompts), TICK_COUNT decode ticks timed as it times
-    them: (record)."""
+    5 .. 1500-token prompts, scaled to an absolute model's shorter
+    slots), TICK_COUNT decode ticks timed as it times them: (record)."""
     import numpy as np
 
     from megatron_tpu_torch.tools.profile_serving import (
@@ -1955,7 +2020,7 @@ def _tick_times(torch, cfg, params, paged, int8, card):
     ticks = decode_ticks(eng, TICK_COUNT, paged)
     kv = "int8" if int8 else "bf16"
     wall_ms, kernels = _window(
-        torch, f"control_{'paged' if paged else 'dense'}_tick_{kv}", ticks,
+        torch, f"{label}_{'paged' if paged else 'dense'}_tick_{kv}", ticks,
         card)
     rec = {"engine": "paged" if paged else "dense", "kv": kv,
            "cache_bytes": sum(c.nbytes for c in eng.caches),
@@ -2258,15 +2323,19 @@ def first_loss_expected(cfg) -> float:
 def expected_train_launches(n_micro: int, layers: int = TRAIN_LAYERS,
                             steps: int = TRAIN_ITERS,
                             eval_batches: int = (TRAIN_ITERS // EVAL_INTERVAL
-                                                 * EVAL_ITERS)) -> dict:
+                                                 * EVAL_ITERS),
+                            recomputed: Optional[int] = None) -> dict:
     """Launch counts of a training run. Every layer of every microbatch
     of every step runs one dq and one dk/dv launch in its backward.
-    Under selective recompute each layer's core attention is
-    checkpointed, so its forward runs twice per microbatch (once in the
-    forward pass, once recomputed in the backward); each evaluation
-    batch runs one more forward per layer."""
+    A layer whose attention is recomputed (every layer under selective
+    recompute, whose core attention is checkpointed; the first N under
+    block:N) runs its forward twice per microbatch (once in the forward
+    pass, once recomputed in the backward); each evaluation batch runs
+    one more forward per layer."""
     bwd = layers * n_micro * steps
-    return {"flash_fwd": 2 * bwd + layers * eval_batches,
+    recomputed = layers if recomputed is None else recomputed
+    return {"flash_fwd": bwd + recomputed * n_micro * steps
+            + layers * eval_batches,
             "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd, "flash_decode": 0,
             "paged_flash_decode": 0}
 
@@ -2368,10 +2437,12 @@ def train(torch, np, ft, card):
     return launches
 
 
-def step_vs_dense(torch, np, ft, card):
+def step_vs_dense(torch, np, ft, card, model="llama2-7B", seq=TRAIN_SEQ,
+                  ce_chunk=0):
     """One forward + backward of the same 2-layer model on the same batch
     through the kernels (attention_impl="pallas") and through the dense
-    attention with autograd ("xla")."""
+    attention with autograd ("xla"). ce_chunk: the kernel run's chunked
+    cross-entropy (the dense run keeps the unchunked one)."""
     import dataclasses
 
     from megatron_tpu_torch.models import presets
@@ -2381,20 +2452,23 @@ def step_vs_dense(torch, np, ft, card):
         global_grad_norm, leaf_paths,
     )
 
-    cfg = dataclasses.replace(presets.llama2("7B"), num_layers=2)
+    cfg = dataclasses.replace(presets.from_model_name(model), num_layers=2,
+                              seq_length=seq)
     params = init_params(cfg, SEED, device="cuda")
     for _, p in leaf_paths(params):
         p.requires_grad_(True)
     rng = np.random.default_rng(SEED + 4)
-    text = torch.from_numpy(zipf_tokens(np, rng, TRAIN_SEQ + 1)
+    text = torch.from_numpy(zipf_tokens(np, rng, seq + 1)
                             .astype(np.int64)[None]).cuda()
     batch = {"tokens": text[:, :-1], "labels": text[:, 1:]}
     runs = {}
     for impl in ("pallas", "xla"):
         before = {n: getattr(ft, n).launches
                   for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
-        loss, _ = lm_loss(dataclasses.replace(cfg, attention_impl=impl),
-                          params, batch, recompute="selective")
+        loss, _ = lm_loss(dataclasses.replace(
+            cfg, attention_impl=impl,
+            ce_chunk_size=ce_chunk if impl == "pallas" else 0),
+            params, batch, recompute="selective")
         loss.backward()
         torch.cuda.synchronize()
         grads = {n: p.grad for n, p in leaf_paths(params)}
@@ -2407,7 +2481,8 @@ def step_vs_dense(torch, np, ft, card):
     leaf_err = {n: float((gk[n].float() - gd[n].float()).abs().max())
                 / max(float(gd[n].float().abs().max()), 1e-30) for n in gd}
     line = {"phase": "kernel_vs_dense_step", "card": card,
-            "model": "llama2-7B", "layers": 2, "seq_length": TRAIN_SEQ,
+            "model": model, "layers": 2, "seq_length": seq,
+            "kernel_ce_chunk_size": ce_chunk,
             "loss_kernels": lk, "loss_dense": ld, "loss_abs_diff": abs(lk - ld),
             "grad_norm_kernels": nk, "grad_norm_dense": nd,
             "grad_norm_rel_diff": abs(nk - nd) / nd,
@@ -2429,8 +2504,9 @@ def step_vs_dense(torch, np, ft, card):
     if min(ran_k.values()) < 2 or any(ran_d.values()):
         problems.append(f"kernel run launched {ran_k}, dense run {ran_d}")
     if problems:
-        raise AssertionError("kernel step vs dense step: "
+        raise AssertionError(f"kernel step vs dense step ({model}): "
                              + "; ".join(problems))
+    return line
 
 
 # ---------------------------------------------------------------------------
@@ -2799,6 +2875,288 @@ def serve_checkpoint(torch, np, ft, load, master, dataclasses) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5b: the Falcon and GPT-2 families
+# ---------------------------------------------------------------------------
+
+# served at full width and depth, 8 slots; GPT-2's absolute positions stop
+# at 1024, so its slots and prompts are shorter (every prompt + NEW_TOKENS
+# fits under 1024)
+FAMILY_SERVE = {"falcon-7B": dict(max_seq_len=2048, prompts=PROMPT_LENS),
+                "gpt2-1.3B": dict(max_seq_len=1024,
+                                  prompts=(5, 100, 500, 900))}
+# trained through pretrain_gpt: Falcon-7B's width cut to 4 layers (1.12 B
+# parameters; full depth is a ~110 GB train state) at its S 2048, under
+# selective recompute and under block:2 (--recompute_granularity full
+# --recompute_method block --recompute_num_layers 2); GPT-2 1.3B at full
+# size and its S 1024. Every run evaluates once, after its last step.
+FAMILY_TRAIN = {"falcon-7B": dict(layers=4, seq=2048, steps=4),
+                "gpt2-1.3B": dict(layers=None, seq=1024, steps=2)}
+FAMILY_BLOCK_LAYERS = 2
+# the families train at a tenth of phase 4's lr: with tied embeddings,
+# Adam's first lr * sign(g) step moves the rows that feed the input and
+# the LM head at once, and at 1e-5 Falcon-7B width's loss rose again from
+# its second step (11.79, 9.61, 12.27, 10.56) and GPT-2's at its first
+# (11.45, 14.07); at 1e-6 both fell at every one of 8 steps (H100 80GB
+# HBM3, 700 W)
+FAMILY_LR = "1e-6"
+# first loss - last loss >= this: each run must fall. At FAMILY_LR the
+# card measured falls of 0.23 nats over 4 steps (Falcon-7B width x 4
+# layers) and 0.17 over 2 (GPT-2 1.3B), seed 1234
+FAMILY_LOSS_DROP_GATE = 0.1
+
+
+def _metric_delta(before: str, after: str, name: str) -> float:
+    return _metric(after, name) - _metric(before, name)
+
+
+def _family_serve(torch, ft, card, model, cfg, params, paged):
+    """The server on one engine (dense or paged) under _greedy_traffic's
+    gates, the family's prompts. Further gates: the launches (dense:
+    flash_fwd L x prefills and flash_decode L x ticks; paged:
+    paged_flash_decode L x ticks, the chunks take the dense attention)
+    and no capture beyond the warm-up one. TTFT and TPOT are this
+    server's histogram deltas (the metrics registry is shared in a
+    process)."""
+    import numpy as np
+
+    from megatron_tpu_torch.inference.server import run_server
+    from megatron_tpu_torch.tokenizer import NullTokenizer
+
+    spec = FAMILY_SERVE[model]
+    L = cfg.num_layers
+    ready, handles = threading.Event(), []
+    thread = threading.Thread(
+        target=run_server, daemon=True, name="smoke-family-server",
+        kwargs=dict(cfg=cfg, params=params,
+                    tokenizer=NullTokenizer(cfg.vocab_size),
+                    host="127.0.0.1", port=0, engine_slots=8,
+                    engine_max_seq_len=spec["max_seq_len"], device="cuda",
+                    kv_paging=paged, page_size=PAGE_SIZE,
+                    prefill_chunk=PREFILL_CHUNK, ready=ready,
+                    service_out=handles))
+    thread.start()
+    if not ready.wait(300):
+        raise RuntimeError("server did not start")
+    service, server = handles
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, cfg.vocab_size - 1, size=n).tolist()
+                   for n in spec["prompts"]]
+        eng = service.engine
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics0 = r.read().decode()
+        run = _greedy_traffic(ft, base, eng, prompts)
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        capture_s = eng.capture_seconds
+    finally:
+        server.shutdown()
+        thread.join(120)
+    if thread.is_alive():
+        raise RuntimeError("server thread did not stop")
+    launches, prefills, ticks = run["launches"], run["prefills"], run["ticks"]
+    problems = []
+    want = ({"flash_fwd": 0, "flash_decode": 0,
+             "paged_flash_decode": L * ticks} if paged else
+            {"flash_fwd": L * prefills, "flash_decode": L * ticks,
+             "paged_flash_decode": 0})
+    if launches != want or ticks < 1 or prefills != len(prompts) + 1:
+        problems.append(f"launches {launches} != {want} (prefills "
+                        f"{prefills}, ticks {ticks})")
+    recompiles = _metric(metrics, "engine_decode_recompiles_total")
+    if recompiles != 0 or capture_s is None:
+        problems.append(f"{recompiles} captures beyond warm-up, capture "
+                        f"{capture_s}")
+    del service, server, handles
+    free_cuda(torch)
+    hist = {}
+    for key, name in (("ttft_mean_s", "engine_ttft_seconds"),
+                      ("per_token_mean_s",
+                       "engine_time_per_output_token_seconds")):
+        n = _metric_delta(metrics0, metrics, name + "_count")
+        hist[key] = (_metric_delta(metrics0, metrics, name + "_sum") / n
+                     if n else "not measured")
+    line = {"phase": "family_serving", "card": card, "model": model,
+            "engine": "paged" if paged else "dense",
+            "layers": L, "slots": 8, "max_seq_len": spec["max_seq_len"],
+            "requests": [{"prompt_tokens": len(p), "wall_s": w}
+                         for p, w in zip(prompts, run["walls"])],
+            "concurrent_wall_s": run["concurrent_wall_s"],
+            "tokens_per_s": (len(prompts) * NEW_TOKENS
+                             / run["concurrent_wall_s"]), **hist,
+            "prefills": prefills, "decode_ticks": ticks,
+            "launches": launches, "cuda_graph_capture_s": capture_s,
+            "decode_recompiles": recompiles}
+    emit(line)
+    if problems:
+        raise AssertionError(f"{model} serving ({line['engine']}): "
+                             + "; ".join(problems))
+    return {"prompts": prompts, "generated": run["generated"],
+            "launches": launches}
+
+
+def _family_train(torch, np, ft, card, model, recompute):
+    """pretrain_gpt on the phase-4 corpus: FAMILY_TRAIN[model]'s depth,
+    sequence and steps, micro-batch 1, global batch 2, FAMILY_LR constant,
+    the flash kernels, one evaluation after the last step. recompute is
+    the flag list. Gates: finite losses, no skipped step, a fall of at
+    least FAMILY_LOSS_DROP_GATE, the exact launches and no fallback.
+    Returns (line, launches)."""
+    from megatron_tpu_torch.models.params import num_params
+    from megatron_tpu_torch.tools import pretrain_gpt
+
+    spec = FAMILY_TRAIN[model]
+    prefix = os.path.join(REPO, "megatron_tpu_torch", "build",
+                          "smoke_corpus")
+    if not os.path.exists(prefix + ".idx"):
+        os.makedirs(os.path.dirname(prefix), exist_ok=True)
+        write_corpus(np, prefix)
+    steps = spec["steps"]
+    argv = ["--model_name", model, "--seq_length", str(spec["seq"]),
+            "--bf16", "--micro_batch_size", str(TRAIN_MICRO),
+            "--global_batch_size", str(TRAIN_GLOBAL),
+            "--train_iters", str(steps), "--log_interval", "1",
+            "--eval_interval", str(steps), "--eval_iters", "1",
+            "--lr", FAMILY_LR, "--lr_decay_style", "constant",
+            "--clip_grad", "1.0", *recompute, "--attention_impl", "pallas",
+            "--data_path", prefix, "--split", "90,10,0",
+            "--seed", str(SEED), "--device", "cuda"]
+    if spec["layers"]:
+        argv += ["--num_layers", str(spec["layers"])]
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    # the main path's run: every count starts at 0 here
+    for name in TRAIN_COUNTED:
+        getattr(ft, name).launches = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.monotonic()
+        loop = pretrain_gpt.main(argv, log=lambda m: print(m, flush=True))
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+    launches = {n: getattr(ft, n).launches for n in TRAIN_COUNTED}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    cfg, policy = loop.cfg.model, loop.cfg.training.recompute_granularity
+    hist = loop.history
+    losses = [h["lm_loss"] for h in hist]
+    steps_s = sorted(h["window_s"] for h in hist[1:])   # step 1 warms up
+    step_s = steps_s[len(steps_s) // 2] if steps_s else float("nan")
+    tokens_per_s = TRAIN_GLOBAL * cfg.seq_length / step_s
+    model_flops_per_token = 3.0 * cfg.flops_per_token_fwd()
+    recomputed = (FAMILY_BLOCK_LAYERS if policy.startswith("block:")
+                  else cfg.num_layers)
+    want = expected_train_launches(TRAIN_GLOBAL // TRAIN_MICRO,
+                                   cfg.num_layers, steps, 1, recomputed)
+    fallbacks = [str(w.message) for w in caught
+                 if "falling back" in str(w.message)
+                 or "flash_bwd disabled" in str(w.message)]
+    line = {"phase": "family_training", "card": card, "model": model,
+            "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+            "seq_length": cfg.seq_length, "params": num_params(cfg),
+            "micro_batch": TRAIN_MICRO, "global_batch": TRAIN_GLOBAL,
+            "recompute": policy, "wall_s": wall_s, "lr": float(FAMILY_LR),
+            "losses": losses, "first_loss_expected": first_loss_expected(cfg),
+            "evals": [e["lm_loss"] for e in loop.evals],
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "step_times_s": [h["window_s"] for h in hist],
+            "step_s_median": step_s, "tokens_per_s": tokens_per_s,
+            "mfu": tokens_per_s * model_flops_per_token / PEAK_BF16_FLOPS,
+            "max_memory_allocated_gib": peak_gib,
+            "launches": launches, "expected_launches": want}
+    emit(line)
+    del loop
+    problems = []
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        problems.append(f"losses {losses}")
+    elif not losses[0] - losses[-1] >= FAMILY_LOSS_DROP_GATE:
+        problems.append(f"loss fell by {losses[0] - losses[-1]}, gate "
+                        f"{FAMILY_LOSS_DROP_GATE}")
+    if any(h["skipped"] for h in hist):
+        problems.append("a step was skipped")
+    if launches != want:
+        problems.append(f"launches {launches} != {want}")
+    if fallbacks:
+        problems.append(f"dense fallback fired: {fallbacks}")
+    if problems:
+        raise AssertionError(f"{model} training ({policy}): "
+                             + "; ".join(problems))
+    return line, launches
+
+
+def _add_counts(total: dict, counts: dict) -> None:
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+
+
+def families(torch, np, ft, card):
+    """Phase 5b. Falcon-7B at full width and depth served by the dense
+    and the paged engine (the phase-3 prompts; the teacher-forced gate on
+    both engines' sequences; each engine's graph tick timed over 8 filled
+    slots), trained at 4 layers under selective and block:2 recompute,
+    and a kernel step against a dense step at 2 layers (the kernel step
+    with the chunked cross-entropy over the tied 65024-row LM head);
+    GPT-2 1.3B served by the dense engine and trained at full size. Every
+    sub-run sets the launch counts to 0 before it; their sum is the
+    families path's launches."""
+    import dataclasses
+
+    from megatron_tpu_torch.models import presets
+    from megatron_tpu_torch.models.params import init_params, num_params
+
+    total, problems = {}, []
+    for model, engines in (("falcon-7B", (False, True)),
+                           ("gpt2-1.3B", (False,))):
+        cfg = presets.from_model_name(model)
+        t0 = time.monotonic()
+        params = init_params(cfg, SEED, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        served = []
+        for paged in engines:
+            run = _family_serve(torch, ft, card, model, cfg, params, paged)
+            _add_counts(total, run["launches"])
+            served.append(run)
+        tf = teacher_force(torch, dataclasses, cfg, params,
+                           [p for r in served for p in r["prompts"]],
+                           [g for r in served for g in r["generated"]])
+        ticks = [_tick_times(torch, cfg, params, paged, False, card,
+                             label=model) for paged in engines]
+        emit({"phase": "family_serving_gate", "card": card, "model": model,
+              "params": num_params(cfg), "param_init_s": init_s,
+              "engines": ["paged" if p else "dense" for p in engines],
+              "ticks": ticks, **tf})
+        if tf["teacher_forced_match"] < MATCH_GATE:
+            problems.append(f"{model}: teacher-forced match "
+                            f"{tf['teacher_forced_match']:.4f} < "
+                            f"{MATCH_GATE}")
+        del params, served
+        free_cuda(torch)
+        runs = [["--recompute_granularity", "selective"]]
+        if model.startswith("falcon"):
+            runs.append(["--recompute_granularity", "full",
+                         "--recompute_method", "block",
+                         "--recompute_num_layers",
+                         str(FAMILY_BLOCK_LAYERS)])
+        peaks = {}
+        for recompute in runs:
+            line, launches = _family_train(torch, np, ft, card, model,
+                                           recompute)
+            _add_counts(total, launches)
+            peaks[line["recompute"]] = line["max_memory_allocated_gib"]
+        emit({"phase": "family_recompute_peaks", "card": card,
+              "model": model, "max_memory_allocated_gib": peaks})
+        if model.startswith("falcon"):
+            free_cuda(torch)
+            step_vs_dense(torch, np, ft, card, model=model,
+                          seq=FAMILY_TRAIN[model]["seq"], ce_chunk=512)
+        free_cuda(torch)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return total
+
+
 def free_cuda(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -2866,6 +3224,7 @@ def main() -> int:
     phase("training", train, torch, np, ft, card)
     phase("kernel_vs_dense_step", step_vs_dense, torch, np, ft, card)
     phase("finetune", finetune, torch, np, ft, card)
+    phase("families", families, torch, np, ft, card)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -2875,7 +3234,8 @@ def main() -> int:
              "speculative_serving": results["speculative_serving"],
              "serving_control": results["serving_control"],
              "training": results["training"],
-             "finetune": results["finetune"]}
+             "finetune": results["finetune"],
+             "families": results["families"]}
     reports = {"flash_fwd": results["flash_fwd"],
                "flash_decode": results["flash_decode"],
                "paged_flash_decode": results["paged_flash_decode"],

@@ -8,6 +8,14 @@ defaults to bf16 (--fp32 / --fp16 change it) and --attention_impl to
 kernels). --num_layers overrides the preset's depth, and --device
 (default "cuda") picks where the run happens. --save_interval takes an
 integer: the JAX CLI's "auto" cadence is not ported.
+
+The port builds every model from a preset (--model_name); the JAX CLI's
+architecture flags (--position_embedding_type, --max_position_embeddings,
+--rope_theta, --use_post_ln, --apply_residual_connection_post_layernorm,
+--parallel_attn, --parallel_layernorm, --use_bias, --no_tie_embed_logits)
+override the preset's value when given. --recompute_method and
+--recompute_num_layers map onto "block:N" / "uniform:N" with
+--recompute_granularity full, as the JAX CLI maps them.
 """
 
 from __future__ import annotations
@@ -35,6 +43,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "autograd gradient on the training path (loudly "
                         "warned)")
     g.add_argument("--ce_chunk_size", type=int, default=0)
+    g.add_argument("--max_position_embeddings", type=int, default=None)
+    g.add_argument("--position_embedding_type", default=None,
+                   choices=["rotary", "absolute"])
+    g.add_argument("--rope_theta", type=float, default=None)
+    g.add_argument("--use_post_ln", action="store_true", default=None,
+                   help="post-LN layer convention (no pre-norm; per-layer "
+                        "output norm; no final stack norm)")
+    g.add_argument("--apply_residual_connection_post_layernorm",
+                   action="store_true", default=None,
+                   help="take residuals from the norm's output")
+    g.add_argument("--parallel_attn", action="store_true", default=None)
+    g.add_argument("--parallel_layernorm", action="store_true",
+                   default=None)
+    g.add_argument("--use_bias", action="store_true", default=None)
+    g.add_argument("--tie_embed_logits", action="store_true", default=None)
+    g.add_argument("--no_tie_embed_logits", action="store_false",
+                   dest="tie_embed_logits",
+                   help="untie the word embedding and the LM head")
 
     g = p.add_argument_group("training")
     g.add_argument("--micro_batch_size", type=int, default=1)
@@ -43,6 +69,13 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--seed", type=int, default=1234)
     g.add_argument("--recompute_granularity", default="none",
                    choices=["none", "selective", "full"])
+    g.add_argument("--recompute_method", default="uniform",
+                   choices=["uniform", "block"],
+                   help="with --recompute_granularity full: uniform "
+                        "checkpoints chunks of --recompute_num_layers "
+                        "layers; block recomputes only the first N layers")
+    g.add_argument("--recompute_num_layers", type=int, default=1,
+                   help="layer count or chunk for --recompute_method")
 
     g = p.add_argument_group("optimizer")
     g.add_argument("--lr", type=float, default=3e-4)
@@ -130,6 +163,37 @@ def _dtype_name(args) -> str:
     return "bfloat16"
 
 
+#: (flag dest, ModelConfig field) of the architecture flags that override
+#: the preset when given
+_ARCH_FLAGS = (
+    ("max_position_embeddings", "max_position_embeddings"),
+    ("position_embedding_type", "position_embedding_type"),
+    ("rope_theta", "rope_theta"),
+    ("use_post_ln", "use_post_ln"),
+    ("apply_residual_connection_post_layernorm", "apply_residual_post_ln"),
+    ("parallel_attn", "parallel_attn"),
+    ("parallel_layernorm", "parallel_layernorm"),
+    ("use_bias", "use_bias_linear"),
+    ("use_bias", "use_bias_qkv"),
+    ("tie_embed_logits", "tie_embed_logits"),
+)
+
+
+def recompute_policy(args) -> str:
+    """--recompute_granularity, with --recompute_method and
+    --recompute_num_layers folded in as the JAX CLI folds them: "block:N"
+    for the block method, "uniform:N" for uniform with N > 1; both need
+    --recompute_granularity full."""
+    method, n = args.recompute_method, args.recompute_num_layers
+    if method == "block" or (method == "uniform" and n > 1):
+        if args.recompute_granularity != "full":
+            raise ValueError(
+                f"--recompute_method {method} with --recompute_num_layers "
+                "needs --recompute_granularity full")
+        return f"{method}:{n}"
+    return args.recompute_granularity
+
+
 def args_to_run_config(args) -> RunConfig:
     from megatron_tpu_torch.models import presets
 
@@ -147,6 +211,9 @@ def args_to_run_config(args) -> RunConfig:
         overrides["seq_length"] = args.seq_length
     if args.num_layers is not None:
         overrides["num_layers"] = args.num_layers
+    for flag, field in _ARCH_FLAGS:
+        if getattr(args, flag) is not None:
+            overrides[field] = getattr(args, flag)
     model = ModelConfig(**{**model.__dict__, **overrides}).validate()
 
     optimizer = OptimizerConfig(
@@ -160,7 +227,7 @@ def args_to_run_config(args) -> RunConfig:
         global_batch_size=args.global_batch_size or args.micro_batch_size,
         train_iters=args.train_iters, eval_interval=args.eval_interval,
         eval_iters=args.eval_iters, seed=args.seed,
-        recompute_granularity=args.recompute_granularity,
+        recompute_granularity=recompute_policy(args),
         log_interval=args.log_interval, save=args.save, load=args.load,
         save_interval=args.save_interval, finetune=args.finetune,
         no_load_optim=args.no_load_optim, async_save=args.async_save,

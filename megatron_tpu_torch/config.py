@@ -15,8 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
-# absolute position embeddings (GPT-2) are not ported yet
-POSITION_EMBEDDING_TYPES = ("rotary",)
+POSITION_EMBEDDING_TYPES = ("rotary", "absolute")
 NORMALIZATION_TYPES = ("layernorm", "rmsnorm")
 ACTIVATION_TYPES = ("gelu", "gelu_tanh", "geglu", "swiglu", "reglu", "liglu",
                     "relu", "squared_relu")
@@ -25,7 +24,9 @@ ATTN_MASK_TYPES = ("causal", "bidirectional", "padding")
 # "pallas" keeps the JAX package's name for the kernel route: on CUDA
 # tensors it selects the hand-written Hopper kernels (ops/flash/)
 ATTENTION_IMPLS = ("xla", "pallas")
-# "block:N" / "uniform:N" are not ported yet
+# per-layer policies; "block:N" (fully recompute the first N layers) and
+# "uniform:N" (checkpoint every N-layer chunk) are parsed by
+# parse_recompute
 RECOMPUTE_POLICIES = ("none", "selective", "full")
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
           "float32": torch.float32}
@@ -35,6 +36,32 @@ def _resolve_dtype(name: str) -> torch.dtype:
     if name not in DTYPES:
         raise ValueError(f"unknown dtype {name!r}; one of {sorted(DTYPES)}")
     return DTYPES[name]
+
+
+def parse_recompute(recompute: str) -> Tuple[str, Optional[int]]:
+    """(granularity, n) of a recompute policy (the JAX package's rule):
+    "block:N" fully recomputes the first N layers (N >= 0) and saves the
+    rest; "uniform:N" checkpoints chunks of N layers (N >= 1), each layer
+    inside a replayed chunk rematted too. A per-layer policy name gives
+    (name, None). Raises ValueError on anything else."""
+    for prefix in ("block", "uniform"):
+        if recompute.startswith(prefix + ":"):
+            try:
+                n = int(recompute.split(":", 1)[1])
+            except ValueError:
+                n = -1
+            if n < (1 if prefix == "uniform" else 0):
+                raise ValueError(
+                    f"bad recompute_granularity {recompute!r}: the form is "
+                    f"'{prefix}:<N>' with N a "
+                    + ("positive chunk size" if prefix == "uniform"
+                       else "non-negative layer count"))
+            return prefix, n
+    if recompute not in RECOMPUTE_POLICIES:
+        raise ValueError(
+            f"bad recompute_granularity {recompute!r}; one of "
+            f"{RECOMPUTE_POLICIES}, 'block:N' or 'uniform:N'")
+    return recompute, None
 
 
 @dataclass(frozen=True)
@@ -54,10 +81,21 @@ class ModelConfig:
     position_embedding_type: str = "rotary"
     rope_theta: float = 10000.0
     rope_scaling_factor: float = 1.0
+    # rows of the embed/pos table (absolute position embeddings only)
+    max_position_embeddings: Optional[int] = None
 
     normalization: str = "rmsnorm"
     layernorm_epsilon: float = 1e-5
     activation: str = "swiglu"
+    # Falcon parallel attention: attn(ln1(x)) + mlp(ln1(x)) in one
+    # residual add, the MLP optionally behind its own ln_mlp (Falcon-40B)
+    parallel_attn: bool = False
+    parallel_layernorm: bool = False
+    # post-LN: no pre-norm, each layer ends with its own norm (the ln1
+    # slot), no final stack norm
+    use_post_ln: bool = False
+    # the residual taken from the norm's output instead of its input
+    apply_residual_post_ln: bool = False
 
     use_bias_linear: bool = False
     use_bias_qkv: bool = False
@@ -125,12 +163,20 @@ class ModelConfig:
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"bad attention_impl {self.attention_impl}")
         _resolve_dtype(self.params_dtype)
+        if self.use_post_ln and self.parallel_attn:
+            raise ValueError("use_post_ln is incompatible with parallel_attn")
         if (self.hidden_size % self.num_attention_heads
                 and self.kv_channels is None):
             raise ValueError("num_attention_heads must divide hidden_size")
         if self.num_attention_heads % self.n_kv_heads:
             raise ValueError(
                 "num_attention_heads must be divisible by num_kv_heads")
+        if (self.position_embedding_type == "absolute"
+                and not self.max_position_embeddings):
+            raise ValueError(
+                "absolute position embeddings need max_position_embeddings")
+        if self.parallel_layernorm and not self.parallel_attn:
+            raise ValueError("parallel_layernorm requires parallel_attn")
         if self.hidden_dropout != 0.0 or self.attention_dropout != 0.0:
             raise ValueError(
                 f"hidden_dropout={self.hidden_dropout} and attention_dropout"
@@ -230,11 +276,7 @@ class TrainingConfig:
     variable_seq_lengths: bool = False
 
     def validate(self) -> "TrainingConfig":
-        if self.recompute_granularity not in RECOMPUTE_POLICIES:
-            raise ValueError(
-                f"bad recompute_granularity {self.recompute_granularity!r}; "
-                f"one of {RECOMPUTE_POLICIES} (block:N / uniform:N are not "
-                "ported yet)")
+        parse_recompute(self.recompute_granularity)
         return self
 
 

@@ -50,7 +50,9 @@
 //    scratch page 0.
 //  * Math on the tensor cores: mma.sync m16n8k16 (bf16 in, fp32 out) for
 //    S = Q·Kᵀ and O += P·V, with the R = Sq * G query rows of a kv head
-//    padded to M m16 tiles (M = 1, 2, 4 for R <= 16, 32, 64). The 4 warps
+//    cut into row tiles of at most 64 (MAX_ROWS) rows, one block each,
+//    and a tile's rows padded to M m16 tiles (M = 1, 2, 4 for R <= 16,
+//    32, 64; 4 for every tile when R > 64). The 4 warps
 //    split each 64-key tile: warp w takes m16 tile w / (4 / M) and 16 M
 //    keys, keeps its own S, P and O in registers (P is S's accumulator
 //    repacked as the A fragment), and runs its own online softmax in the
@@ -58,6 +60,12 @@
 //    another inside the loop. At R = 1 the padding costs tensor-core
 //    cycles, which are not the limit there; at R = 20 (the verify form)
 //    the products no longer run on the CUDA cores.
+//  * Any number of rows: the grid's x axis is (kv head, row tile), and
+//    row tile t of a kv head holds rows [64 t, min(64 t + 64, R)). Every
+//    row tile walks its kv head's whole live range (the same split plan,
+//    its own partials and ticket), so K and V are read once per row tile:
+//    at multi-query shapes (Falcon-7B: G 71, R 71 or 355) that reads a few
+//    MB more per layer, against a simpler body.
 //  * GQA without replicating K/V: row r is query j = r / G of head
 //    h * G + r % G, at position kv_len - 1 + j, seeing k_pos < kv_len + j
 //    (and, with a window W, k_pos > its position - W). The cache is read
@@ -150,9 +158,10 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 
 // Dense: k/v strides are (slot, position, head). Paged: (page, row in
 // page, head), S = max_pages << page_shift, page_table [B, max_pages].
-// Workspace: part_o [B * Hkv][splits * 4 / M][R][D] and part_ml
-// [B * Hkv][splits * 4 / M][R][2] fp32, tickets [B * Hkv] int32 (0 at
-// launch; left at 0).
+// With T = ceil(R / 64) row tiles of TR = min(R, 64) rows: workspace
+// part_o [B * Hkv * T][splits * 4 / M][TR][D] and part_ml
+// [B * Hkv * T][splits * 4 / M][TR][2] fp32, tickets [B * Hkv * T] int32
+// (0 at launch; left at 0).
 template <int D, int M, bool PAGED>
 __global__ void __launch_bounds__(THREADS)
     flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -173,9 +182,14 @@ __global__ void __launch_bounds__(THREADS)
   constexpr int KPW = BK / WPM;   // keys of each tile per warp (16 M)
   constexpr int NT = KPW / 8;     // n8 tiles of S per warp
   constexpr int CPR = D / 8;      // 16-byte chunks per row
-  const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int G = Hq / Hkv;
   const int R = Sq * G;
+  const int TR = min(R, MAX_ROWS);  // rows of a full row tile
+  const int row_tiles = (R + MAX_ROWS - 1) / MAX_ROWS;
+  const int h = blockIdx.x / row_tiles, rt = blockIdx.x % row_tiles;
+  const int b = blockIdx.y, split = blockIdx.z;
+  const int row0 = rt * MAX_ROWS;     // this tile's first row
+  const int nr = min(R - row0, MAX_ROWS);  // and its row count
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   const int kv_len = kv_lengths[b];
@@ -191,13 +205,14 @@ __global__ void __launch_bounds__(THREADS)
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sb = sm90::smem_u32(smem);
 
-  // Q rows r < R (query r / G, head h * G + r % G), zero padding after
+  // the tile's rows r < nr (row gr = row0 + r: query gr / G, head
+  // h * G + gr % G), zero padding after
   for (int i = tid; i < 16 * M * CPR; i += THREADS) {
-    const int r = i / CPR, c = i % CPR;
+    const int r = i / CPR, c = i % CPR, gr = row0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < R)
+    if (r < nr)
       val = *reinterpret_cast<const uint4*>(
-          q + b * q_sb + (r / G) * q_ss + (long long)(h * G + r % G) * q_sh +
+          q + b * q_sb + (gr / G) * q_ss + (long long)(h * G + gr % G) * q_sh +
           c * 8);
     *reinterpret_cast<uint4*>(smem + swz<D>(r, c)) = val;
   }
@@ -242,7 +257,7 @@ __global__ void __launch_bounds__(THREADS)
   int qpos[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh)
-    qpos[hh] = kv_len - 1 + (mt * 16 + r0 + 8 * hh) / G;
+    qpos[hh] = kv_len - 1 + (row0 + mt * 16 + r0 + 8 * hh) / G;
 
   float acc[D / 8][4];
 #pragma unroll
@@ -346,17 +361,17 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   // ---- this warp's partial: unnormalised o, m and l of its rows ----
-  const long long bh = (long long)b * Hkv + h;
+  const long long bh = ((long long)b * Hkv + h) * row_tiles + rt;
   const int n_part = gridDim.z * WPM;
   const int part = split * WPM + ksl;
-  float* po = part_o + (bh * n_part + part) * R * D;
-  float* pml = part_ml + (bh * n_part + part) * R * 2;
+  float* po = part_o + (bh * n_part + part) * TR * D;
+  float* pml = part_ml + (bh * n_part + part) * TR * 2;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
     l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
     const int row = mt * 16 + r0 + 8 * hh;
-    if (row < R) {
+    if (row < nr) {
       if (lane % 4 == 0) {
         pml[row * 2] = m[hh];
         pml[row * 2 + 1] = l[hh];
@@ -368,7 +383,8 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
-  // ---- the last live split of (slot, kv head) merges, in split order ----
+  // ---- the last live split of (slot, kv head, row tile) merges, in split
+  // order ----
   __shared__ int is_last;
   __threadfence();
   __syncthreads();
@@ -380,15 +396,15 @@ __global__ void __launch_bounds__(THREADS)
   if (!is_last) return;
   __threadfence();
   const int np = n_live * WPM;
-  const float* mo = part_o + bh * n_part * R * D;
-  const float* mml = part_ml + bh * n_part * R * 2;
-  for (int i = tid; i < R * (D / 4); i += THREADS) {
-    const int row = i / (D / 4), c = (i % (D / 4)) * 4;
+  const float* mo = part_o + bh * n_part * TR * D;
+  const float* mml = part_ml + bh * n_part * TR * 2;
+  for (int i = tid; i < nr * (D / 4); i += THREADS) {
+    const int row = i / (D / 4), c = (i % (D / 4)) * 4, gr = row0 + row;
     float mx = mtt::NEG_INF, den = 0.f;
     float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
     for (int p = 0; p < np; ++p) {
-      const long long pr = (long long)p * R + row;
+      const long long pr = (long long)p * TR + row;
       const float2 ml = __ldcg(reinterpret_cast<const float2*>(mml + pr * 2));
       const float4 a =
           __ldcg(reinterpret_cast<const float4*>(mo + pr * D + c));
@@ -405,8 +421,8 @@ __global__ void __launch_bounds__(THREADS)
     uint2 out;
     out.x = sm90::pack_bf16(num.x * inv, num.y * inv);
     out.y = sm90::pack_bf16(num.z * inv, num.w * inv);
-    *reinterpret_cast<uint2*>(o + b * o_sb + (row / G) * o_ss +
-                              (long long)(h * G + row % G) * o_sh + c) = out;
+    *reinterpret_cast<uint2*>(o + b * o_sb + (gr / G) * o_ss +
+                              (long long)(h * G + gr % G) * o_sh + c) = out;
   }
 }
 
@@ -431,7 +447,8 @@ cudaError_t launch(const Args& a) {
       flash_decode_kernel<D, M, PAGED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::total);
   if (err != cudaSuccess) return err;
-  dim3 grid(a.Hkv, a.B, a.n_split);
+  const int row_tiles = (a.Sq * (a.Hq / a.Hkv) + MAX_ROWS - 1) / MAX_ROWS;
+  dim3 grid(a.Hkv * row_tiles, a.B, a.n_split);
   flash_decode_kernel<D, M, PAGED><<<grid, THREADS, L::total, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), a.lens, a.table, a.n_pages, a.max_pages,
@@ -444,7 +461,7 @@ cudaError_t launch(const Args& a) {
 
 template <int D, bool PAGED>
 cudaError_t launch_rows(const Args& a) {
-  switch (m_tiles(a.Sq * (a.Hq / a.Hkv))) {
+  switch (m_tiles(min(a.Sq * (a.Hq / a.Hkv), MAX_ROWS))) {
     case 1: return launch<D, 1, PAGED>(a);
     case 2: return launch<D, 2, PAGED>(a);
     default: return launch<D, 4, PAGED>(a);
@@ -455,7 +472,7 @@ template <bool PAGED>
 int dispatch(const Args& a, int D) {
   const int n_tiles = (a.S + BK - 1) / BK;
   if (a.B < 1 || a.Sq < 1 || a.S < 1 || a.Hkv < 1 || a.Hq % a.Hkv ||
-      a.Sq * (a.Hq / a.Hkv) > MAX_ROWS || a.split_tiles < 1 ||
+      a.split_tiles < 1 ||
       a.n_split < 1 || (long long)a.n_split * a.split_tiles < n_tiles ||
       a.n_split > 65535)
     return (int)cudaErrorInvalidValue;
@@ -469,10 +486,11 @@ int dispatch(const Args& a, int D) {
 // Plain C entries for ctypes. Each returns the cudaError_t of the launch.
 // Both take the split schedule (split_tiles kv tiles of 64 positions a
 // split, n_split splits with n_split * split_tiles >= ceil(S / 64)) and
-// its workspace: part_o fp32 [B * Hkv * n_split * 4 / M * R * D], part_ml
-// fp32 [B * Hkv * n_split * 4 / M * R * 2] (R = Sq * Hq / Hkv, M = 1, 2, 4
-// for R <= 16, 32, 64) and tickets int32 [B * Hkv], zero before the
-// launch and left at zero by it.
+// its workspace: part_o fp32 [B * Hkv * T * n_split * 4 / M * TR * D],
+// part_ml fp32 [B * Hkv * T * n_split * 4 / M * TR * 2] (R = Sq * Hq /
+// Hkv query rows a kv head, T = ceil(R / 64) row tiles of TR = min(R, 64)
+// rows, M = 1, 2, 4 for TR <= 16, 32, 64) and tickets int32
+// [B * Hkv * T], zero before the launch and left at zero by it.
 //
 // Dense: q/o are [B, Sq, Hq, D], k/v [B, S, Hkv, D], kv_lengths [B] int32
 // on the device; strides in elements as (batch, seq, head), head dim

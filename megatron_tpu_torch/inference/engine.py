@@ -94,18 +94,17 @@ import torch
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.inference.cuda_graph import CapturedStep
 from megatron_tpu_torch.inference.generation import (
-    GenerationOutput, _init_caches,
+    GenerationOutput, _init_caches, _rope, check_positions,
 )
 from megatron_tpu_torch.inference.sampling import (
     _mask_vocab, sample_logits_batched,
 )
 from megatron_tpu_torch.inference.speculative import (
-    SpecConfig, check_verify_rows, greedy_verify, ngram_propose,
+    SpecConfig, greedy_verify, ngram_propose,
     speculative_accept, validate_spec,
 )
 from megatron_tpu_torch.models.language_model import lm_forward
 from megatron_tpu_torch.ops.flash.flash_template import DECODE_BLOCK
-from megatron_tpu_torch.ops.rotary import precompute_rope
 from megatron_tpu_torch.telemetry.metrics import (
     MetricsRegistry, default_registry,
 )
@@ -210,25 +209,22 @@ class InferenceEngine:
         self.spec = speculative
         if speculative is not None:
             validate_spec(cfg, speculative)
-            if (cfg.attention_impl == "pallas"
-                    and self.device.type == "cuda"):
-                check_verify_rows(cfg, speculative)
         self.max_seq_len = self._round_seq_len(
             int(max_seq_len or cfg.seq_length))
+        check_positions(cfg, self.max_seq_len, "max_seq_len")
+        if self._has_draft_model():
+            check_positions(speculative.draft_cfg, self.max_seq_len,
+                            "max_seq_len")
         self.vocab_size = vocab_size
         self.caches = self._fresh_caches()
-        self.rope = precompute_rope(cfg.head_dim, self.max_seq_len,
-                                    cfg.rope_theta, cfg.rope_scaling_factor,
-                                    device=self.device)
+        self.rope = _rope(cfg, self.max_seq_len, self.device)
         # the model drafter's second cache tree and its RoPE table
         self.draft_params = self.draft_caches = self.draft_rope = None
         if self._has_draft_model():
             dcfg = speculative.draft_cfg
             self.draft_params = speculative.draft_params
             self.draft_caches = self._fresh_draft_caches()
-            self.draft_rope = precompute_rope(
-                dcfg.head_dim, self.max_seq_len, dcfg.rope_theta,
-                dcfg.rope_scaling_factor, device=self.device)
+            self.draft_rope = _rope(dcfg, self.max_seq_len, self.device)
 
         N = num_slots
         self.slots: List[Optional[Request]] = [None] * N

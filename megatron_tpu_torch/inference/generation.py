@@ -74,8 +74,25 @@ def _device(params: Any) -> torch.device:
 
 
 def _rope(cfg: ModelConfig, n: int, device):
+    """The (cos, sin) table of n positions for a rotary model; None for
+    absolute position embeddings, which the embedding adds at the
+    positions of each forward."""
+    if cfg.position_embedding_type != "rotary":
+        return None
     return precompute_rope(cfg.head_dim, n, cfg.rope_theta,
                            cfg.rope_scaling_factor, device=device)
+
+
+def check_positions(cfg: ModelConfig, n: int, what: str) -> None:
+    """A model with absolute position embeddings reaches n positions only
+    if its table has them: the JAX package refuses the rest rather than
+    clamp them to the table's last row."""
+    if (cfg.position_embedding_type == "absolute"
+            and n > (cfg.max_position_embeddings or 0)):
+        raise ValueError(
+            f"{what} {n} exceeds max_position_embeddings "
+            f"{cfg.max_position_embeddings}: absolute position embeddings "
+            "would silently clamp")
 
 
 @torch.no_grad()
@@ -99,6 +116,7 @@ def generate_tokens(
     dev = _device(params)
     B, max_prompt = prompts.shape
     total_len = max_prompt + max_new_tokens
+    check_positions(cfg, total_len, "prompt + tokens_to_generate =")
     lengths = np.asarray(lengths, np.int64)
     real = np.arange(max_prompt)[None, :] < lengths[:, None]
     tokens = torch.zeros((B, total_len), dtype=torch.long, device=dev)
@@ -186,6 +204,7 @@ def score_tokens(cfg: ModelConfig, params: Any,
     """Teacher-forced per-token logprobs [B, S-1]: one causal forward
     over tokens[:, :-1] with no cache (flash_fwd on CUDA). Ids outside
     the embedding table are padding: they enter as 0 and score 0.0."""
+    check_positions(cfg, np.shape(tokens)[1] - 1, "scored length")
     t = torch.from_numpy(np.asarray(tokens, np.int64)).to(_device(params))
     pad = (t < 0) | (t >= cfg.vocab_size)
     t = torch.where(pad, 0, t)
@@ -218,6 +237,7 @@ def beam_search_tokens(
     prompt = np.asarray(prompt, np.int32)
     plen = len(prompt)
     total = plen + max_new_tokens
+    check_positions(cfg, total, "prompt + tokens_to_generate =")
 
     caches = _init_caches(cfg, 1, total, device=dev, int8=kv_cache_int8)
     rope = _rope(cfg, total, dev)

@@ -57,7 +57,6 @@ from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.inference.sampling import (
     _NEG, _mask_vocab, filter_top_k_top_p,
 )
-from megatron_tpu_torch.ops.flash.flash_template import DECODE_MAX_ROWS
 
 #: drafter registry: "ngram" is host-side prompt lookup, "model" a draft
 #: network sharing the engine's cache machinery
@@ -101,20 +100,6 @@ def validate_spec(cfg: ModelConfig, spec: SpecConfig) -> None:
             raise ValueError(
                 f"draft vocab {spec.draft_cfg.vocab_size} != target vocab "
                 f"{cfg.vocab_size}: verify compares token ids directly")
-
-
-def check_verify_rows(cfg: ModelConfig, spec: SpecConfig) -> None:
-    """The decode kernel's limit for the verify form: (k+1) * G query
-    rows per kv head fit one block (DECODE_MAX_ROWS). Engines call this
-    at construction when the kernel will run, so the error comes there
-    and not at the first tick."""
-    rows = (spec.k + 1) * (cfg.num_attention_heads // cfg.n_kv_heads)
-    if rows > DECODE_MAX_ROWS:
-        raise ValueError(
-            f"speculative k={spec.k}: the verify pass has (k+1) * G = "
-            f"{rows} query rows per kv head, more than the decode "
-            f"kernel's {DECODE_MAX_ROWS}; use k <= "
-            f"{DECODE_MAX_ROWS // (cfg.num_attention_heads // cfg.n_kv_heads) - 1}")
 
 
 # ---------------------------------------------------------------------------

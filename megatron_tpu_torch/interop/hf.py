@@ -10,11 +10,15 @@ any object with the same attributes) and hf_config_from_native returns
 one.
 
 Supported model types: llama (v1, v2, and CodeLlama through
-rope_theta) and mistral (its sliding window is the port's
-sliding_window_size). falcon, gpt2 and mixtral raise
-NotImplementedError: the port's model has no parallel attention
-(falcon), no absolute position embeddings (gpt2) and no MoE (mixtral)
-yet (ROADMAP.md, queue A).
+rope_theta), mistral (its sliding window is the port's
+sliding_window_size), falcon (both layouts: the multi-query one of
+Falcon-7B and new_decoder_architecture, Falcon-40B's grouped one with its
+second layernorm) and gpt2 (absolute position embeddings, biases; HF's
+Conv1D weights are stored [in, out] already). mixtral raises
+NotImplementedError: the port's model has no MoE yet (ROADMAP.md,
+queue A). A config.json dict may leave out the fields where the HF class
+keeps its default (save_pretrained writes only the differences):
+config_from_hf reads those with the HF defaults.
 """
 
 from __future__ import annotations
@@ -27,17 +31,15 @@ import torch
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.models.params import param_shapes
 
-SUPPORTED = ("llama", "mistral")
+SUPPORTED = ("llama", "mistral", "falcon", "gpt2")
 _WAITS_FOR = {
-    "falcon": "parallel attention and parallel layernorm blocks "
-              "(ModelConfig.parallel_attn / parallel_layernorm)",
-    "gpt2": "absolute position embeddings (position_embedding_type "
-            "'absolute', the embed/pos table) and biased linears",
     "mixtral": "mixture-of-experts layers (ops/moe.py, the layers/moe "
                "parameters)",
 }
 _ARCHITECTURES = {"llama": "LlamaForCausalLM",
-                  "mistral": "MistralForCausalLM"}
+                  "mistral": "MistralForCausalLM",
+                  "falcon": "FalconForCausalLM",
+                  "gpt2": "GPT2LMHeadModel"}
 
 
 def _check_model_type(model_type: str) -> None:
@@ -59,6 +61,10 @@ def config_from_hf(hf_config: Any, seq_length: Optional[int] = None
          else hf_config)
     mt = c.model_type
     _check_model_type(mt)
+    if mt == "falcon":
+        return _falcon_config(c, seq_length)
+    if mt == "gpt2":
+        return _gpt2_config(c, seq_length)
     rope_scaling = getattr(c, "rope_scaling", None) or {}
     if rope_scaling and rope_scaling.get(
             "rope_type", rope_scaling.get("type")) != "linear":
@@ -94,11 +100,111 @@ def config_from_hf(hf_config: Any, seq_length: Optional[int] = None
     ).validate()
 
 
+def _falcon_config(c, seq_length: Optional[int]) -> ModelConfig:
+    """FalconConfig -> ModelConfig (HF's defaults are Falcon-7B's)."""
+    if getattr(c, "alibi", False) or getattr(c, "bias", False):
+        raise ValueError("falcon checkpoints with alibi or linear biases "
+                         "are not supported (Falcon-7B/40B have neither)")
+    nq = getattr(c, "num_attention_heads", 71)
+    h = getattr(c, "hidden_size", 4544)
+    new_arch = getattr(c, "new_decoder_architecture", False)
+    if new_arch:
+        nkv = getattr(c, "num_kv_heads", None) or nq
+    else:
+        nkv = 1 if getattr(c, "multi_query", True) else nq
+    return ModelConfig(
+        num_layers=getattr(c, "num_hidden_layers", 32),
+        hidden_size=h,
+        num_attention_heads=nq,
+        num_kv_heads=nkv,
+        ffn_hidden_size=getattr(c, "ffn_hidden_size", None) or 4 * h,
+        vocab_size=getattr(c, "vocab_size", 65024),
+        seq_length=seq_length or 2048,
+        normalization="layernorm",
+        activation="gelu",
+        position_embedding_type="rotary",
+        rope_theta=float(getattr(c, "rope_theta", 10000.0)),
+        parallel_attn=getattr(c, "parallel_attn", True),
+        parallel_layernorm=new_arch,
+        tie_embed_logits=True,
+        layernorm_epsilon=getattr(c, "layer_norm_epsilon", 1e-5),
+    ).validate()
+
+
+def _gpt2_config(c, seq_length: Optional[int]) -> ModelConfig:
+    """GPT2Config -> ModelConfig. HF's default activation gelu_new is the
+    tanh approximation: gelu_tanh."""
+    h = getattr(c, "n_embd", 768)
+    n_pos = getattr(c, "n_positions", 1024)
+    act = getattr(c, "activation_function", "gelu_new")
+    if act not in ("gelu_new", "gelu"):
+        raise ValueError(f"unsupported gpt2 activation_function {act!r}")
+    return ModelConfig(
+        num_layers=getattr(c, "n_layer", 12),
+        hidden_size=h,
+        num_attention_heads=getattr(c, "n_head", 12),
+        ffn_hidden_size=getattr(c, "n_inner", None) or 4 * h,
+        vocab_size=getattr(c, "vocab_size", 50257),
+        seq_length=seq_length or n_pos,
+        max_position_embeddings=n_pos,
+        normalization="layernorm",
+        activation="gelu_tanh" if act == "gelu_new" else "gelu",
+        position_embedding_type="absolute",
+        use_bias_linear=True,
+        use_bias_qkv=True,
+        tie_embed_logits=True,
+        layernorm_epsilon=getattr(c, "layer_norm_epsilon", 1e-5),
+    ).validate()
+
+
 def hf_config_from_native(cfg: ModelConfig, model_type: str,
                           torch_dtype: str = "bfloat16") -> Dict[str, Any]:
     """Inverse of config_from_hf: the config.json dict that transformers'
     from_pretrained reads for these weights."""
     _check_model_type(model_type)
+    if cfg.use_post_ln:
+        raise ValueError(
+            "post-LN models have no HF export target: the supported HF "
+            "families are pre-LN and expect a final norm")
+    if model_type == "falcon":
+        if (not cfg.parallel_attn or cfg.normalization != "layernorm"
+                or cfg.activation != "gelu" or cfg.use_bias_linear
+                or not cfg.tie_embed_logits):
+            raise ValueError("a falcon export needs parallel attention, "
+                             "layernorm, gelu, no biases, tied embeddings")
+        new_arch = cfg.parallel_layernorm
+        return dict(
+            model_type="falcon", architectures=[_ARCHITECTURES["falcon"]],
+            vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+            num_hidden_layers=cfg.num_layers,
+            num_attention_heads=cfg.num_attention_heads,
+            num_kv_heads=cfg.n_kv_heads,
+            layer_norm_epsilon=cfg.layernorm_epsilon,
+            bias=False, alibi=False, parallel_attn=True,
+            new_decoder_architecture=new_arch,
+            multi_query=cfg.n_kv_heads == 1 and not new_arch,
+            ffn_hidden_size=cfg.ffn_size, rope_theta=cfg.rope_theta,
+            max_position_embeddings=cfg.seq_length,
+            tie_word_embeddings=True, torch_dtype=torch_dtype)
+    if model_type == "gpt2":
+        if (cfg.position_embedding_type != "absolute"
+                or cfg.normalization != "layernorm"
+                or cfg.activation not in ("gelu", "gelu_tanh")
+                or not (cfg.use_bias_linear and cfg.use_bias_qkv)
+                or not cfg.tie_embed_logits or cfg.parallel_attn):
+            raise ValueError("a gpt2 export needs absolute positions, "
+                             "layernorm, gelu, biases, tied embeddings")
+        return dict(
+            model_type="gpt2", architectures=[_ARCHITECTURES["gpt2"]],
+            vocab_size=cfg.vocab_size,
+            n_positions=cfg.max_position_embeddings,
+            n_embd=cfg.hidden_size, n_layer=cfg.num_layers,
+            n_head=cfg.num_attention_heads, n_inner=cfg.ffn_size,
+            activation_function=("gelu_new" if cfg.activation == "gelu_tanh"
+                                 else "gelu"),
+            layer_norm_epsilon=cfg.layernorm_epsilon,
+            resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0,
+            tie_word_embeddings=True, torch_dtype=torch_dtype)
     if (cfg.normalization != "rmsnorm" or cfg.activation != "swiglu"
             or cfg.use_bias_linear or cfg.use_bias_qkv):
         raise ValueError(
@@ -147,13 +253,17 @@ def _flatten(tree: Dict[str, Any], prefix: str = ""):
             yield path, v
 
 
+def _stack(sd, fmt: str, L: int, transpose: bool = False) -> torch.Tensor:
+    return torch.stack([sd[fmt.format(i)].t() if transpose
+                        else sd[fmt.format(i)] for i in range(L)])
+
+
 def _llama_to_flat(sd: Dict[str, torch.Tensor], cfg: ModelConfig
                    ) -> Dict[str, torch.Tensor]:
     L = cfg.num_layers
 
     def stack(fmt, transpose=False):
-        return torch.stack([sd[fmt.format(i)].t() if transpose
-                            else sd[fmt.format(i)] for i in range(L)])
+        return _stack(sd, fmt, L, transpose)
 
     pre = "model.layers.{}."
     f = {
@@ -175,6 +285,86 @@ def _llama_to_flat(sd: Dict[str, torch.Tensor], cfg: ModelConfig
     return f
 
 
+def _split_falcon_qkv(fused: torch.Tensor, cfg: ModelConfig):
+    """Falcon fuses q/k/v grouped per kv head, [(q_0 .. q_{g-1}, k, v) x
+    n_kv_heads] along the output dim: Falcon-40B's grouped layout, and
+    Falcon-7B's multi-query one (all q heads, then k, then v) as its
+    n_kv_heads = 1 case. Returns wq, wk, wv as [h, out]."""
+    h, D = cfg.hidden_size, cfg.head_dim
+    nq, nkv = cfg.num_attention_heads, cfg.n_kv_heads
+    g = nq // nkv
+    w = fused.reshape(nkv, g + 2, D, h)
+    return (w[:, :g].reshape(nq * D, h).t().contiguous(),
+            w[:, g].reshape(nkv * D, h).t().contiguous(),
+            w[:, g + 1].reshape(nkv * D, h).t().contiguous())
+
+
+def _falcon_to_flat(sd: Dict[str, torch.Tensor], cfg: ModelConfig
+                    ) -> Dict[str, torch.Tensor]:
+    L = cfg.num_layers
+    pre = "transformer.h.{}."
+    ln_attn = "ln_attn" if cfg.parallel_layernorm else "input_layernorm"
+    f = {
+        "embed/tokens": sd["transformer.word_embeddings.weight"].clone(),
+        "layers/ln1/scale": _stack(sd, pre + ln_attn + ".weight", L),
+        "layers/ln1/bias": _stack(sd, pre + ln_attn + ".bias", L),
+        "layers/attn/wo": _stack(sd, pre + "self_attention.dense.weight", L,
+                                 True),
+        "layers/mlp/w_in": _stack(sd, pre + "mlp.dense_h_to_4h.weight", L,
+                                  True),
+        "layers/mlp/w_out": _stack(sd, pre + "mlp.dense_4h_to_h.weight", L,
+                                   True),
+        "final_ln/scale": sd["transformer.ln_f.weight"].clone(),
+        "final_ln/bias": sd["transformer.ln_f.bias"].clone(),
+    }
+    if cfg.parallel_layernorm:
+        f["layers/ln_mlp/scale"] = _stack(sd, pre + "ln_mlp.weight", L)
+        f["layers/ln_mlp/bias"] = _stack(sd, pre + "ln_mlp.bias", L)
+    qkv = [_split_falcon_qkv(
+        sd[pre.format(i) + "self_attention.query_key_value.weight"], cfg)
+        for i in range(L)]
+    for j, name in enumerate(("wq", "wk", "wv")):
+        f[f"layers/attn/{name}"] = torch.stack([t[j] for t in qkv])
+    return f
+
+
+def _gpt2_to_flat(sd: Dict[str, torch.Tensor], cfg: ModelConfig
+                  ) -> Dict[str, torch.Tensor]:
+    L, h = cfg.num_layers, cfg.hidden_size
+    wte = sd["transformer.wte.weight"]
+    if wte.shape[0] < cfg.vocab_size:  # the padded vocab (50257 -> 50304)
+        wte = torch.cat([wte, wte.new_zeros(cfg.vocab_size - wte.shape[0],
+                                            h)])
+    pre = "transformer.h.{}."
+    qkv_w = _stack(sd, pre + "attn.c_attn.weight", L)    # [L, h, 3h]
+    qkv_b = _stack(sd, pre + "attn.c_attn.bias", L)      # [L, 3h]
+    f = {
+        "embed/tokens": wte.clone(),
+        "embed/pos": sd["transformer.wpe.weight"].clone(),
+        "final_ln/scale": sd["transformer.ln_f.weight"].clone(),
+        "final_ln/bias": sd["transformer.ln_f.bias"].clone(),
+    }
+    for j, (w, b) in enumerate((("wq", "bq"), ("wk", "bk"), ("wv", "bv"))):
+        f[f"layers/attn/{w}"] = qkv_w[..., j * h:(j + 1) * h].contiguous()
+        f[f"layers/attn/{b}"] = qkv_b[..., j * h:(j + 1) * h].contiguous()
+    for path, name in (("layers/ln1/scale", "ln_1.weight"),
+                       ("layers/ln1/bias", "ln_1.bias"),
+                       ("layers/ln2/scale", "ln_2.weight"),
+                       ("layers/ln2/bias", "ln_2.bias"),
+                       ("layers/attn/wo", "attn.c_proj.weight"),
+                       ("layers/attn/bo", "attn.c_proj.bias"),
+                       ("layers/mlp/w_in", "mlp.c_fc.weight"),
+                       ("layers/mlp/b_in", "mlp.c_fc.bias"),
+                       ("layers/mlp/w_out", "mlp.c_proj.weight"),
+                       ("layers/mlp/b_out", "mlp.c_proj.bias")):
+        f[path] = _stack(sd, pre + name, L)
+    return f
+
+
+_IMPORTERS = {"llama": _llama_to_flat, "mistral": _llama_to_flat,
+              "falcon": _falcon_to_flat, "gpt2": _gpt2_to_flat}
+
+
 def hf_state_dict_to_params(sd: Dict[str, torch.Tensor], cfg: ModelConfig,
                             model_type: str,
                             dtype: Optional[torch.dtype] = None
@@ -183,7 +373,7 @@ def hf_state_dict_to_params(sd: Dict[str, torch.Tensor], cfg: ModelConfig,
     tensors on the state dict's device, cast to dtype when given),
     checked path by path and shape by shape against models/params.py."""
     _check_model_type(model_type)
-    flat = _llama_to_flat(sd, cfg)
+    flat = _IMPORTERS[model_type](sd, cfg)
     want = param_shapes(cfg)
     missing, extra = sorted(set(want) - set(flat)), sorted(set(flat) - set(want))
     if missing or extra:
@@ -205,6 +395,10 @@ def params_to_hf_state_dict(params: Dict[str, Any], cfg: ModelConfig,
     tensor under both names)."""
     _check_model_type(model_type)
     f = dict(_flatten(params))
+    if model_type == "falcon":
+        return _falcon_state_dict(f, cfg)
+    if model_type == "gpt2":
+        return _gpt2_state_dict(f, cfg)
     sd: Dict[str, torch.Tensor] = {}
 
     def t(x):
@@ -227,4 +421,59 @@ def params_to_hf_state_dict(params: Dict[str, Any], cfg: ModelConfig,
     sd["model.norm.weight"] = f["final_ln/scale"].clone()
     sd["lm_head.weight"] = (sd["model.embed_tokens.weight"]
                             if cfg.tie_embed_logits else t(f["lm_head/w"]))
+    return sd
+
+
+def _falcon_state_dict(f: Dict[str, torch.Tensor], cfg: ModelConfig
+                       ) -> Dict[str, torch.Tensor]:
+    h, D = cfg.hidden_size, cfg.head_dim
+    nq, nkv = cfg.num_attention_heads, cfg.n_kv_heads
+    g = nq // nkv
+    sd = {"transformer.word_embeddings.weight": f["embed/tokens"].clone()}
+    lns = [("ln1", "ln_attn"), ("ln_mlp", "ln_mlp")] \
+        if cfg.parallel_layernorm else [("ln1", "input_layernorm")]
+    for i in range(cfg.num_layers):
+        pre = f"transformer.h.{i}."
+        for ours, theirs in lns:
+            sd[pre + theirs + ".weight"] = f[f"layers/{ours}/scale"][i].clone()
+            sd[pre + theirs + ".bias"] = f[f"layers/{ours}/bias"][i].clone()
+        q = f["layers/attn/wq"][i].t().reshape(nkv, g, D, h)
+        k = f["layers/attn/wk"][i].t().reshape(nkv, 1, D, h)
+        v = f["layers/attn/wv"][i].t().reshape(nkv, 1, D, h)
+        sd[pre + "self_attention.query_key_value.weight"] = torch.cat(
+            [q, k, v], dim=1).reshape((nq + 2 * nkv) * D, h).contiguous()
+        for name, path in (("self_attention.dense", "layers/attn/wo"),
+                           ("mlp.dense_h_to_4h", "layers/mlp/w_in"),
+                           ("mlp.dense_4h_to_h", "layers/mlp/w_out")):
+            sd[pre + name + ".weight"] = f[path][i].t().contiguous()
+    sd["transformer.ln_f.weight"] = f["final_ln/scale"].clone()
+    sd["transformer.ln_f.bias"] = f["final_ln/bias"].clone()
+    sd["lm_head.weight"] = sd["transformer.word_embeddings.weight"]
+    return sd
+
+
+def _gpt2_state_dict(f: Dict[str, torch.Tensor], cfg: ModelConfig
+                     ) -> Dict[str, torch.Tensor]:
+    sd = {"transformer.wte.weight": f["embed/tokens"].clone(),
+          "transformer.wpe.weight": f["embed/pos"].clone()}
+    for i in range(cfg.num_layers):
+        pre = f"transformer.h.{i}."
+        for name, path in (("ln_1.weight", "layers/ln1/scale"),
+                           ("ln_1.bias", "layers/ln1/bias"),
+                           ("ln_2.weight", "layers/ln2/scale"),
+                           ("ln_2.bias", "layers/ln2/bias"),
+                           ("attn.c_proj.weight", "layers/attn/wo"),
+                           ("attn.c_proj.bias", "layers/attn/bo"),
+                           ("mlp.c_fc.weight", "layers/mlp/w_in"),
+                           ("mlp.c_fc.bias", "layers/mlp/b_in"),
+                           ("mlp.c_proj.weight", "layers/mlp/w_out"),
+                           ("mlp.c_proj.bias", "layers/mlp/b_out")):
+            sd[pre + name] = f[path][i].clone()
+        sd[pre + "attn.c_attn.weight"] = torch.cat(
+            [f[f"layers/attn/{w}"][i] for w in ("wq", "wk", "wv")], dim=-1)
+        sd[pre + "attn.c_attn.bias"] = torch.cat(
+            [f[f"layers/attn/{b}"][i] for b in ("bq", "bk", "bv")], dim=-1)
+    sd["transformer.ln_f.weight"] = f["final_ln/scale"].clone()
+    sd["transformer.ln_f.bias"] = f["final_ln/bias"].clone()
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
     return sd

@@ -16,8 +16,13 @@ torch.utils.checkpoint (use_reentrant=False):
     reference's checkpointed core attention; JAX's
     dots_with_no_batch_dims_saveable keeps the weight-matmul outputs and
     recomputes the rest);
-  * "full"      checkpoints each whole block.
-"block:N" and "uniform:N" are not ported yet.
+  * "full"      checkpoints each whole block;
+  * "block:N"   checkpoints each of the first N blocks and saves the
+    rest (the reference's --recompute_method block);
+  * "uniform:N" checkpoints chunks of N blocks, and each block inside a
+    chunk again, so the backward keeps L/N chunk inputs and replays a
+    chunk's N blocks one by one (the JAX package's two-level remat; N
+    must divide L; uniform:1 is "full").
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from megatron_tpu_torch.config import RECOMPUTE_POLICIES, ModelConfig
+from megatron_tpu_torch.config import ModelConfig, parse_recompute
 from megatron_tpu_torch.models.transformer import block_forward
 from megatron_tpu_torch.ops.cross_entropy import cross_entropy_loss
 from megatron_tpu_torch.ops.normalization import norm_forward
@@ -44,13 +49,30 @@ def _layers(tree: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
 
 
 def embed_tokens(cfg: ModelConfig, params: Dict[str, Any],
-                 tokens: torch.Tensor) -> torch.Tensor:
-    """Token embedding (positions enter through RoPE)."""
-    return F.embedding(tokens, params["embed"]["tokens"]).to(cfg.dtype)
+                 tokens: torch.Tensor,
+                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embedding, plus the embed/pos rows at `positions` ([B, S] or
+    [1, S]; None: 0 .. S-1) for absolute position embeddings (a rotary
+    model's positions enter through RoPE). Positions are clamped to the
+    table, as a gather on the device must not read past it: the engines
+    refuse caches longer than the table, so only padded positions that
+    no one reads are clamped."""
+    x = F.embedding(tokens, params["embed"]["tokens"]).to(cfg.dtype)
+    if cfg.position_embedding_type == "absolute":
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
+        pos = positions.to(tokens.device, torch.long).clamp(
+            0, cfg.max_position_embeddings - 1)
+        x = x + F.embedding(pos, params["embed"]["pos"]).to(cfg.dtype)
+    return x
 
 
 def final_hidden_norm(cfg: ModelConfig, params: Dict[str, Any],
                       x: torch.Tensor) -> torch.Tensor:
+    """The final stack norm; the identity under post-LN, where each layer
+    ends with its own norm."""
+    if cfg.use_post_ln:
+        return x
     return norm_forward(cfg.normalization, x, params["final_ln"]["scale"],
                         params["final_ln"].get("bias"),
                         cfg.layernorm_epsilon)
@@ -95,18 +117,23 @@ def lm_forward(
     (transformer.attention_block).
 
     rope: a precomputed (cos, sin) table covering every position this
-    call uses; None builds one here (at the cache length with caches, or
-    max_pages * page_size with paged pools, as the JAX package does). A
-    serving engine builds its table once.
+    call uses; None builds one here for a rotary model (at the cache
+    length with caches, or max_pages * page_size with paged pools, as the
+    JAX package does). A serving engine builds its table once. Models
+    with absolute position embeddings have none.
 
     recompute: the activation-recompute policy of a training pass (see
     the module docstring); it takes effect only while autograd records
     and never with caches."""
-    if recompute not in RECOMPUTE_POLICIES:
-        raise ValueError(f"unknown recompute policy {recompute!r}; one of "
-                         f"{RECOMPUTE_POLICIES}")
+    gran, n_rc = parse_recompute(recompute)
     if kv_caches is not None or not torch.is_grad_enabled():
-        recompute = "none"
+        gran = "none"
+    if gran == "uniform" and n_rc == 1:
+        gran = "full"
+    if gran == "uniform" and cfg.num_layers % n_rc:
+        raise ValueError(
+            f"uniform:{n_rc} needs the layer count ({cfg.num_layers}) "
+            "divisible by the chunk size")
     if positions is None and kv_caches is not None:
         steps = torch.arange(tokens.shape[1], device=tokens.device)
         if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
@@ -115,9 +142,9 @@ def lm_forward(
         else:
             positions = int(cache_index) + steps[None, :]
 
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, positions)
 
-    if rope is None:
+    if rope is None and cfg.position_embedding_type == "rotary":
         if kv_caches is not None and page_table is not None:
             # paged pools are [L, num_pages, page_size, ...]: the logical
             # max length is the table width x page size, not shape[2]
@@ -129,20 +156,35 @@ def lm_forward(
         rope = precompute_rope(cfg.head_dim, rope_len, cfg.rope_theta,
                                cfg.rope_scaling_factor, device=x.device)
 
+    layers = []
     for i, lp in enumerate(_layers(params["layers"], cfg.num_layers)):
         cache = None if kv_caches is None else tuple(c[i]
                                                      for c in kv_caches)
-        layer = functools.partial(
+        layers.append(functools.partial(
             block_forward, cfg, lp, rope=rope, positions=positions,
             kv_cache=cache, cache_index=cache_index,
             padding_mask=attention_mask,
-            recompute_core=recompute == "selective",
+            recompute_core=gran == "selective",
             page_table=page_table, page_write_start=page_write_start,
-            page_write_end=page_write_end)
-        if recompute == "full":
-            x, _ = checkpoint(layer, x, use_reentrant=False)
-        else:
-            x, _ = layer(x)
+            page_write_end=page_write_end))
+
+    def remat(layer, x):
+        return checkpoint(layer, x, use_reentrant=False)[0]
+
+    if gran == "uniform":
+        def chunk(x, lo):
+            for layer in layers[lo:lo + n_rc]:
+                x = remat(layer, x)
+            return x
+
+        for lo in range(0, cfg.num_layers, n_rc):
+            x = checkpoint(chunk, x, lo, use_reentrant=False)
+    else:
+        for i, layer in enumerate(layers):
+            if gran == "full" or (gran == "block" and i < n_rc):
+                x = remat(layer, x)
+            else:
+                x, _ = layer(x)
 
     x = final_hidden_norm(cfg, params, x)
     if return_hidden:

@@ -38,9 +38,16 @@ def _defs(cfg: ModelConfig) -> Dict[str, Any]:
 
     d: Dict[str, Any] = {}
     d["embed/tokens"] = ((V, h), _NORMAL)
+    if cfg.position_embedding_type == "absolute":
+        d["embed/pos"] = ((cfg.max_position_embeddings, h), _NORMAL)
 
     ln_bias = cfg.normalization == "layernorm"
-    for prefix in ("layers/ln1", "layers/ln2"):
+    norms = ["layers/ln1"]
+    if not cfg.parallel_attn:
+        norms.append("layers/ln2")
+    if cfg.parallel_layernorm:
+        norms.append("layers/ln_mlp")
+    for prefix in norms:
         d[f"{prefix}/scale"] = ((L, h), _ONES)
         if ln_bias:
             d[f"{prefix}/bias"] = ((L, h), _ZEROS)
@@ -62,9 +69,10 @@ def _defs(cfg: ModelConfig) -> Dict[str, Any]:
         d["layers/mlp/b_in"] = ((L, Fin), _ZEROS)
         d["layers/mlp/b_out"] = ((L, h), _ZEROS)
 
-    d["final_ln/scale"] = ((h,), _ONES)
-    if ln_bias:
-        d["final_ln/bias"] = ((h,), _ZEROS)
+    if not cfg.use_post_ln:  # post-LN layers carry their own output norm
+        d["final_ln/scale"] = ((h,), _ONES)
+        if ln_bias:
+            d["final_ln/bias"] = ((h,), _ZEROS)
     if not cfg.tie_embed_logits:
         d["lm_head/w"] = ((h, V), _NORMAL)
     return d

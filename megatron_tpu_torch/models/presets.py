@@ -1,6 +1,8 @@
 """Architecture presets (counterpart of megatron_tpu/models/presets.py).
 
 The sizes and flags are the JAX package's; pad_vocab is its padding rule.
+The JAX package's mixtral preset is not here: the port's model has no
+mixture-of-experts layers yet (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -45,6 +47,11 @@ _LLAMA2_SIZES = {
     "13B": (5120, 40, 40, None, 13824),
     "70B": (8192, 80, 64, 8, 28672),
 }
+_CODELLAMA_SIZES = {
+    "7B": (4096, 32, 32, None, 11008),
+    "13B": (5120, 40, 40, None, 13824),
+    "34B": (8192, 48, 64, 8, 22016),
+}
 
 
 def llama(size: str = "7B", version: int = 2, seq_length: Optional[int] = None,
@@ -65,6 +72,16 @@ def llama2(size: str = "7B", **kw) -> ModelConfig:
     return llama(size=size, version=2, **kw)
 
 
+def codellama(size: str = "7B", seq_length: int = 16384) -> ModelConfig:
+    """CodeLlama: llama-2 geometry + rope theta 1e6 + 32016-token vocab."""
+    h, L, nh, nkv, ffn = _CODELLAMA_SIZES[size]
+    return _llama_base(
+        hidden_size=h, num_layers=L, num_attention_heads=nh, num_kv_heads=nkv,
+        ffn_hidden_size=ffn, seq_length=seq_length, vocab_size=32016,
+        rope_theta=1e6,
+    )
+
+
 def mistral(size: str = "7B", seq_length: int = 8192) -> ModelConfig:
     """Mistral-7B: llama flags + GQA(8) + sliding window 4096."""
     if size != "7B":
@@ -75,6 +92,54 @@ def mistral(size: str = "7B", seq_length: int = 8192) -> ModelConfig:
         ffn_hidden_size=14336, seq_length=seq_length,
         sliding_window_size=4096,
     )
+
+
+def falcon(size: str = "7B", seq_length: int = 2048) -> ModelConfig:
+    """Falcon 7B/40B: rotary, MQA/GQA, parallel attention, layernorm,
+    exact gelu, tied embeddings, no linear biases."""
+    if size == "7B":
+        h, L, nh, nkv, parallel_ln = 4544, 32, 71, 1, False
+    elif size == "40B":
+        h, L, nh, nkv, parallel_ln = 8192, 60, 128, 8, True
+    else:
+        raise ValueError(f"unknown falcon size {size}")
+    return ModelConfig(
+        hidden_size=h, num_layers=L, num_attention_heads=nh, num_kv_heads=nkv,
+        ffn_hidden_size=4 * h, vocab_size=65024, seq_length=seq_length,
+        normalization="layernorm", activation="gelu",
+        position_embedding_type="rotary",
+        parallel_attn=True, parallel_layernorm=parallel_ln,
+        use_bias_linear=False, use_bias_qkv=False,
+        tie_embed_logits=True, layernorm_epsilon=1e-5,
+        attention_impl="pallas",
+    ).validate()
+
+
+_GPT2_SIZES = {
+    "124M": (768, 12, 12),
+    "355M": (1024, 24, 16),
+    "760M": (1536, 24, 16),
+    "1.3B": (2048, 24, 32),
+}
+
+
+def gpt2(size: str = "124M", seq_length: int = 1024) -> ModelConfig:
+    """GPT-2: absolute position embeddings, exact gelu, layernorm, biases,
+    tied embeddings, vocab 50257 padded to 50304. One departure from the
+    JAX preset, which keeps the default attention_impl "xla": here it is
+    "pallas" as for every other preset, since the serving entry point
+    takes its kernel route from the preset."""
+    h, L, nh = _GPT2_SIZES[size]
+    return ModelConfig(
+        hidden_size=h, num_layers=L, num_attention_heads=nh,
+        vocab_size=50304,
+        seq_length=seq_length, max_position_embeddings=seq_length,
+        normalization="layernorm", activation="gelu",
+        position_embedding_type="absolute",
+        use_bias_linear=True, use_bias_qkv=True,
+        tie_embed_logits=True, layernorm_epsilon=1e-5,
+        init_method_std=0.02, attention_impl="pallas",
+    ).validate()
 
 
 def tiny(vocab_size: int = 256, seq_length: int = 128, **kw) -> ModelConfig:
@@ -93,7 +158,10 @@ def tiny(vocab_size: int = 256, seq_length: int = 128, **kw) -> ModelConfig:
 PRESETS = {
     "llama": llama,
     "llama2": llama2,
+    "codellama": codellama,
     "mistral": mistral,
+    "falcon": falcon,
+    "gpt2": gpt2,
     "tiny": tiny,
 }
 

@@ -2,7 +2,9 @@
 megatron_tpu/models/transformer.py), for serving and training.
 
 Pre-LN Llama/GPT block: norm -> attention (GQA, RoPE, optional window)
--> residual -> norm -> MLP -> residual. KV caches are dense
+-> residual -> norm -> MLP -> residual; the Falcon form (parallel_attn)
+adds attention and MLP of the same norm in one residual, and the post-LN
+form norms each layer's output instead of its input. KV caches are dense
 [B, max_seq, nkv, D] buffers written IN PLACE (the JAX package threads
 them functionally and donates them under jit; PyTorch mutates the
 buffer instead). The training form is the same block without a cache,
@@ -43,7 +45,7 @@ def attention_block(
     cfg: ModelConfig,
     p: Dict[str, Any],          # layers/attn subtree of one layer
     x: torch.Tensor,            # [B, S, h] (already normed)
-    rope: Tuple[torch.Tensor, torch.Tensor],   # (cos, sin) tables
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]],  # (cos, sin)
     positions: Optional[torch.Tensor],
     kv_cache: Optional[KVCache] = None,
     cache_index=None,
@@ -54,6 +56,9 @@ def attention_block(
     page_write_end: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (out [B, S, h], kv_cache).
+
+    rope: the (cos, sin) tables of a rotary model; None for absolute
+    position embeddings (added to the token embedding instead).
 
     recompute_core: checkpoint the core attention (selective recompute):
     its forward runs again in the backward instead of saving its
@@ -90,7 +95,8 @@ def attention_block(
     k = k.reshape(b, s, nkv, D)
     v = v.reshape(b, s, nkv, D)
 
-    q, k = apply_rotary_emb(q, k, rope[0], rope[1], positions)
+    if cfg.position_embedding_type == "rotary":
+        q, k = apply_rotary_emb(q, k, rope[0], rope[1], positions)
 
     per_slot = isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1
     paged = page_table is not None
@@ -218,7 +224,7 @@ def block_forward(
     cfg: ModelConfig,
     lp: Dict[str, Any],       # one layer's params
     x: torch.Tensor,          # [B, S, h]
-    rope: Tuple[torch.Tensor, torch.Tensor],
+    rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
     positions: Optional[torch.Tensor] = None,
     kv_cache: Optional[KVCache] = None,
     cache_index=None,
@@ -228,13 +234,27 @@ def block_forward(
     page_write_start: Optional[int] = None,
     page_write_end: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """One pre-LN decoder layer -> (y, kv_cache)."""
+    """One decoder layer -> (y, kv_cache): pre-LN, parallel attention
+    (Falcon) or post-LN, as the config says."""
+    # post-LN: no pre-norm; the layer ends with its own norm, the ln1 slot
+    normed = x if cfg.use_post_ln else _norm(cfg, lp["ln1"], x)
     attn_out, kv_cache = attention_block(
-        cfg, lp["attn"], _norm(cfg, lp["ln1"], x), rope, positions,
+        cfg, lp["attn"], normed, rope, positions,
         kv_cache=kv_cache, cache_index=cache_index,
         padding_mask=padding_mask, recompute_core=recompute_core,
         page_table=page_table, page_write_start=page_write_start,
         page_write_end=page_write_end)
-    y = x + attn_out
-    y = y + mlp_block(cfg, lp["mlp"], _norm(cfg, lp["ln2"], y))
+    if cfg.parallel_attn:
+        # the MLP reads ln1(x) (Falcon-7B) or its own ln_mlp(x)
+        # (Falcon-40B); one residual add for both branches
+        mlp_in = (_norm(cfg, lp["ln_mlp"], x) if cfg.parallel_layernorm
+                  else normed)
+        res = normed if cfg.apply_residual_post_ln else x
+        return res + attn_out + mlp_block(cfg, lp["mlp"], mlp_in), kv_cache
+    y = (normed if cfg.apply_residual_post_ln else x) + attn_out
+    normed2 = _norm(cfg, lp["ln2"], y)
+    y = (normed2 if cfg.apply_residual_post_ln else y) + mlp_block(
+        cfg, lp["mlp"], normed2)
+    if cfg.use_post_ln:
+        y = _norm(cfg, lp["ln1"], y)
     return y, kv_cache

@@ -55,7 +55,8 @@ from megatron_tpu_torch.ops.flash.masks import (
 
 #: head dims the kernels are instantiated for
 KERNEL_HEAD_DIMS = (64, 128)
-#: decode query rows per kv head (Sq * G) one block holds
+#: decode query rows per kv head (Sq * G) one block holds: a kv head
+#: with more rows takes ceil(rows / DECODE_MAX_ROWS) row tiles
 DECODE_MAX_ROWS = 64
 #: kv positions per decode tile; engines round their cache length to it
 DECODE_BLOCK = 64
@@ -449,16 +450,23 @@ def decode_plan(s_len: int, b: int, hkv: int, rows: int,
     """The split-K launch of the decode kernel for a cache of s_len
     positions (paged: max_pages * ps), b slots, hkv kv heads and
     rows = Sq * G query rows per kv head: kv tiles per split
-    (masks.decode_split_tiles), splits, grid (Hkv, B, splits), the m16
-    tiles the rows pad to (1, 2, 4 for rows <= 16, 32, 64) and the
-    partials each (slot, kv head) may write (4 warps / m16 tiles a
-    split). csrc/flash_decode.cu m_tiles holds the same row rule."""
+    (masks.decode_split_tiles, planned per (slot, kv head)), splits, the
+    row tiles of at most DECODE_MAX_ROWS rows each kv head's rows are cut
+    into and their rows (tile_rows = min(rows, 64)), grid (Hkv * row
+    tiles, B, splits), the m16 tiles a row tile pads to (1, 2, 4 for
+    tile_rows <= 16, 32, 64) and the partials each (slot, kv head, row
+    tile) may write (4 warps / m16 tiles a split). csrc/flash_decode.cu
+    holds the same rules."""
     n_tiles = -(-s_len // DECODE_BLOCK)
     tiles = decode_split_tiles(n_tiles, b * hkv, sm_count)
     splits = decode_splits(n_tiles, tiles)
-    m = 1 if rows <= 16 else 2 if rows <= 32 else 4
-    return {"split_tiles": tiles, "splits": splits, "grid": (hkv, b, splits),
-            "m_tiles": m, "partials": splits * (4 // m)}
+    row_tiles = -(-rows // DECODE_MAX_ROWS)
+    tile_rows = min(rows, DECODE_MAX_ROWS)
+    m = 1 if tile_rows <= 16 else 2 if tile_rows <= 32 else 4
+    return {"split_tiles": tiles, "splits": splits,
+            "grid": (hkv * row_tiles, b, splits), "row_tiles": row_tiles,
+            "tile_rows": tile_rows, "m_tiles": m,
+            "partials": splits * (4 // m)}
 
 
 _plans = {}
@@ -479,7 +487,8 @@ def _decode_launch(s_len: int, b: int, hkv: int, rows: int, d: int, device):
     the capturing stream, which an eager launch on that stream (the
     warm-up that every capture needs) must have created: zeroing them
     inside the capture would allocate them in the graph's pool and zero
-    them only when it replays, so this raises instead. A graph keeps the
+    them only when it replays, so this raises instead. There is one
+    ticket per (slot, kv head, row tile). A graph keeps the
     capturing stream's tickets, so it must not be replayed while another
     launch that uses them runs: one graph is never replayed on two
     streams at once, and nothing else launches on its capture stream."""
@@ -489,17 +498,18 @@ def _decode_launch(s_len: int, b: int, hkv: int, rows: int, d: int, device):
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         plan = decode_plan(s_len, b, hkv, rows, sms)
         _plans[key] = plan
-    n = b * hkv * plan["partials"] * rows
+    blocks = b * hkv * plan["row_tiles"]
+    n = blocks * plan["partials"] * plan["tile_rows"]
     work = torch.empty(n * (d + 2), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     tickets = _tickets.get((device, stream))
-    if tickets is None or tickets.numel() < b * hkv:
+    if tickets is None or tickets.numel() < blocks:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
                 "decode kernel captured on a stream it never ran on: run "
                 "the captured work once on the capture stream first (the "
                 "warm-up creates and zeroes that stream's tickets)")
-        tickets = torch.zeros(max(b * hkv, 1024), dtype=torch.int32,
+        tickets = torch.zeros(max(blocks, 1024), dtype=torch.int32,
                               device=device)
         _tickets[(device, stream)] = tickets
     return plan, work[:n * d], work[n * d:], tickets, stream
@@ -559,7 +569,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     speculative verify (the JAX package's flash_decode_mq).
 
     CPU tensors: the plain version. CUDA tensors: the
-    csrc/flash_decode.cu kernel (bf16, head dim 64 or 128, Sq * G <= 64,
+    csrc/flash_decode.cu kernel (bf16, head dim 64 or 128, any Sq * G,
     kv_lengths int32 on the same device), or ValueError."""
     if q.device.type == "cpu":
         return flash_decode_reference(q, k, v, kv_lengths, sliding_window)
@@ -571,9 +581,6 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if (bk, dk) != (b, d) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"flash_decode: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
-    if sq * (hq // hkv) > DECODE_MAX_ROWS:
-        raise ValueError(f"flash_decode: Sq * G = {sq * (hq // hkv)} query "
-                         f"rows per kv head exceeds {DECODE_MAX_ROWS}")
     _check_cuda_inputs("flash_decode", (q, k, v), d)
     if (kv_lengths.device != q.device or kv_lengths.dtype != torch.int32
             or tuple(kv_lengths.shape) != (b,)
@@ -670,9 +677,6 @@ def _paged_decode(name: str, q, k_pages, v_pages, page_table, kv_lengths,
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k_pages "
                          f"{tuple(k_pages.shape)} v_pages "
                          f"{tuple(v_pages.shape)}")
-    if sq * (hq // hkv) > DECODE_MAX_ROWS:
-        raise ValueError(f"{name}: Sq * G = {sq * (hq // hkv)} query "
-                         f"rows per kv head exceeds {DECODE_MAX_ROWS}")
     _check_cuda_inputs(name, (q, k_pages, v_pages), d)
     for t, what, dims in ((page_table, "page_table", 2),
                           (kv_lengths, "kv_lengths", 1)):
@@ -735,7 +739,7 @@ def paged_flash_decode_mq(q: torch.Tensor, k_pages: torch.Tensor,
     """Multi-query paged decode (the speculative verify pass, Sq > 1:
     query j sees k_pos < kv_lengths + j) -> [B, Sq, Hq, D]. The same
     kernel as paged_flash_decode, counted in paged_flash_decode.launches;
-    Sq * G <= 64."""
+    any Sq * G."""
     return _paged_decode("paged_flash_decode_mq", q, k_pages, v_pages,
                          page_table, kv_lengths, sliding_window)
 

@@ -34,7 +34,8 @@ def main(argv=None) -> str:
     p.add_argument("--load", required=True, help="native checkpoint dir")
     p.add_argument("--output", required=True, help="HF output dir")
     p.add_argument("--model_type", default=None,
-                   help="llama | mistral (default: from the checkpoint)")
+                   help="llama | mistral | falcon | gpt2 (default: from the "
+                        "checkpoint)")
     p.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
@@ -50,8 +51,6 @@ def main(argv=None) -> str:
         args.load, empty_params(cfg, device=args.device, dtype=dtype))
     sd = {k: v.cpu() for k, v in
           params_to_hf_state_dict(params, cfg, model_type).items()}
-    if cfg.tie_embed_logits:
-        sd["lm_head.weight"] = sd["model.embed_tokens.weight"]
     os.makedirs(args.output, exist_ok=True)
     with open(os.path.join(args.output, "config.json"), "w") as f:
         json.dump(hf_config_from_native(cfg, model_type,

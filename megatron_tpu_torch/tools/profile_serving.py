@@ -6,18 +6,23 @@
         --draft_layers 4
     python -m megatron_tpu_torch.tools.profile_serving --kv_cache_int8 \\
         [--kv_paging]
+    python -m megatron_tpu_torch.tools.profile_serving \\
+        --model_name falcon-7B        # or gpt2-1.3B, any preset
 
-Builds the engine as the server does (Llama-2-7B at full width and
-depth, random init, bf16, 8 slots x 2048 positions) four times in one
+Builds the engine as the server does (--model_name, default Llama-2-7B,
+at full width and depth, random init, bf16, 8 slots x 2048 positions, or
+x the position table of an absolute model, e.g. GPT-2's 1024) four
+times in one
 call: the plain tick and the speculative tick (k --spec_k, the n-gram
 drafter, or with --drafter model the target's first --draft_layers
 layers as the draft), each eager (cuda_graph=False) and as the captured
 CUDA graph. Each engine gets the same 8 greedy requests (prompts of 5 to
-1500 tokens; the speculative engines' last prompt repeats a 64-token
-pattern so the n-gram lookup has something to propose), warms up, then
-times --ticks decode ticks with all 8 slots active under torch.profiler.
-The dense engine also times one admission (prefill + first token) of a
-1500-token prompt into the 1536 bucket.
+1500 tokens at 2048 positions, scaled to a shorter slot; the
+speculative engines' last prompt repeats a 64-token pattern so the
+n-gram lookup has something to propose), warms up, then times --ticks
+decode ticks with all 8 slots active under torch.profiler. The dense
+engine also times one admission (prefill + first token) of the longest
+prompt (1500 tokens into the 1536 bucket at 2048 positions).
 
 With --kv_cache_int8 the four engines are the plain tick with bf16
 caches and with int8 caches (ops/kv_quant.py: quantize on write,
@@ -128,15 +133,31 @@ def _prompts(np, rng, cfg, lens, repeat):
     return out
 
 
-#: the prompt lengths of the 8 slots whose decode ticks are timed
+#: the prompt lengths of the 8 slots whose decode ticks are timed, at
+#: 2048 positions a slot
 TICK_LENS = (5, 100, 300, 500, 700, 1000, 1200, 1500)
+
+
+def slot_len(cfg) -> int:
+    """Positions a slot holds: 2048, or an absolute model's table if
+    shorter (GPT-2: 1024)."""
+    if cfg.position_embedding_type == "absolute":
+        return min(2048, cfg.max_position_embeddings)
+    return 2048
+
+
+def tick_lens(cfg) -> tuple:
+    """TICK_LENS scaled to the model's slot length."""
+    n = slot_len(cfg)
+    return tuple(max(1, t * n // 2048) for t in TICK_LENS)
 
 
 def filled_engine(np, cfg, params, rng, *, paged, speculative=None,
                   graph=True, int8=False):
-    """An 8-slot x 2048 engine as the server builds it (paged: 16-token
-    pages, 32-token prefill chunks, the default pool) given one greedy
-    request per TICK_LENS prompt, stepped until all 8 decode (the dense
+    """An 8-slot x slot_len(cfg) engine as the server builds it (paged:
+    16-token pages, 32-token prefill chunks, the default pool) given one
+    greedy request per tick_lens(cfg) prompt, stepped until all 8 decode
+    (the dense
     engine admits them in one step, the paged one through ~170 chunked
     prefill ticks), then 5 warm decode ticks. max_new_tokens leaves
     room for those and for the timed windows."""
@@ -144,16 +165,17 @@ def filled_engine(np, cfg, params, rng, *, paged, speculative=None,
     from megatron_tpu_torch.inference.paging import PagedInferenceEngine
     from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
 
-    kw = dict(num_slots=8, max_seq_len=2048, metrics=MetricsRegistry(),
+    n, lens = slot_len(cfg), tick_lens(cfg)
+    kw = dict(num_slots=8, max_seq_len=n, metrics=MetricsRegistry(),
               speculative=speculative, cuda_graph=graph, kv_cache_int8=int8)
     eng = (PagedInferenceEngine(cfg, params, page_size=16, prefill_chunk=32,
                                 **kw)
            if paged else InferenceEngine(cfg, params, **kw))
     k1 = 1 + (speculative.k if speculative else 0)
-    for prompt in _prompts(np, rng, cfg, TICK_LENS, speculative is not None):
+    for prompt in _prompts(np, rng, cfg, lens, speculative is not None):
         eng.submit(Request(prompt=prompt,
-                           max_new_tokens=2048 - k1 - len(prompt)))
-    while len(eng._decode_rows()) < len(TICK_LENS):
+                           max_new_tokens=n - k1 - len(prompt)))
+    while len(eng._decode_rows()) < len(lens):
         eng.step()
     for _ in range(5):
         eng.step()
@@ -177,6 +199,8 @@ def main(argv=None) -> int:
     import torch
 
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--model_name", default="llama2-7B",
+                   help="preset, NAME-SIZE (e.g. falcon-7B, gpt2-1.3B)")
     p.add_argument("--ticks", type=int, default=10)
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--kv_paging", action="store_true",
@@ -201,7 +225,7 @@ def main(argv=None) -> int:
     from megatron_tpu_torch.tools import run_text_generation_server as rts
 
     card = _card()
-    cfg = presets.from_model_name("llama2-7B")
+    cfg = presets.from_model_name(args.model_name)
     params = init_params(cfg, args.seed)
     spec = rts.load_spec(rts.parse_args(
         ["--serve_speculative", args.drafter, "--serve_spec_k",
@@ -271,14 +295,16 @@ def _profile_dense(torch, np, args, card, cfg, params, speculative, graph,
     if speculative is None and graph:
         eng.run_until_idle()
 
+        longest = tick_lens(cfg)[-1]
+
         def prefill():
             eng.submit(Request(prompt=rng.integers(
-                0, cfg.vocab_size - 1, size=TICK_LENS[-1]).astype(np.int32),
+                0, cfg.vocab_size - 1, size=longest).astype(np.int32),
                 max_new_tokens=1))
             return eng._admit()
 
         prefill()                      # warm this bucket once
-        _window(torch, f"prefill_bucket_{eng._bucket(TICK_LENS[-1])}_"
+        _window(torch, f"prefill_bucket_{eng._bucket(longest)}_"
                 f"{tag['kv']}",
                 prefill, card, extra=lambda: {"kv": tag["kv"]})
     eng.stop()
@@ -304,8 +330,8 @@ def _profile_paged(torch, np, args, card, cfg, params, speculative, graph,
         # free one slot for a fresh long prompt and time its chunks
         eng._retire(eng._decode_rows()[-1])
         eng.submit(Request(prompt=rng.integers(
-            0, cfg.vocab_size - 1, size=TICK_LENS[-1]).astype(np.int32),
-            max_new_tokens=1))
+            0, cfg.vocab_size - 1, size=tick_lens(cfg)[-1]).astype(
+                np.int32), max_new_tokens=1))
         eng._admit()
         eng._prefill_tick()            # warm one chunk
         _window(torch, f"paged_prefill_chunk_{eng.prefill_chunk}_"

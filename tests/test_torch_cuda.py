@@ -30,8 +30,12 @@ speculation, dense and paged) and its launch counters count every replay
 by query length; speculative greedy tokens equal the plain ones or part
 at a bf16 near-tie (teacher-forced, >= 99% of positions); a failed step
 recaptures; a capture that fails raises; the decode kernel under capture
-refuses a stream it never ran on and then replays bit for bit; and a
-verify past the kernel's 64 query rows fails at engine construction.
+refuses a stream it never ran on and then replays bit for bit; a verify
+past one block's 64 query rows (G 16, k 4: 80 rows) serves the plain
+tokens or parts at a near-tie. The decode kernels take 71, 72 and 355
+query rows per kv head (Falcon-7B's decode and verify, G 8 at k 8), and
+tiny Falcon-like (parallel attention, multi-query, D 64) and GPT-2-like
+(absolute positions, biases) engines replay their eager tokens exactly.
 
 Serving control under the graph: a weight reload copies new weights into
 the captured tensors between replays (no recapture) and the engine then
@@ -162,6 +166,40 @@ def test_paged_flash_decode_kernel_matches_plain(gen, ps, sq, hq, hkv,
         q.float(), kp.float(), vp.float(), table, lens, window))
     with pytest.raises(ValueError, match="int32"):
         fn(q, kp, vp, table.long(), lens)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("sq,hq,hkv,d,window", [
+    (1, 71, 1, 64, None), (5, 71, 1, 64, None), (9, 64, 8, 128, None),
+    (2, 48, 1, 64, 100),
+])
+def test_decode_kernels_take_more_rows_than_one_block(gen, paged, sq, hq,
+                                                      hkv, d, window):
+    """Sq * G past one block's 64 query rows (71 and 355: Falcon-7B's
+    decode and its k-4 verify; 72: G 8 at k 8; 96 with a window): row
+    tiles of 64, each with its own partials and ticket."""
+    B, S, ps = 4, 512, 16
+    assert ft.decode_plan(S, B, hkv, sq * hq // hkv)["row_tiles"] > 1
+    q = _randn(gen, B, sq, hq, d)
+    lens_list = [1, 65, 300, S - sq + 1]
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    if paged:
+        n_pages = 1 + B * (S // ps)
+        k, v = (_randn(gen, n_pages, ps, hkv, d) for _ in range(2))
+        table = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
+                 + 1).view(B, S // ps).to(torch.int32).contiguous()
+        fn = ft.paged_flash_decode if sq == 1 else ft.paged_flash_decode_mq
+        o = fn(q, k, v, table, lens, sliding_window=window)
+        want = ft.paged_flash_decode_reference(q.float(), k.float(),
+                                               v.float(), table, lens,
+                                               window)
+    else:
+        k, v = _randn(gen, B, S, hkv, d), _randn(gen, B, S, hkv, d)
+        o = ft.flash_decode(q, k, v, lens, sliding_window=window)
+        want = ft.flash_decode_reference(q.float(), k.float(), v.float(),
+                                         lens, window)
+    torch.cuda.synchronize()
+    _assert_close(o, want)
 
 
 def _split_edge_lengths(plan, sq, window, s_len):
@@ -646,8 +684,6 @@ def test_speculative_tokens_match_plain_or_part_at_a_near_tie(gen, paged,
     teacher-forced argmax or within that position's bf16 error band
     (the largest |bf16 - fp32| logit difference there), at >= 99% of
     positions; the full-depth draft accepts most drafts."""
-    from megatron_tpu_torch.models.language_model import lm_forward
-
     cfg, params = _serving_model()
     spec = _spec(cfg, params, drafter, layers=2)
     plain = _serve(_engine(cfg, params, paged), _PROMPTS, n=24)
@@ -655,6 +691,16 @@ def test_speculative_tokens_match_plain_or_part_at_a_near_tie(gen, paged,
     fast = _serve(eng, _PROMPTS, n=24)
     if drafter == "model":
         assert eng.stats["spec_accepted"] > 0.5 * eng.stats["spec_proposed"]
+    near, total, same = _near_ties(cfg, params, _PROMPTS, plain, fast)
+    assert near / total >= 0.99, (near, total, same)
+
+
+def _near_ties(cfg, params, prompts, plain, fast):
+    """(positions where fast's token is the teacher-forced bf16 argmax or
+    within that position's bf16 error band, positions, tokens equal to
+    plain's)."""
+    from megatron_tpu_torch.models.language_model import lm_forward
+
     dense = dataclasses.replace(cfg, attention_impl="xla")
     ref = dataclasses.replace(dense, params_dtype="float32")
     p32 = {k: ({kk: ({n: t.float() for n, t in vv.items()}
@@ -663,7 +709,7 @@ def test_speculative_tokens_match_plain_or_part_at_a_near_tie(gen, paged,
                else v.float()) for k, v in params.items()}
     near = total = same = 0
     with torch.no_grad():
-        for prompt, a, b in zip(_PROMPTS, plain, fast):
+        for prompt, a, b in zip(prompts, plain, fast):
             seq = torch.tensor([list(prompt) + b.generated[:-1]],
                                device="cuda")
             lb = lm_forward(dense, params, seq)[0, len(prompt) - 1:].float()
@@ -674,7 +720,39 @@ def test_speculative_tokens_match_plain_or_part_at_a_near_tie(gen, paged,
             near += int((gap <= band).sum())
             total += len(b.generated)
             same += sum(x == y for x, y in zip(a.generated, b.generated))
-    assert near / total >= 0.99, (near, total, same)
+    return near, total, same
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("family", ["falcon", "gpt2"])
+def test_family_graph_engine_matches_the_eager_engine(gen, paged, family):
+    """Falcon-like (parallel attention, layernorm, gelu, multi-query: G
+    8 over 1 kv head at D 64) and GPT-2-like (absolute positions read
+    from the captured carry's lengths, biases, tied): the captured tick
+    gives the eager engine's greedy and sampled tokens and logprobs
+    exactly, plain and with an n-gram verify."""
+    from megatron_tpu_torch.inference.speculative import SpecConfig
+
+    kw = (dict(num_kv_heads=1, parallel_attn=True) if family == "falcon"
+          else dict(position_embedding_type="absolute",
+                    max_position_embeddings=256, use_bias_linear=True,
+                    use_bias_qkv=True, num_kv_heads=None))
+    cfg = presets.tiny(hidden_size=512, num_attention_heads=8,
+                       vocab_size=128, seq_length=256,
+                       normalization="layernorm", activation="gelu",
+                       tie_embed_logits=True, params_dtype="bfloat16",
+                       attention_impl="pallas", **kw)
+    params = init_params(cfg, 0)
+    for spec in (None, SpecConfig(k=4)):
+        runs = []
+        for graph in (False, True):
+            eng = _engine(cfg, params, paged, cuda_graph=graph,
+                          speculative=spec)
+            reqs = _serve(eng, _PROMPTS) + _serve(eng, _PROMPTS[:2],
+                                                  temperature=0.8, seed=3)
+            assert eng.stats["decode_recompiles"] == 0
+            runs.append([(r.generated, r.logprobs) for r in reqs])
+        assert runs[0] == runs[1], (family, paged, spec)
 
 
 def test_failed_step_recaptures_the_graph(gen):
@@ -777,15 +855,25 @@ def test_decode_workspace_and_tickets_under_capture(gen):
 
 
 def test_engine_refuses_a_verify_past_the_kernel_rows(gen):
-    """(k + 1) * G query rows per kv head must fit the decode kernel's 64:
-    the engine raises at construction, not at its first tick."""
+    """Once refused, now served: (k + 1) * G = 80 query rows per kv head
+    (G 16, k 4) take two row tiles of the decode kernel, and the greedy
+    speculative tokens are the plain engine's or part at a bf16 near-tie
+    (the verify's GEMMs run at other shapes)."""
     from megatron_tpu_torch.inference.speculative import SpecConfig
 
     cfg = presets.tiny(hidden_size=2048, num_attention_heads=16,
                        num_kv_heads=1, vocab_size=128,
                        params_dtype="bfloat16", attention_impl="pallas")
-    with pytest.raises(ValueError, match="query rows per kv head"):
-        _engine(cfg, init_params(cfg, 0), speculative=SpecConfig(k=4))
+    params = init_params(cfg, 0)
+    plain = _serve(_engine(cfg, params), _PROMPTS, n=16)
+    eng = _engine(cfg, params, speculative=SpecConfig(k=4))
+    c0 = ft.launch_counts()         # after the capture's warm-up launches
+    fast = _serve(eng, _PROMPTS, n=16)
+    forms = ft.launch_counts()
+    assert forms["flash_decode/sq5"] - c0.get("flash_decode/sq5", 0) \
+        == 2 * eng.stats["ticks"]
+    near, total, _ = _near_ties(cfg, params, _PROMPTS, plain, fast)
+    assert near / total >= 0.99, (near, total)
 
 
 @pytest.mark.parametrize("paged", [False, True])

@@ -198,7 +198,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "tools.profile_training", "inference.speculative",
         "inference.cuda_graph", "tools.profile_serving",
         "inference.generation", "inference.api", "inference.fleet.reload",
-        "ops.kv_quant")]
+        "ops.kv_quant", "interop.hf", "models.presets", "config",
+        "tools.hf_to_native", "tools.native_to_hf")]
     code = (
         "import importlib, pkgutil, sys\n"
         "import megatron_tpu_torch as pkg\n"

@@ -143,24 +143,26 @@ def test_lm_loss_and_every_gradient_leaf_match_jax(tiny, ce_chunk):
 
 
 def test_recompute_policies_give_identical_grads(tiny):
-    """none / selective / full recompute run the same arithmetic, so the
-    gradients are bitwise equal on the CPU."""
+    """none / selective / full / block:N / uniform:N recompute run the
+    same arithmetic, so the gradients are bitwise equal on the CPU."""
     jcfg, tcfg, jparams = tiny
     batch = {k: torch.from_numpy(v) for k, v in
              _batch(np.random.default_rng(2), 2, 32, 96).items()}
     grads = {}
-    for policy in ("none", "selective", "full"):
+    policies = ("selective", "full", "block:1", "block:2", "uniform:2")
+    for policy in ("none",) + policies:
         params = _tparams(tcfg, jparams)
         loss, _ = lm_loss(tcfg, params, batch, recompute=policy)
         loss.backward()
         grads[policy] = (float(loss), [g.grad.clone() for _, g in
                                        topt.leaf_paths(params)])
-    for policy in ("selective", "full"):
+    for policy in policies:
         assert grads[policy][0] == grads["none"][0]
         for a, b in zip(grads[policy][1], grads["none"][1]):
             assert torch.equal(a, b), policy
-    with pytest.raises(ValueError, match="recompute"):
-        lm_loss(tcfg, _tparams(tcfg, jparams), batch, recompute="block:1")
+    for bad in ("uniform:0", "block:x", "remat"):
+        with pytest.raises(ValueError, match="recompute"):
+            lm_loss(tcfg, _tparams(tcfg, jparams), batch, recompute=bad)
 
 
 # ---------------------------------------------------------------------------
@@ -326,6 +328,8 @@ def test_training_config_fields_and_flops_match_jax():
             assert getattr(t, f.name) == getattr(j, f.name), f.name
     for t, j in ((presets.llama2("7B"), j_presets.llama("7B", version=2)),
                  (presets.mistral(), j_presets.mistral()),
+                 (presets.falcon("7B"), j_presets.falcon("7B")),
+                 (presets.gpt2("1.3B"), j_presets.gpt2("1.3B")),
                  (presets.tiny(**KW), j_presets.tiny(**KW))):
         assert t.flops_per_token_fwd() == j.flops_per_token_fwd() > 0
         assert t.flops_per_token_fwd(1000) == j.flops_per_token_fwd(1000)
@@ -335,5 +339,13 @@ def test_training_config_fields_and_flops_match_jax():
             dataclasses.replace(tiny, **{field: 0.1}).validate()
     with pytest.raises(ValueError, match="ce_chunk_size"):
         dataclasses.replace(tiny, ce_chunk_size=5).validate()
-    with pytest.raises(ValueError, match="recompute"):
-        tconfig.TrainingConfig(recompute_granularity="block:2").validate()
+    # block:N / uniform:N are ported; their malformed forms are refused
+    # as the JAX TrainingConfig refuses them
+    for ok in ("block:2", "block:0", "uniform:3"):
+        tconfig.TrainingConfig(recompute_granularity=ok).validate()
+        jconfig.TrainingConfig(recompute_granularity=ok).validate()
+    for bad in ("uniform:0", "block:x", "remat"):
+        with pytest.raises(ValueError, match="recompute"):
+            tconfig.TrainingConfig(recompute_granularity=bad).validate()
+        with pytest.raises(ValueError, match="recompute"):
+            jconfig.TrainingConfig(recompute_granularity=bad).validate()
