@@ -226,11 +226,40 @@ still run, so one call shows every failure):
               biases, tied 50304-row vocab) at full size: served by the
               dense engine (prompts of 5, 100, 500 and 900 tokens, the
               same gates) and trained 2 steps at S 1024.
-  6. report   one JSON line listing each kernel with its launches on its
+  6. loop     the loop and the data, in a temporary directory: (a) a
+              seeded JSONL corpus (20,000 documents of Zipf-drawn words),
+              a GPT-2 byte-level vocabulary learned from it and written
+              here (256 byte symbols, 400 merges, <|endoftext|>), the
+              corpus through `python -m
+              megatron_tpu_torch.tools.preprocess_data --workers 4
+              --append_eod` (docs/s, tokens/s), and the native index
+              builder, built into megatron_tpu_torch/build, held equal
+              to its Python version on this corpus; (b) GPT-2 1.3B at
+              full size through pretrain_gpt on that corpus
+              (--dataloader_type cyclic --eod_mask_loss, 2 x 1, lr 1e-6,
+              8 steps, --metrics perplexity accuracy, timers level 2,
+              params norm, memory, journal, /metrics scraped mid-run,
+              flight recorder, a torch.profiler window over step 3),
+              once --no_async_loop and once async: losses bitwise equal,
+              one host sync a step, the native index builder used, the
+              Chrome trace naming flash_fwd, flash_bwd_dq and
+              flash_bwd_dkv, exact launches; median step, tokens/s, MFU,
+              device idle share in the window, data wait and goodput
+              shares printed; a 2-step replay check at full size (two
+              runs of a step bitwise equal); (c) five fault runs at
+              GPT-2 width x 2 layers in child processes at once:
+              nan_loss:3:3 rolls back and its steps 6-8 equal a
+              --skip_iters 3 4 5 run's bitwise; preempt_at:5 commits a
+              "preemption" checkpoint and exits 0, and its resume equals
+              an uninterrupted run bitwise (notice -> commit printed);
+              hang_step:4 exits 70 with a flight bundle; corrupt_step:2
+              under --replay_check_interval 2 raises SDCError;
+              --save_interval auto takes a cadence and saves.
+  7. report   one JSON line listing each kernel with its launches on its
               path (serving, paged_serving, speculative_serving,
-              serving_control, training, finetune and families), then
-              the card's name and power limit, then {"ok": true, "device":
-              {...}} as the last line.
+              serving_control, training, finetune, families and loop),
+              then the card's name and power limit, then {"ok": true,
+              "device": {...}} as the last line.
 
 It needs one CUDA card; with none (or outside a checkout) it exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -3157,6 +3186,488 @@ def families(torch, np, ft, card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the loop and the data
+
+LOOP_MODEL = "gpt2-1.3B"      # the JAX `gpt2` preset's full size
+LOOP_SEQ = 1024
+LOOP_STEPS = 8
+LOOP_DOCS = 20000             # 20..200 Zipf-drawn words each
+LOOP_LEXICON = 4000
+LOOP_MERGES = 400             # counted from the first LOOP_MERGE_DOCS docs
+LOOP_MERGE_DOCS = 2000
+LOOP_WORKERS = 4
+LOOP_PROFILE = (3, 4)         # the --profile window [start, end)
+LOOP_FAULT_LAYERS = 2         # phase 6c: GPT-2 width, depth cut for time
+LOOP_FAULT_TIMEOUT_S = 420
+LOOP_HANG_TIMEOUT_S = 20      # --step_timeout_s of the hang_step run
+LOOP_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def loop_corpus(np, out_dir) -> dict:
+    """Phase 6a: a seeded JSONL corpus of Zipf-drawn words, a GPT-2
+    byte-level vocabulary learned from it (256 byte symbols, LOOP_MERGES
+    merges, <|endoftext|>), and the corpus tokenized by
+    `python -m megatron_tpu_torch.tools.preprocess_data` with
+    LOOP_WORKERS workers and --append_eod."""
+    import re
+
+    from megatron_tpu_torch.tokenizer.gpt2_bpe import train_vocab, write_vocab
+
+    rng = np.random.default_rng(SEED)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    lexicon = ["".join(rng.choice(letters, int(rng.integers(2, 11))))
+               for _ in range(LOOP_LEXICON)]
+    docs = []
+    for _ in range(LOOP_DOCS):
+        idx = (rng.zipf(ZIPF_A, int(rng.integers(20, 201))) - 1) \
+            % LOOP_LEXICON
+        words = [lexicon[i] for i in idx]
+        for j in range(11, len(words), 12):
+            words[j] += "."
+        words[0] = words[0].capitalize()
+        docs.append(" ".join(words))
+    jsonl = os.path.join(out_dir, "loop_corpus.jsonl")
+    with open(jsonl, "w", encoding="utf-8") as f:
+        for d in docs:
+            f.write(json.dumps({"text": d}) + "\n")
+    t0 = time.monotonic()
+    vocab, merges = train_vocab(docs[:LOOP_MERGE_DOCS], LOOP_MERGES)
+    vocab_s = time.monotonic() - t0
+    vf = os.path.join(out_dir, "loop_vocab.json")
+    mf = os.path.join(out_dir, "loop_merges.txt")
+    write_vocab(vocab, merges, vf, mf)
+    prefix = os.path.join(out_dir, "loop_corpus")
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "megatron_tpu_torch.tools.preprocess_data",
+         "--input", jsonl, "--output_prefix", prefix,
+         "--tokenizer_type", "GPT2BPETokenizer", "--vocab_file", vf,
+         "--merges_file", mf, "--workers", str(LOOP_WORKERS),
+         "--append_eod"], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    wall_s = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"preprocess_data failed: {proc.stderr[-3000:]}")
+    m = re.search(r"(\d+) documents, (\d+) tokens in ([\d.]+) s "
+                  r"\((\d+) docs/s, (\d+) tokens/s\)", proc.stderr)
+    if m is None or int(m.group(1)) != LOOP_DOCS:
+        raise AssertionError(f"preprocess_data summary: {proc.stderr[-800:]}")
+    return {"prefix": prefix, "vocab_file": vf, "merges_file": mf,
+            "eod": vocab["<|endoftext|>"], "vocab_size": len(vocab),
+            "merges": len(merges), "vocab_s": vocab_s,
+            "documents": int(m.group(1)), "tokens": int(m.group(2)),
+            "tokenize_s": float(m.group(3)), "docs_per_s": int(m.group(4)),
+            "tokens_per_s": int(m.group(5)), "preprocess_wall_s": wall_s}
+
+
+def loop_native_index(np, prefix) -> dict:
+    """The native index builder was built (into megatron_tpu_torch/build)
+    and answers build_sample_idx; on this corpus it equals the Python
+    version."""
+    from megatron_tpu_torch.data import helpers
+    from megatron_tpu_torch.data.indexed_dataset import MMapIndexedDataset
+
+    if helpers.native_helpers() is None:
+        raise AssertionError("the native dataset helpers did not build")
+    lib = helpers.library_path()
+    sizes = MMapIndexedDataset(prefix).sizes
+    rng = np.random.default_rng(SEED)
+    doc_idx = np.concatenate([rng.permutation(len(sizes))
+                              for _ in range(2)])
+    tokens = int(sizes.sum())
+    t0 = time.monotonic()
+    native = helpers.build_sample_idx(sizes, doc_idx, LOOP_SEQ, 2, tokens)
+    native_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    plain = helpers.build_sample_idx(sizes, doc_idx, LOOP_SEQ, 2, tokens,
+                                     native=False)
+    plain_s = time.monotonic() - t0
+    if not np.array_equal(native, plain):
+        raise AssertionError("native build_sample_idx != its Python version")
+    return {"library": os.path.relpath(str(lib), REPO),
+            "samples": int(native.shape[0] - 1), "native_s": native_s,
+            "python_s": plain_s, "equal": True}
+
+
+def _trace_stats(path) -> dict:
+    """Device busy and idle share of a torch.profiler Chrome trace (the
+    union of its kernel intervals over the span of all its events) and
+    whether it names the training kernels."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "ts" in e]
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+             for e in events]
+    kernels = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                     for e in events if e.get("cat") == "kernel")
+    busy, end = 0.0, -math.inf
+    for a, b in kernels:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = max(b for _, b in spans) - min(a for a, _ in spans)
+    names = {e["name"] for e in events if e.get("cat") == "kernel"}
+    return {"window_ms": window / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / window if window > 0 else math.nan,
+            "kernels": len(kernels),
+            "named": {k: any(k in n for n in names) for k in LOOP_KERNELS}}
+
+
+def _loop_argv(data, steps, extra=()):
+    return ["--model_name", LOOP_MODEL, "--seq_length", str(LOOP_SEQ),
+            "--bf16", "--micro_batch_size", str(TRAIN_MICRO),
+            "--global_batch_size", str(TRAIN_GLOBAL),
+            "--train_iters", str(steps), "--log_interval", "1",
+            "--eval_interval", str(steps), "--eval_iters", "1",
+            "--lr", FAMILY_LR, "--lr_decay_style", "constant",
+            "--clip_grad", "1.0", "--recompute_granularity", "selective",
+            "--attention_impl", "pallas", "--data_path", data["prefix"],
+            "--split", "90,10,0", "--seed", str(SEED),
+            "--dataloader_type", "cyclic", "--eod_mask_loss",
+            "--eod_token_id", str(data["eod"]), "--num_workers", "2",
+            "--device", "cuda", *extra]
+
+
+def _journal(tele) -> list:
+    from megatron_tpu_torch.telemetry.journal import read_events
+
+    return read_events(os.path.join(tele, "events.jsonl"))[0]
+
+
+def _loop_train(torch, ft, card, data, tmp, sync: bool):
+    """Phase 6b's run: LOOP_MODEL at full size through pretrain_gpt with
+    every loop flag; --no_async_loop when sync. /metrics is scraped once
+    mid-run. Returns (line, losses, launches)."""
+    from megatron_tpu_torch.data import helpers
+    from megatron_tpu_torch.tools import pretrain_gpt
+
+    tag = "sync" if sync else "async"
+    tele = os.path.join(tmp, f"tele_{tag}")
+    prof = os.path.join(tmp, f"prof_{tag}")
+    extra = ["--metrics", "perplexity", "accuracy", "--timing_log_level",
+             "2", "--log_params_norm", "--log_memory_to_tensorboard",
+             "--telemetry_dir", tele, "--metrics_port", "0",
+             "--flight_recorder", "--profile", "--profile_step_start",
+             str(LOOP_PROFILE[0]), "--profile_step_end",
+             str(LOOP_PROFILE[1]), "--profile_dir", prof]
+    if sync:
+        extra.append("--no_async_loop")
+    scrape = {}
+
+    def log(msg):
+        print(msg, flush=True)
+        if msg.startswith("telemetry: /metrics listening on port "):
+            scrape["port"] = int(msg.rsplit(" ", 1)[1])
+        if (msg.startswith(f"iteration {LOOP_STEPS // 2}/")
+                and "port" in scrape):
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{scrape['port']}/metrics",
+                    timeout=30) as r:
+                scrape["text"] = r.read().decode()
+
+    from megatron_tpu_torch.telemetry.metrics import default_registry
+
+    # the process-wide registry outlives one run: read deltas
+    counted = ("train_steps_total", "train_host_syncs_total")
+    before = {k: default_registry().get(k).value()
+              if default_registry().get(k) is not None else 0.0
+              for k in counted}
+    free_cuda(torch)
+    native_before = helpers.calls["build_sample_idx", "native"]
+    # the main path's run: every count starts at 0 here
+    for name in TRAIN_COUNTED:
+        getattr(ft, name).launches = 0
+    t0 = time.monotonic()
+    loop = pretrain_gpt.main(_loop_argv(data, LOOP_STEPS, extra), log=log)
+    torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    launches = {n: getattr(ft, n).launches for n in TRAIN_COUNTED}
+    cfg = loop.cfg.model
+    steady = [r for r in loop.step_records if not r["warmup"]]
+    step_s = sorted(r["step_s"] for r in steady)[len(steady) // 2]
+    tokens_per_s = TRAIN_GLOBAL * LOOP_SEQ / step_s
+    mfu = tokens_per_s * 3.0 * cfg.flops_per_token_fwd() / PEAK_BF16_FLOPS
+    final = [e for e in _journal(tele)
+             if e["kind"] == "goodput" and e.get("final")][-1]
+    shares = {k[:-2]: final[k] / final["wall_s"] for k in final
+              if k.endswith("_s") and k != "wall_s"}
+    if len(loop.profile_traces) != 1:
+        raise AssertionError(f"{tag}: traces {loop.profile_traces}")
+    trace = _trace_stats(loop.profile_traces[0])
+    text = scrape.get("text", "")
+    line = {"phase": "loop_training", "card": card, "loop": tag,
+            "model": LOOP_MODEL, "layers": cfg.num_layers,
+            "hidden": cfg.hidden_size, "seq_length": cfg.seq_length,
+            "steps": LOOP_STEPS, "wall_s": wall_s,
+            "losses": [r["loss"] for r in loop.step_records],
+            "step_s": [r["step_s"] for r in loop.step_records],
+            "step_s_median": step_s, "tokens_per_s": tokens_per_s,
+            "mfu": mfu, "device_idle_share": trace["idle_share"],
+            "profile_window_ms": trace["window_ms"],
+            "data_wait_ms_per_step": 1e3 * sum(
+                r["data_wait_s"] for r in steady) / len(steady),
+            "goodput": final["goodput"], "goodput_shares": shares,
+            "host_sync_points": loop.host_sync_points,
+            "evals": loop.evals,
+            "params_norm": loop.history[-1].get("params_norm"),
+            "memory_mb": loop.history[-1].get("memory"),
+            "trace_names": trace["named"],
+            "metrics_scraped": {k: _metric(text, k) - before[k]
+                                for k in counted} if text else None,
+            "native_index_calls": helpers.calls[
+                "build_sample_idx", "native"] - native_before,
+            "launches": launches}
+    emit(line)
+    problems = []
+    losses = line["losses"]
+    if len(losses) != LOOP_STEPS or not all(map(math.isfinite, losses)):
+        problems.append(f"losses {losses}")
+    elif not losses[0] - losses[-1] >= FAMILY_LOSS_DROP_GATE:
+        problems.append(f"loss fell by {losses[0] - losses[-1]}")
+    if loop.host_sync_points != LOOP_STEPS:
+        problems.append(f"host syncs {loop.host_sync_points}")
+    if not all(trace["named"].values()):
+        problems.append(f"trace names {trace['named']}")
+    if not text or line["metrics_scraped"]["train_steps_total"] < 1:
+        problems.append(f"/metrics mid-run: {line['metrics_scraped']}")
+    if line["native_index_calls"] < 1:
+        problems.append("the native index builder was not used")
+    ev = loop.evals[-1] if loop.evals else {}
+    if not {"perplexity", "accuracy"} <= set(ev):
+        problems.append(f"eval metrics {ev}")
+    want = expected_train_launches(TRAIN_GLOBAL // TRAIN_MICRO,
+                                   cfg.num_layers, LOOP_STEPS, 1)
+    if launches != want:
+        problems.append(f"launches {launches} != {want}")
+    del loop
+    free_cuda(torch)
+    if problems:
+        raise AssertionError(f"loop ({tag}): " + "; ".join(problems))
+    return line, losses, launches
+
+
+def _loop_determinism(torch, ft, card, data, tmp) -> dict:
+    """Two runs of one step from one state and batch give bitwise-equal
+    states: the replay check on every step of a 2-step run at full size
+    (the step's state is copied, the step runs again from the copy, and
+    the state and metrics are compared bitwise on the card)."""
+    from megatron_tpu_torch.tools import pretrain_gpt
+
+    free_cuda(torch)
+    t0 = time.monotonic()
+    loop = pretrain_gpt.main(_loop_argv(
+        data, 2, ["--replay_check_interval", "1"]),
+        log=lambda m: print(m, flush=True))
+    line = {"phase": "loop_determinism", "card": card, "model": LOOP_MODEL,
+            "replayed_steps": loop.replay_checks, "bitwise_equal":
+            loop.replay_checks == [1, 2],
+            "wall_s": time.monotonic() - t0,
+            "max_memory_allocated_gib":
+            torch.cuda.max_memory_allocated() / 2**30}
+    emit(line)
+    del loop
+    for name in TRAIN_COUNTED:
+        getattr(ft, name).launches = 0
+    free_cuda(torch)
+    if not line["bitwise_equal"]:
+        raise AssertionError(f"determinism: {line}")
+    return line
+
+
+def _child(data, tmp, name, fault, extra, steps=LOOP_STEPS):
+    """Start one fault run of pretrain_gpt (LOOP_FAULT_LAYERS layers) in
+    its own process; its output goes to a file."""
+    save = os.path.join(tmp, f"ck_{name}")
+    tele = os.path.join(tmp, f"tele_{name}")
+    argv = _loop_argv(data, steps, ["--num_layers", str(LOOP_FAULT_LAYERS),
+                                    "--save", save, "--load", save,
+                                    "--telemetry_dir", tele,
+                                    "--keep_latest_k", "2", *extra])
+    env = dict(os.environ)
+    env.pop("MEGATRON_TPU_FAULT", None)
+    if fault:
+        env["MEGATRON_TPU_FAULT"] = fault
+    out = open(os.path.join(tmp, f"{name}.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "megatron_tpu_torch.tools.pretrain_gpt",
+         *argv], cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT)
+    return {"name": name, "proc": proc, "out": out, "save": save,
+            "tele": tele, "fault": fault}
+
+
+def _loop_ref(data, extra, steps=LOOP_STEPS, log=None):
+    from megatron_tpu_torch.tools import pretrain_gpt
+
+    return pretrain_gpt.main(_loop_argv(
+        data, steps, ["--num_layers", str(LOOP_FAULT_LAYERS), *extra]),
+        log=log or (lambda m: None))
+
+
+def _same_state(torch, a, b) -> bool:
+    from megatron_tpu_torch.training.optimizer import leaf_paths
+
+    return all(torch.equal(x, y) for f in ("params", "master", "mu", "nu")
+               if getattr(a, f) is not None
+               for (_, x), (_, y) in zip(leaf_paths(getattr(a, f)),
+                                         leaf_paths(getattr(b, f))))
+
+
+def _loop_faults(torch, card, data, tmp) -> dict:
+    """Phase 6c: five fault runs in child processes at once (GPT-2 width,
+    LOOP_FAULT_LAYERS layers), held against in-process reference runs."""
+    from megatron_tpu_torch.training import checkpointing as ckpt
+
+    children = [
+        _child(data, tmp, "nan", "nan_loss:3:3",
+               ["--rollback_on_divergence", "--divergence_patience", "3",
+                "--save_interval", "2"]),
+        _child(data, tmp, "preempt", "preempt_at:5",
+               ["--exit_signal_handler", "--save_interval", "100"]),
+        _child(data, tmp, "hang", "hang_step:4",
+               ["--step_timeout_s", str(LOOP_HANG_TIMEOUT_S)]),
+        _child(data, tmp, "corrupt", "corrupt_step:2",
+               ["--replay_check_interval", "2"]),
+        _child(data, tmp, "auto", None,
+               ["--save_interval", "auto", "--preempt_save_timeout",
+                "0.001", "--save_interval_floor", "2"]),
+    ]
+    t0 = time.monotonic()
+    # the references meanwhile, in this process: an uninterrupted run and
+    # one that skips the nan window's iterations outright
+    whole = _loop_ref(data, [])
+    skip = _loop_ref(data, ["--skip_iters", "3", "4", "5"])
+    rcs = {}
+    for c in children:
+        try:
+            rcs[c["name"]] = c["proc"].wait(
+                timeout=max(LOOP_FAULT_TIMEOUT_S - (time.monotonic() - t0),
+                            1))
+        except subprocess.TimeoutExpired:
+            c["proc"].kill()
+            rcs[c["name"]] = c["proc"].wait()
+        c["out"].close()
+    children_s = time.monotonic() - t0
+    logs = {}
+    for c in children:
+        with open(os.path.join(tmp, f"{c['name']}.log")) as f:
+            logs[c["name"]] = f.read()
+    by = {c["name"]: c for c in children}
+    problems = []
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+
+    def losses(name):
+        return {e["iteration"]: e["loss"] for e in _journal(by[name]["tele"])
+                if e["kind"] == "step"}
+
+    want = {r["iteration"]: r["loss"] for r in whole.step_records}
+    skipped = {r["iteration"]: r["loss"] for r in skip.step_records}
+    # nan: rolls back to 4, fast-forwards 5, and 6..8 equal the run that
+    # skipped 3..5 (both train 6..8 from the state after 2)
+    nan = losses("nan") if rcs["nan"] == 0 else {}
+    check(rcs["nan"] == 0, f"nan rc {rcs['nan']}")
+    check("rolled back to checkpoint at iteration 4" in logs["nan"],
+          "nan: no rollback to 4")
+    check(all(nan.get(i) == skipped.get(i) for i in (6, 7, 8)),
+          f"nan: post-rollback {nan} != skip_iters run {skipped}")
+    # preempt: a tagged checkpoint at 5, exit 0; the resume equals the
+    # uninterrupted run bitwise
+    check(rcs["preempt"] == 0, f"preempt rc {rcs['preempt']}")
+    pre = [e for e in _journal(by["preempt"]["tele"])
+           if e["kind"] == "preemption"]
+    check(ckpt.read_tracker(by["preempt"]["save"]) == 5, "preempt tracker")
+    check(ckpt.checkpoint_tags(ckpt.checkpoint_dir(by["preempt"]["save"], 5))
+          == ("preemption",), "preempt tag")
+    resumed = _loop_ref(data, ["--load", by["preempt"]["save"]])
+    pre_losses = losses("preempt")
+    check(pre_losses == {i: want[i] for i in range(1, 6)},
+          f"preempt: first 5 {pre_losses}")
+    check([r["loss"] for r in resumed.step_records]
+          == [want[i] for i in range(6, LOOP_STEPS + 1)], "resume losses")
+    check(_same_state(torch, resumed.state, whole.state), "resume state")
+    # hang: exit 70 with a flight bundle
+    bundles = os.path.join(by["hang"]["tele"], "flight_bundles")
+    n_bundles = len(os.listdir(bundles)) if os.path.isdir(bundles) else 0
+    check(rcs["hang"] == 70 and n_bundles == 1,
+          f"hang rc {rcs['hang']}, bundles {n_bundles}")
+    # corrupt: the replay check at 2 raises SDCError
+    check(rcs["corrupt"] != 0 and "SDCError" in logs["corrupt"]
+          and "silent data corruption at iteration 2" in logs["corrupt"],
+          f"corrupt rc {rcs['corrupt']}")
+    # auto: a cadence taken, checkpoints committed at it
+    auto_ev = _journal(by["auto"]["tele"])
+    retunes = [e for e in auto_ev if e["kind"] == "cadence_retune"]
+    commits = [e["iteration"] for e in auto_ev
+               if e["kind"] == "checkpoint_commit"]
+    check(rcs["auto"] == 0 and retunes and commits,
+          f"auto rc {rcs['auto']}, retunes {retunes}, commits {commits}")
+    line = {"phase": "loop_faults", "card": card, "model": LOOP_MODEL,
+            "layers": LOOP_FAULT_LAYERS, "rcs": rcs,
+            "children_wall_s": children_s,
+            "nan_post_rollback": [nan.get(i) for i in (6, 7, 8)],
+            "skip_iters_ref": [skipped.get(i) for i in (6, 7, 8)],
+            "preempt_notice_to_commit_s":
+            pre[0]["notice_to_commit_ms"] / 1e3 if pre else None,
+            "preempt_save_s": pre[0]["save_latency_ms"] / 1e3
+            if pre else None,
+            "hang_bundles": n_bundles,
+            "auto_interval": retunes[-1]["to_interval"] if retunes else None,
+            "auto_commits": commits, "problems": problems}
+    emit(line)
+    del whole, skip, resumed
+    if problems:
+        for name, text in logs.items():
+            print(f"--- {name} (rc {rcs[name]}) ---\n{text[-3000:]}",
+                  flush=True)
+        raise AssertionError("loop faults: " + "; ".join(problems))
+    return line
+
+
+def loop_and_data(torch, np, ft, card):
+    """Phase 6 in a temporary directory, removed at the end: (a) the
+    data, (b) the full-size loop twice (synchronous, then async: bitwise
+    equal losses), the determinism check, (c) the faults. Returns the
+    launches of (b), the path's main run."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="smoke_loop_")
+    try:
+        t0 = time.monotonic()
+        data = loop_corpus(np, tmp)
+        index = loop_native_index(np, data["prefix"])
+        emit({"phase": "loop_data", "card": card,
+              **{k: v for k, v in data.items()
+                 if k not in ("prefix", "vocab_file", "merges_file")},
+              "native_index": index, "wall_s": time.monotonic() - t0})
+        total = {}
+        lines = {}
+        for sync in (True, False):
+            line, losses, launches = _loop_train(torch, ft, card, data, tmp,
+                                                 sync)
+            lines[line["loop"]] = line
+            _add_counts(total, launches)
+        same = lines["sync"]["losses"] == lines["async"]["losses"]
+        emit({"phase": "loop_async_vs_sync", "card": card,
+              "losses_bitwise_equal": same,
+              "step_s_median": {k: v["step_s_median"]
+                                for k, v in lines.items()},
+              "device_idle_share": {k: v["device_idle_share"]
+                                    for k, v in lines.items()},
+              "data_wait_ms_per_step": {k: v["data_wait_ms_per_step"]
+                                        for k, v in lines.items()}})
+        if not same:
+            raise AssertionError("async losses != sync losses")
+        _loop_determinism(torch, ft, card, data, tmp)
+        _loop_faults(torch, card, data, tmp)
+        return total
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def free_cuda(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -3225,6 +3736,7 @@ def main() -> int:
     phase("kernel_vs_dense_step", step_vs_dense, torch, np, ft, card)
     phase("finetune", finetune, torch, np, ft, card)
     phase("families", families, torch, np, ft, card)
+    phase("loop", loop_and_data, torch, np, ft, card)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -3235,7 +3747,8 @@ def main() -> int:
              "serving_control": results["serving_control"],
              "training": results["training"],
              "finetune": results["finetune"],
-             "families": results["families"]}
+             "families": results["families"],
+             "loop": results["loop"]}
     reports = {"flash_fwd": results["flash_fwd"],
                "flash_decode": results["flash_decode"],
                "paged_flash_decode": results["paged_flash_decode"],

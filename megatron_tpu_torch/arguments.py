@@ -7,7 +7,14 @@ defaults to bf16 (--fp32 / --fp16 change it) and --attention_impl to
 "xla" (the dense path; --attention_impl pallas selects the flash
 kernels). --num_layers overrides the preset's depth, and --device
 (default "cuda") picks where the run happens. --save_interval takes an
-integer: the JAX CLI's "auto" cadence is not ported.
+integer or "auto" (the cadence derived from measured commit latency
+against --preempt_save_timeout). The loop's flags (the async loop,
+the fault-tolerance sentinels, logging, profiling and telemetry), the
+data flags and the tokenizer flags are the JAX CLI's; its multi-host
+flags (--coordination_dir, --peer_death_timeout_s) are not ported, and
+--compilation_cache_dir is refused (eager PyTorch compiles nothing).
+SIGTERM checkpoint-and-exit is always on, as there
+(--exit_signal_handler is accepted).
 
 The port builds every model from a preset (--model_name); the JAX CLI's
 architecture flags (--position_embedding_type, --max_position_embeddings,
@@ -21,6 +28,7 @@ override the preset's value when given. --recompute_method and
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Callable, Optional, Sequence
 
 from megatron_tpu_torch.config import (ModelConfig, OptimizerConfig,
@@ -66,6 +74,16 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--micro_batch_size", type=int, default=1)
     g.add_argument("--global_batch_size", type=int, default=None)
     g.add_argument("--train_iters", type=int, default=None)
+    g.add_argument("--train_samples", type=int, default=None)
+    g.add_argument("--exit_interval", type=int, default=None)
+    g.add_argument("--exit_duration_in_mins", type=int, default=None)
+    g.add_argument("--exit_signal_handler", action="store_true",
+                   default=True,
+                   help="SIGTERM checkpoint-and-exit is always enabled here")
+    g.add_argument("--eval_only", action="store_true")
+    g.add_argument("--skip_iters", nargs="*", type=int, default=[],
+                   help="skip the update on these iterations (their data "
+                        "is consumed)")
     g.add_argument("--seed", type=int, default=1234)
     g.add_argument("--recompute_granularity", default="none",
                    choices=["none", "selective", "full"])
@@ -98,14 +116,109 @@ def build_parser() -> argparse.ArgumentParser:
     g = p.add_argument_group("validation and logging")
     g.add_argument("--eval_interval", type=int, default=1000)
     g.add_argument("--eval_iters", type=int, default=100)
+    g.add_argument("--metrics", nargs="*", default=[],
+                   help="validation metrics: perplexity, accuracy, "
+                        "instruct_accuracy, count_loss_mask")
     g.add_argument("--log_interval", type=int, default=100)
+    g.add_argument("--tensorboard_dir", default=None)
+    g.add_argument("--wandb_logger", action="store_true")
+    g.add_argument("--wandb_project", default="megatron_tpu")
+    g.add_argument("--wandb_name", default=None)
+    g.add_argument("--wandb_api_key", default=None,
+                   help="exported as WANDB_API_KEY if not already set")
+    g.add_argument("--timing_log_level", type=int, default=0)
+    g.add_argument("--log_params_norm", action="store_true")
+    g.add_argument("--log_memory_to_tensorboard", action="store_true")
+    g.add_argument("--log_batch_size_to_tensorboard", action="store_true")
+    g.add_argument("--log_world_size_to_tensorboard", action="store_true")
+    g.add_argument("--log_timers_to_tensorboard", action="store_true",
+                   help="per-span timer scalars each log_interval "
+                        "(also raises --timing_log_level to 1)")
+    g.add_argument("--profile", action="store_true",
+                   help="torch.profiler trace window (CPU + CUDA "
+                        "activities, a Chrome trace) for steps "
+                        "[start, end)")
+    g.add_argument("--profile_step_start", type=int, default=10)
+    g.add_argument("--profile_step_end", type=int, default=12)
+    g.add_argument("--profile_signal_steps", type=int, default=2,
+                   help="steps traced when SIGUSR1 arms an on-demand "
+                        "profile window mid-run (no --profile needed)")
+    g.add_argument("--profile_dir", default=None,
+                   help="trace output dir (default: --tensorboard_dir)")
+
+    g = p.add_argument_group("telemetry")
+    g.add_argument("--telemetry_dir", default=None,
+                   help="write the structured event journal as rotating "
+                        "JSONL under this dir")
+    g.add_argument("--journal_max_mb", type=float, default=64.0,
+                   help="rotate the journal past this size; 0 disables "
+                        "rotation")
+    g.add_argument("--metrics_port", type=int, default=None,
+                   help="sidecar Prometheus /metrics listener for the "
+                        "train loop (0 binds a free port)")
+    g.add_argument("--flight_recorder", action="store_true",
+                   help="arm the stall watchdog: no step heartbeat for "
+                        "--flight_recorder_deadline_s dumps all-thread "
+                        "stacks + the journal tail to a bundle dir")
+    g.add_argument("--flight_recorder_deadline_s", type=float, default=600.0)
+    g.add_argument("--flight_recorder_abort", action="store_true",
+                   help="after dumping the stall bundle, SIGABRT")
+
+    g = p.add_argument_group("async loop")
+    g.add_argument("--no_async_loop", action="store_false", dest="async_loop",
+                   default=True,
+                   help="the synchronous loop (blocking data fetch, copy "
+                        "and metrics read each step), the bitwise oracle "
+                        "of the async default")
+    g.add_argument("--prefetch_depth", type=int, default=2,
+                   help="queue depth of the background batch prefetcher "
+                        "(0 keeps the copy on the loop's path)")
+    g.add_argument("--metrics_lag", type=int, default=1,
+                   help="read step metrics K steps late so the next "
+                        "step is queued while the current one runs")
+    g.add_argument("--compilation_cache_dir", default=None,
+                   help="refused: eager PyTorch compiles nothing")
+
+    g = p.add_argument_group("fault tolerance")
+    g.add_argument("--divergence_patience", type=int, default=100,
+                   help="trip the divergence sentinel after this many "
+                        "CONSECUTIVE non-finite/skipped optimizer steps "
+                        "(0 disables)")
+    g.add_argument("--loss_spike_factor", type=float, default=0.0,
+                   help="trip when loss > factor * EMA(loss) for "
+                        "--loss_spike_patience consecutive steps "
+                        "(0 disables)")
+    g.add_argument("--loss_spike_patience", type=int, default=5)
+    g.add_argument("--rollback_on_divergence", action="store_true",
+                   help="on a sentinel trip: reload the newest valid "
+                        "checkpoint and fast-forward the data past the "
+                        "poison window instead of aborting")
+    g.add_argument("--max_rollbacks", type=int, default=3)
+    g.add_argument("--preempt_save_timeout", type=float, default=600.0,
+                   help="deadline (seconds) on the checkpoint a SIGTERM "
+                        "forces; past it the process exits 75 (0 "
+                        "disables the deadline)")
+    g.add_argument("--step_timeout_s", type=float, default=0.0,
+                   help="hang watchdog: no step for this many seconds "
+                        "dumps a flight bundle and exits 70 (0 disables)")
+    g.add_argument("--replay_check_interval", type=int, default=0,
+                   help="every N steps re-run the step on its retained "
+                        "state and batch and compare BITWISE (0 "
+                        "disables)")
+    g.add_argument("--log_data_fingerprint", action="store_true",
+                   help="journal a crc32 of every host batch as data_crc")
 
     g = p.add_argument_group("checkpointing")
     g.add_argument("--save", default=None)
     g.add_argument("--load", default=None)
     g.add_argument("--save_interval", type=_save_interval, default=None,
                    help="checkpoint every N iterations (and once at the "
-                        "end when --save is set)")
+                        "end when --save is set), or 'auto' to derive "
+                        "the cadence from measured commit latency "
+                        "against the --preempt_save_timeout grace window")
+    g.add_argument("--save_interval_floor", type=int, default=25,
+                   help="lower clamp (steps) on the '--save_interval "
+                        "auto' cadence")
     g.add_argument("--finetune", action="store_true",
                    help="load the weights only: iteration, consumed "
                         "samples and optimizer state start fresh")
@@ -116,6 +229,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default=True,
                    help="block the train loop on each checkpoint write "
                         "instead of overlapping it with compute")
+    g.add_argument("--no_load_rng", action="store_true",
+                   help="accepted: the port keeps no RNG state")
     g.add_argument("--keep_latest_k", type=int, default=None,
                    help="retention: prune all but the newest K committed "
                         "checkpoints after each save (default: keep all)")
@@ -129,6 +244,31 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--variable_seq_lengths", action="store_true",
                    help="instruction data: pad each batch to a multiple of "
                         "16 tokens instead of --seq_length")
+    g.add_argument("--dataloader_type", default="single",
+                   choices=["single", "cyclic"],
+                   help="single = sequential deterministic resume; cyclic "
+                        "= epoch-seeded random order")
+    g.add_argument("--num_workers", type=int, default=2,
+                   help="prefetch depth of the threaded batch loader "
+                        "(0 = synchronous)")
+    g.add_argument("--data_cache_dir", default=None)
+    g.add_argument("--eod_mask_loss", action="store_true")
+    g.add_argument("--eod_token_id", type=int, default=None,
+                   help="EOD id for --eod_mask_loss/--reset_position_ids "
+                        "(the data is pre-tokenized; there is no "
+                        "tokenizer to ask)")
+    g.add_argument("--reset_position_ids", action="store_true",
+                   help="restart position ids after each EOD")
+    g.add_argument("--tokenizer_type", default="SentencePieceTokenizer")
+    g.add_argument("--vocab_file", default=None)
+    g.add_argument("--merges_file", default=None)
+    g.add_argument("--merge_file", dest="merges_file", default=None,
+                   help="the reference's spelling of --merges_file")
+    g.add_argument("--tokenizer_model", default=None)
+    g.add_argument("--vocab_extra_ids", type=int, default=None)
+    g.add_argument("--no_new_tokens", action="store_false", dest="new_tokens",
+                   help="do not add special/extra-id tokens in the "
+                        "sentencepiece tokenizer")
 
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
@@ -136,12 +276,15 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _save_interval(value: str) -> int:
+def _save_interval(value: str):
+    """An integer, or the string "auto"."""
     if value.lower() == "auto":
+        return "auto"
+    try:
+        return int(value)
+    except ValueError:
         raise argparse.ArgumentTypeError(
-            "--save_interval auto is not ported yet (ROADMAP.md); give an "
-            "integer")
-    return int(value)
+            f"--save_interval {value!r}: an integer or 'auto'") from None
 
 
 def parse_args(argv: Optional[Sequence[str]] = None,
@@ -222,17 +365,58 @@ def args_to_run_config(args) -> RunConfig:
         adam_beta1=args.adam_beta1, adam_beta2=args.adam_beta2,
         adam_eps=args.adam_eps, weight_decay=args.weight_decay,
         clip_grad=args.clip_grad)
+    if args.wandb_api_key and "WANDB_API_KEY" not in os.environ:
+        os.environ["WANDB_API_KEY"] = args.wandb_api_key
+    auto = args.save_interval == "auto"
     training = TrainingConfig(
         micro_batch_size=args.micro_batch_size,
         global_batch_size=args.global_batch_size or args.micro_batch_size,
-        train_iters=args.train_iters, eval_interval=args.eval_interval,
+        train_iters=args.train_iters, train_samples=args.train_samples,
+        eval_interval=args.eval_interval,
         eval_iters=args.eval_iters, seed=args.seed,
         recompute_granularity=recompute_policy(args),
-        log_interval=args.log_interval, save=args.save, load=args.load,
-        save_interval=args.save_interval, finetune=args.finetune,
-        no_load_optim=args.no_load_optim, async_save=args.async_save,
+        save=args.save, load=args.load,
+        save_interval=None if auto else args.save_interval,
+        save_interval_auto=auto,
+        save_interval_floor=args.save_interval_floor,
+        exit_interval=args.exit_interval,
+        exit_duration_in_mins=args.exit_duration_in_mins,
+        finetune=args.finetune, no_load_optim=args.no_load_optim,
+        no_load_rng=args.no_load_rng, async_save=args.async_save,
         keep_latest_k=args.keep_latest_k,
+        async_loop=args.async_loop, prefetch_depth=args.prefetch_depth,
+        metrics_lag=args.metrics_lag,
+        compilation_cache_dir=args.compilation_cache_dir,
+        divergence_patience=args.divergence_patience,
+        loss_spike_factor=args.loss_spike_factor,
+        loss_spike_patience=args.loss_spike_patience,
+        rollback_on_divergence=args.rollback_on_divergence,
+        max_rollbacks=args.max_rollbacks,
+        preempt_save_timeout=args.preempt_save_timeout,
+        step_timeout_s=args.step_timeout_s,
+        replay_check_interval=args.replay_check_interval,
+        log_data_fingerprint=args.log_data_fingerprint,
+        log_interval=args.log_interval,
+        tensorboard_dir=args.tensorboard_dir,
+        wandb_logger=args.wandb_logger, wandb_project=args.wandb_project,
+        wandb_name=args.wandb_name,
+        timing_log_level=args.timing_log_level,
+        log_timers_to_tensorboard=args.log_timers_to_tensorboard,
+        profile=args.profile, profile_step_start=args.profile_step_start,
+        profile_step_end=args.profile_step_end,
+        profile_signal_steps=args.profile_signal_steps,
+        profile_dir=args.profile_dir, telemetry_dir=args.telemetry_dir,
+        journal_max_mb=args.journal_max_mb, metrics_port=args.metrics_port,
+        flight_recorder=args.flight_recorder,
+        flight_recorder_deadline_s=args.flight_recorder_deadline_s,
+        flight_recorder_abort=args.flight_recorder_abort,
+        eval_only=args.eval_only, skip_iters=tuple(args.skip_iters or ()),
+        log_params_norm=args.log_params_norm,
+        log_memory=args.log_memory_to_tensorboard,
+        log_batch_size=args.log_batch_size_to_tensorboard,
+        log_world_size=args.log_world_size_to_tensorboard,
         scalar_loss_mask=args.scalar_loss_mask,
-        variable_seq_lengths=args.variable_seq_lengths)
+        variable_seq_lengths=args.variable_seq_lengths,
+        metrics=tuple(args.metrics))
     return RunConfig(model=model, optimizer=optimizer,
                      training=training).validate()

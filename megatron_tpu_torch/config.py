@@ -242,41 +242,173 @@ class OptimizerConfig:
 
 @dataclass(frozen=True)
 class TrainingConfig:
-    """The TrainingConfig fields the training path reads: batching,
-    duration, evaluation, seed, recompute, logging, checkpointing and
-    the instruction collator's options."""
+    """The JAX package's TrainingConfig, single host: batching, duration,
+    evaluation, seed, recompute, checkpointing, the async loop, the
+    fault-tolerance sentinels, logging, profiling and telemetry, with its
+    names, defaults and validation. Left out: the multi-host fields
+    (coordination_dir, peer_death_timeout_s, seed_pipeline_offset,
+    data_parallel_random_init). compilation_cache_dir is kept for the
+    name's sake and refused when set: eager PyTorch has no compilation
+    to cache."""
 
     micro_batch_size: int = 1
     global_batch_size: int = 1
     # (start_batch, increment, ramp_samples)
     rampup_batch_size: Optional[Tuple[int, int, int]] = None
     train_iters: Optional[int] = None
+    train_samples: Optional[int] = None
     eval_interval: int = 1000
     eval_iters: int = 100
     seed: int = 1234
     recompute_granularity: str = "none"
-    log_interval: int = 100
 
     # checkpointing (training/checkpointing.py)
     save: Optional[str] = None
     load: Optional[str] = None
     save_interval: Optional[int] = None
+    exit_interval: Optional[int] = None
+    exit_duration_in_mins: Optional[int] = None
     finetune: bool = False
     no_load_optim: bool = False
+    # accepted for the name's sake: the port keeps no RNG state (no
+    # dropout), so there is nothing to skip loading
+    no_load_rng: bool = False
     # overlap the checkpoint write with training (AsyncCheckpointSaver);
     # --no_async_save blocks the loop on each write
     async_save: bool = True
     # retention: keep only the newest K committed checkpoints; None = all
     keep_latest_k: Optional[int] = None
 
+    # the async loop (training/prefetch.py and the lagged metrics):
+    # --no_async_loop is the synchronous loop, the bitwise oracle
+    async_loop: bool = True
+    # depth of the background prefetcher's queue of landed batches
+    prefetch_depth: int = 2
+    # read each step's metrics this many steps late
+    metrics_lag: int = 1
+    # refused when set (see the class docstring)
+    compilation_cache_dir: Optional[str] = None
+
+    # divergence sentinel (training/resilience.py): abort, or roll back
+    # with rollback_on_divergence, after this many CONSECUTIVE
+    # non-finite/skipped steps; 0 disables
+    divergence_patience: int = 100
+    # trip when loss > factor * EMA for loss_spike_patience steps; 0 off
+    loss_spike_factor: float = 0.0
+    loss_spike_patience: int = 5
+    rollback_on_divergence: bool = False
+    max_rollbacks: int = 3
+
+    # deadline (s) on the expedited checkpoint a SIGTERM forces; past it
+    # the process exits 75. 0 disables the deadline
+    preempt_save_timeout: float = 600.0
+    # step watchdog: no step for this many seconds dumps a flight bundle
+    # and exits 70. 0 disables
+    step_timeout_s: float = 0.0
+    # every N steps replay the step from a copy of its state and compare
+    # bitwise (silent data corruption sentinel). 0 disables
+    replay_check_interval: int = 0
+    # journal a crc32 of every host batch as data_crc on step records
+    log_data_fingerprint: bool = False
+
+    # --save_interval auto: the cadence from measured commit latency
+    save_interval_auto: bool = False
+    save_interval_floor: int = 25
+
+    # logging
+    log_interval: int = 100
+    tensorboard_dir: Optional[str] = None
+    wandb_logger: bool = False
+    wandb_project: str = "megatron_tpu"
+    wandb_name: Optional[str] = None
+    timing_log_level: int = 0
+    log_timers_to_tensorboard: bool = False
+    # torch.profiler trace window over iterations
+    # [profile_step_start, profile_step_end) into profile_dir
+    profile: bool = False
+    profile_step_start: int = 10
+    profile_step_end: int = 12
+    profile_dir: Optional[str] = None
+    # SIGUSR1 mid-run arms a trace window of this many steps
+    profile_signal_steps: int = 2
+
+    # telemetry (megatron_tpu_torch/telemetry): the event journal dir,
+    # its rotation size, the sidecar /metrics port (0 binds a free one)
+    # and the flight recorder
+    telemetry_dir: Optional[str] = None
+    journal_max_mb: float = 64.0
+    metrics_port: Optional[int] = None
+    flight_recorder: bool = False
+    flight_recorder_deadline_s: float = 600.0
+    flight_recorder_abort: bool = False
+
+    # run only the validation loop, then exit
+    eval_only: bool = False
+    # iterations whose update is skipped (their data is consumed)
+    skip_iters: tuple = ()
+
+    # extra per-log-interval scalars
+    log_params_norm: bool = False
+    log_memory: bool = False
+    log_batch_size: bool = False
+    log_world_size: bool = False
+
     # instruction data (data/instruction_dataset.py): the loss weight of
     # non-assistant tokens, and padding each batch to a multiple of 16
     # instead of seq_length
     scalar_loss_mask: float = 0.0
     variable_seq_lengths: bool = False
+    # validation metrics (training/metrics.py names)
+    metrics: Tuple[str, ...] = ()
 
     def validate(self) -> "TrainingConfig":
         parse_recompute(self.recompute_granularity)
+        if self.compilation_cache_dir:
+            raise ValueError(
+                f"compilation_cache_dir={self.compilation_cache_dir!r}: "
+                "eager PyTorch compiles nothing, so there is no "
+                "compilation cache to keep (the flag is the JAX "
+                "package's); drop it")
+        if self.flight_recorder and self.flight_recorder_deadline_s <= 0:
+            raise ValueError(
+                f"flight_recorder_deadline_s="
+                f"{self.flight_recorder_deadline_s} must be > 0 (seconds "
+                "without a step heartbeat before the stall bundle dumps)")
+        if self.journal_max_mb < 0:
+            raise ValueError(
+                "journal_max_mb must be >= 0 (0 disables rotation: one "
+                "unbounded journal file)")
+        if self.prefetch_depth < 0:
+            raise ValueError(
+                "prefetch_depth must be >= 0 (0 disables the background "
+                "prefetcher; use --no_async_loop for the fully "
+                "synchronous loop)")
+        if self.metrics_lag < 0:
+            raise ValueError(
+                "metrics_lag must be >= 0 (0 fetches metrics inside each "
+                "step, the synchronous behavior)")
+        if self.preempt_save_timeout < 0:
+            raise ValueError(
+                "preempt_save_timeout must be >= 0 seconds (0 disables "
+                "the preemption-save deadline)")
+        if self.step_timeout_s < 0:
+            raise ValueError(
+                "step_timeout_s must be >= 0 seconds (0 disables the "
+                "step-deadline hang watchdog)")
+        if self.replay_check_interval < 0:
+            raise ValueError(
+                "replay_check_interval must be >= 0 steps (0 disables "
+                "the SDC replay check)")
+        if self.save_interval_auto and self.save_interval is not None:
+            raise ValueError(
+                "--save_interval auto and a fixed --save_interval are "
+                "mutually exclusive")
+        if self.save_interval_auto and not self.preempt_save_timeout:
+            raise ValueError(
+                "--save_interval auto derives the cadence from the "
+                "--preempt_save_timeout grace window; set a positive one")
+        if self.save_interval_floor < 1:
+            raise ValueError("save_interval_floor must be >= 1 step")
         return self
 
 

@@ -108,6 +108,7 @@ from megatron_tpu_torch.ops.flash.flash_template import DECODE_BLOCK
 from megatron_tpu_torch.telemetry.metrics import (
     MetricsRegistry, default_registry,
 )
+from megatron_tpu_torch.training import resilience
 from megatron_tpu_torch.training.optimizer import leaf_paths
 
 
@@ -247,6 +248,7 @@ class InferenceEngine:
         self._pending_params: Optional[tuple] = None
         self.params_version: Any = None
         self.last_progress_time = time.monotonic()
+        self._preempt_signalled = False  # preempt_replica fires once
         # decode_recompiles counts captures of the decode step beyond the
         # warm-up one: the JAX engine's zero-recompiles invariant
         self.stats = {"admitted": 0, "retired": 0, "ticks": 0,
@@ -580,6 +582,13 @@ class InferenceEngine:
                 return self._reject(
                     req, "deadline_s must be > 0 (or None: no deadline)")
             req._deadline = req.submit_time + req.deadline_s
+        if resilience.fault_armed("reject_admission"):
+            # injected overload: every admission answers queue-full while
+            # armed (the router's retry-on-503 path)
+            req.overloaded = True
+            return self._reject(
+                req, "engine queue full (injected: reject_admission); "
+                     "retry later")
         with self._cv:
             if (self.max_queue is not None
                     and len(self._queue) >= self.max_queue):
@@ -724,8 +733,20 @@ class InferenceEngine:
 
     def _pre_tick(self) -> None:
         """Control-plane work between ticks, shared by every engine (the
-        paged engine's step() calls it first too): a staged weight swap,
-        then deadline expiry."""
+        paged engine's step() calls it first too): the serving faults of
+        MEGATRON_TPU_FAULT at a deterministic decode tick (training/
+        resilience.py: kill_replica, preempt_replica, hang_replica,
+        slow_tick), a staged weight swap, then deadline expiry."""
+        tick = self.stats["ticks"]
+        resilience.maybe_kill("kill_replica", tick)
+        if (not self._preempt_signalled
+                and resilience.fault_active("preempt_replica", tick)):
+            # once per process: ticks advance only on decode, and a
+            # second SIGTERM would take the server's immediate-exit path
+            self._preempt_signalled = True
+            resilience.maybe_signal("preempt_replica", tick)
+        resilience.maybe_hang("hang_replica", tick)
+        resilience.maybe_sleep("slow_tick", journal_once=True)
         self._apply_pending_params()
         self._expire_deadlines()
 

@@ -1,3 +1,4 @@
 from megatron_tpu_torch.tokenizer.tokenizer import (  # noqa: F401
-    NullTokenizer, build_tokenizer,
+    AbstractTokenizer, GPT2BPETokenizer, HFTokenizer, NullTokenizer,
+    SentencePieceTokenizer, build_tokenizer, pad_vocab_size,
 )

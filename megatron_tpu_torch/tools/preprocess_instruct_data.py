@@ -16,8 +16,8 @@ MMapIndexedDatasetBuilder.
         --input chats.jsonl --output_prefix data/chats \\
         --tokenizer_type null --vocab_size 32000
 
-Only the null tokenizer is ported (space-separated token ids in, ids
-out); any other --tokenizer_type raises.
+The tokenizer flags are the JAX tool's (tokenizer/tokenizer.py
+build_tokenizer: GPT-2 BPE, SentencePiece, HF, null).
 """
 
 from __future__ import annotations
@@ -34,9 +34,17 @@ def get_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--input", required=True)
     p.add_argument("--output_prefix", required=True)
-    p.add_argument("--tokenizer_type", default="SentencePieceTokenizer",
-                   help="only 'null' is ported")
+    p.add_argument("--tokenizer_type", default="SentencePieceTokenizer")
+    p.add_argument("--vocab_file", default=None)
+    p.add_argument("--merges_file", default=None)
+    p.add_argument("--tokenizer_model", default=None)
+    p.add_argument("--tokenizer_name_or_path", default=None)
     p.add_argument("--vocab_size", type=int, default=None)
+    p.add_argument("--vocab_extra_ids", type=int, default=0)
+    p.add_argument("--no_new_tokens", action="store_false",
+                   dest="new_tokens",
+                   help="do not add special/extra-id tokens in the "
+                        "sentencepiece tokenizer")
     p.add_argument("--conversation_key", default="conversation")
     p.add_argument("--append_eod", action="store_true")
     return p.parse_args(argv)
@@ -49,7 +57,11 @@ def main(argv=None) -> int:
     from megatron_tpu_torch.tokenizer import build_tokenizer
 
     args = get_args(argv)
-    tok = build_tokenizer(args.tokenizer_type, vocab_size=args.vocab_size)
+    tok = build_tokenizer(
+        args.tokenizer_type, vocab_file=args.vocab_file,
+        merges_file=args.merges_file, tokenizer_model=args.tokenizer_model,
+        name_or_path=args.tokenizer_name_or_path, vocab_size=args.vocab_size,
+        vocab_extra_ids=args.vocab_extra_ids, new_tokens=args.new_tokens)
     text_prefix = args.output_prefix + "-text"
     role_prefix = args.output_prefix + "-role"
     text_builder = make_builder(text_prefix, vocab_size=tok.vocab_size)

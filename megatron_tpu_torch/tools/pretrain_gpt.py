@@ -7,11 +7,18 @@ and runs the training loop on --device (default "cuda").
         --recompute_granularity selective --micro_batch_size 1 \\
         --global_batch_size 2 --train_iters 8 --data_path corpus_text_document
 
---device cpu runs the flash kernels' plain versions (with a small preset,
-e.g. --model_name tiny --fp32).
+The data flags are the JAX entry point's: --dataloader_type cyclic
+(epoch-seeded random order), --eod_token_id with --eod_mask_loss and
+--reset_position_ids, --num_workers (the threaded batch loader's depth),
+--data_cache_dir (the dataset index cache) and --train_samples (the run
+length in samples when --train_iters is not given). --device cpu runs
+the flash kernels' plain versions (with a small preset, e.g.
+--model_name tiny --fp32).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -22,7 +29,7 @@ def main(argv=None, log=print, extra_args_provider=None):
     from megatron_tpu_torch.arguments import args_to_run_config, parse_args
     from megatron_tpu_torch.data.gpt_dataset import build_gpt_datasets
     from megatron_tpu_torch.data.samplers import (
-        PretrainingSampler, build_data_loader,
+        PretrainingRandomSampler, PretrainingSampler, build_data_loader,
     )
     from megatron_tpu_torch.training.pretrain import gpt_collate, pretrain
 
@@ -32,7 +39,11 @@ def main(argv=None, log=print, extra_args_provider=None):
         raise SystemExit("--data_path is required")
     t = cfg.training
     if not t.train_iters:
-        raise SystemExit("--train_iters is required")
+        if not t.train_samples:
+            raise SystemExit("--train_iters or --train_samples is required")
+        t = dataclasses.replace(
+            t, train_iters=t.train_samples // t.global_batch_size)
+        cfg = dataclasses.replace(cfg, training=t)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -41,15 +52,33 @@ def main(argv=None, log=print, extra_args_provider=None):
         * t.global_batch_size
     train_ds, valid_ds, _ = build_gpt_datasets(
         args.data_path, args.split, cfg.model.seq_length,
-        (n_train, n_valid, t.eval_iters * t.global_batch_size), seed=t.seed)
+        (n_train, n_valid, t.eval_iters * t.global_batch_size), seed=t.seed,
+        cache_dir=args.data_cache_dir)
+
+    eod = args.eod_token_id
+    if (args.eod_mask_loss or args.reset_position_ids) and eod is None:
+        raise SystemExit(
+            "--eod_mask_loss/--reset_position_ids need --eod_token_id "
+            "(the data is pre-tokenized; there is no tokenizer to ask)")
+
+    def collate(items):
+        return gpt_collate(items, eod_token=eod,
+                           eod_mask_loss=args.eod_mask_loss,
+                           reset_position_ids=args.reset_position_ids)
 
     def train_iter_factory(consumed, gbs):
-        sampler = PretrainingSampler(
-            total_samples=len(train_ds), consumed_samples=consumed,
-            micro_batch_size=gbs, data_parallel_rank=0,
-            data_parallel_size=1)
-        return build_data_loader(train_ds, sampler, collate_fn=gpt_collate,
-                                 prefetch=0)
+        if args.dataloader_type == "cyclic":
+            sampler = PretrainingRandomSampler(
+                total_samples=len(train_ds), consumed_samples=consumed,
+                micro_batch_size=gbs, data_parallel_rank=0,
+                data_parallel_size=1, seed=t.seed)
+        else:
+            sampler = PretrainingSampler(
+                total_samples=len(train_ds), consumed_samples=consumed,
+                micro_batch_size=gbs, data_parallel_rank=0,
+                data_parallel_size=1)
+        return build_data_loader(train_ds, sampler, collate_fn=collate,
+                                 prefetch=args.num_workers)
 
     def valid_iter_factory():
         if valid_ds is None:
@@ -58,8 +87,8 @@ def main(argv=None, log=print, extra_args_provider=None):
             total_samples=len(valid_ds), consumed_samples=0,
             micro_batch_size=t.global_batch_size, data_parallel_rank=0,
             data_parallel_size=1)
-        return build_data_loader(valid_ds, sampler, collate_fn=gpt_collate,
-                                 prefetch=0)
+        return build_data_loader(valid_ds, sampler, collate_fn=collate,
+                                 prefetch=args.num_workers)
 
     return pretrain(cfg, train_iter_factory, valid_iter_factory, log=log,
                     device=args.device)

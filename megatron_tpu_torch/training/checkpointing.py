@@ -46,6 +46,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from megatron_tpu_torch.training import resilience
 from megatron_tpu_torch.training.optimizer import (
     ScalerState, TrainState, leaf_paths,
 )
@@ -122,13 +123,17 @@ def compute_manifest(path: str, hashes: bool = True) -> Dict[str, Any]:
     return files
 
 
-def write_manifest(path: str, iteration: int) -> str:
+def write_manifest(path: str, iteration: int,
+                   tags: Tuple[str, ...] = ()) -> str:
     """Write the commit record, the last file of the staging dir: its
     presence means every byte it lists was on disk when it was made. The
     crc32 pass re-reads every byte just written; on the async path it
-    runs on the saver's thread."""
+    runs on the saver's thread. tags: provenance ("preemption": the
+    checkpoint a SIGTERM notice forced, which retention keeps)."""
     man = {"format": 1, "iteration": int(iteration),
            "files": compute_manifest(path)}
+    if tags:
+        man["tags"] = sorted(set(tags))
     out = os.path.join(path, MANIFEST)
     tmp = out + ".tmp"
     with open(tmp, "w") as f:
@@ -176,6 +181,16 @@ def verify_checkpoint(path: str, deep: bool = False) -> Tuple[bool, str]:
     return True, f"{len(files)} files ok" + (" (deep)" if deep else "")
 
 
+def checkpoint_tags(path: str) -> Tuple[str, ...]:
+    """Provenance tags recorded in a checkpoint's manifest (() when the
+    manifest is missing or unreadable or carries none)."""
+    try:
+        with open(os.path.join(path, MANIFEST)) as f:
+            return tuple(json.load(f).get("tags") or ())
+    except (OSError, ValueError):
+        return ()
+
+
 def committed_iterations(load: str) -> List[int]:
     """Iterations with a committed (renamed-into-place) dir, sorted."""
     if not os.path.isdir(load):
@@ -221,8 +236,10 @@ def cleanup_staging(save: str) -> List[str]:
 
 def prune_checkpoints(save: str, keep_latest_k: int) -> List[int]:
     """Delete all but the newest keep_latest_k committed checkpoints.
-    Only manifested ones are eligible, and the tracker's target is never
-    pruned. Returns the pruned iterations."""
+    Only manifested ones are eligible; the tracker's target is never
+    pruned, nor is the newest checkpoint tagged "preemption" (the resume
+    anchor a restart after a preemption depends on). Returns the pruned
+    iterations."""
     if not keep_latest_k or keep_latest_k < 1:
         return []
     committed = [it for it in committed_iterations(save)
@@ -232,6 +249,10 @@ def prune_checkpoints(save: str, keep_latest_k: int) -> List[int]:
     tracked = read_tracker(save)
     if tracked is not None:
         keep.add(tracked)
+    preempted = [it for it in committed
+                 if "preemption" in checkpoint_tags(checkpoint_dir(save, it))]
+    if preempted:
+        keep.add(preempted[-1])
     pruned = []
     for it in committed:
         if it not in keep:
@@ -389,7 +410,8 @@ def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor],
 
 def _finalize(save: str, stage: str, iteration: int, consumed_samples: int,
               config: Optional[Dict[str, Any]], keep_latest_k: Optional[int],
-              log=None, stats: Optional[Dict[str, Any]] = None) -> str:
+              log=None, stats: Optional[Dict[str, Any]] = None,
+              tags: Tuple[str, ...] = ()) -> str:
     """Commit a staged checkpoint whose state files are written:
     meta.json -> manifest (the commit record) -> os.replace into place ->
     tracker bump -> retention. `stats` receives the crc32 pass's seconds
@@ -404,8 +426,12 @@ def _finalize(save: str, stage: str, iteration: int, consumed_samples: int,
     }
     with open(os.path.join(stage, "meta.json"), "w") as f:
         json.dump(meta, f, indent=1)
+    # fault injection: a kill here leaves a fully written but UNcommitted
+    # staging dir, the case atomic saves exist for
+    resilience.maybe_kill("kill_during_save", iteration)
+    resilience.maybe_sleep("slow_save")
     t0 = time.perf_counter()
-    write_manifest(stage, iteration)
+    write_manifest(stage, iteration, tags=tags)
     if stats is not None:
         stats["manifest_s"] = time.perf_counter() - t0
     displaced = None
@@ -460,14 +486,21 @@ class AsyncCheckpointSaver:
     calls. An error on the thread is raised again at the next
     save()/wait()/close(). `history` holds one record per committed
     save: iteration, stall_s (the save() call), commit_s (save() to the
-    tracker bump), manifest_s (the crc32 pass) and bytes."""
+    tracker bump), manifest_s (the crc32 pass) and bytes.
+
+    journal: an event sink (emit/flush; the telemetry journal) that gets
+    `checkpoint_begin` and, from the saver's thread, `checkpoint_commit`
+    with the commit's seconds, which last_commit_seconds also keeps (the
+    sample --save_interval auto's cadence tuner reads)."""
 
     def __init__(self, save: str, keep_latest_k: Optional[int] = None,
-                 log=None, async_save: bool = True):
+                 log=None, async_save: bool = True, journal=None):
         self.save_dir = os.path.abspath(save)
         self.keep_latest_k = keep_latest_k
         self.log = log or (lambda _m: None)
         self.async_save = async_save
+        self.journal = journal
+        self.last_commit_seconds: Optional[float] = None
         self.history: List[Dict[str, Any]] = []
         os.makedirs(self.save_dir, exist_ok=True)
         stale = cleanup_staging(self.save_dir)
@@ -481,9 +514,13 @@ class AsyncCheckpointSaver:
 
     def save(self, state: TrainState, iteration: int,
              consumed_samples: int = 0,
-             config: Optional[Dict[str, Any]] = None) -> None:
+             config: Optional[Dict[str, Any]] = None,
+             tags: Tuple[str, ...] = ()) -> None:
         t_begin = time.perf_counter()
         self.wait()  # at most one checkpoint in flight
+        if self.journal is not None:
+            self.journal.emit("checkpoint_begin", iteration=iteration,
+                              async_save=self.async_save)
         stage = _staging_dir(self.save_dir, iteration)
         shutil.rmtree(stage, ignore_errors=True)
         os.makedirs(stage)
@@ -497,9 +534,16 @@ class AsyncCheckpointSaver:
                 stats["bytes"] = _write_state(stage, host)
                 self._last_path = _finalize(
                     self.save_dir, stage, iteration, consumed_samples,
-                    config, self.keep_latest_k, self.log, stats=stats)
+                    config, self.keep_latest_k, self.log, stats=stats,
+                    tags=tags)
                 stats["commit_s"] = time.perf_counter() - t_begin
+                self.last_commit_seconds = round(stats["commit_s"], 4)
                 self.history.append(stats)
+                if self.journal is not None:
+                    self.journal.emit(
+                        "checkpoint_commit", iteration=iteration,
+                        path=self._last_path, async_save=self.async_save,
+                        seconds=self.last_commit_seconds)
             except BaseException as e:  # noqa: BLE001 - raised at wait()
                 self._error = e
 

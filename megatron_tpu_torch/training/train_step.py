@@ -90,9 +90,10 @@ def make_train_step(
 
 
 def make_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig):
-    """Forward-only LM loss (the JAX package's eval_step without its
-    optional validation metrics): eval_step(params, batch) ->
-    {"lm_loss", "ntokens"}, device tensors."""
+    """Forward-only LM loss (the JAX package's eval_step):
+    eval_step(params, batch) -> {"lm_loss", "ntokens", and each of
+    train_cfg.metrics (training/metrics.py)}, device tensors."""
+    from megatron_tpu_torch.training.metrics import compute_metrics
 
     @torch.no_grad()
     def eval_step(params: Any, batch: Dict[str, torch.Tensor]):
@@ -103,8 +104,11 @@ def make_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig):
             loss_mask = torch.ones(batch["labels"].shape,
                                    dtype=torch.float32,
                                    device=batch["labels"].device)
-        loss, _ = cross_entropy_loss(logits, batch["labels"],
-                                     loss_mask=loss_mask)
-        return {"lm_loss": loss, "ntokens": loss_mask.sum()}
+        loss, per_token = cross_entropy_loss(logits, batch["labels"],
+                                             loss_mask=loss_mask)
+        out = {"lm_loss": loss, "ntokens": loss_mask.sum()}
+        out.update(compute_metrics(train_cfg.metrics, logits,
+                                   batch["labels"], loss_mask, per_token))
+        return out
 
     return eval_step

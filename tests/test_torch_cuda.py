@@ -954,3 +954,88 @@ def test_deadline_clears_a_slot_between_replays(gen):
     alone = _serve(_engine(cfg, params), _PROMPTS[:2], n=20)
     assert [r.generated for r in others] == [r.generated for r in alone]
     assert eng.stats["decode_recompiles"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the loop and the data: the prefetcher's streams, the native index
+# builder, a step's determinism
+# ---------------------------------------------------------------------------
+
+
+def test_prefetcher_batches_are_never_torn(gen, monkeypatch):
+    """The prefetcher's copies run on its own stream, held back here by
+    torch.cuda._sleep before each one, and the worker does not wait for
+    them (land=False): a batch popped and read on the compute stream at
+    once must still hold all of its values, because the compute stream
+    waits on the batch's event (and record_stream keeps the memory)."""
+    import numpy as np
+
+    from megatron_tpu_torch.training import prefetch
+
+    real = prefetch.to_device
+
+    def delayed(batch, device, stream=None):
+        if stream is not None:
+            with torch.cuda.stream(stream):
+                torch.cuda._sleep(50_000_000)   # ~tens of ms
+        return real(batch, device, stream)
+
+    monkeypatch.setattr(prefetch, "to_device", delayed)
+    n = 1 << 22
+    source = ({"x": np.full((n,), i + 1, np.int32)} for i in range(6))
+    pf = prefetch.DevicePrefetcher(source, "cuda", depth=2, land=False)
+    sums = []
+    while (b := next(pf, None)) is not None:
+        sums.append(int(b["x"].sum(dtype=torch.int64)))
+        del b
+    pf.close()
+    assert sums == [(i + 1) * n for i in range(6)]
+
+
+def test_native_index_builder_on_the_card_host():
+    import numpy as np
+
+    from megatron_tpu_torch.data import helpers
+
+    assert helpers.native_helpers() is not None
+    assert helpers.library_path().exists()
+    r = np.random.default_rng(0)
+    sizes = r.integers(3, 500, 2000).astype(np.int32)
+    doc = np.concatenate([r.permutation(2000) for _ in range(2)])
+    args = (sizes, doc, 128, 2, int(sizes.sum()))
+    np.testing.assert_array_equal(
+        helpers.build_sample_idx(*args),
+        helpers.build_sample_idx(*args, native=False))
+    di, ds = helpers.build_blending_indices(np.array([0.6, 0.4]), 5000)
+    pi, ps = helpers.build_blending_indices(np.array([0.6, 0.4]), 5000,
+                                            native=False)
+    np.testing.assert_array_equal(di, pi)
+    np.testing.assert_array_equal(ds, ps)
+
+
+def test_two_runs_of_a_step_are_bitwise_equal(gen):
+    """One state and one batch, the step run twice from copies of the
+    state: bitwise-equal states and metrics (the replay check's premise,
+    on the flash kernels, bf16 with fp32 masters, 2 microbatches)."""
+    from megatron_tpu_torch.training import resilience
+    from megatron_tpu_torch.training.pretrain import clone_state
+
+    cfg = presets.tiny(hidden_size=512, num_attention_heads=4,
+                       num_kv_heads=2, vocab_size=128, seq_length=256,
+                       params_dtype="bfloat16", attention_impl="pallas")
+    opt = OptimizerConfig(lr=1e-3, lr_decay_style="constant")
+    tc = TrainingConfig(micro_batch_size=1, global_batch_size=2,
+                        train_iters=2, recompute_granularity="selective")
+    params = init_params(cfg, 0)
+    for _, p in leaf_paths(params):
+        p.requires_grad_(True)
+    state = init_train_state(opt, params)
+    step = make_train_step(cfg, opt, tc, 2)
+    toks = torch.randint(0, 128, (2, 2, 257), generator=gen, device="cuda")
+    state, _ = step(state, {"tokens": toks[0, :, :-1],
+                            "labels": toks[0, :, 1:]})
+    batch = {"tokens": toks[1, :, :-1], "labels": toks[1, :, 1:]}
+    a, ma = step(clone_state(state), batch)
+    b, mb = step(clone_state(state), batch)
+    assert resilience.tree_bitwise_mismatch(
+        {"state": a, "metrics": ma}, {"state": b, "metrics": mb}) == []

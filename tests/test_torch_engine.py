@@ -199,7 +199,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "inference.cuda_graph", "tools.profile_serving",
         "inference.generation", "inference.api", "inference.fleet.reload",
         "ops.kv_quant", "interop.hf", "models.presets", "config",
-        "tools.hf_to_native", "tools.native_to_hf")]
+        "tools.hf_to_native", "tools.native_to_hf", "training.timers",
+        "training.metrics", "training.logging_writer",
+        "training.signal_handler", "training.resilience",
+        "training.prefetch", "telemetry.journal", "telemetry.goodput",
+        "telemetry.run", "telemetry.flight_recorder", "telemetry.http",
+        "tokenizer.gpt2_bpe", "tokenizer.tokenizer", "tools.preprocess_data",
+        "tools.merge_datasets")]
     code = (
         "import importlib, pkgutil, sys\n"
         "import megatron_tpu_torch as pkg\n"
