@@ -16,7 +16,9 @@ still run, so one call shows every failure):
               stripe with Sq != Skv and delta != 0, bidirectional, D 64,
               GQA 4, q/k/v as views of a fused [B, S, 3, H, D] buffer,
               and phase 5b's Falcon-7B (Hq 71 over Hkv 1, D 64, S 2048)
-              and GPT-2 1.3B (H 32, D 64, S 1024): FWD_CASES) and hold
+              and GPT-2 1.3B (H 32, D 64, S 1024), and phase 7's
+              per-rank shape at tp2 (16 q and 16 kv heads, S 2048):
+              FWD_CASES; 2b's BWD_CASES likewise) and hold
               it against its plain PyTorch version on the same bf16
               inputs, computed in fp32. Tolerance:
               |kernel - plain| <= 2e-2 + 2e-2 * |plain| elementwise (bf16
@@ -255,11 +257,32 @@ still run, so one call shows every failure):
               hang_step:4 exits 70 with a flight bundle; corrupt_step:2
               under --replay_check_interval 2 raises SDCError;
               --save_interval auto takes a cadence and saves.
-  7. report   one JSON line listing each kernel with its launches on its
+  7. parallel multi-GPU training through python -m
+              torch.distributed.run (each rank runs this script's
+              --rank-run mode: tools/pretrain_gpt's main on phase 4's
+              corpus, its kernel launches, losses, grad norms and step
+              times written to a file): (a) one rank over NCCL, phase
+              4's run through the parallel code at degree 1: its losses
+              must equal phase 4's bitwise, its step time printed
+              beside phase 4's; (b) two ranks sharing the card over gloo
+              (NCCL refuses two ranks on one card; CUDA tensors staged
+              through host memory) at Llama-2-7B width x PAR_LAYERS
+              layers, S PAR_SEQ, global batch PAR_GLOBAL, micro-batch 1,
+              bf16, selective recompute, PAR_STEPS steps: tp2 with
+              sequence parallelism, pp2 (1F1B), pp2 with two virtual
+              chunks (interleaved) and dp2 with ZeRO-1, each held to one
+              single-process run of the same model, weights and batches
+              (losses within PAR_LOSS_ATOL, grad norms within a relative
+              PAR_NORM_RTOL, the validation loss too; margins printed),
+              exact launches per rank, the step time and, from a
+              torch.profiler trace of the last step on rank 0, the share
+              of it inside the comm.* ranges of parallel/mappings.py:
+              gloo-through-host numbers, not NCCL ones.
+  8. report   one JSON line listing each kernel with its launches on its
               path (serving, paged_serving, speculative_serving,
-              serving_control, training, finetune, families and loop),
-              then the card's name and power limit, then {"ok": true,
-              "device": {...}} as the last line.
+              serving_control, training, finetune, families, loop and
+              parallel), then the card's name and power limit, then
+              {"ok": true, "device": {...}} as the last line.
 
 It needs one CUDA card; with none (or outside a checkout) it exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -363,6 +386,31 @@ LOSS_DROP_GATE = 1.0
 STEP_LOSS_ATOL = 2e-2
 STEP_NORM_RTOL = 2e-2
 STEP_LEAF_TOL = 2e-2          # max|kernel - dense| / max|dense| per leaf
+
+# phase 7: multi-GPU training. (b)'s cases share one single-process
+# yardstick run: the same model, corpus, seed and batches. Tolerance: the
+# ranks sum bf16 partial products (a row-parallel output, the embedding's
+# vocab blocks) where one process rounds one fp32-accumulated product,
+# and the microbatch and data-rank orders of the fp32 sums differ; phase
+# 4b's bf16 step gates (STEP_*) are the measure of that noise. On the
+# card (NVIDIA H100 80GB HBM3, 700 W) tp2_sp came 1.7e-3 apart in loss
+# and 8.3e-5 in grad norm, pp2 1.9e-4 and 3.2e-5, the others <= 1e-6
+PAR_LAYERS = 4
+PAR_SEQ = 2048
+PAR_GLOBAL = 4
+PAR_STEPS = 2
+# rank 0 traces the last step (its step time is a traced one)
+PAR_PROFILE = (PAR_STEPS, PAR_STEPS + 1)
+PAR_CASES = {
+    "tp2_sp": ["--tensor_model_parallel_size", "2", "--sequence_parallel"],
+    "pp2": ["--pipeline_model_parallel_size", "2"],
+    "pp2_vpp2": ["--pipeline_model_parallel_size", "2",
+                 "--num_layers_per_virtual_pipeline_stage", "1"],
+    "dp2_zero1": ["--use_distributed_optimizer"],
+}
+PAR_LOSS_ATOL = STEP_LOSS_ATOL
+PAR_NORM_RTOL = STEP_NORM_RTOL
+PAR_TIMEOUT_S = 420
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TPU_KERNELS = "megatron_tpu/ops/pallas/flash_template.py"
@@ -547,8 +595,10 @@ def rates(flops, ms, bound_ms) -> dict:
 # the last position: B 4, S 1499, which ends inside a 128-row tile), and
 # phase 5b's training shapes: Falcon-7B's 71 query heads over one kv head
 # at D 64, S 2048, and GPT-2 1.3B's 32 heads at D 64, S 1024
+# (and phase 7's per-rank shape: Llama-2-7B's heads at tp2, S 2048)
 FALCON_ATTN = dict(hq=71, hkv=1, D=64)
 GPT2_ATTN = dict(hq=32, hkv=32, D=64)
+TP2_ATTN = dict(hq=16, hkv=16, D=128)
 FWD_CASES = [attn_case(64), attn_case(512), attn_case(2047),
              attn_case(2047, hkv=8, window=256), attn_case(4096),
              attn_case(1), attn_case(127), attn_case(129), attn_case(1000),
@@ -556,7 +606,7 @@ FWD_CASES = [attn_case(64), attn_case(512), attn_case(2047),
              attn_case(2047, causal=False), attn_case(2047, D=64),
              attn_case(2047, hkv=8), attn_case(2047, fused=True),
              attn_case(1499, B=4), attn_case(2048, **FALCON_ATTN),
-             attn_case(1024, **GPT2_ATTN)]
+             attn_case(1024, **GPT2_ATTN), attn_case(2048, **TP2_ATTN)]
 
 
 def check_flash_fwd(torch, F, ft, card):
@@ -841,13 +891,14 @@ def compare_rel(got, want, m=None):
 # (S 4096 the reported case); then S 1 and the 128-row kv tile's edges, a
 # ring stripe, bidirectional, D 64, GQA, a fused QKV buffer, and phase
 # 5b's training shapes (Falcon-7B: the dk/dv kernel sums 71 query heads
-# into one kv head; GPT-2 1.3B)
+# into one kv head; GPT-2 1.3B) and phase 7's tp2 per-rank shape
 BWD_CASES = [attn_case(4096), attn_case(4096, hkv=8, window=256),
              attn_case(1000), attn_case(1), attn_case(127), attn_case(129),
              attn_case(Sq=1024, Skv=4096, delta=3072),
              attn_case(2047, causal=False), attn_case(2047, D=64),
              attn_case(2047, hkv=8), attn_case(2047, fused=True),
-             attn_case(2048, **FALCON_ATTN), attn_case(1024, **GPT2_ATTN)]
+             attn_case(2048, **FALCON_ATTN), attn_case(1024, **GPT2_ATTN),
+             attn_case(2048, **TP2_ATTN)]
 # the three original cases again, drawn from a second seed
 BWD_DRAW2_SEED = SEED + 13
 
@@ -2373,25 +2424,41 @@ TRAIN_COUNTED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                  "flash_decode", "paged_flash_decode")
 
 
-def train(torch, np, ft, card):
-    from megatron_tpu_torch.models.params import num_params
-    from megatron_tpu_torch.tools import pretrain_gpt
-
+def corpus_prefix() -> str:
     build_dir = os.path.join(REPO, "megatron_tpu_torch", "build")
     os.makedirs(build_dir, exist_ok=True)
-    prefix = os.path.join(build_dir, "smoke_corpus")
-    corpus_tokens = write_corpus(np, prefix)
-    argv = ["--model_name", "llama2-7B", "--num_layers", str(TRAIN_LAYERS),
-            "--seq_length", str(TRAIN_SEQ), "--bf16",
+    return os.path.join(build_dir, "smoke_corpus")
+
+
+def train_argv(prefix, layers=TRAIN_LAYERS, seq=TRAIN_SEQ,
+               global_batch=TRAIN_GLOBAL, iters=TRAIN_ITERS,
+               eval_interval=EVAL_INTERVAL):
+    """Phase 4's command line (phase 7 runs it again under
+    torch.distributed.run, and cuts it for its two-rank cases)."""
+    return ["--model_name", "llama2-7B", "--num_layers", str(layers),
+            "--seq_length", str(seq), "--bf16",
             "--micro_batch_size", str(TRAIN_MICRO),
-            "--global_batch_size", str(TRAIN_GLOBAL),
-            "--train_iters", str(TRAIN_ITERS), "--log_interval", "1",
-            "--eval_interval", str(EVAL_INTERVAL),
+            "--global_batch_size", str(global_batch),
+            "--train_iters", str(iters), "--log_interval", "1",
+            "--eval_interval", str(eval_interval),
             "--eval_iters", str(EVAL_ITERS), "--lr", TRAIN_LR,
             "--lr_decay_style", "constant", "--clip_grad", "1.0",
             "--recompute_granularity", "selective",
             "--attention_impl", "pallas", "--data_path", prefix,
             "--split", "90,10,0", "--seed", str(SEED), "--device", "cuda"]
+
+
+# phase 4's losses and step times, which phase 7a must reproduce
+PHASE4: dict = {}
+
+
+def train(torch, np, ft, card):
+    from megatron_tpu_torch.models.params import num_params
+    from megatron_tpu_torch.tools import pretrain_gpt
+
+    prefix = corpus_prefix()
+    corpus_tokens = write_corpus(np, prefix)
+    argv = train_argv(prefix)
     log_lines = []
 
     def log(msg):
@@ -2442,6 +2509,9 @@ def train(torch, np, ft, card):
             "max_memory_allocated_gib": peak_gib,
             "launches": launches, "expected_launches": want}
     emit(line)
+    PHASE4.update(argv=argv, losses=[r["loss"] for r in loop.step_records],
+                  step_s=[r["step_s"] for r in loop.step_records],
+                  step_s_median=step_s, launches=launches)
     del loop
     first, last = (losses[0], losses[-1]) if losses else (math.nan,) * 2
     problems = []
@@ -3407,6 +3477,10 @@ def _loop_train(torch, ft, card, data, tmp, sync: bool):
             "profile_window_ms": trace["window_ms"],
             "data_wait_ms_per_step": 1e3 * sum(
                 r["data_wait_s"] for r in steady) / len(steady),
+            # the async pop's attribution (training/prefetch.py last_pop:
+            # queue fill before the pop, the pop's wait, the worker's pin
+            # + issue and landing of that batch); empty for the sync loop
+            "prefetch_pops": [r["prefetch"] for r in steady],
             "goodput": final["goodput"], "goodput_shares": shares,
             "host_sync_points": loop.host_sync_points,
             "evals": loop.evals,
@@ -3668,6 +3742,248 @@ def loop_and_data(torch, np, ft, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: multi-GPU training through torch.distributed.run
+# ---------------------------------------------------------------------------
+
+
+def rank_run(out: str, argv) -> int:
+    """One rank of a phase-7 run (this script's --rank-run mode, started
+    by torch.distributed.run): tools/pretrain_gpt's main with `argv`, and
+    this rank's kernel launches, losses, grad norms, step times, peak
+    memory and traces written to `out`.rank<RANK>.json."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from megatron_tpu_torch.ops.flash import flash_template as ft
+    from megatron_tpu_torch.tools import pretrain_gpt
+
+    rank = int(os.environ["RANK"])
+    for name in TRAIN_COUNTED:
+        getattr(ft, name).launches = 0
+    t0 = time.monotonic()
+    loop = pretrain_gpt.main(list(argv),
+                             log=lambda m: print(m, flush=True))
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.synchronize()
+    wall_s = time.monotonic() - t0
+    record = {
+        "rank": rank, "wall_s": wall_s,
+        "losses": [r["loss"] for r in loop.step_records],
+        "step_s": [r["step_s"] for r in loop.step_records],
+        "grad_norms": [h["grad_norm"] for h in loop.history],
+        "evals": [e["lm_loss"] for e in loop.evals],
+        "launches": {n: getattr(ft, n).launches for n in TRAIN_COUNTED},
+        "peak_gib": (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                     else None),
+        "traces": loop.profile_traces,
+        "mesh": (None if loop.mesh is None else
+                 {"world": loop.mesh.world_size, "dp": loop.mesh.dp,
+                  "pp": loop.mesh.pp, "vpp": loop.mesh.vpp,
+                  "tp": loop.mesh.tp})}
+    with open(f"{out}.rank{rank}.json", "w") as f:
+        json.dump(record, f)
+    return 0
+
+
+def _launch(nproc: int, out: str, argv, timeout_s=PAR_TIMEOUT_S) -> list:
+    """argv through pretrain_gpt on `nproc` ranks under
+    torch.distributed.run; returns the ranks' records."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--nproc_per_node", str(nproc), "--master_addr", "127.0.0.1",
+           "--master_port", str(port), os.path.abspath(__file__),
+           "--rank-run", out, "--", *argv]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=timeout_s)
+    wall = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise AssertionError(
+            f"torch.distributed.run rc {proc.returncode} after {wall:.1f}s"
+            f": {' '.join(argv[-6:])}\n{proc.stdout[-3000:]}\n"
+            f"{proc.stderr[-6000:]}")
+    records = []
+    for r in range(nproc):
+        with open(f"{out}.rank{r}.json") as f:
+            records.append(json.load(f))
+    for rec in records:
+        rec["launch_wall_s"] = wall
+    return records
+
+
+def _comm_share(path) -> dict:
+    """The union of the comm.* ranges (parallel/mappings.py) of a
+    torch.profiler Chrome trace over the span of its events. The ranges
+    are the host's (a range also shows up on the card's timeline as a
+    gpu_user_annotation, which is not counted again)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "ts" in e]
+    span = (max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
+            - min(float(e["ts"]) for e in events))
+    ranges = [e for e in events
+              if str(e.get("name", "")).startswith("comm.")
+              and not str(e.get("cat", "")).startswith("gpu")]
+    comm = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                  for e in ranges)
+    busy, end = 0.0, -math.inf
+    for a, b in comm:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_op = {}
+    for e in ranges:
+        by_op[e["name"]] = (by_op.get(e["name"], 0.0)
+                            + float(e.get("dur", 0)) / 1e3)
+    return {"window_ms": span / 1e3, "comm_ms": busy / 1e3,
+            "comm_share": busy / span if span > 0 else math.nan,
+            "comm_ms_by_op": by_op}
+
+
+def _per_rank_launches(case: str, layers: int, n_micro: int) -> dict:
+    """A rank's launches: PAR_STEPS steps of `layers` layers over
+    n_micro microbatches under selective recompute, and the one
+    validation batch (the pipeline's forward-only pass runs its
+    microbatches one by one)."""
+    pipelined = case.startswith("pp")
+    return expected_train_launches(
+        n_micro, layers=layers, steps=PAR_STEPS,
+        eval_batches=n_micro if pipelined else 1)
+
+
+def parallel_training(torch, np, ft, card):
+    """Phase 7. Returns the kernel launches summed over every rank of
+    every run of the phase (its main path runs in the ranks)."""
+    import shutil
+    import tempfile
+
+    from megatron_tpu_torch.tools import pretrain_gpt
+
+    if not PHASE4:
+        raise AssertionError("phase 7a needs phase 4's run")
+    tmp = tempfile.mkdtemp(prefix="smoke_parallel_")
+    total: dict = {}
+    problems = []
+    try:
+        # (a) one rank over NCCL: phase 4's run through the parallel code
+        recs = _launch(1, os.path.join(tmp, "world1"),
+                       PHASE4["argv"] + ["--distributed_backend", "nccl"])
+        rec = recs[0]
+        _add_counts(total, rec["launches"])
+        steady = sorted(rec["step_s"][1:])
+        line = {"phase": "parallel_world1", "card": card,
+                "backend": "nccl", "mesh": rec["mesh"],
+                "losses": rec["losses"], "phase4_losses": PHASE4["losses"],
+                "losses_bitwise_equal": rec["losses"] == PHASE4["losses"],
+                "step_s_median": steady[len(steady) // 2],
+                "phase4_step_s_median": PHASE4["step_s_median"],
+                "launches": rec["launches"],
+                "phase4_launches": PHASE4["launches"],
+                "wall_s": rec["launch_wall_s"]}
+        emit(line)
+        if not line["losses_bitwise_equal"]:
+            problems.append(f"world 1 losses {rec['losses']} != phase 4's "
+                            f"{PHASE4['losses']}")
+        if rec["launches"] != PHASE4["launches"]:
+            problems.append(f"world 1 launches {rec['launches']} != phase "
+                            f"4's {PHASE4['launches']}")
+
+        # (b) two ranks sharing the card over gloo, held to one process
+        base = train_argv(corpus_prefix(), layers=PAR_LAYERS, seq=PAR_SEQ,
+                          global_batch=PAR_GLOBAL, iters=PAR_STEPS,
+                          eval_interval=PAR_STEPS)
+        t0 = time.monotonic()
+        ref = pretrain_gpt.main(base, log=lambda m: None)
+        torch.cuda.synchronize()
+        ref_wall = time.monotonic() - t0
+        want = {"losses": [r["loss"] for r in ref.step_records],
+                "grad_norms": [h["grad_norm"] for h in ref.history],
+                "evals": [e["lm_loss"] for e in ref.evals],
+                "step_s": [r["step_s"] for r in ref.step_records]}
+        del ref
+        free_cuda(torch)
+        emit({"phase": "parallel_reference", "card": card,
+              "model": "llama2-7B", "layers": PAR_LAYERS,
+              "seq_length": PAR_SEQ, "global_batch": PAR_GLOBAL,
+              "steps": PAR_STEPS, "wall_s": ref_wall, **want})
+        for case, flags in PAR_CASES.items():
+            out = os.path.join(tmp, case)
+            argv = base + flags + [
+                "--distributed_backend", "gloo", "--profile",
+                "--profile_step_start", str(PAR_PROFILE[0]),
+                "--profile_step_end", str(PAR_PROFILE[1]),
+                "--profile_dir", out + "_trace"]
+            recs = _launch(2, out, argv)
+            r0 = recs[0]
+            mesh = r0["mesh"]
+            layers = PAR_LAYERS // mesh["pp"]
+            n_micro = PAR_GLOBAL // mesh["dp"] // TRAIN_MICRO
+            want_launch = _per_rank_launches(case, layers, n_micro)
+            launches = {}
+            for rec in recs:
+                _add_counts(launches, rec["launches"])
+                if rec["launches"] != want_launch:
+                    problems.append(f"{case} rank {rec['rank']} launches "
+                                    f"{rec['launches']} != {want_launch}")
+            _add_counts(total, launches)
+            loss_err = max(abs(a - b) for a, b in
+                           zip(r0["losses"], want["losses"]))
+            norm_err = max(abs(a - b) / abs(b) for a, b in
+                           zip(r0["grad_norms"], want["grad_norms"]))
+            eval_err = max(abs(a - b) for a, b in
+                           zip(r0["evals"], want["evals"]))
+            comm = (_comm_share(r0["traces"][0]) if len(r0["traces"]) == 1
+                    else None)
+            line = {
+                "phase": "parallel_gloo", "card": card, "case": case,
+                "backend": "gloo (CUDA tensors staged through host memory; "
+                           "not NCCL numbers)",
+                "mesh": mesh, "losses": r0["losses"],
+                "grad_norms": r0["grad_norms"], "evals": r0["evals"],
+                "ranks_agree": all(
+                    (r["losses"], r["grad_norms"], r["evals"])
+                    == (r0["losses"], r0["grad_norms"], r0["evals"])
+                    for r in recs),
+                "loss_err": loss_err, "loss_atol": PAR_LOSS_ATOL,
+                "loss_margin": loss_err / PAR_LOSS_ATOL,
+                "grad_norm_rel_err": norm_err,
+                "grad_norm_rtol": PAR_NORM_RTOL,
+                "grad_norm_margin": norm_err / PAR_NORM_RTOL,
+                "eval_err": eval_err,
+                "step_s": r0["step_s"],
+                "single_process_step_s": want["step_s"],
+                "comm": comm, "launches": launches,
+                "launches_per_rank_expected": want_launch,
+                "peak_gib_per_rank": [r["peak_gib"] for r in recs],
+                "wall_s": r0["launch_wall_s"]}
+            emit(line)
+            if not line["ranks_agree"]:
+                problems.append(f"{case}: ranks disagree")
+            if len(r0["losses"]) != PAR_STEPS or not all(
+                    map(math.isfinite, r0["losses"])):
+                problems.append(f"{case}: losses {r0['losses']}")
+            if not loss_err <= PAR_LOSS_ATOL:
+                problems.append(f"{case}: loss off by {loss_err}")
+            if not norm_err <= PAR_NORM_RTOL:
+                problems.append(f"{case}: grad norm off by {norm_err}")
+            if not eval_err <= PAR_LOSS_ATOL:
+                problems.append(f"{case}: validation loss off by "
+                                f"{eval_err}")
+            if comm is None:
+                problems.append(f"{case}: traces {r0['traces']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if problems:
+        raise AssertionError("parallel: " + "; ".join(problems))
+    return total
+
+
 def free_cuda(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -3737,6 +4053,7 @@ def main() -> int:
     phase("finetune", finetune, torch, np, ft, card)
     phase("families", families, torch, np, ft, card)
     phase("loop", loop_and_data, torch, np, ft, card)
+    phase("parallel", parallel_training, torch, np, ft, card)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -3748,7 +4065,8 @@ def main() -> int:
              "training": results["training"],
              "finetune": results["finetune"],
              "families": results["families"],
-             "loop": results["loop"]}
+             "loop": results["loop"],
+             "parallel": results["parallel"]}
     reports = {"flash_fwd": results["flash_fwd"],
                "flash_decode": results["flash_decode"],
                "paged_flash_decode": results["paged_flash_decode"],
@@ -3781,4 +4099,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--rank-run":
+        rest = sys.argv[3:]
+        sys.exit(rank_run(sys.argv[2], rest[1:] if rest[:1] == ["--"]
+                          else rest))
     sys.exit(main())

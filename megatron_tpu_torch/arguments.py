@@ -13,6 +13,13 @@ the fault-tolerance sentinels, logging, profiling and telemetry), the
 data flags and the tokenizer flags are the JAX CLI's; its multi-host
 flags (--coordination_dir, --peer_death_timeout_s) are not ported, and
 --compilation_cache_dir is refused (eager PyTorch compiles nothing).
+The distributed flags are the JAX CLI's (--tensor_model_parallel_size,
+--pipeline_model_parallel_size, --num_layers_per_virtual_pipeline_stage
+mapped to virtual_pipeline_parallel as there, --sequence_parallel,
+--use_distributed_optimizer); --context_parallel_size and
+--expert_model_parallel_size above 1 are refused (ROADMAP.md items 10
+and 8), and the process group comes from torch.distributed.run's
+environment (parallel/distributed.py).
 SIGTERM checkpoint-and-exit is always on, as there
 (--exit_signal_handler is accepted).
 
@@ -32,7 +39,8 @@ import os
 from typing import Callable, Optional, Sequence
 
 from megatron_tpu_torch.config import (ModelConfig, OptimizerConfig,
-                                       RunConfig, TrainingConfig)
+                                       ParallelConfig, RunConfig,
+                                       TrainingConfig)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -270,6 +278,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="do not add special/extra-id tokens in the "
                         "sentencepiece tokenizer")
 
+    g = p.add_argument_group("distributed")
+    g.add_argument("--tensor_model_parallel_size", type=int, default=1)
+    g.add_argument("--pipeline_model_parallel_size", type=int, default=1)
+    g.add_argument("--expert_model_parallel_size", type=int, default=1,
+                   help="refused above 1: MoE is not ported (ROADMAP.md "
+                        "item 8)")
+    g.add_argument("--context_parallel_size", type=int, default=1,
+                   help="refused above 1: ring attention is not ported "
+                        "(ROADMAP.md item 10)")
+    g.add_argument("--num_layers_per_virtual_pipeline_stage", type=int,
+                   default=None,
+                   help="enables the interleaved schedule "
+                        "(ref schedules.py:253-502)")
+    g.add_argument("--sequence_parallel", action="store_true")
+    g.add_argument("--use_distributed_optimizer", action="store_true")
+    g.add_argument("--distributed_backend", default=None,
+                   choices=["nccl", "gloo"],
+                   help="the process group's backend: nccl on CUDA, gloo "
+                        "on the CPU (default); gloo on CUDA only when "
+                        "named here")
+
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions")
@@ -359,7 +388,35 @@ def args_to_run_config(args) -> RunConfig:
             overrides[field] = getattr(args, flag)
     model = ModelConfig(**{**model.__dict__, **overrides}).validate()
 
+    if args.context_parallel_size > 1:
+        raise ValueError(
+            "--context_parallel_size > 1: ring/Ulysses context parallelism "
+            "is not ported yet (ROADMAP.md queue A item 10)")
+    if args.expert_model_parallel_size > 1:
+        raise ValueError(
+            "--expert_model_parallel_size > 1: MoE and expert parallelism "
+            "are not ported yet (ROADMAP.md queue A item 8)")
+    vpp = None
+    per_stage = args.num_layers_per_virtual_pipeline_stage
+    if per_stage:
+        # the JAX CLI's mapping (megatron_tpu/arguments.py:615-627)
+        pp = args.pipeline_model_parallel_size
+        vpp = model.num_layers // (pp * per_stage)
+        if vpp * pp * per_stage != model.num_layers:
+            raise ValueError(
+                f"num_layers={model.num_layers} not divisible by "
+                f"pp*per_stage={pp}*{per_stage}")
+    parallel = ParallelConfig(
+        tensor_parallel=args.tensor_model_parallel_size,
+        pipeline_parallel=args.pipeline_model_parallel_size,
+        context_parallel=args.context_parallel_size,
+        expert_parallel=args.expert_model_parallel_size,
+        sequence_parallel=args.sequence_parallel,
+        virtual_pipeline_parallel=vpp if (vpp or 0) > 1 else None,
+    ).validate()
+
     optimizer = OptimizerConfig(
+        use_distributed_optimizer=args.use_distributed_optimizer,
         lr=args.lr, min_lr=args.min_lr, lr_decay_style=args.lr_decay_style,
         lr_warmup_iters=args.lr_warmup_iters,
         adam_beta1=args.adam_beta1, adam_beta2=args.adam_beta2,
@@ -418,5 +475,5 @@ def args_to_run_config(args) -> RunConfig:
         scalar_loss_mask=args.scalar_loss_mask,
         variable_seq_lengths=args.variable_seq_lengths,
         metrics=tuple(args.metrics))
-    return RunConfig(model=model, optimizer=optimizer,
+    return RunConfig(model=model, parallel=parallel, optimizer=optimizer,
                      training=training).validate()

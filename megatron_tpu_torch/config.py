@@ -230,6 +230,9 @@ class OptimizerConfig:
     param_group_mults: tuple = ()
 
     clip_grad: float = 1.0
+    # ZeRO-1: fp32 masters and Adam moments sharded over the data axis
+    # (ref: megatron/optimizer/distrib_optimizer.py; training/optimizer.py)
+    use_distributed_optimizer: bool = False
     fp32_master_weights: bool = True
     # dynamic loss scaling for fp16 (never needed for bf16)
     loss_scale: Optional[float] = None  # None => dynamic when fp16
@@ -413,16 +416,81 @@ class TrainingConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """Parallel topology (a copy of megatron_tpu/config.py's
+    ParallelConfig: the same fields, defaults, derive_data_parallel and
+    validate).
+
+    Replaces the reference's process-group builder
+    (megatron/core/parallel_state.py:51-199). Rank layout is
+    ("data", "expert", "pipe", "context", "tensor") with tensor the
+    fastest-varying, the reference's TP-innermost-contiguous layout
+    (parallel/mesh.py). The port runs data, pipe and tensor parallelism
+    (with sequence parallelism and the interleaved schedule);
+    context_parallel and expert_parallel > 1 are refused by the entry
+    points until their modules are ported (ROADMAP.md items 10 and 8).
+    """
+
+    tensor_parallel: int = 1
+    pipeline_parallel: int = 1
+    # context/sequence-dimension sharding with ring attention
+    context_parallel: int = 1
+    # expert parallelism: a sub-axis of data parallelism that MoE expert
+    # weights shard over
+    expert_parallel: int = 1
+    # data_parallel: None => derived from the world size
+    data_parallel: Optional[int] = None
+    # Korthikanti sequence parallelism: residual-stream activations
+    # sharded along seq over the *tensor* axis outside matmul blocks
+    # (ref: layers.py:225-236,285-296,691-692)
+    sequence_parallel: bool = False
+    # number of virtual-pipeline chunks per stage (interleaved 1F1B),
+    # ref: schedules.py:253-502. None => non-interleaved.
+    virtual_pipeline_parallel: Optional[int] = None
+
+    def derive_data_parallel(self, n_devices: int) -> int:
+        model_devices = (self.tensor_parallel * self.pipeline_parallel
+                         * self.context_parallel * self.expert_parallel)
+        if n_devices % model_devices:
+            raise ValueError(
+                f"{n_devices} devices not divisible by "
+                f"tp*pp*cp*ep={model_devices}")
+        dp = n_devices // model_devices
+        if self.data_parallel is not None and self.data_parallel != dp:
+            raise ValueError(
+                f"data_parallel={self.data_parallel} inconsistent with "
+                f"{n_devices} devices / (tp*pp*cp*ep={model_devices})")
+        return dp
+
+    def validate(self) -> "ParallelConfig":
+        for name in ("tensor_parallel", "pipeline_parallel",
+                     "context_parallel", "expert_parallel"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1")
+        if self.virtual_pipeline_parallel is not None:
+            if self.pipeline_parallel < 2:
+                raise ValueError("interleaved schedule needs pipeline_parallel >= 2")
+            if self.virtual_pipeline_parallel < 2:
+                raise ValueError("virtual_pipeline_parallel must be >= 2")
+        if self.sequence_parallel and self.tensor_parallel == 1:
+            # ref disables SP when tp==1 (arguments.py:331-341)
+            return dataclasses.replace(self, sequence_parallel=False)
+        return self
+
+
+@dataclass(frozen=True)
 class RunConfig:
-    """The configs of one training run (the JAX package's RunConfig
-    without its parallel topology: the port trains on one card)."""
+    """The configs of one training run (the JAX package's RunConfig):
+    model, parallel topology, optimizer and training."""
 
     model: ModelConfig
+    parallel: ParallelConfig = ParallelConfig()
     optimizer: OptimizerConfig = OptimizerConfig()
     training: TrainingConfig = TrainingConfig()
 
     def validate(self) -> "RunConfig":
         self.model.validate()
+        self.parallel.validate()
         self.training.validate()
         return self
 

@@ -1,6 +1,7 @@
 """Deterministic data-parallel samplers + a numpy batch loader.
 
-(A copy of megatron_tpu/data/samplers.py with its imports rewritten.)
+(A copy of megatron_tpu/data/samplers.py with its imports rewritten,
+plus rank_rows: a data-parallel rank's rows of each global batch.)
 
 Equivalent of megatron/data/data_samplers.py (187 LoC). The reference wraps
 torch DataLoader; here the loader is a plain Python iterator producing
@@ -181,3 +182,17 @@ def build_data_loader(
             yield item
     finally:
         stop.set()
+
+
+def rank_rows(batches: Iterator[Dict[str, np.ndarray]], mesh
+              ) -> Iterator[Dict[str, np.ndarray]]:
+    """This data-parallel rank's rows of every global batch (the rows
+    parallel/distributed.host_batch_slice gives it). The sampler keeps
+    drawing whole global batches, so the data order is the
+    single-process order at any topology, and every rank of one data
+    replica (its tensor and pipe ranks) gets the same rows."""
+    from megatron_tpu_torch.parallel.distributed import host_batch_slice
+
+    for batch in batches:
+        lo, hi = host_batch_slice(mesh, len(next(iter(batch.values()))))
+        yield {k: v[lo:hi] for k, v in batch.items()}

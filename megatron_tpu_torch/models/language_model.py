@@ -23,6 +23,15 @@ torch.utils.checkpoint (use_reentrant=False):
     chunk again, so the backward keeps L/N chunk inputs and replays a
     chunk's N blocks one by one (the JAX package's two-level remat; N
     must divide L; uniform:1 is "full").
+
+Tensor parallelism (a MeshRuntime as `mesh`, training): the embedding
+is vocab-parallel (a masked lookup of this rank's vocab rows, then the
+sum over the tensor group, or its reduce-scatter along the sequence
+under sequence parallelism), the final hidden states enter the
+column-parallel LM head through parallel/mappings.enter_tp, and the
+logits are this rank's vocab columns; the loss is then the
+vocab-parallel cross-entropy (ops/cross_entropy.py). The pipeline
+(training/pipeline.py) runs the same pieces stage by stage.
 """
 
 from __future__ import annotations
@@ -36,9 +45,12 @@ from torch.utils.checkpoint import checkpoint
 
 from megatron_tpu_torch.config import ModelConfig, parse_recompute
 from megatron_tpu_torch.models.transformer import block_forward
-from megatron_tpu_torch.ops.cross_entropy import cross_entropy_loss
+from megatron_tpu_torch.ops.cross_entropy import (
+    cross_entropy_loss, vocab_parallel_cross_entropy,
+)
 from megatron_tpu_torch.ops.normalization import norm_forward
 from megatron_tpu_torch.ops.rotary import precompute_rope
+from megatron_tpu_torch.parallel.mappings import enter_tp, exit_tp, sp_slice
 
 
 def _layers(tree: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
@@ -50,20 +62,34 @@ def _layers(tree: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
 
 def embed_tokens(cfg: ModelConfig, params: Dict[str, Any],
                  tokens: torch.Tensor,
-                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 positions: Optional[torch.Tensor] = None,
+                 mesh=None) -> torch.Tensor:
     """Token embedding, plus the embed/pos rows at `positions` ([B, S] or
     [1, S]; None: 0 .. S-1) for absolute position embeddings (a rotary
     model's positions enter through RoPE). Positions are clamped to the
     table, as a gather on the device must not read past it: the engines
     refuse caches longer than the table, so only padded positions that
-    no one reads are clamped."""
-    x = F.embedding(tokens, params["embed"]["tokens"]).to(cfg.dtype)
+    no one reads are clamped. Under tensor parallelism the table is this
+    rank's vocab rows: ids outside them embed to zero and the tensor
+    group's sum (reduce-scatter under sequence parallelism, which then
+    returns this rank's sequence chunk) completes each row."""
+    table = params["embed"]["tokens"]
+    if mesh is None or mesh.tp == 1:
+        x = F.embedding(tokens, table).to(cfg.dtype)
+    else:
+        rows = table.shape[0]
+        local = tokens.long() - mesh.tp_rank * rows
+        inside = (local >= 0) & (local < rows)
+        x = F.embedding(local.clamp(0, rows - 1), table).masked_fill(
+            ~inside[..., None], 0).to(cfg.dtype)
+        x = exit_tp(x, mesh)
     if cfg.position_embedding_type == "absolute":
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         pos = positions.to(tokens.device, torch.long).clamp(
             0, cfg.max_position_embeddings - 1)
-        x = x + F.embedding(pos, params["embed"]["pos"]).to(cfg.dtype)
+        x = x + F.embedding(sp_slice(pos, mesh, dim=-1),
+                            params["embed"]["pos"]).to(cfg.dtype)
     return x
 
 
@@ -100,9 +126,13 @@ def lm_forward(
     page_table: Optional[torch.Tensor] = None,     # [B, max_pages] int32
     page_write_start: Optional[int] = None,
     page_write_end: Optional[int] = None,
+    mesh=None,
 ):
     """Forward pass to logits [B, S, V] (or, with return_hidden, the
-    final-normed hidden states [B, S, h]).
+    final-normed hidden states [B, S, h]). With a mesh (tensor
+    parallelism, no caches): logits are this rank's vocab columns
+    [B, S, V/tp] and the hidden states are the LM head's input, the
+    whole sequence.
 
     kv_caches: stacked per-layer caches [L, B, Smax, nkv, D] x2 (or the
     int8 4-tuple of ops/kv_quant.py, scales [L, B, Smax, nkv, 1]), updated
@@ -125,15 +155,8 @@ def lm_forward(
     recompute: the activation-recompute policy of a training pass (see
     the module docstring); it takes effect only while autograd records
     and never with caches."""
-    gran, n_rc = parse_recompute(recompute)
-    if kv_caches is not None or not torch.is_grad_enabled():
-        gran = "none"
-    if gran == "uniform" and n_rc == 1:
-        gran = "full"
-    if gran == "uniform" and cfg.num_layers % n_rc:
-        raise ValueError(
-            f"uniform:{n_rc} needs the layer count ({cfg.num_layers}) "
-            "divisible by the chunk size")
+    if kv_caches is not None:
+        recompute = "none"
     if positions is None and kv_caches is not None:
         steps = torch.arange(tokens.shape[1], device=tokens.device)
         if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
@@ -142,7 +165,7 @@ def lm_forward(
         else:
             positions = int(cache_index) + steps[None, :]
 
-    x = embed_tokens(cfg, params, tokens, positions)
+    x = embed_tokens(cfg, params, tokens, positions, mesh=mesh)
 
     if rope is None and cfg.position_embedding_type == "rotary":
         if kv_caches is not None and page_table is not None:
@@ -164,9 +187,42 @@ def lm_forward(
             block_forward, cfg, lp, rope=rope, positions=positions,
             kv_cache=cache, cache_index=cache_index,
             padding_mask=attention_mask,
-            recompute_core=gran == "selective",
+            recompute_core=recompute_granularity(recompute) == "selective",
             page_table=page_table, page_write_start=page_write_start,
-            page_write_end=page_write_end))
+            page_write_end=page_write_end, mesh=mesh))
+    x = run_layers(layers, x, recompute)
+
+    x = enter_tp(final_hidden_norm(cfg, params, x), mesh)
+    if return_hidden:
+        return x
+    logits = lm_logits(cfg, params, x)
+    if kv_caches is not None:
+        return logits, kv_caches
+    return logits
+
+
+def recompute_granularity(recompute: str) -> str:
+    """The policy's granularity as the layer loop applies it: nothing is
+    recomputed outside a recorded backward."""
+    gran, n_rc = parse_recompute(recompute)
+    if not torch.is_grad_enabled():
+        return "none"
+    if gran == "uniform" and n_rc == 1:
+        return "full"
+    return gran
+
+
+def run_layers(layers: List[Any], x: torch.Tensor,
+               recompute: str = "none") -> torch.Tensor:
+    """x through `layers` (callables x -> (y, cache)) under a recompute
+    policy (the module docstring); a pipeline stage applies it to its own
+    chunk of layers, as the reference applies the budget per stage."""
+    gran = recompute_granularity(recompute)
+    n_rc = parse_recompute(recompute)[1]
+    if gran == "uniform" and len(layers) % n_rc:
+        raise ValueError(
+            f"uniform:{n_rc} needs the layer count ({len(layers)}) "
+            "divisible by the chunk size")
 
     def remat(layer, x):
         return checkpoint(layer, x, use_reentrant=False)[0]
@@ -177,7 +233,7 @@ def lm_forward(
                 x = remat(layer, x)
             return x
 
-        for lo in range(0, cfg.num_layers, n_rc):
+        for lo in range(0, len(layers), n_rc):
             x = checkpoint(chunk, x, lo, use_reentrant=False)
     else:
         for i, layer in enumerate(layers):
@@ -185,20 +241,31 @@ def lm_forward(
                 x = remat(layer, x)
             else:
                 x, _ = layer(x)
+    return x
 
-    x = final_hidden_norm(cfg, params, x)
-    if return_hidden:
-        return x
-    logits = lm_logits(cfg, params, x)
-    if kv_caches is not None:
-        return logits, kv_caches
-    return logits
+
+def token_losses(cfg: ModelConfig, params: Dict[str, Any],
+                 hidden: torch.Tensor, labels: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
+    """Per-token CE [B, S] of the LM head's input `hidden` (chunked by
+    cfg.ce_chunk_size when the chunk tiles the sequence); with tensor
+    parallelism the vocab-parallel CE over this rank's logits."""
+    if cfg.ce_chunk_size and hidden.shape[1] % cfg.ce_chunk_size == 0:
+        return chunked_lm_loss_tokens(cfg, params, hidden, labels, mesh)
+    return _ce(lm_logits(cfg, params, hidden), labels, mesh)[1]
+
+
+def _ce(logits, labels, mesh, loss_mask=None):
+    if mesh is not None and mesh.tp > 1:
+        return vocab_parallel_cross_entropy(logits, labels, mesh,
+                                            loss_mask=loss_mask)
+    return cross_entropy_loss(logits, labels, loss_mask=loss_mask)
 
 
 def chunked_lm_loss_tokens(cfg: ModelConfig, params: Dict[str, Any],
                            hidden: torch.Tensor,     # [B, S, h] final-normed
-                           labels: torch.Tensor      # [B, S]
-                           ) -> torch.Tensor:
+                           labels: torch.Tensor,     # [B, S]
+                           mesh=None) -> torch.Tensor:
     """Per-token CE [B, S] over sequence chunks of cfg.ce_chunk_size
     tokens, LM head included, each chunk's logits recomputed in the
     backward (a checkpoint per chunk): the [B, S, V] logits and their
@@ -208,7 +275,7 @@ def chunked_lm_loss_tokens(cfg: ModelConfig, params: Dict[str, Any],
     C = cfg.ce_chunk_size
 
     def chunk_loss(h_c, y_c):
-        return cross_entropy_loss(lm_logits(cfg, params, h_c), y_c)[1]
+        return _ce(lm_logits(cfg, params, h_c), y_c, mesh)[1]
 
     out = []
     for c0 in range(0, hidden.shape[1], C):
@@ -221,11 +288,12 @@ def chunked_lm_loss_tokens(cfg: ModelConfig, params: Dict[str, Any],
 
 
 def lm_loss(cfg: ModelConfig, params: Dict[str, Any],
-            batch: Dict[str, torch.Tensor], recompute: str = "none"
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            batch: Dict[str, torch.Tensor], recompute: str = "none",
+            mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training loss on a batch dict with keys tokens [B, S], labels
     [B, S], optional loss_mask [B, S] and position_ids: per-token CE
-    weighted by loss_mask. Returns (mean, {"lm_loss", "ntokens"})."""
+    weighted by loss_mask. Returns (mean, {"lm_loss", "ntokens"}). mesh:
+    tensor parallelism (the vocab-parallel CE)."""
     S = batch["tokens"].shape[1]
     # unchunked when the chunk does not tile this batch's sequence;
     # C == S still chunks (the single recomputed chunk drops the forward
@@ -233,18 +301,19 @@ def lm_loss(cfg: ModelConfig, params: Dict[str, Any],
     chunked = bool(cfg.ce_chunk_size) and S % cfg.ce_chunk_size == 0
     out = lm_forward(cfg, params, batch["tokens"],
                      positions=batch.get("position_ids"),
-                     recompute=recompute, return_hidden=chunked)
+                     recompute=recompute, return_hidden=chunked, mesh=mesh)
     loss_mask = batch.get("loss_mask")
     if chunked:
-        per_token = chunked_lm_loss_tokens(cfg, params, out, batch["labels"])
+        per_token = chunked_lm_loss_tokens(cfg, params, out,
+                                           batch["labels"], mesh)
         if loss_mask is not None:
             m = loss_mask.float()
             mean = (per_token * m).sum() / m.sum().clamp_min(1.0)
         else:
             mean = per_token.mean()
     else:
-        mean, per_token = cross_entropy_loss(out, batch["labels"],
-                                             loss_mask=loss_mask)
+        mean, per_token = _ce(out, batch["labels"], mesh,
+                              loss_mask=loss_mask)
     ntokens = (loss_mask.sum() if loss_mask is not None
                else per_token.new_tensor(float(per_token.numel())))
     return mean, {"lm_loss": mean, "ntokens": ntokens}

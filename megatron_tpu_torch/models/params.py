@@ -1,24 +1,37 @@
-"""Parameter tree: shapes and initialization
+"""Parameter tree: shapes, initialization and partition specs
 (counterpart of megatron_tpu/models/params.py).
 
 The tree keeps the JAX package's flat '/' paths and stacked [L, ...]
 layer shapes, nested into plain dicts of tensors, so a JAX parameter
 tree converts 1:1 through numpy (params_from_numpy) and both packages
-compute the same function. The PartitionSpec column is dropped: this
-slice serves on one GPU.
+compute the same function. Each path carries the JAX package's
+PartitionSpec (parallel/sharding.P). Given a MeshRuntime, init_params
+and params_from_numpy return this rank's slice of every leaf by that
+spec (parallel/sharding.shard_leaf), as JAX's shard_tree places them,
+and under pipeline parallelism only the leaves its stage uses
+(stage_holds): its [L/pp, ...] layers (with virtual stages, its chunks
+in vpp_place_indices order), the token (and position) embedding on the
+first stage, the final norm and the LM head on the last, and with tied
+embeddings a copy of embed/tokens on the last stage too.
 """
 
 from __future__ import annotations
 
 import math
 import zlib
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.ops.activations import mlp_input_width_factor
+from megatron_tpu_torch.parallel.mesh import (
+    AXIS_PIPE, AXIS_TENSOR, MESH_AXES,
+)
+from megatron_tpu_torch.parallel.sharding import (
+    P, shard_leaf, spec_axes, zero1_dim,
+)
 
 _NORMAL = "normal"          # N(0, init_method_std)
 _SCALED = "scaled_normal"   # N(0, std / sqrt(2 * num_layers)) (output-facing)
@@ -27,7 +40,9 @@ _ZEROS = "zeros"
 
 
 def _defs(cfg: ModelConfig) -> Dict[str, Any]:
-    """Flat {'/'-joined path: (shape, init_kind)}."""
+    """Flat {'/'-joined path: (shape, partition_spec, init_kind)}, the
+    JAX package's table (megatron_tpu/models/params.py:39-125) for the
+    dense models the port trains."""
     h = cfg.hidden_size
     L = cfg.num_layers
     D = cfg.head_dim
@@ -35,11 +50,13 @@ def _defs(cfg: ModelConfig) -> Dict[str, Any]:
     F = cfg.ffn_size
     Fin = F * mlp_input_width_factor(cfg.activation)
     V = cfg.vocab_size
+    pipe, tensor = AXIS_PIPE, AXIS_TENSOR
 
     d: Dict[str, Any] = {}
-    d["embed/tokens"] = ((V, h), _NORMAL)
+    d["embed/tokens"] = ((V, h), P(tensor, None), _NORMAL)
     if cfg.position_embedding_type == "absolute":
-        d["embed/pos"] = ((cfg.max_position_embeddings, h), _NORMAL)
+        d["embed/pos"] = ((cfg.max_position_embeddings, h), P(None, None),
+                          _NORMAL)
 
     ln_bias = cfg.normalization == "layernorm"
     norms = ["layers/ln1"]
@@ -48,33 +65,33 @@ def _defs(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.parallel_layernorm:
         norms.append("layers/ln_mlp")
     for prefix in norms:
-        d[f"{prefix}/scale"] = ((L, h), _ONES)
+        d[f"{prefix}/scale"] = ((L, h), P(pipe, None), _ONES)
         if ln_bias:
-            d[f"{prefix}/bias"] = ((L, h), _ZEROS)
+            d[f"{prefix}/bias"] = ((L, h), P(pipe, None), _ZEROS)
 
-    d["layers/attn/wq"] = ((L, h, nq * D), _NORMAL)
-    d["layers/attn/wk"] = ((L, h, nkv * D), _NORMAL)
-    d["layers/attn/wv"] = ((L, h, nkv * D), _NORMAL)
-    d["layers/attn/wo"] = ((L, nq * D, h), _SCALED)
+    d["layers/attn/wq"] = ((L, h, nq * D), P(pipe, None, tensor), _NORMAL)
+    d["layers/attn/wk"] = ((L, h, nkv * D), P(pipe, None, tensor), _NORMAL)
+    d["layers/attn/wv"] = ((L, h, nkv * D), P(pipe, None, tensor), _NORMAL)
+    d["layers/attn/wo"] = ((L, nq * D, h), P(pipe, tensor, None), _SCALED)
     if cfg.use_bias_qkv:
-        d["layers/attn/bq"] = ((L, nq * D), _ZEROS)
-        d["layers/attn/bk"] = ((L, nkv * D), _ZEROS)
-        d["layers/attn/bv"] = ((L, nkv * D), _ZEROS)
+        d["layers/attn/bq"] = ((L, nq * D), P(pipe, tensor), _ZEROS)
+        d["layers/attn/bk"] = ((L, nkv * D), P(pipe, tensor), _ZEROS)
+        d["layers/attn/bv"] = ((L, nkv * D), P(pipe, tensor), _ZEROS)
     if cfg.use_bias_linear:
-        d["layers/attn/bo"] = ((L, h), _ZEROS)
+        d["layers/attn/bo"] = ((L, h), P(pipe, None), _ZEROS)
 
-    d["layers/mlp/w_in"] = ((L, h, Fin), _NORMAL)
-    d["layers/mlp/w_out"] = ((L, F, h), _SCALED)
+    d["layers/mlp/w_in"] = ((L, h, Fin), P(pipe, None, tensor), _NORMAL)
+    d["layers/mlp/w_out"] = ((L, F, h), P(pipe, tensor, None), _SCALED)
     if cfg.use_bias_linear:
-        d["layers/mlp/b_in"] = ((L, Fin), _ZEROS)
-        d["layers/mlp/b_out"] = ((L, h), _ZEROS)
+        d["layers/mlp/b_in"] = ((L, Fin), P(pipe, tensor), _ZEROS)
+        d["layers/mlp/b_out"] = ((L, h), P(pipe, None), _ZEROS)
 
     if not cfg.use_post_ln:  # post-LN layers carry their own output norm
-        d["final_ln/scale"] = ((h,), _ONES)
+        d["final_ln/scale"] = ((h,), P(None), _ONES)
         if ln_bias:
-            d["final_ln/bias"] = ((h,), _ZEROS)
+            d["final_ln/bias"] = ((h,), P(None), _ZEROS)
     if not cfg.tie_embed_logits:
-        d["lm_head/w"] = ((h, V), _NORMAL)
+        d["lm_head/w"] = ((h, V), P(None, tensor), _NORMAL)
     return d
 
 
@@ -102,11 +119,151 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     """Flat {path: shape}."""
-    return {k: s for k, (s, _) in _defs(cfg).items()}
+    return {k: s for k, (s, _, _) in _defs(cfg).items()}
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, P]:
+    """Flat {path: PartitionSpec}."""
+    return {k: spec for k, (_, spec, _) in _defs(cfg).items()}
 
 
 def num_params(cfg: ModelConfig) -> int:
-    return sum(math.prod(s) for s, _ in _defs(cfg).values())
+    return sum(math.prod(s) for s, _, _ in _defs(cfg).values())
+
+
+# ---------------------------------------------------------------------------
+# per-rank placement
+# ---------------------------------------------------------------------------
+
+
+def vpp_place_indices(L: int, Pn: int, V: int):
+    """(place, inverse) permutations for interleaved layer storage (a
+    copy of megatron_tpu/training/pipeline.py:135): placed order is
+    (stage, chunk slot, layer in chunk), so virtual stage k = c*Pn + s,
+    canonical layers [k*Lv, (k+1)*Lv), lands on physical stage s and a
+    contiguous cut of the placed layer axis over "pipe" gives each stage
+    its V chunks. Identity when V == 1."""
+    if L % (Pn * V):
+        raise ValueError(
+            f"num_layers={L} not divisible by stages*chunks {Pn}*{V}")
+    Lv = L // (Pn * V)
+    place = np.zeros(L, np.int64)
+    for s in range(Pn):
+        for c in range(V):
+            for j in range(Lv):
+                place[(s * V + c) * Lv + j] = ((c * Pn + s) * Lv) + j
+    inv = np.empty_like(place)
+    inv[place] = np.arange(L, dtype=np.int64)
+    return place, inv
+
+
+def stage_holds(path: str, cfg: ModelConfig, mesh) -> bool:
+    """Whether this rank's pipeline stage keeps the leaf at `path`."""
+    if mesh is None or mesh.pp == 1 or path.startswith("layers/"):
+        return True
+    if path == "embed/tokens":
+        return mesh.is_first_stage or (cfg.tie_embed_logits
+                                       and mesh.is_last_stage)
+    if path.startswith("embed/"):
+        return mesh.is_first_stage
+    return mesh.is_last_stage          # final_ln/*, lm_head/w
+
+
+def _glu_dim(path: str, cfg: ModelConfig) -> Optional[int]:
+    """The dimension of a GLU input projection cut per half
+    (parallel/sharding.py)."""
+    if cfg.is_glu and path in ("layers/mlp/w_in", "layers/mlp/b_in"):
+        return -1
+    return None
+
+
+def check_mesh(cfg: ModelConfig, mesh) -> None:
+    """The divisibility the per-rank slices need, and what the port's
+    tensor parallelism does not cover yet (refused, ROADMAP.md 7b)."""
+    if mesh is None:
+        return
+    tp, pp, V = mesh.tp, mesh.pp, mesh.vpp
+    if tp > 1:
+        if cfg.num_attention_heads % tp or cfg.n_kv_heads % tp:
+            raise ValueError(
+                f"tensor_parallel={tp} must divide the query heads "
+                f"({cfg.num_attention_heads}) and the kv heads "
+                f"({cfg.n_kv_heads}): GQA with tp > num_kv_heads is not "
+                "supported (the JAX specs cut the kv projection too)")
+        if cfg.vocab_size % tp:
+            raise ValueError(
+                f"vocab_size={cfg.vocab_size} not divisible by "
+                f"tensor_parallel={tp}: pad it to make_vocab_size_"
+                "divisible_by x tp (models/presets.py)")
+        if cfg.ffn_size % tp:
+            raise ValueError(f"ffn size {cfg.ffn_size} not divisible by "
+                             f"tensor_parallel={tp}")
+        if cfg.parallel_attn or cfg.use_post_ln:
+            raise ValueError(
+                "tensor parallelism of Falcon's parallel attention and of "
+                "the post-LN block is not ported (the JAX topology matrix "
+                "does not cover them; ROADMAP.md queue A item 7b)")
+        if mesh.sequence_parallel and cfg.seq_length % tp:
+            raise ValueError(f"sequence parallelism needs seq_length "
+                             f"({cfg.seq_length}) divisible by tp={tp}")
+    if cfg.num_layers % (pp * V):
+        raise ValueError(f"num_layers={cfg.num_layers} not divisible by "
+                         f"stages*chunks {pp}*{V}")
+
+
+def shard_params(flat: Dict[str, torch.Tensor], cfg: ModelConfig,
+                 mesh) -> Dict[str, torch.Tensor]:
+    """This rank's slices of a full flat {path: tensor} tree."""
+    check_mesh(cfg, mesh)
+    specs = param_specs(cfg)
+    sizes = {a: mesh.size(a) for a in MESH_AXES}
+    place = None
+    if mesh.vpp > 1:
+        place = torch.from_numpy(
+            vpp_place_indices(cfg.num_layers, mesh.pp, mesh.vpp)[0])
+    out = {}
+    for path, x in flat.items():
+        if not stage_holds(path, cfg, mesh):
+            continue
+        if place is not None and path.startswith("layers/"):
+            x = x[place.to(x.device)]
+        glu = _glu_dim(path, cfg)
+        if glu is not None and glu < 0:
+            glu += x.dim()
+        out[path] = shard_leaf(x, specs[path], mesh.coords, sizes,
+                               glu_dim=glu)
+    return out
+
+
+def leaf_layout(cfg: ModelConfig, mesh, zero1: bool
+                ) -> Dict[str, Tuple[P, Optional[int], bool]]:
+    """{path: (spec, zero1 dim, owner)} for the leaves this rank holds.
+
+    zero1 dim: the dimension ZeRO-1 cuts this rank's optimizer state
+    along (parallel/sharding.zero1_spec on the global shape; None when
+    zero1 is off, dp is 1 or no dimension divides). owner: whether this
+    rank counts the leaf in a global sum over every rank (the grad
+    norm): a leaf replicated over an axis is counted at index 0 of that
+    axis only, a sharded one on every rank of the axis, so each element
+    is counted once."""
+    shapes, specs = param_shapes(cfg), param_specs(cfg)
+    out = {}
+    for path in shapes:
+        if not stage_holds(path, cfg, mesh):
+            continue
+        spec = specs[path]
+        zdim = (zero1_dim(spec, shapes[path], mesh.dp)
+                if zero1 else None)
+        owner = True
+        if zdim is None and mesh.dp_rank != 0:
+            owner = False
+        if AXIS_TENSOR not in spec_axes(spec) and mesh.tp_rank != 0:
+            owner = False
+        if path == "embed/tokens" and mesh.pp > 1 and not \
+                mesh.is_first_stage:
+            owner = False             # the tied copy on the last stage
+        out[path] = (spec, zdim, owner)
+    return out
 
 
 def empty_params(cfg: ModelConfig, device="cuda",
@@ -115,12 +272,14 @@ def empty_params(cfg: ModelConfig, device="cuda",
     load (training/checkpointing.load_params_only)."""
     dtype = dtype or cfg.dtype
     return _nest({path: torch.empty(shape, dtype=dtype, device=device)
-                  for path, (shape, _) in sorted(_defs(cfg).items())})
+                  for path, (shape, _, _) in sorted(_defs(cfg).items())})
 
 
 def init_params(cfg: ModelConfig, seed: int, device="cuda",
-                dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-    """Random-init the full parameter tree on `device`.
+                dtype: Optional[torch.dtype] = None,
+                mesh=None) -> Dict[str, Any]:
+    """Random-init the full parameter tree on `device` (with a mesh:
+    this rank's slices of it, the same logical weights at any topology).
 
     Each tensor draws from its own torch.Generator seeded from the seed
     and a stable hash of its path (the JAX package folds the same hash
@@ -132,7 +291,9 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda",
     scaled_std = (cfg.init_method_std / math.sqrt(2.0 * cfg.num_layers)
                   if cfg.use_scaled_init else cfg.init_method_std)
     flat = {}
-    for path, (shape, kind) in sorted(_defs(cfg).items()):
+    for path, (shape, _, kind) in sorted(_defs(cfg).items()):
+        if mesh is not None and not stage_holds(path, cfg, mesh):
+            continue
         if kind == _ONES:
             flat[path] = torch.ones(shape, dtype=dtype, device=device)
         elif kind == _ZEROS:
@@ -143,13 +304,17 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda",
             gen.manual_seed(zlib.crc32(path.encode(), int(seed) & 0xFFFFFFFF))
             t = torch.empty(shape, dtype=dtype, device=device)
             flat[path] = t.normal_(0.0, std, generator=gen)
+    if mesh is not None:
+        flat = shard_params(flat, cfg, mesh)
     return _nest(flat)
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
-                      dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+                      dtype: Optional[torch.dtype] = None,
+                      mesh=None) -> Dict[str, Any]:
     """A JAX parameter tree, as nested dicts of numpy arrays
-    (jax.device_get(params)), -> this package's parameter tree.
+    (jax.device_get(params)), -> this package's parameter tree (with a
+    mesh: this rank's slices, by the rule of JAX's shard_tree).
 
     Checks the tree against _defs(cfg) path by path and shape by shape,
     so a mismatched config fails here instead of computing garbage."""
@@ -166,7 +331,11 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
         a = np.asarray(arr)
         if tuple(a.shape) != tuple(want[path]):
             raise ValueError(f"{path}: shape {a.shape} != {want[path]}")
+        if mesh is not None and not stage_holds(path, cfg, mesh):
+            continue
         out[path] = torch.from_numpy(
             np.ascontiguousarray(a.astype(np.float32))).to(
                 device=device, dtype=dtype)
+    if mesh is not None:
+        out = shard_params(out, cfg, mesh)
     return _nest(out)

@@ -12,9 +12,17 @@ with positions from the batch; selective recompute checkpoints its core
 attention. The paged form writes K/V through a page table into the
 shared page pools [P, ps, nkv, D] (inference/paging/). A cache of four
 tensors is the int8 form (ops/kv_quant.py): int8 K/V with fp32 scales
-[..., 1], quantized on write and dequantized whole for attention. fp8,
-weight quantization, MoE, dropout, explicit TP/CP collectives and
-context-parallel paging are not ported yet.
+[..., 1], quantized on write and dequantized whole for attention.
+
+Tensor parallelism (a MeshRuntime as `mesh`, training only): the layer
+params are this rank's slices (models/params.py), so Q/K/V and w_in are
+column-parallel over the local heads (nq/tp, nkv/tp) and FFN columns,
+wo and w_out row-parallel; each block enters through
+parallel/mappings.enter_tp and leaves through exit_tp (an all-reduce,
+or under sequence parallelism an all-gather in and a reduce-scatter
+out), and a row-parallel bias is added once, after the reduce. Without
+a mesh (or at tp 1) both are the identity. fp8, weight quantization,
+MoE, dropout and context parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from megatron_tpu_torch.ops.attention import attention
 from megatron_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
 from megatron_tpu_torch.ops.normalization import norm_forward
 from megatron_tpu_torch.ops.rotary import apply_rotary_emb
+from megatron_tpu_torch.parallel.mappings import enter_tp, exit_tp
 
 #: (k, v), or the int8 form (k_q, v_q, k_scale, v_scale)
 KVCache = Tuple[torch.Tensor, ...]
@@ -54,6 +63,7 @@ def attention_block(
     page_table: Optional[torch.Tensor] = None,
     page_write_start: Optional[int] = None,
     page_write_end: Optional[int] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (out [B, S, h], kv_cache).
 
@@ -82,9 +92,12 @@ def attention_block(
     refcount-shared page (shared pages are copy-on-write: never written
     through a sharer's table); the end fence parks the final chunk's
     padded-tail writes on scratch."""
+    x = enter_tp(x, mesh)
     b, s, _ = x.shape
     D = cfg.head_dim
     nq, nkv = cfg.num_attention_heads, cfg.n_kv_heads
+    if mesh is not None:
+        nq, nkv = nq // mesh.tp, nkv // mesh.tp
 
     q = torch.matmul(x, p["wq"])
     k = torch.matmul(x, p["wk"])
@@ -202,19 +215,19 @@ def attention_block(
         ctx = checkpoint(core, q, k, v, use_reentrant=False)
     else:
         ctx = core(q, k, v)
-    out = torch.matmul(ctx.reshape(b, s, nq * D), p["wo"])
+    out = exit_tp(torch.matmul(ctx.reshape(b, s, nq * D), p["wo"]), mesh)
     if "bo" in p:
         out = out + p["bo"]
     return out, kv_cache
 
 
 def mlp_block(cfg: ModelConfig, p: Dict[str, Any],
-              x: torch.Tensor) -> torch.Tensor:
-    h = torch.matmul(x, p["w_in"])
+              x: torch.Tensor, mesh=None) -> torch.Tensor:
+    h = torch.matmul(enter_tp(x, mesh), p["w_in"])
     if "b_in" in p:
         h = h + p["b_in"]
     h = apply_activation(cfg.activation, h)
-    out = torch.matmul(h, p["w_out"])
+    out = exit_tp(torch.matmul(h, p["w_out"]), mesh)
     if "b_out" in p:
         out = out + p["b_out"]
     return out
@@ -233,9 +246,12 @@ def block_forward(
     page_table: Optional[torch.Tensor] = None,
     page_write_start: Optional[int] = None,
     page_write_end: Optional[int] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """One decoder layer -> (y, kv_cache): pre-LN, parallel attention
-    (Falcon) or post-LN, as the config says."""
+    (Falcon) or post-LN, as the config says. mesh: tensor parallelism
+    (the module docstring); x is then this rank's sequence chunk under
+    sequence parallelism."""
     # post-LN: no pre-norm; the layer ends with its own norm, the ln1 slot
     normed = x if cfg.use_post_ln else _norm(cfg, lp["ln1"], x)
     attn_out, kv_cache = attention_block(
@@ -243,18 +259,19 @@ def block_forward(
         kv_cache=kv_cache, cache_index=cache_index,
         padding_mask=padding_mask, recompute_core=recompute_core,
         page_table=page_table, page_write_start=page_write_start,
-        page_write_end=page_write_end)
+        page_write_end=page_write_end, mesh=mesh)
     if cfg.parallel_attn:
         # the MLP reads ln1(x) (Falcon-7B) or its own ln_mlp(x)
         # (Falcon-40B); one residual add for both branches
         mlp_in = (_norm(cfg, lp["ln_mlp"], x) if cfg.parallel_layernorm
                   else normed)
         res = normed if cfg.apply_residual_post_ln else x
-        return res + attn_out + mlp_block(cfg, lp["mlp"], mlp_in), kv_cache
+        return (res + attn_out + mlp_block(cfg, lp["mlp"], mlp_in, mesh),
+                kv_cache)
     y = (normed if cfg.apply_residual_post_ln else x) + attn_out
     normed2 = _norm(cfg, lp["ln2"], y)
     y = (normed2 if cfg.apply_residual_post_ln else y) + mlp_block(
-        cfg, lp["mlp"], normed2)
+        cfg, lp["mlp"], normed2, mesh)
     if cfg.use_post_ln:
         y = _norm(cfg, lp["ln1"], y)
     return y, kv_cache

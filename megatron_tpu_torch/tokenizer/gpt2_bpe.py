@@ -6,19 +6,22 @@ byte<->unicode mapping, greedy lowest-rank pair merges, and GPT-2's
 pre-tokenization. Files: vocab.json (token -> id) and merges.txt (one
 merge per line).
 
-The JAX package pre-tokenizes with the third-party `regex` module's
+Pre-tokenization is the JAX package's: the third-party `regex` module's
 pattern
 
     's|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+| ?[^\\s\\p{L}\\p{N}]+|\\s+(?!\\S)|\\s+
 
-which the standard library's `re` cannot express (no \\p{...} classes),
-and the card's machine has no `regex`. pretokenize() below is a scanner
-with that pattern's semantics (leftmost match, alternatives in order,
+whenever `regex` imports (it does on both machines the port runs on).
+The standard library's `re` cannot express it (no \\p{...} classes), so
+without `regex` pretokenize() falls back to _scan_pretokenize, a scanner
+with the pattern's semantics (leftmost match, alternatives in order,
 greedy runs, the lookahead's backtrack by one whitespace character),
 classifying characters with unicodedata: letters are categories L*,
 numbers N*, whitespace str.isspace() less U+001C..U+001F (which `regex`
-does not count as \\s). It gives the same pieces as the pattern wherever
-the two Unicode databases agree.
+does not count as \\s). The scanner gives the pattern's pieces only
+where Python's Unicode database agrees with `regex`'s: code points that
+`regex`'s newer tables assign and Python's leave unassigned (U+A7CB,
+for one) split differently, and so get other token ids.
 """
 
 from __future__ import annotations
@@ -27,6 +30,11 @@ import json
 import unicodedata
 from functools import lru_cache
 from typing import Dict, List, Tuple
+
+try:
+    import regex as _regex
+except ImportError:  # the scanner stands in (module docstring)
+    _regex = None
 
 _CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
 _NOT_SPACE = frozenset("\x1c\x1d\x1e\x1f")
@@ -41,8 +49,22 @@ def _char_class(ch: str) -> str:
     return cat if cat in "LN" else "O"
 
 
+_PRETOKENIZE = (_regex.compile(
+    r"""'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+"""
+    r"""|\s+(?!\S)|\s+""") if _regex is not None else None)
+
+
 def pretokenize(text: str) -> List[str]:
-    """GPT-2's pre-tokenization of `text` (see the module docstring)."""
+    """GPT-2's pre-tokenization of `text`: the JAX package's `regex`
+    pattern, or the scanner where `regex` is missing."""
+    if _PRETOKENIZE is not None:
+        return _PRETOKENIZE.findall(text)
+    return _scan_pretokenize(text)
+
+
+def _scan_pretokenize(text: str) -> List[str]:
+    """The pattern's pieces by a scan over unicodedata classes (see the
+    module docstring)."""
     out: List[str] = []
     cls = [_char_class(c) for c in text]
     n = len(text)

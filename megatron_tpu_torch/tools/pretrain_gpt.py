@@ -14,6 +14,19 @@ The data flags are the JAX entry point's: --dataloader_type cyclic
 length in samples when --train_iters is not given). --device cpu runs
 the flash kernels' plain versions (with a small preset, e.g.
 --model_name tiny --fp32).
+
+Under python -m torch.distributed.run each process is one rank: the
+process group comes from the launcher's environment (NCCL on CUDA, gloo
+on the CPU or with --distributed_backend gloo), the topology from
+--tensor_model_parallel_size, --pipeline_model_parallel_size,
+--num_layers_per_virtual_pipeline_stage, --sequence_parallel and
+--use_distributed_optimizer (data parallelism takes the rest of the
+world), and rank 0 logs:
+
+    python -m torch.distributed.run --nproc_per_node 8 \\
+        -m megatron_tpu_torch.tools.pretrain_gpt --model_name llama2-7B \\
+        --tensor_model_parallel_size 2 --sequence_parallel \\
+        --pipeline_model_parallel_size 2 --use_distributed_optimizer ...
 """
 
 from __future__ import annotations
@@ -27,14 +40,28 @@ def main(argv=None, log=print, extra_args_provider=None):
     """Returns the finished TrainLoop (training/pretrain.py).
     extra_args_provider: a caller's own flags (tools/finetune's)."""
     from megatron_tpu_torch.arguments import args_to_run_config, parse_args
+    from megatron_tpu_torch.parallel.distributed import (
+        destroy_distributed, initialize_distributed,
+    )
+
+    args = parse_args(argv, extra_args_provider)
+    cfg = args_to_run_config(args)
+    if initialize_distributed(args.device, args.distributed_backend):
+        try:
+            return _main(args, cfg, log)
+        finally:
+            destroy_distributed()
+    return _main(args, cfg, log)
+
+
+def _main(args, cfg, log):
     from megatron_tpu_torch.data.gpt_dataset import build_gpt_datasets
     from megatron_tpu_torch.data.samplers import (
         PretrainingRandomSampler, PretrainingSampler, build_data_loader,
     )
+    from megatron_tpu_torch.parallel.distributed import local_device
     from megatron_tpu_torch.training.pretrain import gpt_collate, pretrain
 
-    args = parse_args(argv, extra_args_provider)
-    cfg = args_to_run_config(args)
     if not args.data_path:
         raise SystemExit("--data_path is required")
     t = cfg.training
@@ -50,10 +77,23 @@ def main(argv=None, log=print, extra_args_provider=None):
     n_train = t.train_iters * t.global_batch_size
     n_valid = (t.train_iters // max(t.eval_interval, 1) + 1) * t.eval_iters \
         * t.global_batch_size
-    train_ds, valid_ds, _ = build_gpt_datasets(
-        args.data_path, args.split, cfg.model.seq_length,
-        (n_train, n_valid, t.eval_iters * t.global_batch_size), seed=t.seed,
-        cache_dir=args.data_cache_dir)
+    def build():
+        return build_gpt_datasets(
+            args.data_path, args.split, cfg.model.seq_length,
+            (n_train, n_valid, t.eval_iters * t.global_batch_size),
+            seed=t.seed, cache_dir=args.data_cache_dir)
+
+    import torch.distributed as dist
+
+    if args.data_cache_dir and dist.is_initialized():
+        # rank 0 writes the index cache, the others read it afterwards
+        if dist.get_rank() == 0:
+            train_ds, valid_ds, _ = build()
+        dist.barrier()
+        if dist.get_rank() != 0:
+            train_ds, valid_ds, _ = build()
+    else:
+        train_ds, valid_ds, _ = build()
 
     eod = args.eod_token_id
     if (args.eod_mask_loss or args.reset_position_ids) and eod is None:
@@ -91,7 +131,7 @@ def main(argv=None, log=print, extra_args_provider=None):
                                  prefetch=args.num_workers)
 
     return pretrain(cfg, train_iter_factory, valid_iter_factory, log=log,
-                    device=args.device)
+                    device=local_device(args.device))
 
 
 if __name__ == "__main__":

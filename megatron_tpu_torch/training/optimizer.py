@@ -12,6 +12,23 @@ PyTorch updates in place where JAX returns a new state: each leaf's
 master, moments and model-dtype params are overwritten, chunk by chunk
 (_CHUNK elements at a time, so the temporaries of the largest stacked
 leaf stay a few hundred MB).
+
+Across ranks (a MeshRuntime and models/params.leaf_layout): the grad
+norm is one sum of squares over every rank, each element counted once
+(a leaf replicated over tensor or data ranks is counted at index 0 of
+that axis, a sharded one everywhere), so every rank gets the same norm;
+the finite flag and the fp16 scaler's decision come from that norm,
+so no rank skips a step another takes (a non-finite value anywhere
+makes the global sum non-finite everywhere). With
+use_distributed_optimizer (ZeRO-1, the reference's
+distrib_optimizer.py) and dp > 1, the fp32 masters and both moments are
+this rank's zero1 shard of each leaf (parallel/sharding.zero1_spec: a
+cut over the data ranks of the first unsharded dimension dp divides),
+the step's grads arrive reduce-scattered into that shard
+(training/train_step.py), Adam runs on the shard with the formula
+above, and the updated shards are all-gathered back into the
+model-dtype params. A leaf no dimension of which dp divides stays whole
+on every data rank (zero1_spec leaves it replicated).
 """
 
 from __future__ import annotations
@@ -23,6 +40,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from megatron_tpu_torch.config import OptimizerConfig
+from megatron_tpu_torch.parallel.mappings import all_gather, all_reduce
 from megatron_tpu_torch.training.scheduler import lr_at_step, wd_at_step
 
 _CHUNK = 1 << 26
@@ -97,8 +115,39 @@ def leaf_group_mults(cfg: OptimizerConfig, tree: Any):
     return out
 
 
+def zero1_layout(cfg: OptimizerConfig, mesh, layout) -> Dict[str, int]:
+    """{path: the dimension ZeRO-1 cuts this rank's optimizer state
+    along} for the leaves it cuts; {} when ZeRO-1 is off or dp is 1."""
+    if (mesh is None or layout is None or mesh.dp == 1
+            or not cfg.use_distributed_optimizer):
+        return {}
+    return {p: zdim for p, (_, zdim, _) in layout.items()
+            if zdim is not None}
+
+
+def zero1_shard(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """This data rank's block of x along dim."""
+    return x.chunk(mesh.dp, dim=dim)[mesh.dp_rank]
+
+
+def nest_paths(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{slash-joined path: leaf} -> nested dicts (leaf_paths' inverse)."""
+    out: Dict[str, Any] = {}
+    for path, v in flat.items():
+        node = out
+        parts = path.split("/")
+        for k in parts[:-1]:
+            node = node.setdefault(k, {})
+        node[parts[-1]] = v
+    return out
+
+
 def init_train_state(cfg: OptimizerConfig, params: Any,
-                     use_fp16_scaler: bool = False) -> TrainState:
+                     use_fp16_scaler: bool = False, mesh=None,
+                     layout=None) -> TrainState:
+    """layout: models/params.leaf_layout for a multi-rank run; with
+    ZeRO-1 the masters (always kept then, fp32 params too) and the
+    moments are this rank's shards."""
     leaves = [v for _, v in leaf_paths(params)]
     device = leaves[0].device
     zeros = lambda t: tree_map(
@@ -106,8 +155,16 @@ def init_train_state(cfg: OptimizerConfig, params: Any,
         t)
     needs_master = cfg.fp32_master_weights and any(
         x.dtype != torch.float32 for x in leaves)
-    master = (tree_map(lambda x: x.detach().float().clone(), params)
-              if needs_master else None)
+    zdims = zero1_layout(cfg, mesh, layout)
+    if zdims:
+        master = nest_paths({
+            path: (zero1_shard(x.detach().float(), mesh, zdims[path])
+                   if path in zdims else x.detach().float()).clone()
+            for path, x in leaf_paths(params)})
+    elif needs_master:
+        master = tree_map(lambda x: x.detach().float().clone(), params)
+    else:
+        master = None
     scaler = None
     if use_fp16_scaler:
         init_scale = (cfg.loss_scale if cfg.loss_scale is not None
@@ -118,20 +175,47 @@ def init_train_state(cfg: OptimizerConfig, params: Any,
             growth_tracker=torch.zeros((), dtype=torch.int32, device=device),
             hysteresis=torch.tensor(cfg.hysteresis, dtype=torch.int32,
                                     device=device))
+    moments = master if zdims else params
     return TrainState(
-        params=params, master=master, mu=zeros(params), nu=zeros(params),
+        params=params, master=master, mu=zeros(moments), nu=zeros(moments),
         step=torch.zeros((), dtype=torch.int32, device=device),
         scaler=scaler,
         nonfinite_streak=torch.zeros((), dtype=torch.int32, device=device))
 
 
-def global_grad_norm(grads: Any) -> torch.Tensor:
-    norms = [torch.linalg.vector_norm(g.float()) for _, g in leaf_paths(grads)]
-    return torch.stack(norms).square().sum().sqrt()
+def _world(mesh):
+    """The group of every rank, or None in a one-rank run."""
+    if mesh is None or mesh.world_size == 1:
+        return None
+    import torch.distributed as dist
+
+    return dist.group.WORLD
 
 
-def count_zeros(grads: Any) -> torch.Tensor:
-    return sum((g == 0).sum() for _, g in leaf_paths(grads)).float()
+def global_grad_norm(grads: Any, mesh=None, layout=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf; across ranks, over the
+    leaves this rank owns (models/params.leaf_layout), summed over every
+    rank."""
+    world = _world(mesh)
+    if world is None:
+        norms = [torch.linalg.vector_norm(g.float())
+                 for _, g in leaf_paths(grads)]
+        return torch.stack(norms).square().sum().sqrt()
+    sq = [torch.linalg.vector_norm(g.float()).square()
+          for path, g in leaf_paths(grads) if layout[path][2]]
+    local = (torch.stack(sq).sum() if sq else
+             torch.zeros((), device=next(iter(leaf_paths(grads)))[1].device))
+    return all_reduce(local, world).sqrt()
+
+
+def count_zeros(grads: Any, mesh=None, layout=None) -> torch.Tensor:
+    world = _world(mesh)
+    if world is None:
+        return sum((g == 0).sum() for _, g in leaf_paths(grads)).float()
+    local = sum(((g == 0).sum() for path, g in leaf_paths(grads)
+                 if layout[path][2]), torch.zeros(())).float()
+    dev = next(iter(leaf_paths(grads)))[1].device
+    return all_reduce(local.to(dev), world)
 
 
 def _update_scaler(cfg: OptimizerConfig, s: ScalerState,
@@ -162,7 +246,7 @@ def _chunks(*tensors):
     return zip(*(f.split(_CHUNK) for f in flat))
 
 
-def _prepare(state: TrainState, grads: Any):
+def _prepare(state: TrainState, grads: Any, mesh=None, layout=None):
     """fp32 unscaled grads (in place when they already are fp32), their
     global norm and the finite flag, as the first half of both steps."""
     inv = (1.0 / state.scaler.scale) if state.scaler is not None else None
@@ -172,7 +256,7 @@ def _prepare(state: TrainState, grads: Any):
         return g.mul_(inv) if inv is not None else g
 
     out = tree_map(prep, grads)
-    norm = global_grad_norm(out)
+    norm = global_grad_norm(out, mesh, layout)
     return out, norm, torch.isfinite(norm)
 
 
@@ -184,13 +268,19 @@ def _clip(cfg: OptimizerConfig, grads: Any, norm: torch.Tensor) -> None:
 
 
 def _finish(cfg: OptimizerConfig, state: TrainState, finite: torch.Tensor,
-            masters: Any) -> None:
-    """Model-dtype params from the masters, scaler, streak and step."""
+            masters: Any, mesh=None, zdims: Optional[Dict[str, int]] = None
+            ) -> None:
+    """Model-dtype params from the masters (a ZeRO-1 shard all-gathered
+    over the data ranks in the model dtype), scaler, streak and step."""
     if state.master is not None:
         with torch.no_grad():
-            for (_, p), (_, m) in zip(leaf_paths(state.params),
-                                      leaf_paths(masters)):
-                p.copy_(m)
+            for (path, p), (_, m) in zip(leaf_paths(state.params),
+                                         leaf_paths(masters)):
+                if zdims and path in zdims:
+                    p.copy_(all_gather(m.to(p.dtype), mesh.group("data"),
+                                       zdims[path]))
+                else:
+                    p.copy_(m)
     if state.scaler is not None:
         state.scaler = _update_scaler(cfg, state.scaler, ~finite)
     state.nonfinite_streak = torch.where(
@@ -199,21 +289,24 @@ def _finish(cfg: OptimizerConfig, state: TrainState, finite: torch.Tensor,
     state.step = torch.where(finite, state.step + 1, state.step)
 
 
-def make_optimizer_step(cfg: OptimizerConfig, train_iters: int):
+def make_optimizer_step(cfg: OptimizerConfig, train_iters: int,
+                        mesh=None, layout=None):
     """Returns apply(state, grads) -> (state, metrics).
 
     grads are fp32 *scaled* grads (the loss was multiplied by
     scaler.scale when a scaler is present); they are overwritten. The
     state is updated in place and returned; metrics are device tensors
     (grad_norm, lr, skipped, skip_streak, and loss_scale / num_zeros when
-    they apply)."""
+    they apply). mesh, layout: a multi-rank run (the module docstring);
+    under ZeRO-1 the grads of the cut leaves are this rank's shards."""
     if cfg.optimizer not in ("adam", "sgd"):
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     b1, b2, eps = cfg.adam_beta1, cfg.adam_beta2, cfg.adam_eps
+    zdims = zero1_layout(cfg, mesh, layout)
 
     @torch.no_grad()
     def apply(state: TrainState, grads: Any):
-        grads, norm, finite = _prepare(state, grads)
+        grads, norm, finite = _prepare(state, grads, mesh, layout)
         _clip(cfg, grads, norm)
         lr = lr_at_step(cfg, state.step, train_iters)
         wd = wd_at_step(cfg, state.step, train_iters)
@@ -247,12 +340,12 @@ def make_optimizer_step(cfg: OptimizerConfig, train_iters: int):
                 mc.copy_(torch.where(finite, m1, mc))
                 vc.copy_(torch.where(finite, v1, vc))
                 pc.copy_(torch.where(finite, p1, pf))
-        _finish(cfg, state, finite, masters)
+        _finish(cfg, state, finite, masters, mesh, zdims)
         metrics = {"grad_norm": norm, "lr": lr,
                    "skipped": (~finite).float(),
                    "skip_streak": state.nonfinite_streak.float()}
         if cfg.log_num_zeros_in_grad:
-            metrics["num_zeros"] = count_zeros(grads)
+            metrics["num_zeros"] = count_zeros(grads, mesh, layout)
         if state.scaler is not None:
             metrics["loss_scale"] = state.scaler.scale
         return state, metrics

@@ -18,9 +18,21 @@ On a CUDA device the worker thread
     stream of its own;
   * records one event per batch after its copies and, with ``land``
     (the default), waits for it on the worker, so a pop hands the loop
-    a batch that is already on the card.
+    a batch that is already on the card;
+  * reuses a ring of pinned host buffers, depth + 2 batches of them,
+    instead of pinning fresh memory per array per batch (a new pinned
+    block is a cudaHostAlloc whenever the caching host allocator has no
+    free block of the size); a slot is refilled only after the event of
+    the copies that last read it.
 
-The consumer makes its current (compute) stream wait on that event and
+Each pop records ``last_pop``: the queue's fill before the pop, the
+queue get's wait, the hand-off to the compute stream, and the worker's
+pin-and-issue and landing times of that batch;
+the train loop keeps them in its per-step records (the attribution of
+the pop's wait).
+
+The consumer makes its current (compute) stream wait on that event
+(unless the worker landed the batch: then the event is complete) and
 calls ``record_stream`` on every tensor it hands out, so the caching
 allocator never gives the memory, which the copy stream allocated, to
 another tensor before the compute stream is done with it. On the CPU a
@@ -50,13 +62,16 @@ import torch
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device,
-              stream: Optional["torch.cuda.Stream"] = None
+              stream: Optional["torch.cuda.Stream"] = None,
+              pinned: Optional[Dict[str, torch.Tensor]] = None
               ) -> Dict[str, torch.Tensor]:
     """The batch's arrays as tensors on `device`. With a CUDA `stream`
     each array goes through a pinned host tensor and is copied
     asynchronously on that stream; without one the copy is the caller's
     stream's (synchronous from pageable memory). On the CPU no copy is
-    made."""
+    made. pinned: reusable pinned buffers by key (the prefetcher's ring
+    slot), refilled in place where the shape and dtype match; the
+    caller makes sure no copy still reads them."""
     host = {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in batch.items()}
     if device.type != "cuda":
@@ -66,9 +81,13 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device,
     out = {}
     with torch.cuda.stream(stream):
         for k, t in host.items():
-            pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            pinned.copy_(t)
-            out[k] = pinned.to(device, non_blocking=True)
+            buf = None if pinned is None else pinned.get(k)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                if pinned is not None:
+                    pinned[k] = buf
+            buf.copy_(t)
+            out[k] = buf.to(device, non_blocking=True)
     return out
 
 
@@ -111,6 +130,12 @@ class DevicePrefetcher:
         self.batches_put = 0
         self.put_s = 0.0        # pin + enqueue seconds (worker-side)
         self.land_s = 0.0       # waiting for the copies (worker-side)
+        # the latest pop: fill (queue length before it), get_ms (the
+        # queue get's wait), handoff_ms (the compute stream's wait on the
+        # batch's event and record_stream), and the popped batch's
+        # worker put_ms / land_ms
+        self.last_pop: Dict[str, float] = {}
+        self._ring_size = depth + 2
         self._thread = threading.Thread(
             target=self._worker, name="batch-prefetcher", daemon=True)
         self._thread.start()
@@ -132,17 +157,24 @@ class DevicePrefetcher:
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
                 stream = torch.cuda.Stream(self.device)
+            # [pinned buffers, event of the copies that last read them]
+            ring = [[{}, None] for _ in range(self._ring_size)]
             for i, batch in enumerate(self._iterator):
                 if self._stop.is_set():
                     return
                 if self._transform is not None:
                     batch = self._transform(batch, self._first_iteration + i)
                 t0 = time.perf_counter()
-                device_batch = to_device(batch, self.device, stream)
+                slot = ring[i % self._ring_size]
+                if slot[1] is not None:
+                    slot[1].synchronize()
+                device_batch = to_device(batch, self.device, stream,
+                                         pinned=slot[0])
                 event = None
                 if stream is not None:
                     event = torch.cuda.Event()
                     event.record(stream)
+                    slot[1] = event
                 t1 = time.perf_counter()
                 if self._land and event is not None:
                     # land the copy in the worker so a pop hands the loop
@@ -152,7 +184,9 @@ class DevicePrefetcher:
                 self.put_s += t1 - t0
                 self.land_s += t2 - t1
                 self.batches_put += 1
-                if not self._enqueue((device_batch, event)):
+                stats = {"put_ms": (t1 - t0) * 1e3,
+                         "land_ms": (t2 - t1) * 1e3}
+                if not self._enqueue((device_batch, event, stats)):
                     return
             self._enqueue(self._end)
         except BaseException as e:  # noqa: BLE001 - worker thread: every
@@ -168,19 +202,30 @@ class DevicePrefetcher:
     def __next__(self) -> Dict[str, Any]:
         if self._done:
             raise StopIteration
+        fill = self._q.qsize()
+        t0 = time.perf_counter()
         item = self._q.get()
+        get_ms = (time.perf_counter() - t0) * 1e3
         if item is self._end:
             self._done = True
             raise StopIteration
         if isinstance(item, BaseException):
             self._done = True
             raise item
-        device_batch, event = item
+        device_batch, event, stats = item
+        t1 = time.perf_counter()
         if event is not None:
             compute = torch.cuda.current_stream(self.device)
-            compute.wait_event(event)
+            if not self._land:
+                # the copies may still be in flight; a landed batch's
+                # event is already complete, and waiting on it would only
+                # cost the stream call, which gives up the interpreter
+                # lock to the worker (the handoff_ms of last_pop)
+                compute.wait_event(event)
             for t in device_batch.values():
                 t.record_stream(compute)
+        self.last_pop = dict(stats, fill=fill, get_ms=get_ms,
+                             handoff_ms=(time.perf_counter() - t1) * 1e3)
         return device_batch
 
     def close(self) -> None:

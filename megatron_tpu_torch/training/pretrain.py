@@ -1,12 +1,12 @@
 """Training orchestration: the pretrain() / train loop (counterpart of
-megatron_tpu/training/pretrain.py, single host).
+megatron_tpu/training/pretrain.py, one host).
 
-TrainLoop builds the state on one device ("cuda" unless the caller asks
-for the CPU), trains for train_iters with batch-size rampup, evaluates
-every eval_interval, logs each log_interval window in the JAX package's
-line format, checkpoints through an AsyncCheckpointSaver that every exit
-path flushes, and resumes from --load. Around that, the JAX loop's
-single-host machinery:
+TrainLoop builds the state on one device per rank ("cuda" unless the
+caller asks for the CPU), trains for train_iters with batch-size
+rampup, evaluates every eval_interval, logs each log_interval window in
+the JAX package's line format, checkpoints through an
+AsyncCheckpointSaver that every exit path flushes, and resumes from
+--load. Around that, the JAX loop's single-host machinery:
 
   * the async loop (training/prefetch.py): a background thread lands
     step N+1's batch on the card while step N runs, and each step's
@@ -34,9 +34,23 @@ single-host machinery:
     traces, and the run telemetry (journal, goodput, /metrics sidecar,
     flight recorder).
 
-Not ported (ROADMAP.md): multi-host coordination (signal and exit
-agreement, peer aborts, the two-phase commit), interleaved pipeline
-order and elastic-topology journaling.
+Ranks (a MeshRuntime from parallel/mesh.py, under python -m
+torch.distributed.run): each rank holds its slices of the parameters
+(models/params.py) and trains on its data rank's rows of every global
+batch (data/samplers.rank_rows) through the parallel step
+(training/train_step.py, training/pipeline.py). Logging, the writer,
+telemetry (journal, /metrics, flight recorder) and profiling run on
+rank 0 only. The exit decision (a signal, --exit_interval,
+--exit_duration_in_mins) is agreed over every rank each step by a
+MAX-reduce of the flag on a host-side gloo group, so every rank stops
+after the same iteration. The step watchdog stays per rank: a stalled
+collective stalls every rank, each rank's watchdog fires on the same
+deadline and exits 70, and the launcher tears the group down.
+Checkpoints at world size > 1 are refused (the sharded layout is
+ROADMAP.md queue A item 7b); world size 1 keeps the one-card format.
+
+Not ported (ROADMAP.md): multi-host coordination (peer aborts, the
+two-phase commit), elastic-topology journaling and sharded checkpoints.
 """
 
 from __future__ import annotations
@@ -55,7 +69,11 @@ import numpy as np
 import torch
 
 from megatron_tpu_torch.config import RunConfig
-from megatron_tpu_torch.models.params import init_params, num_params
+from megatron_tpu_torch.data.samplers import rank_rows
+from megatron_tpu_torch.models.params import (
+    init_params, leaf_layout, num_params,
+)
+from megatron_tpu_torch.parallel.mappings import all_reduce
 from megatron_tpu_torch.training import checkpointing, prefetch, resilience
 from megatron_tpu_torch.training.logging_writer import Writer
 from megatron_tpu_torch.training.microbatches import MicroBatchCalculator
@@ -150,12 +168,20 @@ class TrainLoop:
     `host_sync_points` the blocking device->host reads the loop made."""
 
     def __init__(self, run_cfg: RunConfig, log: Callable[[str], None] = print,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         run_cfg.validate()
         self.cfg = run_cfg
-        self.log = log
+        self.mesh = mesh
+        self._multi = mesh is not None and mesh.world_size > 1
+        self.is_rank0 = mesh is None or mesh.rank == 0
+        self.log = log if self.is_rank0 else (lambda msg: None)
         self.device = torch.device(device)
         t = run_cfg.training
+        if self._multi and (t.save or t.load or t.save_interval_auto):
+            raise ValueError(
+                f"checkpoints at world size {mesh.world_size} (--save, "
+                "--load, --save_interval auto) are not ported: the "
+                "sharded checkpoint layout is ROADMAP.md queue A item 7b")
         level = t.timing_log_level
         if t.log_timers_to_tensorboard:
             level = max(level, 1)  # sub-spans become real timers
@@ -174,17 +200,23 @@ class TrainLoop:
                         if model_cfg.flash_bwd
                         else "fwd only — dense O(S^2) attention gradient "
                         "(--no_flash_bwd)"))
-        params = init_params(model_cfg, t.seed, device=self.device)
+        params = init_params(model_cfg, t.seed, device=self.device,
+                             mesh=mesh)
         for _, p in leaf_paths(params):
             p.requires_grad_(True)
         self.state: TrainState = init_train_state(
             run_cfg.optimizer, params,
-            use_fp16_scaler=(model_cfg.params_dtype == "float16"))
-        self.calc = MicroBatchCalculator.from_config(t, 1)
+            use_fp16_scaler=(model_cfg.params_dtype == "float16"),
+            mesh=mesh if self._multi else None,
+            layout=(leaf_layout(model_cfg, mesh,
+                                run_cfg.optimizer.use_distributed_optimizer)
+                    if self._multi else None))
+        self.dp = mesh.dp if mesh is not None else 1
+        self.calc = MicroBatchCalculator.from_config(t, self.dp)
         self.iteration = 0
         self.consumed_samples = 0
         self._step_cache: Dict[int, Callable] = {}
-        self.eval_step = make_eval_step(model_cfg, t)
+        self.eval_step = make_eval_step(model_cfg, t, mesh)
         self.history: List[Dict[str, float]] = []
         self.evals: List[Dict[str, float]] = []
         self._save_config = run_cfg.to_dict()
@@ -222,7 +254,10 @@ class TrainLoop:
         self._watchdog: Optional[resilience.StepWatchdog] = None
         self._batch_fps: Dict[int, str] = {}
         # what the run's caller reads after train(): one record per
-        # processed step (iteration, loss, step_s, data_wait_s, warmup)
+        # processed step (iteration, loss, step_s, data_wait_s, warmup,
+        # and the prefetcher's record of the pop, DevicePrefetcher.last_pop:
+        # kept here, not in the journal, whose step event carries the JAX
+        # package's keys)
         # and the iterations a replay check passed
         self.step_records: List[Dict[str, Any]] = []
         self.replay_checks: List[int] = []
@@ -246,13 +281,15 @@ class TrainLoop:
                                  "commit-latency samples")
 
         self.writer = Writer(
-            tensorboard_dir=t.tensorboard_dir, wandb=t.wandb_logger,
+            tensorboard_dir=t.tensorboard_dir if self.is_rank0 else None,
+            wandb=t.wandb_logger and self.is_rank0,
             wandb_project=t.wandb_project, wandb_name=t.wandb_name,
             config=run_cfg.to_dict())
 
         from megatron_tpu_torch.telemetry.run import for_training
 
-        self.telemetry = for_training(t, log=self.log)
+        self.telemetry = (for_training(t, log=self.log) if self.is_rank0
+                          else None)
         if self.telemetry is not None:
             self.telemetry.emit(
                 "run_start", iteration=self.iteration,
@@ -616,7 +653,7 @@ class TrainLoop:
             t = self.cfg.training
             step = make_train_step(self.cfg.model, self.cfg.optimizer, t,
                                    num_microbatches,
-                                   train_iters=t.train_iters)
+                                   train_iters=t.train_iters, mesh=self.mesh)
             self._step_cache[num_microbatches] = step
         return step
 
@@ -649,16 +686,28 @@ class TrainLoop:
 
     def train_step_placed(self, device_batch: Dict[str, torch.Tensor]
                           ) -> Dict[str, torch.Tensor]:
-        """One optimizer step on a batch already on the device. Returns
-        DEVICE metrics: no host sync; the caller decides when to pay it
-        (_fetch_metrics)."""
-        gbs = next(iter(device_batch.values())).shape[0]
-        n_micro = max(gbs // self.cfg.training.micro_batch_size, 1)
+        """One optimizer step on a batch already on the device (this data
+        rank's rows). Returns DEVICE metrics: no host sync; the caller
+        decides when to pay it (_fetch_metrics)."""
+        rows = next(iter(device_batch.values())).shape[0]
+        n_micro = max(rows // self.cfg.training.micro_batch_size, 1)
         self.state, metrics = self._train_step_for(n_micro)(
             self.state, device_batch)
         self.iteration += 1
-        self.consumed_samples += gbs
+        self.consumed_samples += rows * self.dp
         return metrics
+
+    def _rank_rows(self, batches: Iterator) -> Iterator:
+        """This data rank's rows of each global batch."""
+        return batches if self.dp == 1 else rank_rows(batches, self.mesh)
+
+    def _agree_exit(self, should_exit: bool) -> bool:
+        """Every rank's exit flag, MAX-reduced on the host-side group:
+        all ranks stop after the same iteration."""
+        if not self._multi:
+            return should_exit
+        flag = torch.tensor([int(should_exit)], dtype=torch.int32)
+        return bool(all_reduce(flag, self.mesh.control_group, "max")[0])
 
     def _fetch_metrics(self, metrics: Dict[str, torch.Tensor]
                        ) -> Dict[str, float]:
@@ -673,11 +722,20 @@ class TrainLoop:
         return dict(zip(keys, vals))
 
     def _params_norm(self) -> float:
-        """Global params L2 (the reference's calc_params_l2_norm)."""
+        """Global params L2 (the reference's calc_params_l2_norm); across
+        ranks each element counted once (models/params.leaf_layout)."""
         with torch.no_grad():
+            leaves = leaf_paths(self.state.params)
+            if self._multi:
+                owned = leaf_layout(self.cfg.model, self.mesh, False)
+                leaves = [(k, p) for k, p in leaves if owned[k][2]]
             sq = torch.stack([p.detach().float().square().sum()
-                              for _, p in leaf_paths(self.state.params)])
-            return float(sq.sum().sqrt())
+                              for _, p in leaves]).sum()
+            if self._multi:
+                import torch.distributed as dist
+
+                sq = all_reduce(sq, dist.group.WORLD)
+            return float(sq.sqrt())
 
     def _memory_stats(self) -> Dict[str, float]:
         """Device memory in MB (the JAX package's keys) from
@@ -699,7 +757,7 @@ class TrainLoop:
         transform fingerprints and fault-poisons each host batch with the
         iteration it will be consumed at, so faults hit the same batches
         in both modes."""
-        it = factory(self.consumed_samples, gbs)
+        it = self._rank_rows(factory(self.consumed_samples, gbs))
         if depth <= 0:
             return it
         self._prefetcher = prefetch.DevicePrefetcher(
@@ -737,6 +795,7 @@ class TrainLoop:
         averaged over the batches (one host read per batch)."""
         total, count = 0.0, 0
         extras: Dict[str, float] = {}
+        data_iter = self._rank_rows(iter(data_iter))
         for _ in range(eval_iters):
             batch = next(data_iter, None)
             if batch is None:
@@ -766,6 +825,8 @@ class TrainLoop:
         resume landing mid-window still traces the rest of it."""
         t = self.cfg.training
         nxt = self.iteration + 1
+        if not self.is_rank0:
+            return
         if self._profiler is not None:
             if self._profile_until is not None and nxt >= self._profile_until:
                 self._profile_stop()
@@ -957,7 +1018,8 @@ class TrainLoop:
                 **extra)
         self.step_records.append({
             "iteration": it, "loss": loss_host, "step_s": step_s,
-            "data_wait_s": rec["data_wait_s"], "warmup": rec["warmup"]})
+            "data_wait_s": rec["data_wait_s"], "warmup": rec["warmup"],
+            "prefetch": rec["prefetch"]})
         self._heartbeat(f"iteration {it}")
 
         if self._sentinel is not None:
@@ -1035,7 +1097,9 @@ class TrainLoop:
         if t.log_batch_size:
             self.writer.add_scalar("train/global_batch_size", rec["gbs"], it)
         if t.log_world_size:
-            self.writer.add_scalar("train/world_size", 1, it)
+            self.writer.add_scalar(
+                "train/world_size",
+                self.mesh.world_size if self.mesh is not None else 1, it)
         if t.log_params_norm:
             record["params_norm"] = self._params_norm()
             self.writer.add_scalar("train/params_norm",
@@ -1162,6 +1226,8 @@ class TrainLoop:
                 self.timers("batch-generator", 0).stop()
                 # with the prefetcher this is the queue pop's wait
                 data_wait_s = self.timers.last_s("batch-generator")
+                pop = (dict(self._prefetcher.last_pop)
+                       if self._prefetcher is not None else {})
                 self._credit_prefetch_spans()
 
                 fast_forward = self.iteration < self._skip_data_until
@@ -1222,7 +1288,7 @@ class TrainLoop:
                     if replay_due:
                         self._replay_check(pre_state, batch, metrics)
                         del pre_state
-                    ntok = int(np.prod(tuple(batch.get(
+                    ntok = self.dp * int(np.prod(tuple(batch.get(
                         "tokens", next(iter(batch.values()))).shape)))
                     pending.append({
                         "iteration": self.iteration, "gbs": gbs,
@@ -1230,7 +1296,8 @@ class TrainLoop:
                         "metrics": metrics, "host": host,
                         "dispatch_s": self.timers.last_s(
                             "forward-backward-optimizer"),
-                        "data_wait_s": data_wait_s, "warmup": warmup})
+                        "data_wait_s": data_wait_s, "warmup": warmup,
+                        "prefetch": pop})
 
                 if drain(lag):
                     on_rollback()
@@ -1302,6 +1369,7 @@ class TrainLoop:
                         (time.time() - start_time) / 60
                         > t.exit_duration_in_mins):
                     should_exit = True
+                should_exit = self._agree_exit(should_exit)
 
                 if should_exit:
                     # a sentinel trip still in the pipeline CANCELS the
@@ -1323,10 +1391,30 @@ class TrainLoop:
 
 def pretrain(run_cfg: RunConfig, train_iter_factory,
              valid_iter_factory=None, log: Callable[[str], None] = print,
-             device="cuda") -> TrainLoop:
+             device="cuda", mesh=None) -> TrainLoop:
     """One-call entry (the reference's megatron/training.py pretrain()).
-    Returns the finished TrainLoop (its state, history and evals)."""
-    loop = TrainLoop(run_cfg, log=log, device=device)
+    Returns the finished TrainLoop (its state, history and evals). With
+    torch.distributed initialized (parallel/distributed.py) the mesh is
+    built here from run_cfg.parallel (JAX pretrain.py:176-216)."""
+    import torch.distributed as dist
+
+    if mesh is None and dist.is_available() and dist.is_initialized():
+        from megatron_tpu_torch.parallel.mesh import build_mesh
+
+        mesh = build_mesh(run_cfg.parallel)
+    p = run_cfg.parallel
+    if mesh is None and (p.tensor_parallel * p.pipeline_parallel
+                         * (p.data_parallel or 1)) > 1:
+        raise ValueError(
+            "a parallel topology needs one process per rank: launch under "
+            "python -m torch.distributed.run --nproc_per_node N")
+    loop = TrainLoop(run_cfg, log=log, device=device, mesh=mesh)
+    log = loop.log
+    if mesh is not None:
+        log(f"mesh: world {mesh.world_size} = dp {mesh.dp} x pp {mesh.pp}"
+            f" (vpp {mesh.vpp}) x tp {mesh.tp}"
+            + (" with sequence parallelism" if mesh.sequence_parallel
+               else ""))
     log(f"device: {loop.device} | params: {num_params(run_cfg.model):,}")
     try:
         loop.train(train_iter_factory, valid_iter_factory)

@@ -7,6 +7,23 @@ gradients in fp32 (the reference's accumulate_allreduce_grads_in_fp32 /
 main_grad) in buffers allocated once per step function, averages them
 and applies the optimizer. Everything stays on the device: the metrics
 are device tensors, and reading them is the caller's one host sync.
+
+Across ranks (a MeshRuntime as `mesh`): the microbatches are this data
+rank's rows, and the forward and backward run through the tensor
+parallel model code, or with pipeline parallelism through the 1F1B or
+interleaved schedule of training/pipeline.py, which calls back after
+every microbatch's backward to move the grads into the same fp32
+accumulators. After the accumulation, reduce_grads:
+  * under sequence parallelism sums over the tensor group the grads of
+    the leaves tensor parallelism leaves whole (norm scales and biases,
+    row-parallel biases, embed/pos): each rank's backward saw only its
+    sequence chunk;
+  * with tied embeddings and pp > 1 sums embed/tokens over the
+    embedding group (the first stage's copy and the last stage's);
+  * averages over the data ranks: an all-reduce, or under ZeRO-1 a
+    reduce-scatter into this rank's optimizer shard.
+The loss metric is the mean over the data ranks of the last stage's
+microbatch losses, the same number on every rank.
 """
 
 from __future__ import annotations
@@ -19,9 +36,53 @@ from megatron_tpu_torch.config import (ModelConfig, OptimizerConfig,
                                        TrainingConfig)
 from megatron_tpu_torch.models.language_model import lm_forward, lm_loss
 from megatron_tpu_torch.ops.cross_entropy import cross_entropy_loss
+from megatron_tpu_torch.parallel.mappings import all_reduce, reduce_scatter
+from megatron_tpu_torch.parallel.mesh import AXIS_TENSOR
+from megatron_tpu_torch.parallel.sharding import spec_axes
 from megatron_tpu_torch.training.optimizer import (
-    TrainState, leaf_paths, make_optimizer_step, tree_map,
+    TrainState, nest_paths, leaf_paths, make_optimizer_step, tree_map,
+    zero1_layout,
 )
+
+
+def reduce_grads(grads: Any, model_cfg: ModelConfig,
+                 opt_cfg: OptimizerConfig, mesh, layout) -> Any:
+    """The cross-rank sums of the accumulated fp32 grads (the module
+    docstring). Returns the tree the optimizer takes: whole leaves
+    reduced in place, ZeRO-1 leaves as this rank's (new) shards."""
+    zdims = zero1_layout(opt_cfg, mesh, layout)
+    out = {}
+    for path, g in leaf_paths(grads):
+        spec = layout[path][0]
+        if mesh.sequence_parallel and AXIS_TENSOR not in spec_axes(spec):
+            g.copy_(all_reduce(g, mesh.group("tensor")))
+        if (path == "embed/tokens" and model_cfg.tie_embed_logits
+                and mesh.pp > 1):
+            g.copy_(all_reduce(g, mesh.embedding_group))
+        if mesh.dp > 1:
+            group = mesh.group("data")
+            if path in zdims:
+                g = reduce_scatter(g, group, zdims[path])
+            else:
+                g.copy_(all_reduce(g, group))
+            g.div_(mesh.dp)
+        out[path] = g
+    return nest_paths(out)
+
+
+def agreed_loss(losses, mesh, device) -> torch.Tensor:
+    """Mean of the microbatch losses, agreed over every rank: the last
+    stage's value summed over the pipe group (the other stages add 0),
+    then averaged over the data ranks."""
+    loss = (torch.stack(losses).mean() if losses
+            else torch.zeros((), dtype=torch.float32, device=device))
+    if mesh is None or mesh.world_size == 1:
+        return loss
+    if mesh.pp > 1:
+        loss = all_reduce(loss, mesh.group("pipe"))
+    if mesh.dp > 1:
+        loss = all_reduce(loss, mesh.group("data")) / mesh.dp
+    return loss
 
 
 def make_train_step(
@@ -31,6 +92,7 @@ def make_train_step(
     num_microbatches: int,
     train_iters: Optional[int] = None,
     loss_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
               Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build train_step(state, batch) -> (state, metrics).
@@ -40,11 +102,28 @@ def make_train_step(
     configured recompute policy. The state's params must require grad;
     the state is updated in place and returned. metrics: loss (mean over
     microbatches), grad_norm, lr, skipped, skip_streak (+ loss_scale with
-    an fp16 scaler)."""
+    an fp16 scaler). mesh: a multi-rank run (the module docstring); the
+    batch is then this data rank's rows and state.params its slices."""
+    from megatron_tpu_torch.models.params import leaf_layout
+
+    recompute = train_cfg.recompute_granularity
+    if loss_fn is not None and mesh is not None and mesh.pp > 1:
+        raise ValueError("pipeline parallelism computes the LM loss on its "
+                         "last stage; a custom loss_fn is not supported")
     loss_fn = loss_fn or (lambda cfg, p, b: lm_loss(
-        cfg, p, b, recompute=train_cfg.recompute_granularity))
+        cfg, p, b, recompute=recompute, mesh=mesh))
+    multi = mesh is not None and mesh.world_size > 1
+    layout = (leaf_layout(model_cfg, mesh, opt_cfg.use_distributed_optimizer)
+              if multi else None)
     opt_apply = make_optimizer_step(opt_cfg,
-                                    train_iters or train_cfg.train_iters or 1)
+                                    train_iters or train_cfg.train_iters or 1,
+                                    mesh=mesh if multi else None,
+                                    layout=layout)
+    pipeline = None
+    if mesh is not None and mesh.pp > 1:
+        from megatron_tpu_torch.training.pipeline import Pipeline
+
+        pipeline = Pipeline(model_cfg, mesh, num_microbatches, recompute)
     acc: Dict[str, Any] = {}
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -66,34 +145,53 @@ def make_train_step(
         params = [p for _, p in leaf_paths(state.params)]
         accs = [a for _, a in leaf_paths(grads)]
         scale = state.scaler.scale if state.scaler is not None else None
-        losses = []
-        for i in range(n):
-            mb = {k: v[i * mbs:(i + 1) * mbs] for k, v in batch.items()}
-            loss, _ = loss_fn(model_cfg, state.params, mb)
-            (loss * scale if scale is not None else loss).backward()
-            with torch.no_grad():
-                for a, p in zip(accs, params):
-                    if p.grad is not None:
-                        a.add_(p.grad)
-                        p.grad = None
-            losses.append(loss.detach())
+
+        @torch.no_grad()
+        def accumulate():
+            for a, p in zip(accs, params):
+                if p.grad is not None:
+                    a.add_(p.grad)
+                    p.grad = None
+
+        if pipeline is not None:
+            losses = pipeline.forward_backward(state.params, batch, scale,
+                                               accumulate)
+        else:
+            losses = []
+            for i in range(n):
+                mb = {k: v[i * mbs:(i + 1) * mbs] for k, v in batch.items()}
+                loss, _ = loss_fn(model_cfg, state.params, mb)
+                (loss * scale if scale is not None else loss).backward()
+                accumulate()
+                losses.append(loss.detach())
         with torch.no_grad():
             # mean over microbatches; scaled grads stay scaled for the
             # optimizer, which unscales them
             for a in accs:
                 a.div_(n)
+            if multi:
+                grads = reduce_grads(grads, model_cfg, opt_cfg, mesh, layout)
         state, metrics = opt_apply(state, grads)
-        metrics["loss"] = torch.stack(losses).mean()
+        metrics["loss"] = (agreed_loss(losses, mesh, accs[0].device)
+                           if multi else torch.stack(losses).mean())
         return state, metrics
 
     return train_step
 
 
-def make_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig):
+def make_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig,
+                   mesh=None):
     """Forward-only LM loss (the JAX package's eval_step):
     eval_step(params, batch) -> {"lm_loss", "ntokens", and each of
-    train_cfg.metrics (training/metrics.py)}, device tensors."""
+    train_cfg.metrics (training/metrics.py)}, device tensors. With a
+    multi-rank mesh the step returns lm_loss and ntokens only (the
+    metrics over sharded logits are ROADMAP.md 7b), agreed over every
+    rank: the tensor-parallel model, or the pipeline's forward-only
+    pass, then the mean over the data ranks."""
     from megatron_tpu_torch.training.metrics import compute_metrics
+
+    if mesh is not None and mesh.world_size > 1:
+        return _parallel_eval_step(model_cfg, train_cfg, mesh)
 
     @torch.no_grad()
     def eval_step(params: Any, batch: Dict[str, torch.Tensor]):
@@ -110,5 +208,43 @@ def make_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig):
         out.update(compute_metrics(train_cfg.metrics, logits,
                                    batch["labels"], loss_mask, per_token))
         return out
+
+    return eval_step
+
+
+def _parallel_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig,
+                        mesh):
+    if train_cfg.metrics:
+        raise ValueError(
+            f"--metrics {' '.join(train_cfg.metrics)} at world size "
+            f"{mesh.world_size}: validation metrics over vocab-parallel "
+            "logits are not ported (ROADMAP.md queue A item 7b)")
+    pipelines: Dict[int, Any] = {}
+
+    @torch.no_grad()
+    def eval_step(params: Any, batch: Dict[str, torch.Tensor]):
+        rows = batch["tokens"].shape[0]
+        loss_mask = batch.get("loss_mask")
+        if loss_mask is None:
+            loss_mask = torch.ones(batch["labels"].shape,
+                                   dtype=torch.float32,
+                                   device=batch["labels"].device)
+        if mesh.pp > 1:
+            from megatron_tpu_torch.training.pipeline import Pipeline
+
+            m = rows // train_cfg.micro_batch_size
+            if m not in pipelines:
+                pipelines[m] = Pipeline(model_cfg, mesh, m)
+            loss = pipelines[m].forward_only(params, batch)
+            losses = [] if loss is None else [loss]
+        else:
+            losses = [lm_loss(model_cfg, params,
+                              dict(batch, loss_mask=loss_mask),
+                              mesh=mesh)[0]]
+        ntokens = loss_mask.sum()
+        if mesh.dp > 1:
+            ntokens = all_reduce(ntokens, mesh.group("data"))
+        return {"lm_loss": agreed_loss(losses, mesh, loss_mask.device),
+                "ntokens": ntokens}
 
     return eval_step

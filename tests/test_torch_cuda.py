@@ -974,11 +974,11 @@ def test_prefetcher_batches_are_never_torn(gen, monkeypatch):
 
     real = prefetch.to_device
 
-    def delayed(batch, device, stream=None):
+    def delayed(batch, device, stream=None, **kw):
         if stream is not None:
             with torch.cuda.stream(stream):
                 torch.cuda._sleep(50_000_000)   # ~tens of ms
-        return real(batch, device, stream)
+        return real(batch, device, stream, **kw)
 
     monkeypatch.setattr(prefetch, "to_device", delayed)
     n = 1 << 22
@@ -1039,3 +1039,67 @@ def test_two_runs_of_a_step_are_bitwise_equal(gen):
     b, mb = step(clone_state(state), batch)
     assert resilience.tree_bitwise_mismatch(
         {"state": a, "metrics": ma}, {"state": b, "metrics": mb}) == []
+
+
+def test_flash_kernels_at_the_tp2_per_rank_shape(gen):
+    """B1 forward and B2/B3 backward at a tensor-parallel rank's share of
+    Llama-2-7B's attention at tp2 (16 query and 16 kv heads of D 128,
+    S 2048), against their plain versions."""
+    q = _randn(gen, 1, 2048, 16, 128)
+    k, v = _randn(gen, 1, 2048, 16, 128), _randn(gen, 1, 2048, 16, 128)
+    do = _randn(gen, 1, 2048, 16, 128)
+    o, lse = ft.flash_fwd(q, k, v)
+    o_ref, lse_ref = ft.flash_fwd_reference(q.float(), k.float(), v.float())
+    _assert_close(o, o_ref)
+    _assert_close(lse, lse_ref)
+    got = ft.flash_bwd(q, k, v, o, lse, do)
+    want = ft.flash_bwd_reference(q.float(), k.float(), v.float(), o, lse,
+                                  do)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _assert_close_rel(a, b, name)
+
+
+def test_world_size_one_nccl_step_equals_the_single_process_step(gen):
+    """The parallel code at degree 1 over an NCCL group of one rank: two
+    steps from one state give the single-process step's states and
+    metrics bitwise (every collective is the identity there)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from megatron_tpu_torch.config import ParallelConfig
+    from megatron_tpu_torch.parallel.mesh import build_mesh
+    from megatron_tpu_torch.training import resilience
+    from megatron_tpu_torch.training.pretrain import clone_state
+
+    cfg = presets.tiny(hidden_size=512, num_attention_heads=4,
+                       num_kv_heads=2, vocab_size=128, seq_length=256,
+                       params_dtype="bfloat16", attention_impl="pallas")
+    opt = OptimizerConfig(lr=1e-3, lr_decay_style="constant",
+                          use_distributed_optimizer=True)
+    tc = TrainingConfig(micro_batch_size=1, global_batch_size=2,
+                        train_iters=2, recompute_granularity="selective")
+    params = init_params(cfg, 0)
+    for _, p in leaf_paths(params):
+        p.requires_grad_(True)
+    state = init_train_state(opt, params)
+    toks = torch.randint(0, 128, (2, 2, 257), generator=gen, device="cuda")
+    batches = [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = build_mesh(ParallelConfig())
+        runs = []
+        for m in (None, mesh):
+            st = clone_state(state)
+            step = make_train_step(cfg, opt, tc, 2, mesh=m)
+            for b in batches:
+                st, metrics = step(st, b)
+            runs.append({"state": st, "metrics": metrics})
+        assert resilience.tree_bitwise_mismatch(*runs) == []
+    finally:
+        dist.destroy_process_group()

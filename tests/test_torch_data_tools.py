@@ -240,3 +240,46 @@ def test_native_builders_match_jax_native_and_python():
                                           use_one_sent_blocks=one_sent),
             jhelpers.build_blocks_mapping(*args,
                                           use_one_sent_blocks=one_sent))
+
+
+# code points that `regex`'s tables assign and Python 3.12's Unicode 15.0
+# leaves unassigned (U+A7CB, U+A7CC, U+A7DA: Latin letters; U+1E5D0..:
+# Ol Onal letters, U+1E5F1: an Ol Onal digit)
+NEWER_CODE_POINTS = "ꟋꟌꟚ\U0001E5D0\U0001E5D1\U0001E5F1"
+
+
+def test_pretokenize_takes_the_jax_pattern_on_newer_code_points(tmp_path):
+    """' Ɤa' (U+A7CB) is one piece under the JAX package's `regex`
+    pattern; the port's GPT-2 tokenizer pre-tokenizes with that pattern
+    and so gives the JAX ids, on it and on other newly assigned code
+    points."""
+    import unicodedata
+
+    assert all(unicodedata.category(c) == "Cn" for c in NEWER_CODE_POINTS)
+    assert tbpe.pretokenize(" Ɤa") == [" Ɤa"]
+    assert tbpe._scan_pretokenize(" Ɤa") != [" Ɤa"]
+    texts = [" Ɤa", "x" + NEWER_CODE_POINTS + " 1\U0001E5F1 z"] + [
+        f"a {c}b {c}1 ,{c}" for c in NEWER_CODE_POINTS]
+    vf, mf = _write_bpe(tmp_path, TEXTS + texts)
+    t = ttok.build_tokenizer("GPT2BPETokenizer", vocab_file=vf,
+                             merges_file=mf)
+    j = jtok.build_tokenizer("GPT2BPETokenizer", vocab_file=vf,
+                             merges_file=mf)
+    for text in texts:
+        assert tbpe.pretokenize(text) == jbpe._PRETOKENIZE.findall(text)
+        assert t.tokenize(text) == j.tokenize(text), repr(text)
+
+
+def test_scanner_fallback_matches_the_pattern_on_assigned_text():
+    """Without `regex` the scanner stands in: on text whose code points
+    Python's Unicode database assigns, it gives the pattern's pieces."""
+    import unicodedata
+
+    rng = np.random.default_rng(1)
+    alphabet = list("ab Z9'\n\t.,-_ é東²½ \x1cß한😀  ")
+    texts = TEXTS + ["".join(rng.choice(alphabet, size=48))
+                     for _ in range(300)]
+    for text in texts:
+        assert all(unicodedata.category(c) != "Cn" for c in text)
+        assert (tbpe._scan_pretokenize(text)
+                == jbpe._PRETOKENIZE.findall(text)), repr(text)

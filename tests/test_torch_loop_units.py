@@ -242,6 +242,19 @@ def test_prefetcher_order_close_transform_and_errors():
         DevicePrefetcher(iter(()), "cpu", depth=0)
 
 
+def test_prefetcher_records_each_pop():
+    """last_pop attributes each pop: the queue's fill before it, the
+    get's wait, the hand-off to the compute stream, and the worker's
+    put/land times of that batch."""
+    pf = DevicePrefetcher(iter(_host_batches(5)), "cpu", depth=2)
+    time.sleep(0.2)               # the worker fills the queue
+    next(pf)
+    pop = pf.last_pop
+    assert set(pop) == {"fill", "get_ms", "handoff_ms", "put_ms", "land_ms"}
+    assert pop["fill"] == 2 and min(pop.values()) >= 0.0
+    pf.close()
+
+
 def test_signal_handler_records_signals_in_order():
     with DistributedSignalHandler(signals=(signal.SIGUSR1,
                                            signal.SIGUSR2)) as h:
