@@ -163,6 +163,16 @@ still run, so one call shows every failure):
               the same int8 round trip, then each engine's graph tick with
               bf16 and int8 caches over 8 slots of 5 .. 1500-token prompts
               (device and wall ms a tick, cache bytes, peak memory).
+  3e. weight  Llama-2-7B at full size through the server on the dense
+              engine with int8 and then fp8 weight-only quantization
+              (ops/weight_quant.py, the server's --weight_int8 /
+              --weight_fp8): the phase-3 traffic, launches flash_fwd 32 x
+              prefills and flash_decode 32 x ticks, no capture beyond the
+              warm-up one, phase 3's teacher-forced gate against the plain
+              path on the same quantized weights (and the same gate
+              against the bf16 model, reported, not gated), the weight
+              bytes resident, and the graph tick's device time with bf16,
+              int8 and fp8 weights, in this call.
   4. training write a synthetic corpus (Zipf token ids, 32000 vocab, from
               SEED) with the port's MMapIndexedDatasetBuilder into
               megatron_tpu_torch/build/, then call
@@ -183,10 +193,11 @@ still run, so one call shows every failure):
               the constants below).
   5. finetune the finetuning path, in a temporary directory (its df
               printed first; the phase fails with less than 40 GB free):
-              an HF-layout Llama at Llama-2-7B width cut to 2 layers
-              (0.667 B parameters, bf16 from a seeded generator on the
-              card) written as config.json + pytorch_model.bin ->
-              tools/hf_to_native (iteration 0, 9.3 GB with the fp32
+              an HF-layout Llama at Llama-2-7B width cut to FT_LAYERS = 1
+              layer (0.464 B parameters; cut from 2 layers for time),
+              bf16 from a seeded generator on the
+              card, written as config.json + pytorch_model.bin ->
+              tools/hf_to_native (iteration 0, 6.5 GB with the fp32
               masters and moments; native_to_hf of it must equal the
               input bitwise) -> 16 synthetic chats of 300 to 6000 tokens
               through tools/preprocess_instruct_data (null tokenizer) ->
@@ -198,9 +209,10 @@ still run, so one call shows every failure):
               C's losses at steps 3-4 and its final params, masters, mu
               and nu equal A's bitwise (the first differing tensor is
               named); each run's launches equal expected_train_launches
-              for 2 layers. Then run_text_generation_server --load C
-              answers two greedy requests (its params must equal C's
-              masters in bf16, flash_decode 2 launches a tick, phase 3's
+              for FT_LAYERS layers. Then run_text_generation_server
+              --load C answers two greedy requests (its params must equal
+              C's masters in bf16, flash_decode FT_LAYERS launches a
+              tick, phase 3's
               teacher-forced gate) and native_to_hf -> hf_to_native ->
               native_to_hf of C must be an identity. Prints the losses,
               step time, checkpoint bytes, save stall / commit / load /
@@ -228,6 +240,33 @@ still run, so one call shows every failure):
               biases, tied 50304-row vocab) at full size: served by the
               dense engine (prompts of 5, 100, 500 and 900 tokens, the
               same gates) and trained 2 steps at S 1024.
+  5c. mixtral Mixtral-8x7B's width (h 4096, ffn 14336, 8 experts top-2,
+              32/8 heads, vocab 32000, rope theta 1e6), random init from
+              SEED, bf16: (a) cut to MIXTRAL_SERVE_LAYERS = 16 layers
+              (23.5 B parameters, 47.0 GB; full depth's 93.4 GB does not
+              fit one card, and weight quantization does not cover the
+              experts) with the HF conversion's capacity factor 8
+              (dropless), through the HTTP server on the dense and the
+              paged engine, each with the captured tick: phase 5b's
+              serving gates, phase 3's teacher-forced near-tie rate on
+              every sequence (the fp32 referee upcast one layer at a
+              time; reported, not gated: bf16 rounding flips top-k
+              routing decisions, so one referee's band does not cover
+              another order's routing) and the dense graph tick's device
+              time; the engines' MoE path gated instead in fp32 at
+              MIXTRAL_FP32_LAYERS = 4 layers with the dense attention
+              (no kernel takes fp32), both engines eager: each token the
+              fp32 plain path's teacher-forced argmax at >= 99% of
+              positions; (b) a dropless layer
+              (torch._grouped_mm) against the capacity layer at ample
+              capacity at a small shape, forward and gradients, and the
+              capacity layer's dispatch/combine time at the training
+              shape; (c) pretrain_gpt --model_name mixtral-8x7B at 2
+              layers (3.16 B parameters), S 8192, 2 x 1, phase 4's flags
+              and lr: finite losses, no skipped step, a "moe aux loss"
+              in every log line, exact launches; step time, MFU by the
+              config's own FLOPs, peak memory. The cuts print as
+              `reduced`.
   6. loop     the loop and the data, in a temporary directory: (a) a
               seeded JSONL corpus (20,000 documents of Zipf-drawn words),
               a GPT-2 byte-level vocabulary learned from it and written
@@ -278,11 +317,14 @@ still run, so one call shows every failure):
               torch.profiler trace of the last step on rank 0, the share
               of it inside the comm.* ranges of parallel/mappings.py:
               gloo-through-host numbers, not NCCL ones.
-  8. report   one JSON line listing each kernel with its launches on its
-              path (serving, paged_serving, speculative_serving,
-              serving_control, training, finetune, families, loop and
-              parallel), then the card's name and power limit, then
-              {"ok": true, "device": {...}} as the last line.
+  8. report   each phase's wall seconds as it ends and all of them
+              after phase 7 (seconds_by_phase, with the total), then one
+              JSON line listing each kernel with its launches on its path
+              (serving, paged_serving, speculative_serving,
+              serving_control, weight_quant, training, finetune,
+              families, mixtral, loop and parallel), then the card's name
+              and power limit, then {"ok": true, "device": {...}} as the
+              last line.
 
 It needs one CUDA card; with none (or outside a checkout) it exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -595,7 +637,8 @@ def rates(flops, ms, bound_ms) -> dict:
 # the last position: B 4, S 1499, which ends inside a 128-row tile), and
 # phase 5b's training shapes: Falcon-7B's 71 query heads over one kv head
 # at D 64, S 2048, and GPT-2 1.3B's 32 heads at D 64, S 1024
-# (and phase 7's per-rank shape: Llama-2-7B's heads at tp2, S 2048)
+# (and phase 7's per-rank shape: Llama-2-7B's heads at tp2, S 2048, and
+# phase 5c's Mixtral training shape: 32 q heads over 8 kv heads, S 8192)
 FALCON_ATTN = dict(hq=71, hkv=1, D=64)
 GPT2_ATTN = dict(hq=32, hkv=32, D=64)
 TP2_ATTN = dict(hq=16, hkv=16, D=128)
@@ -606,7 +649,8 @@ FWD_CASES = [attn_case(64), attn_case(512), attn_case(2047),
              attn_case(2047, causal=False), attn_case(2047, D=64),
              attn_case(2047, hkv=8), attn_case(2047, fused=True),
              attn_case(1499, B=4), attn_case(2048, **FALCON_ATTN),
-             attn_case(1024, **GPT2_ATTN), attn_case(2048, **TP2_ATTN)]
+             attn_case(1024, **GPT2_ATTN), attn_case(2048, **TP2_ATTN),
+             attn_case(8192, hkv=8)]
 
 
 def check_flash_fwd(torch, F, ft, card):
@@ -684,6 +728,7 @@ DECODE_CASES = [dict(sq=1, hq=32, hkv=32), dict(sq=1, hq=32, hkv=8),
 PAGED_CASES = [dict(ps=16, sq=1, hq=32, hkv=32, window=None),
                dict(ps=16, sq=5, hq=32, hkv=32, window=None),
                dict(ps=16, sq=5, hq=32, hkv=8, window=256),
+               dict(ps=16, sq=1, hq=32, hkv=8, window=None),   # Mixtral
                dict(ps=8, sq=1, hq=32, hkv=32, window=None),
                dict(ps=64, sq=1, hq=32, hkv=32, window=None),
                *(dict(c, ps=16, window=None) for c in ROW_TILE_CASES)]
@@ -898,7 +943,7 @@ BWD_CASES = [attn_case(4096), attn_case(4096, hkv=8, window=256),
              attn_case(2047, causal=False), attn_case(2047, D=64),
              attn_case(2047, hkv=8), attn_case(2047, fused=True),
              attn_case(2048, **FALCON_ATTN), attn_case(1024, **GPT2_ATTN),
-             attn_case(2048, **TP2_ATTN)]
+             attn_case(2048, **TP2_ATTN), attn_case(8192, hkv=8)]
 # the three original cases again, drawn from a second seed
 BWD_DRAW2_SEED = SEED + 13
 
@@ -1831,7 +1876,14 @@ def _score_plain(torch, dataclasses, cfg, params, tokens):
 
 
 def _upcast(tree):
-    return {k: _upcast(v) if isinstance(v, dict) else v.float()
+    """An fp32 copy of a parameter tree; a weight-quantized leaf becomes
+    its dequantized fp32 weight."""
+    import torch
+
+    from megatron_tpu_torch.ops.weight_quant import deq, is_quantized
+
+    return {k: (deq(v, torch.float32) if is_quantized(v) else
+                _upcast(v) if isinstance(v, dict) else v.float())
             for k, v in tree.items()}
 
 
@@ -2304,7 +2356,7 @@ def serve_control(torch, ft, card, dense_tokens):
 
 
 def teacher_force(torch, dataclasses, cfg, params, prompts, generated,
-                  int8=False):
+                  int8=False, stream_fp32=False):
     """Hold the engine's greedy tokens against the plain path.
 
     Each finished sequence is teacher-forced through lm_forward with the
@@ -2319,7 +2371,8 @@ def teacher_force(torch, dataclasses, cfg, params, prompts, generated,
     strict rates are reported beside the gate. int8=True runs both plain
     passes with the int8 KV round trip the engine made (an int8 cache of
     the sequence's length: K/V quantized, attention over the dequantized
-    cache)."""
+    cache). stream_fp32=True upcasts the referee's weights a layer at a
+    time (a model too large for an fp32 copy beside it)."""
     from megatron_tpu_torch.inference.generation import _init_caches
     from megatron_tpu_torch.models.language_model import lm_forward
 
@@ -2331,7 +2384,7 @@ def teacher_force(torch, dataclasses, cfg, params, prompts, generated,
 
     plain = dataclasses.replace(cfg, attention_impl="xla")
     ref = dataclasses.replace(plain, params_dtype="float32")
-    params32 = _upcast(params)
+    params32 = None if stream_fp32 else _upcast(params)
     strict = near = plain_vs_fp32 = total = 0
     worst_gap = 0.0
     misses = []          # the positions outside the near-tie band
@@ -2340,7 +2393,8 @@ def teacher_force(torch, dataclasses, cfg, params, prompts, generated,
             seq = torch.tensor([prompt + gen[:-1]], device="cuda")
             p0 = len(prompt) - 1          # logits from the last prompt row
             lb = forward(plain, params, seq)[0, p0:].float()
-            l32 = forward(ref, params32, seq)[0, p0:]
+            l32 = (_fp32_logits_streamed(torch, ref, params, seq)[0, p0:]
+                   if stream_fp32 else forward(ref, params32, seq)[0, p0:])
             tok = torch.tensor(gen, device="cuda")
             gap = lb.max(-1).values - lb.gather(1, tok[:, None])[:, 0]
             band = (lb - l32).abs().max(-1).values
@@ -2612,7 +2666,9 @@ def step_vs_dense(torch, np, ft, card, model="llama2-7B", seq=TRAIN_SEQ,
 # phase 5: the finetuning path
 # ---------------------------------------------------------------------------
 
-FT_LAYERS = 2                 # 0.667 B parameters, a 9.3 GB train state
+# 0.464 B parameters, a 6.5 GB train state; cut from 2 layers (0.667 B,
+# 9.3 GB) to keep the script inside its time limit with phases 3e and 5c
+FT_LAYERS = 1
 FT_STEPS = 4                  # run A; B stops at FT_STEPS // 2, C resumes
 FT_CHATS = 16                 # 300 .. 6000 tokens: padded and truncated
 FT_MIN_FREE_GB = 40
@@ -2720,7 +2776,7 @@ def finetune(torch, np, ft, card):
         if free_gb < FT_MIN_FREE_GB:
             raise AssertionError(
                 f"finetune: {tmp} has {free_gb:.1f} GB free, the phase "
-                f"needs {FT_MIN_FREE_GB} GB (up to three 9.3 GB "
+                f"needs {FT_MIN_FREE_GB} GB (up to three 6.5 GB "
                 "checkpoints at once, with room)")
         return _finetune(torch, np, ft, card, tmp)
     finally:
@@ -2746,6 +2802,8 @@ def _finetune(torch, np, ft, card, tmp):
         "hf_C2")}
     problems, line = [], {"phase": "finetune", "card": card,
                           "model": "llama2-7B", "layers": FT_LAYERS,
+                          "reduced": f"depth 32 -> {FT_LAYERS} layer(s), "
+                                     "cut from 2 for time",
                           "seq_length": TRAIN_SEQ}
 
     # 1-2: an HF directory -> iteration 0, and straight back out
@@ -2983,7 +3041,8 @@ def serve_checkpoint(torch, np, ft, load, master, dataclasses) -> dict:
 # fits under 1024)
 FAMILY_SERVE = {"falcon-7B": dict(max_seq_len=2048, prompts=PROMPT_LENS),
                 "gpt2-1.3B": dict(max_seq_len=1024,
-                                  prompts=(5, 100, 500, 900))}
+                                  prompts=(5, 100, 500, 900)),
+                "mixtral-8x7B": dict(max_seq_len=2048, prompts=PROMPT_LENS)}
 # trained through pretrain_gpt: Falcon-7B's width cut to 4 layers (1.12 B
 # parameters; full depth is a ~110 GB train state) at its S 2048, under
 # selective recompute and under block:2 (--recompute_granularity full
@@ -3257,6 +3316,441 @@ def families(torch, np, ft, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: weight-only int8 / fp8 serving
+# ---------------------------------------------------------------------------
+
+WEIGHT_QUANT_MODES = ("int8", "fp8")
+
+
+def weight_quant_serving(torch, ft, card, dense_tokens):
+    """Phase 3e. Llama-2-7B at full size through the server on the dense
+    engine (phase 3's setup) with int8 and then fp8 weights
+    (ops/weight_quant.py, what --weight_int8 / --weight_fp8 build): the
+    phase-3 traffic; launches flash_fwd 32 x prefills and flash_decode
+    32 x ticks; no capture beyond the warm-up one; the engine's tokens
+    under phase 3's teacher-forced gate against the plain path on the
+    same quantized weights (the function it serves), and reported
+    against the bf16 model under the same gate (not gated: quantization
+    moves logits beyond the bf16 band); the weight bytes resident; and
+    the graph tick's device time with bf16, int8 and fp8 weights, all in
+    this call."""
+    import dataclasses
+
+    import numpy as np
+
+    from megatron_tpu_torch.models import presets
+    from megatron_tpu_torch.models.params import init_params
+    from megatron_tpu_torch.ops.weight_quant import (
+        quantize_params_for_serving, weight_bytes,
+    )
+    from megatron_tpu_torch.tokenizer import NullTokenizer
+
+    cfg = presets.from_model_name("llama2-7B")
+    params = init_params(cfg, SEED, device="cuda")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size - 1, size=n).tolist()
+               for n in PROMPT_LENS]
+    ticks = {"bf16": _tick_times(torch, cfg, params, False, False, card,
+                                 label="weight_bf16")}
+    total, problems, runs = {}, [], {}
+    for mode in WEIGHT_QUANT_MODES:
+        t0 = time.monotonic()
+        q = quantize_params_for_serving(params, mode)
+        torch.cuda.synchronize()
+        quantize_s = time.monotonic() - t0
+        service, server, thread, base = _start_server(
+            cfg, q, NullTokenizer(cfg.vocab_size), engine_slots=8,
+            engine_max_seq_len=2048)
+        try:
+            eng = service.engine
+            run = _greedy_traffic(ft, base, eng, prompts)
+            with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+                metrics = r.read().decode()
+            capture_s, recompiles = (eng.capture_seconds,
+                                     eng.stats["decode_recompiles"])
+        finally:
+            _stop_server(server, thread)
+        del service, server, eng
+        free_cuda(torch)
+        _add_counts(total, run["launches"])
+        want = {"flash_fwd": NUM_LAYERS * run["prefills"],
+                "flash_decode": NUM_LAYERS * run["ticks"],
+                "paged_flash_decode": 0}
+        if run["launches"] != want or recompiles or capture_s is None:
+            problems.append(f"{mode}: launches {run['launches']} != {want}"
+                            f", recompiles {recompiles}, capture "
+                            f"{capture_s}")
+        tf = teacher_force(torch, dataclasses, cfg, q, prompts,
+                           run["generated"])
+        vs_bf16 = teacher_force(torch, dataclasses, cfg, params, prompts,
+                                run["generated"])
+        ticks[mode] = _tick_times(torch, cfg, q, False, False, card,
+                                  label=f"weight_{mode}")
+        same = (sum(x == y for a, b in zip(run["generated"], dense_tokens)
+                    for x, y in zip(a, b))
+                / sum(map(len, run["generated"]))
+                if dense_tokens else "not measured")
+        runs[mode] = {
+            "weight_bytes": weight_bytes(q), "quantize_s": quantize_s,
+            "prefills": run["prefills"], "decode_ticks": run["ticks"],
+            "launches": run["launches"],
+            "concurrent_wall_s": run["concurrent_wall_s"],
+            "ttft_mean_s": (_metric(metrics, "engine_ttft_seconds_sum")
+                            / _metric(metrics, "engine_ttft_seconds_count")),
+            "cuda_graph_capture_s": capture_s,
+            "teacher_forced_match": tf["teacher_forced_match"],
+            "teacher_forced_strict_argmax":
+                tf["teacher_forced_strict_argmax"],
+            "vs_bf16_teacher_forced_match": vs_bf16["teacher_forced_match"],
+            "vs_bf16_strict_argmax": vs_bf16["teacher_forced_strict_argmax"],
+            "tokens_equal_to_phase3_share": same}
+        if tf["teacher_forced_match"] < MATCH_GATE:
+            problems.append(f"{mode}: teacher-forced match "
+                            f"{tf['teacher_forced_match']:.4f} < "
+                            f"{MATCH_GATE}")
+        del q
+        free_cuda(torch)
+    emit({"phase": "weight_quant_serving", "card": card,
+          "model": "llama2-7B", "layers": NUM_LAYERS,
+          "bf16_weight_bytes": weight_bytes(params), "runs": runs,
+          "ticks": ticks})
+    del params
+    free_cuda(torch)
+    if problems:
+        raise AssertionError("weight quant serving: " + "; ".join(problems))
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: Mixtral
+# ---------------------------------------------------------------------------
+
+# served at Mixtral-8x7B's full width cut to 16 of its 32 layers (23.5 B
+# parameters, 47.0 GB in bf16; full depth is 93.4 GB, past one card, and
+# weight quantization does not cover the experts), with the capacity
+# factor an HF conversion sets (E = 8: no (token, choice) is dropped, so
+# prefill groups, decode groups and the teacher-forced pass compute one
+# function); trained at 2 layers (3.16 B parameters, ~57 GB of train
+# state) at the preset's S 8192 and capacity factor 1.25
+MIXTRAL = "mixtral-8x7B"
+MIXTRAL_SERVE_LAYERS = 16
+MIXTRAL_SERVE_CAPACITY = 8.0
+# the fp32 routing check: the same width in fp32 (no kernels: they take
+# bf16) at 4 layers, 24.3 GB
+MIXTRAL_FP32_LAYERS = 4
+MIXTRAL_TRAIN_LAYERS = 2
+MIXTRAL_TRAIN_STEPS = 4
+MIXTRAL_REDUCED = [
+    f"serving depth 32 -> {MIXTRAL_SERVE_LAYERS} layers (93.4 GB of bf16 "
+    "weights at full depth; one card has 80 GB)",
+    f"serving capacity factor 1.25 -> {MIXTRAL_SERVE_CAPACITY} (the HF "
+    "conversion's: dropless, like HF's Mixtral)",
+    f"fp32 routing check at {MIXTRAL_FP32_LAYERS} layers with the dense "
+    "attention",
+    f"training depth 32 -> {MIXTRAL_TRAIN_LAYERS} layers (S 8192, the "
+    f"preset's), {MIXTRAL_TRAIN_STEPS} steps"]
+# the engine's fp32 tokens against the fp32 plain path's argmax
+MIXTRAL_FP32_GATE = 0.99
+
+
+def _fp32_logits_streamed(torch, cfg32, params, seq):
+    """The plain path in fp32 (weights upcast), one layer's upcast at a
+    time: an fp32 copy of a model this size would not fit beside it."""
+    from megatron_tpu_torch.models.language_model import (
+        _layers, embed_tokens, final_hidden_norm, lm_logits,
+    )
+    from megatron_tpu_torch.models.transformer import block_forward
+    from megatron_tpu_torch.ops.rotary import precompute_rope
+
+    x = embed_tokens(cfg32, params, seq)
+    rope = precompute_rope(cfg32.head_dim, seq.shape[1], cfg32.rope_theta,
+                           cfg32.rope_scaling_factor, device=seq.device)
+    for lp in _layers(params["layers"], cfg32.num_layers):
+        x, _, _ = block_forward(cfg32, _upcast(lp), x, rope)
+    rest = _upcast({k: v for k, v in params.items() if k != "layers"})
+    return lm_logits(cfg32, rest, final_hidden_norm(cfg32, rest, x))
+
+
+def _moe_phase_times(torch, cfg, card):
+    """One MoE layer at the training shape ([1, S, h] bf16, Mixtral's
+    widths, random weights): the capacity layer's forward, its expert
+    products alone on the same [E, C, h] batches, and the dropless
+    layer (grouped products), CUDA events; dispatch + combine is the
+    difference of the first two."""
+    import dataclasses
+
+    from megatron_tpu_torch.models.params import init_params
+    from megatron_tpu_torch.ops import moe
+
+    one = dataclasses.replace(cfg, num_layers=1)
+    p = {k: v[0] for k, v in init_params(one, SEED)["layers"][
+        "moe"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(1, cfg.seq_length, cfg.hidden_size, device="cuda",
+                    dtype=torch.bfloat16, generator=gen)
+    Sg = moe._group_for(cfg.seq_length, moe.moe_group_size(cfg))
+    C = moe.moe_capacity(cfg, Sg)
+    G = cfg.seq_length // Sg
+    xe = torch.randn(cfg.num_experts, G * C, cfg.hidden_size, device="cuda",
+                     dtype=torch.bfloat16, generator=gen)
+    drop = dataclasses.replace(cfg, moe_dispatch="dropless")
+    with torch.no_grad():
+        layer_ms = cuda_ms(torch, lambda: moe.moe_block(cfg, p, x))
+        experts_ms = cuda_ms(torch, lambda: moe._expert_mlp(cfg, p, xe))
+        dropless_ms = cuda_ms(torch, lambda: moe.moe_block(drop, p, x))
+    rec = {"seq": cfg.seq_length, "groups": G, "capacity": C,
+           "expert_rows": cfg.num_experts * G * C,
+           "routed_rows": cfg.seq_length * cfg.moe_top_k,
+           "capacity_layer_ms": layer_ms, "expert_products_ms": experts_ms,
+           "dispatch_combine_ms": layer_ms - experts_ms,
+           "dropless_layer_ms": dropless_ms}
+    del p, x, xe
+    free_cuda(torch)
+    return rec
+
+
+def _dropless_vs_capacity(torch, cfg):
+    """A small shape on the card: the dropless layer (torch._grouped_mm)
+    against the capacity layer at ample capacity, and its gradients
+    against the capacity layer's, |a - b| <= 2e-2 * (M + |b|)."""
+    import dataclasses
+
+    from megatron_tpu_torch.models.params import init_params
+    from megatron_tpu_torch.ops import moe
+
+    small = dataclasses.replace(cfg, num_layers=1, hidden_size=512,
+                                ffn_hidden_size=1024,
+                                num_attention_heads=4, num_kv_heads=1,
+                                moe_capacity_factor=8.0)
+    p0 = {k: v[0] for k, v in init_params(small, SEED)["layers"][
+        "moe"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x0 = torch.randn(4, 256, 512, device="cuda", dtype=torch.bfloat16,
+                     generator=gen)
+    outs = []
+    for dispatch in ("capacity", "dropless"):
+        c = dataclasses.replace(small, moe_dispatch=dispatch)
+        p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+        x = x0.clone().requires_grad_(True)
+        y, aux = moe.moe_block(c, p, x)
+        (y.float().square().sum() + aux).backward()
+        outs.append([y.detach(), x.grad] + [p[k].grad for k in sorted(p)])
+    worst = 0.0
+    for a, b in zip(outs[1], outs[0]):
+        a, b = a.float(), b.float()
+        allowed = 2e-2 * (b.abs().max() + b.abs())
+        worst = max(worst, float(((a - b).abs() / allowed).max()))
+    return {"grouped_mm": moe.grouped_mm_available(x0), "worst_margin": worst}
+
+
+def _mixtral_fp32_routing(torch, card, base):
+    """The engines' MoE path against the plain path where bf16 rounding
+    cannot flip a routing decision: Mixtral's width at
+    MIXTRAL_FP32_LAYERS layers in fp32 with the dense attention (the
+    kernels take bf16 only), eager, on the dense and the paged engine,
+    the phase-3 prompts x 32 greedy tokens; each token must be the fp32
+    plain path's teacher-forced argmax at >= MIXTRAL_FP32_GATE of the
+    positions. In bf16 a random-init MoE's top-k routing is not stable
+    under rounding: a 1-ulp change of a router input can swap an expert,
+    and with it the layer's output, so phase 3's near-tie band (one
+    referee's rounding) does not cover another evaluation order's
+    routing; the bf16 rate is reported beside this gate."""
+    import dataclasses
+
+    import numpy as np
+
+    from megatron_tpu_torch.inference.engine import InferenceEngine, Request
+    from megatron_tpu_torch.inference.paging import PagedInferenceEngine
+    from megatron_tpu_torch.models.language_model import lm_forward
+    from megatron_tpu_torch.models.params import init_params
+    from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
+
+    cfg = dataclasses.replace(base, num_layers=MIXTRAL_FP32_LAYERS,
+                              moe_capacity_factor=MIXTRAL_SERVE_CAPACITY,
+                              params_dtype="float32", attention_impl="xla")
+    params = init_params(cfg, SEED, device="cuda")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size - 1, size=n).tolist()
+               for n in PROMPT_LENS]
+    agree = total = 0
+    misses = []
+    for paged in (False, True):
+        kw = dict(num_slots=8, max_seq_len=2048, vocab_size=cfg.vocab_size,
+                  metrics=MetricsRegistry(), cuda_graph=False)
+        eng = (PagedInferenceEngine(cfg, params, page_size=PAGE_SIZE,
+                                    prefill_chunk=PREFILL_CHUNK, **kw)
+               if paged else InferenceEngine(cfg, params, **kw))
+        reqs = [eng.submit(Request(prompt=np.asarray(p, np.int32),
+                                   max_new_tokens=NEW_TOKENS))
+                for p in prompts]
+        eng.run_until_idle()
+        del eng
+        with torch.no_grad():
+            for i, (prompt, r) in enumerate(zip(prompts, reqs)):
+                if r.error is not None or len(r.generated) != NEW_TOKENS:
+                    raise AssertionError(f"fp32 request {i}: {r.error}")
+                seq = torch.tensor([prompt + r.generated[:-1]],
+                                   device="cuda")
+                want = lm_forward(cfg, params, seq)[0, len(prompt) - 1:]
+                got = torch.tensor(r.generated, device="cuda")
+                hit = want.argmax(-1) == got
+                agree += int(hit.sum())
+                total += len(r.generated)
+                misses += [{"engine": "paged" if paged else "dense",
+                            "sequence": i, "position": j}
+                           for j in (~hit).nonzero().flatten().tolist()]
+    del params
+    free_cuda(torch)
+    return {"fp32_layers": MIXTRAL_FP32_LAYERS,
+            "fp32_teacher_forced_argmax": agree / total,
+            "fp32_positions": total, "fp32_misses": misses}
+
+
+def mixtral(torch, np, ft, card):
+    """Phase 5c. Mixtral-8x7B's width (h 4096, ffn 14336, 8 experts top-2,
+    32/8 heads, rope theta 1e6) cut to MIXTRAL_SERVE_LAYERS layers through
+    the HTTP server on the dense and the paged engine, each with the
+    captured tick (_family_serve's gates: prompt + 32 tokens, exact
+    launches, no capture beyond the warm-up one), phase 3's
+    teacher-forced near-tie rate on every sequence (the fp32 referee
+    upcast a layer at a time; reported) and the dense graph tick's
+    device time; the fp32 routing gate (_mixtral_fp32_routing); then a
+    dropless case at a small shape against the capacity layer at ample
+    capacity, the capacity layer's dispatch/combine time at the training
+    shape, and pretrain_gpt at MIXTRAL_TRAIN_LAYERS layers (finite
+    losses, no skipped step, a moe aux loss line, exact launches; step
+    time and MFU by the config's own FLOPs)."""
+    import dataclasses
+
+    from megatron_tpu_torch.models import presets
+    from megatron_tpu_torch.models.params import init_params, num_params
+
+    base = presets.from_model_name(MIXTRAL)
+    cfg = dataclasses.replace(base, num_layers=MIXTRAL_SERVE_LAYERS,
+                              moe_capacity_factor=MIXTRAL_SERVE_CAPACITY)
+    total, problems = {}, []
+    t0 = time.monotonic()
+    params = init_params(cfg, SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    served = []
+    for paged in (False, True):
+        run = _family_serve(torch, ft, card, MIXTRAL, cfg, params, paged)
+        _add_counts(total, run["launches"])
+        served.append(run)
+    tf = teacher_force(torch, dataclasses, cfg, params,
+                       [p for r in served for p in r["prompts"]],
+                       [g for r in served for g in r["generated"]],
+                       stream_fp32=True)
+    tick = _tick_times(torch, cfg, params, False, False, card,
+                       label=MIXTRAL)
+    del params, served
+    free_cuda(torch)
+    fp32 = _mixtral_fp32_routing(torch, card, base)
+    emit({"phase": "mixtral_serving_gate", "card": card, "model": MIXTRAL,
+          "layers": cfg.num_layers, "params": num_params(cfg),
+          "full_depth_params": num_params(base), "reduced": MIXTRAL_REDUCED,
+          "moe_capacity_factor": cfg.moe_capacity_factor,
+          "param_init_s": init_s, "ticks": [tick], **tf, **fp32})
+    if fp32["fp32_teacher_forced_argmax"] < MIXTRAL_FP32_GATE:
+        problems.append(f"fp32 teacher-forced argmax "
+                        f"{fp32['fp32_teacher_forced_argmax']:.4f} < "
+                        f"{MIXTRAL_FP32_GATE}")
+
+    drop = _dropless_vs_capacity(torch, base)
+    times = _moe_phase_times(torch, base, card)
+    emit({"phase": "mixtral_moe_layer", "card": card, **times,
+          "dropless_vs_capacity": drop})
+    if not drop["grouped_mm"] or drop["worst_margin"] > 1.0:
+        problems.append(f"dropless vs capacity on the card: {drop}")
+    line, launches, log_lines = _mixtral_train(torch, np, ft, card)
+    _add_counts(total, launches)
+    if not any("moe aux loss:" in m for m in log_lines):
+        problems.append("no moe aux loss in the training log")
+    if problems:
+        raise AssertionError("mixtral: " + "; ".join(problems))
+    return total
+
+
+def _mixtral_train(torch, np, ft, card):
+    """pretrain_gpt --model_name mixtral-8x7B at MIXTRAL_TRAIN_LAYERS
+    layers on the phase-4 corpus, phase 4's flags (selective recompute,
+    lr TRAIN_LR constant, micro-batch 1, global batch 2), one evaluation
+    after the last step."""
+    from megatron_tpu_torch.models.params import num_params
+    from megatron_tpu_torch.tools import pretrain_gpt
+
+    prefix = corpus_prefix()
+    if not os.path.exists(prefix + ".idx"):
+        write_corpus(np, prefix)
+    steps = MIXTRAL_TRAIN_STEPS
+    # --seq_length 2048 is the flag's default: the preset's 8192 stands
+    argv = train_argv(prefix, layers=MIXTRAL_TRAIN_LAYERS, seq=2048,
+                      iters=steps, eval_interval=steps)
+    argv[argv.index("llama2-7B")] = MIXTRAL
+    log_lines = []
+
+    def log(msg):
+        log_lines.append(msg)
+        print(msg, flush=True)
+
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    # the main path's run: every count starts at 0 here
+    for name in TRAIN_COUNTED:
+        getattr(ft, name).launches = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.monotonic()
+        loop = pretrain_gpt.main(argv, log=log)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+    launches = {n: getattr(ft, n).launches for n in TRAIN_COUNTED}
+    cfg = loop.cfg.model
+    hist = loop.history
+    losses = [h["lm_loss"] for h in hist]
+    steps_s = sorted(h["window_s"] for h in hist[1:])   # step 1 warms up
+    step_s = steps_s[len(steps_s) // 2] if steps_s else float("nan")
+    tokens_per_s = TRAIN_GLOBAL * cfg.seq_length / step_s
+    flops = 3.0 * cfg.flops_per_token_fwd()
+    want = expected_train_launches(TRAIN_GLOBAL // TRAIN_MICRO,
+                                   cfg.num_layers, steps, 1)
+    line = {"phase": "mixtral_training", "card": card, "model": MIXTRAL,
+            "layers": cfg.num_layers, "seq_length": cfg.seq_length,
+            "params": num_params(cfg), "reduced": MIXTRAL_REDUCED[2],
+            "moe_capacity_factor": cfg.moe_capacity_factor,
+            "wall_s": wall_s, "lr": float(TRAIN_LR), "losses": losses,
+            "moe_aux_losses": [h.get("moe_aux_loss") for h in hist],
+            "first_loss_expected": first_loss_expected(cfg),
+            "evals": [e["lm_loss"] for e in loop.evals],
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "step_times_s": [h["window_s"] for h in hist],
+            "step_s_median": step_s, "tokens_per_s": tokens_per_s,
+            "model_tflops_per_s": tokens_per_s * flops / 1e12,
+            "mfu": tokens_per_s * flops / PEAK_BF16_FLOPS,
+            "max_memory_allocated_gib":
+                torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches, "expected_launches": want}
+    emit(line)
+    del loop
+    free_cuda(torch)
+    problems = []
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        problems.append(f"losses {losses}")
+    if any(h["skipped"] for h in hist):
+        problems.append("a step was skipped")
+    if launches != want:
+        problems.append(f"launches {launches} != {want}")
+    fallbacks = [str(w.message) for w in caught
+                 if "falling back" in str(w.message)]
+    if fallbacks:
+        problems.append(f"dense fallback fired: {fallbacks}")
+    if problems:
+        raise AssertionError("mixtral training: " + "; ".join(problems))
+    return line, launches, log_lines
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the loop and the data
 
 LOOP_MODEL = "gpt2-1.3B"      # the JAX `gpt2` preset's full size
@@ -3477,6 +3971,7 @@ def _loop_train(torch, ft, card, data, tmp, sync: bool):
             "profile_window_ms": trace["window_ms"],
             "data_wait_ms_per_step": 1e3 * sum(
                 r["data_wait_s"] for r in steady) / len(steady),
+            "data_waits_ms": [1e3 * r["data_wait_s"] for r in steady],
             # the async pop's attribution (training/prefetch.py last_pop:
             # queue fill before the pop, the pop's wait, the worker's pin
             # + issue and landing of that batch); empty for the sync loop
@@ -4027,15 +4522,20 @@ def main() -> int:
         traceback.print_exc()
         return 1
 
-    failed, results = [], {}
+    failed, results, seconds = [], {}, {}
+    t_start = time.monotonic()
 
     def phase(name, fn, *args):
+        t0 = time.monotonic()
         try:
             results[name] = fn(*args)
         except Exception:  # noqa: BLE001 - any failed phase fails the run
             traceback.print_exc()
             failed.append(name)
         free_cuda(torch)
+        seconds[name] = time.monotonic() - t0
+        emit({"phase": "seconds", "name": name, "seconds": seconds[name],
+              "failed": name in failed})
 
     phase("flash_fwd", check_flash_fwd, torch, F, ft, card)
     phase("flash_decode", check_flash_decode, torch, F, ft, card)
@@ -4048,12 +4548,18 @@ def main() -> int:
           results.get("serving", {}).get("generated"))
     phase("serving_control", serve_control, torch, ft, card,
           results.get("serving", {}).get("generated"))
+    phase("weight_quant", weight_quant_serving, torch, ft, card,
+          results.get("serving", {}).get("generated"))
     phase("training", train, torch, np, ft, card)
     phase("kernel_vs_dense_step", step_vs_dense, torch, np, ft, card)
     phase("finetune", finetune, torch, np, ft, card)
     phase("families", families, torch, np, ft, card)
+    phase("mixtral", mixtral, torch, np, ft, card)
     phase("loop", loop_and_data, torch, np, ft, card)
     phase("parallel", parallel_training, torch, np, ft, card)
+    emit({"phase": "seconds_by_phase", "seconds": seconds,
+          "total_s": time.monotonic() - t_start,
+          "build_s": t_start - t0})
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -4062,9 +4568,11 @@ def main() -> int:
              "paged_serving": results["paged_serving"],
              "speculative_serving": results["speculative_serving"],
              "serving_control": results["serving_control"],
+             "weight_quant": results["weight_quant"],
              "training": results["training"],
              "finetune": results["finetune"],
              "families": results["families"],
+             "mixtral": results["mixtral"],
              "loop": results["loop"],
              "parallel": results["parallel"]}
     reports = {"flash_fwd": results["flash_fwd"],

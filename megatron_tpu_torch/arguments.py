@@ -18,8 +18,12 @@ The distributed flags are the JAX CLI's (--tensor_model_parallel_size,
 mapped to virtual_pipeline_parallel as there, --sequence_parallel,
 --use_distributed_optimizer); --context_parallel_size and
 --expert_model_parallel_size above 1 are refused (ROADMAP.md items 10
-and 8), and the process group comes from torch.distributed.run's
-environment (parallel/distributed.py).
+and 7b), and the process group comes from torch.distributed.run's
+environment (parallel/distributed.py). The MoE flags (--num_experts,
+--moe_top_k, --moe_capacity_factor, --moe_aux_loss_coeff,
+--moe_z_loss_coeff, --moe_group_size, --moe_dispatch,
+--moe_ep_buffer_factor, --[no_]moe_renorm_gates) are the JAX CLI's: only
+a flag that is passed overrides the preset (mixtral carries its own).
 SIGTERM checkpoint-and-exit is always on, as there
 (--exit_signal_handler is accepted).
 
@@ -77,6 +81,28 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--no_tie_embed_logits", action="store_false",
                    dest="tie_embed_logits",
                    help="untie the word embedding and the LM head")
+
+    # MoE (ops/moe.py): None = not passed, the preset's value stands
+    g.add_argument("--num_experts", type=int, default=None)
+    g.add_argument("--moe_top_k", type=int, default=None)
+    g.add_argument("--moe_capacity_factor", type=float, default=None)
+    g.add_argument("--moe_aux_loss_coeff", type=float, default=None)
+    g.add_argument("--moe_z_loss_coeff", type=float, default=None)
+    g.add_argument("--moe_group_size", type=int, default=None,
+                   help="dispatch group size (tokens); 0 = auto (largest "
+                        "divisor of seq_length <= 2048)")
+    g.add_argument("--moe_dispatch", choices=["capacity", "dropless"],
+                   default=None,
+                   help="capacity: per-group capacity, overflow dropped; "
+                        "dropless: every routed row through its expert")
+    g.add_argument("--moe_ep_buffer_factor", type=float, default=None,
+                   help="dropless receive buffer under expert parallelism "
+                        "(refused: expert parallelism is not ported)")
+    g.add_argument("--moe_renorm_gates", action="store_true", default=None)
+    g.add_argument("--no_moe_renorm_gates", action="store_false",
+                   dest="moe_renorm_gates",
+                   help="raw softmax gate values (GShard) instead of "
+                        "renormalized top-k weights (Mixtral)")
 
     g = p.add_argument_group("training")
     g.add_argument("--micro_batch_size", type=int, default=1)
@@ -282,8 +308,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--tensor_model_parallel_size", type=int, default=1)
     g.add_argument("--pipeline_model_parallel_size", type=int, default=1)
     g.add_argument("--expert_model_parallel_size", type=int, default=1,
-                   help="refused above 1: MoE is not ported (ROADMAP.md "
-                        "item 8)")
+                   help="refused above 1: expert parallelism is not "
+                        "ported (ROADMAP.md item 7b)")
     g.add_argument("--context_parallel_size", type=int, default=1,
                    help="refused above 1: ring attention is not ported "
                         "(ROADMAP.md item 10)")
@@ -351,6 +377,19 @@ _ARCH_FLAGS = (
 )
 
 
+#: the MoE flags, each overriding the preset only when passed (the JAX
+#: CLI's _moe_overrides)
+_MOE_FLAGS = ("num_experts", "moe_top_k", "moe_capacity_factor",
+              "moe_aux_loss_coeff", "moe_z_loss_coeff", "moe_renorm_gates",
+              "moe_group_size", "moe_dispatch", "moe_ep_buffer_factor")
+
+
+def _moe_overrides(args) -> dict:
+    """The MoE knobs that were passed (None: absent, keep the preset's)."""
+    return {name: getattr(args, name) for name in _MOE_FLAGS
+            if getattr(args, name, None) is not None}
+
+
 def recompute_policy(args) -> str:
     """--recompute_granularity, with --recompute_method and
     --recompute_num_layers folded in as the JAX CLI folds them: "block:N"
@@ -386,6 +425,7 @@ def args_to_run_config(args) -> RunConfig:
     for flag, field in _ARCH_FLAGS:
         if getattr(args, flag) is not None:
             overrides[field] = getattr(args, flag)
+    overrides.update(_moe_overrides(args))
     model = ModelConfig(**{**model.__dict__, **overrides}).validate()
 
     if args.context_parallel_size > 1:
@@ -394,8 +434,9 @@ def args_to_run_config(args) -> RunConfig:
             "is not ported yet (ROADMAP.md queue A item 10)")
     if args.expert_model_parallel_size > 1:
         raise ValueError(
-            "--expert_model_parallel_size > 1: MoE and expert parallelism "
-            "are not ported yet (ROADMAP.md queue A item 8)")
+            "--expert_model_parallel_size > 1: expert parallelism (and "
+            "with it dropless dispatch across expert ranks) is not ported "
+            "yet (ROADMAP.md queue A item 7b); MoE trains at world size 1")
     vpp = None
     per_stage = args.num_layers_per_virtual_pipeline_stage
     if per_stage:

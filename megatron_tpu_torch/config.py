@@ -102,6 +102,25 @@ class ModelConfig:
     tie_embed_logits: bool = False
     sliding_window_size: Optional[int] = None
 
+    # Mixture-of-Experts (ops/moe.py): GShard/Switch capacity dispatch
+    # with Mixtral's renormalized top-k gates, or dropless dispatch.
+    # None = dense MLP. The JAX package's fields, names and defaults.
+    num_experts: Optional[int] = None
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss_coeff: float = 1e-2
+    moe_z_loss_coeff: float = 0.0
+    moe_renorm_gates: bool = True
+    # "capacity": per-group capacity, overflow dropped; "dropless": every
+    # (token, choice) row through its expert (grouped products)
+    moe_dispatch: str = "capacity"
+    # the dropless receive buffer under expert parallelism (refused above
+    # ep 1 until it is ported; kept for the name's sake)
+    moe_ep_buffer_factor: Optional[float] = None
+    # tokens per dispatch group; 0 = auto (largest divisor of seq_length
+    # <= 2048). Must divide seq_length when set
+    moe_group_size: int = 0
+
     init_method_std: float = 0.02
     use_scaled_init: bool = True
 
@@ -182,6 +201,28 @@ class ModelConfig:
                 f"hidden_dropout={self.hidden_dropout} and attention_dropout"
                 f"={self.attention_dropout}: dropout is not ported yet (the "
                 "kernels have no random generator); both must be 0.0")
+        if self.num_experts is not None:
+            if self.num_experts < 1:
+                raise ValueError("num_experts must be >= 1")
+            if not 1 <= self.moe_top_k <= self.num_experts:
+                raise ValueError(
+                    f"moe_top_k={self.moe_top_k} must be in "
+                    f"[1, num_experts={self.num_experts}]")
+            if self.moe_dispatch not in ("capacity", "dropless"):
+                raise ValueError(
+                    f"moe_dispatch={self.moe_dispatch!r} must be "
+                    "'capacity' or 'dropless'")
+            if self.moe_group_size < 0:
+                raise ValueError("moe_group_size must be >= 0")
+            if (self.moe_ep_buffer_factor is not None
+                    and self.moe_ep_buffer_factor <= 0):
+                raise ValueError(
+                    f"moe_ep_buffer_factor={self.moe_ep_buffer_factor} "
+                    "must be > 0 (None = exact dropless)")
+            if self.moe_group_size and self.seq_length % self.moe_group_size:
+                raise ValueError(
+                    f"moe_group_size={self.moe_group_size} must divide "
+                    f"seq_length={self.seq_length}")
         if self.ce_chunk_size < 0:
             raise ValueError("ce_chunk_size must be >= 0")
         if self.ce_chunk_size and self.seq_length % self.ce_chunk_size:
@@ -200,7 +241,11 @@ class ModelConfig:
         per_layer = 2 * h * (nq + 2 * nkv) * hd        # qkv proj
         per_layer += 2 * 2 * s * nq * hd               # qk^T and av
         per_layer += 2 * nq * hd * h                   # out proj
-        per_layer += 2 * h * f * (2 if self.is_glu else 1) + 2 * f * h
+        mlp = 2 * h * f * (2 if self.is_glu else 1) + 2 * f * h
+        if self.num_experts is not None:
+            # each token visits top_k experts; the router product is extra
+            mlp = mlp * self.moe_top_k + 2 * h * self.num_experts
+        per_layer += mlp
         return float(self.num_layers * per_layer + 2 * h * self.vocab_size)
 
 
@@ -428,7 +473,7 @@ class ParallelConfig:
     (parallel/mesh.py). The port runs data, pipe and tensor parallelism
     (with sequence parallelism and the interleaved schedule);
     context_parallel and expert_parallel > 1 are refused by the entry
-    points until their modules are ported (ROADMAP.md items 10 and 8).
+    points until their modules are ported (ROADMAP.md items 10 and 7b).
     """
 
     tensor_parallel: int = 1

@@ -126,6 +126,23 @@ class RequestTimeoutError(RuntimeError):
     HTTP serving maps this to 504 Gateway Timeout."""
 
 
+def _uncapturable(cfgs) -> Optional[str]:
+    """Why a decode tick over these models cannot be one CUDA graph, or
+    None. Dropless MoE splits rows per expert: torch._grouped_mm takes the
+    spans on the device, a per-expert loop reads them on the host (a sync
+    a capture cannot hold). Dropless is never swapped for the capacity
+    path, which is another function."""
+    for c in cfgs:
+        if c.num_experts is None or c.moe_dispatch != "dropless":
+            continue
+        if c.dtype != torch.bfloat16 or not hasattr(torch, "_grouped_mm"):
+            return (f"moe_dispatch='dropless' in {c.dtype} on torch "
+                    f"{torch.__version__}: the per-expert products split "
+                    "on host-side row counts (no bf16 torch._grouped_mm), "
+                    "which a CUDA graph cannot capture")
+    return None
+
+
 @dataclasses.dataclass
 class Request:
     """One sequence's lifecycle through the engine."""
@@ -322,6 +339,17 @@ class InferenceEngine:
         self._carry_dirty = True
         self._init_static()
         self.cuda_graph = bool(cuda_graph) and self.device.type == "cuda"
+        #: why the tick runs eagerly on CUDA although a graph was asked
+        #: for (None: it is captured, or was not asked for)
+        self.eager_reason = None
+        if self.cuda_graph:
+            self.eager_reason = _uncapturable(
+                [cfg] + ([speculative.draft_cfg]
+                         if self._has_draft_model() else []))
+            if self.eager_reason:
+                self.cuda_graph = False
+                warnings.warn(f"decode tick runs eagerly: "
+                              f"{self.eager_reason}", stacklevel=2)
         self._step = None
         self.capture_seconds = None
         self._build_step(warmup=True)

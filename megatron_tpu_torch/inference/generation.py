@@ -70,7 +70,8 @@ def _init_caches(cfg: ModelConfig, batch: int, total_len: int,
 
 
 def _device(params: Any) -> torch.device:
-    return params["embed"]["tokens"].device
+    # a norm scale: never weight-quantized, in every model
+    return params["layers"]["ln1"]["scale"].device
 
 
 def _rope(cfg: ModelConfig, n: int, device):

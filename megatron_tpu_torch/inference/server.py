@@ -69,6 +69,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.inference.api import (
@@ -82,9 +83,14 @@ from megatron_tpu_torch.inference.fleet.reload import (
 )
 from megatron_tpu_torch.inference.paging import PagedInferenceEngine
 from megatron_tpu_torch.inference.speculative import SpecConfig
+from megatron_tpu_torch.models.params import empty_params
+from megatron_tpu_torch.ops.weight_quant import (
+    quantize_params_for_serving, quantized_mode,
+)
 from megatron_tpu_torch.telemetry.metrics import (
     MetricsRegistry, default_registry,
 )
+from megatron_tpu_torch.training.optimizer import tree_map
 
 MAX_TOKENS_TO_GENERATE = 1024
 MAX_PROMPTS = 128
@@ -128,7 +134,10 @@ class GenerationService:
         request_timeout: the server's deadline for engine requests (504
         past it). reload_dir: the default checkpoint dir of
         /admin/reload; weights_version: the iteration served at start.
-        warmup=True keeps /readyz at 503 until warmup() has run."""
+        warmup=True keeps /readyz at 503 until warmup() has run. A
+        weight-quantized params tree (ops/weight_quant.py) is reloaded in
+        its own mode: the checkpoint's weights are read on the host and
+        quantized into the served tensors."""
         if engine_slots < 0:
             raise ValueError("engine_slots must be >= 0 (0: one-shot)")
         if speculative is not None and not engine_slots:
@@ -142,6 +151,8 @@ class GenerationService:
         self.request_timeout = request_timeout
         self.reload_dir = reload_dir
         self.weights_version = weights_version
+        self.weight_quant = quantized_mode(params)
+        self.device = torch.device(device)
         self.draining = False
         self.reloading = False
         # readiness gate: set once warmup() ran (or no warmup was asked)
@@ -251,8 +262,7 @@ class GenerationService:
                     "the request or start the server with reload_dir=")
             self.reloading = True
             try:
-                params, it = load_verified_params(src, self.params,
-                                                  iteration=iteration)
+                params, it = self._load_reload_params(src, iteration)
                 with self.lock:
                     if self.engine is not None:
                         applied = self.engine.update_params(params,
@@ -268,6 +278,21 @@ class GenerationService:
                 return it
             finally:
                 self.reloading = False
+
+    def _load_reload_params(self, src: str, iteration: Optional[int]):
+        """(params, iteration) of a reload, in the served tree's form: a
+        quantized server reads the checkpoint into a host template and
+        quantizes it there (no second model-sized tree on the card), and
+        the engine's swap copies the result into the served tensors."""
+        if not self.weight_quant:
+            return load_verified_params(src, self.params,
+                                        iteration=iteration)
+        params, it = load_verified_params(
+            src, empty_params(self.cfg, device="cpu"), iteration=iteration)
+        params = quantize_params_for_serving(params, self.weight_quant)
+        if self.engine is None:
+            params = tree_map(lambda t: t.to(self.device), params)
+        return params, it
 
     def admin_status(self) -> dict:
         ok, detail = self.ready()

@@ -14,9 +14,12 @@ rope_theta), mistral (its sliding window is the port's
 sliding_window_size), falcon (both layouts: the multi-query one of
 Falcon-7B and new_decoder_architecture, Falcon-40B's grouped one with its
 second layernorm) and gpt2 (absolute position embeddings, biases; HF's
-Conv1D weights are stored [in, out] already). mixtral raises
-NotImplementedError: the port's model has no MoE yet (ROADMAP.md,
-queue A). A config.json dict may leave out the fields where the HF class
+Conv1D weights are stored [in, out] already) and mixtral (Mistral's
+layers with a block_sparse_moe: the router gate [E, h] and per expert
+w1 (gate), w3 (up), w2 (down), mapped to layers/moe/router [L, h, E],
+w_in [L, E, h, 2F] = [w1 | w3] and w_out [L, E, F, h]; HF's block is
+dropless, so the config takes capacity factor E, ample for any
+routing). A config.json dict may leave out the fields where the HF class
 keeps its default (save_pretrained writes only the differences):
 config_from_hf reads those with the HF defaults.
 """
@@ -31,23 +34,15 @@ import torch
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.models.params import param_shapes
 
-SUPPORTED = ("llama", "mistral", "falcon", "gpt2")
-_WAITS_FOR = {
-    "mixtral": "mixture-of-experts layers (ops/moe.py, the layers/moe "
-               "parameters)",
-}
+SUPPORTED = ("llama", "mistral", "mixtral", "falcon", "gpt2")
 _ARCHITECTURES = {"llama": "LlamaForCausalLM",
                   "mistral": "MistralForCausalLM",
+                  "mixtral": "MixtralForCausalLM",
                   "falcon": "FalconForCausalLM",
                   "gpt2": "GPT2LMHeadModel"}
 
 
 def _check_model_type(model_type: str) -> None:
-    if model_type in _WAITS_FOR:
-        raise NotImplementedError(
-            f"HF model_type {model_type!r} is not ported: it waits for "
-            f"{_WAITS_FOR[model_type]}, which the port's model lacks "
-            "(ROADMAP.md, queue A)")
     if model_type not in SUPPORTED:
         raise ValueError(f"unsupported HF model_type {model_type!r}; one "
                          f"of {SUPPORTED}")
@@ -77,7 +72,18 @@ def config_from_hf(hf_config: Any, seq_length: Optional[int] = None
         raise ValueError("attention_bias / mlp_bias checkpoints are not "
                          "supported")
     head_dim = getattr(c, "head_dim", None)
+    moe = {}
+    if mt == "mixtral":
+        E = getattr(c, "num_local_experts", 8)
+        moe = dict(num_experts=E,
+                   moe_top_k=getattr(c, "num_experts_per_tok", 2),
+                   moe_renorm_gates=True,
+                   moe_aux_loss_coeff=getattr(c, "router_aux_loss_coef",
+                                              1e-2),
+                   # HF Mixtral is dropless: capacity factor E is ample
+                   moe_capacity_factor=float(E))
     return ModelConfig(
+        **moe,
         num_layers=c.num_hidden_layers,
         hidden_size=c.hidden_size,
         num_attention_heads=c.num_attention_heads,
@@ -96,7 +102,7 @@ def config_from_hf(hf_config: Any, seq_length: Optional[int] = None
         layernorm_epsilon=c.rms_norm_eps,
         tie_embed_logits=bool(getattr(c, "tie_word_embeddings", False)),
         sliding_window_size=(getattr(c, "sliding_window", None)
-                             if mt == "mistral" else None),
+                             if mt in ("mistral", "mixtral") else None),
     ).validate()
 
 
@@ -211,6 +217,14 @@ def hf_config_from_native(cfg: ModelConfig, model_type: str,
             f"a {cfg.normalization}/{cfg.activation} model with biases="
             f"{cfg.use_bias_linear or cfg.use_bias_qkv} has no "
             f"{model_type} export target")
+    if (cfg.num_experts is not None) != (model_type == "mixtral"):
+        raise ValueError(
+            f"num_experts={cfg.num_experts}: MoE models export as mixtral "
+            f"and only they do (asked for {model_type})")
+    if model_type == "mixtral" and not cfg.moe_renorm_gates:
+        raise ValueError("HF Mixtral renormalizes its top-k gates: a "
+                         "model with moe_renorm_gates=False has no mixtral "
+                         "export target")
     d = dict(
         model_type=model_type,
         architectures=[_ARCHITECTURES[model_type]],
@@ -231,8 +245,12 @@ def hf_config_from_native(cfg: ModelConfig, model_type: str,
     if model_type == "llama" and cfg.rope_scaling_factor != 1.0:
         d["rope_scaling"] = {"rope_type": "linear",
                              "factor": cfg.rope_scaling_factor}
-    if model_type == "mistral":
+    if model_type in ("mistral", "mixtral"):
         d["sliding_window"] = cfg.sliding_window_size
+    if model_type == "mixtral":
+        d.update(num_local_experts=cfg.num_experts,
+                 num_experts_per_tok=cfg.moe_top_k,
+                 router_aux_loss_coef=cfg.moe_aux_loss_coeff)
     return d
 
 
@@ -274,12 +292,29 @@ def _llama_to_flat(sd: Dict[str, torch.Tensor], cfg: ModelConfig
         "layers/attn/wk": stack(pre + "self_attn.k_proj.weight", True),
         "layers/attn/wv": stack(pre + "self_attn.v_proj.weight", True),
         "layers/attn/wo": stack(pre + "self_attn.o_proj.weight", True),
-        "layers/mlp/w_in": torch.cat(
-            [stack(pre + "mlp.gate_proj.weight", True),
-             stack(pre + "mlp.up_proj.weight", True)], dim=-1),
-        "layers/mlp/w_out": stack(pre + "mlp.down_proj.weight", True),
         "final_ln/scale": sd["model.norm.weight"].clone(),
     }
+    if cfg.num_experts is None:
+        f["layers/mlp/w_in"] = torch.cat(
+            [stack(pre + "mlp.gate_proj.weight", True),
+             stack(pre + "mlp.up_proj.weight", True)], dim=-1)
+        f["layers/mlp/w_out"] = stack(pre + "mlp.down_proj.weight", True)
+    else:
+        moe = pre + "block_sparse_moe."
+
+        def experts(i, fmt):
+            return [sd[(pre.format(i) + "block_sparse_moe.experts.{}."
+                        + fmt).format(e)].t()
+                    for e in range(cfg.num_experts)]
+
+        f["layers/moe/router"] = stack(moe + "gate.weight", True)
+        f["layers/moe/w_in"] = torch.stack([torch.stack([
+            torch.cat([w1, w3], dim=-1)
+            for w1, w3 in zip(experts(i, "w1.weight"),
+                              experts(i, "w3.weight"))])
+            for i in range(L)])
+        f["layers/moe/w_out"] = torch.stack([
+            torch.stack(experts(i, "w2.weight")) for i in range(L)])
     if not cfg.tie_embed_logits:
         f["lm_head/w"] = sd["lm_head.weight"].t().contiguous()
     return f
@@ -362,7 +397,8 @@ def _gpt2_to_flat(sd: Dict[str, torch.Tensor], cfg: ModelConfig
 
 
 _IMPORTERS = {"llama": _llama_to_flat, "mistral": _llama_to_flat,
-              "falcon": _falcon_to_flat, "gpt2": _gpt2_to_flat}
+              "mixtral": _llama_to_flat, "falcon": _falcon_to_flat,
+              "gpt2": _gpt2_to_flat}
 
 
 def hf_state_dict_to_params(sd: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -414,10 +450,20 @@ def params_to_hf_state_dict(params: Dict[str, Any], cfg: ModelConfig,
         sd[f"{pre}.self_attn.k_proj.weight"] = t(f["layers/attn/wk"][i])
         sd[f"{pre}.self_attn.v_proj.weight"] = t(f["layers/attn/wv"][i])
         sd[f"{pre}.self_attn.o_proj.weight"] = t(f["layers/attn/wo"][i])
-        gate, up = f["layers/mlp/w_in"][i].chunk(2, dim=-1)
-        sd[f"{pre}.mlp.gate_proj.weight"] = t(gate)
-        sd[f"{pre}.mlp.up_proj.weight"] = t(up)
-        sd[f"{pre}.mlp.down_proj.weight"] = t(f["layers/mlp/w_out"][i])
+        if cfg.num_experts is None:
+            gate, up = f["layers/mlp/w_in"][i].chunk(2, dim=-1)
+            sd[f"{pre}.mlp.gate_proj.weight"] = t(gate)
+            sd[f"{pre}.mlp.up_proj.weight"] = t(up)
+            sd[f"{pre}.mlp.down_proj.weight"] = t(f["layers/mlp/w_out"][i])
+            continue
+        moe = f"{pre}.block_sparse_moe"
+        sd[f"{moe}.gate.weight"] = t(f["layers/moe/router"][i])
+        for e in range(cfg.num_experts):
+            gate, up = f["layers/moe/w_in"][i][e].chunk(2, dim=-1)
+            sd[f"{moe}.experts.{e}.w1.weight"] = t(gate)
+            sd[f"{moe}.experts.{e}.w3.weight"] = t(up)
+            sd[f"{moe}.experts.{e}.w2.weight"] = t(
+                f["layers/moe/w_out"][i][e])
     sd["model.norm.weight"] = f["final_ln/scale"].clone()
     sd["lm_head.weight"] = (sd["model.embed_tokens.weight"]
                             if cfg.tie_embed_logits else t(f["lm_head/w"]))

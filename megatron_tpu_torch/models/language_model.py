@@ -32,6 +32,11 @@ column-parallel LM head through parallel/mappings.enter_tp, and the
 logits are this rank's vocab columns; the loss is then the
 vocab-parallel cross-entropy (ops/cross_entropy.py). The pipeline
 (training/pipeline.py) runs the same pieces stage by stage.
+
+A MoE model's layers each return a router aux loss; lm_loss adds their
+sum to the CE (return_moe_aux on lm_forward gives it to other callers).
+A weight-quantized serving tree (ops/weight_quant.py) embeds through
+take_rows and projects through deq, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from megatron_tpu_torch.ops.cross_entropy import (
 )
 from megatron_tpu_torch.ops.normalization import norm_forward
 from megatron_tpu_torch.ops.rotary import precompute_rope
+from megatron_tpu_torch.ops.weight_quant import deq, take_rows
 from megatron_tpu_torch.parallel.mappings import enter_tp, exit_tp, sp_slice
 
 
@@ -75,7 +81,7 @@ def embed_tokens(cfg: ModelConfig, params: Dict[str, Any],
     returns this rank's sequence chunk) completes each row."""
     table = params["embed"]["tokens"]
     if mesh is None or mesh.tp == 1:
-        x = F.embedding(tokens, table).to(cfg.dtype)
+        x = take_rows(table, tokens, cfg.dtype).to(cfg.dtype)
     else:
         rows = table.shape[0]
         local = tokens.long() - mesh.tp_rank * rows
@@ -108,8 +114,8 @@ def lm_logits(cfg: ModelConfig, params: Dict[str, Any],
               x: torch.Tensor) -> torch.Tensor:
     """Hidden states -> vocab logits, tied or untied."""
     if cfg.tie_embed_logits:
-        return torch.matmul(x, params["embed"]["tokens"].t())
-    return torch.matmul(x, params["lm_head"]["w"])
+        return torch.matmul(x, deq(params["embed"]["tokens"], x.dtype).t())
+    return torch.matmul(x, deq(params["lm_head"]["w"], x.dtype))
 
 
 def lm_forward(
@@ -127,9 +133,12 @@ def lm_forward(
     page_write_start: Optional[int] = None,
     page_write_end: Optional[int] = None,
     mesh=None,
+    return_moe_aux: bool = False,
 ):
     """Forward pass to logits [B, S, V] (or, with return_hidden, the
-    final-normed hidden states [B, S, h]). With a mesh (tensor
+    final-normed hidden states [B, S, h]); with return_moe_aux, (that,
+    the layers' summed router aux loss), which a forward with kv_caches
+    refuses, as the JAX package does. With a mesh (tensor
     parallelism, no caches): logits are this rank's vocab columns
     [B, S, V/tp] and the hidden states are the LM head's input, the
     whole sequence.
@@ -155,6 +164,9 @@ def lm_forward(
     recompute: the activation-recompute policy of a training pass (see
     the module docstring); it takes effect only while autograd records
     and never with caches."""
+    if return_moe_aux and kv_caches is not None:
+        raise ValueError("return_moe_aux with kv_caches is ambiguous: "
+                         "decode paths don't train the router")
     if kv_caches is not None:
         recompute = "none"
     if positions is None and kv_caches is not None:
@@ -190,12 +202,14 @@ def lm_forward(
             recompute_core=recompute_granularity(recompute) == "selective",
             page_table=page_table, page_write_start=page_write_start,
             page_write_end=page_write_end, mesh=mesh))
-    x = run_layers(layers, x, recompute)
+    x, moe_aux = run_layers(layers, x, recompute)
 
     x = enter_tp(final_hidden_norm(cfg, params, x), mesh)
     if return_hidden:
-        return x
+        return (x, moe_aux) if return_moe_aux else x
     logits = lm_logits(cfg, params, x)
+    if return_moe_aux:
+        return logits, moe_aux
     if kv_caches is not None:
         return logits, kv_caches
     return logits
@@ -213,35 +227,43 @@ def recompute_granularity(recompute: str) -> str:
 
 
 def run_layers(layers: List[Any], x: torch.Tensor,
-               recompute: str = "none") -> torch.Tensor:
-    """x through `layers` (callables x -> (y, cache)) under a recompute
-    policy (the module docstring); a pipeline stage applies it to its own
-    chunk of layers, as the reference applies the budget per stage."""
+               recompute: str = "none"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x through `layers` (callables x -> (y, cache, moe_aux)) under a
+    recompute policy (the module docstring) -> (y, the layers' summed
+    moe_aux); a pipeline stage applies it to its own chunk of layers, as
+    the reference applies the budget per stage."""
     gran = recompute_granularity(recompute)
     n_rc = parse_recompute(recompute)[1]
     if gran == "uniform" and len(layers) % n_rc:
         raise ValueError(
             f"uniform:{n_rc} needs the layer count ({len(layers)}) "
             "divisible by the chunk size")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def remat(layer, x):
-        return checkpoint(layer, x, use_reentrant=False)[0]
+        y, _, a = checkpoint(layer, x, use_reentrant=False)
+        return y, a
 
     if gran == "uniform":
         def chunk(x, lo):
+            total = torch.zeros((), dtype=torch.float32, device=x.device)
             for layer in layers[lo:lo + n_rc]:
-                x = remat(layer, x)
-            return x
+                x, a = remat(layer, x)
+                total = total + a
+            return x, total
 
         for lo in range(0, len(layers), n_rc):
-            x = checkpoint(chunk, x, lo, use_reentrant=False)
+            x, a = checkpoint(chunk, x, lo, use_reentrant=False)
+            aux = aux + a
     else:
         for i, layer in enumerate(layers):
             if gran == "full" or (gran == "block" and i < n_rc):
-                x = remat(layer, x)
+                x, a = remat(layer, x)
             else:
-                x, _ = layer(x)
-    return x
+                x, _, a = layer(x)
+            aux = aux + a
+    return x, aux
 
 
 def token_losses(cfg: ModelConfig, params: Dict[str, Any],
@@ -292,8 +314,11 @@ def lm_loss(cfg: ModelConfig, params: Dict[str, Any],
             mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training loss on a batch dict with keys tokens [B, S], labels
     [B, S], optional loss_mask [B, S] and position_ids: per-token CE
-    weighted by loss_mask. Returns (mean, {"lm_loss", "ntokens"}). mesh:
-    tensor parallelism (the vocab-parallel CE)."""
+    weighted by loss_mask. Returns (mean, {"lm_loss", "ntokens"}); a MoE
+    model returns mean + the router aux loss, and aux["moe_aux_loss"]
+    (lm_loss stays the pure CE). mesh: tensor parallelism (the
+    vocab-parallel CE)."""
+    moe = cfg.num_experts is not None
     S = batch["tokens"].shape[1]
     # unchunked when the chunk does not tile this batch's sequence;
     # C == S still chunks (the single recomputed chunk drops the forward
@@ -301,7 +326,9 @@ def lm_loss(cfg: ModelConfig, params: Dict[str, Any],
     chunked = bool(cfg.ce_chunk_size) and S % cfg.ce_chunk_size == 0
     out = lm_forward(cfg, params, batch["tokens"],
                      positions=batch.get("position_ids"),
-                     recompute=recompute, return_hidden=chunked, mesh=mesh)
+                     recompute=recompute, return_hidden=chunked, mesh=mesh,
+                     return_moe_aux=moe)
+    out, moe_aux = out if moe else (out, None)
     loss_mask = batch.get("loss_mask")
     if chunked:
         per_token = chunked_lm_loss_tokens(cfg, params, out,
@@ -316,4 +343,8 @@ def lm_loss(cfg: ModelConfig, params: Dict[str, Any],
                               loss_mask=loss_mask)
     ntokens = (loss_mask.sum() if loss_mask is not None
                else per_token.new_tensor(float(per_token.numel())))
-    return mean, {"lm_loss": mean, "ntokens": ntokens}
+    aux = {"lm_loss": mean, "ntokens": ntokens}
+    if moe:
+        aux["moe_aux_loss"] = moe_aux
+        return mean + moe_aux, aux
+    return mean, aux

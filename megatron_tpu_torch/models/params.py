@@ -13,6 +13,13 @@ and under pipeline parallelism only the leaves its stage uses
 in vpp_place_indices order), the token (and position) embedding on the
 first stage, the final norm and the LM head on the last, and with tied
 embeddings a copy of embed/tokens on the last stage too.
+
+A MoE model (cfg.num_experts) has layers/moe/{router [L, h, E], w_in
+[L, E, h, Fin], w_out [L, E, F, h]} (and b_in/b_out with linear biases)
+in place of layers/mlp; it is refused above world size 1 (check_mesh).
+params_from_numpy also takes a weight-quantized JAX tree
+(ops/weight_quant.py): its {"q8" | "f8", "s"} leaves keep their int8 /
+float8_e4m3fn payloads and fp32 scales.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import torch
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.ops.activations import mlp_input_width_factor
 from megatron_tpu_torch.parallel.mesh import (
-    AXIS_PIPE, AXIS_TENSOR, MESH_AXES,
+    AXIS_EXPERT, AXIS_PIPE, AXIS_TENSOR, MESH_AXES,
 )
 from megatron_tpu_torch.parallel.sharding import (
     P, shard_leaf, spec_axes, zero1_dim,
@@ -42,7 +49,7 @@ _ZEROS = "zeros"
 def _defs(cfg: ModelConfig) -> Dict[str, Any]:
     """Flat {'/'-joined path: (shape, partition_spec, init_kind)}, the
     JAX package's table (megatron_tpu/models/params.py:39-125) for the
-    dense models the port trains."""
+    decoder models the port trains (dense and MoE)."""
     h = cfg.hidden_size
     L = cfg.num_layers
     D = cfg.head_dim
@@ -80,11 +87,24 @@ def _defs(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.use_bias_linear:
         d["layers/attn/bo"] = ((L, h), P(pipe, None), _ZEROS)
 
-    d["layers/mlp/w_in"] = ((L, h, Fin), P(pipe, None, tensor), _NORMAL)
-    d["layers/mlp/w_out"] = ((L, F, h), P(pipe, tensor, None), _SCALED)
-    if cfg.use_bias_linear:
-        d["layers/mlp/b_in"] = ((L, Fin), P(pipe, tensor), _ZEROS)
-        d["layers/mlp/b_out"] = ((L, h), P(pipe, None), _ZEROS)
+    if cfg.num_experts is None:
+        d["layers/mlp/w_in"] = ((L, h, Fin), P(pipe, None, tensor), _NORMAL)
+        d["layers/mlp/w_out"] = ((L, F, h), P(pipe, tensor, None), _SCALED)
+        if cfg.use_bias_linear:
+            d["layers/mlp/b_in"] = ((L, Fin), P(pipe, tensor), _ZEROS)
+            d["layers/mlp/b_out"] = ((L, h), P(pipe, None), _ZEROS)
+    else:
+        E, expert = cfg.num_experts, AXIS_EXPERT
+        d["layers/moe/router"] = ((L, h, E), P(pipe, None, None), _NORMAL)
+        d["layers/moe/w_in"] = ((L, E, h, Fin),
+                                P(pipe, expert, None, tensor), _NORMAL)
+        d["layers/moe/w_out"] = ((L, E, F, h),
+                                 P(pipe, expert, tensor, None), _SCALED)
+        if cfg.use_bias_linear:
+            d["layers/moe/b_in"] = ((L, E, Fin), P(pipe, expert, tensor),
+                                    _ZEROS)
+            d["layers/moe/b_out"] = ((L, E, h), P(pipe, expert, None),
+                                     _ZEROS)
 
     if not cfg.use_post_ln:  # post-LN layers carry their own output norm
         d["final_ln/scale"] = ((h,), P(None), _ONES)
@@ -182,6 +202,17 @@ def check_mesh(cfg: ModelConfig, mesh) -> None:
     tensor parallelism does not cover yet (refused, ROADMAP.md 7b)."""
     if mesh is None:
         return
+    if cfg.num_experts is not None and mesh.world_size > 1:
+        # the load-balance loss is E * sum_e f_e * P_e over GLOBAL means:
+        # a per-rank loss averaged over ranks is a mean of products, not
+        # the product of the means, so the statistics must be all-reduced
+        # first (the JAX EP path does; megatron_tpu/ops/moe.py:122-131)
+        raise ValueError(
+            f"MoE (num_experts={cfg.num_experts}) at world size "
+            f"{mesh.world_size}: the router's load-balance statistics are "
+            "not all-reduced across ranks yet, and expert parallelism is "
+            "not ported (ROADMAP.md queue A item 7b); train MoE at world "
+            "size 1")
     tp, pp, V = mesh.tp, mesh.pp, mesh.vpp
     if tp > 1:
         if cfg.num_attention_heads % tp or cfg.n_kv_heads % tp:
@@ -320,6 +351,15 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
     so a mismatched config fails here instead of computing garbage."""
     want = param_shapes(cfg)
     flat = _flatten(tree)
+    quant = {}          # weight-quantized leaves: path -> {part: array}
+    for path in list(flat):
+        head, _, part = path.rpartition("/")
+        if part in ("q8", "f8", "s") and head in want:
+            quant.setdefault(head, {})[part] = flat.pop(path)
+    if quant and mesh is not None:
+        raise ValueError("weight-quantized trees are single-card serving "
+                         "trees: no mesh")
+    flat.update(quant)
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))
     if missing or extra:
@@ -328,6 +368,9 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
     dtype = dtype or cfg.dtype
     out = {}
     for path, arr in flat.items():
+        if isinstance(arr, dict):
+            out[path] = _quantized_leaf(path, arr, want[path], device)
+            continue
         a = np.asarray(arr)
         if tuple(a.shape) != tuple(want[path]):
             raise ValueError(f"{path}: shape {a.shape} != {want[path]}")
@@ -339,3 +382,21 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",
     if mesh is not None:
         out = shard_params(out, cfg, mesh)
     return _nest(out)
+
+
+def _quantized_leaf(path: str, leaf: Dict[str, Any], shape: tuple,
+                    device) -> Dict[str, torch.Tensor]:
+    """A JAX {"q8" | "f8", "s"} leaf as tensors: int8 stays int8, and the
+    ml_dtypes float8_e4m3fn payload (numpy has no fp8 type of its own)
+    crosses as its bytes (uint8) and is viewed as torch.float8_e4m3fn."""
+    kind = "q8" if "q8" in leaf else "f8"
+    payload = np.asarray(leaf[kind])
+    if tuple(payload.shape) != tuple(shape):
+        raise ValueError(f"{path}/{kind}: shape {payload.shape} != {shape}")
+    if kind == "q8":
+        t = torch.from_numpy(np.ascontiguousarray(payload, np.int8))
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(payload).view(
+            np.uint8)).view(torch.float8_e4m3fn)
+    s = torch.from_numpy(np.ascontiguousarray(leaf["s"], np.float32))
+    return {kind: t.to(device), "s": s.to(device)}

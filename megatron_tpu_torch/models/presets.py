@@ -1,8 +1,6 @@
 """Architecture presets (counterpart of megatron_tpu/models/presets.py).
 
 The sizes and flags are the JAX package's; pad_vocab is its padding rule.
-The JAX package's mixtral preset is not here: the port's model has no
-mixture-of-experts layers yet (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -94,6 +92,19 @@ def mistral(size: str = "7B", seq_length: int = 8192) -> ModelConfig:
     )
 
 
+def mixtral(size: str = "8x7B", seq_length: int = 8192) -> ModelConfig:
+    """Mixtral-8x7B: Mistral's geometry without its window, 8 experts a
+    layer with renormalized top-2 routing (ops/moe.py), rope theta 1e6."""
+    if size != "8x7B":
+        raise ValueError(f"unknown mixtral size {size}")
+    return _llama_base(
+        hidden_size=4096, num_layers=32, num_attention_heads=32,
+        num_kv_heads=8, ffn_hidden_size=14336, seq_length=seq_length,
+        num_experts=8, moe_top_k=2, moe_renorm_gates=True,
+        rope_theta=1e6,
+    )
+
+
 def falcon(size: str = "7B", seq_length: int = 2048) -> ModelConfig:
     """Falcon 7B/40B: rotary, MQA/GQA, parallel attention, layernorm,
     exact gelu, tied embeddings, no linear biases."""
@@ -160,6 +171,7 @@ PRESETS = {
     "llama2": llama2,
     "codellama": codellama,
     "mistral": mistral,
+    "mixtral": mixtral,
     "falcon": falcon,
     "gpt2": gpt2,
     "tiny": tiny,

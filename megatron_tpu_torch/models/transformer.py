@@ -21,8 +21,14 @@ wo and w_out row-parallel; each block enters through
 parallel/mappings.enter_tp and leaves through exit_tp (an all-reduce,
 or under sequence parallelism an all-gather in and a reduce-scatter
 out), and a row-parallel bias is added once, after the reduce. Without
-a mesh (or at tp 1) both are the identity. fp8, weight quantization,
-MoE, dropout and context parallelism are not ported yet.
+a mesh (or at tp 1) both are the identity.
+
+A MoE model's FFN is ops/moe.moe_block over the layer's moe subtree,
+and block_forward returns the layer's router aux loss beside its output
+(a zero for dense models), as the JAX block does. Weight-quantized
+serving trees (ops/weight_quant.py) reach the products through deq: one
+layer's leaf dequantized at its use. fp8 training products, dropout and
+context parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,8 +43,10 @@ from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.ops.activations import apply_activation
 from megatron_tpu_torch.ops.attention import attention
 from megatron_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
+from megatron_tpu_torch.ops.moe import moe_block
 from megatron_tpu_torch.ops.normalization import norm_forward
 from megatron_tpu_torch.ops.rotary import apply_rotary_emb
+from megatron_tpu_torch.ops.weight_quant import deq
 from megatron_tpu_torch.parallel.mappings import enter_tp, exit_tp
 
 #: (k, v), or the int8 form (k_q, v_q, k_scale, v_scale)
@@ -99,9 +107,9 @@ def attention_block(
     if mesh is not None:
         nq, nkv = nq // mesh.tp, nkv // mesh.tp
 
-    q = torch.matmul(x, p["wq"])
-    k = torch.matmul(x, p["wk"])
-    v = torch.matmul(x, p["wv"])
+    q = torch.matmul(x, deq(p["wq"], x.dtype))
+    k = torch.matmul(x, deq(p["wk"], x.dtype))
+    v = torch.matmul(x, deq(p["wv"], x.dtype))
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, nq, D)
@@ -215,7 +223,8 @@ def attention_block(
         ctx = checkpoint(core, q, k, v, use_reentrant=False)
     else:
         ctx = core(q, k, v)
-    out = exit_tp(torch.matmul(ctx.reshape(b, s, nq * D), p["wo"]), mesh)
+    ctx = ctx.reshape(b, s, nq * D)
+    out = exit_tp(torch.matmul(ctx, deq(p["wo"], ctx.dtype)), mesh)
     if "bo" in p:
         out = out + p["bo"]
     return out, kv_cache
@@ -223,14 +232,23 @@ def attention_block(
 
 def mlp_block(cfg: ModelConfig, p: Dict[str, Any],
               x: torch.Tensor, mesh=None) -> torch.Tensor:
-    h = torch.matmul(enter_tp(x, mesh), p["w_in"])
+    h = torch.matmul(enter_tp(x, mesh), deq(p["w_in"], x.dtype))
     if "b_in" in p:
         h = h + p["b_in"]
     h = apply_activation(cfg.activation, h)
-    out = exit_tp(torch.matmul(h, p["w_out"]), mesh)
+    out = exit_tp(torch.matmul(h, deq(p["w_out"], h.dtype)), mesh)
     if "b_out" in p:
         out = out + p["b_out"]
     return out
+
+
+def _ffn(cfg: ModelConfig, lp: Dict[str, Any], x: torch.Tensor,
+         mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense MLP or MoE, by config: (out, aux loss fp32 scalar)."""
+    if cfg.num_experts is not None:
+        return moe_block(cfg, lp["moe"], x)
+    return (mlp_block(cfg, lp["mlp"], x, mesh),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def block_forward(
@@ -247,11 +265,12 @@ def block_forward(
     page_write_start: Optional[int] = None,
     page_write_end: Optional[int] = None,
     mesh=None,
-) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """One decoder layer -> (y, kv_cache): pre-LN, parallel attention
-    (Falcon) or post-LN, as the config says. mesh: tensor parallelism
-    (the module docstring); x is then this rank's sequence chunk under
-    sequence parallelism."""
+) -> Tuple[torch.Tensor, Optional[KVCache], torch.Tensor]:
+    """One decoder layer -> (y, kv_cache, moe_aux): pre-LN, parallel
+    attention (Falcon) or post-LN, as the config says; moe_aux is the
+    layer's router loss (a zero scalar for dense models). mesh: tensor
+    parallelism (the module docstring); x is then this rank's sequence
+    chunk under sequence parallelism."""
     # post-LN: no pre-norm; the layer ends with its own norm, the ln1 slot
     normed = x if cfg.use_post_ln else _norm(cfg, lp["ln1"], x)
     attn_out, kv_cache = attention_block(
@@ -266,12 +285,12 @@ def block_forward(
         mlp_in = (_norm(cfg, lp["ln_mlp"], x) if cfg.parallel_layernorm
                   else normed)
         res = normed if cfg.apply_residual_post_ln else x
-        return (res + attn_out + mlp_block(cfg, lp["mlp"], mlp_in, mesh),
-                kv_cache)
+        mlp_out, moe_aux = _ffn(cfg, lp, mlp_in, mesh)
+        return res + attn_out + mlp_out, kv_cache, moe_aux
     y = (normed if cfg.apply_residual_post_ln else x) + attn_out
     normed2 = _norm(cfg, lp["ln2"], y)
-    y = (normed2 if cfg.apply_residual_post_ln else y) + mlp_block(
-        cfg, lp["mlp"], normed2, mesh)
+    mlp_out, moe_aux = _ffn(cfg, lp, normed2, mesh)
+    y = (normed2 if cfg.apply_residual_post_ln else y) + mlp_out
     if cfg.use_post_ln:
         y = _norm(cfg, lp["ln1"], y)
-    return y, kv_cache
+    return y, kv_cache, moe_aux

@@ -23,10 +23,12 @@ def symmetric_int8(x: torch.Tensor, dim: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric max-abs int8 quantization along `dim` (keepdim scale),
     in fp32: scale = max(amax, 1e-8) / 127, q = clip(round(x / scale),
-    -127, 127). torch.round rounds half to even, as jnp.round does."""
+    -127, 127). torch.round rounds half to even, as jnp.round does. The
+    127 is a tensor: CUDA divides by a Python scalar as a product with
+    its reciprocal, one bit short of the division the host makes."""
     xf = x.float()
     amax = xf.abs().amax(dim=dim, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
+    scale = torch.clamp(amax, min=1e-8) / torch.full_like(amax, 127.0)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
 

@@ -34,8 +34,8 @@ def main(argv=None) -> str:
     p.add_argument("--load", required=True, help="native checkpoint dir")
     p.add_argument("--output", required=True, help="HF output dir")
     p.add_argument("--model_type", default=None,
-                   help="llama | mistral | falcon | gpt2 (default: from the "
-                        "checkpoint)")
+                   help="llama | mistral | mixtral | falcon | gpt2 (default: "
+                        "from the checkpoint)")
     p.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)

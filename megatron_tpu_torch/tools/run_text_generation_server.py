@@ -8,7 +8,7 @@
          --serve_draft_layers N --serve_draft_checkpoint DIR] \
         [--kv_cache_int8] [--serve_max_queue N] \
         [--serve_request_timeout S] [--serve_drain_timeout S] \
-        [--serve_warmup]
+        [--serve_warmup] [--weight_int8 | --weight_fp8]
 
 The flag names are the JAX CLI's (tools/run_text_generation_server.py)
 for what the port supports, plus --device (default cuda). Weights are
@@ -21,7 +21,13 @@ model the draft is the target's architecture cut to its first
 --serve_draft_layers layers: loaded from --serve_draft_checkpoint (its
 first N layers when the checkpoint is deeper), or else the target's own
 first N layers (the stacked [L, ...] weights sliced, sharing their
-memory), with a warning.
+memory), with a warning. --weight_int8 / --weight_fp8 quantize the
+matmul weights and the token embedding at load (ops/weight_quant.py:
+one byte a weight plus per-channel fp32 scales, dequantized a layer at a
+time inside the forward); as on the JAX server they are exclusive, and
+refused for MoE models (the experts stay bf16) and for a multi-rank
+process. POST /admin/reload of such a server quantizes the new weights
+into the served tensors.
 """
 
 from __future__ import annotations
@@ -112,10 +118,39 @@ def parse_args(argv=None):
     p.add_argument("--serve_warmup", action="store_true",
                    help="run one throwaway request (kernel builds, first "
                         "prefill and decode) before /readyz turns 200")
+    p.add_argument("--weight_int8", action="store_true",
+                   help="int8 weight-only quantization at load: half the "
+                        "weight bytes of bf16; single-card serving only")
+    p.add_argument("--weight_fp8", action="store_true",
+                   help="fp8 (e4m3) weight-only quantization at load: the "
+                        "same byte a weight on a log grid; single-card "
+                        "serving only")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions")
     return p.parse_args(argv)
+
+
+def weight_quant_mode(args, cfg):
+    """"int8", "fp8" or None for --weight_int8 / --weight_fp8, with the
+    JAX server's refusals."""
+    import os
+
+    if args.weight_int8 and args.weight_fp8:
+        raise SystemExit("--weight_int8 and --weight_fp8 are exclusive")
+    if not (args.weight_int8 or args.weight_fp8):
+        return None
+    mode = "int8" if args.weight_int8 else "fp8"
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise SystemExit(
+            f"--weight_{mode} is single-card serving only (the quantized "
+            "leaves change the tree the sharding specs mirror)")
+    if cfg.num_experts is not None:
+        raise SystemExit(
+            f"--weight_{mode} does not cover MoE expert weights: the bulk "
+            "of a MoE model's parameters would stay bf16 while the flag "
+            "promises halved weight bytes; serve MoE without it")
+    return mode
 
 
 def load_model(args):
@@ -213,6 +248,19 @@ def main(argv=None, **server_kwargs):
         raise SystemExit("--serve_speculative runs inside the engine: "
                          "--serve_num_slots must be > 0")
     cfg, params, iteration = load_model(args)
+    weight_quant = weight_quant_mode(args, cfg)
+    if weight_quant:
+        from megatron_tpu_torch.ops.weight_quant import (
+            quantize_params_for_serving, weight_bytes,
+        )
+
+        before = weight_bytes(params)
+        params = quantize_params_for_serving(params, weight_quant)
+        if args.device.startswith("cuda"):
+            torch.cuda.empty_cache()
+        print(f"serving {weight_quant}-quantized weights (matmul + "
+              f"embedding tables): {weight_bytes(params) / 2**30:.2f} GiB "
+              f"(from {before / 2**30:.2f} GiB)", flush=True)
     speculative = load_spec(args, cfg, params)
     tokenizer = build_tokenizer(args.tokenizer_type,
                                 vocab_size=cfg.vocab_size)

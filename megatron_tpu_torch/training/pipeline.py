@@ -101,7 +101,7 @@ class Pipeline:
             block_forward, cfg, lp, rope=rope, positions=positions,
             recompute_core=selective, mesh=mesh)
             for lp in _layers(chunk, self.Lv)]
-        x = run_layers(layers, x, self.recompute)
+        x, _ = run_layers(layers, x, self.recompute)   # dense: no aux
         if not self._last(c):
             return x
         h = enter_tp(final_hidden_norm(cfg, params, x), mesh)

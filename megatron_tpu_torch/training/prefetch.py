@@ -31,12 +31,29 @@ pin-and-issue and landing times of that batch;
 the train loop keeps them in its per-step records (the attribution of
 the pop's wait).
 
-The consumer makes its current (compute) stream wait on that event
-(unless the worker landed the batch: then the event is complete) and
-calls ``record_stream`` on every tensor it hands out, so the caching
-allocator never gives the memory, which the copy stream allocated, to
-another tensor before the compute stream is done with it. On the CPU a
-batch's tensors share the numpy arrays' memory.
+The worker stays off the interpreter lock while the loop pops and
+dispatches a step: it starts a batch only on a permit. The loop gives
+one back with ``release()`` after it has dispatched a step, just before
+the step's first blocking read, so the worker's fetch, pin and issue
+run while the loop's thread waits on the card with the lock released,
+instead of waking the moment a pop frees a queue slot. The first step
+is the exception: under a metrics lag nothing is read after its
+dispatch, so its permit would run the worker into the next pop. That
+permit is granted at the start instead, with the ``depth`` that fill the
+queue (the batch it makes waits in the queue's put until the first pop),
+and the first ``release()`` is spent on it. A pop that finds the queue
+empty and no permit outstanding grants one itself, so a consumer that
+never releases still gets every batch (one at a time).
+
+A landed batch's device tensors are allocated on the constructing
+thread's current stream (the loop's compute stream), the copies first
+waiting for the work queued there, so the pop hands them over with no
+stream call. With ``land=False`` the consumer makes its current stream
+wait on the batch's event and calls ``record_stream`` on every tensor
+it hands out, so the caching allocator never gives the memory, which
+the copy stream allocated, to another tensor before the compute stream
+is done with it. On the CPU a batch's tensors share the numpy arrays'
+memory.
 
 Rollback/resume contract, as in the JAX package: the prefetcher NEVER
 owns data-order state. The sampler order is a pure function of
@@ -63,7 +80,8 @@ import torch
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device,
               stream: Optional["torch.cuda.Stream"] = None,
-              pinned: Optional[Dict[str, torch.Tensor]] = None
+              pinned: Optional[Dict[str, torch.Tensor]] = None,
+              consumer: Optional["torch.cuda.Stream"] = None
               ) -> Dict[str, torch.Tensor]:
     """The batch's arrays as tensors on `device`. With a CUDA `stream`
     each array goes through a pinned host tensor and is copied
@@ -71,7 +89,11 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device,
     stream's (synchronous from pageable memory). On the CPU no copy is
     made. pinned: reusable pinned buffers by key (the prefetcher's ring
     slot), refilled in place where the shape and dtype match; the
-    caller makes sure no copy still reads them."""
+    caller makes sure no copy still reads them. consumer: allocate the
+    device tensors on this stream (the one that will read them), and
+    make the copies wait for the work already queued there, which may
+    still read a block the allocator hands out again; the consumer then
+    needs no record_stream once the copies have landed."""
     host = {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in batch.items()}
     if device.type != "cuda":
@@ -79,6 +101,11 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device,
     if stream is None:
         return {k: t.to(device, non_blocking=True) for k, t in host.items()}
     out = {}
+    if consumer is not None:
+        with torch.cuda.stream(consumer):
+            out = {k: torch.empty(t.shape, dtype=t.dtype, device=device)
+                   for k, t in host.items()}
+        stream.wait_stream(consumer)
     with torch.cuda.stream(stream):
         for k, t in host.items():
             buf = None if pinned is None else pinned.get(k)
@@ -87,7 +114,10 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device,
                 if pinned is not None:
                     pinned[k] = buf
             buf.copy_(t)
-            out[k] = buf.to(device, non_blocking=True)
+            if consumer is not None:
+                out[k].copy_(buf, non_blocking=True)
+            else:
+                out[k] = buf.to(device, non_blocking=True)
     return out
 
 
@@ -121,6 +151,11 @@ class DevicePrefetcher:
         self._transform = transform
         self._first_iteration = int(first_iteration)
         self._land = land
+        # landed batches are allocated on the constructing thread's
+        # stream (the loop's compute stream), so a pop on that stream
+        # hands them over with no stream call at all
+        self._consumer = (torch.cuda.current_stream(self.device)
+                          if self.device.type == "cuda" and land else None)
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._end = object()
@@ -136,6 +171,12 @@ class DevicePrefetcher:
         # worker put_ms / land_ms
         self.last_pop: Dict[str, float] = {}
         self._ring_size = depth + 2
+        # the worker's permits to start a batch, the first step's included,
+        # and the release that permit stands for (the module docstring)
+        self._permits = depth + 1
+        self._prepaid = 1
+        self._in_flight = False     # a permitted batch not yet queued
+        self._permit_cv = threading.Condition()
         self._thread = threading.Thread(
             target=self._worker, name="batch-prefetcher", daemon=True)
         self._thread.start()
@@ -151,6 +192,29 @@ class DevicePrefetcher:
                 continue
         return False
 
+    def _take_permit(self) -> bool:
+        """Wait for a permit to start the next batch; False once close()
+        stops the worker."""
+        with self._permit_cv:
+            while self._permits <= 0 and not self._stop.is_set():
+                self._permit_cv.wait(0.1)
+            if self._stop.is_set():
+                return False
+            self._permits -= 1
+            self._in_flight = True
+            return True
+
+    def release(self) -> None:
+        """Let the worker start one more batch: the train loop calls this
+        once per pop, after dispatching the step (the first call is the
+        permit granted at the start)."""
+        with self._permit_cv:
+            if self._prepaid:
+                self._prepaid -= 1
+                return
+            self._permits += 1
+            self._permit_cv.notify()
+
     def _worker(self):
         try:
             stream = None
@@ -159,7 +223,14 @@ class DevicePrefetcher:
                 stream = torch.cuda.Stream(self.device)
             # [pinned buffers, event of the copies that last read them]
             ring = [[{}, None] for _ in range(self._ring_size)]
-            for i, batch in enumerate(self._iterator):
+            source = iter(self._iterator)
+            i = 0
+            while True:
+                if not self._take_permit():
+                    return
+                batch = next(source, self._end)
+                if batch is self._end:
+                    break
                 if self._stop.is_set():
                     return
                 if self._transform is not None:
@@ -169,7 +240,8 @@ class DevicePrefetcher:
                 if slot[1] is not None:
                     slot[1].synchronize()
                 device_batch = to_device(batch, self.device, stream,
-                                         pinned=slot[0])
+                                         pinned=slot[0],
+                                         consumer=self._consumer)
                 event = None
                 if stream is not None:
                     event = torch.cuda.Event()
@@ -188,6 +260,9 @@ class DevicePrefetcher:
                          "land_ms": (t2 - t1) * 1e3}
                 if not self._enqueue((device_batch, event, stats)):
                     return
+                with self._permit_cv:
+                    self._in_flight = False
+                i += 1
             self._enqueue(self._end)
         except BaseException as e:  # noqa: BLE001 - worker thread: every
             # failure (incl. KeyboardInterrupt) must surface on the
@@ -203,6 +278,14 @@ class DevicePrefetcher:
         if self._done:
             raise StopIteration
         fill = self._q.qsize()
+        if fill == 0:
+            with self._permit_cv:
+                if (self._permits <= 0 and not self._in_flight
+                        and self._q.qsize() == 0):
+                    # nothing queued, in flight or granted: the worker
+                    # could never fill this pop
+                    self._permits += 1
+                    self._permit_cv.notify()
         t0 = time.perf_counter()
         item = self._q.get()
         get_ms = (time.perf_counter() - t0) * 1e3
@@ -214,14 +297,13 @@ class DevicePrefetcher:
             raise item
         device_batch, event, stats = item
         t1 = time.perf_counter()
-        if event is not None:
+        if event is not None and self._consumer is None:
+            # the copies may still be in flight (land=False): the compute
+            # stream waits for them, and record_stream keeps the memory,
+            # which the copy stream allocated, from being handed to
+            # another tensor before the compute stream is done with it
             compute = torch.cuda.current_stream(self.device)
-            if not self._land:
-                # the copies may still be in flight; a landed batch's
-                # event is already complete, and waiting on it would only
-                # cost the stream call, which gives up the interpreter
-                # lock to the worker (the handoff_ms of last_pop)
-                compute.wait_event(event)
+            compute.wait_event(event)
             for t in device_batch.values():
                 t.record_stream(compute)
         self.last_pop = dict(stats, fill=fill, get_ms=get_ms,

@@ -1078,7 +1078,9 @@ class TrainLoop:
             f"lr: {float(metrics['lr']):.3e} | "
             f"grad norm: {float(metrics['grad_norm']):.3f} | "
             f"skipped: {int(metrics['skipped'])} | "
-            f"tokens/sec: {tps:,.0f} | "
+            + (f"moe aux loss: {float(metrics['moe_aux_loss']):.6f} | "
+               if "moe_aux_loss" in metrics else "")
+            + f"tokens/sec: {tps:,.0f} | "
             f"model TFLOP/s: {tflops:.1f}")
         record = {
             "iteration": it, "consumed": rec["consumed"], "lm_loss": loss,
@@ -1087,6 +1089,10 @@ class TrainLoop:
             "skipped": float(metrics["skipped"]), "steps": self._win_n,
             "window_s": dt, "tokens_per_s": tps,
             "model_tflops_per_s": tflops}
+        if "moe_aux_loss" in metrics:
+            record["moe_aux_loss"] = float(metrics["moe_aux_loss"])
+            self.writer.add_scalar("train/moe_aux_loss",
+                                   record["moe_aux_loss"], it)
         self.writer.add_scalar("train/lm_loss", loss, it)
         self.writer.add_scalar("train/lr", record["lr"], it)
         self.writer.add_scalar("train/grad_norm", record["grad_norm"], it)
@@ -1298,6 +1304,10 @@ class TrainLoop:
                             "forward-backward-optimizer"),
                         "data_wait_s": data_wait_s, "warmup": warmup,
                         "prefetch": pop})
+                if self._prefetcher is not None:
+                    # the step is dispatched: the worker may start the
+                    # next batch while this thread waits on the card
+                    self._prefetcher.release()
 
                 if drain(lag):
                     on_rollback()

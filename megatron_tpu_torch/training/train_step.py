@@ -101,8 +101,9 @@ def make_train_step(
     params, microbatch) -> (loss, aux) defaults to lm_loss with the
     configured recompute policy. The state's params must require grad;
     the state is updated in place and returned. metrics: loss (mean over
-    microbatches), grad_norm, lr, skipped, skip_streak (+ loss_scale with
-    an fp16 scaler). mesh: a multi-rank run (the module docstring); the
+    microbatches, a MoE model's router aux loss included), grad_norm, lr,
+    skipped, skip_streak (+ loss_scale with an fp16 scaler, and
+    moe_aux_loss, the aux part's mean, for a MoE model). mesh: a multi-rank run (the module docstring); the
     batch is then this data rank's rows and state.params its slices."""
     from megatron_tpu_torch.models.params import leaf_layout
 
@@ -157,13 +158,15 @@ def make_train_step(
             losses = pipeline.forward_backward(state.params, batch, scale,
                                                accumulate)
         else:
-            losses = []
+            losses, moe_aux = [], []
             for i in range(n):
                 mb = {k: v[i * mbs:(i + 1) * mbs] for k, v in batch.items()}
-                loss, _ = loss_fn(model_cfg, state.params, mb)
+                loss, aux = loss_fn(model_cfg, state.params, mb)
                 (loss * scale if scale is not None else loss).backward()
                 accumulate()
                 losses.append(loss.detach())
+                if "moe_aux_loss" in aux:
+                    moe_aux.append(aux["moe_aux_loss"].detach())
         with torch.no_grad():
             # mean over microbatches; scaled grads stay scaled for the
             # optimizer, which unscales them
@@ -174,6 +177,9 @@ def make_train_step(
         state, metrics = opt_apply(state, grads)
         metrics["loss"] = (agreed_loss(losses, mesh, accs[0].device)
                            if multi else torch.stack(losses).mean())
+        if pipeline is None and moe_aux:
+            # the router's share of the loss (MoE runs at world size 1)
+            metrics["moe_aux_loss"] = torch.stack(moe_aux).mean()
         return state, metrics
 
     return train_step

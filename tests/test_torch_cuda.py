@@ -1103,3 +1103,161 @@ def test_world_size_one_nccl_step_equals_the_single_process_step(gen):
         assert resilience.tree_bitwise_mismatch(*runs) == []
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# Mixtral's MoE layer, weight-quantized serving, the async loop's pop
+# ---------------------------------------------------------------------------
+
+
+def _moe_cfg(**kw):
+    base = dict(hidden_size=512, num_attention_heads=4, num_kv_heads=2,
+                ffn_hidden_size=256, vocab_size=128, seq_length=256,
+                num_experts=8, moe_top_k=2, params_dtype="bfloat16",
+                attention_impl="pallas", rope_theta=1e6)
+    base.update(kw)
+    return presets.tiny(**base)
+
+
+@pytest.mark.parametrize("dispatch", ["capacity", "dropless"])
+def test_moe_block_on_the_card_matches_its_cpu_form(gen, dispatch):
+    """One MoE layer in bf16 on the card (the dropless products through
+    torch._grouped_mm) against the same bf16 weights and input through
+    the CPU form in fp32: output, aux loss and every gradient within
+    |card - cpu| <= 2e-2 * (M + |cpu|), M the tensor's largest magnitude
+    (bf16 activations between the products)."""
+    from megatron_tpu_torch.ops import moe
+
+    cfg = _moe_cfg(moe_dispatch=dispatch, moe_capacity_factor=1.0)
+    p = {k: v[0] for k, v in init_params(cfg, 3)["layers"]["moe"].items()}
+    x = _randn(gen, 2, 128, 512)
+    outs = []
+    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        c = dataclasses.replace(cfg, params_dtype=(
+            "bfloat16" if dtype == torch.bfloat16 else "float32"))
+        lp = {k: v.detach().to(dev, dtype).clone().requires_grad_(True)
+              for k, v in p.items()}
+        xi = x.detach().to(dev, dtype).clone().requires_grad_(True)
+        y, aux = moe.moe_block(c, lp, xi)
+        (y.float().square().sum() + aux).backward()
+        outs.append([y.detach(), aux.detach(), xi.grad]
+                    + [lp[k].grad for k in sorted(lp)])
+    if dispatch == "dropless":
+        assert moe.grouped_mm_available(x)
+    for got, want in zip(*outs):
+        got, want = got.float().cpu(), want.float()
+        m = want.abs().max()
+        assert bool(((got - want).abs() <= 2e-2 * (m + want.abs())).all())
+
+
+def test_dropless_matches_capacity_on_the_card_at_ample_capacity(gen):
+    """At ample capacity nothing drops, so the card's dropless layer
+    (grouped products) equals its capacity layer (per-expert bmm) within
+    bf16 rounding: |a - b| <= 2e-2 * (M + |b|)."""
+    from megatron_tpu_torch.ops import moe
+
+    cfg = _moe_cfg(moe_capacity_factor=8.0)
+    p = {k: v[0] for k, v in init_params(cfg, 4)["layers"]["moe"].items()}
+    x = _randn(gen, 4, 64, 512)
+    with torch.no_grad():
+        a, aux_a = moe.moe_block(cfg, p, x)
+        b, aux_b = moe.moe_block(
+            dataclasses.replace(cfg, moe_dispatch="dropless"), p, x)
+    m = b.float().abs().max()
+    assert bool(((a.float() - b.float()).abs()
+                 <= 2e-2 * (m + b.float().abs())).all())
+    assert float(aux_a) == pytest.approx(float(aux_b), rel=1e-5)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("dispatch", ["capacity", "dropless"])
+def test_moe_graph_tick_matches_the_eager_tick(gen, paged, dispatch):
+    """A Mixtral-shaped engine's decode tick is captured (the capacity
+    path at S = 1 has static shapes; dropless keeps its spans on the
+    device) and replays the eager tick's tokens and logprobs exactly,
+    with the decode kernel once per layer a tick."""
+    cfg = _moe_cfg(moe_dispatch=dispatch)
+    params = init_params(cfg, 0)
+    runs = []
+    for graph in (False, True):
+        eng = _engine(cfg, params, paged, cuda_graph=graph)
+        assert eng.eager_reason is None
+        assert (eng.capture_seconds is not None) == graph
+        c0 = ft.launch_counts()
+        reqs = _serve(eng, _PROMPTS) + _serve(eng, _PROMPTS[:2],
+                                              temperature=0.8, seed=3)
+        name = "paged_flash_decode" if paged else "flash_decode"
+        assert (ft.launch_counts()[name] - c0[name]
+                == 2 * eng.stats["ticks"])
+        assert eng.stats["decode_recompiles"] == 0
+        runs.append([(r.generated, r.logprobs) for r in reqs])
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_weight_quant_dequantize_and_graph_tick(gen, mode, paged):
+    """An fp8 / int8 leaf quantizes and dequantizes on the card to the
+    CPU's values bit for bit, and a quantized engine's captured tick (the
+    dequantize captured with the products) replays the eager tick
+    exactly, on either engine."""
+    from megatron_tpu_torch.ops.weight_quant import (
+        deq, quantize_params_for_serving,
+    )
+
+    cfg, params = _serving_model()
+    q = quantize_params_for_serving(params, mode)
+    leaf = q["layers"]["mlp"]["w_in"]
+    cpu = {k: v.cpu() for k, v in leaf.items()}
+    assert torch.equal(deq(leaf, torch.bfloat16).cpu(),
+                       deq(cpu, torch.bfloat16))
+    ref = quantize_params_for_serving(
+        {"layers": {"mlp": {"w_in": params["layers"]["mlp"]["w_in"].cpu()}}},
+        mode)["layers"]["mlp"]["w_in"]
+    kind = "q8" if mode == "int8" else "f8"
+    assert torch.equal(leaf[kind].cpu().view(torch.uint8),
+                       ref[kind].view(torch.uint8))
+    runs = []
+    for graph in (False, True):
+        eng = _engine(cfg, q, paged, cuda_graph=graph)
+        reqs = _serve(eng, _PROMPTS)
+        assert eng.stats["decode_recompiles"] == 0
+        runs.append([(r.generated, r.logprobs) for r in reqs])
+    assert runs[0] == runs[1]
+
+
+def test_prefetch_pop_alone_with_the_worker_parked(gen):
+    """The async loop's pop with the worker parked (the queue full, no
+    permit): the worker starts no batch during the pops, so
+    each pop runs alone; its time is printed beside a host iterator's
+    next() (the synchronous loop's data fetch) on the same batches."""
+    import time
+
+    import numpy as np
+
+    from megatron_tpu_torch.training import prefetch
+
+    batches = [{"tokens": np.full((2, 1024), i, np.int64),
+                "labels": np.full((2, 1024), i, np.int64),
+                "loss_mask": np.ones((2, 1024), np.float32)}
+               for i in range(64)]
+    pops = []
+    for _ in range(20):
+        pf = prefetch.DevicePrefetcher(iter(batches), "cuda", depth=2)
+        while pf._q.qsize() < 2:
+            time.sleep(0.01)
+        put = pf.batches_put
+        for _ in range(2):
+            t0 = time.perf_counter()
+            next(pf)
+            pops.append((time.perf_counter() - t0) * 1e3)
+        assert pf.batches_put == put
+        pf.close()
+    host = []
+    it = iter(batches)
+    for _ in range(40):
+        t0 = time.perf_counter()
+        next(it)
+        host.append((time.perf_counter() - t0) * 1e3)
+    print(f"pop alone: median {np.median(pops):.4f} ms (max "
+          f"{max(pops):.4f}); host next(): median {np.median(host):.4f} ms")

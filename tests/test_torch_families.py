@@ -176,7 +176,11 @@ def test_family_preset_widths():
     assert (g.hidden_size, g.num_layers, g.num_attention_heads, g.head_dim,
             g.max_position_embeddings) == (2048, 24, 32, 64, 1024)
     assert round(num_params(g) / 1e9, 2) == 1.31
-    assert "mixtral" not in presets.PRESETS
+    m = presets.from_model_name("mixtral-8x7B")
+    assert (m.hidden_size, m.num_layers, m.n_kv_heads, m.ffn_size,
+            m.num_experts, m.moe_top_k, m.rope_theta) == \
+        (4096, 32, 8, 14336, 8, 2, 1e6)
+    assert round(num_params(m) / 1e9, 1) == 46.7
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,9 @@ LOGITS_ATOL in fp32 (measured worst 2.4e-7 on these models, with the
 dense attention and with the kernels' plain versions alike); HF ->
 native -> HF through the tools is bitwise, from pytorch_model.bin and
 from safetensors, in fp32 and bf16; the exported directory loads in
-from_pretrained with the same logits; mixtral raises, falcon and gpt2
-convert (tests/test_torch_families.py holds them against HF).
+from_pretrained with the same logits; a tiny Mixtral (4 experts, top-2)
+takes every one of those checks too, and falcon and gpt2 convert
+(tests/test_torch_families.py holds them against HF).
 """
 
 import dataclasses
@@ -23,7 +24,8 @@ import pytest
 import torch
 from transformers import (AutoModelForCausalLM, FalconConfig, GPT2Config,
                           LlamaConfig, LlamaForCausalLM, MistralConfig,
-                          MistralForCausalLM, MixtralConfig)
+                          MistralForCausalLM, MixtralConfig,
+                          MixtralForCausalLM)
 
 from megatron_tpu.interop import hf as jhf
 from megatron_tpu_torch.interop import hf
@@ -43,6 +45,8 @@ MODELS = {
     "mistral": (MistralConfig, MistralForCausalLM, {"sliding_window": 8}),
     "llama_tied": (LlamaConfig, LlamaForCausalLM,
                    {"tie_word_embeddings": True, "rope_theta": 1e6}),
+    "mixtral": (MixtralConfig, MixtralForCausalLM,
+                {"num_local_experts": 4, "rope_theta": 1e6}),
 }
 
 
@@ -143,22 +147,20 @@ def test_hf_native_hf_round_trip_is_bitwise(tmp_path, name, dtype, safe):
                      if k != "attn_implementation"}, num_local_experts=4),
 ], ids=["falcon", "gpt2", "mixtral"])
 def test_unported_model_types_raise(config):
-    """mixtral waits for MoE and raises NotImplementedError at every
-    entry; falcon and gpt2 are ported now: their configs convert, and a
-    Llama model has no falcon or gpt2 export target."""
-    if config.model_type != "mixtral":
-        assert hf.config_from_hf(config.to_dict()).num_layers == 2
-        llama = hf.config_from_hf(LlamaConfig(**TINY).to_dict())
+    """falcon, gpt2 and mixtral are all ported now: their configs convert,
+    a Llama model has no falcon, gpt2 or mixtral export target, and a
+    MoE model none but mixtral."""
+    assert hf.config_from_hf(config.to_dict()).num_layers == 2
+    llama = hf.config_from_hf(LlamaConfig(**TINY).to_dict())
+    with pytest.raises(ValueError, match="export"):
+        hf.hf_config_from_native(llama, config.model_type)
+    if config.model_type == "mixtral":
+        moe = hf.config_from_hf(config.to_dict())
+        assert (moe.num_experts, moe.moe_capacity_factor) == (4, 4.0)
         with pytest.raises(ValueError, match="export"):
-            hf.hf_config_from_native(llama, config.model_type)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        hf.config_from_hf(config.to_dict())
-    cfg = hf.config_from_hf(LlamaConfig(**TINY).to_dict())
-    with pytest.raises(NotImplementedError, match=config.model_type):
-        hf.hf_config_from_native(cfg, config.model_type)
-    with pytest.raises(NotImplementedError):
-        hf.hf_state_dict_to_params({}, cfg, config.model_type)
+            hf.hf_config_from_native(moe, "llama")
+    with pytest.raises(ValueError, match="unsupported"):
+        hf.config_from_hf({"model_type": "qwen2"})
 
 
 def test_safetensors_without_the_package_raises(tmp_path, monkeypatch):

@@ -255,6 +255,59 @@ def test_prefetcher_records_each_pop():
     pf.close()
 
 
+def test_prefetcher_gate_parks_the_worker_between_releases():
+    """The worker fills the queue on its depth permits and makes the
+    first step's batch up front (the first release() is spent on it),
+    then starts a batch only after release() (the loop dispatched its
+    step), never because a pop freed a slot; order, the end of the data,
+    an error and close() with the worker parked hold, and a consumer
+    that never releases still gets every batch."""
+    pulled = []
+
+    def source(n, fail_at=None):
+        for i in range(n):
+            if i == fail_at:
+                raise RuntimeError("disk on fire")
+            pulled.append(i)
+            yield {"x": np.full((1,), i, np.int64)}
+
+    pf = DevicePrefetcher(source(7), "cpu", depth=2)
+    time.sleep(0.2)
+    assert pulled == [0, 1, 2] and pf.last_pop == {}
+    assert int(next(pf)["x"][0]) == 0
+    time.sleep(0.2)
+    assert pulled == [0, 1, 2]       # the pop woke nothing
+    pf.release()                     # the first step's, granted up front
+    time.sleep(0.2)
+    assert pulled == [0, 1, 2]
+    pf.release()
+    time.sleep(0.2)
+    assert pulled == [0, 1, 2, 3]
+    assert [int(next(pf)["x"][0]) for _ in range(3)] == [1, 2, 3]
+    # no release since: the empty-queue pop grants the next batch itself
+    got = []
+    while (b := next(pf, None)) is not None:
+        got.append(int(b["x"][0]))
+    assert got == [4, 5, 6] and pulled == list(range(7))
+    pf.close()
+
+    # close() with the worker parked on its permit returns promptly
+    pulled.clear()
+    pf = DevicePrefetcher(source(100), "cpu", depth=2)
+    time.sleep(0.2)
+    t0 = time.perf_counter()
+    pf.close()
+    assert time.perf_counter() - t0 < 2.0 and not pf._thread.is_alive()
+    assert pulled == [0, 1, 2]
+
+    # an error in the source surfaces on the consuming thread
+    pf = DevicePrefetcher(source(5, fail_at=1), "cpu", depth=2)
+    next(pf)
+    with pytest.raises(RuntimeError, match="disk on fire"):
+        next(pf)
+    pf.close()
+
+
 def test_signal_handler_records_signals_in_order():
     with DistributedSignalHandler(signals=(signal.SIGUSR1,
                                            signal.SIGUSR2)) as h:

@@ -254,7 +254,7 @@ def test_distributed_flags_map_as_the_jax_cli_maps_them():
         assert (t.optimizer.use_distributed_optimizer
                 == j.optimizer.use_distributed_optimizer)
     for flag, item in (("--context_parallel_size", "item 10"),
-                       ("--expert_model_parallel_size", "item 8")):
+                       ("--expert_model_parallel_size", "item 7b")):
         with pytest.raises(ValueError, match=item):
             args_to_run_config(parse_args(base + [flag, "2"]))
     with pytest.raises(ValueError, match="not divisible"):
