@@ -316,15 +316,40 @@ still run, so one call shows every failure):
               exact launches per rank, the step time and, from a
               torch.profiler trace of the last step on rank 0, the share
               of it inside the comm.* ranges of parallel/mappings.py:
-              gloo-through-host numbers, not NCCL ones.
+              gloo-through-host numbers, not NCCL ones; (c) the sharded
+              checkpoint: tp2_sp saves asynchronously at its last step
+              (--save); tp2_sp, pp2 and pp2 x vpp2 resume from it and
+              take one more step (every run of (b) and (c) is one launch
+              of two ranks: --rank-run OUT -- ARGV [--then ARGV]...),
+              each within PAR_LOSS_ATOL of the single-process run's
+              step PAR_STEPS + 1 (that run takes one step more), the two
+              pipeline topologies within PAR_RESUME_ATOL of each other
+              and within PAR_LOSS_ATOL of tp2_sp's; its bytes against a world-1 save's, each rank's
+              save stall, commit or vote, load seconds and bytes read;
+              a world-1 run_text_generation_server --load serves it one
+              request.
+  7d. tp2     (parallel_serving) Llama-2-7B at full width and depth
+     serving  served at tp2 by two gloo ranks sharing the card (each is
+              this script's --rank-serve mode): the dense engine with an
+              eager tick, 8 slots x 2048, phase 3's traffic, then
+              TP_TICKS ticks over 8 filled slots timed and traced on rank
+              0 (kernel ms, gloo's host copies, the comm.* share), then
+              one request through the one-shot server (--serve_num_slots
+              0); tokens against the one-process plain path by phase 3's
+              teacher-forced gate, launches per rank (B1 at S <= 2047 and
+              B4 at B 8, 16 heads of D 128 a rank: both held against
+              their plain versions in phases 2/2a), TTFT and tick wall.
   8. report   each phase's wall seconds as it ends and all of them
-              after phase 7 (seconds_by_phase, with the total), then one
+              after phase 7d (seconds_by_phase, with the total), then one
               JSON line listing each kernel with its launches on its path
               (serving, paged_serving, speculative_serving,
               serving_control, weight_quant, training, finetune,
-              families, mixtral, loop and parallel), then the card's name
-              and power limit, then {"ok": true, "device": {...}} as the
-              last line.
+              families, mixtral, loop, parallel and parallel_serving),
+              then the card's name and power limit, then {"ok": true,
+              "device": {...}} as the last line.
+
+`--phases NAME,...` runs only those phases (the names of
+seconds_by_phase) and prints no result (exit 1).
 
 It needs one CUDA card; with none (or outside a checkout) it exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -452,7 +477,30 @@ PAR_CASES = {
 }
 PAR_LOSS_ATOL = STEP_LOSS_ATOL
 PAR_NORM_RTOL = STEP_NORM_RTOL
-PAR_TIMEOUT_S = 420
+PAR_TIMEOUT_S = 900          # a launch: every two-rank case and resume
+# phase 7c: the sharded checkpoint. PAR_SAVE_CASE saves asynchronously
+# at its last step (after its traced step: the trace is unchanged); then,
+# in the same launches, it resumes from it at its own topology and the
+# PAR_LOAD_CASES at theirs, and each takes step PAR_STEPS + 1. Every
+# resumed forward reads the same weights. The two pipeline topologies
+# compute the same bf16 products and agree within PAR_RESUME_ATOL;
+# against tp2's forward, whose row-parallel partial sums are rounded to
+# bf16 before they are added, the card measured 5.5e-4 (H100 80GB HBM3,
+# 700 W; loss 13.84), so that pair is held to PAR_LOSS_ATOL, phase 7's
+# gate of tp2 against one process
+PAR_SAVE_CASE, PAR_LOAD_CASES = "tp2_sp", ("pp2", "pp2_vpp2")
+PAR_RESUME_ATOL = 1e-4
+PAR_SERVE_NEW = 16            # the world-1 server's request of the ckpt
+# phase 7d: Llama-2-7B at full size served at tp2 by two gloo ranks
+# sharing the card (python -m torch.distributed.run; each rank is this
+# script's --rank-serve mode): the dense engine, eager tick, 8 slots x
+# 2048, phase 3's traffic, then TP_TICKS decode ticks over 8 filled
+# slots timed and traced on rank 0, then one request through the
+# one-shot server (engine_slots 0)
+TP_SLOTS, TP_SEQ, TP_TICKS = 8, 2048, 5
+TP_ONE_SHOT_NEW = 8
+TP_TICK_LENS = (5, 100, 300, 500, 700, 1000, 1200, 1500)
+TP_TIMEOUT_S = 600
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TPU_KERNELS = "megatron_tpu/ops/pallas/flash_template.py"
@@ -650,7 +698,7 @@ FWD_CASES = [attn_case(64), attn_case(512), attn_case(2047),
              attn_case(2047, hkv=8), attn_case(2047, fused=True),
              attn_case(1499, B=4), attn_case(2048, **FALCON_ATTN),
              attn_case(1024, **GPT2_ATTN), attn_case(2048, **TP2_ATTN),
-             attn_case(8192, hkv=8)]
+             attn_case(8192, hkv=8), attn_case(2047, **TP2_ATTN)]
 
 
 def check_flash_fwd(torch, F, ft, card):
@@ -724,7 +772,8 @@ ROW_TILE_CASES = [dict(sq=1, hq=71, hkv=1, d=64), dict(sq=5, hq=71, hkv=1,
                   dict(sq=9, hq=64, hkv=8)]
 DECODE_CASES = [dict(sq=1, hq=32, hkv=32), dict(sq=1, hq=32, hkv=8),
                 dict(sq=5, hq=32, hkv=8), dict(sq=5, hq=32, hkv=32),
-                *ROW_TILE_CASES, dict(sq=1, hq=32, hkv=32, d=64, s=1024)]
+                *ROW_TILE_CASES, dict(sq=1, hq=32, hkv=32, d=64, s=1024),
+                dict(sq=1, hq=16, hkv=16)]
 PAGED_CASES = [dict(ps=16, sq=1, hq=32, hkv=32, window=None),
                dict(ps=16, sq=5, hq=32, hkv=32, window=None),
                dict(ps=16, sq=5, hq=32, hkv=8, window=256),
@@ -4242,49 +4291,75 @@ def loop_and_data(torch, np, ft, card):
 # ---------------------------------------------------------------------------
 
 
-def rank_run(out: str, argv) -> int:
-    """One rank of a phase-7 run (this script's --rank-run mode, started
-    by torch.distributed.run): tools/pretrain_gpt's main with `argv`, and
-    this rank's kernel launches, losses, grad norms, step times, peak
-    memory and traces written to `out`.rank<RANK>.json."""
+def rank_run(out: str, runs) -> int:
+    """One rank of a phase-7 launch (this script's --rank-run mode,
+    started by torch.distributed.run): tools/pretrain_gpt's main with
+    each argv of `runs` in turn, in one process group (a process's start
+    and first step are paid once); each run's kernel launches, losses,
+    grad norms, step times, saves, load, peak memory and traces written
+    to `out`.rank<RANK>.json."""
     import torch
 
     sys.path.insert(0, REPO)
+    from megatron_tpu_torch.arguments import parse_args
     from megatron_tpu_torch.ops.flash import flash_template as ft
+    from megatron_tpu_torch.parallel.distributed import (
+        destroy_distributed, initialize_distributed,
+    )
     from megatron_tpu_torch.tools import pretrain_gpt
 
     rank = int(os.environ["RANK"])
-    for name in TRAIN_COUNTED:
-        getattr(ft, name).launches = 0
-    t0 = time.monotonic()
-    loop = pretrain_gpt.main(list(argv),
-                             log=lambda m: print(m, flush=True))
     cuda = torch.cuda.is_available()
-    if cuda:
-        torch.cuda.synchronize()
-    wall_s = time.monotonic() - t0
-    record = {
-        "rank": rank, "wall_s": wall_s,
-        "losses": [r["loss"] for r in loop.step_records],
-        "step_s": [r["step_s"] for r in loop.step_records],
-        "grad_norms": [h["grad_norm"] for h in loop.history],
-        "evals": [e["lm_loss"] for e in loop.evals],
-        "launches": {n: getattr(ft, n).launches for n in TRAIN_COUNTED},
-        "peak_gib": (torch.cuda.max_memory_allocated() / 2**30 if cuda
-                     else None),
-        "traces": loop.profile_traces,
-        "mesh": (None if loop.mesh is None else
-                 {"world": loop.mesh.world_size, "dp": loop.mesh.dp,
-                  "pp": loop.mesh.pp, "vpp": loop.mesh.vpp,
-                  "tp": loop.mesh.tp})}
+
+    def one(flags):
+        for name in TRAIN_COUNTED:
+            getattr(ft, name).launches = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        loop = pretrain_gpt.main(list(flags),
+                                 log=lambda m: print(m, flush=True))
+        if cuda:
+            torch.cuda.synchronize()
+        return {
+            "rank": rank, "wall_s": time.monotonic() - t0,
+            "iterations": [r["iteration"] for r in loop.step_records],
+            "losses": [r["loss"] for r in loop.step_records],
+            "step_s": [r["step_s"] for r in loop.step_records],
+            "grad_norms": [h["grad_norm"] for h in loop.history],
+            "evals": [e["lm_loss"] for e in loop.evals],
+            "launches": {n: getattr(ft, n).launches for n in TRAIN_COUNTED},
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                         else None),
+            "traces": loop.profile_traces, "saves": loop.saves,
+            "load_s": loop.load_s, "load_read_bytes": loop.load_read_bytes,
+            "mesh": (None if loop.mesh is None else
+                     {"world": loop.mesh.world_size, "dp": loop.mesh.dp,
+                      "pp": loop.mesh.pp, "vpp": loop.mesh.vpp,
+                      "tp": loop.mesh.tp})}
+
+    args = parse_args(list(runs[0]))
+    initialize_distributed(args.device, args.distributed_backend)
+    records = []
+    try:
+        for flags in runs:
+            records.append(one(flags))
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+    finally:
+        destroy_distributed()
     with open(f"{out}.rank{rank}.json", "w") as f:
-        json.dump(record, f)
+        json.dump(records, f)
     return 0
 
 
-def _launch(nproc: int, out: str, argv, timeout_s=PAR_TIMEOUT_S) -> list:
-    """argv through pretrain_gpt on `nproc` ranks under
-    torch.distributed.run; returns the ranks' records."""
+def _launch(nproc: int, out: str, runs, timeout_s=PAR_TIMEOUT_S,
+            mode="--rank-run") -> list:
+    """Each argv of `runs` through pretrain_gpt, in turn, on `nproc`
+    ranks of one torch.distributed.run launch; returns, per run, the
+    ranks' records. With mode "--rank-serve", runs is phase 7d's one
+    argv and the ranks' records come back as a list."""
     import socket
 
     with socket.socket() as sock:
@@ -4293,7 +4368,8 @@ def _launch(nproc: int, out: str, argv, timeout_s=PAR_TIMEOUT_S) -> list:
     cmd = [sys.executable, "-m", "torch.distributed.run",
            "--nproc_per_node", str(nproc), "--master_addr", "127.0.0.1",
            "--master_port", str(port), os.path.abspath(__file__),
-           "--rank-run", out, "--", *argv]
+           mode, out, "--", *runs[0],
+           *[a for argv in runs[1:] for a in ("--then", *argv)]]
     t0 = time.monotonic()
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                           timeout=timeout_s)
@@ -4301,15 +4377,20 @@ def _launch(nproc: int, out: str, argv, timeout_s=PAR_TIMEOUT_S) -> list:
     if proc.returncode != 0:
         raise AssertionError(
             f"torch.distributed.run rc {proc.returncode} after {wall:.1f}s"
-            f": {' '.join(argv[-6:])}\n{proc.stdout[-3000:]}\n"
+            f": {' '.join(runs[-1][-6:])}\n{proc.stdout[-3000:]}\n"
             f"{proc.stderr[-6000:]}")
     records = []
     for r in range(nproc):
         with open(f"{out}.rank{r}.json") as f:
             records.append(json.load(f))
-    for rec in records:
-        rec["launch_wall_s"] = wall
-    return records
+    if mode != "--rank-run":
+        for rec in records:
+            rec["launch_wall_s"] = wall
+        return records
+    for rank_runs in records:
+        for rec in rank_runs:
+            rec["launch_wall_s"] = wall
+    return [list(per_run) for per_run in zip(*records)]
 
 
 def _comm_share(path) -> dict:
@@ -4341,15 +4422,172 @@ def _comm_share(path) -> dict:
             "comm_ms_by_op": by_op}
 
 
-def _per_rank_launches(case: str, layers: int, n_micro: int) -> dict:
-    """A rank's launches: PAR_STEPS steps of `layers` layers over
-    n_micro microbatches under selective recompute, and the one
-    validation batch (the pipeline's forward-only pass runs its
-    microbatches one by one)."""
+def _per_rank_launches(case: str, layers: int, n_micro: int,
+                       steps: int = PAR_STEPS, evals: int = 1) -> dict:
+    """A rank's launches: `steps` steps of `layers` layers over n_micro
+    microbatches under selective recompute, and `evals` validation
+    batches (the pipeline's forward-only pass runs its microbatches one
+    by one)."""
     pipelined = case.startswith("pp")
     return expected_train_launches(
-        n_micro, layers=layers, steps=PAR_STEPS,
-        eval_batches=n_micro if pipelined else 1)
+        n_micro, layers=layers, steps=steps,
+        eval_batches=evals * (n_micro if pipelined else 1))
+
+
+class _ByteCount:
+    """A write-only sink that counts what torch.save writes into it."""
+
+    def __init__(self):
+        self.n = 0
+
+    def write(self, b) -> int:
+        self.n += len(b)
+        return len(b)
+
+    def flush(self) -> None:
+        pass
+
+
+def _world1_state_bytes(torch, layout) -> int:
+    """The bytes a world-1 save's state files (one torch.save per field
+    of one tensor per leaf: training/checkpointing.py) take for the
+    leaves of a sharded checkpoint's layout.json, serialized into a
+    byte counter (uninitialized tensors: the size depends on the names,
+    shapes and dtypes only)."""
+    total = 0
+    for leaves in layout["fields"].values():
+        flat = {name: torch.empty(d["shape"],
+                                  dtype=getattr(torch, d["dtype"]))
+                for name, d in leaves.items()}
+        sink = _ByteCount()
+        torch.save(flat, sink)
+        total += sink.n
+        del flat
+    return total
+
+
+def _sharded_checkpoint(torch, np, ft, card, ckpt, resumed, saver,
+                        next_loss: float) -> dict:
+    """Phase 7c: PAR_SAVE_CASE's checkpoint: its bytes against a world-1
+    save's, each rank's save stall, commit or vote and each resume's load
+    seconds and bytes read; the step each case resumed into against the
+    one-process reference's step PAR_STEPS + 1 (next_loss: what was
+    saved, held independently), the PAR_LOAD_CASES' against each other
+    and against the one PAR_SAVE_CASE resumed into; and a world-1 server
+    (run_text_generation_server --load, which reads it with
+    load_params_only) answering one request. resumed: {case: its resumed
+    run's records, one a rank}; saver: PAR_SAVE_CASE's. Returns the
+    problems found and the server's launches."""
+    from megatron_tpu_torch.tools import run_text_generation_server as rts
+    from megatron_tpu_torch.training import checkpointing as ckpts
+
+    problems = []
+    it = ckpts.read_tracker(ckpt)
+    path = ckpts.checkpoint_dir(ckpt, PAR_STEPS)
+    ok, detail = ckpts.verify_checkpoint(path, deep=False)
+    with open(os.path.join(path, "state", ckpts.LAYOUT)) as f:
+        layout = json.load(f)
+    sharded = sum(os.path.getsize(os.path.join(path, "state", n))
+                  for n in os.listdir(os.path.join(path, "state"))
+                  if n.endswith(".pt"))
+    world1 = _world1_state_bytes(torch, layout)
+    loss = {c: runs[0]["losses"][0] if runs[0]["losses"] else math.nan
+            for c, runs in resumed.items()}
+    first, second = PAR_LOAD_CASES
+    cross_err = abs(loss[first] - loss[second])
+    tp_err = abs(loss[first] - loss[PAR_SAVE_CASE])
+    ref_err = {c: abs(v - next_loss) for c, v in loss.items()}
+    line = {"phase": "parallel_checkpoint", "card": card,
+            "saved_by": PAR_SAVE_CASE, "loaded_by": list(resumed),
+            "tracker": it, "verified": ok, "detail": detail,
+            "layout_world_size": layout["world_size"],
+            "state_bytes": sharded, "world1_state_bytes": world1,
+            "bytes_ratio": sharded / world1,
+            "saves_per_rank": [r["saves"] for r in saver],
+            "load_s_per_rank": {c: [r["load_s"] for r in runs]
+                                for c, runs in resumed.items()},
+            "load_read_bytes_per_rank": {
+                c: [r["load_read_bytes"] for r in runs]
+                for c, runs in resumed.items()},
+            "resumed_iterations": {c: runs[0]["iterations"]
+                                   for c, runs in resumed.items()},
+            "resumed_losses": loss,
+            "resumed_step_s": {c: runs[0]["step_s"]
+                               for c, runs in resumed.items()},
+            "cross_topology_loss_err": cross_err,
+            "cross_topology_loss_atol": PAR_RESUME_ATOL,
+            "against_saving_topology_loss_err": tp_err,
+            "against_saving_topology_loss_atol": PAR_LOSS_ATOL,
+            "one_process_next_loss": next_loss,
+            "against_one_process_loss_err": ref_err,
+            "against_one_process_loss_atol": PAR_LOSS_ATOL}
+    emit(line)
+    if it != PAR_STEPS or not ok:
+        problems.append(f"checkpoint: tracker {it}, verify {detail}")
+    if not abs(sharded - world1) <= 0.01 * world1:
+        problems.append(f"checkpoint bytes {sharded} vs world-1 {world1}")
+    for c, runs in resumed.items():
+        if runs[0]["iterations"] != [PAR_STEPS + 1] or not all(
+                r["losses"] == runs[0]["losses"] for r in runs):
+            problems.append(f"{c} resumed: {runs[0]['iterations']}")
+    if not cross_err <= PAR_RESUME_ATOL:
+        problems.append(f"{first} and {second} resumed {cross_err} apart")
+    if not tp_err <= PAR_LOSS_ATOL:
+        problems.append(f"{first} and {PAR_SAVE_CASE} resumed {tp_err} "
+                        "apart")
+    for c, err in ref_err.items():
+        if not err <= PAR_LOSS_ATOL:
+            problems.append(f"{c} resumed {err} from the one-process "
+                            f"step {PAR_STEPS + 1}")
+
+    # a world-1 server of the 2-rank checkpoint: one request
+    ready, handles, errors = threading.Event(), [], []
+
+    def run():
+        try:
+            rts.main(["--load", ckpt, "--tokenizer_type", "null", "--host",
+                      "127.0.0.1", "--port", "0", "--serve_num_slots", "1",
+                      "--serve_max_seq_len", "256"],
+                     ready=ready, service_out=handles)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+            ready.set()
+
+    thread = threading.Thread(target=run, daemon=True, name="ckpt-server")
+    thread.start()
+    if not ready.wait(600) or errors:
+        raise RuntimeError(f"world-1 server did not start: {errors}")
+    service, server = handles
+    eng = service.engine
+    rng = np.random.default_rng(SEED + 7)
+    prompt = rng.integers(0, VOCAB - 1, size=PROMPT_LENS[1]).tolist()
+    try:
+        _zero_decode_counts(ft)
+        prefills0, ticks0 = eng.stats["admitted"], eng.stats["ticks"]
+        status, body = _put(f"http://127.0.0.1:{server.server_address[1]}"
+                            "/api", {"prompts": [" ".join(map(str, prompt))],
+                                     "tokens_to_generate": PAR_SERVE_NEW,
+                                     "temperature": 0.0})
+        launches = _decode_counts(ft)
+        prefills = eng.stats["admitted"] - prefills0
+        ticks = eng.stats["ticks"] - ticks0
+    finally:
+        server.shutdown()
+        thread.join(120)
+    toks = [int(t) for t in body["text"][0].split()] if status == 200 else []
+    want = {"flash_fwd": PAR_LAYERS * prefills,
+            "flash_decode": PAR_LAYERS * ticks, "paged_flash_decode": 0}
+    emit({"phase": "parallel_checkpoint_served", "card": card,
+          "status": status, "tokens": len(toks), "prefills": prefills,
+          "decode_ticks": ticks, "launches": launches})
+    if status != 200 or toks[:len(prompt)] != prompt or \
+            len(toks) != len(prompt) + PAR_SERVE_NEW:
+        problems.append(f"world-1 server of the checkpoint: {status}, "
+                        f"{len(toks)} tokens")
+    if launches != want or prefills != 1:
+        problems.append(f"world-1 server launches {launches} != {want}")
+    return {"problems": problems,
+            "launches": {**{k: 0 for k in TRAIN_COUNTED}, **launches}}
 
 
 def parallel_training(torch, np, ft, card):
@@ -4368,8 +4606,8 @@ def parallel_training(torch, np, ft, card):
     try:
         # (a) one rank over NCCL: phase 4's run through the parallel code
         recs = _launch(1, os.path.join(tmp, "world1"),
-                       PHASE4["argv"] + ["--distributed_backend", "nccl"])
-        rec = recs[0]
+                       [PHASE4["argv"] + ["--distributed_backend", "nccl"]])
+        rec = recs[0][0]
         _add_counts(total, rec["launches"])
         steady = sorted(rec["step_s"][1:])
         line = {"phase": "parallel_world1", "card": card,
@@ -4393,28 +4631,51 @@ def parallel_training(torch, np, ft, card):
         base = train_argv(corpus_prefix(), layers=PAR_LAYERS, seq=PAR_SEQ,
                           global_batch=PAR_GLOBAL, iters=PAR_STEPS,
                           eval_interval=PAR_STEPS)
+        # the reference takes one step more: the step the checkpoint's
+        # resumed runs take (7c)
         t0 = time.monotonic()
-        ref = pretrain_gpt.main(base, log=lambda m: None)
+        ref = pretrain_gpt.main(base + ["--train_iters", str(PAR_STEPS + 1)],
+                                log=lambda m: None)
         torch.cuda.synchronize()
         ref_wall = time.monotonic() - t0
-        want = {"losses": [r["loss"] for r in ref.step_records],
-                "grad_norms": [h["grad_norm"] for h in ref.history],
-                "evals": [e["lm_loss"] for e in ref.evals],
-                "step_s": [r["step_s"] for r in ref.step_records]}
+        want = {"losses": [r["loss"] for r in ref.step_records][:PAR_STEPS],
+                "grad_norms": [h["grad_norm"]
+                               for h in ref.history][:PAR_STEPS],
+                "evals": [e["lm_loss"] for e in ref.evals
+                          if e["iteration"] <= PAR_STEPS],
+                "step_s": [r["step_s"] for r in ref.step_records],
+                "next_loss": ref.step_records[PAR_STEPS]["loss"]}
         del ref
         free_cuda(torch)
         emit({"phase": "parallel_reference", "card": card,
               "model": "llama2-7B", "layers": PAR_LAYERS,
               "seq_length": PAR_SEQ, "global_batch": PAR_GLOBAL,
-              "steps": PAR_STEPS, "wall_s": ref_wall, **want})
+              "steps": PAR_STEPS + 1, "wall_s": ref_wall, **want})
+        # every case, and each resume from the checkpoint, in one launch
+        ckpt = os.path.join(tmp, "ckpt")
+        plan = []
         for case, flags in PAR_CASES.items():
-            out = os.path.join(tmp, case)
-            argv = base + flags + [
+            extra = ["--save", ckpt] if case == PAR_SAVE_CASE else []
+            plan.append((case, base + flags + extra + [
                 "--distributed_backend", "gloo", "--profile",
                 "--profile_step_start", str(PAR_PROFILE[0]),
                 "--profile_step_end", str(PAR_PROFILE[1]),
-                "--profile_dir", out + "_trace"]
-            recs = _launch(2, out, argv)
+                "--profile_dir", os.path.join(tmp, case + "_trace")]))
+            if case == PAR_SAVE_CASE or case in PAR_LOAD_CASES:
+                plan.append((case + "/resumed", base + flags + [
+                    "--train_iters", str(PAR_STEPS + 1), "--load", ckpt,
+                    "--distributed_backend", "gloo"]))
+        by_run = dict(zip((name for name, _ in plan),
+                          _launch(2, os.path.join(tmp, "gloo"),
+                                  [argv for _, argv in plan])))
+        emit({"phase": "parallel_launch", "card": card,
+              "runs": [name for name, _ in plan],
+              "wall_s": by_run[plan[0][0]][0]["launch_wall_s"],
+              "run_wall_s": {name: recs[0]["wall_s"]
+                             for name, recs in by_run.items()}})
+        for case in PAR_CASES:
+            recs = by_run[case]
+            resumed = by_run.get(case + "/resumed")
             r0 = recs[0]
             mesh = r0["mesh"]
             layers = PAR_LAYERS // mesh["pp"]
@@ -4426,6 +4687,14 @@ def parallel_training(torch, np, ft, card):
                 if rec["launches"] != want_launch:
                     problems.append(f"{case} rank {rec['rank']} launches "
                                     f"{rec['launches']} != {want_launch}")
+            want_resumed = _per_rank_launches(case, layers, n_micro,
+                                              steps=1, evals=0)
+            for rec in resumed or []:
+                _add_counts(launches, rec["launches"])
+                if rec["launches"] != want_resumed:
+                    problems.append(
+                        f"{case} resumed rank {rec['rank']} launches "
+                        f"{rec['launches']} != {want_resumed}")
             _add_counts(total, launches)
             loss_err = max(abs(a - b) for a, b in
                            zip(r0["losses"], want["losses"]))
@@ -4456,7 +4725,7 @@ def parallel_training(torch, np, ft, card):
                 "comm": comm, "launches": launches,
                 "launches_per_rank_expected": want_launch,
                 "peak_gib_per_rank": [r["peak_gib"] for r in recs],
-                "wall_s": r0["launch_wall_s"]}
+                "wall_s": r0["wall_s"]}
             emit(line)
             if not line["ranks_agree"]:
                 problems.append(f"{case}: ranks disagree")
@@ -4472,10 +4741,293 @@ def parallel_training(torch, np, ft, card):
                                 f"{eval_err}")
             if comm is None:
                 problems.append(f"{case}: traces {r0['traces']}")
+        saved = _sharded_checkpoint(
+            torch, np, ft, card, ckpt,
+            {c: by_run[c + "/resumed"]
+             for c in (PAR_SAVE_CASE, *PAR_LOAD_CASES)},
+            by_run[PAR_SAVE_CASE], want["next_loss"])
+        problems += saved["problems"]
+        _add_counts(total, saved["launches"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if problems:
         raise AssertionError("parallel: " + "; ".join(problems))
+    return total
+
+
+def rank_serve(out: str, argv) -> int:
+    """One rank of phase 7d (this script's --rank-serve mode, started by
+    torch.distributed.run): tools/run_text_generation_server's own
+    pieces at --tensor_model_parallel_size (the process group, the
+    serving mesh, load_model's init at the seed cut to this rank's
+    slices), then (1) the engine server on rank 0 (phase 3's traffic,
+    its /metrics) with the other rank in the follower loop, (2) TP_TICKS
+    decode ticks over TP_SLOTS filled slots, stepped by rank 0 in this
+    thread, timed and then traced, (3) one request through the one-shot
+    server (engine_slots 0); each part's kernel launches, and rank 0's
+    tokens, written to `out`.rank<RANK>.json."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, REPO)
+    from megatron_tpu_torch.inference.engine import InferenceEngine, Request
+    from megatron_tpu_torch.inference.server import (
+        GenerationService, run_server,
+    )
+    from megatron_tpu_torch.ops.flash import flash_template as ft
+    from megatron_tpu_torch.parallel.distributed import (
+        ServingChannel, destroy_distributed, initialize_distributed,
+        local_device, serving_mesh,
+    )
+    from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
+    from megatron_tpu_torch.tokenizer import NullTokenizer
+    from megatron_tpu_torch.tools import run_text_generation_server as rts
+
+    args = rts.parse_args(list(argv))
+    initialize_distributed(args.device, args.distributed_backend)
+    try:
+        mesh = serving_mesh(args.tensor_model_parallel_size)
+        args.device = str(local_device(args.device))
+        lead = mesh.rank == 0
+        cuda = args.device.startswith("cuda")
+        sync = torch.cuda.synchronize if cuda else (lambda: None)
+        t0 = time.monotonic()
+        cfg, params, _ = rts.load_model(args, mesh, log=lambda m: None)
+        sync()
+        record = {"rank": mesh.rank, "init_s": time.monotonic() - t0,
+                  "tp": mesh.tp}
+        tokenizer = NullTokenizer(cfg.vocab_size)
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, cfg.vocab_size - 1, size=n).tolist()
+                   for n in PROMPT_LENS]
+
+        def channel():
+            return ServingChannel(mesh.control_group, mesh.rank)
+
+        def served(slots, drive):
+            """drive(service, base) on rank 0's server of `slots`; the
+            follower loop elsewhere. Returns drive's result on rank 0."""
+            kw = dict(engine_slots=slots, engine_max_seq_len=TP_SEQ,
+                      device=args.device, mesh=mesh, channel=channel(),
+                      cuda_graph=False)
+            if not lead:
+                GenerationService(cfg, params, tokenizer,
+                                  metrics=MetricsRegistry(), **kw).follow()
+                return None
+            ready, handles = threading.Event(), []
+            thread = threading.Thread(
+                target=run_server, daemon=True, name="tp-server",
+                kwargs=dict(cfg=cfg, params=params, tokenizer=tokenizer,
+                            host="127.0.0.1", port=0, ready=ready,
+                            service_out=handles, **kw))
+            thread.start()
+            if not ready.wait(300):
+                raise RuntimeError("rank 0's server did not start")
+            service, server = handles
+            try:
+                return drive(service,
+                             f"http://127.0.0.1:{server.server_address[1]}")
+            finally:
+                server.shutdown()
+                thread.join(120)
+
+        # (1) the engine server: the main path's run, counts from 0
+        _zero_decode_counts(ft)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+
+        def traffic(service, base):
+            run = _greedy_traffic(ft, base, service.engine, prompts)
+            with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+                run["metrics"] = r.read().decode()
+            run.pop("caught")
+            return run
+
+        run = served(TP_SLOTS, traffic)
+        record["launches"] = _decode_counts(ft)
+        record["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                              if cuda else None)
+        if lead:
+            m = run.pop("metrics")
+            record.update(run, **{
+                "ttft_mean_s": (_metric(m, "engine_ttft_seconds_sum")
+                                / _metric(m, "engine_ttft_seconds_count")),
+                "tick_wall_mean_s": (
+                    _metric(m, "engine_decode_tick_seconds_sum")
+                    / _metric(m, "engine_decode_tick_seconds_count")),
+                "per_token_mean_s": (
+                    _metric(m, "engine_time_per_output_token_seconds_sum")
+                    / _metric(m,
+                              "engine_time_per_output_token_seconds_count"))})
+
+        # (2) decode ticks over filled slots, stepped here on rank 0
+        ch = channel()
+        eng = InferenceEngine(cfg, params, num_slots=TP_SLOTS,
+                              max_seq_len=TP_SEQ, device=args.device,
+                              metrics=MetricsRegistry(), cuda_graph=False,
+                              mesh=mesh, channel=ch)
+        _zero_decode_counts(ft)
+        if lead:
+            fill = np.random.default_rng(SEED + 8)
+            for n in TP_TICK_LENS:
+                eng.submit(Request(
+                    prompt=fill.integers(0, cfg.vocab_size - 1, size=n)
+                    .astype(np.int32), max_new_tokens=TP_SEQ - n - 1))
+            while len(eng._decode_rows()) < len(TP_TICK_LENS):
+                eng.step()
+            for _ in range(3):
+                eng.step()
+            sync()
+            t1 = time.perf_counter()
+            for _ in range(TP_TICKS):
+                eng.step()
+            sync()
+            wall_ms = (time.perf_counter() - t1) * 1e3 / TP_TICKS
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(TP_TICKS):
+                    eng.step()
+                sync()
+            kernel_ms = copy_ms = 0.0
+            for e in prof.key_averages():
+                if e.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                ms = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+                if e.key.startswith(("Memcpy", "Memset")):
+                    copy_ms += ms     # gloo's staging through host memory
+                else:
+                    kernel_ms += ms
+            trace = f"{out}.tick_trace.json"
+            prof.export_chrome_trace(trace)
+            ch.stop()
+            # the two ranks' contexts take turns on the card, so a
+            # kernel's span on rank 0 holds the other rank's turns too:
+            # these are spans, not device busy time (no idle share)
+            record["tick"] = {"wall_ms": wall_ms,
+                              "kernel_span_ms_time_sliced":
+                                  kernel_ms / TP_TICKS,
+                              "copy_span_ms_time_sliced": copy_ms / TP_TICKS,
+                              "comm": _comm_share(trace)}
+        else:
+            while True:
+                op, payload = ch.recv()
+                if op == "stop":
+                    break
+                if op == "tick":
+                    eng.follow(payload)
+        record["tick_launches"] = _decode_counts(ft)
+        del eng
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (3) one request through the one-shot server
+        _zero_decode_counts(ft)
+
+        def one_shot(service, base):
+            t = time.monotonic()
+            status, body = _put(base + "/api", {
+                "prompts": [" ".join(map(str, prompts[1]))],
+                "tokens_to_generate": TP_ONE_SHOT_NEW,
+                "temperature": 0.0})
+            toks = [int(x) for x in body["text"][0].split()]
+            if status != 200 or toks[:len(prompts[1])] != prompts[1]:
+                raise AssertionError(f"one-shot request: {status}")
+            return {"one_shot_generated": toks[len(prompts[1]):],
+                    "one_shot_wall_s": time.monotonic() - t}
+
+        record.update(served(0, one_shot) or {})
+        record["one_shot_launches"] = _decode_counts(ft)
+    finally:
+        destroy_distributed()
+    with open(f"{out}.rank{record['rank']}.json", "w") as f:
+        json.dump(record, f)
+    return 0
+
+
+def parallel_serving(torch, np, ft, card, dense_tokens):
+    """Phase 7d: Llama-2-7B at full width and depth served at tp2 by two
+    gloo ranks sharing the card (rank_serve). Phase 3's tokens of the
+    tp2 engine and the one-shot request's held against the one-process
+    plain path by phase 3's teacher-forced gate; launches per rank from
+    its prefills and ticks; TTFT, tick wall and device time and the
+    comm.* share of a traced tick. Returns the engine run's launches,
+    summed over the ranks."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from megatron_tpu_torch.models import presets
+    from megatron_tpu_torch.models.params import init_params
+
+    tmp = tempfile.mkdtemp(prefix="smoke_tp_serving_")
+    try:
+        argv = ["--model_name", "llama2-7B", "--seed", str(SEED),
+                "--tensor_model_parallel_size", "2",
+                "--distributed_backend", "gloo",
+                "--serve_num_slots", str(TP_SLOTS),
+                "--serve_max_seq_len", str(TP_SEQ),
+                "--tokenizer_type", "null", "--device", "cuda"]
+        recs = _launch(2, os.path.join(tmp, "tp2"), [argv],
+                       timeout_s=TP_TIMEOUT_S, mode="--rank-serve")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = recs[0]
+    problems = []
+    want = {"flash_fwd": NUM_LAYERS * r0["prefills"],
+            "flash_decode": NUM_LAYERS * r0["ticks"],
+            "paged_flash_decode": 0}
+    for rec in recs:
+        if rec["launches"] != want:
+            problems.append(f"rank {rec['rank']} launches "
+                            f"{rec['launches']} != {want}")
+        if rec["one_shot_launches"] != {k: 0 for k in want}:
+            problems.append(f"rank {rec['rank']} one-shot launches "
+                            f"{rec['one_shot_launches']}")
+    cfg = presets.from_model_name("llama2-7B")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size - 1, size=n).tolist()
+               for n in PROMPT_LENS]
+    params = init_params(cfg, SEED, device="cuda")
+    generated = r0["generated"] + [r0["one_shot_generated"]]
+    tf = teacher_force(torch, dataclasses, cfg, params,
+                       prompts + [prompts[1]], generated)
+    del params
+    same = None
+    if dense_tokens:
+        pairs = [(a, b) for g, d in zip(r0["generated"], dense_tokens)
+                 for a, b in zip(g, d)]
+        same = sum(a == b for a, b in pairs) / len(pairs)
+    line = {"phase": "parallel_serving", "card": card,
+            "model": "llama2-7B", "layers": NUM_LAYERS, "tp": 2,
+            "backend": "gloo (CUDA tensors staged through host memory; "
+                       "not NCCL numbers)",
+            "slots": TP_SLOTS, "max_seq_len": TP_SEQ, "tick": "eager",
+            "init_s_per_rank": [r["init_s"] for r in recs],
+            "requests": [{"prompt_tokens": len(p), "wall_s": w}
+                         for p, w in zip(prompts, r0["walls"])],
+            "concurrent_wall_s": r0["concurrent_wall_s"],
+            "ttft_mean_s": r0["ttft_mean_s"],
+            "tick_wall_mean_s": r0["tick_wall_mean_s"],
+            "per_token_mean_s": r0["per_token_mean_s"],
+            "filled_tick": r0["tick"],
+            "one_shot_wall_s": r0["one_shot_wall_s"],
+            "prefills": r0["prefills"], "decode_ticks": r0["ticks"],
+            "launches_per_rank": [r["launches"] for r in recs],
+            "tick_launches_per_rank": [r["tick_launches"] for r in recs],
+            "peak_gib_per_rank": [r["peak_gib"] for r in recs],
+            "tokens_equal_to_phase3_engine": same,
+            "wall_s": r0["launch_wall_s"], **tf}
+    emit(line)
+    if tf["teacher_forced_match"] < MATCH_GATE:
+        problems.append(f"teacher-forced match "
+                        f"{tf['teacher_forced_match']:.4f} < {MATCH_GATE}")
+    if problems:
+        raise AssertionError("parallel serving: " + "; ".join(problems))
+    total: dict = {}
+    for rec in recs:
+        _add_counts(total, rec["launches"])
     return total
 
 
@@ -4484,7 +5036,16 @@ def free_cuda(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    """argv: empty (every phase; the run that prints the result), or
+    `--phases name,name,...` to run only those phases (by the names of
+    `seconds_by_phase`), which prints no result and exits 1."""
+    only = None
+    if list(argv[:1]) == ["--phases"] and len(argv) == 2:
+        only = set(argv[1].split(","))
+    elif argv:
+        print(f"chip_smoke: unknown arguments {list(argv)}", file=sys.stderr)
+        return 2
     try:
         import numpy as np
         import torch
@@ -4526,6 +5087,8 @@ def main() -> int:
     t_start = time.monotonic()
 
     def phase(name, fn, *args):
+        if only is not None and name not in only:
+            return
         t0 = time.monotonic()
         try:
             results[name] = fn(*args)
@@ -4557,11 +5120,17 @@ def main() -> int:
     phase("mixtral", mixtral, torch, np, ft, card)
     phase("loop", loop_and_data, torch, np, ft, card)
     phase("parallel", parallel_training, torch, np, ft, card)
+    phase("parallel_serving", parallel_serving, torch, np, ft, card,
+          results.get("serving", {}).get("generated"))
     emit({"phase": "seconds_by_phase", "seconds": seconds,
           "total_s": time.monotonic() - t_start,
           "build_s": t_start - t0})
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
+        return 1
+    if only is not None:
+        print(f"chip_smoke: ran only {sorted(only)}; no result",
+              file=sys.stderr)
         return 1
 
     paths = {"serving": results["serving"]["launches"],
@@ -4574,7 +5143,8 @@ def main() -> int:
              "families": results["families"],
              "mixtral": results["mixtral"],
              "loop": results["loop"],
-             "parallel": results["parallel"]}
+             "parallel": results["parallel"],
+             "parallel_serving": results["parallel_serving"]}
     reports = {"flash_fwd": results["flash_fwd"],
                "flash_decode": results["flash_decode"],
                "paged_flash_decode": results["paged_flash_decode"],
@@ -4607,8 +5177,16 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) > 2 and sys.argv[1] == "--rank-run":
+    if len(sys.argv) > 2 and sys.argv[1] in ("--rank-run", "--rank-serve"):
         rest = sys.argv[3:]
-        sys.exit(rank_run(sys.argv[2], rest[1:] if rest[:1] == ["--"]
-                          else rest))
-    sys.exit(main())
+        rest = rest[1:] if rest[:1] == ["--"] else rest
+        if sys.argv[1] == "--rank-serve":
+            sys.exit(rank_serve(sys.argv[2], rest))
+        runs = [[]]
+        for a in rest:
+            if a == "--then":
+                runs.append([])
+            else:
+                runs[-1].append(a)
+        sys.exit(rank_run(sys.argv[2], runs))
+    sys.exit(main(sys.argv[1:]))

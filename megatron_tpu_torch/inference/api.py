@@ -5,7 +5,10 @@ the JAX package: tokens_to_generate == 0 scores the prompts
 (teacher-forced logprobs, generation.score_tokens); with an engine the
 request goes through its continuous batching (engine.generate); without
 one through the one-shot loop (generation.generate_tokens). Beam search
-is its own entry point (one prompt).
+is its own entry point (one prompt). The token-level call goes through
+`run(name, cfg, params, **kwargs)` (default: the ONE_SHOT function
+itself); a tensor-parallel server passes one that first announces it
+to the other ranks, which run the same function on their slices.
 """
 
 from __future__ import annotations
@@ -18,6 +21,15 @@ from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.inference.generation import (
     beam_search_tokens, generate_tokens, score_tokens,
 )
+
+#: the one-shot token functions, by the name a server announces
+ONE_SHOT = {"generate_tokens": generate_tokens,
+            "score_tokens": score_tokens,
+            "beam_search_tokens": beam_search_tokens}
+
+
+def run_direct(name: str, cfg: ModelConfig, params: Any, **kwargs):
+    return ONE_SHOT[name](cfg, params, **kwargs)
 
 
 def tokenize_prompts(tokenizer, prompts: Sequence[str],
@@ -59,7 +71,8 @@ def generate_and_post_process(cfg: ModelConfig, params: Any, tokenizer,
                               return_output_log_probs: bool = False,
                               random_seed: int = 0,
                               kv_cache_int8: bool = False, engine=None,
-                              deadline_s=None, spec: bool = True):
+                              deadline_s=None, spec: bool = True,
+                              run=run_direct):
     """(texts, segments, logprobs, tokens), like the JAX package's.
 
     tokens_to_generate == 0 is scoring: (texts, None, logprobs [B, S-1],
@@ -76,7 +89,7 @@ def generate_and_post_process(cfg: ModelConfig, params: Any, tokenizer,
     if engine is None or tokens_to_generate == 0:
         _check_ids(cfg, prompt_tokens, lengths)
     if tokens_to_generate == 0:
-        lp = score_tokens(cfg, params, prompt_tokens)
+        lp = run("score_tokens", cfg, params, tokens=prompt_tokens)
         texts = [tokenizer.detokenize(t[:n])
                  for t, n in zip(prompt_tokens, lengths)]
         return texts, None, lp, prompt_tokens
@@ -93,8 +106,9 @@ def generate_and_post_process(cfg: ModelConfig, params: Any, tokenizer,
             top_p=top_p_sampling, eod=tokenizer.eod, seed=random_seed,
             deadline_s=deadline_s, spec=spec)
     else:
-        out = generate_tokens(
-            cfg, params, prompt_tokens, lengths,
+        out = run(
+            "generate_tokens", cfg, params, prompts=prompt_tokens,
+            lengths=lengths,
             max_new_tokens=tokens_to_generate, temperature=temperature,
             top_k=top_k_sampling, top_p=top_p_sampling,
             vocab_size=tokenizer.vocab_size, eod=tokenizer.eod,
@@ -114,7 +128,8 @@ def beam_search_and_post_process(cfg: ModelConfig, params: Any, tokenizer,
                                  tokens_to_generate: int = 64,
                                  beam_size: int = 4, add_BOS: bool = False,
                                  length_penalty: float = 1.0,
-                                 kv_cache_int8: bool = False):
+                                 kv_cache_int8: bool = False,
+                                 run=run_direct):
     """(texts, segments, scores) for ONE prompt's beams, best first."""
     if len(prompts) != 1:
         raise ValueError("beam search supports a single prompt (as in the "
@@ -122,8 +137,9 @@ def beam_search_and_post_process(cfg: ModelConfig, params: Any, tokenizer,
     prompt_tokens, lengths = tokenize_prompts(tokenizer, prompts,
                                               add_bos=add_BOS)
     _check_ids(cfg, prompt_tokens, lengths)
-    beams, scores = beam_search_tokens(
-        cfg, params, prompt_tokens[0, :int(lengths[0])],
+    beams, scores = run(
+        "beam_search_tokens", cfg, params,
+        prompt=prompt_tokens[0, :int(lengths[0])],
         max_new_tokens=tokens_to_generate, beam_size=beam_size,
         eod=tokenizer.eod, length_penalty=length_penalty,
         kv_cache_int8=kv_cache_int8)

@@ -75,6 +75,27 @@ as int8 with fp32 scales (ops/kv_quant.py): the attention block
 quantizes on write and dequantizes the whole cache for attention, as the
 JAX package does. The model drafter's caches stay in the model dtype.
 
+Tensor parallelism (mesh: a tensor-parallel MeshRuntime, with a
+parallel/distributed.ServingChannel): every rank holds its slices of the
+params and caches of its kv heads [L, N, S, nkv/tp, D] (the JAX
+engine's _kv_sharding), and the logits are gathered over the tensor
+group. Rank 0 owns the queue, the scheduler and the step thread; before
+each tick it broadcasts one control record: the slots it cleared since
+the last record (retired, timed out, failed, stopped) and its
+admissions (slot, prompt ids, knobs, seed), then runs the tick under
+the channel's lock. The other ranks run follow(record): the same
+clears, the same prefills and the same decode tick. Tokens (the
+prefill's first one and each tick's) are chosen on rank 0 and
+broadcast with the decode-row mask, which a follower holds against its
+own: a decision the record missed fails loudly instead of hanging the
+collectives. Retirement needs no record: every rank sees the same
+tokens. Any failure inside an announced tick is a fault of the group
+(parallel/distributed.ServingChannel): a follower's process ends, and
+rank 0 stops its step loop and fails every request it holds. A gloo
+collective cannot be captured in a CUDA graph, so at tp > 1 the engine
+refuses cuda_graph=True; speculation, the paged engine and weight swaps
+are refused there too (ROADMAP.md queue A item 7b).
+
 Migration, profiling and fault injection are not ported yet.
 """
 
@@ -94,7 +115,7 @@ import torch
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.inference.cuda_graph import CapturedStep
 from megatron_tpu_torch.inference.generation import (
-    GenerationOutput, _init_caches, _rope, check_positions,
+    GenerationOutput, _init_caches, _rope, check_positions, from_rank0,
 )
 from megatron_tpu_torch.inference.sampling import (
     _mask_vocab, sample_logits_batched,
@@ -114,6 +135,30 @@ from megatron_tpu_torch.training.optimizer import leaf_paths
 
 #: prompts are padded up to a multiple of this many tokens for prefill
 PREFILL_BUCKET = 64
+
+
+def _check_tensor_parallel(engine, speculative, cuda_graph, channel
+                           ) -> None:
+    """What the engines do not do under tensor parallelism yet."""
+    what = None
+    if type(engine) is not InferenceEngine:
+        what = (f"{type(engine).__name__} (the paged engine under tensor "
+                "parallelism is the next part of ROADMAP.md queue A item "
+                "7b)")
+    elif speculative is not None:
+        what = ("speculative decoding (single-rank serving only, as on the "
+                "JAX server: the spec step is not threaded through the "
+                "sharded forward)")
+    elif cuda_graph:
+        what = ("cuda_graph=True: the tick's gloo collectives cannot be "
+                "captured in a CUDA graph (a captured tick over NCCL waits "
+                "for a multi-card run, ROADMAP.md queue A item 7b); pass "
+                "cuda_graph=False")
+    elif channel is None:
+        what = ("no ServingChannel: rank 0 drives the other ranks through "
+                "one (parallel/distributed.py)")
+    if what:
+        raise ValueError(f"tensor-parallel serving: {what}")
 
 
 class EngineOverloadedError(RuntimeError):
@@ -206,14 +251,25 @@ class InferenceEngine:
                  metrics: Optional[MetricsRegistry] = None, device="cuda",
                  speculative: Optional[SpecConfig] = None,
                  cuda_graph: bool = True, kv_cache_int8: bool = False,
-                 max_queue: Optional[int] = None):
+                 max_queue: Optional[int] = None, mesh=None,
+                 channel=None):
         """speculative: a SpecConfig turns on speculative decoding.
         cuda_graph: on CUDA, capture the decode tick as one CUDA graph at
         construction and replay it (False runs the same step eagerly, for
         A/B measurements); ignored on the CPU, which has no graphs.
         kv_cache_int8: int8 slot caches (the paged engine: pools).
         max_queue: at most this many requests wait for a slot; a submit
-        beyond it is rejected as overloaded (None: unbounded)."""
+        beyond it is rejected as overloaded (None: unbounded).
+        mesh, channel: tensor-parallel serving (the module docstring);
+        params are then this rank's slices."""
+        self.mesh = mesh
+        self.channel = channel
+        self.tp = 1 if mesh is None else mesh.tp
+        self.leads = self.tp == 1 or mesh.tp_rank == 0
+        if self.tp > 1:
+            _check_tensor_parallel(self, speculative, cuda_graph, channel)
+        # slots cleared since the last control record (rank 0, tp > 1)
+        self._cleared: List[int] = []
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
         if max_queue is not None and max_queue < 1:
@@ -381,7 +437,8 @@ class InferenceEngine:
         the int8 4-tuple with kv_cache_int8 (the paged engine builds page
         pools instead)."""
         return _init_caches(self.cfg, self.num_slots, self.max_seq_len,
-                            device=self.device, int8=self.kv_cache_int8)
+                            device=self.device, int8=self.kv_cache_int8,
+                            tp=self.tp)
 
     def _fresh_draft_caches(self):
         """The draft model's cache tree: the target's slots and length,
@@ -424,7 +481,7 @@ class InferenceEngine:
         positions = torch.arange(P, device=self.device)[None, :]
         logits, _ = lm_forward(self.cfg, self.params, tokens,
                                positions=positions, kv_caches=rows,
-                               cache_index=0, rope=self.rope)
+                               cache_index=0, rope=self.rope, mesh=self.mesh)
         if self._has_draft_model():
             # mirror the prompt into the draft tree so the first
             # speculative tick proposes with the full context
@@ -435,10 +492,15 @@ class InferenceEngine:
                        cache_index=0, rope=self.draft_rope,
                        return_hidden=True)
         last = logits[:, p - 1]
-        tok = sample_logits_batched(
-            last, [self.generators[i]],
-            torch.tensor([req.temperature]), torch.tensor([req.top_k]),
-            torch.tensor([req.top_p]), self.vocab_size)
+        if self.leads:
+            tok = sample_logits_batched(
+                last, [self.generators[i]],
+                torch.tensor([req.temperature]), torch.tensor([req.top_k]),
+                torch.tensor([req.top_p]), self.vocab_size)
+        else:
+            tok = torch.zeros(1, dtype=torch.long, device=self.device)
+        if self.tp > 1:
+            tok = from_rank0(tok.to(self.device), self.mesh)
         lp = float(torch.log_softmax(last.float(), dim=-1)[0, tok[0]])
         plp: List[float] = []
         if p > 1:
@@ -467,7 +529,7 @@ class InferenceEngine:
         if self.spec is None:
             logits, _ = lm_forward(self.cfg, self.params, last[:, None],
                                    kv_caches=self.caches, cache_index=lens,
-                                   rope=self.rope, **extra)
+                                   rope=self.rope, mesh=self.mesh, **extra)
             logits = logits[:, 0].float()
             toks = torch.argmax(_mask_vocab(logits, self.vocab_size), dim=-1)
             lps = torch.gather(torch.log_softmax(logits, dim=-1), 1,
@@ -554,7 +616,7 @@ class InferenceEngine:
         c = self._carry
         if self.spec is None:
             toks, lps = out["toks"], out["lps"]
-            if (self.temps > 0).any():
+            if (self.temps > 0).any() and self.leads:
                 toks = sample_logits_batched(
                     out["logits"], self.generators,
                     torch.from_numpy(self.temps),
@@ -562,6 +624,8 @@ class InferenceEngine:
                     torch.from_numpy(self.top_ps), self.vocab_size)
                 lps = torch.gather(torch.log_softmax(out["logits"], dim=-1),
                                    1, toks[:, None])[:, 0]
+            if self.tp > 1:
+                toks = self._agreed_tokens(toks, c["active"])
             c["lengths"].add_(c["active"])
             c["last_tok"].copy_(torch.where(c["active"].bool(), toks,
                                             c["last_tok"]))
@@ -576,6 +640,20 @@ class InferenceEngine:
         c["last_tok"].copy_(torch.where(c["active"].bool(), nxt,
                                         c["last_tok"]))
         return toks.cpu().numpy(), lps.cpu().numpy(), accepts.cpu().numpy()
+
+    def _agreed_tokens(self, toks: torch.Tensor,
+                       active: torch.Tensor) -> torch.Tensor:
+        """Rank 0's tokens on every rank, with its decode-row mask, which
+        a follower holds against its own."""
+        agreed = from_rank0(torch.stack([toks.long(), active.long()]),
+                            self.mesh)
+        if not torch.equal(agreed[1], active.long()):
+            raise RuntimeError(
+                "tensor-parallel ranks disagree on the decode rows (rank 0 "
+                f"{agreed[1].tolist()}, rank {self.mesh.tp_rank} "
+                f"{active.tolist()}): a scheduling decision missed the "
+                "control record")
+        return agreed[0]
 
     # ----- scheduling ------------------------------------------------------
 
@@ -618,6 +696,9 @@ class InferenceEngine:
                 req, "engine queue full (injected: reject_admission); "
                      "retry later")
         with self._cv:
+            if self.channel is not None and self.channel.fault is not None:
+                return self._reject(req, "the tensor-parallel group "
+                                         f"failed: {self.channel.fault}")
             if (self.max_queue is not None
                     and len(self._queue) >= self.max_queue):
                 # bounded admission: overload is a fast rejection (HTTP
@@ -647,6 +728,8 @@ class InferenceEngine:
         self.generators[i] = None
         self.spec_on[i] = True
         self._carry_dirty = True
+        if self.tp > 1 and self.leads:
+            self._cleared.append(i)
 
     def _retire(self, i: int):
         req = self.slots[i]
@@ -712,7 +795,10 @@ class InferenceEngine:
         try:
             tok, lp, plp = self._prefill(i, req, full)
         except Exception as e:  # noqa: BLE001 - a failing prefill must
-            # fail THIS request, not strand it or kill the step loop
+            # fail THIS request, not strand it or kill the step loop;
+            # at tp > 1 the ranks' collectives are out of step: a fault
+            if self.tp > 1:
+                raise
             self.generators[i] = None
             self._reject(req, f"prefill failed: {e}")
             return 0
@@ -754,9 +840,73 @@ class InferenceEngine:
     def step(self) -> int:
         """One engine tick: admit into free slots, then one batched decode
         for every active slot. Returns the number of active slots served
-        (0 = idle)."""
+        (0 = idle). At tp > 1 (rank 0) the tick's control record goes to
+        the other ranks first."""
+        if self.tp > 1:
+            return self._step_tensor_parallel()
         self._pre_tick()
         self._admit()
+        return self._decode_tick()
+
+    def _step_tensor_parallel(self) -> int:
+        with self.channel.lock:
+            self._pre_tick()
+            plan = []
+            with self._cv:
+                for i in range(self.num_slots):
+                    if self.slots[i] is None and self._queue:
+                        plan.append((i, self._queue.popleft()))
+                        self._admitting += 1
+            record = {"clear": sorted(set(self._cleared)), "admit": [
+                (i, dict(prompt=np.asarray(r.prompt).tolist(),
+                         max_new_tokens=r.max_new_tokens,
+                         temperature=r.temperature, top_k=r.top_k,
+                         top_p=r.top_p, eod=r.eod, seed=r.seed))
+                for i, r in plan]}
+            self._cleared = []
+            try:
+                with self.channel.announce("tick", record):
+                    for i, req in plan:
+                        try:
+                            self._admit_one(i, req)
+                        finally:
+                            with self._cv:
+                                self._admitting -= 1
+                            self.last_progress_time = time.monotonic()
+                    return self._decode_tick()
+            except BaseException as e:
+                self._abandon([r for _, r in plan], e)
+                raise
+
+    def _abandon(self, plan: List[Request], e: BaseException) -> None:
+        """Rank 0 after a fault of the tensor-parallel group: stop the
+        step loop and fail every request it holds (the waiters unblock);
+        submit() refuses from now on."""
+        with self._cv:
+            self._stop = True
+            self._admitting = 0
+            reqs = plan + list(self._queue)
+            self._queue.clear()
+        for i, req in enumerate(self.slots):
+            if req is not None:
+                self.slots[i] = None
+                reqs.append(req)
+        for req in reqs:
+            if not req.done.is_set():
+                req._finish(f"the tensor-parallel group failed: {e}")
+        self._m_active.set(0)
+        self._m_queue.set(0)
+
+    def follow(self, record: dict) -> int:
+        """A follower's tick (rank > 0 at tp > 1): rank 0's clears and
+        admissions, then the same decode tick."""
+        for i in record["clear"]:
+            if self.slots[i] is not None:
+                self._clear_slot(i)
+        for i, kw in record["admit"]:
+            kw = dict(kw)
+            prompt = np.asarray(kw.pop("prompt"), np.int32)
+            self._admit_one(i, Request(prompt=prompt, **kw))
         return self._decode_tick()
 
     def _pre_tick(self) -> None:
@@ -794,7 +944,13 @@ class InferenceEngine:
         and engine_decode_recompiles_total stays 0. A draft model made of
         views of the target's first layers (the server's default draft)
         changes with them; a draft loaded from its own checkpoint keeps
-        its weights. Returns an Event set once the swap is applied."""
+        its weights. Returns an Event set once the swap is applied.
+        Refused at tp > 1, as the JAX server refuses a reload on a mesh."""
+        if self.tp > 1:
+            raise ValueError(
+                "a weight swap under tensor parallelism is not supported "
+                "(as on the JAX server's mesh): restart the replicas with "
+                "the new checkpoint")
         old, new = leaf_paths(self.params), leaf_paths(params)
         if [n for n, _ in old] != [n for n, _ in new]:
             raise ValueError("update_params: the new tree's leaves differ "
@@ -1029,6 +1185,8 @@ class InferenceEngine:
             raise RequestTimeoutError(
                 next(r.error for r in reqs if r.timed_out))
         errs = [r.error for r in reqs if r.error]
+        if errs and self.channel is not None and self.channel.fault:
+            raise RuntimeError(errs[0])     # the server's fault, not a 400
         if errs:
             raise ValueError(errs[0])
         total = maxp + max_new_tokens

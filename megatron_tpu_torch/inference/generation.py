@@ -24,6 +24,14 @@ across the beams and reorders them by parent every step.
 A cache is (k, v), or with int8=True the 4-tuple (k_q, v_q, k_scale,
 v_scale) of ops/kv_quant.py: every path here takes either.
 
+Tensor parallelism (a MeshRuntime as `mesh`, serving): every rank of the
+tensor group runs the same call on its slices of the params (rank 0
+broadcast the request: inference/server.py), with caches of its own kv
+heads [L, B, total_len, nkv/tp, D] (scales included), and reads the
+logits gathered over the group. Tokens are chosen once, on rank 0 (its
+samples, its argmax, beam search's choices), and broadcast, so no rank
+can diverge from it.
+
 One difference by design: a right-padded batch's pad positions enter
 the model as id 0 (generate_tokens) and ids outside the embedding table
 score 0.0 (score_tokens). The null tokenizer's pad id is the vocab size,
@@ -48,6 +56,7 @@ from megatron_tpu_torch.inference.sampling import (
 from megatron_tpu_torch.models.language_model import lm_forward
 from megatron_tpu_torch.ops.kv_quant import kv_buffers
 from megatron_tpu_torch.ops.rotary import precompute_rope
+from megatron_tpu_torch.parallel.mappings import all_gather, broadcast
 
 #: the one-shot prefill length is the longest prompt rounded up to this
 PREFILL_BUCKET = 64
@@ -61,12 +70,31 @@ class GenerationOutput:
 
 
 def _init_caches(cfg: ModelConfig, batch: int, total_len: int,
-                 device="cuda", int8: bool = False):
-    """Zeroed caches [L, batch, total_len, nkv, D]: (k, v) in the model
-    dtype, or with int8 the 4-tuple of ops/kv_quant.kv_buffers (half the
-    bytes of bf16, plus 4/D)."""
-    shape = (cfg.num_layers, batch, total_len, cfg.n_kv_heads, cfg.head_dim)
+                 device="cuda", int8: bool = False, tp: int = 1):
+    """Zeroed caches [L, batch, total_len, nkv/tp, D]: (k, v) in the
+    model dtype, or with int8 the 4-tuple of ops/kv_quant.kv_buffers
+    (half the bytes of bf16, plus 4/D). tp: a tensor-parallel rank holds
+    its kv heads only."""
+    shape = (cfg.num_layers, batch, total_len, cfg.n_kv_heads // tp,
+             cfg.head_dim)
     return kv_buffers(shape, cfg.dtype, int8, device)
+
+
+def _tp(mesh) -> int:
+    return 1 if mesh is None else mesh.tp
+
+
+def _leads(mesh) -> bool:
+    """Whether this rank chooses the tokens (rank 0 of the tensor
+    group; the only rank without a mesh)."""
+    return mesh is None or mesh.tp == 1 or mesh.tp_rank == 0
+
+
+def from_rank0(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Rank 0's t on every rank of the tensor group."""
+    if _tp(mesh) == 1:
+        return t
+    return broadcast(t, mesh.group("tensor"))
 
 
 def _device(params: Any) -> torch.device:
@@ -96,6 +124,24 @@ def check_positions(cfg: ModelConfig, n: int, what: str) -> None:
             "would silently clamp")
 
 
+def check_one_shot(name: str, cfg: ModelConfig, **kw) -> None:
+    """The checks the one-shot token function `name` makes on its
+    arguments before its first collective. A tensor-parallel rank 0
+    makes them before it announces the call (inference/server.py), so a
+    refused request never reaches the other ranks."""
+    if name == "score_tokens":
+        check_positions(cfg, np.shape(kw["tokens"])[1] - 1, "scored length")
+        return
+    if name == "beam_search_tokens":
+        if kw["beam_size"] < 1:
+            raise ValueError("beam_size must be >= 1")
+        n = len(kw["prompt"])
+    else:
+        n = np.shape(kw["prompts"])[1]
+    check_positions(cfg, n + kw["max_new_tokens"],
+                    "prompt + tokens_to_generate =")
+
+
 @torch.no_grad()
 def generate_tokens(
     cfg: ModelConfig,
@@ -111,13 +157,16 @@ def generate_tokens(
     seed: int = 0,
     want_logprobs: bool = True,
     kv_cache_int8: bool = False,
+    mesh=None,
 ) -> GenerationOutput:
     """Every row runs to max_prompt_len + max_new_tokens (or its eod):
-    a shorter prompt gets the difference as extra generated tokens."""
+    a shorter prompt gets the difference as extra generated tokens.
+    mesh: tensor-parallel serving (the module docstring)."""
     dev = _device(params)
     B, max_prompt = prompts.shape
     total_len = max_prompt + max_new_tokens
-    check_positions(cfg, total_len, "prompt + tokens_to_generate =")
+    check_one_shot("generate_tokens", cfg, prompts=prompts,
+                   max_new_tokens=max_new_tokens)
     lengths = np.asarray(lengths, np.int64)
     real = np.arange(max_prompt)[None, :] < lengths[:, None]
     tokens = torch.zeros((B, total_len), dtype=torch.long, device=dev)
@@ -129,12 +178,14 @@ def generate_tokens(
     prefill_len = min(total_len - 1,
                       max(1, -(-max_prompt // PREFILL_BUCKET)
                           * PREFILL_BUCKET))
-    caches = _init_caches(cfg, B, total_len, device=dev, int8=kv_cache_int8)
+    caches = _init_caches(cfg, B, total_len, device=dev, int8=kv_cache_int8,
+                          tp=_tp(mesh))
     rope = _rope(cfg, total_len, dev)
     positions = torch.arange(total_len, device=dev)[None, :]
     logits_all, _ = lm_forward(cfg, params, tokens[:, :prefill_len],
                                positions=positions[:, :prefill_len],
-                               kv_caches=caches, cache_index=0, rope=rope)
+                               kv_caches=caches, cache_index=0, rope=rope,
+                               mesh=mesh)
 
     lp = torch.zeros((B, total_len - 1), dtype=torch.float32, device=dev)
     if want_logprobs:
@@ -148,8 +199,9 @@ def generate_tokens(
         del lsm
 
     sampled = temperature > 0
+    lead = _leads(mesh)
     gens = [torch.Generator(device=dev).manual_seed(int(seed) + b)
-            if sampled else None for b in range(B)]
+            if sampled and lead else None for b in range(B)]
     temps = torch.full((B,), float(temperature))
     top_ks = torch.full((B,), int(top_k), dtype=torch.long)
     top_ps = torch.full((B,), float(top_p))
@@ -162,7 +214,9 @@ def generate_tokens(
     while t < total_len and not done.all():
         in_prompt = t < lengths
         forced = in_prompt | done
-        if sampled:
+        if not lead:
+            nxt = torch.zeros(B, dtype=torch.long, device=dev)
+        elif sampled:
             # draw only where the row samples (its generator advances
             # exactly as its engine request's would)
             nxt = sample_logits_batched(
@@ -171,6 +225,7 @@ def generate_tokens(
                 top_ps, vocab_size)
         else:
             nxt = torch.argmax(_mask_vocab(last, vocab_size), dim=-1)
+        nxt = from_rank0(nxt, mesh)
         forced_t = torch.from_numpy(forced).to(dev)
         nxt = torch.where(forced_t, tokens[:, t], nxt)
         if eod is not None:
@@ -184,7 +239,8 @@ def generate_tokens(
             done |= (nxt == eod).cpu().numpy() & ~in_prompt
         logits, _ = lm_forward(cfg, params, nxt[:, None],
                                positions=positions[:, t:t + 1],
-                               kv_caches=caches, cache_index=t, rope=rope)
+                               kv_caches=caches, cache_index=t, rope=rope,
+                               mesh=mesh)
         last = logits[:, 0].float()
         t += 1
 
@@ -201,15 +257,18 @@ def generate_tokens(
 
 @torch.no_grad()
 def score_tokens(cfg: ModelConfig, params: Any,
-                 tokens: np.ndarray) -> np.ndarray:
+                 tokens: np.ndarray, mesh=None) -> np.ndarray:
     """Teacher-forced per-token logprobs [B, S-1]: one causal forward
-    over tokens[:, :-1] with no cache (flash_fwd on CUDA). Ids outside
-    the embedding table are padding: they enter as 0 and score 0.0."""
-    check_positions(cfg, np.shape(tokens)[1] - 1, "scored length")
+    over tokens[:, :-1] with no cache (flash_fwd on CUDA), its logits
+    gathered over the tensor group under a mesh. Ids outside the
+    embedding table are padding: they enter as 0 and score 0.0."""
+    check_one_shot("score_tokens", cfg, tokens=tokens)
     t = torch.from_numpy(np.asarray(tokens, np.int64)).to(_device(params))
     pad = (t < 0) | (t >= cfg.vocab_size)
     t = torch.where(pad, 0, t)
-    logits = lm_forward(cfg, params, t[:, :-1])
+    logits = lm_forward(cfg, params, t[:, :-1], mesh=mesh)
+    if _tp(mesh) > 1:
+        logits = all_gather(logits, mesh.group("tensor"), dim=-1)
     lsm = torch.log_softmax(logits.float(), dim=-1)
     lp = torch.gather(lsm, 2, t[:, 1:, None])[..., 0]
     return torch.where(pad[:, 1:], 0.0, lp).cpu().numpy()
@@ -225,6 +284,7 @@ def beam_search_tokens(
     eod: int,
     length_penalty: float = 1.0,
     kv_cache_int8: bool = False,
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Beam search for one prompt: (beams [beam_size, total + 1], scores
     [beam_size]), best first. The hypothesis bookkeeping (2 x beam
@@ -233,19 +293,22 @@ def beam_search_tokens(
     package; the device prefills once at batch 1, repeats the caches
     across the beams and runs one single-token forward per step over the
     caches reordered by parent (index_select on the batch axis, for
-    (k, v) and int8 caches alike)."""
+    (k, v) and int8 caches alike). Under a mesh rank 0's choice of
+    parents, tokens and the early stop is broadcast every step."""
     dev = _device(params)
     prompt = np.asarray(prompt, np.int32)
     plen = len(prompt)
     total = plen + max_new_tokens
-    check_positions(cfg, total, "prompt + tokens_to_generate =")
+    check_one_shot("beam_search_tokens", cfg, prompt=prompt,
+                   max_new_tokens=max_new_tokens, beam_size=beam_size)
 
-    caches = _init_caches(cfg, 1, total, device=dev, int8=kv_cache_int8)
+    caches = _init_caches(cfg, 1, total, device=dev, int8=kv_cache_int8,
+                          tp=_tp(mesh))
     rope = _rope(cfg, total, dev)
     prefill_logits, _ = lm_forward(
         cfg, params, torch.from_numpy(prompt.astype(np.int64))[None].to(dev),
         positions=torch.arange(plen, device=dev)[None, :], kv_caches=caches,
-        cache_index=0, rope=rope)
+        cache_index=0, rope=rope, mesh=mesh)
     caches = tuple(c.repeat_interleave(beam_size, dim=1) for c in caches)
     step_logits_dev = prefill_logits[:, -1].repeat_interleave(beam_size, 0)
 
@@ -256,7 +319,8 @@ def beam_search_tokens(
         logits, _ = lm_forward(
             cfg, params, torch.tensor(toks, dtype=torch.long,
                                       device=dev)[:, None],
-            positions=pos, kv_caches=caches, cache_index=t, rope=rope)
+            positions=pos, kv_caches=caches, cache_index=t, rope=rope,
+            mesh=mesh)
         return logits[:, 0], caches
 
     beams = np.tile(prompt[None, :], (beam_size, 1))
@@ -288,11 +352,19 @@ def beam_search_tokens(
                 break
         beams = np.stack([np.pad(s, (0, total - len(s))) for s in new_beams])[:, :t + 1]
         scores = np.asarray(new_scores)
+        stop = False
         if len(finished) >= beam_size:
             best_possible = scores.max() / (max(1, t + 1 - plen) ** length_penalty)
             worst_kept = sorted(finished, key=lambda x: -x[0])[beam_size - 1][0]
-            if worst_kept >= best_possible:
-                break
+            stop = bool(worst_kept >= best_possible)
+        if _tp(mesh) > 1:
+            choice = from_rank0(torch.tensor(
+                parents + new_toks + [int(stop)], device=dev), mesh).tolist()
+            n = len(parents)
+            parents, new_toks = choice[:n], choice[n:2 * n]
+            stop = bool(choice[-1])
+        if stop:
+            break
         if t + 1 < total:
             step_logits_dev, caches = decode_step(caches, parents, new_toks,
                                                   t)

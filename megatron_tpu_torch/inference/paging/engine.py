@@ -104,7 +104,7 @@ class PagedInferenceEngine(InferenceEngine):
                  metrics: Optional[MetricsRegistry] = None, device="cuda",
                  speculative: Optional[SpecConfig] = None,
                  cuda_graph: bool = True, kv_cache_int8: bool = False,
-                 max_queue: Optional[int] = None):
+                 max_queue: Optional[int] = None, mesh=None, channel=None):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if num_pages is not None and num_pages < 2:
@@ -120,7 +120,8 @@ class PagedInferenceEngine(InferenceEngine):
                          max_seq_len=max_seq_len, vocab_size=vocab_size,
                          metrics=metrics, device=device,
                          speculative=speculative, cuda_graph=cuda_graph,
-                         kv_cache_int8=kv_cache_int8, max_queue=max_queue)
+                         kv_cache_int8=kv_cache_int8, max_queue=max_queue,
+                         mesh=mesh, channel=channel)
         if self.num_pages - 1 < self.max_pages:
             raise ValueError(
                 f"num_pages={self.num_pages} cannot hold even one full "

@@ -50,9 +50,20 @@ Probes and the control plane:
                          (inference/fleet/reload.py) swapped in between
                          decode ticks; 409 when no checkpoint verifies
 
+Tensor parallelism (a MeshRuntime as `mesh` and a
+parallel/distributed.ServingChannel): one GenerationService per rank,
+each over its slices of the params. Rank 0 binds the HTTP port and
+runs the engine's step thread; a one-shot request is announced on the
+channel (the function's name and arguments) and then run, and the
+engine announces each tick's control record (inference/engine.py). The
+other ranks run follow(): the same calls, in rank 0's order, until
+shutdown() sends the stop. The engine's tick runs eagerly there (no
+CUDA graph), and /admin/reload is refused, as on the JAX server's mesh.
+
 Not ported yet: KV migration and prefix export/import (/admin/import,
 /admin/export_prefix, /admin/import_prefix, /admin/register_prefix),
-on-demand profiling (/admin/profile), sharded and pipelined serving and
+on-demand profiling (/admin/profile), pipelined serving and the paged
+engine under tensor parallelism (ROADMAP.md queue A item 7b), and
 context-parallel lanes.
 """
 
@@ -73,7 +84,8 @@ import torch
 
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.inference.api import (
-    beam_search_and_post_process, generate_and_post_process,
+    ONE_SHOT, beam_search_and_post_process, generate_and_post_process,
+    run_direct,
 )
 from megatron_tpu_torch.inference.engine import (
     EngineOverloadedError, InferenceEngine, RequestTimeoutError,
@@ -81,6 +93,7 @@ from megatron_tpu_torch.inference.engine import (
 from megatron_tpu_torch.inference.fleet.reload import (
     NoValidCheckpointError, load_verified_params,
 )
+from megatron_tpu_torch.inference.generation import check_one_shot
 from megatron_tpu_torch.inference.paging import PagedInferenceEngine
 from megatron_tpu_torch.inference.speculative import SpecConfig
 from megatron_tpu_torch.models.params import empty_params
@@ -123,7 +136,8 @@ class GenerationService:
                  request_timeout: Optional[float] = None,
                  reload_dir: Optional[str] = None,
                  weights_version: Optional[int] = None,
-                 warmup: bool = False):
+                 warmup: bool = False, mesh=None, channel=None,
+                 cuda_graph: bool = True):
         """engine_slots > 0 builds the engine (kv_paging: the paged one,
         with page_size-token pages, prefill_chunk-token chunks and a pool
         of num_pages pages) and its step-loop thread; 0 serves one
@@ -137,7 +151,10 @@ class GenerationService:
         warmup=True keeps /readyz at 503 until warmup() has run. A
         weight-quantized params tree (ops/weight_quant.py) is reloaded in
         its own mode: the checkpoint's weights are read on the host and
-        quantized into the served tensors."""
+        quantized into the served tensors. mesh, channel: tensor-parallel
+        serving (the module docstring); the engine then runs eagerly, and
+        only rank 0's service starts its step thread. cuda_graph: the
+        engine's (False: an eager tick)."""
         if engine_slots < 0:
             raise ValueError("engine_slots must be >= 0 (0: one-shot)")
         if speculative is not None and not engine_slots:
@@ -153,6 +170,9 @@ class GenerationService:
         self.weights_version = weights_version
         self.weight_quant = quantized_mode(params)
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        self.channel = channel if self.mesh is not None else None
+        self.leads = self.mesh is None or self.mesh.rank == 0
         self.draining = False
         self.reloading = False
         # readiness gate: set once warmup() ran (or no warmup was asked)
@@ -173,20 +193,56 @@ class GenerationService:
                       vocab_size=tokenizer.vocab_size, metrics=self.metrics,
                       device=device, speculative=speculative,
                       kv_cache_int8=kv_cache_int8,
-                      max_queue=engine_max_queue)
+                      max_queue=engine_max_queue, cuda_graph=cuda_graph)
+            if self.mesh is not None:
+                kw.update(mesh=self.mesh, channel=self.channel)
             if kv_paging:
                 self.engine = PagedInferenceEngine(
                     cfg, params, page_size=page_size,
                     prefill_chunk=prefill_chunk, num_pages=num_pages, **kw)
             else:
                 self.engine = InferenceEngine(cfg, params, **kw)
-            self.engine.start()
+            if self.leads:
+                self.engine.start()
+        if self.channel is not None and self.leads:
+            self.channel.start_heartbeat()
         if not (warmup and self.engine is not None):
             self._warmed.set()
 
     def shutdown(self) -> None:
-        if self.engine is not None:
-            self.engine.stop()
+        """Stop the engine; at tp > 1 (rank 0) then stop the followers."""
+        try:
+            if self.engine is not None:
+                self.engine.stop()
+        finally:
+            if self.channel is not None and self.leads:
+                self.channel.stop()
+
+    def _run(self, name: str, cfg, params, **kwargs):
+        """A one-shot token function: at tp > 1 checked, then announced
+        to the other ranks, and run under the channel's lock."""
+        if self.channel is None:
+            return run_direct(name, cfg, params, **kwargs)
+        check_one_shot(name, cfg, **kwargs)
+        with self.channel.announce(name, kwargs):
+            return ONE_SHOT[name](cfg, params, mesh=self.mesh, **kwargs)
+
+    def follow(self) -> None:
+        """A follower rank's loop (rank > 0 at tp > 1): each command rank
+        0 announces, in its order, until the stop. Rank 0 checked the
+        request before announcing it, so a command that fails here is a
+        fault of the group: it propagates and ends the process (the
+        launcher then tears the group down, and rank 0's next collective
+        fails)."""
+        while True:
+            op, payload = self.channel.recv()
+            if op == "stop":
+                return
+            if op == "tick":
+                self.engine.follow(payload)
+            elif op != "idle":
+                ONE_SHOT[op](self.cfg, self.params, mesh=self.mesh,
+                             **payload)
 
     # ----- control plane ---------------------------------------------------
 
@@ -254,6 +310,11 @@ class GenerationService:
         are this service's params too, so the one-shot paths serve them
         as well; the swap holds self.lock so no one-shot request reads
         half-copied weights. Returns the iteration now served."""
+        if self.mesh is not None:
+            raise ValueError(
+                "hot reload under tensor parallelism is not supported (as "
+                "on the JAX server's mesh): roll the replica instead "
+                "(restart with the new checkpoint)")
         with self._admin_lock:
             src = load or self.reload_dir
             if not src:
@@ -327,7 +388,7 @@ class GenerationService:
                     tokens_to_generate=n, beam_size=int(req["beam_width"]),
                     add_BOS=bool(req.get("add_BOS", False)),
                     length_penalty=float(req.get("length_penalty", 1.0)),
-                    kv_cache_int8=self.kv_cache_int8)
+                    kv_cache_int8=self.kv_cache_int8, run=self._run)
             return {"text": texts, "segments": segments,
                     "scores": [float(s) for s in scores]}
 
@@ -365,7 +426,8 @@ class GenerationService:
                 random_seed=int(req.get("random_seed", 0)),
                 kv_cache_int8=self.kv_cache_int8,
                 engine=self.engine if use_engine else None,
-                deadline_s=deadline_s if use_engine else None, spec=spec)
+                deadline_s=deadline_s if use_engine else None, spec=spec,
+                run=self._run)
             out = {"text": texts, "segments": segments}
             if logprobs is not None:
                 out["logprobs"] = [list(map(float, row)) for row in logprobs]
@@ -511,7 +573,8 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
                request_timeout: Optional[float] = None,
                drain_timeout: float = 30.0, warmup: bool = False,
                reload_dir: Optional[str] = None,
-               weights_version: Optional[int] = None) -> None:
+               weights_version: Optional[int] = None, mesh=None,
+               channel=None, cuda_graph: bool = True) -> None:
     """Serve until ``server.shutdown()`` or a signal; port=0 binds an
     ephemeral port. In-process callers may pass `service_out` (a list
     that receives (service, server)) and `ready` (set once listening).
@@ -521,7 +584,8 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
     stop admitting (503 + Retry-After), finish the requests in flight
     within drain_timeout seconds, then exit; a second signal exits at
     once with 128 + signum. warmup=True runs GenerationService.warmup()
-    on a side thread, so /healthz and /readyz answer meanwhile."""
+    on a side thread, so /healthz and /readyz answer meanwhile. At tp > 1
+    this is rank 0's (the other ranks run GenerationService.follow)."""
     service = GenerationService(
         cfg, params, tokenizer, engine_slots=engine_slots,
         engine_max_seq_len=engine_max_seq_len, device=device,
@@ -530,7 +594,7 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
         speculative=speculative, kv_cache_int8=kv_cache_int8,
         engine_max_queue=engine_max_queue, request_timeout=request_timeout,
         reload_dir=reload_dir, weights_version=weights_version,
-        warmup=warmup)
+        warmup=warmup, mesh=mesh, channel=channel, cuda_graph=cuda_graph)
     server = ThreadingHTTPServer((host, port), make_handler(service))
     bound_port = server.server_address[1]
     if service_out is not None:
@@ -585,6 +649,14 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
         mode = "one-shot"
     if kv_cache_int8:
         mode += ", int8 KV"
+    if service.mesh is not None:
+        backend = torch.distributed.get_backend(service.mesh.group("tensor"))
+        mode += f", tensor parallel {service.mesh.tp} over {backend}"
+    if service.channel is not None:
+        # a fault of the tensor-parallel group stops the server, and the
+        # process ends non-zero (below), so the launcher tears it down
+        service.channel.on_fault = lambda e: threading.Thread(
+            target=server.shutdown, daemon=True).start()
     print(f"serving generation API on http://{host}:{bound_port}/api "
           f"({mode}, {device})", flush=True)
     if ready is not None:
@@ -594,3 +666,7 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
     finally:
         server.server_close()
         service.shutdown()
+    if service.channel is not None and service.channel.fault is not None:
+        raise RuntimeError("the tensor-parallel group failed: "
+                           f"{service.channel.fault}") \
+            from service.channel.fault

@@ -31,7 +31,11 @@ under sequence parallelism), the final hidden states enter the
 column-parallel LM head through parallel/mappings.enter_tp, and the
 logits are this rank's vocab columns; the loss is then the
 vocab-parallel cross-entropy (ops/cross_entropy.py). The pipeline
-(training/pipeline.py) runs the same pieces stage by stage.
+(training/pipeline.py) runs the same pieces stage by stage. Serving
+under tensor parallelism (kv_caches with a mesh, no sequence
+parallelism) runs the same layers over caches of this rank's kv heads
+[L, B, Smax, nkv/tp, D] and gathers the logits over the tensor group to
+[B, S, V] before anyone samples from them.
 
 A MoE model's layers each return a router aux loss; lm_loss adds their
 sum to the CE (return_moe_aux on lm_forward gives it to other callers).
@@ -56,7 +60,9 @@ from megatron_tpu_torch.ops.cross_entropy import (
 from megatron_tpu_torch.ops.normalization import norm_forward
 from megatron_tpu_torch.ops.rotary import precompute_rope
 from megatron_tpu_torch.ops.weight_quant import deq, take_rows
-from megatron_tpu_torch.parallel.mappings import enter_tp, exit_tp, sp_slice
+from megatron_tpu_torch.parallel.mappings import (
+    all_gather, enter_tp, exit_tp, sp_slice,
+)
 
 
 def _layers(tree: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
@@ -139,9 +145,11 @@ def lm_forward(
     final-normed hidden states [B, S, h]); with return_moe_aux, (that,
     the layers' summed router aux loss), which a forward with kv_caches
     refuses, as the JAX package does. With a mesh (tensor
-    parallelism, no caches): logits are this rank's vocab columns
-    [B, S, V/tp] and the hidden states are the LM head's input, the
-    whole sequence.
+    parallelism): without caches logits are this rank's vocab columns
+    [B, S, V/tp] (training's vocab-parallel loss reads them) and the
+    hidden states are the LM head's input, the whole sequence; with
+    kv_caches (serving; each rank's caches hold its nkv/tp heads) the
+    logits are gathered over the tensor group to [B, S, V].
 
     kv_caches: stacked per-layer caches [L, B, Smax, nkv, D] x2 (or the
     int8 4-tuple of ops/kv_quant.py, scales [L, B, Smax, nkv, 1]), updated
@@ -169,6 +177,9 @@ def lm_forward(
                          "decode paths don't train the router")
     if kv_caches is not None:
         recompute = "none"
+        if mesh is not None and mesh.sequence_parallel:
+            raise ValueError("serving under sequence parallelism: the "
+                             "engines do not split their sequences")
     if positions is None and kv_caches is not None:
         steps = torch.arange(tokens.shape[1], device=tokens.device)
         if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
@@ -208,6 +219,8 @@ def lm_forward(
     if return_hidden:
         return (x, moe_aux) if return_moe_aux else x
     logits = lm_logits(cfg, params, x)
+    if kv_caches is not None and mesh is not None and mesh.tp > 1:
+        logits = all_gather(logits, mesh.group("tensor"), dim=-1)
     if return_moe_aux:
         return logits, moe_aux
     if kv_caches is not None:

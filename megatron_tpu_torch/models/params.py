@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import math
 import zlib
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,10 +34,10 @@ import torch
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.ops.activations import mlp_input_width_factor
 from megatron_tpu_torch.parallel.mesh import (
-    AXIS_EXPERT, AXIS_PIPE, AXIS_TENSOR, MESH_AXES,
+    AXIS_EXPERT, AXIS_PIPE, AXIS_TENSOR, MESH_AXES, rank_grid,
 )
 from megatron_tpu_torch.parallel.sharding import (
-    P, shard_leaf, spec_axes, zero1_dim,
+    P, Piece, block_pieces, shard_leaf, spec_axes, zero1_dim, zero1_spec,
 )
 
 _NORMAL = "normal"          # N(0, init_method_std)
@@ -297,11 +297,103 @@ def leaf_layout(cfg: ModelConfig, mesh, zero1: bool
     return out
 
 
+class StatePlacement:
+    """Where each rank's TrainState leaves lie in the global tensors: the
+    input of the sharded checkpoint layout (training/checkpointing.py).
+
+    For every rank of a topology (not only this one) it gives the
+    pieces of a leaf that rank holds (parallel/sharding.block_pieces:
+    the spec's cut, the GLU halves, the interleaved layer chunks, and
+    for the optimizer state with ZeRO-1 the data ranks' cut of
+    zero1_spec), and which rank writes a block: the lowest global rank
+    that holds it, so a block replicated over data, tensor or pipeline
+    ranks is written once. group: the host-side group the ranks agree
+    on a load's iteration over (MeshRuntime.control_group)."""
+
+    OPT_FIELDS = ("master", "mu", "nu")
+
+    def __init__(self, cfg: ModelConfig, parallel, world_size: int,
+                 rank: int, zero1: bool, group=None):
+        parallel = parallel.validate()
+        grid = rank_grid(parallel, world_size)
+        self.cfg, self.parallel = cfg, parallel
+        self.world_size, self.rank, self.group = world_size, rank, group
+        self.sizes = dict(zip(MESH_AXES, (int(n) for n in grid.shape)))
+        self.coords = [dict(zip(MESH_AXES, (int(c) for c in
+                                            np.unravel_index(r, grid.shape))))
+                       for r in range(world_size)]
+        self.dp = self.sizes["data"] * self.sizes[AXIS_EXPERT]
+        self.zero1 = bool(zero1) and self.dp > 1
+        self.shapes, self.specs = param_shapes(cfg), param_specs(cfg)
+        self._writer: Dict[tuple, int] = {}
+
+    @classmethod
+    def of(cls, cfg: ModelConfig, mesh, zero1: bool) -> "StatePlacement":
+        return cls(cfg, mesh.parallel, mesh.world_size, mesh.rank, zero1,
+                   group=mesh.control_group)
+
+    def _holds(self, path: str, c: Dict[str, int]) -> bool:
+        pp = self.sizes[AXIS_PIPE]
+        if pp == 1 or path.startswith("layers/"):
+            return True
+        first, last = c[AXIS_PIPE] == 0, c[AXIS_PIPE] == pp - 1
+        if path == "embed/tokens":
+            return first or (self.cfg.tie_embed_logits and last)
+        return first if path.startswith("embed/") else last
+
+    def zero1_dim(self, field: str, path: str) -> Optional[int]:
+        """The dimension ZeRO-1 cuts this optimizer-state leaf along."""
+        if not self.zero1 or field not in self.OPT_FIELDS:
+            return None
+        return zero1_dim(self.specs[path], self.shapes[path], self.dp)
+
+    def spec(self, field: str, path: str) -> P:
+        spec = self.specs[path]
+        if self.zero1_dim(field, path) is not None:
+            spec = zero1_spec(spec, self.shapes[path], self.dp)
+        return spec
+
+    def pieces(self, field: str, path: str,
+               rank: Optional[int] = None) -> List[Piece]:
+        """The pieces of leaf `path` of `field` that `rank` (default:
+        this one) holds; [] when its stage does not hold the leaf."""
+        c = self.coords[self.rank if rank is None else rank]
+        if not self._holds(path, c):
+            return []
+        shape = self.shapes[path]
+        glu = _glu_dim(path, self.cfg)
+        if glu is not None and glu < 0:
+            glu += len(shape)
+        v = self.parallel.virtual_pipeline_parallel or 1
+        chunks = ((v, self.sizes[AXIS_PIPE])
+                  if v > 1 and path.startswith("layers/") else None)
+        return block_pieces(self.spec(field, path), shape, c, self.sizes,
+                            glu_dim=glu, layer_chunks=chunks)
+
+    def writes(self, field: str, path: str, piece: Piece) -> bool:
+        """Whether this rank is the lowest rank holding `piece`'s box."""
+        key = (field, path, piece[0], piece[2])
+        if key not in self._writer:
+            self._writer[key] = next(
+                r for r in range(self.world_size)
+                if any((g, n) == key[2:]
+                       for g, _, n in self.pieces(field, path, r)))
+        return self._writer[key] == self.rank
+
+
 def empty_params(cfg: ModelConfig, device="cuda",
-                 dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+                 dtype: Optional[torch.dtype] = None,
+                 mesh=None) -> Dict[str, Any]:
     """The parameter tree, uninitialized: the target of a checkpoint
-    load (training/checkpointing.load_params_only)."""
+    load (training/checkpointing.load_params_only); with a mesh, this
+    rank's slices of it."""
     dtype = dtype or cfg.dtype
+    if mesh is not None:
+        meta = shard_params({path: torch.empty(shape, device="meta")
+                             for path, (shape, _, _) in _defs(cfg).items()},
+                            cfg, mesh)
+        return _nest({path: torch.empty(t.shape, dtype=dtype, device=device)
+                      for path, t in sorted(meta.items())})
     return _nest({path: torch.empty(shape, dtype=dtype, device=device)
                   for path, (shape, _, _) in sorted(_defs(cfg).items())})
 

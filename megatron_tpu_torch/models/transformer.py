@@ -14,14 +14,16 @@ shared page pools [P, ps, nkv, D] (inference/paging/). A cache of four
 tensors is the int8 form (ops/kv_quant.py): int8 K/V with fp32 scales
 [..., 1], quantized on write and dequantized whole for attention.
 
-Tensor parallelism (a MeshRuntime as `mesh`, training only): the layer
-params are this rank's slices (models/params.py), so Q/K/V and w_in are
-column-parallel over the local heads (nq/tp, nkv/tp) and FFN columns,
-wo and w_out row-parallel; each block enters through
+Tensor parallelism (a MeshRuntime as `mesh`, training and serving): the
+layer params are this rank's slices (models/params.py), so Q/K/V and
+w_in are column-parallel over the local heads (nq/tp, nkv/tp) and FFN
+columns, wo and w_out row-parallel; each block enters through
 parallel/mappings.enter_tp and leaves through exit_tp (an all-reduce,
 or under sequence parallelism an all-gather in and a reduce-scatter
 out), and a row-parallel bias is added once, after the reduce. Without
-a mesh (or at tp 1) both are the identity.
+a mesh (or at tp 1) both are the identity. A serving rank's caches hold
+its nkv/tp heads (the int8 form's scales too), so each rank writes and
+attends over its own heads.
 
 A MoE model's FFN is ops/moe.moe_block over the layer's moe subtree,
 and block_forward returns the layer's router aux loss beside its output

@@ -80,6 +80,22 @@ def _all_reduce(t: torch.Tensor, group, op: str) -> torch.Tensor:
     return host.to(t.device)
 
 
+def broadcast(t: torch.Tensor, group) -> torch.Tensor:
+    """Group rank 0's t on every rank of the group (a new tensor on t's
+    device; t itself on group rank 0)."""
+    if group_size(group) == 1:
+        return t
+    with record_function("comm.broadcast"):
+        src = dist.get_global_rank(group, 0)
+        if _native(group) or not t.is_cuda:
+            out = t.detach().clone().contiguous()
+            dist.broadcast(out, src=src, group=group)
+            return out
+        host = _to_host(t).contiguous().clone()
+        dist.broadcast(host, src=src, group=group)
+        return host.to(t.device)
+
+
 def _all_gather_native(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     n = group_size(group)
     inp = t.detach().movedim(dim, 0).contiguous()

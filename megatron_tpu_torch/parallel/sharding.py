@@ -22,11 +22,20 @@ only gates. Its "tensor" dimension is cut per half (rank i takes block i
 of each half), which is the layout the reference's
 ColumnParallelLinear gives a GLU (JAX's contiguous cut is resharded by
 XLA at the split instead).
+
+The checkpoint layout (training/checkpointing.py) reads the same rule as
+boxes of the global tensor: block_pieces gives the offsets and sizes of
+what a rank holds (one box for a plain cut, one per half of a GLU
+dimension, one per virtual chunk of an interleaved layer axis), and
+copy_overlap copies the intersection of a saved box into a target box,
+so a load at another topology is "for each saved block that overlaps my
+box, copy the overlap".
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+import itertools
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -91,7 +100,8 @@ def shard_leaf(x: torch.Tensor, spec: Sequence, coords: Dict[str, int],
             out = torch.cat([h.chunk(n, dim=d)[idx] for h in halves], dim=d)
         else:
             out = out.chunk(n, dim=d)[idx]
-    return out.contiguous()
+    # a copy of its own, never a view that keeps all of x alive
+    return out.clone() if out.numel() < x.numel() else out.contiguous()
 
 
 def unshard(slice_at: Callable[[Dict[str, int]], torch.Tensor],
@@ -181,3 +191,67 @@ def zero1_dim(spec: Sequence, shape: tuple, dp: int, ep: int = 1
         if a != b:
             return i
     return None
+
+
+# ---------------------------------------------------------------------------
+# blocks as boxes of the global tensor (the checkpoint layout)
+# ---------------------------------------------------------------------------
+
+#: (global offsets, offsets in the rank's own tensor, sizes)
+Piece = Tuple[Tuple[int, ...], Tuple[int, ...], Tuple[int, ...]]
+
+
+def block_pieces(spec: Sequence, shape: Sequence[int],
+                 coords: Dict[str, int], sizes: Dict[str, int],
+                 glu_dim: Optional[int] = None,
+                 layer_chunks: Optional[Tuple[int, int]] = None
+                 ) -> List[Piece]:
+    """The boxes of the global tensor of `shape` that the rank at
+    `coords` holds under `spec`, as contiguous pieces of its slice
+    (shard_leaf's output). A plain cut is one piece. glu_dim: the
+    dimension cut per half gives a piece per half. layer_chunks (V, pp):
+    dimension 0 is a layer axis stored in interleaved order
+    (models/params.vpp_place_indices), whose V chunks of one stage are
+    V boxes of the canonical layer order."""
+    per_dim = []
+    for d, n_glob in enumerate(shape):
+        entry = spec[d] if d < len(spec) else None
+        idx, n = _block(sizes, coords, entry)
+        if n_glob % n:
+            raise ValueError(f"dimension {d} of {tuple(shape)} not "
+                             f"divisible by the {n} ranks of {entry!r}")
+        b = n_glob // n
+        if n > 1 and d == glu_dim:
+            half = n_glob // 2
+            b = half // n
+            per_dim.append([(idx * b, 0, b), (half + idx * b, b, b)])
+        elif d == 0 and layer_chunks is not None and layer_chunks[0] > 1:
+            v, pp = layer_chunks
+            lv = b // v
+            per_dim.append([((c * pp + idx) * lv, c * lv, lv)
+                            for c in range(v)])
+        else:
+            per_dim.append([(idx * b, 0, b)])
+    return [(tuple(g for g, _, _ in combo), tuple(o for _, o, _ in combo),
+             tuple(n for _, _, n in combo))
+            for combo in itertools.product(*per_dim)]
+
+
+def copy_overlap(dst: torch.Tensor, dst_offsets: Sequence[int],
+                 src: torch.Tensor, src_offsets: Sequence[int]) -> int:
+    """Copy the intersection of src's box (src_offsets + src.shape, in
+    global coordinates) into dst's box, in place (cast to dst's dtype
+    and device). Returns the elements copied (0: the boxes are
+    disjoint)."""
+    lo = [max(a, b) for a, b in zip(dst_offsets, src_offsets)]
+    hi = [min(a + n, b + m) for a, n, b, m in
+          zip(dst_offsets, dst.shape, src_offsets, src.shape)]
+    if any(h <= l for l, h in zip(lo, hi)):
+        return 0
+    d = dst[tuple(slice(l - o, h - o) for l, h, o in zip(lo, hi,
+                                                        dst_offsets))]
+    s = src[tuple(slice(l - o, h - o) for l, h, o in zip(lo, hi,
+                                                        src_offsets))]
+    with torch.no_grad():
+        d.copy_(s)
+    return d.numel()

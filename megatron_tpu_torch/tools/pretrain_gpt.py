@@ -44,13 +44,19 @@ def main(argv=None, log=print, extra_args_provider=None):
         destroy_distributed, initialize_distributed,
     )
 
+    import torch.distributed as dist
+
     args = parse_args(argv, extra_args_provider)
     cfg = args_to_run_config(args)
+    # a process group the caller made (several runs in one launch) is
+    # left as it was found
+    ours = not (dist.is_available() and dist.is_initialized())
     if initialize_distributed(args.device, args.distributed_backend):
         try:
             return _main(args, cfg, log)
         finally:
-            destroy_distributed()
+            if ours:
+                destroy_distributed()
     return _main(args, cfg, log)
 
 

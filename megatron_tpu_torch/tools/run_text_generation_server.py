@@ -10,6 +10,10 @@
         [--serve_request_timeout S] [--serve_drain_timeout S] \
         [--serve_warmup] [--weight_int8 | --weight_fp8]
 
+    python -m torch.distributed.run --nproc_per_node 2 \\
+        -m megatron_tpu_torch.tools.run_text_generation_server \\
+        --tensor_model_parallel_size 2 --load ckpts/run ...
+
 The flag names are the JAX CLI's (tools/run_text_generation_server.py)
 for what the port supports, plus --device (default cuda). Weights are
 random from --seed, or loaded with --load, which is also the default
@@ -28,6 +32,20 @@ time inside the forward); as on the JAX server they are exclusive, and
 refused for MoE models (the experts stay bf16) and for a multi-rank
 process. POST /admin/reload of such a server quantizes the new weights
 into the served tensors.
+
+--tensor_model_parallel_size N (the JAX CLI's flag) serves over N ranks
+of python -m torch.distributed.run (NCCL on CUDA, gloo on the CPU or
+with --distributed_backend gloo, as training): each rank holds its
+slices of the params, loaded from a checkpoint saved at any topology
+(--load; the sharded layout or the one-file-per-field one) or built
+whole from --seed on its device and cut to its slice (the tokens of
+the one-process server at the same seed), and its kv heads' caches.
+Rank 0 binds the HTTP port and logs; the others follow it. The engine's
+tick runs eagerly (no CUDA graph: a gloo collective cannot be
+captured). Refused at N > 1, as the JAX server refuses them on a mesh:
+--weight_int8/--weight_fp8, --serve_speculative and /admin/reload; and,
+in this slice, --serve_kv_paging and --pipeline_model_parallel_size > 1
+(ROADMAP.md queue A item 7b).
 """
 
 from __future__ import annotations
@@ -125,10 +143,46 @@ def parse_args(argv=None):
                    help="fp8 (e4m3) weight-only quantization at load: the "
                         "same byte a weight on a log grid; single-card "
                         "serving only")
+    p.add_argument("--tensor_model_parallel_size", type=int, default=1,
+                   help="serve over this many ranks of python -m "
+                        "torch.distributed.run (tensor parallelism)")
+    p.add_argument("--pipeline_model_parallel_size", type=int, default=1,
+                   help="only 1: pipelined serving is not ported yet")
+    p.add_argument("--distributed_backend", default=None,
+                   choices=["nccl", "gloo"],
+                   help="the process group's backend: nccl on CUDA, gloo "
+                        "on the CPU (default); gloo on CUDA only when "
+                        "named here")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions")
     return p.parse_args(argv)
+
+
+def check_parallel_flags(args) -> None:
+    """The refusals of tensor-parallel serving, before any rank starts."""
+    tp = args.tensor_model_parallel_size
+    if tp < 1:
+        raise SystemExit("--tensor_model_parallel_size must be >= 1")
+    if args.pipeline_model_parallel_size != 1:
+        raise SystemExit(
+            "--pipeline_model_parallel_size > 1: pipelined serving is not "
+            "ported yet (ROADMAP.md queue A item 7b)")
+    if tp == 1:
+        return
+    refused = {
+        "--weight_int8": args.weight_int8, "--weight_fp8": args.weight_fp8,
+        "--serve_speculative": bool(args.serve_speculative),
+        "--serve_kv_paging": args.serve_kv_paging}
+    for flag, on in refused.items():
+        if not on:
+            continue
+        why = ("the paged engine under tensor parallelism is the next "
+               "part of ROADMAP.md queue A item 7b"
+               if flag == "--serve_kv_paging" else
+               "single-rank serving only, as on the JAX server's mesh")
+        raise SystemExit(f"{flag} at --tensor_model_parallel_size {tp}: "
+                         f"{why}")
 
 
 def weight_quant_mode(args, cfg):
@@ -153,20 +207,23 @@ def weight_quant_mode(args, cfg):
     return mode
 
 
-def load_model(args):
-    """(cfg, params, iteration or None) for --load / --model_name."""
+def load_model(args, mesh=None, log=print):
+    """(cfg, params, iteration or None) for --load / --model_name; with a
+    tensor-parallel mesh, this rank's slices of the params."""
     import dataclasses
 
     from megatron_tpu_torch.config import ModelConfig
     from megatron_tpu_torch.models import presets
-    from megatron_tpu_torch.models.params import empty_params, init_params
+    from megatron_tpu_torch.models.params import (
+        StatePlacement, empty_params, init_params,
+    )
     from megatron_tpu_torch.training import checkpointing
 
     if not args.load:
         cfg = presets.from_model_name(args.model_name or "llama2-7B")
-        print("WARNING: serving randomly initialized weights (no --load)",
-              flush=True)
-        return cfg, init_params(cfg, args.seed, device=args.device), None
+        log("WARNING: serving randomly initialized weights (no --load)")
+        return cfg, init_params(cfg, args.seed, device=args.device,
+                                mesh=mesh), None
     iteration, _ = checkpointing.resolve_load_iteration(args.load)
     saved = checkpointing.saved_run_config(args.load, iteration)
     # the serving presets' kernel route; the architecture is the saved one
@@ -177,9 +234,10 @@ def load_model(args):
             saved, {"model": presets.from_model_name(args.model_name)
                     .__dict__})
     params = checkpointing.load_params_only(
-        args.load, empty_params(cfg, device=args.device), iteration)
-    print(f"loaded checkpoint at iteration {iteration} from {args.load}",
-          flush=True)
+        args.load, empty_params(cfg, device=args.device, mesh=mesh),
+        iteration, placement=(None if mesh is None else
+                              StatePlacement.of(cfg, mesh, zero1=False)))
+    log(f"loaded checkpoint at iteration {iteration} from {args.load}")
     return cfg, params, iteration
 
 
@@ -234,10 +292,13 @@ def load_spec(args, cfg, params):
 
 def main(argv=None, **server_kwargs):
     """server_kwargs go to inference.server.run_server (in-process
-    callers pass `ready` and `service_out`)."""
-    from megatron_tpu_torch.inference.server import run_server
-    from megatron_tpu_torch.ops.kv_quant import kv_head_bytes
-    from megatron_tpu_torch.tokenizer import build_tokenizer
+    callers pass `ready` and `service_out`). Under torch.distributed.run
+    every rank calls it; rank 0 serves and returns when the server
+    stops, the others return when rank 0 sends the stop."""
+    from megatron_tpu_torch.parallel.distributed import (
+        ServingChannel, destroy_distributed, initialize_distributed,
+        local_device, serving_mesh,
+    )
 
     args = parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -247,7 +308,41 @@ def main(argv=None, **server_kwargs):
     if args.serve_speculative and not args.serve_num_slots:
         raise SystemExit("--serve_speculative runs inside the engine: "
                          "--serve_num_slots must be > 0")
-    cfg, params, iteration = load_model(args)
+    check_parallel_flags(args)
+    if not initialize_distributed(args.device, args.distributed_backend):
+        if args.tensor_model_parallel_size > 1:
+            raise SystemExit(
+                "--tensor_model_parallel_size > 1 needs one process per "
+                "rank: python -m torch.distributed.run --nproc_per_node "
+                f"{args.tensor_model_parallel_size} -m "
+                "megatron_tpu_torch.tools.run_text_generation_server ...")
+        return _serve(args, None, None, server_kwargs)
+    try:
+        mesh = serving_mesh(args.tensor_model_parallel_size)
+        args.device = str(local_device(args.device))
+        if mesh.tp == 1:
+            return _serve(args, None, None, server_kwargs)
+        return _serve(args, mesh, ServingChannel(mesh.control_group,
+                                                 mesh.rank), server_kwargs)
+    finally:
+        destroy_distributed()
+
+
+def _serve(args, mesh, channel, server_kwargs):
+    """Serve (rank 0, or the only process) or follow (ranks > 0)."""
+    from megatron_tpu_torch.inference.server import (
+        GenerationService, run_server,
+    )
+    from megatron_tpu_torch.ops.kv_quant import kv_head_bytes
+    from megatron_tpu_torch.tokenizer import build_tokenizer
+
+    leads = mesh is None or mesh.rank == 0
+
+    def log(msg):
+        if leads:
+            print(msg, flush=True)
+
+    cfg, params, iteration = load_model(args, mesh, log)
     weight_quant = weight_quant_mode(args, cfg)
     if weight_quant:
         from megatron_tpu_torch.ops.weight_quant import (
@@ -258,9 +353,9 @@ def main(argv=None, **server_kwargs):
         params = quantize_params_for_serving(params, weight_quant)
         if args.device.startswith("cuda"):
             torch.cuda.empty_cache()
-        print(f"serving {weight_quant}-quantized weights (matmul + "
-              f"embedding tables): {weight_bytes(params) / 2**30:.2f} GiB "
-              f"(from {before / 2**30:.2f} GiB)", flush=True)
+        log(f"serving {weight_quant}-quantized weights (matmul + "
+            f"embedding tables): {weight_bytes(params) / 2**30:.2f} GiB "
+            f"(from {before / 2**30:.2f} GiB)")
     speculative = load_spec(args, cfg, params)
     tokenizer = build_tokenizer(args.tokenizer_type,
                                 vocab_size=cfg.vocab_size)
@@ -268,34 +363,40 @@ def main(argv=None, **server_kwargs):
     # bytes a cached position takes over all layers, K and V: int8 values
     # plus an fp32 scale per head, or the model dtype
     per_head = kv_head_bytes(cfg.head_dim, cfg.dtype, args.kv_cache_int8)
-    row_bytes = 2 * cfg.num_layers * cfg.n_kv_heads * per_head
+    tp = 1 if mesh is None else mesh.tp
+    row_bytes = 2 * cfg.num_layers * (cfg.n_kv_heads // tp) * per_head
     kind = "int8 + fp32 scales" if args.kv_cache_int8 else str(cfg.dtype)
     if args.serve_kv_paging and args.serve_num_slots:
         ps = args.serve_page_size
         pages = (args.serve_num_pages
                  or args.serve_num_slots * (-(-max_seq_len // ps)) + 1)
-        print(f"paged KV pool: {pages} pages x {ps} tokens = "
-              f"{row_bytes * pages * ps / 2**30:.2f} GiB ({kind})",
-              flush=True)
+        log(f"paged KV pool: {pages} pages x {ps} tokens = "
+            f"{row_bytes * pages * ps / 2**30:.2f} GiB ({kind})")
     elif args.serve_num_slots:
-        print(f"persistent KV cache: {args.serve_num_slots} slots x "
-              f"{max_seq_len} tokens = "
-              f"{row_bytes * args.serve_num_slots * max_seq_len / 2**30:.2f}"
-              f" GiB ({kind})", flush=True)
+        log(f"persistent KV cache: {args.serve_num_slots} slots x "
+            f"{max_seq_len} tokens = "
+            f"{row_bytes * args.serve_num_slots * max_seq_len / 2**30:.2f}"
+            f" GiB ({kind})" + (f" per rank of {tp}" if tp > 1 else ""))
+    kw = dict(engine_slots=args.serve_num_slots,
+              engine_max_seq_len=max_seq_len, device=args.device,
+              kv_paging=args.serve_kv_paging,
+              page_size=args.serve_page_size,
+              prefill_chunk=args.serve_prefill_chunk,
+              num_pages=args.serve_num_pages,
+              speculative=speculative, kv_cache_int8=args.kv_cache_int8,
+              engine_max_queue=args.serve_max_queue,
+              request_timeout=args.serve_request_timeout,
+              reload_dir=args.load, weights_version=iteration)
+    if mesh is not None:
+        kw.update(mesh=mesh, channel=channel, cuda_graph=False)
+        log(f"tensor parallel {mesh.tp}: the engine's tick runs eagerly "
+            "(cuda_graph=False: a gloo collective cannot be captured)")
+        if not leads:
+            GenerationService(cfg, params, tokenizer, **kw).follow()
+            return
     run_server(cfg, params, tokenizer, host=args.host, port=args.port,
-               engine_slots=args.serve_num_slots,
-               engine_max_seq_len=max_seq_len, device=args.device,
-               kv_paging=args.serve_kv_paging,
-               page_size=args.serve_page_size,
-               prefill_chunk=args.serve_prefill_chunk,
-               num_pages=args.serve_num_pages,
-               speculative=speculative, kv_cache_int8=args.kv_cache_int8,
-               engine_max_queue=args.serve_max_queue,
-               request_timeout=args.serve_request_timeout,
                drain_timeout=args.serve_drain_timeout,
-               warmup=args.serve_warmup, reload_dir=args.load,
-               weights_version=iteration, **server_kwargs)
-
+               warmup=args.serve_warmup, **kw, **server_kwargs)
 
 if __name__ == "__main__":
     main()

@@ -26,9 +26,38 @@ a tree's leaf_paths, the scaler's three fields, or {field: tensor} for a
 scalar. Every tensor is a contiguous CPU copy of its own, since
 torch.save of a view writes the view's whole storage.
 
+A multi-rank run (a StatePlacement, models/params.py) writes the
+sharded layout instead, one logical checkpoint that loads at any
+topology, as the JAX package's orbax checkpoint does. Each rank writes
+`state/<field>.r<rank>.pt`: the blocks of that field it is the lowest
+global rank to hold (a block replicated over data, tensor or pipeline
+ranks is written once; ZeRO-1's master/mu/nu blocks are cut along their
+data dimension; step, scaler and nonfinite_streak are written by rank
+0), packed into one storage per dtype, so the bytes on disk are a
+world-1 save's. `state/layout.json` records, per leaf of every field,
+its global shape, dtype, spec and ZeRO-1 dimension and each block's
+file, key and box (global offsets and sizes). A load at any topology
+(or of the one-file-per-field layout) copies into each of the rank's
+pieces the overlap of every saved block (parallel/sharding
+.copy_overlap), reading the files through torch.load(mmap=True), so a
+rank's host memory holds its slice, not the model; load_params_only
+assembles whole leaves for world-1 readers.
+
+The commit at world size > 1 is the JAX package's shared-directory vote
+(shared_write): after a host-side barrier (rank 0 has committed the
+previous save and made the staging dir), every rank writes and fsyncs
+its files into the shared `iter_XXXXXXX.tmp/` and then a vote file
+`votes/r<rank>.json` holding its part of the layout and the size and
+crc32 of its files (each rank hashes its own bytes, in parallel); rank
+0's finalizer waits for every vote (VOTE_TIMEOUT_S, else the save fails
+loudly and leaves an ignorable `.tmp`), writes layout.json, drops the
+votes and commits as above, its manifest taking the voted entries. The saver threads call no collective: only save()
+itself, on the loop's thread, takes the barrier, and a load agrees on
+the iteration by a broadcast from rank 0.
+
 Not ported (ROADMAP.md): the multi-host two-phase commit (the JAX
-`coordinator`), orbax's sharded layout, and the restore of a checkpoint
-that predates a TrainState field.
+`coordinator`), and the restore of a checkpoint that predates a
+TrainState field.
 """
 
 from __future__ import annotations
@@ -46,6 +75,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from megatron_tpu_torch.parallel.sharding import copy_overlap
 from megatron_tpu_torch.training import resilience
 from megatron_tpu_torch.training.optimizer import (
     ScalerState, TrainState, leaf_paths,
@@ -56,6 +86,14 @@ MANIFEST = "manifest.json"
 STAGING_SUFFIX = ".tmp"
 DISPLACED_SUFFIX = ".old"
 STATE_DIR = "state"
+LAYOUT = "layout.json"
+LAYOUT_FORMAT = "torch-sharded-1"
+VOTES_DIR = "votes"
+#: rank 0 waits this long for every rank's vote (the process group's
+#: timeout, parallel/distributed.py)
+VOTE_TIMEOUT_S = 600.0
+#: the TrainState fields that are parameter trees (cut by the placement)
+TREE_FIELDS = ("params", "master", "mu", "nu")
 CHECKPOINT_VERSION = "torch-1.0"
 FIELDS = tuple(f.name for f in dataclasses.fields(TrainState))
 _ITER_RE = re.compile(r"^iter_(\d{7})$")
@@ -106,9 +144,12 @@ def _crc32_file(path: str, chunk: int = 1 << 20) -> str:
     return f"{crc & 0xFFFFFFFF:08x}"
 
 
-def compute_manifest(path: str, hashes: bool = True) -> Dict[str, Any]:
+def compute_manifest(path: str, hashes: bool = True,
+                     known: Optional[Dict[str, Any]] = None
+                     ) -> Dict[str, Any]:
     """{relpath: {size, crc32}} over every file under `path` except the
-    manifest itself."""
+    manifest itself. known: entries already hashed (another rank's
+    files, by that rank), reused while the size on disk matches."""
     files: Dict[str, Any] = {}
     for root, _, names in os.walk(path):
         for name in sorted(names):
@@ -117,21 +158,25 @@ def compute_manifest(path: str, hashes: bool = True) -> Dict[str, Any]:
             if rel == MANIFEST:
                 continue
             entry: Dict[str, Any] = {"size": os.path.getsize(fp)}
-            if hashes:
+            if known and known.get(rel, {}).get("size") == entry["size"]:
+                entry = dict(known[rel])
+            elif hashes:
                 entry["crc32"] = _crc32_file(fp)
             files[rel] = entry
     return files
 
 
 def write_manifest(path: str, iteration: int,
-                   tags: Tuple[str, ...] = ()) -> str:
+                   tags: Tuple[str, ...] = (),
+                   known: Optional[Dict[str, Any]] = None) -> str:
     """Write the commit record, the last file of the staging dir: its
     presence means every byte it lists was on disk when it was made. The
-    crc32 pass re-reads every byte just written; on the async path it
-    runs on the saver's thread. tags: provenance ("preemption": the
-    checkpoint a SIGTERM notice forced, which retention keeps)."""
+    crc32 pass re-reads every byte just written (but the files in
+    `known`, which their writers hashed); on the async path it runs on
+    the saver's thread. tags: provenance ("preemption": the checkpoint a
+    SIGTERM notice forced, which retention keeps)."""
     man = {"format": 1, "iteration": int(iteration),
-           "files": compute_manifest(path)}
+           "files": compute_manifest(path, known=known)}
     if tags:
         man["tags"] = sorted(set(tags))
     out = os.path.join(path, MANIFEST)
@@ -351,15 +396,15 @@ def _to_host(fields: Dict[str, Dict[str, torch.Tensor]],
     return out
 
 
-def _write_state(stage: str, host: Dict[str, Dict[str, torch.Tensor]]
-                 ) -> int:
-    """state/<field>.pt for each field, each fsynced; returns the bytes
-    written."""
+def _write_state(stage: str, host: Dict[str, Dict[str, torch.Tensor]],
+                 suffix: str = "") -> int:
+    """state/<field><suffix>.pt for each field, each fsynced; returns the
+    bytes written."""
     d = os.path.join(stage, STATE_DIR)
     os.makedirs(d, exist_ok=True)
     total = 0
     for field, flat in host.items():
-        path = os.path.join(d, field + ".pt")
+        path = os.path.join(d, field + suffix + ".pt")
         with open(path, "wb") as f:
             torch.save(flat, f)
             f.flush()
@@ -388,21 +433,292 @@ def _read_field(files: Dict[str, str], field: str
                       mmap=True)
 
 
-def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor],
-               where: str) -> None:
-    """dst's tensors take src's values in place (cast to dst's dtype)."""
-    missing, extra = sorted(set(dst) - set(src)), sorted(set(src) - set(dst))
+def _whole(name: str, t: torch.Tensor):
+    """The one piece of a leaf held whole (a world-1 run)."""
+    zero = (0,) * t.dim()
+    return [(zero, zero, tuple(t.shape))]
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+class _Saved:
+    """A checkpoint's state/ dir, either layout: the one-file-per-field
+    one (each leaf one block at the origin) or the sharded one
+    (layout.json). Block tensors are read lazily, through
+    torch.load(mmap=True), only when a block overlaps a target piece;
+    read_bytes counts the bytes copied out of them."""
+
+    def __init__(self, path: str):
+        self.path = path
+        layout = os.path.join(path, STATE_DIR, LAYOUT)
+        self.layout = None
+        if os.path.exists(layout):
+            with open(layout) as f:
+                self.layout = json.load(f)["fields"]
+            unknown = sorted(set(self.layout) - set(FIELDS))
+            if unknown:
+                raise ValueError(
+                    f"checkpoint at {path} has unknown TrainState fields "
+                    f"{unknown} — written by a newer version?")
+            self.fields = set(self.layout)
+        else:
+            self.files = _saved_fields(path)
+            self.fields = set(self.files)
+        self._open: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.read_bytes = 0
+
+    def _field(self, field: str) -> Dict[str, torch.Tensor]:
+        if field not in self._open:
+            self._open[field] = _read_field(self.files, field)
+        return self._open[field]
+
+    def _file(self, name: str) -> Dict[str, torch.Tensor]:
+        if name not in self._open:
+            self._open[name] = torch.load(
+                os.path.join(self.path, STATE_DIR, name), map_location="cpu",
+                weights_only=True, mmap=True)
+        return self._open[name]
+
+    def names(self, field: str) -> set:
+        if self.layout is not None:
+            return set(self.layout[field])
+        return set(self._field(field))
+
+    def shape(self, field: str, name: str) -> Tuple[int, ...]:
+        if self.layout is not None:
+            return tuple(self.layout[field][name]["shape"])
+        return tuple(self._field(field)[name].shape)
+
+    def blocks(self, field: str, name: str) -> List[tuple]:
+        """[(global offsets, sizes, () -> tensor)] of a leaf's blocks."""
+        if self.layout is None:
+            t = self._field(field)[name]
+            zero = (0,) * t.dim()
+            return [(zero, tuple(t.shape), lambda t=t: t)]
+        return [(tuple(b["offsets"]), tuple(b["sizes"]),
+                 lambda b=b: self._file(b["file"])[b["key"]])
+                for b in self.layout[field][name]["blocks"]]
+
+
+def _disjoint(a_off, a_n, b_off, b_n) -> bool:
+    return any(x + n <= y or y + m <= x
+               for x, n, y, m in zip(a_off, a_n, b_off, b_n))
+
+
+@torch.no_grad()
+def _restore(dst: Dict[str, torch.Tensor], saved: _Saved, field: str,
+             where: str, pieces=_whole, global_shape=None,
+             strict: bool = True) -> None:
+    """dst's tensors (this rank's pieces of each leaf, by `pieces(name,
+    t)`) take the overlap of every saved block of `field`, in place,
+    cast to dst's dtype. Every element of a piece must be covered.
+    global_shape(name, t): the leaf's global shape (default t.shape).
+    strict: a saved leaf dst lacks is an error too (a whole-tree load;
+    a pipeline stage holds only its own leaves)."""
+    names = saved.names(field)
+    missing = sorted(set(dst) - names)
+    extra = sorted(names - set(dst)) if strict else []
     if missing or extra:
         raise ValueError(f"{where}: no data for {missing}, unexpected "
                          f"{extra} — corrupt or structurally incompatible "
                          "checkpoint")
     for name, t in dst.items():
-        if tuple(src[name].shape) != tuple(t.shape):
-            raise ValueError(f"{where} {name}: shape "
-                             f"{tuple(src[name].shape)} != {tuple(t.shape)}")
-    with torch.no_grad():
-        for name, t in dst.items():
-            t.copy_(src[name])
+        have = saved.shape(field, name)
+        want = (tuple(global_shape(name, t)) if global_shape is not None
+                else tuple(t.shape))
+        if have != want:
+            raise ValueError(f"{where} {name}: shape {have} != {want}")
+    for name, t in dst.items():
+        blocks = saved.blocks(field, name)
+        for g, loc, n in pieces(name, t):
+            view = t[tuple(slice(o, o + k) for o, k in zip(loc, n))]
+            got = 0
+            for b_off, b_n, get in blocks:
+                if _disjoint(g, n, b_off, b_n):
+                    continue
+                src = get()
+                c = copy_overlap(view, g, src, b_off)
+                got += c
+                saved.read_bytes += c * src.element_size()
+            if got != view.numel():
+                raise ValueError(
+                    f"{where} {name}: the checkpoint covers {got} of the "
+                    f"{view.numel()} elements of the box at {g} size {n} — "
+                    "corrupt or incomplete checkpoint")
+
+
+# -- the sharded layout: a rank's blocks, its vote, the merged layout -------
+
+
+def _spec_json(spec) -> list:
+    return [e if e is None or isinstance(e, str) else list(e) for e in spec]
+
+
+def _sharded_to_host(state: TrainState, placement,
+                     buffers: Optional[Dict[tuple, torch.Tensor]] = None):
+    """(host, fragment): the blocks this rank writes, as CPU views of one
+    buffer per field and dtype ({field: {key: tensor}}, landed when this
+    returns; pinned from the card, kept in `buffers` across saves), and
+    its part of layout.json ({field: {leaf: description}})."""
+    host: Dict[str, Dict[str, torch.Tensor]] = {}
+    fragment: Dict[str, Dict[str, Any]] = {}
+    streams = {}
+    for field, flat in _state_fields(state).items():
+        tree = field in TREE_FIELDS
+        items, leaves = [], {}
+        for name, t in flat.items():
+            if tree:
+                pieces = placement.pieces(field, name)
+                desc = {"shape": list(placement.shapes[name]),
+                        "spec": _spec_json(placement.spec(field, name)),
+                        "zero1_dim": placement.zero1_dim(field, name)}
+                mine = [p for p in pieces
+                        if placement.writes(field, name, p)]
+            else:
+                desc = {"shape": list(t.shape), "spec": [],
+                        "zero1_dim": None}
+                mine = _whole(name, t) if placement.rank == 0 else []
+            if not mine:
+                continue
+            blocks = []
+            for g, loc, n in mine:
+                key = f"{name}@{','.join(map(str, g))}"
+                view = t.detach()[tuple(slice(o, o + k)
+                                        for o, k in zip(loc, n))]
+                items.append((key, view))
+                blocks.append({"file": f"{field}.r{placement.rank}.pt",
+                               "key": key, "offsets": list(g),
+                               "sizes": list(n)})
+            leaves[name] = dict(desc, dtype=_dtype_name(t.dtype),
+                                blocks=blocks)
+        if not items:
+            continue
+        out = {}
+        for dtype in sorted({v.dtype for _, v in items}, key=str):
+            group = [(k, v) for k, v in items if v.dtype == dtype]
+            total = sum(v.numel() for _, v in group)
+            cuda = group[0][1].is_cuda
+            buf = (buffers.get((field, dtype)) if buffers is not None
+                   else None)
+            if buf is None or buf.numel() != total:
+                buf = torch.empty(total, dtype=dtype, pin_memory=cuda)
+                if buffers is not None:
+                    buffers[(field, dtype)] = buf
+            off = 0
+            for k, v in group:
+                dst = buf[off:off + v.numel()].view(v.shape)
+                dst.copy_(v, non_blocking=v.is_cuda)
+                if v.is_cuda:
+                    streams[v.device] = torch.cuda.current_stream(v.device)
+                out[k] = dst
+                off += v.numel()
+        host[field] = out
+        fragment[field] = leaves
+    for stream in streams.values():
+        event = torch.cuda.Event()
+        event.record(stream)
+        event.synchronize()
+    return host, fragment
+
+
+def _write_json(path: str, obj: Any) -> None:
+    """obj as JSON, fsynced, put in place by os.replace."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def _vote(stage: str, rank: int, fragment: Dict[str, Any]) -> int:
+    """This rank's files are durable: its vote, holding its part of the
+    layout and its files' manifest entries (each rank hashes its own, in
+    parallel, so the commit does not re-read every rank's bytes).
+    Returns the bytes of its files."""
+    files = {}
+    for name in sorted(os.listdir(os.path.join(stage, STATE_DIR))):
+        if name.endswith(f".r{rank}.pt"):
+            fp = os.path.join(stage, STATE_DIR, name)
+            files[os.path.join(STATE_DIR, name)] = {
+                "size": os.path.getsize(fp), "crc32": _crc32_file(fp)}
+    d = os.path.join(stage, VOTES_DIR)
+    os.makedirs(d, exist_ok=True)
+    nbytes = sum(e["size"] for e in files.values())
+    _write_json(os.path.join(d, f"r{rank}.json"),
+                {"rank": rank, "bytes": nbytes, "fragment": fragment,
+                 "files": files})
+    return nbytes
+
+
+def _await_votes(stage: str, world_size: int, timeout_s: float,
+                 iteration: int) -> List[Dict[str, Any]]:
+    """Every rank's vote, or TimeoutError after timeout_s (the staging
+    dir stays uncommitted: an ignorable `.tmp`)."""
+    d = os.path.join(stage, VOTES_DIR)
+    paths = [os.path.join(d, f"r{r}.json") for r in range(world_size)]
+    deadline = time.monotonic() + timeout_s
+    while True:
+        missing = [r for r, p in enumerate(paths) if not os.path.exists(p)]
+        if not missing:
+            break
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"checkpoint iteration {iteration}: ranks {missing} did not "
+                f"vote within {timeout_s:g}s; {stage} stays uncommitted and "
+                "the tracker keeps the previous checkpoint")
+        time.sleep(0.02)
+    votes = []
+    for p in paths:
+        with open(p) as f:
+            votes.append(json.load(f))
+    return votes
+
+
+def _write_layout(stage: str, votes: List[Dict[str, Any]], placement
+                  ) -> None:
+    """state/layout.json from every rank's part; the votes go."""
+    fields: Dict[str, Dict[str, Any]] = {}
+    for vote in votes:
+        for field, leaves in vote["fragment"].items():
+            dst = fields.setdefault(field, {})
+            for name, desc in leaves.items():
+                if name in dst:
+                    dst[name]["blocks"].extend(desc["blocks"])
+                else:
+                    dst[name] = desc
+    _write_json(os.path.join(stage, STATE_DIR, LAYOUT), {
+        "format": LAYOUT_FORMAT, "world_size": placement.world_size,
+        "mesh": placement.sizes, "zero1": placement.zero1,
+        "fields": fields})
+    shutil.rmtree(os.path.join(stage, VOTES_DIR))
+
+
+def _multi(placement) -> bool:
+    return placement is not None and placement.world_size > 1
+
+
+def _agreed_iteration(load: str, iteration: Optional[int], placement
+                      ) -> int:
+    """resolve_load_iteration on rank 0, broadcast to every rank over the
+    placement's host-side group (without one, each rank resolves alone:
+    nothing is writing)."""
+    if not _multi(placement) or placement.group is None:
+        return resolve_load_iteration(load, iteration)[0]
+    import torch.distributed as dist
+
+    box: List[Any] = [None]
+    if placement.rank == 0:
+        try:
+            box = [resolve_load_iteration(load, iteration)[0]]
+        except FileNotFoundError as e:
+            box = [str(e)]
+    dist.broadcast_object_list(box, src=0, group=placement.group)
+    if isinstance(box[0], str):
+        raise FileNotFoundError(box[0])
+    return int(box[0])
 
 
 # -- save --------------------------------------------------------------------
@@ -411,7 +727,8 @@ def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor],
 def _finalize(save: str, stage: str, iteration: int, consumed_samples: int,
               config: Optional[Dict[str, Any]], keep_latest_k: Optional[int],
               log=None, stats: Optional[Dict[str, Any]] = None,
-              tags: Tuple[str, ...] = ()) -> str:
+              tags: Tuple[str, ...] = (),
+              known: Optional[Dict[str, Any]] = None) -> str:
     """Commit a staged checkpoint whose state files are written:
     meta.json -> manifest (the commit record) -> os.replace into place ->
     tracker bump -> retention. `stats` receives the crc32 pass's seconds
@@ -431,7 +748,7 @@ def _finalize(save: str, stage: str, iteration: int, consumed_samples: int,
     resilience.maybe_kill("kill_during_save", iteration)
     resilience.maybe_sleep("slow_save")
     t0 = time.perf_counter()
-    write_manifest(stage, iteration, tags=tags)
+    write_manifest(stage, iteration, tags=tags, known=known)
     if stats is not None:
         stats["manifest_s"] = time.perf_counter() - t0
     displaced = None
@@ -491,26 +808,45 @@ class AsyncCheckpointSaver:
     journal: an event sink (emit/flush; the telemetry journal) that gets
     `checkpoint_begin` and, from the saver's thread, `checkpoint_commit`
     with the commit's seconds, which last_commit_seconds also keeps (the
-    sample --save_interval auto's cadence tuner reads)."""
+    sample --save_interval auto's cadence tuner reads).
+
+    placement (a models/params.StatePlacement of world size > 1): every
+    rank of the run owns a saver and calls save() at the same iteration;
+    each writes its blocks of the sharded layout and votes, and rank 0's
+    thread commits once every rank voted (the module docstring). On a
+    rank > 0 a history record ends at its vote (voted_s), and `bytes` is
+    that rank's; rank 0's also holds vote_wait_s and bytes_all_ranks.
+    save() takes one host-side barrier over placement.group (none
+    without a group); the thread calls no collective."""
 
     def __init__(self, save: str, keep_latest_k: Optional[int] = None,
-                 log=None, async_save: bool = True, journal=None):
+                 log=None, async_save: bool = True, journal=None,
+                 placement=None):
         self.save_dir = os.path.abspath(save)
         self.keep_latest_k = keep_latest_k
         self.log = log or (lambda _m: None)
         self.async_save = async_save
         self.journal = journal
+        self.placement = placement if _multi(placement) else None
+        self.rank = self.placement.rank if self.placement else 0
         self.last_commit_seconds: Optional[float] = None
         self.history: List[Dict[str, Any]] = []
         os.makedirs(self.save_dir, exist_ok=True)
-        stale = cleanup_staging(self.save_dir)
-        if stale:
-            self.log(f"removed uncommitted checkpoint staging dirs {stale} "
-                     "(previous run died mid-save)")
-        self._buffers: Dict[Tuple[str, str], torch.Tensor] = {}
+        if self.rank == 0:
+            stale = cleanup_staging(self.save_dir)
+            if stale:
+                self.log(f"removed uncommitted checkpoint staging dirs "
+                         f"{stale} (previous run died mid-save)")
+        self._buffers: Dict[tuple, torch.Tensor] = {}
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._last_path: Optional[str] = None
+
+    def _barrier(self) -> None:
+        if self.placement is not None and self.placement.group is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.placement.group)
 
     def save(self, state: TrainState, iteration: int,
              consumed_samples: int = 0,
@@ -522,20 +858,52 @@ class AsyncCheckpointSaver:
             self.journal.emit("checkpoint_begin", iteration=iteration,
                               async_save=self.async_save)
         stage = _staging_dir(self.save_dir, iteration)
-        shutil.rmtree(stage, ignore_errors=True)
-        os.makedirs(stage)
-        host = _to_host(_state_fields(state), self._buffers)
+        if self.rank == 0:
+            shutil.rmtree(stage, ignore_errors=True)
+            os.makedirs(stage)
+        # the previous save is committed and the staging dir is fresh
+        # before any rank writes into it
+        self._barrier()
+        fragment = None
+        if self.placement is not None:
+            host, fragment = _sharded_to_host(state, self.placement,
+                                              self._buffers)
+        else:
+            host = _to_host(_state_fields(state), self._buffers)
         stats: Dict[str, Any] = {
             "iteration": iteration,
             "stall_s": time.perf_counter() - t_begin}
 
         def finish():
             try:
-                stats["bytes"] = _write_state(stage, host)
+                known = None      # manifest entries the ranks hashed
+                if self.placement is None:
+                    stats["bytes"] = _write_state(stage, host)
+                else:
+                    _write_state(stage, host, f".r{self.rank}")
+                    if self.rank != 0:
+                        # a rank that dies here never votes: rank 0's
+                        # commit times out and nothing is committed
+                        resilience.maybe_kill("kill_during_save", iteration)
+                    stats["bytes"] = _vote(stage, self.rank, fragment)
+                    if self.rank != 0:
+                        stats["voted_s"] = time.perf_counter() - t_begin
+                        self._last_path = checkpoint_dir(self.save_dir,
+                                                         iteration)
+                        self.history.append(stats)
+                        return
+                    t_vote = time.perf_counter()
+                    votes = _await_votes(stage, self.placement.world_size,
+                                         VOTE_TIMEOUT_S, iteration)
+                    stats["vote_wait_s"] = time.perf_counter() - t_vote
+                    stats["bytes_all_ranks"] = sum(v["bytes"] for v in votes)
+                    known = {rel: e for v in votes
+                             for rel, e in v["files"].items()}
+                    _write_layout(stage, votes, self.placement)
                 self._last_path = _finalize(
                     self.save_dir, stage, iteration, consumed_samples,
                     config, self.keep_latest_k, self.log, stats=stats,
-                    tags=tags)
+                    tags=tags, known=known)
                 stats["commit_s"] = time.perf_counter() - t_begin
                 self.last_commit_seconds = round(stats["commit_s"], 4)
                 self.history.append(stats)
@@ -557,8 +925,9 @@ class AsyncCheckpointSaver:
             self._raise_pending()
 
     def wait(self) -> Optional[str]:
-        """Block until the in-flight save (if any) is committed; raise any
-        error of its thread. Returns the last committed path."""
+        """Block until the in-flight save (if any) is committed (on a rank
+        > 0 of a sharded save: until its vote is down); raise any error
+        of its thread. Returns the last committed path."""
         t, self._thread = self._thread, None
         if t is not None:
             t.join()
@@ -597,6 +966,8 @@ def load_checkpoint(
     finetune: bool = False,
     no_load_optim: bool = False,
     config: Optional[Dict[str, Any]] = None,
+    placement=None,
+    stats: Optional[Dict[str, Any]] = None,
 ) -> Tuple[TrainState, int, int]:
     """Restore (state, iteration, consumed_samples) into state_template.
 
@@ -616,38 +987,57 @@ def load_checkpoint(
 
     config: the current RunConfig.to_dict(); when given (and not
     finetuning) an architecture mismatch with the saved config raises
-    before anything is read."""
-    it, _ = resolve_load_iteration(load, iteration)
+    before anything is read.
+
+    placement (models/params.StatePlacement): the template holds this
+    rank's slices of a multi-rank topology, filled from a checkpoint of
+    either layout saved at any topology; rank 0 picks the iteration
+    for every rank. stats receives read_bytes, the bytes this rank
+    copied out of the checkpoint's blocks."""
+    it = _agreed_iteration(load, iteration, placement)
     path = checkpoint_dir(load, it)
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     if config is not None and not finetune:
         check_config_compatibility(meta.get("config", {}), config)
-    files = _saved_fields(path)
+    saved = _Saved(path)
+    files = saved.fields
     weights_only = finetune or no_load_optim
     want = _state_fields(state_template)
+
+    def restore(dst_field: str, src_field: str) -> None:
+        kw = {}
+        if placement is not None and dst_field in TREE_FIELDS:
+            kw = dict(pieces=lambda n, _t: placement.pieces(dst_field, n),
+                      global_shape=lambda n, _t: placement.shapes[n],
+                      strict=False)
+        _restore(want[dst_field], saved, src_field, f"{path} {src_field}",
+                 **kw)
+
     if "master" in files and "master" not in want:
         # a mixed-precision checkpoint read by a run that keeps no
         # masters (fp32 params): the masters are the truth for params
-        _copy_into(want["params"], _read_field(files, "master"),
-                   f"{path} master")
+        restore("params", "master")
     else:
-        _copy_into(want["params"], _read_field(files, "params"),
-                   f"{path} params")
+        restore("params", "params")
     if "master" in want:
         if "master" in files:
-            _copy_into(want["master"], _read_field(files, "master"),
-                       f"{path} master")
+            restore("master", "master")
         elif weights_only:
-            _copy_into(want["master"], want["params"], f"{path} params")
+            # the masters are the loaded params, as the run holds them
+            restore("master", "params")
+            with torch.no_grad():
+                for (_, m), (_, p) in zip(leaf_paths(state_template.master),
+                                          leaf_paths(state_template.params)):
+                    m.copy_(m.to(p.dtype))
         else:
             raise ValueError(
                 f"checkpoint at {path} has no fp32 masters, which this run "
                 "keeps: a full resume needs them (--finetune or "
                 "--no_load_optim rebuild them from the params)")
-    restore = ([] if finetune else ["step"] if no_load_optim
-               else [f for f in FIELDS if f not in ("params", "master")])
-    for field in restore:
+    fields = ([] if finetune else ["step"] if no_load_optim
+              else [f for f in FIELDS if f not in ("params", "master")])
+    for field in fields:
         if (field in files) != (field in want):
             raise ValueError(
                 f"checkpoint at {path} {'has' if field in files else 'lacks'}"
@@ -655,8 +1045,9 @@ def load_checkpoint(
                 f"{'does not keep' if field in files else 'keeps'} one "
                 "(a different precision policy?)")
         if field in want:
-            _copy_into(want[field], _read_field(files, field),
-                       f"{path} {field}")
+            restore(field, field)
+    if stats is not None:
+        stats["read_bytes"] = saved.read_bytes
     if finetune:
         return state_template, 0, 0
     return (state_template, int(meta["iteration"]),
@@ -672,34 +1063,35 @@ def _map_tree(fn, tree: Any, prefix: str = "") -> Any:
 
 
 def load_params_only(load: str, params_template: Any,
-                     iteration: Optional[int] = None) -> Any:
+                     iteration: Optional[int] = None, placement=None
+                     ) -> Any:
     """Just the model params (serving, export), as a new tree on each
-    template leaf's device and dtype, without reading the moments.
+    template leaf's device and dtype, without reading the moments, from
+    a checkpoint of either layout saved at any topology (whole leaves;
+    with a placement, this rank's slices).
 
     Prefers the fp32 masters. Whether the checkpoint has them is decided
     from its own state/ files, never by catching a failed read, so a
     corrupt master file raises instead of falling back to the params."""
-    it, _ = resolve_load_iteration(load, iteration)
+    it = _agreed_iteration(load, iteration, placement)
     path = checkpoint_dir(load, it)
-    files = _saved_fields(path)
-    key = "master" if "master" in files else "params"
-    saved = _read_field(files, key)
+    saved = _Saved(path)
+    key = "master" if "master" in saved.fields else "params"
     want = dict(leaf_paths(params_template))
-    missing = sorted(set(want) - set(saved))
+    missing = sorted(set(want) - saved.names(key))
     if missing:
         raise ValueError(
             f"checkpoint at {path} has no data for {len(missing)} "
             f"requested '{key}' arrays (first: {missing[:3]}) — corrupt or "
             "structurally incompatible checkpoint")
-
-    def take(name, t):
-        if tuple(saved[name].shape) != tuple(t.shape):
-            raise ValueError(f"{path} {key}/{name}: shape "
-                             f"{tuple(saved[name].shape)} != "
-                             f"{tuple(t.shape)}")
-        return saved[name].to(device=t.device, dtype=t.dtype)
-
-    return _map_tree(take, params_template)
+    out = {name: torch.empty(t.shape, dtype=t.dtype, device=t.device)
+           for name, t in want.items()}
+    kw = {}
+    if placement is not None:
+        kw = dict(pieces=lambda n, _t: placement.pieces("params", n),
+                  global_shape=lambda n, _t: placement.shapes[n])
+    _restore(out, saved, key, f"{path} {key}", strict=False, **kw)
+    return _map_tree(lambda name, _t: out[name], params_template)
 
 
 #: shape-defining keys: a mismatch would also fail the restore, but with

@@ -40,17 +40,22 @@ torch.distributed.run): each rank holds its slices of the parameters
 batch (data/samplers.rank_rows) through the parallel step
 (training/train_step.py, training/pipeline.py). Logging, the writer,
 telemetry (journal, /metrics, flight recorder) and profiling run on
-rank 0 only. The exit decision (a signal, --exit_interval,
---exit_duration_in_mins) is agreed over every rank each step by a
-MAX-reduce of the flag on a host-side gloo group, so every rank stops
-after the same iteration. The step watchdog stays per rank: a stalled
-collective stalls every rank, each rank's watchdog fires on the same
-deadline and exits 70, and the launcher tears the group down.
-Checkpoints at world size > 1 are refused (the sharded layout is
-ROADMAP.md queue A item 7b); world size 1 keeps the one-card format.
+rank 0 only. The decisions a rank may reach alone (a signal, the
+--save_interval auto cadence, --exit_interval, --exit_duration_in_mins)
+are agreed over every rank each step by one MAX-reduce of the flags
+(save, exit, preempt) on a host-side gloo group, so every rank saves,
+and stops, after the same iteration; a rollback is driven by the loss
+and grad norm, which every rank already shares. The step watchdog stays
+per rank: a stalled collective stalls every rank, each rank's watchdog
+fires on the same deadline and exits 70, and the launcher tears the
+group down. Checkpoints at world size > 1 take the sharded layout
+(training/checkpointing.py): every rank saves its blocks and votes,
+rank 0 commits, and --load (a resume, at this or any other topology),
+a rollback and the preemption save work as at world size 1; world size
+1 keeps the one-file-per-field format.
 
 Not ported (ROADMAP.md): multi-host coordination (peer aborts, the
-two-phase commit), elastic-topology journaling and sharded checkpoints.
+two-phase commit) and elastic-topology journaling.
 """
 
 from __future__ import annotations
@@ -71,7 +76,7 @@ import torch
 from megatron_tpu_torch.config import RunConfig
 from megatron_tpu_torch.data.samplers import rank_rows
 from megatron_tpu_torch.models.params import (
-    init_params, leaf_layout, num_params,
+    StatePlacement, init_params, leaf_layout, num_params,
 )
 from megatron_tpu_torch.parallel.mappings import all_reduce
 from megatron_tpu_torch.training import checkpointing, prefetch, resilience
@@ -177,11 +182,6 @@ class TrainLoop:
         self.log = log if self.is_rank0 else (lambda msg: None)
         self.device = torch.device(device)
         t = run_cfg.training
-        if self._multi and (t.save or t.load or t.save_interval_auto):
-            raise ValueError(
-                f"checkpoints at world size {mesh.world_size} (--save, "
-                "--load, --save_interval auto) are not ported: the "
-                "sharded checkpoint layout is ROADMAP.md queue A item 7b")
         level = t.timing_log_level
         if t.log_timers_to_tensorboard:
             level = max(level, 1)  # sub-spans become real timers
@@ -211,6 +211,11 @@ class TrainLoop:
             layout=(leaf_layout(model_cfg, mesh,
                                 run_cfg.optimizer.use_distributed_optimizer)
                     if self._multi else None))
+        # where each rank's state lies in the global tensors: the sharded
+        # checkpoint layout's input (None at world size 1)
+        self.placement = (StatePlacement.of(
+            model_cfg, mesh, run_cfg.optimizer.use_distributed_optimizer)
+            if self._multi else None)
         self.dp = mesh.dp if mesh is not None else 1
         self.calc = MicroBatchCalculator.from_config(t, self.dp)
         self.iteration = 0
@@ -223,6 +228,7 @@ class TrainLoop:
         self._saver: Optional[checkpointing.AsyncCheckpointSaver] = None
         self.saves: List[Dict[str, Any]] = []
         self.load_s: Optional[float] = None
+        self.load_read_bytes: Optional[int] = None
         if t.load:
             self._load()
 
@@ -305,15 +311,18 @@ class TrainLoop:
     def _load(self) -> None:
         t = self.cfg.training
         t0 = time.perf_counter()
+        stats: Dict[str, Any] = {}
         try:
             self.state, it, consumed = checkpointing.load_checkpoint(
                 t.load, self.state, finetune=t.finetune,
-                no_load_optim=t.no_load_optim, config=self._save_config)
+                no_load_optim=t.no_load_optim, config=self._save_config,
+                placement=self.placement, stats=stats)
         except FileNotFoundError:
             self.log(f"no checkpoint found in {t.load}, starting fresh")
             return
         self._sync()
         self.load_s = time.perf_counter() - t0
+        self.load_read_bytes = stats.get("read_bytes")
         self.iteration, self.consumed_samples = it, consumed
         self.log(f"loaded checkpoint at iteration {it} "
                  f"(consumed {consumed} samples)")
@@ -331,7 +340,8 @@ class TrainLoop:
                 t.save, keep_latest_k=t.keep_latest_k, log=self.log,
                 async_save=t.async_save,
                 journal=(self.telemetry.journal_sink()
-                         if self.telemetry else None))
+                         if self.telemetry else None),
+                placement=self.placement)
             self.saves = self._saver.history
         self._saver.save(self.state, self.iteration, self.consumed_samples,
                          config=self._save_config, tags=tags)
@@ -616,7 +626,8 @@ class TrainLoop:
         for src in sources:
             try:
                 loaded = checkpointing.load_checkpoint(
-                    src, self.state, config=self._save_config)
+                    src, self.state, config=self._save_config,
+                    placement=self.placement)
                 break
             except FileNotFoundError as e:
                 errors.append(str(e))
@@ -701,13 +712,15 @@ class TrainLoop:
         """This data rank's rows of each global batch."""
         return batches if self.dp == 1 else rank_rows(batches, self.mesh)
 
-    def _agree_exit(self, should_exit: bool) -> bool:
-        """Every rank's exit flag, MAX-reduced on the host-side group:
-        all ranks stop after the same iteration."""
+    def _agree(self, *flags: bool) -> Tuple[bool, ...]:
+        """Every rank's flags, MAX-reduced in one collective on the
+        host-side group (no device sync): a flag any rank raised holds
+        on all ranks, so they save and stop after the same iteration."""
         if not self._multi:
-            return should_exit
-        flag = torch.tensor([int(should_exit)], dtype=torch.int32)
-        return bool(all_reduce(flag, self.mesh.control_group, "max")[0])
+            return tuple(bool(f) for f in flags)
+        t = torch.tensor([int(f) for f in flags], dtype=torch.int32)
+        return tuple(bool(v) for v in
+                     all_reduce(t, self.mesh.control_group, "max"))
 
     def _fetch_metrics(self, metrics: Dict[str, torch.Tensor]
                        ) -> Dict[str, float]:
@@ -1348,6 +1361,20 @@ class TrainLoop:
                     saved_now = bool(
                         t.save and t.save_interval
                         and self.iteration % t.save_interval == 0)
+                names = [signal_module.Signals(s).name
+                         for s in sig.signals_received()]
+                # SIGTERM is a preemption notice: the expedited
+                # synchronous save; SIGINT the ordinary one
+                preempting = "SIGTERM" in names
+                should_exit = bool(names)
+                if t.exit_interval and self.iteration % t.exit_interval == 0:
+                    should_exit = True
+                if t.exit_duration_in_mins and (
+                        (time.time() - start_time) / 60
+                        > t.exit_duration_in_mins):
+                    should_exit = True
+                saved_now, should_exit, preempting = self._agree(
+                    saved_now, should_exit, preempting)
                 if saved_now:
                     # never checkpoint past unjudged metrics: a sentinel
                     # trip still in the pipeline CANCELS the save
@@ -1357,29 +1384,14 @@ class TrainLoop:
                     self.save()
                     self._heartbeat(f"iteration {self.iteration} (post-save)")
                     self._win_t0 = time.time()
-
-                should_exit = False
-                names = [signal_module.Signals(s).name
-                         for s in sig.signals_received()]
-                preempting = False
                 if names:
                     self._exit_signal = ",".join(sorted(set(names)))
-                    # SIGTERM is a preemption notice: the expedited
-                    # synchronous save; SIGINT the ordinary one
-                    preempting = "SIGTERM" in names
-                    should_exit = True
+                if should_exit and (names or preempting):
                     self.log(
-                        f"received {self._exit_signal}, checkpointing and "
-                        "exiting"
+                        f"received {self._exit_signal or 'SIGTERM'}, "
+                        "checkpointing and exiting"
                         + (" (preemption notice: expedited "
                            "synchronous save)" if preempting else ""))
-                if t.exit_interval and self.iteration % t.exit_interval == 0:
-                    should_exit = True
-                if t.exit_duration_in_mins and (
-                        (time.time() - start_time) / 60
-                        > t.exit_duration_in_mins):
-                    should_exit = True
-                should_exit = self._agree_exit(should_exit)
 
                 if should_exit:
                     # a sentinel trip still in the pipeline CANCELS the

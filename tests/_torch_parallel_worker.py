@@ -7,7 +7,8 @@ on them; rank 0's results come back. A training case returns the two
 steps' losses and grad norms (the same numbers on every rank) and the
 final parameters, put back together from every rank's slices; the unit
 jobs return the largest error of each collective against its unsharded
-math.
+math. A "call" job runs a function of another worker module
+(tests/_torch_ckpt_worker.py, tests/_torch_tp_serving_worker.py).
 """
 
 from __future__ import annotations
@@ -336,8 +337,20 @@ def cross_entropy_job():
     return out
 
 
+def call_job(arg):
+    """A job that lives in another worker module (which, like this one,
+    imports torch and the port only): arg = ("module:function",
+    keyword arguments)."""
+    import importlib
+
+    target, kwargs = arg
+    module, fn = target.split(":")
+    return getattr(importlib.import_module(module), fn)(**kwargs)
+
+
 JOBS = {"train": parallel_steps, "mappings": mappings_job,
-        "comm": comm_job, "cross_entropy": cross_entropy_job}
+        "comm": comm_job, "cross_entropy": cross_entropy_job,
+        "call": call_job}
 
 
 def _worker(rank, world, port, jobs, out_dir):

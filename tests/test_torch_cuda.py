@@ -42,6 +42,13 @@ the captured tensors between replays (no recapture) and the engine then
 serves what an engine built on the new weights serves; an int8 KV tick
 replays the eager int8 tick bit for bit; a deadline that expires in
 mid-decode clears its slot so the next replay does not decode the row.
+
+Tensor parallelism's checkpoint and serving shapes: a CUDA TrainState
+cut into two tp2 ranks (gloo processes sharing the card) saves into the
+sharded layout through each rank's AsyncCheckpointSaver (pinned
+buffers), and loads back bitwise at world size 1 and at tp2, on the
+card; B1 at S 2047 and B4 at B8 Sq 1, with a tp2 serving rank's 16 query
+and 16 kv heads of D 128, match their plain versions.
 """
 
 import dataclasses
@@ -1057,6 +1064,126 @@ def test_flash_kernels_at_the_tp2_per_rank_shape(gen):
                                   do)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         _assert_close_rel(a, b, name)
+
+
+def test_flash_kernels_at_the_tp2_serving_shapes(gen):
+    """A tp2 serving rank of Llama-2-7B: B1 over a 2047-token prefill and
+    B4 over a decode tick of 8 ragged slots of 2048, each with 16 query
+    and 16 kv heads of D 128."""
+    q, k, v = (_randn(gen, 1, 2047, 16, 128) for _ in range(3))
+    o, lse = ft.flash_fwd(q, k, v)
+    o_ref, lse_ref = ft.flash_fwd_reference(q.float(), k.float(), v.float())
+    _assert_close(o, o_ref)
+    _assert_close(lse, lse_ref)
+    q = _randn(gen, 8, 1, 16, 128)
+    k, v = _randn(gen, 8, 2048, 16, 128), _randn(gen, 8, 2048, 16, 128)
+    lens = torch.tensor([1, 63, 64, 2047, 2048, 500, 1000, 1500],
+                        dtype=torch.int32, device="cuda")
+    _assert_close(ft.flash_decode(q, k, v, lens),
+                  ft.flash_decode_reference(q.float(), k.float(), v.float(),
+                                            lens))
+
+
+def _sharded_cfg():
+    return presets.tiny(hidden_size=256, num_attention_heads=4,
+                        num_kv_heads=2, ffn_hidden_size=512, vocab_size=256,
+                        seq_length=64, params_dtype="bfloat16")
+
+
+def _sharded_full_state():
+    """A bf16 TrainState on the card whose params, masters and moments
+    all differ (the same on every process: seeded init, then arithmetic)."""
+    cfg = _sharded_cfg()
+    state = init_train_state(OptimizerConfig(), init_params(cfg, 0))
+    with torch.no_grad():
+        for (_, p), (_, m), (_, mu), (_, nu) in zip(
+                leaf_paths(state.params), leaf_paths(state.master),
+                leaf_paths(state.mu), leaf_paths(state.nu)):
+            m.add_(0.25)
+            mu.copy_(p.float() * 0.5)
+            nu.copy_(p.float().square())
+        state.step.fill_(7)
+    return cfg, state
+
+
+def _tp2_slice(state, cfg, mesh):
+    """A tp2 rank's TrainState by the training path's own cut."""
+    from megatron_tpu_torch.models.params import shard_params
+    from megatron_tpu_torch.training.optimizer import nest_paths
+
+    def cut(t):
+        return nest_paths(shard_params(dict(leaf_paths(t)), cfg, mesh))
+
+    return dataclasses.replace(
+        state, params=cut(state.params), master=cut(state.master),
+        mu=cut(state.mu), nu=cut(state.nu))
+
+
+def _sharded_save_rank(rank, port, save):
+    """One of two gloo ranks sharing the card: its tp2 slice of the
+    state, saved into the sharded layout."""
+    import torch.distributed as dist
+
+    from megatron_tpu_torch.config import ParallelConfig
+    from megatron_tpu_torch.models.params import StatePlacement
+    from megatron_tpu_torch.parallel.mesh import build_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        cfg, full = _sharded_full_state()
+        mesh = build_mesh(ParallelConfig(tensor_parallel=2))
+        saver = checkpointing.AsyncCheckpointSaver(
+            save, placement=StatePlacement.of(cfg, mesh, zero1=False))
+        saver.save(_tp2_slice(full, cfg, mesh), 3, consumed_samples=12)
+        saver.close()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_layout_round_trips_a_cuda_state(gen, tmp_path):
+    """Saved by two tp2 ranks on the card, loaded on the card at world
+    size 1 and at tp2: every leaf bitwise."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from megatron_tpu_torch.config import ParallelConfig
+    from megatron_tpu_torch.models.params import StatePlacement
+    from megatron_tpu_torch.parallel.mesh import build_mesh
+    from megatron_tpu_torch.training import resilience
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    save = str(tmp_path / "sharded")
+    mp.spawn(_sharded_save_rank, args=(port, save), nprocs=2, join=True)
+    layout = os.path.join(checkpointing.checkpoint_dir(save, 3), "state",
+                          checkpointing.LAYOUT)
+    assert os.path.exists(layout)
+    cfg, full = _sharded_full_state()
+    template = init_train_state(OptimizerConfig(), init_params(cfg, 1))
+    got, it, consumed = checkpointing.load_checkpoint(save, template)
+    assert (it, consumed) == (3, 12) and got.mu["layers"]["attn"]["wq"].is_cuda
+    fields = ("params", "master", "mu", "nu")
+    assert resilience.tree_bitwise_mismatch(
+        {f: getattr(got, f) for f in fields},
+        {f: getattr(full, f) for f in fields}) == []
+    assert int(got.step) == 7
+    for r in range(2):
+        mesh = build_mesh(ParallelConfig(tensor_parallel=2), world_size=2,
+                          rank=r)
+        want = _tp2_slice(full, cfg, mesh)
+        template = _tp2_slice(init_train_state(
+            OptimizerConfig(), init_params(cfg, 2)), cfg, mesh)
+        got, _, _ = checkpointing.load_checkpoint(
+            save, template,
+            placement=StatePlacement.of(cfg, mesh, zero1=False))
+        assert resilience.tree_bitwise_mismatch(
+            {f: getattr(got, f) for f in fields},
+            {f: getattr(want, f) for f in fields}) == [], r
 
 
 def test_world_size_one_nccl_step_equals_the_single_process_step(gen):

@@ -423,16 +423,18 @@ def test_moe_generation_matches_teacher_forcing(paged):
     the JAX test holds its generate_tokens."""
     from megatron_tpu_torch.inference.engine import InferenceEngine
     from megatron_tpu_torch.inference.paging import PagedInferenceEngine
+    from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
 
     _, cfg = _cfgs(seq_length=32)
     params = init_params(cfg, 2, device="cpu")
+    # a registry of its own: the process-wide one is read by other tests
+    kw = dict(vocab_size=96, device="cpu", metrics=MetricsRegistry())
     if paged:
         eng = PagedInferenceEngine(cfg, params, num_slots=2, max_seq_len=32,
-                                   page_size=8, prefill_chunk=4,
-                                   vocab_size=96, device="cpu")
+                                   page_size=8, prefill_chunk=4, **kw)
     else:
         eng = InferenceEngine(cfg, params, num_slots=2, max_seq_len=32,
-                              vocab_size=96, device="cpu")
+                              **kw)
     out = eng.generate(np.asarray([[5, 9, 11, 1], [7, 3, 2, 30]], np.int32),
                        np.asarray([4, 4], np.int32), max_new_tokens=5,
                        temperature=0.0, eod=-1)

@@ -276,8 +276,11 @@ def test_refusals_name_what_is_missing():
                      world_size=2, rank=0)
     with pytest.raises(ValueError, match="7b"):
         tparams.check_mesh(dataclasses.replace(falcon, num_kv_heads=2), tp2)
+    # checkpoints at world size > 1 are ported (the sharded layout);
+    # MoE above world size 1 is still refused, by name
+    moe = dataclasses.replace(cfg, num_experts=4, moe_top_k=2).validate()
     run = tconfig.RunConfig(
-        model=cfg, parallel=tconfig.ParallelConfig(tensor_parallel=2),
+        model=moe, parallel=tconfig.ParallelConfig(tensor_parallel=2),
         training=tconfig.TrainingConfig(
             micro_batch_size=1, global_batch_size=2, train_iters=1,
             save="/nonexistent"))
