@@ -101,10 +101,10 @@ still run, so one call shows every failure):
               warm-up one.
   3c. spec    speculative serving (--serve_speculative, k SPEC_K) through
               the server on both engines, the phase-3 prompts plus one of
-              512 tokens repeating a 64-token pattern, four drafters:
-              ngram, model at full depth (the target's own weights:
-              near-full acceptance), model cut to the target's first
-              SPEC_DRAFT_LAYERS layers and to its first
+              512 tokens repeating a 64-token pattern, three drafters:
+              ngram (on random weights: no draft accepted), model at
+              full depth (the target's own weights: near-full
+              acceptance), model cut to the target's first
               SPEC_PARTIAL_LAYERS (which accepts part of its drafts: the
               rollback after 0 < a < k, the draft cache overwritten past
               it, paged write spans across a partial accept). Gates per
@@ -319,8 +319,9 @@ still run, so one call shows every failure):
               gloo-through-host numbers, not NCCL ones; (c) the sharded
               checkpoint: tp2_sp saves asynchronously at its last step
               (--save); tp2_sp, pp2 and pp2 x vpp2 resume from it and
-              take one more step (every run of (b) and (c) is one launch
-              of two ranks: --rank-run OUT -- ARGV [--then ARGV]...),
+              take one more step (every run of (b) and (c), after 7d
+              and 7e, is one launch of two ranks: --rank-serve OUT --
+              ARGV [--then ARGV]...),
               each within PAR_LOSS_ATOL of the single-process run's
               step PAR_STEPS + 1 (that run takes one step more), the two
               pipeline topologies within PAR_RESUME_ATOL of each other
@@ -328,7 +329,8 @@ still run, so one call shows every failure):
               save stall, commit or vote, load seconds and bytes read;
               a world-1 run_text_generation_server --load serves it one
               request.
-  7d. tp2     (parallel_serving) Llama-2-7B at full width and depth
+  7d. tp2     (parallel_serving; run first in phase 7's two-rank
+              launch, with 7e) Llama-2-7B at full width and depth
      serving  served at tp2 by two gloo ranks sharing the card (each is
               this script's --rank-serve mode): the dense engine with an
               eager tick, 8 slots x 2048, phase 3's traffic, then
@@ -339,6 +341,23 @@ still run, so one call shows every failure):
               teacher-forced gate, launches per rank (B1 at S <= 2047 and
               B4 at B 8, 16 heads of D 128 a rank: both held against
               their plain versions in phases 2/2a), TTFT and tick wall.
+  7e. the     (parallel_serving, the rest of 7d's launch) (a) the paged
+     dense    engine at tp2 on 7d's weights: phase 3b's traffic and
+     families 147-page pool in chunks of TP_PREFILL_CHUNK (a
+     at more  preemption), the 100-token prompt again (a prefix hit),
+     than one then its tick over filled slots timed and traced; B5 = 32
+     rank     x ticks a rank, B1 = B4 = 0; (b) Llama-2-7B at pp2 through
+              the one-shot server's pipelined forward: the 100-token
+              prompt x 32 (phase 3's gate) and the four prompts scored
+              (phase 3d's scoring gate), B1 = 16 a stage, the p2p share
+              of the request traced; (c) Falcon-40B's width x
+              FALCON_TRAIN_LAYERS trained at tp2 + SP with --metrics
+              against its one-process run (phase 7's tolerances; B1-B3
+              as counted); (d) Falcon-40B's width x FALCON_SERVE_LAYERS
+              on the tp2 dense engine, phase 3's traffic (phase 3's
+              gate; B1, B4 counted). The new per-rank kernel shapes
+              (B1-B3 at S 2048 Hq 64 Hkv 4 D 64, B4 at R 16, B5 at 16
+              heads, ps 16) are phase 2-2c cases.
   8. report   each phase's wall seconds as it ends and all of them
               after phase 7d (seconds_by_phase, with the total), then one
               JSON line listing each kernel with its launches on its path
@@ -398,15 +417,15 @@ PRESSURE_PAGES = 147
 SHARED_PREFIX, OWN_SUFFIX = 512, 64
 # phase 3c: speculative serving, k SPEC_K, the phase-3 prompts plus one
 # of SPEC_REPEAT tokens repeating a SPEC_PATTERN-token pattern (so the
-# n-gram lookup proposes); the small draft is the target's first
-# SPEC_DRAFT_LAYERS layers. The random-init target copies no pattern and
-# agrees with its 4-layer cut nowhere, so those drafts are never
-# accepted; a cut of SPEC_PARTIAL_LAYERS layers agrees with it in part
+# n-gram lookup proposes). The random-init target copies no pattern, so
+# the n-gram drafts are never accepted (a 4-layer draft model, which
+# agreed with it nowhere either, ran here until PR 15 and was cut for
+# the script's wall); a cut of SPEC_PARTIAL_LAYERS layers agrees with it
+# in part
 # (on an H100, seed 1234: 101 of 260 drafts dense, 85 of 280 paged), so
 # its ticks roll back after 0 < a < k accepted drafts
 SPEC_K = 4
 SPEC_PATTERN, SPEC_REPEAT = 64, 512
-SPEC_DRAFT_LAYERS = 4
 SPEC_PARTIAL_LAYERS = 31
 
 # phase 3d: serving control. The lifecycle run's engine takes at most
@@ -477,7 +496,7 @@ PAR_CASES = {
 }
 PAR_LOSS_ATOL = STEP_LOSS_ATOL
 PAR_NORM_RTOL = STEP_NORM_RTOL
-PAR_TIMEOUT_S = 900          # a launch: every two-rank case and resume
+PAR_TIMEOUT_S = 900          # a launch: 7d, 7e, every two-rank case and resume
 # phase 7c: the sharded checkpoint. PAR_SAVE_CASE saves asynchronously
 # at its last step (after its traced step: the trace is unchanged); then,
 # in the same launches, it resumes from it at its own topology and the
@@ -500,7 +519,25 @@ PAR_SERVE_NEW = 16            # the world-1 server's request of the ckpt
 TP_SLOTS, TP_SEQ, TP_TICKS = 8, 2048, 5
 TP_ONE_SHOT_NEW = 8
 TP_TICK_LENS = (5, 100, 300, 500, 700, 1000, 1200, 1500)
-TP_TIMEOUT_S = 600
+# phase 7e, in phase 7d's launch (rank_serve): (a) the paged engine at
+# tp2 on 7d's weights, phase 3b's traffic and 147-page pool (the pool is
+# full at admission, so the first decode page preempts) in prefill
+# chunks of TP_PREFILL_CHUNK tokens (3b's 32 took 75 chunks, 52.5 s at
+# tp2 over gloo on an H100 80GB HBM3 at 700 W), then its tick timed and
+# traced over TP_SLOTS slots filled with one-chunk prompts of
+# PAGED_TICK_LENS tokens; (b) Llama-2-7B at pp2 through the one-shot
+# server: the 100-token prompt x NEW_TOKENS and the four prompts scored;
+# (c) Falcon-40B's width x FALCON_TRAIN_LAYERS trained at tp2 + SP, S
+# PAR_SEQ, with --metrics FALCON_METRICS (1.91 B parameters: a 38 GB
+# TrainState, 19 GB a rank; 4 layers would take 52 GB); (d) Falcon-40B's
+# width x FALCON_SERVE_LAYERS (6.0 B parameters, 12.1 GB of bf16) on the
+# tp2 dense engine, phase 3's traffic
+TP_PREFILL_CHUNK = 128
+PAGED_TICK_LENS = (TP_PREFILL_CHUNK,) * TP_SLOTS
+FALCON40 = "falcon-40B"
+FALCON_TRAIN_LAYERS = 2
+FALCON_SERVE_LAYERS = 8
+FALCON_METRICS = ("perplexity", "accuracy")
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TPU_KERNELS = "megatron_tpu/ops/pallas/flash_template.py"
@@ -685,11 +722,13 @@ def rates(flops, ms, bound_ms) -> dict:
 # the last position: B 4, S 1499, which ends inside a 128-row tile), and
 # phase 5b's training shapes: Falcon-7B's 71 query heads over one kv head
 # at D 64, S 2048, and GPT-2 1.3B's 32 heads at D 64, S 1024
-# (and phase 7's per-rank shape: Llama-2-7B's heads at tp2, S 2048, and
-# phase 5c's Mixtral training shape: 32 q heads over 8 kv heads, S 8192)
+# (and phase 7's per-rank shape: Llama-2-7B's heads at tp2, S 2048,
+# phase 5c's Mixtral training shape: 32 q heads over 8 kv heads, S 8192,
+# and phase 7e's Falcon-40B rank at tp2: 64 q heads over 4 kv heads, D 64)
 FALCON_ATTN = dict(hq=71, hkv=1, D=64)
 GPT2_ATTN = dict(hq=32, hkv=32, D=64)
 TP2_ATTN = dict(hq=16, hkv=16, D=128)
+FALCON40_TP2_ATTN = dict(hq=64, hkv=4, D=64)
 FWD_CASES = [attn_case(64), attn_case(512), attn_case(2047),
              attn_case(2047, hkv=8, window=256), attn_case(4096),
              attn_case(1), attn_case(127), attn_case(129), attn_case(1000),
@@ -698,7 +737,8 @@ FWD_CASES = [attn_case(64), attn_case(512), attn_case(2047),
              attn_case(2047, hkv=8), attn_case(2047, fused=True),
              attn_case(1499, B=4), attn_case(2048, **FALCON_ATTN),
              attn_case(1024, **GPT2_ATTN), attn_case(2048, **TP2_ATTN),
-             attn_case(8192, hkv=8), attn_case(2047, **TP2_ATTN)]
+             attn_case(8192, hkv=8), attn_case(2047, **TP2_ATTN),
+             attn_case(2048, **FALCON40_TP2_ATTN)]
 
 
 def check_flash_fwd(torch, F, ft, card):
@@ -773,14 +813,17 @@ ROW_TILE_CASES = [dict(sq=1, hq=71, hkv=1, d=64), dict(sq=5, hq=71, hkv=1,
 DECODE_CASES = [dict(sq=1, hq=32, hkv=32), dict(sq=1, hq=32, hkv=8),
                 dict(sq=5, hq=32, hkv=8), dict(sq=5, hq=32, hkv=32),
                 *ROW_TILE_CASES, dict(sq=1, hq=32, hkv=32, d=64, s=1024),
-                dict(sq=1, hq=16, hkv=16)]
+                dict(sq=1, hq=16, hkv=16),
+                dict(sq=1, hq=64, hkv=4, d=64)]     # phase 7e: Falcon-40B
+PAGED_CASES_TP2 = [dict(ps=16, sq=1, hq=16, hkv=16, window=None)]
 PAGED_CASES = [dict(ps=16, sq=1, hq=32, hkv=32, window=None),
                dict(ps=16, sq=5, hq=32, hkv=32, window=None),
                dict(ps=16, sq=5, hq=32, hkv=8, window=256),
                dict(ps=16, sq=1, hq=32, hkv=8, window=None),   # Mixtral
                dict(ps=8, sq=1, hq=32, hkv=32, window=None),
                dict(ps=64, sq=1, hq=32, hkv=32, window=None),
-               *(dict(c, ps=16, window=None) for c in ROW_TILE_CASES)]
+               *(dict(c, ps=16, window=None) for c in ROW_TILE_CASES),
+               *PAGED_CASES_TP2]      # phase 7e: Llama-2-7B's tp2 rank
 
 
 def decode_case(torch, gen, c):
@@ -985,14 +1028,16 @@ def compare_rel(got, want, m=None):
 # (S 4096 the reported case); then S 1 and the 128-row kv tile's edges, a
 # ring stripe, bidirectional, D 64, GQA, a fused QKV buffer, and phase
 # 5b's training shapes (Falcon-7B: the dk/dv kernel sums 71 query heads
-# into one kv head; GPT-2 1.3B) and phase 7's tp2 per-rank shape
+# into one kv head; GPT-2 1.3B), phase 7's tp2 per-rank shape and phase
+# 7e's Falcon-40B rank at tp2 (a group of 16 query heads a kv head)
 BWD_CASES = [attn_case(4096), attn_case(4096, hkv=8, window=256),
              attn_case(1000), attn_case(1), attn_case(127), attn_case(129),
              attn_case(Sq=1024, Skv=4096, delta=3072),
              attn_case(2047, causal=False), attn_case(2047, D=64),
              attn_case(2047, hkv=8), attn_case(2047, fused=True),
              attn_case(2048, **FALCON_ATTN), attn_case(1024, **GPT2_ATTN),
-             attn_case(2048, **TP2_ATTN), attn_case(8192, hkv=8)]
+             attn_case(2048, **TP2_ATTN), attn_case(8192, hkv=8),
+             attn_case(2048, **FALCON40_TP2_ATTN)]
 # the three original cases again, drawn from a second seed
 BWD_DRAW2_SEED = SEED + 13
 
@@ -1736,7 +1781,6 @@ def serve_speculative(torch, ft, card, dense_tokens):
     runs, seqs, problems = [], {}, []
     for paged in (False, True):
         for drafter, layers in (("ngram", None), ("model", NUM_LAYERS),
-                                ("model", SPEC_DRAFT_LAYERS),
                                 ("model", SPEC_PARTIAL_LAYERS)):
             rec, gen = _spec_server_run(torch, ft, cfg, params, tokenizer,
                                         prompts, paged, drafter, layers)
@@ -4306,44 +4350,15 @@ def rank_run(out: str, runs) -> int:
     from megatron_tpu_torch.parallel.distributed import (
         destroy_distributed, initialize_distributed,
     )
-    from megatron_tpu_torch.tools import pretrain_gpt
 
     rank = int(os.environ["RANK"])
     cuda = torch.cuda.is_available()
-
-    def one(flags):
-        for name in TRAIN_COUNTED:
-            getattr(ft, name).launches = 0
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
-        t0 = time.monotonic()
-        loop = pretrain_gpt.main(list(flags),
-                                 log=lambda m: print(m, flush=True))
-        if cuda:
-            torch.cuda.synchronize()
-        return {
-            "rank": rank, "wall_s": time.monotonic() - t0,
-            "iterations": [r["iteration"] for r in loop.step_records],
-            "losses": [r["loss"] for r in loop.step_records],
-            "step_s": [r["step_s"] for r in loop.step_records],
-            "grad_norms": [h["grad_norm"] for h in loop.history],
-            "evals": [e["lm_loss"] for e in loop.evals],
-            "launches": {n: getattr(ft, n).launches for n in TRAIN_COUNTED},
-            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30 if cuda
-                         else None),
-            "traces": loop.profile_traces, "saves": loop.saves,
-            "load_s": loop.load_s, "load_read_bytes": loop.load_read_bytes,
-            "mesh": (None if loop.mesh is None else
-                     {"world": loop.mesh.world_size, "dp": loop.mesh.dp,
-                      "pp": loop.mesh.pp, "vpp": loop.mesh.vpp,
-                      "tp": loop.mesh.tp})}
-
     args = parse_args(list(runs[0]))
     initialize_distributed(args.device, args.distributed_backend)
     records = []
     try:
         for flags in runs:
-            records.append(one(flags))
+            records.append(_run_record(torch, ft, flags, rank))
             gc.collect()
             if cuda:
                 torch.cuda.empty_cache()
@@ -4358,8 +4373,8 @@ def _launch(nproc: int, out: str, runs, timeout_s=PAR_TIMEOUT_S,
             mode="--rank-run") -> list:
     """Each argv of `runs` through pretrain_gpt, in turn, on `nproc`
     ranks of one torch.distributed.run launch; returns, per run, the
-    ranks' records. With mode "--rank-serve", runs is phase 7d's one
-    argv and the ranks' records come back as a list."""
+    ranks' records. With mode "--rank-serve", runs are rank_serve's and
+    the ranks' records come back as a list."""
     import socket
 
     with socket.socket() as sock:
@@ -4665,11 +4680,23 @@ def parallel_training(torch, np, ft, card):
                 plan.append((case + "/resumed", base + flags + [
                     "--train_iters", str(PAR_STEPS + 1), "--load", ckpt,
                     "--distributed_backend", "gloo"]))
-        by_run = dict(zip((name for name, _ in plan),
-                          _launch(2, os.path.join(tmp, "gloo"),
-                                  [argv for _, argv in plan])))
+        # 7e(c)'s one-process yardstick, before the ranks take the card
+        PARALLEL_LAUNCH["falcon_ref"] = _falcon_reference(torch)
+        # phases 7d and 7e run first in the same launch (rank_serve):
+        # one launch's start and first steps are paid once
+        recs = _launch(2, os.path.join(tmp, "gloo"),
+                       [tp_serve_argv(), falcon_train_argv(corpus_prefix(),
+                                                           tp=True),
+                        *(argv for _, argv in plan)],
+                       mode="--rank-serve")
+        PARALLEL_LAUNCH["recs"] = recs
+        by_run = {name: [dict(rec["runs"][i],
+                              launch_wall_s=rec["launch_wall_s"])
+                         for rec in recs]
+                  for i, (name, _) in enumerate(plan)}
         emit({"phase": "parallel_launch", "card": card,
-              "runs": [name for name, _ in plan],
+              "runs": ["7d, 7e (rank_serve)"] + [name for name, _ in plan],
+              "serving_part_s": recs[0]["part_s"],
               "wall_s": by_run[plan[0][0]][0]["launch_wall_s"],
               "run_wall_s": {name: recs[0]["wall_s"]
                              for name, recs in by_run.items()}})
@@ -4755,26 +4782,190 @@ def parallel_training(torch, np, ft, card):
     return total
 
 
-def rank_serve(out: str, argv) -> int:
-    """One rank of phase 7d (this script's --rank-serve mode, started by
-    torch.distributed.run): tools/run_text_generation_server's own
-    pieces at --tensor_model_parallel_size (the process group, the
-    serving mesh, load_model's init at the seed cut to this rank's
-    slices), then (1) the engine server on rank 0 (phase 3's traffic,
-    its /metrics) with the other rank in the follower loop, (2) TP_TICKS
-    decode ticks over TP_SLOTS filled slots, stepped by rank 0 in this
-    thread, timed and then traced, (3) one request through the one-shot
-    server (engine_slots 0); each part's kernel launches, and rank 0's
-    tokens, written to `out`.rank<RANK>.json."""
+def _served(kw, cfg, params, tokenizer, lead, drive):
+    """drive(service, base) on rank 0's server (run_server with the
+    GenerationService keywords `kw`), the follower loop on the other
+    ranks. Returns drive's result on rank 0, None elsewhere."""
+    from megatron_tpu_torch.inference.server import (
+        GenerationService, run_server,
+    )
+    from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
+
+    if not lead:
+        GenerationService(cfg, params, tokenizer, metrics=MetricsRegistry(),
+                          **kw).follow()
+        return None
+    ready, handles = threading.Event(), []
+    thread = threading.Thread(
+        target=run_server, daemon=True, name="rank-server",
+        kwargs=dict(cfg=cfg, params=params, tokenizer=tokenizer,
+                    host="127.0.0.1", port=0, ready=ready,
+                    service_out=handles, **kw))
+    thread.start()
+    if not ready.wait(300):
+        raise RuntimeError("rank 0's server did not start")
+    service, server = handles
+    try:
+        return drive(service, f"http://127.0.0.1:{server.server_address[1]}")
+    finally:
+        server.shutdown()
+        thread.join(120)
+
+
+def _engine_traffic(ft, service, base, prompts) -> dict:
+    """_greedy_traffic on a running engine server, with the TTFT, tick
+    and per-token means of this run (deltas of the process-wide
+    registry) and the engine's counters."""
+    def scrape():
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            return r.read().decode()
+
+    before = scrape()
+    run = _greedy_traffic(ft, base, service.engine, prompts)
+    after = scrape()
+    run.pop("caught")
+
+    def mean(name):
+        return (_metric_delta(before, after, name + "_sum")
+                / _metric_delta(before, after, name + "_count"))
+
+    run.update(ttft_mean_s=mean("engine_ttft_seconds"),
+               tick_wall_mean_s=mean("engine_decode_tick_seconds"),
+               per_token_mean_s=mean("engine_time_per_output_token_seconds"),
+               stats=dict(service.engine.stats))
+    return run
+
+
+def _filled_ticks(torch, eng, ch, lead, lens, vocab, trace, sync) -> dict:
+    """TP_TICKS decode ticks of `eng` with one request a slot (prompts of
+    `lens` tokens), stepped by rank 0 in this thread, timed and then
+    traced (the other ranks follow ch). Rank 0's wall, kernel and copy
+    spans and the comm.* share of the traced ticks; {} elsewhere."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from megatron_tpu_torch.inference.engine import Request
+
+    if not lead:
+        while True:
+            op, payload = ch.recv()
+            if op == "stop":
+                return {}
+            if op == "tick":
+                eng.follow(payload)
+    fill = np.random.default_rng(SEED + 8)
+    for n in lens:
+        eng.submit(Request(
+            prompt=fill.integers(0, vocab - 1, size=n).astype(np.int32),
+            max_new_tokens=TP_SEQ - n - 1))
+    while len(eng._decode_rows()) < len(lens):
+        eng.step()
+    for _ in range(3):
+        eng.step()
+    sync()
+    t1 = time.perf_counter()
+    for _ in range(TP_TICKS):
+        eng.step()
+    sync()
+    wall_ms = (time.perf_counter() - t1) * 1e3 / TP_TICKS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(TP_TICKS):
+            eng.step()
+        sync()
+    kernel_ms = copy_ms = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+        if e.key.startswith(("Memcpy", "Memset")):
+            copy_ms += ms         # gloo's staging through host memory
+        else:
+            kernel_ms += ms
+    prof.export_chrome_trace(trace)
+    ch.stop()
+    # the two ranks' contexts take turns on the card, so a kernel's span
+    # on rank 0 holds the other rank's turns too: these are spans, not
+    # device busy time (no idle share)
+    return {"wall_ms": wall_ms,
+            "kernel_span_ms_time_sliced": kernel_ms / TP_TICKS,
+            "copy_span_ms_time_sliced": copy_ms / TP_TICKS,
+            "comm": _comm_share(trace)}
+
+
+def _run_record(torch, ft, flags, rank) -> dict:
+    """tools/pretrain_gpt's main with `flags` in this process group: its
+    kernel launches, losses, grad norms, evaluations (with --metrics),
+    step times, saves, load, peak memory and traces."""
+    from megatron_tpu_torch.tools import pretrain_gpt
+
+    cuda = torch.cuda.is_available()
+    for name in TRAIN_COUNTED:
+        getattr(ft, name).launches = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    loop = pretrain_gpt.main(list(flags), log=lambda m: print(m, flush=True))
+    if cuda:
+        torch.cuda.synchronize()
+    return {
+        "rank": rank, "wall_s": time.monotonic() - t0,
+        "iterations": [r["iteration"] for r in loop.step_records],
+        "losses": [r["loss"] for r in loop.step_records],
+        "step_s": [r["step_s"] for r in loop.step_records],
+        "grad_norms": [h["grad_norm"] for h in loop.history],
+        "evals": [e["lm_loss"] for e in loop.evals],
+        "eval_metrics": [dict(e) for e in loop.evals],
+        "launches": {n: getattr(ft, n).launches for n in TRAIN_COUNTED},
+        "peak_gib": (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                     else None),
+        "traces": loop.profile_traces, "saves": loop.saves,
+        "load_s": loop.load_s, "load_read_bytes": loop.load_read_bytes,
+        "mesh": (None if loop.mesh is None else
+                 {"world": loop.mesh.world_size, "dp": loop.mesh.dp,
+                  "pp": loop.mesh.pp, "vpp": loop.mesh.vpp,
+                  "tp": loop.mesh.tp})}
+
+
+def rank_serve(out: str, runs) -> int:
+    """One rank of phases 7d, 7e and 7b-7c's two-rank runs (this
+    script's --rank-serve mode, started by torch.distributed.run).
+    runs[0] is the server's argv at --tensor_model_parallel_size,
+    runs[1] 7e(c)'s training run's, runs[2:] phase 7's. In one process
+    group, in turn:
+
+      7d  tools/run_text_generation_server's own pieces (the process
+          group, the serving mesh, load_model's init at the seed cut to
+          this rank's slices), then (1) the engine server on rank 0
+          (phase 3's traffic, its /metrics) with the other rank in the
+          follower loop, (2) TP_TICKS decode ticks over TP_SLOTS filled
+          slots, stepped by rank 0 in this thread, timed and then
+          traced, (3) one request through the one-shot server;
+      7e  (a) the paged server on the same weights (phase 3b's traffic
+          and 147-page pool), then its filled ticks, timed and traced;
+          (d) Falcon-40B width x FALCON_SERVE_LAYERS on the dense
+          engine server; (b) Llama-2-7B at pp2 (load_model on a pp2
+          serving mesh): one generation request and one scored batch
+          through the one-shot server, and the request again in this
+          thread under the profiler; (c) pretrain_gpt's main with
+          runs[1];
+      7   pretrain_gpt's main with each of runs[2:] (rank_run's records).
+
+    Each part's kernel launches, walls and rank 0's tokens go to
+    `out`.rank<RANK>.json."""
+    import dataclasses
+
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     sys.path.insert(0, REPO)
-    from megatron_tpu_torch.inference.engine import InferenceEngine, Request
-    from megatron_tpu_torch.inference.server import (
-        GenerationService, run_server,
-    )
+    from megatron_tpu_torch.inference.engine import InferenceEngine
+    from megatron_tpu_torch.inference.paging import PagedInferenceEngine
+    from megatron_tpu_torch.inference.pipelined import PipelinedForward
+    from megatron_tpu_torch.models import presets
+    from megatron_tpu_torch.models.params import init_params
     from megatron_tpu_torch.ops.flash import flash_template as ft
     from megatron_tpu_torch.parallel.distributed import (
         ServingChannel, destroy_distributed, initialize_distributed,
@@ -4784,7 +4975,7 @@ def rank_serve(out: str, argv) -> int:
     from megatron_tpu_torch.tokenizer import NullTokenizer
     from megatron_tpu_torch.tools import run_text_generation_server as rts
 
-    args = rts.parse_args(list(argv))
+    args = rts.parse_args(list(runs[0]))
     initialize_distributed(args.device, args.distributed_backend)
     try:
         mesh = serving_mesh(args.tensor_model_parallel_size)
@@ -4792,137 +4983,66 @@ def rank_serve(out: str, argv) -> int:
         lead = mesh.rank == 0
         cuda = args.device.startswith("cuda")
         sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+        def free():
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+
         t0 = time.monotonic()
         cfg, params, _ = rts.load_model(args, mesh, log=lambda m: None)
         sync()
         record = {"rank": mesh.rank, "init_s": time.monotonic() - t0,
-                  "tp": mesh.tp}
+                  "tp": mesh.tp, "part_s": {}}
         tokenizer = NullTokenizer(cfg.vocab_size)
         rng = np.random.default_rng(SEED)
         prompts = [rng.integers(0, cfg.vocab_size - 1, size=n).tolist()
                    for n in PROMPT_LENS]
 
-        def channel():
-            return ServingChannel(mesh.control_group, mesh.rank)
+        def channel(m=mesh):
+            return ServingChannel(m.control_group, m.rank)
 
-        def served(slots, drive):
-            """drive(service, base) on rank 0's server of `slots`; the
-            follower loop elsewhere. Returns drive's result on rank 0."""
-            kw = dict(engine_slots=slots, engine_max_seq_len=TP_SEQ,
-                      device=args.device, mesh=mesh, channel=channel(),
-                      cuda_graph=False)
-            if not lead:
-                GenerationService(cfg, params, tokenizer,
-                                  metrics=MetricsRegistry(), **kw).follow()
-                return None
-            ready, handles = threading.Event(), []
-            thread = threading.Thread(
-                target=run_server, daemon=True, name="tp-server",
-                kwargs=dict(cfg=cfg, params=params, tokenizer=tokenizer,
-                            host="127.0.0.1", port=0, ready=ready,
-                            service_out=handles, **kw))
-            thread.start()
-            if not ready.wait(300):
-                raise RuntimeError("rank 0's server did not start")
-            service, server = handles
-            try:
-                return drive(service,
-                             f"http://127.0.0.1:{server.server_address[1]}")
-            finally:
-                server.shutdown()
-                thread.join(120)
+        def kw(slots, m=mesh, **extra):
+            return dict(engine_slots=slots, engine_max_seq_len=TP_SEQ,
+                        device=args.device, mesh=m, channel=channel(m),
+                        cuda_graph=False, **extra)
 
-        # (1) the engine server: the main path's run, counts from 0
+        def traffic(service, base):
+            return _engine_traffic(ft, base=base, service=service,
+                                   prompts=prompts)
+
+        def part(name):
+            record["part_s"][name] = time.monotonic() - part.t
+            part.t = time.monotonic()
+
+        part.t = time.monotonic()
+        # 7d (1) the engine server: the main path's run, counts from 0
         _zero_decode_counts(ft)
         if cuda:
             torch.cuda.reset_peak_memory_stats()
-
-        def traffic(service, base):
-            run = _greedy_traffic(ft, base, service.engine, prompts)
-            with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
-                run["metrics"] = r.read().decode()
-            run.pop("caught")
-            return run
-
-        run = served(TP_SLOTS, traffic)
+        run = _served(kw(TP_SLOTS), cfg, params, tokenizer, lead, traffic)
         record["launches"] = _decode_counts(ft)
         record["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
                               if cuda else None)
         if lead:
-            m = run.pop("metrics")
-            record.update(run, **{
-                "ttft_mean_s": (_metric(m, "engine_ttft_seconds_sum")
-                                / _metric(m, "engine_ttft_seconds_count")),
-                "tick_wall_mean_s": (
-                    _metric(m, "engine_decode_tick_seconds_sum")
-                    / _metric(m, "engine_decode_tick_seconds_count")),
-                "per_token_mean_s": (
-                    _metric(m, "engine_time_per_output_token_seconds_sum")
-                    / _metric(m,
-                              "engine_time_per_output_token_seconds_count"))})
+            run.pop("stats")
+            record.update(run)
 
-        # (2) decode ticks over filled slots, stepped here on rank 0
+        # 7d (2) decode ticks over filled slots
         ch = channel()
         eng = InferenceEngine(cfg, params, num_slots=TP_SLOTS,
                               max_seq_len=TP_SEQ, device=args.device,
                               metrics=MetricsRegistry(), cuda_graph=False,
                               mesh=mesh, channel=ch)
         _zero_decode_counts(ft)
-        if lead:
-            fill = np.random.default_rng(SEED + 8)
-            for n in TP_TICK_LENS:
-                eng.submit(Request(
-                    prompt=fill.integers(0, cfg.vocab_size - 1, size=n)
-                    .astype(np.int32), max_new_tokens=TP_SEQ - n - 1))
-            while len(eng._decode_rows()) < len(TP_TICK_LENS):
-                eng.step()
-            for _ in range(3):
-                eng.step()
-            sync()
-            t1 = time.perf_counter()
-            for _ in range(TP_TICKS):
-                eng.step()
-            sync()
-            wall_ms = (time.perf_counter() - t1) * 1e3 / TP_TICKS
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(TP_TICKS):
-                    eng.step()
-                sync()
-            kernel_ms = copy_ms = 0.0
-            for e in prof.key_averages():
-                if e.device_type != torch.autograd.DeviceType.CUDA:
-                    continue
-                ms = getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-                if e.key.startswith(("Memcpy", "Memset")):
-                    copy_ms += ms     # gloo's staging through host memory
-                else:
-                    kernel_ms += ms
-            trace = f"{out}.tick_trace.json"
-            prof.export_chrome_trace(trace)
-            ch.stop()
-            # the two ranks' contexts take turns on the card, so a
-            # kernel's span on rank 0 holds the other rank's turns too:
-            # these are spans, not device busy time (no idle share)
-            record["tick"] = {"wall_ms": wall_ms,
-                              "kernel_span_ms_time_sliced":
-                                  kernel_ms / TP_TICKS,
-                              "copy_span_ms_time_sliced": copy_ms / TP_TICKS,
-                              "comm": _comm_share(trace)}
-        else:
-            while True:
-                op, payload = ch.recv()
-                if op == "stop":
-                    break
-                if op == "tick":
-                    eng.follow(payload)
+        record["tick"] = _filled_ticks(torch, eng, ch, lead, TP_TICK_LENS,
+                                       cfg.vocab_size,
+                                       f"{out}.tick_trace.json", sync)
         record["tick_launches"] = _decode_counts(ft)
         del eng
-        if cuda:
-            torch.cuda.empty_cache()
+        free()
 
-        # (3) one request through the one-shot server
+        # 7d (3) one request through the one-shot server
         _zero_decode_counts(ft)
 
         def one_shot(service, base):
@@ -4937,8 +5057,129 @@ def rank_serve(out: str, argv) -> int:
             return {"one_shot_generated": toks[len(prompts[1]):],
                     "one_shot_wall_s": time.monotonic() - t}
 
-        record.update(served(0, one_shot) or {})
+        record.update(_served(kw(0), cfg, params, tokenizer, lead, one_shot)
+                      or {})
         record["one_shot_launches"] = _decode_counts(ft)
+        part("7d")
+
+        # 7e(a) the paged engine server on the same weights: phase 3b's
+        # traffic over its 147-page pool (preemption), the 100-token
+        # prompt's repeat (a prefix hit); counts from 0
+        _zero_decode_counts(ft)
+        paged_kw = dict(kv_paging=True, page_size=PAGE_SIZE,
+                        prefill_chunk=TP_PREFILL_CHUNK,
+                        num_pages=PRESSURE_PAGES)
+        run = _served(kw(TP_SLOTS, **paged_kw), cfg, params, tokenizer,
+                      lead, traffic)
+        paged = {"launches": _decode_counts(ft)}
+        if lead:
+            paged.update(run)
+        ch = channel()
+        eng = PagedInferenceEngine(
+            cfg, params, num_slots=TP_SLOTS, max_seq_len=TP_SEQ,
+            page_size=PAGE_SIZE, prefill_chunk=TP_PREFILL_CHUNK,
+            device=args.device, metrics=MetricsRegistry(), cuda_graph=False,
+            mesh=mesh, channel=ch)
+        _zero_decode_counts(ft)
+        paged["tick"] = _filled_ticks(torch, eng, ch, lead, PAGED_TICK_LENS,
+                                      cfg.vocab_size,
+                                      f"{out}.paged_trace.json", sync)
+        paged["tick_launches"] = _decode_counts(ft)
+        record["paged"] = paged
+        del eng, params
+        free()
+        part("7e_a")
+
+        # 7e(d) Falcon-40B width x FALCON_SERVE_LAYERS on the dense engine
+        fcfg = falcon_serve_cfg(dataclasses, presets)
+        t1 = time.monotonic()
+        fparams = init_params(fcfg, SEED, device=args.device, mesh=mesh)
+        sync()
+        frng = np.random.default_rng(SEED)
+        fprompts = [frng.integers(0, fcfg.vocab_size - 1, size=n).tolist()
+                    for n in PROMPT_LENS]
+        _zero_decode_counts(ft)
+        run = _served(kw(TP_SLOTS), fcfg, fparams,
+                      NullTokenizer(fcfg.vocab_size), lead,
+                      lambda svc, base: _engine_traffic(ft, svc, base,
+                                                        fprompts))
+        falcon = {"init_s": time.monotonic() - t1,
+                  "launches": _decode_counts(ft)}
+        if lead:
+            falcon.update(run)
+        record["falcon_serve"] = falcon
+        del fparams
+        free()
+        part("7e_d")
+
+        # 7e(b) Llama-2-7B at pp2: the one-shot server through the
+        # pipelined forward
+        pp_mesh = serving_mesh(1, 2)
+        t1 = time.monotonic()
+        _, pparams, _ = rts.load_model(args, pp_mesh, log=lambda m: None)
+        sync()
+        fwd = PipelinedForward(cfg, pp_mesh)
+        pipe = {"init_s": time.monotonic() - t1,
+                "layers_per_stage": fwd.num_layers}
+        gen_req = {"prompts": [" ".join(map(str, prompts[1]))],
+                   "tokens_to_generate": NEW_TOKENS, "temperature": 0.0}
+
+        def pipelined(service, base):
+            out_ = {}
+            _zero_decode_counts(ft)
+            t = time.monotonic()
+            status, body = _put(base + "/api", gen_req)
+            out_["generate_wall_s"] = time.monotonic() - t
+            toks = [int(x) for x in body["text"][0].split()]
+            if status != 200 or toks[:len(prompts[1])] != prompts[1]:
+                raise AssertionError(f"pp2 request: {status} {body}")
+            out_["generated"] = toks[len(prompts[1]):]
+            out_["generate_launches"] = _decode_counts(ft)
+            _zero_decode_counts(ft)
+            t = time.monotonic()
+            status, body = _put(base + "/api", {
+                "prompts": [" ".join(map(str, p)) for p in prompts],
+                "tokens_to_generate": 0})
+            out_["score_wall_s"] = time.monotonic() - t
+            if status != 200:
+                raise AssertionError(f"pp2 scoring: {status}")
+            out_["logprobs"] = body["logprobs"]
+            out_["score_launches"] = _decode_counts(ft)
+            # the request again in this thread, traced: the p2p share
+            trace = f"{out}.pp_trace.json"
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                service.handle(gen_req)
+                sync()
+            prof.export_chrome_trace(trace)
+            out_["comm"] = _comm_share(trace)
+            return out_
+
+        if not lead:
+            _zero_decode_counts(ft)
+        run = _served(kw(0, m=pp_mesh, forward_fn=fwd), cfg, pparams,
+                      tokenizer, lead, pipelined)
+        if lead:
+            pipe.update(run)
+        # a follower's counts cover all three calls: the request, the
+        # scored batch and the traced request (one-shot: no launch)
+        pipe["follower_launches"] = None if lead else _decode_counts(ft)
+        record["pipelined"] = pipe
+        del pparams, fwd
+        free()
+        part("7e_b")
+
+        # 7e(c) Falcon-40B width trained at tp2 + SP with --metrics
+        record["falcon_train"] = _run_record(torch, ft, runs[1], mesh.rank)
+        free()
+        part("7e_c")
+
+        # phase 7's two-rank training runs, in turn
+        record["runs"] = []
+        for flags in runs[2:]:
+            record["runs"].append(_run_record(torch, ft, flags, mesh.rank))
+            free()
+        part("7")
     finally:
         destroy_distributed()
     with open(f"{out}.rank{record['rank']}.json", "w") as f:
@@ -4946,89 +5187,324 @@ def rank_serve(out: str, argv) -> int:
     return 0
 
 
+def falcon_serve_cfg(dataclasses, presets):
+    """Phase 7e(d)'s model: Falcon-40B's width, FALCON_SERVE_LAYERS
+    layers."""
+    return dataclasses.replace(presets.from_model_name(FALCON40),
+                               num_layers=FALCON_SERVE_LAYERS).validate()
+
+
+def falcon_train_argv(prefix, tp: bool):
+    """Phase 7e(c)'s run: Falcon-40B's width x FALCON_TRAIN_LAYERS at S
+    PAR_SEQ with --metrics, on phase 4's corpus; tp adds tp2 + SP over
+    gloo."""
+    argv = train_argv(prefix, layers=FALCON_TRAIN_LAYERS, seq=PAR_SEQ,
+                      global_batch=PAR_GLOBAL, iters=PAR_STEPS,
+                      eval_interval=PAR_STEPS)
+    argv[argv.index("llama2-7B")] = FALCON40
+    argv[argv.index("--lr") + 1] = FAMILY_LR
+    argv += ["--metrics", *FALCON_METRICS]
+    if tp:
+        argv += ["--tensor_model_parallel_size", "2", "--sequence_parallel",
+                 "--distributed_backend", "gloo"]
+    return argv
+
+
+def _pp_gates(torch, np, dataclasses, cfg, params, prompts, pipe,
+              problems) -> dict:
+    """7e(b)'s scored batch against the plain path (phase 3d's scoring
+    gate) and its launches."""
+    lengths = [len(p) for p in prompts]
+    padded = np.full((len(prompts), max(lengths)), cfg.vocab_size, np.int64)
+    for i, p in enumerate(prompts):
+        padded[i, :len(p)] = p
+    plain, band, _ = _score_plain(torch, dataclasses, cfg, params, padded)
+    got = torch.tensor(pipe["logprobs"])
+    real = _real_positions(torch, lengths, padded.shape[1] - 1)
+    diff, band = (got - plain).abs()[real], band[real]
+    within = float((diff <= 2 * band).float().mean())
+    if within < MATCH_GATE:
+        problems.append(f"pp2 scores within 2x band {within:.4f} < "
+                        f"{MATCH_GATE}")
+    return {"positions": int(real.sum()),
+            "max_abs_err_vs_plain": float(diff.max()),
+            "share_within_2x_band": within}
+
+
+def tp_serve_argv():
+    """Phase 7d's server: Llama-2-7B at tp2 over gloo, 8 slots x 2048."""
+    return ["--model_name", "llama2-7B", "--seed", str(SEED),
+            "--tensor_model_parallel_size", "2",
+            "--distributed_backend", "gloo",
+            "--serve_num_slots", str(TP_SLOTS),
+            "--serve_max_seq_len", str(TP_SEQ),
+            "--tokenizer_type", "null", "--device", "cuda"]
+
+
+def _falcon_reference(torch) -> dict:
+    """7e(c)'s one-process run of the same model, corpus and seed."""
+    from megatron_tpu_torch.tools import pretrain_gpt
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ref = pretrain_gpt.main(falcon_train_argv(corpus_prefix(), tp=False),
+                            log=lambda m: None)
+    torch.cuda.synchronize()
+    out = {"losses": [r["loss"] for r in ref.step_records],
+           "grad_norms": [h["grad_norm"] for h in ref.history],
+           "evals": [dict(e) for e in ref.evals],
+           "step_s": [r["step_s"] for r in ref.step_records],
+           "wall_s": time.monotonic() - t0,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del ref
+    free_cuda(torch)
+    return out
+
+
+# phase 7's two-rank launch, which phases 7d and 7e share: the ranks'
+# records and 7e(c)'s one-process run
+PARALLEL_LAUNCH: dict = {}
+
+
 def parallel_serving(torch, np, ft, card, dense_tokens):
-    """Phase 7d: Llama-2-7B at full width and depth served at tp2 by two
-    gloo ranks sharing the card (rank_serve). Phase 3's tokens of the
-    tp2 engine and the one-shot request's held against the one-process
-    plain path by phase 3's teacher-forced gate; launches per rank from
-    its prefills and ticks; TTFT, tick wall and device time and the
-    comm.* share of a traced tick. Returns the engine run's launches,
-    summed over the ranks."""
+    """Phases 7d and 7e, the serving parts of phase 7's launch of two
+    gloo ranks sharing the card (rank_serve). 7d: Llama-2-7B at full width and depth served at tp2,
+    phase 3's tokens of the tp2 engine and the one-shot request held
+    against the one-process plain path by phase 3's teacher-forced gate.
+    7e: the paged engine at tp2 (the same gate; B5 launches = layers x
+    ticks a rank, B1 = B4 = 0; a preemption and a prefix hit), pp2
+    one-shot serving (the gate; the scored batch within phase 3d's
+    scoring gate; B1 = a stage's layers a scored batch), Falcon-40B width
+    trained at tp2 + SP (losses, grad norms, validation loss and metrics
+    against the one-process run of the same model, run first here; B1-B3
+    as counted) and served at tp2 (the gate against the plain path; B1,
+    B4 counted). Returns the launches summed over the ranks and parts."""
     import dataclasses
-    import shutil
-    import tempfile
 
     from megatron_tpu_torch.models import presets
     from megatron_tpu_torch.models.params import init_params
 
-    tmp = tempfile.mkdtemp(prefix="smoke_tp_serving_")
-    try:
-        argv = ["--model_name", "llama2-7B", "--seed", str(SEED),
-                "--tensor_model_parallel_size", "2",
-                "--distributed_backend", "gloo",
-                "--serve_num_slots", str(TP_SLOTS),
-                "--serve_max_seq_len", str(TP_SEQ),
-                "--tokenizer_type", "null", "--device", "cuda"]
-        recs = _launch(2, os.path.join(tmp, "tp2"), [argv],
-                       timeout_s=TP_TIMEOUT_S, mode="--rank-serve")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    r0 = recs[0]
+    if "recs" not in PARALLEL_LAUNCH:
+        raise AssertionError("phases 7d and 7e run in phase 7's launch, "
+                             "which did not run")
+    recs, ref_rec = PARALLEL_LAUNCH["recs"], PARALLEL_LAUNCH["falcon_ref"]
     problems = []
-    want = {"flash_fwd": NUM_LAYERS * r0["prefills"],
-            "flash_decode": NUM_LAYERS * r0["ticks"],
+    r0 = recs[0]
+    L = NUM_LAYERS
+    want = {"flash_fwd": L * r0["prefills"], "flash_decode": L * r0["ticks"],
             "paged_flash_decode": 0}
+    zero = {k: 0 for k in want}
+    pg = r0["paged"]
+    want_paged = dict(zero, paged_flash_decode=L * pg["ticks"])
     for rec in recs:
         if rec["launches"] != want:
             problems.append(f"rank {rec['rank']} launches "
                             f"{rec['launches']} != {want}")
-        if rec["one_shot_launches"] != {k: 0 for k in want}:
+        if rec["one_shot_launches"] != zero:
             problems.append(f"rank {rec['rank']} one-shot launches "
                             f"{rec['one_shot_launches']}")
+        if rec["paged"]["launches"] != want_paged:
+            problems.append(f"rank {rec['rank']} paged launches "
+                            f"{rec['paged']['launches']} != {want_paged}")
+    if pg["stats"]["preemptions"] < 1:
+        problems.append("paged tp2: no preemption under the 147-page pool")
+    if pg["stats"]["prefix_hits"] < 1:
+        problems.append("paged tp2: no prefix hit")
     cfg = presets.from_model_name("llama2-7B")
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size - 1, size=n).tolist()
                for n in PROMPT_LENS]
+    pipe = r0["pipelined"]
     params = init_params(cfg, SEED, device="cuda")
-    generated = r0["generated"] + [r0["one_shot_generated"]]
     tf = teacher_force(torch, dataclasses, cfg, params,
-                       prompts + [prompts[1]], generated)
+                       prompts + [prompts[1]],
+                       r0["generated"] + [r0["one_shot_generated"]])
+    tf_paged = teacher_force(torch, dataclasses, cfg, params, prompts,
+                             pg["generated"])
+    tf_pipe = teacher_force(torch, dataclasses, cfg, params, [prompts[1]],
+                            [pipe["generated"]])
+    pipe_score = _pp_gates(torch, np, dataclasses, cfg, params, prompts,
+                           pipe, problems)
     del params
+    free_cuda(torch)
+    fcfg = falcon_serve_cfg(dataclasses, presets)
+    frng = np.random.default_rng(SEED)
+    fprompts = [frng.integers(0, fcfg.vocab_size - 1, size=n).tolist()
+                for n in PROMPT_LENS]
+    fs = r0["falcon_serve"]
+    fparams = init_params(fcfg, SEED, device="cuda")
+    tf_falcon = teacher_force(torch, dataclasses, fcfg, fparams, fprompts,
+                              fs["generated"])
+    del fparams
+    free_cuda(torch)
     same = None
     if dense_tokens:
         pairs = [(a, b) for g, d in zip(r0["generated"], dense_tokens)
                  for a, b in zip(g, d)]
         same = sum(a == b for a, b in pairs) / len(pairs)
-    line = {"phase": "parallel_serving", "card": card,
-            "model": "llama2-7B", "layers": NUM_LAYERS, "tp": 2,
-            "backend": "gloo (CUDA tensors staged through host memory; "
-                       "not NCCL numbers)",
-            "slots": TP_SLOTS, "max_seq_len": TP_SEQ, "tick": "eager",
-            "init_s_per_rank": [r["init_s"] for r in recs],
-            "requests": [{"prompt_tokens": len(p), "wall_s": w}
-                         for p, w in zip(prompts, r0["walls"])],
-            "concurrent_wall_s": r0["concurrent_wall_s"],
-            "ttft_mean_s": r0["ttft_mean_s"],
-            "tick_wall_mean_s": r0["tick_wall_mean_s"],
-            "per_token_mean_s": r0["per_token_mean_s"],
-            "filled_tick": r0["tick"],
-            "one_shot_wall_s": r0["one_shot_wall_s"],
-            "prefills": r0["prefills"], "decode_ticks": r0["ticks"],
-            "launches_per_rank": [r["launches"] for r in recs],
-            "tick_launches_per_rank": [r["tick_launches"] for r in recs],
-            "peak_gib_per_rank": [r["peak_gib"] for r in recs],
-            "tokens_equal_to_phase3_engine": same,
-            "wall_s": r0["launch_wall_s"], **tf}
-    emit(line)
+    gloo = ("gloo (CUDA tensors staged through host memory; not NCCL "
+            "numbers)")
+    emit({"phase": "parallel_serving", "card": card,
+          "model": "llama2-7B", "layers": L, "tp": 2, "backend": gloo,
+          "slots": TP_SLOTS, "max_seq_len": TP_SEQ, "tick": "eager",
+          "init_s_per_rank": [r["init_s"] for r in recs],
+          "requests": [{"prompt_tokens": len(p), "wall_s": w}
+                       for p, w in zip(prompts, r0["walls"])],
+          "concurrent_wall_s": r0["concurrent_wall_s"],
+          "ttft_mean_s": r0["ttft_mean_s"],
+          "tick_wall_mean_s": r0["tick_wall_mean_s"],
+          "per_token_mean_s": r0["per_token_mean_s"],
+          "filled_tick": r0["tick"],
+          "one_shot_wall_s": r0["one_shot_wall_s"],
+          "prefills": r0["prefills"], "decode_ticks": r0["ticks"],
+          "launches_per_rank": [r["launches"] for r in recs],
+          "tick_launches_per_rank": [r["tick_launches"] for r in recs],
+          "peak_gib_per_rank": [r["peak_gib"] for r in recs],
+          "tokens_equal_to_phase3_engine": same,
+          "part_s": r0["part_s"], "wall_s": r0["launch_wall_s"], **tf})
     if tf["teacher_forced_match"] < MATCH_GATE:
-        problems.append(f"teacher-forced match "
+        problems.append(f"tp2 teacher-forced match "
                         f"{tf['teacher_forced_match']:.4f} < {MATCH_GATE}")
+    keys = ("prefix_hits", "prefix_tokens_saved", "prefill_chunks",
+            "preemptions", "ticks", "admitted", "retired")
+    emit({"phase": "parallel_paged", "card": card, "model": "llama2-7B",
+          "layers": L, "tp": 2, "backend": gloo, "slots": TP_SLOTS,
+          "page_size": PAGE_SIZE, "prefill_chunk": TP_PREFILL_CHUNK,
+          "pool_pages": PRESSURE_PAGES,
+          "requests": [{"prompt_tokens": len(p), "wall_s": w}
+                       for p, w in zip(prompts, pg["walls"])],
+          "concurrent_wall_s": pg["concurrent_wall_s"],
+          "ttft_mean_s": pg["ttft_mean_s"],
+          "tick_wall_mean_s": pg["tick_wall_mean_s"],
+          "per_token_mean_s": pg["per_token_mean_s"],
+          "stats": {k: pg["stats"][k] for k in keys},
+          "decode_ticks": pg["ticks"], "filled_tick": pg["tick"],
+          "launches_per_rank": [r["paged"]["launches"] for r in recs],
+          "tick_launches_per_rank": [r["paged"]["tick_launches"]
+                                     for r in recs],
+          **tf_paged})
+    if tf_paged["teacher_forced_match"] < MATCH_GATE:
+        problems.append(f"paged tp2 teacher-forced match "
+                        f"{tf_paged['teacher_forced_match']:.4f}")
+    layers = pipe["layers_per_stage"]
+    want_score = dict(zero, flash_fwd=layers)
+    if pipe["score_launches"] != want_score:
+        problems.append(f"pp2 stage 0 scoring launches "
+                        f"{pipe['score_launches']} != {want_score}")
+    if pipe["generate_launches"] != zero:
+        problems.append(f"pp2 generation launches "
+                        f"{pipe['generate_launches']}")
+    follower = recs[1]["pipelined"]["follower_launches"]
+    if follower != want_score:
+        problems.append(f"pp2 stage 1 launches {follower} != {want_score}")
+    emit({"phase": "pipelined_serving", "card": card, "model": "llama2-7B",
+          "layers": L, "pp": 2, "backend": gloo,
+          "layers_per_stage": layers,
+          "init_s_per_rank": [r["pipelined"]["init_s"] for r in recs],
+          "generate_wall_s": pipe["generate_wall_s"],
+          "new_tokens": NEW_TOKENS, "score_wall_s": pipe["score_wall_s"],
+          "scored_prompts": PROMPT_LENS, "comm": pipe["comm"],
+          "launches": {"stage0_generate": pipe["generate_launches"],
+                       "stage0_score": pipe["score_launches"],
+                       "stage1_all": follower},
+          "scoring": pipe_score, **tf_pipe})
+    if tf_pipe["teacher_forced_match"] < MATCH_GATE:
+        problems.append(f"pp2 teacher-forced match "
+                        f"{tf_pipe['teacher_forced_match']:.4f}")
+    FL = FALCON_SERVE_LAYERS
+    want_f = {"flash_fwd": FL * fs["prefills"],
+              "flash_decode": FL * fs["ticks"], "paged_flash_decode": 0}
+    for rec in recs:
+        if rec["falcon_serve"]["launches"] != want_f:
+            problems.append(f"falcon tp2 rank {rec['rank']} launches "
+                            f"{rec['falcon_serve']['launches']} != {want_f}")
+    emit({"phase": "parallel_falcon_serve", "card": card,
+          "model": f"{FALCON40} x {FL} layers", "tp": 2, "backend": gloo,
+          "init_s_per_rank": [r["falcon_serve"]["init_s"] for r in recs],
+          "requests": [{"prompt_tokens": len(p), "wall_s": w}
+                       for p, w in zip(fprompts, fs["walls"])],
+          "ttft_mean_s": fs["ttft_mean_s"],
+          "tick_wall_mean_s": fs["tick_wall_mean_s"],
+          "prefills": fs["prefills"], "decode_ticks": fs["ticks"],
+          "launches_per_rank": [r["falcon_serve"]["launches"]
+                                for r in recs], **tf_falcon})
+    if tf_falcon["teacher_forced_match"] < MATCH_GATE:
+        problems.append(f"falcon tp2 teacher-forced match "
+                        f"{tf_falcon['teacher_forced_match']:.4f}")
+    problems += _falcon_train_gates(card, recs, ref_rec)
     if problems:
         raise AssertionError("parallel serving: " + "; ".join(problems))
     total: dict = {}
     for rec in recs:
-        _add_counts(total, rec["launches"])
+        for counts in (rec["launches"], rec["tick_launches"],
+                       rec["one_shot_launches"], rec["paged"]["launches"],
+                       rec["paged"]["tick_launches"],
+                       rec["falcon_serve"]["launches"],
+                       rec["falcon_train"]["launches"]):
+            _add_counts(total, counts)
+        _add_counts(total, rec["pipelined"].get("score_launches")
+                    or rec["pipelined"]["follower_launches"] or {})
     return total
+
+
+def _falcon_train_gates(card, recs, ref) -> list:
+    """7e(c): each rank's losses, grad norms, validation loss and metrics
+    against the one-process run (phase 7's tolerances: the bf16 partial
+    sums of tp2's row-parallel products; perplexity relative, accuracy
+    absolute), the ranks' agreement, and each rank's launches."""
+    problems = []
+    r0 = recs[0]["falcon_train"]
+    n_micro = PAR_GLOBAL // r0["mesh"]["dp"] // TRAIN_MICRO
+    want = _per_rank_launches("tp2_sp", FALCON_TRAIN_LAYERS, n_micro)
+    for rec in recs:
+        got = rec["falcon_train"]
+        if got["launches"] != want:
+            problems.append(f"falcon training rank {rec['rank']} launches "
+                            f"{got['launches']} != {want}")
+        if (got["losses"], got["grad_norms"], got["evals"]) != (
+                r0["losses"], r0["grad_norms"], r0["evals"]):
+            problems.append("falcon training: ranks disagree")
+    loss_err = max(abs(a - b) for a, b in zip(r0["losses"], ref["losses"]))
+    norm_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(r0["grad_norms"], ref["grad_norms"]))
+    metric_err = {}
+    for got, exp in zip(r0["eval_metrics"], ref["evals"]):
+        for k in ("lm_loss",) + FALCON_METRICS:
+            e = abs(got[k] - exp[k])
+            if k == "perplexity":
+                e /= abs(exp[k])
+            metric_err[k] = max(metric_err.get(k, 0.0), e)
+    emit({"phase": "parallel_falcon_train", "card": card,
+          "model": f"{FALCON40} x {FALCON_TRAIN_LAYERS} layers",
+          "seq_length": PAR_SEQ, "global_batch": PAR_GLOBAL,
+          "mesh": r0["mesh"], "sequence_parallel": True,
+          "backend": "gloo (CUDA tensors staged through host memory; not "
+                     "NCCL numbers)",
+          "losses": r0["losses"], "reference_losses": ref["losses"],
+          "loss_err": loss_err, "loss_atol": PAR_LOSS_ATOL,
+          "grad_norms": r0["grad_norms"],
+          "reference_grad_norms": ref["grad_norms"],
+          "grad_norm_rel_err": norm_err,
+          "evals": r0["eval_metrics"], "reference_evals": ref["evals"],
+          "metric_err": metric_err, "step_s": r0["step_s"],
+          "reference_step_s": ref["step_s"],
+          "reference_wall_s": ref["wall_s"],
+          "reference_peak_gib": ref["peak_gib"],
+          "peak_gib_per_rank": [r["falcon_train"]["peak_gib"]
+                                for r in recs],
+          "launches_per_rank": [r["falcon_train"]["launches"] for r in recs],
+          "launches_per_rank_expected": want, "wall_s": r0["wall_s"]})
+    if not (len(r0["losses"]) == PAR_STEPS
+            and all(map(math.isfinite, r0["losses"]))):
+        problems.append(f"falcon training losses {r0['losses']}")
+    if not loss_err <= PAR_LOSS_ATOL:
+        problems.append(f"falcon training loss off by {loss_err}")
+    if not norm_err <= PAR_NORM_RTOL:
+        problems.append(f"falcon training grad norm off by {norm_err}")
+    if not (metric_err and all(e <= PAR_LOSS_ATOL
+                               for e in metric_err.values())):
+        problems.append(f"falcon validation metrics off by {metric_err}")
+    return problems
 
 
 def free_cuda(torch) -> None:
@@ -5180,13 +5656,13 @@ if __name__ == "__main__":
     if len(sys.argv) > 2 and sys.argv[1] in ("--rank-run", "--rank-serve"):
         rest = sys.argv[3:]
         rest = rest[1:] if rest[:1] == ["--"] else rest
-        if sys.argv[1] == "--rank-serve":
-            sys.exit(rank_serve(sys.argv[2], rest))
         runs = [[]]
         for a in rest:
             if a == "--then":
                 runs.append([])
             else:
                 runs[-1].append(a)
+        if sys.argv[1] == "--rank-serve":
+            sys.exit(rank_serve(sys.argv[2], runs))
         sys.exit(rank_run(sys.argv[2], runs))
     sys.exit(main(sys.argv[1:]))

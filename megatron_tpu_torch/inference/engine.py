@@ -93,8 +93,10 @@ tokens. Any failure inside an announced tick is a fault of the group
 (parallel/distributed.ServingChannel): a follower's process ends, and
 rank 0 stops its step loop and fails every request it holds. A gloo
 collective cannot be captured in a CUDA graph, so at tp > 1 the engine
-refuses cuda_graph=True; speculation, the paged engine and weight swaps
-are refused there too (ROADMAP.md queue A item 7b).
+refuses cuda_graph=True (a captured tick over NCCL waits for a
+multi-card machine, ROADMAP.md queue A item 7b); speculation and weight
+swaps are refused there, as on the JAX server's mesh. The paged engine
+(inference/paging/engine.py) has its own record.
 
 Migration, profiling and fault injection are not ported yet.
 """
@@ -137,15 +139,10 @@ from megatron_tpu_torch.training.optimizer import leaf_paths
 PREFILL_BUCKET = 64
 
 
-def _check_tensor_parallel(engine, speculative, cuda_graph, channel
-                           ) -> None:
+def _check_tensor_parallel(speculative, cuda_graph, channel) -> None:
     """What the engines do not do under tensor parallelism yet."""
     what = None
-    if type(engine) is not InferenceEngine:
-        what = (f"{type(engine).__name__} (the paged engine under tensor "
-                "parallelism is the next part of ROADMAP.md queue A item "
-                "7b)")
-    elif speculative is not None:
+    if speculative is not None:
         what = ("speculative decoding (single-rank serving only, as on the "
                 "JAX server: the spec step is not threaded through the "
                 "sharded forward)")
@@ -266,8 +263,12 @@ class InferenceEngine:
         self.channel = channel
         self.tp = 1 if mesh is None else mesh.tp
         self.leads = self.tp == 1 or mesh.tp_rank == 0
+        if mesh is not None and mesh.pp > 1:
+            raise ValueError(
+                "the continuous-batching engine runs the single-stage "
+                "forward only — serve pp>1 models with engine_slots=0")
         if self.tp > 1:
-            _check_tensor_parallel(self, speculative, cuda_graph, channel)
+            _check_tensor_parallel(speculative, cuda_graph, channel)
         # slots cleared since the last control record (rank 0, tp > 1)
         self._cleared: List[int] = []
         if num_slots < 1:

@@ -28,9 +28,13 @@ Tensor parallelism (a MeshRuntime as `mesh`, serving): every rank of the
 tensor group runs the same call on its slices of the params (rank 0
 broadcast the request: inference/server.py), with caches of its own kv
 heads [L, B, total_len, nkv/tp, D] (scales included), and reads the
-logits gathered over the group. Tokens are chosen once, on rank 0 (its
-samples, its argmax, beam search's choices), and broadcast, so no rank
-can diverge from it.
+logits gathered over the group. Pipeline parallelism (pp > 1, the JAX
+package's forward_fn): generate_tokens and score_tokens take the
+pipelined forward (inference/pipelined.py), each stage with caches of
+its own layers and the logits whole on every rank; beam search and
+int8 caches are refused there, as in the JAX package. Tokens are
+chosen once, on rank 0 of the serving world (its samples, its argmax,
+beam search's choices), and broadcast, so no rank can diverge from it.
 
 One difference by design: a right-padded batch's pad positions enter
 the model as id 0 (generate_tokens) and ids outside the embedding table
@@ -44,10 +48,12 @@ reads it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.inference.sampling import (
@@ -70,13 +76,15 @@ class GenerationOutput:
 
 
 def _init_caches(cfg: ModelConfig, batch: int, total_len: int,
-                 device="cuda", int8: bool = False, tp: int = 1):
+                 device="cuda", int8: bool = False, tp: int = 1,
+                 layers: Optional[int] = None):
     """Zeroed caches [L, batch, total_len, nkv/tp, D]: (k, v) in the
     model dtype, or with int8 the 4-tuple of ops/kv_quant.kv_buffers
     (half the bytes of bf16, plus 4/D). tp: a tensor-parallel rank holds
-    its kv heads only."""
-    shape = (cfg.num_layers, batch, total_len, cfg.n_kv_heads // tp,
-             cfg.head_dim)
+    its kv heads only; layers: a pipeline stage its own (default all
+    L)."""
+    shape = (layers or cfg.num_layers, batch, total_len,
+             cfg.n_kv_heads // tp, cfg.head_dim)
     return kv_buffers(shape, cfg.dtype, int8, device)
 
 
@@ -84,17 +92,30 @@ def _tp(mesh) -> int:
     return 1 if mesh is None else mesh.tp
 
 
+def _shared(mesh) -> bool:
+    """Whether more than one rank serves (a tensor- or pipeline-parallel
+    serving world)."""
+    return mesh is not None and mesh.world_size > 1
+
+
 def _leads(mesh) -> bool:
-    """Whether this rank chooses the tokens (rank 0 of the tensor
-    group; the only rank without a mesh)."""
-    return mesh is None or mesh.tp == 1 or mesh.tp_rank == 0
+    """Whether this rank chooses the tokens (rank 0 of the serving
+    world; the only rank without a mesh)."""
+    return not _shared(mesh) or mesh.rank == 0
 
 
 def from_rank0(t: torch.Tensor, mesh) -> torch.Tensor:
-    """Rank 0's t on every rank of the tensor group."""
-    if _tp(mesh) == 1:
+    """Rank 0's t on every rank of the serving world."""
+    if not _shared(mesh):
         return t
-    return broadcast(t, mesh.group("tensor"))
+    return broadcast(t, dist.group.WORLD)
+
+
+def _forward(cfg: ModelConfig, forward_fn):
+    """The model's cached and uncached forward: lm_forward, or a
+    pipelined forward (inference/pipelined.py), whose logits are whole
+    on every rank."""
+    return forward_fn or functools.partial(lm_forward, cfg)
 
 
 def _device(params: Any) -> torch.device:
@@ -158,10 +179,18 @@ def generate_tokens(
     want_logprobs: bool = True,
     kv_cache_int8: bool = False,
     mesh=None,
+    forward_fn=None,
 ) -> GenerationOutput:
     """Every row runs to max_prompt_len + max_new_tokens (or its eod):
     a shorter prompt gets the difference as extra generated tokens.
-    mesh: tensor-parallel serving (the module docstring)."""
+    mesh: parallel serving (the module docstring); forward_fn: the
+    pipelined forward at pp > 1 (inference/pipelined.py), None for
+    lm_forward."""
+    if kv_cache_int8 and forward_fn is not None:
+        raise ValueError(
+            "kv_cache_int8 is supported on the single-stage forward only "
+            "(the pipelined pp>1 forward threads bf16 cache pairs)")
+    fwd = _forward(cfg, forward_fn)
     dev = _device(params)
     B, max_prompt = prompts.shape
     total_len = max_prompt + max_new_tokens
@@ -179,13 +208,14 @@ def generate_tokens(
                       max(1, -(-max_prompt // PREFILL_BUCKET)
                           * PREFILL_BUCKET))
     caches = _init_caches(cfg, B, total_len, device=dev, int8=kv_cache_int8,
-                          tp=_tp(mesh))
+                          tp=_tp(mesh), layers=getattr(forward_fn,
+                                                       "num_layers", None))
     rope = _rope(cfg, total_len, dev)
     positions = torch.arange(total_len, device=dev)[None, :]
-    logits_all, _ = lm_forward(cfg, params, tokens[:, :prefill_len],
-                               positions=positions[:, :prefill_len],
-                               kv_caches=caches, cache_index=0, rope=rope,
-                               mesh=mesh)
+    logits_all, _ = fwd(params, tokens[:, :prefill_len],
+                        positions=positions[:, :prefill_len],
+                        kv_caches=caches, cache_index=0, rope=rope,
+                        mesh=mesh)
 
     lp = torch.zeros((B, total_len - 1), dtype=torch.float32, device=dev)
     if want_logprobs:
@@ -237,10 +267,10 @@ def generate_tokens(
                                    step_lp)
         if eod is not None:
             done |= (nxt == eod).cpu().numpy() & ~in_prompt
-        logits, _ = lm_forward(cfg, params, nxt[:, None],
-                               positions=positions[:, t:t + 1],
-                               kv_caches=caches, cache_index=t, rope=rope,
-                               mesh=mesh)
+        logits, _ = fwd(params, nxt[:, None],
+                        positions=positions[:, t:t + 1],
+                        kv_caches=caches, cache_index=t, rope=rope,
+                        mesh=mesh)
         last = logits[:, 0].float()
         t += 1
 
@@ -257,17 +287,19 @@ def generate_tokens(
 
 @torch.no_grad()
 def score_tokens(cfg: ModelConfig, params: Any,
-                 tokens: np.ndarray, mesh=None) -> np.ndarray:
+                 tokens: np.ndarray, mesh=None,
+                 forward_fn=None) -> np.ndarray:
     """Teacher-forced per-token logprobs [B, S-1]: one causal forward
     over tokens[:, :-1] with no cache (flash_fwd on CUDA), its logits
-    gathered over the tensor group under a mesh. Ids outside the
-    embedding table are padding: they enter as 0 and score 0.0."""
+    gathered over the tensor group under a mesh (a pipelined
+    forward_fn gives them whole). Ids outside the embedding table are
+    padding: they enter as 0 and score 0.0."""
     check_one_shot("score_tokens", cfg, tokens=tokens)
     t = torch.from_numpy(np.asarray(tokens, np.int64)).to(_device(params))
     pad = (t < 0) | (t >= cfg.vocab_size)
     t = torch.where(pad, 0, t)
-    logits = lm_forward(cfg, params, t[:, :-1], mesh=mesh)
-    if _tp(mesh) > 1:
+    logits = _forward(cfg, forward_fn)(params, t[:, :-1], mesh=mesh)
+    if forward_fn is None and _tp(mesh) > 1:
         logits = all_gather(logits, mesh.group("tensor"), dim=-1)
     lsm = torch.log_softmax(logits.float(), dim=-1)
     lp = torch.gather(lsm, 2, t[:, 1:, None])[..., 0]
@@ -357,7 +389,7 @@ def beam_search_tokens(
             best_possible = scores.max() / (max(1, t + 1 - plen) ** length_penalty)
             worst_kept = sorted(finished, key=lambda x: -x[0])[beam_size - 1][0]
             stop = bool(worst_kept >= best_possible)
-        if _tp(mesh) > 1:
+        if _shared(mesh):
             choice = from_rank0(torch.tensor(
                 parents + new_toks + [int(stop)], device=dev), mesh).tolist()
             n = len(parents)

@@ -62,8 +62,21 @@ reload and wait_idle are the slot engine's (step() runs its _pre_tick
 first); a weight swap also empties the radix prefix cache, whose pages
 hold the old weights' K/V.
 
+Tensor parallelism (mesh and channel, as the slot engine's): each rank
+holds its nkv/tp heads of every page (the JAX engine's _kv_sharding
+cuts the pools on the head axis), and page ids are global. Rank 0
+alone runs the pool, the radix prefix cache, the chunk queue and
+preemption; before each piece of device work it announces what the
+other ranks must apply: a chunk's slot table row, tokens, offset and
+write fences, then the decode rows with the host page tables and carry
+mirrors whenever they changed. The followers keep no scheduler state:
+they run the same chunk and the same decode tick, so every collective
+meets its peer in order. Tokens are rank 0's, broadcast (the final
+chunk's first token, each tick's). The tick runs eagerly (the slot
+engine's rule), and int8 pools are cut the same way.
+
 Not ported: migration and prefix export/import, context-parallel
-paging, TP comm byte counters and fault injection.
+paging and fault injection.
 """
 
 from __future__ import annotations
@@ -76,6 +89,7 @@ import torch
 
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.inference.engine import InferenceEngine, Request
+from megatron_tpu_torch.inference.generation import from_rank0
 from megatron_tpu_torch.inference.paging.pool import SCRATCH_PAGE, PagePool
 from megatron_tpu_torch.inference.paging.radix import RadixPrefixCache
 from megatron_tpu_torch.inference.paging.scheduler import (
@@ -190,14 +204,15 @@ class PagedInferenceEngine(InferenceEngine):
         """Paged pools [L, num_pages, page_size, nkv, D] x2 in the model
         dtype (int8: the 4-tuple with fp32 scale pools [..., 1]) on the
         engine's device, zeroed (so every page, scratch included, holds
-        finite values). The default pool is the slot engine's capacity:
+        finite values); a tensor-parallel rank's hold its nkv/tp heads
+        of every page. The default pool is the slot engine's capacity:
         every slot can grow to max_seq_len."""
         self.max_pages = -(-self.max_seq_len // self.page_size)
         if self.num_pages is None:
             self.num_pages = self.num_slots * self.max_pages + 1
         cfg = self.cfg
         shape = (cfg.num_layers, self.num_pages, self.page_size,
-                 cfg.n_kv_heads, cfg.head_dim)
+                 cfg.n_kv_heads // self.tp, cfg.head_dim)
         return kv_buffers(shape, cfg.dtype, self.kv_cache_int8, self.device)
 
     def _fresh_draft_caches(self):
@@ -239,6 +254,44 @@ class PagedInferenceEngine(InferenceEngine):
     # ----- device steps ----------------------------------------------------
 
     @torch.no_grad()
+    def _chunk_forward(self, row: np.ndarray, toks_ext: np.ndarray, off: int,
+                       write_start: int, total: int):
+        """The device work of one prefill chunk: positions off .. off + C
+        - 1 of toks_ext [1, C + 1] through the table row `row`, writes
+        fenced to [write_start, total) (and mirrored into the draft
+        pools). Returns (logits [1, C, V], the tokens on the device)."""
+        C, dev = self.prefill_chunk, self.device
+        tokens = torch.from_numpy(toks_ext).to(dev)
+        # padded-tail positions past the table clamp to the rope's last
+        # row (their outputs and writes are discarded)
+        positions = (off + torch.arange(C, device=dev)).clamp(
+            max=self.max_seq_len - 1)[None]
+        table = torch.tensor(row[None], device=dev)
+        logits, _ = lm_forward(self.cfg, self.params, tokens[:, :C],
+                               positions=positions, kv_caches=self.caches,
+                               cache_index=off, rope=self.rope,
+                               page_table=table, page_write_start=write_start,
+                               page_write_end=total, mesh=self.mesh)
+        if self._has_draft_model():
+            # mirror the chunk into the draft pools through the same
+            # table row and write fences (write-only)
+            lm_forward(self.spec.draft_cfg, self.draft_params,
+                       tokens[:, :C], positions=positions,
+                       kv_caches=self.draft_caches, cache_index=off,
+                       rope=self.draft_rope, page_table=table,
+                       page_write_start=write_start, page_write_end=total,
+                       return_hidden=True)
+        return logits, tokens
+
+    def _chunk_tokens(self, task: PrefillTask) -> np.ndarray:
+        """The chunk's tokens plus the next one, [1, C + 1], zero-padded."""
+        C, off = self.prefill_chunk, task.off
+        toks_ext = np.zeros((1, C + 1), np.int64)
+        avail = task.tokens[off:off + C + 1]
+        toks_ext[0, :len(avail)] = avail
+        return toks_ext
+
+    @torch.no_grad()
     def _chunk_step(self, task: PrefillTask, req: Request, final: bool):
         """One prefill chunk of one prompt: positions task.off ..
         task.off + C - 1 through the slot's pending table row. Writes
@@ -249,34 +302,14 @@ class PagedInferenceEngine(InferenceEngine):
         position (tokens_ext is the chunk plus one token), so its
         teacher-forced logprobs never wait for the next chunk. Only the
         final chunk samples: from the logits at position total - 1, with
-        the request's generator restored from task.key. Returns (token,
-        logprob, generator) — None for a non-final chunk — and the
-        chunk's prompt logprobs [C]."""
-        C, off, dev = self.prefill_chunk, task.off, self.device
-        toks_ext = np.zeros((1, C + 1), np.int64)
-        avail = task.tokens[off:off + C + 1]
-        toks_ext[0, :len(avail)] = avail
-        tokens = torch.from_numpy(toks_ext).to(dev)
-        # padded-tail positions past the table clamp to the rope's last
-        # row (their outputs and writes are discarded)
-        positions = (off + torch.arange(C, device=dev)).clamp(
-            max=self.max_seq_len - 1)[None]
-        table = torch.tensor(self._pending_rows[task.slot][None], device=dev)
-        logits, _ = lm_forward(self.cfg, self.params, tokens[:, :C],
-                               positions=positions, kv_caches=self.caches,
-                               cache_index=off, rope=self.rope,
-                               page_table=table,
-                               page_write_start=task.write_start,
-                               page_write_end=task.total)
-        if self._has_draft_model():
-            # mirror the chunk into the draft pools through the same
-            # table row and write fences (write-only)
-            lm_forward(self.spec.draft_cfg, self.draft_params,
-                       tokens[:, :C], positions=positions,
-                       kv_caches=self.draft_caches, cache_index=off,
-                       rope=self.draft_rope, page_table=table,
-                       page_write_start=task.write_start,
-                       page_write_end=task.total, return_hidden=True)
+        the request's generator restored from task.key (at tp > 1 rank
+        0's token is broadcast). Returns (token, logprob, generator) —
+        None for a non-final chunk — and the chunk's prompt logprobs
+        [C]."""
+        off, dev = task.off, self.device
+        logits, tokens = self._chunk_forward(
+            self._pending_rows[task.slot], self._chunk_tokens(task), off,
+            task.write_start, task.total)
         lsm = torch.log_softmax(logits[0].float(), dim=-1)
         plp = torch.gather(lsm, 1, tokens[0, 1:, None])[:, 0].cpu().numpy()
         if not final:
@@ -290,6 +323,8 @@ class PagedInferenceEngine(InferenceEngine):
             last, [gen], torch.tensor([req.temperature]),
             torch.tensor([req.top_k]), torch.tensor([req.top_p]),
             self.vocab_size)
+        if self.tp > 1:
+            tok = from_rank0(tok.to(dev), self.mesh)
         lp = float(torch.log_softmax(last.float(), dim=-1)[0, tok[0]])
         return (int(tok[0]), lp, gen), plp
 
@@ -436,7 +471,10 @@ class PagedInferenceEngine(InferenceEngine):
             sampled, plp = self._chunk_step(task, req,
                                             final=off + C >= task.total)
         except Exception as e:  # noqa: BLE001 - a failing chunk must fail
-            # THIS request, not strand it un-signalled and kill the loop
+            # THIS request, not strand it un-signalled and kill the loop;
+            # at tp > 1 the ranks' collectives are out of step: a fault
+            if self.tp > 1:
+                raise
             self._clear_slot(i)
             self._reject(req, f"prefill failed: {e}")
             self._m_active.set(self.num_active)
@@ -607,6 +645,8 @@ class PagedInferenceEngine(InferenceEngine):
         """One engine tick: admit, run one prefill chunk, then one
         batched decode for every slot whose prompt is fully cached.
         Returns slots served + chunks run (0 = idle)."""
+        if self.tp > 1:
+            return self._step_tensor_parallel()
         self._pre_tick()
         self._admit()
         chunked = self._prefill_tick()
@@ -618,6 +658,78 @@ class PagedInferenceEngine(InferenceEngine):
         self._release_window_pages()
         self._ensure_decode_pages()
         return self._decode_tick() + chunked
+
+    # ----- tensor parallelism ---------------------------------------------
+
+    def _step_tensor_parallel(self) -> int:
+        """Rank 0's tick at tp > 1: the single-rank tick's scheduling on
+        the host (admission, the radix cache, the chunk queue, window
+        release, decode pages and preemption), with each piece of device
+        work announced first: the chunk (its slot's table row, tokens,
+        offset and fences), then the decode (the rows, and the host
+        tables and carry mirrors when they changed). A failure after an
+        announcement is a fault of the group: the step loop stops and
+        every request fails."""
+        with self.channel.lock:
+            self._cleared = []          # the slot engine's record only
+            self._pre_tick()
+            try:
+                self._admit()
+                task = self.prefill_queue.peek()
+                chunked = 0
+                if task is not None:
+                    rec = {"chunk": dict(
+                        row=self._pending_rows[task.slot].tolist(),
+                        tokens=self._chunk_tokens(task).tolist(),
+                        off=task.off, write_start=task.write_start,
+                        total=task.total,
+                        final=task.off + self.prefill_chunk >= task.total)}
+                    with self.channel.announce("tick", rec):
+                        chunked = self._prefill_tick()
+                    self.last_progress_time = time.monotonic()
+                self._release_window_pages()
+                self._ensure_decode_pages()
+                rows = self._decode_rows()
+                if not rows:
+                    return chunked
+                rec = {"decode": dict(
+                    rows=rows,
+                    tables=(self.tables.tolist() if self._table_dirty
+                            else None),
+                    carry=((self.lengths.tolist(), self.last_tok.tolist())
+                           if self._carry_dirty else None))}
+                with self.channel.announce("tick", rec):
+                    return self._decode_tick() + chunked
+            except BaseException as e:
+                if self.channel.fault is not None:
+                    self._abandon([], e)
+                raise
+
+    def follow(self, record: dict) -> int:
+        """A follower's piece of a tick (rank > 0 at tp > 1): rank 0's
+        chunk through the table row it sent, or its decode over the
+        tables and carry mirrors it sent. The follower keeps no
+        scheduler state (no pool, radix tree or queue of its own)."""
+        if "chunk" in record:
+            c = record["chunk"]
+            with torch.no_grad():
+                self._chunk_forward(np.asarray(c["row"], np.int32),
+                                    np.asarray(c["tokens"], np.int64),
+                                    c["off"], c["write_start"], c["total"])
+                if c["final"]:
+                    from_rank0(torch.zeros(1, dtype=torch.long,
+                                           device=self.device), self.mesh)
+            return 1
+        d = record["decode"]
+        if d["tables"] is not None:
+            self.tables[:] = np.asarray(d["tables"], np.int32)
+            self._table_dirty = True
+        if d["carry"] is not None:
+            self.lengths[:] = d["carry"][0]
+            self.last_tok[:] = d["carry"][1]
+            self._carry_dirty = True
+        self._decode_step(d["rows"])
+        return len(d["rows"])
 
     def _retire(self, i: int):
         # base _retire -> _clear_slot releases this slot's page refs;

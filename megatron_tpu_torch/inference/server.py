@@ -50,21 +50,24 @@ Probes and the control plane:
                          (inference/fleet/reload.py) swapped in between
                          decode ticks; 409 when no checkpoint verifies
 
-Tensor parallelism (a MeshRuntime as `mesh` and a
+Parallel serving (a MeshRuntime as `mesh` and a
 parallel/distributed.ServingChannel): one GenerationService per rank,
 each over its slices of the params. Rank 0 binds the HTTP port and
 runs the engine's step thread; a one-shot request is announced on the
-channel (the function's name and arguments) and then run, and the
-engine announces each tick's control record (inference/engine.py). The
-other ranks run follow(): the same calls, in rank 0's order, until
-shutdown() sends the stop. The engine's tick runs eagerly there (no
-CUDA graph), and /admin/reload is refused, as on the JAX server's mesh.
+channel (the function's name and arguments) and then run, and either
+engine announces each tick's control record (inference/engine.py,
+inference/paging/engine.py). The other ranks run follow(): the same
+calls, in rank 0's order, until shutdown() sends the stop. Under tensor
+parallelism the engine's tick runs eagerly (no CUDA graph). Under
+pipeline parallelism (pp > 1) the one-shot paths take the pipelined
+forward (forward_fn, inference/pipelined.py), as on the JAX server:
+the engine, int8 KV caches and beam search (a 400) are refused there.
+/admin/reload is refused at more than one rank, as on the JAX server's
+mesh.
 
 Not ported yet: KV migration and prefix export/import (/admin/import,
 /admin/export_prefix, /admin/import_prefix, /admin/register_prefix),
-on-demand profiling (/admin/profile), pipelined serving and the paged
-engine under tensor parallelism (ROADMAP.md queue A item 7b), and
-context-parallel lanes.
+on-demand profiling (/admin/profile) and context-parallel lanes.
 """
 
 from __future__ import annotations
@@ -137,7 +140,7 @@ class GenerationService:
                  reload_dir: Optional[str] = None,
                  weights_version: Optional[int] = None,
                  warmup: bool = False, mesh=None, channel=None,
-                 cuda_graph: bool = True):
+                 cuda_graph: bool = True, forward_fn=None):
         """engine_slots > 0 builds the engine (kv_paging: the paged one,
         with page_size-token pages, prefill_chunk-token chunks and a pool
         of num_pages pages) and its step-loop thread; 0 serves one
@@ -154,9 +157,18 @@ class GenerationService:
         quantized into the served tensors. mesh, channel: tensor-parallel
         serving (the module docstring); the engine then runs eagerly, and
         only rank 0's service starts its step thread. cuda_graph: the
-        engine's (False: an eager tick)."""
+        engine's (False: an eager tick). forward_fn: the pipelined
+        forward of a pp > 1 server, which serves one-shot only."""
         if engine_slots < 0:
             raise ValueError("engine_slots must be >= 0 (0: one-shot)")
+        if kv_cache_int8 and forward_fn is not None:
+            raise ValueError(
+                "kv_cache_int8 is not supported with a pipelined (pp>1) "
+                "forward_fn — serve pp>1 models with bf16 KV caches")
+        if engine_slots and forward_fn is not None:
+            raise ValueError(
+                "the continuous-batching engine runs the single-stage "
+                "forward only — serve pp>1 models with engine_slots=0")
         if speculative is not None and not engine_slots:
             raise ValueError("speculative decoding runs inside the "
                              "continuous-batching engine: serve with "
@@ -170,8 +182,10 @@ class GenerationService:
         self.weights_version = weights_version
         self.weight_quant = quantized_mode(params)
         self.device = torch.device(device)
-        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        self.mesh = (mesh if mesh is not None and mesh.world_size > 1
+                     else None)
         self.channel = channel if self.mesh is not None else None
+        self.forward_fn = forward_fn
         self.leads = self.mesh is None or self.mesh.rank == 0
         self.draining = False
         self.reloading = False
@@ -218,14 +232,23 @@ class GenerationService:
             if self.channel is not None and self.leads:
                 self.channel.stop()
 
+    def _local(self, kwargs: dict) -> dict:
+        """A one-shot call's arguments plus this rank's own: the mesh,
+        and the pipelined forward at pp > 1."""
+        kw = dict(kwargs, mesh=self.mesh)
+        if self.forward_fn is not None:
+            kw["forward_fn"] = self.forward_fn
+        return kw
+
     def _run(self, name: str, cfg, params, **kwargs):
-        """A one-shot token function: at tp > 1 checked, then announced
-        to the other ranks, and run under the channel's lock."""
+        """A one-shot token function: at more than one rank checked,
+        then announced to the other ranks, and run under the channel's
+        lock."""
         if self.channel is None:
             return run_direct(name, cfg, params, **kwargs)
         check_one_shot(name, cfg, **kwargs)
         with self.channel.announce(name, kwargs):
-            return ONE_SHOT[name](cfg, params, mesh=self.mesh, **kwargs)
+            return ONE_SHOT[name](cfg, params, **self._local(kwargs))
 
     def follow(self) -> None:
         """A follower rank's loop (rank > 0 at tp > 1): each command rank
@@ -241,8 +264,7 @@ class GenerationService:
             if op == "tick":
                 self.engine.follow(payload)
             elif op != "idle":
-                ONE_SHOT[op](self.cfg, self.params, mesh=self.mesh,
-                             **payload)
+                ONE_SHOT[op](self.cfg, self.params, **self._local(payload))
 
     # ----- control plane ---------------------------------------------------
 
@@ -312,7 +334,8 @@ class GenerationService:
         half-copied weights. Returns the iteration now served."""
         if self.mesh is not None:
             raise ValueError(
-                "hot reload under tensor parallelism is not supported (as "
+                "hot reload under tensor parallelism (or pipeline "
+                "parallelism) is not supported (as "
                 "on the JAX server's mesh): roll the replica instead "
                 "(restart with the new checkpoint)")
         with self._admin_lock:
@@ -382,6 +405,10 @@ class GenerationService:
                 f"tokens_to_generate in [0, {MAX_TOKENS_TO_GENERATE}]")
 
         if req.get("beam_width"):
+            if self.forward_fn is not None:
+                raise ValueError(
+                    "beam search is not supported on pipelined (pp>1) "
+                    "serving; use sampling or serve at pp=1")
             with self.lock:
                 texts, segments, scores = beam_search_and_post_process(
                     self.cfg, self.params, self.tokenizer, prompts,
@@ -574,7 +601,8 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
                drain_timeout: float = 30.0, warmup: bool = False,
                reload_dir: Optional[str] = None,
                weights_version: Optional[int] = None, mesh=None,
-               channel=None, cuda_graph: bool = True) -> None:
+               channel=None, cuda_graph: bool = True,
+               forward_fn=None) -> None:
     """Serve until ``server.shutdown()`` or a signal; port=0 binds an
     ephemeral port. In-process callers may pass `service_out` (a list
     that receives (service, server)) and `ready` (set once listening).
@@ -584,8 +612,9 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
     stop admitting (503 + Retry-After), finish the requests in flight
     within drain_timeout seconds, then exit; a second signal exits at
     once with 128 + signum. warmup=True runs GenerationService.warmup()
-    on a side thread, so /healthz and /readyz answer meanwhile. At tp > 1
-    this is rank 0's (the other ranks run GenerationService.follow)."""
+    on a side thread, so /healthz and /readyz answer meanwhile. At more
+    than one rank this is rank 0's (the other ranks run
+    GenerationService.follow)."""
     service = GenerationService(
         cfg, params, tokenizer, engine_slots=engine_slots,
         engine_max_seq_len=engine_max_seq_len, device=device,
@@ -594,7 +623,8 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
         speculative=speculative, kv_cache_int8=kv_cache_int8,
         engine_max_queue=engine_max_queue, request_timeout=request_timeout,
         reload_dir=reload_dir, weights_version=weights_version,
-        warmup=warmup, mesh=mesh, channel=channel, cuda_graph=cuda_graph)
+        warmup=warmup, mesh=mesh, channel=channel, cuda_graph=cuda_graph,
+        forward_fn=forward_fn)
     server = ThreadingHTTPServer((host, port), make_handler(service))
     bound_port = server.server_address[1]
     if service_out is not None:
@@ -650,8 +680,9 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
     if kv_cache_int8:
         mode += ", int8 KV"
     if service.mesh is not None:
-        backend = torch.distributed.get_backend(service.mesh.group("tensor"))
-        mode += f", tensor parallel {service.mesh.tp} over {backend}"
+        backend = torch.distributed.get_backend()
+        mode += (f", tensor parallel {service.mesh.tp} x pipeline "
+                 f"{service.mesh.pp} over {backend}")
     if service.channel is not None:
         # a fault of the tensor-parallel group stops the server, and the
         # process ends non-zero (below), so the launcher tears it down

@@ -199,7 +199,8 @@ def _glu_dim(path: str, cfg: ModelConfig) -> Optional[int]:
 
 def check_mesh(cfg: ModelConfig, mesh) -> None:
     """The divisibility the per-rank slices need, and what the port's
-    tensor parallelism does not cover yet (refused, ROADMAP.md 7b)."""
+    parallelism does not cover yet (MoE above world size 1, ROADMAP.md
+    7b)."""
     if mesh is None:
         return
     if cfg.num_experts is not None and mesh.world_size > 1:
@@ -229,11 +230,6 @@ def check_mesh(cfg: ModelConfig, mesh) -> None:
         if cfg.ffn_size % tp:
             raise ValueError(f"ffn size {cfg.ffn_size} not divisible by "
                              f"tensor_parallel={tp}")
-        if cfg.parallel_attn or cfg.use_post_ln:
-            raise ValueError(
-                "tensor parallelism of Falcon's parallel attention and of "
-                "the post-LN block is not ported (the JAX topology matrix "
-                "does not cover them; ROADMAP.md queue A item 7b)")
         if mesh.sequence_parallel and cfg.seq_length % tp:
             raise ValueError(f"sequence parallelism needs seq_length "
                              f"({cfg.seq_length}) divisible by tp={tp}")

@@ -20,8 +20,9 @@ w_in are column-parallel over the local heads (nq/tp, nkv/tp) and FFN
 columns, wo and w_out row-parallel; each block enters through
 parallel/mappings.enter_tp and leaves through exit_tp (an all-reduce,
 or under sequence parallelism an all-gather in and a reduce-scatter
-out), and a row-parallel bias is added once, after the reduce. Without
-a mesh (or at tp 1) both are the identity. A serving rank's caches hold
+out), and a row-parallel bias is added once, after the reduce. The
+parallel (Falcon) block reduces its attention and MLP branches in one
+collective. Without a mesh (or at tp 1) both are the identity. A serving rank's caches hold
 its nkv/tp heads (the int8 form's scales too), so each rank writes and
 attends over its own heads.
 
@@ -74,8 +75,13 @@ def attention_block(
     page_write_start: Optional[int] = None,
     page_write_end: Optional[int] = None,
     mesh=None,
+    reduce: bool = True,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (out [B, S, h], kv_cache).
+
+    reduce=False returns the output projection's row-parallel partial
+    sums without the bias (the parallel block reduces them together with
+    the MLP's); it changes nothing without tensor parallelism.
 
     rope: the (cos, sin) tables of a rotary model; None for absolute
     position embeddings (added to the token embedding instead).
@@ -226,19 +232,28 @@ def attention_block(
     else:
         ctx = core(q, k, v)
     ctx = ctx.reshape(b, s, nq * D)
-    out = exit_tp(torch.matmul(ctx, deq(p["wo"], ctx.dtype)), mesh)
+    out = torch.matmul(ctx, deq(p["wo"], ctx.dtype))
+    if not reduce:
+        return out, kv_cache
+    out = exit_tp(out, mesh)
     if "bo" in p:
         out = out + p["bo"]
     return out, kv_cache
 
 
 def mlp_block(cfg: ModelConfig, p: Dict[str, Any],
-              x: torch.Tensor, mesh=None) -> torch.Tensor:
+              x: torch.Tensor, mesh=None, reduce: bool = True
+              ) -> torch.Tensor:
+    """reduce=False: the row-parallel partial sums, bias left out (as
+    attention_block's)."""
     h = torch.matmul(enter_tp(x, mesh), deq(p["w_in"], x.dtype))
     if "b_in" in p:
         h = h + p["b_in"]
     h = apply_activation(cfg.activation, h)
-    out = exit_tp(torch.matmul(h, deq(p["w_out"], h.dtype)), mesh)
+    out = torch.matmul(h, deq(p["w_out"], h.dtype))
+    if not reduce:
+        return out
+    out = exit_tp(out, mesh)
     if "b_out" in p:
         out = out + p["b_out"]
     return out
@@ -272,21 +287,37 @@ def block_forward(
     attention (Falcon) or post-LN, as the config says; moe_aux is the
     layer's router loss (a zero scalar for dense models). mesh: tensor
     parallelism (the module docstring); x is then this rank's sequence
-    chunk under sequence parallelism."""
+    chunk under sequence parallelism.
+
+    The parallel form under tensor parallelism reduces its two
+    row-parallel branches together, as Megatron's parallel block does:
+    one all-reduce (a reduce-scatter under sequence parallelism) of the
+    summed partials, then both biases. Without it, or for a MoE FFN,
+    each branch reduces its own output."""
     # post-LN: no pre-norm; the layer ends with its own norm, the ln1 slot
     normed = x if cfg.use_post_ln else _norm(cfg, lp["ln1"], x)
+    shared = (cfg.parallel_attn and cfg.num_experts is None
+              and mesh is not None and mesh.tp > 1)
     attn_out, kv_cache = attention_block(
         cfg, lp["attn"], normed, rope, positions,
         kv_cache=kv_cache, cache_index=cache_index,
         padding_mask=padding_mask, recompute_core=recompute_core,
         page_table=page_table, page_write_start=page_write_start,
-        page_write_end=page_write_end, mesh=mesh)
+        page_write_end=page_write_end, mesh=mesh, reduce=not shared)
     if cfg.parallel_attn:
         # the MLP reads ln1(x) (Falcon-7B) or its own ln_mlp(x)
         # (Falcon-40B); one residual add for both branches
         mlp_in = (_norm(cfg, lp["ln_mlp"], x) if cfg.parallel_layernorm
                   else normed)
         res = normed if cfg.apply_residual_post_ln else x
+        if shared:
+            out = exit_tp(attn_out + mlp_block(cfg, lp["mlp"], mlp_in, mesh,
+                                               reduce=False), mesh)
+            for bias in (lp["attn"].get("bo"), lp["mlp"].get("b_out")):
+                if bias is not None:
+                    out = out + bias
+            return (res + out, kv_cache,
+                    torch.zeros((), dtype=torch.float32, device=x.device))
         mlp_out, moe_aux = _ffn(cfg, lp, mlp_in, mesh)
         return res + attn_out + mlp_out, kv_cache, moe_aux
     y = (normed if cfg.apply_residual_post_ln else x) + attn_out

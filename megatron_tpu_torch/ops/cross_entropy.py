@@ -55,6 +55,27 @@ def vocab_argmax(logits: torch.Tensor) -> torch.Tensor:
     return logits.argmax(-1)
 
 
+def vocab_parallel_argmax(logits: torch.Tensor, mesh) -> torch.Tensor:
+    """Global predicted ids [B, S] from this rank's vocab block [B, S,
+    V/tp] (the reference's vocab_parallel_max_indices): each rank's max
+    and its first index, the max agreed over the tensor group, then the
+    lowest global index among the ranks that hold it, so a tie resolves
+    as torch.argmax over the whole logits does. The same ids on every
+    rank of the group."""
+    from megatron_tpu_torch.parallel.mappings import all_reduce
+
+    if mesh is None or mesh.tp == 1:
+        return vocab_argmax(logits)
+    group = mesh.group("tensor")
+    rows = logits.shape[-1]
+    local_max, local_idx = logits.detach().float().max(-1)
+    best = all_reduce(local_max, group, "max")
+    none = rows * mesh.tp                      # past every real id
+    idx = torch.where(local_max == best, local_idx + mesh.tp_rank * rows,
+                      torch.full_like(local_idx, none))
+    return all_reduce(idx, group, "min")
+
+
 def vocab_parallel_cross_entropy(
     logits: torch.Tensor,          # [B, S, V/tp]: this rank's vocab block
     targets: torch.Tensor,         # [B, S] int, global ids

@@ -18,9 +18,8 @@ cards, rank LOCAL_RANK taking card LOCAL_RANK mod count). Nothing falls
 back from one to the other.
 
 Serving (tools/run_text_generation_server under torch.distributed.run)
-takes the same bring-up and a tensor-parallel mesh (serving_mesh: tp
-over the whole world, no data or pipeline ranks, no sequence
-parallelism). Rank 0 alone binds the HTTP port and logs; it drives the
+takes the same bring-up and a serving mesh (serving_mesh: tp x pp over
+the whole world, no data ranks, no sequence parallelism). Rank 0 alone binds the HTTP port and logs; it drives the
 other ranks through a ServingChannel, one broadcast command before each
 piece of work whose collectives every rank must enter in the same
 order, and the other ranks run the follower loop
@@ -141,22 +140,25 @@ def host_batch_slice(rt: MeshRuntime, global_rows: int) -> Tuple[int, int]:
     return rt.dp_rank * per, (rt.dp_rank + 1) * per
 
 
-def serving_mesh(tensor_parallel: int) -> MeshRuntime:
-    """The mesh of a tensor-parallel server: every rank of the world on
-    the tensor axis (the engine's sequences are not split)."""
+def serving_mesh(tensor_parallel: int,
+                 pipeline_parallel: int = 1) -> MeshRuntime:
+    """The mesh of a parallel server: every rank of the world on the
+    tensor and pipe axes (no data ranks; the engine's sequences are not
+    split)."""
     import torch.distributed as dist
 
     from megatron_tpu_torch.config import ParallelConfig
     from megatron_tpu_torch.parallel.mesh import build_mesh
 
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if world != tensor_parallel:
+    if world != tensor_parallel * pipeline_parallel:
         raise ValueError(
-            f"serving at tensor_parallel={tensor_parallel} needs exactly "
-            f"that many ranks, not {world}: data-parallel replicas and "
-            "pipeline stages are not served yet (ROADMAP.md queue A item "
-            "7b)")
-    return build_mesh(ParallelConfig(tensor_parallel=tensor_parallel))
+            f"serving at tensor_parallel={tensor_parallel} x "
+            f"pipeline_parallel={pipeline_parallel} needs exactly that "
+            f"many ranks, not {world}: data-parallel replicas are not "
+            "served (run one server a replica)")
+    return build_mesh(ParallelConfig(tensor_parallel=tensor_parallel,
+                                     pipeline_parallel=pipeline_parallel))
 
 
 # an idle rank 0 tells the followers it is alive this often, well inside
@@ -165,7 +167,7 @@ HEARTBEAT_S = 2.0
 
 
 class ServingChannel:
-    """Rank 0's commands to the other ranks of a tensor-parallel server.
+    """Rank 0's commands to the other ranks of a parallel server.
 
     Every piece of work that runs collectives (a one-shot request, an
     engine tick) is announced by one broadcast of (op, payload) over the

@@ -80,19 +80,19 @@ def _all_reduce(t: torch.Tensor, group, op: str) -> torch.Tensor:
     return host.to(t.device)
 
 
-def broadcast(t: torch.Tensor, group) -> torch.Tensor:
-    """Group rank 0's t on every rank of the group (a new tensor on t's
-    device; t itself on group rank 0)."""
+def broadcast(t: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """Group rank `src`'s t on every rank of the group, a new tensor on
+    t's device (the other ranks' t gives the shape and dtype only)."""
     if group_size(group) == 1:
         return t
     with record_function("comm.broadcast"):
-        src = dist.get_global_rank(group, 0)
+        root = dist.get_global_rank(group, src)
         if _native(group) or not t.is_cuda:
             out = t.detach().clone().contiguous()
-            dist.broadcast(out, src=src, group=group)
+            dist.broadcast(out, src=root, group=group)
             return out
         host = _to_host(t).contiguous().clone()
-        dist.broadcast(host, src=src, group=group)
+        dist.broadcast(host, src=root, group=group)
         return host.to(t.device)
 
 

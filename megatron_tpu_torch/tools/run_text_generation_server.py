@@ -13,6 +13,12 @@
     python -m torch.distributed.run --nproc_per_node 2 \\
         -m megatron_tpu_torch.tools.run_text_generation_server \\
         --tensor_model_parallel_size 2 --load ckpts/run ...
+        [--serve_kv_paging ...]
+
+    python -m torch.distributed.run --nproc_per_node 4 \\
+        -m megatron_tpu_torch.tools.run_text_generation_server \\
+        --tensor_model_parallel_size 2 --pipeline_model_parallel_size 2 \\
+        --load ckpts/run ...
 
 The flag names are the JAX CLI's (tools/run_text_generation_server.py)
 for what the port supports, plus --device (default cuda). Weights are
@@ -33,24 +39,28 @@ refused for MoE models (the experts stay bf16) and for a multi-rank
 process. POST /admin/reload of such a server quantizes the new weights
 into the served tensors.
 
---tensor_model_parallel_size N (the JAX CLI's flag) serves over N ranks
-of python -m torch.distributed.run (NCCL on CUDA, gloo on the CPU or
-with --distributed_backend gloo, as training): each rank holds its
-slices of the params, loaded from a checkpoint saved at any topology
-(--load; the sharded layout or the one-file-per-field one) or built
-whole from --seed on its device and cut to its slice (the tokens of
-the one-process server at the same seed), and its kv heads' caches.
-Rank 0 binds the HTTP port and logs; the others follow it. The engine's
-tick runs eagerly (no CUDA graph: a gloo collective cannot be
-captured). Refused at N > 1, as the JAX server refuses them on a mesh:
---weight_int8/--weight_fp8, --serve_speculative and /admin/reload; and,
-in this slice, --serve_kv_paging and --pipeline_model_parallel_size > 1
-(ROADMAP.md queue A item 7b).
+--tensor_model_parallel_size N and --pipeline_model_parallel_size P
+(the JAX CLI's flags) serve over N x P ranks of python -m
+torch.distributed.run (NCCL on CUDA, gloo on the CPU or with
+--distributed_backend gloo, as training): each rank holds its slices of
+the params (its stage's layers at P > 1), loaded from a checkpoint
+saved at any topology (--load; the sharded layout or the
+one-file-per-field one) or built whole from --seed on its device and
+cut to its slice (the tokens of the one-process server at the same
+seed), and its kv heads' caches (or page pools, --serve_kv_paging).
+Rank 0 binds the HTTP port and logs; the others follow it. At N > 1
+either engine's tick runs eagerly (no CUDA graph: a gloo collective
+cannot be captured). At P > 1 the server runs one-shot through the
+pipelined forward, as the JAX server does: --serve_num_slots is
+ignored, --kv_cache_int8 is refused and beam search is a 400. Refused
+above one rank, as the JAX server refuses them on a mesh:
+--weight_int8/--weight_fp8, --serve_speculative and /admin/reload.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
@@ -147,7 +157,8 @@ def parse_args(argv=None):
                    help="serve over this many ranks of python -m "
                         "torch.distributed.run (tensor parallelism)")
     p.add_argument("--pipeline_model_parallel_size", type=int, default=1,
-                   help="only 1: pipelined serving is not ported yet")
+                   help="serve over this many pipeline stages (one-shot "
+                        "only: the pipelined forward)")
     p.add_argument("--distributed_backend", default=None,
                    choices=["nccl", "gloo"],
                    help="the process group's backend: nccl on CUDA, gloo "
@@ -160,36 +171,40 @@ def parse_args(argv=None):
 
 
 def check_parallel_flags(args) -> None:
-    """The refusals of tensor-parallel serving, before any rank starts."""
-    tp = args.tensor_model_parallel_size
-    if tp < 1:
-        raise SystemExit("--tensor_model_parallel_size must be >= 1")
-    if args.pipeline_model_parallel_size != 1:
-        raise SystemExit(
-            "--pipeline_model_parallel_size > 1: pipelined serving is not "
-            "ported yet (ROADMAP.md queue A item 7b)")
-    if tp == 1:
+    """The refusals of parallel serving, before any rank starts; at
+    pp > 1 the engine's slots are dropped, as on the JAX server."""
+    tp, pp = args.tensor_model_parallel_size, args.pipeline_model_parallel_size
+    if tp < 1 or pp < 1:
+        raise SystemExit("--tensor_model_parallel_size and "
+                         "--pipeline_model_parallel_size must be >= 1")
+    if tp * pp == 1:
         return
     refused = {
         "--weight_int8": args.weight_int8, "--weight_fp8": args.weight_fp8,
-        "--serve_speculative": bool(args.serve_speculative),
-        "--serve_kv_paging": args.serve_kv_paging}
+        "--serve_speculative": bool(args.serve_speculative)}
     for flag, on in refused.items():
-        if not on:
-            continue
-        why = ("the paged engine under tensor parallelism is the next "
-               "part of ROADMAP.md queue A item 7b"
-               if flag == "--serve_kv_paging" else
-               "single-rank serving only, as on the JAX server's mesh")
-        raise SystemExit(f"{flag} at --tensor_model_parallel_size {tp}: "
-                         f"{why}")
+        if on:
+            raise SystemExit(
+                f"{flag} at --tensor_model_parallel_size {tp} "
+                f"--pipeline_model_parallel_size {pp}: single-rank serving "
+                "only, as on the JAX server's mesh")
+    if pp > 1:
+        if args.kv_cache_int8:
+            raise SystemExit(
+                "--kv_cache_int8 is not supported with pipeline-parallel "
+                "serving (the pp>1 forward threads bf16 cache pairs); "
+                "drop one of the two flags")
+        if args.serve_num_slots:
+            if os.environ.get("RANK", "0") == "0":
+                print("pipelined (pp>1) serving runs one-shot; ignoring "
+                      f"--serve_num_slots {args.serve_num_slots}",
+                      flush=True)
+            args.serve_num_slots = 0
 
 
 def weight_quant_mode(args, cfg):
     """"int8", "fp8" or None for --weight_int8 / --weight_fp8, with the
     JAX server's refusals."""
-    import os
-
     if args.weight_int8 and args.weight_fp8:
         raise SystemExit("--weight_int8 and --weight_fp8 are exclusive")
     if not (args.weight_int8 or args.weight_fp8):
@@ -309,18 +324,20 @@ def main(argv=None, **server_kwargs):
         raise SystemExit("--serve_speculative runs inside the engine: "
                          "--serve_num_slots must be > 0")
     check_parallel_flags(args)
+    world = args.tensor_model_parallel_size * args.pipeline_model_parallel_size
     if not initialize_distributed(args.device, args.distributed_backend):
-        if args.tensor_model_parallel_size > 1:
+        if world > 1:
             raise SystemExit(
-                "--tensor_model_parallel_size > 1 needs one process per "
-                "rank: python -m torch.distributed.run --nproc_per_node "
-                f"{args.tensor_model_parallel_size} -m "
-                "megatron_tpu_torch.tools.run_text_generation_server ...")
+                f"serving over {world} ranks needs one process per rank: "
+                "python -m torch.distributed.run --nproc_per_node "
+                f"{world} -m megatron_tpu_torch.tools."
+                "run_text_generation_server ...")
         return _serve(args, None, None, server_kwargs)
     try:
-        mesh = serving_mesh(args.tensor_model_parallel_size)
+        mesh = serving_mesh(args.tensor_model_parallel_size,
+                            args.pipeline_model_parallel_size)
         args.device = str(local_device(args.device))
-        if mesh.tp == 1:
+        if mesh.world_size == 1:
             return _serve(args, None, None, server_kwargs)
         return _serve(args, mesh, ServingChannel(mesh.control_group,
                                                  mesh.rank), server_kwargs)
@@ -389,8 +406,17 @@ def _serve(args, mesh, channel, server_kwargs):
               reload_dir=args.load, weights_version=iteration)
     if mesh is not None:
         kw.update(mesh=mesh, channel=channel, cuda_graph=False)
-        log(f"tensor parallel {mesh.tp}: the engine's tick runs eagerly "
-            "(cuda_graph=False: a gloo collective cannot be captured)")
+        if mesh.pp > 1:
+            from megatron_tpu_torch.inference.pipelined import (
+                PipelinedForward,
+            )
+
+            kw["forward_fn"] = PipelinedForward(cfg, mesh)
+            log(f"pipeline parallel {mesh.pp} x tensor parallel {mesh.tp}: "
+                "one-shot through the pipelined forward")
+        else:
+            log(f"tensor parallel {mesh.tp}: the engine's tick runs eagerly "
+                "(cuda_graph=False: a gloo collective cannot be captured)")
         if not leads:
             GenerationService(cfg, params, tokenizer, **kw).follow()
             return

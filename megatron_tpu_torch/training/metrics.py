@@ -5,11 +5,19 @@ A registry of named metrics computed on eval batches under --metrics
 (the reference's METRICS mapping). Each is a function of (logits,
 labels, loss_mask, per_token_loss) that returns a device scalar, so
 the eval step reads them with its loss in one host sync.
+
+Across ranks (training/train_step.py's parallel eval step) the same
+metrics are kept as (numerator, denominator) token sums, metric_sums,
+which add over microbatches, pipeline stages and data ranks; the
+predicted ids come from the vocab-parallel argmax
+(ops/cross_entropy.vocab_parallel_argmax) and the per-token losses
+from the vocab-parallel cross-entropy, and finish_metrics divides the
+agreed sums by the formulas above.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Sequence
 
 import torch
 
@@ -54,4 +62,41 @@ def compute_metrics(names, logits, labels, loss_mask, per_token_loss):
             raise ValueError(
                 f"unknown metric {name!r}; one of {sorted(METRICS)}")
         out[name] = METRICS[name](logits, labels, loss_mask, per_token_loss)
+    return out
+
+
+def metric_sums(names: Sequence[str], pred, labels, loss_mask,
+                per_token_loss) -> torch.Tensor:
+    """[len(names), 2] fp32: each metric's (numerator, denominator) token
+    sums over this batch, given the predicted ids `pred`."""
+    rows = []
+    for name in names:
+        if name == "perplexity":
+            mask = loss_mask.float()
+            num = (per_token_loss * mask).sum()
+        elif name in ("accuracy", "instruct_accuracy"):
+            mask = ((loss_mask > 0) if name == "accuracy"
+                    else (loss_mask >= 1.0)).float()
+            num = ((pred == labels).float() * mask).sum()
+        elif name == "count_loss_mask":
+            num = (loss_mask > 0).float().sum()
+            mask = torch.ones((), device=num.device)
+        else:
+            raise ValueError(
+                f"unknown metric {name!r}; one of {sorted(METRICS)}")
+        rows.append(torch.stack([num.float(), mask.sum().float()]))
+    return torch.stack(rows)
+
+
+def finish_metrics(names: Sequence[str], sums: torch.Tensor
+                   ) -> Dict[str, torch.Tensor]:
+    """The metrics from their summed (numerator, denominator) rows."""
+    out = {}
+    for name, (num, den) in zip(names, sums):
+        if name == "count_loss_mask":
+            out[name] = num
+            continue
+        mean = num / den.clamp_min(1.0)
+        out[name] = (torch.exp(mean.clamp_max(20.0))
+                     if name == "perplexity" else mean)
     return out

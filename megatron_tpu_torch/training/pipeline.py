@@ -42,13 +42,15 @@ import torch
 
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.models.language_model import (
-    _layers, embed_tokens, final_hidden_norm, recompute_granularity,
-    run_layers, token_losses,
+    _ce, _layers, embed_tokens, final_hidden_norm, lm_logits,
+    recompute_granularity, run_layers, token_losses,
 )
 from megatron_tpu_torch.models.params import vpp_place_indices
 from megatron_tpu_torch.models.transformer import block_forward
+from megatron_tpu_torch.ops.cross_entropy import vocab_parallel_argmax
 from megatron_tpu_torch.ops.rotary import precompute_rope
 from megatron_tpu_torch.parallel.mappings import enter_tp, p2p
+from megatron_tpu_torch.training.metrics import metric_sums
 
 __all__ = ["Pipeline", "vpp_place_indices"]
 
@@ -75,6 +77,7 @@ class Pipeline:
         self.M, self.V, self.pp = num_microbatches, V, pp
         self.Lv = cfg.num_layers // (pp * V)
         self.recompute = recompute
+        self.metric_sums: Optional[torch.Tensor] = None
 
     # -- one chunk ------------------------------------------------------------
 
@@ -85,9 +88,12 @@ class Pipeline:
         return self.mesh.is_last_stage and c == self.V - 1
 
     def _forward(self, params, batch, rope, m: int, c: int,
-                 x: Optional[torch.Tensor]) -> torch.Tensor:
+                 x: Optional[torch.Tensor], metrics=()) -> torch.Tensor:
         """Chunk c on microbatch m: its output activation, or on the last
-        virtual stage the microbatch's mean loss."""
+        virtual stage the microbatch's mean loss. With `metrics` (names
+        of training/metrics.py) the last stage computes the logits whole
+        (this rank's vocab block) and adds the microbatch's metric sums
+        to self.metric_sums."""
         cfg, mesh = self.cfg, self.mesh
         mbs = batch["tokens"].shape[0] // self.M
         mb = {k: v[m * mbs:(m + 1) * mbs] for k, v in batch.items()}
@@ -105,8 +111,17 @@ class Pipeline:
         if not self._last(c):
             return x
         h = enter_tp(final_hidden_norm(cfg, params, x), mesh)
-        per_token = token_losses(cfg, params, h, mb["labels"], mesh)
         lm = mb.get("loss_mask")
+        if metrics:
+            logits = lm_logits(cfg, params, h)
+            per_token = _ce(logits, mb["labels"], mesh)[1]
+            sums = metric_sums(metrics, vocab_parallel_argmax(logits, mesh),
+                               mb["labels"], lm if lm is not None else
+                               torch.ones_like(per_token), per_token)
+            self.metric_sums = (sums if self.metric_sums is None
+                                else self.metric_sums + sums)
+        else:
+            per_token = token_losses(cfg, params, h, mb["labels"], mesh)
         if lm is None:
             return per_token.mean()
         lm = lm.float()
@@ -321,17 +336,20 @@ class Pipeline:
             grads[nxt_b].append(grad)
 
     @torch.no_grad()
-    def forward_only(self, params, batch: Dict[str, torch.Tensor]
-                     ) -> Optional[torch.Tensor]:
+    def forward_only(self, params, batch: Dict[str, torch.Tensor],
+                     metrics=()) -> Optional[torch.Tensor]:
         """Every microbatch forward through this stage, virtual stages in
         order (evaluation). Returns the mean of the microbatch losses on
-        the last stage, None elsewhere."""
+        the last stage, None elsewhere; with `metrics`, self.metric_sums
+        then holds their token sums over every microbatch (None
+        elsewhere)."""
         rope = self._rope(batch)
         losses = []
+        self.metric_sums = None
         for m in range(self.M):
             for c in range(self.V):
                 x, _ = self._exchange(batch, recv_prev=not self._first(c))
-                out = self._forward(params, batch, rope, m, c, x)
+                out = self._forward(params, batch, rope, m, c, x, metrics)
                 if self._last(c):
                     losses.append(out)
                 else:

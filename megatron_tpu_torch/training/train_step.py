@@ -190,10 +190,11 @@ def make_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig,
     """Forward-only LM loss (the JAX package's eval_step):
     eval_step(params, batch) -> {"lm_loss", "ntokens", and each of
     train_cfg.metrics (training/metrics.py)}, device tensors. With a
-    multi-rank mesh the step returns lm_loss and ntokens only (the
-    metrics over sharded logits are ROADMAP.md 7b), agreed over every
-    rank: the tensor-parallel model, or the pipeline's forward-only
-    pass, then the mean over the data ranks."""
+    multi-rank mesh the same numbers are agreed over every rank: the
+    tensor-parallel model (the vocab-parallel CE and argmax), or the
+    pipeline's forward-only pass whose last stage computes them, then
+    the loss's mean over the data ranks and the metrics' token sums
+    over the pipe and data ranks."""
     from megatron_tpu_torch.training.metrics import compute_metrics
 
     if mesh is not None and mesh.world_size > 1:
@@ -220,11 +221,13 @@ def make_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig,
 
 def _parallel_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig,
                         mesh):
-    if train_cfg.metrics:
-        raise ValueError(
-            f"--metrics {' '.join(train_cfg.metrics)} at world size "
-            f"{mesh.world_size}: validation metrics over vocab-parallel "
-            "logits are not ported (ROADMAP.md queue A item 7b)")
+    from megatron_tpu_torch.models.language_model import _ce
+    from megatron_tpu_torch.ops.cross_entropy import vocab_parallel_argmax
+    from megatron_tpu_torch.training.metrics import (
+        finish_metrics, metric_sums,
+    )
+
+    names = tuple(train_cfg.metrics)
     pipelines: Dict[int, Any] = {}
 
     @torch.no_grad()
@@ -235,14 +238,30 @@ def _parallel_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig,
             loss_mask = torch.ones(batch["labels"].shape,
                                    dtype=torch.float32,
                                    device=batch["labels"].device)
+        sums = None
         if mesh.pp > 1:
             from megatron_tpu_torch.training.pipeline import Pipeline
 
             m = rows // train_cfg.micro_batch_size
             if m not in pipelines:
                 pipelines[m] = Pipeline(model_cfg, mesh, m)
-            loss = pipelines[m].forward_only(params, batch)
+            pipe = pipelines[m]
+            loss = pipe.forward_only(params, batch, metrics=names)
             losses = [] if loss is None else [loss]
+            if names:
+                # the last stage's sums; the other stages add zeros
+                sums = (pipe.metric_sums if pipe.metric_sums is not None
+                        else torch.zeros((len(names), 2),
+                                         device=loss_mask.device))
+                sums = all_reduce(sums, mesh.group("pipe"))
+        elif names:
+            logits = lm_forward(model_cfg, params, batch["tokens"],
+                                positions=batch.get("position_ids"),
+                                mesh=mesh)
+            loss, per_token = _ce(logits, batch["labels"], mesh, loss_mask)
+            losses = [loss]
+            sums = metric_sums(names, vocab_parallel_argmax(logits, mesh),
+                               batch["labels"], loss_mask, per_token)
         else:
             losses = [lm_loss(model_cfg, params,
                               dict(batch, loss_mask=loss_mask),
@@ -250,7 +269,12 @@ def _parallel_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig,
         ntokens = loss_mask.sum()
         if mesh.dp > 1:
             ntokens = all_reduce(ntokens, mesh.group("data"))
-        return {"lm_loss": agreed_loss(losses, mesh, loss_mask.device),
-                "ntokens": ntokens}
+            if sums is not None:
+                sums = all_reduce(sums, mesh.group("data"))
+        out = {"lm_loss": agreed_loss(losses, mesh, loss_mask.device),
+               "ntokens": ntokens}
+        if names:
+            out.update(finish_metrics(names, sums))
+        return out
 
     return eval_step

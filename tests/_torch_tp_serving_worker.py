@@ -135,8 +135,9 @@ def _service(cfg, params, mesh, **kw):
     from megatron_tpu_torch.tokenizer import NullTokenizer
 
     kw.setdefault("engine_slots", 2)
+    kw.setdefault("engine_max_seq_len", 64)
     return GenerationService(
-        cfg, params, NullTokenizer(VOCAB - 1), engine_max_seq_len=64,
+        cfg, params, NullTokenizer(VOCAB - 1),
         device="cpu", metrics=MetricsRegistry(), mesh=mesh,
         channel=ServingChannel(mesh.control_group, mesh.rank),
         cuda_graph=False, **kw)
@@ -230,7 +231,9 @@ def fault_rank(rank: int, port: int, fault: str, out_dir: str) -> None:
       * "missed_clear": with two requests decoding, slot 0 is cleared
         and the clear left out of the next control record;
       * "rank0_dies": after one request is served, rank 0's process ends
-        at once (os._exit).
+        at once (os._exit);
+      * "paged_chunk_fails": the paged engine (--serve_kv_paging), whose
+        follower fails the first prefill chunk rank 0 announces.
 
     Each rank writes {"error", "seconds"} to rank<r>.json: the exception
     that ended its main() (None if it returned) and when, on the
@@ -256,9 +259,24 @@ def fault_rank(rank: int, port: int, fault: str, out_dir: str) -> None:
         with open(path, "w") as f:
             json.dump(seen, f)
 
+    argv = FAULT_ARGV
+    if fault == "paged_chunk_fails":
+        argv = argv + ["--serve_kv_paging", "--serve_page_size", "8",
+                       "--serve_prefill_chunk", "8"]
     if rank != 0:
+        if fault == "paged_chunk_fails":
+            from megatron_tpu_torch.inference.paging import (
+                PagedInferenceEngine,
+            )
+
+            def broken(self, *a, **k):
+                with open(stamp, "w") as f:
+                    f.write(str(time.monotonic()))
+                raise RuntimeError("injected: a follower's chunk failed")
+
+            PagedInferenceEngine._chunk_forward = broken
         try:
-            rts.main(FAULT_ARGV)
+            rts.main(argv)
         except BaseException as e:
             write(e)
             raise
@@ -269,7 +287,7 @@ def fault_rank(rank: int, port: int, fault: str, out_dir: str) -> None:
 
     def serve():
         try:
-            rts.main(FAULT_ARGV, ready=ready, service_out=box)
+            rts.main(argv, ready=ready, service_out=box)
         except BaseException as e:  # noqa: BLE001 - what the test reads
             ended.append(e)
         else:
@@ -280,6 +298,16 @@ def fault_rank(rank: int, port: int, fault: str, out_dir: str) -> None:
     assert ready.wait(60)
     svc = box[0]
     engine = svc.engine
+    if fault == "paged_chunk_fails":
+        req = engine.submit(Request(prompt=np.array([5, 9, 11], np.int32),
+                                    max_new_tokens=4))
+        req.done.wait(60)
+        seen["request"] = req.error
+        th.join(60)
+        write(ended[0] if ended else RuntimeError("main() still running"))
+        if ended and ended[0] is not None:
+            raise ended[0]
+        return
     if fault == "rank0_dies":
         svc.handle({"prompts": ["5 9 11"], "tokens_to_generate": 4,
                     "temperature": 0.0})

@@ -48,7 +48,9 @@ cut into two tp2 ranks (gloo processes sharing the card) saves into the
 sharded layout through each rank's AsyncCheckpointSaver (pinned
 buffers), and loads back bitwise at world size 1 and at tp2, on the
 card; B1 at S 2047 and B4 at B8 Sq 1, with a tp2 serving rank's 16 query
-and 16 kv heads of D 128, match their plain versions.
+and 16 kv heads of D 128, match their plain versions, as do B1-B4 at a
+Falcon-40B tp2 rank's 64 query over 4 kv heads of D 64 and B5 at the
+paged engine's tp2 rank (16 heads, 16-token pages).
 """
 
 import dataclasses
@@ -1082,6 +1084,54 @@ def test_flash_kernels_at_the_tp2_serving_shapes(gen):
     _assert_close(ft.flash_decode(q, k, v, lens),
                   ft.flash_decode_reference(q.float(), k.float(), v.float(),
                                             lens))
+
+
+def test_flash_kernels_at_the_falcon40b_tp2_rank_shape(gen):
+    """A tp2 rank of Falcon-40B (64 query heads over 4 kv heads of D 64,
+    a group of 16): B1 forward and B2/B3 backward at S 2048, and B4 over
+    a decode tick of 8 ragged slots of 2048 (16 rows a kv head), against
+    their plain versions."""
+    q = _randn(gen, 1, 2048, 64, 64)
+    k, v = _randn(gen, 1, 2048, 4, 64), _randn(gen, 1, 2048, 4, 64)
+    do = _randn(gen, 1, 2048, 64, 64)
+    o, lse = ft.flash_fwd(q, k, v)
+    o_ref, lse_ref = ft.flash_fwd_reference(q.float(), k.float(), v.float())
+    _assert_close(o, o_ref)
+    _assert_close(lse, lse_ref)
+    got = ft.flash_bwd(q, k, v, o, lse, do)
+    want = ft.flash_bwd_reference(q.float(), k.float(), v.float(), o, lse,
+                                  do)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _assert_close_rel(a, b, name)
+    q = _randn(gen, 8, 1, 64, 64)
+    k, v = _randn(gen, 8, 2048, 4, 64), _randn(gen, 8, 2048, 4, 64)
+    lens = torch.tensor([1, 63, 64, 2047, 2048, 500, 1000, 1500],
+                        dtype=torch.int32, device="cuda")
+    _assert_close(ft.flash_decode(q, k, v, lens),
+                  ft.flash_decode_reference(q.float(), k.float(), v.float(),
+                                            lens))
+
+
+def test_paged_decode_at_the_tp2_paged_rank_shape(gen):
+    """A tp2 rank of Llama-2-7B on the paged engine: B5 over 8 ragged
+    slots of 2048 through a shuffled table of 16-token pages, 16 query
+    and 16 kv heads of D 128, against its plain version."""
+    B, ps, max_pages = 8, 16, 128
+    n_pages = 1 + B * max_pages
+    q = _randn(gen, B, 1, 16, 128)
+    kp, vp = (_randn(gen, n_pages, ps, 16, 128) for _ in range(2))
+    table = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+             ).view(B, max_pages).to(torch.int32)
+    lens_list = [1, 63, 64, 2047, 2048, 500, 1000, 1500]
+    for b, n in enumerate(lens_list):
+        table[b, -(-n // ps):] = 0
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    before = ft.paged_flash_decode.launches
+    o = ft.paged_flash_decode(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    assert ft.paged_flash_decode.launches == before + 1
+    _assert_close(o, ft.paged_flash_decode_reference(
+        q.float(), kp.float(), vp.float(), table, lens))
 
 
 def _sharded_cfg():

@@ -205,7 +205,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "training.prefetch", "telemetry.journal", "telemetry.goodput",
         "telemetry.run", "telemetry.flight_recorder", "telemetry.http",
         "tokenizer.gpt2_bpe", "tokenizer.tokenizer", "tools.preprocess_data",
-        "tools.merge_datasets")]
+        "tools.merge_datasets", "inference.pipelined",
+        "inference.paging.engine", "parallel.distributed",
+        "training.pipeline")]
     code = (
         "import importlib, pkgutil, sys\n"
         "import megatron_tpu_torch as pkg\n"

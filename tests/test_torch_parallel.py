@@ -274,8 +274,11 @@ def test_refusals_name_what_is_missing():
     falcon = tconfig.ModelConfig(**FAMILIES["falcon"]).validate()
     tp2 = build_mesh(tconfig.ParallelConfig(tensor_parallel=2),
                      world_size=2, rank=0)
-    with pytest.raises(ValueError, match="7b"):
-        tparams.check_mesh(dataclasses.replace(falcon, num_kv_heads=2), tp2)
+    # Falcon's parallel block shards at tp2 (tests/test_torch_parallel_
+    # families.py); Falcon-7B's single kv head does not, as in JAX
+    tparams.check_mesh(dataclasses.replace(falcon, num_kv_heads=2), tp2)
+    with pytest.raises(ValueError, match="kv heads"):
+        tparams.check_mesh(dataclasses.replace(falcon, num_kv_heads=1), tp2)
     # checkpoints at world size > 1 are ported (the sharded layout);
     # MoE above world size 1 is still refused, by name
     moe = dataclasses.replace(cfg, num_experts=4, moe_top_k=2).validate()

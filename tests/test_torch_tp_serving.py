@@ -22,10 +22,12 @@ model-dtype and int8 caches, greedy and seeded top-k. Held:
     refused by name;
   * a fault of the group ends every rank non-zero, well inside the
     process group's timeout: a control record that misses a clear (two
-    more gloo ranks running the server's CLI), and a rank 0 that dies
+    more gloo ranks running the server's CLI), a rank 0 that dies (two
+    more), and a paged engine's follower that fails a prefill chunk
     (two more).
 """
 
+import dataclasses
 import json
 import os
 import tempfile
@@ -111,11 +113,11 @@ def _jax_on_mesh(jcfg, jparams):
     return out
 
 
-FAULTS = ["missed_clear", "rank0_dies"]
+FAULTS = ["missed_clear", "rank0_dies", "paged_chunk_fails"]
 
 
 class _Faults:
-    """Both fault scenarios' ranks (S.fault_rank), started at once;
+    """Every fault scenario's ranks (S.fault_rank), started at once;
     result(fault) joins one and returns ([exit code per rank], [what
     each rank wrote])."""
 
@@ -278,7 +280,8 @@ def _mesh():
     (["--weight_int8"], "--weight_int8 at --tensor_model_parallel_size 2"),
     (["--weight_fp8"], "--weight_fp8 at --tensor_model_parallel_size 2"),
     (["--serve_speculative", "ngram"], "--serve_speculative at"),
-    (["--serve_kv_paging"], "paged engine under tensor parallelism"),
+    (["--pipeline_model_parallel_size", "2", "--kv_cache_int8"],
+     "--kv_cache_int8 is not supported with pipeline-parallel serving"),
     ([], "needs one process per rank"),
 ])
 def test_the_server_cli_refuses_what_tp_serving_does_not_cover(flags,
@@ -289,9 +292,17 @@ def test_the_server_cli_refuses_what_tp_serving_does_not_cover(flags,
 
 
 def test_pipelined_serving_is_refused():
-    with pytest.raises(SystemExit, match="pipelined serving"):
+    """What stays refused of pipelined serving is the JAX server's:
+    --kv_cache_int8 (the pipelined forward threads bf16 caches), and
+    --serve_speculative above one rank; the rest serves
+    (tests/test_torch_pp_serving.py)."""
+    with pytest.raises(SystemExit, match="pipeline-parallel serving"):
         srv.main(["--model_name", "tiny", "--device", "cpu",
-                  "--pipeline_model_parallel_size", "2"])
+                  "--pipeline_model_parallel_size", "2", "--kv_cache_int8"])
+    with pytest.raises(SystemExit, match="--serve_speculative at"):
+        srv.main(["--model_name", "tiny", "--device", "cpu",
+                  "--pipeline_model_parallel_size", "2",
+                  "--serve_speculative", "ngram"])
 
 
 def test_the_engines_refuse_what_tp_serving_does_not_cover(weights):
@@ -304,19 +315,36 @@ def test_the_engines_refuse_what_tp_serving_does_not_cover(weights):
                         speculative=SpecConfig(k=2, drafter="ngram"), **kw)
     with pytest.raises(ValueError, match="ServingChannel"):
         InferenceEngine(tcfg, tparams, cuda_graph=False, **kw)
-    with pytest.raises(ValueError, match="paged engine under tensor"):
+    # the paged engine serves at tp2 (tests/test_torch_pp_serving.py) on
+    # the slot engine's terms: an eager tick, no speculation
+    with pytest.raises(ValueError, match="cuda_graph=True"):
+        PagedInferenceEngine(tcfg, tparams, channel=object(), **kw)
+    with pytest.raises(ValueError, match="speculative decoding"):
         PagedInferenceEngine(tcfg, tparams, cuda_graph=False,
-                             channel=object(), **kw)
+                             channel=object(),
+                             speculative=SpecConfig(k=2, drafter="ngram"),
+                             **kw)
 
 
 @pytest.mark.parametrize("family", ["falcon", "post_ln"])
 def test_falcon_and_post_ln_under_tp_name_the_roadmap_item(family):
+    """Both blocks shard at tp2 now (their parity:
+    tests/test_torch_parallel_families.py); what stays refused is the
+    JAX package's kv-head rule (Falcon-7B's one kv head at tp2) and,
+    naming ROADMAP.md item 7b, a MoE FFN above world size 1."""
     cfg = presets.tiny(**S.KW, **({"parallel_attn": True}
                                   if family == "falcon"
                                   else {"use_post_ln": True}))
     flat = dict(leaf_paths(tg_params(cfg)))
+    local = shard_params(flat, cfg, _mesh())
+    assert local["layers/attn/wk"].shape[-1] == flat[
+        "layers/attn/wk"].shape[-1] // 2
+    with pytest.raises(ValueError, match="kv heads"):
+        shard_params(flat, dataclasses.replace(cfg, num_kv_heads=1),
+                     _mesh())
+    moe = dataclasses.replace(cfg, num_experts=4, moe_top_k=2).validate()
     with pytest.raises(ValueError, match="7b"):
-        shard_params(flat, cfg, _mesh())
+        shard_params(dict(leaf_paths(tg_params(moe))), moe, _mesh())
 
 
 def tg_params(cfg):
@@ -343,3 +371,16 @@ def test_a_follower_fails_when_rank_0_dies(faults):
     codes, (_, rank1) = faults.result("rank0_dies")
     assert codes == [9, 1]
     assert rank1["error"] is not None and rank1["seconds"] < FAULT_SECONDS
+
+
+def test_a_paged_followers_failed_chunk_fails_both_ranks(faults):
+    """The paged engine at tp2: a follower that fails the chunk rank 0
+    announced ends non-zero; rank 0's next collective fails, it stops
+    serving, fails the request it holds and ends non-zero too."""
+    codes, (rank0, rank1) = faults.result("paged_chunk_fails")
+    assert codes[1] != 0 and "injected" in rank1["error"]
+    assert codes[0] != 0
+    assert "tensor-parallel group failed" in rank0["error"]
+    assert "tensor-parallel group failed" in rank0["request"]
+    assert rank0["seconds"] < FAULT_SECONDS
+    assert rank1["seconds"] < FAULT_SECONDS

@@ -222,6 +222,7 @@ def test_quantized_engines_match_generate_tokens(models, paged):
     tokens (the decode tick dequantizes each layer where it multiplies)."""
     from megatron_tpu_torch.inference.engine import InferenceEngine
     from megatron_tpu_torch.inference.paging import PagedInferenceEngine
+    from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
 
     _, _, tcfg, tparams = models
     q = quantize_params_for_serving(tparams, "fp8" if paged else "int8")
@@ -230,7 +231,10 @@ def test_quantized_engines_match_generate_tokens(models, paged):
     lengths = np.array([6, 6], np.int32)
     want = generate_tokens(tcfg, q, prompts, lengths, max_new_tokens=5,
                            temperature=0.0, top_k=1, seed=0)
-    kw = dict(num_slots=2, max_seq_len=32, vocab_size=128, device="cpu")
+    # a registry of its own: the process-wide one is read by other
+    # files' servers (test_torch_engine.py counts retirements there)
+    kw = dict(num_slots=2, max_seq_len=32, vocab_size=128, device="cpu",
+              metrics=MetricsRegistry())
     eng = (PagedInferenceEngine(tcfg, q, page_size=8, prefill_chunk=4, **kw)
            if paged else InferenceEngine(tcfg, q, **kw))
     got = eng.generate(prompts, lengths, max_new_tokens=5, temperature=0.0)
