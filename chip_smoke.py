@@ -100,8 +100,9 @@ still run, so one call shows every failure):
               at 0, no dense-fallback warning and no capture beyond the
               warm-up one.
   3c. spec    speculative serving (--serve_speculative, k SPEC_K) through
-              the server on both engines, the phase-3 prompts plus one of
-              512 tokens repeating a 64-token pattern, three drafters:
+              the server on both engines, the 5- and 100-token phase-3
+              prompts plus one of 512 tokens repeating a 64-token
+              pattern, three drafters:
               ngram (on random weights: no draft accepted), model at
               full depth (the target's own weights: near-full
               acceptance), model cut to the target's first
@@ -353,9 +354,13 @@ still run, so one call shows every failure):
               of the request traced; (c) Falcon-40B's width x
               FALCON_TRAIN_LAYERS trained at tp2 + SP with --metrics
               against its one-process run (phase 7's tolerances; B1-B3
-              as counted); (d) Falcon-40B's width x FALCON_SERVE_LAYERS
-              on the tp2 dense engine, phase 3's traffic (phase 3's
-              gate; B1, B4 counted). The new per-rank kernel shapes
+              as counted), and its predicted ids over 2048 seeded tokens
+              at the seeded init: the vocab-parallel argmax equal to the
+              argmax of the gathered logits on each rank, and against
+              the one-process plain logits at phase 3's gate; (d)
+              Falcon-40B's width x FALCON_SERVE_LAYERS on the tp2 dense
+              engine, phase 3's traffic (phase 3's gate; B1, B4
+              counted). The new per-rank kernel shapes
               (B1-B3 at S 2048 Hq 64 Hkv 4 D 64, B4 at R 16, B5 at 16
               heads, ps 16) are phase 2-2c cases.
   8. report   each phase's wall seconds as it ends and all of them
@@ -415,16 +420,19 @@ PAGE_SIZE = 16
 PREFILL_CHUNK = 32
 PRESSURE_PAGES = 147
 SHARED_PREFIX, OWN_SUFFIX = 512, 64
-# phase 3c: speculative serving, k SPEC_K, the phase-3 prompts plus one
-# of SPEC_REPEAT tokens repeating a SPEC_PATTERN-token pattern (so the
-# n-gram lookup proposes). The random-init target copies no pattern, so
+# phase 3c: speculative serving, k SPEC_K, the first SPEC_REQUESTS
+# phase-3 prompts (the 700- and 1500-token ones were cut for the
+# script's wall: every drafter, engine and multi-chunk prefill is still
+# driven) plus one of SPEC_REPEAT tokens repeating a SPEC_PATTERN-token
+# pattern (so the n-gram lookup proposes). The random-init target copies no pattern, so
 # the n-gram drafts are never accepted (a 4-layer draft model, which
 # agreed with it nowhere either, ran here until PR 15 and was cut for
 # the script's wall); a cut of SPEC_PARTIAL_LAYERS layers agrees with it
 # in part
-# (on an H100, seed 1234: 101 of 260 drafts dense, 85 of 280 paged), so
-# its ticks roll back after 0 < a < k accepted drafts
+# (PERF.md has the counts), so its ticks roll back after 0 < a < k
+# accepted drafts
 SPEC_K = 4
+SPEC_REQUESTS = 2
 SPEC_PATTERN, SPEC_REPEAT = 64, 512
 SPEC_PARTIAL_LAYERS = 31
 
@@ -1776,7 +1784,8 @@ def serve_speculative(torch, ft, card, dense_tokens):
     prompts = [rng.integers(0, cfg.vocab_size - 1, size=n).tolist()
                for n in PROMPT_LENS]
     pattern = rng.integers(0, cfg.vocab_size - 1, size=SPEC_PATTERN).tolist()
-    prompts.append(pattern * (SPEC_REPEAT // SPEC_PATTERN))
+    prompts = prompts[:SPEC_REQUESTS] + [
+        pattern * (SPEC_REPEAT // SPEC_PATTERN)]
     torch.cuda.reset_peak_memory_stats()
     runs, seqs, problems = [], {}, []
     for paged in (False, True):
@@ -1785,7 +1794,7 @@ def serve_speculative(torch, ft, card, dense_tokens):
             rec, gen = _spec_server_run(torch, ft, cfg, params, tokenizer,
                                         prompts, paged, drafter, layers)
             if dense_tokens is not None:
-                pairs = list(zip(gen, dense_tokens))
+                pairs = list(zip(gen[:SPEC_REQUESTS], dense_tokens))
                 rec["share_equal_to_plain_tokens"] = (
                     sum(x == y for a, b in pairs for x, y in zip(a, b))
                     / sum(len(a) for a, _ in pairs))
@@ -4894,10 +4903,12 @@ def _filled_ticks(torch, eng, ch, lead, lens, vocab, trace, sync) -> dict:
             "comm": _comm_share(trace)}
 
 
-def _run_record(torch, ft, flags, rank) -> dict:
+def _run_record(torch, ft, flags, rank, probe=None) -> dict:
     """tools/pretrain_gpt's main with `flags` in this process group: its
     kernel launches, losses, grad norms, evaluations (with --metrics),
-    step times, saves, load, peak memory and traces."""
+    step times, saves, load, peak memory and traces; with `probe`, its
+    result on the finished loop under "probe" (after the launches are
+    read, so its own do not count)."""
     from megatron_tpu_torch.tools import pretrain_gpt
 
     cuda = torch.cuda.is_available()
@@ -4909,7 +4920,7 @@ def _run_record(torch, ft, flags, rank) -> dict:
     loop = pretrain_gpt.main(list(flags), log=lambda m: print(m, flush=True))
     if cuda:
         torch.cuda.synchronize()
-    return {
+    record = {
         "rank": rank, "wall_s": time.monotonic() - t0,
         "iterations": [r["iteration"] for r in loop.step_records],
         "losses": [r["loss"] for r in loop.step_records],
@@ -4926,6 +4937,9 @@ def _run_record(torch, ft, flags, rank) -> dict:
                  {"world": loop.mesh.world_size, "dp": loop.mesh.dp,
                   "pp": loop.mesh.pp, "vpp": loop.mesh.vpp,
                   "tp": loop.mesh.tp})}
+    if probe is not None:
+        record["probe"] = probe(loop)
+    return record
 
 
 def rank_serve(out: str, runs) -> int:
@@ -4963,7 +4977,6 @@ def rank_serve(out: str, runs) -> int:
     sys.path.insert(0, REPO)
     from megatron_tpu_torch.inference.engine import InferenceEngine
     from megatron_tpu_torch.inference.paging import PagedInferenceEngine
-    from megatron_tpu_torch.inference.pipelined import PipelinedForward
     from megatron_tpu_torch.models import presets
     from megatron_tpu_torch.models.params import init_params
     from megatron_tpu_torch.ops.flash import flash_template as ft
@@ -5118,9 +5131,8 @@ def rank_serve(out: str, runs) -> int:
         t1 = time.monotonic()
         _, pparams, _ = rts.load_model(args, pp_mesh, log=lambda m: None)
         sync()
-        fwd = PipelinedForward(cfg, pp_mesh)
         pipe = {"init_s": time.monotonic() - t1,
-                "layers_per_stage": fwd.num_layers}
+                "layers_per_stage": cfg.num_layers // pp_mesh.pp}
         gen_req = {"prompts": [" ".join(map(str, prompts[1]))],
                    "tokens_to_generate": NEW_TOKENS, "temperature": 0.0}
 
@@ -5157,7 +5169,7 @@ def rank_serve(out: str, runs) -> int:
 
         if not lead:
             _zero_decode_counts(ft)
-        run = _served(kw(0, m=pp_mesh, forward_fn=fwd), cfg, pparams,
+        run = _served(kw(0, m=pp_mesh), cfg, pparams,
                       tokenizer, lead, pipelined)
         if lead:
             pipe.update(run)
@@ -5165,12 +5177,14 @@ def rank_serve(out: str, runs) -> int:
         # scored batch and the traced request (one-shot: no launch)
         pipe["follower_launches"] = None if lead else _decode_counts(ft)
         record["pipelined"] = pipe
-        del pparams, fwd
+        del pparams
         free()
         part("7e_b")
 
         # 7e(c) Falcon-40B width trained at tp2 + SP with --metrics
-        record["falcon_train"] = _run_record(torch, ft, runs[1], mesh.rank)
+        record["falcon_train"] = _run_record(
+            torch, ft, runs[1], mesh.rank,
+            probe=lambda loop: _argmax_probe(torch, np, loop))
         free()
         part("7e_c")
 
@@ -5241,8 +5255,87 @@ def tp_serve_argv():
             "--tokenizer_type", "null", "--device", "cuda"]
 
 
+def _argmax_tokens(torch, np, cfg, device):
+    """7e(c)'s argmax probe: 1 x PAR_SEQ ids from the seed."""
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (1, PAR_SEQ))).to(device)
+
+
+def _argmax_probe(torch, np, loop) -> dict:
+    """7e(c)'s predicted ids at Falcon-40B's vocab width, on this rank of
+    the tp2 + SP run: the run's model at its seeded init (this rank's
+    slices), its logits [1, S, V/tp] over the probe tokens through the
+    run's mesh, and the vocab-parallel argmax of them against
+    torch.argmax of the logits gathered over the tensor group (the same
+    values, so the same ids, ties included), also through the accuracy
+    metric with the gathered ids as labels (exactly 1). The ids go to
+    the record, held against the one-process plain path by
+    _falcon_train_gates."""
+    from megatron_tpu_torch.models.language_model import lm_forward
+    from megatron_tpu_torch.models.params import init_params
+    from megatron_tpu_torch.ops.cross_entropy import vocab_parallel_argmax
+    from megatron_tpu_torch.parallel.mappings import all_gather
+    from megatron_tpu_torch.training.metrics import (
+        finish_metrics, metric_sums,
+    )
+
+    cfg, mesh = loop.cfg.model, loop.mesh
+    params = init_params(cfg, SEED, device=loop.device, mesh=mesh)
+    tokens = _argmax_tokens(torch, np, cfg, loop.device)
+    with torch.no_grad():
+        local = lm_forward(cfg, params, tokens, mesh=mesh)
+        ids = vocab_parallel_argmax(local, mesh)
+        whole = all_gather(local, mesh.group("tensor"), dim=-1)
+        want = whole.argmax(-1)
+        top = whole.max(-1, keepdim=True).values
+        half = whole.shape[-1] // 2
+        cross = ((whole[..., :half] == top).any(-1)
+                 & (whole[..., half:] == top).any(-1))
+        acc = finish_metrics(("accuracy",), metric_sums(
+            ("accuracy",), ids, want, torch.ones_like(ids),
+            torch.zeros(ids.shape, device=ids.device)))["accuracy"]
+        out = {"local_shape": list(local.shape),
+               "ids_equal_gathered_argmax": bool(torch.equal(ids, want)),
+               "accuracy_vs_gathered_argmax": float(acc),
+               "tied_positions": int(((whole == top).sum(-1) > 1).sum()),
+               "cross_shard_ties": int(cross.sum()),
+               "ids": ids[0].tolist()}
+    del params, local, whole
+    return out
+
+
+def _argmax_plain(torch, np, dataclasses, cfg) -> dict:
+    """7e(c)'s one-process yardstick for the probe's ids: the plain
+    path's bf16 logits over the probe tokens at the seeded init (kept on
+    the host) and each position's bf16 band, the largest |bf16 plain -
+    fp32 plain| logit difference there (phase 3's referee)."""
+    from megatron_tpu_torch.models.language_model import lm_forward
+    from megatron_tpu_torch.models.params import init_params
+
+    plain = dataclasses.replace(cfg, attention_impl="xla")
+    ref = dataclasses.replace(plain, params_dtype="float32")
+    params = init_params(cfg, SEED, device="cuda")
+    tokens = _argmax_tokens(torch, np, cfg, "cuda")
+    with torch.no_grad():
+        lb = lm_forward(plain, params, tokens)[0]
+        params32 = _upcast(params)
+        del params
+        l32 = lm_forward(ref, params32, tokens)[0]
+        band = (lb.float() - l32).abs().max(-1).values
+        out = {"logits": lb.cpu(), "band": band.cpu()}
+    del params32, lb, l32
+    free_cuda(torch)
+    return out
+
+
 def _falcon_reference(torch) -> dict:
-    """7e(c)'s one-process run of the same model, corpus and seed."""
+    """7e(c)'s one-process run of the same model, corpus and seed, and
+    the argmax probe's plain logits."""
+    import dataclasses
+
+    import numpy as np
+
     from megatron_tpu_torch.tools import pretrain_gpt
 
     torch.cuda.reset_peak_memory_stats()
@@ -5256,8 +5349,10 @@ def _falcon_reference(torch) -> dict:
            "step_s": [r["step_s"] for r in ref.step_records],
            "wall_s": time.monotonic() - t0,
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    cfg = ref.cfg.model
     del ref
     free_cuda(torch)
+    out["argmax_plain"] = _argmax_plain(torch, np, dataclasses, cfg)
     return out
 
 
@@ -5431,7 +5526,7 @@ def parallel_serving(torch, np, ft, card, dense_tokens):
     if tf_falcon["teacher_forced_match"] < MATCH_GATE:
         problems.append(f"falcon tp2 teacher-forced match "
                         f"{tf_falcon['teacher_forced_match']:.4f}")
-    problems += _falcon_train_gates(card, recs, ref_rec)
+    problems += _falcon_train_gates(torch, card, recs, ref_rec)
     if problems:
         raise AssertionError("parallel serving: " + "; ".join(problems))
     total: dict = {}
@@ -5447,12 +5542,52 @@ def parallel_serving(torch, np, ft, card, dense_tokens):
     return total
 
 
-def _falcon_train_gates(card, recs, ref) -> list:
+def _argmax_gate(torch, recs, plain, problems) -> dict:
+    """7e(c)'s predicted ids: on each rank equal to torch.argmax of the
+    gathered logits (and the accuracy against them 1), the same on both
+    ranks, and against the one-process plain path at phase 3's gate: a
+    position agrees when the id is the plain bf16 argmax or a near-tie
+    within that position's bf16 band. A random-init model's accuracy on
+    real labels is about 0 whatever the argmax does, so this, not the
+    accuracy metric, is what holds the argmax at Falcon-40B's vocab
+    width on the card."""
+    probes = [rec["falcon_train"]["probe"] for rec in recs]
+    for rec, p in zip(recs, probes):
+        if not (p["ids_equal_gathered_argmax"]
+                and p["accuracy_vs_gathered_argmax"] == 1.0):
+            problems.append(
+                f"falcon training rank {rec['rank']}: vocab-parallel argmax "
+                f"!= argmax of the gathered logits "
+                f"(accuracy {p['accuracy_vs_gathered_argmax']})")
+        if p["ids"] != probes[0]["ids"]:
+            problems.append("falcon argmax: ranks disagree")
+    lb = plain["logits"].float()
+    ids = torch.tensor(probes[0]["ids"])
+    gap = lb.max(-1).values - lb.gather(1, ids[:, None])[:, 0]
+    match = float((gap <= plain["band"]).float().mean())
+    if match < MATCH_GATE:
+        problems.append(f"falcon argmax vs one process {match:.4f} < "
+                        f"{MATCH_GATE}")
+    return {"positions": len(probes[0]["ids"]),
+            "local_logits_shape": probes[0]["local_shape"],
+            "ids_equal_gathered_argmax": [p["ids_equal_gathered_argmax"]
+                                          for p in probes],
+            "tied_positions": probes[0]["tied_positions"],
+            "cross_shard_ties": probes[0]["cross_shard_ties"],
+            "match_vs_one_process": match,
+            "strict_match_vs_one_process": float(
+                (lb.argmax(-1) == ids).float().mean()),
+            "worst_gap": float(gap.max())}
+
+
+def _falcon_train_gates(torch, card, recs, ref) -> list:
     """7e(c): each rank's losses, grad norms, validation loss and metrics
     against the one-process run (phase 7's tolerances: the bf16 partial
     sums of tp2's row-parallel products; perplexity relative, accuracy
-    absolute), the ranks' agreement, and each rank's launches."""
+    absolute), the ranks' agreement, each rank's launches, and the
+    predicted ids (_argmax_gate)."""
     problems = []
+    argmax = _argmax_gate(torch, recs, ref["argmax_plain"], problems)
     r0 = recs[0]["falcon_train"]
     n_micro = PAR_GLOBAL // r0["mesh"]["dp"] // TRAIN_MICRO
     want = _per_rank_launches("tp2_sp", FALCON_TRAIN_LAYERS, n_micro)
@@ -5486,7 +5621,8 @@ def _falcon_train_gates(card, recs, ref) -> list:
           "reference_grad_norms": ref["grad_norms"],
           "grad_norm_rel_err": norm_err,
           "evals": r0["eval_metrics"], "reference_evals": ref["evals"],
-          "metric_err": metric_err, "step_s": r0["step_s"],
+          "metric_err": metric_err, "argmax": argmax,
+          "step_s": r0["step_s"],
           "reference_step_s": ref["step_s"],
           "reference_wall_s": ref["wall_s"],
           "reference_peak_gib": ref["peak_gib"],

@@ -28,11 +28,13 @@ Tensor parallelism (a MeshRuntime as `mesh`, serving): every rank of the
 tensor group runs the same call on its slices of the params (rank 0
 broadcast the request: inference/server.py), with caches of its own kv
 heads [L, B, total_len, nkv/tp, D] (scales included), and reads the
-logits gathered over the group. Pipeline parallelism (pp > 1, the JAX
-package's forward_fn): generate_tokens and score_tokens take the
-pipelined forward (inference/pipelined.py), each stage with caches of
-its own layers and the logits whole on every rank; beam search and
-int8 caches are refused there, as in the JAX package. Tokens are
+logits gathered over the group. Pipeline parallelism (a mesh with
+pp > 1; the JAX package passes the same forward as forward_fn):
+generate_tokens and score_tokens run the pipelined forward
+(inference/pipelined.py), each stage with caches of its own layers and
+the logits whole on every rank (beam_search_tokens too, though the
+server refuses beam search there, as the JAX server does); int8 caches
+are refused there, as in the JAX package. Tokens are
 chosen once, on rank 0 of the serving world (its samples, its argmax,
 beam search's choices), and broadcast, so no rank can diverge from it.
 
@@ -56,6 +58,7 @@ import torch
 import torch.distributed as dist
 
 from megatron_tpu_torch.config import ModelConfig
+from megatron_tpu_torch.inference.pipelined import PipelinedForward
 from megatron_tpu_torch.inference.sampling import (
     _mask_vocab, sample_logits_batched,
 )
@@ -77,19 +80,22 @@ class GenerationOutput:
 
 def _init_caches(cfg: ModelConfig, batch: int, total_len: int,
                  device="cuda", int8: bool = False, tp: int = 1,
-                 layers: Optional[int] = None):
-    """Zeroed caches [L, batch, total_len, nkv/tp, D]: (k, v) in the
-    model dtype, or with int8 the 4-tuple of ops/kv_quant.kv_buffers
+                 pp: int = 1):
+    """Zeroed caches [L/pp, batch, total_len, nkv/tp, D]: (k, v) in
+    the model dtype, or with int8 the 4-tuple of ops/kv_quant.kv_buffers
     (half the bytes of bf16, plus 4/D). tp: a tensor-parallel rank holds
-    its kv heads only; layers: a pipeline stage its own (default all
-    L)."""
-    shape = (layers or cfg.num_layers, batch, total_len,
-             cfg.n_kv_heads // tp, cfg.head_dim)
+    its kv heads only; pp: a pipeline stage its own layers."""
+    shape = (cfg.num_layers // pp, batch, total_len, cfg.n_kv_heads // tp,
+             cfg.head_dim)
     return kv_buffers(shape, cfg.dtype, int8, device)
 
 
 def _tp(mesh) -> int:
     return 1 if mesh is None else mesh.tp
+
+
+def _pp(mesh) -> int:
+    return 1 if mesh is None else mesh.pp
 
 
 def _shared(mesh) -> bool:
@@ -111,11 +117,25 @@ def from_rank0(t: torch.Tensor, mesh) -> torch.Tensor:
     return broadcast(t, dist.group.WORLD)
 
 
-def _forward(cfg: ModelConfig, forward_fn):
-    """The model's cached and uncached forward: lm_forward, or a
-    pipelined forward (inference/pipelined.py), whose logits are whole
-    on every rank."""
-    return forward_fn or functools.partial(lm_forward, cfg)
+def pipelined(mesh, kv_cache_int8: bool = False) -> bool:
+    """Whether `mesh` serves through the pipelined forward (pp > 1).
+    int8 caches are refused there, as in the JAX package."""
+    if mesh is None or mesh.pp == 1:
+        return False
+    if kv_cache_int8:
+        raise ValueError(
+            "kv_cache_int8 is not supported with pipeline-parallel (pp>1) "
+            "serving: the pipelined forward threads bf16 cache pairs")
+    return True
+
+
+def _forward(cfg: ModelConfig, mesh, kv_cache_int8: bool = False):
+    """The model's cached and uncached forward: lm_forward, or at
+    pp > 1 the pipelined forward, whose logits are whole on every
+    rank."""
+    if pipelined(mesh, kv_cache_int8):
+        return PipelinedForward(cfg, mesh)
+    return functools.partial(lm_forward, cfg)
 
 
 def _device(params: Any) -> torch.device:
@@ -179,18 +199,11 @@ def generate_tokens(
     want_logprobs: bool = True,
     kv_cache_int8: bool = False,
     mesh=None,
-    forward_fn=None,
 ) -> GenerationOutput:
     """Every row runs to max_prompt_len + max_new_tokens (or its eod):
     a shorter prompt gets the difference as extra generated tokens.
-    mesh: parallel serving (the module docstring); forward_fn: the
-    pipelined forward at pp > 1 (inference/pipelined.py), None for
-    lm_forward."""
-    if kv_cache_int8 and forward_fn is not None:
-        raise ValueError(
-            "kv_cache_int8 is supported on the single-stage forward only "
-            "(the pipelined pp>1 forward threads bf16 cache pairs)")
-    fwd = _forward(cfg, forward_fn)
+    mesh: parallel serving (the module docstring)."""
+    fwd = _forward(cfg, mesh, kv_cache_int8)
     dev = _device(params)
     B, max_prompt = prompts.shape
     total_len = max_prompt + max_new_tokens
@@ -208,8 +221,7 @@ def generate_tokens(
                       max(1, -(-max_prompt // PREFILL_BUCKET)
                           * PREFILL_BUCKET))
     caches = _init_caches(cfg, B, total_len, device=dev, int8=kv_cache_int8,
-                          tp=_tp(mesh), layers=getattr(forward_fn,
-                                                       "num_layers", None))
+                          tp=_tp(mesh), pp=_pp(mesh))
     rope = _rope(cfg, total_len, dev)
     positions = torch.arange(total_len, device=dev)[None, :]
     logits_all, _ = fwd(params, tokens[:, :prefill_len],
@@ -287,19 +299,18 @@ def generate_tokens(
 
 @torch.no_grad()
 def score_tokens(cfg: ModelConfig, params: Any,
-                 tokens: np.ndarray, mesh=None,
-                 forward_fn=None) -> np.ndarray:
+                 tokens: np.ndarray, mesh=None) -> np.ndarray:
     """Teacher-forced per-token logprobs [B, S-1]: one causal forward
     over tokens[:, :-1] with no cache (flash_fwd on CUDA), its logits
-    gathered over the tensor group under a mesh (a pipelined
-    forward_fn gives them whole). Ids outside the embedding table are
-    padding: they enter as 0 and score 0.0."""
+    gathered over the tensor group under a mesh (the pipelined forward
+    gives them whole). Ids outside the embedding table are padding:
+    they enter as 0 and score 0.0."""
     check_one_shot("score_tokens", cfg, tokens=tokens)
     t = torch.from_numpy(np.asarray(tokens, np.int64)).to(_device(params))
     pad = (t < 0) | (t >= cfg.vocab_size)
     t = torch.where(pad, 0, t)
-    logits = _forward(cfg, forward_fn)(params, t[:, :-1], mesh=mesh)
-    if forward_fn is None and _tp(mesh) > 1:
+    logits = _forward(cfg, mesh)(params, t[:, :-1], mesh=mesh)
+    if not pipelined(mesh) and _tp(mesh) > 1:
         logits = all_gather(logits, mesh.group("tensor"), dim=-1)
     lsm = torch.log_softmax(logits.float(), dim=-1)
     lp = torch.gather(lsm, 2, t[:, 1:, None])[..., 0]
@@ -327,6 +338,7 @@ def beam_search_tokens(
     caches reordered by parent (index_select on the batch axis, for
     (k, v) and int8 caches alike). Under a mesh rank 0's choice of
     parents, tokens and the early stop is broadcast every step."""
+    fwd = _forward(cfg, mesh, kv_cache_int8)
     dev = _device(params)
     prompt = np.asarray(prompt, np.int32)
     plen = len(prompt)
@@ -335,10 +347,10 @@ def beam_search_tokens(
                    max_new_tokens=max_new_tokens, beam_size=beam_size)
 
     caches = _init_caches(cfg, 1, total, device=dev, int8=kv_cache_int8,
-                          tp=_tp(mesh))
+                          tp=_tp(mesh), pp=_pp(mesh))
     rope = _rope(cfg, total, dev)
-    prefill_logits, _ = lm_forward(
-        cfg, params, torch.from_numpy(prompt.astype(np.int64))[None].to(dev),
+    prefill_logits, _ = fwd(
+        params, torch.from_numpy(prompt.astype(np.int64))[None].to(dev),
         positions=torch.arange(plen, device=dev)[None, :], kv_caches=caches,
         cache_index=0, rope=rope, mesh=mesh)
     caches = tuple(c.repeat_interleave(beam_size, dim=1) for c in caches)
@@ -348,9 +360,9 @@ def beam_search_tokens(
         idx = torch.tensor(parents, dtype=torch.long, device=dev)
         caches = tuple(torch.index_select(c, 1, idx) for c in caches)
         pos = torch.full((beam_size, 1), t, dtype=torch.long, device=dev)
-        logits, _ = lm_forward(
-            cfg, params, torch.tensor(toks, dtype=torch.long,
-                                      device=dev)[:, None],
+        logits, _ = fwd(
+            params, torch.tensor(toks, dtype=torch.long,
+                                 device=dev)[:, None],
             positions=pos, kv_caches=caches, cache_index=t, rope=rope,
             mesh=mesh)
         return logits[:, 0], caches

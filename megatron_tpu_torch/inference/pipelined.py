@@ -20,13 +20,13 @@ rank runs its own stage of one forward:
     every stage over the pipe group.
 
 So one forward costs pp sequential stage-times, the pipeline's latency
-for a single batch, as in the JAX package. PipelinedForward is the
-forward_fn of inference/generation.py's generate_tokens and
-score_tokens: called with kv_caches it returns (logits, kv_caches),
-without them (scoring) the logits. Every rank of the serving world
-calls it with the same arguments (rank 0 announced the request:
-inference/server.py). generate_tokens and the server refuse int8 caches
-with it, as the JAX package does.
+for a single batch, as in the JAX package. inference/generation.py's
+generate_tokens and score_tokens run it whenever their mesh has pp > 1
+(the JAX package passes it as their forward_fn): called with kv_caches
+it returns (logits, kv_caches), without them (scoring) the logits.
+Every rank of the serving world calls it with the same arguments (rank
+0 announced the request: inference/server.py). int8 caches are refused
+with it (generation.pipelined), as the JAX package does.
 """
 
 from __future__ import annotations

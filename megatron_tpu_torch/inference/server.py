@@ -59,9 +59,9 @@ engine announces each tick's control record (inference/engine.py,
 inference/paging/engine.py). The other ranks run follow(): the same
 calls, in rank 0's order, until shutdown() sends the stop. Under tensor
 parallelism the engine's tick runs eagerly (no CUDA graph). Under
-pipeline parallelism (pp > 1) the one-shot paths take the pipelined
-forward (forward_fn, inference/pipelined.py), as on the JAX server:
-the engine, int8 KV caches and beam search (a 400) are refused there.
+pipeline parallelism (pp > 1) the one-shot paths run the pipelined
+forward (inference/pipelined.py), as on the JAX server: the engine,
+int8 KV caches and beam search (a 400) are refused there.
 /admin/reload is refused at more than one rank, as on the JAX server's
 mesh.
 
@@ -96,7 +96,9 @@ from megatron_tpu_torch.inference.engine import (
 from megatron_tpu_torch.inference.fleet.reload import (
     NoValidCheckpointError, load_verified_params,
 )
-from megatron_tpu_torch.inference.generation import check_one_shot
+from megatron_tpu_torch.inference.generation import (
+    check_one_shot, pipelined,
+)
 from megatron_tpu_torch.inference.paging import PagedInferenceEngine
 from megatron_tpu_torch.inference.speculative import SpecConfig
 from megatron_tpu_torch.models.params import empty_params
@@ -140,7 +142,7 @@ class GenerationService:
                  reload_dir: Optional[str] = None,
                  weights_version: Optional[int] = None,
                  warmup: bool = False, mesh=None, channel=None,
-                 cuda_graph: bool = True, forward_fn=None):
+                 cuda_graph: bool = True):
         """engine_slots > 0 builds the engine (kv_paging: the paged one,
         with page_size-token pages, prefill_chunk-token chunks and a pool
         of num_pages pages) and its step-loop thread; 0 serves one
@@ -154,21 +156,13 @@ class GenerationService:
         warmup=True keeps /readyz at 503 until warmup() has run. A
         weight-quantized params tree (ops/weight_quant.py) is reloaded in
         its own mode: the checkpoint's weights are read on the host and
-        quantized into the served tensors. mesh, channel: tensor-parallel
+        quantized into the served tensors. mesh, channel: parallel
         serving (the module docstring); the engine then runs eagerly, and
-        only rank 0's service starts its step thread. cuda_graph: the
-        engine's (False: an eager tick). forward_fn: the pipelined
-        forward of a pp > 1 server, which serves one-shot only."""
+        only rank 0's service starts its step thread; a mesh with pp > 1
+        serves one-shot only. cuda_graph: the engine's (False: an eager
+        tick)."""
         if engine_slots < 0:
             raise ValueError("engine_slots must be >= 0 (0: one-shot)")
-        if kv_cache_int8 and forward_fn is not None:
-            raise ValueError(
-                "kv_cache_int8 is not supported with a pipelined (pp>1) "
-                "forward_fn — serve pp>1 models with bf16 KV caches")
-        if engine_slots and forward_fn is not None:
-            raise ValueError(
-                "the continuous-batching engine runs the single-stage "
-                "forward only — serve pp>1 models with engine_slots=0")
         if speculative is not None and not engine_slots:
             raise ValueError("speculative decoding runs inside the "
                              "continuous-batching engine: serve with "
@@ -185,7 +179,8 @@ class GenerationService:
         self.mesh = (mesh if mesh is not None and mesh.world_size > 1
                      else None)
         self.channel = channel if self.mesh is not None else None
-        self.forward_fn = forward_fn
+        # fails at construction, not on every request
+        self.pipelined = pipelined(self.mesh, kv_cache_int8)
         self.leads = self.mesh is None or self.mesh.rank == 0
         self.draining = False
         self.reloading = False
@@ -232,14 +227,6 @@ class GenerationService:
             if self.channel is not None and self.leads:
                 self.channel.stop()
 
-    def _local(self, kwargs: dict) -> dict:
-        """A one-shot call's arguments plus this rank's own: the mesh,
-        and the pipelined forward at pp > 1."""
-        kw = dict(kwargs, mesh=self.mesh)
-        if self.forward_fn is not None:
-            kw["forward_fn"] = self.forward_fn
-        return kw
-
     def _run(self, name: str, cfg, params, **kwargs):
         """A one-shot token function: at more than one rank checked,
         then announced to the other ranks, and run under the channel's
@@ -248,7 +235,7 @@ class GenerationService:
             return run_direct(name, cfg, params, **kwargs)
         check_one_shot(name, cfg, **kwargs)
         with self.channel.announce(name, kwargs):
-            return ONE_SHOT[name](cfg, params, **self._local(kwargs))
+            return ONE_SHOT[name](cfg, params, mesh=self.mesh, **kwargs)
 
     def follow(self) -> None:
         """A follower rank's loop (rank > 0 at tp > 1): each command rank
@@ -264,7 +251,8 @@ class GenerationService:
             if op == "tick":
                 self.engine.follow(payload)
             elif op != "idle":
-                ONE_SHOT[op](self.cfg, self.params, **self._local(payload))
+                ONE_SHOT[op](self.cfg, self.params, mesh=self.mesh,
+                             **payload)
 
     # ----- control plane ---------------------------------------------------
 
@@ -405,7 +393,7 @@ class GenerationService:
                 f"tokens_to_generate in [0, {MAX_TOKENS_TO_GENERATE}]")
 
         if req.get("beam_width"):
-            if self.forward_fn is not None:
+            if self.pipelined:
                 raise ValueError(
                     "beam search is not supported on pipelined (pp>1) "
                     "serving; use sampling or serve at pp=1")
@@ -601,8 +589,7 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
                drain_timeout: float = 30.0, warmup: bool = False,
                reload_dir: Optional[str] = None,
                weights_version: Optional[int] = None, mesh=None,
-               channel=None, cuda_graph: bool = True,
-               forward_fn=None) -> None:
+               channel=None, cuda_graph: bool = True) -> None:
     """Serve until ``server.shutdown()`` or a signal; port=0 binds an
     ephemeral port. In-process callers may pass `service_out` (a list
     that receives (service, server)) and `ready` (set once listening).
@@ -623,8 +610,7 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
         speculative=speculative, kv_cache_int8=kv_cache_int8,
         engine_max_queue=engine_max_queue, request_timeout=request_timeout,
         reload_dir=reload_dir, weights_version=weights_version,
-        warmup=warmup, mesh=mesh, channel=channel, cuda_graph=cuda_graph,
-        forward_fn=forward_fn)
+        warmup=warmup, mesh=mesh, channel=channel, cuda_graph=cuda_graph)
     server = ThreadingHTTPServer((host, port), make_handler(service))
     bound_port = server.server_address[1]
     if service_out is not None:

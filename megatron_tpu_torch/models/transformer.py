@@ -18,13 +18,14 @@ Tensor parallelism (a MeshRuntime as `mesh`, training and serving): the
 layer params are this rank's slices (models/params.py), so Q/K/V and
 w_in are column-parallel over the local heads (nq/tp, nkv/tp) and FFN
 columns, wo and w_out row-parallel; each block enters through
-parallel/mappings.enter_tp and leaves through exit_tp (an all-reduce,
-or under sequence parallelism an all-gather in and a reduce-scatter
-out), and a row-parallel bias is added once, after the reduce. The
-parallel (Falcon) block reduces its attention and MLP branches in one
-collective. Without a mesh (or at tp 1) both are the identity. A serving rank's caches hold
-its nkv/tp heads (the int8 form's scales too), so each rank writes and
-attends over its own heads.
+parallel/mappings.enter_tp, and attention_block and mlp_block return
+their row-parallel partial sums: block_forward reduces them through
+exit_tp (an all-reduce, or under sequence parallelism an all-gather in
+and a reduce-scatter out) and adds a row-parallel bias once, after the
+reduce. The parallel (Falcon) block reduces the sum of its two branches
+in one collective. Without a mesh (or at tp 1) both are the identity. A
+serving rank's caches hold its nkv/tp heads (the int8 form's scales
+too), so each rank writes and attends over its own heads.
 
 A MoE model's FFN is ops/moe.moe_block over the layer's moe subtree,
 and block_forward returns the layer's router aux loss beside its output
@@ -75,13 +76,11 @@ def attention_block(
     page_write_start: Optional[int] = None,
     page_write_end: Optional[int] = None,
     mesh=None,
-    reduce: bool = True,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Returns (out [B, S, h], kv_cache).
-
-    reduce=False returns the output projection's row-parallel partial
-    sums without the bias (the parallel block reduces them together with
-    the MLP's); it changes nothing without tensor parallelism.
+    """Returns (out [B, S, h], kv_cache): out is the output
+    projection's row-parallel partial sums, without its bias "bo"
+    (block_forward reduces it and adds the bias; without tensor
+    parallelism the sums are whole).
 
     rope: the (cos, sin) tables of a rotary model; None for absolute
     position embeddings (added to the token embedding instead).
@@ -232,40 +231,42 @@ def attention_block(
     else:
         ctx = core(q, k, v)
     ctx = ctx.reshape(b, s, nq * D)
-    out = torch.matmul(ctx, deq(p["wo"], ctx.dtype))
-    if not reduce:
-        return out, kv_cache
-    out = exit_tp(out, mesh)
-    if "bo" in p:
-        out = out + p["bo"]
-    return out, kv_cache
+    return torch.matmul(ctx, deq(p["wo"], ctx.dtype)), kv_cache
 
 
 def mlp_block(cfg: ModelConfig, p: Dict[str, Any],
-              x: torch.Tensor, mesh=None, reduce: bool = True
-              ) -> torch.Tensor:
-    """reduce=False: the row-parallel partial sums, bias left out (as
-    attention_block's)."""
+              x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The MLP's row-parallel partial sums, without its bias "b_out"
+    (as attention_block's out)."""
     h = torch.matmul(enter_tp(x, mesh), deq(p["w_in"], x.dtype))
     if "b_in" in p:
         h = h + p["b_in"]
     h = apply_activation(cfg.activation, h)
-    out = torch.matmul(h, deq(p["w_out"], h.dtype))
-    if not reduce:
-        return out
-    out = exit_tp(out, mesh)
-    if "b_out" in p:
-        out = out + p["b_out"]
+    return torch.matmul(h, deq(p["w_out"], h.dtype))
+
+
+def _row_out(partial: torch.Tensor, mesh, *biases) -> torch.Tensor:
+    """Row-parallel partial sums reduced over the tensor group, then
+    their biases (those the params have) added once."""
+    out = exit_tp(partial, mesh)
+    for bias in biases:
+        if bias is not None:
+            out = out + bias
     return out
+
+
+def _no_aux(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _ffn(cfg: ModelConfig, lp: Dict[str, Any], x: torch.Tensor,
          mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense MLP or MoE, by config: (out, aux loss fp32 scalar)."""
+    """Dense MLP (reduced, its bias added) or MoE, by config: (out,
+    aux loss fp32 scalar)."""
     if cfg.num_experts is not None:
         return moe_block(cfg, lp["moe"], x)
-    return (mlp_block(cfg, lp["mlp"], x, mesh),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    return (_row_out(mlp_block(cfg, lp["mlp"], x, mesh), mesh,
+                     lp["mlp"].get("b_out")), _no_aux(x))
 
 
 def block_forward(
@@ -289,38 +290,34 @@ def block_forward(
     parallelism (the module docstring); x is then this rank's sequence
     chunk under sequence parallelism.
 
-    The parallel form under tensor parallelism reduces its two
-    row-parallel branches together, as Megatron's parallel block does:
-    one all-reduce (a reduce-scatter under sequence parallelism) of the
-    summed partials, then both biases. Without it, or for a MoE FFN,
-    each branch reduces its own output."""
+    The parallel form reduces its two row-parallel branches together, as
+    Megatron's parallel block does: one all-reduce (a reduce-scatter
+    under sequence parallelism) of the summed partials, then both
+    biases. The sequential forms, and a MoE FFN (ops/moe.moe_block
+    returns its output whole), reduce each branch on its own."""
     # post-LN: no pre-norm; the layer ends with its own norm, the ln1 slot
     normed = x if cfg.use_post_ln else _norm(cfg, lp["ln1"], x)
-    shared = (cfg.parallel_attn and cfg.num_experts is None
-              and mesh is not None and mesh.tp > 1)
+    bo = lp["attn"].get("bo")
     attn_out, kv_cache = attention_block(
         cfg, lp["attn"], normed, rope, positions,
         kv_cache=kv_cache, cache_index=cache_index,
         padding_mask=padding_mask, recompute_core=recompute_core,
         page_table=page_table, page_write_start=page_write_start,
-        page_write_end=page_write_end, mesh=mesh, reduce=not shared)
+        page_write_end=page_write_end, mesh=mesh)
     if cfg.parallel_attn:
         # the MLP reads ln1(x) (Falcon-7B) or its own ln_mlp(x)
         # (Falcon-40B); one residual add for both branches
         mlp_in = (_norm(cfg, lp["ln_mlp"], x) if cfg.parallel_layernorm
                   else normed)
         res = normed if cfg.apply_residual_post_ln else x
-        if shared:
-            out = exit_tp(attn_out + mlp_block(cfg, lp["mlp"], mlp_in, mesh,
-                                               reduce=False), mesh)
-            for bias in (lp["attn"].get("bo"), lp["mlp"].get("b_out")):
-                if bias is not None:
-                    out = out + bias
-            return (res + out, kv_cache,
-                    torch.zeros((), dtype=torch.float32, device=x.device))
+        if cfg.num_experts is None:
+            out = _row_out(attn_out + mlp_block(cfg, lp["mlp"], mlp_in, mesh),
+                           mesh, bo, lp["mlp"].get("b_out"))
+            return res + out, kv_cache, _no_aux(x)
         mlp_out, moe_aux = _ffn(cfg, lp, mlp_in, mesh)
-        return res + attn_out + mlp_out, kv_cache, moe_aux
-    y = (normed if cfg.apply_residual_post_ln else x) + attn_out
+        return res + _row_out(attn_out, mesh, bo) + mlp_out, kv_cache, moe_aux
+    y = (normed if cfg.apply_residual_post_ln else x) + _row_out(
+        attn_out, mesh, bo)
     normed2 = _norm(cfg, lp["ln2"], y)
     mlp_out, moe_aux = _ffn(cfg, lp, normed2, mesh)
     y = (normed2 if cfg.apply_residual_post_ln else y) + mlp_out

@@ -407,11 +407,6 @@ def _serve(args, mesh, channel, server_kwargs):
     if mesh is not None:
         kw.update(mesh=mesh, channel=channel, cuda_graph=False)
         if mesh.pp > 1:
-            from megatron_tpu_torch.inference.pipelined import (
-                PipelinedForward,
-            )
-
-            kw["forward_fn"] = PipelinedForward(cfg, mesh)
             log(f"pipeline parallel {mesh.pp} x tensor parallel {mesh.tp}: "
                 "one-shot through the pipelined forward")
         else:

@@ -75,7 +75,7 @@ def argmax_job():
     from megatron_tpu_torch.ops.cross_entropy import vocab_parallel_argmax
     from megatron_tpu_torch.parallel.mesh import build_mesh
     from megatron_tpu_torch.training.metrics import (
-        accuracy, finish_metrics, metric_sums,
+        compute_metrics, finish_metrics, metric_sums,
     )
 
     par = ParallelConfig(tensor_parallel=2)
@@ -100,5 +100,6 @@ def argmax_job():
     return {"ids_equal": bool(torch.equal(got, want)),
             "ids": got.tolist(), "want": want.tolist(),
             "accuracy": float(acc),
-            "accuracy_one_process": float(accuracy(logits, labels, mask,
-                                                   None))}
+            "accuracy_one_process": float(compute_metrics(
+                ("accuracy",), logits, labels, mask,
+                torch.zeros(2, 6))["accuracy"])}

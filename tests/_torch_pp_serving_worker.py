@@ -72,17 +72,16 @@ def setup(weights: str, tp: int = 1, pp: int = 1, kw=None):
 
 def _one_shot(cfg, params, mesh):
     from megatron_tpu_torch.inference import generation as g
-    from megatron_tpu_torch.inference.pipelined import PipelinedForward
 
-    fwd = PipelinedForward(cfg, mesh)
     out = {"jax_case": S._out(g.generate_tokens(
-        cfg, params, JAX_PROMPTS, JAX_LENGTHS, mesh=mesh, forward_fn=fwd,
-        **JAX_CASE))}
+        cfg, params, JAX_PROMPTS, JAX_LENGTHS, mesh=mesh, **JAX_CASE))}
     out["greedy"] = S._out(g.generate_tokens(
         cfg, params, S.PROMPTS, S.LENGTHS, S.NEW, temperature=0.0,
-        vocab_size=S.VOCAB, mesh=mesh, forward_fn=fwd))
-    out["score"] = g.score_tokens(cfg, params, SCORED, mesh=mesh,
-                                  forward_fn=fwd).tolist()
+        vocab_size=S.VOCAB, mesh=mesh))
+    out["score"] = g.score_tokens(cfg, params, SCORED, mesh=mesh).tolist()
+    beams, scores = g.beam_search_tokens(
+        cfg, params, S.PROMPTS[0, :S.LENGTHS[0]], mesh=mesh, **S.BEAM)
+    out["beam"] = {"beams": beams.tolist(), "scores": scores.tolist()}
     return out
 
 
@@ -106,7 +105,6 @@ def tp2_pp2_job(weights: str):
 def _http(cfg, params, mesh):
     """The server at pp2 on rank 0, rank 1 following: greedy text with
     logprobs, scoring, and beam search (refused)."""
-    from megatron_tpu_torch.inference.pipelined import PipelinedForward
     from megatron_tpu_torch.inference.server import (
         GenerationService, run_server,
     )
@@ -116,8 +114,7 @@ def _http(cfg, params, mesh):
 
     tok = NullTokenizer(S.VOCAB - 1)
     kw = dict(engine_slots=0, device="cpu", mesh=mesh, cuda_graph=False,
-              channel=ServingChannel(mesh.control_group, mesh.rank),
-              forward_fn=PipelinedForward(cfg, mesh))
+              channel=ServingChannel(mesh.control_group, mesh.rank))
     if mesh.rank != 0:
         GenerationService(cfg, params, tok, metrics=MetricsRegistry(),
                           **kw).follow()

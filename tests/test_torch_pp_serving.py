@@ -10,8 +10,9 @@ the tp2 x pp2 one-shot calls. Held:
     make_pipelined_lm_forward output on tests/test_inference.py's case
     (its tiny config, prompts [[5, 11, 3], [9, 2, 0]], lengths [3, 2],
     6 tokens, top_k 1) token for token;
-  * at pp2 and tp2 x pp2, greedy tokens of a ragged batch equal the
-    one-process path's, logprobs and scores within 1e-5;
+  * at pp2 and tp2 x pp2, greedy tokens of a ragged batch and beam
+    search's beams equal the one-process path's, logprobs, scores and
+    beam scores within 1e-5;
   * an HTTP PUT to rank 0 of a pp2 server answers the one-process text
     and scores, and beam search is a 400 with the JAX server's message;
   * the paged engine at tp2, over a pool that preempts and a request
@@ -133,6 +134,18 @@ def test_pipelined_one_shot_equals_one_process(runs, weights, layout):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("layout", ["pp", "tp2_pp2"])
+def test_pipelined_beam_search_equals_one_process(runs, weights, layout):
+    """beam_search_tokens takes the pipelined forward from its mesh too
+    (the server still refuses beam search at pp > 1, as JAX's does)."""
+    got = runs[0][layout]["beam"]
+    tcfg, tparams = weights["pp"][3:]
+    beams, scores = tg.beam_search_tokens(
+        tcfg, tparams, S.PROMPTS[0, :S.LENGTHS[0]], **S.BEAM)
+    np.testing.assert_array_equal(got["beams"], beams)
+    np.testing.assert_allclose(got["scores"], scores, atol=1e-5)
+
+
 def test_pp2_http_answers_the_one_process_text(runs, weights):
     got = runs[0]["pp"]["http"]
     tcfg, tparams = weights["pp"][3:]
@@ -197,26 +210,26 @@ def test_families_served_at_tp2_equal_one_process(runs, form):
 
 
 def test_pipelined_serving_keeps_the_jax_refusals(weights):
-    """At pp > 1: the engine (the service and the engine itself), int8
-    KV caches (the service, the CLI and generate_tokens), as the JAX
-    server refuses them; --serve_num_slots is dropped with its note."""
+    """At pp > 1: the engine (built by the service or alone), int8 KV
+    caches (the service at construction, generate_tokens and the CLI),
+    as the JAX server refuses them; --serve_num_slots is dropped with
+    its note."""
     tcfg, tparams = weights["pp"][3:]
     tok = NullTokenizer(S.VOCAB - 1)
-    fwd = object()
+    mesh = build_mesh(ParallelConfig(pipeline_parallel=2), world_size=2,
+                      rank=0)
     with pytest.raises(ValueError, match="continuous-batching engine runs "
                                          "the single-stage forward only"):
         GenerationService(tcfg, tparams, tok, engine_slots=2, device="cpu",
-                          metrics=MetricsRegistry(), forward_fn=fwd)
-    with pytest.raises(ValueError, match="kv_cache_int8 is not supported "
-                                         "with a pipelined"):
+                          metrics=MetricsRegistry(), mesh=mesh)
+    int8 = "kv_cache_int8 is not supported with pipeline-parallel"
+    with pytest.raises(ValueError, match=int8):
         GenerationService(tcfg, tparams, tok, engine_slots=0, device="cpu",
                           kv_cache_int8=True, metrics=MetricsRegistry(),
-                          forward_fn=fwd)
-    with pytest.raises(ValueError, match="single-stage forward only"):
+                          mesh=mesh)
+    with pytest.raises(ValueError, match=int8):
         tg.generate_tokens(tcfg, tparams, S.PROMPTS, S.LENGTHS, 2,
-                           kv_cache_int8=True, forward_fn=fwd)
-    mesh = build_mesh(ParallelConfig(pipeline_parallel=2), world_size=2,
-                      rank=0)
+                           kv_cache_int8=True, mesh=mesh)
     with pytest.raises(ValueError, match="single-stage forward only"):
         InferenceEngine(tcfg, tparams, device="cpu", mesh=mesh,
                         metrics=MetricsRegistry())
