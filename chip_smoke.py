@@ -363,6 +363,25 @@ still run, so one call shows every failure):
               counted). The new per-rank kernel shapes
               (B1-B3 at S 2048 Hq 64 Hkv 4 D 64, B4 at R 16, B5 at 16
               heads, ps 16) are phase 2-2c cases.
+  7f. MoE   (parallel and parallel_serving, in the same launch)
+     above   Mixtral-8x7B's width: (a)-(c) MIXTRAL_PAR_LAYERS layer at
+     one     S MIXTRAL_PAR_SEQ, global batch PAR_GLOBAL, bf16,
+     rank    selective recompute, PAR_STEPS steps, at tp2 + SP (capacity
+              1.25, micro-batch 2), ep2 + ZeRO-1 (capacity) and ep2
+              dropless (micro-batch 1 a rank), each held to the one-
+              process run of its dispatch at micro-batch 2 (losses,
+              validation loss and moe_aux_loss within PAR_LOSS_ATOL,
+              grad norms within PAR_NORM_RTOL, margins printed), exact
+              launches a rank, step time, peak GiB a rank and the
+              comm.* share of the traced step with comm.all_to_all
+              apart; (d) the width x MIXTRAL_PAR_SERVE_LAYERS on the tp2
+              dense engine with the dense attention, phase 3's traffic,
+              in fp32 (each token the one-process fp32 plain path's
+              teacher-forced argmax at >= MIXTRAL_FP32_GATE) and in bf16
+              (phase 3's near-tie rate, reported). The tp2 rank's
+              and ep2 rank's B1-B3 shapes (S MIXTRAL_PAR_SEQ, Hq 16 Hkv
+              4 and Hq 32 Hkv 8, D 128) are phase 2/2b cases, and so
+              are 7b's (S PAR_SEQ, 16 heads at tp2, 32 elsewhere).
   8. report   each phase's wall seconds as it ends and all of them
               after phase 7d (seconds_by_phase, with the total), then one
               JSON line listing each kernel with its launches on its path
@@ -488,9 +507,13 @@ STEP_LEAF_TOL = 2e-2          # max|kernel - dense| / max|dense| per leaf
 # and the microbatch and data-rank orders of the fp32 sums differ; phase
 # 4b's bf16 step gates (STEP_*) are the measure of that noise. On the
 # card (NVIDIA H100 80GB HBM3, 700 W) tp2_sp came 1.7e-3 apart in loss
-# and 8.3e-5 in grad norm, pp2 1.9e-4 and 3.2e-5, the others <= 1e-6
+# and 8.3e-5 in grad norm, pp2 1.9e-4 and 3.2e-5, the others <= 1e-6 (at
+# S 4096). (b)-(c) run at S PAR_SEQ: a length other than the flag's
+# default 2048 (which keeps the preset's 4096); 1024 cuts the
+# host-staged collectives of tp2_sp 4x for the wall (the gloo phases
+# move bytes, which the checks do not need)
 PAR_LAYERS = 4
-PAR_SEQ = 2048
+PAR_SEQ = 1024
 PAR_GLOBAL = 4
 PAR_STEPS = 2
 # rank 0 traces the last step (its step time is a traced one)
@@ -536,16 +559,53 @@ TP_TICK_LENS = (5, 100, 300, 500, 700, 1000, 1200, 1500)
 # PAGED_TICK_LENS tokens; (b) Llama-2-7B at pp2 through the one-shot
 # server: the 100-token prompt x NEW_TOKENS and the four prompts scored;
 # (c) Falcon-40B's width x FALCON_TRAIN_LAYERS trained at tp2 + SP, S
-# PAR_SEQ, with --metrics FALCON_METRICS (1.91 B parameters: a 38 GB
+# FALCON_SEQ, with --metrics FALCON_METRICS (1.91 B parameters: a 38 GB
 # TrainState, 19 GB a rank; 4 layers would take 52 GB); (d) Falcon-40B's
 # width x FALCON_SERVE_LAYERS (6.0 B parameters, 12.1 GB of bf16) on the
 # tp2 dense engine, phase 3's traffic
 TP_PREFILL_CHUNK = 128
 PAGED_TICK_LENS = (TP_PREFILL_CHUNK,) * TP_SLOTS
 FALCON40 = "falcon-40B"
+FALCON_SEQ = 2048             # the preset's
 FALCON_TRAIN_LAYERS = 2
 FALCON_SERVE_LAYERS = 8
 FALCON_METRICS = ("perplexity", "accuracy")
+
+# phase 7f: Mixtral-8x7B's width (h 4096, ffn 14336, 8 experts top-2,
+# 32/8 heads, vocab 32000) in phase 7's two-rank launch, each case held
+# to one process on the same weights and batches. Depth is cut to
+# MIXTRAL_PAR_LAYERS: 2 layers are 3.16 B parameters, a 57 GB TrainState
+# in one process, and at ep2 each rank also holds every non-expert
+# leaf; 1 layer is 1.71 B, ~31 GB over the two ranks. The sequence is
+# MIXTRAL_PAR_SEQ, half the preset's 8192 for the wall: pretrain_gpt
+# keeps a preset's length unless a length other than the flag's default
+# 2048 is asked for (the JAX CLI's rule), so S 2048 cannot be asked for.
+# tp2_sp runs micro-batches of 2 rows, the ep2 cases of 1 a rank (dp 2):
+# every case's global microbatch is 2 rows, so one one-process run at
+# micro-batch 2 per dispatch is the yardstick of all (the router's
+# statistics are a global microbatch's)
+MIXTRAL_PAR_LAYERS = 1
+MIXTRAL_PAR_SEQ = 4096
+MIXTRAL_PAR_CASES = {
+    "mixtral_tp2_sp": ["--tensor_model_parallel_size", "2",
+                       "--sequence_parallel", "--micro_batch_size", "2"],
+    "mixtral_ep2_zero1": ["--expert_model_parallel_size", "2",
+                          "--use_distributed_optimizer"],
+    "mixtral_ep2_dropless": ["--expert_model_parallel_size", "2",
+                             "--moe_dispatch", "dropless"],
+}
+MIXTRAL_PAR_REF_MICRO = 2
+# 7f(d): the width x 2 layers served at tp2 on the dense engine with the
+# dense attention, in fp32 (gated: bf16 flips a random-init MoE's
+# routing, phase 5c) and in bf16 (its near-tie rate reported)
+MIXTRAL_PAR_SERVE_LAYERS = 2
+MIXTRAL_PAR_REDUCED = [
+    f"training depth 32 -> {MIXTRAL_PAR_LAYERS} layer (the TrainState of "
+    "two would not leave room for two ranks' activations on one card)",
+    f"training sequence 8192 -> {MIXTRAL_PAR_SEQ} (2048 is the CLI's "
+    "default, which keeps the preset's 8192)",
+    f"serving depth 32 -> {MIXTRAL_PAR_SERVE_LAYERS} layers in fp32 (12.6 "
+    "GB a copy), capacity factor 1.25 -> 8 (phase 5c's)"]
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TPU_KERNELS = "megatron_tpu/ops/pallas/flash_template.py"
@@ -737,6 +797,9 @@ FALCON_ATTN = dict(hq=71, hkv=1, D=64)
 GPT2_ATTN = dict(hq=32, hkv=32, D=64)
 TP2_ATTN = dict(hq=16, hkv=16, D=128)
 FALCON40_TP2_ATTN = dict(hq=64, hkv=4, D=64)
+# a Mixtral tp2 rank (phase 7f); its ep2 rank's heads are the whole
+# model's (Hq 32 Hkv 8)
+MIXTRAL_TP2_ATTN = dict(hq=16, hkv=4, D=128)
 FWD_CASES = [attn_case(64), attn_case(512), attn_case(2047),
              attn_case(2047, hkv=8, window=256), attn_case(4096),
              attn_case(1), attn_case(127), attn_case(129), attn_case(1000),
@@ -746,7 +809,9 @@ FWD_CASES = [attn_case(64), attn_case(512), attn_case(2047),
              attn_case(1499, B=4), attn_case(2048, **FALCON_ATTN),
              attn_case(1024, **GPT2_ATTN), attn_case(2048, **TP2_ATTN),
              attn_case(8192, hkv=8), attn_case(2047, **TP2_ATTN),
-             attn_case(2048, **FALCON40_TP2_ATTN)]
+             attn_case(2048, **FALCON40_TP2_ATTN),
+             attn_case(4096, **MIXTRAL_TP2_ATTN), attn_case(4096, hkv=8),
+             attn_case(1024, **TP2_ATTN), attn_case(1024)]
 
 
 def check_flash_fwd(torch, F, ft, card):
@@ -1045,7 +1110,9 @@ BWD_CASES = [attn_case(4096), attn_case(4096, hkv=8, window=256),
              attn_case(2047, hkv=8), attn_case(2047, fused=True),
              attn_case(2048, **FALCON_ATTN), attn_case(1024, **GPT2_ATTN),
              attn_case(2048, **TP2_ATTN), attn_case(8192, hkv=8),
-             attn_case(2048, **FALCON40_TP2_ATTN)]
+             attn_case(2048, **FALCON40_TP2_ATTN),
+             attn_case(4096, **MIXTRAL_TP2_ATTN), attn_case(4096, hkv=8),
+             attn_case(1024, **TP2_ATTN), attn_case(1024)]
 # the three original cases again, drawn from a second seed
 BWD_DRAW2_SEED = SEED + 13
 
@@ -3663,7 +3730,6 @@ def _mixtral_fp32_routing(torch, card, base):
 
     from megatron_tpu_torch.inference.engine import InferenceEngine, Request
     from megatron_tpu_torch.inference.paging import PagedInferenceEngine
-    from megatron_tpu_torch.models.language_model import lm_forward
     from megatron_tpu_torch.models.params import init_params
     from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
 
@@ -3671,9 +3737,7 @@ def _mixtral_fp32_routing(torch, card, base):
                               moe_capacity_factor=MIXTRAL_SERVE_CAPACITY,
                               params_dtype="float32", attention_impl="xla")
     params = init_params(cfg, SEED, device="cuda")
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab_size - 1, size=n).tolist()
-               for n in PROMPT_LENS]
+    prompts = mixtral_prompts(np, cfg)
     agree = total = 0
     misses = []
     for paged in (False, True):
@@ -3687,25 +3751,40 @@ def _mixtral_fp32_routing(torch, card, base):
                 for p in prompts]
         eng.run_until_idle()
         del eng
-        with torch.no_grad():
-            for i, (prompt, r) in enumerate(zip(prompts, reqs)):
-                if r.error is not None or len(r.generated) != NEW_TOKENS:
-                    raise AssertionError(f"fp32 request {i}: {r.error}")
-                seq = torch.tensor([prompt + r.generated[:-1]],
-                                   device="cuda")
-                want = lm_forward(cfg, params, seq)[0, len(prompt) - 1:]
-                got = torch.tensor(r.generated, device="cuda")
-                hit = want.argmax(-1) == got
-                agree += int(hit.sum())
-                total += len(r.generated)
-                misses += [{"engine": "paged" if paged else "dense",
-                            "sequence": i, "position": j}
-                           for j in (~hit).nonzero().flatten().tolist()]
+        for i, r in enumerate(reqs):
+            if r.error is not None or len(r.generated) != NEW_TOKENS:
+                raise AssertionError(f"fp32 request {i}: {r.error}")
+        rate = _argmax_rate(torch, cfg, params, prompts,
+                            [r.generated for r in reqs])
+        agree += rate["agree"]
+        total += rate["positions"]
+        misses += [dict(m, engine="paged" if paged else "dense")
+                   for m in rate["misses"]]
     del params
     free_cuda(torch)
     return {"fp32_layers": MIXTRAL_FP32_LAYERS,
             "fp32_teacher_forced_argmax": agree / total,
             "fp32_positions": total, "fp32_misses": misses}
+
+
+def _argmax_rate(torch, cfg, params, prompts, generated) -> dict:
+    """How many generated tokens are the plain path's teacher-forced
+    argmax (lm_forward in cfg's dtype over prompt + tokens): agree,
+    positions and the missed (sequence, position)s."""
+    from megatron_tpu_torch.models.language_model import lm_forward
+
+    agree = total = 0
+    misses = []
+    with torch.no_grad():
+        for i, (prompt, gen) in enumerate(zip(prompts, generated)):
+            seq = torch.tensor([prompt + gen[:-1]], device="cuda")
+            want = lm_forward(cfg, params, seq)[0, len(prompt) - 1:]
+            hit = want.argmax(-1) == torch.tensor(gen, device="cuda")
+            agree += int(hit.sum())
+            total += len(gen)
+            misses += [{"sequence": i, "position": j}
+                       for j in (~hit).nonzero().flatten().tolist()]
+    return {"agree": agree, "positions": total, "misses": misses}
 
 
 def mixtral(torch, np, ft, card):
@@ -4689,8 +4768,17 @@ def parallel_training(torch, np, ft, card):
                 plan.append((case + "/resumed", base + flags + [
                     "--train_iters", str(PAR_STEPS + 1), "--load", ckpt,
                     "--distributed_backend", "gloo"]))
-        # 7e(c)'s one-process yardstick, before the ranks take the card
+        for case, flags in MIXTRAL_PAR_CASES.items():
+            plan.append((case, mixtral_par_argv() + flags + [
+                "--distributed_backend", "gloo", "--profile",
+                "--profile_step_start", str(PAR_PROFILE[0]),
+                "--profile_step_end", str(PAR_PROFILE[1]),
+                "--profile_dir", os.path.join(tmp, case + "_trace")]))
+        # 7e(c)'s and 7f's one-process yardsticks, before the ranks take
+        # the card
         PARALLEL_LAUNCH["falcon_ref"] = _falcon_reference(torch)
+        mixtral_refs = {d: _mixtral_par_reference(torch, pretrain_gpt, d)
+                        for d in ("capacity", "dropless")}
         # phases 7d and 7e run first in the same launch (rank_serve):
         # one launch's start and first steps are paid once
         recs = _launch(2, os.path.join(tmp, "gloo"),
@@ -4744,7 +4832,8 @@ def parallel_training(torch, np, ft, card):
                 "phase": "parallel_gloo", "card": card, "case": case,
                 "backend": "gloo (CUDA tensors staged through host memory; "
                            "not NCCL numbers)",
-                "mesh": mesh, "losses": r0["losses"],
+                "mesh": mesh, "seq_length": r0["seq_length"],
+                "losses": r0["losses"],
                 "grad_norms": r0["grad_norms"], "evals": r0["evals"],
                 "ranks_agree": all(
                     (r["losses"], r["grad_norms"], r["evals"])
@@ -4777,6 +4866,7 @@ def parallel_training(torch, np, ft, card):
                                 f"{eval_err}")
             if comm is None:
                 problems.append(f"{case}: traces {r0['traces']}")
+        problems += _mixtral_par_gates(card, by_run, mixtral_refs, total)
         saved = _sharded_checkpoint(
             torch, np, ft, card, ckpt,
             {c: by_run[c + "/resumed"]
@@ -4926,8 +5016,10 @@ def _run_record(torch, ft, flags, rank, probe=None) -> dict:
         "losses": [r["loss"] for r in loop.step_records],
         "step_s": [r["step_s"] for r in loop.step_records],
         "grad_norms": [h["grad_norm"] for h in loop.history],
+        "moe_aux_losses": [h.get("moe_aux_loss") for h in loop.history],
         "evals": [e["lm_loss"] for e in loop.evals],
         "eval_metrics": [dict(e) for e in loop.evals],
+        "seq_length": loop.cfg.model.seq_length,
         "launches": {n: getattr(ft, n).launches for n in TRAIN_COUNTED},
         "peak_gib": (torch.cuda.max_memory_allocated() / 2**30 if cuda
                      else None),
@@ -4935,8 +5027,8 @@ def _run_record(torch, ft, flags, rank, probe=None) -> dict:
         "load_s": loop.load_s, "load_read_bytes": loop.load_read_bytes,
         "mesh": (None if loop.mesh is None else
                  {"world": loop.mesh.world_size, "dp": loop.mesh.dp,
-                  "pp": loop.mesh.pp, "vpp": loop.mesh.vpp,
-                  "tp": loop.mesh.tp})}
+                  "ep": loop.mesh.ep, "pp": loop.mesh.pp,
+                  "vpp": loop.mesh.vpp, "tp": loop.mesh.tp})}
     if probe is not None:
         record["probe"] = probe(loop)
     return record
@@ -5125,6 +5217,28 @@ def rank_serve(out: str, runs) -> int:
         free()
         part("7e_d")
 
+        # 7f(d) Mixtral's width x MIXTRAL_PAR_SERVE_LAYERS on the dense
+        # engine with the dense attention, in fp32 then bf16
+        mixtral = {}
+        for dtype in ("float32", "bfloat16"):
+            mcfg = mixtral_serve_cfg(dataclasses, presets, dtype)
+            t1 = time.monotonic()
+            mparams = init_params(mcfg, SEED, device=args.device, mesh=mesh)
+            sync()
+            _zero_decode_counts(ft)
+            run = _served(kw(TP_SLOTS), mcfg, mparams,
+                          NullTokenizer(mcfg.vocab_size), lead,
+                          lambda svc, base: _engine_traffic(
+                              ft, svc, base, mixtral_prompts(np, mcfg)))
+            mixtral[dtype] = {"init_s": time.monotonic() - t1,
+                              "launches": _decode_counts(ft)}
+            if lead:
+                mixtral[dtype].update(run)
+            del mparams
+            free()
+        record["mixtral_serve"] = mixtral
+        part("7f_d")
+
         # 7e(b) Llama-2-7B at pp2: the one-shot server through the
         # pipelined forward
         pp_mesh = serving_mesh(1, 2)
@@ -5201,6 +5315,23 @@ def rank_serve(out: str, runs) -> int:
     return 0
 
 
+def mixtral_serve_cfg(dataclasses, presets, dtype: str):
+    """Phase 7f(d)'s model: Mixtral's width x MIXTRAL_PAR_SERVE_LAYERS in
+    `dtype` with the dense attention, phase 5c's serving capacity."""
+    return dataclasses.replace(
+        presets.from_model_name(MIXTRAL),
+        num_layers=MIXTRAL_PAR_SERVE_LAYERS, params_dtype=dtype,
+        attention_impl="xla",
+        moe_capacity_factor=MIXTRAL_SERVE_CAPACITY).validate()
+
+
+def mixtral_prompts(np, cfg) -> list:
+    """Phase 3's prompt lengths, drawn from SEED in the model's vocab."""
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, cfg.vocab_size - 1, size=n).tolist()
+            for n in PROMPT_LENS]
+
+
 def falcon_serve_cfg(dataclasses, presets):
     """Phase 7e(d)'s model: Falcon-40B's width, FALCON_SERVE_LAYERS
     layers."""
@@ -5210,9 +5341,9 @@ def falcon_serve_cfg(dataclasses, presets):
 
 def falcon_train_argv(prefix, tp: bool):
     """Phase 7e(c)'s run: Falcon-40B's width x FALCON_TRAIN_LAYERS at S
-    PAR_SEQ with --metrics, on phase 4's corpus; tp adds tp2 + SP over
+    FALCON_SEQ with --metrics, on phase 4's corpus; tp adds tp2 + SP over
     gloo."""
-    argv = train_argv(prefix, layers=FALCON_TRAIN_LAYERS, seq=PAR_SEQ,
+    argv = train_argv(prefix, layers=FALCON_TRAIN_LAYERS, seq=FALCON_SEQ,
                       global_batch=PAR_GLOBAL, iters=PAR_STEPS,
                       eval_interval=PAR_STEPS)
     argv[argv.index("llama2-7B")] = FALCON40
@@ -5256,10 +5387,10 @@ def tp_serve_argv():
 
 
 def _argmax_tokens(torch, np, cfg, device):
-    """7e(c)'s argmax probe: 1 x PAR_SEQ ids from the seed."""
+    """7e(c)'s argmax probe: 1 x FALCON_SEQ ids from the seed."""
     rng = np.random.default_rng(SEED)
     return torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, (1, PAR_SEQ))).to(device)
+        rng.integers(0, cfg.vocab_size, (1, FALCON_SEQ))).to(device)
 
 
 def _argmax_probe(torch, np, loop) -> dict:
@@ -5354,6 +5485,120 @@ def _falcon_reference(torch) -> dict:
     free_cuda(torch)
     out["argmax_plain"] = _argmax_plain(torch, np, dataclasses, cfg)
     return out
+
+
+def mixtral_par_argv():
+    """Phase 7f's training command line: phase 7's, at Mixtral's width,
+    MIXTRAL_PAR_LAYERS and S MIXTRAL_PAR_SEQ."""
+    argv = train_argv(corpus_prefix(), layers=MIXTRAL_PAR_LAYERS,
+                      seq=MIXTRAL_PAR_SEQ, global_batch=PAR_GLOBAL,
+                      iters=PAR_STEPS, eval_interval=PAR_STEPS)
+    argv[argv.index("llama2-7B")] = MIXTRAL
+    return argv
+
+
+def _mixtral_par_reference(torch, pretrain_gpt, dispatch: str) -> dict:
+    """7f's one-process run of one dispatch at micro-batch
+    MIXTRAL_PAR_REF_MICRO (the cases' global microbatch)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ref = pretrain_gpt.main(mixtral_par_argv() + [
+        "--micro_batch_size", str(MIXTRAL_PAR_REF_MICRO),
+        "--moe_dispatch", dispatch], log=lambda m: None)
+    torch.cuda.synchronize()
+    out = {"losses": [r["loss"] for r in ref.step_records],
+           "grad_norms": [h["grad_norm"] for h in ref.history],
+           "moe_aux_losses": [h["moe_aux_loss"] for h in ref.history],
+           "evals": [e["lm_loss"] for e in ref.evals],
+           "step_s": [r["step_s"] for r in ref.step_records],
+           "seq_length": ref.cfg.model.seq_length,
+           "wall_s": time.monotonic() - t0,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del ref
+    free_cuda(torch)
+    return out
+
+
+def _mixtral_par_gates(card, by_run, refs, total) -> list:
+    """7f (a)-(c): each case's losses, grad norms and validation loss
+    within phase 7's tolerances of its dispatch's one-process run, its
+    moe_aux_loss beside the one process's (with its margin at
+    PAR_LOSS_ATOL), the ranks' agreement, exact launches a rank, the step
+    time, peak GiB a rank and the comm.* share of the traced step with
+    comm.all_to_all apart. Adds the launches to `total`."""
+    problems = []
+    gloo = "gloo (CUDA tensors staged through host memory; not NCCL numbers)"
+    for case, flags in MIXTRAL_PAR_CASES.items():
+        recs = by_run[case]
+        r0 = recs[0]
+        ref = refs["dropless" if "dropless" in flags else "capacity"]
+        micro = (int(flags[flags.index("--micro_batch_size") + 1])
+                 if "--micro_batch_size" in flags else TRAIN_MICRO)
+        n_micro = PAR_GLOBAL // r0["mesh"]["dp"] // micro
+        want = _per_rank_launches(case, MIXTRAL_PAR_LAYERS, n_micro)
+        launches = {}
+        for rec in recs:
+            _add_counts(launches, rec["launches"])
+            if rec["launches"] != want:
+                problems.append(f"{case} rank {rec['rank']} launches "
+                                f"{rec['launches']} != {want}")
+        _add_counts(total, launches)
+        err = lambda a, b: max(abs(x - y) for x, y in zip(a, b))
+        loss_err = err(r0["losses"], ref["losses"])
+        aux_err = err(r0["moe_aux_losses"], ref["moe_aux_losses"])
+        eval_err = err(r0["evals"], ref["evals"])
+        norm_err = max(abs(a - b) / abs(b) for a, b in
+                       zip(r0["grad_norms"], ref["grad_norms"]))
+        comm = (_comm_share(r0["traces"][0]) if len(r0["traces"]) == 1
+                else None)
+        line = {"phase": "parallel_mixtral", "card": card, "case": case,
+                "model": f"{MIXTRAL} x {MIXTRAL_PAR_LAYERS} layer",
+                "reduced": MIXTRAL_PAR_REDUCED[:2],
+                "seq_length": r0["seq_length"], "global_batch": PAR_GLOBAL,
+                "flags": flags, "backend": gloo, "mesh": r0["mesh"],
+                "losses": r0["losses"], "reference_losses": ref["losses"],
+                "loss_err": loss_err, "loss_atol": PAR_LOSS_ATOL,
+                "loss_margin": loss_err / PAR_LOSS_ATOL,
+                "moe_aux_losses": r0["moe_aux_losses"],
+                "reference_moe_aux_losses": ref["moe_aux_losses"],
+                "moe_aux_err": aux_err,
+                "moe_aux_margin": aux_err / PAR_LOSS_ATOL,
+                "grad_norms": r0["grad_norms"],
+                "reference_grad_norms": ref["grad_norms"],
+                "grad_norm_rel_err": norm_err,
+                "grad_norm_margin": norm_err / PAR_NORM_RTOL,
+                "evals": r0["evals"], "eval_err": eval_err,
+                "ranks_agree": all(
+                    (r["losses"], r["grad_norms"], r["moe_aux_losses"])
+                    == (r0["losses"], r0["grad_norms"], r0["moe_aux_losses"])
+                    for r in recs),
+                "step_s": r0["step_s"],
+                "reference_step_s": ref["step_s"],
+                "reference_peak_gib": ref["peak_gib"],
+                "comm": comm, "launches": launches,
+                "launches_per_rank_expected": want,
+                "peak_gib_per_rank": [r["peak_gib"] for r in recs],
+                "wall_s": r0["wall_s"]}
+        emit(line)
+        if not line["ranks_agree"]:
+            problems.append(f"{case}: ranks disagree")
+        if len(r0["losses"]) != PAR_STEPS or not all(
+                map(math.isfinite, r0["losses"] + r0["moe_aux_losses"])):
+            problems.append(f"{case}: losses {r0['losses']} aux "
+                            f"{r0['moe_aux_losses']}")
+        if r0["seq_length"] != ref["seq_length"]:
+            problems.append(f"{case}: S {r0['seq_length']} != the "
+                            f"reference's {ref['seq_length']}")
+        for name, e, tol in (("loss", loss_err, PAR_LOSS_ATOL),
+                             ("moe aux loss", aux_err, PAR_LOSS_ATOL),
+                             ("validation loss", eval_err, PAR_LOSS_ATOL),
+                             ("grad norm", norm_err, PAR_NORM_RTOL)):
+            if not e <= tol:
+                problems.append(f"{case}: {name} off by {e}")
+        if comm is None or ("ep2" in case and "comm.all_to_all"
+                            not in comm["comm_ms_by_op"]):
+            problems.append(f"{case}: traces {r0['traces']}, comm {comm}")
+    return problems
 
 
 # phase 7's two-rank launch, which phases 7d and 7e share: the ranks'
@@ -5527,6 +5772,7 @@ def parallel_serving(torch, np, ft, card, dense_tokens):
         problems.append(f"falcon tp2 teacher-forced match "
                         f"{tf_falcon['teacher_forced_match']:.4f}")
     problems += _falcon_train_gates(torch, card, recs, ref_rec)
+    problems += _mixtral_serve_gate(torch, np, card, recs)
     if problems:
         raise AssertionError("parallel serving: " + "; ".join(problems))
     total: dict = {}
@@ -5535,7 +5781,9 @@ def parallel_serving(torch, np, ft, card, dense_tokens):
                        rec["one_shot_launches"], rec["paged"]["launches"],
                        rec["paged"]["tick_launches"],
                        rec["falcon_serve"]["launches"],
-                       rec["falcon_train"]["launches"]):
+                       rec["falcon_train"]["launches"],
+                       *(r["launches"]
+                         for r in rec["mixtral_serve"].values())):
             _add_counts(total, counts)
         _add_counts(total, rec["pipelined"].get("score_launches")
                     or rec["pipelined"]["follower_launches"] or {})
@@ -5580,6 +5828,60 @@ def _argmax_gate(torch, recs, plain, problems) -> dict:
             "worst_gap": float(gap.max())}
 
 
+def _mixtral_serve_gate(torch, np, card, recs) -> list:
+    """7f(d): the tp2 engine's fp32 tokens against the one-process fp32
+    plain path's teacher-forced argmax at MIXTRAL_FP32_GATE (phase 5c's
+    gate), the bf16 run's phase-3 near-tie rate beside it (ungated), and
+    no kernel launch on either run (the dense attention)."""
+    import dataclasses
+
+    from megatron_tpu_torch.models import presets
+    from megatron_tpu_torch.models.params import init_params
+
+    problems = []
+    runs = recs[0]["mixtral_serve"]
+    zero = dict.fromkeys(("flash_fwd", "flash_decode",
+                          "paged_flash_decode"), 0)
+    for rec in recs:
+        for dtype, run in rec["mixtral_serve"].items():
+            if run["launches"] != zero:
+                problems.append(f"mixtral tp2 {dtype} rank {rec['rank']} "
+                                f"launches {run['launches']}")
+    rates = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = mixtral_serve_cfg(dataclasses, presets, dtype)
+        prompts = mixtral_prompts(np, cfg)
+        params = init_params(cfg, SEED, device="cuda")
+        rates[dtype] = (
+            _argmax_rate(torch, cfg, params, prompts,
+                         runs[dtype]["generated"]) if dtype == "float32"
+            else teacher_force(torch, dataclasses, cfg, params, prompts,
+                               runs[dtype]["generated"]))
+        del params
+        free_cuda(torch)
+    fp32 = rates["float32"]
+    rate = fp32["agree"] / fp32["positions"]
+    emit({"phase": "parallel_mixtral_serve", "card": card,
+          "model": f"{MIXTRAL} x {MIXTRAL_PAR_SERVE_LAYERS} layers",
+          "reduced": MIXTRAL_PAR_REDUCED[2], "tp": 2, "engine": "dense",
+          "attention": "dense (xla)",
+          "backend": "gloo (CUDA tensors staged through host memory; not "
+                     "NCCL numbers)",
+          "init_s_per_rank": {d: [r["mixtral_serve"][d]["init_s"]
+                                  for r in recs] for d in runs},
+          "ttft_mean_s": {d: r["ttft_mean_s"] for d, r in runs.items()},
+          "tick_wall_mean_s": {d: r["tick_wall_mean_s"]
+                               for d, r in runs.items()},
+          "fp32_teacher_forced_argmax": rate,
+          "fp32_gate": MIXTRAL_FP32_GATE,
+          "fp32_positions": fp32["positions"], "fp32_misses": fp32["misses"],
+          "bf16_ungated": rates["bfloat16"]})
+    if rate < MIXTRAL_FP32_GATE:
+        problems.append(f"mixtral tp2 fp32 teacher-forced argmax "
+                        f"{rate:.4f} < {MIXTRAL_FP32_GATE}")
+    return problems
+
+
 def _falcon_train_gates(torch, card, recs, ref) -> list:
     """7e(c): each rank's losses, grad norms, validation loss and metrics
     against the one-process run (phase 7's tolerances: the bf16 partial
@@ -5611,7 +5913,7 @@ def _falcon_train_gates(torch, card, recs, ref) -> list:
             metric_err[k] = max(metric_err.get(k, 0.0), e)
     emit({"phase": "parallel_falcon_train", "card": card,
           "model": f"{FALCON40} x {FALCON_TRAIN_LAYERS} layers",
-          "seq_length": PAR_SEQ, "global_batch": PAR_GLOBAL,
+          "seq_length": r0["seq_length"], "global_batch": PAR_GLOBAL,
           "mesh": r0["mesh"], "sequence_parallel": True,
           "backend": "gloo (CUDA tensors staged through host memory; not "
                      "NCCL numbers)",

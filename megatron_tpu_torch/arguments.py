@@ -16,10 +16,10 @@ flags (--coordination_dir, --peer_death_timeout_s) are not ported, and
 The distributed flags are the JAX CLI's (--tensor_model_parallel_size,
 --pipeline_model_parallel_size, --num_layers_per_virtual_pipeline_stage
 mapped to virtual_pipeline_parallel as there, --sequence_parallel,
---use_distributed_optimizer); --context_parallel_size and
---expert_model_parallel_size above 1 are refused (ROADMAP.md items 10
-and 7b), and the process group comes from torch.distributed.run's
-environment (parallel/distributed.py). The MoE flags (--num_experts,
+--use_distributed_optimizer, --expert_model_parallel_size);
+--context_parallel_size above 1 is refused (ROADMAP.md item 10), and
+the process group comes from torch.distributed.run's environment
+(parallel/distributed.py). The MoE flags (--num_experts,
 --moe_top_k, --moe_capacity_factor, --moe_aux_loss_coeff,
 --moe_z_loss_coeff, --moe_group_size, --moe_dispatch,
 --moe_ep_buffer_factor, --[no_]moe_renorm_gates) are the JAX CLI's: only
@@ -96,8 +96,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="capacity: per-group capacity, overflow dropped; "
                         "dropless: every routed row through its expert")
     g.add_argument("--moe_ep_buffer_factor", type=float, default=None,
-                   help="dropless receive buffer under expert parallelism "
-                        "(refused: expert parallelism is not ported)")
+                   help="dropless-EP receive buffer = n*top_k*factor rows "
+                        "per expert shard (default: ep, exact dropless; "
+                        "smaller scales FLOPs/memory at the cost of "
+                        "greedy drops under routing imbalance)")
     g.add_argument("--moe_renorm_gates", action="store_true", default=None)
     g.add_argument("--no_moe_renorm_gates", action="store_false",
                    dest="moe_renorm_gates",
@@ -308,8 +310,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--tensor_model_parallel_size", type=int, default=1)
     g.add_argument("--pipeline_model_parallel_size", type=int, default=1)
     g.add_argument("--expert_model_parallel_size", type=int, default=1,
-                   help="refused above 1: expert parallelism is not "
-                        "ported (ROADMAP.md item 7b)")
+                   help="MoE expert-parallel degree (dedicated mesh axis; "
+                        "E %% ep == 0, dp unconstrained)")
     g.add_argument("--context_parallel_size", type=int, default=1,
                    help="refused above 1: ring attention is not ported "
                         "(ROADMAP.md item 10)")
@@ -432,11 +434,6 @@ def args_to_run_config(args) -> RunConfig:
         raise ValueError(
             "--context_parallel_size > 1: ring/Ulysses context parallelism "
             "is not ported yet (ROADMAP.md queue A item 10)")
-    if args.expert_model_parallel_size > 1:
-        raise ValueError(
-            "--expert_model_parallel_size > 1: expert parallelism (and "
-            "with it dropless dispatch across expert ranks) is not ported "
-            "yet (ROADMAP.md queue A item 7b); MoE trains at world size 1")
     vpp = None
     per_stage = args.num_layers_per_virtual_pipeline_stage
     if per_stage:

@@ -114,8 +114,9 @@ class ModelConfig:
     # "capacity": per-group capacity, overflow dropped; "dropless": every
     # (token, choice) row through its expert (grouped products)
     moe_dispatch: str = "capacity"
-    # the dropless receive buffer under expert parallelism (refused above
-    # ep 1 until it is ported; kept for the name's sake)
+    # the dropless receive buffer under expert parallelism: n * top_k *
+    # factor rows a rank (None: ep, dropless for any routing; smaller
+    # drops greedily in source order, ops/moe.moe_block_dropless_ep)
     moe_ep_buffer_factor: Optional[float] = None
     # tokens per dispatch group; 0 = auto (largest divisor of seq_length
     # <= 2048). Must divide seq_length when set
@@ -470,10 +471,10 @@ class ParallelConfig:
     (megatron/core/parallel_state.py:51-199). Rank layout is
     ("data", "expert", "pipe", "context", "tensor") with tensor the
     fastest-varying, the reference's TP-innermost-contiguous layout
-    (parallel/mesh.py). The port runs data, pipe and tensor parallelism
-    (with sequence parallelism and the interleaved schedule);
-    context_parallel and expert_parallel > 1 are refused by the entry
-    points until their modules are ported (ROADMAP.md items 10 and 7b).
+    (parallel/mesh.py). The port runs data, expert, pipe and tensor
+    parallelism (with sequence parallelism and the interleaved
+    schedule); context_parallel > 1 is refused by the entry points until
+    ring attention is ported (ROADMAP.md item 10).
     """
 
     tensor_parallel: int = 1

@@ -184,15 +184,29 @@ def build_data_loader(
         stop.set()
 
 
-def rank_rows(batches: Iterator[Dict[str, np.ndarray]], mesh
-              ) -> Iterator[Dict[str, np.ndarray]]:
-    """This data-parallel rank's rows of every global batch (the rows
-    parallel/distributed.host_batch_slice gives it). The sampler keeps
-    drawing whole global batches, so the data order is the
-    single-process order at any topology, and every rank of one data
-    replica (its tensor and pipe ranks) gets the same rows."""
+def rank_rows(batches: Iterator[Dict[str, np.ndarray]], mesh,
+              micro_batch: int) -> Iterator[Dict[str, np.ndarray]]:
+    """This batch rank's rows of every global batch. The JAX train step
+    cuts a global batch into microbatches of micro_batch x dp
+    consecutive rows and shards each over the batch axes (its reshape,
+    megatron_tpu/training/train_step.py:91); so here a rank's rows are
+    its block (parallel/distributed.host_batch_slice) of each such
+    microbatch, in order, and its i-th microbatch is its part of the
+    global i-th. A MoE router's statistics, which are those of a global
+    microbatch, then group the rows as one process does at a micro-batch
+    of micro_batch x dp. The sampler keeps drawing whole global batches,
+    so the data order is the single-process order at any topology, and
+    every rank of one data replica (its tensor and pipe ranks) gets the
+    same rows."""
     from megatron_tpu_torch.parallel.distributed import host_batch_slice
 
+    step = micro_batch * mesh.dp
+    lo, hi = host_batch_slice(mesh, step)
     for batch in batches:
-        lo, hi = host_batch_slice(mesh, len(next(iter(batch.values()))))
-        yield {k: v[lo:hi] for k, v in batch.items()}
+        n = len(next(iter(batch.values())))
+        if n % step:
+            raise ValueError(f"a batch of {n} rows is not whole "
+                             f"microbatches of {micro_batch} x dp {mesh.dp}")
+        idx = np.concatenate([np.arange(s + lo, s + hi)
+                              for s in range(0, n, step)])
+        yield {k: v[idx] for k, v in batch.items()}

@@ -98,7 +98,9 @@ multi-card machine, ROADMAP.md queue A item 7b); speculation and weight
 swaps are refused there, as on the JAX server's mesh. The paged engine
 (inference/paging/engine.py) has its own record.
 
-Migration, profiling and fault injection are not ported yet.
+The serving faults of MEGATRON_TPU_FAULT are injected between ticks
+(_pre_tick, the JAX engine's hooks). KV migration and on-demand
+profiling are not ported yet (inference/server.py).
 """
 
 from __future__ import annotations

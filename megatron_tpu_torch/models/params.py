@@ -16,7 +16,8 @@ embeddings a copy of embed/tokens on the last stage too.
 
 A MoE model (cfg.num_experts) has layers/moe/{router [L, h, E], w_in
 [L, E, h, Fin], w_out [L, E, F, h]} (and b_in/b_out with linear biases)
-in place of layers/mlp; it is refused above world size 1 (check_mesh).
+in place of layers/mlp; its experts are cut over the "expert" axis
+(E/ep a rank) and, inside each expert, over "tensor" as the MLP is.
 params_from_numpy also takes a weight-quantized JAX tree
 (ops/weight_quant.py): its {"q8" | "f8", "s"} leaves keep their int8 /
 float8_e4m3fn payloads and fp32 scales.
@@ -37,7 +38,8 @@ from megatron_tpu_torch.parallel.mesh import (
     AXIS_EXPERT, AXIS_PIPE, AXIS_TENSOR, MESH_AXES, rank_grid,
 )
 from megatron_tpu_torch.parallel.sharding import (
-    P, Piece, block_pieces, shard_leaf, spec_axes, zero1_dim, zero1_spec,
+    P, Piece, block_pieces, shard_leaf, spec_axes, zero1_axes, zero1_dim,
+    zero1_spec,
 )
 
 _NORMAL = "normal"          # N(0, init_method_std)
@@ -192,28 +194,27 @@ def stage_holds(path: str, cfg: ModelConfig, mesh) -> bool:
 def _glu_dim(path: str, cfg: ModelConfig) -> Optional[int]:
     """The dimension of a GLU input projection cut per half
     (parallel/sharding.py)."""
-    if cfg.is_glu and path in ("layers/mlp/w_in", "layers/mlp/b_in"):
+    if cfg.is_glu and path in ("layers/mlp/w_in", "layers/mlp/b_in",
+                               "layers/moe/w_in", "layers/moe/b_in"):
         return -1
     return None
 
 
 def check_mesh(cfg: ModelConfig, mesh) -> None:
-    """The divisibility the per-rank slices need, and what the port's
-    parallelism does not cover yet (MoE above world size 1, ROADMAP.md
-    7b)."""
+    """The divisibility the per-rank slices need (the JAX package's
+    rules, its TrainLoop's for the expert axis)."""
     if mesh is None:
         return
-    if cfg.num_experts is not None and mesh.world_size > 1:
-        # the load-balance loss is E * sum_e f_e * P_e over GLOBAL means:
-        # a per-rank loss averaged over ranks is a mean of products, not
-        # the product of the means, so the statistics must be all-reduced
-        # first (the JAX EP path does; megatron_tpu/ops/moe.py:122-131)
+    E, ep = cfg.num_experts, mesh.ep
+    if E is not None and E % ep:
         raise ValueError(
-            f"MoE (num_experts={cfg.num_experts}) at world size "
-            f"{mesh.world_size}: the router's load-balance statistics are "
-            "not all-reduced across ranks yet, and expert parallelism is "
-            "not ported (ROADMAP.md queue A item 7b); train MoE at world "
-            "size 1")
+            f"num_experts={E} must be divisible by expert_parallel={ep} "
+            "(experts shard over the dedicated expert axis; dp is "
+            "unconstrained)")
+    if E is None and ep > 1:
+        raise ValueError(
+            f"expert_parallel={ep} set but the model has no experts — "
+            "use data_parallel instead")
     tp, pp, V = mesh.tp, mesh.pp, mesh.vpp
     if tp > 1:
         if cfg.num_attention_heads % tp or cfg.n_kv_heads % tp:
@@ -279,10 +280,12 @@ def leaf_layout(cfg: ModelConfig, mesh, zero1: bool
         if not stage_holds(path, cfg, mesh):
             continue
         spec = specs[path]
-        zdim = (zero1_dim(spec, shapes[path], mesh.dp)
+        zdim = (zero1_dim(spec, shapes[path], mesh.dp, mesh.ep)
                 if zero1 else None)
         owner = True
-        if zdim is None and mesh.dp_rank != 0:
+        # a leaf ZeRO-1 leaves whole is replicated over the data ranks
+        # (an expert leaf) or over data x expert (the rest)
+        if zdim is None and mesh.index(zero1_axes(spec)) != 0:
             owner = False
         if AXIS_TENSOR not in spec_axes(spec) and mesh.tp_rank != 0:
             owner = False
@@ -319,6 +322,7 @@ class StatePlacement:
                                             np.unravel_index(r, grid.shape))))
                        for r in range(world_size)]
         self.dp = self.sizes["data"] * self.sizes[AXIS_EXPERT]
+        self.ep = self.sizes[AXIS_EXPERT]
         self.zero1 = bool(zero1) and self.dp > 1
         self.shapes, self.specs = param_shapes(cfg), param_specs(cfg)
         self._writer: Dict[tuple, int] = {}
@@ -341,12 +345,13 @@ class StatePlacement:
         """The dimension ZeRO-1 cuts this optimizer-state leaf along."""
         if not self.zero1 or field not in self.OPT_FIELDS:
             return None
-        return zero1_dim(self.specs[path], self.shapes[path], self.dp)
+        return zero1_dim(self.specs[path], self.shapes[path], self.dp,
+                         self.ep)
 
     def spec(self, field: str, path: str) -> P:
         spec = self.specs[path]
         if self.zero1_dim(field, path) is not None:
-            spec = zero1_spec(spec, self.shapes[path], self.dp)
+            spec = zero1_spec(spec, self.shapes[path], self.dp, self.ep)
         return spec
 
     def pieces(self, field: str, path: str,

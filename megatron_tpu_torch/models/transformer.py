@@ -27,8 +27,9 @@ in one collective. Without a mesh (or at tp 1) both are the identity. A
 serving rank's caches hold its nkv/tp heads (the int8 form's scales
 too), so each rank writes and attends over its own heads.
 
-A MoE model's FFN is ops/moe.moe_block over the layer's moe subtree,
-and block_forward returns the layer's router aux loss beside its output
+A MoE model's FFN is ops/moe.moe_block over the layer's moe subtree
+(under tensor parallelism its partial sums, reduced by exit_tp as the
+MLP's are; expert parallelism inside it), and block_forward returns the layer's router aux loss beside its output
 (a zero for dense models), as the JAX block does. Weight-quantized
 serving trees (ops/weight_quant.py) reach the products through deq: one
 layer's leaf dequantized at its use. fp8 training products, dropout and
@@ -261,10 +262,11 @@ def _no_aux(x: torch.Tensor) -> torch.Tensor:
 
 def _ffn(cfg: ModelConfig, lp: Dict[str, Any], x: torch.Tensor,
          mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense MLP (reduced, its bias added) or MoE, by config: (out,
-    aux loss fp32 scalar)."""
+    """Dense MLP or MoE, by config, reduced over the tensor group (the
+    dense bias added after): (out, aux loss fp32 scalar)."""
     if cfg.num_experts is not None:
-        return moe_block(cfg, lp["moe"], x)
+        y, aux = moe_block(cfg, lp["moe"], x, mesh)
+        return exit_tp(y, mesh), aux
     return (_row_out(mlp_block(cfg, lp["mlp"], x, mesh), mesh,
                      lp["mlp"].get("b_out")), _no_aux(x))
 
@@ -293,8 +295,9 @@ def block_forward(
     The parallel form reduces its two row-parallel branches together, as
     Megatron's parallel block does: one all-reduce (a reduce-scatter
     under sequence parallelism) of the summed partials, then both
-    biases. The sequential forms, and a MoE FFN (ops/moe.moe_block
-    returns its output whole), reduce each branch on its own."""
+    biases. The sequential forms, and the parallel form with a MoE FFN
+    (ops/moe.moe_block's partial sums, each expert's bias inside),
+    reduce each branch on its own."""
     # post-LN: no pre-norm; the layer ends with its own norm, the ln1 slot
     normed = x if cfg.use_post_ln else _norm(cfg, lp["ln1"], x)
     bo = lp["attn"].get("bo")

@@ -20,14 +20,18 @@ five, each a torch.autograd.Function over the mesh's "tensor" group:
 
 Each is the identity at tp = 1 (no mesh, or a tensor axis of size 1), so
 a world-size-1 run computes exactly the single-process path. Activations
-are [B, S, h]; the sequence dimension is 1.
+are [B, S, h]; the sequence dimension is 1. A sixth, exchange, serves
+expert parallelism (ops/moe.py): an all-to-all of rows over the expert
+group whose backward is the mirrored all-to-all (the counterpart of the
+JAX package's _ragged_exchange custom VJP, megatron_tpu/ops/moe.py:
+254-292).
 
 The plain collectives below them route by backend in one place: NCCL
-takes every collective natively on CUDA tensors; gloo has no send/recv
-and no reduce-scatter for CUDA tensors, so on a gloo group a CUDA tensor
-is staged through host memory, and reduce-scatter is composed from an
-all-reduce and a slice. Gloo runs only where the caller asked for it
-(parallel/distributed.py). Each plain collective between two or more
+takes every collective natively on CUDA tensors; gloo has no send/recv,
+no reduce-scatter and no all-to-all for CUDA tensors, so on a gloo
+group a CUDA tensor is staged through host memory, and reduce-scatter
+is composed from an all-reduce and a slice. Gloo runs only where the
+caller asked for it (parallel/distributed.py). Each plain collective between two or more
 ranks runs inside a torch.profiler range named "comm.<op>" (staging and
 waits included), so a profiled step's collective share is the union of
 those ranges.
@@ -153,6 +157,25 @@ def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
         return _reduce_scatter_gloo(t, group, dim)
 
 
+def all_to_all(t: torch.Tensor, group, send: Sequence[int],
+               recv: Sequence[int]) -> torch.Tensor:
+    """Rows of t [sum(send), ...] to the group's ranks: send[j] rows (in
+    order) to group rank j; returns the [sum(recv), ...] rows received,
+    recv[i] from group rank i, in group-rank order (uneven splits:
+    dist.all_to_all_single's)."""
+    if group_size(group) == 1:
+        return t
+    with record_function("comm.all_to_all"):
+        src = t.detach().contiguous()
+        host = not _native(group) and src.is_cuda
+        if host:
+            src = src.cpu()
+        out = src.new_empty((int(sum(recv)),) + tuple(src.shape[1:]))
+        dist.all_to_all_single(out, src, output_split_sizes=list(recv),
+                               input_split_sizes=list(send), group=group)
+        return out.to(t.device) if host else out
+
+
 def p2p(sends: Sequence[Tuple[torch.Tensor, int, int]],
         recvs: Sequence[Tuple[tuple, torch.dtype, torch.device, int, int]]
         ) -> List[torch.Tensor]:
@@ -260,6 +283,27 @@ class _ReduceScatterToSP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_gather(g, ctx.group, SEQ_DIM), None
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, send, recv):
+        ctx.group, ctx.send, ctx.recv = group, send, recv
+        return all_to_all(x, group, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.group, ctx.recv, ctx.send), None, None, None
+
+
+def exchange(x: torch.Tensor, group, send: Sequence[int],
+             recv: Sequence[int]) -> torch.Tensor:
+    """all_to_all with a gradient: the rows' gradients travel back along
+    the mirrored route (the split sizes swapped)."""
+    if group_size(group) == 1:
+        return x
+    return _Exchange.apply(x, group, tuple(int(n) for n in send),
+                           tuple(int(n) for n in recv))
 
 
 def copy_to_tp(x: torch.Tensor, mesh) -> torch.Tensor:

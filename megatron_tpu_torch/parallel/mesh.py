@@ -12,7 +12,11 @@ each parameter that JAX device r holds.
 
 MeshRuntime holds the degrees, this rank's coordinates and one
 ProcessGroup per axis of size > 1 (the reference's
-get_tensor_model_parallel_group() & co.). Unlike the JAX package it also
+get_tensor_model_parallel_group() & co.), plus the batch group: the
+ranks that split one batch, (data, expert) together (the JAX batch
+spec's two axes), over which the dense leaves' gradients, the loss and
+the router's statistics are averaged; the expert leaves, sharded over
+"expert", reduce over "data" alone. Unlike the JAX package it also
 holds the embedding group: under pipeline parallelism with tied
 embeddings the first stage (the token embedding) and the last stage (the
 LM head) each keep a copy of embed/tokens, and their gradients are summed
@@ -24,7 +28,7 @@ array and XLA sums the cotangents.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -36,6 +40,8 @@ AXIS_PIPE = "pipe"
 AXIS_CONTEXT = "context"
 AXIS_TENSOR = "tensor"
 MESH_AXES = (AXIS_DATA, AXIS_EXPERT, AXIS_PIPE, AXIS_CONTEXT, AXIS_TENSOR)
+# the batch dimension shards over data AND expert
+BATCH_AXES = (AXIS_DATA, AXIS_EXPERT)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -47,7 +53,8 @@ class MeshRuntime:
     rank: int
     world_size: int
     coords: Dict[str, int]              # this rank's index on each axis
-    groups: Dict[str, object]           # axis -> ProcessGroup (size > 1)
+    groups: Dict[Any, object]           # axis or BATCH_AXES -> ProcessGroup
+                                        # (size > 1)
     embedding_group: Optional[object] = None
     # global ranks of the previous and next pipeline stage (a ring)
     pipe_prev: Optional[int] = None
@@ -74,19 +81,31 @@ class MeshRuntime:
         return self.data_parallel * self.parallel.expert_parallel
 
     @property
+    def ep(self) -> int:
+        return self.parallel.expert_parallel
+
+    @property
     def sequence_parallel(self) -> bool:
         return self.parallel.sequence_parallel and self.tp > 1
 
-    def size(self, axis: str) -> int:
+    def size(self, axis) -> int:
+        """An axis's degree; BATCH_AXES: data x expert."""
+        if axis == BATCH_AXES:
+            return self.dp
         return {AXIS_DATA: self.data_parallel,
                 AXIS_EXPERT: self.parallel.expert_parallel,
                 AXIS_PIPE: self.pp,
                 AXIS_CONTEXT: self.parallel.context_parallel,
                 AXIS_TENSOR: self.tp}[axis]
 
-    def group(self, axis: str):
-        """The axis's ProcessGroup, or None when the axis has size 1."""
+    def group(self, axis):
+        """The ProcessGroup of an axis (or of BATCH_AXES), or None when
+        it has one rank."""
         return self.groups.get(axis)
+
+    def index(self, axis) -> int:
+        """This rank's index on an axis (BATCH_AXES: dp_rank)."""
+        return self.dp_rank if axis == BATCH_AXES else self.coords[axis]
 
     @property
     def tp_rank(self) -> int:
@@ -140,7 +159,7 @@ def build_mesh(parallel: ParallelConfig,
     dp = grid.shape[0]
     coords = dict(zip(MESH_AXES,
                       (int(c) for c in np.unravel_index(rank, grid.shape))))
-    groups: Dict[str, object] = {}
+    groups: Dict[Any, object] = {}
     embedding_group = control_group = None
     if initialized and world_size > 1:
         control_group = dist.new_group(backend="gloo")
@@ -153,6 +172,17 @@ def build_mesh(parallel: ParallelConfig,
                 g = dist.new_group([int(r) for r in fiber])
                 if rank in fiber:
                     groups[axis] = g
+        # the batch group: the data or expert group when the other has
+        # one rank, else one group per (data, expert) plane
+        ep = parallel.expert_parallel
+        if dp > 1 and ep > 1:
+            for fiber in np.moveaxis(grid, (0, 1), (-2, -1)).reshape(
+                    -1, dp * ep):
+                g = dist.new_group([int(r) for r in fiber])
+                if rank in fiber:
+                    groups[BATCH_AXES] = g
+        elif dp * ep > 1:
+            groups[BATCH_AXES] = groups[AXIS_DATA if dp > 1 else AXIS_EXPERT]
         if parallel.pipeline_parallel > 1:
             pipe = MESH_AXES.index(AXIS_PIPE)
             for fiber in np.moveaxis(grid, pipe, -1).reshape(

@@ -40,11 +40,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from megatron_tpu_torch.parallel.mesh import (
-    AXIS_DATA, AXIS_EXPERT, MESH_AXES,
+    AXIS_DATA, AXIS_EXPERT, BATCH_AXES, MESH_AXES,
 )
-
-# the batch dimension shards over data AND expert
-BATCH_AXES = (AXIS_DATA, AXIS_EXPERT)
 
 
 class P(tuple):
@@ -169,6 +166,13 @@ def zero1_spec(spec: Sequence, shape: tuple, dp: int, ep: int = 1) -> P:
             entries[i] = add
             return P(*entries)
     return spec  # nothing divisible — leave replicated over data
+
+
+def zero1_axes(spec: Sequence):
+    """The axes ZeRO-1 cuts a leaf's optimizer state over, the ranks its
+    gradient is averaged over: "data" for a leaf already sharded over
+    "expert" (degree dp/ep), BATCH_AXES (data x expert) for the rest."""
+    return AXIS_DATA if AXIS_EXPERT in spec_axes(spec) else BATCH_AXES
 
 
 def zero1_spec_tree(spec_tree: Any, params: Any, dp: int, ep: int = 1

@@ -48,6 +48,9 @@ saved at any topology (--load; the sharded layout or the
 one-file-per-field one) or built whole from --seed on its device and
 cut to its slice (the tokens of the one-process server at the same
 seed), and its kv heads' caches (or page pools, --serve_kv_paging).
+A MoE model is served so too (its experts cut over the tensor ranks
+inside each expert, ops/moe.py); the mesh is tp x pp only, as the JAX
+server's: there is no expert axis in serving.
 Rank 0 binds the HTTP port and logs; the others follow it. At N > 1
 either engine's tick runs eagerly (no CUDA graph: a gloo collective
 cannot be captured). At P > 1 the server runs one-shot through the

@@ -23,7 +23,8 @@ makes the global sum non-finite everywhere). With
 use_distributed_optimizer (ZeRO-1, the reference's
 distrib_optimizer.py) and dp > 1, the fp32 masters and both moments are
 this rank's zero1 shard of each leaf (parallel/sharding.zero1_spec: a
-cut over the data ranks of the first unsharded dimension dp divides),
+cut over the batch ranks, data x expert, of the first unsharded
+dimension dp divides; an expert leaf's over the data ranks at dp/ep),
 the step's grads arrive reduce-scattered into that shard
 (training/train_step.py), Adam runs on the shard with the formula
 above, and the updated shards are all-gathered back into the
@@ -41,6 +42,8 @@ import torch
 
 from megatron_tpu_torch.config import OptimizerConfig
 from megatron_tpu_torch.parallel.mappings import all_gather, all_reduce
+from megatron_tpu_torch.parallel.mesh import BATCH_AXES
+from megatron_tpu_torch.parallel.sharding import zero1_axes
 from megatron_tpu_torch.training.scheduler import lr_at_step, wd_at_step
 
 _CHUNK = 1 << 26
@@ -115,19 +118,22 @@ def leaf_group_mults(cfg: OptimizerConfig, tree: Any):
     return out
 
 
-def zero1_layout(cfg: OptimizerConfig, mesh, layout) -> Dict[str, int]:
-    """{path: the dimension ZeRO-1 cuts this rank's optimizer state
-    along} for the leaves it cuts; {} when ZeRO-1 is off or dp is 1."""
+def zero1_layout(cfg: OptimizerConfig, mesh, layout
+                 ) -> Dict[str, Tuple[int, Any]]:
+    """{path: (the dimension ZeRO-1 cuts this rank's optimizer state
+    along, the axes it cuts over: parallel/sharding.zero1_axes)} for the
+    leaves it cuts; {} when ZeRO-1 is off or dp is 1."""
     if (mesh is None or layout is None or mesh.dp == 1
             or not cfg.use_distributed_optimizer):
         return {}
-    return {p: zdim for p, (_, zdim, _) in layout.items()
-            if zdim is not None}
+    return {p: (zdim, zero1_axes(spec))
+            for p, (spec, zdim, _) in layout.items() if zdim is not None}
 
 
-def zero1_shard(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
-    """This data rank's block of x along dim."""
-    return x.chunk(mesh.dp, dim=dim)[mesh.dp_rank]
+def zero1_shard(x: torch.Tensor, mesh, dim: int,
+                axes=BATCH_AXES) -> torch.Tensor:
+    """This rank's block of x along dim, cut over `axes`' ranks."""
+    return x.chunk(mesh.size(axes), dim=dim)[mesh.index(axes)]
 
 
 def nest_paths(flat: Dict[str, Any]) -> Dict[str, Any]:
@@ -158,7 +164,7 @@ def init_train_state(cfg: OptimizerConfig, params: Any,
     zdims = zero1_layout(cfg, mesh, layout)
     if zdims:
         master = nest_paths({
-            path: (zero1_shard(x.detach().float(), mesh, zdims[path])
+            path: (zero1_shard(x.detach().float(), mesh, *zdims[path])
                    if path in zdims else x.detach().float()).clone()
             for path, x in leaf_paths(params)})
     elif needs_master:
@@ -268,7 +274,7 @@ def _clip(cfg: OptimizerConfig, grads: Any, norm: torch.Tensor) -> None:
 
 
 def _finish(cfg: OptimizerConfig, state: TrainState, finite: torch.Tensor,
-            masters: Any, mesh=None, zdims: Optional[Dict[str, int]] = None
+            masters: Any, mesh=None, zdims: Optional[Dict[str, Any]] = None
             ) -> None:
     """Model-dtype params from the masters (a ZeRO-1 shard all-gathered
     over the data ranks in the model dtype), scaler, streak and step."""
@@ -277,8 +283,8 @@ def _finish(cfg: OptimizerConfig, state: TrainState, finite: torch.Tensor,
             for (path, p), (_, m) in zip(leaf_paths(state.params),
                                          leaf_paths(masters)):
                 if zdims and path in zdims:
-                    p.copy_(all_gather(m.to(p.dtype), mesh.group("data"),
-                                       zdims[path]))
+                    dim, axes = zdims[path]
+                    p.copy_(all_gather(m.to(p.dtype), mesh.group(axes), dim))
                 else:
                     p.copy_(m)
     if state.scaler is not None:

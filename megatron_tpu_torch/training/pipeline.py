@@ -26,7 +26,11 @@ megatron/schedules.py does:
     M*V virtual microbatches, which needs M % pp == 0 (the JAX rule,
     pipeline.py:206-209);
   * each microbatch's backward is torch.autograd.backward(out, grad),
-    the loss scaled by the fp16 loss scale; after each backward the
+    the loss scaled by the fp16 loss scale; a MoE stage's layers add
+    their router aux loss to the stage's backward (as lm_loss adds it
+    to the loss), and each stage reports its share of the microbatch's
+    loss (the last stage's CE, every stage's aux), which train_step sums
+    over the pipe group; after each backward the
     caller's hook moves the parameter grads into the fp32 accumulators,
     exactly as train_step's per-microbatch loop does;
   * the recompute policies apply inside each chunk (training/
@@ -36,7 +40,7 @@ megatron/schedules.py does:
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -88,9 +92,10 @@ class Pipeline:
         return self.mesh.is_last_stage and c == self.V - 1
 
     def _forward(self, params, batch, rope, m: int, c: int,
-                 x: Optional[torch.Tensor], metrics=()) -> torch.Tensor:
-        """Chunk c on microbatch m: its output activation, or on the last
-        virtual stage the microbatch's mean loss. With `metrics` (names
+                 x: Optional[torch.Tensor], metrics=()):
+        """Chunk c on microbatch m: (its output activation, or on the
+        last virtual stage the microbatch's mean CE; the router aux loss
+        of its layers, a zero for a dense model). With `metrics` (names
         of training/metrics.py) the last stage computes the logits whole
         (this rank's vocab block) and adds the microbatch's metric sums
         to self.metric_sums."""
@@ -107,9 +112,9 @@ class Pipeline:
             block_forward, cfg, lp, rope=rope, positions=positions,
             recompute_core=selective, mesh=mesh)
             for lp in _layers(chunk, self.Lv)]
-        x, _ = run_layers(layers, x, self.recompute)   # dense: no aux
+        x, aux = run_layers(layers, x, self.recompute)
         if not self._last(c):
-            return x
+            return x, aux
         h = enter_tp(final_hidden_norm(cfg, params, x), mesh)
         lm = mb.get("loss_mask")
         if metrics:
@@ -123,9 +128,9 @@ class Pipeline:
         else:
             per_token = token_losses(cfg, params, h, mb["labels"], mesh)
         if lm is None:
-            return per_token.mean()
+            return per_token.mean(), aux
         lm = lm.float()
-        return (per_token * lm).sum() / lm.sum().clamp_min(1.0)
+        return (per_token * lm).sum() / lm.sum().clamp_min(1.0), aux
 
     def _rope(self, batch):
         cfg = self.cfg
@@ -171,11 +176,20 @@ class Pipeline:
 
     @staticmethod
     def _backward(x, out, grad, scale, on_backward):
-        if grad is None:                      # the loss
-            torch.autograd.backward(out * scale if scale is not None
-                                    else out)
-        else:
-            torch.autograd.backward(out, grad)
+        """out: (activation or loss, router aux loss); the aux joins the
+        backward of every stage whose layers route (scaled as the loss
+        is)."""
+        out, aux = out
+        tensors, grads = [out], [grad]
+        if grad is None:                      # the loss, with its aux
+            tensors = [out + aux]
+        elif aux.requires_grad:
+            tensors.append(aux)
+            grads.append(None)
+        if scale is not None:
+            tensors = [t * scale if g is None else t
+                       for t, g in zip(tensors, grads)]
+        torch.autograd.backward(tensors, grads)
         on_backward()
         return x.grad if x is not None else None
 
@@ -184,18 +198,25 @@ class Pipeline:
     def forward_backward(self, params, batch: Dict[str, torch.Tensor],
                          scale: Optional[torch.Tensor],
                          on_backward: Callable[[], None]
-                         ) -> List[torch.Tensor]:
+                         ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """Forward and backward of every microbatch through this stage.
-        Returns the microbatch losses (detached) on the last stage, []
-        elsewhere."""
+        Returns this stage's share of each microbatch's loss (the last
+        stage's CE plus the router aux loss of the stage's layers) and
+        of its router aux loss, detached: summed over the pipe group
+        they are the microbatch's loss and aux loss."""
         rope = self._rope(batch)
-        losses: List[torch.Tensor] = []
+        losses = [torch.zeros((), device=batch["tokens"].device)
+                  for _ in range(self.M)]
+        auxes = [torch.zeros((), device=batch["tokens"].device)
+                 for _ in range(self.M)]
 
         def fwd(m, c, x):
-            out = self._forward(params, batch, rope, m, c, x)
+            out, aux = self._forward(params, batch, rope, m, c, x)
+            auxes[m] = auxes[m] + aux.detach()
+            losses[m] = losses[m] + aux.detach()
             if self._last(c):
-                losses.append(out.detach())
-            return out
+                losses[m] = losses[m] + out.detach()
+            return out, aux
 
         def bwd(x, out, grad):
             return self._backward(x, out, grad, scale, on_backward)
@@ -204,7 +225,7 @@ class Pipeline:
             self._one_f_one_b(batch, fwd, bwd)
         else:
             self._interleaved(batch, fwd, bwd)
-        return losses
+        return losses, auxes
 
     def _one_f_one_b(self, batch, fwd, bwd):
         """schedules.py forward_backward_pipelining_without_interleaving."""
@@ -217,13 +238,14 @@ class Pipeline:
         for i in range(warmup):
             x, _ = ex(recv_prev=not first)
             out = fwd(i, 0, x)
-            ex(send_next=None if last else out)
+            ex(send_next=None if last else out[0])
             inputs.append(x)
             outputs.append(out)
         x = ex(recv_prev=not first)[0] if remaining else None
         for i in range(remaining):
             out = fwd(warmup + i, 0, x)
-            _, grad = ex(send_next=None if last else out, recv_next=not last)
+            _, grad = ex(send_next=None if last else out[0],
+                         recv_next=not last)
             inputs.append(x)
             outputs.append(out)
             gin = bwd(inputs.pop(0), outputs.pop(0), grad)
@@ -264,7 +286,7 @@ class Pipeline:
                 inputs[c].append(None)
             out = fwd(micro_of(k), c, inputs[c][-1])
             outputs[c].append(out)
-            return out
+            return out[0]
 
         def backward_k(k):
             c = chunk_of(k, forward=False)
@@ -349,7 +371,7 @@ class Pipeline:
         for m in range(self.M):
             for c in range(self.V):
                 x, _ = self._exchange(batch, recv_prev=not self._first(c))
-                out = self._forward(params, batch, rope, m, c, x, metrics)
+                out, _ = self._forward(params, batch, rope, m, c, x, metrics)
                 if self._last(c):
                     losses.append(out)
                 else:

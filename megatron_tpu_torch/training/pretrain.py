@@ -709,8 +709,10 @@ class TrainLoop:
         return metrics
 
     def _rank_rows(self, batches: Iterator) -> Iterator:
-        """This data rank's rows of each global batch."""
-        return batches if self.dp == 1 else rank_rows(batches, self.mesh)
+        """This batch rank's rows of each global batch, microbatch by
+        microbatch (data/samplers.rank_rows)."""
+        return batches if self.dp == 1 else rank_rows(
+            batches, self.mesh, self.cfg.training.micro_batch_size)
 
     def _agree(self, *flags: bool) -> Tuple[bool, ...]:
         """Every rank's flags, MAX-reduced in one collective on the
@@ -1426,15 +1428,16 @@ def pretrain(run_cfg: RunConfig, train_iter_factory,
         mesh = build_mesh(run_cfg.parallel)
     p = run_cfg.parallel
     if mesh is None and (p.tensor_parallel * p.pipeline_parallel
-                         * (p.data_parallel or 1)) > 1:
+                         * p.expert_parallel * (p.data_parallel or 1)) > 1:
         raise ValueError(
             "a parallel topology needs one process per rank: launch under "
             "python -m torch.distributed.run --nproc_per_node N")
     loop = TrainLoop(run_cfg, log=log, device=device, mesh=mesh)
     log = loop.log
     if mesh is not None:
-        log(f"mesh: world {mesh.world_size} = dp {mesh.dp} x pp {mesh.pp}"
-            f" (vpp {mesh.vpp}) x tp {mesh.tp}"
+        log(f"mesh: world {mesh.world_size} = dp {mesh.dp}"
+            + (f" (ep {mesh.ep})" if mesh.ep > 1 else "")
+            + f" x pp {mesh.pp} (vpp {mesh.vpp}) x tp {mesh.tp}"
             + (" with sequence parallelism" if mesh.sequence_parallel
                else ""))
     log(f"device: {loop.device} | params: {num_params(run_cfg.model):,}")

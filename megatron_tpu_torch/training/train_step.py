@@ -17,13 +17,23 @@ accumulators. After the accumulation, reduce_grads:
   * under sequence parallelism sums over the tensor group the grads of
     the leaves tensor parallelism leaves whole (norm scales and biases,
     row-parallel biases, embed/pos): each rank's backward saw only its
-    sequence chunk;
+    sequence chunk; at any tp > 1 so for the MoE leaves without a
+    tensor axis (the router, the experts' b_out): they sit after the
+    block's entry, so each tensor rank holds a partial sum
+    (ops/moe.py);
   * with tied embeddings and pp > 1 sums embed/tokens over the
     embedding group (the first stage's copy and the last stage's);
-  * averages over the data ranks: an all-reduce, or under ZeRO-1 a
-    reduce-scatter into this rank's optimizer shard.
-The loss metric is the mean over the data ranks of the last stage's
-microbatch losses, the same number on every rank.
+  * averages over the batch ranks: a leaf's gradient is summed over the
+    ranks it is replicated on, data x expert (the batch group), or the
+    data ranks alone for an expert leaf (each expert rank's backward
+    already holds every expert-group rank's rows, brought home by the
+    all-to-all), then divided by dp, the number of losses the global
+    loss averages; under ZeRO-1 the sum is a reduce-scatter into this
+    rank's optimizer shard over the same group.
+The loss metric is the mean over the batch ranks of the microbatch
+losses (each pipeline stage's share summed over the pipe group: the
+last stage's CE and every stage's router loss), the same number on
+every rank; a MoE model's moe_aux_loss is agreed the same way.
 """
 
 from __future__ import annotations
@@ -37,8 +47,8 @@ from megatron_tpu_torch.config import (ModelConfig, OptimizerConfig,
 from megatron_tpu_torch.models.language_model import lm_forward, lm_loss
 from megatron_tpu_torch.ops.cross_entropy import cross_entropy_loss
 from megatron_tpu_torch.parallel.mappings import all_reduce, reduce_scatter
-from megatron_tpu_torch.parallel.mesh import AXIS_TENSOR
-from megatron_tpu_torch.parallel.sharding import spec_axes
+from megatron_tpu_torch.parallel.mesh import AXIS_TENSOR, BATCH_AXES
+from megatron_tpu_torch.parallel.sharding import spec_axes, zero1_axes
 from megatron_tpu_torch.training.optimizer import (
     TrainState, nest_paths, leaf_paths, make_optimizer_step, tree_map,
     zero1_layout,
@@ -54,26 +64,29 @@ def reduce_grads(grads: Any, model_cfg: ModelConfig,
     out = {}
     for path, g in leaf_paths(grads):
         spec = layout[path][0]
-        if mesh.sequence_parallel and AXIS_TENSOR not in spec_axes(spec):
+        if mesh.tp > 1 and AXIS_TENSOR not in spec_axes(spec) and (
+                mesh.sequence_parallel or path.startswith("layers/moe/")):
             g.copy_(all_reduce(g, mesh.group("tensor")))
         if (path == "embed/tokens" and model_cfg.tie_embed_logits
                 and mesh.pp > 1):
             g.copy_(all_reduce(g, mesh.embedding_group))
         if mesh.dp > 1:
-            group = mesh.group("data")
+            axes = zero1_axes(spec)
             if path in zdims:
-                g = reduce_scatter(g, group, zdims[path])
-            else:
-                g.copy_(all_reduce(g, group))
+                g = reduce_scatter(g, mesh.group(axes), zdims[path][0])
+            elif mesh.group(axes) is not None:
+                g.copy_(all_reduce(g, mesh.group(axes)))
+            # every leaf's gradient is the mean of the dp ranks' losses
             g.div_(mesh.dp)
         out[path] = g
     return nest_paths(out)
 
 
 def agreed_loss(losses, mesh, device) -> torch.Tensor:
-    """Mean of the microbatch losses, agreed over every rank: the last
-    stage's value summed over the pipe group (the other stages add 0),
-    then averaged over the data ranks."""
+    """Mean of the microbatch losses, agreed over every rank: each
+    pipeline stage's share (the last stage's CE, every stage's router
+    loss) summed over the pipe group, then averaged over the batch
+    ranks."""
     loss = (torch.stack(losses).mean() if losses
             else torch.zeros((), dtype=torch.float32, device=device))
     if mesh is None or mesh.world_size == 1:
@@ -81,7 +94,7 @@ def agreed_loss(losses, mesh, device) -> torch.Tensor:
     if mesh.pp > 1:
         loss = all_reduce(loss, mesh.group("pipe"))
     if mesh.dp > 1:
-        loss = all_reduce(loss, mesh.group("data")) / mesh.dp
+        loss = all_reduce(loss, mesh.group(BATCH_AXES)) / mesh.dp
     return loss
 
 
@@ -155,8 +168,8 @@ def make_train_step(
                     p.grad = None
 
         if pipeline is not None:
-            losses = pipeline.forward_backward(state.params, batch, scale,
-                                               accumulate)
+            losses, moe_aux = pipeline.forward_backward(
+                state.params, batch, scale, accumulate)
         else:
             losses, moe_aux = [], []
             for i in range(n):
@@ -177,9 +190,11 @@ def make_train_step(
         state, metrics = opt_apply(state, grads)
         metrics["loss"] = (agreed_loss(losses, mesh, accs[0].device)
                            if multi else torch.stack(losses).mean())
-        if pipeline is None and moe_aux:
-            # the router's share of the loss (MoE runs at world size 1)
-            metrics["moe_aux_loss"] = torch.stack(moe_aux).mean()
+        if model_cfg.num_experts is not None and (moe_aux or multi):
+            # the router's share of the loss, agreed as the loss is
+            metrics["moe_aux_loss"] = (
+                agreed_loss(moe_aux, mesh, accs[0].device) if multi
+                else torch.stack(moe_aux).mean())
         return state, metrics
 
     return train_step
@@ -263,14 +278,15 @@ def _parallel_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig,
             sums = metric_sums(names, vocab_parallel_argmax(logits, mesh),
                                batch["labels"], loss_mask, per_token)
         else:
+            # the CE alone, as the one-process eval step reports it
             losses = [lm_loss(model_cfg, params,
                               dict(batch, loss_mask=loss_mask),
-                              mesh=mesh)[0]]
+                              mesh=mesh)[1]["lm_loss"]]
         ntokens = loss_mask.sum()
         if mesh.dp > 1:
-            ntokens = all_reduce(ntokens, mesh.group("data"))
+            ntokens = all_reduce(ntokens, mesh.group(BATCH_AXES))
             if sums is not None:
-                sums = all_reduce(sums, mesh.group("data"))
+                sums = all_reduce(sums, mesh.group(BATCH_AXES))
         out = {"lm_loss": agreed_loss(losses, mesh, loss_mask.device),
                "ntokens": ntokens}
         if names:

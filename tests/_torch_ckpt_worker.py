@@ -79,6 +79,7 @@ def slice_state(state, cfg, mesh, zero1: bool):
     import dataclasses
 
     from megatron_tpu_torch.models.params import leaf_layout, shard_params
+    from megatron_tpu_torch.parallel.sharding import zero1_axes
     from megatron_tpu_torch.training.optimizer import (
         leaf_paths, nest_paths, zero1_shard,
     )
@@ -92,7 +93,7 @@ def slice_state(state, cfg, mesh, zero1: bool):
         for path, x in local.items():
             zdim = layout[path][1]
             if opt and cut and zdim is not None:
-                x = zero1_shard(x, mesh, zdim)
+                x = zero1_shard(x, mesh, zdim, zero1_axes(layout[path][0]))
             out[path] = x.detach().clone()
         return nest_paths(out)
 

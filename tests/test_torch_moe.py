@@ -11,8 +11,8 @@ the tokens the capacity path drops; the group-size rule, grouping and
 per-group capacity; the capacity formula; the CLI knobs; generation
 against teacher forcing on both engines; lm_forward against a random
 MixtralForCausalLM; mixtral HF -> native -> HF; the MoE drift keys of a
-checkpoint; and the refusals (expert parallelism, MoE above world size 1,
-return_moe_aux with caches). Tolerances are stated per test: 1e-4 on
+checkpoint; and the refusals (the expert axis's divisibility, ep
+without experts, return_moe_aux with caches). Tolerances are stated per test: 1e-4 on
 losses and logits through two fp32 layers (the frameworks sum in
 different orders), 1e-5 on gradients, as tests/test_torch_train.py.
 """
@@ -400,11 +400,15 @@ def test_moe_cli_knobs_override_preset_and_refusals():
                "--moe_dispatch", "dropless"])
     assert m.moe_aux_loss_coeff == 0.0 and m.moe_renorm_gates is False
     assert m.moe_dispatch == "dropless" and m.num_experts == 8
-    with pytest.raises(ValueError, match="7b"):
-        model(["--expert_model_parallel_size", "2"])
-    # MoE above world size 1: the aux loss needs global statistics
-    with pytest.raises(ValueError, match="world size 2"):
-        check_mesh(_cfgs()[1], types.SimpleNamespace(world_size=2))
+    run = arguments.args_to_run_config(arguments.parse_args(
+        base + ["--expert_model_parallel_size", "2"]))
+    assert run.parallel.expert_parallel == 2
+    # the JAX rules of the expert axis: E % ep, and no ep without experts
+    with pytest.raises(ValueError, match="expert_parallel=3"):
+        check_mesh(_cfgs()[1], types.SimpleNamespace(world_size=3, ep=3))
+    with pytest.raises(ValueError, match="no experts"):
+        check_mesh(dataclasses.replace(_cfgs()[1], num_experts=None),
+                   types.SimpleNamespace(world_size=2, ep=2))
 
 
 def test_return_moe_aux_with_caches_is_refused():

@@ -253,10 +253,15 @@ def test_distributed_flags_map_as_the_jax_cli_maps_them():
             j.parallel), extra
         assert (t.optimizer.use_distributed_optimizer
                 == j.optimizer.use_distributed_optimizer)
-    for flag, item in (("--context_parallel_size", "item 10"),
-                       ("--expert_model_parallel_size", "item 7b")):
-        with pytest.raises(ValueError, match=item):
-            args_to_run_config(parse_args(base + [flag, "2"]))
+    with pytest.raises(ValueError, match="item 10"):
+        args_to_run_config(parse_args(base + ["--context_parallel_size",
+                                              "2"]))
+    # expert parallelism is ported: the flag maps as the JAX CLI maps it
+    extra = ["--expert_model_parallel_size", "2"]
+    t = args_to_run_config(parse_args(base + extra))
+    j = j_args_to_run_config(j_parse_args(base + extra))
+    assert dataclasses.asdict(t.parallel) == dataclasses.asdict(j.parallel)
+    assert t.parallel.expert_parallel == 2
     with pytest.raises(ValueError, match="not divisible"):
         args_to_run_config(parse_args(
             base + ["--pipeline_model_parallel_size", "2",
@@ -279,16 +284,18 @@ def test_refusals_name_what_is_missing():
     tparams.check_mesh(dataclasses.replace(falcon, num_kv_heads=2), tp2)
     with pytest.raises(ValueError, match="kv heads"):
         tparams.check_mesh(dataclasses.replace(falcon, num_kv_heads=1), tp2)
-    # checkpoints at world size > 1 are ported (the sharded layout);
-    # MoE above world size 1 is still refused, by name
-    moe = dataclasses.replace(cfg, num_experts=4, moe_top_k=2).validate()
+    # MoE above world size 1 is ported; what stays refused is the JAX
+    # package's expert-axis rule: the experts must divide ep
+    moe = dataclasses.replace(cfg, num_experts=3, moe_top_k=2).validate()
+    ep2 = tconfig.ParallelConfig(expert_parallel=2)
     run = tconfig.RunConfig(
-        model=moe, parallel=tconfig.ParallelConfig(tensor_parallel=2),
+        model=moe, parallel=ep2,
         training=tconfig.TrainingConfig(
             micro_batch_size=1, global_batch_size=2, train_iters=1,
             save="/nonexistent"))
-    with pytest.raises(ValueError, match="7b"):
-        TrainLoop(run, log=lambda s: None, device="cpu", mesh=tp2)
+    with pytest.raises(ValueError, match="expert_parallel=2"):
+        TrainLoop(run, log=lambda s: None, device="cpu",
+                  mesh=build_mesh(ep2, world_size=2, rank=0))
     with pytest.raises(ValueError, match="torch.distributed.run"):
         pretrain(run, lambda c, g: iter(()), device="cpu")
 

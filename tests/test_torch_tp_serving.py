@@ -35,6 +35,7 @@ import tempfile
 import jax
 import numpy as np
 import pytest
+import torch
 import torch.multiprocessing as mp
 
 import _torch_parallel_worker as W
@@ -330,8 +331,10 @@ def test_the_engines_refuse_what_tp_serving_does_not_cover(weights):
 def test_falcon_and_post_ln_under_tp_name_the_roadmap_item(family):
     """Both blocks shard at tp2 now (their parity:
     tests/test_torch_parallel_families.py); what stays refused is the
-    JAX package's kv-head rule (Falcon-7B's one kv head at tp2) and,
-    naming ROADMAP.md item 7b, a MoE FFN above world size 1."""
+    JAX package's kv-head rule (Falcon-7B's one kv head at tp2). A MoE
+    FFN shards at tp2 too: each expert's GLU input cut per half, its
+    output projection by rows (its serving parity:
+    tests/test_torch_moe_parallel.py)."""
     cfg = presets.tiny(**S.KW, **({"parallel_attn": True}
                                   if family == "falcon"
                                   else {"use_post_ln": True}))
@@ -343,8 +346,15 @@ def test_falcon_and_post_ln_under_tp_name_the_roadmap_item(family):
         shard_params(flat, dataclasses.replace(cfg, num_kv_heads=1),
                      _mesh())
     moe = dataclasses.replace(cfg, num_experts=4, moe_top_k=2).validate()
-    with pytest.raises(ValueError, match="7b"):
-        shard_params(dict(leaf_paths(tg_params(moe))), moe, _mesh())
+    full = dict(leaf_paths(tg_params(moe)))
+    local = shard_params(full, moe, _mesh())
+    w_in, half = full["layers/moe/w_in"], full["layers/moe/w_in"].shape[-1] // 2
+    r = _mesh().tp_rank
+    torch.testing.assert_close(local["layers/moe/w_in"], torch.cat(
+        [w_in[..., :half].chunk(2, -1)[r], w_in[..., half:].chunk(2, -1)[r]],
+        -1))
+    assert local["layers/moe/w_out"].shape[-2] == full[
+        "layers/moe/w_out"].shape[-2] // 2
 
 
 def tg_params(cfg):
