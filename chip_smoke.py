@@ -17,8 +17,12 @@ still run, so one call shows every failure):
               GQA 4, q/k/v as views of a fused [B, S, 3, H, D] buffer,
               and phase 5b's Falcon-7B (Hq 71 over Hkv 1, D 64, S 2048)
               and GPT-2 1.3B (H 32, D 64, S 1024), and phase 7's
-              per-rank shape at tp2 (16 q and 16 kv heads, S 2048):
-              FWD_CASES; 2b's BWD_CASES likewise) and hold
+              per-rank shape at tp2 (16 q and 16 kv heads, S 2048), and
+              phase 7g's context-parallel shapes: a stripe of 4096
+              against a past stripe, 8192 queries at offset 8192
+              against 16384 keys: FWD_CASES; 2b's BWD_CASES likewise;
+              a plain version whose fp32 scores pass PLAIN_SCORE_BYTES
+              runs over groups of kv heads) and hold
               it against its plain PyTorch version on the same bf16
               inputs, computed in fp32. Tolerance:
               |kernel - plain| <= 2e-2 + 2e-2 * |plain| elementwise (bf16
@@ -192,6 +196,14 @@ still run, so one call shows every failure):
               through the dense attention with autograd: the loss, the
               gradient norm and every gradient leaf must agree (gates at
               the constants below).
+  4c. fp8     the fp8 training products (ops/fp8.py): fp8_matmul at a
+              Llama-2-7B block's product shapes, both formats, against
+              its plain version (forward and both gradients), then
+              FP8_STEPS steps of the width x FP8_LAYERS in bf16,
+              --fp8_hybrid and --fp8_e4m3 through pretrain_gpt from the
+              same weights and batches: each fp8 loss within
+              FP8_LOSS_RTOL of bf16's, finite and falling, exact
+              launches; the step times printed side by side.
   5. finetune the finetuning path, in a temporary directory (its df
               printed first; the phase fails with less than 40 GB free):
               an HF-layout Llama at Llama-2-7B width cut to FT_LAYERS = 1
@@ -331,7 +343,7 @@ still run, so one call shows every failure):
               a world-1 run_text_generation_server --load serves it one
               request.
   7d. tp2     (parallel_serving; run first in phase 7's two-rank
-              launch, with 7e) Llama-2-7B at full width and depth
+              launch, with 7e) Llama-2-7B's width x TP_SERVE_LAYERS
      serving  served at tp2 by two gloo ranks sharing the card (each is
               this script's --rank-serve mode): the dense engine with an
               eager tick, 8 slots x 2048, phase 3's traffic, then
@@ -382,12 +394,22 @@ still run, so one call shows every failure):
               and ep2 rank's B1-B3 shapes (S MIXTRAL_PAR_SEQ, Hq 16 Hkv
               4 and Hq 32 Hkv 8, D 128) are phase 2/2b cases, and so
               are 7b's (S PAR_SEQ, 16 heads at tp2, 32 elsewhere).
+  7g. context (parallel, last in the same launch) Llama-2-7B's width x
+     paral-  CP_LAYERS at S CP_SEQ, CP_STEPS steps at cp2 with
+     lelism  --attention_impl ring (zig-zag stripes of CP_STRIPE),
+              ulysses and pallas (the all-gathered K/V), each held to
+              the one-process run at the same S (losses, grad norms and
+              the validation loss at phase 7's gates), the ranks in
+              agreement, and each rank's B1-B3 launches printed and
+              equal to the schedule's (the ring: 5 stripe pairs a layer
+              and pass at cp2).
   8. report   each phase's wall seconds as it ends and all of them
               after phase 7d (seconds_by_phase, with the total), then one
               JSON line listing each kernel with its launches on its path
               (serving, paged_serving, speculative_serving,
-              serving_control, weight_quant, training, finetune,
-              families, mixtral, loop, parallel and parallel_serving),
+              serving_control, weight_quant, training, fp8_training,
+              finetune, families, mixtral, loop, parallel,
+              context_parallel and parallel_serving),
               then the card's name and power limit, then {"ok": true,
               "device": {...}} as the last line.
 
@@ -541,12 +563,16 @@ PAR_TIMEOUT_S = 900          # a launch: 7d, 7e, every two-rank case and resume
 PAR_SAVE_CASE, PAR_LOAD_CASES = "tp2_sp", ("pp2", "pp2_vpp2")
 PAR_RESUME_ATOL = 1e-4
 PAR_SERVE_NEW = 16            # the world-1 server's request of the ckpt
-# phase 7d: Llama-2-7B at full size served at tp2 by two gloo ranks
-# sharing the card (python -m torch.distributed.run; each rank is this
-# script's --rank-serve mode): the dense engine, eager tick, 8 slots x
-# 2048, phase 3's traffic, then TP_TICKS decode ticks over 8 filled
-# slots timed and traced on rank 0, then one request through the
-# one-shot server (engine_slots 0)
+# phase 7d: Llama-2-7B's width x TP_SERVE_LAYERS served at tp2 by two
+# gloo ranks sharing the card (python -m torch.distributed.run; each rank
+# is this script's --rank-serve mode): the dense engine, eager tick, 8
+# slots x 2048, phase 3's traffic, then TP_TICKS decode ticks over 8
+# filled slots timed and traced on rank 0, then one request through the
+# one-shot server (engine_slots 0). 7d, 7e(a) and 7e(b) served the full
+# 32 layers before phase 7g came (145.6 s of a 1067.9 s run of this
+# script with 7g, on an H100 80GB HBM3 at 700 W): cut to 8 for the wall;
+# every per-layer collective and kernel of the path still runs
+TP_SERVE_LAYERS = 8
 TP_SLOTS, TP_SEQ, TP_TICKS = 8, 2048, 5
 TP_ONE_SHOT_NEW = 8
 TP_TICK_LENS = (5, 100, 300, 500, 700, 1000, 1200, 1500)
@@ -606,6 +632,41 @@ MIXTRAL_PAR_REDUCED = [
     "default, which keeps the preset's 8192)",
     f"serving depth 32 -> {MIXTRAL_PAR_SERVE_LAYERS} layers in fp32 (12.6 "
     "GB a copy), capacity factor 1.25 -> 8 (phase 5c's)"]
+
+# phase 4c: the fp8 training products (ops/fp8.py). (a) fp8_matmul at
+# each product shape of a Llama-2-7B block at S TRAIN_SEQ (x [4096, K] @
+# w [K, N]: wq, wk, wv and wo 4096 x 4096, w_in 4096 x 22016, SwiGLU's two
+# halves, w_out 11008 x 4096), both formats: torch._scaled_mm's forward
+# and both gradients against the plain version's fp32 products of the
+# same fp8 operands, within FP8_TOL of the plain's largest magnitude
+# (both outputs are rounded to bf16, 2^-8 relative, after fp32 sums in
+# different orders); (b) FP8_STEPS steps of the width x FP8_LAYERS in
+# bf16, --fp8_hybrid and --fp8_e4m3 through pretrain_gpt (one seed, one
+# corpus, the same batches): every fp8 loss within FP8_LOSS_RTOL of
+# bf16's (tests/test_fp8.py's 5%), finite and falling; the loop's step
+# windows and a synchronized forward + backward of each format on the
+# same weights and row, side by side
+FP8_LAYERS = 2
+FP8_STEPS = 3
+FP8_LOSS_RTOL = 0.05
+FP8_TOL = 2.0 ** -7
+FP8_PRODUCTS = {"wq/wk/wv/wo": (4096, 4096), "w_in": (4096, 22016),
+                "w_out": (11008, 4096)}
+FP8_RUNS = {"bf16": [], "hybrid": ["--fp8_hybrid"], "e4m3": ["--fp8_e4m3"]}
+FP8_TIMED = 5          # synchronized fwd + bwd runs a format is timed over
+# phase 7g: context parallelism, in phase 7's two-rank launch (gloo, one
+# card): Llama-2-7B's width x CP_LAYERS at S CP_SEQ, 8192 tokens a rank
+# (the zig-zag ring's stripes are CP_STRIPE long), CP_STEPS steps at cp2
+# with --attention_impl ring, ulysses and pallas (the all-gathered K/V),
+# each held to one process at the same S within phase 7's gates; every
+# rank's B1-B3 launches printed and held to the schedule's count
+CP_LAYERS = 2
+CP_STRIPE = 4096
+CP_SEQ = 4 * CP_STRIPE
+CP_STEPS = 2
+CP_CASES = {f"cp2_{impl}": ["--context_parallel_size", "2",
+                            "--attention_impl", impl]
+            for impl in ("ring", "ulysses", "pallas")}
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TPU_KERNELS = "megatron_tpu/ops/pallas/flash_template.py"
@@ -759,11 +820,14 @@ def visible_pairs(torch, c) -> float:
 
 
 def sdpa_mask_kw(torch, c) -> dict:
-    """scaled_dot_product_attention's arguments for the case's mask."""
+    """scaled_dot_product_attention's arguments for the case's mask (none
+    when every pair is visible: a causal block wholly in its queries'
+    past is the same work as a bidirectional one)."""
     if (c["causal"] and c["window"] is None and c["delta"] == 0
             and c["Sq"] == c["Skv"]):
         return dict(is_causal=True)
-    if not c["causal"] and c["window"] is None:
+    past = c["causal"] and c["delta"] >= c["Skv"] - 1
+    if (past or not c["causal"]) and c["window"] is None:
         return {}
     qp = torch.arange(c["Sq"], device="cuda")[:, None] + c["delta"]
     kp = torch.arange(c["Skv"], device="cuda")[None, :]
@@ -780,6 +844,36 @@ def mask_kw(c) -> dict:
 
 def rates(flops, ms, bound_ms) -> dict:
     return {"tflops": flops / ms / 1e9, "bound_share": bound_ms / ms}
+
+
+# the plain versions materialize fp32 [B, H, Sq, Skv] scores; past this
+# many bytes they run over groups of kv heads (each head's attention is
+# its own, so the pieces put together are the same function)
+PLAIN_SCORE_BYTES = 4 * 2**30
+
+
+def head_groups(c) -> int:
+    """How many kv-head groups a case's plain version runs in."""
+    need = -(-4 * c["B"] * c["hq"] * c["Sq"] * c["Skv"] // PLAIN_SCORE_BYTES)
+    return next(n for n in range(1, c["hkv"] + 1)
+                if c["hkv"] % n == 0 and n >= need)
+
+
+def plain_by_heads(torch, c, fn, q_like, kv_like, lse_like=()):
+    """fn over kv-head groups of the case: q_like tensors [B, S, Hq, D]
+    and lse_like [B, Hq, S] cut by query heads, kv_like [B, S, Hkv, D] by
+    kv heads; each output put back together along its head dim (dim 1
+    for a [B, H, S] one, else 2)."""
+    n = head_groups(c)
+    if n == 1:
+        return fn(*q_like, *kv_like, *lse_like)
+    parts = [fn(*(t.chunk(n, dim=2)[i] for t in q_like),
+                *(t.chunk(n, dim=2)[i] for t in kv_like),
+                *(t.chunk(n, dim=1)[i] for t in lse_like))
+             for i in range(n)]
+    return tuple(torch.cat([p[j] for p in parts], dim=1 if p0.dim() == 3
+                           else 2)
+                 for j, p0 in enumerate(parts[0]))
 
 
 # phase 2: the forward's shapes. The first five are the original ones (S
@@ -800,6 +894,18 @@ FALCON40_TP2_ATTN = dict(hq=64, hkv=4, D=64)
 # a Mixtral tp2 rank (phase 7f); its ep2 rank's heads are the whole
 # model's (Hq 32 Hkv 8)
 MIXTRAL_TP2_ATTN = dict(hq=16, hkv=4, D=128)
+# phase 7g's context-parallel shapes (Llama-2-7B's heads, S 16384 over
+# two ranks): a zig-zag ring's stripe of c = 4096 against itself (delta
+# 0, the diagonal pair) and against a stripe wholly in its past (delta
+# c; every later delta is the same work), the all-gathered K/V's ranks,
+# 8192 queries at offset 0 and 8192 against all 16384 keys, and
+# Ulysses' rank, the whole sequence over half the heads
+CP_ATTN_CASES = [attn_case(CP_STRIPE),
+                 attn_case(Sq=CP_STRIPE, Skv=CP_STRIPE, delta=CP_STRIPE),
+                 attn_case(Sq=2 * CP_STRIPE, Skv=4 * CP_STRIPE,
+                           delta=2 * CP_STRIPE),
+                 attn_case(Sq=2 * CP_STRIPE, Skv=4 * CP_STRIPE),
+                 attn_case(4 * CP_STRIPE, **TP2_ATTN)]
 FWD_CASES = [attn_case(64), attn_case(512), attn_case(2047),
              attn_case(2047, hkv=8, window=256), attn_case(4096),
              attn_case(1), attn_case(127), attn_case(129), attn_case(1000),
@@ -811,7 +917,8 @@ FWD_CASES = [attn_case(64), attn_case(512), attn_case(2047),
              attn_case(8192, hkv=8), attn_case(2047, **TP2_ATTN),
              attn_case(2048, **FALCON40_TP2_ATTN),
              attn_case(4096, **MIXTRAL_TP2_ATTN), attn_case(4096, hkv=8),
-             attn_case(1024, **TP2_ATTN), attn_case(1024)]
+             attn_case(1024, **TP2_ATTN), attn_case(1024),
+             *CP_ATTN_CASES[1:]]
 
 
 def check_flash_fwd(torch, F, ft, card):
@@ -824,16 +931,18 @@ def check_flash_fwd(torch, F, ft, card):
         kw = mask_kw(c)
         o, lse = ft.flash_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
-        o_ref, lse_ref = ft.flash_fwd_reference(q.float(), k.float(),
-                                                v.float(), **kw)
+        o_ref, lse_ref = plain_by_heads(
+            torch, c, lambda q, k, v: ft.flash_fwd_reference(
+                q.float(), k.float(), v.float(), **kw), (q,), (k, v))
         err, ok = compare(torch, o, o_ref)
         lerr, lok = compare(torch, lse, lse_ref)
         del o_ref, lse_ref
         ms = cuda_ms(torch, lambda: ft.flash_fwd(q, k, v, **kw))
         device_ms = graph_ms(torch, lambda: ft.flash_fwd(q, k, v, **kw),
                              calls=5)
-        plain_ms = cuda_ms(torch, lambda: ft.flash_fwd_reference(q, k, v,
-                                                                 **kw))
+        plain_ms = cuda_ms(torch, lambda: plain_by_heads(
+            torch, c, lambda q, k, v: ft.flash_fwd_reference(q, k, v, **kw),
+            (q,), (k, v)))
         library_ms = cuda_ms(torch,
                              sdpa(F, q, k, v, **sdpa_mask_kw(torch, c)))
         B, D, hq, hkv = c["B"], c["D"], c["hq"], c["hkv"]
@@ -1112,7 +1221,8 @@ BWD_CASES = [attn_case(4096), attn_case(4096, hkv=8, window=256),
              attn_case(2048, **TP2_ATTN), attn_case(8192, hkv=8),
              attn_case(2048, **FALCON40_TP2_ATTN),
              attn_case(4096, **MIXTRAL_TP2_ATTN), attn_case(4096, hkv=8),
-             attn_case(1024, **TP2_ATTN), attn_case(1024)]
+             attn_case(1024, **TP2_ATTN), attn_case(1024),
+             *CP_ATTN_CASES[1:]]
 # the three original cases again, drawn from a second seed
 BWD_DRAW2_SEED = SEED + 13
 
@@ -1167,8 +1277,10 @@ def check_flash_bwd(torch, F, ft, card):
         dq = ft.flash_bwd_dq(q, k, v, do, lse, dsum, **kw)
         dk, dv = ft.flash_bwd_dkv(q, k, v, do, lse, dsum, **kw)
         torch.cuda.synchronize()
-        want = ft.flash_bwd_reference(q.float(), k.float(), v.float(), o,
-                                      lse, do, **kw)
+        want = plain_by_heads(
+            torch, c, lambda q, o, do, k, v, lse: ft.flash_bwd_reference(
+                q.float(), k.float(), v.float(), o, lse, do, **kw),
+            (q, o, do), (k, v), (lse,))
         scale_m = (max(float(w.float().abs().max()) for w in want)
                    if c["Sq"] == 1 else None)
         errs = {n: compare_rel(g, w, scale_m)
@@ -1192,8 +1304,10 @@ def check_flash_bwd(torch, F, ft, card):
                 q, k, v, do, lse, dsum, **kw), calls=5)}
         # the plain version of both kernels is one function (the CPU path
         # of both wrappers); it computes dq, dk and dv together
-        plain_ms = cuda_ms(torch, lambda: ft._bwd_plain(
-            q, k, v, do, lse, dsum, c["causal"], c["window"], c["delta"]))
+        plain_ms = cuda_ms(torch, lambda: plain_by_heads(
+            torch, c, lambda q, do, k, v, lse, dsum: ft._bwd_plain(
+                q, k, v, do, lse, dsum, c["causal"], c["window"],
+                c["delta"]), (q, do), (k, v), (lse, dsum)))
         lib = sdpa_backward(torch, F, q, k, v, do, **sdpa_mask_kw(torch, c))
         library_ms = cuda_ms(torch, lib)
         del lib
@@ -2829,6 +2943,152 @@ def step_vs_dense(torch, np, ft, card, model="llama2-7B", seq=TRAIN_SEQ,
         raise AssertionError(f"kernel step vs dense step ({model}): "
                              + "; ".join(problems))
     return line
+
+
+def _fp8_products(torch, card) -> list:
+    """Phase 4c(a): the product check; returns its problems."""
+    from megatron_tpu_torch.ops.fp8 import fp8_matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    M = TRAIN_MICRO * TRAIN_SEQ
+    problems = []
+    for site, (K, N) in FP8_PRODUCTS.items():
+        x = torch.randn(1, M, K, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        w = (torch.randn(K, N, generator=gen, device="cuda")
+             * 0.02).to(torch.bfloat16)
+        g = torch.randn(1, M, N, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        for fmt in ("hybrid", "e4m3"):
+            res = {}
+            for plain in (False, True):
+                xs = x.clone().requires_grad_(True)
+                ws = w.clone().requires_grad_(True)
+                out = fp8_matmul(xs, ws, fmt=fmt, plain=plain)
+                out.backward(g)
+                res[plain] = (out.detach(), xs.grad, ws.grad)
+            errs = {}
+            for name, a, b in zip(("out", "dx", "dw"), res[False],
+                                  res[True]):
+                m = float(b.float().abs().max())
+                errs[name] = (float((a.float() - b.float()).abs().max())
+                              / max(m, 1e-30))
+            del res
+            ms = cuda_ms(torch, lambda: fp8_matmul(x, w, fmt=fmt))
+            bf16_ms = cuda_ms(torch, lambda: torch.matmul(x, w))
+            line = {"phase": "fp8_product", "card": card, "site": site,
+                    "shape": f"[{M}, {K}] @ [{K}, {N}]", "format": fmt,
+                    "rel_err": errs, "tol": FP8_TOL,
+                    "fwd_ms": ms, "bf16_matmul_ms": bf16_ms,
+                    "fwd_tflops": 2.0 * M * K * N / ms / 1e9}
+            emit(line)
+            bad = {n: e for n, e in errs.items() if not e <= FP8_TOL}
+            if bad:
+                problems.append(f"{site} {fmt}: {bad}")
+        del x, w, g
+        free_cuda(torch)
+    return problems
+
+
+def _fp8_step_ms(torch, np) -> dict:
+    """One forward + backward of the width x FP8_LAYERS on one S
+    TRAIN_SEQ row, synchronized, per format (bf16, hybrid, e4m3) on the
+    same weights and batch: the median of FP8_TIMED runs after one
+    warm-up, in ms."""
+    import dataclasses
+
+    from megatron_tpu_torch.models import presets
+    from megatron_tpu_torch.models.language_model import lm_loss
+    from megatron_tpu_torch.models.params import init_params
+    from megatron_tpu_torch.training.optimizer import leaf_paths
+
+    cfg = dataclasses.replace(presets.from_model_name("llama2-7B"),
+                              num_layers=FP8_LAYERS, seq_length=TRAIN_SEQ,
+                              attention_impl="pallas")
+    params = init_params(cfg, SEED, device="cuda")
+    for _, p in leaf_paths(params):
+        p.requires_grad_(True)
+    rng = np.random.default_rng(SEED + 5)
+    text = torch.from_numpy(zipf_tokens(np, rng, TRAIN_SEQ + 1)
+                            .astype(np.int64)[None]).cuda()
+    batch = {"tokens": text[:, :-1], "labels": text[:, 1:]}
+    out = {}
+    for name in FP8_RUNS:
+        c = dataclasses.replace(cfg, fp8_format=None if name == "bf16"
+                                else name)
+        times = []
+        for i in range(FP8_TIMED + 1):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            loss, _ = lm_loss(c, params, batch, recompute="selective")
+            loss.backward()
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.monotonic() - t0) * 1e3)
+            for _, p in leaf_paths(params):
+                p.grad = None
+        out[name] = sorted(times)[len(times) // 2]
+    del params
+    free_cuda(torch)
+    return out
+
+
+def fp8_training(torch, np, ft, card):
+    """Phase 4c. Returns its runs' kernel launches (the fp8 path)."""
+    from megatron_tpu_torch.tools import pretrain_gpt
+
+    problems = _fp8_products(torch, card)
+    prefix = corpus_prefix()
+    if not os.path.exists(prefix + ".idx"):
+        write_corpus(np, prefix)
+    base = train_argv(prefix, layers=FP8_LAYERS, iters=FP8_STEPS,
+                      eval_interval=FP8_STEPS + 1)
+    total, runs = {}, {}
+    for name, flags in FP8_RUNS.items():
+        for n in TRAIN_COUNTED:
+            getattr(ft, n).launches = 0
+        t0 = time.monotonic()
+        loop = pretrain_gpt.main(base + flags, log=lambda m: None)
+        torch.cuda.synchronize()
+        launches = {n: getattr(ft, n).launches for n in TRAIN_COUNTED}
+        want = expected_train_launches(
+            TRAIN_GLOBAL // TRAIN_MICRO, layers=FP8_LAYERS, steps=FP8_STEPS,
+            eval_batches=len(loop.evals) * EVAL_ITERS)
+        if launches != want:
+            problems.append(f"{name} launches {launches} != {want}")
+        _add_counts(total, launches)
+        runs[name] = {"fp8_format": loop.cfg.model.fp8_format,
+                      "losses": [r["loss"] for r in loop.step_records],
+                      "window_s": [h["window_s"] for h in loop.history],
+                      "launches": launches,
+                      "wall_s": time.monotonic() - t0}
+        del loop
+        free_cuda(torch)
+    bf = runs["bf16"]["losses"]
+    for name in ("hybrid", "e4m3"):
+        got = runs[name]["losses"]
+        runs[name]["rel_to_bf16"] = [abs(a - b) / b for a, b in zip(got, bf)]
+        if runs[name]["fp8_format"] != name:
+            problems.append(f"{name}: ran fp8_format "
+                            f"{runs[name]['fp8_format']}")
+        if len(got) != FP8_STEPS or not all(map(math.isfinite, got)):
+            problems.append(f"{name}: losses {got}")
+        elif not got[-1] < got[0]:
+            problems.append(f"{name}: the loss did not fall: {got}")
+        if not max(runs[name]["rel_to_bf16"], default=math.inf) \
+                <= FP8_LOSS_RTOL:
+            problems.append(f"{name}: {got} vs bf16 {bf}")
+    step_ms = _fp8_step_ms(torch, np)
+    emit({"phase": "fp8_training", "card": card, "model": "llama2-7B",
+          "layers": FP8_LAYERS, "seq_length": TRAIN_SEQ,
+          "global_batch": TRAIN_GLOBAL, "steps": FP8_STEPS,
+          "loss_rtol": FP8_LOSS_RTOL, "runs": runs,
+          "fwd_bwd_ms_one_row": step_ms,
+          "fwd_bwd_ratio_to_bf16": {k: v / step_ms["bf16"]
+                                    for k, v in step_ms.items()}})
+    if problems:
+        raise AssertionError("fp8: " + "; ".join(problems))
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -4774,11 +5034,19 @@ def parallel_training(torch, np, ft, card):
                 "--profile_step_start", str(PAR_PROFILE[0]),
                 "--profile_step_end", str(PAR_PROFILE[1]),
                 "--profile_dir", os.path.join(tmp, case + "_trace")]))
-        # 7e(c)'s and 7f's one-process yardsticks, before the ranks take
-        # the card
+        # 7g's context-parallel runs, last in the launch
+        cp_base = train_argv(corpus_prefix(), layers=CP_LAYERS, seq=CP_SEQ,
+                             global_batch=1, iters=CP_STEPS,
+                             eval_interval=CP_STEPS)
+        for case, flags in CP_CASES.items():
+            plan.append((case, cp_base + flags
+                         + ["--distributed_backend", "gloo"]))
+        # 7e(c)'s, 7f's and 7g's one-process yardsticks, before the ranks
+        # take the card
         PARALLEL_LAUNCH["falcon_ref"] = _falcon_reference(torch)
         mixtral_refs = {d: _mixtral_par_reference(torch, pretrain_gpt, d)
                         for d in ("capacity", "dropless")}
+        cp_ref = _cp_reference(torch, pretrain_gpt, cp_base, card)
         # phases 7d and 7e run first in the same launch (rank_serve):
         # one launch's start and first steps are paid once
         recs = _launch(2, os.path.join(tmp, "gloo"),
@@ -4867,6 +5135,7 @@ def parallel_training(torch, np, ft, card):
             if comm is None:
                 problems.append(f"{case}: traces {r0['traces']}")
         problems += _mixtral_par_gates(card, by_run, mixtral_refs, total)
+        problems += _cp_gates(card, by_run, cp_ref)
         saved = _sharded_checkpoint(
             torch, np, ft, card, ckpt,
             {c: by_run[c + "/resumed"]
@@ -5028,7 +5297,8 @@ def _run_record(torch, ft, flags, rank, probe=None) -> dict:
         "mesh": (None if loop.mesh is None else
                  {"world": loop.mesh.world_size, "dp": loop.mesh.dp,
                   "ep": loop.mesh.ep, "pp": loop.mesh.pp,
-                  "vpp": loop.mesh.vpp, "tp": loop.mesh.tp})}
+                  "vpp": loop.mesh.vpp, "cp": loop.mesh.cp,
+                  "tp": loop.mesh.tp})}
     if probe is not None:
         record["probe"] = probe(loop)
     return record
@@ -5095,7 +5365,8 @@ def rank_serve(out: str, runs) -> int:
                 torch.cuda.empty_cache()
 
         t0 = time.monotonic()
-        cfg, params, _ = rts.load_model(args, mesh, log=lambda m: None)
+        cfg = tp_serve_cfg(dataclasses, presets)
+        params = init_params(cfg, args.seed, device=args.device, mesh=mesh)
         sync()
         record = {"rank": mesh.rank, "init_s": time.monotonic() - t0,
                   "tp": mesh.tp, "part_s": {}}
@@ -5243,7 +5514,8 @@ def rank_serve(out: str, runs) -> int:
         # pipelined forward
         pp_mesh = serving_mesh(1, 2)
         t1 = time.monotonic()
-        _, pparams, _ = rts.load_model(args, pp_mesh, log=lambda m: None)
+        pparams = init_params(cfg, args.seed, device=args.device,
+                              mesh=pp_mesh)
         sync()
         pipe = {"init_s": time.monotonic() - t1,
                 "layers_per_stage": cfg.num_layers // pp_mesh.pp}
@@ -5376,8 +5648,15 @@ def _pp_gates(torch, np, dataclasses, cfg, params, prompts, pipe,
             "share_within_2x_band": within}
 
 
+def tp_serve_cfg(dataclasses, presets):
+    """Phases 7d-7e(b)'s model: Llama-2-7B's width x TP_SERVE_LAYERS."""
+    return dataclasses.replace(presets.from_model_name("llama2-7B"),
+                               num_layers=TP_SERVE_LAYERS).validate()
+
+
 def tp_serve_argv():
-    """Phase 7d's server: Llama-2-7B at tp2 over gloo, 8 slots x 2048."""
+    """Phase 7d's server flags: Llama-2-7B at tp2 over gloo, 8 slots x
+    2048 (rank_serve builds tp_serve_cfg's cut of it)."""
     return ["--model_name", "llama2-7B", "--seed", str(SEED),
             "--tensor_model_parallel_size", "2",
             "--distributed_backend", "gloo",
@@ -5604,11 +5883,94 @@ def _mixtral_par_gates(card, by_run, refs, total) -> list:
 # phase 7's two-rank launch, which phases 7d and 7e share: the ranks'
 # records and 7e(c)'s one-process run
 PARALLEL_LAUNCH: dict = {}
+# phase 7g's kernel launches, summed over its runs' ranks (the context-
+# parallel path of the result line)
+PARALLEL_CP: dict = {}
 
 
-def parallel_serving(torch, np, ft, card, dense_tokens):
+def _cp_reference(torch, pretrain_gpt, argv, card) -> dict:
+    """7g's one-process run (--attention_impl pallas) at S CP_SEQ."""
+    t0 = time.monotonic()
+    ref = pretrain_gpt.main(list(argv), log=lambda m: None)
+    torch.cuda.synchronize()
+    want = {"losses": [r["loss"] for r in ref.step_records],
+            "grad_norms": [h["grad_norm"] for h in ref.history],
+            "evals": [e["lm_loss"] for e in ref.evals],
+            "step_s": [r["step_s"] for r in ref.step_records],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "wall_s": time.monotonic() - t0}
+    del ref
+    free_cuda(torch)
+    emit({"phase": "parallel_cp_reference", "card": card,
+          "model": "llama2-7B", "layers": CP_LAYERS, "seq_length": CP_SEQ,
+          **want})
+    return want
+
+
+def _cp_gates(card, by_run, want) -> list:
+    """7g's cases against the one-process run: losses, grad norms and
+    the validation loss within phase 7's gates, the ranks in agreement,
+    and each rank's launches equal to the schedule's: the ring runs 2cp
+    + 1 = 5 stripe pairs a layer and pass (B1 forward, B2 and B3
+    backward), the gathered K/V and Ulysses one launch each."""
+    problems = []
+    PARALLEL_CP.clear()
+    for case in CP_CASES:
+        recs = by_run[case]
+        r0 = recs[0]
+        pairs = 2 * 2 + 1 if case.endswith("ring") else 1
+        want_launch = {k: n * pairs for k, n in expected_train_launches(
+            1, layers=CP_LAYERS, steps=CP_STEPS,
+            eval_batches=len(r0["evals"]) * EVAL_ITERS).items()}
+        for rec in recs:
+            _add_counts(PARALLEL_CP, rec["launches"])
+            if rec["launches"] != want_launch:
+                problems.append(f"{case} rank {rec['rank']} launches "
+                                f"{rec['launches']} != {want_launch}")
+        loss_err = max((abs(a - b) for a, b in
+                        zip(r0["losses"], want["losses"])), default=math.inf)
+        norm_err = max((abs(a - b) / abs(b) for a, b in
+                        zip(r0["grad_norms"], want["grad_norms"])),
+                       default=math.inf)
+        eval_err = max((abs(a - b) for a, b in
+                        zip(r0["evals"], want["evals"])), default=math.inf)
+        line = {"phase": "parallel_cp", "card": card, "case": case,
+                "backend": "gloo (CUDA tensors staged through host memory; "
+                           "not NCCL numbers)",
+                "mesh": r0["mesh"], "seq_length": r0["seq_length"],
+                "losses": r0["losses"], "grad_norms": r0["grad_norms"],
+                "evals": r0["evals"], "reference": want,
+                "ranks_agree": all(
+                    (r["losses"], r["grad_norms"], r["evals"])
+                    == (r0["losses"], r0["grad_norms"], r0["evals"])
+                    for r in recs),
+                "loss_err": loss_err, "loss_atol": PAR_LOSS_ATOL,
+                "grad_norm_rel_err": norm_err,
+                "grad_norm_rtol": PAR_NORM_RTOL, "eval_err": eval_err,
+                "launches_by_rank": [r["launches"] for r in recs],
+                "launches_per_rank_expected": want_launch,
+                "step_s": r0["step_s"],
+                "peak_gib_per_rank": [r["peak_gib"] for r in recs],
+                "wall_s": r0["wall_s"]}
+        emit(line)
+        if not line["ranks_agree"]:
+            problems.append(f"{case}: ranks disagree")
+        if len(r0["losses"]) != CP_STEPS or not all(
+                map(math.isfinite, r0["losses"])):
+            problems.append(f"{case}: losses {r0['losses']}")
+        if not loss_err <= PAR_LOSS_ATOL:
+            problems.append(f"{case}: loss off by {loss_err}")
+        if not norm_err <= PAR_NORM_RTOL:
+            problems.append(f"{case}: grad norm off by {norm_err}")
+        if not eval_err <= PAR_LOSS_ATOL:
+            problems.append(f"{case}: validation loss off by {eval_err}")
+    return problems
+
+
+def parallel_serving(torch, np, ft, card):
     """Phases 7d and 7e, the serving parts of phase 7's launch of two
-    gloo ranks sharing the card (rank_serve). 7d: Llama-2-7B at full width and depth served at tp2,
+    gloo ranks sharing the card (rank_serve). 7d: Llama-2-7B's width x
+    TP_SERVE_LAYERS served at tp2,
     phase 3's tokens of the tp2 engine and the one-shot request held
     against the one-process plain path by phase 3's teacher-forced gate.
     7e: the paged engine at tp2 (the same gate; B5 launches = layers x
@@ -5630,7 +5992,7 @@ def parallel_serving(torch, np, ft, card, dense_tokens):
     recs, ref_rec = PARALLEL_LAUNCH["recs"], PARALLEL_LAUNCH["falcon_ref"]
     problems = []
     r0 = recs[0]
-    L = NUM_LAYERS
+    L = TP_SERVE_LAYERS
     want = {"flash_fwd": L * r0["prefills"], "flash_decode": L * r0["ticks"],
             "paged_flash_decode": 0}
     zero = {k: 0 for k in want}
@@ -5650,7 +6012,7 @@ def parallel_serving(torch, np, ft, card, dense_tokens):
         problems.append("paged tp2: no preemption under the 147-page pool")
     if pg["stats"]["prefix_hits"] < 1:
         problems.append("paged tp2: no prefix hit")
-    cfg = presets.from_model_name("llama2-7B")
+    cfg = tp_serve_cfg(dataclasses, presets)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size - 1, size=n).tolist()
                for n in PROMPT_LENS]
@@ -5677,11 +6039,6 @@ def parallel_serving(torch, np, ft, card, dense_tokens):
                               fs["generated"])
     del fparams
     free_cuda(torch)
-    same = None
-    if dense_tokens:
-        pairs = [(a, b) for g, d in zip(r0["generated"], dense_tokens)
-                 for a, b in zip(g, d)]
-        same = sum(a == b for a, b in pairs) / len(pairs)
     gloo = ("gloo (CUDA tensors staged through host memory; not NCCL "
             "numbers)")
     emit({"phase": "parallel_serving", "card": card,
@@ -5700,7 +6057,6 @@ def parallel_serving(torch, np, ft, card, dense_tokens):
           "launches_per_rank": [r["launches"] for r in recs],
           "tick_launches_per_rank": [r["tick_launches"] for r in recs],
           "peak_gib_per_rank": [r["peak_gib"] for r in recs],
-          "tokens_equal_to_phase3_engine": same,
           "part_s": r0["part_s"], "wall_s": r0["launch_wall_s"], **tf})
     if tf["teacher_forced_match"] < MATCH_GATE:
         problems.append(f"tp2 teacher-forced match "
@@ -6029,13 +6385,13 @@ def main(argv=()) -> int:
           results.get("serving", {}).get("generated"))
     phase("training", train, torch, np, ft, card)
     phase("kernel_vs_dense_step", step_vs_dense, torch, np, ft, card)
+    phase("fp8_training", fp8_training, torch, np, ft, card)
     phase("finetune", finetune, torch, np, ft, card)
     phase("families", families, torch, np, ft, card)
     phase("mixtral", mixtral, torch, np, ft, card)
     phase("loop", loop_and_data, torch, np, ft, card)
     phase("parallel", parallel_training, torch, np, ft, card)
-    phase("parallel_serving", parallel_serving, torch, np, ft, card,
-          results.get("serving", {}).get("generated"))
+    phase("parallel_serving", parallel_serving, torch, np, ft, card)
     emit({"phase": "seconds_by_phase", "seconds": seconds,
           "total_s": time.monotonic() - t_start,
           "build_s": t_start - t0})
@@ -6053,11 +6409,13 @@ def main(argv=()) -> int:
              "serving_control": results["serving_control"],
              "weight_quant": results["weight_quant"],
              "training": results["training"],
+             "fp8_training": results["fp8_training"],
              "finetune": results["finetune"],
              "families": results["families"],
              "mixtral": results["mixtral"],
              "loop": results["loop"],
              "parallel": results["parallel"],
+             "context_parallel": PARALLEL_CP,
              "parallel_serving": results["parallel_serving"]}
     reports = {"flash_fwd": results["flash_fwd"],
                "flash_decode": results["flash_decode"],

@@ -16,10 +16,15 @@ flags (--coordination_dir, --peer_death_timeout_s) are not ported, and
 The distributed flags are the JAX CLI's (--tensor_model_parallel_size,
 --pipeline_model_parallel_size, --num_layers_per_virtual_pipeline_stage
 mapped to virtual_pipeline_parallel as there, --sequence_parallel,
---use_distributed_optimizer, --expert_model_parallel_size);
---context_parallel_size above 1 is refused (ROADMAP.md item 10), and
-the process group comes from torch.distributed.run's environment
-(parallel/distributed.py). The MoE flags (--num_experts,
+--use_distributed_optimizer, --expert_model_parallel_size,
+--context_parallel_size with --attention_impl xla or pallas for the
+all-gathered K/V, ring or ulysses for the explicit schemes), and the
+process group comes from torch.distributed.run's environment
+(parallel/distributed.py). A sequence that does not split evenly over
+the context ranks is refused here (the JAX package warns and runs its
+dense path). The fp8 flags (--fp8_e4m3, --fp8_hybrid, --fp8_margin,
+--no_fp8_wgrad) are the JAX CLI's, with its mapping and its
+mutual-exclusion error. The MoE flags (--num_experts,
 --moe_top_k, --moe_capacity_factor, --moe_aux_loss_coeff,
 --moe_z_loss_coeff, --moe_group_size, --moe_dispatch,
 --moe_ep_buffer_factor, --[no_]moe_renorm_gates) are the JAX CLI's: only
@@ -57,7 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override the preset's depth")
     g.add_argument("--seq_length", type=int, default=2048)
     g.add_argument("--attention_impl", default="xla",
-                   choices=["xla", "pallas"])
+                   choices=["xla", "pallas", "ring", "ulysses"])
     g.add_argument("--no_flash_bwd", dest="flash_bwd", action="store_false",
                    help="escape hatch: dense O(S^2) attention and its "
                         "autograd gradient on the training path (loudly "
@@ -148,6 +153,18 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--bf16", action="store_true")
     g.add_argument("--fp16", action="store_true")
     g.add_argument("--fp32", action="store_true")
+    g.add_argument("--fp8_e4m3", action="store_true",
+                   help="fp8 training products, everything e4m3 "
+                        "(TransformerEngine Format.E4M3)")
+    g.add_argument("--fp8_hybrid", action="store_true",
+                   help="fp8 training products, e4m3 forward / e5m2 "
+                        "gradients (TransformerEngine Format.HYBRID)")
+    # None: not passed, the preset's value stands
+    g.add_argument("--fp8_margin", type=int, default=None,
+                   help="back the quantization scales off by 2^-margin")
+    g.add_argument("--no_fp8_wgrad", action="store_false", dest="fp8_wgrad",
+                   default=None,
+                   help="run the weight-gradient product in fp32")
 
     g = p.add_argument_group("validation and logging")
     g.add_argument("--eval_interval", type=int, default=1000)
@@ -313,8 +330,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="MoE expert-parallel degree (dedicated mesh axis; "
                         "E %% ep == 0, dp unconstrained)")
     g.add_argument("--context_parallel_size", type=int, default=1,
-                   help="refused above 1: ring attention is not ported "
-                        "(ROADMAP.md item 10)")
+                   help="shard the sequence over this many ranks; "
+                        "--attention_impl picks the scheme (xla/pallas: "
+                        "all-gathered K/V; ring; ulysses)")
     g.add_argument("--num_layers_per_virtual_pipeline_stage", type=int,
                    default=None,
                    help="enables the interleaved schedule "
@@ -392,6 +410,23 @@ def _moe_overrides(args) -> dict:
             if getattr(args, name, None) is not None}
 
 
+def _fp8_overrides(args) -> dict:
+    """--fp8_e4m3 / --fp8_hybrid (mutually exclusive) -> fp8_format, and
+    --fp8_margin / --no_fp8_wgrad when passed (the JAX CLI's
+    _fp8_overrides)."""
+    if getattr(args, "fp8_e4m3", False) and getattr(args, "fp8_hybrid",
+                                                     False):
+        raise ValueError("cannot train with both fp8 e4m3 and hybrid "
+                         "formatting (pick --fp8_e4m3 or --fp8_hybrid)")
+    out = {name: getattr(args, name) for name in ("fp8_margin", "fp8_wgrad")
+           if getattr(args, name, None) is not None}
+    if getattr(args, "fp8_e4m3", False):
+        out["fp8_format"] = "e4m3"
+    elif getattr(args, "fp8_hybrid", False):
+        out["fp8_format"] = "hybrid"
+    return out
+
+
 def recompute_policy(args) -> str:
     """--recompute_granularity, with --recompute_method and
     --recompute_num_layers folded in as the JAX CLI folds them: "block:N"
@@ -428,12 +463,16 @@ def args_to_run_config(args) -> RunConfig:
         if getattr(args, flag) is not None:
             overrides[field] = getattr(args, flag)
     overrides.update(_moe_overrides(args))
+    overrides.update(_fp8_overrides(args))
     model = ModelConfig(**{**model.__dict__, **overrides}).validate()
 
-    if args.context_parallel_size > 1:
+    cp = args.context_parallel_size
+    if cp > 1 and model.seq_length % cp:
+        # the JAX package warns and runs its dense path; here no rank can
+        # hold an uneven piece of the sequence
         raise ValueError(
-            "--context_parallel_size > 1: ring/Ulysses context parallelism "
-            "is not ported yet (ROADMAP.md queue A item 10)")
+            f"--context_parallel_size {cp} must divide the sequence "
+            f"length {model.seq_length}")
     vpp = None
     per_stage = args.num_layers_per_virtual_pipeline_stage
     if per_stage:

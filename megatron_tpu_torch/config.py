@@ -22,8 +22,13 @@ ACTIVATION_TYPES = ("gelu", "gelu_tanh", "geglu", "swiglu", "reglu", "liglu",
 GLU_ACTIVATIONS = ("geglu", "swiglu", "reglu", "liglu")
 ATTN_MASK_TYPES = ("causal", "bidirectional", "padding")
 # "pallas" keeps the JAX package's name for the kernel route: on CUDA
-# tensors it selects the hand-written Hopper kernels (ops/flash/)
-ATTENTION_IMPLS = ("xla", "pallas")
+# tensors it selects the hand-written Hopper kernels (ops/flash/);
+# "ring" and "ulysses" are the explicit context-parallel schemes
+# (ops/ring_attention.py, ops/ulysses.py)
+ATTENTION_IMPLS = ("xla", "pallas", "ring", "ulysses")
+# fp8 training products (ops/fp8.py): e4m3 throughout, or e4m3 forward
+# and e5m2 gradients
+FP8_FORMATS = (None, "e4m3", "hybrid")
 # per-layer policies; "block:N" (fully recompute the first N layers) and
 # "uniform:N" (checkpoint every N-layer chunk) are parsed by
 # parse_recompute
@@ -131,6 +136,11 @@ class ModelConfig:
     attention_dropout: float = 0.0
 
     params_dtype: str = "bfloat16"
+    # fp8 training products (ops/fp8.py, TransformerEngine's formats with
+    # current scaling): None | "e4m3" | "hybrid"
+    fp8_format: Optional[str] = None
+    fp8_margin: int = 0          # --fp8_margin: scale back-off 2^-m
+    fp8_wgrad: bool = True       # --no_fp8_wgrad: fp32 weight gradient
     softmax_fp32: bool = True
     attn_mask_type: str = "causal"
 
@@ -182,6 +192,10 @@ class ModelConfig:
             raise ValueError(f"bad attn_mask_type {self.attn_mask_type}")
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"bad attention_impl {self.attention_impl}")
+        if self.fp8_format not in FP8_FORMATS:
+            raise ValueError(
+                f"fp8_format={self.fp8_format!r} must be None, 'e4m3' or "
+                "'hybrid' (--fp8_e4m3 / --fp8_hybrid)")
         _resolve_dtype(self.params_dtype)
         if self.use_post_ln and self.parallel_attn:
             raise ValueError("use_post_ln is incompatible with parallel_attn")
@@ -471,15 +485,14 @@ class ParallelConfig:
     (megatron/core/parallel_state.py:51-199). Rank layout is
     ("data", "expert", "pipe", "context", "tensor") with tensor the
     fastest-varying, the reference's TP-innermost-contiguous layout
-    (parallel/mesh.py). The port runs data, expert, pipe and tensor
-    parallelism (with sequence parallelism and the interleaved
-    schedule); context_parallel > 1 is refused by the entry points until
-    ring attention is ported (ROADMAP.md item 10).
+    (parallel/mesh.py). The port trains every axis: data, expert, pipe,
+    context (all-gathered K/V, the ring or Ulysses, by attention_impl)
+    and tensor, with sequence parallelism and the interleaved schedule.
     """
 
     tensor_parallel: int = 1
     pipeline_parallel: int = 1
-    # context/sequence-dimension sharding with ring attention
+    # context/sequence-dimension sharding (ops/attention.py's dispatch)
     context_parallel: int = 1
     # expert parallelism: a sub-axis of data parallelism that MoE expert
     # weights shard over

@@ -14,10 +14,10 @@
 // version: ops/flash/flash_template.py flash_bwd_reference.
 //
 // What bounds it: at Llama-2-7B widths (H=32, D=128, S=4096 causal) it is
-// operation-bound: 4 products of 2·D FLOPs per visible (q, k) pair (8·D)
-// against ~2·D bytes per row of each operand. So every product is a
-// wgmma with its accumulator in registers, and the Q/dO tiles stream in by
-// TMA while the tensor cores work.
+// operation-bound: 4 products of 2·D FLOPs per visible (q, k) pair (8·D;
+// 5 with the split of dSᵀ below) against ~2·D bytes per row of each
+// operand. So every product is a wgmma with its accumulator in registers,
+// and the Q/dO tiles stream in by TMA while the tensor cores work.
 //
 // Design, against the TPU kernel:
 //  * Pallas ran a sequential grid axis carrying dk/dv in VMEM scratch.
@@ -44,8 +44,13 @@
 //    is deterministic.
 //  * The TPU kernel pre-scaled q in fp32 before its dk product; here q
 //    stays bf16 for the tensor cores and the scale multiplies the fp32 dK
-//    accumulator at the end. pᵀ and dsᵀ are rounded to bf16 for the
-//    tensor-core products (the TPU kernel keeps them fp32).
+//    accumulator at the end. pᵀ is rounded to bf16 for the tensor-core
+//    product (the TPU kernel keeps it fp32). dSᵀ is split into a bf16 high
+//    part and the bf16 rounding of what is left, and both go through the
+//    tensor cores against the same Q tile, as in the dq kernel: one bf16
+//    rounding of ds summed over 16384 queries left dk outside the JAX
+//    package's backward gate (margin 1.42 at S 16384, 16 heads); the
+//    split cuts the rounding to about 2^-17 for a fifth product per tile.
 //  * q/k/v/do/dk/dv in the framework layout [B, S, H, D] through strides
 //    (4-d tensor maps {D, H, S, B}); lse and dsum as plain [B, Hq, Sq]
 //    fp32. Any S >= 1: TMA fills rows past Sq/Skv with zeros, the mask
@@ -89,6 +94,10 @@ struct DkvSmem {
   static constexpr uint32_t bar_off = stat_off + STAGES * stat_bytes;
   static constexpr uint32_t total = bar_off + 8 * (1 + 2 * STAGES) + 1024;
 };
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -221,13 +230,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       sm90::fence_regs(dpt);
 
       // Pᵀ and dSᵀ as the A operands of the gradient products: k step kk
-      // covers q columns [16 kk, +16)
+      // covers q columns [16 kk, +16); sa is dSᵀ rounded to bf16, sl the
+      // rounding of the rest
       const float* stat = reinterpret_cast<const float*>(
           sbase + L::stat_off + s * L::stat_bytes);
       const bool full_tile =
           mtt::tile_class(q0, BQ, k0, BK, Sq, Skv, is_causal, window,
                           delta) == mtt::TILE_FULL;
-      uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
+      uint32_t pa[BQ / 16][4], sa[BQ / 16][4], sl[BQ / 16][4];
 #pragma unroll
       for (int j = 0; j < BQ / 8; ++j) {
         const int c = 8 * j + c0;
@@ -247,8 +257,14 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
         pa[j / 2][2 * (j % 2)] = sm90::pack_bf16(p[0], p[1]);
         pa[j / 2][2 * (j % 2) + 1] = sm90::pack_bf16(p[2], p[3]);
-        sa[j / 2][2 * (j % 2)] = sm90::pack_bf16(d[0], d[1]);
-        sa[j / 2][2 * (j % 2) + 1] = sm90::pack_bf16(d[2], d[3]);
+        const uint32_t h01 = sm90::pack_bf16(d[0], d[1]);
+        const uint32_t h23 = sm90::pack_bf16(d[2], d[3]);
+        sa[j / 2][2 * (j % 2)] = h01;
+        sa[j / 2][2 * (j % 2) + 1] = h23;
+        const float2 f01 = unpack_bf16(h01), f23 = unpack_bf16(h23);
+        sl[j / 2][2 * (j % 2)] = sm90::pack_bf16(d[0] - f01.x, d[1] - f01.y);
+        sl[j / 2][2 * (j % 2) + 1] =
+            sm90::pack_bf16(d[2] - f23.x, d[3] - f23.y);
       }
 
       // dV += Pᵀ dO and dK += dSᵀ Q: k = BQ in steps of 16 q rows
@@ -260,6 +276,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
         sm90::Wgmma<D>::rs(dka, sa[kk],
+                           sm90::desc_mnmajor(q_s + kk * 16 * 128, BQ * 128));
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        sm90::Wgmma<D>::rs(dka, sl[kk],
                            sm90::desc_mnmajor(q_s + kk * 16 * 128, BQ * 128));
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();

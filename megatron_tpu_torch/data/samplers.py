@@ -197,7 +197,9 @@ def rank_rows(batches: Iterator[Dict[str, np.ndarray]], mesh,
     of micro_batch x dp. The sampler keeps drawing whole global batches,
     so the data order is the single-process order at any topology, and
     every rank of one data replica (its tensor and pipe ranks) gets the
-    same rows."""
+    same rows. Under context parallelism every context rank of a
+    replica gets them too and keeps its contiguous piece of the sequence
+    (context_piece)."""
     from megatron_tpu_torch.parallel.distributed import host_batch_slice
 
     step = micro_batch * mesh.dp
@@ -209,4 +211,25 @@ def rank_rows(batches: Iterator[Dict[str, np.ndarray]], mesh,
                              f"microbatches of {micro_batch} x dp {mesh.dp}")
         idx = np.concatenate([np.arange(s + lo, s + hi)
                               for s in range(0, n, step)])
-        yield {k: v[idx] for k, v in batch.items()}
+        yield context_piece({k: v[idx] for k, v in batch.items()}, mesh)
+
+
+def context_piece(batch: Dict[str, np.ndarray], mesh
+                  ) -> Dict[str, np.ndarray]:
+    """This context rank's contiguous piece [:, c*S/cp : (c+1)*S/cp] of
+    every [rows, S] leaf (tokens, labels, loss_mask, position_ids); the
+    batch itself at cp 1. The JAX residual stream shards the sequence
+    over ("context", "tensor"), context outer, so under sequence
+    parallelism tensor rank t then holds sub-piece t of this piece:
+    global piece c * tp + t."""
+    cp = mesh.cp if mesh is not None else 1
+    if cp == 1:
+        return batch
+    c, out = mesh.cp_rank, {}
+    for k, v in batch.items():
+        s = v.shape[1]
+        if s % cp:
+            raise ValueError(f"{k}: a sequence of {s} does not split over "
+                             f"{cp} context ranks")
+        out[k] = v[:, c * s // cp:(c + 1) * s // cp]
+    return out

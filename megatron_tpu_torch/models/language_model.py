@@ -37,6 +37,13 @@ parallelism) runs the same layers over caches of this rank's kv heads
 [L, B, Smax, nkv/tp, D] and gathers the logits over the tensor group to
 [B, S, V] before anyone samples from them.
 
+Context parallelism (mesh.cp > 1, training): tokens, labels, the loss
+mask and position ids are this rank's contiguous piece of the sequence
+(data/samplers.rank_rows); positions are global, so a piece without
+position ids starts at cp_rank * S/cp; the loss a rank backpropagates is
+its tokens' sum over the token count of the whole sequence (loss_mean),
+whose sum over the context group is the one-sequence mean.
+
 A MoE model's layers each return a router aux loss; lm_loss adds their
 sum to the CE (return_moe_aux on lm_forward gives it to other callers).
 A weight-quantized serving tree (ops/weight_quant.py) embeds through
@@ -61,7 +68,7 @@ from megatron_tpu_torch.ops.normalization import norm_forward
 from megatron_tpu_torch.ops.rotary import precompute_rope
 from megatron_tpu_torch.ops.weight_quant import deq, take_rows
 from megatron_tpu_torch.parallel.mappings import (
-    all_gather, enter_tp, exit_tp, sp_slice,
+    all_gather, all_reduce, enter_tp, exit_tp, sp_slice,
 )
 
 
@@ -70,6 +77,30 @@ def _layers(tree: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
     per_leaf = {k: (_layers(v, n) if isinstance(v, dict) else v.unbind(0))
                 for k, v in tree.items()}
     return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
+
+
+def context_positions(tokens: torch.Tensor, positions, mesh):
+    """The positions of a training pass: the given ones, or under
+    context parallelism this rank's piece's global positions
+    [1, S/cp]; None otherwise (0 .. S-1)."""
+    if positions is not None or mesh is None or mesh.cp == 1:
+        return positions
+    s = tokens.shape[1]
+    return (mesh.cp_rank * s + torch.arange(s, device=tokens.device))[None]
+
+
+def loss_mean(per_token: torch.Tensor, loss_mask: Optional[torch.Tensor],
+              mesh) -> torch.Tensor:
+    """The masked mean of a microbatch's per-token losses. Under context
+    parallelism a rank's share: its masked sum over the mask's count
+    summed over the context group (the sum of the shares over the group
+    is the mean over the whole sequence)."""
+    m = (loss_mask.float() if loss_mask is not None
+         else torch.ones_like(per_token))
+    count = m.sum()
+    if mesh is not None and mesh.cp > 1:
+        count = all_reduce(count.detach(), mesh.group("context"))
+    return (per_token * m).sum() / count.clamp_min(1.0)
 
 
 def embed_tokens(cfg: ModelConfig, params: Dict[str, Any],
@@ -187,6 +218,8 @@ def lm_forward(
                          + steps[None, :])
         else:
             positions = int(cache_index) + steps[None, :]
+    elif kv_caches is None:
+        positions = context_positions(tokens, positions, mesh)
 
     x = embed_tokens(cfg, params, tokens, positions, mesh=mesh)
 
@@ -343,7 +376,12 @@ def lm_loss(cfg: ModelConfig, params: Dict[str, Any],
                      return_moe_aux=moe)
     out, moe_aux = out if moe else (out, None)
     loss_mask = batch.get("loss_mask")
-    if chunked:
+    if mesh is not None and mesh.cp > 1:
+        per_token = (chunked_lm_loss_tokens(cfg, params, out,
+                                            batch["labels"], mesh)
+                     if chunked else _ce(out, batch["labels"], mesh)[1])
+        mean = loss_mean(per_token, loss_mask, mesh)
+    elif chunked:
         per_token = chunked_lm_loss_tokens(cfg, params, out,
                                            batch["labels"], mesh)
         if loss_mask is not None:

@@ -237,6 +237,26 @@ def check_mesh(cfg: ModelConfig, mesh) -> None:
     if cfg.num_layers % (pp * V):
         raise ValueError(f"num_layers={cfg.num_layers} not divisible by "
                          f"stages*chunks {pp}*{V}")
+    cp = mesh.cp
+    if cp > 1:
+        if E is not None:
+            raise ValueError(
+                f"context_parallel={cp} with a MoE model: the router's "
+                "statistics and capacity groups over a split sequence are "
+                "not ported (ROADMAP.md)")
+        if cfg.seq_length % cp:
+            raise ValueError(f"context_parallel={cp} must divide "
+                             f"seq_length ({cfg.seq_length})")
+        if mesh.sequence_parallel and (cfg.seq_length // cp) % tp:
+            raise ValueError(
+                f"sequence parallelism under context_parallel={cp} needs "
+                f"seq_length/cp ({cfg.seq_length // cp}) divisible by "
+                f"tp={tp}")
+        if cfg.attention_impl == "ulysses":
+            from megatron_tpu_torch.ops.ulysses import check_heads
+
+            check_heads(cfg.num_attention_heads // tp,
+                        cfg.n_kv_heads // tp, cp)
 
 
 def shard_params(flat: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -289,6 +309,8 @@ def leaf_layout(cfg: ModelConfig, mesh, zero1: bool
             owner = False
         if AXIS_TENSOR not in spec_axes(spec) and mesh.tp_rank != 0:
             owner = False
+        if mesh.cp_rank != 0:
+            owner = False             # replicated over the context ranks
         if path == "embed/tokens" and mesh.pp > 1 and not \
                 mesh.is_first_stage:
             owner = False             # the tied copy on the last stage

@@ -32,8 +32,13 @@ A MoE model's FFN is ops/moe.moe_block over the layer's moe subtree
 MLP's are; expert parallelism inside it), and block_forward returns the layer's router aux loss beside its output
 (a zero for dense models), as the JAX block does. Weight-quantized
 serving trees (ops/weight_quant.py) reach the products through deq: one
-layer's leaf dequantized at its use. fp8 training products, dropout and
-context parallelism are not ported yet.
+layer's leaf dequantized at its use. With cfg.fp8_format the block's
+projections (wq, wk, wv, wo, w_in, w_out; not the MoE experts, as in
+the JAX package) go through ops/fp8.maybe_fp8_matmul, their amax agreed
+over the ranks that shard each operand. Under context parallelism
+(mesh.cp > 1) x is this rank's piece of the sequence and the core
+attention gets the mesh (ops/attention.py's context-parallel dispatch);
+positions are global. Dropout is not ported.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.ops.activations import apply_activation
 from megatron_tpu_torch.ops.attention import attention
+from megatron_tpu_torch.ops.fp8 import maybe_fp8_matmul
 from megatron_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
 from megatron_tpu_torch.ops.moe import moe_block
 from megatron_tpu_torch.ops.normalization import norm_forward
@@ -115,9 +121,9 @@ def attention_block(
     if mesh is not None:
         nq, nkv = nq // mesh.tp, nkv // mesh.tp
 
-    q = torch.matmul(x, deq(p["wq"], x.dtype))
-    k = torch.matmul(x, deq(p["wk"], x.dtype))
-    v = torch.matmul(x, deq(p["wv"], x.dtype))
+    q = maybe_fp8_matmul(cfg, x, deq(p["wq"], x.dtype), mesh)
+    k = maybe_fp8_matmul(cfg, x, deq(p["wk"], x.dtype), mesh)
+    v = maybe_fp8_matmul(cfg, x, deq(p["wv"], x.dtype), mesh)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, nq, D)
@@ -226,24 +232,27 @@ def attention_block(
         kv_lengths=kv_lengths,
         flash_bwd=cfg.flash_bwd,
         page_table=page_table,
+        context=mesh if mesh is not None and mesh.cp > 1 else None,
     )
     if recompute_core and torch.is_grad_enabled():
         ctx = checkpoint(core, q, k, v, use_reentrant=False)
     else:
         ctx = core(q, k, v)
     ctx = ctx.reshape(b, s, nq * D)
-    return torch.matmul(ctx, deq(p["wo"], ctx.dtype)), kv_cache
+    return maybe_fp8_matmul(cfg, ctx, deq(p["wo"], ctx.dtype),
+                            mesh), kv_cache
 
 
 def mlp_block(cfg: ModelConfig, p: Dict[str, Any],
               x: torch.Tensor, mesh=None) -> torch.Tensor:
     """The MLP's row-parallel partial sums, without its bias "b_out"
     (as attention_block's out)."""
-    h = torch.matmul(enter_tp(x, mesh), deq(p["w_in"], x.dtype))
+    h = maybe_fp8_matmul(cfg, enter_tp(x, mesh), deq(p["w_in"], x.dtype),
+                         mesh)
     if "b_in" in p:
         h = h + p["b_in"]
     h = apply_activation(cfg.activation, h)
-    return torch.matmul(h, deq(p["w_out"], h.dtype))
+    return maybe_fp8_matmul(cfg, h, deq(p["w_out"], h.dtype), mesh)
 
 
 def _row_out(partial: torch.Tensor, mesh, *biases) -> torch.Tensor:

@@ -23,6 +23,21 @@ O(S^2) attention and its autograd gradient on the training path. A
 kernel that is asked for and cannot take a CUDA tensor raises instead
 of falling back (the JAX package warns and falls back there).
 
+Context parallelism (a MeshRuntime with cp > 1 as `context`; training's
+full-sequence passes): q, k and v are this rank's contiguous piece of
+the sequence [B, S/cp, H, D], and the result is the piece's attention
+over the whole sequence:
+  * "xla" / "pallas": k and v all-gathered over the context group
+    (parallel/mappings.gather_context, whose backward reduce-scatters
+    their gradients; what GSPMD does for the JAX package), the queries at
+    offset c * S/cp: the dense path with that q_offset, or under
+    "pallas" the flash kernels at delta = c * S/cp, Sq = S/cp, Skv = S;
+  * "ring": ops/ring_attention.py (zig-zag or contiguous);
+  * "ulysses": ops/ulysses.py (the all-to-alls around flash_mha).
+Padding masks and dropout have no context-parallel path and raise. At
+cp 1, "ring" and "ulysses" are the "pallas" route, as the JAX package's
+rings and Ulysses run one hop of its kernels there.
+
 Layout is [batch, seq, heads, head_dim] throughout.
 """
 
@@ -35,6 +50,7 @@ from typing import Optional
 import torch
 
 from megatron_tpu_torch.ops.flash import flash_template
+from megatron_tpu_torch.parallel.mappings import gather_context
 
 
 def _mask_allowed(q_len: int, kv_len: int, mask_type: str,
@@ -68,6 +84,7 @@ def attention(
     kv_lengths: Optional[torch.Tensor] = None,  # [B] valid-prefix lengths
     flash_bwd: bool = True,
     page_table: Optional[torch.Tensor] = None,  # [B, max_pages] int32
+    context=None,
 ) -> torch.Tensor:
     """Scaled dot-product attention with GQA. Returns [B, Sq, Hq, D].
 
@@ -84,7 +101,34 @@ def attention(
     impl="pallas" this is the paged flash-decode kernel; otherwise (a
     prefill chunk with q_offset, or impl="xla") the pages are gathered
     into a dense [B, max_pages * page_size, Hkv, D] view (an exact copy)
-    and the paths below compute the same values."""
+    and the paths below compute the same values.
+
+    context: the mesh of a context-parallel pass (the module docstring);
+    None or cp 1 is the one-sequence path."""
+    if impl in ("ring", "ulysses") and (context is None or context.cp == 1):
+        impl = "pallas"
+    if context is not None and context.cp > 1:
+        if (kv_lengths is not None or page_table is not None
+                or padding_mask is not None or dropout > 0.0
+                or q.shape[1] != k.shape[1] or q_offset):
+            raise ValueError(
+                "context parallelism covers training's full-sequence "
+                "passes: no caches, padding masks, dropout or q_offset")
+        if impl == "ring":
+            from megatron_tpu_torch.ops.ring_attention import ring_attention
+
+            return ring_attention(q, k, v, context, mask_type=mask_type,
+                                  sliding_window=sliding_window)
+        if impl == "ulysses":
+            from megatron_tpu_torch.ops.ulysses import ulysses_attention
+
+            return ulysses_attention(q, k, v, context, mask_type=mask_type,
+                                     sliding_window=sliding_window)
+        q_offset = context.cp_rank * q.shape[1]
+        k, v = gather_context(k, context), gather_context(v, context)
+        if impl == "pallas" and mask_type == "causal" and flash_bwd:
+            return flash_template._FlashAttention.apply(
+                q, k, v, True, sliding_window, q_offset)
     if page_table is not None:
         if kv_lengths is not None and impl == "pallas":
             if dropout > 0.0 or padding_mask is not None:

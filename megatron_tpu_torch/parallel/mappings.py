@@ -24,7 +24,9 @@ are [B, S, h]; the sequence dimension is 1. A sixth, exchange, serves
 expert parallelism (ops/moe.py): an all-to-all of rows over the expert
 group whose backward is the mirrored all-to-all (the counterpart of the
 JAX package's _ragged_exchange custom VJP, megatron_tpu/ops/moe.py:
-254-292).
+254-292). A seventh, gather_context, is gather_from_sp over the
+context group: the all-gathered K/V of context parallelism, whose
+backward reduce-scatters their gradients (ops/attention.py).
 
 The plain collectives below them route by backend in one place: NCCL
 takes every collective natively on CUDA tensors; gloo has no send/recv,
@@ -346,6 +348,15 @@ def exit_tp(x: torch.Tensor, mesh) -> torch.Tensor:
     if mesh is not None and mesh.sequence_parallel:
         return reduce_scatter_to_sp(x, mesh)
     return reduce_from_tp(x, mesh)
+
+
+def gather_context(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole sequence of a context-parallel activation [B, S/cp, ...]
+    (the context ranks' pieces in rank order), its gradient
+    reduce-scattered back; the identity at cp 1."""
+    if mesh is None or mesh.cp == 1:
+        return x
+    return _GatherFromSP.apply(x, mesh.group("context"))
 
 
 def sp_slice(x: torch.Tensor, mesh, dim: int = SEQ_DIM) -> torch.Tensor:

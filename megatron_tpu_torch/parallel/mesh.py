@@ -16,7 +16,11 @@ get_tensor_model_parallel_group() & co.), plus the batch group: the
 ranks that split one batch, (data, expert) together (the JAX batch
 spec's two axes), over which the dense leaves' gradients, the loss and
 the router's statistics are averaged; the expert leaves, sharded over
-"expert", reduce over "data" alone. Unlike the JAX package it also
+"expert", reduce over "data" alone. The context group holds the ranks
+that split one sequence (context parallelism, ops/attention.py): every
+parameter is replicated over it, its ranks read the same rows, and
+context_prev / context_next are the ring's neighbors
+(ops/ring_attention.py). Unlike the JAX package it also
 holds the embedding group: under pipeline parallelism with tied
 embeddings the first stage (the token embedding) and the last stage (the
 LM head) each keep a copy of embed/tokens, and their gradients are summed
@@ -59,6 +63,9 @@ class MeshRuntime:
     # global ranks of the previous and next pipeline stage (a ring)
     pipe_prev: Optional[int] = None
     pipe_next: Optional[int] = None
+    # global ranks of the previous and next context rank (a ring)
+    context_prev: Optional[int] = None
+    context_next: Optional[int] = None
     # a gloo group of every rank for host-side flags (the loop's exit
     # agreement), so agreeing on one never waits on the card
     control_group: Optional[object] = None
@@ -74,6 +81,14 @@ class MeshRuntime:
     @property
     def vpp(self) -> int:
         return self.parallel.virtual_pipeline_parallel or 1
+
+    @property
+    def cp(self) -> int:
+        return self.parallel.context_parallel
+
+    @property
+    def cp_rank(self) -> int:
+        return self.coords[AXIS_CONTEXT]
 
     @property
     def dp(self) -> int:
@@ -191,17 +206,25 @@ def build_mesh(parallel: ParallelConfig,
                 g = dist.new_group(ends)
                 if rank in ends:
                     embedding_group = g
-    pipe_prev = pipe_next = None
-    if parallel.pipeline_parallel > 1:
-        pp, p = parallel.pipeline_parallel, coords[AXIS_PIPE]
 
-        def at_stage(s):
-            c = dict(coords, **{AXIS_PIPE: s % pp})
+    def neighbors(axis):
+        """Global ranks one step back and forward along an axis (a
+        ring), or (None, None) when it has one rank."""
+        n = grid.shape[MESH_AXES.index(axis)]
+        if n == 1:
+            return None, None
+
+        def at(i):
+            c = dict(coords, **{axis: i % n})
             return int(grid[tuple(c[a] for a in MESH_AXES)])
 
-        pipe_prev, pipe_next = at_stage(p - 1), at_stage(p + 1)
+        return at(coords[axis] - 1), at(coords[axis] + 1)
+
+    pipe_prev, pipe_next = neighbors(AXIS_PIPE)
+    context_prev, context_next = neighbors(AXIS_CONTEXT)
     return MeshRuntime(parallel=parallel, data_parallel=dp, rank=rank,
                        world_size=world_size, coords=coords, groups=groups,
                        embedding_group=embedding_group,
                        pipe_prev=pipe_prev, pipe_next=pipe_next,
+                       context_prev=context_prev, context_next=context_next,
                        control_group=control_group)

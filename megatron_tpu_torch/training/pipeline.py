@@ -34,7 +34,10 @@ megatron/schedules.py does:
     caller's hook moves the parameter grads into the fp32 accumulators,
     exactly as train_step's per-microbatch loop does;
   * the recompute policies apply inside each chunk (training/
-    train_step.py's policy names; block:N counts the chunk's layers).
+    train_step.py's policy names; block:N counts the chunk's layers);
+  * under context parallelism a stage's activations are its context
+    piece's (S/cp, or S/(cp*tp) under sequence parallelism), and the
+    last stage's loss is the piece's share (language_model.loss_mean).
 """
 
 from __future__ import annotations
@@ -46,8 +49,8 @@ import torch
 
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.models.language_model import (
-    _ce, _layers, embed_tokens, final_hidden_norm, lm_logits,
-    recompute_granularity, run_layers, token_losses,
+    _ce, _layers, context_positions, embed_tokens, final_hidden_norm,
+    lm_logits, loss_mean, recompute_granularity, run_layers, token_losses,
 )
 from megatron_tpu_torch.models.params import vpp_place_indices
 from megatron_tpu_torch.models.transformer import block_forward
@@ -102,7 +105,8 @@ class Pipeline:
         cfg, mesh = self.cfg, self.mesh
         mbs = batch["tokens"].shape[0] // self.M
         mb = {k: v[m * mbs:(m + 1) * mbs] for k, v in batch.items()}
-        positions = mb.get("position_ids")
+        positions = context_positions(mb["tokens"], mb.get("position_ids"),
+                                      mesh)
         if self._first(c):
             x = embed_tokens(cfg, params, mb["tokens"], positions, mesh=mesh)
         lo = c * self.Lv
@@ -127,6 +131,8 @@ class Pipeline:
                                 else self.metric_sums + sums)
         else:
             per_token = token_losses(cfg, params, h, mb["labels"], mesh)
+        if mesh.cp > 1:
+            return loss_mean(per_token, lm, mesh), aux
         if lm is None:
             return per_token.mean(), aux
         lm = lm.float()
@@ -143,7 +149,7 @@ class Pipeline:
 
     def _act_shape(self, batch):
         mbs = batch["tokens"].shape[0] // self.M
-        S = batch["tokens"].shape[1]
+        S = batch["tokens"].shape[1]       # this rank's context piece
         if self.mesh.sequence_parallel:
             S //= self.mesh.tp
         return (mbs, S, self.cfg.hidden_size)

@@ -217,6 +217,7 @@ class TrainLoop:
             model_cfg, mesh, run_cfg.optimizer.use_distributed_optimizer)
             if self._multi else None)
         self.dp = mesh.dp if mesh is not None else 1
+        self._cp = mesh.cp if mesh is not None else 1
         self.calc = MicroBatchCalculator.from_config(t, self.dp)
         self.iteration = 0
         self.consumed_samples = 0
@@ -711,8 +712,10 @@ class TrainLoop:
     def _rank_rows(self, batches: Iterator) -> Iterator:
         """This batch rank's rows of each global batch, microbatch by
         microbatch (data/samplers.rank_rows)."""
-        return batches if self.dp == 1 else rank_rows(
-            batches, self.mesh, self.cfg.training.micro_batch_size)
+        if self.dp == 1 and (self.mesh is None or self.mesh.cp == 1):
+            return batches
+        return rank_rows(batches, self.mesh,
+                         self.cfg.training.micro_batch_size)
 
     def _agree(self, *flags: bool) -> Tuple[bool, ...]:
         """Every rank's flags, MAX-reduced in one collective on the
@@ -1309,8 +1312,11 @@ class TrainLoop:
                     if replay_due:
                         self._replay_check(pre_state, batch, metrics)
                         del pre_state
-                    ntok = self.dp * int(np.prod(tuple(batch.get(
-                        "tokens", next(iter(batch.values()))).shape)))
+                    # a rank's rows are its context piece: dp x cp of
+                    # them make the global batch
+                    ntok = self.dp * self._cp * int(np.prod(tuple(
+                        batch.get("tokens",
+                                  next(iter(batch.values()))).shape)))
                     pending.append({
                         "iteration": self.iteration, "gbs": gbs,
                         "consumed": self.consumed_samples, "ntok": ntok,
@@ -1428,7 +1434,8 @@ def pretrain(run_cfg: RunConfig, train_iter_factory,
         mesh = build_mesh(run_cfg.parallel)
     p = run_cfg.parallel
     if mesh is None and (p.tensor_parallel * p.pipeline_parallel
-                         * p.expert_parallel * (p.data_parallel or 1)) > 1:
+                         * p.context_parallel * p.expert_parallel
+                         * (p.data_parallel or 1)) > 1:
         raise ValueError(
             "a parallel topology needs one process per rank: launch under "
             "python -m torch.distributed.run --nproc_per_node N")
@@ -1437,7 +1444,9 @@ def pretrain(run_cfg: RunConfig, train_iter_factory,
     if mesh is not None:
         log(f"mesh: world {mesh.world_size} = dp {mesh.dp}"
             + (f" (ep {mesh.ep})" if mesh.ep > 1 else "")
-            + f" x pp {mesh.pp} (vpp {mesh.vpp}) x tp {mesh.tp}"
+            + f" x pp {mesh.pp} (vpp {mesh.vpp})"
+            + (f" x cp {mesh.cp}" if mesh.cp > 1 else "")
+            + f" x tp {mesh.tp}"
             + (" with sequence parallelism" if mesh.sequence_parallel
                else ""))
     log(f"device: {loop.device} | params: {num_params(run_cfg.model):,}")

@@ -23,6 +23,10 @@ accumulators. After the accumulation, reduce_grads:
     (ops/moe.py);
   * with tied embeddings and pp > 1 sums embed/tokens over the
     embedding group (the first stage's copy and the last stage's);
+  * under context parallelism sums every leaf over the context group:
+    each rank's backward holds its piece of the sequence's share (the
+    loss a rank backpropagates is its tokens' part of the sequence's
+    mean, models/language_model.loss_mean);
   * averages over the batch ranks: a leaf's gradient is summed over the
     ranks it is replicated on, data x expert (the batch group), or the
     data ranks alone for an expert leaf (each expert rank's backward
@@ -32,8 +36,9 @@ accumulators. After the accumulation, reduce_grads:
     rank's optimizer shard over the same group.
 The loss metric is the mean over the batch ranks of the microbatch
 losses (each pipeline stage's share summed over the pipe group: the
-last stage's CE and every stage's router loss), the same number on
-every rank; a MoE model's moe_aux_loss is agreed the same way.
+last stage's CE and every stage's router loss; each context rank's share
+summed over the context group), the same number on every rank; a MoE
+model's moe_aux_loss is agreed the same way.
 """
 
 from __future__ import annotations
@@ -47,7 +52,9 @@ from megatron_tpu_torch.config import (ModelConfig, OptimizerConfig,
 from megatron_tpu_torch.models.language_model import lm_forward, lm_loss
 from megatron_tpu_torch.ops.cross_entropy import cross_entropy_loss
 from megatron_tpu_torch.parallel.mappings import all_reduce, reduce_scatter
-from megatron_tpu_torch.parallel.mesh import AXIS_TENSOR, BATCH_AXES
+from megatron_tpu_torch.parallel.mesh import (
+    AXIS_CONTEXT, AXIS_TENSOR, BATCH_AXES,
+)
 from megatron_tpu_torch.parallel.sharding import spec_axes, zero1_axes
 from megatron_tpu_torch.training.optimizer import (
     TrainState, nest_paths, leaf_paths, make_optimizer_step, tree_map,
@@ -70,6 +77,8 @@ def reduce_grads(grads: Any, model_cfg: ModelConfig,
         if (path == "embed/tokens" and model_cfg.tie_embed_logits
                 and mesh.pp > 1):
             g.copy_(all_reduce(g, mesh.embedding_group))
+        if mesh.cp > 1:
+            g.copy_(all_reduce(g, mesh.group(AXIS_CONTEXT)))
         if mesh.dp > 1:
             axes = zero1_axes(spec)
             if path in zdims:
@@ -85,14 +94,16 @@ def reduce_grads(grads: Any, model_cfg: ModelConfig,
 def agreed_loss(losses, mesh, device) -> torch.Tensor:
     """Mean of the microbatch losses, agreed over every rank: each
     pipeline stage's share (the last stage's CE, every stage's router
-    loss) summed over the pipe group, then averaged over the batch
-    ranks."""
+    loss) summed over the pipe group and each context rank's over the
+    context group, then averaged over the batch ranks."""
     loss = (torch.stack(losses).mean() if losses
             else torch.zeros((), dtype=torch.float32, device=device))
     if mesh is None or mesh.world_size == 1:
         return loss
     if mesh.pp > 1:
         loss = all_reduce(loss, mesh.group("pipe"))
+    if mesh.cp > 1:
+        loss = all_reduce(loss, mesh.group(AXIS_CONTEXT))
     if mesh.dp > 1:
         loss = all_reduce(loss, mesh.group(BATCH_AXES)) / mesh.dp
     return loss
@@ -236,7 +247,7 @@ def make_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig,
 
 def _parallel_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig,
                         mesh):
-    from megatron_tpu_torch.models.language_model import _ce
+    from megatron_tpu_torch.models.language_model import _ce, loss_mean
     from megatron_tpu_torch.ops.cross_entropy import vocab_parallel_argmax
     from megatron_tpu_torch.training.metrics import (
         finish_metrics, metric_sums,
@@ -274,6 +285,8 @@ def _parallel_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig,
                                 positions=batch.get("position_ids"),
                                 mesh=mesh)
             loss, per_token = _ce(logits, batch["labels"], mesh, loss_mask)
+            if mesh.cp > 1:
+                loss = loss_mean(per_token, loss_mask, mesh)
             losses = [loss]
             sums = metric_sums(names, vocab_parallel_argmax(logits, mesh),
                                batch["labels"], loss_mask, per_token)
@@ -283,6 +296,10 @@ def _parallel_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig,
                               dict(batch, loss_mask=loss_mask),
                               mesh=mesh)[1]["lm_loss"]]
         ntokens = loss_mask.sum()
+        if mesh.cp > 1:
+            ntokens = all_reduce(ntokens, mesh.group(AXIS_CONTEXT))
+            if sums is not None:
+                sums = all_reduce(sums, mesh.group(AXIS_CONTEXT))
         if mesh.dp > 1:
             ntokens = all_reduce(ntokens, mesh.group(BATCH_AXES))
             if sums is not None:

@@ -108,11 +108,12 @@ def slice_state(state, cfg, mesh, zero1: bool):
         nonfinite_streak=state.nonfinite_streak.clone())
 
 
-def save_job(out_dir: str):
+def save_job(out_dir: str, parallel=None, name: str = "sharded"):
     """The one-process state after STEPS steps, cut into the 8 ranks'
-    slices (tp2 x pp2 x dp2, ZeRO-1) and saved by every rank's
-    AsyncCheckpointSaver into out_dir/sharded; rank 0 also saves it
-    whole into out_dir/world1. Returns every rank's save record."""
+    slices (`parallel`, default tp2 x pp2 x dp2; ZeRO-1) and saved by
+    every rank's AsyncCheckpointSaver into out_dir/<name>; for the
+    default name rank 0 also saves it whole into out_dir/world1.
+    Returns every rank's save record."""
     import torch.distributed as dist
 
     from megatron_tpu_torch.config import ParallelConfig
@@ -121,14 +122,14 @@ def save_job(out_dir: str):
     from megatron_tpu_torch.training import checkpointing as ckpt
 
     cfg, full = one_process_state()
-    mesh = build_mesh(ParallelConfig(**SAVE_PARALLEL))
+    mesh = build_mesh(ParallelConfig(**(parallel or SAVE_PARALLEL)))
     state = slice_state(full, cfg, mesh, zero1=True)
     saver = ckpt.AsyncCheckpointSaver(
-        os.path.join(out_dir, "sharded"),
+        os.path.join(out_dir, name),
         placement=StatePlacement.of(cfg, mesh, zero1=True))
     saver.save(state, SAVE_ITERATION, consumed_samples=16)
     saver.close()
-    if mesh.rank == 0:
+    if mesh.rank == 0 and name == "sharded":
         ckpt.save_checkpoint(os.path.join(out_dir, "world1"), full,
                              SAVE_ITERATION, 16)
     history = [None] * mesh.world_size

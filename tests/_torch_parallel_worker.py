@@ -112,14 +112,16 @@ def check_against_single_process(got: dict, case: dict) -> None:
     """A case's result against the port's one-process step: losses
     within 1e-4 and grad norms within a relative 1e-4 (the 5-step JAX
     parity's tolerances, tests/test_torch_train.py), the same numbers on
-    every rank, and the final parameters within 1e-5."""
+    every rank, and the final parameters within 1e-5 (or the case's
+    params_atol)."""
     want = single_process_steps(case)
     assert got["ranks_agree"]
     np.testing.assert_allclose(got["losses"], want["losses"], atol=1e-4)
     np.testing.assert_allclose(got["grad_norms"], want["grad_norms"],
                                rtol=1e-4)
     for path, x in want["params"].items():
-        np.testing.assert_allclose(got["params"][path], x, atol=1e-5,
+        np.testing.assert_allclose(got["params"][path], x,
+                                   atol=case.get("params_atol", 1e-5),
                                    err_msg=path)
 
 
@@ -158,6 +160,7 @@ def parallel_steps(case: dict, batch=None):
     """The case on this world (every rank calls it)."""
     import torch.distributed as dist
 
+    from megatron_tpu_torch.data.samplers import context_piece
     from megatron_tpu_torch.models.params import leaf_layout
     from megatron_tpu_torch.parallel.distributed import host_batch_slice
     from megatron_tpu_torch.parallel.mesh import (
@@ -186,7 +189,9 @@ def parallel_steps(case: dict, batch=None):
                                                 opt.use_distributed_optimizer))
     n_micro = (hi - lo) // train.micro_batch_size
     step = make_train_step(model, opt, train, n_micro, STEPS, mesh=mesh)
-    tb = {k: torch.from_numpy(v[lo:hi]) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
+          context_piece({k: v[lo:hi] for k, v in batch.items()},
+                        mesh).items()}
     losses, norms = [], []
     for _ in range(STEPS):
         state, m = step(state, tb)

@@ -7,11 +7,14 @@ process (bf16 params, fp32 masters, Adam moments after 2 steps) from its
 on one rank, and rolled back. Against those:
 
   * the checkpoint loads at world size 1, tp2, pp2, pp2 x vpp2, dp2 with
-    ZeRO-1 and the saving topology, every leaf of params, master, mu and
-    nu (and step) bitwise equal to the one-process state cut by the
-    training path's own rules, each rank reading exactly its own bytes
-    (the JAX package's test_cross_topology_restore,
-    tests/test_checkpoint.py:66, at more topologies);
+    ZeRO-1, cp2, tp2 x cp2, cp2 x dp2 with ZeRO-1 and the saving
+    topology, every leaf of params, master, mu and nu (and step) bitwise
+    equal to the one-process state cut by the training path's own rules,
+    each rank reading exactly its own bytes (the JAX package's
+    test_cross_topology_restore, tests/test_checkpoint.py:66, at more
+    topologies); the same state saved at cp2 x dp4 with ZeRO-1 (a second
+    save in the same spawn) loads bitwise at world size 1, cp2, tp2 x cp2
+    and tp2;
   * no block is written twice, every element is covered once, and the
     bytes on disk are a world-1 save's within 1%;
   * a same-topology resume continues bitwise; a SIGTERM on one rank
@@ -48,7 +51,13 @@ TOPOLOGIES = {
                  2, False),
     "dp2_zero1": ({}, 2, True),
     "tp2_pp2_dp2_zero1": (C.SAVE_PARALLEL, 8, True),
+    # the context axis: one more axis every leaf is replicated over
+    "cp2": (dict(context_parallel=2), 2, False),
+    "tp2_cp2": (dict(tensor_parallel=2, context_parallel=2), 4, False),
+    "cp2_dp2_zero1": (dict(context_parallel=2), 4, True),
 }
+# the second save: cp2 x dp4 with ZeRO-1 on the same 8 ranks
+CP_SAVE = dict(context_parallel=2)
 
 
 @pytest.fixture(scope="module")
@@ -56,6 +65,9 @@ def world(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("sharded"))
     w = W.World(8, [
         ("save", "call", ("_torch_ckpt_worker:save_job", {"out_dir": out})),
+        ("save_cp2", "call", ("_torch_ckpt_worker:save_job",
+                              {"out_dir": out, "parallel": CP_SAVE,
+                               "name": "sharded_cp2"})),
         ("train", "call", ("_torch_ckpt_worker:train_job",
                            {"out_dir": out}))])
     return out, w.results()
@@ -104,6 +116,26 @@ def test_world1_load_of_the_sharded_save_is_bitwise(world, one_process):
 @pytest.mark.parametrize("topology", list(TOPOLOGIES))
 def test_sharded_save_loads_bitwise_at_another_topology(world, one_process,
                                                         topology):
+    _load_at(world, one_process, topology, "sharded")
+
+
+@pytest.mark.parametrize("topology", ["cp2", "tp2_cp2", "tp2"])
+def test_cp2_save_loads_bitwise_at_world1_and_other_topologies(
+        world, one_process, topology):
+    """A state saved at cp2 x dp4 with ZeRO-1 (every leaf replicated over
+    the context ranks, written once) loads bitwise at world size 1, at
+    cp2, at tp2 x cp2 and at tp2."""
+    out, _ = world
+    _, want = one_process
+    _, template = C.one_process_state(seed=9, steps=0)
+    got, it, _ = ckpt.load_checkpoint(os.path.join(out, "sharded_cp2"),
+                                      template)
+    assert it == C.SAVE_ITERATION
+    _assert_bitwise(got, want, "world 1 from cp2")
+    _load_at(world, one_process, topology, "sharded_cp2")
+
+
+def _load_at(world, one_process, topology, name):
     out, _ = world
     cfg, full = one_process
     _, fresh = C.one_process_state(seed=9, steps=0)
@@ -115,7 +147,7 @@ def test_sharded_save_loads_bitwise_at_another_topology(world, one_process,
         template = C.slice_state(fresh, cfg, mesh, zero1)
         stats = {}
         got, _, _ = ckpt.load_checkpoint(
-            os.path.join(out, "sharded"), template,
+            os.path.join(out, name), template,
             placement=StatePlacement.of(cfg, mesh, zero1), stats=stats)
         _assert_bitwise(got, want, f"{topology} rank {r}")
         # a rank reads its own share: each of its elements once

@@ -51,6 +51,14 @@ card; B1 at S 2047 and B4 at B8 Sq 1, with a tp2 serving rank's 16 query
 and 16 kv heads of D 128, match their plain versions, as do B1-B4 at a
 Falcon-40B tp2 rank's 64 query over 4 kv heads of D 64 and B5 at the
 paged engine's tp2 rank (16 heads, 16-token pages).
+
+Context parallelism: the one-process emulated ring (every virtual
+rank's schedule, ops/ring_attention.py) at cp 2 and 4 runs each live
+stripe pair on B1/B2/B3 and matches the same ring on the plain versions,
+values and gradients (zig-zag causal, a window of 4096, GQA 32/8, and
+the contiguous ring at S % 2cp != 0). fp8_matmul's torch._scaled_mm
+route matches its plain fp32 products at a small and at a Llama-2-7B
+product shape.
 """
 
 import dataclasses
@@ -1438,3 +1446,96 @@ def test_prefetch_pop_alone_with_the_worker_parked(gen):
         host.append((time.perf_counter() - t0) * 1e3)
     print(f"pop alone: median {np.median(pops):.4f} ms (max "
           f"{max(pops):.4f}); host next(): median {np.median(host):.4f} ms")
+
+
+# ---------------------------------------------------------------------------
+# context parallelism: the ring's stripe pairs on the kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cp,s,hq,hkv,window,zigzag", [
+    (2, 8192, 32, 8, None, True), (4, 8192, 32, 8, None, True),
+    (2, 8192, 32, 8, 4096, True), (4, 16384, 32, 8, 4096, True),
+    # S % 2cp != 0: the contiguous ring, with and without a window
+    (2, 8194, 32, 8, None, False), (4, 8196, 32, 8, 4096, False)])
+def test_emulated_ring_kernels_match_plain_stripes(gen, cp, s, hq, hkv,
+                                                    window, zigzag):
+    """Every virtual rank's ring (ops/ring_attention.py) with each live
+    stripe pair on B1 forward and B2/B3 backward, at Llama-2-7B-like
+    heads of D 128 with GQA 32/8, causal and Mistral's window of 4096,
+    against the same ring on the plain versions: output within the
+    forward gate, dq/dk/dv within the backward gate of the largest plain
+    magnitude; B1/B2/B3 launched once per live pair."""
+    from megatron_tpu_torch.ops import ring_attention as ra
+
+    q = _randn(gen, 1, s, hq, 128)
+    k, v = _randn(gen, 1, s, hkv, 128), _randn(gen, 1, s, hkv, 128)
+    do = _randn(gen, 1, s, hq, 128)
+    n = 2 if zigzag else 1
+    live = sum(p.live for my in range(cp) for _, pairs in ra.ring_schedule(
+        my, cp, s // (n * cp), window, zigzag) for p in pairs)
+    runs = {}
+    for plain in (False, True):
+        before = [f.launches for f in (ft.flash_fwd, ft.flash_bwd_dq,
+                                       ft.flash_bwd_dkv)]
+        xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = ra.ring_attention_emulated(*xs, cp, sliding_window=window,
+                                         zigzag=zigzag, plain=plain)
+        out.backward(do)
+        torch.cuda.synchronize()
+        ran = [f.launches - b for f, b in zip(
+            (ft.flash_fwd, ft.flash_bwd_dq, ft.flash_bwd_dkv), before)]
+        assert ran == ([0, 0, 0] if plain else [live] * 3), (plain, ran)
+        runs[plain] = [out.detach()] + [t.grad for t in xs]
+    _assert_close(runs[False][0], runs[True][0])
+    for name, a, b in zip(("dq", "dk", "dv"), runs[False][1:],
+                          runs[True][1:]):
+        assert a.dtype == torch.bfloat16
+        _assert_close_rel(a, b, name)
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 128, 256), (4096, 4096, 11008)])
+@pytest.mark.parametrize("fmt", ["hybrid", "e4m3"])
+@pytest.mark.parametrize("wgrad", [True, False])
+def test_fp8_matmul_scaled_mm_matches_plain(gen, m, k, n, fmt, wgrad):
+    """ops/fp8.fp8_matmul on the card (torch._scaled_mm, the inverse
+    scales, fp32 before the cast) against its plain version on the same
+    bf16 inputs: out, dx and dw within 2^-7 of the plain's largest
+    magnitude (both round to bf16 after fp32 sums in different orders);
+    a product that is not a multiple of 16 raises."""
+    from megatron_tpu_torch.ops.fp8 import fp8_matmul
+
+    x = _randn(gen, 1, m, k)
+    w = (_randn(gen, k, n).float() * 0.02).to(torch.bfloat16)
+    g = _randn(gen, 1, m, n)
+    runs = {}
+    for plain in (False, True):
+        xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        out = fp8_matmul(xs, ws, fmt=fmt, fp8_wgrad=wgrad, plain=plain)
+        out.backward(g)
+        runs[plain] = (out.detach(), xs.grad, ws.grad)
+    for name, a, b in zip(("out", "dx", "dw"), runs[False], runs[True]):
+        assert a.dtype == b.dtype == torch.bfloat16, name
+        m_ = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= 2 ** -7 * m_, \
+            name
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fp8_matmul(_randn(gen, 8, 40), _randn(gen, 40, 32))
+
+
+def test_flash_bwd_dkv_holds_the_gate_at_a_long_sequence(gen):
+    """dk/dv at S 16384 (Ulysses' rank at cp2 runs the whole sequence
+    over its heads) against the plain backward: the dSᵀ product sums
+    16384 queries, where one bf16 rounding of ds left dk outside the
+    backward gate (margin 1.42 at 16 heads); the hi/lo split of dSᵀ keeps
+    it inside. 8 heads of D 128 keep the plain version's fp32 [H, S, S]
+    tensors within the card."""
+    s, h = 16384, 8
+    q, k, v, do = (_randn(gen, 1, s, h, 128) for _ in range(4))
+    o, lse = ft.flash_fwd(q, k, v)
+    dsum = ft._bwd_dsum(o, do)
+    dk, dv = ft.flash_bwd_dkv(q, k, v, do, lse, dsum)
+    torch.cuda.synchronize()
+    want = ft._bwd_plain(q, k, v, do, lse, dsum, True, None, 0)
+    for name, a, b in zip(("dk", "dv"), (dk, dv), want[1:]):
+        _assert_close_rel(a, b, name)

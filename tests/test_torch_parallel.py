@@ -253,9 +253,14 @@ def test_distributed_flags_map_as_the_jax_cli_maps_them():
             j.parallel), extra
         assert (t.optimizer.use_distributed_optimizer
                 == j.optimizer.use_distributed_optimizer)
-    with pytest.raises(ValueError, match="item 10"):
-        args_to_run_config(parse_args(base + ["--context_parallel_size",
-                                              "2"]))
+    # context parallelism is ported: the flag and the schemes' names map
+    # as the JAX CLI maps them
+    extra = ["--context_parallel_size", "2", "--attention_impl", "ring"]
+    t = args_to_run_config(parse_args(base + extra))
+    j = j_args_to_run_config(j_parse_args(base + extra))
+    assert dataclasses.asdict(t.parallel) == dataclasses.asdict(j.parallel)
+    assert t.parallel.context_parallel == 2
+    assert t.model.attention_impl == j.model.attention_impl == "ring"
     # expert parallelism is ported: the flag maps as the JAX CLI maps it
     extra = ["--expert_model_parallel_size", "2"]
     t = args_to_run_config(parse_args(base + extra))

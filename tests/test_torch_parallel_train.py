@@ -1,13 +1,16 @@
 """The port's parallel training step on 8 gloo processes (the CPU) held
-to its single-process step, and tp2 x pp2 with ZeRO-1 held directly to
-the JAX jitted step on the fake 8-device mesh.
+to its single-process step, tp2 x pp2 and tp2 x cp2 + SP with ZeRO-1
+held directly to the JAX jitted step on the fake 8-device mesh, and
+pp2 x cp2 x tp2 to MULTICHIP_r05's recorded JAX dry run.
 
-The cases are the JAX topology matrix's four combinations without
-context parallelism (tests/_parallel_matrix_cases.py: tp2_sp, pp2,
-pp2_vpp2, tp2_pp2) with ZeRO-1 off and on, on its tiny model (4 layers,
-h 32, 4 heads over 2 kv heads, ffn 64, vocab 128, S 32, global batch 8,
-micro-batch 1, fp32, full recompute) over the same 8 ranks, so data
-parallelism takes the rest (dp 4, or 2 for tp2_pp2) as on the JAX mesh.
+The cases are the JAX topology matrix's seven combinations
+(tests/_parallel_matrix_cases.py: tp2_sp, cp2, pp2, pp2_vpp2, tp2_pp2,
+tp2_cp2_sp, tp2_pp2_cp2_sp; its attention_impl "xla", so context
+parallelism all-gathers K/V) with ZeRO-1 off and on, on its tiny model
+(4 layers, h 32, 4 heads over 2 kv heads, ffn 64, vocab 128, S 32,
+global batch 8, micro-batch 1, fp32, full recompute) over the same 8
+ranks, so data parallelism takes the rest (dp 4; 2 for tp2_pp2 and
+tp2_cp2_sp, 1 for tp2_pp2_cp2_sp) as on the JAX mesh.
 Each case takes two steps: losses within 1e-4 and grad norms within a
 relative 1e-4 of the single-process step (test_torch_train.py's
 tolerances), every rank reporting the same numbers, and the final
@@ -23,11 +26,12 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as JP
 
+import _torch_cp_worker as CPW
 import _torch_parallel_worker as W
 from megatron_tpu.config import (
     ModelConfig, OptimizerConfig, ParallelConfig, TrainingConfig,
 )
-from megatron_tpu.models.params import param_specs
+from megatron_tpu.models.params import init_params, param_specs
 from megatron_tpu.parallel.mesh import build_mesh
 from megatron_tpu.parallel.sharding import shard_tree
 from megatron_tpu.training.optimizer import (
@@ -38,19 +42,25 @@ from megatron_tpu.training.train_step import make_train_step
 
 COMBOS = {
     "tp2_sp": dict(tensor_parallel=2, sequence_parallel=True),
+    "cp2": dict(context_parallel=2),
     "pp2": dict(pipeline_parallel=2),
     "pp2_vpp2": dict(pipeline_parallel=2, virtual_pipeline_parallel=2),
     "tp2_pp2": dict(tensor_parallel=2, pipeline_parallel=2),
+    "tp2_cp2_sp": dict(tensor_parallel=2, context_parallel=2,
+                       sequence_parallel=True),
+    "tp2_pp2_cp2_sp": dict(tensor_parallel=2, pipeline_parallel=2,
+                           context_parallel=2, sequence_parallel=True),
 }
 CASES = {f"{name}_zero1_{'on' if z else 'off'}": dict(parallel=kw, zero1=z)
          for name, kw in COMBOS.items() for z in (False, True)}
-JAX_CASE = "tp2_pp2_zero1_on"
+JAX_CASES = ("tp2_pp2_zero1_on", "tp2_cp2_sp_zero1_on")
 
 
-def _jax_steps():
-    """tp2 x pp2 (dp 2) with ZeRO-1: the JAX jitted train step through
-    make_pipeline_loss_fn on the fake mesh, from the port's weights."""
-    case = CASES[JAX_CASE]
+def _jax_steps(name):
+    """A case with ZeRO-1 (dp 2): the JAX jitted train step on the fake
+    mesh (through make_pipeline_loss_fn at pp > 1), from the port's
+    weights."""
+    case = CASES[name]
     model = ModelConfig(**W.MATRIX_MODEL).validate()
     rt = build_mesh(ParallelConfig(**case["parallel"]))
     assert rt.dp == 2
@@ -68,8 +78,9 @@ def _jax_steps():
         node[parts[-1]] = jnp.asarray(v)
     params = shard_tree(rt, tree, param_specs(model))
     n_micro = 8 // rt.dp
-    loss_fn = make_pipeline_loss_fn(model, rt.mesh, 2, n_micro,
-                                    recompute="full")
+    pp = case["parallel"].get("pipeline_parallel", 1)
+    loss_fn = (make_pipeline_loss_fn(model, rt.mesh, pp, n_micro,
+                                     recompute="full") if pp > 1 else None)
     step = make_train_step(model, opt, train, num_microbatches=n_micro,
                            train_iters=2, pipeline_loss_fn=loss_fn)
     state = init_train_state(opt, params)
@@ -91,11 +102,34 @@ def _jax_steps():
     return {"losses": losses, "grad_norms": norms}
 
 
+def _multichip_params(path):
+    """The JAX tiny Llama's init (PRNGKey 0), saved as flat numpy paths
+    for the ranks (which do not import JAX)."""
+    jcfg = ModelConfig(**CPW.MULTICHIP_MODEL).validate()
+    flat = {}
+
+    def walk(tree, prefix=""):
+        for k, v in tree.items():
+            name = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                walk(v, name)
+            else:
+                flat[name] = np.asarray(v)
+
+    walk(jax.device_get(init_params(jcfg, jax.random.PRNGKey(0))))
+    np.savez(path, **flat)
+
+
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("multichip") / "params.npz")
+    _multichip_params(path)
     world = W.World(8, [(name, "train", case)
-                        for name, case in CASES.items()])
-    jax_result = _jax_steps()       # compiles while the ranks train
+                        for name, case in CASES.items()]
+                    + [("multichip", "call", ("_torch_cp_worker:multichip_job",
+                                              {"params_path": path}))])
+    # the JAX steps compile while the ranks train
+    jax_result = {name: _jax_steps(name) for name in JAX_CASES}
     return world.results(), jax_result
 
 
@@ -104,9 +138,30 @@ def test_parallel_steps_equal_the_single_process_step(runs, name):
     W.check_against_single_process(runs[0][name], CASES[name])
 
 
-def test_tp2_pp2_zero1_equals_the_jax_jitted_step(runs):
-    got, want = runs[0][JAX_CASE], runs[1]
+def _check_jax(runs, name):
+    got, want = runs[0][name], runs[1][name]
     assert got["dp"] == 2
     np.testing.assert_allclose(got["losses"], want["losses"], atol=1e-4)
     np.testing.assert_allclose(got["grad_norms"], want["grad_norms"],
                                rtol=1e-4)
+
+
+def test_tp2_pp2_zero1_equals_the_jax_jitted_step(runs):
+    _check_jax(runs, "tp2_pp2_zero1_on")
+
+
+def test_tp2_cp2_sp_zero1_equals_the_jax_jitted_step(runs):
+    """Context parallelism (all-gathered K/V, the JAX matrix's "xla")
+    under tp2 + SP against GSPMD's step."""
+    _check_jax(runs, "tp2_cp2_sp_zero1_on")
+
+
+def test_pp2_cp2_tp2_step_reproduces_the_multichip_dry_run(runs):
+    """MULTICHIP_r05.json's JAX dry run (__graft_entry__.dryrun_multichip
+    (8): pipe2 x context2 x tensor2 + SP, ZeRO-1, two virtual chunks,
+    the tiny Llama at S 64 in fp32 from PRNGKey 0) printed loss=10.4983
+    grad_norm=12.0853; the port's step at the same topology on the same
+    weights and batch gives both to the printed 4 decimals (atol 1e-4)."""
+    got = runs[0]["multichip"]
+    np.testing.assert_allclose(got["loss"], 10.4983, atol=1e-4)
+    np.testing.assert_allclose(got["grad_norm"], 12.0853, atol=1e-4)

@@ -252,6 +252,26 @@ def test_optimizer_steps_match_jax(tiny, optimizer):
     assert topt._wd_mask("layers/attn/wq", ts.params["layers"]["attn"]["wq"])
 
 
+def test_global_grad_norm_matches_float64_on_large_leaves():
+    """The grad norm (and so clipping) against the float64 norm, and
+    against the JAX package's global_grad_norm, on a Llama-sized MLP leaf
+    of 4 layers (5.8 M fp32 elements) and a 2-d head: rtol 1e-6 (torch's
+    CPU vector_norm was 1e-3 off on such a leaf)."""
+    r = np.random.default_rng(3)
+    tree = {"w_in": r.standard_normal((4, 512, 2816)).astype(np.float32)
+            * 0.01,
+            "head": r.standard_normal((512, 32000)).astype(np.float32)
+            * 0.001}
+    want = np.sqrt(sum(float((v.astype(np.float64) ** 2).sum())
+                       for v in tree.values()))
+    got = float(topt.global_grad_norm(
+        {k: torch.from_numpy(v) for k, v in tree.items()}))
+    j = float(jopt.global_grad_norm({k: jnp.asarray(v)
+                                     for k, v in tree.items()}))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    np.testing.assert_allclose(got, j, rtol=1e-6)
+
+
 def test_fp16_scaler_and_skipped_step_match_jax(tiny):
     """fp16 params with fp32 masters and the dynamic loss scaler: a good
     step, a non-finite step (skipped on the device: state kept, streak
