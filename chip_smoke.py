@@ -57,7 +57,15 @@ still run, so one call shows every failure):
               the kernel, the plain version, SDPA on the gathered dense
               view (the library yardstick) and the dense flash_decode
               kernel on that view (what paging costs), and compute each
-              shape's bound.
+              shape's bound. Then B5's partial form (return_lse: fp32 o
+              and the rows' lse, a context-parallel rank's stripe), in a
+              child process with a timeout: B 8, ps 16, Sq 1, H 32, D 128
+              over a 128-entry local table with local lengths 0, 1, 16,
+              1000, 17, 64, 1500 and 2048, against
+              paged_flash_decode_reference(return_lse=True): o at the
+              same tolerance, lse within 2e-2, the empty rows' o 0 and
+              lse at NEG_INF; timed like the rest (eager, graph, plain,
+              SDPA on the gathered view).
   2b. backward  the dq and dk/dv kernels at the training shapes (S 4096,
               H 32, D 128 causal; GQA G=4 with window 256; ragged S 1000;
               and the forward's extra shapes: BWD_CASES)
@@ -403,13 +411,37 @@ still run, so one call shows every failure):
               agreement, and each rank's B1-B3 launches printed and
               equal to the schedule's (the ring: 5 stripe pairs a layer
               and pass at cp2).
+  7h. long    (last in the same launch) serving at cp2 and compressed
+     context  TP collectives: (a) Llama-2-7B's width x CP_SERVE_LAYERS
+              through the context-parallel server (--serve_context_
+              parallel: the paged KV striped over the 2 ranks, each
+              layer's attention merged over an overlapped ring of dense
+              hops; a rank's decode partial on B5's partial form, a
+              chunk's on the plain stripe path), 8 slots x 8192, pages of
+              16, chunks of 128, phase 3b's prompts plus one of 6000
+              tokens x 32 new tokens, then its tick over 8 filled slots
+              timed and traced; (b) the same with int8 hops; (c) 7d's
+              tp2 engine server with --serve_compress_collectives int8,
+              phase 3's traffic (its tick wall beside 7d's). Gates: phase 3's
+              teacher-forced match for (a) and (b), and for (c) with both
+              plain passes through the same int8 collectives, run on the
+              ranks (phase 3's against the uncompressed path reported
+              beside it: the transport's error is outside the bf16
+              band by design, as an int8 cache's is); B5 partial-form
+              launches = layers x ticks a rank (B1 = B4 = 0),
+              engine_cp_ring_steps_total = layers x (ticks + chunks), the
+              cp byte counters = cp_ring_comm_bytes x ticks and chunks,
+              (c)'s engine_comm_*_bytes = forward_comm_bytes x ticks +
+              each prefill's, B1/B4 as 7d's.
   8. report   each phase's wall seconds as it ends and all of them
               after phase 7d (seconds_by_phase, with the total), then one
               JSON line listing each kernel with its launches on its path
               (serving, paged_serving, speculative_serving,
               serving_control, weight_quant, training, fp8_training,
               finetune, families, mixtral, loop, parallel,
-              context_parallel and parallel_serving),
+              context_parallel, parallel_serving, cp_serving and
+              compressed_tp_serving; B5's partial form on a line of its
+              own as paged_flash_decode_lse),
               then the card's name and power limit, then {"ok": true,
               "device": {...}} as the last line.
 
@@ -590,6 +622,29 @@ TP_TICK_LENS = (5, 100, 300, 500, 700, 1000, 1200, 1500)
 # width x FALCON_SERVE_LAYERS (6.0 B parameters, 12.1 GB of bf16) on the
 # tp2 dense engine, phase 3's traffic
 TP_PREFILL_CHUNK = 128
+# phase 7h, last in phase 7's launch: (a) Llama-2-7B's width x
+# CP_SERVE_LAYERS on the context-parallel engine at cp2 (ring,
+# overlapped, dense hops), CP_SERVE_SLOTS slots x CP_SERVE_SEQ in pages of
+# PAGE_SIZE and chunks of TP_PREFILL_CHUNK (a rank's pool: 2049 pages,
+# 0.54 GB a layer), phase 3b's prompts plus one of CP_LONG_PROMPT tokens,
+# NEW_TOKENS each; (b) the same with int8 hops; (c) 7d's tp2 dense engine
+# at CP_SERVE_LAYERS, phase 3's traffic, dense then with int8 TP
+# collectives. (a) and (b) served TP_SERVE_LAYERS (8) in the first whole
+# run with 7h (13.7 and 16.2 s, 7h 68.6 s of a 996.6 s run on an H100
+# 80GB HBM3 at 700 W, over the 960 s aim), and (c) did in the next (7h
+# 37.7 s of 1093.9 s): cut to 2 layers for the wall; every per-layer
+# kernel, hop and collective site of the path still runs
+CP_SERVE_LAYERS = 2
+# 7h(c)'s second gate: the largest logit change the int8 TP collectives
+# make to the plain bf16 forward (the same context and weights) is at most
+# TRANSPORT_BAND_RATIO x the largest bf16 band of the same positions. A
+# value crosses the wire with an error of at most 1/254 of its 32-value
+# chunk's max (quant/primitives.quantization_error_bound), about twice
+# bf16's 2^-9 rounding, at three sites a layer where bf16 rounds at every
+# product and add: the transport's change is of the bf16 band's order,
+# and the ratio keeps JAX's 4x headroom (test_teacher_forced_parity_gate)
+TRANSPORT_BAND_RATIO = 4.0
+CP_SERVE_SLOTS, CP_SERVE_SEQ, CP_LONG_PROMPT = 8, 8192, 6000
 PAGED_TICK_LENS = (TP_PREFILL_CHUNK,) * TP_SLOTS
 FALCON40 = "falcon-40B"
 FALCON_SEQ = 2048             # the preset's
@@ -1179,6 +1234,136 @@ def check_paged_flash_decode(torch, F, ft, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 2c (partial form): B5 as a context-parallel rank's stripe partial
+# ---------------------------------------------------------------------------
+
+# a rank's stripe at cp2 of rows up to 4096 long: a local table of 128
+# entries of 16-token pages, local lengths with 0 (a rank holding no page
+# of its row), 1, page boundaries, 1000 and the table's end
+PARTIAL_LENS = [0, 1, 16, 1000, 17, 64, 1500, 2048]
+PARTIAL_LSE_ATOL = 2e-2      # natural log; fp32 sums, P rounded to bf16
+PARTIAL_TIMEOUT_S = 300
+
+
+def check_paged_partial(torch, F, ft, card):
+    """B5's partial form, paged_flash_decode(return_lse=True), at B 8, ps
+    16, Sq 1, H 32, D 128 over PARTIAL_LENS, against
+    paged_flash_decode_reference(return_lse=True) on the same bf16
+    inputs: o (fp32) at phase 2's tolerance, lse within PARTIAL_LSE_ATOL,
+    the empty rows' o 0 and lse at NEG_INF's depth on both. Times the
+    kernel (eager and graph), the plain version and SDPA on the gathered
+    dense view; the bound counts each live position's K and V once, q,
+    the fp32 o, lse, the lengths and the table entries read."""
+    from megatron_tpu_torch.ops.flash.masks import NEG_INF
+
+    B, ps, max_pages, H, D = DECODE_B, PAGE_SIZE, 128, 32, DECODE_D
+    S = max_pages * ps
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    npl = 1 + B * max_pages
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    kp, vp = (torch.randn(npl, ps, H, D, generator=gen, device="cuda",
+                          dtype=torch.bfloat16) for _ in range(2))
+    table = (torch.randperm(npl - 1, generator=gen, device="cuda") + 1
+             ).view(B, max_pages).to(torch.int32)
+    for b, n in enumerate(PARTIAL_LENS):
+        # the engine clamps unallocated entries into the pool (unread)
+        table[b, -(-n // ps):] = npl - 1
+    table = table.contiguous()
+    lens = torch.tensor(PARTIAL_LENS, dtype=torch.int32, device="cuda")
+
+    def run():
+        return ft.paged_flash_decode(q, kp, vp, table, lens,
+                                     return_lse=True)
+
+    o, lse = run()
+    torch.cuda.synchronize()
+    ro, rl = ft.paged_flash_decode_reference(q.float(), kp.float(),
+                                             vp.float(), table, lens,
+                                             return_lse=True)
+    err, ok = compare(torch, o, ro)
+    live = lens > 0
+    lse_err = float((lse[live] - rl[live]).abs().max())
+    empty_ok = (not bool(o[~live].any())
+                and bool((lse[~live] <= NEG_INF / 2).all())
+                and bool((rl[~live] <= NEG_INF / 2).all()))
+    ms = cuda_ms(torch, run)
+    device_ms = graph_ms(torch, run)
+    plain_ms = cuda_ms(torch, lambda: ft.paged_flash_decode_reference(
+        q, kp, vp, table, lens, return_lse=True))
+    kd = kp[table.long()].reshape(B, S, H, D)
+    vd = vp[table.long()].reshape(B, S, H, D)
+    mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None].long())
+    library_ms = cuda_ms(torch, sdpa(F, q, kd, vd,
+                                     attn_mask=mask[:, None, None]))
+    del kd, vd
+    n_kv = sum(PARTIAL_LENS)
+    flops = 4.0 * D * H * n_kv
+    nbytes = (2.0 * 2 * n_kv * H * D + 2.0 * B * H * D + 4.0 * B * H * D
+              + 4.0 * B * H + 4.0 * B
+              + 4.0 * sum(-(-n // ps) for n in PARTIAL_LENS))
+    bound_ms, bound_by = bound(flops, nbytes)
+    line = {"phase": "kernel", "name": "paged_flash_decode_lse",
+            "card": card,
+            "shape": f"B={B} ps={ps} max_pages={max_pages} Sq=1 Hq={H} "
+                     f"Hkv={H} D={D} local_lengths={PARTIAL_LENS} "
+                     "(fp32 o + lse)",
+            **decode_split(torch, ft, S, B, H, H // H),
+            "max_abs_err": err, "ok": ok, "lse_max_abs_err": lse_err,
+            "lse_atol": PARTIAL_LSE_ATOL, "empty_rows_ok": empty_ok,
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, **rates(flops, ms, bound_ms),
+            "device_bound_share": bound_ms / device_ms}
+    emit(line)
+    if not (ok and lse_err <= PARTIAL_LSE_ATOL and empty_ok):
+        raise AssertionError(f"paged_flash_decode's partial form disagrees "
+                             f"with its plain version: {line}")
+    return line
+
+
+def kernel_child(name: str, out: str) -> int:
+    """A new kernel form's first launches, in this child process (this
+    script's --kernel-child mode; a hung kernel ends at the parent's
+    timeout instead of hanging the run): its check, its result as JSON to
+    `out`."""
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, REPO)
+    from megatron_tpu_torch.ops.flash import flash_template as ft
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check = {"paged_partial": check_paged_partial}[name]
+    with open(out, "w") as f:
+        json.dump(check(torch, F, ft, card_line()), f)
+    return 0
+
+
+def paged_partial(torch, F, ft, card):
+    """Phase 2c's partial form, in a child process with a timeout (ROADMAP
+    ground rules: a new kernel form's first run); its kernel line is
+    printed by the child."""
+    import tempfile
+
+    fd, out = tempfile.mkstemp(prefix="smoke_partial_", suffix=".json")
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--kernel-child",
+             "paged_partial", out], cwd=REPO, capture_output=True,
+            text=True, timeout=PARTIAL_TIMEOUT_S)
+        print(proc.stdout, end="", flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"partial-form child rc {proc.returncode}:"
+                                 f" {proc.stderr[-4000:]}")
+        with open(out) as f:
+            return json.load(f)
+    finally:
+        os.remove(out)
+
+
+# ---------------------------------------------------------------------------
 # phase 2b: backward kernels vs the plain backward
 # ---------------------------------------------------------------------------
 
@@ -1374,6 +1559,12 @@ def _zero_decode_counts(ft):
         getattr(ft, name).launches = 0
     for name in ("flash_decode", "paged_flash_decode"):
         getattr(ft, name).launches_by_sq.clear()
+        getattr(ft, name).launches_by_form.clear()
+
+
+def _partial_count(ft) -> int:
+    """B5's partial-form launches (a context-parallel rank's decode)."""
+    return ft.paged_flash_decode.launches_by_form.get("lse", 0)
 
 
 def _decode_forms(ft):
@@ -2639,7 +2830,8 @@ def serve_control(torch, ft, card, dense_tokens):
 
 
 def teacher_force(torch, dataclasses, cfg, params, prompts, generated,
-                  int8=False, stream_fp32=False):
+                  int8=False, stream_fp32=False, mesh=None, tp_comm=None,
+                  transport=None):
     """Hold the engine's greedy tokens against the plain path.
 
     Each finished sequence is teacher-forced through lm_forward with the
@@ -2655,11 +2847,22 @@ def teacher_force(torch, dataclasses, cfg, params, prompts, generated,
     passes with the int8 KV round trip the engine made (an int8 cache of
     the sequence's length: K/V quantized, attention over the dequantized
     cache). stream_fp32=True upcasts the referee's weights a layer at a
-    time (a model too large for an fp32 copy beside it)."""
+    time (a model too large for an fp32 copy beside it). mesh, tp_comm:
+    run on every rank of a tensor-parallel mesh over this rank's params,
+    both plain passes through the same compressed collectives as the
+    engine (quant/collectives.py), the function that engine serves (as
+    int8=True is for an int8 cache). transport: for each sequence, each
+    position's largest logit change made by a lossy transport the engine
+    ran and the plain path does not (_transport_error); the engine's
+    token and the plain argmax may each move by it, so twice it widens
+    that position's near-tie band. teacher_forced_band_max is the largest
+    bf16 band, without the transport."""
     from megatron_tpu_torch.inference.generation import _init_caches
     from megatron_tpu_torch.models.language_model import lm_forward
 
     def forward(c, p, seq):
+        if mesh is not None:
+            return lm_forward(c, p, seq, mesh=mesh, tp_comm=tp_comm)
         if not int8:
             return lm_forward(c, p, seq)
         caches = _init_caches(c, 1, seq.shape[1], device="cuda", int8=True)
@@ -2669,7 +2872,7 @@ def teacher_force(torch, dataclasses, cfg, params, prompts, generated,
     ref = dataclasses.replace(plain, params_dtype="float32")
     params32 = None if stream_fp32 else _upcast(params)
     strict = near = plain_vs_fp32 = total = 0
-    worst_gap = 0.0
+    worst_gap = band_max = 0.0
     misses = []          # the positions outside the near-tie band
     with torch.no_grad():
         for seq_i, (prompt, gen) in enumerate(zip(prompts, generated)):
@@ -2681,6 +2884,10 @@ def teacher_force(torch, dataclasses, cfg, params, prompts, generated,
             tok = torch.tensor(gen, device="cuda")
             gap = lb.max(-1).values - lb.gather(1, tok[:, None])[:, 0]
             band = (lb - l32).abs().max(-1).values
+            band_max = max(band_max, float(band.max()))
+            if transport is not None:
+                band = band + 2 * torch.tensor(transport[seq_i],
+                                               device=band.device)
             strict += int((lb.argmax(-1) == tok).sum())
             near += int((gap <= band).sum())
             misses += [{"sequence": seq_i, "position": j,
@@ -2695,6 +2902,7 @@ def teacher_force(torch, dataclasses, cfg, params, prompts, generated,
             "teacher_forced_strict_argmax": strict / total,
             "plain_bf16_vs_fp32_argmax": plain_vs_fp32 / total,
             "teacher_forced_worst_gap": worst_gap,
+            "teacher_forced_band_max": band_max,
             "teacher_forced_positions": total,
             "teacher_forced_misses": misses}
 
@@ -5326,7 +5534,10 @@ def rank_serve(out: str, runs) -> int:
           through the one-shot server, and the request again in this
           thread under the profiler; (c) pretrain_gpt's main with
           runs[1];
-      7   pretrain_gpt's main with each of runs[2:] (rank_run's records).
+      7   pretrain_gpt's main with each of runs[2:] (rank_run's records);
+      7h  _long_context_serve: the context-parallel server at cp2 (dense,
+          then int8 hops), its filled ticks, and the tp2 engine server
+          with int8 TP collectives.
 
     Each part's kernel launches, walls and rank 0's tokens go to
     `out`.rank<RANK>.json."""
@@ -5580,11 +5791,187 @@ def rank_serve(out: str, runs) -> int:
             record["runs"].append(_run_record(torch, ft, flags, mesh.rank))
             free()
         part("7")
+
+        # 7h: the context-parallel engine and the compressed collectives
+        record["long_context"] = _long_context_serve(
+            torch, np, ft, args, cfg, mesh, lead, sync, free, out)
+        part("7h")
     finally:
         destroy_distributed()
     with open(f"{out}.rank{record['rank']}.json", "w") as f:
         json.dump(record, f)
     return 0
+
+
+def cp_serve_cfg(cfg):
+    """Phase 7h (a)/(b)'s model: 7d's cut to CP_SERVE_LAYERS."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, num_layers=CP_SERVE_LAYERS).validate()
+
+
+def cp_serve_prompts(np, cfg) -> list:
+    """Phase 7h's prompts: phase 3's four (the same seeded draws) and one
+    of CP_LONG_PROMPT tokens drawn after them."""
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size - 1, size=n).tolist()
+               for n in PROMPT_LENS]
+    return prompts + [rng.integers(0, cfg.vocab_size - 1,
+                                   size=CP_LONG_PROMPT).tolist()]
+
+
+def _long_context_serve(torch, np, ft, args, cfg, mesh, lead, sync, free,
+                        out) -> dict:
+    """Phase 7h on the launch's two ranks: (a)/(b) the context-parallel
+    server at cp2 (dense, then int8 hops) on the width's weights, phase
+    3's traffic plus the long prompt, each rank's launches and, on rank
+    0, the engine's stats with the byte model's prices of a tick and a
+    chunk, then (a)'s engine's filled ticks, timed and traced; (c) the
+    tp2 dense engine server at the same depth, phase 3's traffic, dense
+    and then with int8 TP collectives, and on both ranks the int8
+    collectives' logit change on its tokens and phase 3's teacher-forced
+    gate through the same collectives."""
+    from megatron_tpu_torch.inference.context_parallel import (
+        ContextParallelEngine,
+    )
+    from megatron_tpu_torch.models.params import init_params
+    from megatron_tpu_torch.parallel.distributed import (
+        ServingChannel, serving_mesh,
+    )
+    from megatron_tpu_torch.quant.collectives import (
+        cp_ring_comm_bytes, forward_comm_bytes, make_tp_comm,
+    )
+    from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
+    from megatron_tpu_torch.tokenizer import NullTokenizer
+
+    tokenizer = NullTokenizer(cfg.vocab_size)
+    prompts = cp_serve_prompts(np, cfg)
+    res = {}
+    cp_mesh = serving_mesh(1, 1, 2)
+    ccfg = cp_serve_cfg(cfg)
+    t0 = time.monotonic()
+    params = init_params(ccfg, args.seed, device=args.device, mesh=cp_mesh)
+    sync()
+    res["init_s"] = time.monotonic() - t0
+
+    def cp_kw(mode):
+        return dict(engine_slots=CP_SERVE_SLOTS,
+                    engine_max_seq_len=CP_SERVE_SEQ, device=args.device,
+                    mesh=cp_mesh, cuda_graph=False, kv_paging=True,
+                    page_size=PAGE_SIZE, prefill_chunk=TP_PREFILL_CHUNK,
+                    channel=ServingChannel(cp_mesh.control_group,
+                                           cp_mesh.rank),
+                    cp_serving=True, cp_collectives=mode)
+
+    def cp_drive(service, base):
+        run = _engine_traffic(ft, service, base, prompts)
+        eng = service.engine
+        run["bytes_tick"] = cp_ring_comm_bytes(ccfg, eng.cp_comm,
+                                               eng.num_slots, 1)
+        run["bytes_chunk"] = cp_ring_comm_bytes(ccfg, eng.cp_comm, 1,
+                                                eng.prefill_chunk)
+        run["pool_pages_per_rank"] = eng.pool.pages_per_rank
+        return run
+
+    for mode in ("dense", "int8"):
+        _zero_decode_counts(ft)
+        if args.device.startswith("cuda"):
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        run = _served(cp_kw(mode), ccfg, params, tokenizer, lead, cp_drive)
+        res[mode] = {"launches": _decode_counts(ft),
+                     "partial_launches": _partial_count(ft),
+                     "wall_s": time.monotonic() - t0,
+                     "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                  if args.device.startswith("cuda")
+                                  else None)}
+        if lead:
+            res[mode].update(run)
+        free()
+    ch = ServingChannel(cp_mesh.control_group, cp_mesh.rank)
+    eng = ContextParallelEngine(
+        ccfg, params, num_slots=CP_SERVE_SLOTS, max_seq_len=CP_SERVE_SEQ,
+        page_size=PAGE_SIZE, prefill_chunk=TP_PREFILL_CHUNK,
+        device=args.device, metrics=MetricsRegistry(), cuda_graph=False,
+        mesh=cp_mesh, channel=ch)
+    _zero_decode_counts(ft)
+    res["tick"] = _filled_ticks(torch, eng, ch, lead, PAGED_TICK_LENS,
+                                ccfg.vocab_size, f"{out}.cp_trace.json", sync)
+    res["tick_launches"] = _decode_counts(ft)
+    res["tick_partial_launches"] = _partial_count(ft)
+    del eng, params
+    free()
+
+    # (c) the tp2 engine at ccfg's depth, dense then with int8 TP
+    # collectives, phase 3's traffic
+    tparams = init_params(ccfg, args.seed, device=args.device, mesh=mesh)
+    tprompts = prompts[:len(PROMPT_LENS)]
+
+    def tp_drive(service, base):
+        run = _engine_traffic(ft, service, base, tprompts)
+        eng = service.engine
+        if eng.tp_comm is not None:
+            run["bytes_tick"] = forward_comm_bytes(ccfg, eng.tp_comm,
+                                                   eng.num_slots, 1)
+            run["bytes_prefill"] = [
+                forward_comm_bytes(ccfg, eng.tp_comm, 1, eng._bucket(len(p)))
+                for p in tprompts + [tprompts[1]]]
+        return run
+
+    for mode in ("none", "int8"):
+        _zero_decode_counts(ft)
+        run = _served(dict(engine_slots=TP_SLOTS, engine_max_seq_len=TP_SEQ,
+                           device=args.device, mesh=mesh,
+                           channel=ServingChannel(mesh.control_group,
+                                                  mesh.rank),
+                           cuda_graph=False, compress_collectives=mode),
+                      ccfg, tparams, tokenizer, lead, tp_drive)
+        key = "tp_int8" if mode == "int8" else "tp_dense"
+        res[key] = {"launches": _decode_counts(ft)}
+        if lead:
+            res[key].update(run)
+    # on both ranks, on the int8 engine's tokens: each position's logit
+    # change made by the int8 collectives (the first gate's transport
+    # band), and phase 3's gate with both plain passes through the same
+    # collectives (the second: the compressed function's own)
+    import dataclasses
+
+    import torch.distributed as dist
+
+    box = [res["tp_int8"]["generated"] if lead else None]
+    dist.broadcast_object_list(box, src=0)
+    tp_comm = make_tp_comm(mesh, "int8", cfg=ccfg)
+    res["tp_int8"]["transport"] = _transport_error(
+        torch, dataclasses, ccfg, tparams, tprompts, box[0], mesh, tp_comm)
+    res["tp_int8"]["teacher_forced_compressed"] = teacher_force(
+        torch, dataclasses, ccfg, tparams, tprompts, box[0], mesh=mesh,
+        tp_comm=tp_comm)
+    del tparams
+    free()
+    return res
+
+
+def _transport_error(torch, dataclasses, cfg, params, prompts, generated,
+                     mesh, tp_comm) -> list:
+    """For each teacher-forced sequence (teacher_force's), each position's
+    largest |logit| change that tp_comm's collectives make to the plain
+    bf16 forward on this rank's params: the same context through the
+    same mesh with and without them."""
+    from megatron_tpu_torch.models.language_model import lm_forward
+    from megatron_tpu_torch.quant.collectives import gather_logits
+
+    plain = dataclasses.replace(cfg, attention_impl="xla")
+    out = []
+    with torch.no_grad():
+        for prompt, gen in zip(prompts, generated):
+            seq = torch.tensor([prompt + gen[:-1]], device="cuda")
+            p0 = len(prompt) - 1
+            lb = gather_logits(lm_forward(plain, params, seq, mesh=mesh),
+                               mesh, None)[0, p0:].float()
+            lc = lm_forward(plain, params, seq, mesh=mesh,
+                            tp_comm=tp_comm)[0, p0:].float()
+            out.append((lc - lb).abs().max(-1).values.tolist())
+    return out
 
 
 def mixtral_serve_cfg(dataclasses, presets, dtype: str):
@@ -6146,6 +6533,179 @@ def parallel_serving(torch, np, ft, card):
     return total
 
 
+def long_context_serving(torch, np, ft, card):
+    """Phase 7h, the last part of phase 7's launch (rank_serve): (a) the
+    context-parallel engine at cp2 (dense ring hops) held to the
+    one-process plain path by phase 3's teacher-forced gate, each rank's
+    B5 partial-form launches = layers x ticks (B1 = B4 = 0: the chunk's
+    partial is the plain stripe path), engine_cp_ring_steps_total =
+    layers x (ticks + chunks), the cp byte counters = the byte model's
+    prices x ticks and chunks; (b) the same with int8 hops, its tokens by
+    the same gate and beside (a)'s; (c) the tp2 engine with int8 TP
+    collectives: the gate, B1 = layers x prefills and B4 = layers x
+    ticks a rank, engine_comm_*_bytes = the byte model's tick price x
+    ticks + each prefill's; (a)'s filled ticks' wall and comm.* share,
+    (c)'s tick wall and tokens beside its dense run's. (c) has three
+    gates: phase 3's gate against the uncompressed one-process plain
+    path with each position's near-tie band widened by twice the int8
+    collectives' own logit change there (measured on the ranks,
+    _transport_error); that change at most TRANSPORT_BAND_RATIO x the
+    largest bf16 band; and phase 3's gate with both plain passes through
+    the same int8 collectives (the compressed function's own). Returns the launches by path (cp_serving, compressed_tp_serving),
+    summed over the ranks."""
+    import dataclasses
+
+    from megatron_tpu_torch.models import presets
+    from megatron_tpu_torch.models.params import init_params
+
+    if "recs" not in PARALLEL_LAUNCH:
+        raise AssertionError("phase 7h runs in phase 7's launch, which did "
+                             "not run")
+    recs = PARALLEL_LAUNCH["recs"]
+    lc = [r["long_context"] for r in recs]
+    cfg = tp_serve_cfg(dataclasses, presets)
+    ccfg = cp_serve_cfg(cfg)
+    prompts = cp_serve_prompts(np, cfg)
+    problems = []
+    params = init_params(ccfg, SEED, device="cuda")
+    tfs = {m: teacher_force(torch, dataclasses, ccfg, params,
+                            prompts, lc[0][m]["generated"])
+           for m in ("dense", "int8")}
+    tf_tp = teacher_force(torch, dataclasses, ccfg, params,
+                          prompts[:len(PROMPT_LENS)],
+                          lc[0]["tp_int8"]["generated"],
+                          transport=lc[0]["tp_int8"]["transport"])
+    del params
+    free_cuda(torch)
+    gloo = ("gloo (CUDA tensors staged through host memory; not NCCL "
+            "numbers)")
+    paths = {"cp_serving": {}, "compressed_tp_serving": {}}
+    CL = CP_SERVE_LAYERS
+    for mode in ("dense", "int8"):
+        r0 = lc[0][mode]
+        st = r0["stats"]
+        ticks, chunks = st["ticks"], st["prefill_chunks"]
+        want = {"flash_fwd": 0, "flash_decode": 0,
+                "paged_flash_decode": CL * ticks}
+        for r, rec in enumerate(lc):
+            if rec[mode]["launches"] != want:
+                problems.append(f"cp {mode} rank {r} launches "
+                                f"{rec[mode]['launches']} != {want}")
+            if rec[mode]["partial_launches"] != CL * ticks:
+                problems.append(f"cp {mode} rank {r} partial-form launches "
+                                f"{rec[mode]['partial_launches']} != "
+                                f"{CL * ticks}")
+            _add_counts(paths["cp_serving"], dict(
+                rec[mode]["launches"],
+                paged_flash_decode_lse=rec[mode]["partial_launches"]))
+        if st["cp_ring_steps"] != CL * (ticks + chunks):
+            problems.append(f"cp {mode}: cp_ring_steps {st['cp_ring_steps']}"
+                            f" != {CL} x ({ticks} + {chunks})")
+        for kind in ("dense", "compressed"):
+            want_b = (ticks * r0["bytes_tick"][kind]
+                      + chunks * r0["bytes_chunk"][kind])
+            if st[f"cp_comm_{kind}_bytes"] != want_b:
+                problems.append(f"cp {mode}: cp_comm_{kind}_bytes "
+                                f"{st[f'cp_comm_{kind}_bytes']} != {want_b}")
+        same = [a == b for x, y in zip(r0["generated"],
+                                       lc[0]["dense"]["generated"])
+                for a, b in zip(x, y)]
+        line = {"phase": "cp_serving", "card": card, "model": "llama2-7B",
+                "layers": CL, "cp": 2, "geometry": "ring (overlapped)",
+                "hops": mode, "backend": gloo, "slots": CP_SERVE_SLOTS,
+                "max_seq_len": CP_SERVE_SEQ, "page_size": PAGE_SIZE,
+                "prefill_chunk": TP_PREFILL_CHUNK,
+                "pool_pages_per_rank": r0["pool_pages_per_rank"],
+                "requests": [{"prompt_tokens": len(p), "wall_s": w}
+                             for p, w in zip(prompts, r0["walls"])],
+                "concurrent_wall_s": r0["concurrent_wall_s"],
+                "ttft_mean_s": r0["ttft_mean_s"],
+                "tick_wall_mean_s": r0["tick_wall_mean_s"],
+                "per_token_mean_s": r0["per_token_mean_s"],
+                "decode_ticks": ticks, "prefill_chunks": chunks,
+                "stats": {k: st[k] for k in (
+                    "cp_ring_steps", "cp_comm_dense_bytes",
+                    "cp_comm_compressed_bytes", "prefix_hits",
+                    "preemptions", "admitted", "retired")},
+                "bytes_tick": r0["bytes_tick"],
+                "bytes_chunk": r0["bytes_chunk"],
+                "launches_per_rank": [rec[mode]["launches"] for rec in lc],
+                "partial_launches_per_rank": [rec[mode]["partial_launches"]
+                                              for rec in lc],
+                "tokens_equal_dense_hops": sum(same) / max(len(same), 1),
+                "peak_gib_per_rank": [rec[mode]["peak_gib"] for rec in lc],
+                "wall_s": r0["wall_s"], **tfs[mode]}
+        if mode == "dense":
+            line["filled_tick"] = lc[0]["tick"]
+            line["filled_tick_partial_launches_per_rank"] = [
+                rec["tick_partial_launches"] for rec in lc]
+            for rec in lc:
+                _add_counts(paths["cp_serving"], dict(
+                    rec["tick_launches"],
+                    paged_flash_decode_lse=rec["tick_partial_launches"]))
+        emit(line)
+        if tfs[mode]["teacher_forced_match"] < MATCH_GATE:
+            problems.append(f"cp {mode} teacher-forced match "
+                            f"{tfs[mode]['teacher_forced_match']:.4f}")
+    t0, td = lc[0]["tp_int8"], lc[0]["tp_dense"]
+    st = t0["stats"]
+    want = {"flash_fwd": CL * t0["prefills"],
+            "flash_decode": CL * t0["ticks"], "paged_flash_decode": 0}
+    for r, rec in enumerate(lc):
+        if rec["tp_int8"]["launches"] != want:
+            problems.append(f"tp int8 rank {r} launches "
+                            f"{rec['tp_int8']['launches']} != {want}")
+        _add_counts(paths["compressed_tp_serving"],
+                    rec["tp_int8"]["launches"])
+    for kind in ("dense", "compressed"):
+        want_b = (st["ticks"] * t0["bytes_tick"][kind]
+                  + sum(b[kind] for b in t0["bytes_prefill"]))
+        if st[f"comm_{kind}_bytes"] != want_b:
+            problems.append(f"tp int8: comm_{kind}_bytes "
+                            f"{st[f'comm_{kind}_bytes']} != {want_b}")
+    same = [a == b for x, y in zip(t0["generated"], td["generated"])
+            for a, b in zip(x, y)]
+    tf_comp = t0["teacher_forced_compressed"]
+    transport_max = max(max(t) for t in t0["transport"])
+    transport_limit = TRANSPORT_BAND_RATIO * tf_tp["teacher_forced_band_max"]
+    emit({"phase": "compressed_tp_serving", "card": card,
+          "model": "llama2-7B", "layers": CL, "tp": 2,
+          "compress_collectives": "int8", "backend": gloo,
+          "requests": [{"prompt_tokens": len(p), "wall_s": w}
+                       for p, w in zip(prompts, t0["walls"])],
+          "ttft_mean_s": t0["ttft_mean_s"],
+          "tick_wall_mean_s": t0["tick_wall_mean_s"],
+          "prefills": t0["prefills"], "decode_ticks": t0["ticks"],
+          "comm_dense_bytes": st["comm_dense_bytes"],
+          "comm_compressed_bytes": st["comm_compressed_bytes"],
+          "bytes_tick": t0["bytes_tick"],
+          "tick_wall_mean_s_dense": td["tick_wall_mean_s"],
+          "ttft_mean_s_dense": td["ttft_mean_s"],
+          "tokens_equal_dense": sum(same) / max(len(same), 1),
+          "launches_per_rank": [rec["tp_int8"]["launches"] for rec in lc],
+          "transport_logit_change_max": transport_max,
+          "transport_logit_change_limit": transport_limit,
+          **tf_tp, "teacher_forced_compressed": tf_comp})
+    if tf_tp["teacher_forced_match"] < MATCH_GATE:
+        problems.append(f"tp int8 teacher-forced match against the "
+                        f"uncompressed path "
+                        f"{tf_tp['teacher_forced_match']:.4f}")
+    if transport_max > transport_limit:
+        problems.append(f"tp int8: the collectives' logit change "
+                        f"{transport_max:.4g} > {TRANSPORT_BAND_RATIO} x "
+                        f"the bf16 band {transport_limit:.4g}")
+    if tf_comp["teacher_forced_match"] < MATCH_GATE:
+        problems.append(f"tp int8 teacher-forced match through the "
+                        f"compressed path "
+                        f"{tf_comp['teacher_forced_match']:.4f}")
+    emit({"phase": "long_context_part_s", "card": card,
+          "seconds": recs[0]["part_s"].get("7h"),
+          "init_s": lc[0]["init_s"]})
+    if problems:
+        raise AssertionError("long-context serving: " + "; ".join(problems))
+    return paths
+
+
 def _argmax_gate(torch, recs, plain, problems) -> dict:
     """7e(c)'s predicted ids: on each rank equal to torch.argmax of the
     gathered logits (and the accuracy against them 1), the same on both
@@ -6373,6 +6933,7 @@ def main(argv=()) -> int:
     phase("flash_fwd", check_flash_fwd, torch, F, ft, card)
     phase("flash_decode", check_flash_decode, torch, F, ft, card)
     phase("paged_flash_decode", check_paged_flash_decode, torch, F, ft, card)
+    phase("paged_flash_decode_lse", paged_partial, torch, F, ft, card)
     phase("flash_bwd", check_flash_bwd, torch, F, ft, card)
     phase("serving", serve, torch, ft, card)
     phase("paged_serving", serve_paged, torch, ft, card,
@@ -6392,6 +6953,11 @@ def main(argv=()) -> int:
     phase("loop", loop_and_data, torch, np, ft, card)
     phase("parallel", parallel_training, torch, np, ft, card)
     phase("parallel_serving", parallel_serving, torch, np, ft, card)
+    phase("long_context_serving", long_context_serving, torch, np, ft, card)
+    if PARALLEL_LAUNCH.get("recs"):
+        # 7h's seconds inside phase 7's launch (rank 0's part)
+        seconds["parallel/7h_in_launch"] = PARALLEL_LAUNCH["recs"][0][
+            "part_s"].get("7h")
     emit({"phase": "seconds_by_phase", "seconds": seconds,
           "total_s": time.monotonic() - t_start,
           "build_s": t_start - t0})
@@ -6416,15 +6982,19 @@ def main(argv=()) -> int:
              "loop": results["loop"],
              "parallel": results["parallel"],
              "context_parallel": PARALLEL_CP,
-             "parallel_serving": results["parallel_serving"]}
+             "parallel_serving": results["parallel_serving"],
+             **results["long_context_serving"]}
     reports = {"flash_fwd": results["flash_fwd"],
                "flash_decode": results["flash_decode"],
                "paged_flash_decode": results["paged_flash_decode"],
+               "paged_flash_decode_lse": results["paged_flash_decode_lse"],
                **results["flash_bwd"]}
     kernels = []
     for name, source, line in (("flash_fwd", "flash_fwd.cu", 92),
                                ("flash_decode", "flash_decode.cu", 419),
                                ("paged_flash_decode", "flash_decode.cu", 553),
+                               ("paged_flash_decode_lse", "flash_decode.cu",
+                                553),
                                ("flash_bwd_dq", "flash_bwd_dq.cu", 197),
                                ("flash_bwd_dkv", "flash_bwd_dkv.cu", 235)):
         rep = reports[name]
@@ -6449,6 +7019,8 @@ def main(argv=()) -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--kernel-child":
+        sys.exit(kernel_child(sys.argv[2], sys.argv[3]))
     if len(sys.argv) > 2 and sys.argv[1] in ("--rank-run", "--rank-serve"):
         rest = sys.argv[3:]
         rest = rest[1:] if rest[:1] == ["--"] else rest

@@ -74,6 +74,19 @@
 //    the finite NEG_INF as in the TPU kernel. Scratch-page entries (idle
 //    rows, pages released behind a window) hold finite values and are
 //    masked to p = 0.
+//  * The partial form (either launch): with o32 given, o is written in
+//    fp32 there instead of bf16, and with lse given, each row's
+//    log-sum-exp of its scaled scores, fp32 [B, Hq, Sq] in natural-log
+//    units (flash_fwd's convention, which the context-parallel ring
+//    merge takes): the merge's running max and sum are in log2 units,
+//    so lse = (m + log2 l) * ln 2. A row that sees nothing (kv_len 0:
+//    a context-parallel rank that holds no page of the row) has no live
+//    split; split 0 of its block then writes o = 0 and lse = NEG_INF
+//    (every launch writes o, so the dense and paged forms take kv_len 0
+//    too). The partial is one rank's stripe of a row, merged with the
+//    other ranks' by inference/context_parallel/ring_kv.py: no new
+//    mask, since a stripe's visible keys are a prefix of its local
+//    table (the wrapper passes the local length as kv_len).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,6 +104,7 @@ constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_ROWS = 64;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // m16 tiles for R query rows (the wrapper sizes the workspace by the same
 // rule: flash_template.decode_plan)
@@ -169,6 +183,7 @@ __global__ void __launch_bounds__(THREADS)
                         const int* __restrict__ kv_lengths,
                         const int* __restrict__ page_table, int n_pages,
                         int max_pages, int page_shift, bf16* __restrict__ o,
+                        float* __restrict__ o32, float* __restrict__ lse,
                         float* __restrict__ part_o,
                         float* __restrict__ part_ml, int* __restrict__ tickets,
                         int Sq, int S, int Hq, int Hkv, int split_tiles,
@@ -197,7 +212,34 @@ __global__ void __launch_bounds__(THREADS)
   mtt::live_tile_range(BK, (S + BK - 1) / BK, kv_len - 1, kv_len + Sq - 2,
                        true, window, &lo, &hi);
   const int n_live = mtt::decode_live_splits(lo, hi, split_tiles);
-  if (split >= n_live) return;
+  // row gr of this tile's output: element c of query gr / G, head
+  // h * G + gr % G (o and o32 share o's strides)
+  auto out_off = [&](int gr, int c) {
+    return b * o_sb + (gr / G) * o_ss + (long long)(h * G + gr % G) * o_sh +
+           c;
+  };
+  auto store = [&](int gr, int c, float4 val, float row_lse) {
+    const long long off = out_off(gr, c);
+    if (o32 != nullptr) {
+      *reinterpret_cast<float4*>(o32 + off) = val;
+    } else {
+      uint2 packed;
+      packed.x = sm90::pack_bf16(val.x, val.y);
+      packed.y = sm90::pack_bf16(val.z, val.w);
+      *reinterpret_cast<uint2*>(o + off) = packed;
+    }
+    if (lse != nullptr && c == 0)
+      lse[((long long)b * Hq + h * G + gr % G) * Sq + gr / G] = row_lse;
+  };
+  if (split >= n_live) {
+    if (n_live == 0 && split == 0) {
+      // the row sees nothing: o = 0, lse = NEG_INF
+      for (int i = threadIdx.x; i < nr * (D / 4); i += THREADS)
+        store(row0 + i / (D / 4), (i % (D / 4)) * 4,
+              make_float4(0.f, 0.f, 0.f, 0.f), mtt::NEG_INF);
+    }
+    return;
+  }
   int t0, t1;
   mtt::decode_split_range(split, split_tiles, lo, hi, &t0, &t1);
   const int nt = t1 - t0;
@@ -418,11 +460,9 @@ __global__ void __launch_bounds__(THREADS)
       mx = m_new;
     }
     const float inv = 1.f / fmaxf(den, 1e-30f);
-    uint2 out;
-    out.x = sm90::pack_bf16(num.x * inv, num.y * inv);
-    out.y = sm90::pack_bf16(num.z * inv, num.w * inv);
-    *reinterpret_cast<uint2*>(o + b * o_sb + (gr / G) * o_ss +
-                              (long long)(h * G + gr % G) * o_sh + c) = out;
+    store(gr, c,
+          make_float4(num.x * inv, num.y * inv, num.z * inv, num.w * inv),
+          den > 0.f ? (mx + log2f(den)) * LN2 : mtt::NEG_INF);
   }
 }
 
@@ -431,6 +471,7 @@ struct Args {
   const int *lens, *table;
   int n_pages, max_pages, page_shift;
   void* o;
+  float *o32, *lse;
   float *part_o, *part_ml;
   int* tickets;
   int B, Sq, S, Hq, Hkv, split_tiles, n_split;
@@ -452,7 +493,8 @@ cudaError_t launch(const Args& a) {
   flash_decode_kernel<D, M, PAGED><<<grid, THREADS, L::total, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), a.lens, a.table, a.n_pages, a.max_pages,
-      a.page_shift, static_cast<bf16*>(a.o), a.part_o, a.part_ml, a.tickets,
+      a.page_shift, static_cast<bf16*>(a.o), a.o32, a.lse, a.part_o,
+      a.part_ml, a.tickets,
       a.Sq, a.S, a.Hq, a.Hkv, a.split_tiles, a.qs[0], a.qs[1], a.qs[2],
       a.ks[0], a.ks[1], a.ks[2], a.vs[0], a.vs[1], a.vs[2], a.os[0], a.os[1],
       a.os[2], a.scale, a.window);
@@ -492,12 +534,18 @@ int dispatch(const Args& a, int D) {
 // rows, M = 1, 2, 4 for TR <= 16, 32, 64) and tickets int32
 // [B * Hkv * T], zero before the launch and left at zero by it.
 //
+// The partial form: o32 (fp32, o's strides) non-null writes o there
+// instead of the bf16 o (which may then be null); lse non-null writes
+// the rows' log-sum-exp, fp32 [B, Hq, Sq] contiguous. kv_len 0 gives
+// o = 0 and lse = NEG_INF.
+//
 // Dense: q/o are [B, Sq, Hq, D], k/v [B, S, Hkv, D], kv_lengths [B] int32
 // on the device; strides in elements as (batch, seq, head), head dim
 // contiguous. window <= 0 means no sliding window.
 extern "C" int mtt_flash_decode_bf16(
     const void* q, const void* k, const void* v, const void* kv_lengths,
-    void* o, void* part_o, void* part_ml, void* tickets, int B, int Sq, int S,
+    void* o, void* o32, void* lse, void* part_o, void* part_ml,
+    void* tickets, int B, int Sq, int S,
     int Hq, int Hkv, int D, int split_tiles, int n_split, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
@@ -505,7 +553,8 @@ extern "C" int mtt_flash_decode_bf16(
     void* stream) {
   cudaGetLastError();  // clear any stale error of this runtime
   const Args a{q, k, v, static_cast<const int*>(kv_lengths), nullptr, 0, 0, 0,
-               o, static_cast<float*>(part_o), static_cast<float*>(part_ml),
+               o, static_cast<float*>(o32), static_cast<float*>(lse),
+               static_cast<float*>(part_o), static_cast<float*>(part_ml),
                static_cast<int*>(tickets), B, Sq, S, Hq, Hkv, split_tiles,
                n_split, {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
                {v_sb, v_ss, v_sh}, {o_sb, o_ss, o_sh}, scale, window,
@@ -519,8 +568,9 @@ extern "C" int mtt_flash_decode_bf16(
 // the scratch page), ps = 1 << page_shift, S = max_pages * ps.
 extern "C" int mtt_paged_flash_decode_bf16(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* page_table, const void* kv_lengths, void* o, void* part_o,
-    void* part_ml, void* tickets, int B, int Sq, int n_pages, int max_pages,
+    const void* page_table, const void* kv_lengths, void* o, void* o32,
+    void* lse, void* part_o, void* part_ml, void* tickets, int B, int Sq,
+    int n_pages, int max_pages,
     int page_shift, int Hq, int Hkv, int D, int split_tiles, int n_split,
     long long q_sb, long long q_ss, long long q_sh, long long k_sp,
     long long k_sr, long long k_sh, long long v_sp, long long v_sr,
@@ -533,7 +583,8 @@ extern "C" int mtt_paged_flash_decode_bf16(
   if (S > (1LL << 30)) return (int)cudaErrorInvalidValue;
   const Args a{q, k_pages, v_pages, static_cast<const int*>(kv_lengths),
                static_cast<const int*>(page_table), n_pages, max_pages,
-               page_shift, o, static_cast<float*>(part_o),
+               page_shift, o, static_cast<float*>(o32),
+               static_cast<float*>(lse), static_cast<float*>(part_o),
                static_cast<float*>(part_ml), static_cast<int*>(tickets), B, Sq,
                (int)S, Hq, Hkv, split_tiles, n_split, {q_sb, q_ss, q_sh},
                {k_sp, k_sr, k_sh}, {v_sp, v_sr, v_sh}, {o_sb, o_ss, o_sh},

@@ -98,6 +98,14 @@ multi-card machine, ROADMAP.md queue A item 7b); speculation and weight
 swaps are refused there, as on the JAX server's mesh. The paged engine
 (inference/paging/engine.py) has its own record.
 
+compress_collectives (--serve_compress_collectives, with a comm_policy of
+sites) routes the forward's row-parallel reductions and logits gather
+through quant/collectives.py's int8/fp8 collectives (a TpComm built once,
+as the JAX engine builds it; refused with speculation). The engine
+counts the static wire price of each prefill and decode tick in
+engine_comm_{dense,compressed}_bytes_total and journals one comm_policy
+record at build.
+
 The serving faults of MEGATRON_TPU_FAULT are injected between ticks
 (_pre_tick, the JAX engine's hooks). KV migration and on-demand
 profiling are not ported yet (inference/server.py).
@@ -130,6 +138,9 @@ from megatron_tpu_torch.inference.speculative import (
 )
 from megatron_tpu_torch.models.language_model import lm_forward
 from megatron_tpu_torch.ops.flash.flash_template import DECODE_BLOCK
+from megatron_tpu_torch.quant.collectives import (
+    forward_comm_bytes, make_tp_comm,
+)
 from megatron_tpu_torch.telemetry.metrics import (
     MetricsRegistry, default_registry,
 )
@@ -142,7 +153,8 @@ PREFILL_BUCKET = 64
 
 
 def _check_tensor_parallel(speculative, cuda_graph, channel) -> None:
-    """What the engines do not do under tensor parallelism yet."""
+    """What the engines do not do above one rank (tensor or context
+    parallelism) yet."""
     what = None
     if speculative is not None:
         what = ("speculative decoding (single-rank serving only, as on the "
@@ -244,6 +256,10 @@ class InferenceEngine:
     step()/run_until_idle() from one driver thread (start() spawns it).
     """
 
+    #: whether the engine serves a mesh with a context axis (only the
+    #: context-parallel engine's pools hold a rank's stripe of a sequence)
+    serves_context = False
+
     def __init__(self, cfg: ModelConfig, params: Any, num_slots: int = 8,
                  max_seq_len: Optional[int] = None,
                  vocab_size: Optional[int] = None,
@@ -251,7 +267,8 @@ class InferenceEngine:
                  speculative: Optional[SpecConfig] = None,
                  cuda_graph: bool = True, kv_cache_int8: bool = False,
                  max_queue: Optional[int] = None, mesh=None,
-                 channel=None):
+                 channel=None, compress_collectives: str = "none",
+                 comm_policy=None, comm_chunk: int = 32):
         """speculative: a SpecConfig turns on speculative decoding.
         cuda_graph: on CUDA, capture the decode tick as one CUDA graph at
         construction and replay it (False runs the same step eagerly, for
@@ -260,17 +277,44 @@ class InferenceEngine:
         max_queue: at most this many requests wait for a slot; a submit
         beyond it is rejected as overloaded (None: unbounded).
         mesh, channel: tensor-parallel serving (the module docstring);
-        params are then this rank's slices."""
+        params are then this rank's slices.
+        compress_collectives ("none" | "dense" | "int8" | "fp8"),
+        comm_policy, comm_chunk: the compressed tensor-parallel
+        collectives of the forward (quant/collectives.make_tp_comm; a
+        no-op at tp 1), refused with speculation as in the JAX engine."""
         self.mesh = mesh
         self.channel = channel
         self.tp = 1 if mesh is None else mesh.tp
-        self.leads = self.tp == 1 or mesh.tp_rank == 0
+        #: ranks the engine's forward spans (tensor x context); above one,
+        #: rank 0 drives the others through the channel
+        self.ranks = 1 if mesh is None else mesh.tp * mesh.cp
+        self.leads = mesh is None or mesh.rank == 0
         if mesh is not None and mesh.pp > 1:
             raise ValueError(
                 "the continuous-batching engine runs the single-stage "
                 "forward only — serve pp>1 models with engine_slots=0")
-        if self.tp > 1:
+        if mesh is not None and mesh.cp > 1 and not self.serves_context:
+            raise ValueError(
+                "a mesh with a context axis is served by the "
+                "context-parallel engine (inference/context_parallel/, "
+                "--serve_context_parallel), whose pools hold a rank's "
+                "stripe of each sequence")
+        if self.ranks > 1:
             _check_tensor_parallel(speculative, cuda_graph, channel)
+        # compressed TP collectives (quant/collectives.py): fixed at
+        # build; None when off or at tp 1 (the dense path unchanged)
+        self.tp_comm = make_tp_comm(mesh, compress_collectives, cfg=cfg,
+                                    policy=comm_policy, chunk=comm_chunk)
+        if self.tp_comm is not None and speculative is not None:
+            raise ValueError(
+                "compress_collectives with speculative decoding is not "
+                "supported (the spec step is not threaded through the "
+                "explicit TP collectives) — drop one of the two")
+        # the static wire prices of the counters: one decode tick's, and
+        # one prefill's a bucket (dense = what the dense path moves)
+        self._comm_tick_bytes = forward_comm_bytes(cfg, self.tp_comm,
+                                                   num_slots, 1)
+        self._comm_prefill_bytes = {}
         # slots cleared since the last control record (rank 0, tp > 1)
         self._cleared: List[int] = []
         if num_slots < 1:
@@ -381,6 +425,19 @@ class InferenceEngine:
             "engine_spec_accept_length",
             "accepted drafts per slot per tick (0..k)",
             buckets=(0.5, 1.5, 2.5, 3.5, 4.5, 6.5, 8.5, 12.5, 16.5))
+        # compressed-collective accounting (quant/): dense = the bytes the
+        # dense path would have moved for the same work, compressed =
+        # what this mode moves; their ratio is the live compression
+        self._m_comm_dense = m.counter(
+            "engine_comm_dense_bytes_total",
+            "TP-collective wire bytes the dense path would have moved")
+        self._m_comm_compressed = m.counter(
+            "engine_comm_compressed_bytes_total",
+            "TP-collective wire bytes actually moved by this mode")
+        if self.tp_comm is not None:
+            self.stats.update({"comm_dense_bytes": 0,
+                               "comm_compressed_bytes": 0})
+            self._journal_comm_policy()
         self._m_slots.set(num_slots)
 
         # the decode carry: static device buffers the step body reads
@@ -484,7 +541,8 @@ class InferenceEngine:
         positions = torch.arange(P, device=self.device)[None, :]
         logits, _ = lm_forward(self.cfg, self.params, tokens,
                                positions=positions, kv_caches=rows,
-                               cache_index=0, rope=self.rope, mesh=self.mesh)
+                               cache_index=0, rope=self.rope, mesh=self.mesh,
+                               tp_comm=self.tp_comm)
         if self._has_draft_model():
             # mirror the prompt into the draft tree so the first
             # speculative tick proposes with the full context
@@ -502,7 +560,7 @@ class InferenceEngine:
                 torch.tensor([req.top_p]), self.vocab_size)
         else:
             tok = torch.zeros(1, dtype=torch.long, device=self.device)
-        if self.tp > 1:
+        if self.ranks > 1:
             tok = from_rank0(tok.to(self.device), self.mesh)
         lp = float(torch.log_softmax(last.float(), dim=-1)[0, tok[0]])
         plp: List[float] = []
@@ -532,7 +590,8 @@ class InferenceEngine:
         if self.spec is None:
             logits, _ = lm_forward(self.cfg, self.params, last[:, None],
                                    kv_caches=self.caches, cache_index=lens,
-                                   rope=self.rope, mesh=self.mesh, **extra)
+                                   rope=self.rope, mesh=self.mesh,
+                                   tp_comm=self.tp_comm, **extra)
             logits = logits[:, 0].float()
             toks = torch.argmax(_mask_vocab(logits, self.vocab_size), dim=-1)
             lps = torch.gather(torch.log_softmax(logits, dim=-1), 1,
@@ -627,7 +686,7 @@ class InferenceEngine:
                     torch.from_numpy(self.top_ps), self.vocab_size)
                 lps = torch.gather(torch.log_softmax(out["logits"], dim=-1),
                                    1, toks[:, None])[:, 0]
-            if self.tp > 1:
+            if self.ranks > 1:
                 toks = self._agreed_tokens(toks, c["active"])
             c["lengths"].add_(c["active"])
             c["last_tok"].copy_(torch.where(c["active"].bool(), toks,
@@ -653,7 +712,7 @@ class InferenceEngine:
         if not torch.equal(agreed[1], active.long()):
             raise RuntimeError(
                 "tensor-parallel ranks disagree on the decode rows (rank 0 "
-                f"{agreed[1].tolist()}, rank {self.mesh.tp_rank} "
+                f"{agreed[1].tolist()}, rank {self.mesh.rank} "
                 f"{active.tolist()}): a scheduling decision missed the "
                 "control record")
         return agreed[0]
@@ -709,11 +768,60 @@ class InferenceEngine:
                 req.overloaded = True
                 return self._reject(
                     req, f"engine queue full ({self.max_queue} waiting); "
-                         "retry later")
+                         + self._overload_detail() + "retry later")
             self._queue.append(req)
             self._m_queue.set(len(self._queue))
             self._cv.notify_all()
         return req
+
+    def _overload_detail(self) -> str:
+        """Extra cause text of a queue-full rejection: an engine with a
+        richer admission model (the context-parallel engine's striped
+        pools) names what blocks, so the 503 detail tells resource
+        exhaustion from queue depth."""
+        return ""
+
+    def _journal_comm_policy(self) -> None:
+        """One comm_policy record an engine build: which collectives run
+        compressed and the static per-tick wire prices (the journal side
+        of the engine_comm_*_bytes_total counters)."""
+        from megatron_tpu_torch.telemetry import journal
+
+        j = journal.get_global_journal()
+        if j is None or self.tp_comm is None:
+            return
+        t = self._comm_tick_bytes
+        j.emit("comm_policy", mode=self.tp_comm.mode,
+               sites=sorted(self.tp_comm.sites), chunk=self.tp_comm.chunk,
+               tp=self.tp_comm.tp,
+               dense_bytes_per_tick=t["dense"],
+               compressed_bytes_per_tick=t["compressed"],
+               ratio=round(t["dense"] / max(t["compressed"], 1), 3))
+
+    def _count_comm(self, bytes_pair) -> None:
+        """Advance the compressed-collective byte counters by one
+        forward's static wire price ({"dense", "compressed"})."""
+        if self.tp_comm is None:
+            return
+        self.stats["comm_dense_bytes"] += bytes_pair["dense"]
+        self.stats["comm_compressed_bytes"] += bytes_pair["compressed"]
+        self._m_comm_dense.inc(bytes_pair["dense"])
+        self._m_comm_compressed.inc(bytes_pair["compressed"])
+
+    def _count_prefill(self, P: int) -> None:
+        """A prefill's wire price at bucket length P (computed once a
+        bucket)."""
+        if self.tp_comm is None:
+            return
+        pair = self._comm_prefill_bytes.get(P)
+        if pair is None:
+            pair = forward_comm_bytes(self.cfg, self.tp_comm, 1, P)
+            self._comm_prefill_bytes[P] = pair
+        self._count_comm(pair)
+
+    def _count_tick(self) -> None:
+        """A decode tick's wire price."""
+        self._count_comm(self._comm_tick_bytes)
 
     @property
     def num_active(self) -> int:
@@ -731,7 +839,7 @@ class InferenceEngine:
         self.generators[i] = None
         self.spec_on[i] = True
         self._carry_dirty = True
-        if self.tp > 1 and self.leads:
+        if self.ranks > 1 and self.leads:
             self._cleared.append(i)
 
     def _retire(self, i: int):
@@ -800,11 +908,12 @@ class InferenceEngine:
         except Exception as e:  # noqa: BLE001 - a failing prefill must
             # fail THIS request, not strand it or kill the step loop;
             # at tp > 1 the ranks' collectives are out of step: a fault
-            if self.tp > 1:
+            if self.ranks > 1:
                 raise
             self.generators[i] = None
             self._reject(req, f"prefill failed: {e}")
             return 0
+        self._count_prefill(self._bucket(len(full)))
         p = len(full)
         self.slots[i] = req
         self.lengths[i] = p
@@ -845,7 +954,7 @@ class InferenceEngine:
         for every active slot. Returns the number of active slots served
         (0 = idle). At tp > 1 (rank 0) the tick's control record goes to
         the other ranks first."""
-        if self.tp > 1:
+        if self.ranks > 1:
             return self._step_tensor_parallel()
         self._pre_tick()
         self._admit()
@@ -949,7 +1058,7 @@ class InferenceEngine:
         changes with them; a draft loaded from its own checkpoint keeps
         its weights. Returns an Event set once the swap is applied.
         Refused at tp > 1, as the JAX server refuses a reload on a mesh."""
-        if self.tp > 1:
+        if self.ranks > 1:
             raise ValueError(
                 "a weight swap under tensor parallelism is not supported "
                 "(as on the JAX server's mesh): restart the replicas with "
@@ -1094,6 +1203,7 @@ class InferenceEngine:
         self.stats["ticks"] += 1
         self._m_ticks.inc()
         self._m_tick.observe(time.monotonic() - t_tick)
+        self._count_tick()
         emitted = 0
         for i in active:
             req = self.slots[i]

@@ -75,8 +75,11 @@ meets its peer in order. Tokens are rank 0's, broadcast (the final
 chunk's first token, each tick's). The tick runs eagerly (the slot
 engine's rule), and int8 pools are cut the same way.
 
-Not ported: migration and prefix export/import, context-parallel
-paging and fault injection.
+compress_collectives runs the chunk and the tick through the compressed
+TP collectives (the slot engine's), each chunk counted at its static
+wire price. Context-parallel paging is the subclass in
+inference/context_parallel/. Not ported: migration and prefix
+export/import.
 """
 
 from __future__ import annotations
@@ -100,6 +103,7 @@ from megatron_tpu_torch.inference.speculative import SpecConfig
 from megatron_tpu_torch.models.language_model import lm_forward
 from megatron_tpu_torch.ops.flash.flash_template import check_page_size
 from megatron_tpu_torch.ops.kv_quant import kv_buffers
+from megatron_tpu_torch.quant.collectives import forward_comm_bytes
 from megatron_tpu_torch.telemetry.metrics import MetricsRegistry
 
 
@@ -118,7 +122,9 @@ class PagedInferenceEngine(InferenceEngine):
                  metrics: Optional[MetricsRegistry] = None, device="cuda",
                  speculative: Optional[SpecConfig] = None,
                  cuda_graph: bool = True, kv_cache_int8: bool = False,
-                 max_queue: Optional[int] = None, mesh=None, channel=None):
+                 max_queue: Optional[int] = None, mesh=None, channel=None,
+                 compress_collectives: str = "none", comm_policy=None,
+                 comm_chunk: int = 32):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if num_pages is not None and num_pages < 2:
@@ -135,7 +141,9 @@ class PagedInferenceEngine(InferenceEngine):
                          metrics=metrics, device=device,
                          speculative=speculative, cuda_graph=cuda_graph,
                          kv_cache_int8=kv_cache_int8, max_queue=max_queue,
-                         mesh=mesh, channel=channel)
+                         mesh=mesh, channel=channel,
+                         compress_collectives=compress_collectives,
+                         comm_policy=comm_policy, comm_chunk=comm_chunk)
         if self.num_pages - 1 < self.max_pages:
             raise ValueError(
                 f"num_pages={self.num_pages} cannot hold even one full "
@@ -153,6 +161,10 @@ class PagedInferenceEngine(InferenceEngine):
         self._pending_rows = {}
         self._table_dirty = True
         self.prefill_queue = ChunkedPrefillQueue(self.prefill_chunk)
+        # one chunk's static wire price for the compressed-collective
+        # counters (a [1, C] forward)
+        self._comm_chunk_bytes = forward_comm_bytes(
+            cfg, self.tp_comm, 1, self.prefill_chunk)
         # admission order for the preemption policy (higher = younger)
         self._admit_seq = [0] * N
         self._admit_counter = 0
@@ -266,22 +278,32 @@ class PagedInferenceEngine(InferenceEngine):
         # row (their outputs and writes are discarded)
         positions = (off + torch.arange(C, device=dev)).clamp(
             max=self.max_seq_len - 1)[None]
-        table = torch.tensor(row[None], device=dev)
         logits, _ = lm_forward(self.cfg, self.params, tokens[:, :C],
                                positions=positions, kv_caches=self.caches,
                                cache_index=off, rope=self.rope,
-                               page_table=table, page_write_start=write_start,
-                               page_write_end=total, mesh=self.mesh)
+                               page_write_start=write_start,
+                               page_write_end=total, mesh=self.mesh,
+                               tp_comm=self.tp_comm,
+                               **self._chunk_table_args(row))
         if self._has_draft_model():
             # mirror the chunk into the draft pools through the same
             # table row and write fences (write-only)
             lm_forward(self.spec.draft_cfg, self.draft_params,
                        tokens[:, :C], positions=positions,
                        kv_caches=self.draft_caches, cache_index=off,
-                       rope=self.draft_rope, page_table=table,
+                       rope=self.draft_rope,
                        page_write_start=write_start, page_write_end=total,
-                       return_hidden=True)
+                       return_hidden=True, **self._chunk_table_args(row))
         return logits, tokens
+
+    def _count_chunk(self) -> None:
+        """A prefill chunk's wire price."""
+        self._count_comm(self._comm_chunk_bytes)
+
+    def _chunk_table_args(self, row: np.ndarray) -> dict:
+        """The lm_forward keywords that address a chunk's table row (the
+        context-parallel engine passes this rank's local row)."""
+        return {"page_table": torch.tensor(row[None], device=self.device)}
 
     def _chunk_tokens(self, task: PrefillTask) -> np.ndarray:
         """The chunk's tokens plus the next one, [1, C + 1], zero-padded."""
@@ -323,17 +345,21 @@ class PagedInferenceEngine(InferenceEngine):
             last, [gen], torch.tensor([req.temperature]),
             torch.tensor([req.top_k]), torch.tensor([req.top_p]),
             self.vocab_size)
-        if self.tp > 1:
+        if self.ranks > 1:
             tok = from_rank0(tok.to(dev), self.mesh)
         lp = float(torch.log_softmax(last.float(), dim=-1)[0, tok[0]])
         return (int(tok[0]), lp, gen), plp
 
     # ----- page accounting -------------------------------------------------
 
-    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+    def _alloc_pages(self, n: int,
+                     logical_start: int = 0) -> Optional[List[int]]:
         """n fresh pages, evicting LRU cache-only prefix pages if the
         free list can't cover it. None = still dry (caller defers or
-        preempts)."""
+        preempts). logical_start: the logical page index the run starts
+        at within its row, unused here; the context-parallel engine's
+        striped pool draws each page from the rank that owns its logical
+        slot."""
         pages = self.pool.alloc(n)
         if pages is None:
             self.prefix_cache.evict(n - self.pool.free_pages)
@@ -406,7 +432,8 @@ class PagedInferenceEngine(InferenceEngine):
         # an eviction here would free a hit page and hand it back as
         # "fresh", mapping one physical page at two logical blocks
         self.pool.retain(hit_pages)
-        fresh = self._alloc_pages(n_prompt_pages - len(hit_pages))
+        fresh = self._alloc_pages(n_prompt_pages - len(hit_pages),
+                                  logical_start=len(hit_pages))
         if fresh is None:
             self.pool.release(hit_pages)
             if self.num_active == 0:
@@ -473,7 +500,7 @@ class PagedInferenceEngine(InferenceEngine):
         except Exception as e:  # noqa: BLE001 - a failing chunk must fail
             # THIS request, not strand it un-signalled and kill the loop;
             # at tp > 1 the ranks' collectives are out of step: a fault
-            if self.tp > 1:
+            if self.ranks > 1:
                 raise
             self._clear_slot(i)
             self._reject(req, f"prefill failed: {e}")
@@ -483,6 +510,7 @@ class PagedInferenceEngine(InferenceEngine):
         task.plp_parts.append(plp)
         self.stats["prefill_chunks"] += 1
         self.stats["prefill_tokens"] += n
+        self._count_chunk()
         self._m_chunks.inc()
         self._m_chunk.observe(time.monotonic() - t0)
         if self.prefill_queue.advance(task, n):
@@ -574,7 +602,7 @@ class PagedInferenceEngine(InferenceEngine):
                 for pg in range(first, last_pg + 1):
                     if self.tables[i, pg] != SCRATCH_PAGE:
                         continue
-                    pages = self._alloc_pages(1)
+                    pages = self._alloc_pages(1, logical_start=pg)
                     if pages is None:
                         if not self._preempt_one():
                             # unreachable: slot i itself is preemptible
@@ -645,7 +673,7 @@ class PagedInferenceEngine(InferenceEngine):
         """One engine tick: admit, run one prefill chunk, then one
         batched decode for every slot whose prompt is fully cached.
         Returns slots served + chunks run (0 = idle)."""
-        if self.tp > 1:
+        if self.ranks > 1:
             return self._step_tensor_parallel()
         self._pre_tick()
         self._admit()

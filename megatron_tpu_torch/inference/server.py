@@ -65,6 +65,11 @@ int8 KV caches and beam search (a 400) are refused there.
 /admin/reload is refused at more than one rank, as on the JAX server's
 mesh.
 
+Context-parallel serving (cp_serving, a mesh with a context axis) runs
+generation through the ContextParallelEngine
+(inference/context_parallel/); the one-shot paths (scoring, beam search,
+engine_slots 0) are refused there with a 400.
+
 Not ported yet: KV migration and prefix export/import (/admin/import,
 /admin/export_prefix, /admin/import_prefix, /admin/register_prefix),
 on-demand profiling (/admin/profile) and context-parallel lanes.
@@ -142,7 +147,13 @@ class GenerationService:
                  reload_dir: Optional[str] = None,
                  weights_version: Optional[int] = None,
                  warmup: bool = False, mesh=None, channel=None,
-                 cuda_graph: bool = True):
+                 cuda_graph: bool = True,
+                 compress_collectives: str = "none",
+                 comm_policy: Optional[str] = None,
+                 cp_serving: bool = False, cp_collectives: str = "dense",
+                 cp_comm_policy: Optional[str] = None,
+                 cp_geometry: str = "ring", cp_subgroup: int = 0,
+                 cp_overlap: bool = True):
         """engine_slots > 0 builds the engine (kv_paging: the paged one,
         with page_size-token pages, prefill_chunk-token chunks and a pool
         of num_pages pages) and its step-loop thread; 0 serves one
@@ -160,7 +171,18 @@ class GenerationService:
         serving (the module docstring); the engine then runs eagerly, and
         only rank 0's service starts its step thread; a mesh with pp > 1
         serves one-shot only. cuda_graph: the engine's (False: an eager
-        tick)."""
+        tick).
+
+        compress_collectives ("none" | "int8" | "fp8";
+        --serve_compress_collectives) and comm_policy (a site-policy JSON
+        path): the engine's compressed tensor-parallel collectives
+        (quant/collectives.py; a no-op at tp 1). cp_serving
+        (--serve_context_parallel): the ContextParallelEngine over the
+        mesh's context axis (needs kv_paging; int8 KV and speculation
+        refused), with cp_collectives ("dense" | "int8" | "fp8") the ring
+        hop's transport, cp_comm_policy its site policy, cp_geometry
+        "ring" or "2d" (cp_subgroup = cp_head), cp_overlap the overlapped
+        ring schedule."""
         if engine_slots < 0:
             raise ValueError("engine_slots must be >= 0 (0: one-shot)")
         if speculative is not None and not engine_slots:
@@ -197,15 +219,31 @@ class GenerationService:
         self._m_latency = self.metrics.histogram(
             "server_request_seconds", "API request wall time")
         self.engine = None
+        if cp_serving and not (engine_slots and kv_paging):
+            raise ValueError("context-parallel serving runs over the paged "
+                             "engine: engine_slots > 0 and kv_paging")
         if engine_slots:
             kw = dict(num_slots=engine_slots, max_seq_len=engine_max_seq_len,
                       vocab_size=tokenizer.vocab_size, metrics=self.metrics,
                       device=device, speculative=speculative,
                       kv_cache_int8=kv_cache_int8,
-                      max_queue=engine_max_queue, cuda_graph=cuda_graph)
+                      max_queue=engine_max_queue, cuda_graph=cuda_graph,
+                      compress_collectives=compress_collectives,
+                      comm_policy=comm_policy)
             if self.mesh is not None:
                 kw.update(mesh=self.mesh, channel=self.channel)
-            if kv_paging:
+            if cp_serving:
+                from megatron_tpu_torch.inference.context_parallel import (
+                    ContextParallelEngine,
+                )
+
+                self.engine = ContextParallelEngine(
+                    cfg, params, page_size=page_size,
+                    prefill_chunk=prefill_chunk, num_pages=num_pages,
+                    cp_collectives=cp_collectives,
+                    cp_comm_policy=cp_comm_policy, cp_geometry=cp_geometry,
+                    cp_subgroup=cp_subgroup, cp_overlap=cp_overlap, **kw)
+            elif kv_paging:
                 self.engine = PagedInferenceEngine(
                     cfg, params, page_size=page_size,
                     prefill_chunk=prefill_chunk, num_pages=num_pages, **kw)
@@ -233,6 +271,11 @@ class GenerationService:
         lock."""
         if self.channel is None:
             return run_direct(name, cfg, params, **kwargs)
+        if self.mesh.cp > 1:
+            raise ValueError(
+                f"{name} is not served under context parallelism: the "
+                "one-shot forward has no striped cache (the engine serves "
+                "generation requests)")
         check_one_shot(name, cfg, **kwargs)
         with self.channel.announce(name, kwargs):
             return ONE_SHOT[name](cfg, params, mesh=self.mesh, **kwargs)
@@ -589,7 +632,7 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
                drain_timeout: float = 30.0, warmup: bool = False,
                reload_dir: Optional[str] = None,
                weights_version: Optional[int] = None, mesh=None,
-               channel=None, cuda_graph: bool = True) -> None:
+               channel=None, cuda_graph: bool = True, **engine_kw) -> None:
     """Serve until ``server.shutdown()`` or a signal; port=0 binds an
     ephemeral port. In-process callers may pass `service_out` (a list
     that receives (service, server)) and `ready` (set once listening).
@@ -601,7 +644,8 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
     once with 128 + signum. warmup=True runs GenerationService.warmup()
     on a side thread, so /healthz and /readyz answer meanwhile. At more
     than one rank this is rank 0's (the other ranks run
-    GenerationService.follow)."""
+    GenerationService.follow). engine_kw: GenerationService's
+    compressed-collective and context-parallel keywords."""
     service = GenerationService(
         cfg, params, tokenizer, engine_slots=engine_slots,
         engine_max_seq_len=engine_max_seq_len, device=device,
@@ -610,7 +654,8 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
         speculative=speculative, kv_cache_int8=kv_cache_int8,
         engine_max_queue=engine_max_queue, request_timeout=request_timeout,
         reload_dir=reload_dir, weights_version=weights_version,
-        warmup=warmup, mesh=mesh, channel=channel, cuda_graph=cuda_graph)
+        warmup=warmup, mesh=mesh, channel=channel, cuda_graph=cuda_graph,
+        **engine_kw)
     server = ThreadingHTTPServer((host, port), make_handler(service))
     bound_port = server.server_address[1]
     if service_out is not None:
@@ -668,7 +713,10 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
     if service.mesh is not None:
         backend = torch.distributed.get_backend()
         mode += (f", tensor parallel {service.mesh.tp} x pipeline "
-                 f"{service.mesh.pp} over {backend}")
+                 f"{service.mesh.pp} x context {service.mesh.cp} over "
+                 f"{backend}")
+    if service.engine is not None and service.engine.tp_comm is not None:
+        mode += f", {service.engine.tp_comm.mode} TP collectives"
     if service.channel is not None:
         # a fault of the tensor-parallel group stops the server, and the
         # process ends non-zero (below), so the launcher tears it down

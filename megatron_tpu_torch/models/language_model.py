@@ -68,8 +68,9 @@ from megatron_tpu_torch.ops.normalization import norm_forward
 from megatron_tpu_torch.ops.rotary import precompute_rope
 from megatron_tpu_torch.ops.weight_quant import deq, take_rows
 from megatron_tpu_torch.parallel.mappings import (
-    all_gather, all_reduce, enter_tp, exit_tp, sp_slice,
+    all_reduce, enter_tp, exit_tp, sp_slice,
 )
+from megatron_tpu_torch.quant.collectives import gather_logits
 
 
 def _layers(tree: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
@@ -171,6 +172,8 @@ def lm_forward(
     page_write_end: Optional[int] = None,
     mesh=None,
     return_moe_aux: bool = False,
+    tp_comm=None,
+    cp_comm=None,
 ):
     """Forward pass to logits [B, S, V] (or, with return_hidden, the
     final-normed hidden states [B, S, h]); with return_moe_aux, (that,
@@ -202,11 +205,20 @@ def lm_forward(
 
     recompute: the activation-recompute policy of a training pass (see
     the module docstring); it takes effect only while autograd records
-    and never with caches."""
+    and never with caches.
+
+    tp_comm (a quant.TpComm, serving under tensor parallelism): the
+    row-parallel reductions and the logits gather at the sites it covers
+    run through the compressed collectives (quant/collectives.py), and
+    the logits are gathered to [B, S, V] with or without caches, as the
+    JAX package's lm_forward(tp_comm=...) returns them. cp_comm (a
+    quant.CpComm): context-parallel serving; kv_caches are this rank's
+    stripe of the page pools and page_table its local table
+    (inference/context_parallel/)."""
     if return_moe_aux and kv_caches is not None:
         raise ValueError("return_moe_aux with kv_caches is ambiguous: "
                          "decode paths don't train the router")
-    if kv_caches is not None:
+    if kv_caches is not None or tp_comm is not None:
         recompute = "none"
         if mesh is not None and mesh.sequence_parallel:
             raise ValueError("serving under sequence parallelism: the "
@@ -245,15 +257,17 @@ def lm_forward(
             padding_mask=attention_mask,
             recompute_core=recompute_granularity(recompute) == "selective",
             page_table=page_table, page_write_start=page_write_start,
-            page_write_end=page_write_end, mesh=mesh))
+            page_write_end=page_write_end, mesh=mesh, tp_comm=tp_comm,
+            cp_comm=cp_comm))
     x, moe_aux = run_layers(layers, x, recompute)
 
     x = enter_tp(final_hidden_norm(cfg, params, x), mesh)
     if return_hidden:
         return (x, moe_aux) if return_moe_aux else x
     logits = lm_logits(cfg, params, x)
-    if kv_caches is not None and mesh is not None and mesh.tp > 1:
-        logits = all_gather(logits, mesh.group("tensor"), dim=-1)
+    if ((kv_caches is not None or tp_comm is not None)
+            and mesh is not None and mesh.tp > 1):
+        logits = gather_logits(logits, mesh, tp_comm)
     if return_moe_aux:
         return logits, moe_aux
     if kv_caches is not None:

@@ -59,6 +59,7 @@ from megatron_tpu_torch.ops.normalization import norm_forward
 from megatron_tpu_torch.ops.rotary import apply_rotary_emb
 from megatron_tpu_torch.ops.weight_quant import deq
 from megatron_tpu_torch.parallel.mappings import enter_tp, exit_tp
+from megatron_tpu_torch.quant.collectives import tp_reduce
 
 #: (k, v), or the int8 form (k_q, v_q, k_scale, v_scale)
 KVCache = Tuple[torch.Tensor, ...]
@@ -83,6 +84,7 @@ def attention_block(
     page_write_start: Optional[int] = None,
     page_write_end: Optional[int] = None,
     mesh=None,
+    cp_comm=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (out [B, S, h], kv_cache): out is the output
     projection's row-parallel partial sums, without its bias "bo"
@@ -113,7 +115,12 @@ def attention_block(
     span, and the start fence keeps that overlap query from rewriting a
     refcount-shared page (shared pages are copy-on-write: never written
     through a sharer's table); the end fence parks the final chunk's
-    padded-tail writes on scratch."""
+    padded-tail writes on scratch.
+
+    cp_comm (a quant.CpComm; context-parallel serving): kv_cache is this
+    rank's stripe of the paged pools and page_table its local table
+    [B, mpl]; the write and the attention are
+    inference/context_parallel/ring_kv.paged_ring_attention's."""
     x = enter_tp(x, mesh)
     b, s, _ = x.shape
     D = cfg.head_dim
@@ -134,6 +141,21 @@ def attention_block(
         q, k = apply_rotary_emb(q, k, rope[0], rope[1], positions)
 
     per_slot = isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1
+    if cp_comm is not None:
+        from megatron_tpu_torch.inference.context_parallel.ring_kv import (
+            paged_ring_attention,
+        )
+
+        if kv_cache is None or len(kv_cache) != 2 or page_table is None:
+            raise ValueError("context-parallel attention takes a rank's "
+                             "bf16 page pools and its local table")
+        ctx = paged_ring_attention(
+            cp_comm, q, k, v, kv_cache, page_table, cache_index, per_slot,
+            page_write_start, page_write_end, cfg.sliding_window_size,
+            kernel=cfg.attention_impl != "xla")
+        ctx = ctx.reshape(b, s, nq * D)
+        return maybe_fp8_matmul(cfg, ctx, deq(p["wo"], ctx.dtype),
+                                mesh), kv_cache
     paged = page_table is not None
     if paged:
         if kv_cache is None:
@@ -255,10 +277,12 @@ def mlp_block(cfg: ModelConfig, p: Dict[str, Any],
     return maybe_fp8_matmul(cfg, h, deq(p["w_out"], h.dtype), mesh)
 
 
-def _row_out(partial: torch.Tensor, mesh, *biases) -> torch.Tensor:
-    """Row-parallel partial sums reduced over the tensor group, then
-    their biases (those the params have) added once."""
-    out = exit_tp(partial, mesh)
+def _row_out(partial: torch.Tensor, mesh, tp_comm, site: str,
+             *biases) -> torch.Tensor:
+    """Row-parallel partial sums reduced over the tensor group (through
+    the compressed collective at a site tp_comm covers), then their
+    biases (those the params have) added once."""
+    out = tp_reduce(partial, mesh, tp_comm, site)
     for bias in biases:
         if bias is not None:
             out = out + bias
@@ -270,14 +294,14 @@ def _no_aux(x: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn(cfg: ModelConfig, lp: Dict[str, Any], x: torch.Tensor,
-         mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+         mesh=None, tp_comm=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense MLP or MoE, by config, reduced over the tensor group (the
     dense bias added after): (out, aux loss fp32 scalar)."""
     if cfg.num_experts is not None:
         y, aux = moe_block(cfg, lp["moe"], x, mesh)
         return exit_tp(y, mesh), aux
-    return (_row_out(mlp_block(cfg, lp["mlp"], x, mesh), mesh,
-                     lp["mlp"].get("b_out")), _no_aux(x))
+    return (_row_out(mlp_block(cfg, lp["mlp"], x, mesh), mesh, tp_comm,
+                     "mlp_out", lp["mlp"].get("b_out")), _no_aux(x))
 
 
 def block_forward(
@@ -294,6 +318,8 @@ def block_forward(
     page_write_start: Optional[int] = None,
     page_write_end: Optional[int] = None,
     mesh=None,
+    tp_comm=None,
+    cp_comm=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache], torch.Tensor]:
     """One decoder layer -> (y, kv_cache, moe_aux): pre-LN, parallel
     attention (Falcon) or post-LN, as the config says; moe_aux is the
@@ -306,7 +332,12 @@ def block_forward(
     under sequence parallelism) of the summed partials, then both
     biases. The sequential forms, and the parallel form with a MoE FFN
     (ops/moe.moe_block's partial sums, each expert's bias inside),
-    reduce each branch on its own."""
+    reduce each branch on its own.
+
+    tp_comm (a quant.TpComm; serving): the reductions at the sites it
+    covers run through quant/collectives.compressed_psum, the parallel
+    form's one reduction at the "attn_out" site's decision. cp_comm:
+    context-parallel serving (attention_block)."""
     # post-LN: no pre-norm; the layer ends with its own norm, the ln1 slot
     normed = x if cfg.use_post_ln else _norm(cfg, lp["ln1"], x)
     bo = lp["attn"].get("bo")
@@ -315,7 +346,7 @@ def block_forward(
         kv_cache=kv_cache, cache_index=cache_index,
         padding_mask=padding_mask, recompute_core=recompute_core,
         page_table=page_table, page_write_start=page_write_start,
-        page_write_end=page_write_end, mesh=mesh)
+        page_write_end=page_write_end, mesh=mesh, cp_comm=cp_comm)
     if cfg.parallel_attn:
         # the MLP reads ln1(x) (Falcon-7B) or its own ln_mlp(x)
         # (Falcon-40B); one residual add for both branches
@@ -324,14 +355,16 @@ def block_forward(
         res = normed if cfg.apply_residual_post_ln else x
         if cfg.num_experts is None:
             out = _row_out(attn_out + mlp_block(cfg, lp["mlp"], mlp_in, mesh),
-                           mesh, bo, lp["mlp"].get("b_out"))
+                           mesh, tp_comm, "attn_out", bo,
+                           lp["mlp"].get("b_out"))
             return res + out, kv_cache, _no_aux(x)
-        mlp_out, moe_aux = _ffn(cfg, lp, mlp_in, mesh)
-        return res + _row_out(attn_out, mesh, bo) + mlp_out, kv_cache, moe_aux
+        mlp_out, moe_aux = _ffn(cfg, lp, mlp_in, mesh, tp_comm)
+        return (res + _row_out(attn_out, mesh, tp_comm, "attn_out", bo)
+                + mlp_out, kv_cache, moe_aux)
     y = (normed if cfg.apply_residual_post_ln else x) + _row_out(
-        attn_out, mesh, bo)
+        attn_out, mesh, tp_comm, "attn_out", bo)
     normed2 = _norm(cfg, lp["ln2"], y)
-    mlp_out, moe_aux = _ffn(cfg, lp, normed2, mesh)
+    mlp_out, moe_aux = _ffn(cfg, lp, normed2, mesh, tp_comm)
     y = (normed2 if cfg.apply_residual_post_ln else y) + mlp_out
     if cfg.use_post_ln:
         y = _norm(cfg, lp["ln1"], y)

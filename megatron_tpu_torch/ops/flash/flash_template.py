@@ -24,7 +24,9 @@ flash_decode.launches, paged_flash_decode.launches, which
 paged_flash_decode_mq shares), incremented where the kernel is launched
 and nowhere else; the two decode wrappers also count by query length
 (launches_by_sq: Sq 1 is the plain tick, Sq k + 1 the speculative
-verify). A CUDA graph replay launches kernels without calling the
+verify) and by form (launches_by_form["lse"]: the partial form that
+returns fp32 o and the rows' log-sum-exp, which context-parallel
+serving merges across ranks). A CUDA graph replay launches kernels without calling the
 wrappers, so whoever captures a graph reads launch_counts() around the
 capture and adds that difference with add_launch_counts() at each
 replay (inference/cuda_graph.py does).
@@ -73,9 +75,9 @@ _SIGNATURES = {
                       [_P] * 8 + [_I] * 6 + [_L] * 18
                       + [_F, _I, _I, _I, _P]),
     "flash_decode": ("flash_decode", "mtt_flash_decode_bf16",
-                     [_P] * 8 + [_I] * 8 + [_L] * 12 + [_F, _I, _P]),
+                     [_P] * 10 + [_I] * 8 + [_L] * 12 + [_F, _I, _P]),
     "paged_flash_decode": ("flash_decode", "mtt_paged_flash_decode_bf16",
-                           [_P] * 9 + [_I] * 10 + [_L] * 12 + [_F, _I, _P]),
+                           [_P] * 11 + [_I] * 10 + [_L] * 12 + [_F, _I, _P]),
 }
 _entries = {}
 
@@ -416,15 +418,17 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_decode_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            kv_lengths: torch.Tensor,
-                           sliding_window: Optional[int] = None
-                           ) -> torch.Tensor:
+                           sliding_window: Optional[int] = None,
+                           return_lse: bool = False):
     """Plain version of the flash_decode kernel, in fp32.
 
     q [B, Sq, Hq, D]; k/v the cache [B, S, Hkv, D]; kv_lengths [B] the
     valid prefix seen by each row's first query. Query j of row b sits at
     kv_lengths[b] - 1 + j and sees k_pos < kv_lengths[b] + j (and, with a
     window W, k_pos > its position - W). Returns [B, Sq, Hq, D] in q's
-    dtype."""
+    dtype; with return_lse the partial form (o fp32 [B, Sq, Hq, D], lse
+    fp32 [B, Hq, Sq], natural log): a row that sees nothing (kv_lengths
+    0) has o = 0 and lse at NEG_INF's depth."""
     b, sq, hq, d = q.shape
     s_len, hkv = k.shape[1], k.shape[2]
     _check_heads(hq, hkv)
@@ -442,7 +446,10 @@ def flash_decode_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.where(mask, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float()) / l
-    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+    if return_lse:
+        return o, (m + torch.log(l))[..., 0].reshape(b, hq, sq)
+    return o.to(q.dtype)
 
 
 def decode_plan(s_len: int, b: int, hkv: int, rows: int,
@@ -563,16 +570,20 @@ def flash_decode_split_reference(q: torch.Tensor, k: torch.Tensor,
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  kv_lengths: torch.Tensor,
-                 sliding_window: Optional[int] = None) -> torch.Tensor:
+                 sliding_window: Optional[int] = None,
+                 return_lse: bool = False):
     """Decode attention with per-row valid-prefix masking over a dense
     slot cache -> [B, Sq, Hq, D]. Sq == 1 is plain decode; Sq > 1 the
-    speculative verify (the JAX package's flash_decode_mq).
+    speculative verify (the JAX package's flash_decode_mq). return_lse:
+    the partial form, (o fp32, lse fp32 [B, Hq, Sq]), as
+    paged_flash_decode's.
 
     CPU tensors: the plain version. CUDA tensors: the
     csrc/flash_decode.cu kernel (bf16, head dim 64 or 128, any Sq * G,
     kv_lengths int32 on the same device), or ValueError."""
     if q.device.type == "cpu":
-        return flash_decode_reference(q, k, v, kv_lengths, sliding_window)
+        return flash_decode_reference(q, k, v, kv_lengths, sliding_window,
+                                      return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     b, sq, hq, d = q.shape
@@ -590,10 +601,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     window = _window_arg(sliding_window)
     plan, part_o, part_ml, tickets, stream = _decode_launch(
         s_len, b, hkv, sq * (hq // hkv), d, q.device)
-    o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    o, o_ptrs, lse = _decode_outputs(q, return_lse)
     rc = _entry("flash_decode")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_lengths.data_ptr(),
-        o.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
+        *o_ptrs, part_o.data_ptr(), part_ml.data_ptr(),
         tickets.data_ptr(), b, sq, s_len, hq, hkv, d, plan["split_tiles"],
         plan["splits"],
         *_strides(q), *_strides(k), *_strides(v), *_strides(o),
@@ -603,11 +614,28 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"flash_decode kernel launch failed: cudaError {rc}")
     flash_decode.launches += 1
     _count_sq(flash_decode, sq)
+    if return_lse:
+        _count_form(flash_decode, "lse")
+        return o, lse
     return o
+
+
+def _decode_outputs(q: torch.Tensor, return_lse: bool):
+    """(o, the kernel's (o, o32, lse) pointers, lse) of one decode launch:
+    o bf16 in q's layout, or in the partial form o fp32 and lse fp32
+    [B, Hq, Sq]."""
+    b, sq, hq, d = q.shape
+    if not return_lse:
+        o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+        return o, (o.data_ptr(), None, None), None
+    o = torch.empty((b, sq, hq, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    return o, (None, o.data_ptr(), lse.data_ptr()), lse
 
 
 flash_decode.launches = 0
 flash_decode.launches_by_sq = {}
+flash_decode.launches_by_form = {}
 
 #: the speculative verify pass (Sq > 1) is the same kernel
 flash_decode_mq = flash_decode
@@ -647,8 +675,8 @@ def paged_flash_decode_reference(q: torch.Tensor, k_pages: torch.Tensor,
                                  v_pages: torch.Tensor,
                                  page_table: torch.Tensor,
                                  kv_lengths: torch.Tensor,
-                                 sliding_window: Optional[int] = None
-                                 ) -> torch.Tensor:
+                                 sliding_window: Optional[int] = None,
+                                 return_lse: bool = False):
     """Plain version of the paged_flash_decode kernel, in fp32: gather
     each row's pages into its dense logical view, then
     flash_decode_reference.
@@ -656,17 +684,19 @@ def paged_flash_decode_reference(q: torch.Tensor, k_pages: torch.Tensor,
     q [B, Sq, Hq, D]; k_pages/v_pages the shared pools [P, ps, Hkv, D];
     page_table [B, max_pages] (row b's logical position pos lives at
     pool[page_table[b, pos // ps], pos % ps]); kv_lengths [B] as in
-    flash_decode_reference. Returns [B, Sq, Hq, D] in q's dtype."""
+    flash_decode_reference. Returns [B, Sq, Hq, D] in q's dtype, or with
+    return_lse the partial form (flash_decode_reference's)."""
     return flash_decode_reference(q, _gather_pages(k_pages, page_table),
                                   _gather_pages(v_pages, page_table),
-                                  kv_lengths, sliding_window)
+                                  kv_lengths, sliding_window, return_lse)
 
 
 def _paged_decode(name: str, q, k_pages, v_pages, page_table, kv_lengths,
-                  sliding_window):
+                  sliding_window, return_lse=False):
     if q.device.type == "cpu":
         return paged_flash_decode_reference(q, k_pages, v_pages, page_table,
-                                            kv_lengths, sliding_window)
+                                            kv_lengths, sliding_window,
+                                            return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     b, sq, hq, d = q.shape
@@ -689,10 +719,10 @@ def _paged_decode(name: str, q, k_pages, v_pages, page_table, kv_lengths,
     max_pages = page_table.shape[1]
     plan, part_o, part_ml, tickets, stream = _decode_launch(
         max_pages * ps, b, hkv, sq * (hq // hkv), d, q.device)
-    o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    o, o_ptrs, lse = _decode_outputs(q, return_lse)
     rc = _entry("paged_flash_decode")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), kv_lengths.data_ptr(), o.data_ptr(),
+        page_table.data_ptr(), kv_lengths.data_ptr(), *o_ptrs,
         part_o.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), b, sq,
         n_pages, max_pages, ps.bit_length() - 1, hq, hkv, d,
         plan["split_tiles"], plan["splits"],
@@ -702,13 +732,17 @@ def _paged_decode(name: str, q, k_pages, v_pages, page_table, kv_lengths,
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     paged_flash_decode.launches += 1
     _count_sq(paged_flash_decode, sq)
+    if return_lse:
+        _count_form(paged_flash_decode, "lse")
+        return o, lse
     return o
 
 
 def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, page_table: torch.Tensor,
                        kv_lengths: torch.Tensor,
-                       sliding_window: Optional[int] = None) -> torch.Tensor:
+                       sliding_window: Optional[int] = None,
+                       return_lse: bool = False):
     """Single-token decode attention over paged KV with per-row prefix
     masking -> [B, 1, Hq, D] (the JAX package's paged_flash_decode).
 
@@ -719,16 +753,25 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     head dim 64 or 128, ps a power of two, see check_page_size), or
     ValueError. Table entries belong in [0, P): the kernel reads them on
     the device, where no host check reaches, and reads an entry outside
-    that range as the scratch page 0."""
+    that range as the scratch page 0.
+
+    return_lse=True is the partial form that context-parallel serving
+    merges across ranks (inference/context_parallel/ring_kv.py): (o fp32
+    [B, 1, Hq, D], lse fp32 [B, Hq, 1] in natural-log units, flash_fwd's
+    convention); a row with kv_lengths 0 gives o = 0 and lse = NEG_INF.
+    The partial keeps fp32 (the JAX package's partial is fp32 before its
+    merge): rounding it to bf16 would add an error per rank that the
+    merge carries. Its launches count in launches_by_form["lse"] too."""
     if q.shape[1] != 1:
         raise ValueError(
             f"paged_flash_decode is single-token only (q_len={q.shape[1]})")
     return _paged_decode("paged_flash_decode", q, k_pages, v_pages,
-                         page_table, kv_lengths, sliding_window)
+                         page_table, kv_lengths, sliding_window, return_lse)
 
 
 paged_flash_decode.launches = 0
 paged_flash_decode.launches_by_sq = {}
+paged_flash_decode.launches_by_form = {}
 
 
 def paged_flash_decode_mq(q: torch.Tensor, k_pages: torch.Tensor,
@@ -753,19 +796,27 @@ def _count_sq(wrapper, sq: int, n: int = 1) -> None:
     wrapper.launches_by_sq[sq] = wrapper.launches_by_sq.get(sq, 0) + n
 
 
+def _count_form(wrapper, form: str, n: int = 1) -> None:
+    wrapper.launches_by_form[form] = wrapper.launches_by_form.get(form,
+                                                                  0) + n
+
+
 def _counted():
     return (flash_fwd, flash_bwd_dq, flash_bwd_dkv, flash_decode,
             paged_flash_decode)
 
 
 def launch_counts() -> dict:
-    """Every wrapper's launch count, by name, and the decode wrappers'
-    counts by query length under "name/sq<Sq>"."""
+    """Every wrapper's launch count, by name, the decode wrappers' counts
+    by query length under "name/sq<Sq>" and of the partial form under
+    "name/lse"."""
     out = {}
     for w in _counted():
         out[w.__name__] = w.launches
         for sq, n in getattr(w, "launches_by_sq", {}).items():
             out[f"{w.__name__}/sq{sq}"] = n
+        for form, n in getattr(w, "launches_by_form", {}).items():
+            out[f"{w.__name__}/{form}"] = n
     return out
 
 
@@ -774,10 +825,12 @@ def add_launch_counts(delta: dict) -> None:
     of a captured CUDA graph launched."""
     by_name = {w.__name__: w for w in _counted()}
     for key, n in delta.items():
-        name, _, sq = key.partition("/sq")
+        name, _, form = key.partition("/")
         w = by_name[name]
-        if sq:
-            _count_sq(w, int(sq), n)
+        if form.startswith("sq"):
+            _count_sq(w, int(form[2:]), n)
+        elif form:
+            _count_form(w, form, n)
         else:
             w.launches += n
 
@@ -787,6 +840,7 @@ def set_launch_counts(counts: dict) -> None:
     nothing, so it puts back what it counted)."""
     for w in _counted():
         w.launches = counts.get(w.__name__, 0)
-        if hasattr(w, "launches_by_sq"):
-            w.launches_by_sq.clear()
-    add_launch_counts({k: n for k, n in counts.items() if "/sq" in k})
+        for attr in ("launches_by_sq", "launches_by_form"):
+            if hasattr(w, attr):
+                getattr(w, attr).clear()
+    add_launch_counts({k: n for k, n in counts.items() if "/" in k})

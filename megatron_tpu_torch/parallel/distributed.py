@@ -18,8 +18,8 @@ cards, rank LOCAL_RANK taking card LOCAL_RANK mod count). Nothing falls
 back from one to the other.
 
 Serving (tools/run_text_generation_server under torch.distributed.run)
-takes the same bring-up and a serving mesh (serving_mesh: tp x pp over
-the whole world, no data ranks, no sequence parallelism). Rank 0 alone binds the HTTP port and logs; it drives the
+takes the same bring-up and a serving mesh (serving_mesh: tp x pp x cp
+over the whole world, no data ranks, no sequence parallelism). Rank 0 alone binds the HTTP port and logs; it drives the
 other ranks through a ServingChannel, one broadcast command before each
 piece of work whose collectives every rank must enter in the same
 order, and the other ranks run the follower loop
@@ -140,25 +140,28 @@ def host_batch_slice(rt: MeshRuntime, global_rows: int) -> Tuple[int, int]:
     return rt.dp_rank * per, (rt.dp_rank + 1) * per
 
 
-def serving_mesh(tensor_parallel: int,
-                 pipeline_parallel: int = 1) -> MeshRuntime:
+def serving_mesh(tensor_parallel: int, pipeline_parallel: int = 1,
+                 context_parallel: int = 1) -> MeshRuntime:
     """The mesh of a parallel server: every rank of the world on the
-    tensor and pipe axes (no data ranks; the engine's sequences are not
-    split)."""
+    tensor, pipe and context axes (no data ranks). A context axis splits
+    each sequence's paged KV (the context-parallel engine,
+    inference/context_parallel/), which only the paged engine serves."""
     import torch.distributed as dist
 
     from megatron_tpu_torch.config import ParallelConfig
     from megatron_tpu_torch.parallel.mesh import build_mesh
 
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if world != tensor_parallel * pipeline_parallel:
+    if world != tensor_parallel * pipeline_parallel * context_parallel:
         raise ValueError(
             f"serving at tensor_parallel={tensor_parallel} x "
-            f"pipeline_parallel={pipeline_parallel} needs exactly that "
-            f"many ranks, not {world}: data-parallel replicas are not "
-            "served (run one server a replica)")
+            f"pipeline_parallel={pipeline_parallel} x context_parallel="
+            f"{context_parallel} needs exactly that many ranks, not "
+            f"{world}: data-parallel replicas are not served (run one "
+            "server a replica)")
     return build_mesh(ParallelConfig(tensor_parallel=tensor_parallel,
-                                     pipeline_parallel=pipeline_parallel))
+                                     pipeline_parallel=pipeline_parallel,
+                                     context_parallel=context_parallel))
 
 
 # an idle rank 0 tells the followers it is alive this often, well inside

@@ -41,7 +41,7 @@ those ranges.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -188,13 +188,30 @@ def p2p(sends: Sequence[Tuple[torch.Tensor, int, int]],
     NCCL batches the operations (batch_isend_irecv matches same-peer
     messages in posting order; tags are gloo's); gloo stages CUDA
     tensors through host memory."""
+    return p2p_start(sends, recvs)()
+
+
+def p2p_start(sends: Sequence[Tuple[torch.Tensor, int, int]],
+              recvs: Sequence[Tuple[tuple, torch.dtype, torch.device, int,
+                                    int]]
+              ) -> Callable[[], List[torch.Tensor]]:
+    """p2p's exchange posted now and waited on later: returns the wait,
+    which returns the received tensors (the overlapped ring of
+    inference/context_parallel/ring_kv.py posts hop l + 1 before it
+    merges hop l). Posting and waiting each run in a "comm.p2p" range."""
     if not sends and not recvs:
-        return []
+        return lambda: []
     with record_function("comm.p2p"):
-        return _p2p(sends, recvs)
+        wait = _p2p_post(sends, recvs)
+
+    def finish() -> List[torch.Tensor]:
+        with record_function("comm.p2p"):
+            return wait()
+
+    return finish
 
 
-def _p2p(sends, recvs) -> List[torch.Tensor]:
+def _p2p_post(sends, recvs) -> Callable[[], List[torch.Tensor]]:
     native = dist.get_backend() == "nccl"
     if native:
         bufs = [torch.empty(shape, dtype=dtype, device=device)
@@ -203,19 +220,30 @@ def _p2p(sends, recvs) -> List[torch.Tensor]:
                for t, peer, tag in sends]
         ops += [dist.P2POp(dist.irecv, b, peer, tag=tag)
                 for b, (_, _, _, peer, tag) in zip(bufs, recvs)]
-        for w in dist.batch_isend_irecv(ops):
-            w.wait()
-        return bufs
+        works = dist.batch_isend_irecv(ops)
+
+        def wait_native():
+            for w in works:
+                w.wait()
+            return bufs
+
+        return wait_native
+    host_sends = [_to_host(t).contiguous() for t, _, _ in sends]
     host_bufs = [torch.empty(shape, dtype=dtype)
                  for shape, dtype, _, _, _ in recvs]
-    works = [dist.isend(_to_host(t).contiguous(), peer, tag=tag)
-             for t, peer, tag in sends]
+    works = [dist.isend(h, peer, tag=tag)
+             for h, (_, peer, tag) in zip(host_sends, sends)]
     works += [dist.irecv(b, peer, tag=tag)
               for b, (_, _, _, peer, tag) in zip(host_bufs, recvs)]
-    for w in works:
-        w.wait()
-    return [b.to(device) for b, (_, _, device, _, _) in zip(host_bufs,
-                                                            recvs)]
+
+    def wait_gloo():
+        for w in works:
+            w.wait()
+        host_sends.clear()          # the sends' host copies live until here
+        return [b.to(device) for b, (_, _, device, _, _)
+                in zip(host_bufs, recvs)]
+
+    return wait_gloo
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,13 @@
         --tensor_model_parallel_size 2 --pipeline_model_parallel_size 2 \\
         --load ckpts/run ...
 
+    python -m torch.distributed.run --nproc_per_node 2 \\
+        -m megatron_tpu_torch.tools.run_text_generation_server \\
+        --context_parallel_size 2 --serve_context_parallel --serve_kv_paging \\
+        [--serve_cp_collectives {dense,int8,fp8}] \\
+        [--serve_cp_geometry {ring,2d} --serve_cp_subgroup G] \\
+        [--serve_cp_overlap {on,off}] [--serve_cp_comm_policy FILE] ...
+
 The flag names are the JAX CLI's (tools/run_text_generation_server.py)
 for what the port supports, plus --device (default cuda). Weights are
 random from --seed, or loaded with --load, which is also the default
@@ -58,6 +65,18 @@ pipelined forward, as the JAX server does: --serve_num_slots is
 ignored, --kv_cache_int8 is refused and beam search is a 400. Refused
 above one rank, as the JAX server refuses them on a mesh:
 --weight_int8/--weight_fp8, --serve_speculative and /admin/reload.
+
+--serve_compress_collectives {none,int8,fp8} (with --serve_comm_policy, a
+site-policy JSON) moves the engine's tensor-parallel reductions and
+logits gather low-bit (quant/collectives.py); a no-op at tp 1.
+--context_parallel_size C with --serve_context_parallel serves over
+tp x C ranks through the ContextParallelEngine
+(inference/context_parallel/): each sequence's KV pages striped over
+the C context ranks, each layer's attention merged over a ring (or the
+2d geometry, --serve_cp_geometry 2d --serve_cp_subgroup G) whose hop
+moves --serve_cp_collectives bytes. It needs --serve_kv_paging and
+refuses --kv_cache_int8, pipeline parallelism and the one-shot paths;
+--serve_cp_lanes > 1 (the JAX server's CP x DP lanes) is refused.
 """
 
 from __future__ import annotations
@@ -162,6 +181,49 @@ def parse_args(argv=None):
     p.add_argument("--pipeline_model_parallel_size", type=int, default=1,
                    help="serve over this many pipeline stages (one-shot "
                         "only: the pipelined forward)")
+    p.add_argument("--context_parallel_size", type=int, default=1,
+                   help="serve over this many context ranks (with "
+                        "--serve_context_parallel; the training flag's "
+                        "name)")
+    p.add_argument("--serve_compress_collectives",
+                   choices=("none", "int8", "fp8"), default="none",
+                   help="low-bit tensor-parallel collectives in the "
+                        "engine: the per-layer output reductions and the "
+                        "logits gather move int8/fp8 payloads with "
+                        "per-chunk fp32 scales. No-op at tp 1")
+    p.add_argument("--serve_comm_policy", default=None,
+                   help="per-collective compression policy JSON "
+                        '({"sites": {site: bool}}): sites left off stay '
+                        "dense. Default: every site")
+    p.add_argument("--serve_context_parallel", action="store_true",
+                   help="context-parallel serving: each sequence's paged "
+                        "KV striped over the context ranks, attention "
+                        "merged over a ring. Needs --serve_kv_paging and "
+                        "--context_parallel_size >= 2")
+    p.add_argument("--serve_cp_collectives",
+                   choices=("dense", "int8", "fp8"), default="dense",
+                   help="transport of the CP ring hops: int8/fp8 compress "
+                        "the attention partials; the log-sum-exp rows "
+                        "stay fp32")
+    p.add_argument("--serve_cp_comm_policy", default=None,
+                   help="site-policy JSON gating the cp_ring and cp_a2a "
+                        "sites")
+    p.add_argument("--serve_cp_geometry", choices=("ring", "2d"),
+                   default="ring",
+                   help="'ring' merges over all cp ranks; '2d' factors "
+                        "cp = cp_seq x cp_head: a head all-to-all inside "
+                        "each --serve_cp_subgroup-sized subgroup, ring hops "
+                        "only across subgroups")
+    p.add_argument("--serve_cp_subgroup", type=int, default=0,
+                   help="subgroup size (cp_head) of --serve_cp_geometry "
+                        "2d: divides cp and a rank's query heads")
+    p.add_argument("--serve_cp_overlap", choices=("on", "off"),
+                   default="on",
+                   help="ring schedule: 'on' posts hop l+1 before merging "
+                        "hop l; 'off' the serial chain. Same numerics")
+    p.add_argument("--serve_cp_lanes", type=int, default=1,
+                   help="independent CP engine lanes on one host: only 1 "
+                        "is served (ROADMAP.md item 12)")
     p.add_argument("--distributed_backend", default=None,
                    choices=["nccl", "gloo"],
                    help="the process group's backend: nccl on CUDA, gloo "
@@ -177,10 +239,13 @@ def check_parallel_flags(args) -> None:
     """The refusals of parallel serving, before any rank starts; at
     pp > 1 the engine's slots are dropped, as on the JAX server."""
     tp, pp = args.tensor_model_parallel_size, args.pipeline_model_parallel_size
-    if tp < 1 or pp < 1:
-        raise SystemExit("--tensor_model_parallel_size and "
-                         "--pipeline_model_parallel_size must be >= 1")
-    if tp * pp == 1:
+    cp = args.context_parallel_size
+    if tp < 1 or pp < 1 or cp < 1:
+        raise SystemExit("--tensor_model_parallel_size, "
+                         "--pipeline_model_parallel_size and "
+                         "--context_parallel_size must be >= 1")
+    check_cp_flags(args)
+    if tp * pp * cp == 1:
         return
     refused = {
         "--weight_int8": args.weight_int8, "--weight_fp8": args.weight_fp8,
@@ -189,7 +254,8 @@ def check_parallel_flags(args) -> None:
         if on:
             raise SystemExit(
                 f"{flag} at --tensor_model_parallel_size {tp} "
-                f"--pipeline_model_parallel_size {pp}: single-rank serving "
+                f"--pipeline_model_parallel_size {pp} "
+                f"--context_parallel_size {cp}: single-rank serving "
                 "only, as on the JAX server's mesh")
     if pp > 1:
         if args.kv_cache_int8:
@@ -203,6 +269,39 @@ def check_parallel_flags(args) -> None:
                       f"--serve_num_slots {args.serve_num_slots}",
                       flush=True)
             args.serve_num_slots = 0
+
+
+def check_cp_flags(args) -> None:
+    """The context-parallel flags' refusals (the JAX server's, and the
+    lanes, which are not ported)."""
+    cp = args.context_parallel_size
+    if args.serve_cp_lanes != 1:
+        raise SystemExit(
+            f"--serve_cp_lanes {args.serve_cp_lanes}: several "
+            "context-parallel engine lanes on one host are not ported (they "
+            "need a dispatch protocol between lane leaders; ROADMAP.md item "
+            "12, with the fleet)")
+    if not args.serve_context_parallel:
+        if cp > 1:
+            raise SystemExit(
+                f"--context_parallel_size {cp} serves only through the "
+                "context-parallel engine: add --serve_context_parallel "
+                "--serve_kv_paging")
+        return
+    if cp < 2:
+        raise SystemExit("--serve_context_parallel needs "
+                         "--context_parallel_size >= 2")
+    if not (args.serve_kv_paging and args.serve_num_slots):
+        raise SystemExit("--serve_context_parallel runs over the paged "
+                         "engine: add --serve_kv_paging (and "
+                         "--serve_num_slots > 0)")
+    if args.kv_cache_int8:
+        raise SystemExit("--serve_context_parallel supports no int8 KV "
+                         "pools (--kv_cache_int8)")
+    if args.pipeline_model_parallel_size > 1:
+        raise SystemExit("--serve_context_parallel with "
+                         "--pipeline_model_parallel_size > 1: the engine "
+                         "runs the single-stage forward")
 
 
 def weight_quant_mode(args, cfg):
@@ -327,7 +426,8 @@ def main(argv=None, **server_kwargs):
         raise SystemExit("--serve_speculative runs inside the engine: "
                          "--serve_num_slots must be > 0")
     check_parallel_flags(args)
-    world = args.tensor_model_parallel_size * args.pipeline_model_parallel_size
+    world = (args.tensor_model_parallel_size
+             * args.pipeline_model_parallel_size * args.context_parallel_size)
     if not initialize_distributed(args.device, args.distributed_backend):
         if world > 1:
             raise SystemExit(
@@ -338,7 +438,8 @@ def main(argv=None, **server_kwargs):
         return _serve(args, None, None, server_kwargs)
     try:
         mesh = serving_mesh(args.tensor_model_parallel_size,
-                            args.pipeline_model_parallel_size)
+                            args.pipeline_model_parallel_size,
+                            args.context_parallel_size)
         args.device = str(local_device(args.device))
         if mesh.world_size == 1:
             return _serve(args, None, None, server_kwargs)
@@ -384,6 +485,7 @@ def _serve(args, mesh, channel, server_kwargs):
     # plus an fp32 scale per head, or the model dtype
     per_head = kv_head_bytes(cfg.head_dim, cfg.dtype, args.kv_cache_int8)
     tp = 1 if mesh is None else mesh.tp
+    cp = 1 if mesh is None else mesh.cp
     row_bytes = 2 * cfg.num_layers * (cfg.n_kv_heads // tp) * per_head
     kind = "int8 + fp32 scales" if args.kv_cache_int8 else str(cfg.dtype)
     if args.serve_kv_paging and args.serve_num_slots:
@@ -391,7 +493,8 @@ def _serve(args, mesh, channel, server_kwargs):
         pages = (args.serve_num_pages
                  or args.serve_num_slots * (-(-max_seq_len // ps)) + 1)
         log(f"paged KV pool: {pages} pages x {ps} tokens = "
-            f"{row_bytes * pages * ps / 2**30:.2f} GiB ({kind})")
+            f"{row_bytes * pages * ps / 2**30:.2f} GiB ({kind})"
+            + (f", {1 / cp:.3g} of it a context rank" if cp > 1 else ""))
     elif args.serve_num_slots:
         log(f"persistent KV cache: {args.serve_num_slots} slots x "
             f"{max_seq_len} tokens = "
@@ -406,12 +509,25 @@ def _serve(args, mesh, channel, server_kwargs):
               speculative=speculative, kv_cache_int8=args.kv_cache_int8,
               engine_max_queue=args.serve_max_queue,
               request_timeout=args.serve_request_timeout,
-              reload_dir=args.load, weights_version=iteration)
+              reload_dir=args.load, weights_version=iteration,
+              compress_collectives=args.serve_compress_collectives,
+              comm_policy=args.serve_comm_policy,
+              cp_serving=args.serve_context_parallel,
+              cp_collectives=args.serve_cp_collectives,
+              cp_comm_policy=args.serve_cp_comm_policy,
+              cp_geometry=args.serve_cp_geometry,
+              cp_subgroup=args.serve_cp_subgroup,
+              cp_overlap=args.serve_cp_overlap == "on")
     if mesh is not None:
         kw.update(mesh=mesh, channel=channel, cuda_graph=False)
         if mesh.pp > 1:
             log(f"pipeline parallel {mesh.pp} x tensor parallel {mesh.tp}: "
                 "one-shot through the pipelined forward")
+        elif mesh.cp > 1:
+            log(f"context parallel {mesh.cp} x tensor parallel {mesh.tp}: "
+                f"the paged KV striped over the context ranks, the "
+                f"{args.serve_cp_geometry} merge over "
+                f"{args.serve_cp_collectives} hops; the tick runs eagerly")
         else:
             log(f"tensor parallel {mesh.tp}: the engine's tick runs eagerly "
                 "(cuda_graph=False: a gloo collective cannot be captured)")

@@ -137,7 +137,7 @@ def _service(cfg, params, mesh, **kw):
     kw.setdefault("engine_slots", 2)
     kw.setdefault("engine_max_seq_len", 64)
     return GenerationService(
-        cfg, params, NullTokenizer(VOCAB - 1),
+        cfg, params, NullTokenizer(cfg.vocab_size),
         device="cpu", metrics=MetricsRegistry(), mesh=mesh,
         channel=ServingChannel(mesh.control_group, mesh.rank),
         cuda_graph=False, **kw)
@@ -329,3 +329,70 @@ def fault_rank(rank: int, port: int, fault: str, out_dir: str) -> None:
     write(ended[0] if ended else RuntimeError("main() still running"))
     if ended and ended[0] is not None:
         raise ended[0]
+
+
+# the compressed-collective cases (quant/): the JAX test's geometry
+# (tests/test_quant_comm.py tiny_cfg, its teacher-forced tokens)
+QCFG = dict(num_layers=4, hidden_size=32, num_attention_heads=4,
+            num_kv_heads=2, ffn_hidden_size=64, vocab_size=128,
+            seq_length=32, params_dtype="float32")
+QTOKENS = np.random.default_rng(0).integers(1, 128, (8, 32)).astype(np.int32)
+QPROMPTS = np.random.default_rng(1).integers(1, 128, (4, 8)).astype(np.int32)
+QNEW = 12
+
+
+def compress_job(weights: str):
+    """lm_forward at tp2 on QTOKENS with no plan (its vocab-parallel
+    logits gathered densely) and with a dense, int8 and fp8 TpComm; then
+    the dense engine and an int8-compressed one at tp2 (4 greedy prompts
+    of 8 tokens x QNEW, rank 1 following), with the compressed engine's
+    counters and the byte model's prices of its tick and prefill."""
+    import torch
+
+    from megatron_tpu_torch.config import ModelConfig, ParallelConfig
+    from megatron_tpu_torch.models.language_model import lm_forward
+    from megatron_tpu_torch.models.params import params_from_numpy
+    from megatron_tpu_torch.parallel.mappings import all_gather
+    from megatron_tpu_torch.parallel.mesh import build_mesh
+    from megatron_tpu_torch.quant.collectives import (
+        forward_comm_bytes, make_tp_comm,
+    )
+
+    cfg = ModelConfig(**QCFG).validate()
+    mesh = build_mesh(ParallelConfig(tensor_parallel=2))
+    tree: dict = {}
+    for path, v in dict(np.load(weights)).items():
+        node = tree
+        parts = path.split(".")
+        for k in parts[:-1]:
+            node = node.setdefault(k, {})
+        node[parts[-1]] = v
+    params = params_from_numpy(tree, cfg, device="cpu", mesh=mesh)
+    toks = torch.from_numpy(QTOKENS).long()
+    out = {}
+    with torch.no_grad():
+        local = lm_forward(cfg, params, toks, mesh=mesh)
+        out["logits_none"] = all_gather(local, mesh.group("tensor"),
+                                        -1).numpy()
+        for mode in ("dense", "int8", "fp8"):
+            tpc = make_tp_comm(mesh, mode, cfg=cfg)
+            out[f"logits_{mode}"] = lm_forward(cfg, params, toks, mesh=mesh,
+                                               tp_comm=tpc).numpy()
+    for mode in ("none", "int8"):
+        svc = _service(cfg, params, mesh, engine_slots=4,
+                       engine_max_seq_len=32, compress_collectives=mode)
+        if mesh.rank != 0:
+            svc.follow()
+            continue
+        try:
+            eng = svc.engine
+            o = eng.generate(QPROMPTS, np.full(4, 8, np.int32), QNEW)
+            out[f"engine_{mode}"] = _out(o)
+            out[f"stats_{mode}"] = dict(eng.stats)
+            out[f"tick_bytes_{mode}"] = forward_comm_bytes(
+                cfg, eng.tp_comm, 4, 1)
+            out[f"prefill_bytes_{mode}"] = forward_comm_bytes(
+                cfg, eng.tp_comm, 1, eng._bucket(8))
+        finally:
+            svc.shutdown()
+    return out

@@ -1539,3 +1539,98 @@ def test_flash_bwd_dkv_holds_the_gate_at_a_long_sequence(gen):
     want = ft._bwd_plain(q, k, v, do, lse, dsum, True, None, 0)
     for name, a, b in zip(("dk", "dv"), (dk, dv), want[1:]):
         _assert_close_rel(a, b, name)
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_decode_partial_form_at_local_length_zero_and_page_edges(gen,
+                                                                 paged):
+    """B5's partial form (return_lse: fp32 o, lse [B, Hq, Sq]), the form a
+    context-parallel rank's stripe takes, and B4's dense launch of it:
+    rows of length 0 (a rank holding no page of the row: o = 0, lse at
+    NEG_INF), 1, a page boundary (16, 64), past it and long, against the
+    plain version: o within the kernels' gate, lse within 2e-2 (natural
+    log, fp32 sums; the kernel rounds P to bf16 only for P V). The
+    partial launches count under launches_by_form["lse"]."""
+    from megatron_tpu_torch.ops.flash.masks import NEG_INF
+
+    B, ps, max_pages, hq, hkv = 8, 16, 64, 32, 8
+    lens_list = [0, 1, 16, 17, 64, 0, 1000, 1024]
+    q = _randn(gen, B, 1, hq, 128)
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    if paged:
+        n_pages = 1 + B * max_pages
+        kp, vp = (_randn(gen, n_pages, ps, hkv, 128) for _ in range(2))
+        table = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
+                 + 1).view(B, max_pages).to(torch.int32)
+        args = (kp, vp, table, lens)
+        fn, ref, w = (ft.paged_flash_decode, ft.paged_flash_decode_reference,
+                      ft.paged_flash_decode)
+    else:
+        k, v = (_randn(gen, B, max_pages * ps, hkv, 128) for _ in range(2))
+        args = (k, v, lens)
+        fn, ref, w = ft.flash_decode, ft.flash_decode_reference, \
+            ft.flash_decode
+    before = w.launches_by_form.get("lse", 0)
+    o, lse = fn(q, *args, return_lse=True)
+    torch.cuda.synchronize()
+    assert w.launches_by_form["lse"] == before + 1
+    assert o.dtype == lse.dtype == torch.float32
+    assert tuple(lse.shape) == (B, hq, 1)
+    want_o, want_l = ref(q.float(), *[a.float() if a.is_floating_point()
+                                      else a for a in args[:-1]], lens,
+                         return_lse=True)
+    _assert_close(o, want_o)
+    live = lens > 0
+    assert float((lse[live] - want_l[live]).abs().max()) <= 2e-2
+    assert not o[~live].any()
+    assert bool((lse[~live] <= NEG_INF / 2).all())
+    assert bool((want_l[~live] <= NEG_INF / 2).all())
+
+
+def _ring_rank(rank, port, out):
+    """One of two gloo ranks sharing the card: its seeded CUDA tensor one
+    ring hop each way in every transport mode."""
+    import torch.distributed as dist
+
+    from megatron_tpu_torch.quant import collectives as qc
+    from megatron_tpu_torch.quant.primitives import (
+        dequantize_chunked, quantize_chunked,
+    )
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        g = torch.Generator(device="cuda")
+        xs = [torch.randn(4, 3, 128, generator=g.manual_seed(r),
+                          device="cuda") for r in range(2)]
+        got = {}
+        for mode in ("dense", "int8", "fp8"):
+            back = qc.ring_permute(xs[rank], dist.group.WORLD,
+                                   [(0, 1), (1, 0)], mode, 32)
+            want = xs[1 - rank]
+            if mode != "dense":
+                want = dequantize_chunked(*quantize_chunked(want, 32, mode))
+            got[mode] = (back.is_cuda, bool(torch.equal(back, want)))
+        torch.save(got, f"{out}.rank{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_compressed_ring_permute_round_trips_cuda_tensors(gen, tmp_path):
+    """The CP ring hop on CUDA tensors between two gloo ranks on the card:
+    dense arrives bitwise, int8 and fp8 as the card's own quantize ->
+    dequantize of the peer's tensor (the fp8 payload as bytes), on the
+    card."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = str(tmp_path / "ring")
+    mp.spawn(_ring_rank, args=(port, out), nprocs=2, join=True)
+    for r in range(2):
+        got = torch.load(f"{out}.rank{r}")
+        assert got == {m: (True, True) for m in ("dense", "int8", "fp8")}, r

@@ -207,7 +207,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "tokenizer.gpt2_bpe", "tokenizer.tokenizer", "tools.preprocess_data",
         "tools.merge_datasets", "inference.pipelined",
         "inference.paging.engine", "parallel.distributed",
-        "training.pipeline")]
+        "training.pipeline", "quant.primitives", "quant.policy",
+        "quant.collectives", "inference.context_parallel.engine",
+        "inference.context_parallel.ring_kv",
+        "inference.context_parallel.pool")]
     code = (
         "import importlib, pkgutil, sys\n"
         "import megatron_tpu_torch as pkg\n"

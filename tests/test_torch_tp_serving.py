@@ -97,6 +97,19 @@ def weights(tmp_path_factory):
     return path, jcfg, jparams, tcfg, tparams, str(tmp / "ckpt")
 
 
+@pytest.fixture(scope="module")
+def qweights(tmp_path_factory):
+    """The compressed-collective cases' weights: the JAX test's tiny_cfg
+    (tests/test_quant_comm.py) at PRNGKey(0), as an .npz."""
+    from megatron_tpu.config import ModelConfig as JModelConfig
+
+    jcfg = JModelConfig(**S.QCFG).validate()
+    jparams = jax.device_get(j_init_params(jcfg, jax.random.PRNGKey(0)))
+    path = str(tmp_path_factory.mktemp("tpq") / "weights.npz")
+    np.savez(path, **_flat(jparams))
+    return path, jcfg, jparams
+
+
 def _jax_on_mesh(jcfg, jparams):
     """The JAX package's greedy outputs on a tp2 mesh."""
     rt = j_build_mesh(JParallel(tensor_parallel=2))
@@ -161,7 +174,7 @@ def faults():
 
 
 @pytest.fixture(scope="module")
-def runs(weights, faults):
+def runs(weights, qweights, faults):
     # `faults` only to start its ranks alongside these
     path = weights[0]
     world = W.World(2, [
@@ -169,7 +182,9 @@ def runs(weights, faults):
                        {"weights": path}))
         for job in ("oneshot", "engine", "http")] + [
         ("load", "call", ("_torch_tp_serving_worker:load_job",
-                          {"weights": path, "load": weights[5]}))])
+                          {"weights": path, "load": weights[5]})),
+        ("compress", "call", ("_torch_tp_serving_worker:compress_job",
+                              {"weights": qweights[0]}))])
     jax_out = _jax_on_mesh(weights[1], weights[2])   # while the ranks run
     return world.results(), jax_out
 
@@ -394,3 +409,81 @@ def test_a_paged_followers_failed_chunk_fails_both_ranks(faults):
     assert "tensor-parallel group failed" in rank0["request"]
     assert rank0["seconds"] < FAULT_SECONDS
     assert rank1["seconds"] < FAULT_SECONDS
+
+
+# ---------------------------------------------------------------------------
+# compressed collectives at tp2 (quant/), against the JAX package's
+
+
+@pytest.fixture(scope="module")
+def jax_compressed(qweights):
+    """The JAX package's lm_forward logits on S.QTOKENS at tp2: the
+    plain forward and the int8 and fp8 TpComm (the setup of
+    tests/test_quant_comm.py::test_teacher_forced_parity_gate)."""
+    from megatron_tpu.models.language_model import lm_forward as j_forward
+    from megatron_tpu.quant.collectives import make_tp_comm as j_tp_comm
+
+    _, jcfg, jparams = qweights
+    rt = j_build_mesh(JParallel(tensor_parallel=2),
+                      devices=jax.devices()[:2])
+    sharded = shard_tree(rt, jparams, j_param_specs(jcfg))
+    toks = jax.numpy.asarray(S.QTOKENS)
+    out = {}
+    with jax.sharding.set_mesh(rt.mesh):
+        for mode in ("none", "int8", "fp8"):
+            tpc = None if mode == "none" else j_tp_comm(rt.mesh, mode,
+                                                        cfg=jcfg)
+            out[mode] = np.asarray(jax.jit(
+                lambda p, t, tpc=tpc: j_forward(jcfg, p, t, tp_comm=tpc))(
+                    sharded, toks))
+    return out
+
+
+# logits of one fp32 forward on two frameworks: summation order only
+DENSE_ATOL = 1e-5
+# int8/fp8: where a partial sum rounds to the other side of a
+# quantization level in one framework, that element moves by one level
+# (int8: its chunk's amax / 127, ~1e-3 for these partial sums; fp8: a
+# 2^-3 relative step) through the rest of the forward. fp8 takes the JAX
+# gate's max-logit-error budget (tests/test_quant_comm.py: 0.06).
+# Measured: int8 2.3e-5, fp8 0.017, every argmax equal
+COMPRESSED_ATOL = {"int8": 1e-3, "fp8": 0.06}
+
+
+@pytest.mark.parametrize("mode", ["none", "dense", "int8", "fp8"])
+def test_tp2_compressed_lm_forward_equals_jax(runs, jax_compressed, mode):
+    """The port's lm_forward at tp2 with a TpComm (none: the
+    vocab-parallel logits gathered densely) against the JAX package's
+    logits on the same weights and tokens: dense within 1e-5, int8 and
+    fp8 within COMPRESSED_ATOL; the argmax equals JAX's wherever JAX's
+    top two logits are more than twice the tolerance apart, and at >= 99%
+    of all positions."""
+    got = runs[0]["compress"][f"logits_{mode}"]
+    want = jax_compressed["none" if mode == "dense" else mode]
+    atol = COMPRESSED_ATOL.get(mode, DENSE_ATOL)
+    assert got.shape == want.shape == (8, 32, 128)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+    top2 = np.sort(want, -1)[..., -2:]
+    clear = (top2[..., 1] - top2[..., 0]) > 2 * atol
+    np.testing.assert_array_equal(got.argmax(-1)[clear],
+                                  want.argmax(-1)[clear])
+    assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.99
+
+
+def test_tp2_compressed_engine_counts_its_bytes(runs):
+    """The tp2 engine with int8 collectives: greedy traffic drains, the
+    first token equals the dense engine's (the same prefill context),
+    the counters equal the byte model's tick price x ticks plus a
+    prefill's price x prefills, and compress >= 3x (the JAX gate)."""
+    got = runs[0]["compress"]
+    dense, comp = got["engine_none"], got["engine_int8"]
+    assert "comm_dense_bytes" not in got["stats_none"]
+    np.testing.assert_array_equal(np.asarray(dense["tokens"])[:, 8],
+                                  np.asarray(comp["tokens"])[:, 8])
+    stats = got["stats_int8"]
+    tick, pre = got["tick_bytes_int8"], got["prefill_bytes_int8"]
+    for kind in ("dense", "compressed"):
+        assert stats[f"comm_{kind}_bytes"] == (
+            stats["ticks"] * tick[kind] + stats["admitted"] * pre[kind])
+    assert stats["ticks"] > 0 and stats["admitted"] == 4
+    assert stats["comm_dense_bytes"] >= 3 * stats["comm_compressed_bytes"]
