@@ -175,7 +175,9 @@ still run, so one call shows every failure):
               kernels 32 x ticks) under the teacher-forced gate run with
               the same int8 round trip, then each engine's graph tick with
               bf16 and int8 caches over 8 slots of 5 .. 1500-token prompts
-              (device and wall ms a tick, cache bytes, peak memory).
+              (device and wall ms a tick, cache bytes, peak memory), the
+              paged engine's at CONTROL_PAGED_TICK_LAYERS layers (cut for
+              the wall).
   3e. weight  Llama-2-7B at full size through the server on the dense
               engine with int8 and then fp8 weight-only quantization
               (ops/weight_quant.py, the server's --weight_int8 /
@@ -184,8 +186,9 @@ still run, so one call shows every failure):
               warm-up one, phase 3's teacher-forced gate against the plain
               path on the same quantized weights (and the same gate
               against the bf16 model, reported, not gated), the weight
-              bytes resident, and the graph tick's device time with bf16,
-              int8 and fp8 weights, in this call.
+              bytes resident, and the graph tick's device time with bf16
+              (3d's dense bf16 tick when 3d ran), int8 and fp8 weights,
+              in this call.
   4. training write a synthetic corpus (Zipf token ids, 32000 vocab, from
               SEED) with the port's MMapIndexedDatasetBuilder into
               megatron_tpu_torch/build/, then call
@@ -288,6 +291,27 @@ still run, so one call shows every failure):
               in every log line, exact launches; step time, MFU by the
               config's own FLOPs, peak memory. The cuts print as
               `reduced`.
+  5d. encoder the encoder families at their published widths, random
+              init from SEED, bf16, in a temporary directory: a
+              sentence-level corpus, titles, MNLI TSVs and RACE dirs
+              the script writes (ids as text for the null tokenizer);
+              (a) tools/pretrain_bert at BERT-large (24 x 1024, 16
+              heads, S 512, vocab 30592) with the SOP head, saved; (b)
+              tasks/main MNLI at S 128 and RACE at S 512 from (a)'s
+              checkpoint with --head_lr_mult 10; (c) tools/pretrain_t5
+              at T5-base (12 + 12 x 768, 12 heads, encoder 512, decoder
+              128, vocab 32128, 100 extra ids); (d) tools/pretrain_ict
+              at BERT-base width, separate towers, S 256, ict_head_size
+              128. Each family then builds a TrainLoop with its entry
+              point's hooks and init: gates: the entry point's first
+              bf16 loss within ENC_BAND of the same batch's fp32 loss
+              (the init upcast, TF32 off), ENC_FIT_STEPS steps on that
+              one batch make its loss fall, every loss finite, and for
+              (b) the loaded encoder leaves (params and fp32 masters)
+              equal (a)'s checkpoint bit for bit. Prints step ms,
+              tokens/s and peak memory a family, and the B1-B5 launches
+              of the phase (these families take the dense attention, as
+              in the JAX package: 0 expected, not asserted).
   6. loop     the loop and the data, in a temporary directory: (a) a
               seeded JSONL corpus (20,000 documents of Zipf-drawn words),
               a GPT-2 byte-level vocabulary learned from it and written
@@ -517,7 +541,12 @@ SPEC_PARTIAL_LAYERS = 31
 # the 100-token prompt. The reload run cuts the depth to RELOAD_LAYERS
 # (a 1.35 GB checkpoint) and reloads RELOAD_SEED's weights. The int8
 # ticks are timed with the 8 slots filled as tools/profile_serving.py
-# fills them (its TICK_LENS prompts of 5 .. 1500 tokens).
+# fills them (its TICK_LENS prompts of 5 .. 1500 tokens); the paged
+# engine's at CONTROL_PAGED_TICK_LAYERS layers (its fill is ~170 chunked
+# prefill ticks: 58 of the phase's 120 s at full depth), and phase 3e
+# takes the dense bf16 tick measured here (CONTROL_TICKS).
+CONTROL_PAGED_TICK_LAYERS = 8
+CONTROL_TICKS: dict = {}
 CONTROL_QUEUE = 2
 CONTROL_BURST = 8
 CONTROL_DEADLINE_S = 0.05
@@ -2683,8 +2712,14 @@ def _control_int8(torch, ft, cfg, params, tokenizer, prompts, totals, card):
     rec["dense_vs_paged_share_equal"] = (
         sum(x == y for a, b in zip(*seqs) for x, y in zip(a, b))
         / sum(len(a) for a in seqs[0]))
-    rec["ticks"] = [_tick_times(torch, cfg, params, paged, int8, card)
-                    for paged in (False, True) for int8 in (False, True)]
+    rec["ticks"] = [_tick_times(torch, cfg, params, False, int8, card)
+                    for int8 in (False, True)]
+    CONTROL_TICKS["dense_bf16"] = rec["ticks"][0]
+    cut, layers = _first_layers(cfg, params, CONTROL_PAGED_TICK_LAYERS)
+    rec["ticks"] += [dict(_tick_times(torch, cut, layers, True, int8, card),
+                          layers=CONTROL_PAGED_TICK_LAYERS)
+                     for int8 in (False, True)]
+    del layers
     tf = teacher_force(torch, dataclasses, cfg, params, prompts * 2,
                        seqs[0] + seqs[1], int8=True)
     rec.update(tf)
@@ -2693,6 +2728,22 @@ def _control_int8(torch, ft, cfg, params, tokenizer, prompts, totals, card):
             f"int8 teacher-forced match {tf['teacher_forced_match']:.4f} "
             f"< {MATCH_GATE}")
     return rec
+
+
+def _first_layers(cfg, params, n):
+    """(cfg, params) cut to the first n layers: views of the stacked
+    [L, ...] leaves, the rest shared."""
+    import dataclasses
+
+    return (dataclasses.replace(cfg, num_layers=n).validate(),
+            {**params, "layers": {k: _slice_layers(v, n)
+                                  for k, v in params["layers"].items()}})
+
+
+def _slice_layers(tree, n):
+    if isinstance(tree, dict):
+        return {k: _slice_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
 
 
 def _control_reload(torch, ft, tokenizer, prompts, totals):
@@ -3987,8 +4038,9 @@ def weight_quant_serving(torch, ft, card, dense_tokens):
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size - 1, size=n).tolist()
                for n in PROMPT_LENS]
-    ticks = {"bf16": _tick_times(torch, cfg, params, False, False, card,
-                                 label="weight_bf16")}
+    # phase 3d's dense bf16 tick, the same engine and fill, this call
+    ticks = {"bf16": CONTROL_TICKS.get("dense_bf16") or _tick_times(
+        torch, cfg, params, False, False, card, label="weight_bf16")}
     total, problems, runs = {}, [], {}
     for mode in WEIGHT_QUANT_MODES:
         t0 = time.monotonic()
@@ -4415,6 +4467,348 @@ LOOP_FAULT_LAYERS = 2         # phase 6c: GPT-2 width, depth cut for time
 LOOP_FAULT_TIMEOUT_S = 420
 LOOP_HANG_TIMEOUT_S = 20      # --step_timeout_s of the hang_step run
 LOOP_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+# -- phase 5d: the encoder families -------------------------------------------
+
+ENC_DOCS = 256                # 8..16 sentences of 12..40 ids each
+ENC_IDS = (1000, 29000)       # below BERT's 30522 and T5's sentinels
+ENC_STEPS = 6                 # each entry point's run
+ENC_FIT_STEPS = 10            # the fixed batch's run
+ENC_LR = "1e-4"
+ENC_BAND = 0.05               # |bf16 first-step loss - the fp32 loss|
+ENC_MIN_FREE_GB = 12          # BERT-large's checkpoint is ~4.8 GB
+ENC_DEVICE = "cuda"
+ENC_TOKEN_IDS = ["--cls_token_id", "101", "--sep_token_id", "102",
+                 "--pad_token_id", "0"]
+BERT_LARGE = ["--num_layers", "24", "--hidden_size", "1024",
+              "--num_attention_heads", "16", "--vocab_size", "30592"]
+BERT_BASE = ["--num_layers", "12", "--hidden_size", "768",
+             "--num_attention_heads", "12", "--vocab_size", "30592"]
+T5_BASE = ["--num_layers", "12", "--hidden_size", "768",
+           "--num_attention_heads", "12", "--vocab_size", "32128",
+           "--seq_length", "512", "--decoder_seq_length", "128",
+           "--vocab_extra_ids", "100"]
+# (widths, extra flags, global batch, positions a row holds)
+ENC_RUNS = {
+    "bert": (BERT_LARGE, ["--seq_length", "512", "--mask_token_id", "103"]
+             + ENC_TOKEN_IDS, 8, 512),
+    "mnli": (BERT_LARGE, ["--task", "MNLI", "--seq_length", "128",
+                          "--tokenizer_type", "null", "--head_lr_mult", "10",
+                          "--epochs", "1"] + ENC_TOKEN_IDS, 16, 128),
+    "race": (BERT_LARGE, ["--task", "RACE", "--seq_length", "512",
+                          "--tokenizer_type", "null", "--head_lr_mult", "10",
+                          "--epochs", "1"] + ENC_TOKEN_IDS, 4, 4 * 512),
+    "t5": (T5_BASE, ["--bos_token_id", "101", "--eos_token_id", "102",
+                     "--pad_token_id", "0"], 16, 512 + 128),
+    "ict": (BERT_BASE, ["--seq_length", "256", "--ict_head_size", "128",
+                        "--retriever_score_scaling"] + ENC_TOKEN_IDS, 32,
+            2 * 256),
+}
+
+
+def encoder_corpus(np, prefix: str, titles: str) -> dict:
+    """A sentence-level corpus (ENC_DOCS documents, one sequence a
+    sentence) and one 4..8-id title a document, ids uniform in ENC_IDS."""
+    from megatron_tpu_torch.data.indexed_dataset import make_builder
+
+    rng = np.random.default_rng(SEED)
+    sents = make_builder(prefix, vocab_size=32128)
+    heads = make_builder(titles, vocab_size=32128)
+    n = 0
+    for _ in range(ENC_DOCS):
+        for _ in range(int(rng.integers(8, 17))):
+            ids = rng.integers(*ENC_IDS, int(rng.integers(12, 41)))
+            sents.add_item(ids)
+            n += len(ids)
+        sents.end_document()
+        heads.add_item(rng.integers(*ENC_IDS, int(rng.integers(4, 9))))
+        heads.end_document()
+    sents.finalize(prefix + ".idx")
+    heads.finalize(titles + ".idx")
+    return {"documents": ENC_DOCS, "tokens": n}
+
+
+def _ids(np, rng, lo, hi) -> str:
+    return " ".join(map(str, rng.integers(*ENC_IDS, int(rng.integers(lo,
+                                                                      hi)))))
+
+
+def encoder_task_files(np, tmp) -> dict:
+    """MNLI TSVs (64 train, 16 dev rows; premise col 8, hypothesis col 9,
+    label last) and RACE dirs (8 train, 2 dev articles of 300..700 ids,
+    two questions each, so a 512 window truncates), ids as text for the
+    null tokenizer."""
+    import json
+
+    rng = np.random.default_rng(SEED + 5)
+    labels = ("contradiction", "entailment", "neutral")
+    out = {}
+    for split, rows in (("train", 64), ("dev", 16)):
+        path = os.path.join(tmp, f"mnli_{split}.tsv")
+        with open(path, "w") as f:
+            f.write("\t".join(f"c{i}" for i in range(12)) + "\n")
+            for _ in range(rows):
+                row = [""] * 12
+                row[8], row[9] = _ids(np, rng, 20, 60), _ids(np, rng, 10, 40)
+                row[11] = labels[int(rng.integers(0, 3))]
+                f.write("\t".join(row) + "\n")
+        out[f"mnli_{split}"] = path
+    for split, docs in (("train", 8), ("dev", 2)):
+        d = os.path.join(tmp, f"race_{split}")
+        os.makedirs(d)
+        with open(os.path.join(d, "docs.txt"), "w") as f:
+            for _ in range(docs):
+                f.write(json.dumps({
+                    "article": _ids(np, rng, 300, 700),
+                    "questions": [_ids(np, rng, 5, 12) + " _",
+                                  _ids(np, rng, 5, 12)],
+                    "options": [[_ids(np, rng, 3, 8) for _ in range(4)]
+                                for _ in range(2)],
+                    "answers": [chr(65 + int(rng.integers(0, 4)))
+                                for _ in range(2)]}) + "\n")
+        out[f"race_{split}"] = d
+    return out
+
+
+def _fixed_batch_losses(loop, batch) -> list:
+    """`loop` trained to its train_iters on one host batch: its losses."""
+    def factory(consumed, gbs):
+        while True:
+            yield batch
+
+    loop.train(factory)
+    loop.writer.close()
+    return [h["lm_loss"] for h in loop.history]
+
+
+def _encoder_family(torch, name, argv, run, ref_loop, first_batch, card):
+    """One family: its entry point `run(argv)` (the main path; the loop it
+    returns), then `ref_loop()`, a TrainLoop with the entry point's hooks
+    at the same init and ENC_FIT_STEPS iterations: the fp32 loss of the
+    entry point's first batch (`first_batch()`, a host batch) at that
+    init upcast, against the entry point's bf16 first-step loss (gate:
+    within ENC_BAND), then ENC_FIT_STEPS steps on that one batch (gate:
+    the loss falls). Returns (record, problems)."""
+    import dataclasses
+    import statistics
+
+    from megatron_tpu_torch.training.optimizer import leaf_paths, tree_map
+
+    widths, _, gbs, positions = ENC_RUNS[name]
+    problems = []
+    cuda = ENC_DEVICE == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    loop = run(argv)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    hist = loop.history
+    losses = [h["lm_loss"] for h in hist]
+    step_s = statistics.median(h["window_s"] for h in hist[1:])
+    rec = {"phase": "encoder_family", "card": card, "family": name,
+           "widths": " ".join(widths[1::2]), "global_batch": gbs,
+           "positions_per_row": positions,
+           "params": sum(p.numel() for _, p in
+                         leaf_paths(loop.state.params)),
+           "wall_s": wall, "losses": losses, "step_ms": step_s * 1e3,
+           "tokens_per_s": gbs * positions / step_s,
+           "max_memory_allocated_gib": peak}
+    del loop, hist
+    free_cuda(torch)
+    if len(losses) < 2 or not all(math.isfinite(x) for x in losses):
+        problems.append(f"{name}: losses {losses}")
+
+    ref = ref_loop()
+    batch = first_batch()
+    dev = ref.put_batch(batch)
+    cfg32 = dataclasses.replace(ref.cfg.model, params_dtype="float32")
+    with torch.no_grad():
+        p32 = tree_map(lambda t: t.detach().float(), ref.state.params)
+        loss32 = float(ref.loss_fn(cfg32, p32, dev)[0])
+        loss16 = float(ref.loss_fn(ref.cfg.model, ref.state.params, dev)[0])
+        del p32
+    free_cuda(torch)
+    fit = _fixed_batch_losses(ref, batch)
+    del ref, dev
+    free_cuda(torch)
+    rec.update({"first_loss_bf16": losses[0] if losses else None,
+                "ref_first_loss_bf16": loss16, "loss_fp32": loss32,
+                "band": ENC_BAND,
+                "bf16_minus_fp32": (losses[0] - loss32 if losses
+                                    else None),
+                "fixed_batch_losses": fit})
+    if not losses or not abs(losses[0] - loss32) <= ENC_BAND:
+        problems.append(f"{name}: first-step loss {losses[:1]} vs the "
+                        f"fp32 loss {loss32} (band {ENC_BAND})")
+    if not (len(fit) == ENC_FIT_STEPS
+            and all(math.isfinite(x) for x in fit) and fit[-1] < fit[0]):
+        problems.append(f"{name}: the fixed batch's losses {fit} do not "
+                        "fall")
+    emit(rec)
+    return rec, problems
+
+
+def encoder_families(torch, np, ft, card):
+    """Phase 5d in a temporary directory, removed at the end."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="smoke_encoder_")
+    try:
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        if free_gb < ENC_MIN_FREE_GB:
+            raise AssertionError(f"encoder families: {tmp} has {free_gb:.1f}"
+                                 f" GB free, the phase needs "
+                                 f"{ENC_MIN_FREE_GB} GB")
+        return _encoder_families(torch, np, ft, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _encoder_families(torch, np, ft, card, tmp):
+    import dataclasses
+
+    from megatron_tpu_torch.arguments import (
+        bert_args, ict_args, parse_args, t5_args, task_args,
+    )
+    from megatron_tpu_torch.data.samplers import PretrainingSampler
+    from megatron_tpu_torch.models.bert import bert_loss
+    from megatron_tpu_torch.models.t5 import (
+        t5_init_params, t5_loss, t5_param_specs,
+    )
+    from megatron_tpu_torch.tasks import finetune_utils
+    from megatron_tpu_torch.tasks import main as tasks_main
+    from megatron_tpu_torch.tools import (
+        pretrain_bert, pretrain_ict, pretrain_t5,
+    )
+    from megatron_tpu_torch.training.checkpointing import load_params_only
+    from megatron_tpu_torch.training.optimizer import leaf_paths
+    from megatron_tpu_torch.training.pretrain import TrainLoop
+
+    for k in TRAIN_COUNTED:
+        getattr(ft, k).launches = 0
+    sents, titles = os.path.join(tmp, "sents"), os.path.join(tmp, "titles")
+    files = encoder_corpus(np, sents, titles)
+    files.update(encoder_task_files(np, tmp))
+    ck = os.path.join(tmp, "bert")
+    emit({"phase": "encoder_data", "card": card, **files})
+
+    def argv(name, extra=()):
+        widths, flags, gbs, _ = ENC_RUNS[name]
+        return (widths + flags + [
+            "--micro_batch_size", str(gbs), "--global_batch_size", str(gbs),
+            "--lr", ENC_LR, "--lr_decay_style", "constant",
+            "--log_interval", "1", "--seed", str(SEED), "--device",
+            ENC_DEVICE] + list(extra))
+
+    def fit_cfg(cfg):
+        return dataclasses.replace(cfg, training=dataclasses.replace(
+            cfg.training, train_iters=ENC_FIT_STEPS, save=None))
+
+    records, problems = {}, []
+
+    def family(name, a, run, ref_loop, first_batch):
+        try:
+            rec, bad = _encoder_family(torch, name, a, run, ref_loop,
+                                       first_batch, card)
+            records[name] = rec
+            problems.extend(bad)
+        except Exception as e:  # noqa: BLE001 - gate every family
+            traceback.print_exc()
+            problems.append(f"{name}: {type(e).__name__}: {e}")
+        free_cuda(torch)
+
+    def pretrain_batch(tool, args, cfg, collate=None):
+        ds = tool.train_dataset(args, cfg)
+        idx = next(iter(PretrainingSampler(len(ds), 0,
+                                           cfg.training.global_batch_size,
+                                           0, 1)))
+        items = [ds[i] for i in idx]
+        if collate is not None:
+            return collate(items)
+        return {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+    # (a) BERT-large with the SOP head, saved for (b)
+    a = argv("bert", ["--data_path", sents, "--train_iters", str(ENC_STEPS),
+                      "--save", ck, "--save_interval", str(ENC_STEPS)])
+    args = parse_args(a, bert_args)
+    cfg = pretrain_bert.run_config(args)
+    family("bert", a, lambda v: pretrain_bert.main(v, log=lambda m: None),
+           lambda: TrainLoop(fit_cfg(cfg), log=lambda m: None,
+                             device=ENC_DEVICE, loss_fn=bert_loss),
+           lambda: pretrain_batch(pretrain_bert, args, cfg))
+
+    # (b) MNLI at S 128 and RACE at S 512 from (a)'s checkpoint
+    for name, tr, dv in (("mnli", "mnli_train", "mnli_dev"),
+                         ("race", "race_train", "race_dev")):
+        a = argv(name, ["--train_data", files[tr], "--valid_data", files[dv],
+                        "--pretrained_checkpoint", ck])
+        targs = parse_args(a, task_args)
+        tcfg = tasks_main.run_config(targs)
+        ncls, train_ds, _ = tasks_main.task_datasets(targs, tcfg.model)
+
+        def ref_loop(tcfg=tcfg, ncls=ncls, name=name):
+            loop = finetune_utils.finetune_loop(fit_cfg(tcfg), ncls,
+                                                pretrained=ck,
+                                                log=lambda m: None,
+                                                device=ENC_DEVICE)
+            enc = {k: loop.state.params[k] for k in finetune_utils.ENCODER}
+            saved = load_params_only(ck, enc)
+            masters = {k: loop.state.master[k] for k in enc}
+            saved32 = load_params_only(ck, masters)
+            same = all(torch.equal(x, y) for (_, x), (_, y) in zip(
+                leaf_paths(enc), leaf_paths(saved))) and all(
+                torch.equal(x, y) for (_, x), (_, y) in zip(
+                    leaf_paths(masters), leaf_paths(saved32)))
+            records.setdefault(f"{name}_load", {})["encoder_bitwise"] = same
+            records[f"{name}_load"]["leaves"] = len(leaf_paths(enc))
+            if not same:
+                problems.append(f"{name}: the loaded encoder leaves differ "
+                                "from (a)'s checkpoint")
+            del saved, saved32
+            return loop
+
+        family(name, a, lambda v: tasks_main.main(v, log=lambda m: None),
+               ref_loop,
+               lambda ds=train_ds, gbs=tcfg.training.global_batch_size,
+               seed=tcfg.training.seed:
+               next(finetune_utils._epoch_iter(ds, 0, gbs, seed)))
+
+    # (c) T5-base
+    a = argv("t5", ["--data_path", sents, "--train_iters", str(ENC_STEPS)])
+    args5 = parse_args(a, t5_args)
+    cfg5 = pretrain_t5.run_config(args5)
+    family("t5", a, lambda v: pretrain_t5.main(v, log=lambda m: None),
+           lambda: TrainLoop(fit_cfg(cfg5), log=lambda m: None,
+                             device=ENC_DEVICE, init_params_fn=t5_init_params,
+                             param_specs_fn=t5_param_specs, loss_fn=t5_loss),
+           lambda: pretrain_batch(pretrain_t5, args5, cfg5))
+
+    # (d) ICT at BERT-base width, separate towers
+    a = argv("ict", ["--data_path", sents, "--titles_data_path", titles,
+                     "--train_iters", str(ENC_STEPS)])
+    argsi = parse_args(a, ict_args)
+    cfgi = pretrain_ict.run_config(argsi)
+    family("ict", a, lambda v: pretrain_ict.main(v, log=lambda m: None),
+           lambda: TrainLoop(fit_cfg(cfgi), log=lambda m: None,
+                             device=ENC_DEVICE, **pretrain_ict.loop_hooks(argsi, cfgi)),
+           lambda: pretrain_batch(pretrain_ict, argsi, cfgi,
+                                  pretrain_ict.collate))
+
+    counts = {k: getattr(ft, k).launches for k in TRAIN_COUNTED}
+    emit({"phase": "encoder_families", "card": card,
+          "launches": counts, "loads": {k: v for k, v in records.items()
+                                        if k.endswith("_load")},
+          "note": "B1-B5 launches over the whole phase: these families "
+                  "take the dense attention (padding masks; T5's "
+                  "impl='xla'), as in the JAX package"})
+    if problems:
+        raise AssertionError("encoder families: " + "; ".join(problems))
+    return counts
 
 
 def loop_corpus(np, out_dir) -> dict:
@@ -6950,6 +7344,7 @@ def main(argv=()) -> int:
     phase("finetune", finetune, torch, np, ft, card)
     phase("families", families, torch, np, ft, card)
     phase("mixtral", mixtral, torch, np, ft, card)
+    phase("encoder_families", encoder_families, torch, np, ft, card)
     phase("loop", loop_and_data, torch, np, ft, card)
     phase("parallel", parallel_training, torch, np, ft, card)
     phase("parallel_serving", parallel_serving, torch, np, ft, card)

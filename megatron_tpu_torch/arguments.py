@@ -39,6 +39,15 @@ architecture flags (--position_embedding_type, --max_position_embeddings,
 override the preset's value when given. --recompute_method and
 --recompute_num_layers map onto "block:N" / "uniform:N" with
 --recompute_granularity full, as the JAX CLI maps them.
+
+The encoder families (tools/pretrain_bert, pretrain_t5, pretrain_ict and
+tasks/main) build their models from --num_layers, --hidden_size,
+--num_attention_heads, --vocab_size (padded to
+--make_vocab_size_divisible_by) and --seq_length instead of a preset
+(encoder_model_kwargs), and add their own flag groups (bert_args,
+t5_args, ict_args, task_args: the JAX entry points' names and defaults);
+--mask_prob, --short_seq_prob and --head_lr_mult (the task heads' LR
+multiplier, HEAD_PATTERN) are the JAX CLI's.
 """
 
 from __future__ import annotations
@@ -60,6 +69,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="preset, optionally 'name-SIZE' (e.g. llama2-7B)")
     g.add_argument("--num_layers", type=int, default=None,
                    help="override the preset's depth")
+    # the encoder families' widths (tools/pretrain_{bert,t5,ict},
+    # tasks/main): their models are built from these, not from a preset
+    g.add_argument("--hidden_size", type=int, default=None)
+    g.add_argument("--num_attention_heads", type=int, default=None)
+    g.add_argument("--vocab_size", type=int, default=None)
+    g.add_argument("--make_vocab_size_divisible_by", type=int, default=128)
     g.add_argument("--seq_length", type=int, default=2048)
     g.add_argument("--attention_impl", default="xla",
                    choices=["xla", "pallas", "ring", "ulysses"])
@@ -143,7 +158,11 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["constant", "linear", "cosine",
                             "inverse-square-root"])
     g.add_argument("--lr_warmup_iters", type=int, default=0)
+    g.add_argument("--lr_warmup_fraction", type=float, default=None)
     g.add_argument("--weight_decay", type=float, default=0.01)
+    g.add_argument("--head_lr_mult", type=float, default=1.0,
+                   help="LR multiplier of the task heads (classification, "
+                        "ICT and binary heads) when finetuning")
     g.add_argument("--clip_grad", type=float, default=1.0)
     g.add_argument("--adam_beta1", type=float, default=0.9)
     g.add_argument("--adam_beta2", type=float, default=0.999)
@@ -312,6 +331,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "tokenizer to ask)")
     g.add_argument("--reset_position_ids", action="store_true",
                    help="restart position ids after each EOD")
+    g.add_argument("--mask_prob", type=float, default=0.15,
+                   help="BERT/T5 data: the share of tokens masked")
+    g.add_argument("--short_seq_prob", type=float, default=0.1,
+                   help="BERT/T5 data: the share of samples cut short")
     g.add_argument("--tokenizer_type", default="SentencePieceTokenizer")
     g.add_argument("--vocab_file", default=None)
     g.add_argument("--merges_file", default=None)
@@ -348,6 +371,65 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions")
+    return p
+
+
+def bert_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """tools/pretrain_bert's flags (the JAX entry point's)."""
+    g = p.add_argument_group("bert")
+    g.add_argument("--mask_token_id", type=int, default=103)
+    g.add_argument("--cls_token_id", type=int, default=101)
+    g.add_argument("--sep_token_id", type=int, default=102)
+    g.add_argument("--pad_token_id", type=int, default=0)
+    g.add_argument("--no_binary_head", action="store_true")
+    return p
+
+
+def t5_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """tools/pretrain_t5's flags (the JAX entry point's)."""
+    g = p.add_argument_group("t5")
+    g.add_argument("--decoder_seq_length", type=int, default=128)
+    g.add_argument("--encoder_num_layers", type=int, default=None,
+                   help="encoder depth (default: --num_layers)")
+    g.add_argument("--decoder_num_layers", type=int, default=None,
+                   help="decoder depth (default: --num_layers)")
+    g.add_argument("--bos_token_id", type=int, default=101)
+    g.add_argument("--eos_token_id", type=int, default=102)
+    g.add_argument("--pad_token_id", type=int, default=0)
+    return p
+
+
+def ict_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """tools/pretrain_ict's flags (the JAX entry point's)."""
+    g = p.add_argument_group("ict")
+    g.add_argument("--titles_data_path", type=str, default=None)
+    g.add_argument("--ict_head_size", type=int, default=128)
+    g.add_argument("--biencoder_shared_query_context_model",
+                   action="store_true")
+    g.add_argument("--retriever_score_scaling", action="store_true")
+    g.add_argument("--retriever_report_topk_accuracies", nargs="*",
+                   type=int, default=[1, 5])
+    g.add_argument("--query_in_block_prob", type=float, default=0.1)
+    g.add_argument("--use_one_sent_docs", action="store_true")
+    g.add_argument("--cls_token_id", type=int, default=101)
+    g.add_argument("--sep_token_id", type=int, default=102)
+    g.add_argument("--pad_token_id", type=int, default=0)
+    return p
+
+
+def task_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """tasks/main's flags (the JAX harness's; RET-FINETUNE-NQ is accepted
+    and refused there)."""
+    g = p.add_argument_group("tasks")
+    g.add_argument("--task", required=True,
+                   choices=["MNLI", "QQP", "RACE", "RET-FINETUNE-NQ"])
+    g.add_argument("--train_data", nargs="+", required=True)
+    g.add_argument("--valid_data", nargs="+", required=True)
+    g.add_argument("--epochs", type=int, default=3)
+    g.add_argument("--pretrained_checkpoint", type=str, default=None)
+    g.add_argument("--cls_token_id", type=int, default=101)
+    g.add_argument("--sep_token_id", type=int, default=102)
+    g.add_argument("--pad_token_id", type=int, default=0)
     return p
 
 
@@ -442,29 +524,43 @@ def recompute_policy(args) -> str:
     return args.recompute_granularity
 
 
-def args_to_run_config(args) -> RunConfig:
-    from megatron_tpu_torch.models import presets
+def encoder_model_kwargs(args) -> dict:
+    """The encoder families' model arguments from the flags (the JAX
+    CLI's non-preset path): depth, widths, the vocabulary padded to
+    --make_vocab_size_divisible_by, the length (and the position table's
+    rows when --max_position_embeddings is given; the configs default it
+    to the length), the precision and the attention route, as
+    bert_config, t5_config and biencoder_config take them."""
+    from megatron_tpu_torch.models.presets import pad_vocab
 
-    if not args.model_name:
-        raise ValueError("--model_name is required (the port builds models "
-                         "from presets)")
-    model = presets.from_model_name(args.model_name)
-    overrides = dict(attention_impl=args.attention_impl,
-                     flash_bwd=args.flash_bwd,
-                     ce_chunk_size=args.ce_chunk_size,
-                     params_dtype=_dtype_name(args))
-    # 2048 is the flag's default: the preset's own length stands unless
-    # another one is asked for (the JAX CLI's rule)
-    if args.seq_length and args.seq_length != 2048:
-        overrides["seq_length"] = args.seq_length
-    if args.num_layers is not None:
-        overrides["num_layers"] = args.num_layers
-    for flag, field in _ARCH_FLAGS:
-        if getattr(args, flag) is not None:
-            overrides[field] = getattr(args, flag)
-    overrides.update(_moe_overrides(args))
-    overrides.update(_fp8_overrides(args))
-    model = ModelConfig(**{**model.__dict__, **overrides}).validate()
+    required = ("num_layers", "hidden_size", "num_attention_heads",
+                "vocab_size")
+    missing = [r for r in required if getattr(args, r) is None]
+    if missing:
+        raise ValueError(f"missing required model args: {missing}")
+    kw = {}
+    if args.max_position_embeddings is not None:
+        kw["max_position_embeddings"] = args.max_position_embeddings
+    return dict(kw, num_layers=args.num_layers, hidden_size=args.hidden_size,
+                num_attention_heads=args.num_attention_heads,
+                vocab_size=pad_vocab(args.vocab_size,
+                                     args.make_vocab_size_divisible_by,
+                                     args.tensor_model_parallel_size),
+                seq_length=args.seq_length, params_dtype=_dtype_name(args),
+                attention_impl=args.attention_impl)
+
+
+#: the task heads --head_lr_mult scales (the JAX CLI's pattern): GLUE's
+#: and RACE's classification_head, the ICT heads, BERT's binary head
+HEAD_PATTERN = "(^|/)(classification_head|ict_head|binary_head)(/|$)"
+
+
+def args_to_run_config(args, model: Optional[ModelConfig] = None
+                       ) -> RunConfig:
+    """The run config of the flags; `model` (an encoder family's, built
+    by its entry point) replaces the preset."""
+    if model is None:
+        model = _preset_model(args)
 
     cp = args.context_parallel_size
     if cp > 1 and model.seq_length % cp:
@@ -496,6 +592,9 @@ def args_to_run_config(args) -> RunConfig:
         use_distributed_optimizer=args.use_distributed_optimizer,
         lr=args.lr, min_lr=args.min_lr, lr_decay_style=args.lr_decay_style,
         lr_warmup_iters=args.lr_warmup_iters,
+        lr_warmup_fraction=args.lr_warmup_fraction,
+        param_group_mults=(((HEAD_PATTERN, args.head_lr_mult, 1.0),)
+                           if args.head_lr_mult != 1.0 else ()),
         adam_beta1=args.adam_beta1, adam_beta2=args.adam_beta2,
         adam_eps=args.adam_eps, weight_decay=args.weight_decay,
         clip_grad=args.clip_grad)
@@ -554,3 +653,28 @@ def args_to_run_config(args) -> RunConfig:
         metrics=tuple(args.metrics))
     return RunConfig(model=model, parallel=parallel, optimizer=optimizer,
                      training=training).validate()
+
+
+def _preset_model(args) -> ModelConfig:
+    from megatron_tpu_torch.models import presets
+
+    if not args.model_name:
+        raise ValueError("--model_name is required (the port builds models "
+                         "from presets)")
+    model = presets.from_model_name(args.model_name)
+    overrides = dict(attention_impl=args.attention_impl,
+                     flash_bwd=args.flash_bwd,
+                     ce_chunk_size=args.ce_chunk_size,
+                     params_dtype=_dtype_name(args))
+    # 2048 is the flag's default: the preset's own length stands unless
+    # another one is asked for (the JAX CLI's rule)
+    if args.seq_length and args.seq_length != 2048:
+        overrides["seq_length"] = args.seq_length
+    if args.num_layers is not None:
+        overrides["num_layers"] = args.num_layers
+    for flag, field in _ARCH_FLAGS:
+        if getattr(args, flag) is not None:
+            overrides[field] = getattr(args, flag)
+    overrides.update(_moe_overrides(args))
+    overrides.update(_fp8_overrides(args))
+    return ModelConfig(**{**model.__dict__, **overrides}).validate()

@@ -71,13 +71,20 @@ def parse_recompute(recompute: str) -> Tuple[str, Optional[int]]:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture of one decoder-only transformer LM."""
+    """Architecture of one transformer: a decoder-only LM, or the BERT
+    encoder and the T5 encoder-decoder (models/bert.py, models/t5.py)."""
 
     num_layers: int
     hidden_size: int
     num_attention_heads: int
     vocab_size: int
     seq_length: int
+
+    # encoder-decoder models (T5) may give the two stacks different
+    # depths (--encoder_num_layers / --decoder_num_layers); None =
+    # num_layers. Decoder-only models ignore both.
+    encoder_num_layers: Optional[int] = None
+    decoder_num_layers: Optional[int] = None
 
     num_kv_heads: Optional[int] = None
     kv_channels: Optional[int] = None
@@ -150,6 +157,11 @@ class ModelConfig:
     ce_chunk_size: int = 0
 
     attention_impl: str = "xla"
+    # BERT-style extras (models/bert.py): rows of the embed/tokentype
+    # table (0: none), and the pooler + binary (SOP) head + MLM transform
+    # head leaves
+    num_tokentypes: int = 0
+    bert_binary_head: bool = False
     # full-sequence attention through flash_mha's backward kernels;
     # False (--no_flash_bwd) is the escape hatch to the dense O(S^2)
     # attention and its autograd gradient, loudly warned
@@ -238,6 +250,11 @@ class ModelConfig:
                 raise ValueError(
                     f"moe_group_size={self.moe_group_size} must divide "
                     f"seq_length={self.seq_length}")
+        if self.num_tokentypes < 0:
+            raise ValueError("num_tokentypes must be >= 0")
+        for name in ("encoder_num_layers", "decoder_num_layers"):
+            if getattr(self, name) is not None and getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1 (None: num_layers)")
         if self.ce_chunk_size < 0:
             raise ValueError("ce_chunk_size must be >= 0")
         if self.ce_chunk_size and self.seq_length % self.ce_chunk_size:

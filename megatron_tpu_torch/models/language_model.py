@@ -107,16 +107,20 @@ def loss_mean(per_token: torch.Tensor, loss_mask: Optional[torch.Tensor],
 def embed_tokens(cfg: ModelConfig, params: Dict[str, Any],
                  tokens: torch.Tensor,
                  positions: Optional[torch.Tensor] = None,
-                 mesh=None) -> torch.Tensor:
+                 mesh=None,
+                 tokentype_ids: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """Token embedding, plus the embed/pos rows at `positions` ([B, S] or
     [1, S]; None: 0 .. S-1) for absolute position embeddings (a rotary
-    model's positions enter through RoPE). Positions are clamped to the
-    table, as a gather on the device must not read past it: the engines
-    refuse caches longer than the table, so only padded positions that
-    no one reads are clamped. Under tensor parallelism the table is this
-    rank's vocab rows: ids outside them embed to zero and the tensor
-    group's sum (reduce-scatter under sequence parallelism, which then
-    returns this rank's sequence chunk) completes each row."""
+    model's positions enter through RoPE), plus the embed/tokentype rows
+    at `tokentype_ids` [B, S] when given (BERT's segments). Positions are
+    clamped to the table, as a gather on the device must not read past
+    it: the engines refuse caches longer than the table, so only padded
+    positions that no one reads are clamped. Under tensor parallelism
+    the table is this rank's vocab rows: ids outside them embed to zero
+    and the tensor group's sum (reduce-scatter under sequence
+    parallelism, which then returns this rank's sequence chunk)
+    completes each row."""
     table = params["embed"]["tokens"]
     if mesh is None or mesh.tp == 1:
         x = take_rows(table, tokens, cfg.dtype).to(cfg.dtype)
@@ -134,6 +138,9 @@ def embed_tokens(cfg: ModelConfig, params: Dict[str, Any],
             0, cfg.max_position_embeddings - 1)
         x = x + F.embedding(sp_slice(pos, mesh, dim=-1),
                             params["embed"]["pos"]).to(cfg.dtype)
+    if tokentype_ids is not None:
+        x = x + F.embedding(tokentype_ids.to(tokens.device, torch.long),
+                            params["embed"]["tokentype"]).to(cfg.dtype)
     return x
 
 
@@ -174,6 +181,7 @@ def lm_forward(
     return_moe_aux: bool = False,
     tp_comm=None,
     cp_comm=None,
+    tokentype_ids: Optional[torch.Tensor] = None,   # [B, S] (BERT segments)
 ):
     """Forward pass to logits [B, S, V] (or, with return_hidden, the
     final-normed hidden states [B, S, h]); with return_moe_aux, (that,
@@ -214,7 +222,8 @@ def lm_forward(
     JAX package's lm_forward(tp_comm=...) returns them. cp_comm (a
     quant.CpComm): context-parallel serving; kv_caches are this rank's
     stripe of the page pools and page_table its local table
-    (inference/context_parallel/)."""
+    (inference/context_parallel/). tokentype_ids: BERT's segment ids,
+    embedded through embed/tokentype (models/bert.py)."""
     if return_moe_aux and kv_caches is not None:
         raise ValueError("return_moe_aux with kv_caches is ambiguous: "
                          "decode paths don't train the router")
@@ -233,7 +242,8 @@ def lm_forward(
     elif kv_caches is None:
         positions = context_positions(tokens, positions, mesh)
 
-    x = embed_tokens(cfg, params, tokens, positions, mesh=mesh)
+    x = embed_tokens(cfg, params, tokens, positions, mesh=mesh,
+                     tokentype_ids=tokentype_ids)
 
     if rope is None and cfg.position_embedding_type == "rotary":
         if kv_caches is not None and page_table is not None:

@@ -50,8 +50,8 @@ _ZEROS = "zeros"
 
 def _defs(cfg: ModelConfig) -> Dict[str, Any]:
     """Flat {'/'-joined path: (shape, partition_spec, init_kind)}, the
-    JAX package's table (megatron_tpu/models/params.py:39-125) for the
-    decoder models the port trains (dense and MoE)."""
+    JAX package's table (megatron_tpu/models/params.py:39-125): the
+    decoder models (dense and MoE), and BERT's token types and heads."""
     h = cfg.hidden_size
     L = cfg.num_layers
     D = cfg.head_dim
@@ -66,6 +66,9 @@ def _defs(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.position_embedding_type == "absolute":
         d["embed/pos"] = ((cfg.max_position_embeddings, h), P(None, None),
                           _NORMAL)
+    if cfg.num_tokentypes > 0:
+        d["embed/tokentype"] = ((cfg.num_tokentypes, h), P(None, None),
+                                _NORMAL)
 
     ln_bias = cfg.normalization == "layernorm"
     norms = ["layers/ln1"]
@@ -114,6 +117,18 @@ def _defs(cfg: ModelConfig) -> Dict[str, Any]:
             d["final_ln/bias"] = ((h,), P(None), _ZEROS)
     if not cfg.tie_embed_logits:
         d["lm_head/w"] = ((h, V), P(None, tensor), _NORMAL)
+    if cfg.bert_binary_head:
+        # BERT's MLM transform (dense + gelu + LN) over the tied decoder
+        # with an output bias, the pooler and the binary head
+        d["mlm_head/dense_w"] = ((h, h), P(None, None), _NORMAL)
+        d["mlm_head/dense_b"] = ((h,), P(None), _ZEROS)
+        d["mlm_head/norm_scale"] = ((h,), P(None), _ONES)
+        d["mlm_head/norm_bias"] = ((h,), P(None), _ZEROS)
+        d["mlm_head/bias"] = ((V,), P(tensor), _ZEROS)
+        d["pooler/w"] = ((h, h), P(None, None), _NORMAL)
+        d["pooler/b"] = ((h,), P(None), _ZEROS)
+        d["binary_head/w"] = ((h, 2), P(None, None), _NORMAL)
+        d["binary_head/b"] = ((2,), P(None), _ZEROS)
     return d
 
 
@@ -440,19 +455,49 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda",
     for path, (shape, _, kind) in sorted(_defs(cfg).items()):
         if mesh is not None and not stage_holds(path, cfg, mesh):
             continue
-        if kind == _ONES:
-            flat[path] = torch.ones(shape, dtype=dtype, device=device)
-        elif kind == _ZEROS:
-            flat[path] = torch.zeros(shape, dtype=dtype, device=device)
-        else:
-            std = scaled_std if kind == _SCALED else cfg.init_method_std
-            gen = torch.Generator(device=device)
-            gen.manual_seed(zlib.crc32(path.encode(), int(seed) & 0xFFFFFFFF))
-            t = torch.empty(shape, dtype=dtype, device=device)
-            flat[path] = t.normal_(0.0, std, generator=gen)
+        std = scaled_std if kind == _SCALED else cfg.init_method_std
+        flat[path] = init_leaf(path, shape, kind, std, seed, device, dtype)
     if mesh is not None:
         flat = shard_params(flat, cfg, mesh)
     return _nest(flat)
+
+
+def init_leaf(path: str, shape: tuple, kind: str, std: float, seed: int,
+              device, dtype: torch.dtype) -> torch.Tensor:
+    """One leaf of init kind `kind` (_ONES, _ZEROS, or a normal of `std`
+    drawn from a generator seeded from `seed` and a hash of `path`)."""
+    if kind == _ONES:
+        return torch.ones(shape, dtype=dtype, device=device)
+    if kind == _ZEROS:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(zlib.crc32(path.encode(), int(seed) & 0xFFFFFFFF))
+    t = torch.empty(shape, dtype=dtype, device=device)
+    return t.normal_(0.0, std, generator=gen)
+
+
+def tree_from_numpy(tree: Dict[str, Any], want: Dict[str, tuple],
+                    device="cuda", dtype: torch.dtype = torch.float32
+                    ) -> Dict[str, Any]:
+    """A JAX parameter tree of numpy arrays -> a nested dict of tensors,
+    checked path by path and shape by shape against `want` ({path:
+    shape}): the form params_from_numpy takes for the trees the decoder
+    table does not describe (models/t5.py, models/biencoder.py)."""
+    flat = _flatten(tree)
+    missing = sorted(set(want) - set(flat))
+    extra = sorted(set(flat) - set(want))
+    if missing or extra:
+        raise ValueError(f"parameter tree mismatch: missing {missing}, "
+                         f"unexpected {extra}")
+    out = {}
+    for path, arr in flat.items():
+        a = np.asarray(arr)
+        if tuple(a.shape) != tuple(want[path]):
+            raise ValueError(f"{path}: shape {a.shape} != {want[path]}")
+        out[path] = torch.from_numpy(
+            np.ascontiguousarray(a.astype(np.float32))).to(
+                device=device, dtype=dtype)
+    return _nest(out)
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device="cuda",

@@ -1094,6 +1094,14 @@ def load_params_only(load: str, params_template: Any,
     return _map_tree(lambda name, _t: out[name], params_template)
 
 
+def saved_param_names(load: str, iteration: Optional[int] = None) -> set:
+    """The '/'-joined parameter leaf names of the checkpoint a load from
+    `load` reads (its masters' when it has them)."""
+    it, _ = resolve_load_iteration(load, iteration)
+    saved = _Saved(checkpoint_dir(load, it))
+    return saved.names("master" if "master" in saved.fields else "params")
+
+
 #: shape-defining keys: a mismatch would also fail the restore, but with
 #: an opaque shape error instead of this check's message
 SHAPE_KEYS = ("num_layers", "encoder_num_layers", "decoder_num_layers",

@@ -90,7 +90,7 @@ from megatron_tpu_torch.training.signal_handler import (
 )
 from megatron_tpu_torch.training.timers import Timers
 from megatron_tpu_torch.training.train_step import (
-    make_eval_step, make_train_step,
+    make_eval_step, make_task_eval_step, make_train_step,
 )
 
 
@@ -173,11 +173,42 @@ class TrainLoop:
     `host_sync_points` the blocking device->host reads the loop made."""
 
     def __init__(self, run_cfg: RunConfig, log: Callable[[str], None] = print,
-                 device="cuda", mesh=None):
+                 device="cuda", mesh=None,
+                 init_params_fn: Optional[Callable] = None,
+                 param_specs_fn: Optional[Callable] = None,
+                 loss_fn: Optional[Callable] = None,
+                 fixed_num_microbatches: Optional[int] = None,
+                 pipeline_loss_factory: Optional[Callable] = None):
+        """The task hooks (the JAX loop's) let the encoder families reuse
+        the loop at world size 1: init_params_fn(model_cfg, seed, device)
+        builds a parameter tree of their own (T5's stacks, a task head),
+        param_specs_fn(model_cfg) gives its flat {path: PartitionSpec},
+        which must name the same leaves, loss_fn(model_cfg, params,
+        batch) -> (loss, aux) swaps the objective (evaluation runs it
+        under no_grad: the port has no dropout to turn off), and
+        fixed_num_microbatches pins the microbatch count whatever the
+        batch (ICT's in-batch softmax needs the whole global batch as
+        negatives). Checkpoints save and load whatever tree the state
+        holds. A hook at world size > 1, and pipeline_loss_factory (T5's
+        pipeline), are refused: ROADMAP.md item 11b."""
+        hooks = (init_params_fn, param_specs_fn, loss_fn,
+                 fixed_num_microbatches)
+        if pipeline_loss_factory is not None:
+            raise ValueError(
+                "pipeline_loss_factory (T5's interleaved pipeline) is not "
+                "ported: ROADMAP.md item 11b")
+        if mesh is not None and mesh.world_size > 1 and any(
+                h is not None for h in hooks):
+            raise ValueError(
+                "the task hooks (the BERT, T5, ICT and finetuning "
+                "families) run at world size 1; world size "
+                f"{mesh.world_size} is ROADMAP.md item 11b")
         run_cfg.validate()
         self.cfg = run_cfg
         self.mesh = mesh
         self._multi = mesh is not None and mesh.world_size > 1
+        self.loss_fn = loss_fn
+        self.fixed_num_microbatches = fixed_num_microbatches
         self.is_rank0 = mesh is None or mesh.rank == 0
         self.log = log if self.is_rank0 else (lambda msg: None)
         self.device = torch.device(device)
@@ -200,8 +231,19 @@ class TrainLoop:
                         if model_cfg.flash_bwd
                         else "fwd only — dense O(S^2) attention gradient "
                         "(--no_flash_bwd)"))
-        params = init_params(model_cfg, t.seed, device=self.device,
-                             mesh=mesh)
+        if init_params_fn is not None:
+            params = init_params_fn(model_cfg, t.seed, self.device)
+        else:
+            params = init_params(model_cfg, t.seed, device=self.device,
+                                 mesh=mesh)
+        if param_specs_fn is not None:
+            specs = set(param_specs_fn(model_cfg))
+            leaves = {k for k, _ in leaf_paths(params)}
+            if specs != leaves:
+                raise ValueError(
+                    "param_specs_fn and the parameter tree disagree: "
+                    f"no spec for {sorted(leaves - specs)}, no leaf for "
+                    f"{sorted(specs - leaves)}")
         for _, p in leaf_paths(params):
             p.requires_grad_(True)
         self.state: TrainState = init_train_state(
@@ -222,7 +264,9 @@ class TrainLoop:
         self.iteration = 0
         self.consumed_samples = 0
         self._step_cache: Dict[int, Callable] = {}
-        self.eval_step = make_eval_step(model_cfg, t, mesh)
+        self.eval_step = (make_eval_step(model_cfg, t, mesh)
+                          if loss_fn is None
+                          else make_task_eval_step(model_cfg, loss_fn))
         self.history: List[Dict[str, float]] = []
         self.evals: List[Dict[str, float]] = []
         self._save_config = run_cfg.to_dict()
@@ -665,7 +709,8 @@ class TrainLoop:
             t = self.cfg.training
             step = make_train_step(self.cfg.model, self.cfg.optimizer, t,
                                    num_microbatches,
-                                   train_iters=t.train_iters, mesh=self.mesh)
+                                   train_iters=t.train_iters,
+                                   loss_fn=self.loss_fn, mesh=self.mesh)
             self._step_cache[num_microbatches] = step
         return step
 
@@ -702,12 +747,17 @@ class TrainLoop:
         rank's rows). Returns DEVICE metrics: no host sync; the caller
         decides when to pay it (_fetch_metrics)."""
         rows = next(iter(device_batch.values())).shape[0]
-        n_micro = max(rows // self.cfg.training.micro_batch_size, 1)
-        self.state, metrics = self._train_step_for(n_micro)(
+        self.state, metrics = self._train_step_for(self._num_micro(rows))(
             self.state, device_batch)
         self.iteration += 1
         self.consumed_samples += rows * self.dp
         return metrics
+
+    def _num_micro(self, rows: int) -> int:
+        """The microbatch count of a step on `rows` of this rank's rows."""
+        if self.fixed_num_microbatches is not None:
+            return self.fixed_num_microbatches
+        return max(rows // self.cfg.training.micro_batch_size, 1)
 
     def _rank_rows(self, batches: Iterator) -> Iterator:
         """This batch rank's rows of each global batch, microbatch by
@@ -1292,8 +1342,7 @@ class TrainLoop:
                         if replay_due:
                             # the replay needs the PLACED batch retained
                             batch = self._transfer(batch)
-                    key = max(gbs // t.micro_batch_size, 1)
-                    warmup = key not in self._step_cache
+                    warmup = self._num_micro(gbs) not in self._step_cache
                     if self._watchdog is not None and warmup:
                         # a fresh step function's warm-up is not a hang
                         self._watchdog.pause()
@@ -1450,6 +1499,34 @@ def pretrain(run_cfg: RunConfig, train_iter_factory,
             + (" with sequence parallelism" if mesh.sequence_parallel
                else ""))
     log(f"device: {loop.device} | params: {num_params(run_cfg.model):,}")
+    try:
+        loop.train(train_iter_factory, valid_iter_factory)
+    finally:
+        loop.writer.close()
+    return loop
+
+
+def require_one_rank(run_cfg: RunConfig) -> None:
+    """The encoder families (the TrainLoop task hooks) train at world size
+    1: a parallel topology, or a launch of more than one process, is
+    refused (ROADMAP.md item 11b)."""
+    from megatron_tpu_torch.parallel.distributed import launch_env
+
+    p = run_cfg.parallel
+    world = (p.tensor_parallel * p.pipeline_parallel * p.context_parallel
+             * p.expert_parallel * (p.data_parallel or 1))
+    env = launch_env()
+    if env is not None:
+        world = max(world, env[1])
+    if world > 1:
+        raise ValueError(
+            "the BERT, T5, ICT and finetuning families train at world size "
+            f"1; world size {world} is ROADMAP.md item 11b")
+
+
+def run_task_loop(loop: TrainLoop, train_iter_factory,
+                  valid_iter_factory=None) -> TrainLoop:
+    """Train a task-hook loop to its end and close its writer."""
     try:
         loop.train(train_iter_factory, valid_iter_factory)
     finally:

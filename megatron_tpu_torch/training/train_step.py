@@ -245,6 +245,20 @@ def make_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig,
     return eval_step
 
 
+def make_task_eval_step(model_cfg: ModelConfig, loss_fn: Callable):
+    """A task model's forward-only loss (the JAX package's task_eval_step):
+    eval_step(params, batch) -> {"lm_loss": loss_fn's loss, and every
+    other entry of its aux}, device tensors."""
+    @torch.no_grad()
+    def eval_step(params: Any, batch: Dict[str, torch.Tensor]):
+        loss, aux = loss_fn(model_cfg, params, batch)
+        out = {"lm_loss": loss}
+        out.update({k: v for k, v in aux.items() if k != "loss"})
+        return out
+
+    return eval_step
+
+
 def _parallel_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig,
                         mesh):
     from megatron_tpu_torch.models.language_model import _ce, loss_mean

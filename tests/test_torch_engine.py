@@ -187,8 +187,9 @@ def test_http_server_api_health_metrics(weights):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Import every module of megatron_tpu_torch (the serving, training
-    and data modules alike), and chip_smoke.py, in a fresh interpreter:
-    neither jax nor megatron_tpu may be loaded."""
+    and data modules alike, the encoder families, their tools and tasks/),
+    and chip_smoke.py, in a fresh interpreter: neither jax, megatron_tpu
+    nor the root tasks/ package may be loaded."""
     expected = ["megatron_tpu_torch." + m for m in (
         "inference.server", "ops.flash.flash_template", "ops.cross_entropy",
         "training.pretrain", "training.optimizer", "training.train_step",
@@ -210,7 +211,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "training.pipeline", "quant.primitives", "quant.policy",
         "quant.collectives", "inference.context_parallel.engine",
         "inference.context_parallel.ring_kv",
-        "inference.context_parallel.pool")]
+        "inference.context_parallel.pool", "models.bert", "models.t5",
+        "models.classification", "models.biencoder", "data.bert_dataset",
+        "data.t5_dataset", "data.ict_dataset", "tools.pretrain_bert",
+        "tools.pretrain_t5", "tools.pretrain_ict", "tasks.data_utils",
+        "tasks.glue", "tasks.race", "tasks.finetune_utils", "tasks.main")]
     code = (
         "import importlib, pkgutil, sys\n"
         "import megatron_tpu_torch as pkg\n"
@@ -219,7 +224,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import chip_smoke\n"
         f"missing = [m for m in {expected!r} if m not in sys.modules]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'megatron_tpu' or m.startswith('megatron_tpu.')]\n"
+        " or m == 'megatron_tpu' or m.startswith('megatron_tpu.')"
+        " or m == 'tasks' or m.startswith('tasks.')]\n"
         "print(bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
