@@ -311,7 +311,13 @@ still run, so one call shows every failure):
               equal (a)'s checkpoint bit for bit. Prints step ms,
               tokens/s and peak memory a family, and the B1-B5 launches
               of the phase (these families take the dense attention, as
-              in the JAX package: 0 expected, not asserted).
+              in the JAX package: 0 expected, not asserted); (e) ORQA on
+              (d)'s saved towers: tools/build_retrieval_index over the
+              corpus's blocks, tasks.orqa on ORQA_QUESTIONS questions cut
+              from indexed blocks (hit rates printed, ordered), and
+              tasks.main RET-FINETUNE-NQ from (d)'s checkpoint,
+              ORQA_FIT_STEPS steps on one batch of generated DPR rows
+              (its loss must fall).
   6. loop     the loop and the data, in a temporary directory: (a) a
               seeded JSONL corpus (20,000 documents of Zipf-drawn words),
               a GPT-2 byte-level vocabulary learned from it and written
@@ -457,6 +463,16 @@ still run, so one call shows every failure):
               cp byte counters = cp_ring_comm_bytes x ticks and chunks,
               (c)'s engine_comm_*_bytes = forward_comm_bytes x ticks +
               each prefill's, B1/B4 as 7d's.
+  7i. the     (in the same launch, after 7g) the encoder families'
+     encoder  entry points on the two ranks (ENC_PAR_CASES, published
+     families widths x ENC_PAR_LAYERS): BERT-large at tp2 + SP, T5-base
+     above    on the interleaved pp2 ring, ICT's BERT-base towers at dp2
+     one rank + ZeRO-1, ENC_PAR_STEPS steps each, held to one process
+              at the same global microbatches (phase 7's gates), the
+              ranks in agreement; step s, the comm.* share of a traced
+              step and peak GiB a rank printed, B1-B5 counted (0: the
+              dense attention); BERT's tp2 state loaded by a world-1
+              TrainLoop bit for bit (each rank's slices' crc32).
   8. report   each phase's wall seconds as it ends and all of them
               after phase 7d (seconds_by_phase, with the total), then one
               JSON line listing each kernel with its launches on its path
@@ -490,6 +506,7 @@ import traceback
 import urllib.error
 import urllib.request
 import warnings
+import zlib
 from typing import Optional
 
 ATOL = 2e-2
@@ -631,9 +648,10 @@ PAR_SERVE_NEW = 16            # the world-1 server's request of the ckpt
 # filled slots timed and traced on rank 0, then one request through the
 # one-shot server (engine_slots 0). 7d, 7e(a) and 7e(b) served the full
 # 32 layers before phase 7g came (145.6 s of a 1067.9 s run of this
-# script with 7g, on an H100 80GB HBM3 at 700 W): cut to 8 for the wall;
-# every per-layer collective and kernel of the path still runs
-TP_SERVE_LAYERS = 8
+# script with 7g, on an H100 80GB HBM3 at 700 W): cut to 8 for the wall,
+# then to 4 for phase 7i (7d 34.4 s and 7e(a) 30.0 s at 8 layers, same
+# card); every per-layer collective and kernel of the path still runs
+TP_SERVE_LAYERS = 4
 TP_SLOTS, TP_SEQ, TP_TICKS = 8, 2048, 5
 TP_ONE_SHOT_NEW = 8
 TP_TICK_LENS = (5, 100, 300, 500, 700, 1000, 1200, 1500)
@@ -646,8 +664,10 @@ TP_TICK_LENS = (5, 100, 300, 500, 700, 1000, 1200, 1500)
 # PAGED_TICK_LENS tokens; (b) Llama-2-7B at pp2 through the one-shot
 # server: the 100-token prompt x NEW_TOKENS and the four prompts scored;
 # (c) Falcon-40B's width x FALCON_TRAIN_LAYERS trained at tp2 + SP, S
-# FALCON_SEQ, with --metrics FALCON_METRICS (1.91 B parameters: a 38 GB
-# TrainState, 19 GB a rank; 4 layers would take 52 GB); (d) Falcon-40B's
+# FALCON_SEQ, with --metrics FALCON_METRICS (1 layer since phase 7i:
+# 2 layers, 1.91 B parameters, a 38 GB TrainState, took 7e(c) 24.3 s on
+# an H100 80GB HBM3 at 700 W; the one layer runs every site of the
+# block); (d) Falcon-40B's
 # width x FALCON_SERVE_LAYERS (6.0 B parameters, 12.1 GB of bf16) on the
 # tp2 dense engine, phase 3's traffic
 TP_PREFILL_CHUNK = 128
@@ -677,7 +697,7 @@ CP_SERVE_SLOTS, CP_SERVE_SEQ, CP_LONG_PROMPT = 8, 8192, 6000
 PAGED_TICK_LENS = (TP_PREFILL_CHUNK,) * TP_SLOTS
 FALCON40 = "falcon-40B"
 FALCON_SEQ = 2048             # the preset's
-FALCON_TRAIN_LAYERS = 2
+FALCON_TRAIN_LAYERS = 1
 FALCON_SERVE_LAYERS = 8
 FALCON_METRICS = ("perplexity", "accuracy")
 
@@ -743,8 +763,11 @@ FP8_TIMED = 5          # synchronized fwd + bwd runs a format is timed over
 # (the zig-zag ring's stripes are CP_STRIPE long), CP_STEPS steps at cp2
 # with --attention_impl ring, ulysses and pallas (the all-gathered K/V),
 # each held to one process at the same S within phase 7's gates; every
-# rank's B1-B3 launches printed and held to the schedule's count
-CP_LAYERS = 2
+# rank's B1-B3 launches printed and held to the schedule's count. One
+# layer since phase 7i (the three runs took 71.2 s at 2 layers on an
+# H100 80GB HBM3 at 700 W, most of it the gradients' context sum): the
+# layer's ring, Ulysses and gathered-K/V passes all still run
+CP_LAYERS = 1
 CP_STRIPE = 4096
 CP_SEQ = 4 * CP_STRIPE
 CP_STEPS = 2
@@ -4507,6 +4530,52 @@ ENC_RUNS = {
 }
 
 
+# phase 7i: the encoder families above one rank, in phase 7's launch
+# (gloo, one card), at published widths cut to ENC_PAR_LAYERS layers
+# (T5: that many in each stack): BERT-large at S 512, global batch 8 at
+# tp2 + SP; T5-base (512 + 128, global batch 16, micro-batch 4) through
+# the interleaved pp2 ring; ICT's two BERT-base towers at S 256, global
+# batch 32 at dp2 + ZeRO-1. Each runs ENC_PAR_STEPS steps held to the
+# one-process run of its entry point at the same global microbatches
+# (T5's ring: the whole batch, whose loss weighs every target token
+# alike) by phase 7's gates; BERT's tp2 state, saved at its end, loads
+# at world size 1 bit for bit (each rank's slice crc32 against the
+# world-1 load's)
+# phase 5d(e): ORQA on the ICT towers at BERT-base width: the index of
+# the corpus's blocks, ORQA_QUESTIONS questions, and ORQA_FIT_STEPS
+# finetune_orqa steps on one batch of ORQA_BATCH generated DPR rows
+ORQA_QUESTIONS = 64
+ORQA_BATCH = 32
+ORQA_FIT_STEPS = 3
+ORQA_LR = "2e-5"
+ENC_PAR_LAYERS = 4
+
+
+def _layers(widths, n):
+    """A widths list with its --num_layers set to n."""
+    i = widths.index("--num_layers")
+    return widths[:i + 1] + [str(n)] + widths[i + 2:]
+
+
+ENC_PAR_STEPS = 3
+ENC_PAR_LR = "1e-5"
+ENC_PAR_CASES = {
+    # name: (tool, widths + flags, global batch, the ranks' micro-batch,
+    #        the one-process micro-batch, topology flags)
+    "bert_tp2_sp": ("pretrain_bert", _layers(BERT_LARGE, ENC_PAR_LAYERS) + [
+        "--seq_length", "512", "--mask_token_id", "103"], 8, 8, 8,
+        ["--tensor_model_parallel_size", "2", "--sequence_parallel"]),
+    "t5_pp2": ("pretrain_t5", _layers(T5_BASE, ENC_PAR_LAYERS) + [
+        "--bos_token_id", "101", "--eos_token_id", "102"], 16, 4, 16,
+        ["--pipeline_model_parallel_size", "2"]),
+    "ict_dp2_zero1": ("pretrain_ict", _layers(BERT_BASE, ENC_PAR_LAYERS) + [
+        "--seq_length", "256", "--ict_head_size", "128",
+        "--retriever_score_scaling"], 32, 16, 32,
+        ["--use_distributed_optimizer"]),
+}
+ENC_PAR_TOOLS = ("pretrain_bert", "pretrain_t5", "pretrain_ict")
+
+
 def encoder_corpus(np, prefix: str, titles: str) -> dict:
     """A sentence-level corpus (ENC_DOCS documents, one sequence a
     sentence) and one 4..8-id title a document, ids uniform in ENC_IDS."""
@@ -4788,9 +4857,10 @@ def _encoder_families(torch, np, ft, card, tmp):
                              param_specs_fn=t5_param_specs, loss_fn=t5_loss),
            lambda: pretrain_batch(pretrain_t5, args5, cfg5))
 
-    # (d) ICT at BERT-base width, separate towers
+    # (d) ICT at BERT-base width, separate towers, saved for (e)
+    ck_ict = os.path.join(tmp, "ict")
     a = argv("ict", ["--data_path", sents, "--titles_data_path", titles,
-                     "--train_iters", str(ENC_STEPS)])
+                     "--train_iters", str(ENC_STEPS), "--save", ck_ict])
     argsi = parse_args(a, ict_args)
     cfgi = pretrain_ict.run_config(argsi)
     family("ict", a, lambda v: pretrain_ict.main(v, log=lambda m: None),
@@ -4798,6 +4868,15 @@ def _encoder_families(torch, np, ft, card, tmp):
                              device=ENC_DEVICE, **pretrain_ict.loop_hooks(argsi, cfgi)),
            lambda: pretrain_batch(pretrain_ict, argsi, cfgi,
                                   pretrain_ict.collate))
+
+    # (e) ORQA on (d)'s towers
+    try:
+        records["orqa"] = _orqa(torch, np, card, tmp, sents, titles, ck_ict)
+        problems.extend(records["orqa"].pop("problems"))
+    except Exception as e:  # noqa: BLE001 - gate every part
+        traceback.print_exc()
+        problems.append(f"orqa: {type(e).__name__}: {e}")
+    free_cuda(torch)
 
     counts = {k: getattr(ft, k).launches for k in TRAIN_COUNTED}
     emit({"phase": "encoder_families", "card": card,
@@ -4809,6 +4888,102 @@ def _encoder_families(torch, np, ft, card, tmp):
     if problems:
         raise AssertionError("encoder families: " + "; ".join(problems))
     return counts
+
+
+def _orqa(torch, np, card, tmp, sents, titles, ck_ict) -> dict:
+    """Phase 5d(e): tools/build_retrieval_index over the corpus's blocks
+    with (d)'s context tower, tasks.orqa on ORQA_QUESTIONS questions cut
+    from the indexed blocks (each answer two of its block's ids), and
+    tasks.main RET-FINETUNE-NQ from (d)'s checkpoint: ORQA_FIT_STEPS
+    epochs of one global batch of generated DPR rows, so each step sees
+    the same batch (its loss must fall). Returns the record, with its
+    problems."""
+    import json
+
+    from megatron_tpu_torch.data.indexed_dataset import make_dataset
+    from megatron_tpu_torch.tasks import main as tasks_main
+    from megatron_tpu_torch.tasks import orqa
+    from megatron_tpu_torch.tools import build_retrieval_index
+
+    widths, flags, _, _ = ENC_RUNS["ict"]
+    common = widths + ["--seq_length", "256", "--ict_head_size", "128",
+                       "--seed", str(SEED), "--device", ENC_DEVICE,
+                       "--load", ck_ict] + ENC_TOKEN_IDS
+    index = os.path.join(tmp, "index")
+    rec = {"phase": "orqa", "card": card}
+    cuda = ENC_DEVICE == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.monotonic()
+    emb, meta = build_retrieval_index.main(
+        common + ["--data_path", sents, "--titles_data_path", titles,
+                  "--output", index, "--indexer_batch_size", "64"],
+        log=lambda m: None)
+    sync()
+    rec["index_s"] = time.monotonic() - t0
+    rec["blocks"], rec["dim"] = int(emb.shape[0]), int(emb.shape[1])
+    blocks = make_dataset(sents)
+    rng = np.random.default_rng(SEED + 7)
+    pick = rng.choice(len(meta), ORQA_QUESTIONS, replace=False)
+    qpath = os.path.join(tmp, "questions.tsv")
+    with open(qpath, "w") as f:
+        for b in pick:
+            first = np.asarray(blocks[int(meta[b][0])], np.int64)
+            ans = " ".join(map(str, first[1:3]))
+            f.write(" ".join(map(str, first)) + "\t" + ans + "\n")
+    t0 = time.monotonic()
+    rec["retrieval"] = orqa.main(
+        common + ["--data_path", sents, "--index_dir", index,
+                  "--questions", qpath, "--tokenizer_type", "null",
+                  "--topk", "1", "5", "20"], log=lambda m: None)
+    rec["evaluate_s"] = time.monotonic() - t0
+
+    def ctx(ids):
+        return {"title": _ids(np, rng, 4, 9), "text": ids}
+
+    rows = []
+    for _ in range(ORQA_BATCH):
+        q = _ids(np, rng, 8, 20)
+        rows.append({"question": q + "?", "answers": [q.split()[0]],
+                     "positive_ctxs": [ctx(q + " " + _ids(np, rng, 40, 120))],
+                     "hard_negative_ctxs": [], "negative_ctxs": []})
+    dpr = os.path.join(tmp, "nq.json")
+    with open(dpr, "w") as f:
+        json.dump(rows, f)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    loop, stats = tasks_main.main(
+        [a for a in common if a != "--load" and a != ck_ict]
+        + ["--task", "RET-FINETUNE-NQ", "--train_data", dpr,
+           "--valid_data", dpr, "--pretrained_checkpoint", ck_ict,
+           "--retriever_seq_length", "256", "--retriever_score_scaling",
+           "--tokenizer_type", "null", "--epochs", str(ORQA_FIT_STEPS),
+           "--global_batch_size", str(ORQA_BATCH), "--micro_batch_size",
+           str(ORQA_BATCH), "--lr", ORQA_LR, "--lr_decay_style", "constant",
+           "--log_interval", "1", "--val_av_rank_hard_neg", "0",
+           "--val_av_rank_other_neg", "0"], log=lambda m: None)
+    sync()
+    losses = [h["lm_loss"] for h in loop.history]
+    rec.update({"finetune_s": time.monotonic() - t0, "losses": losses,
+                "step_ms": [h["window_s"] * 1e3 for h in loop.history],
+                "eval": stats,
+                "max_memory_allocated_gib":
+                    (torch.cuda.max_memory_allocated() / 2**30 if cuda
+                     else None)})
+    del loop
+    problems = []
+    hits = rec["retrieval"]
+    if not (rec["blocks"] > 0 and rec["dim"] == 128
+            and 0.0 <= hits["top1"] <= hits["top5"] <= hits["top20"] <= 1.0):
+        problems.append(f"orqa: index {emb.shape}, hits {hits}")
+    if not (len(losses) == ORQA_FIT_STEPS
+            and all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        problems.append(f"orqa: the fixed batch's losses {losses} do not "
+                        "fall")
+    emit(rec)
+    rec["problems"] = problems
+    return rec
 
 
 def loop_corpus(np, out_dir) -> dict:
@@ -5295,7 +5470,6 @@ def rank_run(out: str, runs) -> int:
     import torch
 
     sys.path.insert(0, REPO)
-    from megatron_tpu_torch.arguments import parse_args
     from megatron_tpu_torch.ops.flash import flash_template as ft
     from megatron_tpu_torch.parallel.distributed import (
         destroy_distributed, initialize_distributed,
@@ -5303,8 +5477,8 @@ def rank_run(out: str, runs) -> int:
 
     rank = int(os.environ["RANK"])
     cuda = torch.cuda.is_available()
-    args = parse_args(list(runs[0]))
-    initialize_distributed(args.device, args.distributed_backend)
+    initialize_distributed(_flag_value(runs[0], "--device", "cuda"),
+                           _flag_value(runs[0], "--distributed_backend"))
     records = []
     try:
         for flags in runs:
@@ -5317,6 +5491,13 @@ def rank_run(out: str, runs) -> int:
     with open(f"{out}.rank{rank}.json", "w") as f:
         json.dump(records, f)
     return 0
+
+
+def _flag_value(argv, name: str, default=None):
+    """The value after the last `name` in argv, or `default`."""
+    argv = list(argv)
+    at = [i for i, a in enumerate(argv[:-1]) if a == name]
+    return argv[at[-1] + 1] if at else default
 
 
 def _launch(nproc: int, out: str, runs, timeout_s=PAR_TIMEOUT_S,
@@ -5643,8 +5824,17 @@ def parallel_training(torch, np, ft, card):
         for case, flags in CP_CASES.items():
             plan.append((case, cp_base + flags
                          + ["--distributed_backend", "gloo"]))
-        # 7e(c)'s, 7f's and 7g's one-process yardsticks, before the ranks
-        # take the card
+        # 7i's encoder runs, after 7g's
+        enc_data = {"sents": os.path.join(tmp, "enc_sents"),
+                    "titles": os.path.join(tmp, "enc_titles"),
+                    "bert_ckpt": os.path.join(tmp, "enc_bert_ckpt")}
+        encoder_corpus(np, enc_data["sents"], enc_data["titles"])
+        for case in ENC_PAR_CASES:
+            plan.append(("7i_" + case, enc_par_argv(case, enc_data, tmp,
+                                                    ranks=True)))
+        # 7e(c)'s, 7f's, 7g's and 7i's one-process yardsticks, before the
+        # ranks take the card
+        enc_refs = _enc_par_references(torch, enc_data, tmp, card)
         PARALLEL_LAUNCH["falcon_ref"] = _falcon_reference(torch)
         mixtral_refs = {d: _mixtral_par_reference(torch, pretrain_gpt, d)
                         for d in ("capacity", "dropless")}
@@ -5738,6 +5928,8 @@ def parallel_training(torch, np, ft, card):
                 problems.append(f"{case}: traces {r0['traces']}")
         problems += _mixtral_par_gates(card, by_run, mixtral_refs, total)
         problems += _cp_gates(card, by_run, cp_ref)
+        problems += _enc_par_gates(torch, card, by_run, enc_refs, enc_data,
+                                   total)
         saved = _sharded_checkpoint(
             torch, np, ft, card, ckpt,
             {c: by_run[c + "/resumed"]
@@ -5750,6 +5942,161 @@ def parallel_training(torch, np, ft, card):
     if problems:
         raise AssertionError("parallel: " + "; ".join(problems))
     return total
+
+
+def enc_par_argv(case: str, data: dict, tmp: str, ranks: bool) -> list:
+    """A phase-7i run: its entry point's name, then its flags, at the
+    ranks' topology (with --save for BERT's state, a traced last step and
+    gloo) or the one-process reference's micro-batch."""
+    tool, flags, gbs, micro, ref_micro, topology = ENC_PAR_CASES[case]
+    ids = (["--pad_token_id", "0"] if tool == "pretrain_t5"
+           else ENC_TOKEN_IDS)
+    # 64 x tp 2 keeps BERT's padded 30592 rows at every topology
+    argv = [tool] + flags + ids + [
+        "--make_vocab_size_divisible_by", "64",
+        "--global_batch_size", str(gbs),
+        "--micro_batch_size", str(micro if ranks else ref_micro),
+        "--train_iters", str(ENC_PAR_STEPS), "--lr", ENC_PAR_LR,
+        "--lr_decay_style", "constant", "--log_interval", "1",
+        "--seed", str(SEED), "--data_path", data["sents"],
+        "--device", ENC_DEVICE]
+    if tool == "pretrain_ict":
+        argv += ["--titles_data_path", data["titles"]]
+    if not ranks:
+        return argv
+    if tool == "pretrain_bert":
+        argv += ["--save", data["bert_ckpt"]]
+    return argv + topology + [
+        "--distributed_backend", "gloo", "--profile",
+        "--profile_step_start", str(ENC_PAR_STEPS - 1),
+        "--profile_step_end", str(ENC_PAR_STEPS),
+        "--profile_dir", os.path.join(tmp, case + "_trace")]
+
+
+def _enc_par_references(torch, data, tmp, card) -> dict:
+    """Phase 7i's one-process runs: each case's entry point at its
+    reference micro-batch (losses, grad norms, step times)."""
+    import importlib
+
+    refs = {}
+    cuda = ENC_DEVICE == "cuda"
+    for case in ENC_PAR_CASES:
+        argv = enc_par_argv(case, data, tmp, ranks=False)
+        tool = importlib.import_module("megatron_tpu_torch.tools." + argv[0])
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        loop = tool.main(argv[1:], log=lambda m: None)
+        if cuda:
+            torch.cuda.synchronize()
+        refs[case] = {"losses": [r["loss"] for r in loop.step_records],
+                      "grad_norms": [h["grad_norm"] for h in loop.history],
+                      "step_s": [r["step_s"] for r in loop.step_records],
+                      "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                   if cuda else None),
+                      "wall_s": time.monotonic() - t0}
+        del loop
+        free_cuda(torch)
+    emit({"phase": "encoder_parallel_reference", "card": card, **refs})
+    return refs
+
+
+def _enc_par_gates(torch, card, by_run, refs, data, total) -> list:
+    """Phase 7i's gates: each case's losses and grad norms against its
+    one-process run (PAR_LOSS_ATOL, PAR_NORM_RTOL), the ranks agreeing,
+    B1-B5 launches counted (0 expected: the dense attention), and
+    BERT's tp2 state loaded at world size 1 against each rank's slices'
+    crc32."""
+    problems = []
+    for case in ENC_PAR_CASES:
+        recs, want = by_run["7i_" + case], refs[case]
+        r0 = recs[0]
+        launches = {}
+        for rec in recs:
+            _add_counts(launches, rec["launches"])
+        _add_counts(total, launches)
+        n = min(len(r0["losses"]), len(want["losses"]))
+        loss_err = (max(abs(a - b) for a, b in
+                        zip(r0["losses"], want["losses"])) if n else math.inf)
+        norm_err = (max(abs(a - b) / abs(b) for a, b in
+                        zip(r0["grad_norms"], want["grad_norms"]))
+                    if n else math.inf)
+        comm = (_comm_share(r0["traces"][0]) if len(r0["traces"]) == 1
+                else None)
+        line = {"phase": "encoder_parallel", "card": card, "case": case,
+                "backend": "gloo (CUDA tensors staged through host memory; "
+                           "not NCCL numbers)",
+                "mesh": r0["mesh"], "losses": r0["losses"],
+                "reference_losses": want["losses"],
+                "grad_norms": r0["grad_norms"],
+                "reference_grad_norms": want["grad_norms"],
+                "ranks_agree": all((r["losses"], r["grad_norms"])
+                                   == (r0["losses"], r0["grad_norms"])
+                                   for r in recs),
+                "loss_err": loss_err, "loss_margin": loss_err / PAR_LOSS_ATOL,
+                "grad_norm_rel_err": norm_err,
+                "grad_norm_margin": norm_err / PAR_NORM_RTOL,
+                "step_s": r0["step_s"],
+                "single_process_step_s": want["step_s"],
+                "comm": comm, "launches": launches,
+                "peak_gib_per_rank": [r["peak_gib"] for r in recs],
+                "single_process_peak_gib": want["peak_gib"],
+                "wall_s": r0["wall_s"]}
+        if case == "bert_tp2_sp":
+            line["world1_load"] = _enc_par_load(torch, data, recs)
+            if not line["world1_load"]["bitwise"]:
+                problems.append(f"7i {case}: the world-1 load differs "
+                                f"from the ranks' slices")
+        emit(line)
+        if len(r0["losses"]) != ENC_PAR_STEPS or not all(
+                map(math.isfinite, r0["losses"])):
+            problems.append(f"7i {case}: losses {r0['losses']}")
+        if not line["ranks_agree"]:
+            problems.append(f"7i {case}: ranks disagree")
+        if not loss_err <= PAR_LOSS_ATOL:
+            problems.append(f"7i {case}: loss off by {loss_err}")
+        if not norm_err <= PAR_NORM_RTOL:
+            problems.append(f"7i {case}: grad norm off by {norm_err}")
+        if comm is None:
+            problems.append(f"7i {case}: traces {r0['traces']}")
+    return problems
+
+
+def _enc_par_load(torch, data, recs) -> dict:
+    """BERT's tp2 checkpoint loaded by a world-1 TrainLoop: each leaf cut
+    as each tensor rank holds it, its crc32 against that rank's."""
+    from megatron_tpu_torch.arguments import bert_args, parse_args
+    from megatron_tpu_torch.models.bert import bert_loss
+    from megatron_tpu_torch.models.params import param_specs
+    from megatron_tpu_torch.parallel.mesh import MESH_AXES
+    from megatron_tpu_torch.parallel.sharding import shard_leaf
+    from megatron_tpu_torch.tools import pretrain_bert
+    from megatron_tpu_torch.training.optimizer import leaf_paths
+    from megatron_tpu_torch.training.pretrain import TrainLoop
+
+    argv = enc_par_argv("bert_tp2_sp", data, "", ranks=False)[1:]
+    cfg = pretrain_bert.run_config(parse_args(
+        argv + ["--load", data["bert_ckpt"]], bert_args))
+    t0 = time.monotonic()
+    loop = TrainLoop(cfg, log=lambda m: None, device=ENC_DEVICE,
+                     loss_fn=bert_loss)
+    load_s = time.monotonic() - t0
+    specs = param_specs(cfg.model)
+    sizes = dict.fromkeys(MESH_AXES, 1)
+    sizes["tensor"] = len(recs)
+    same = loop.iteration == ENC_PAR_STEPS
+    for rank, rec in enumerate(recs):
+        coords = dict.fromkeys(MESH_AXES, 0)
+        coords["tensor"] = rank
+        mine = _slice_crcs(torch, {path: shard_leaf(
+            t.detach(), specs[path], coords, sizes)
+            for path, t in leaf_paths(loop.state.params)})
+        same = same and mine == rec["state_crc"]
+    out = {"bitwise": same, "iteration": loop.iteration, "load_s": load_s,
+           "leaves": len(specs)}
+    del loop
+    free_cuda(torch)
+    return out
 
 
 def _served(kw, cfg, params, tokenizer, lead, drive):
@@ -5870,15 +6217,23 @@ def _run_record(torch, ft, flags, rank, probe=None) -> dict:
     step times, saves, load, peak memory and traces; with `probe`, its
     result on the finished loop under "probe" (after the launches are
     read, so its own do not count)."""
+    import importlib
+
     from megatron_tpu_torch.tools import pretrain_gpt
 
+    tool = pretrain_gpt
+    encoder = bool(flags) and flags[0] in ENC_PAR_TOOLS
+    if encoder:             # phase 7i's runs name their entry point first
+        tool = importlib.import_module("megatron_tpu_torch.tools."
+                                       + flags[0])
+        flags = flags[1:]
     cuda = torch.cuda.is_available()
     for name in TRAIN_COUNTED:
         getattr(ft, name).launches = 0
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    loop = pretrain_gpt.main(list(flags), log=lambda m: print(m, flush=True))
+    loop = tool.main(list(flags), log=lambda m: print(m, flush=True))
     if cuda:
         torch.cuda.synchronize()
     record = {
@@ -5901,9 +6256,20 @@ def _run_record(torch, ft, flags, rank, probe=None) -> dict:
                   "ep": loop.mesh.ep, "pp": loop.mesh.pp,
                   "vpp": loop.mesh.vpp, "cp": loop.mesh.cp,
                   "tp": loop.mesh.tp})}
+    if encoder:
+        record["state_crc"] = _slice_crcs(torch, loop.state.params)
     if probe is not None:
         record["probe"] = probe(loop)
     return record
+
+
+def _slice_crcs(torch, params) -> dict:
+    """{leaf path: crc32 of its bytes} of a parameter tree (this rank's
+    slices)."""
+    from megatron_tpu_torch.training.optimizer import leaf_paths
+
+    return {path: zlib.crc32(t.detach().cpu().contiguous().view(
+        torch.uint8).numpy().tobytes()) for path, t in leaf_paths(params)}
 
 
 def rank_serve(out: str, runs) -> int:

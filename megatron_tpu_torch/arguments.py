@@ -418,8 +418,8 @@ def ict_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 
 def task_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """tasks/main's flags (the JAX harness's; RET-FINETUNE-NQ is accepted
-    and refused there)."""
+    """tasks/main's flags (the JAX harness's, the ORQA retriever's
+    finetuning flags among them)."""
     g = p.add_argument_group("tasks")
     g.add_argument("--task", required=True,
                    choices=["MNLI", "QQP", "RACE", "RET-FINETUNE-NQ"])
@@ -427,6 +427,33 @@ def task_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--valid_data", nargs="+", required=True)
     g.add_argument("--epochs", type=int, default=3)
     g.add_argument("--pretrained_checkpoint", type=str, default=None)
+    g.add_argument("--cls_token_id", type=int, default=101)
+    g.add_argument("--sep_token_id", type=int, default=102)
+    g.add_argument("--pad_token_id", type=int, default=0)
+    # RET-FINETUNE-NQ (tasks/orqa_finetune.py)
+    g.add_argument("--retriever_seq_length", type=int, default=256)
+    g.add_argument("--train_with_neg", action="store_true")
+    g.add_argument("--train_hard_neg", type=int, default=0)
+    g.add_argument("--val_av_rank_hard_neg", type=int, default=30)
+    g.add_argument("--val_av_rank_other_neg", type=int, default=30)
+    g.add_argument("--sample_rate", type=float, default=1.0)
+    g.add_argument("--ict_head_size", type=int, default=128)
+    g.add_argument("--biencoder_shared_query_context_model",
+                   action="store_true")
+    g.add_argument("--retriever_score_scaling", action="store_true")
+    g.add_argument("--retriever_report_topk_accuracies", nargs="*",
+                   type=int, default=[1, 5, 20])
+    return p
+
+
+def retrieval_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """tools/build_retrieval_index's and tasks/orqa's flags (the JAX
+    tools')."""
+    g = p.add_argument_group("retrieval")
+    g.add_argument("--titles_data_path", type=str, default=None)
+    g.add_argument("--ict_head_size", type=int, default=128)
+    g.add_argument("--biencoder_shared_query_context_model",
+                   action="store_true")
     g.add_argument("--cls_token_id", type=int, default=101)
     g.add_argument("--sep_token_id", type=int, default=102)
     g.add_argument("--pad_token_id", type=int, default=0)

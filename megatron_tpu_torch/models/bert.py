@@ -8,6 +8,19 @@ padding mask) and token-type embeddings. The heads: the MLM transform
 bias, and the pooler (tanh of the [CLS] hidden state) under the binary
 head. A padding mask routes attention to the dense path in both packages
 (ops/attention.py), so these models launch no flash kernel.
+
+Tensor and sequence parallelism (a MeshRuntime as `mesh`): the encoder
+is the decoder stack's; the MLM transform runs where the last layer
+leaves its hidden states (this rank's sequence chunk under sequence
+parallelism, so its replicated weights' gradients are partial sums that
+reduce_grads sums, as it sums the norms'), then enters the tied decoder
+through enter_tp, whose logits are this rank's vocab columns (plus its
+block of mlm_head/bias, P(tensor)) and whose loss is the vocab-parallel
+CE. The pooler and every [CLS] head read the row through
+parallel/mappings.cls_row and are computed whole on every tensor rank.
+Above one data rank the MLM loss is each rank's share of the global
+microbatch's masked mean (language_model.batch_mean), as the JAX loss
+over the global batch weighs every masked token alike.
 """
 
 from __future__ import annotations
@@ -18,9 +31,12 @@ import torch
 import torch.nn.functional as F
 
 from megatron_tpu_torch.config import ModelConfig
-from megatron_tpu_torch.models.language_model import lm_forward
+from megatron_tpu_torch.models.language_model import (
+    _ce, batch_mean, lm_forward,
+)
 from megatron_tpu_torch.ops.cross_entropy import cross_entropy_loss
 from megatron_tpu_torch.ops.normalization import layernorm
+from megatron_tpu_torch.parallel.mappings import cls_row, enter_tp
 
 
 def bert_config(
@@ -58,10 +74,24 @@ def refuse_moe(cfg: ModelConfig) -> None:
             "only; encoder task heads would drop the router losses")
 
 
-def pooled(params: Dict[str, Any], hidden: torch.Tensor) -> torch.Tensor:
-    """tanh of the [CLS] hidden state through the pooler [B, h]."""
-    return torch.tanh(hidden[:, 0] @ params["pooler"]["w"]
+def pooled(params: Dict[str, Any], hidden: torch.Tensor,
+           mesh=None) -> torch.Tensor:
+    """tanh of the [CLS] hidden state through the pooler [B, h];
+    `hidden` as encoder_hidden returns it."""
+    return torch.tanh(cls_row(hidden, mesh) @ params["pooler"]["w"]
                       + params["pooler"]["b"])
+
+
+def encoder_hidden(cfg: ModelConfig, params: Dict[str, Any],
+                   tokens: torch.Tensor, padding_mask: torch.Tensor,
+                   tokentype_ids: Optional[torch.Tensor] = None,
+                   recompute: str = "none", mesh=None) -> torch.Tensor:
+    """The encoder's final-normed hidden states [B, S, h], under
+    sequence parallelism this rank's chunk [B, S/tp, h] (the module
+    docstring)."""
+    return lm_forward(cfg, params, tokens, attention_mask=padding_mask,
+                      tokentype_ids=tokentype_ids, recompute=recompute,
+                      return_hidden=True, mesh=mesh, head_input=False)
 
 
 def bert_forward(
@@ -71,19 +101,22 @@ def bert_forward(
     padding_mask: torch.Tensor,      # [B, S] True = real token
     tokentype_ids: Optional[torch.Tensor] = None,
     recompute: str = "none",
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Returns (mlm_logits [B, S, V], binary_logits [B, 2] or None)."""
-    hidden = lm_forward(cfg, params, tokens, attention_mask=padding_mask,
-                        tokentype_ids=tokentype_ids, recompute=recompute,
-                        return_hidden=True)
+    """Returns (mlm_logits [B, S, V], binary_logits [B, 2] or None);
+    under tensor parallelism the logits are this rank's vocab columns
+    [B, S, V/tp]."""
+    hidden = encoder_hidden(cfg, params, tokens, padding_mask,
+                            tokentype_ids, recompute, mesh)
     mh = params["mlm_head"]
     h = F.gelu(hidden @ mh["dense_w"] + mh["dense_b"], approximate="none")
     h = layernorm(h, mh["norm_scale"], mh["norm_bias"], cfg.layernorm_epsilon)
-    logits = h @ params["embed"]["tokens"].t() + mh["bias"]
+    logits = enter_tp(h, mesh) @ params["embed"]["tokens"].t() + mh["bias"]
 
     binary_logits = None
     if cfg.bert_binary_head:
-        binary_logits = (pooled(params, hidden) @ params["binary_head"]["w"]
+        binary_logits = (pooled(params, hidden, mesh)
+                         @ params["binary_head"]["w"]
                          + params["binary_head"]["b"])
     return logits, binary_logits
 
@@ -93,15 +126,18 @@ def bert_loss(
     params: Dict[str, Any],
     batch: Dict[str, torch.Tensor],
     recompute: str = "none",
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: tokens, padding_mask, tokentype_ids, labels (the MLM
     targets), loss_mask (1 at masked positions), is_random (the binary
-    target). Returns (MLM CE + SOP CE, {"mlm_loss", "sop_loss", "loss"})."""
+    target). Returns (MLM CE + SOP CE, {"mlm_loss", "sop_loss", "loss"});
+    under tensor parallelism the MLM CE is the vocab-parallel one."""
     logits, binary_logits = bert_forward(
         cfg, params, batch["tokens"], batch["padding_mask"] > 0,
-        tokentype_ids=batch.get("tokentype_ids"), recompute=recompute)
-    mlm_loss, _ = cross_entropy_loss(logits, batch["labels"],
-                                     loss_mask=batch["loss_mask"])
+        tokentype_ids=batch.get("tokentype_ids"), recompute=recompute,
+        mesh=mesh)
+    mlm_loss = batch_mean(_ce(logits, batch["labels"], mesh)[1],
+                          batch["loss_mask"], mesh)
     total = mlm_loss
     aux = {"mlm_loss": mlm_loss}
     if binary_logits is not None and "is_random" in batch:

@@ -8,7 +8,12 @@ softmax of the reference's pretrain_ict.py: scores = Q @ C^T over the
 batch, the labels on the diagonal, optionally scaled by 1/sqrt(h), with
 the top-k retrieval accuracies reported. The in-batch negatives are the
 whole global batch, so the loop runs it as one microbatch
-(TrainLoop(fixed_num_microbatches=1)).
+(TrainLoop(fixed_num_microbatches=1)). Above one data rank each rank
+embeds its rows, and the loss gathers the embeddings over the batch
+group (parallel/mappings.gather_batch) to score the whole batch, as
+GSPMD's gather gives the JAX loss the global batch; under tensor
+parallelism the towers are BERT's (models/bert.py) and the ict_heads
+are computed whole on every tensor rank.
 """
 
 from __future__ import annotations
@@ -21,13 +26,13 @@ import numpy as np
 import torch
 
 from megatron_tpu_torch.config import ModelConfig
-from megatron_tpu_torch.models.bert import bert_config
-from megatron_tpu_torch.models.language_model import lm_forward
+from megatron_tpu_torch.models.bert import bert_config, encoder_hidden
 from megatron_tpu_torch.models.params import (
     _NORMAL, _ZEROS, init_leaf, init_params, param_shapes, param_specs,
     tree_from_numpy,
 )
 from megatron_tpu_torch.ops.cross_entropy import cross_entropy_loss
+from megatron_tpu_torch.parallel.mappings import cls_row, gather_batch
 from megatron_tpu_torch.parallel.sharding import P
 
 HEAD = "ict_head"
@@ -129,21 +134,24 @@ def load_biencoder_params(cfg: ModelConfig, load: Optional[str],
 def embed_text(cfg: ModelConfig, tower: Dict[str, Any],
                tokens: torch.Tensor,          # [B, S]
                padding_mask: torch.Tensor,    # [B, S] True = real
-               recompute: str = "none") -> torch.Tensor:
+               recompute: str = "none", mesh=None) -> torch.Tensor:
     """[B, ict_head_size]: the ict_head of the [CLS] hidden state."""
-    hidden = lm_forward(cfg, tower, tokens, attention_mask=padding_mask,
-                        recompute=recompute, return_hidden=True)
-    return hidden[:, 0] @ tower[HEAD]["w"] + tower[HEAD]["b"]
+    hidden = encoder_hidden(cfg, tower, tokens, padding_mask,
+                            recompute=recompute, mesh=mesh)
+    return cls_row(hidden, mesh) @ tower[HEAD]["w"] + tower[HEAD]["b"]
 
 
 def biencoder_forward(cfg: ModelConfig, params: Dict[str, Any],
                       query_tokens, query_pad_mask, context_tokens,
-                      context_pad_mask, recompute: str = "none"
+                      context_pad_mask, recompute: str = "none", mesh=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(query embeddings, context embeddings) of this rank's rows."""
     qt = params.get("shared", params.get("query"))
     ct = params.get("shared", params.get("context"))
-    return (embed_text(cfg, qt, query_tokens, query_pad_mask, recompute),
-            embed_text(cfg, ct, context_tokens, context_pad_mask, recompute))
+    return (embed_text(cfg, qt, query_tokens, query_pad_mask, recompute,
+                       mesh),
+            embed_text(cfg, ct, context_tokens, context_pad_mask, recompute,
+                       mesh))
 
 
 def biencoder_loss(
@@ -153,13 +161,17 @@ def biencoder_loss(
     score_scaling: bool = False,
     topk: Tuple[int, ...] = (1, 5),
     recompute: str = "none",
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: query_tokens, query_pad_mask, context_tokens,
-    context_pad_mask. The in-batch softmax with diagonal labels; aux has
+    context_pad_mask. The in-batch softmax with diagonal labels over the
+    whole batch (every batch rank's rows, the module docstring); aux has
     the loss and top{k}_acc in percent (the reference's convention)."""
     q, c = biencoder_forward(
         cfg, params, batch["query_tokens"], batch["query_pad_mask"] > 0,
-        batch["context_tokens"], batch["context_pad_mask"] > 0, recompute)
+        batch["context_tokens"], batch["context_pad_mask"] > 0, recompute,
+        mesh)
+    q, c = gather_batch(q, mesh), gather_batch(c, mesh)
     scores = q.float() @ c.float().t()
     if score_scaling:
         scores = scores / math.sqrt(cfg.hidden_size)

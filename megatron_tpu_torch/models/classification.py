@@ -15,8 +15,9 @@ import numpy as np
 import torch
 
 from megatron_tpu_torch.config import ModelConfig
-from megatron_tpu_torch.models.bert import bert_config, pooled
-from megatron_tpu_torch.models.language_model import lm_forward
+from megatron_tpu_torch.models.bert import (
+    bert_config, encoder_hidden, pooled,
+)
 from megatron_tpu_torch.models.params import (
     _NORMAL, _ZEROS, init_leaf, init_params, param_shapes, param_specs,
     tree_from_numpy,
@@ -66,11 +67,11 @@ def cls_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                            cfg.dtype)
 
 
-def _pooled(cfg, params, tokens, padding_mask, tokentype_ids, recompute):
-    hidden = lm_forward(cfg, params, tokens, attention_mask=padding_mask,
-                        tokentype_ids=tokentype_ids, recompute=recompute,
-                        return_hidden=True)
-    return pooled(params, hidden)
+def _pooled(cfg, params, tokens, padding_mask, tokentype_ids, recompute,
+            mesh=None):
+    hidden = encoder_hidden(cfg, params, tokens, padding_mask, tokentype_ids,
+                            recompute, mesh)
+    return pooled(params, hidden, mesh)
 
 
 def classification_forward(
@@ -80,11 +81,12 @@ def classification_forward(
     padding_mask: torch.Tensor,      # [B, S] True = real token
     tokentype_ids: Optional[torch.Tensor] = None,
     recompute: str = "none",
+    mesh=None,
 ) -> torch.Tensor:
     """[B, num_classes] logits."""
     head = params[HEAD]
     return (_pooled(cfg, params, tokens, padding_mask, tokentype_ids,
-                    recompute) @ head["w"] + head["b"])
+                    recompute, mesh) @ head["w"] + head["b"])
 
 
 def multichoice_forward(
@@ -94,6 +96,7 @@ def multichoice_forward(
     padding_mask: torch.Tensor,      # [B, C, S]
     tokentype_ids: Optional[torch.Tensor] = None,
     recompute: str = "none",
+    mesh=None,
 ) -> torch.Tensor:
     """[B, C] per-choice scores (the head is [h, 1])."""
     b, c, s = tokens.shape
@@ -103,7 +106,7 @@ def multichoice_forward(
 
     head = params[HEAD]
     scores = (_pooled(cfg, params, flat(tokens), flat(padding_mask),
-                      flat(tokentype_ids), recompute) @ head["w"]
+                      flat(tokentype_ids), recompute, mesh) @ head["w"]
               + head["b"])
     return scores.reshape(b, c)
 
@@ -113,12 +116,13 @@ def classification_logits(
     params: Dict[str, Any],
     batch: Dict[str, torch.Tensor],
     recompute: str = "none",
+    mesh=None,
 ) -> torch.Tensor:
     """Rank-3 tokens are multiple choice, rank 2 classification."""
     fwd = (multichoice_forward if batch["tokens"].dim() == 3
            else classification_forward)
     return fwd(cfg, params, batch["tokens"], batch["padding_mask"] > 0,
-               batch.get("tokentype_ids"), recompute)
+               batch.get("tokentype_ids"), recompute, mesh)
 
 
 def classification_loss(
@@ -126,10 +130,12 @@ def classification_loss(
     params: Dict[str, Any],
     batch: Dict[str, torch.Tensor],
     recompute: str = "none",
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: tokens, padding_mask, tokentype_ids, label. Returns (CE,
-    {"loss", "accuracy"})."""
-    logits = classification_logits(cfg, params, batch, recompute)
+    {"loss", "accuracy"}). mesh: tensor and sequence parallelism (the
+    head is computed whole on every tensor rank, models/bert.py)."""
+    logits = classification_logits(cfg, params, batch, recompute, mesh)
     loss, _ = cross_entropy_loss(logits[:, None, :], batch["label"][:, None])
     acc = (logits.argmax(-1) == batch["label"]).float().mean()
     return loss, {"loss": loss, "accuracy": acc}

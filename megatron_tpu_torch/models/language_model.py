@@ -104,6 +104,23 @@ def loss_mean(per_token: torch.Tensor, loss_mask: Optional[torch.Tensor],
     return (per_token * m).sum() / count.clamp_min(1.0)
 
 
+def batch_mean(per_token: torch.Tensor, loss_mask: Optional[torch.Tensor],
+               mesh) -> torch.Tensor:
+    """The masked mean of per-token losses over the global microbatch,
+    as this batch rank's share: its masked sum over the count summed
+    over the batch group, times dp (train_step averages the ranks'
+    shares over the dp ranks). The JAX loss is the global microbatch's
+    token-weighted mean; with unequal counts a mean of each rank's own
+    mean would differ (BERT's masked positions, T5's padded targets)."""
+    m = (loss_mask.float() if loss_mask is not None
+         else torch.ones_like(per_token))
+    count = m.sum()
+    dp = mesh.dp if mesh is not None else 1
+    if dp > 1:
+        count = all_reduce(count.detach(), mesh.group(("data", "expert")))
+    return (per_token * m).sum() * dp / count.clamp_min(1.0)
+
+
 def embed_tokens(cfg: ModelConfig, params: Dict[str, Any],
                  tokens: torch.Tensor,
                  positions: Optional[torch.Tensor] = None,
@@ -139,8 +156,9 @@ def embed_tokens(cfg: ModelConfig, params: Dict[str, Any],
         x = x + F.embedding(sp_slice(pos, mesh, dim=-1),
                             params["embed"]["pos"]).to(cfg.dtype)
     if tokentype_ids is not None:
-        x = x + F.embedding(tokentype_ids.to(tokens.device, torch.long),
-                            params["embed"]["tokentype"]).to(cfg.dtype)
+        x = x + F.embedding(
+            sp_slice(tokentype_ids.to(tokens.device, torch.long), mesh),
+            params["embed"]["tokentype"]).to(cfg.dtype)
     return x
 
 
@@ -182,6 +200,7 @@ def lm_forward(
     tp_comm=None,
     cp_comm=None,
     tokentype_ids: Optional[torch.Tensor] = None,   # [B, S] (BERT segments)
+    head_input: bool = True,
 ):
     """Forward pass to logits [B, S, V] (or, with return_hidden, the
     final-normed hidden states [B, S, h]); with return_moe_aux, (that,
@@ -223,7 +242,11 @@ def lm_forward(
     quant.CpComm): context-parallel serving; kv_caches are this rank's
     stripe of the page pools and page_table its local table
     (inference/context_parallel/). tokentype_ids: BERT's segment ids,
-    embedded through embed/tokentype (models/bert.py)."""
+    embedded through embed/tokentype (models/bert.py). head_input False
+    (with return_hidden): the final-normed hidden states as the last
+    layer leaves them, before the LM head's tensor-parallel entry (this
+    rank's sequence chunk under sequence parallelism), for heads of
+    their own (models/bert.py)."""
     if return_moe_aux and kv_caches is not None:
         raise ValueError("return_moe_aux with kv_caches is ambiguous: "
                          "decode paths don't train the router")
@@ -271,7 +294,10 @@ def lm_forward(
             cp_comm=cp_comm))
     x, moe_aux = run_layers(layers, x, recompute)
 
-    x = enter_tp(final_hidden_norm(cfg, params, x), mesh)
+    x = final_hidden_norm(cfg, params, x)
+    if return_hidden and not head_input:
+        return (x, moe_aux) if return_moe_aux else x
+    x = enter_tp(x, mesh)
     if return_hidden:
         return (x, moe_aux) if return_moe_aux else x
     logits = lm_logits(cfg, params, x)

@@ -298,9 +298,55 @@ def shard_params(flat: Dict[str, torch.Tensor], cfg: ModelConfig,
     return out
 
 
-def leaf_layout(cfg: ModelConfig, mesh, zero1: bool
+#: a task tree (the TrainLoop hooks' trees: T5's stacks, BERT with a
+#: task head, the biencoder's towers): {path: (global shape, spec)}.
+#: Every pipeline stage holds every leaf of one, cut over "pipe" only
+#: where its spec says so (T5's stacked layers under its pipeline).
+TaskTree = Dict[str, Tuple[tuple, P]]
+
+#: the heads every tensor rank computes whole from the [CLS] row
+#: (models/bert.py pooled, the classification and ict heads): their
+#: gradients are whole on every tensor rank, so the tensor group's sum
+#: that sequence parallelism gives the other replicated leaves skips them
+REPLICATED_HEADS = ("pooler", "binary_head", "classification_head",
+                    "ict_head")
+
+
+def replicated_head(path: str) -> bool:
+    return any(part in REPLICATED_HEADS for part in path.split("/"))
+
+
+def task_tree(params: Dict[str, Any], specs: Dict[str, P]) -> TaskTree:
+    """The TaskTree of a whole (unsharded) parameter tree and its flat
+    specs."""
+    return {path: (tuple(t.shape), P(*specs[path]))
+            for path, t in _flatten(params).items()}
+
+
+def _tables(cfg: ModelConfig, tree: Optional[TaskTree]):
+    """({path: shape}, {path: spec}) of the decoder table or a task
+    tree."""
+    if tree is None:
+        return param_shapes(cfg), param_specs(cfg)
+    return ({k: s for k, (s, _) in tree.items()},
+            {k: spec for k, (_, spec) in tree.items()})
+
+
+def shard_task_params(params: Dict[str, Any], tree: TaskTree, mesh
+                      ) -> Dict[str, Any]:
+    """This rank's slices of a whole task tree (shard_leaf by its
+    specs)."""
+    sizes = {a: mesh.size(a) for a in MESH_AXES}
+    return _nest({path: shard_leaf(t.detach(), tree[path][1], mesh.coords,
+                                   sizes)
+                  for path, t in _flatten(params).items()})
+
+
+def leaf_layout(cfg: ModelConfig, mesh, zero1: bool,
+                tree: Optional[TaskTree] = None
                 ) -> Dict[str, Tuple[P, Optional[int], bool]]:
-    """{path: (spec, zero1 dim, owner)} for the leaves this rank holds.
+    """{path: (spec, zero1 dim, owner)} for the leaves this rank holds
+    (of the decoder table, or of a task tree).
 
     zero1 dim: the dimension ZeRO-1 cuts this rank's optimizer state
     along (parallel/sharding.zero1_spec on the global shape; None when
@@ -309,10 +355,10 @@ def leaf_layout(cfg: ModelConfig, mesh, zero1: bool
     norm): a leaf replicated over an axis is counted at index 0 of that
     axis only, a sharded one on every rank of the axis, so each element
     is counted once."""
-    shapes, specs = param_shapes(cfg), param_specs(cfg)
+    shapes, specs = _tables(cfg, tree)
     out = {}
     for path in shapes:
-        if not stage_holds(path, cfg, mesh):
+        if tree is None and not stage_holds(path, cfg, mesh):
             continue
         spec = specs[path]
         zdim = (zero1_dim(spec, shapes[path], mesh.dp, mesh.ep)
@@ -326,9 +372,12 @@ def leaf_layout(cfg: ModelConfig, mesh, zero1: bool
             owner = False
         if mesh.cp_rank != 0:
             owner = False             # replicated over the context ranks
-        if path == "embed/tokens" and mesh.pp > 1 and not \
-                mesh.is_first_stage:
+        if tree is None and path == "embed/tokens" and mesh.pp > 1 and \
+                not mesh.is_first_stage:
             owner = False             # the tied copy on the last stage
+        if (tree is not None and AXIS_PIPE not in spec_axes(spec)
+                and mesh.pp_rank != 0):
+            owner = False             # every stage holds a task leaf
         out[path] = (spec, zdim, owner)
     return out
 
@@ -349,7 +398,8 @@ class StatePlacement:
     OPT_FIELDS = ("master", "mu", "nu")
 
     def __init__(self, cfg: ModelConfig, parallel, world_size: int,
-                 rank: int, zero1: bool, group=None):
+                 rank: int, zero1: bool, group=None,
+                 tree: Optional[TaskTree] = None):
         parallel = parallel.validate()
         grid = rank_grid(parallel, world_size)
         self.cfg, self.parallel = cfg, parallel
@@ -361,17 +411,19 @@ class StatePlacement:
         self.dp = self.sizes["data"] * self.sizes[AXIS_EXPERT]
         self.ep = self.sizes[AXIS_EXPERT]
         self.zero1 = bool(zero1) and self.dp > 1
-        self.shapes, self.specs = param_shapes(cfg), param_specs(cfg)
+        self.tree = tree
+        self.shapes, self.specs = _tables(cfg, tree)
         self._writer: Dict[tuple, int] = {}
 
     @classmethod
-    def of(cls, cfg: ModelConfig, mesh, zero1: bool) -> "StatePlacement":
+    def of(cls, cfg: ModelConfig, mesh, zero1: bool,
+           tree: Optional[TaskTree] = None) -> "StatePlacement":
         return cls(cfg, mesh.parallel, mesh.world_size, mesh.rank, zero1,
-                   group=mesh.control_group)
+                   group=mesh.control_group, tree=tree)
 
     def _holds(self, path: str, c: Dict[str, int]) -> bool:
         pp = self.sizes[AXIS_PIPE]
-        if pp == 1 or path.startswith("layers/"):
+        if pp == 1 or self.tree is not None or path.startswith("layers/"):
             return True
         first, last = c[AXIS_PIPE] == 0, c[AXIS_PIPE] == pp - 1
         if path == "embed/tokens":
@@ -404,7 +456,8 @@ class StatePlacement:
             glu += len(shape)
         v = self.parallel.virtual_pipeline_parallel or 1
         chunks = ((v, self.sizes[AXIS_PIPE])
-                  if v > 1 and path.startswith("layers/") else None)
+                  if v > 1 and self.tree is None
+                  and path.startswith("layers/") else None)
         return block_pieces(self.spec(field, path), shape, c, self.sizes,
                             glu_dim=glu, layer_chunks=chunks)
 

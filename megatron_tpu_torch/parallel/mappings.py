@@ -26,7 +26,16 @@ group whose backward is the mirrored all-to-all (the counterpart of the
 JAX package's _ragged_exchange custom VJP, megatron_tpu/ops/moe.py:
 254-292). A seventh, gather_context, is gather_from_sp over the
 context group: the all-gathered K/V of context parallelism, whose
-backward reduce-scatters their gradients (ops/attention.py).
+backward reduce-scatters their gradients (ops/attention.py). Two serve
+the encoder families' heads: cls_row, the first row of a sequence the
+tensor ranks split, broadcast from tensor rank 0 for the heads every
+rank computes whole (its backward keeps rank 0's gradient: the
+reference's gather with tensor_parallel_output_grad=False), and
+gather_batch, the rows of the batch group concatenated (ICT's and
+ORQA's in-batch negatives), whose backward reduce-scatters: each rank's
+loss is the global loss, so the sum over the ranks holds it dp times,
+and reduce_grads' 1/dp (training/train_step.py) makes the gradient the
+global loss's.
 
 The plain collectives below them route by backend in one place: NCCL
 takes every collective natively on CUDA tensors; gloo has no send/recv,
@@ -334,6 +343,50 @@ def exchange(x: torch.Tensor, group, send: Sequence[int],
         return x
     return _Exchange.apply(x, group, tuple(int(n) for n in send),
                            tuple(int(n) for n in recv))
+
+
+class _ClsRow(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.first = dist.get_rank(group) == 0
+        ctx.shape = x.shape
+        return broadcast(x[:, 0].contiguous(), group, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.new_zeros(ctx.shape)
+        if ctx.first:
+            out[:, 0] = g
+        return out, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather(x, group, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, 0), None
+
+
+def cls_row(hidden: torch.Tensor, mesh) -> torch.Tensor:
+    """hidden[:, 0] of the whole sequence [B, h] on every tensor rank:
+    under sequence parallelism `hidden` is this rank's chunk and the
+    row is tensor rank 0's, broadcast (the module docstring); else the
+    row itself."""
+    if mesh is None or not mesh.sequence_parallel:
+        return hidden[:, 0]
+    return _ClsRow.apply(hidden, mesh.group("tensor"))
+
+
+def gather_batch(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The batch group's rows of x concatenated in batch-rank order (the
+    module docstring); x itself at dp 1."""
+    if mesh is None or mesh.dp == 1:
+        return x
+    return _GatherRows.apply(x, mesh.group(("data", "expert")))
 
 
 def copy_to_tp(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -8,7 +8,10 @@ tools/pretrain_bert wrote) gives the encoder leaves, ENCODER: the
 embeddings, the layers, the final norm and the pooler (the reference's
 language model with its pooler); the heads (the classification head,
 and BERT's MLM and binary heads, which the loss never reads) keep their
-fresh init. The fp32 masters take the checkpoint's masters.
+fresh init. The fp32 masters take the checkpoint's masters. Above one
+rank (tasks/main under python -m torch.distributed.run) the loop runs on
+the launch's mesh and each rank loads its slices of the encoder leaves
+from a checkpoint saved at any topology.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from megatron_tpu_torch.models.classification import (
 )
 from megatron_tpu_torch.training.optimizer import leaf_paths, tree_map
 from megatron_tpu_torch.training.pretrain import (
-    TrainLoop, require_one_rank, run_task_loop,
+    TrainLoop, run_task_loop, task_loop,
 )
 
 #: the top-level subtrees a pretrained BERT checkpoint gives the
@@ -70,7 +73,8 @@ def accuracy(loop: TrainLoop, ds, batch: int = 32) -> float:
         n_real = len(rows)
         rows += [rows[0]] * (batch - n_real)
         b = loop.put_batch(_collate(rows))
-        logits = classification_logits(model_cfg, loop.state.params, b)
+        logits = classification_logits(model_cfg, loop.state.params, b,
+                                       mesh=loop.mesh)
         vec = (logits.argmax(-1) == b["label"]).float()
         correct += float(vec[:n_real].sum())
         total += n_real
@@ -78,22 +82,31 @@ def accuracy(loop: TrainLoop, ds, batch: int = 32) -> float:
 
 
 @torch.no_grad()
-def load_pretrained_encoder(loop: TrainLoop, load: str) -> int:
-    """The ENCODER leaves of the BERT checkpoint at `load` into the
-    loop's params (cast to their dtype) and fp32 masters, in place.
-    Returns the number of leaves loaded."""
+def load_pretrained_encoder(loop: TrainLoop, load: str,
+                            subtrees=ENCODER) -> int:
+    """The `subtrees` leaves of the checkpoint at `load` into the loop's
+    params (cast to their dtype) and fp32 masters, in place (this rank's
+    slices of them above one rank; a ZeRO-1 master its shard). Returns
+    the number of leaves loaded."""
     from megatron_tpu_torch.training.checkpointing import load_params_only
+    from megatron_tpu_torch.training.optimizer import (
+        zero1_layout, zero1_shard,
+    )
 
     params = loop.state.params
     template = {k: tree_map(lambda t: torch.empty(
         t.shape, dtype=torch.float32, device=t.device), params[k])
-        for k in ENCODER if k in params}
-    loaded = leaf_paths(load_params_only(load, template))
+        for k in subtrees if k in params}
+    loaded = leaf_paths(load_params_only(load, template,
+                                         placement=loop.placement))
+    zdims = zero1_layout(loop.cfg.optimizer, loop.mesh, loop.layout)
     for tree in (params, loop.state.master):
         if tree is None:
             continue
         dst = dict(leaf_paths({k: tree[k] for k in template}))
         for path, src in loaded:
+            if tree is loop.state.master and path in zdims:
+                src = zero1_shard(src, loop.mesh, *zdims[path])
             dst[path].copy_(src)
     return len(loaded)
 
@@ -103,9 +116,8 @@ def finetune_loop(cfg, num_classes: int, pretrained: Optional[str] = None,
                   device="cuda") -> TrainLoop:
     """The classification TrainLoop, its encoder loaded from
     `pretrained` when given."""
-    require_one_rank(cfg)
     recompute = cfg.training.recompute_granularity
-    loop = TrainLoop(
+    loop = task_loop(
         cfg, log=log, device=device,
         init_params_fn=lambda mc, seed, dev: cls_init_params(
             mc, seed, num_classes, device=dev),

@@ -1,7 +1,10 @@
 """The task finetune and eval harness (counterpart of the repo's
 tasks/main.py): GLUE's MNLI and QQP (sentence-pair classification) and
-RACE (multiple choice) over a BERT encoder, at world size 1 on --device
-(default "cuda").
+RACE (multiple choice) over a BERT encoder, and RET-FINETUNE-NQ (the
+ORQA retriever's supervised finetuning, tasks/orqa_finetune.py), on
+--device (default "cuda"), one process or one rank a process under
+python -m torch.distributed.run with --tensor_model_parallel_size (and
+--sequence_parallel) and --use_distributed_optimizer.
 
     python -m megatron_tpu_torch.tasks.main --task MNLI \\
         --train_data glue/MNLI/train.tsv \\
@@ -20,8 +23,9 @@ fresh (tasks/finetune_utils.py). The position table keeps the
 checkpoint's rows (its max_position_embeddings) unless
 --max_position_embeddings is given, so a --seq_length shorter than the
 pretraining one reads the same table. The run length is --epochs over the
-training set. RET-FINETUNE-NQ (the ORQA retriever) is refused:
-ROADMAP.md item 11b.
+training set. RET-FINETUNE-NQ trains the biencoder at
+--retriever_seq_length on DPR JSON (--train_data, --valid_data), from a
+biencoder checkpoint given as --pretrained_checkpoint.
 """
 
 from __future__ import annotations
@@ -61,10 +65,6 @@ def run_config(args):
         classification_config,
     )
 
-    if args.task == "RET-FINETUNE-NQ":
-        raise ValueError(
-            "RET-FINETUNE-NQ (the ORQA retriever finetuning, tasks/orqa) "
-            "is not ported: ROADMAP.md item 11b")
     if args.pretrained_checkpoint and args.max_position_embeddings is None:
         # the encoder's position table as it was pretrained (BERT at S 512
         # finetunes MNLI at S 128 over the same 512 rows)
@@ -101,16 +101,77 @@ def task_datasets(args, model):
         for paths in (args.train_data, args.valid_data))
 
 
+def run_orqa(args, log=print):
+    """RET-FINETUNE-NQ: the DPR-style supervised retriever finetuning.
+    Returns (loop, final eval stats)."""
+    import numpy as np
+
+    from megatron_tpu_torch.arguments import (
+        args_to_run_config, encoder_model_kwargs,
+    )
+    from megatron_tpu_torch.models.biencoder import biencoder_config
+    from megatron_tpu_torch.parallel.distributed import local_device
+    from megatron_tpu_torch.tasks.orqa_finetune import (
+        NQSupervisedDataset, finetune_orqa, load_dpr_json,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = encoder_model_kwargs(args)
+    kw["seq_length"] = args.retriever_seq_length
+    cfg = args_to_run_config(args, model=biencoder_config(**kw))
+    tok = _build_task_tokenizer(args, cfg.model.vocab_size)
+    ids = dict(cls_id=args.cls_token_id, sep_id=args.sep_token_id,
+               pad_id=args.pad_token_id, seed=cfg.training.seed)
+    train_raw = [s for p in args.train_data for s in load_dpr_json(p)]
+    if args.sample_rate < 1.0:
+        rng = np.random.RandomState(cfg.training.seed)
+        keep = rng.permutation(len(train_raw))[
+            : int(len(train_raw) * args.sample_rate)]
+        train_raw = [train_raw[i] for i in sorted(keep)]
+    valid_raw = [s for p in args.valid_data for s in load_dpr_json(p)]
+    num_neg = args.train_hard_neg if args.train_with_neg else 0
+    seq = cfg.model.seq_length
+    train_ds = NQSupervisedDataset(train_raw, tok.tokenize, seq,
+                                   evaluate=False, num_neg=num_neg, **ids)
+    valid_ds = NQSupervisedDataset(valid_raw, tok.tokenize, seq,
+                                   evaluate=True,
+                                   val_hard_neg=args.val_av_rank_hard_neg,
+                                   val_other_neg=args.val_av_rank_other_neg,
+                                   **ids)
+    cfg, iters = _finetune_cfg(cfg, args.epochs, len(train_ds))
+    if args.pretrained_checkpoint:
+        cfg = dataclasses.replace(cfg, training=dataclasses.replace(
+            cfg.training, load=args.pretrained_checkpoint, finetune=True))
+    log(f"RET-FINETUNE-NQ: {len(train_ds)} train / {len(valid_ds)} valid, "
+        f"{num_neg} hard negatives/sample, {iters} iterations")
+    return finetune_orqa(
+        cfg, train_ds, valid_ds, ict_head_size=args.ict_head_size,
+        shared=args.biencoder_shared_query_context_model,
+        score_scaling=args.retriever_score_scaling,
+        topk=tuple(args.retriever_report_topk_accuracies), log=log,
+        device=local_device(args.device))
+
+
 def main(argv=None, log=print):
-    """Returns the finished TrainLoop (training/pretrain.py)."""
+    """Returns the finished TrainLoop (training/pretrain.py); for
+    RET-FINETUNE-NQ, (loop, final eval stats)."""
     from megatron_tpu_torch.arguments import parse_args, task_args
+    from megatron_tpu_torch.training.pretrain import run_distributed
+
+    args = parse_args(argv, task_args)
+    if args.task == "RET-FINETUNE-NQ":
+        return run_distributed(args, lambda: run_orqa(args, log))
+    cfg = run_config(args)
+    return run_distributed(args, lambda: _main(args, cfg, log))
+
+
+def _main(args, cfg, log):
     from megatron_tpu_torch.parallel.distributed import local_device
     from megatron_tpu_torch.tasks.finetune_utils import (
         finetune_classification,
     )
 
-    args = parse_args(argv, task_args)
-    cfg = run_config(args)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     num_classes, train_ds, valid_ds = task_datasets(args, cfg.model)

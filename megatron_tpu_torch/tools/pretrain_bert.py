@@ -2,14 +2,22 @@
 pretrain_bert.py): masked-LM plus the sentence-order (binary) head on a
 sentence-level indexed dataset (one sequence per sentence, document
 boundaries kept: tools/preprocess_data with a sentence splitter
-upstream), trained through TrainLoop's loss_fn hook at world size 1 on
---device (default "cuda").
+upstream), trained through TrainLoop's loss_fn hook on --device
+(default "cuda"), one process or one rank a process under
+python -m torch.distributed.run with --tensor_model_parallel_size (and
+--sequence_parallel) and --use_distributed_optimizer (data parallelism
+takes the rest of the world; pipeline parallelism is refused, as the
+JAX loop refuses a task loss at pp > 1).
 
     python -m megatron_tpu_torch.tools.pretrain_bert --num_layers 24 \\
         --hidden_size 1024 --num_attention_heads 16 --seq_length 512 \\
         --vocab_size 30592 --data_path data/sents --mask_token_id 103 \\
         --cls_token_id 101 --sep_token_id 102 --pad_token_id 0 \\
         --micro_batch_size 8 --global_batch_size 256 --train_iters 10000
+    python -m torch.distributed.run --nproc_per_node 8 \
+        -m megatron_tpu_torch.tools.pretrain_bert ... \
+        --tensor_model_parallel_size 2 --sequence_parallel \
+        --use_distributed_optimizer
 
 The model is models/bert.bert_config at the flags' widths (linear and
 QKV biases, exact GELU, LayerNorm, the tied MLM decoder): the
@@ -40,7 +48,7 @@ def run_config(args):
         raise ValueError(
             "--no_binary_head: the parameter table holds the MLM head only "
             "with the binary head (as the JAX package's does); BERT "
-            "without the SOP head is ROADMAP.md item 11b")
+            "without the SOP head is ROADMAP.md item 11c")
     return args_to_run_config(args, model=bert_config(
         **encoder_model_kwargs(args)))
 
@@ -66,18 +74,21 @@ def train_dataset(args, cfg):
 def main(argv=None, log=print):
     """Returns the finished TrainLoop (training/pretrain.py)."""
     from megatron_tpu_torch.arguments import bert_args, parse_args
+    from megatron_tpu_torch.training.pretrain import run_distributed
+
+    args = parse_args(argv, bert_args)
+    cfg = run_config(args)
+    return run_distributed(args, lambda: _main(args, cfg, log))
+
+
+def _main(args, cfg, log):
     from megatron_tpu_torch.data.samplers import (
         PretrainingSampler, build_data_loader,
     )
     from megatron_tpu_torch.models.bert import bert_loss
     from megatron_tpu_torch.parallel.distributed import local_device
-    from megatron_tpu_torch.training.pretrain import (
-        TrainLoop, require_one_rank, run_task_loop,
-    )
+    from megatron_tpu_torch.training.pretrain import task_loop, run_task_loop
 
-    args = parse_args(argv, bert_args)
-    cfg = run_config(args)
-    require_one_rank(cfg)
     train_ds = train_dataset(args, cfg)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -87,9 +98,10 @@ def main(argv=None, log=print):
         return build_data_loader(train_ds, sampler, prefetch=args.num_workers)
 
     recompute = cfg.training.recompute_granularity
-    loop = TrainLoop(
+    loop = task_loop(
         cfg, log=log, device=local_device(args.device),
-        loss_fn=lambda mc, p, b: bert_loss(mc, p, b, recompute=recompute))
+        loss_fn=lambda mc, p, b, mesh=None: bert_loss(
+            mc, p, b, recompute=recompute, mesh=mesh))
     return run_task_loop(loop, train_iter_factory)
 
 

@@ -40,24 +40,11 @@ def main(argv=None, log=print, extra_args_provider=None):
     """Returns the finished TrainLoop (training/pretrain.py).
     extra_args_provider: a caller's own flags (tools/finetune's)."""
     from megatron_tpu_torch.arguments import args_to_run_config, parse_args
-    from megatron_tpu_torch.parallel.distributed import (
-        destroy_distributed, initialize_distributed,
-    )
-
-    import torch.distributed as dist
+    from megatron_tpu_torch.training.pretrain import run_distributed
 
     args = parse_args(argv, extra_args_provider)
     cfg = args_to_run_config(args)
-    # a process group the caller made (several runs in one launch) is
-    # left as it was found
-    ours = not (dist.is_available() and dist.is_initialized())
-    if initialize_distributed(args.device, args.distributed_backend):
-        try:
-            return _main(args, cfg, log)
-        finally:
-            if ours:
-                destroy_distributed()
-    return _main(args, cfg, log)
+    return run_distributed(args, lambda: _main(args, cfg, log))
 
 
 def _main(args, cfg, log):

@@ -3,8 +3,11 @@
 indexed dataset, optionally prefixed with the titles of a title dataset
 (--titles_data_path, one title sequence per document), trained through
 TrainLoop's init_params_fn, param_specs_fn, loss_fn and
-fixed_num_microbatches hooks at world size 1 on --device (default
-"cuda").
+fixed_num_microbatches hooks on --device (default "cuda"), one process
+or one rank a process under python -m torch.distributed.run with
+--tensor_model_parallel_size (and --sequence_parallel) and
+--use_distributed_optimizer (data parallelism takes the rest; the
+in-batch softmax gathers every data rank's embeddings).
 
     python -m megatron_tpu_torch.tools.pretrain_ict --num_layers 12 \\
         --hidden_size 768 --num_attention_heads 12 --seq_length 256 \\
@@ -75,10 +78,10 @@ def loop_hooks(args, cfg):
     topk = tuple(args.retriever_report_topk_accuracies)
     recompute = cfg.training.recompute_granularity
 
-    def loss_fn(mc, p, b):
+    def loss_fn(mc, p, b, mesh=None):
         return biencoder_loss(mc, p, b,
                               score_scaling=args.retriever_score_scaling,
-                              topk=topk, recompute=recompute)
+                              topk=topk, recompute=recompute, mesh=mesh)
 
     return dict(
         init_params_fn=lambda mc, seed, device: biencoder_init_params(
@@ -92,17 +95,20 @@ def loop_hooks(args, cfg):
 def main(argv=None, log=print):
     """Returns the finished TrainLoop (training/pretrain.py)."""
     from megatron_tpu_torch.arguments import ict_args, parse_args
+    from megatron_tpu_torch.training.pretrain import run_distributed
+
+    args = parse_args(argv, ict_args)
+    cfg = run_config(args)
+    return run_distributed(args, lambda: _main(args, cfg, log))
+
+
+def _main(args, cfg, log):
     from megatron_tpu_torch.data.samplers import (
         PretrainingSampler, build_data_loader,
     )
     from megatron_tpu_torch.parallel.distributed import local_device
-    from megatron_tpu_torch.training.pretrain import (
-        TrainLoop, require_one_rank, run_task_loop,
-    )
+    from megatron_tpu_torch.training.pretrain import task_loop, run_task_loop
 
-    args = parse_args(argv, ict_args)
-    cfg = run_config(args)
-    require_one_rank(cfg)
     train_ds = train_dataset(args, cfg)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -112,7 +118,7 @@ def main(argv=None, log=print):
         return build_data_loader(train_ds, sampler, collate_fn=collate,
                                  prefetch=args.num_workers)
 
-    loop = TrainLoop(cfg, log=log, device=local_device(args.device),
+    loop = task_loop(cfg, log=log, device=local_device(args.device),
                      **loop_hooks(args, cfg))
     return run_task_loop(loop, train_iter_factory)
 

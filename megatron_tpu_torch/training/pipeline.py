@@ -67,6 +67,9 @@ _ACT, _GRAD = 1, 2        # p2p tags: activations forward, grads backward
 class Pipeline:
     """The schedules of one rank's stage for one microbatch count."""
 
+    #: the batch leaf that gives the microbatch rows and the device
+    TOKENS = "tokens"
+
     def __init__(self, cfg: ModelConfig, mesh, num_microbatches: int,
                  recompute: str = "none"):
         pp, V = mesh.pp, mesh.vpp
@@ -165,7 +168,7 @@ class Pipeline:
         posting order under NCCL too."""
         mesh = self.mesh
         shape = self._act_shape(batch)
-        dt, dev = self.cfg.dtype, batch["tokens"].device
+        dt, dev = self.cfg.dtype, batch[self.TOKENS].device
         sends, recvs = [], []
         if send_next is not None:
             sends.append((send_next.detach(), mesh.pipe_next, _ACT))
@@ -211,10 +214,9 @@ class Pipeline:
         of its router aux loss, detached: summed over the pipe group
         they are the microbatch's loss and aux loss."""
         rope = self._rope(batch)
-        losses = [torch.zeros((), device=batch["tokens"].device)
-                  for _ in range(self.M)]
-        auxes = [torch.zeros((), device=batch["tokens"].device)
-                 for _ in range(self.M)]
+        dev = batch[self.TOKENS].device
+        losses = [torch.zeros((), device=dev) for _ in range(self.M)]
+        auxes = [torch.zeros((), device=dev) for _ in range(self.M)]
 
         def fwd(m, c, x):
             out, aux = self._forward(params, batch, rope, m, c, x)

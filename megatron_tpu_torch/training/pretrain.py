@@ -77,6 +77,7 @@ from megatron_tpu_torch.config import RunConfig
 from megatron_tpu_torch.data.samplers import rank_rows
 from megatron_tpu_torch.models.params import (
     StatePlacement, init_params, leaf_layout, num_params,
+    shard_task_params, task_tree,
 )
 from megatron_tpu_torch.parallel.mappings import all_reduce
 from megatron_tpu_torch.training import checkpointing, prefetch, resilience
@@ -180,34 +181,47 @@ class TrainLoop:
                  fixed_num_microbatches: Optional[int] = None,
                  pipeline_loss_factory: Optional[Callable] = None):
         """The task hooks (the JAX loop's) let the encoder families reuse
-        the loop at world size 1: init_params_fn(model_cfg, seed, device)
-        builds a parameter tree of their own (T5's stacks, a task head),
+        the loop: init_params_fn(model_cfg, seed, device) builds a
+        parameter tree of their own (T5's stacks, a task head), whole;
         param_specs_fn(model_cfg) gives its flat {path: PartitionSpec},
-        which must name the same leaves, loss_fn(model_cfg, params,
-        batch) -> (loss, aux) swaps the objective (evaluation runs it
-        under no_grad: the port has no dropout to turn off), and
+        which must name the same leaves and, above one rank, cuts the
+        tree into this rank's slices (models/params.shard_task_params)
+        and places its optimizer state and checkpoint blocks;
+        loss_fn(model_cfg, params, batch, mesh=mesh) -> (loss, aux)
+        swaps the objective (the mesh gives it tensor and sequence
+        parallelism and the batch group; evaluation runs it under
+        no_grad: the port has no dropout to turn off), and
         fixed_num_microbatches pins the microbatch count whatever the
         batch (ICT's in-batch softmax needs the whole global batch as
-        negatives). Checkpoints save and load whatever tree the state
-        holds. A hook at world size > 1, and pipeline_loss_factory (T5's
-        pipeline), are refused: ROADMAP.md item 11b."""
-        hooks = (init_params_fn, param_specs_fn, loss_fn,
-                 fixed_num_microbatches)
-        if pipeline_loss_factory is not None:
-            raise ValueError(
-                "pipeline_loss_factory (T5's interleaved pipeline) is not "
-                "ported: ROADMAP.md item 11b")
-        if mesh is not None and mesh.world_size > 1 and any(
-                h is not None for h in hooks):
-            raise ValueError(
-                "the task hooks (the BERT, T5, ICT and finetuning "
-                "families) run at world size 1; world size "
-                f"{mesh.world_size} is ROADMAP.md item 11b")
+        negatives; at dp > 1 each rank's microbatch is its part of it).
+        pipeline_loss_factory(model_cfg, mesh, num_microbatches,
+        recompute) builds the pipe schedule a task loss runs through at
+        pp > 1 (T5's, training/t5_pipeline.T5Pipeline); a loss_fn at
+        pp > 1 without one is refused, as the JAX loop refuses it.
+        Checkpoints save and load whatever tree the state holds."""
+        if mesh is not None and mesh.world_size > 1 and (
+                init_params_fn is not None or loss_fn is not None):
+            if init_params_fn is not None and param_specs_fn is None:
+                raise ValueError("a task tree above one rank needs "
+                                 "param_specs_fn to cut it")
+            if mesh.cp > 1:
+                raise ValueError(
+                    "context parallelism splits a decoder's sequence; the "
+                    "task hooks (the BERT, T5, ICT and finetuning "
+                    "families) run at cp 1, as in the JAX package")
+            if mesh.pp > 1 and loss_fn is not None and \
+                    pipeline_loss_factory is None:
+                from megatron_tpu_torch.training.train_step import (
+                    TASK_LOSS_PP_REFUSAL,
+                )
+
+                raise ValueError(TASK_LOSS_PP_REFUSAL)
         run_cfg.validate()
         self.cfg = run_cfg
         self.mesh = mesh
         self._multi = mesh is not None and mesh.world_size > 1
         self.loss_fn = loss_fn
+        self.pipeline_loss_factory = pipeline_loss_factory
         self.fixed_num_microbatches = fixed_num_microbatches
         self.is_rank0 = mesh is None or mesh.rank == 0
         self.log = log if self.is_rank0 else (lambda msg: None)
@@ -236,27 +250,37 @@ class TrainLoop:
         else:
             params = init_params(model_cfg, t.seed, device=self.device,
                                  mesh=mesh)
+        # the task tree's shapes and specs (None: the decoder table)
+        self.tree = None
         if param_specs_fn is not None:
-            specs = set(param_specs_fn(model_cfg))
+            specs = param_specs_fn(model_cfg)
             leaves = {k for k, _ in leaf_paths(params)}
-            if specs != leaves:
+            if set(specs) != leaves:
                 raise ValueError(
                     "param_specs_fn and the parameter tree disagree: "
-                    f"no spec for {sorted(leaves - specs)}, no leaf for "
-                    f"{sorted(specs - leaves)}")
+                    f"no spec for {sorted(leaves - set(specs))}, no leaf "
+                    f"for {sorted(set(specs) - leaves)}")
+            if init_params_fn is not None:
+                self.tree = task_tree(params, specs)
+                if self._multi:
+                    params = shard_task_params(params, self.tree, mesh)
         for _, p in leaf_paths(params):
             p.requires_grad_(True)
+        # {path: (spec, zero1 dim, owner)} of this rank's leaves (None at
+        # world size 1)
+        self.layout = (leaf_layout(model_cfg, mesh,
+                                   run_cfg.optimizer.use_distributed_optimizer,
+                                   tree=self.tree)
+                       if self._multi else None)
         self.state: TrainState = init_train_state(
             run_cfg.optimizer, params,
             use_fp16_scaler=(model_cfg.params_dtype == "float16"),
-            mesh=mesh if self._multi else None,
-            layout=(leaf_layout(model_cfg, mesh,
-                                run_cfg.optimizer.use_distributed_optimizer)
-                    if self._multi else None))
+            mesh=mesh if self._multi else None, layout=self.layout)
         # where each rank's state lies in the global tensors: the sharded
         # checkpoint layout's input (None at world size 1)
         self.placement = (StatePlacement.of(
-            model_cfg, mesh, run_cfg.optimizer.use_distributed_optimizer)
+            model_cfg, mesh, run_cfg.optimizer.use_distributed_optimizer,
+            tree=self.tree)
             if self._multi else None)
         self.dp = mesh.dp if mesh is not None else 1
         self._cp = mesh.cp if mesh is not None else 1
@@ -266,7 +290,9 @@ class TrainLoop:
         self._step_cache: Dict[int, Callable] = {}
         self.eval_step = (make_eval_step(model_cfg, t, mesh)
                           if loss_fn is None
-                          else make_task_eval_step(model_cfg, loss_fn))
+                          else make_task_eval_step(
+                              model_cfg, loss_fn, mesh,
+                              pipeline_loss_factory, t.micro_batch_size))
         self.history: List[Dict[str, float]] = []
         self.evals: List[Dict[str, float]] = []
         self._save_config = run_cfg.to_dict()
@@ -710,7 +736,9 @@ class TrainLoop:
             step = make_train_step(self.cfg.model, self.cfg.optimizer, t,
                                    num_microbatches,
                                    train_iters=t.train_iters,
-                                   loss_fn=self.loss_fn, mesh=self.mesh)
+                                   loss_fn=self.loss_fn, mesh=self.mesh,
+                                   tree=self.tree,
+                                   pipeline_factory=self.pipeline_loss_factory)
             self._step_cache[num_microbatches] = step
         return step
 
@@ -795,7 +823,8 @@ class TrainLoop:
         with torch.no_grad():
             leaves = leaf_paths(self.state.params)
             if self._multi:
-                owned = leaf_layout(self.cfg.model, self.mesh, False)
+                owned = leaf_layout(self.cfg.model, self.mesh, False,
+                                    tree=self.tree)
                 leaves = [(k, p) for k, p in leaves if owned[k][2]]
             sq = torch.stack([p.detach().float().square().sum()
                               for _, p in leaves]).sum()
@@ -1468,13 +1497,12 @@ class TrainLoop:
             self.save()
 
 
-def pretrain(run_cfg: RunConfig, train_iter_factory,
-             valid_iter_factory=None, log: Callable[[str], None] = print,
-             device="cuda", mesh=None) -> TrainLoop:
-    """One-call entry (the reference's megatron/training.py pretrain()).
-    Returns the finished TrainLoop (its state, history and evals). With
-    torch.distributed initialized (parallel/distributed.py) the mesh is
-    built here from run_cfg.parallel (JAX pretrain.py:176-216)."""
+def launch_mesh(run_cfg: RunConfig, mesh=None):
+    """The mesh of this launch: `mesh` when given, else with
+    torch.distributed initialized (parallel/distributed.py) the one
+    run_cfg.parallel lays out over its world (JAX pretrain.py:176-216),
+    else None; a parallel topology without a launch of one process per
+    rank is refused."""
     import torch.distributed as dist
 
     if mesh is None and dist.is_available() and dist.is_initialized():
@@ -1488,40 +1516,64 @@ def pretrain(run_cfg: RunConfig, train_iter_factory,
         raise ValueError(
             "a parallel topology needs one process per rank: launch under "
             "python -m torch.distributed.run --nproc_per_node N")
-    loop = TrainLoop(run_cfg, log=log, device=device, mesh=mesh)
-    log = loop.log
+    return mesh
+
+
+def _log_mesh(loop: TrainLoop) -> None:
+    mesh = loop.mesh
     if mesh is not None:
-        log(f"mesh: world {mesh.world_size} = dp {mesh.dp}"
-            + (f" (ep {mesh.ep})" if mesh.ep > 1 else "")
-            + f" x pp {mesh.pp} (vpp {mesh.vpp})"
-            + (f" x cp {mesh.cp}" if mesh.cp > 1 else "")
-            + f" x tp {mesh.tp}"
-            + (" with sequence parallelism" if mesh.sequence_parallel
-               else ""))
-    log(f"device: {loop.device} | params: {num_params(run_cfg.model):,}")
-    try:
-        loop.train(train_iter_factory, valid_iter_factory)
-    finally:
-        loop.writer.close()
+        loop.log(f"mesh: world {mesh.world_size} = dp {mesh.dp}"
+                 + (f" (ep {mesh.ep})" if mesh.ep > 1 else "")
+                 + f" x pp {mesh.pp} (vpp {mesh.vpp})"
+                 + (f" x cp {mesh.cp}" if mesh.cp > 1 else "")
+                 + f" x tp {mesh.tp}"
+                 + (" with sequence parallelism" if mesh.sequence_parallel
+                    else ""))
+
+
+def pretrain(run_cfg: RunConfig, train_iter_factory,
+             valid_iter_factory=None, log: Callable[[str], None] = print,
+             device="cuda", mesh=None) -> TrainLoop:
+    """One-call entry (the reference's megatron/training.py pretrain()).
+    Returns the finished TrainLoop (its state, history and evals), on
+    the launch's mesh (launch_mesh)."""
+    loop = TrainLoop(run_cfg, log=log, device=device,
+                     mesh=launch_mesh(run_cfg, mesh))
+    _log_mesh(loop)
+    loop.log(f"device: {loop.device} | params: {num_params(run_cfg.model):,}")
+    return run_task_loop(loop, train_iter_factory, valid_iter_factory)
+
+
+def task_loop(run_cfg: RunConfig, log: Callable[[str], None] = print,
+              device="cuda", **hooks) -> TrainLoop:
+    """A TrainLoop with the task hooks (TrainLoop.__init__) on the
+    launch's mesh (launch_mesh): the encoder families' entry points
+    under python -m torch.distributed.run."""
+    loop = TrainLoop(run_cfg, log=log, device=device,
+                     mesh=launch_mesh(run_cfg), **hooks)
+    _log_mesh(loop)
     return loop
 
 
-def require_one_rank(run_cfg: RunConfig) -> None:
-    """The encoder families (the TrainLoop task hooks) train at world size
-    1: a parallel topology, or a launch of more than one process, is
-    refused (ROADMAP.md item 11b)."""
-    from megatron_tpu_torch.parallel.distributed import launch_env
+def run_distributed(args, body: Callable[[], Any]) -> Any:
+    """body() inside the process group of this launch (a plain call
+    outside one): the group joined from the launcher's environment on
+    args.device over args.distributed_backend, and left as it was found
+    (a group the caller made, for several runs in one launch, stays)."""
+    import torch.distributed as dist
 
-    p = run_cfg.parallel
-    world = (p.tensor_parallel * p.pipeline_parallel * p.context_parallel
-             * p.expert_parallel * (p.data_parallel or 1))
-    env = launch_env()
-    if env is not None:
-        world = max(world, env[1])
-    if world > 1:
-        raise ValueError(
-            "the BERT, T5, ICT and finetuning families train at world size "
-            f"1; world size {world} is ROADMAP.md item 11b")
+    from megatron_tpu_torch.parallel.distributed import (
+        destroy_distributed, initialize_distributed,
+    )
+
+    ours = not (dist.is_available() and dist.is_initialized())
+    if initialize_distributed(args.device, args.distributed_backend):
+        try:
+            return body()
+        finally:
+            if ours:
+                destroy_distributed()
+    return body()
 
 
 def run_task_loop(loop: TrainLoop, train_iter_factory,

@@ -20,7 +20,14 @@ accumulators. After the accumulation, reduce_grads:
     sequence chunk; at any tp > 1 so for the MoE leaves without a
     tensor axis (the router, the experts' b_out): they sit after the
     block's entry, so each tensor rank holds a partial sum
-    (ops/moe.py);
+    (ops/moe.py); the task heads that read the [CLS] row
+    (models/params.REPLICATED_HEADS) are whole on every tensor rank and
+    are not summed;
+  * for a task tree (the TrainLoop hooks') under pipeline parallelism,
+    sums over the pipe group every leaf its spec does not cut over
+    "pipe": every stage holds it, and each stage's backward holds its
+    own uses (T5's embedding on the first stage and its tied logits and
+    final norms on the last, training/t5_pipeline.py);
   * with tied embeddings and pp > 1 sums embed/tokens over the
     embedding group (the first stage's copy and the last stage's);
   * under context parallelism sums every leaf over the context group:
@@ -50,10 +57,11 @@ import torch
 from megatron_tpu_torch.config import (ModelConfig, OptimizerConfig,
                                        TrainingConfig)
 from megatron_tpu_torch.models.language_model import lm_forward, lm_loss
+from megatron_tpu_torch.models.params import replicated_head
 from megatron_tpu_torch.ops.cross_entropy import cross_entropy_loss
 from megatron_tpu_torch.parallel.mappings import all_reduce, reduce_scatter
 from megatron_tpu_torch.parallel.mesh import (
-    AXIS_CONTEXT, AXIS_TENSOR, BATCH_AXES,
+    AXIS_CONTEXT, AXIS_PIPE, AXIS_TENSOR, BATCH_AXES,
 )
 from megatron_tpu_torch.parallel.sharding import spec_axes, zero1_axes
 from megatron_tpu_torch.training.optimizer import (
@@ -63,19 +71,25 @@ from megatron_tpu_torch.training.optimizer import (
 
 
 def reduce_grads(grads: Any, model_cfg: ModelConfig,
-                 opt_cfg: OptimizerConfig, mesh, layout) -> Any:
+                 opt_cfg: OptimizerConfig, mesh, layout,
+                 task: bool = False) -> Any:
     """The cross-rank sums of the accumulated fp32 grads (the module
     docstring). Returns the tree the optimizer takes: whole leaves
-    reduced in place, ZeRO-1 leaves as this rank's (new) shards."""
+    reduced in place, ZeRO-1 leaves as this rank's (new) shards. task:
+    the grads are a task tree's (models/params.TaskTree)."""
     zdims = zero1_layout(opt_cfg, mesh, layout)
     out = {}
     for path, g in leaf_paths(grads):
         spec = layout[path][0]
         if mesh.tp > 1 and AXIS_TENSOR not in spec_axes(spec) and (
-                mesh.sequence_parallel or path.startswith("layers/moe/")):
+                (mesh.sequence_parallel and not replicated_head(path))
+                or path.startswith("layers/moe/")):
             g.copy_(all_reduce(g, mesh.group("tensor")))
-        if (path == "embed/tokens" and model_cfg.tie_embed_logits
-                and mesh.pp > 1):
+        if task:
+            if mesh.pp > 1 and AXIS_PIPE not in spec_axes(spec):
+                g.copy_(all_reduce(g, mesh.group(AXIS_PIPE)))
+        elif (path == "embed/tokens" and model_cfg.tie_embed_logits
+              and mesh.pp > 1):
             g.copy_(all_reduce(g, mesh.embedding_group))
         if mesh.cp > 1:
             g.copy_(all_reduce(g, mesh.group(AXIS_CONTEXT)))
@@ -117,13 +131,22 @@ def make_train_step(
     train_iters: Optional[int] = None,
     loss_fn: Optional[Callable] = None,
     mesh=None,
+    tree=None,
+    pipeline_factory: Optional[Callable] = None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
               Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build train_step(state, batch) -> (state, metrics).
 
     batch leaves are [num_microbatches * micro_batch, ...]. loss_fn(cfg,
-    params, microbatch) -> (loss, aux) defaults to lm_loss with the
-    configured recompute policy. The state's params must require grad;
+    params, microbatch, mesh=mesh) -> (loss, aux) defaults to lm_loss
+    with the configured recompute policy. tree: the state holds a task
+    tree (models/params.TaskTree; None: the decoder table).
+    pipeline_factory(cfg, mesh, num_microbatches, recompute) at pp > 1
+    builds the schedule object (training/pipeline.Pipeline's
+    forward_backward and forward_only) that runs a task loss through the
+    pipe (T5's, training/t5_pipeline.py); without one a loss_fn at
+    pp > 1 is refused, as the JAX loop refuses it. The state's params
+    must require grad;
     the state is updated in place and returned. metrics: loss (mean over
     microbatches, a MoE model's router aux loss included), grad_norm, lr,
     skipped, skip_streak (+ loss_scale with an fp16 scaler, and
@@ -132,13 +155,14 @@ def make_train_step(
     from megatron_tpu_torch.models.params import leaf_layout
 
     recompute = train_cfg.recompute_granularity
-    if loss_fn is not None and mesh is not None and mesh.pp > 1:
-        raise ValueError("pipeline parallelism computes the LM loss on its "
-                         "last stage; a custom loss_fn is not supported")
-    loss_fn = loss_fn or (lambda cfg, p, b: lm_loss(
+    if (loss_fn is not None and mesh is not None and mesh.pp > 1
+            and pipeline_factory is None):
+        raise ValueError(TASK_LOSS_PP_REFUSAL)
+    loss_fn = loss_fn or (lambda cfg, p, b, mesh=None: lm_loss(
         cfg, p, b, recompute=recompute, mesh=mesh))
     multi = mesh is not None and mesh.world_size > 1
-    layout = (leaf_layout(model_cfg, mesh, opt_cfg.use_distributed_optimizer)
+    layout = (leaf_layout(model_cfg, mesh, opt_cfg.use_distributed_optimizer,
+                          tree=tree)
               if multi else None)
     opt_apply = make_optimizer_step(opt_cfg,
                                     train_iters or train_cfg.train_iters or 1,
@@ -148,7 +172,8 @@ def make_train_step(
     if mesh is not None and mesh.pp > 1:
         from megatron_tpu_torch.training.pipeline import Pipeline
 
-        pipeline = Pipeline(model_cfg, mesh, num_microbatches, recompute)
+        pipeline = (pipeline_factory or Pipeline)(
+            model_cfg, mesh, num_microbatches, recompute)
     acc: Dict[str, Any] = {}
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -185,7 +210,7 @@ def make_train_step(
             losses, moe_aux = [], []
             for i in range(n):
                 mb = {k: v[i * mbs:(i + 1) * mbs] for k, v in batch.items()}
-                loss, aux = loss_fn(model_cfg, state.params, mb)
+                loss, aux = loss_fn(model_cfg, state.params, mb, mesh=mesh)
                 (loss * scale if scale is not None else loss).backward()
                 accumulate()
                 losses.append(loss.detach())
@@ -197,7 +222,8 @@ def make_train_step(
             for a in accs:
                 a.div_(n)
             if multi:
-                grads = reduce_grads(grads, model_cfg, opt_cfg, mesh, layout)
+                grads = reduce_grads(grads, model_cfg, opt_cfg, mesh, layout,
+                                     task=tree is not None)
         state, metrics = opt_apply(state, grads)
         metrics["loss"] = (agreed_loss(losses, mesh, accs[0].device)
                            if multi else torch.stack(losses).mean())
@@ -245,18 +271,47 @@ def make_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig,
     return eval_step
 
 
-def make_task_eval_step(model_cfg: ModelConfig, loss_fn: Callable):
+def make_task_eval_step(model_cfg: ModelConfig, loss_fn: Callable,
+                        mesh=None, pipeline_factory: Optional[Callable] = None,
+                        micro_batch_size: int = 1):
     """A task model's forward-only loss (the JAX package's task_eval_step):
     eval_step(params, batch) -> {"lm_loss": loss_fn's loss, and every
-    other entry of its aux}, device tensors."""
+    other entry of its aux}, device tensors. With a multi-rank mesh each
+    number is agreed over every rank as _parallel_eval_step agrees the
+    LM loss: the mean over the batch ranks (a pipeline's forward-only
+    pass through pipeline_factory's schedule, its loss summed over the
+    pipe group first; the pipeline reports the loss alone)."""
+    multi = mesh is not None and mesh.world_size > 1
+    pipelines: Dict[int, Any] = {}
+
     @torch.no_grad()
     def eval_step(params: Any, batch: Dict[str, torch.Tensor]):
-        loss, aux = loss_fn(model_cfg, params, batch)
+        if multi and mesh.pp > 1:
+            rows = next(iter(batch.values())).shape[0]
+            m = max(rows // micro_batch_size, 1)
+            if m not in pipelines:
+                pipelines[m] = pipeline_factory(model_cfg, mesh, m)
+            loss = pipelines[m].forward_only(params, batch)
+            dev = next(iter(batch.values())).device
+            return {"lm_loss": agreed_loss(
+                [] if loss is None else [loss], mesh, dev)}
+        loss, aux = loss_fn(model_cfg, params, batch, mesh=mesh)
         out = {"lm_loss": loss}
         out.update({k: v for k, v in aux.items() if k != "loss"})
+        if multi:
+            out = {k: agreed_loss([v.float()], mesh, v.device)
+                   for k, v in out.items()}
         return out
 
     return eval_step
+
+
+TASK_LOSS_PP_REFUSAL = (
+    "pipeline parallelism drives the built-in LM loss through the pipe "
+    "schedule; task losses (BERT/ICT/classification) would silently "
+    "train unpipelined — use tensor/data/context parallelism for them, "
+    "or supply a pipeline_loss_factory (T5 has one: "
+    "training/t5_pipeline.py)")
 
 
 def _parallel_eval_step(model_cfg: ModelConfig, train_cfg: TrainingConfig,

@@ -6,6 +6,8 @@ params_from_numpy. Tolerances: logits 1e-4 max abs, losses 1e-5
 relative, gradients 1e-4 relative to each leaf's norm, dataset items bit
 for bit, the TrainLoop's three losses 1e-5 relative."""
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import re
 import types
 
@@ -167,8 +169,9 @@ def test_trainloop_bert_three_steps_match_jax():
 def test_pretrain_bert_runs_and_refuses_ranks(tmp_path):
     """tools/pretrain_bert end to end at tiny size on a sentence corpus
     the test writes (finite, logged losses, a saved checkpoint), and the
-    refusals: a parallel topology, a task hook at world size > 1,
-    pipeline_loss_factory, --no_binary_head."""
+    refusals that stand: a parallel topology outside a launch of one
+    process per rank, --no_binary_head (ROADMAP.md item 11c), and a task
+    loss at pp > 1 without a pipeline_loss_factory (the JAX loop's)."""
     from megatron_tpu_torch.tools import pretrain_bert
 
     prefix = str(tmp_path / "sents")
@@ -188,14 +191,12 @@ def test_pretrain_bert_runs_and_refuses_ranks(tmp_path):
     assert all(np.isfinite(h["lm_loss"]) for h in loop.history)
     assert (tmp_path / "ck" / "latest_checkpointed_iteration.txt").exists()
 
-    with pytest.raises(ValueError, match="11b"):
+    with pytest.raises(ValueError, match="one process per rank"):
         pretrain_bert.main(argv + ["--tensor_model_parallel_size", "2"])
-    with pytest.raises(ValueError, match="binary"):
+    with pytest.raises(ValueError, match="binary head.*11c"):
         pretrain_bert.main(argv + ["--no_binary_head"])
     cfg = tconfig.RunConfig(model=bert.bert_config(**KW))
-    with pytest.raises(ValueError, match="11b"):
+    with pytest.raises(ValueError, match="task losses .* would silently "
+                       "train unpipelined"):
         TrainLoop(cfg, device="cpu", mesh=types.SimpleNamespace(
-            world_size=2), loss_fn=bert.bert_loss)
-    with pytest.raises(ValueError, match="11b"):
-        TrainLoop(cfg, device="cpu", loss_fn=bert.bert_loss,
-                  pipeline_loss_factory=lambda *a: None)
+            world_size=2, pp=2, cp=1), loss_fn=bert.bert_loss)

@@ -15,6 +15,8 @@ do, intact, with a torn staging dir, a garbage tracker, a truncated
 file and a missing manifest.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import os
 import shutil

@@ -27,6 +27,8 @@ on one rank, and rolled back. Against those:
     size 1, read the 8-rank checkpoint.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import json
 import os
 

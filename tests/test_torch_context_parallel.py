@@ -26,6 +26,8 @@ gradient plumbing) held against the JAX package on the CPU.
   flags, and Ulysses' refusal of indivisible heads (the JAX message).
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

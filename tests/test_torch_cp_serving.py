@@ -24,6 +24,8 @@ the local tables, the refusals, pool exhaustion) run in this process on
 a rank-0 view of the mesh.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import json
 import types
 

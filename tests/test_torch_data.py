@@ -7,6 +7,8 @@ sampler index order (sequential and epoch-seeded random, with resume and
 data-parallel slicing) and the same gpt_collate batches.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import numpy as np
 import pytest
 

@@ -17,6 +17,8 @@ the C++ source, built into megatron_tpu_torch/build/) equals the JAX
 package's native module on all four builders, and its Python versions.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import json
 import os
 

@@ -9,6 +9,8 @@ match jax.random's noise; they are checked for determinism under one
 seed instead.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import json
 import os
 import subprocess
@@ -189,7 +191,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Import every module of megatron_tpu_torch (the serving, training
     and data modules alike, the encoder families, their tools and tasks/),
     and chip_smoke.py, in a fresh interpreter: neither jax, megatron_tpu
-    nor the root tasks/ package may be loaded."""
+    nor the root tasks/ and tools/ packages may be loaded."""
     expected = ["megatron_tpu_torch." + m for m in (
         "inference.server", "ops.flash.flash_template", "ops.cross_entropy",
         "training.pretrain", "training.optimizer", "training.train_step",
@@ -215,7 +217,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "models.classification", "models.biencoder", "data.bert_dataset",
         "data.t5_dataset", "data.ict_dataset", "tools.pretrain_bert",
         "tools.pretrain_t5", "tools.pretrain_ict", "tasks.data_utils",
-        "tasks.glue", "tasks.race", "tasks.finetune_utils", "tasks.main")]
+        "tasks.glue", "tasks.race", "tasks.finetune_utils", "tasks.main",
+        "training.t5_pipeline", "tools.build_retrieval_index",
+        "tasks.qa_utils", "tasks.orqa", "tasks.orqa_finetune")]
     code = (
         "import importlib, pkgutil, sys\n"
         "import megatron_tpu_torch as pkg\n"
@@ -225,7 +229,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         f"missing = [m for m in {expected!r} if m not in sys.modules]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'megatron_tpu' or m.startswith('megatron_tpu.')"
-        " or m == 'tasks' or m.startswith('tasks.')]\n"
+        " or m == 'tasks' or m.startswith('tasks.')"
+        " or m == 'tools' or m.startswith('tools.')]\n"
         "print(bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

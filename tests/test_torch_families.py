@@ -32,6 +32,8 @@ package and against HuggingFace, on the CPU in fp32.
     block:1 recompute.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import re
 

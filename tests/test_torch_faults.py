@@ -22,6 +22,8 @@ Fault runs are subprocesses with timeouts; the reference runs are
 in-process.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import json
 import os
 import re

@@ -19,6 +19,8 @@ replace, the kernels' tile classification (tile_class) against the dense
 mask, and the kernel build's hash over every csrc header.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -12,6 +12,8 @@ the kernels) against autograd of the dense attention at ragged lengths,
 the CPU wrappers, and the --no_flash_bwd escape hatch.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import warnings
 
 import jax

@@ -8,6 +8,8 @@ against the same plain version (tests/test_torch_cuda.py, chip_smoke.py
 phase 4c).
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax

@@ -12,6 +12,8 @@ cannot match jax.random's noise: it is checked for determinism under one
 seed, and against the engine's sampled output for the same seed.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

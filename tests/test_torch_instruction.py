@@ -11,6 +11,8 @@ tests/test_torch_train.py: two layers, sums in different orders); and
 the finetune CLI trains 4 steps from a checkpoint.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import filecmp
 import importlib.util

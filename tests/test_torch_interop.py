@@ -15,6 +15,8 @@ takes every one of those checks too, and falcon and gpt2 convert
 (tests/test_torch_families.py holds them against HF).
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import os
 import sys

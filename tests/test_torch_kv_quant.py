@@ -10,6 +10,8 @@ prefix-cache hit, a preemption mid-stream and n-gram speculation.
 Greedy tokens must be identical and logprobs within 1e-4.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -21,6 +21,8 @@ port's state starts from the JAX loop's init params. Checked:
     writes a Chrome trace.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import json
 import math
 import os

@@ -13,6 +13,8 @@ the journal rotates; a preemption-tagged checkpoint survives retention;
 the CLI takes the loop's flags and refuses --compilation_cache_dir.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import itertools
 import math
 import os

@@ -12,6 +12,8 @@ attention runs the flash kernels' plain versions; the JAX package runs
 its dense path (its kernels dispatch on the CPU only when forced).
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

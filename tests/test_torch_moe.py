@@ -17,6 +17,8 @@ losses and logits through two fp32 layers (the frameworks sum in
 different orders), 1e-5 on gradients, as tests/test_torch_train.py.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import types
 

@@ -37,6 +37,8 @@ save; two ranks serve. Held, in fp32:
     and --weight_int8 with MoE.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import os
 

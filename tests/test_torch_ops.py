@@ -7,6 +7,8 @@ masking mode the serving slice uses. Tolerance: atol 1e-5 (fp32, the
 two frameworks sum in different orders).
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -13,6 +13,8 @@ tokens fixed across chunk sizes and a forced preemption, and the paged
 engine's greedy tokens to the port's dense engine.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import json
 import os
 import signal

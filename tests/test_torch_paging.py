@@ -16,6 +16,8 @@
     1e-5 and every non-scratch page of the pools equal.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

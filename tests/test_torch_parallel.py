@@ -20,6 +20,8 @@ cases held to the port's single-process step: dp2 with ZeRO-1, and a
 tied-embedding GPT-2 at pp2 (the embedding group's gradient sum).
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import numpy as np

@@ -28,6 +28,8 @@ torch.argmax's lowest index.
 One spawn for the file; the JAX steps compile while the ranks run.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,8 @@ Four ranks (dp 2 at tp2, 1 at tp2 x pp2) keep the spawn light; the
 8-rank topologies are tests/test_torch_parallel_train.py's.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import pytest
 
 import _torch_parallel_worker as W

@@ -20,6 +20,8 @@ tests/test_torch_parallel_models.py runs the other models and policies.
 One spawn for the file; the JAX step compiles while the ranks run.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

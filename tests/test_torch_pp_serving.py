@@ -26,6 +26,8 @@ the tp2 x pp2 one-shot calls. Held:
     engine, int8 KV caches, beam search.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import numpy as np
 import pytest

@@ -9,6 +9,8 @@ datasets, sampler and collate, one step per log window), to the 6
 decimals the line prints.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import os
 import re
 import subprocess

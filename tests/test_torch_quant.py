@@ -15,6 +15,8 @@ The collectives themselves run on gloo ranks in
 tests/test_torch_cp_serving.py and tests/test_torch_tp_serving.py.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import json
 
 import jax

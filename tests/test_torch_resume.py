@@ -11,6 +11,8 @@ constant: a decaying schedule is a function of --train_iters, which the
 two halves of the interrupted run set differently.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import os
 
 import numpy as np

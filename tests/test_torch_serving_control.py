@@ -11,6 +11,8 @@ held against an engine built fresh on the new weights, on both engines.
 Every test runs a tiny model (2 layers, hidden 64) in fp32.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import json
 import os
 import signal

@@ -14,6 +14,8 @@ outcome is the list of (tick, effect) the fault produced:
   reject_admission   every submit is answered overloaded at once
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import os
 import time
 

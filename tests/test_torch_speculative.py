@@ -33,6 +33,8 @@ Sampled tokens cannot match jax.random's noise (the port draws from
 torch.Generators); they are held to determinism instead.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import json
 import threading

@@ -6,6 +6,8 @@ across through t5_params_from_numpy. Tolerances: logits 1e-4 max abs,
 the loss 1e-5 relative, gradients 1e-4 relative to each leaf's norm,
 t5_span_corrupt and dataset items bit for bit."""
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import jax
 import numpy as np
 import pytest
@@ -116,8 +118,9 @@ def test_span_corrupt_and_dataset_items_match_jax_bitwise(tmp_path):
 
 def test_pretrain_t5_runs_and_refuses_pipeline(tmp_path):
     """tools/pretrain_t5 end to end at tiny size with asymmetric stacks
-    and a saved checkpoint; pp > 1 (T5's pipeline) and a parallel
-    topology are refused."""
+    and a saved checkpoint; pp > 1 (T5's pipeline) outside a launch of
+    one process per rank, and sequence parallelism (ROADMAP.md item 11c),
+    are refused."""
     from megatron_tpu_torch.tools import pretrain_t5
 
     prefix = sentence_corpus(str(tmp_path / "sents"), n_docs=16, vocab=86)
@@ -143,7 +146,8 @@ def test_pretrain_t5_runs_and_refuses_pipeline(tmp_path):
                                                   str(tmp_path / "ck")],
         log=lambda m: None)
     assert [h["iteration"] for h in resumed.history] == [4]
-    with pytest.raises(ValueError, match="11b"):
+    with pytest.raises(ValueError, match="one process per rank"):
         pretrain_t5.main(argv + ["--pipeline_model_parallel_size", "2"])
-    with pytest.raises(ValueError, match="11b"):
-        pretrain_t5.main(argv + ["--tensor_model_parallel_size", "2"])
+    with pytest.raises(ValueError, match="11c"):
+        pretrain_t5.main(argv + ["--tensor_model_parallel_size", "2",
+                                 "--sequence_parallel"])

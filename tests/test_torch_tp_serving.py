@@ -27,6 +27,8 @@ model-dtype and int8 caches, greedy and seeded top-k. Held:
     (two more).
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 import json
 import os

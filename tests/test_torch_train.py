@@ -13,6 +13,8 @@ The port's attention runs attention_impl="pallas", i.e. on the CPU its
 flash autograd Function with the kernels' plain forward and backward.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import dataclasses
 
 import jax

@@ -15,6 +15,8 @@ must equal the JAX quantized forward's (logits atol 1e-4 through two
 fp32 layers). The server's flags and a quantized reload close the file.
 """
 
+import _torch_threads  # noqa: F401  (first: one torch thread)
+
 import os
 
 import jax
