@@ -189,6 +189,32 @@ still run, so one call shows every failure):
               bytes resident, and the graph tick's device time with bf16
               (3d's dense bf16 tick when 3d ran), int8 and fp8 weights,
               in this call.
+  3f. text    the text path at Llama-2-7B's full width and depth (bf16,
+              8 slots x 2048): phase 6a's vocabulary learner (loop_vocab:
+              256 byte symbols + 400 merges + <|endoftext|>, ~660 ids
+              over the 32,000-row table) writes vocab.json and
+              merges.txt, and the server starts through
+              run_text_generation_server's own main and flags
+              (--tokenizer_type GPT2BPETokenizer --vocab_file
+              --merges_file, a thread of this process). Four text
+              prompts of 5/100/700/1500 BPE tokens as concurrent greedy
+              PUT /api requests x 32 tokens; two through
+              tools/text_generation_cli in a child process (stdin piped);
+              then MSDP: 16 WoW dialogues through msdp_preprocess's
+              process_wow_dataset, get_knwl_gen_prompts,
+              get_resp_gen_prompts and prepare_input, msdp's
+              prompt-knowledge and prompt-response (6 examples a
+              prompt, the 2048-token slot's fit) on 8 samples through
+              --megatron_api_url (32 tokens), eval-f1 of both (random
+              weights: F1 near 0, printed). Gates: every request returns
+              its prompt's text; every id the server decodes is below the
+              tokenizer's vocabulary (the sampling clamp); flash_fwd 32 x
+              prefills and flash_decode 32 x ticks over the whole phase;
+              the four text sequences pass phase 3's teacher-forced gate,
+              and the one-shot generate_tokens on the server's weights
+              is reported beside them (tokens agreeing before the first
+              difference). TTFT and TPOT of the phase's requests printed.
+              The memory-fit processes (phase 4) start with this phase.
   4. training write a synthetic corpus (Zipf token ids, 32000 vocab, from
               SEED) with the port's MMapIndexedDatasetBuilder into
               megatron_tpu_torch/build/, then call
@@ -201,7 +227,15 @@ still run, so one call shows every failure):
               first_loss_expected(), a last loss at least LOSS_DROP_GATE
               below the first, exact launch counts (see
               expected_train_launches) and no dense-fallback warning;
-              print step time, tokens/s, MFU and peak memory.
+              print step time, tokens/s, MFU and peak memory. Before the
+              run, training/aot's fit report of this step (tools/
+              hbm_check, a process of its own tracing the step under
+              fake tensors on the host's CPU): the measured
+              max_memory_allocated must lie within FIT_BAND of its
+              per-card bytes.
+  4d. proofs  (memory_proofs, after 4c) hbm_check --proof
+              llama2_7b_dp2tp4 and llama2_70b_dp2tp8pp4 against 80 GiB,
+              traced on the host's CPU since phase 3f: each must fit.
   4b. dense   one forward + backward of a 2-layer model of the same width
               at S 4096, same init and batch, through the kernels and
               through the dense attention with autograd: the loss, the
@@ -335,7 +369,11 @@ still run, so one call shows every failure):
               once --no_async_loop and once async: losses bitwise equal,
               one host sync a step, the native index builder used, the
               Chrome trace naming flash_fwd, flash_bwd_dq and
-              flash_bwd_dkv, exact launches; median step, tokens/s, MFU,
+              flash_bwd_dkv (read by the port's trace reader,
+              telemetry/tracing, as is every trace below), exact
+              launches; tools/trace_report on each run's trace prints its
+              self-time table, names the three kernels and gives the
+              idle share this phase prints; median step, tokens/s, MFU,
               device idle share in the window, data wait and goodput
               shares printed; a 2-step replay check at full size (two
               runs of a step bitwise equal); (c) five fault runs at
@@ -473,11 +511,19 @@ still run, so one call shows every failure):
               step and peak GiB a rank printed, B1-B5 counted (0: the
               dense attention); BERT's tp2 state loaded by a world-1
               TrainLoop bit for bit (each rank's slices' crc32).
+  7j. comm    (last in the same launch) the train_tp2_sp comm contract
+     contract (analysis/contracts.py): its loop at the pinned tiny
+              geometry with a --profile window of two steps, on the
+              card over gloo; tools/trace_report --contract train_tp2_sp
+              --executions 2 --check on rank 0's trace: every
+              collective's comm.* calls equal the golden manifest's
+              (measured on the CPU) times 2, and two train_step markers.
   8. report   each phase's wall seconds as it ends and all of them
               after phase 7d (seconds_by_phase, with the total), then one
               JSON line listing each kernel with its launches on its path
               (serving, paged_serving, speculative_serving,
-              serving_control, weight_quant, training, fp8_training,
+              serving_control, weight_quant, text_serving, training,
+              fp8_training,
               finetune, families, mixtral, loop, parallel,
               context_parallel, parallel_serving, cp_serving and
               compressed_tp_serving; B5's partial form on a line of its
@@ -2905,7 +2951,7 @@ def serve_control(torch, ft, card, dense_tokens):
 
 def teacher_force(torch, dataclasses, cfg, params, prompts, generated,
                   int8=False, stream_fp32=False, mesh=None, tp_comm=None,
-                  transport=None):
+                  transport=None, vocab=None):
     """Hold the engine's greedy tokens against the plain path.
 
     Each finished sequence is teacher-forced through lm_forward with the
@@ -2930,7 +2976,10 @@ def teacher_force(torch, dataclasses, cfg, params, prompts, generated,
     ran and the plain path does not (_transport_error); the engine's
     token and the plain argmax may each move by it, so twice it widens
     that position's near-tie band. teacher_forced_band_max is the largest
-    bf16 band, without the transport."""
+    bf16 band, without the transport. vocab: the tokenizer's vocabulary
+    when it is smaller than the embedding table (the engine samples only
+    below it, inference/sampling.py's clamp): the argmax and the gap are
+    taken below it too; the band stays the whole row's error."""
     from megatron_tpu_torch.inference.generation import _init_caches
     from megatron_tpu_torch.models.language_model import lm_forward
 
@@ -2955,9 +3004,10 @@ def teacher_force(torch, dataclasses, cfg, params, prompts, generated,
             lb = forward(plain, params, seq)[0, p0:].float()
             l32 = (_fp32_logits_streamed(torch, ref, params, seq)[0, p0:]
                    if stream_fp32 else forward(ref, params32, seq)[0, p0:])
+            band = (lb - l32).abs().max(-1).values
+            lb, l32 = lb[:, :vocab], l32[:, :vocab]
             tok = torch.tensor(gen, device="cuda")
             gap = lb.max(-1).values - lb.gather(1, tok[:, None])[:, 0]
-            band = (lb - l32).abs().max(-1).values
             band_max = max(band_max, float(band.max()))
             if transport is not None:
                 band = band + 2 * torch.tensor(transport[seq_i],
@@ -2979,6 +3029,378 @@ def teacher_force(torch, dataclasses, cfg, params, prompts, generated,
             "teacher_forced_band_max": band_max,
             "teacher_forced_positions": total,
             "teacher_forced_misses": misses}
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: the text path (the server's tokenizer flags, the REST client,
+# MSDP)
+# ---------------------------------------------------------------------------
+
+TEXT_PROMPT_TOKENS = PROMPT_LENS    # phase 3's lengths, in BPE tokens
+TEXT_CLI_TOKENS = 16
+MSDP_DIALOGUES = 16
+MSDP_SAMPLES = 8
+MSDP_NEW_TOKENS = 32
+# response prompts of random-letter words take ~233 BPE tokens an
+# example: 6 examples (~1,400) + the sample (~170) + 32 fit a 2048 slot
+MSDP_RESPONSE_EXAMPLES = 6
+
+
+class _RecordingTokenizer:
+    """The served tokenizer, recording every id row the server decodes:
+    each request's whole row (prompt + generated; its per-token segments
+    are rows of one id and are not kept)."""
+
+    def __init__(self, tok):
+        self.tok = tok
+        self.rows = []
+        self._lock = threading.Lock()
+
+    def __getattr__(self, name):
+        return getattr(self.tok, name)
+
+    def detokenize(self, ids):
+        ids = [int(t) for t in ids]
+        if len(ids) > 1:
+            with self._lock:
+                self.rows.append(ids)
+        return self.tok.detokenize(ids)
+
+
+def write_wow(np, path, words, n=MSDP_DIALOGUES) -> None:
+    """n Wizard-of-Wikipedia dialogues (the WoW json the MSDP
+    preprocessing reads) from a seed over `words`: three apprentice and
+    three wizard turns; a wizard turn copies 12 of its checked sentence's
+    14 words (the response-prompt filter's overlap), every third has no
+    checked sentence (no_passages_used)."""
+    rng = np.random.default_rng(SEED + 21)
+
+    def sentence(k):
+        return " ".join(words[int(i)] for i in rng.integers(0, len(words), k))
+
+    data = []
+    for d in range(n):
+        topic = f"Topic {words[d % 7]}"
+        dialog = []
+        for t in range(6):
+            if t % 2 == 0:
+                dialog.append({"speaker": "0_Apprentice",
+                               "text": sentence(6) + "?"})
+            elif t == 5:
+                dialog.append({"speaker": "1_Wizard", "text": sentence(8),
+                               "checked_sentence": {},
+                               "checked_passage": {}})
+            else:
+                know = sentence(14)
+                dialog.append({
+                    "speaker": "1_Wizard",
+                    "text": " ".join(know.split()[:12]) + " "
+                            + sentence(3) + ".",
+                    "checked_sentence": {"s": know + "."},
+                    "checked_passage": {"p": topic}})
+        data.append({"chosen_topic": topic, "dialog": dialog})
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(data, f)
+
+
+def _msdp(np, tmp, words, url) -> dict:
+    """MSDP end to end through the CLIs' mains: 16 WoW dialogues through
+    msdp_preprocess's process_wow_dataset, get_knwl_gen_prompts (the
+    first MSDP_SAMPLES rows against all) and get_resp_gen_prompts; msdp
+    prompt-knowledge on the samples through the server
+    (--megatron_api_url), prepare_input, prompt-response, then eval-f1
+    of both against the references."""
+    import contextlib
+    import io
+
+    from megatron_tpu_torch.tasks import msdp, msdp_preprocess
+
+    p = lambda name: os.path.join(tmp, name)  # noqa: E731
+    write_wow(np, p("wow.json"), words)
+    t0 = time.monotonic()
+    rows = msdp_preprocess.main([
+        "--func", "process_wow_dataset", "--raw_file", p("wow.json"),
+        "--processed_file", p("test.tsv"), "--knwl_ref_file",
+        p("knwl_ref.txt"), "--resp_ref_file", p("resp_ref.txt")])
+    for src, dst in (("test.tsv", "test8.tsv"), ("knwl_ref.txt",
+                                                 "knwl_ref8.txt"),
+                     ("resp_ref.txt", "resp_ref8.txt")):
+        with open(p(src)) as fi, open(p(dst), "w") as fo:
+            fo.writelines(fi.readlines()[:MSDP_SAMPLES])
+    msdp_preprocess.main([
+        "--func", "get_knwl_gen_prompts", "--test_file", p("test8.tsv"),
+        "--train_file", p("test.tsv"), "--processed_file",
+        p("knwl_prompts.jsonl"), "--data_type", "wow_seen"])
+    n_resp = msdp_preprocess.main([
+        "--func", "get_resp_gen_prompts", "--train_file", p("test.tsv"),
+        "--processed_file", p("resp_prompt.txt")])
+    prep_s = time.monotonic() - t0
+    api = ["--out_seq_length", str(MSDP_NEW_TOKENS), "--megatron_api_url",
+           url]
+    t0 = time.monotonic()
+    msdp.main(["prompt-knowledge", "--prompt_file", p("knwl_prompts.jsonl"),
+               "--sample_input_file", p("test8.tsv"), "--sample_output_file",
+               p("knwl_gen.txt"), *api])
+    knwl_s = time.monotonic() - t0
+    msdp_preprocess.main([
+        "--func", "prepare_input", "--test_file", p("test8.tsv"),
+        "--knwl_gen_file", p("knwl_gen.txt"), "--processed_file",
+        p("resp_input.tsv")])
+    t0 = time.monotonic()
+    msdp.main(["prompt-response", "--prompt_file", p("resp_prompt.txt"),
+               "--sample_input_file", p("resp_input.tsv"),
+               "--sample_output_file", p("resp_gen.txt"),
+               "--num_prompt_examples", str(MSDP_RESPONSE_EXAMPLES), *api])
+    resp_s = time.monotonic() - t0
+    scores = {}
+    for kind in ("knwl", "resp"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            msdp.main(["eval-f1", "--guess_file", p(f"{kind}_gen.txt"),
+                       "--answer_file", p(f"{kind}_ref8.txt")])
+        scores[kind] = dict(zip(
+            ("precision", "recall", "f1"),
+            msdp.evaluate_f1(p(f"{kind}_gen.txt"), p(f"{kind}_ref8.txt"))))
+        scores[kind]["printed"] = out.getvalue().strip()
+    # counted as eval-f1 reads them: a generated line may hold a byte
+    # str.splitlines() would also split at (\x0b, \x85, ...)
+    lines = {}
+    for k in ("knwl", "resp"):
+        with open(p(f"{k}_gen.txt")) as f:
+            lines[k] = sum(1 for _ in f)
+    return {"rows": rows, "response_prompts": n_resp,
+            "samples": MSDP_SAMPLES, "lines": lines,
+            "preprocess_s": prep_s, "prompt_knowledge_s": knwl_s,
+            "prompt_response_s": resp_s, "f1": scores}
+
+
+def text_serving(torch, np, ft, card):
+    """Phase 3f (the module docstring)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="smoke_text_")
+    try:
+        return _text_serving(torch, np, ft, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _text_serving(torch, np, ft, card, tmp):
+    import dataclasses
+
+    from megatron_tpu_torch.inference.generation import generate_tokens
+    from megatron_tpu_torch.tools import run_text_generation_server as rts
+
+    docs = loop_documents(np, LOOP_MERGE_DOCS)
+    voc = loop_vocab(np, tmp, docs)
+    argv = ["--model_name", "llama2-7B", "--tokenizer_type",
+            "GPT2BPETokenizer", "--vocab_file", voc["vocab_file"],
+            "--merges_file", voc["merges_file"], "--seed", str(SEED),
+            "--host", "127.0.0.1", "--port", "0", "--serve_num_slots", "8",
+            "--serve_max_seq_len", "2048", "--device", "cuda"]
+    ready, handles = threading.Event(), []
+    t0 = time.monotonic()
+    thread = threading.Thread(
+        target=rts.main, args=(argv,), daemon=True, name="smoke-text-server",
+        kwargs=dict(ready=ready, service_out=handles))
+    thread.start()
+    if not ready.wait(300):
+        raise RuntimeError("text server did not start")
+    start_s = time.monotonic() - t0
+    service, server = handles
+    rec = _RecordingTokenizer(service.tokenizer)
+    service.tokenizer = rec
+    tok, eng, cfg, params = rec.tok, service.engine, service.cfg, \
+        service.params
+    if tok.vocab_size != voc["vocab_size"]:
+        raise AssertionError(f"served vocabulary {tok.vocab_size} != "
+                             f"{voc['vocab_size']}")
+    address = f"127.0.0.1:{server.server_address[1]}"
+    base = "http://" + address
+    stream = tok.tokenize(" ".join(docs))
+    prompt_ids, prompts = [], []
+    for i, n in enumerate(TEXT_PROMPT_TOKENS):
+        text = tok.detokenize(stream[i * 2000:i * 2000 + n])
+        prompts.append(text)
+        prompt_ids.append(tok.tokenize(text))
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+        before = r.read().decode()
+    results = [None] * len(prompts)
+
+    def one(i):
+        t = time.monotonic()
+        results[i] = (*_put(base + "/api", {
+            "prompts": [prompts[i]], "tokens_to_generate": NEW_TOKENS,
+            "temperature": 0.0}), time.monotonic() - t)
+
+    try:
+        # the main path's run: every count starts at 0 here
+        _zero_decode_counts(ft)
+        prefills0, ticks0 = eng.stats["admitted"], eng.stats["ticks"]
+        t_conc = time.monotonic()
+        workers = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(900)
+        conc_s = time.monotonic() - t_conc
+        t0 = time.monotonic()
+        cli = subprocess.run(
+            [sys.executable, "-m", "megatron_tpu_torch.tools."
+             "text_generation_cli", address, "--tokens_to_generate",
+             str(TEXT_CLI_TOKENS)], input=f"{prompts[0]}\n{prompts[1]}\n",
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        cli_s = time.monotonic() - t0
+        words = sorted({w.strip(".").lower() for d in docs[:50]
+                        for w in d.split()})
+        msdp_run = _msdp(np, tmp, words, base + "/api")
+        launches = _decode_counts(ft)
+        prefills = eng.stats["admitted"] - prefills0
+        ticks = eng.stats["ticks"] - ticks0
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            after = r.read().decode()
+    finally:
+        server.shutdown()
+        thread.join(120)
+    if thread.is_alive():
+        raise RuntimeError("text server thread did not stop")
+    del service, server, handles, eng
+    torch.cuda.empty_cache()
+
+    problems = []
+    for i, res in enumerate(results):
+        if res is None or res[0] != 200 or \
+                not res[1]["text"][0].startswith(prompts[i]):
+            problems.append(f"text request {i}: {res and res[:2]}")
+    answers = [ln for ln in cli.stdout.splitlines()
+               if ln.startswith("Enter prompt: Megatron-TPU: ")
+               or ln.startswith("Megatron-TPU: ")]
+    if cli.returncode != 0 or len(answers) != 2 or not all(
+            a.split("Megatron-TPU: ", 1)[1].startswith(p)
+            for a, p in zip(answers, prompts)):
+        problems.append(f"text_generation_cli rc {cli.returncode}: "
+                        f"{cli.stdout[-800:]} {cli.stderr[-800:]}")
+    if msdp_run["lines"] != {"knwl": MSDP_SAMPLES, "resp": MSDP_SAMPLES}:
+        problems.append(f"MSDP output lines {msdp_run['lines']}")
+    top_id = max(max(r) for r in rec.rows) if rec.rows else -1
+    if not rec.rows or top_id >= tok.vocab_size:
+        problems.append(f"generated id {top_id} >= the tokenizer's "
+                        f"{tok.vocab_size} ({len(rec.rows)} rows)")
+    want = {"flash_fwd": NUM_LAYERS * prefills,
+            "flash_decode": NUM_LAYERS * ticks, "paged_flash_decode": 0}
+    if launches != want or not ticks:
+        problems.append(f"launches {launches} != {want} (prefills "
+                        f"{prefills}, ticks {ticks})")
+    # the four text requests' rows, held against the plain path and the
+    # one-shot loop on the server's weights
+    generated = []
+    for ids in prompt_ids:
+        # the longest: the CLI's rows of the first two prompts are shorter
+        rows = [r for r in rec.rows if r[:len(ids)] == ids
+                and len(r) <= len(ids) + NEW_TOKENS]
+        if not rows:
+            raise AssertionError(f"no decoded row for a {len(ids)}-token "
+                                 f"prompt; problems so far: {problems}")
+        generated.append(max(rows, key=len)[len(ids):])
+    tf = teacher_force(torch, dataclasses, cfg, params, prompt_ids,
+                       generated, vocab=tok.vocab_size)
+    one_shot, agree = [], []
+    for ids, gen in zip(prompt_ids, generated):
+        out = generate_tokens(cfg, params, np.asarray([ids], np.int32),
+                              np.asarray([len(ids)]), NEW_TOKENS, top_k=1,
+                              vocab_size=tok.vocab_size, eod=tok.eod,
+                              want_logprobs=False)
+        o = out.tokens[0, len(ids):int(out.lengths[0])].tolist()
+        one_shot.append(o)
+        same = 0
+        while same < min(len(o), len(gen)) and o[same] == gen[same]:
+            same += 1
+        agree.append(same)
+    if max(max(o) for o in one_shot if o) >= tok.vocab_size:
+        problems.append("one-shot id past the tokenizer's vocabulary")
+    del params
+    torch.cuda.empty_cache()
+
+    def delta(name):
+        return _metric(after, name) - _metric(before, name)
+
+    line = {"phase": "text_serving", "card": card, "model": "llama2-7B",
+            "layers": NUM_LAYERS, "tokenizer": "GPT2BPETokenizer",
+            "vocab_size": tok.vocab_size, "merges": voc["merges"],
+            "table_rows": cfg.vocab_size, "server_start_s": start_s,
+            "requests": [{"prompt_tokens": len(i), "new_tokens": len(g),
+                          "wall_s": r and r[2]}
+                         for i, g, r in zip(prompt_ids, generated, results)],
+            "concurrent_wall_s": conc_s, "cli_wall_s": cli_s,
+            "cli_answers": len(answers),
+            "ttft_mean_s": (delta("engine_ttft_seconds_sum")
+                            / delta("engine_ttft_seconds_count")),
+            "per_token_mean_s": (
+                delta("engine_time_per_output_token_seconds_sum")
+                / delta("engine_time_per_output_token_seconds_count")),
+            "decoded_rows": len(rec.rows), "largest_id": top_id,
+            "prefills": prefills, "decode_ticks": ticks,
+            "launches": launches, "msdp": msdp_run,
+            "one_shot_agree_tokens": agree, **tf}
+    emit(line)
+    if tf["teacher_forced_match"] < MATCH_GATE:
+        problems.append(f"teacher-forced match "
+                        f"{tf['teacher_forced_match']:.4f} < {MATCH_GATE}")
+    if problems:
+        raise AssertionError("text serving: " + "; ".join(problems))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4's memory fit and the scale proofs (training/aot.py through
+# tools/hbm_check, each in a process of its own on the host's CPU)
+# ---------------------------------------------------------------------------
+
+#: phase 4's measured max_memory_allocated must lie in this band of the
+#: fit report's per-card bytes (stated before the first run on the card)
+FIT_BAND = (0.95, 1.05)
+#: the proofs' budget: one H100 80 GB
+PROOF_BUDGET_GIB = "80"
+MEMORY_FIT: dict = {}
+
+
+def _fit_runs() -> dict:
+    return {
+        "phase4": ["--model", "llama2", "--size", "7B", "--num_layers",
+                   str(TRAIN_LAYERS), "--seq_length", str(TRAIN_SEQ),
+                   "--devices", "1", "--micro_batch_size", str(TRAIN_MICRO),
+                   "--num_microbatches", str(TRAIN_GLOBAL // TRAIN_MICRO),
+                   "--recompute", "selective", "--json"],
+        **{name: ["--proof", name, "--budget_gib", PROOF_BUDGET_GIB]
+           for name in ("llama2_7b_dp2tp4", "llama2_70b_dp2tp8pp4")}}
+
+
+def start_memory_fit() -> None:
+    """Start every fit in the background (they trace on the CPU under fake
+    tensors, so they overlap the card's phases)."""
+    for name, args in _fit_runs().items():
+        if name not in MEMORY_FIT:
+            MEMORY_FIT[name] = (time.monotonic(), subprocess.Popen(
+                [sys.executable, "-m", "megatron_tpu_torch.tools.hbm_check",
+                 *args], cwd=REPO, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+
+
+def memory_fit(name: str, timeout_s: float = 600) -> dict:
+    """A fit's result: its rc (0 fits, 1 over budget), its last stdout
+    line (JSON for phase 4's, the summary for a proof) and its seconds
+    from start to collection."""
+    start_memory_fit()
+    t0, proc = MEMORY_FIT[name]
+    out, err = proc.communicate(timeout=timeout_s)
+    if proc.returncode not in (0, 1) or not out.strip():
+        raise AssertionError(f"hbm_check {name}: rc {proc.returncode}\n"
+                             f"{err[-3000:]}")
+    last = out.strip().splitlines()[-1]
+    return {"rc": proc.returncode, "seconds": time.monotonic() - t0,
+            "out": json.loads(last) if last.startswith("{") else last}
 
 
 # ---------------------------------------------------------------------------
@@ -3079,6 +3501,9 @@ def train(torch, np, ft, card):
     corpus_tokens = write_corpus(np, prefix)
     argv = train_argv(prefix)
     log_lines = []
+    # the memory fit of this run's step, computed before it runs
+    fit = memory_fit("phase4")
+    fit_gib = fit["out"]["per_chip_bytes"] / 2**30
 
     def log(msg):
         log_lines.append(msg)
@@ -3126,6 +3551,13 @@ def train(torch, np, ft, card):
             "model_tflops_per_s": tokens_per_s * model_flops_per_token / 1e12,
             "mfu": tokens_per_s * model_flops_per_token / PEAK_BF16_FLOPS,
             "max_memory_allocated_gib": peak_gib,
+            "fit_report_gib": fit_gib,
+            "fit_band_gib": [FIT_BAND[0] * fit_gib, FIT_BAND[1] * fit_gib],
+            "fit_report": {k: fit["out"][k] for k in (
+                "param_bytes", "grad_bytes", "master_bytes", "moment_bytes",
+                "batch_bytes", "peak_bytes", "temp_peak_bytes",
+                "workspace_bytes", "budget_bytes", "trace_seconds")},
+            "fit_process_s": fit["seconds"],
             "launches": launches, "expected_launches": want}
     emit(line)
     PHASE4.update(argv=argv, losses=[r["loss"] for r in loop.step_records],
@@ -3150,9 +3582,31 @@ def train(torch, np, ft, card):
         problems.append(f"dense fallback fired: {fallbacks}")
     if len(line["evals"]) != TRAIN_ITERS // EVAL_INTERVAL:
         problems.append(f"evaluations {line['evals']}")
+    lo, hi = line["fit_band_gib"]
+    if not lo <= peak_gib <= hi:
+        problems.append(f"max_memory_allocated {peak_gib:.2f} GiB outside "
+                        f"the fit report's band [{lo:.2f}, {hi:.2f}]")
     if problems:
         raise AssertionError("training: " + "; ".join(problems))
     return launches
+
+
+def memory_proofs(card) -> dict:
+    """hbm_check --proof llama2_7b_dp2tp4 and llama2_70b_dp2tp8pp4
+    against 80 GiB (started with phase 3f; collected after phase 4c, by
+    when their traces are done): each must fit."""
+    proofs = {name: memory_fit(name) for name in
+              ("llama2_7b_dp2tp4", "llama2_70b_dp2tp8pp4")}
+    for name, proof in proofs.items():
+        print(f"hbm_check --proof {name}: {proof['out']}", flush=True)
+    emit({"phase": "hbm_proofs", "card": card,
+          "proofs": {n: {"fits": p["rc"] == 0, "summary": p["out"],
+                         "process_s": p["seconds"]}
+                     for n, p in proofs.items()}})
+    over = [f"{n}: {p['out']}" for n, p in proofs.items() if p["rc"] != 0]
+    if over:
+        raise AssertionError("over 80 GiB: " + "; ".join(over))
+    return proofs
 
 
 def step_vs_dense(torch, np, ft, card, model="llama2-7B", seq=TRAIN_SEQ,
@@ -4986,22 +5440,15 @@ def _orqa(torch, np, card, tmp, sents, titles, ck_ict) -> dict:
     return rec
 
 
-def loop_corpus(np, out_dir) -> dict:
-    """Phase 6a: a seeded JSONL corpus of Zipf-drawn words, a GPT-2
-    byte-level vocabulary learned from it (256 byte symbols, LOOP_MERGES
-    merges, <|endoftext|>), and the corpus tokenized by
-    `python -m megatron_tpu_torch.tools.preprocess_data` with
-    LOOP_WORKERS workers and --append_eod."""
-    import re
-
-    from megatron_tpu_torch.tokenizer.gpt2_bpe import train_vocab, write_vocab
-
+def loop_documents(np, n: int = LOOP_DOCS) -> list:
+    """The first n of phase 6a's seeded documents: LOOP_LEXICON random
+    lowercase words drawn by Zipf, a period every twelfth word."""
     rng = np.random.default_rng(SEED)
     letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
     lexicon = ["".join(rng.choice(letters, int(rng.integers(2, 11))))
                for _ in range(LOOP_LEXICON)]
     docs = []
-    for _ in range(LOOP_DOCS):
+    for _ in range(n):
         idx = (rng.zipf(ZIPF_A, int(rng.integers(20, 201))) - 1) \
             % LOOP_LEXICON
         words = [lexicon[i] for i in idx]
@@ -5009,16 +5456,41 @@ def loop_corpus(np, out_dir) -> dict:
             words[j] += "."
         words[0] = words[0].capitalize()
         docs.append(" ".join(words))
-    jsonl = os.path.join(out_dir, "loop_corpus.jsonl")
-    with open(jsonl, "w", encoding="utf-8") as f:
-        for d in docs:
-            f.write(json.dumps({"text": d}) + "\n")
+    return docs
+
+
+def loop_vocab(np, out_dir, docs=None) -> dict:
+    """Phase 6a's learner: a GPT-2 byte-level vocabulary (256 byte
+    symbols, LOOP_MERGES merges counted over the first LOOP_MERGE_DOCS
+    documents, <|endoftext|>) written as vocab.json + merges.txt."""
+    from megatron_tpu_torch.tokenizer.gpt2_bpe import train_vocab, write_vocab
+
+    docs = docs if docs is not None else loop_documents(np, LOOP_MERGE_DOCS)
     t0 = time.monotonic()
     vocab, merges = train_vocab(docs[:LOOP_MERGE_DOCS], LOOP_MERGES)
     vocab_s = time.monotonic() - t0
     vf = os.path.join(out_dir, "loop_vocab.json")
     mf = os.path.join(out_dir, "loop_merges.txt")
     write_vocab(vocab, merges, vf, mf)
+    return {"vocab_file": vf, "merges_file": mf,
+            "eod": vocab["<|endoftext|>"], "vocab_size": len(vocab),
+            "merges": len(merges), "vocab_s": vocab_s}
+
+
+def loop_corpus(np, out_dir) -> dict:
+    """Phase 6a: a seeded JSONL corpus of Zipf-drawn words, a GPT-2
+    byte-level vocabulary learned from it (loop_vocab), and the corpus
+    tokenized by `python -m megatron_tpu_torch.tools.preprocess_data`
+    with LOOP_WORKERS workers and --append_eod."""
+    import re
+
+    docs = loop_documents(np)
+    jsonl = os.path.join(out_dir, "loop_corpus.jsonl")
+    with open(jsonl, "w", encoding="utf-8") as f:
+        for d in docs:
+            f.write(json.dumps({"text": d}) + "\n")
+    voc = loop_vocab(np, out_dir, docs)
+    vf, mf = voc["vocab_file"], voc["merges_file"]
     prefix = os.path.join(out_dir, "loop_corpus")
     t0 = time.monotonic()
     proc = subprocess.run(
@@ -5035,9 +5507,7 @@ def loop_corpus(np, out_dir) -> dict:
                   r"\((\d+) docs/s, (\d+) tokens/s\)", proc.stderr)
     if m is None or int(m.group(1)) != LOOP_DOCS:
         raise AssertionError(f"preprocess_data summary: {proc.stderr[-800:]}")
-    return {"prefix": prefix, "vocab_file": vf, "merges_file": mf,
-            "eod": vocab["<|endoftext|>"], "vocab_size": len(vocab),
-            "merges": len(merges), "vocab_s": vocab_s,
+    return {"prefix": prefix, **voc,
             "documents": int(m.group(1)), "tokens": int(m.group(2)),
             "tokenize_s": float(m.group(3)), "docs_per_s": int(m.group(4)),
             "tokens_per_s": int(m.group(5)), "preprocess_wall_s": wall_s}
@@ -5072,28 +5542,38 @@ def loop_native_index(np, prefix) -> dict:
             "python_s": plain_s, "equal": True}
 
 
-def _trace_stats(path) -> dict:
-    """Device busy and idle share of a torch.profiler Chrome trace (the
-    union of its kernel intervals over the span of all its events) and
-    whether it names the training kernels."""
-    with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and "ts" in e]
-    spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
-             for e in events]
-    kernels = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
-                     for e in events if e.get("cat") == "kernel")
-    busy, end = 0.0, -math.inf
-    for a, b in kernels:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    window = max(b for _, b in spans) - min(a for a, _ in spans)
-    names = {e["name"] for e in events if e.get("cat") == "kernel"}
-    return {"window_ms": window / 1e3, "busy_ms": busy / 1e3,
-            "idle_share": 1.0 - busy / window if window > 0 else math.nan,
-            "kernels": len(kernels),
+def _trace_card(path) -> dict:
+    """The port's trace reader (telemetry/tracing) on a torch.profiler
+    Chrome trace: the card's busy union and idle share of the trace's
+    window, the union of the host comm.* ranges (parallel/mappings.py)
+    over it with each range's summed ms, and whether the training kernels
+    are among its kernels."""
+    import dataclasses
+
+    from megatron_tpu_torch.telemetry.tracing import analyze_trace
+
+    report = analyze_trace(path)
+    names = {o.name for o in report.ops if o.kind == "compute"}
+    return {**dataclasses.asdict(report.card),
             "named": {k: any(k in n for n in names) for k in LOOP_KERNELS}}
+
+
+def trace_report_cli(path, *args, top: int = 12) -> dict:
+    """tools/trace_report on a trace, as a user runs it: its text (the
+    card's shares, the busy split, the `top` rows of the self-time
+    table) and its JSON (every op)."""
+    cmd = [sys.executable, "-m", "megatron_tpu_torch.tools.trace_report",
+           path, *args]
+    text = subprocess.run(cmd + ["--top", str(top)], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    js = subprocess.run(cmd + ["--format", "json", "--top", "100000"],
+                        cwd=REPO, capture_output=True, text=True,
+                        timeout=300)
+    if js.returncode not in (0, 1) or not js.stdout.strip():
+        raise AssertionError(f"trace_report rc {js.returncode}: "
+                             f"{js.stderr[-2000:]}")
+    return {"rc": js.returncode, "text": text.stdout,
+            "json": json.loads(js.stdout)}
 
 
 def _loop_argv(data, steps, extra=()):
@@ -5176,7 +5656,12 @@ def _loop_train(torch, ft, card, data, tmp, sync: bool):
               if k.endswith("_s") and k != "wall_s"}
     if len(loop.profile_traces) != 1:
         raise AssertionError(f"{tag}: traces {loop.profile_traces}")
-    trace = _trace_stats(loop.profile_traces[0])
+    trace = _trace_card(loop.profile_traces[0])
+    # tools/trace_report on the same trace: its self-time table names the
+    # kernels, and its idle share is the one this phase reports
+    cli = trace_report_cli(loop.profile_traces[0])
+    print(cli["text"], flush=True)
+    cli_report = cli["json"]["report"]
     text = scrape.get("text", "")
     line = {"phase": "loop_training", "card": card, "loop": tag,
             "model": LOOP_MODEL, "layers": cfg.num_layers,
@@ -5200,6 +5685,9 @@ def _loop_train(torch, ft, card, data, tmp, sync: bool):
             "params_norm": loop.history[-1].get("params_norm"),
             "memory_mb": loop.history[-1].get("memory"),
             "trace_names": trace["named"],
+            "trace_report_idle_share": cli_report["card"]["idle_share"],
+            "trace_report_top_ops": cli_report["top_ops"][:12],
+            "trace_report_steps": cli_report["steps"],
             "metrics_scraped": {k: _metric(text, k) - before[k]
                                 for k in counted} if text else None,
             "native_index_calls": helpers.calls[
@@ -5216,6 +5704,13 @@ def _loop_train(torch, ft, card, data, tmp, sync: bool):
         problems.append(f"host syncs {loop.host_sync_points}")
     if not all(trace["named"].values()):
         problems.append(f"trace names {trace['named']}")
+    ops = [o["name"] for o in cli_report["top_ops"]]
+    if not all(any(k in n for n in ops) for k in LOOP_KERNELS):
+        problems.append(f"trace_report names none of {LOOP_KERNELS}")
+    if cli_report["card"]["idle_share"] != trace["idle_share"]:
+        problems.append(f"trace_report idle share "
+                        f"{cli_report['card']['idle_share']} != "
+                        f"{trace['idle_share']}")
     if not text or line["metrics_scraped"]["train_steps_total"] < 1:
         problems.append(f"/metrics mid-run: {line['metrics_scraped']}")
     if line["native_index_calls"] < 1:
@@ -5539,35 +6034,6 @@ def _launch(nproc: int, out: str, runs, timeout_s=PAR_TIMEOUT_S,
     return [list(per_run) for per_run in zip(*records)]
 
 
-def _comm_share(path) -> dict:
-    """The union of the comm.* ranges (parallel/mappings.py) of a
-    torch.profiler Chrome trace over the span of its events. The ranges
-    are the host's (a range also shows up on the card's timeline as a
-    gpu_user_annotation, which is not counted again)."""
-    with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and "ts" in e]
-    span = (max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
-            - min(float(e["ts"]) for e in events))
-    ranges = [e for e in events
-              if str(e.get("name", "")).startswith("comm.")
-              and not str(e.get("cat", "")).startswith("gpu")]
-    comm = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
-                  for e in ranges)
-    busy, end = 0.0, -math.inf
-    for a, b in comm:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    by_op = {}
-    for e in ranges:
-        by_op[e["name"]] = (by_op.get(e["name"], 0.0)
-                            + float(e.get("dur", 0)) / 1e3)
-    return {"window_ms": span / 1e3, "comm_ms": busy / 1e3,
-            "comm_share": busy / span if span > 0 else math.nan,
-            "comm_ms_by_op": by_op}
-
-
 def _per_rank_launches(case: str, layers: int, n_micro: int,
                        steps: int = PAR_STEPS, evals: int = 1) -> dict:
     """A rank's launches: `steps` steps of `layers` layers over n_micro
@@ -5832,6 +6298,8 @@ def parallel_training(torch, np, ft, card):
         for case in ENC_PAR_CASES:
             plan.append(("7i_" + case, enc_par_argv(case, enc_data, tmp,
                                                     ranks=True)))
+        # 7j: a comm contract at its pinned geometry, last in the launch
+        plan.append((CONTRACT_CASE, contract_argv(tmp)))
         # 7e(c)'s, 7f's, 7g's and 7i's one-process yardsticks, before the
         # ranks take the card
         enc_refs = _enc_par_references(torch, enc_data, tmp, card)
@@ -5886,7 +6354,7 @@ def parallel_training(torch, np, ft, card):
                            zip(r0["grad_norms"], want["grad_norms"]))
             eval_err = max(abs(a - b) for a, b in
                            zip(r0["evals"], want["evals"]))
-            comm = (_comm_share(r0["traces"][0]) if len(r0["traces"]) == 1
+            comm = (_trace_card(r0["traces"][0]) if len(r0["traces"]) == 1
                     else None)
             line = {
                 "phase": "parallel_gloo", "card": card, "case": case,
@@ -5930,6 +6398,7 @@ def parallel_training(torch, np, ft, card):
         problems += _cp_gates(card, by_run, cp_ref)
         problems += _enc_par_gates(torch, card, by_run, enc_refs, enc_data,
                                    total)
+        problems += _contract_gate(card, by_run[CONTRACT_CASE])
         saved = _sharded_checkpoint(
             torch, np, ft, card, ckpt,
             {c: by_run[c + "/resumed"]
@@ -5971,6 +6440,52 @@ def enc_par_argv(case: str, data: dict, tmp: str, ranks: bool) -> list:
         "--profile_step_start", str(ENC_PAR_STEPS - 1),
         "--profile_step_end", str(ENC_PAR_STEPS),
         "--profile_dir", os.path.join(tmp, case + "_trace")]
+
+
+#: 7j: the comm contract phase 7's launch holds (analysis/contracts.py;
+#: its loop runs TRAIN_WINDOW's two profiled steps)
+CONTRACT = "train_tp2_sp"
+CONTRACT_RUN = "contract:"
+CONTRACT_CASE = "7j_contract"
+
+
+def contract_argv(tmp) -> list:
+    """7j's run: the contract's name and its trace directory (the backend
+    flag matters only when it is a launch's first run)."""
+    return [CONTRACT_RUN + CONTRACT, os.path.join(tmp, "contract_trace"),
+            "--distributed_backend", "gloo"]
+
+
+def _contract_gate(card, recs) -> list:
+    """7j: tools/trace_report --contract on rank 0's trace of the
+    contract's window: the comm.* calls of every collective equal the
+    golden manifest's per step times the window's steps."""
+    from megatron_tpu_torch.analysis import contracts
+
+    r0 = recs[0]
+    if len(r0["traces"]) != 1:
+        return [f"{CONTRACT_CASE}: traces {r0['traces']}"]
+    steps = contracts.TRAIN_WINDOW[1] - contracts.TRAIN_WINDOW[0]
+    cli = trace_report_cli(r0["traces"][0], "--contract", CONTRACT,
+                           "--executions", str(steps), "--check")
+    got = cli["json"]
+    contract = got["contract"]
+    emit({"phase": "comm_contract", "card": card, "contract": CONTRACT,
+          "backend": "gloo (CUDA tensors staged through host memory)",
+          "executions": contract["executions"],
+          "matches": contract["matches"], "rows": contract["rows"],
+          "problems": contract["problems"],
+          "steps": got["report"]["steps"], "rc": cli["rc"],
+          "card_share": got["report"]["card"],
+          "losses": r0["losses"], "wall_s": r0["wall_s"]})
+    print(cli["text"], flush=True)
+    problems = []
+    if cli["rc"] != 0 or not contract["matches"]:
+        problems.append(f"{CONTRACT_CASE}: {contract['problems']}")
+    if got["report"]["steps"].get("train_step", {}).get("count") != steps:
+        problems.append(f"{CONTRACT_CASE}: step markers "
+                        f"{got['report']['steps']}")
+    return problems
 
 
 def _enc_par_references(torch, data, tmp, card) -> dict:
@@ -6021,7 +6536,7 @@ def _enc_par_gates(torch, card, by_run, refs, data, total) -> list:
         norm_err = (max(abs(a - b) / abs(b) for a, b in
                         zip(r0["grad_norms"], want["grad_norms"]))
                     if n else math.inf)
-        comm = (_comm_share(r0["traces"][0]) if len(r0["traces"]) == 1
+        comm = (_trace_card(r0["traces"][0]) if len(r0["traces"]) == 1
                 else None)
         line = {"phase": "encoder_parallel", "card": card, "case": case,
                 "backend": "gloo (CUDA tensors staged through host memory; "
@@ -6208,7 +6723,7 @@ def _filled_ticks(torch, eng, ch, lead, lens, vocab, trace, sync) -> dict:
     return {"wall_ms": wall_ms,
             "kernel_span_ms_time_sliced": kernel_ms / TP_TICKS,
             "copy_span_ms_time_sliced": copy_ms / TP_TICKS,
-            "comm": _comm_share(trace)}
+            "comm": _trace_card(trace)}
 
 
 def _run_record(torch, ft, flags, rank, probe=None) -> dict:
@@ -6233,7 +6748,15 @@ def _run_record(torch, ft, flags, rank, probe=None) -> dict:
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    loop = tool.main(list(flags), log=lambda m: print(m, flush=True))
+    if flags and flags[0].startswith(CONTRACT_RUN):
+        # a comm contract's run: its loop at the contract's pinned
+        # geometry (analysis/contracts.py) with its --profile window
+        from megatron_tpu_torch.analysis import contracts
+
+        loop = contracts.run_train(flags[0][len(CONTRACT_RUN):], flags[1],
+                                   device="cuda" if cuda else "cpu")
+    else:
+        loop = tool.main(list(flags), log=lambda m: print(m, flush=True))
     if cuda:
         torch.cuda.synchronize()
     record = {
@@ -6521,7 +7044,7 @@ def rank_serve(out: str, runs) -> int:
                 service.handle(gen_req)
                 sync()
             prof.export_chrome_trace(trace)
-            out_["comm"] = _comm_share(trace)
+            out_["comm"] = _trace_card(trace)
             return out_
 
         if not lead:
@@ -6975,7 +7498,7 @@ def _mixtral_par_gates(card, by_run, refs, total) -> list:
         eval_err = err(r0["evals"], ref["evals"])
         norm_err = max(abs(a - b) / abs(b) for a, b in
                        zip(r0["grad_norms"], ref["grad_norms"]))
-        comm = (_comm_share(r0["traces"][0]) if len(r0["traces"]) == 1
+        comm = (_trace_card(r0["traces"][0]) if len(r0["traces"]) == 1
                 else None)
         line = {"phase": "parallel_mixtral", "card": card, "case": case,
                 "model": f"{MIXTRAL} x {MIXTRAL_PAR_LAYERS} layer",
@@ -7704,9 +8227,13 @@ def main(argv=()) -> int:
           results.get("serving", {}).get("generated"))
     phase("weight_quant", weight_quant_serving, torch, ft, card,
           results.get("serving", {}).get("generated"))
+    if only is None or {"text_serving", "training", "memory_proofs"} & only:
+        start_memory_fit()
+    phase("text_serving", text_serving, torch, np, ft, card)
     phase("training", train, torch, np, ft, card)
     phase("kernel_vs_dense_step", step_vs_dense, torch, np, ft, card)
     phase("fp8_training", fp8_training, torch, np, ft, card)
+    phase("memory_proofs", memory_proofs, card)
     phase("finetune", finetune, torch, np, ft, card)
     phase("families", families, torch, np, ft, card)
     phase("mixtral", mixtral, torch, np, ft, card)
@@ -7735,6 +8262,7 @@ def main(argv=()) -> int:
              "speculative_serving": results["speculative_serving"],
              "serving_control": results["serving_control"],
              "weight_quant": results["weight_quant"],
+             "text_serving": results["text_serving"],
              "training": results["training"],
              "fp8_training": results["fp8_training"],
              "finetune": results["finetune"],

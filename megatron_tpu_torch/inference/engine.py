@@ -1196,7 +1196,10 @@ class InferenceEngine:
             return 0
         t_tick = time.monotonic()
         try:
-            toks, lps, accepts = self._decode_step(active)
+            # the tick's marker in a profiled window (the decode
+            # contracts count comm.* calls per tick between its ends)
+            with torch.profiler.record_function("decode_tick"):
+                toks, lps, accepts = self._decode_step(active)
         except Exception as e:
             self._fail_decode(e)
             raise

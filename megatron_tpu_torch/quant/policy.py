@@ -18,9 +18,9 @@ EXPOSED fraction (the Flash Communication number), and
     gather legs (all-to-all), measured apart from the ring's hop
     because the two run on different fabric tiers.
 
-A policy file is JSON ``{"sites": {site: bool}}`` (the JAX package's
-tools/trace_report.py --emit-comm-policy writes one; the port has no
-trace report yet); serving loads it with ``--serve_comm_policy``. With
+A policy file is JSON ``{"sites": {site: bool}}``
+(megatron_tpu_torch/tools/trace_report.py --emit-comm-policy writes one
+from a trace); serving loads it with ``--serve_comm_policy``. With
 no policy every site compresses (the static worst case).
 """
 

@@ -2,6 +2,7 @@
 
     python -m megatron_tpu_torch.tools.run_text_generation_server \\
         --model_name llama2-7B --tokenizer_type null \\
+        [--tokenizer_type GPT2BPETokenizer --vocab_file V --merges_file M] \\
         --serve_num_slots 8 --serve_max_seq_len 2048 --port 5000 \\
         [--serve_kv_paging --serve_page_size 16 --serve_prefill_chunk 32] \
         [--serve_speculative {ngram,model} --serve_spec_k 4 \
@@ -87,6 +88,18 @@ import os
 import torch
 
 
+def server_tokenizer(args, vocab_size: int):
+    """The tokenizer the flags name (the null tokenizer's ids are the
+    model's table, vocab_size)."""
+    from megatron_tpu_torch.tokenizer import build_tokenizer
+
+    return build_tokenizer(
+        args.tokenizer_type, vocab_file=args.vocab_file,
+        merges_file=args.merges_file, tokenizer_model=args.tokenizer_model,
+        vocab_size=vocab_size, vocab_extra_ids=args.vocab_extra_ids or 0,
+        new_tokens=args.new_tokens)
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--model_name", default=None,
@@ -97,8 +110,23 @@ def parse_args(argv=None):
                    help="checkpoint directory to serve (the tracker's "
                         "iteration, or the newest valid one)")
     p.add_argument("--tokenizer_type", default="null",
-                   help="only 'null' is ported: ids in, ids out; its eod "
-                        "id is the model's vocab size")
+                   choices=["null", "GPT2BPETokenizer",
+                            "SentencePieceTokenizer", "HFTokenizer"],
+                   help="null: ids in, ids out, its eod id the model's "
+                        "vocab size; GPT2BPETokenizer needs --vocab_file "
+                        "and --merges_file; SentencePieceTokenizer "
+                        "--tokenizer_model; HFTokenizer a name or path in "
+                        "--vocab_file (tokenizer/tokenizer.py)")
+    p.add_argument("--vocab_file", default=None)
+    p.add_argument("--merges_file", default=None)
+    p.add_argument("--merge_file", dest="merges_file", default=None,
+                   help="the reference's spelling of --merges_file")
+    p.add_argument("--tokenizer_model", default=None)
+    p.add_argument("--vocab_extra_ids", type=int, default=None)
+    p.add_argument("--no_new_tokens", action="store_false",
+                   dest="new_tokens",
+                   help="do not add the special tokens to a sentencepiece "
+                        "tokenizer")
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=5000)
@@ -455,7 +483,6 @@ def _serve(args, mesh, channel, server_kwargs):
         GenerationService, run_server,
     )
     from megatron_tpu_torch.ops.kv_quant import kv_head_bytes
-    from megatron_tpu_torch.tokenizer import build_tokenizer
 
     leads = mesh is None or mesh.rank == 0
 
@@ -478,8 +505,7 @@ def _serve(args, mesh, channel, server_kwargs):
             f"embedding tables): {weight_bytes(params) / 2**30:.2f} GiB "
             f"(from {before / 2**30:.2f} GiB)")
     speculative = load_spec(args, cfg, params)
-    tokenizer = build_tokenizer(args.tokenizer_type,
-                                vocab_size=cfg.vocab_size)
+    tokenizer = server_tokenizer(args, cfg.vocab_size)
     max_seq_len = args.serve_max_seq_len or min(cfg.seq_length, 2048)
     # bytes a cached position takes over all layers, K and V: int8 values
     # plus an fp32 scale per head, or the model dtype

@@ -775,8 +775,11 @@ class TrainLoop:
         rank's rows). Returns DEVICE metrics: no host sync; the caller
         decides when to pay it (_fetch_metrics)."""
         rows = next(iter(device_batch.values())).shape[0]
-        self.state, metrics = self._train_step_for(self._num_micro(rows))(
-            self.state, device_batch)
+        # the step marker of a profiled window (telemetry/tracing reads
+        # per-step wall and per-step comm.* counts between its ends)
+        with torch.profiler.record_function("train_step"):
+            self.state, metrics = self._train_step_for(
+                self._num_micro(rows))(self.state, device_batch)
         self.iteration += 1
         self.consumed_samples += rows * self.dp
         return metrics

@@ -219,7 +219,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "tools.pretrain_t5", "tools.pretrain_ict", "tasks.data_utils",
         "tasks.glue", "tasks.race", "tasks.finetune_utils", "tasks.main",
         "training.t5_pipeline", "tools.build_retrieval_index",
-        "tasks.qa_utils", "tasks.orqa", "tasks.orqa_finetune")]
+        "tasks.qa_utils", "tasks.orqa", "tasks.orqa_finetune",
+        "tasks.msdp", "tasks.msdp_preprocess", "tools.text_generation_cli",
+        "analysis.taxonomy", "analysis.contracts",
+        "telemetry.tracing.events", "telemetry.tracing.analyze",
+        "telemetry.perfetto", "tools.trace_report", "tools.comm_report",
+        "tools.telemetry_report", "training.aot", "tools.hbm_check")]
     code = (
         "import importlib, pkgutil, sys\n"
         "import megatron_tpu_torch as pkg\n"
@@ -237,6 +242,37 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_trace_report_reads_a_trace_without_torch(tmp_path):
+    """tools/trace_report on a Chrome trace in a fresh interpreter: the
+    report comes out and neither torch nor jax is imported."""
+    trace = {"traceEvents": [
+        {"ph": "X", "cat": "kernel", "name": "flash_fwd_kernel", "pid": 0,
+         "tid": 7, "ts": 100.0, "dur": 40.0},
+        {"ph": "X", "cat": "user_annotation", "name": "comm.all_reduce",
+         "pid": 1, "tid": 1, "ts": 150.0, "dur": 10.0},
+        {"ph": "X", "cat": "user_annotation", "name": "train_step",
+         "pid": 1, "tid": 1, "ts": 90.0, "dur": 80.0}]}
+    path = tmp_path / "trace_1_2.json"
+    path.write_text(json.dumps(trace))
+    code = (
+        "import sys\n"
+        "from megatron_tpu_torch.tools import trace_report\n"
+        f"rc = trace_report.main([{str(path)!r}, '--format', 'json'])\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'megatron_tpu')]\n"
+        "print('BAD', bad)\n"
+        "sys.exit(rc or bool(bad))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = json.loads(proc.stdout[:proc.stdout.rindex("BAD")])
+    card = out["report"]["card"]
+    assert card["idle_share"] == pytest.approx(1 - 40 / 80)
+    assert card["comm_share"] == pytest.approx(10 / 80)
+    assert out["report"]["steps"]["train_step"]["count"] == 1
 
 
 def test_sampling_filters_and_greedy_match_jax():

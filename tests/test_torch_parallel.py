@@ -323,6 +323,8 @@ def world2():
     jobs = [("mappings", "mappings", None), ("comm", "comm", None),
             ("cross_entropy", "cross_entropy", None)]
     jobs += [(name, "train", case) for name, case in TRAIN_CASES.items()]
+    jobs.append(("live_contract", "call",
+                 ("_torch_tracing_worker:live_contract", {})))
     return W.World(2, jobs).results()
 
 
@@ -349,3 +351,22 @@ def test_vocab_parallel_cross_entropy_matches_plain(world2, variant):
 @pytest.mark.parametrize("name", sorted(TRAIN_CASES))
 def test_two_rank_training_equals_the_single_process_step(world2, name):
     W.check_against_single_process(world2[name], TRAIN_CASES[name])
+
+
+def test_live_profile_window_holds_the_tp2_sp_contract(world2):
+    """The port's counterpart of the JAX live-capture tests: a real
+    --profile window over two steps of the tp2 + SP loop (gloo), read by
+    the port's trace reader, shows two train_step markers with the same
+    comm.* calls each and, over the window, twice the train_tp2_sp
+    manifest's counts."""
+    from megatron_tpu_torch.analysis import contracts
+
+    out = world2["live_contract"]
+    want = {op: v["count"] for op, v in contracts.load_manifest(
+        "train_tp2_sp")["comm"]["collectives"].items()}
+    assert out["markers"] == 2
+    assert out["per_step"][0] == out["per_step"][1]
+    assert out["counts"] == {op: 2 * n for op, n in want.items()}
+    for key in ("inferred", "given"):
+        assert out[key]["matches"], out[key]["problems"]
+        assert out[key]["executions"] == 2
