@@ -377,7 +377,8 @@ still run, so one call shows every failure):
               device idle share in the window, data wait and goodput
               shares printed; a 2-step replay check at full size (two
               runs of a step bitwise equal); (c) five fault runs at
-              GPT-2 width x 2 layers in child processes at once:
+              GPT-2 width x LOOP_FAULT_LAYERS layer in child processes
+              at once:
               nan_loss:3:3 rolls back and its steps 6-8 equal a
               --skip_iters 3 4 5 run's bitwise; preempt_at:5 commits a
               "preemption" checkpoint and exits 0, and its resume equals
@@ -385,6 +386,31 @@ still run, so one call shows every failure):
               hang_step:4 exits 70 with a flight bundle; corrupt_step:2
               under --replay_check_interval 2 raises SDCError;
               --save_interval auto takes a cadence and saves.
+  6d. multi-  (inside phase 6's call, after 6c)
+     host     multi-host coordination (training/coordination.py) with
+              processes as hosts, GPT-2 1.3B's width x MH_LAYERS layer
+              on 6a's corpus, bf16, the flash kernels: (a) two world-1
+              hosts sharing the card and a --coordination_dir:
+              preempt_host:0:MH_NOTICE drains both at one agreed
+              iteration into one "preemption" checkpoint each, through
+              the two-phase commit, exit 0; tools/checkpoint_util
+              verify --deep passes on both and prints the tag; both
+              checkpoints resume (in this process, one after the
+              other) to MH_ITERS with an uninterrupted run's losses
+              bitwise, the drained steps too;
+              kill_host:1:MH_NOTICE leaves host 0 exiting 76 with one
+              peer_abort journaled within MH_PEER_TIMEOUT_S +
+              MH_SLACK_S of host 1's death; (b) two "nodes" of one rank
+              each in one gloo group at dp2 (the store backend over the
+              group's TCPStore): kill_host:1 leaves rank 0 leaving its
+              collective with exit 76 within the same bound; (c)
+              tools/verify_correctness in this process against a
+              random-init HF Llama at Llama-2-7B's width x FT_LAYERS
+              (hf_llama_dir), bf16: the logits' average error under the
+              tool's threshold, and VC_TRAIN_ITERS steps of the port's
+              Adam against torch.optim.AdamW within the tool's bounds;
+              B1 (logits) and B1-B3 (parity) counted, with the drill
+              hosts' that return (the killed ones' die uncounted).
   7. parallel multi-GPU training through python -m
               torch.distributed.run (each rank runs this script's
               --rank-run mode: tools/pretrain_gpt's main on phase 4's
@@ -4940,10 +4966,35 @@ LOOP_MERGES = 400             # counted from the first LOOP_MERGE_DOCS docs
 LOOP_MERGE_DOCS = 2000
 LOOP_WORKERS = 4
 LOOP_PROFILE = (3, 4)         # the --profile window [start, end)
-LOOP_FAULT_LAYERS = 2         # phase 6c: GPT-2 width, depth cut for time
+LOOP_FAULT_LAYERS = 1         # phase 6c: GPT-2 width, depth cut for time
 LOOP_FAULT_TIMEOUT_S = 420
 LOOP_HANG_TIMEOUT_S = 20      # --step_timeout_s of the hang_step run
+# 6c's checkpoints cost ~14 s each beside four other children (H100
+# 80GB HBM3, 700 W): the nan run saves every 4 steps (it rolls back to 4
+# as before) and the --save_interval auto run takes 4 steps (2 saves at
+# its floor of 2, was 4 over 8 steps)
+LOOP_AUTO_STEPS = 4
 LOOP_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# phase 6d: the hosts' model is GPT-2 1.3B's width at MH_LAYERS layer
+# (the depth cut for the wall); MH_ITERS is every drill run's
+# --train_iters (the data order depends on it) and lies far past where a
+# drain lands (the notice reaches host 1 within its sideband's poll,
+# at most 1 s), so both hosts drain mid-run
+MH_LAYERS = 1
+MH_ITERS = 100
+MH_NOTICE = 4
+# the kill drill's and the joint run's --train_iters: a survivor still
+# mid-run when the death window closes (a 1-layer step takes ~25 ms)
+MH_KILL_ITERS = 2000
+MH_PEER_TIMEOUT_S = 10        # the kill drill's and the joint run's
+MH_DRAIN_PEER_TIMEOUT_S = 60  # the drain's: a loaded host is not dead
+MH_SLACK_S = 15               # exit 76 within the timeout + this
+MH_TIMEOUT_S = 420
+MH_DEVICE = "cuda"            # a CPU rehearsal of 6d(c) sets "cpu"
+VC_SEQ = 256                  # verify_correctness: tokens a row
+VC_BATCH = 2
+VC_ITERS = 4
+VC_TRAIN_ITERS = 3
 
 
 # -- phase 5d: the encoder families -------------------------------------------
@@ -5803,7 +5854,7 @@ def _loop_faults(torch, card, data, tmp) -> dict:
     children = [
         _child(data, tmp, "nan", "nan_loss:3:3",
                ["--rollback_on_divergence", "--divergence_patience", "3",
-                "--save_interval", "2"]),
+                "--save_interval", "4"]),
         _child(data, tmp, "preempt", "preempt_at:5",
                ["--exit_signal_handler", "--save_interval", "100"]),
         _child(data, tmp, "hang", "hang_step:4",
@@ -5812,14 +5863,15 @@ def _loop_faults(torch, card, data, tmp) -> dict:
                ["--replay_check_interval", "2"]),
         _child(data, tmp, "auto", None,
                ["--save_interval", "auto", "--preempt_save_timeout",
-                "0.001", "--save_interval_floor", "2"]),
+                "0.001", "--save_interval_floor", "2"],
+               steps=LOOP_AUTO_STEPS),
     ]
     t0 = time.monotonic()
     # the references meanwhile, in this process: an uninterrupted run and
     # one that skips the nan window's iterations outright
     whole = _loop_ref(data, [])
     skip = _loop_ref(data, ["--skip_iters", "3", "4", "5"])
-    rcs = {}
+    rcs, walls = {}, {}
     for c in children:
         try:
             rcs[c["name"]] = c["proc"].wait(
@@ -5829,6 +5881,8 @@ def _loop_faults(torch, card, data, tmp) -> dict:
             c["proc"].kill()
             rcs[c["name"]] = c["proc"].wait()
         c["out"].close()
+        # the waits run in start order: a child's wall is at most this
+        walls[c["name"]] = time.monotonic() - t0
     children_s = time.monotonic() - t0
     logs = {}
     for c in children:
@@ -5888,7 +5942,7 @@ def _loop_faults(torch, card, data, tmp) -> dict:
           f"auto rc {rcs['auto']}, retunes {retunes}, commits {commits}")
     line = {"phase": "loop_faults", "card": card, "model": LOOP_MODEL,
             "layers": LOOP_FAULT_LAYERS, "rcs": rcs,
-            "children_wall_s": children_s,
+            "children_wall_s": children_s, "child_done_by_s": walls,
             "nan_post_rollback": [nan.get(i) for i in (6, 7, 8)],
             "skip_iters_ref": [skipped.get(i) for i in (6, 7, 8)],
             "preempt_notice_to_commit_s":
@@ -5905,6 +5959,330 @@ def _loop_faults(torch, card, data, tmp) -> dict:
             print(f"--- {name} (rc {rcs[name]}) ---\n{text[-3000:]}",
                   flush=True)
         raise AssertionError("loop faults: " + "; ".join(problems))
+    return line
+
+
+# phase 6d's launches (the drill hosts that return, and
+# verify_correctness in this process) and its walls
+MULTIHOST: dict = {}
+
+
+def host_run(out: str, flags) -> int:
+    """One host of phase 6d that is to return (this script's --host-run
+    mode): tools/pretrain_gpt's main with `flags` as a plain process
+    (a process group only when its environment names a rank), its
+    launches, losses and iterations written to `out`."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from megatron_tpu_torch.ops.flash import flash_template as ft
+
+    record = _run_record(torch, ft, flags, int(os.environ.get("RANK", 0)))
+    with open(out, "w") as f:
+        json.dump(record, f)
+    return 0
+
+
+def _mh_argv(data, tmp, name, extra=(), iters=MH_ITERS):
+    return _loop_argv(data, iters, [
+        "--num_layers", str(MH_LAYERS),
+        "--telemetry_dir", os.path.join(tmp, f"tele_{name}"), *extra])
+
+
+def _mh_child(tmp, name, argv, env_extra, record=False):
+    """Start one host of 6d; with record, through --host-run (its
+    launches and losses come back in tmp/<name>.json)."""
+    from megatron_tpu_torch.training import coordination, resilience
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in (resilience.FAULT_ENV, coordination.COORD_HOST_ENV,
+                        coordination.COORD_NUM_HOSTS_ENV, "RANK",
+                        "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    env.update(env_extra)
+    env[coordination.STARTUP_TIMEOUT_ENV] = "240"
+    out = open(os.path.join(tmp, f"{name}.log"), "w")
+    cmd = ([sys.executable, os.path.abspath(__file__), "--host-run",
+            os.path.join(tmp, f"{name}.json"), "--", *argv] if record else
+           [sys.executable, "-m", "megatron_tpu_torch.tools.pretrain_gpt",
+            *argv])
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=out,
+                            stderr=subprocess.STDOUT)
+    child = {"name": name, "proc": proc, "out": out, "exit_t": None,
+             "start_t": time.monotonic()}
+
+    def reap():
+        proc.wait()
+        child["exit_t"] = time.monotonic()
+
+    child["reaper"] = threading.Thread(target=reap, daemon=True)
+    child["reaper"].start()
+    return child
+
+
+def _mh_wait(children, deadline):
+    for c in children:
+        try:
+            c["proc"].wait(timeout=max(deadline - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            c["proc"].kill()
+            c["proc"].wait()
+        c["reaper"].join(timeout=5)
+        c["out"].close()
+        with open(c["out"].name) as f:
+            c["log"] = f.read()
+
+
+def _mh_hosts(tmp, name, argv_of, fault=None, record=False, joint=False):
+    """Two hosts: plain processes with MEGATRON_TPU_COORD_HOST / _NUM_HOSTS
+    (and, joint, RANK / WORLD_SIZE / MASTER_* of one gloo group, each its
+    node's local rank 0)."""
+    import socket
+
+    from megatron_tpu_torch.training import coordination, resilience
+
+    port = None
+    if joint:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+    out = []
+    for h in range(2):
+        env = {coordination.COORD_HOST_ENV: str(h),
+               coordination.COORD_NUM_HOSTS_ENV: "2"}
+        if fault:
+            env[resilience.FAULT_ENV] = fault
+        if joint:
+            env.update(RANK=str(h), WORLD_SIZE="2", LOCAL_RANK="0",
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        out.append(_mh_child(tmp, f"{name}{h}", argv_of(h), env, record))
+    return out
+
+
+def _mh_start(data, tmp) -> dict:
+    """6d's drill hosts, all at once: the drain (recorded), the kill over
+    the file backend, and the joint run over the store backend."""
+    coord = os.path.join(tmp, "coord")
+
+    def drain(h):
+        save = os.path.join(tmp, f"mh_save{h}")
+        return _mh_argv(data, tmp, f"drain{h}", [
+            "--save", save, "--load", save, "--save_interval", "100000",
+            "--coordination_dir", coord + "_drain",
+            "--peer_death_timeout_s", str(MH_DRAIN_PEER_TIMEOUT_S),
+            "--preempt_save_timeout", "300"])
+
+    def kill(h):
+        return _mh_argv(data, tmp, f"kill{h}", [
+            "--coordination_dir", coord + "_kill",
+            "--peer_death_timeout_s", str(MH_PEER_TIMEOUT_S)],
+            iters=MH_KILL_ITERS)
+
+    def joint(h):
+        return _mh_argv(data, tmp, f"joint{h}", [
+            "--distributed_backend", "gloo",
+            "--peer_death_timeout_s", str(MH_PEER_TIMEOUT_S)],
+            iters=MH_KILL_ITERS)
+
+    return {"t0": time.monotonic(),
+            "drain": _mh_hosts(tmp, "drain", drain,
+                               f"preempt_host:0:{MH_NOTICE}", record=True),
+            "kill": _mh_hosts(tmp, "kill", kill, f"kill_host:1:{MH_NOTICE}"),
+            "joint": _mh_hosts(tmp, "joint", joint,
+                               f"kill_host:1:{MH_NOTICE}", joint=True)}
+
+
+def _mh_resume(ft, data, tmp, drain) -> dict:
+    """Both drained checkpoints resumed in this process (each host's
+    state, one after the other) to MH_ITERS, once both drain hosts
+    exited: {host: {wall_s, losses by iteration, the load's log line,
+    launches}}."""
+    from megatron_tpu_torch.tools import pretrain_gpt
+
+    _mh_wait(drain, time.monotonic() + MH_TIMEOUT_S)
+    out = {}
+    for h in range(2):
+        for name in TRAIN_COUNTED:
+            getattr(ft, name).launches = 0
+        t0 = time.monotonic()
+        lines = []
+        loop = pretrain_gpt.main(_mh_argv(data, tmp, f"resume{h}", [
+            "--load", os.path.join(tmp, f"mh_save{h}")]),
+            log=lines.append)
+        out[h] = {"wall_s": time.monotonic() - t0,
+                  "losses": {r["iteration"]: r["loss"]
+                             for r in loop.step_records},
+                  "loaded": [m for m in lines
+                             if m.startswith("loaded checkpoint")],
+                  "launches": {n: getattr(ft, n).launches
+                               for n in TRAIN_COUNTED}}
+        del loop
+    return out
+
+
+def _mh_verify_correctness(torch, ft, tmp) -> dict:
+    """6d(c): tools/verify_correctness on the card against a random-init
+    HF Llama at Llama-2-7B's width x FT_LAYERS: the logits check, then
+    the AdamW parity, each gated by the tool itself (SystemExit fails)."""
+    from megatron_tpu_torch.tools import verify_correctness as vc
+
+    hf = os.path.join(tmp, "hf_llama")
+    hf_llama_dir(torch, hf)
+    base = ["--model", hf, "--batch", str(VC_BATCH), "--seq", str(VC_SEQ),
+            "--dtype", "bfloat16", "--device", MH_DEVICE]
+    out = {}
+    for part, extra in (("logits", ["--iters", str(VC_ITERS)]),
+                        ("parity", ["--train_iters", str(VC_TRAIN_ITERS)])):
+        for name in TRAIN_COUNTED:
+            getattr(ft, name).launches = 0
+        t0 = time.monotonic()
+        try:
+            summary = vc.main(base + extra, log=lambda m: None)
+        except SystemExit as e:
+            raise AssertionError(f"verify_correctness {part}: {e}") from e
+        out[part] = dict(summary, wall_s=time.monotonic() - t0, launches={
+            n: getattr(ft, n).launches for n in TRAIN_COUNTED})
+        free_cuda(torch)
+    return out
+
+
+def _mh_gates(torch, card, data, tmp, started, resumed, ref, vc,
+              ref_s) -> dict:
+    """6d's gates over what its hosts left; returns its line."""
+    import contextlib
+    import io
+
+    from megatron_tpu_torch.tools import checkpoint_util
+    from megatron_tpu_torch.training import checkpointing as ckpt
+
+    _mh_wait(started["kill"] + started["joint"],
+             started["t0"] + MH_TIMEOUT_S)
+    problems = []
+
+    def check(ok, what):
+        if not ok:
+            problems.append(what)
+
+    def rcs(children):
+        return [c["proc"].returncode for c in children]
+
+    def record(name):
+        path = os.path.join(tmp, f"{name}.json")
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return json.load(f)
+
+    want = {r["iteration"]: r["loss"] for r in ref.step_records}
+    # (a) the drain: one agreed iteration, one tagged checkpoint a host
+    drain = started["drain"]
+    check(rcs(drain) == [0, 0], f"drain rcs {rcs(drain)}")
+    saves = [os.path.join(tmp, f"mh_save{h}") for h in range(2)]
+    trackers = [ckpt.read_tracker(s) for s in saves]
+    agreed = trackers[0]
+    check(trackers[0] == trackers[1] and agreed is not None
+          and MH_NOTICE <= agreed < MH_ITERS, f"drain trackers {trackers}")
+    notices = []
+    for h in range(2):
+        check(ckpt.committed_iterations(saves[h]) == [agreed],
+              f"host {h} committed {ckpt.committed_iterations(saves[h])}")
+        pre = [e for e in _journal(os.path.join(tmp, f"tele_drain{h}"))
+               if e["kind"] == "preemption"]
+        check(len(pre) == 1 and pre[0].get("notice_host") == 0
+              and pre[0].get("host") == h
+              and pre[0]["iteration"] == agreed, f"host {h} preemption {pre}")
+        notices += pre
+        rec = record(f"drain{h}")
+        check(rec is not None and all(
+            want.get(i) == loss for i, loss in zip(rec["iterations"],
+                                                   rec["losses"])),
+              f"host {h}: drained losses differ from the uninterrupted run")
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                checkpoint_util.verify_main(["--load", saves[h], "--deep"])
+            verified = True
+        except SystemExit:
+            verified = False
+        check(verified and "[tags: preemption]" in buf.getvalue(),
+              f"host {h} checkpoint_util verify: {buf.getvalue()[-500:]}")
+    resumed_equal = []
+    for h in range(2):
+        got, loaded = resumed[h]["losses"], resumed[h]["loaded"]
+        same = (agreed is not None and set(got) == set(range(
+            agreed + 1, MH_ITERS + 1)) and all(
+            got[i] == want[i] for i in got)
+            and loaded == [f"loaded checkpoint at iteration {agreed} "
+                           f"(consumed {TRAIN_GLOBAL * agreed} samples)"])
+        resumed_equal.append(same)
+        check(same, f"host {h}: resumed from {loaded}, losses differ "
+                    "from the uninterrupted run's")
+    # (a) the kill over the file backend, (b) the joint run's
+    latency = {}
+    for name in ("kill", "joint"):
+        c0, c1 = started[name]
+        check(c1["proc"].returncode == -9 and "kill_host firing on host 1"
+              in c1["log"], f"{name}: host 1 rc {c1['proc'].returncode}")
+        check(c0["proc"].returncode == 76,
+              f"{name}: host 0 rc {c0['proc'].returncode}\n"
+              f"{c0['log'][-2000:]}")
+        aborts = [e for e in _journal(os.path.join(tmp, f"tele_{name}0"))
+                  if e["kind"] == "peer_abort"]
+        check(len(aborts) == 1 and aborts[0].get("host") == 1
+              and aborts[0].get("observed_by") == 0,
+              f"{name}: peer_abort events {aborts}")
+        if c0["exit_t"] is not None and c1["exit_t"] is not None:
+            latency[name] = c0["exit_t"] - c1["exit_t"]
+        check(latency.get(name, 1e9) <= MH_PEER_TIMEOUT_S + MH_SLACK_S,
+              f"{name}: exit 76 {latency.get(name)} s after the kill")
+    # the launches of the hosts that returned, and of (c)
+    launches = {n: 0 for n in TRAIN_COUNTED}
+    for name in ("drain0", "drain1"):
+        rec = record(name)
+        for n in TRAIN_COUNTED:
+            launches[n] += (rec or {}).get("launches", {}).get(n, 0)
+    for h in range(2):
+        for n in TRAIN_COUNTED:
+            launches[n] += resumed[h]["launches"][n]
+    for part in vc.values():
+        for n in TRAIN_COUNTED:
+            launches[n] += part["launches"][n]
+    for n in LOOP_KERNELS:
+        check(launches[n] > 0, f"{n} never launched in 6d")
+    for n in LOOP_KERNELS:
+        check(vc["parity"]["launches"][n] > 0,
+              f"verify_correctness parity launched no {n}")
+    check(vc["logits"]["launches"]["flash_fwd"] > 0,
+          "verify_correctness logits launched no flash_fwd")
+    line = {
+        "phase": "multihost", "card": card, "model": LOOP_MODEL,
+        "layers": MH_LAYERS, "iters": MH_ITERS,
+        "reduced": [f"depth {MH_LAYERS} layer (GPT-2 1.3B has 24)",
+                    f"verify_correctness at {FT_LAYERS} layer of 32"],
+        "drain": {"notice": MH_NOTICE, "agreed_iteration": agreed,
+                  "rcs": rcs(drain),
+                  "notice_to_commit_s": [e.get("notice_to_commit_ms", 0)
+                                         / 1e3 for e in notices],
+                  "save_s": [e.get("save_latency_ms", 0) / 1e3
+                             for e in notices],
+                  "resumed_losses_bitwise": resumed_equal},
+        "peer_abort_s": latency,
+        "peer_death_timeout_s": MH_PEER_TIMEOUT_S, "slack_s": MH_SLACK_S,
+        "kill_rcs": rcs(started["kill"]), "joint_rcs": rcs(started["joint"]),
+        "verify_correctness": vc, "launches": launches,
+        "host_walls_s": {c["name"]: (c["exit_t"] or time.monotonic())
+                         - c["start_t"] for c in (
+                             drain + started["kill"] + started["joint"])},
+        "reference_wall_s": ref_s,
+        "resume_wall_s": [resumed[h]["wall_s"] for h in range(2)],
+        "uncounted": "the killed hosts and their peers exit by os._exit",
+        "problems": problems}
+    emit(line)
+    if problems:
+        for c in (drain + started["kill"] + started["joint"]):
+            print(f"--- {c['name']} (rc {c['proc'].returncode}) ---\n"
+                  f"{c.get('log', '')[-3000:]}", flush=True)
+        raise AssertionError("multihost: " + "; ".join(problems))
     return line
 
 
@@ -5945,6 +6323,34 @@ def loop_and_data(torch, np, ft, card):
             raise AssertionError("async losses != sync losses")
         _loop_determinism(torch, ft, card, data, tmp)
         _loop_faults(torch, card, data, tmp)
+        # 6d after 6c: its six hosts beside 6c's five filled the card's
+        # 79 GiB (a host died of OOM), even at one layer
+        free_cuda(torch)
+        t6d = time.monotonic()
+        started = _mh_start(data, tmp)
+        try:
+            from megatron_tpu_torch.tools import pretrain_gpt
+
+            t0 = time.monotonic()
+            ref = pretrain_gpt.main(_loop_argv(
+                data, MH_ITERS, ["--num_layers", str(MH_LAYERS)]),
+                log=lambda m: None)
+            ref_s = time.monotonic() - t0
+            free_cuda(torch)
+            vc = _mh_verify_correctness(torch, ft, tmp)
+            resumed = _mh_resume(ft, data, tmp, started["drain"])
+            free_cuda(torch)
+            line = _mh_gates(torch, card, data, tmp, started, resumed, ref,
+                             vc, ref_s)
+        finally:
+            # every host this phase started is gone before the next
+            for c in (started["drain"] + started["kill"]
+                      + started["joint"]):
+                if c["proc"].poll() is None:
+                    c["proc"].kill()
+                    c["proc"].wait()
+        MULTIHOST.update(launches=line["launches"],
+                         wall_s=time.monotonic() - t6d)
         return total
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -8242,6 +8648,9 @@ def main(argv=()) -> int:
     phase("parallel", parallel_training, torch, np, ft, card)
     phase("parallel_serving", parallel_serving, torch, np, ft, card)
     phase("long_context_serving", long_context_serving, torch, np, ft, card)
+    if MULTIHOST.get("wall_s"):
+        # 6d inside phase 6's call, after 6c
+        seconds["loop/6d_multihost"] = MULTIHOST["wall_s"]
     if PARALLEL_LAUNCH.get("recs"):
         # 7h's seconds inside phase 7's launch (rank 0's part)
         seconds["parallel/7h_in_launch"] = PARALLEL_LAUNCH["recs"][0][
@@ -8269,6 +8678,7 @@ def main(argv=()) -> int:
              "families": results["families"],
              "mixtral": results["mixtral"],
              "loop": results["loop"],
+             "multihost": MULTIHOST.get("launches", {}),
              "parallel": results["parallel"],
              "context_parallel": PARALLEL_CP,
              "parallel_serving": results["parallel_serving"],
@@ -8310,6 +8720,10 @@ def main(argv=()) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--kernel-child":
         sys.exit(kernel_child(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) > 3 and sys.argv[1] == "--host-run":
+        rest = sys.argv[3:]
+        sys.exit(host_run(sys.argv[2], rest[1:] if rest[:1] == ["--"]
+                          else rest))
     if len(sys.argv) > 2 and sys.argv[1] in ("--rank-run", "--rank-serve"):
         rest = sys.argv[3:]
         rest = rest[1:] if rest[:1] == ["--"] else rest

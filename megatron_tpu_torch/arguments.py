@@ -10,8 +10,8 @@ kernels). --num_layers overrides the preset's depth, and --device
 integer or "auto" (the cadence derived from measured commit latency
 against --preempt_save_timeout). The loop's flags (the async loop,
 the fault-tolerance sentinels, logging, profiling and telemetry), the
-data flags and the tokenizer flags are the JAX CLI's; its multi-host
-flags (--coordination_dir, --peer_death_timeout_s) are not ported, and
+data flags and the tokenizer flags are the JAX CLI's, the multi-host
+flags (--coordination_dir, --peer_death_timeout_s) too, and
 --compilation_cache_dir is refused (eager PyTorch compiles nothing).
 The distributed flags are the JAX CLI's (--tensor_model_parallel_size,
 --pipeline_model_parallel_size, --num_layers_per_virtual_pipeline_stage
@@ -61,9 +61,25 @@ from megatron_tpu_torch.config import (ModelConfig, OptimizerConfig,
                                        TrainingConfig)
 
 
+MULTI_HOST_HELP = """\
+several hosts: on each of two nodes run
+  python -m torch.distributed.run --nnodes 2 --node_rank R \\
+      --nproc_per_node N --master_addr NODE0 --master_port PORT \\
+      -m megatron_tpu_torch.tools.pretrain_gpt ... --save SHARED_DIR
+Each node's local rank 0 coordinates the hosts (signal agreement,
+peer aborts with exit 76, two-phase checkpoint commits, the resume
+agreement) over the process group's store, or over files with
+--coordination_dir DIR on a shared filesystem. Plain processes as
+hosts (one process per host, no launcher): set
+MEGATRON_TPU_COORD_HOST=H and MEGATRON_TPU_COORD_NUM_HOSTS=N in each
+and pass the same --coordination_dir."""
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="megatron_tpu_torch GPT pretraining and finetuning")
+        description="megatron_tpu_torch GPT pretraining and finetuning",
+        epilog=MULTI_HOST_HELP,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
     g = p.add_argument_group("model")
     g.add_argument("--model_name", default=None,
                    help="preset, optionally 'name-SIZE' (e.g. llama2-7B)")
@@ -141,6 +157,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="skip the update on these iterations (their data "
                         "is consumed)")
     g.add_argument("--seed", type=int, default=1234)
+    g.add_argument("--seed_pipeline_offset", type=int, default=100,
+                   help="per-pipeline-stage seed offset (recorded in the "
+                        "config; the JAX package reads it nowhere either)")
+    g.add_argument("--data_parallel_random_init", action="store_true",
+                   help="recorded in the config; as in the JAX package, "
+                        "nothing reads it")
     g.add_argument("--recompute_granularity", default="none",
                    choices=["none", "selective", "full"])
     g.add_argument("--recompute_method", default="uniform",
@@ -279,6 +301,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "disables)")
     g.add_argument("--log_data_fingerprint", action="store_true",
                    help="journal a crc32 of every host batch as data_crc")
+    g.add_argument("--coordination_dir", default=None,
+                   help="shared directory for the file-backed multi-host "
+                        "agreement (signal agreement, peer-death poison "
+                        "records, two-phase checkpoint commit, restart "
+                        "barrier); unset, a run over several hosts uses "
+                        "the process group's store. Hosts: "
+                        "MEGATRON_TPU_COORD_HOST / _NUM_HOSTS, else "
+                        "torch.distributed.run's node rank and count")
+    g.add_argument("--peer_death_timeout_s", type=float, default=60.0,
+                   help="declare a peer host dead after this many seconds "
+                        "without a heartbeat; survivors journal "
+                        "peer_abort and exit code 76 instead of wedging "
+                        "in the next collective (0 disables heartbeat "
+                        "detection; poison records still observed)")
 
     g = p.add_argument_group("checkpointing")
     g.add_argument("--save", default=None)
@@ -656,6 +692,10 @@ def args_to_run_config(args, model: Optional[ModelConfig] = None
         step_timeout_s=args.step_timeout_s,
         replay_check_interval=args.replay_check_interval,
         log_data_fingerprint=args.log_data_fingerprint,
+        coordination_dir=args.coordination_dir,
+        peer_death_timeout_s=args.peer_death_timeout_s,
+        seed_pipeline_offset=args.seed_pipeline_offset,
+        data_parallel_random_init=args.data_parallel_random_init,
         log_interval=args.log_interval,
         tensorboard_dir=args.tensorboard_dir,
         wandb_logger=args.wandb_logger, wandb_project=args.wandb_project,

@@ -322,14 +322,14 @@ class OptimizerConfig:
 
 @dataclass(frozen=True)
 class TrainingConfig:
-    """The JAX package's TrainingConfig, single host: batching, duration,
-    evaluation, seed, recompute, checkpointing, the async loop, the
-    fault-tolerance sentinels, logging, profiling and telemetry, with its
-    names, defaults and validation. Left out: the multi-host fields
-    (coordination_dir, peer_death_timeout_s, seed_pipeline_offset,
-    data_parallel_random_init). compilation_cache_dir is kept for the
-    name's sake and refused when set: eager PyTorch has no compilation
-    to cache."""
+    """The JAX package's TrainingConfig: batching, duration, evaluation,
+    seed, recompute, checkpointing, the async loop, the fault-tolerance
+    sentinels, multi-host coordination, logging, profiling and
+    telemetry, with its names, defaults and validation.
+    seed_pipeline_offset and data_parallel_random_init are kept as
+    fields, as in the JAX package, where nothing reads them either.
+    compilation_cache_dir is kept for the name's sake and refused when
+    set: eager PyTorch has no compilation to cache."""
 
     micro_batch_size: int = 1
     global_batch_size: int = 1
@@ -340,6 +340,9 @@ class TrainingConfig:
     eval_interval: int = 1000
     eval_iters: int = 100
     seed: int = 1234
+    # per-pipeline-stage seed offset policy (ref: initialize.py:179-193)
+    seed_pipeline_offset: int = 100
+    data_parallel_random_init: bool = False
     recompute_granularity: str = "none"
 
     # checkpointing (training/checkpointing.py)
@@ -390,6 +393,14 @@ class TrainingConfig:
     replay_check_interval: int = 0
     # journal a crc32 of every host batch as data_crc on step records
     log_data_fingerprint: bool = False
+    # multi-host coordination (training/coordination.py): the shared
+    # directory of the file backend's records; None with several hosts
+    # takes the process group's store
+    coordination_dir: Optional[str] = None
+    # declare a peer host dead after this many seconds without a
+    # heartbeat (or at once on its poison record); survivors exit 76
+    # with `peer_abort` journaled. 0 disables heartbeat detection
+    peer_death_timeout_s: float = 60.0
 
     # --save_interval auto: the cadence from measured commit latency
     save_interval_auto: bool = False
@@ -479,6 +490,10 @@ class TrainingConfig:
             raise ValueError(
                 "replay_check_interval must be >= 0 steps (0 disables "
                 "the SDC replay check)")
+        if self.peer_death_timeout_s < 0:
+            raise ValueError(
+                "peer_death_timeout_s must be >= 0 seconds (0 disables "
+                "heartbeat-based peer-death detection)")
         if self.save_interval_auto and self.save_interval is not None:
             raise ValueError(
                 "--save_interval auto and a fixed --save_interval are "

@@ -207,7 +207,11 @@ def p2p_start(sends: Sequence[Tuple[torch.Tensor, int, int]],
     """p2p's exchange posted now and waited on later: returns the wait,
     which returns the received tensors (the overlapped ring of
     inference/context_parallel/ring_kv.py posts hop l + 1 before it
-    merges hop l). Posting and waiting each run in a "comm.p2p" range."""
+    merges hop l). Each send is a snapshot taken at posting, so the
+    caller may write its tensors before the wait (gloo reads a send's
+    buffer until the peer has taken it, and a CPU tensor would otherwise
+    be sent from the caller's own storage). Posting and waiting each run
+    in a "comm.p2p" range."""
     if not sends and not recvs:
         return lambda: []
     with record_function("comm.p2p"):
@@ -225,7 +229,8 @@ def _p2p_post(sends, recvs) -> Callable[[], List[torch.Tensor]]:
     if native:
         bufs = [torch.empty(shape, dtype=dtype, device=device)
                 for shape, dtype, device, _, _ in recvs]
-        ops = [dist.P2POp(dist.isend, t.contiguous(), peer, tag=tag)
+        ops = [dist.P2POp(dist.isend, t.detach().clone(
+            memory_format=torch.contiguous_format), peer, tag=tag)
                for t, peer, tag in sends]
         ops += [dist.P2POp(dist.irecv, b, peer, tag=tag)
                 for b, (_, _, _, peer, tag) in zip(bufs, recvs)]
@@ -237,7 +242,8 @@ def _p2p_post(sends, recvs) -> Callable[[], List[torch.Tensor]]:
             return bufs
 
         return wait_native
-    host_sends = [_to_host(t).contiguous() for t, _, _ in sends]
+    host_sends = [torch.empty(t.shape, dtype=t.dtype).copy_(t)
+                  for t, _, _ in sends]
     host_bufs = [torch.empty(shape, dtype=dtype)
                  for shape, dtype, _, _, _ in recvs]
     works = [dist.isend(h, peer, tag=tag)

@@ -55,9 +55,25 @@ votes and commits as above, its manifest taking the voted entries. The saver thr
 itself, on the loop's thread, takes the barrier, and a load agrees on
 the iteration by a broadcast from rank 0.
 
-Not ported (ROADMAP.md): the multi-host two-phase commit (the JAX
-`coordinator`), and the restore of a checkpoint that predates a
-TrainState field.
+Multi-host (a `coordinator` from training/coordination.py, on each
+host's local rank 0): the commit becomes two-phase, and the
+coordinator's `commit_barrier` is the step that decides. No tracker
+flips until every host has published `staged(iteration, crc)`, so a
+death mid-save anywhere in the cluster aborts the commit everywhere
+(coordination.CommitAborted, journaled `commit_abort`; the staging dir
+stays for the next cleanup). One file per field (a host of world size 1
+with its own save dir): each host writes its meta.json and manifest,
+votes with the manifest's crc32 and, on agreement, commits its own dir.
+The sharded layout: every rank votes as above; a host's leader stages
+once its own ranks' votes are down (the crc32 of their entries), and
+rank 0's finalizer commits only after the barrier, when every rank of
+every host has voted, so the barrier is the cluster-level agreement
+over the votes, not a second protocol beside them.
+
+A checkpoint whose state predates a TrainState field (one of the
+fields that are never None, say nonfinite_streak) restores exactly the
+fields it recorded; the missing ones keep the template's values, with a
+warning. A field the dataclass does not know fails hard.
 """
 
 from __future__ import annotations
@@ -78,7 +94,7 @@ import torch
 from megatron_tpu_torch.parallel.sharding import copy_overlap
 from megatron_tpu_torch.training import resilience
 from megatron_tpu_torch.training.optimizer import (
-    ScalerState, TrainState, leaf_paths,
+    ScalerState, TrainState, leaf_paths, nest_paths,
 )
 
 TRACKER = "latest_checkpointed_iteration.txt"
@@ -96,6 +112,10 @@ VOTE_TIMEOUT_S = 600.0
 TREE_FIELDS = ("params", "master", "mu", "nu")
 CHECKPOINT_VERSION = "torch-1.0"
 FIELDS = tuple(f.name for f in dataclasses.fields(TrainState))
+#: the TrainState fields a run may hold as None (fp32 runs keep no
+#: masters, bf16 runs no loss scaler): a checkpoint without one of them
+#: recorded None; without any other field it predates that field
+OPTIONAL_FIELDS = ("master", "scaler")
 _ITER_RE = re.compile(r"^iter_(\d{7})$")
 _STAGING_RE = re.compile(r"^iter_(\d{7})\.tmp$")
 _DISPLACED_RE = re.compile(r"^(iter_\d{7})\.old$")
@@ -254,10 +274,13 @@ def list_valid_checkpoints(load: str, deep: bool = False) -> List[int]:
             if verify_checkpoint(checkpoint_dir(load, it), deep=deep)[0]]
 
 
-def cleanup_staging(save: str) -> List[str]:
+def cleanup_staging(save: str, min_age_seconds: float = 0.0) -> List[str]:
     """Remove uncommitted `iter_XXXXXXX.tmp` staging dirs; returns their
     names. The process that owns a save dir calls it when nothing is
-    writing there. Also repairs a crashed same-iteration re-save: a lone
+    writing there (min_age_seconds 0); min_age_seconds > 0 spares a
+    staging dir with a file written within that window, for external
+    callers (`checkpoint_util prune`) that may run beside a live run's
+    async save. Also repairs a crashed same-iteration re-save: a lone
     `iter_XXXXXXX.old` (the committed old checkpoint, shoved aside by
     _finalize) is renamed back into place."""
     removed = []
@@ -272,19 +295,29 @@ def cleanup_staging(save: str) -> List[str]:
             shutil.rmtree(os.path.join(save, name), ignore_errors=True)
         else:
             os.replace(os.path.join(save, name), original)
+    now = time.time()
     for name in os.listdir(save):
-        if _STAGING_RE.match(name):
-            shutil.rmtree(os.path.join(save, name), ignore_errors=True)
-            removed.append(name)
+        if not _STAGING_RE.match(name):
+            continue
+        path = os.path.join(save, name)
+        if min_age_seconds > 0:
+            newest = max((os.path.getmtime(os.path.join(r, f))
+                          for r, _, fs in os.walk(path) for f in fs),
+                         default=os.path.getmtime(path))
+            if now - newest < min_age_seconds:
+                continue  # possibly a live writer's staging dir
+        shutil.rmtree(path, ignore_errors=True)
+        removed.append(name)
     return removed
 
 
-def prune_checkpoints(save: str, keep_latest_k: int) -> List[int]:
+def prune_checkpoints(save: str, keep_latest_k: int,
+                      dry_run: bool = False) -> List[int]:
     """Delete all but the newest keep_latest_k committed checkpoints.
     Only manifested ones are eligible; the tracker's target is never
     pruned, nor is the newest checkpoint tagged "preemption" (the resume
     anchor a restart after a preemption depends on). Returns the pruned
-    iterations."""
+    iterations (with dry_run, those it would prune, deleting nothing)."""
     if not keep_latest_k or keep_latest_k < 1:
         return []
     committed = [it for it in committed_iterations(save)
@@ -301,7 +334,8 @@ def prune_checkpoints(save: str, keep_latest_k: int) -> List[int]:
     pruned = []
     for it in committed:
         if it not in keep:
-            shutil.rmtree(checkpoint_dir(save, it), ignore_errors=True)
+            if not dry_run:
+                shutil.rmtree(checkpoint_dir(save, it), ignore_errors=True)
             pruned.append(it)
     return pruned
 
@@ -653,15 +687,16 @@ def _vote(stage: str, rank: int, fragment: Dict[str, Any]) -> int:
     return nbytes
 
 
-def _await_votes(stage: str, world_size: int, timeout_s: float,
+def _await_votes(stage: str, ranks, timeout_s: float,
                  iteration: int) -> List[Dict[str, Any]]:
-    """Every rank's vote, or TimeoutError after timeout_s (the staging
+    """The votes of `ranks`, or TimeoutError after timeout_s (the staging
     dir stays uncommitted: an ignorable `.tmp`)."""
     d = os.path.join(stage, VOTES_DIR)
-    paths = [os.path.join(d, f"r{r}.json") for r in range(world_size)]
+    ranks = list(ranks)
+    paths = [os.path.join(d, f"r{r}.json") for r in ranks]
     deadline = time.monotonic() + timeout_s
     while True:
-        missing = [r for r, p in enumerate(paths) if not os.path.exists(p)]
+        missing = [r for r, p in zip(ranks, paths) if not os.path.exists(p)]
         if not missing:
             break
         if time.monotonic() > deadline:
@@ -700,19 +735,31 @@ def _multi(placement) -> bool:
     return placement is not None and placement.world_size > 1
 
 
+#: a load's `iteration` when the hosts agreed on none (a fresh start)
+NONE_AGREED = -1
+
+
+def _resolve(load: str, iteration: Optional[int]) -> int:
+    if iteration == NONE_AGREED:
+        raise FileNotFoundError(
+            f"no checkpoint in {load} is valid on every host")
+    return resolve_load_iteration(load, iteration)[0]
+
+
 def _agreed_iteration(load: str, iteration: Optional[int], placement
                       ) -> int:
     """resolve_load_iteration on rank 0, broadcast to every rank over the
     placement's host-side group (without one, each rank resolves alone:
-    nothing is writing)."""
+    nothing is writing). NONE_AGREED raises FileNotFoundError on every
+    rank."""
     if not _multi(placement) or placement.group is None:
-        return resolve_load_iteration(load, iteration)[0]
+        return _resolve(load, iteration)
     import torch.distributed as dist
 
     box: List[Any] = [None]
     if placement.rank == 0:
         try:
-            box = [resolve_load_iteration(load, iteration)[0]]
+            box = [_resolve(load, iteration)]
         except FileNotFoundError as e:
             box = [str(e)]
     dist.broadcast_object_list(box, src=0, group=placement.group)
@@ -728,11 +775,15 @@ def _finalize(save: str, stage: str, iteration: int, consumed_samples: int,
               config: Optional[Dict[str, Any]], keep_latest_k: Optional[int],
               log=None, stats: Optional[Dict[str, Any]] = None,
               tags: Tuple[str, ...] = (),
-              known: Optional[Dict[str, Any]] = None) -> str:
+              known: Optional[Dict[str, Any]] = None,
+              coordinator=None) -> str:
     """Commit a staged checkpoint whose state files are written:
     meta.json -> manifest (the commit record) -> os.replace into place ->
     tracker bump -> retention. `stats` receives the crc32 pass's seconds
-    (manifest_s)."""
+    (manifest_s). coordinator (a host's own save dir, the module
+    docstring): after the manifest, the cluster's commit barrier with
+    the manifest's crc32; coordination.CommitAborted leaves the staging
+    dir uncommitted."""
     save = os.path.abspath(save)
     final = checkpoint_dir(save, iteration)
     meta = {
@@ -748,9 +799,11 @@ def _finalize(save: str, stage: str, iteration: int, consumed_samples: int,
     resilience.maybe_kill("kill_during_save", iteration)
     resilience.maybe_sleep("slow_save")
     t0 = time.perf_counter()
-    write_manifest(stage, iteration, tags=tags, known=known)
+    manifest = write_manifest(stage, iteration, tags=tags, known=known)
     if stats is not None:
         stats["manifest_s"] = time.perf_counter() - t0
+    if coordinator is not None and coordinator.num_hosts > 1:
+        coordinator.commit_barrier(iteration, crc=_crc32_file(manifest))
     displaced = None
     if os.path.isdir(final):
         # a re-save of the same iteration: never delete the committed dir
@@ -780,16 +833,18 @@ def _finalize(save: str, stage: str, iteration: int, consumed_samples: int,
 
 def save_checkpoint(save: str, state: TrainState, iteration: int,
                     consumed_samples: int = 0,
-                    config: Optional[Dict[str, Any]] = None) -> str:
+                    config: Optional[Dict[str, Any]] = None,
+                    tags: Tuple[str, ...] = (), coordinator=None) -> str:
     """Synchronous atomic save: stage -> write -> manifest commit ->
-    rename -> tracker bump. The train loop uses AsyncCheckpointSaver;
-    this is the one-shot path for tools and tests."""
+    rename -> tracker bump (two-phase with a coordinator). The train
+    loop uses AsyncCheckpointSaver; this is the one-shot path for tools
+    and tests."""
     stage = _staging_dir(save, iteration)
     shutil.rmtree(stage, ignore_errors=True)
     os.makedirs(stage)
     _write_state(stage, _to_host(_state_fields(state)))
     return _finalize(save, stage, iteration, consumed_samples, config,
-                     keep_latest_k=None)
+                     keep_latest_k=None, tags=tags, coordinator=coordinator)
 
 
 class AsyncCheckpointSaver:
@@ -817,11 +872,17 @@ class AsyncCheckpointSaver:
     rank > 0 a history record ends at its vote (voted_s), and `bytes` is
     that rank's; rank 0's also holds vote_wait_s and bytes_all_ranks.
     save() takes one host-side barrier over placement.group (none
-    without a group); the thread calls no collective."""
+    without a group); the thread calls no collective.
+
+    coordinator (a ClusterCoordinator on a host's local rank 0, set per
+    save by the train loop; None on the host's other ranks): the commit
+    is two-phase (the module docstring). A cluster that cannot agree
+    journals `commit_abort` and the error surfaces at the next
+    save()/wait(); no tracker flipped anywhere."""
 
     def __init__(self, save: str, keep_latest_k: Optional[int] = None,
                  log=None, async_save: bool = True, journal=None,
-                 placement=None):
+                 placement=None, coordinator=None):
         self.save_dir = os.path.abspath(save)
         self.keep_latest_k = keep_latest_k
         self.log = log or (lambda _m: None)
@@ -829,6 +890,7 @@ class AsyncCheckpointSaver:
         self.journal = journal
         self.placement = placement if _multi(placement) else None
         self.rank = self.placement.rank if self.placement else 0
+        self.coordinator = coordinator
         self.last_commit_seconds: Optional[float] = None
         self.history: List[Dict[str, Any]] = []
         os.makedirs(self.save_dir, exist_ok=True)
@@ -874,7 +936,13 @@ class AsyncCheckpointSaver:
             "iteration": iteration,
             "stall_s": time.perf_counter() - t_begin}
 
+        coordinator = self.coordinator
+
         def finish():
+            from megatron_tpu_torch.training.coordination import (
+                CommitAborted,
+            )
+
             try:
                 known = None      # manifest entries the ranks hashed
                 if self.placement is None:
@@ -886,6 +954,8 @@ class AsyncCheckpointSaver:
                         # commit times out and nothing is committed
                         resilience.maybe_kill("kill_during_save", iteration)
                     stats["bytes"] = _vote(stage, self.rank, fragment)
+                    if coordinator is not None:
+                        self._stage_host(coordinator, stage, iteration)
                     if self.rank != 0:
                         stats["voted_s"] = time.perf_counter() - t_begin
                         self._last_path = checkpoint_dir(self.save_dir,
@@ -893,8 +963,9 @@ class AsyncCheckpointSaver:
                         self.history.append(stats)
                         return
                     t_vote = time.perf_counter()
-                    votes = _await_votes(stage, self.placement.world_size,
-                                         VOTE_TIMEOUT_S, iteration)
+                    votes = _await_votes(
+                        stage, range(self.placement.world_size),
+                        VOTE_TIMEOUT_S, iteration)
                     stats["vote_wait_s"] = time.perf_counter() - t_vote
                     stats["bytes_all_ranks"] = sum(v["bytes"] for v in votes)
                     known = {rel: e for v in votes
@@ -903,7 +974,9 @@ class AsyncCheckpointSaver:
                 self._last_path = _finalize(
                     self.save_dir, stage, iteration, consumed_samples,
                     config, self.keep_latest_k, self.log, stats=stats,
-                    tags=tags, known=known)
+                    tags=tags, known=known,
+                    coordinator=(coordinator if self.placement is None
+                                 else None))
                 stats["commit_s"] = time.perf_counter() - t_begin
                 self.last_commit_seconds = round(stats["commit_s"], 4)
                 self.history.append(stats)
@@ -912,6 +985,20 @@ class AsyncCheckpointSaver:
                         "checkpoint_commit", iteration=iteration,
                         path=self._last_path, async_save=self.async_save,
                         seconds=self.last_commit_seconds)
+            except CommitAborted as e:
+                # the cluster could not agree: no tracker flipped here
+                # (nor, by the same protocol, anywhere else)
+                self.log(f"checkpoint commit ABORTED at iteration "
+                         f"{iteration}: {e}")
+                if self.journal is not None:
+                    self.journal.emit(
+                        "commit_abort", iteration=iteration, reason=str(e),
+                        host=getattr(coordinator, "host", None))
+                    try:
+                        self.journal.flush()
+                    except OSError:
+                        pass
+                self._error = e
             except BaseException as e:  # noqa: BLE001 - raised at wait()
                 self._error = e
 
@@ -923,6 +1010,21 @@ class AsyncCheckpointSaver:
         else:
             finish()
             self._raise_pending()
+
+    def _stage_host(self, coordinator, stage: str, iteration: int) -> None:
+        """A host leader's phase 1 in the sharded layout: once its own
+        ranks (this rank and the LOCAL_WORLD_SIZE - 1 after it, as
+        torch.distributed.run numbers them) have voted, publish
+        staged(iteration, crc32 of their files' entries) and wait for
+        every host's (coordination.CommitAborted when they cannot
+        agree)."""
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+        ranks = range(self.rank,
+                      min(self.rank + local, self.placement.world_size))
+        votes = _await_votes(stage, ranks, VOTE_TIMEOUT_S, iteration)
+        entries = json.dumps([v["files"] for v in votes], sort_keys=True)
+        coordinator.commit_barrier(
+            iteration, crc=f"{zlib.crc32(entries.encode()) & 0xFFFFFFFF:08x}")
 
     def wait(self) -> Optional[str]:
         """Block until the in-flight save (if any) is committed (on a rank
@@ -1004,6 +1106,14 @@ def load_checkpoint(
     files = saved.fields
     weights_only = finetune or no_load_optim
     want = _state_fields(state_template)
+    # fields the checkpoint predates: restored from nothing, the template
+    # keeps them (a field of OPTIONAL_FIELDS it lacks was None)
+    predates = [f for f in FIELDS
+                if f not in files and f not in OPTIONAL_FIELDS]
+    if predates and not finetune:
+        warnings.warn(
+            f"checkpoint at {path} predates TrainState fields {predates}; "
+            "filling them from the fresh template")
 
     def restore(dst_field: str, src_field: str) -> None:
         kw = {}
@@ -1037,7 +1147,7 @@ def load_checkpoint(
                 "--no_load_optim rebuild them from the params)")
     fields = ([] if finetune else ["step"] if no_load_optim
               else [f for f in FIELDS if f not in ("params", "master")])
-    for field in fields:
+    for field in [f for f in fields if f not in predates]:
         if (field in files) != (field in want):
             raise ValueError(
                 f"checkpoint at {path} {'has' if field in files else 'lacks'}"
@@ -1052,6 +1162,44 @@ def load_checkpoint(
         return state_template, 0, 0
     return (state_template, int(meta["iteration"]),
             int(meta["consumed_train_samples"]))
+
+
+def read_state(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{field: {name: whole tensor}} of one checkpoint dir's state, either
+    layout, assembled on the CPU (checkpoint_util's copy and cast: no
+    model is built, so any tree reads)."""
+    saved = _Saved(path)
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for field in sorted(saved.fields, key=FIELDS.index):
+        dtypes = ({n: getattr(torch, d["dtype"])
+                   for n, d in saved.layout[field].items()}
+                  if saved.layout is not None else None)
+        flat = {}
+        for name in sorted(saved.names(field)):
+            dtype = (dtypes[name] if dtypes is not None
+                     else saved._field(field)[name].dtype)
+            flat[name] = torch.empty(saved.shape(field, name), dtype=dtype)
+        _restore(flat, saved, field, f"{path} {field}")
+        out[field] = flat
+    return out
+
+
+def state_from_fields(fields: Dict[str, Dict[str, torch.Tensor]]
+                      ) -> TrainState:
+    """The TrainState read_state's fields hold (a field the checkpoint
+    lacks is None)."""
+    def tree(field):
+        flat = fields.get(field)
+        return None if flat is None else nest_paths(flat)
+
+    scaler = fields.get("scaler")
+    return TrainState(
+        params=tree("params"), master=tree("master"), mu=tree("mu"),
+        nu=tree("nu"),
+        step=fields["step"]["step"] if "step" in fields else None,
+        scaler=ScalerState(**scaler) if scaler is not None else None,
+        nonfinite_streak=(fields["nonfinite_streak"]["nonfinite_streak"]
+                          if "nonfinite_streak" in fields else None))
 
 
 def _map_tree(fn, tree: Any, prefix: str = "") -> Any:

@@ -52,10 +52,26 @@ group down. Checkpoints at world size > 1 take the sharded layout
 (training/checkpointing.py): every rank saves its blocks and votes,
 rank 0 commits, and --load (a resume, at this or any other topology),
 a rollback and the preemption save work as at world size 1; world size
-1 keeps the one-file-per-field format.
+1 keeps the one-file-per-field format. A resume whose checkpoint was
+written at another topology (dp, micro-batch, tp, pp, cp or host
+count) is journaled as `elastic_resume`; the global batch and so the
+sample order are the invariant.
 
-Not ported (ROADMAP.md): multi-host coordination (peer aborts, the
-two-phase commit) and elastic-topology journaling.
+Hosts (training/coordination.py, on each host's local rank 0; none on a
+single-host run, whose paths are unchanged): the loop rendezvouses the
+hosts at start-up (the topology barrier), agrees the resume iteration
+(the newest checkpoint valid on every host), publishes the signals its
+handler received and reads the cluster's union, agrees one exit
+iteration for every exit cause (hosts behind it keep stepping, so every
+host drains and saves the same state), commits every checkpoint
+two-phase, and exits 76 with `peer_abort` journaled when a peer dies or
+publishes a poison record (from the sideband thread, even inside a
+collective; from the crash path when a collective raised on a dead
+peer). Its own crash, hang and preemption-timeout exits publish a
+poison record first. Hosts that share one process group (a launch with
+--nnodes > 1) already agree through the MAX-reduce below; hosts with
+process groups of their own agree through the coordinator before it,
+and the MAX-reduce carries the leader's verdict to its host's ranks.
 """
 
 from __future__ import annotations
@@ -68,6 +84,7 @@ import signal as signal_module
 import sys
 import threading
 import time
+import warnings
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -80,7 +97,9 @@ from megatron_tpu_torch.models.params import (
     shard_task_params, task_tree,
 )
 from megatron_tpu_torch.parallel.mappings import all_reduce
-from megatron_tpu_torch.training import checkpointing, prefetch, resilience
+from megatron_tpu_torch.training import (
+    checkpointing, coordination, prefetch, resilience,
+)
 from megatron_tpu_torch.training.logging_writer import Writer
 from megatron_tpu_torch.training.microbatches import MicroBatchCalculator
 from megatron_tpu_torch.training.optimizer import (
@@ -227,6 +246,26 @@ class TrainLoop:
         self.log = log if self.is_rank0 else (lambda msg: None)
         self.device = torch.device(device)
         t = run_cfg.training
+        # multi-host coordination: None on a single-host run and on a
+        # host's ranks but its local rank 0; the restart barrier runs
+        # before the loop's first collective
+        self._host = coordination.resolve_host_identity()[0]
+        self.coord = coordination.for_training(t, log=log)
+        if self.coord is not None:
+            if t.save_interval_auto:
+                # per-host measured cadences cannot agree on future save
+                # iterations; a fixed interval is the same on every host
+                self.coord.close()
+                raise ValueError(
+                    "--save_interval auto is not supported on coordinated "
+                    "multi-host runs yet (the autotuned cadence is per-"
+                    "host-measured and would desynchronize the two-phase "
+                    "checkpoint commit); use a fixed --save_interval")
+            self.coord.topology_barrier()
+        # hosts in one process group agree through _agree's MAX-reduce
+        self._joint = (self.coord is not None and self._multi
+                       and mesh.world_size
+                       > int(os.environ.get("LOCAL_WORLD_SIZE", 1)))
         level = t.timing_log_level
         if t.log_timers_to_tensorboard:
             level = max(level, 1)  # sub-spans become real timers
@@ -295,7 +334,21 @@ class TrainLoop:
                               pipeline_loss_factory, t.micro_batch_size))
         self.history: List[Dict[str, float]] = []
         self.evals: List[Dict[str, float]] = []
+        # the config every checkpoint records, with the resolved data
+        # parallel degree and the host count: a resume compares them
+        # with its own (_detect_topology_change)
         self._save_config = run_cfg.to_dict()
+        self._save_config["parallel"]["data_parallel"] = self.dp
+        self._save_config["coordination"] = {
+            "num_hosts": self.coord.num_hosts if self.coord else 1}
+        self._elastic_resume: Optional[Dict[str, Any]] = None
+        # the cluster's exit agreement (target iteration, notice host)
+        # once reached; _commit_solo when it proved unreachable, so the
+        # final commit does not wait on the same peers
+        self._exit_agreement: Optional[Tuple[int, Optional[int]]] = None
+        self._notice_host: Optional[int] = None
+        self._commit_solo = False
+        self._peer_abort_lock = threading.Lock()
         self._saver: Optional[checkpointing.AsyncCheckpointSaver] = None
         self.saves: List[Dict[str, Any]] = []
         self.load_s: Optional[float] = None
@@ -375,7 +428,18 @@ class TrainLoop:
                 model_flops_per_token_fwd=model_cfg.flops_per_token_fwd(),
                 async_loop=t.async_loop, prefetch_depth=t.prefetch_depth,
                 metrics_lag=t.metrics_lag,
-                compilation_cache_dir=t.compilation_cache_dir)
+                compilation_cache_dir=t.compilation_cache_dir,
+                # the host on the run record: telemetry_report merges
+                # per-host journals by it
+                **({"host": self.coord.host,
+                    "num_hosts": self.coord.num_hosts}
+                   if self.coord is not None else {}))
+            if self._elastic_resume is not None:
+                self.telemetry.emit("elastic_resume", **self._elastic_resume)
+        if self.coord is not None:
+            # peer verdicts from the sideband thread, even while this
+            # host is blocked in a collective
+            self.coord.start_watchdog(self._on_peer_abort)
 
     # -- checkpoint ---------------------------------------------------------
 
@@ -383,9 +447,28 @@ class TrainLoop:
         t = self.cfg.training
         t0 = time.perf_counter()
         stats: Dict[str, Any] = {}
+        pinned = None
+        if self.coord is not None:
+            # the newest checkpoint valid on EVERY host: a host whose
+            # tracker ran ahead of a commit its peers never finished is
+            # pulled back to it
+            valid = checkpointing.list_valid_checkpoints(t.load)
+            pinned = self.coord.agree_resume_iteration(valid)
+            if pinned is None:
+                self.log("coordination: no checkpoint is valid on every "
+                         f"host (local valid: {valid}); all hosts start "
+                         "fresh")
+                pinned = checkpointing.NONE_AGREED
+            else:
+                local = checkpointing.read_tracker(t.load)
+                if local != pinned:
+                    self.log(f"coordination: local tracker points at "
+                             f"{local} but the cluster-consistent "
+                             f"checkpoint is {pinned} — loading the agreed "
+                             "iteration")
         try:
             self.state, it, consumed = checkpointing.load_checkpoint(
-                t.load, self.state, finetune=t.finetune,
+                t.load, self.state, iteration=pinned, finetune=t.finetune,
                 no_load_optim=t.no_load_optim, config=self._save_config,
                 placement=self.placement, stats=stats)
         except FileNotFoundError:
@@ -397,6 +480,82 @@ class TrainLoop:
         self.iteration, self.consumed_samples = it, consumed
         self.log(f"loaded checkpoint at iteration {it} "
                  f"(consumed {consumed} samples)")
+        if not t.finetune:
+            self._detect_topology_change(it)
+
+    def _detect_topology_change(self, iteration: int) -> None:
+        """Elastic resume: the checkpoint loads at any topology, and the
+        global batch (so the sample order and the LR schedule) is the
+        invariant MicroBatchCalculator enforced at construction. A
+        change of dp, micro-batch, tp, pp, cp or host count is recorded
+        here (`elastic_resume`, journaled once telemetry is up) so the
+        journal shows the re-derivation."""
+        t = self.cfg.training
+        try:
+            saved = checkpointing.saved_run_config(t.load, iteration)
+        except (OSError, ValueError, FileNotFoundError):
+            return
+        saved_t = saved.get("training") or {}
+        saved_par = saved.get("parallel") or {}
+        saved_dp = saved_par.get("data_parallel")
+        if not saved_dp:
+            return      # a checkpoint that predates the record
+        m = self.mesh
+        tp, pp, cp = ((m.tp, m.pp, m.cp) if m is not None else (1, 1, 1))
+        saved_tp = int(saved_par.get("tensor_parallel") or tp)
+        saved_pp = int(saved_par.get("pipeline_parallel") or pp)
+        saved_cp = int(saved_par.get("context_parallel") or cp)
+        saved_hosts = int((saved.get("coordination") or {}).get(
+            "num_hosts") or 0)
+        cur_hosts = self.coord.num_hosts if self.coord else 1
+        saved_dp = int(saved_dp)
+        saved_mb = int(saved_t.get("micro_batch_size", t.micro_batch_size))
+        saved_gbs = int(saved_t.get("global_batch_size",
+                                    t.global_batch_size))
+        gbs = t.global_batch_size
+        if saved_gbs != gbs:
+            warnings.warn(
+                f"resuming with --global_batch_size {gbs} but the "
+                f"checkpoint was written at {saved_gbs}: sample order and "
+                "the LR schedule will DIFFER from the saved run (elastic "
+                "resume keeps the global batch invariant — only "
+                "micro_batch_size / data_parallel may change); continuing "
+                "only makes sense as a deliberate schedule change")
+        changed_mp = (saved_tp, saved_pp, saved_cp) != (tp, pp, cp)
+        changed_hosts = bool(saved_hosts) and saved_hosts != cur_hosts
+        if not (saved_dp != self.dp or saved_mb != t.micro_batch_size
+                or changed_mp or changed_hosts or saved_gbs != gbs):
+            return
+        accum_from = saved_gbs // max(saved_mb * saved_dp, 1)
+        accum_to = gbs // (t.micro_batch_size * self.dp)
+        self._elastic_resume = {
+            "iteration": self.iteration,
+            "from_dp": saved_dp, "to_dp": self.dp,
+            "from_micro_batch": saved_mb,
+            "to_micro_batch": t.micro_batch_size,
+            "from_global_batch": saved_gbs, "global_batch_size": gbs,
+            "accum_from": accum_from, "accum_to": accum_to,
+            "from_tp": saved_tp, "to_tp": tp,
+            "from_pp": saved_pp, "to_pp": pp,
+            "from_hosts": saved_hosts or cur_hosts, "to_hosts": cur_hosts,
+        }
+        note = ""
+        if changed_mp:
+            note = (f"; model parallelism tp {saved_tp}->{tp} pp "
+                    f"{saved_pp}->{pp} cp {saved_cp}->{cp} (the sharded "
+                    "load re-cuts the state; sample order unaffected)")
+        if changed_hosts:
+            note += f"; hosts {saved_hosts}->{cur_hosts}"
+        self.log(
+            f"elastic resume: checkpoint written at data_parallel="
+            f"{saved_dp} x micro_batch={saved_mb} (accumulation "
+            f"{accum_from}), resuming at data_parallel={self.dp} x "
+            f"micro_batch={t.micro_batch_size} (accumulation {accum_to}) "
+            + (f"— WARNING: global batch changed {saved_gbs} -> {gbs}"
+               if saved_gbs != gbs else
+               f"— global batch {gbs}, sample order, and "
+               f"consumed_samples={self.consumed_samples} are unchanged")
+            + note)
 
     def save(self, tags: Tuple[str, ...] = ()) -> None:
         """Checkpoint the state at this iteration. Returns once it is on
@@ -414,6 +573,10 @@ class TrainLoop:
                          if self.telemetry else None),
                 placement=self.placement)
             self.saves = self._saver.history
+        # the commit is two-phase, but solo once the exit agreement
+        # proved the peers unreachable (resume's valid-set intersection
+        # keeps the cluster consistent around a solo commit)
+        self._saver.coordinator = None if self._commit_solo else self.coord
         self._saver.save(self.state, self.iteration, self.consumed_samples,
                          config=self._save_config, tags=tags)
         self._last_save_iter = self.iteration
@@ -519,6 +682,11 @@ class TrainLoop:
                 jt.join(timeout=5.0)
                 if committed.is_set():
                     return
+                if self.coord is not None:
+                    # peers must not wait for a commit vote this host
+                    # will never cast
+                    self.coord.publish_abort(
+                        "preempt_timeout", iteration=self.iteration)
                 os._exit(resilience.PREEMPT_TIMEOUT_EXIT_CODE)
 
             timer = threading.Timer(budget, _overdue)
@@ -542,7 +710,13 @@ class TrainLoop:
                  + ("" if t.save else "; no --save dir: nothing written")
                  + ")")
         if self.telemetry is not None:
-            extra = {"pre_saved": True} if already_saved else {}
+            extra = {}
+            if self.coord is not None:
+                # the host the cluster's notice landed on, and who reports
+                extra = {"notice_host": self._notice_host,
+                         "host": self.coord.host}
+            if already_saved:
+                extra["pre_saved"] = True
             self.telemetry.emit(
                 "preemption", iteration=self.iteration,
                 signal="SIGTERM", consumed_samples=self.consumed_samples,
@@ -607,7 +781,60 @@ class TrainLoop:
                 heartbeat_age_s=round(age, 1),
                 step_timeout_s=t.step_timeout_s, bundle=bundle)
             self._flush_journal()
+        if self.coord is not None:
+            # poison record before dying: peers abort with a journaled
+            # peer_abort{host, cause: "hang"}
+            self.coord.publish_abort("hang", iteration=stuck_at,
+                                     heartbeat_age_s=round(age, 1))
         os._exit(resilience.HANG_EXIT_CODE)
+
+    def _on_peer_abort(self, verdict: Dict[str, Any]) -> None:
+        """A peer died (poison record, or heartbeat silence past
+        --peer_death_timeout_s): journal `peer_abort{host, cause,
+        observed_by}`, flush, and exit PEER_ABORT_EXIT_CODE. Runs on the
+        sideband thread or inline from the loop."""
+        if not self._peer_abort_lock.acquire(blocking=False):
+            # the sideband and the crash path reached one verdict at once:
+            # the first one journals and exits for both
+            while True:
+                time.sleep(1.0)
+        host, cause = verdict.get("host"), verdict.get("cause")
+        self.log(f"peer abort: host {host} ({cause}) — exiting "
+                 f"{resilience.PEER_ABORT_EXIT_CODE} "
+                 f"({verdict.get('detail', '')})")
+        self._profile_abort("peer_abort")
+        if self.telemetry is not None:
+            self.telemetry.emit(
+                "peer_abort", host=host, cause=cause,
+                detail=verdict.get("detail"), iteration=self.iteration,
+                observed_by=(self.coord.host if self.coord else None))
+            self._flush_journal()
+        sys.stdout.flush()
+        os._exit(resilience.PEER_ABORT_EXIT_CODE)
+
+    def _crash_verdict(self, error: BaseException) -> None:
+        """The loop is unwinding on `error`. A collective that raised
+        because a peer died (gloo: "Connection reset by peer") is the
+        peer's death, not this host's fault: wait up to the death
+        window for the evidence and exit 76 on it. Otherwise publish a
+        poison record so the peers stop cleanly instead of blocking in
+        the next collective."""
+        ours = (resilience.DivergenceError, resilience.SDCError,
+                coordination.CoordinationError, coordination.CommitAborted)
+        if isinstance(error, RuntimeError) and not isinstance(error, ours):
+            window = self.coord.peer_death_timeout_s
+            deadline = time.monotonic() + window + 2 * self.coord.poll_s
+            while window > 0 and time.monotonic() < deadline:
+                try:
+                    verdict = self.coord.check_peers()
+                except Exception:  # noqa: BLE001 - the medium died with
+                    break          # its host (the store of rank 0)
+                if verdict is not None:
+                    self._on_peer_abort(verdict)
+                time.sleep(self.coord.poll_s)
+        self.coord.publish_abort(type(error).__name__,
+                                 iteration=self.iteration,
+                                 detail=str(error)[:300])
 
     def _note_fingerprint(self, batch: Dict[str, np.ndarray],
                           iteration: int) -> Dict[str, np.ndarray]:
@@ -807,6 +1034,67 @@ class TrainLoop:
         t = torch.tensor([int(f) for f in flags], dtype=torch.int32)
         return tuple(bool(v) for v in
                      all_reduce(t, self.mesh.control_group, "max"))
+
+    def _exit_names(self, sig, saved_now: bool) -> List[str]:
+        """The signals this pass acts on: this process's, and with a
+        coordinator the cluster's union (one host's SIGTERM drains every
+        host). Publishes this host's own, and, when a periodic save is
+        about to wait on the previous commit while a drain is pending,
+        acks the exit first (a peer behind it, blocked in the agreement,
+        then steps on and casts the vote that commit waits for)."""
+        local = [signal_module.Signals(s).name
+                 for s in sig.signals_received()]
+        coord = self.coord
+        if coord is None:
+            return local
+        if saved_now and not self._joint and self._exit_agreement is None:
+            coord.cluster_signals()
+            if coord.exit_pending() or coord.cluster_signals(cached=True):
+                coord.ack_exit(self.iteration)
+        if not coord.sideband_armed():
+            verdict = coord.check_peers()
+            if verdict is not None:
+                self._on_peer_abort(verdict)
+        if local:
+            coord.publish_signals(local)
+        cluster = {n for r in coord.cluster_signals(cached=True).values()
+                   for n in r.get("signals", ())}
+        return sorted(set(local) | cluster)
+
+    def _cluster_exit(self, should_exit: bool, preempting: bool
+                      ) -> Tuple[bool, bool]:
+        """Where the cluster drains, for every exit cause: every host
+        acks its iteration and all step to the max, so the final
+        two-phase commit votes at one state. A peer's pending ack joins
+        this host to the exit; once agreed, the agreement holds on every
+        later pass. An unreachable agreement drains solo (the final
+        commit drops the coordinator)."""
+        coord = self.coord
+        if self._exit_agreement is not None or (
+                not should_exit and coord.exit_pending(cached=True)):
+            should_exit = True
+        if not should_exit:
+            return False, preempting
+        if self._exit_agreement is None:
+            try:
+                self._exit_agreement = coord.agree_exit_iteration(
+                    self.iteration,
+                    timeout_s=coordination.startup_timeout_s())
+            except coordination.CoordinationError as e:
+                self.log(f"coordination: exit agreement failed ({e}); "
+                         "draining solo (uncoordinated final commit)")
+                self._exit_agreement = (self.iteration, None)
+                self._commit_solo = True
+            target, nh = self._exit_agreement
+            self._notice_host = nh
+            self.log(f"coordination: cluster exit agreed at iteration "
+                     f"{target} (notice on host {nh}, this is host "
+                     f"{coord.host})")
+        if self.iteration < self._exit_agreement[0]:
+            # behind the agreed boundary: keep stepping; the data order
+            # is deterministic, so every host reaches the same state
+            return False, False
+        return True, preempting
 
     def _fetch_metrics(self, metrics: Dict[str, torch.Tensor]
                        ) -> Dict[str, float]:
@@ -1040,11 +1328,21 @@ class TrainLoop:
         iterator of host batches at that batch size (rampup-aware)."""
         try:
             self._train_inner(train_iter_factory, valid_iter_factory)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            if self.coord is not None:
+                self._crash_verdict(e)
+            raise
         finally:
             # the forced flush of every exit path (return, SIGTERM,
             # exception): a committed tracker is what a resume finds
-            if self._saver is not None:
-                self._saver.close()
+            try:
+                if self._saver is not None:
+                    self._saver.close()
+            finally:
+                if self.coord is not None:
+                    # after the flush: a peer's death during the final
+                    # commit still ends in a clean exit
+                    self.coord.stop_watchdog()
             if self.telemetry is not None:
                 self.telemetry.close(
                     **({"received_signal": self._exit_signal}
@@ -1305,6 +1603,12 @@ class TrainLoop:
                     if drain(0):
                         on_rollback()
                         continue
+                    if (self.coord is not None
+                            and self._exit_agreement is None):
+                        # a non-blocking exit ack at train_iters: a notice
+                        # racing completion still resolves every peer's
+                        # exit agreement (to train_iters)
+                        self.coord.ack_exit(self.iteration)
                     break
                 gbs = self.calc.global_batch(self.consumed_samples)
                 if gbs != current_gbs or data_iter is None:
@@ -1358,6 +1662,10 @@ class TrainLoop:
                     # a preemption NOTICE at an exact step: the handler
                     # records it; the save path below runs after this step
                     resilience.maybe_signal("preempt_at", self.iteration + 1)
+                    # the multi-host forms hit exactly one host
+                    resilience.maybe_kill_host(self._host, self.iteration + 1)
+                    resilience.maybe_signal_host(self._host,
+                                                 self.iteration + 1)
                     # a wedged step: only the watchdog ends it
                     resilience.maybe_hang("hang_step", self.iteration + 1)
                     replay_due = bool(
@@ -1450,8 +1758,7 @@ class TrainLoop:
                     saved_now = bool(
                         t.save and t.save_interval
                         and self.iteration % t.save_interval == 0)
-                names = [signal_module.Signals(s).name
-                         for s in sig.signals_received()]
+                names = self._exit_names(sig, saved_now)
                 # SIGTERM is a preemption notice: the expedited
                 # synchronous save; SIGINT the ordinary one
                 preempting = "SIGTERM" in names
@@ -1462,8 +1769,17 @@ class TrainLoop:
                         (time.time() - start_time) / 60
                         > t.exit_duration_in_mins):
                     should_exit = True
+                if self.coord is not None and not self._joint:
+                    should_exit, preempting = self._cluster_exit(
+                        should_exit, preempting)
                 saved_now, should_exit, preempting = self._agree(
                     saved_now, should_exit, preempting)
+                if (should_exit and self._joint
+                        and self._exit_agreement is None):
+                    # one process group: the MAX-reduce was the agreement
+                    self._exit_agreement = (self.iteration,
+                                            self.coord.notice_host())
+                    self._notice_host = self._exit_agreement[1]
                 if saved_now:
                     # never checkpoint past unjudged metrics: a sentinel
                     # trip still in the pipeline CANCELS the save

@@ -1,4 +1,4 @@
-"""Fault tolerance for the train loop, single host (counterpart of
+"""Fault tolerance for the train loop (counterpart of
 megatron_tpu/training/resilience.py).
 
   * DivergenceSentinel: host-side watchdog over the per-step metrics.
@@ -28,6 +28,12 @@ megatron_tpu/training/resilience.py).
                               [ITER, ITER+N) so loss and grads go
                               non-finite through the real skip path
       slow_save:MS            sleep MS ms inside checkpoint finalization
+      kill_host:HOST:ITER     kill_at on the one process whose
+                              coordination host id is HOST (its peers
+                              must exit PEER_ABORT_EXIT_CODE, not hang)
+      preempt_host:HOST:ITER  preempt_at on host HOST only: the signal
+                              agreement (training/coordination.py) must
+                              drain every host
 
     and the serving faults the engines read in their tick loop and at
     admission (inference/engine.py): kill_replica:N, hang_replica:N,
@@ -36,10 +42,8 @@ megatron_tpu/training/resilience.py).
   * batch_fingerprint (the JAX package's crc32 string for the same numpy
     batch) and bitwise tree comparison over torch tensors.
 
-Not ported (ROADMAP.md): the multi-host faults kill_host / preempt_host
-(host_fault_active, maybe_kill_host, maybe_signal_host), which need the
-cluster coordination of training/coordination.py, and migrate_fail
-(maybe_corrupt), which needs the fleet's KV migration.
+Not ported (ROADMAP.md): migrate_fail (maybe_corrupt), which needs the
+fleet's KV migration.
 
 The variable is re-parsed when its value changes, so tests can
 monkeypatch it without reimporting.
@@ -172,6 +176,42 @@ def maybe_signal(kind: str, iteration: int,
             f"delivering {name}\n")
         sys.stderr.flush()
         _journal_fault(kind, iteration=iteration, signal=name)
+        os.kill(os.getpid(), signum)
+
+
+def host_fault_active(kind: str, host: int, iteration: int) -> bool:
+    """Whether the per-host fault `kind` (form kind:HOST:ITER) fires for
+    this (host, iteration): the fault hits exactly one host of the
+    cluster, and the test asserts what the others do about it."""
+    args = fault_args(kind)
+    return (args is not None and len(args) >= 2
+            and args[0] == host and args[1] == iteration)
+
+
+def maybe_kill_host(host: int, iteration: int) -> None:
+    """SIGKILL this process iff kill_host:HOST:ITER names its coordination
+    host id: one host of the cluster dying unmaskably."""
+    if host_fault_active("kill_host", host, iteration):
+        sys.stderr.write(
+            f"MEGATRON_TPU_FAULT: kill_host firing on host {host} at "
+            f"iteration {iteration} — killing process\n")
+        sys.stderr.flush()
+        _journal_fault("kill_host", host=host, iteration=iteration)
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+def maybe_signal_host(host: int, iteration: int,
+                      signum: int = signal.SIGTERM) -> None:
+    """Self-deliver SIGTERM iff preempt_host:HOST:ITER names this host:
+    the preemption notice landing on one host of the cluster."""
+    if host_fault_active("preempt_host", host, iteration):
+        name = signal.Signals(signum).name
+        sys.stderr.write(
+            f"MEGATRON_TPU_FAULT: preempt_host firing on host {host} at "
+            f"iteration {iteration} — delivering {name}\n")
+        sys.stderr.flush()
+        _journal_fault("preempt_host", host=host, iteration=iteration,
+                       signal=name)
         os.kill(os.getpid(), signum)
 
 

@@ -342,6 +342,91 @@ def cross_entropy_job():
     return out
 
 
+def p2p_snapshot_job():
+    """Rank 0 posts a 16 MiB send and overwrites its tensor at once, before
+    the wait; rank 1 posts its receive a moment later. What arrives must
+    be what was posted (mappings.p2p_start snapshots its sends)."""
+    import time
+
+    import torch.distributed as dist
+
+    from megatron_tpu_torch.parallel.mappings import p2p_start
+
+    rank = dist.get_rank()
+    n = 1 << 22
+    want = torch.arange(n, dtype=torch.float32)
+    if rank == 0:
+        x = want.clone()
+        wait = p2p_start([(x, 1, 7)], [])
+        x.fill_(-1.0)
+        wait()
+        out = None
+    else:
+        time.sleep(0.5)
+        got = p2p_start([], [((n,), torch.float32, torch.device("cpu"), 0,
+                              7)])()[0]
+        out = bool(torch.equal(got, want))
+    box = [out]
+    dist.broadcast_object_list(box, src=1)
+    return box[0]
+
+
+def coordinated_save_job(out_dir):
+    """Two hosts of one rank each (a coordinator a rank over one
+    directory) save a tp2 state through the sharded layout's two-phase
+    commit, then save again after host 1 published a poison record and
+    stages nothing: rank 0's commit aborts. Returns what rank 0 saw."""
+    import torch.distributed as dist
+
+    from megatron_tpu_torch.config import OptimizerConfig, ParallelConfig
+    from megatron_tpu_torch.models import presets
+    from megatron_tpu_torch.models.params import StatePlacement, init_params
+    from megatron_tpu_torch.parallel.mesh import build_mesh
+    from megatron_tpu_torch.training import checkpointing as ckpt
+    from megatron_tpu_torch.training.coordination import (
+        ClusterCoordinator, CommitAborted, FileBackend,
+    )
+    from megatron_tpu_torch.training.optimizer import init_train_state
+
+    rank = dist.get_rank()
+    cfg = presets.tiny(vocab_size=64, seq_length=16)
+    mesh = build_mesh(ParallelConfig(tensor_parallel=2))
+    state = init_train_state(OptimizerConfig(),
+                             init_params(cfg, 0, device="cpu", mesh=mesh))
+    coord = ClusterCoordinator(FileBackend(os.path.join(out_dir, "coord")),
+                               rank, 2, peer_death_timeout_s=30, poll_s=0.02)
+    events = []
+
+    class Journal:
+        def emit(self, kind, **fields):
+            events.append(dict(fields, kind=kind))
+
+        def flush(self):
+            pass
+
+    save = os.path.join(out_dir, "ck")
+    saver = ckpt.AsyncCheckpointSaver(
+        save, journal=Journal(), coordinator=coord,
+        placement=StatePlacement.of(cfg, mesh, zero1=False))
+    saver.save(state, 3, 12)
+    saver.wait()
+    dist.barrier()
+    if rank == 1:
+        coord.publish_abort("test", iteration=5)
+        saver.coordinator = None
+    dist.barrier()
+    saver.save(state, 5, 20)
+    try:
+        saver.wait()
+        aborted = False
+    except CommitAborted:
+        aborted = True
+    dist.barrier()
+    return {"rank": rank, "aborted": aborted, "events": events,
+            "staged_3": sorted(coord._fresh("commit/3/0")),
+            "save": save}
+
+
 def call_job(arg):
     """A job that lives in another worker module (which, like this one,
     imports torch and the port only): arg = ("module:function",
@@ -355,7 +440,8 @@ def call_job(arg):
 
 JOBS = {"train": parallel_steps, "mappings": mappings_job,
         "comm": comm_job, "cross_entropy": cross_entropy_job,
-        "call": call_job}
+        "p2p_snapshot": p2p_snapshot_job,
+        "coordinated_save": coordinated_save_job, "call": call_job}
 
 
 def _worker(rank, world, port, jobs, out_dir):

@@ -52,6 +52,14 @@ and 16 kv heads of D 128, match their plain versions, as do B1-B4 at a
 Falcon-40B tp2 rank's 64 query over 4 kv heads of D 64 and B5 at the
 paged engine's tp2 rank (16 heads, 16-token pages).
 
+Multi-host coordination on the card's torch: the store backend over a
+two-process gloo group's own TCPStore (check, get, set; whether the
+store has list_keys and multi_get is reported, not relied on), and the
+sideband watchdog exiting 76 from a process whose main thread is blocked
+inside a gloo all-reduce of CUDA tensors (its peer alive but silent:
+heartbeats stopped, never entering the collective), within the peer
+death timeout plus a slack.
+
 Context parallelism: the one-process emulated ring (every virtual
 rank's schedule, ops/ring_attention.py) at cp 2 and 4 runs each live
 stripe pair on B1/B2/B3 and matches the same ring on the plain versions,
@@ -1634,3 +1642,121 @@ def test_compressed_ring_permute_round_trips_cuda_tensors(gen, tmp_path):
     for r in range(2):
         got = torch.load(f"{out}.rank{r}")
         assert got == {m: (True, True) for m in ("dense", "int8", "fp8")}, r
+
+
+_STORE_RANK = """
+import json, sys, time
+import torch, torch.distributed as dist
+from megatron_tpu_torch.training.coordination import (
+    ClusterCoordinator, CommitAborted, StoreBackend)
+
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=2)
+store = dist.distributed_c10d._get_default_store()
+c = ClusterCoordinator(StoreBackend(2), rank, 2, peer_death_timeout_s=10,
+                       poll_s=0.05)
+c.topology_barrier(60)
+c.commit_barrier(3, f"crc{rank}", 30)
+target, _ = c.agree_exit_iteration(5 + rank, 30)
+aborted = False
+if rank == 0:
+    try:
+        c.commit_barrier(9, "x", 1.0)
+    except CommitAborted:
+        aborted = True
+x = torch.full((4,), float(rank + 1), device="cuda")
+dist.all_reduce(x)
+c.publish_value("done", True)
+while c.read_value("done", host=1 - rank) is None:
+    time.sleep(0.05)
+dist.barrier()
+with open(f"{out}.rank{rank}", "w") as f:
+    json.dump({"target": target, "aborted": aborted,
+               "sum": x.cpu().tolist(),
+               "list_keys": hasattr(store, "list_keys"),
+               "multi_get": hasattr(store, "multi_get"),
+               "torch": torch.__version__}, f)
+dist.destroy_process_group()
+"""
+
+
+def _ranks(script, *args, env=None):
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return [subprocess.Popen(
+        [sys.executable, "-c", script, str(r), str(port), *args], cwd=repo,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+
+
+def test_store_backend_on_the_cards_torch(gen, tmp_path):
+    """The coordinator over the store of a gloo group of two processes on
+    the card: the topology barrier, a commit, the exit agreement, and a
+    one-sided commit that aborts."""
+    import json
+
+    out = str(tmp_path / "store")
+    procs = _ranks(_STORE_RANK, out)
+    logs = [p.communicate(timeout=180)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], logs
+    got = [json.load(open(f"{out}.rank{r}")) for r in range(2)]
+    assert [g["target"] for g in got] == [6, 6]
+    assert got[0]["aborted"] and got[0]["sum"] == [3.0] * 4
+    print("torch", got[0]["torch"], "list_keys", got[0]["list_keys"],
+          "multi_get", got[0]["multi_get"])
+
+
+_BLOCKED_RANK = """
+import os, sys, time
+import torch, torch.distributed as dist
+from megatron_tpu_torch.training.coordination import (
+    ClusterCoordinator, StoreBackend)
+
+rank, port = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=2)
+c = ClusterCoordinator(StoreBackend(2), rank, 2, peer_death_timeout_s=5)
+c.start_heartbeats()
+c.topology_barrier(60)
+x = torch.ones(1 << 20, device="cuda")
+dist.all_reduce(x)
+if rank == 1:
+    # alive but silent: no heartbeats, never in the next collective
+    c.stop_watchdog()
+    time.sleep(600)
+c.start_watchdog(lambda verdict: (print("verdict", verdict, flush=True),
+                                  os._exit(76)))
+print("blocked", time.monotonic(), flush=True)
+dist.all_reduce(x)
+print("COLLECTIVE-RETURNED", flush=True)
+"""
+
+
+def test_sideband_exits_76_out_of_a_blocked_gloo_collective(gen):
+    """Rank 0 blocked in a gloo all-reduce of a CUDA tensor whose peer
+    stopped heartbeating: the sideband thread exits 76 within the 5 s
+    death window plus a 10 s slack."""
+    import time
+
+    procs = _ranks(_BLOCKED_RANK)
+    try:
+        out0 = procs[0].communicate(timeout=120)[0]
+        exited = time.monotonic()   # CLOCK_MONOTONIC: the children's too
+    finally:
+        procs[1].kill()
+        procs[1].communicate()
+    assert procs[0].returncode == 76, out0
+    assert "verdict" in out0 and "peer_death" in out0, out0
+    assert "COLLECTIVE-RETURNED" not in out0
+    blocked = float(out0.split("blocked ")[1].split()[0])
+    print(f"exit 76 {exited - blocked:.2f} s after the block began")
+    assert exited - blocked <= 5 + 10

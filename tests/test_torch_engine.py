@@ -224,7 +224,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "analysis.taxonomy", "analysis.contracts",
         "telemetry.tracing.events", "telemetry.tracing.analyze",
         "telemetry.perfetto", "tools.trace_report", "tools.comm_report",
-        "tools.telemetry_report", "training.aot", "tools.hbm_check")]
+        "tools.telemetry_report", "training.aot", "tools.hbm_check",
+        "training.coordination", "tools.checkpoint_util",
+        "tools.verify_correctness")]
     code = (
         "import importlib, pkgutil, sys\n"
         "import megatron_tpu_torch as pkg\n"

@@ -17,12 +17,17 @@ composed reduce-scatter and host path, and the native *_single
 collectives) and a two-way p2p, the vocab-parallel cross-entropy with
 label smoothing and z_loss against cross_entropy_loss, and two training
 cases held to the port's single-process step: dp2 with ZeRO-1, and a
-tied-embedding GPT-2 at pp2 (the embedding group's gradient sum).
+tied-embedding GPT-2 at pp2 (the embedding group's gradient sum); a
+posted send that its caller overwrites before the wait arrives as
+posted; and the sharded layout's two-phase commit with a coordinator
+on each rank (both hosts stage, rank 0 commits; a poisoned peer aborts
+the next commit, journaled, the tracker unmoved).
 """
 
 import _torch_threads  # noqa: F401  (first: one torch thread)
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -319,13 +324,46 @@ TRAIN_CASES = {
 
 
 @pytest.fixture(scope="module")
-def world2():
+def world2(tmp_path_factory):
     jobs = [("mappings", "mappings", None), ("comm", "comm", None),
-            ("cross_entropy", "cross_entropy", None)]
+            ("cross_entropy", "cross_entropy", None),
+            ("p2p_snapshot", "p2p_snapshot", None),
+            ("coordinated_save", "coordinated_save",
+             str(tmp_path_factory.mktemp("coordinated")))]
     jobs += [(name, "train", case) for name, case in TRAIN_CASES.items()]
     jobs.append(("live_contract", "call",
                  ("_torch_tracing_worker:live_contract", {})))
     return W.World(2, jobs).results()
+
+
+def test_sharded_save_commits_two_phase_over_hosts(world2):
+    """The sharded layout at tp2 with a coordinator on each rank (each its
+    own host): both hosts stage, rank 0 commits; when host 1 has
+    published a poison record and stages nothing, rank 0's commit aborts
+    (journaled `commit_abort`), the tracker keeps the first save and the
+    second stays an uncommitted staging dir."""
+    from megatron_tpu_torch.training import checkpointing as ckpt
+
+    got = world2["coordinated_save"]
+    save = got["save"]
+    assert got["staged_3"] == [0, 1]
+    assert ckpt.read_tracker(save) == 3
+    path = ckpt.checkpoint_dir(save, 3)
+    assert ckpt.verify_checkpoint(path, deep=True)[0]
+    assert os.path.exists(os.path.join(path, ckpt.STATE_DIR, ckpt.LAYOUT))
+    assert got["aborted"]
+    aborts = [e for e in got["events"] if e["kind"] == "commit_abort"]
+    assert len(aborts) == 1 and aborts[0]["iteration"] == 5
+    assert aborts[0]["host"] == 0 and "test" in aborts[0]["reason"]
+    assert ckpt.committed_iterations(save) == [3]
+    assert os.path.isdir(ckpt.checkpoint_dir(save, 5) + ckpt.STAGING_SUFFIX)
+
+
+def test_p2p_send_is_a_snapshot_taken_at_posting(world2):
+    """A send posted by p2p_start and overwritten before its wait, its
+    peer's receive posted late: the bytes that arrive are the posted
+    ones, not the overwrite."""
+    assert world2["p2p_snapshot"] is True
 
 
 @pytest.mark.parametrize("name", ["copy_to_tp", "reduce_from_tp",

@@ -23,15 +23,28 @@ the tp2 x pp2 one-shot calls. Held:
     post-LN block served at tp2, one-shot and on the dense engine, equal
     the one-process path's greedy tokens, logprobs within 1e-5;
   * what stays refused at pp > 1 names the JAX server's rule: the
-    engine, int8 KV caches, beam search.
+    engine, int8 KV caches, beam search;
+  * elastic resume (tests/_torch_elastic_worker.py; the JAX package's
+    tests/test_elastic.py matrix): the four ranks train dp4, tp2 x dp2
+    and pp2 x dp2 runs preempted at iteration 4, and the two ranks
+    resume each at dp2 to 8 with the uninterrupted run's samples (the
+    consumed counts, and the batch fingerprints where a rank's rows are
+    unchanged) and losses within the JAX test's tolerances, the change
+    journaled as `elastic_resume` and logged; tools/checkpoint_util
+    verifies the sharded checkpoints (printing the preemption tag) and
+    retention keeps the preempted one.
 """
 
 import _torch_threads  # noqa: F401  (first: one torch thread)
+
+import os
+import re
 
 import jax
 import numpy as np
 import pytest
 
+import _torch_elastic_worker as E
 import _torch_parallel_worker as W
 import _torch_pp_serving_worker as P
 import _torch_tp_serving_worker as S
@@ -94,20 +107,25 @@ def _jax_pipelined(jcfg, jparams):
 
 
 @pytest.fixture(scope="module")
-def runs(weights):
+def runs(weights, tmp_path_factory):
     pp_path, paged_path = weights["pp"][0], weights["paged"][0]
+    elastic = str(tmp_path_factory.mktemp("elastic"))
     two = W.World(2, [
         ("pp", "call", ("_torch_pp_serving_worker:pp_job",
                         {"weights": pp_path})),
         ("paged", "call", ("_torch_pp_serving_worker:paged_job",
                            {"weights": paged_path})),
         ("families", "call", ("_torch_pp_serving_worker:families_job",
-                              {}))])
+                              {})),
+        ("elastic_resume", "call", ("_torch_elastic_worker:resume_job",
+                                    {"out_dir": elastic}))])
     four = W.World(4, [
         ("tp2_pp2", "call", ("_torch_pp_serving_worker:tp2_pp2_job",
-                             {"weights": pp_path}))])
+                             {"weights": pp_path})),
+        ("elastic", "call", ("_torch_elastic_worker:train_job",
+                             {"out_dir": elastic}))])
     jax_out = _jax_pipelined(*weights["pp"][1:3])    # while the ranks run
-    return {**two.results(), **four.results()}, jax_out
+    return {**two.results(), **four.results()}, jax_out, elastic
 
 
 def test_pp2_generation_equals_jax_pipelined_forward(runs, weights):
@@ -244,3 +262,69 @@ def test_pipelined_serving_keeps_the_jax_refusals(weights):
                            "--serve_num_slots", "8"])
     srv.check_parallel_flags(args)
     assert args.serve_num_slots == 0
+
+
+def _steps(tele):
+    from megatron_tpu_torch.telemetry.journal import read_events
+
+    evs, _ = read_events(os.path.join(tele, "events.jsonl"))
+    return evs, {e["iteration"]: e for e in evs if e["kind"] == "step"}
+
+
+# case -> (the four ranks' dp, tp, pp; loss tolerances of the JAX test)
+ELASTIC = {"dp4_to_dp2": ((4, 1, 1), dict(rtol=2e-4, atol=1e-6)),
+           "tp2_to_tp1": ((2, 2, 1), dict(rtol=5e-4, atol=1e-5)),
+           "pp2_to_pp1": ((2, 1, 2), dict(rtol=5e-4, atol=1e-5))}
+
+
+@pytest.mark.parametrize("case", list(E.CASES))
+def test_elastic_resume_sample_exact(runs, case, capsys):
+    """Preempted at iteration 4 at the four ranks' topology, resumed at
+    dp2 on two ranks: iterations 5..8 consume the uninterrupted run's
+    samples with its losses, and the change is journaled."""
+    from megatron_tpu_torch.training import checkpointing as ckpt
+
+    d = os.path.join(runs[2], case)
+    (dp, tp, pp), tol = ELASTIC[case]
+    _, oracle = _steps(os.path.join(d, "oracle"))
+    _, pre = _steps(os.path.join(d, "pre"))
+    evs, resumed = _steps(os.path.join(d, "resumed"))
+    assert set(oracle) == set(range(1, 9)) and max(pre) == 4
+    save = os.path.join(d, "ck")
+    assert "preemption" in ckpt.checkpoint_tags(ckpt.checkpoint_dir(save, 4))
+    assert ckpt.read_tracker(save) == 8
+    elastic = [e for e in evs if e["kind"] == "elastic_resume"]
+    assert len(elastic) == 1
+    e = elastic[0]
+    assert (e["from_dp"], e["to_dp"]) == (dp, 2)
+    assert (e["from_tp"], e["to_tp"], e["from_pp"], e["to_pp"]) == (
+        tp, 1, pp, 1)
+    assert (e["accum_from"], e["accum_to"]) == (8 // dp, 4)
+    assert e["iteration"] == 4
+    for it in range(1, 5):
+        assert pre[it]["data_crc"] == oracle[it]["data_crc"], it
+        assert pre[it]["loss"] == oracle[it]["loss"], it
+    assert set(resumed) == set(range(5, 9))
+    for it in range(5, 9):
+        assert (resumed[it]["consumed_samples"]
+                == oracle[it]["consumed_samples"]), it
+        if dp == 2:     # rank 0 holds the same rows of each batch
+            assert resumed[it]["data_crc"] == oracle[it]["data_crc"], it
+        np.testing.assert_allclose(resumed[it]["loss"], oracle[it]["loss"],
+                                   **tol)
+    # the tools on the sharded checkpoints the ranks left: verify names
+    # the preemption tag, and retention keeps the preempted one
+    from megatron_tpu_torch.tools import checkpoint_util
+
+    assert [ok for _, ok in checkpoint_util.main(
+        ["verify", "--load", save, "--deep"])] == [True, True]
+    assert "[tags: preemption]" in capsys.readouterr().out
+    assert checkpoint_util.main(["prune", "--load", save, "--keep_latest_k",
+                                 "1", "--dry_run"]) == []
+    log = "\n".join(runs[0]["elastic_resume"]["logs"][case])
+    assert re.search(rf"data_parallel={dp}.*resuming at data_parallel=2",
+                     log)
+    if tp > 1:
+        assert "tp 2->1" in log
+    if pp > 1:
+        assert "pp 2->1" in log

@@ -218,9 +218,12 @@ def test_chrome_loader_gives_the_smoke_formulas(profiled, tmp_path):
         assert card.kernels == n == 40
         assert card.window_ms == window_ms
         assert card.busy_ms == busy_ms
-        assert card.idle_share == 1 - (busy_ms * 1e6) / (window_ms * 1e6)
+        # the shares of the exact integer nanoseconds (ms * 1e6 alone can
+        # land an ulp off the integer, and the quotient with it)
+        window_ns, busy_ns = round(window_ms * 1e6), round(busy_ms * 1e6)
+        assert card.idle_share == 1 - busy_ns / window_ns
         assert card.comm_ms == comm_ms
-        assert card.comm_share == (comm_ms * 1e6) / (window_ms * 1e6)
+        assert card.comm_share == round(comm_ms * 1e6) / window_ns
         assert card.comm_ms_by_op == pytest.approx(by_op, rel=1e-15)
     # the profiled window itself: two train_step markers, no comm.* at
     # world size 1, host time only
