@@ -215,6 +215,31 @@ still run, so one call shows every failure):
               is reported beside them (tokens agreeing before the first
               difference). TTFT and TPOT of the phase's requests printed.
               The memory-fit processes (phase 4) start with this phase.
+  3g. fleet   the serving fleet: four replica processes (python -m
+              megatron_tpu_torch.inference.fleet.replica) of Llama-2-7B's
+              width x 4 layers, bf16, one weights checkpoint: D (dense
+              engine, handoff peer D2, MEGATRON_TPU_FAULT=migrate_fail:1),
+              P (paged, ps 16), and the targets D2 (dense) and P2
+              (paged); a RouterServer in front of D and P. 16 greedy and
+              8 seeded-sampled requests of 100-700 prompt tokens x 64
+              new tokens, straight to D2 and P2 (the references, TTFT
+              and TPOT) and through the router. Gates: (vi) POST
+              /admin/profile of 4 ticks writes a trace with exactly 4
+              decode_tick ranges; (iii) a 1024-token prefix registered
+              on P and imported into P2 (64 pages), whose next request
+              sharing it prefills only its tail (+ 1); (iv)
+              rolling_update of D and P through /admin/reload under
+              traffic drops no request; (i) SIGKILL D under traffic:
+              every request answers, D's breaker opens, D respawned on
+              its port is readmitted by the probe; (ii) SIGTERM D with
+              12 requests in flight: its drain hands them to D2, every
+              one answers, each migrated one (the KV path, greedy and
+              seeded) emits the reference's tokens, D exits 0; (v) the
+              first frame D sends is torn, D2's crc check rejects it
+              (409) and that request finishes through the recompute
+              rung; P drained with handoff to D2 (paged -> dense) under
+              traffic, journaled. The replicas' B1/B4/B5 launches
+              (their /admin/status) summed, each > 0.
   4. training write a synthetic corpus (Zipf token ids, 32000 vocab, from
               SEED) with the port's MMapIndexedDatasetBuilder into
               megatron_tpu_torch/build/, then call
@@ -351,7 +376,22 @@ still run, so one call shows every failure):
               from indexed blocks (hit rates printed, ordered), and
               tasks.main RET-FINETUNE-NQ from (d)'s checkpoint,
               ORQA_FIT_STEPS steps on one batch of generated DPR rows
-              (its loss must fall).
+              (its loss must fall). (a) runs with an explicit
+              --hidden_dropout 0.0 --attention_dropout 0.0; 5e(b)
+              follows it.
+  5e. dropout (a) tools/finetune at Llama-2-7B's width x 4 layers, S
+              2048, 6 steps from the seed's init: without dropout, with
+              --hidden_dropout 0.1 --lima_dropout twice, and so again
+              under --recompute_granularity full. Gates: finite losses;
+              the two dropout runs bitwise equal; full recompute within
+              STEP_LOSS_ATOL (the same masks); each layer's keep rate
+              (counted at the two hidden sites) within 4 sigma of
+              1 - rate(l), layer 0 keeping everything; B1-B3 launches
+              equal to the run without dropout's. The step time against
+              the run without dropout printed. (b) in phase 5d:
+              tools/pretrain_bert at BERT-large with hidden and
+              attention dropout 0.1 (the JAX defaults), 4 steps: finite
+              losses, the step time against 5d(a)'s.
   6. loop     the loop and the data, in a temporary directory: (a) a
               seeded JSONL corpus (20,000 documents of Zipf-drawn words),
               a GPT-2 byte-level vocabulary learned from it and written
@@ -3380,6 +3420,474 @@ def _text_serving(torch, np, ft, card, tmp):
 
 
 # ---------------------------------------------------------------------------
+# phase 3g: the serving fleet on one card
+# ---------------------------------------------------------------------------
+
+# four replica processes of Llama-2-7B's width x FLEET_LAYERS (bf16, the
+# same weights, loaded from one params checkpoint the parent commits):
+# D (dense engine; its drains hand off to D2, and MEGATRON_TPU_FAULT=
+# migrate_fail:1 tears its first outbound frame), P (paged, ps 16), and
+# the handoff and prefix targets D2 (dense) and P2 (paged); a router
+# (RouterServer) in front of D and P. Traffic: FLEET_GREEDY greedy and
+# FLEET_SAMPLED seeded-sampled requests, prompts of FLEET_PROMPTS tokens
+# (distinct lengths), FLEET_NEW new tokens each
+FLEET_SPEC = {"model_name": "llama2-7B", "overrides": {"num_layers": 4}}
+FLEET_DEVICE = "cuda"          # a CPU rehearsal sets "cpu" and a tiny spec
+FLEET_GREEDY, FLEET_SAMPLED = 16, 8
+FLEET_PROMPTS = (100, 700)
+FLEET_NEW = 64
+FLEET_SLOTS = 8
+FLEET_MAX_SEQ = 2048
+FLEET_PREFIX = 1024            # (iii)'s registered prefix, tokens
+FLEET_PREFIX_TAIL = 100
+FLEET_PROFILE_TICKS = 4        # (vi)
+# (ii): the respawned D's ticks are slowed, so that its requests are
+# still decoding when the SIGTERM comes
+FLEET_RESPAWN_FAULT = "migrate_fail:1,slow_tick:30"
+FLEET_TIMEOUT_S = 300
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _fleet_requests(np, vocab) -> list:
+    """The phase's request bodies: greedy first, then seeded-sampled."""
+    rng = np.random.default_rng(SEED + 7)
+    n = FLEET_GREEDY + FLEET_SAMPLED
+    lens = rng.choice(np.arange(FLEET_PROMPTS[0], FLEET_PROMPTS[1] + 1),
+                      size=n, replace=False)
+    out = []
+    for i, p in enumerate(lens):
+        body = {"prompts": [" ".join(map(str, rng.integers(
+                    0, vocab - 1, size=int(p)).tolist()))],
+                "tokens_to_generate": FLEET_NEW}
+        if i < FLEET_GREEDY:
+            body["temperature"] = 0.0
+        else:
+            body.update(temperature=0.8, top_k=40, random_seed=100 + i)
+        out.append(body)
+    return out
+
+
+def _fleet_send(url, bodies, start=None) -> dict:
+    """The bodies as concurrent requests to url + /api: {"results":
+    [(status, payload)], "wall_s"}; start(i) runs as request i goes."""
+    results = [None] * len(bodies)
+
+    def one(i):
+        status, payload, _ = _call(url + "/api", bodies[i], method="POST",
+                                   timeout=FLEET_TIMEOUT_S)
+        results[i] = (status, payload)
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(bodies))]
+    for i, th in enumerate(threads):
+        th.start()
+        if start is not None:
+            start(i)
+    for th in threads:
+        th.join(FLEET_TIMEOUT_S)
+    return {"results": results, "wall_s": time.monotonic() - t0}
+
+
+def _metrics_of(url) -> str:
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        return r.read().decode()
+
+
+def _latency(before: dict, after: dict) -> dict:
+    """Mean TTFT and TPOT over a window from the replicas' engine
+    histograms ({url: exposition} before and after)."""
+    sums = {"ttft": [0.0, 0.0], "tpot": [0.0, 0.0]}
+    for url in after:
+        for key, name in (("ttft", "engine_ttft_seconds"),
+                          ("tpot", "engine_time_per_output_token_seconds")):
+            for j, suffix in enumerate(("_sum", "_count")):
+                sums[key][j] += (_metric(after[url], name + suffix)
+                                 - _metric(before[url], name + suffix))
+    return {f"{k}_mean_s": (s / c if c else None)
+            for k, (s, c) in sums.items()}
+
+
+def _wait_active(url, n: int, timeout: float = 60.0) -> float:
+    """Poll a replica until n of its slots are busy; the busy count."""
+    deadline = time.monotonic() + timeout
+    active = 0.0
+    while time.monotonic() < deadline:
+        active = _metric(_metrics_of(url), "engine_slots_active")
+        if active >= n:
+            break
+        time.sleep(0.01)
+    return active
+
+
+def _status_of(url) -> dict:
+    return _call(url + "/admin/status", method="GET", timeout=60)[1]
+
+
+def _fleet_events(tel) -> list:
+    path = os.path.join(tel, "events.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _decode_tick_ranges(path) -> int:
+    """decode_tick ranges on the host in a Chrome trace (the engine's
+    tick markers; the CUDA side's copies are not counted)."""
+    with open(path) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", events) if isinstance(
+        events, dict) else events
+    return sum(1 for e in events if e.get("name") == "decode_tick"
+               and e.get("ph") == "X"
+               and e.get("cat") in ("user_annotation", "cpu_op"))
+
+
+def fleet(torch, np, ft, card):
+    """Phase 3g in a temporary directory, removed at the end."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="smoke_fleet_")
+    try:
+        return _fleet(torch, np, ft, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _fleet(torch, np, ft, card, tmp):
+    from megatron_tpu_torch.inference.fleet import migration
+    from megatron_tpu_torch.inference.fleet.reload import (
+        save_params_checkpoint,
+    )
+    from megatron_tpu_torch.inference.fleet.replica import (
+        ReplicaProcess, spec_config,
+    )
+    from megatron_tpu_torch.inference.fleet.router import RouterServer
+    from megatron_tpu_torch.models.params import init_params
+
+    cfg = spec_config(FLEET_SPEC)
+    t0 = time.monotonic()
+    params = init_params(cfg, SEED, device=FLEET_DEVICE)
+    ck = os.path.join(tmp, "weights")
+    save_params_checkpoint(ck, 1, params)
+    del params
+    free_cuda(torch)
+    save_s = time.monotonic() - t0
+    tel = {n: os.path.join(tmp, f"tel_{n}") for n in ("D", "P", "D2", "P2")}
+    ports = {n: _free_port() for n in ("D2", "P2")}
+
+    def spec(name, **kw):
+        s = dict(FLEET_SPEC, seed=SEED, load=ck, engine_slots=FLEET_SLOTS,
+                 max_seq_len=FLEET_MAX_SEQ, port=0, warmup=True,
+                 device=FLEET_DEVICE, drain_timeout=120.0,
+                 request_timeout=float(FLEET_TIMEOUT_S),
+                 null_vocab=cfg.vocab_size, telemetry_dir=tel[name],
+                 port_file=os.path.join(tmp, f"{name}.port"),
+                 profile_dir=os.path.join(tmp, f"profile_{name}"))
+        s.update(kw)
+        return s
+
+    paged = dict(kv_paging=True, page_size=PAGE_SIZE,
+                 prefill_chunk=PREFILL_CHUNK)
+    d2_url = f"http://127.0.0.1:{ports['D2']}"
+    specs = {"D2": spec("D2", port=ports["D2"]),
+             "P2": spec("P2", port=ports["P2"], **paged),
+             "D": spec("D", peers=[d2_url]),
+             "P": spec("P", **paged)}
+    reps = {n: ReplicaProcess(
+        s, env=dict(os.environ, MEGATRON_TPU_FAULT="", PYTHONPATH=REPO),
+        log_path=os.path.join(tmp, f"{n}.log")) for n, s in specs.items()}
+    line = {"phase": "fleet", "card": card, "model": "llama2-7B",
+            "layers": cfg.num_layers, "slots": FLEET_SLOTS,
+            "max_seq_len": FLEET_MAX_SEQ, "checkpoint_save_s": save_s,
+            "reduced": f"depth 32 -> {cfg.num_layers} layers (four "
+                       "replicas share the card)"}
+    problems, launches = [], {}
+    router = None
+
+    def count(name, key=None):
+        launches[key or name] = _status_of(reps[name].url).get(
+            "kernel_launches", {})
+
+    def logs():
+        out = {}
+        for n in reps:
+            p = os.path.join(tmp, f"{n}.log")
+            if os.path.exists(p):
+                with open(p, errors="replace") as f:
+                    out[n] = f.read()[-2000:]
+        return out
+
+    try:
+        t0 = time.monotonic()
+        for r in reps.values():
+            r.spawn()
+        for r in reps.values():
+            r.wait_ready(timeout=FLEET_TIMEOUT_S)
+        line["spawn_to_ready_s"] = time.monotonic() - t0
+        urls = {n: r.url for n, r in reps.items()}
+        bodies = _fleet_requests(np, cfg.vocab_size)
+
+        def texts(run):
+            out = []
+            for i, res in enumerate(run["results"]):
+                if res is None or res[0] != 200:
+                    problems.append(f"request {i}: {res and res[0]} "
+                                    f"{res and str(res[1])[:200]}")
+                    out.append(None)
+                else:
+                    out.append(res[1]["text"][0])
+            return out
+
+        # (a) the references, straight to one replica of each engine
+        before = {urls["D2"]: _metrics_of(urls["D2"])}
+        direct = _fleet_send(urls["D2"], bodies)
+        after = {urls["D2"]: _metrics_of(urls["D2"])}
+        refs = texts(direct)
+        refs_paged = texts(_fleet_send(urls["P2"], bodies))
+        line["direct"] = {"wall_s": direct["wall_s"],
+                          **_latency(before, after)}
+        line["paged_equals_dense_share"] = sum(
+            a == b for a, b in zip(refs, refs_paged)) / len(refs)
+
+        # the same requests through the router over D and P
+        router = RouterServer([urls["D"], urls["P"]], probe_interval=0.2,
+                              request_timeout=float(FLEET_TIMEOUT_S),
+                              breaker_failures=1).start()
+        before = {u: _metrics_of(u) for u in (urls["D"], urls["P"])}
+        routed = _fleet_send(router.url, bodies)
+        after = {u: _metrics_of(u) for u in (urls["D"], urls["P"])}
+        got = texts(routed)
+        line["router"] = {"wall_s": routed["wall_s"],
+                          **_latency(before, after),
+                          "equal_to_an_engine_reference": sum(
+                              g in (a, b) for g, a, b in
+                              zip(got, refs, refs_paged)) / len(got)}
+
+        # (vi) /admin/profile: FLEET_PROFILE_TICKS ticks under traffic
+        prof = {}
+        run = threading.Thread(target=lambda: prof.update(
+            traffic=_fleet_send(urls["D"], bodies[:FLEET_SLOTS])))
+        run.start()
+        _wait_active(urls["D"], 1)
+        status, res, _ = _call(urls["D"] + "/admin/profile",
+                               {"steps": FLEET_PROFILE_TICKS,
+                                "timeout_s": 60}, method="POST", timeout=120)
+        run.join(FLEET_TIMEOUT_S)
+        ranges = (_decode_tick_ranges(res["trace"]) if status == 200
+                  else None)
+        line["profile"] = {"status": status, "ticks": res.get("ticks"),
+                           "complete": res.get("complete"),
+                           "decode_tick_ranges": ranges,
+                           "wall_s": res.get("wall_s")}
+        if ranges != FLEET_PROFILE_TICKS:
+            problems.append(f"(vi) the trace holds {ranges} decode_tick "
+                            f"ranges, not {FLEET_PROFILE_TICKS}: {res}")
+        texts(prof["traffic"])
+
+        # (iii) a 1024-token prefix registered on P, imported into P2
+        rng = np.random.default_rng(SEED + 9)
+        prefix = rng.integers(0, cfg.vocab_size - 1,
+                              size=FLEET_PREFIX).tolist()
+        status, reg, _ = _call(urls["P"] + "/admin/register_prefix",
+                               {"tokens": prefix}, method="POST")
+        rep = migration.replicate_prefix(urls["P"], [urls["P2"]], prefix)
+        stats0 = _status_of(urls["P2"])["engine"]
+        tail = rng.integers(0, cfg.vocab_size - 1,
+                            size=FLEET_PREFIX_TAIL).tolist()
+        status2, _, _ = _call(urls["P2"] + "/api", {
+            "prompts": [" ".join(map(str, prefix + tail))],
+            "tokens_to_generate": 8, "temperature": 0.0}, method="POST")
+        stats1 = _status_of(urls["P2"])["engine"]
+        prefilled = stats1["prefill_tokens"] - stats0["prefill_tokens"]
+        line["prefix"] = {
+            "register_status": status, "register": reg,
+            "imported_pages": [e.get("pages") for e in rep["replicated"]],
+            "wire_bytes": rep["bytes"], "request_status": status2,
+            "prompt_tokens": FLEET_PREFIX + FLEET_PREFIX_TAIL,
+            "prefill_tokens": prefilled,
+            "prefix_hits": stats1["prefix_hits"] - stats0["prefix_hits"]}
+        if not (status == 200 and status2 == 200
+                and rep["replicated"] and rep["replicated"][0]["pages"]
+                == FLEET_PREFIX // PAGE_SIZE
+                and prefilled <= FLEET_PREFIX_TAIL + 1
+                and stats1["prefix_hits"] > stats0["prefix_hits"]):
+            problems.append(f"(iii) prefix handoff: {line['prefix']}")
+
+        # (iv) rolling_update over D and P under traffic through the
+        # router: every request answers
+        upd = {}
+        run = threading.Thread(target=lambda: upd.update(
+            traffic=_fleet_send(router.url, bodies)))
+        run.start()
+        _wait_active(urls["D"], 1)
+        t0 = time.monotonic()
+        results = router.router.rolling_update(load=ck, drain_timeout=120,
+                                               ready_timeout=120)
+        line["rolling_update"] = {
+            "wall_s": time.monotonic() - t0,
+            "versions": [r.get("version") for r in results],
+            "ready": [r.get("ready") for r in results],
+            "errors": [r.get("error") for r in results if r.get("error")]}
+        run.join(FLEET_TIMEOUT_S)
+        dropped = sum(1 for x in texts(upd["traffic"]) if x is None)
+        line["rolling_update"]["dropped"] = dropped
+        if dropped or line["rolling_update"]["errors"] or \
+                line["rolling_update"]["versions"] != [1, 1]:
+            problems.append(f"(iv) rolling update: "
+                            f"{line['rolling_update']}")
+
+        # (i) SIGKILL D under traffic through the router; the breaker
+        # opens, a respawn on the same port is readmitted by the probe
+        count("D", "D (first process)")
+        fail = {}
+        run = threading.Thread(target=lambda: fail.update(
+            traffic=_fleet_send(router.url, bodies)))
+        run.start()
+        busy = _wait_active(urls["D"], 1)
+        reps["D"].kill()
+        run.join(FLEET_TIMEOUT_S)
+        lost = sum(1 for x in texts(fail["traffic"]) if x is None)
+        d_state = next(r for r in router.router.replicas
+                       if r.url == urls["D"])
+        opened = d_state.breaker_opens > 0 or d_state.failures > 0
+        t0 = time.monotonic()
+        reps["D"].env = dict(os.environ, MEGATRON_TPU_FAULT=(
+            FLEET_RESPAWN_FAULT), PYTHONPATH=REPO)
+        reps["D"].spawn()
+        reps["D"].wait_ready(timeout=FLEET_TIMEOUT_S)
+        readmit_deadline = time.monotonic() + 60
+        while (router.router._num_routable() < 2
+               and time.monotonic() < readmit_deadline):
+            time.sleep(0.1)
+        line["failover"] = {"failed_requests": lost,
+                            "busy_slots_at_kill": busy,
+                            "breaker_opened": opened,
+                            "respawn_to_readmit_s": time.monotonic() - t0,
+                            "routable": router.router._num_routable(),
+                            "router": router.router.status()}
+        if lost or not opened or router.router._num_routable() != 2:
+            problems.append(f"(i) failover: lost {lost}, breaker "
+                            f"{opened}, routable "
+                            f"{router.router._num_routable()}")
+
+        # (ii) SIGTERM D with every request in flight on it: its drain
+        # hands them to D2 (dense -> dense: the "kv" path; migrate_fail:1
+        # tears the first frame, which D2 rejects, and that request goes
+        # on through the recompute rung)
+        # (sampled first: they take slots, so they migrate by their KV)
+        sub = (list(range(FLEET_GREEDY, FLEET_GREEDY + FLEET_SLOTS // 2))
+               + list(range(FLEET_SLOTS)))
+        term = {}
+        run = threading.Thread(target=lambda: term.update(
+            traffic=_fleet_send(urls["D"], [bodies[i] for i in sub])))
+        run.start()
+        busy = _wait_active(urls["D"], FLEET_SLOTS)
+        count("D")
+        reps["D"].terminate()
+        run.join(FLEET_TIMEOUT_S)
+        got = dict(zip(sub, texts(term["traffic"])))
+        exit_d = reps["D"].wait(timeout=120)
+        events = _fleet_events(tel["D"])
+        # the respawned process's drain: the rows after its drain began
+        begin = [i for i, e in enumerate(events)
+                 if e.get("kind") == "serve_drain_begin"]
+        events = events[begin[-1]:] if begin else events
+        done = [e for e in events if e.get("kind") == "serve_migrate"
+                and e.get("stage") == "handoff_done"]
+        hand = [e for e in events if e.get("kind") == "serve_migrate"
+                and e.get("stage") == "handoff"]
+        outcome = {e["prompt_len"]: e["outcome"] for e in done}
+        plen = [len(b["prompts"][0].split()) for b in bodies]
+        migrated = [i for i in sub if outcome.get(plen[i]) == "migrated"]
+        torn = [e for e in hand if e.get("status") == 409]
+        line["handoff"] = {
+            "busy_slots_at_sigterm": busy,
+            "exit_code": exit_d, "outcomes": sorted(outcome.values()),
+            "migrated_greedy": sum(i < FLEET_GREEDY for i in migrated),
+            "migrated_sampled": sum(i >= FLEET_GREEDY for i in migrated),
+            "migrated_equal_to_reference": sum(
+                got[i] == refs[i] for i in migrated),
+            "all_equal_to_reference": sum(
+                got[i] == refs[i] for i in sub) / len(sub),
+            "wire_bytes": sum(e.get("wire_bytes", 0) for e in hand
+                              if e.get("ok")),
+            "torn_frames": len(torn),
+            "torn_errors": [e.get("error", "")[:120] for e in torn]}
+        if (exit_d != 0 or not migrated
+                or any(got[i] != refs[i] for i in migrated)
+                or not any(i >= FLEET_GREEDY for i in migrated)
+                or not all(o in ("migrated", "recomputed")
+                           for o in outcome.values())):
+            problems.append(f"(ii) handoff: {line['handoff']}")
+        # (v) the torn frames: rejected by the crc, the request finished
+        recomputed = [e for e in done if e["outcome"] == "recomputed"]
+        line["migrate_fail"] = {"torn": len(torn),
+                                "recomputed": len(recomputed)}
+        if not torn or any("torn transfer" not in e.get("error", "")
+                           and "crc" not in e.get("error", "")
+                           for e in torn) or len(recomputed) < len(torn):
+            problems.append(f"(v) migrate_fail: {line['migrate_fail']}")
+
+        # paged -> dense: drain P with handoff to D2 under traffic
+        pd = {}
+        run = threading.Thread(target=lambda: pd.update(
+            traffic=_fleet_send(urls["P"], bodies[:FLEET_SLOTS])))
+        run.start()
+        _wait_active(urls["P"], 1)
+        status, _, _ = _call(urls["P"] + "/admin/drain",
+                             {"timeout_s": 120, "handoff": [urls["D2"]]},
+                             method="POST", timeout=FLEET_TIMEOUT_S)
+        run.join(FLEET_TIMEOUT_S)
+        ok = sum(1 for x in texts(pd["traffic"]) if x is not None)
+        pdone = [e for e in _fleet_events(tel["P"])
+                 if e.get("kind") == "serve_migrate"
+                 and e.get("stage") == "handoff_done"]
+        line["paged_to_dense"] = {"drain_status": status, "answered": ok,
+                                  "journaled": sorted(e["outcome"]
+                                                      for e in pdone)}
+        if status != 200 or ok != FLEET_SLOTS or not pdone:
+            problems.append(f"paged -> dense: {line['paged_to_dense']}")
+
+        for n in ("P", "D2", "P2"):
+            count(n)
+    except Exception as e:  # noqa: BLE001 - reported with the logs
+        problems.append(f"{type(e).__name__}: {e}")
+        traceback.print_exc()
+        line["logs"] = logs()
+    finally:
+        if router is not None:
+            router.close()
+        for r in reps.values():
+            r.terminate()
+        for r in reps.values():
+            try:
+                r.wait(timeout=60)
+            except Exception:  # noqa: BLE001 - then by force
+                r.kill()
+    counted = ("flash_fwd", "flash_decode", "paged_flash_decode")
+    total = {k: sum(c.get(k, 0) for c in launches.values()) for k in counted}
+    line["launches_by_replica"] = {n: {k: c.get(k, 0) for k in counted}
+                                   for n, c in launches.items()}
+    line["launches"] = total
+    if not all(total[k] > 0 for k in counted):
+        problems.append(f"B1/B4/B5 launches over the replicas: {total}")
+    emit(line)
+    if problems:
+        raise AssertionError("fleet: " + "; ".join(problems))
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 4's memory fit and the scale proofs (training/aot.py through
 # tools/hbm_check, each in a process of its own on the host's CPU)
 # ---------------------------------------------------------------------------
@@ -4221,6 +4729,177 @@ def serve_checkpoint(torch, np, ft, load, master, dataclasses) -> dict:
     out["launches"] = {**{k: 0 for k in TRAIN_COUNTED}, **launches}
     out["problems"] = problems
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: dropout on the card
+# ---------------------------------------------------------------------------
+
+# (a) the finetune entry point at Llama-2-7B's width x DROP_LAYERS, S
+# DROP_SEQ, DROP_STEPS steps from the seed's random init: without
+# dropout, with --hidden_dropout DROP_RATE --lima_dropout (its masks'
+# keep rates recorded by layer), the same again (bitwise), and with
+# --recompute_granularity full (its masks are the same masks: within
+# phase 4b's STEP_LOSS_ATOL). (b) runs inside phase 5d (pretrain_bert at
+# BERT-large with the JAX defaults 0.1 / 0.1).
+DROP_MODEL = "llama2-7B"
+DROP_DEVICE = "cuda"           # a CPU rehearsal sets "cpu" and "tiny"
+DROP_LAYERS = 4
+DROP_SEQ = 2048
+DROP_STEPS = 6
+DROP_RATE = 0.1
+DROP_SIGMAS = 4.0
+DROP_CHATS = 16
+
+
+class _KeepRecorder:
+    """A dropout mask source that draws the default source's masks and
+    counts, per layer, the kept positions of the two hidden sites (key
+    path microbatch, layer, split(3)[1 or 2]), on the device."""
+
+    def __init__(self, draw):
+        self.draw = draw
+        self.kept, self.total = {}, {}
+
+    def __call__(self, key, shape, rate, device):
+        keep = self.draw(key, shape, rate, device)
+        f = key.folds
+        if (len(f) == 3 and isinstance(f[2], tuple)
+                and f[2][2] in (1, 2)):
+            self.kept[f[1]] = self.kept.get(f[1], 0) + keep.sum()
+            self.total[f[1]] = self.total.get(f[1], 0) + keep.numel()
+        return keep
+
+
+def dropout_training(torch, np, ft, card):
+    """Phase 5e(a) in a temporary directory, removed at the end."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="smoke_dropout_")
+    try:
+        return _dropout_training(torch, np, ft, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _dropout_training(torch, np, ft, card, tmp):
+    import dataclasses
+    import statistics
+
+    from megatron_tpu_torch.models.language_model import _layer_dropout_rates
+    from megatron_tpu_torch.models import presets
+    from megatron_tpu_torch.parallel import random as prandom
+    from megatron_tpu_torch.tools import preprocess_instruct_data
+    from megatron_tpu_torch.tools import finetune as finetune_tool
+
+    chats = os.path.join(tmp, "chats")
+    write_chats(np, chats + ".jsonl")
+    preprocess_instruct_data.main([
+        "--input", chats + ".jsonl", "--output_prefix", chats,
+        "--tokenizer_type", "null", "--vocab_size", str(VOCAB)])
+    common = ["--model_name", DROP_MODEL, "--num_layers", str(DROP_LAYERS),
+              "--seq_length", str(DROP_SEQ), "--bf16",
+              "--attention_impl", "pallas", "--micro_batch_size",
+              str(TRAIN_MICRO), "--global_batch_size", str(TRAIN_GLOBAL),
+              "--train_iters", str(DROP_STEPS), "--lr", TRAIN_LR,
+              "--lr_decay_style", "constant", "--scalar_loss_mask", "0.1",
+              "--data_path", chats, "--log_interval", "1",
+              "--seed", str(SEED), "--device", DROP_DEVICE]
+    selective = ["--recompute_granularity", "selective"]
+    drop = ["--hidden_dropout", str(DROP_RATE), "--lima_dropout"]
+    runs = {"plain": common + selective,
+            "dropout": common + selective + drop,
+            "dropout_again": common + selective + drop,
+            "dropout_full": common + drop
+            + ["--recompute_granularity", "full"]}
+    counted = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    out, launches = {}, {}
+    recorder = _KeepRecorder(prandom.default_mask_source)
+    for name, argv in runs.items():
+        # each run is a main path: its counts start at 0 here
+        for k in TRAIN_COUNTED:
+            getattr(ft, k).launches = 0
+        if name == "dropout":
+            prandom.default_mask_source = recorder
+        try:
+            t0 = time.monotonic()
+            loop = finetune_tool.main(argv, log=lambda m: None)
+            if DROP_DEVICE == "cuda":
+                torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        finally:
+            prandom.default_mask_source = recorder.draw
+        launches[name] = {k: getattr(ft, k).launches for k in counted}
+        hist = loop.history
+        out[name] = {"losses": [h["lm_loss"] for h in hist],
+                     "step_ms": 1e3 * statistics.median(
+                         h["window_s"] for h in hist[1:]),
+                     "wall_s": wall, "launches": launches[name]}
+        del loop, hist
+        free_cuda(torch)
+
+    cfg = dataclasses.replace(presets.from_model_name(DROP_MODEL),
+                              num_layers=DROP_LAYERS,
+                              hidden_dropout=DROP_RATE, lima_dropout=True)
+    rates = _layer_dropout_rates(cfg)
+    keep = []
+    for layer in range(DROP_LAYERS):
+        n = recorder.total.get(layer, 0)
+        k = float(recorder.kept[layer]) if n else None
+        p = 1.0 - float(rates[layer])
+        sigma = math.sqrt(p * (1 - p) / n) if n else None
+        keep.append({"layer": layer, "rate": float(rates[layer]),
+                     "keep": k / n if n else None, "positions": n,
+                     "sigma": sigma})
+    problems = []
+    for name, rec in out.items():
+        if len(rec["losses"]) != DROP_STEPS or not all(
+                math.isfinite(x) for x in rec["losses"]):
+            problems.append(f"{name}: losses {rec['losses']}")
+    if out["dropout"]["losses"] != out["dropout_again"]["losses"]:
+        problems.append("the same seed's dropout losses differ: "
+                        f"{out['dropout']['losses']} vs "
+                        f"{out['dropout_again']['losses']}")
+    full_err = max(abs(a - b) for a, b in zip(
+        out["dropout"]["losses"], out["dropout_full"]["losses"]))
+    if not full_err <= STEP_LOSS_ATOL:
+        problems.append(f"full recompute's losses {full_err} from the "
+                        f"selective run's (gate {STEP_LOSS_ATOL})")
+    if out["plain"]["losses"] == out["dropout"]["losses"]:
+        problems.append("dropout changed no loss")
+    for rec in keep:
+        if rec["positions"] == 0:
+            problems.append(f"layer {rec['layer']}: no mask drawn")
+        elif rec["rate"] == 0.0:
+            if rec["keep"] != 1.0:
+                problems.append(f"layer 0 kept {rec['keep']}, not all")
+        elif abs(rec["keep"] - (1 - rec["rate"])) > DROP_SIGMAS * \
+                rec["sigma"]:
+            problems.append(f"layer {rec['layer']}: keep {rec['keep']} "
+                            f"vs {1 - rec['rate']} (sigma {rec['sigma']})")
+    for name in ("dropout", "dropout_again"):
+        if launches[name] != launches["plain"]:
+            problems.append(f"{name}: B1-B3 launches {launches[name]} != "
+                            f"the run without dropout's "
+                            f"{launches['plain']}")
+    line = {"phase": "dropout", "card": card, "model": DROP_MODEL,
+            "layers": DROP_LAYERS, "seq_length": DROP_SEQ,
+            "steps": DROP_STEPS, "rate": DROP_RATE, "lima": True,
+            "reduced": f"depth 32 -> {DROP_LAYERS} layers, {DROP_STEPS} "
+                       "steps from the random init",
+            "runs": out, "keep_by_layer": keep,
+            "full_recompute_max_loss_diff": full_err,
+            "step_ratio_dropout_to_plain": (out["dropout_again"]["step_ms"]
+                                            / out["plain"]["step_ms"])}
+    emit(line)
+    if problems:
+        raise AssertionError("dropout: " + "; ".join(problems))
+    total = {k: 0 for k in TRAIN_COUNTED}
+    for name in ("dropout", "dropout_again", "dropout_full"):
+        for k, n in launches[name].items():
+            total[k] += n
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -5308,13 +5987,25 @@ def _encoder_families(torch, np, ft, card, tmp):
 
     # (a) BERT-large with the SOP head, saved for (b)
     a = argv("bert", ["--data_path", sents, "--train_iters", str(ENC_STEPS),
-                      "--save", ck, "--save_interval", str(ENC_STEPS)])
+                      "--save", ck, "--save_interval", str(ENC_STEPS),
+                      "--hidden_dropout", "0.0", "--attention_dropout",
+                      "0.0"])
     args = parse_args(a, bert_args)
     cfg = pretrain_bert.run_config(args)
     family("bert", a, lambda v: pretrain_bert.main(v, log=lambda m: None),
            lambda: TrainLoop(fit_cfg(cfg), log=lambda m: None,
                              device=ENC_DEVICE, loss_fn=bert_loss),
            lambda: pretrain_batch(pretrain_bert, args, cfg))
+
+    # 5e(b): the same entry point at the JAX defaults' dropout 0.1 / 0.1
+    try:
+        records["bert_dropout"] = _bert_dropout(torch, argv, sents,
+                                                records.get("bert"), card)
+        problems.extend(records["bert_dropout"].pop("problems"))
+    except Exception as e:  # noqa: BLE001 - gate every part
+        traceback.print_exc()
+        problems.append(f"bert dropout: {type(e).__name__}: {e}")
+    free_cuda(torch)
 
     # (b) MNLI at S 128 and RACE at S 512 from (a)'s checkpoint
     for name, tr, dv in (("mnli", "mnli_train", "mnli_dev"),
@@ -5393,6 +6084,44 @@ def _encoder_families(torch, np, ft, card, tmp):
     if problems:
         raise AssertionError("encoder families: " + "; ".join(problems))
     return counts
+
+
+DROP_BERT_STEPS = 4
+
+
+def _bert_dropout(torch, argv, sents, plain, card) -> dict:
+    """Phase 5e(b): pretrain_bert at BERT-large with hidden and attention
+    dropout 0.1 (the JAX defaults) for DROP_BERT_STEPS steps; its step
+    time against phase 5d(a)'s step without dropout, in this call."""
+    import statistics
+
+    from megatron_tpu_torch.tools import pretrain_bert
+
+    a = argv("bert", ["--data_path", sents, "--train_iters",
+                      str(DROP_BERT_STEPS), "--hidden_dropout", "0.1",
+                      "--attention_dropout", "0.1"])
+    t0 = time.monotonic()
+    loop = pretrain_bert.main(a, log=lambda m: None)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    losses = [h["lm_loss"] for h in loop.history]
+    step_ms = 1e3 * statistics.median(h["window_s"]
+                                      for h in loop.history[1:])
+    del loop
+    plain_ms = plain["step_ms"] if plain else None
+    rec = {"phase": "bert_dropout", "card": card, "family": "bert",
+           "hidden_dropout": 0.1, "attention_dropout": 0.1,
+           "steps": DROP_BERT_STEPS, "losses": losses, "wall_s": wall,
+           "step_ms": step_ms, "plain_step_ms": plain_ms,
+           "step_ratio": step_ms / plain_ms if plain_ms else None}
+    emit(rec)
+    rec["problems"] = ([] if len(losses) == DROP_BERT_STEPS and all(
+        math.isfinite(x) for x in losses) else [f"bert dropout: losses "
+                                                f"{losses}"])
+    if plain is not None and losses[:1] == plain["losses"][:1]:
+        rec["problems"].append("bert dropout: the first loss equals the "
+                               "run without dropout's")
+    return rec
 
 
 def _orqa(torch, np, card, tmp, sents, titles, ck_ict) -> dict:
@@ -8636,11 +9365,13 @@ def main(argv=()) -> int:
     if only is None or {"text_serving", "training", "memory_proofs"} & only:
         start_memory_fit()
     phase("text_serving", text_serving, torch, np, ft, card)
+    phase("fleet", fleet, torch, np, ft, card)
     phase("training", train, torch, np, ft, card)
     phase("kernel_vs_dense_step", step_vs_dense, torch, np, ft, card)
     phase("fp8_training", fp8_training, torch, np, ft, card)
     phase("memory_proofs", memory_proofs, card)
     phase("finetune", finetune, torch, np, ft, card)
+    phase("dropout", dropout_training, torch, np, ft, card)
     phase("families", families, torch, np, ft, card)
     phase("mixtral", mixtral, torch, np, ft, card)
     phase("encoder_families", encoder_families, torch, np, ft, card)
@@ -8672,9 +9403,11 @@ def main(argv=()) -> int:
              "serving_control": results["serving_control"],
              "weight_quant": results["weight_quant"],
              "text_serving": results["text_serving"],
+             "fleet": results["fleet"],
              "training": results["training"],
              "fp8_training": results["fp8_training"],
              "finetune": results["finetune"],
+             "dropout": results["dropout"],
              "families": results["families"],
              "mixtral": results["mixtral"],
              "loop": results["loop"],

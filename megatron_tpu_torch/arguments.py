@@ -173,6 +173,18 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--recompute_num_layers", type=int, default=1,
                    help="layer count or chunk for --recompute_method")
 
+    g = p.add_argument_group("regularization")
+    g.add_argument("--hidden_dropout", type=float, default=0.0,
+                   help="dropout of the embedding and of each layer's "
+                        "attention and MLP outputs")
+    g.add_argument("--attention_dropout", type=float, default=0.0,
+                   help="dropout of the attention probabilities (the "
+                        "dense attention path takes it, as in the JAX "
+                        "package)")
+    g.add_argument("--lima_dropout", action="store_true",
+                   help="LIMA's per-layer ramp: layer l drops at "
+                        "hidden_dropout * l / (L - 1)")
+
     g = p.add_argument_group("optimizer")
     g.add_argument("--lr", type=float, default=3e-4)
     g.add_argument("--min_lr", type=float, default=0.0)
@@ -592,8 +604,8 @@ def encoder_model_kwargs(args) -> dict:
     CLI's non-preset path): depth, widths, the vocabulary padded to
     --make_vocab_size_divisible_by, the length (and the position table's
     rows when --max_position_embeddings is given; the configs default it
-    to the length), the precision and the attention route, as
-    bert_config, t5_config and biencoder_config take them."""
+    to the length), the precision, the attention route and the dropout
+    flags, as bert_config, t5_config and biencoder_config take them."""
     from megatron_tpu_torch.models.presets import pad_vocab
 
     required = ("num_layers", "hidden_size", "num_attention_heads",
@@ -610,7 +622,16 @@ def encoder_model_kwargs(args) -> dict:
                                      args.make_vocab_size_divisible_by,
                                      args.tensor_model_parallel_size),
                 seq_length=args.seq_length, params_dtype=_dtype_name(args),
-                attention_impl=args.attention_impl)
+                attention_impl=args.attention_impl, **_dropout_kwargs(args))
+
+
+def _dropout_kwargs(args) -> dict:
+    """The dropout flags, which set the model's rates on every path (the
+    JAX CLI's: a preset's or an encoder config's own default gives way
+    to the flags' 0.0)."""
+    return dict(hidden_dropout=args.hidden_dropout,
+                attention_dropout=args.attention_dropout,
+                lima_dropout=args.lima_dropout)
 
 
 #: the task heads --head_lr_mult scales (the JAX CLI's pattern): GLUE's
@@ -732,7 +753,8 @@ def _preset_model(args) -> ModelConfig:
     overrides = dict(attention_impl=args.attention_impl,
                      flash_bwd=args.flash_bwd,
                      ce_chunk_size=args.ce_chunk_size,
-                     params_dtype=_dtype_name(args))
+                     params_dtype=_dtype_name(args),
+                     **_dropout_kwargs(args))
     # 2048 is the flag's default: the preset's own length stands unless
     # another one is asked for (the JAX CLI's rule)
     if args.seq_length and args.seq_length != 2048:

@@ -137,10 +137,10 @@ class ModelConfig:
     init_method_std: float = 0.02
     use_scaled_init: bool = True
 
-    # regularization: dropout is not ported (the kernels have no Philox
-    # generator yet), so validate() holds both at 0.0, the JAX default
     hidden_dropout: float = 0.0
     attention_dropout: float = 0.0
+    # LIMA per-layer linear dropout ramp (ref: transformer.py:994-1001)
+    lima_dropout: bool = False
 
     params_dtype: str = "bfloat16"
     # fp8 training products (ops/fp8.py, TransformerEngine's formats with
@@ -223,11 +223,6 @@ class ModelConfig:
                 "absolute position embeddings need max_position_embeddings")
         if self.parallel_layernorm and not self.parallel_attn:
             raise ValueError("parallel_layernorm requires parallel_attn")
-        if self.hidden_dropout != 0.0 or self.attention_dropout != 0.0:
-            raise ValueError(
-                f"hidden_dropout={self.hidden_dropout} and attention_dropout"
-                f"={self.attention_dropout}: dropout is not ported yet (the "
-                "kernels have no random generator); both must be 0.0")
         if self.num_experts is not None:
             if self.num_experts < 1:
                 raise ValueError("num_experts must be >= 1")
@@ -353,8 +348,9 @@ class TrainingConfig:
     exit_duration_in_mins: Optional[int] = None
     finetune: bool = False
     no_load_optim: bool = False
-    # accepted for the name's sake: the port keeps no RNG state (no
-    # dropout), so there is nothing to skip loading
+    # accepted for the name's sake: the port keeps no RNG state (dropout
+    # masks are functions of the seed and the step, parallel/random.py),
+    # so there is nothing to skip loading
     no_load_rng: bool = False
     # overlap the checkpoint write with training (AsyncCheckpointSaver);
     # --no_async_save blocks the loop on each write

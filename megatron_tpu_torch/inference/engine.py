@@ -107,12 +107,29 @@ engine_comm_{dense,compressed}_bytes_total and journals one comm_policy
 record at build.
 
 The serving faults of MEGATRON_TPU_FAULT are injected between ticks
-(_pre_tick, the JAX engine's hooks). KV migration and on-demand
-profiling are not ported yet (inference/server.py).
+(_pre_tick, the JAX engine's hooks).
+
+State migration (inference/fleet/migration.py's wire format, the JAX
+engine's methods): export_request_state snapshots a request's tokens,
+knobs, remaining deadline, sampling chain and committed KV in the
+canonical geometry-free [L, T, H, D] layout (the int8 cache's own bytes
+and scales, or the float cache's); import_request_state installs it IN
+PLACE into a free slot's rows of the caches the captured tick reads
+(rebinding them would leave the graph replaying stale buffers), or,
+when the KV cannot be installed exactly, re-enters the request through
+submit() to teacher-force prompt + generated (recompute-resume). Both
+paths emit the tokens of the uninterrupted run. The chain is the
+request's torch.Generator state: a sampled request moves between two
+port engines on the same device type; a sampled request whose chain
+came from the JAX package (a jax key) is refused, never re-sampled,
+and a greedy one needs no chain. paused() parks the step loop between
+ticks while export_all_requests (the drain's handoff) empties the
+engine.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 import threading
@@ -150,6 +167,8 @@ from megatron_tpu_torch.training.optimizer import leaf_paths
 
 #: prompts are padded up to a multiple of this many tokens for prefill
 PREFILL_BUCKET = 64
+#: one profiler capture at a time (the profiler traces the process)
+_PROFILE_LOCK = threading.Lock()
 
 
 def _check_tensor_parallel(speculative, cuda_graph, channel) -> None:
@@ -369,11 +388,19 @@ class InferenceEngine:
         self.params_version: Any = None
         self.last_progress_time = time.monotonic()
         self._preempt_signalled = False  # preempt_replica fires once
+        # state-migration pause (paused()): while _pause_count > 0 the
+        # step loop parks BETWEEN ticks and sets _paused_evt
+        self._pause_count = 0
+        self._paused_evt = threading.Event()
+        # a profiler capture's last tick (capture_trace): the loop parks
+        # once stats["ticks"] reaches it, so a window holds exactly N
+        self._tick_limit: Optional[int] = None
         # decode_recompiles counts captures of the decode step beyond the
         # warm-up one: the JAX engine's zero-recompiles invariant
         self.stats = {"admitted": 0, "retired": 0, "ticks": 0,
                       "rejected": 0, "decode_recompiles": 0,
-                      "timeouts": 0, "weight_reloads": 0}
+                      "timeouts": 0, "weight_reloads": 0,
+                      "kv_exports": 0, "kv_imports": 0}
         if self.spec is not None:
             # spec_emitted / ticks = tokens per target forward
             self.stats.update({"spec_proposed": 0, "spec_accepted": 0,
@@ -421,6 +448,13 @@ class InferenceEngine:
         self._m_spec_accepted = m.counter(
             "engine_spec_accepted_total",
             "draft tokens accepted by the exact accept/reject")
+        self._m_kv_exports = m.counter(
+            "engine_kv_exports_total",
+            "request states exported for migration")
+        self._m_kv_imports = m.counter(
+            "engine_kv_imports_total",
+            "migrated request states imported, by resume path",
+            label_names=("path",))
         self._m_spec_len = m.histogram(
             "engine_spec_accept_length",
             "accepted drafts per slot per tick (0..k)",
@@ -1247,6 +1281,370 @@ class InferenceEngine:
         return (busy and
                 time.monotonic() - self.last_progress_time > threshold_s)
 
+    # ----- state migration (fleet/migration.py wire format) ---------------
+
+    @contextlib.contextmanager
+    def paused(self, timeout: float = 60.0):
+        """Park the step loop BETWEEN ticks so the caller may touch slot
+        state (request export/import). Counting, so nested pauses
+        compose; a no-op when no loop thread runs (the caller drives
+        step() itself). Raises if the loop does not reach a tick boundary
+        within `timeout`."""
+        with self._cv:
+            self._pause_count += 1
+            self._cv.notify_all()
+        try:
+            t = self._thread
+            if (t is not None and t.is_alive()
+                    and threading.current_thread() is not t):
+                if not self._paused_evt.wait(timeout):
+                    raise RuntimeError(
+                        f"engine step loop did not pause within {timeout}s "
+                        "(wedged device step?)")
+            yield
+        finally:
+            with self._cv:
+                self._pause_count -= 1
+                if self._pause_count == 0:
+                    self._paused_evt.clear()
+                self._cv.notify_all()
+
+    def _kv_geometry(self) -> dict:
+        """The cache facts an importer must match (or recompute)."""
+        cfg = self.cfg
+        return {
+            "layers": int(cfg.num_layers),
+            "kv_heads": int(cfg.n_kv_heads),
+            "head_dim": int(cfg.head_dim),
+            "dtype": str(cfg.dtype).replace("torch.", ""),
+            "int8": bool(self.kv_cache_int8),
+            "sliding_window": (None if cfg.sliding_window_size is None
+                               else int(cfg.sliding_window_size)),
+        }
+
+    @staticmethod
+    def _wire(t: torch.Tensor):
+        """A host section of a cache leaf: numpy, or a CPU torch tensor
+        for a dtype numpy cannot name (bf16; the wire carries its
+        bytes)."""
+        t = t.detach().cpu().contiguous()
+        return t if t.dtype == torch.bfloat16 else t.numpy()
+
+    def _pack_kv_sections(self, leaves: List[torch.Tensor], length: int):
+        """Canonical [L, T, H, D] cache leaves (T committed positions) ->
+        (the kv meta, the wire sections): the int8 cache's own bytes and
+        scales ("int8-native"), or the float cache's ("raw"); both exact.
+        The JAX engine's opt-in lossy wire codecs (kv_wire) are not
+        ported."""
+        sections = {}
+        if self.kv_cache_int8:
+            k_q, v_q, k_s, v_s = leaves
+            sections.update(kv_k=self._wire(k_q), kv_v=self._wire(v_q),
+                            kv_k_scale=self._wire(k_s),
+                            kv_v_scale=self._wire(v_s))
+            codec = "int8-native"
+        else:
+            sections.update(kv_k=self._wire(leaves[0]),
+                            kv_v=self._wire(leaves[1]))
+            codec = "raw"
+        meta = dict(self._kv_geometry(), codec=codec, exact=True,
+                    length=int(length))
+        return meta, sections
+
+    def _decode_kv_sections(self, kv: dict, sections) -> List[torch.Tensor]:
+        """Wire sections -> canonical leaves on the engine's device, in
+        this engine's cache dtypes (the inverse of _pack_kv_sections)."""
+        names = (("kv_k", "kv_v", "kv_k_scale", "kv_v_scale")
+                 if kv["codec"] == "int8-native" else ("kv_k", "kv_v"))
+        out = []
+        for name, cache in zip(names, self.caches):
+            x = sections[name]
+            x = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+                np.array(x))
+            out.append(x.to(self.device, cache.dtype))
+        return out
+
+    def _export_slot_kv(self, i: int):
+        """Slot i's committed KV (positions 0 .. length-1) in the
+        canonical layout, or None when there is none (the importer
+        recompute-resumes). The paged engine gathers its pages instead."""
+        length = int(self.lengths[i])
+        if length <= 0:
+            return None
+        return self._pack_kv_sections(
+            [c[:, i, :length] for c in self.caches], length)
+
+    def export_request_state(self, req: Request, include_kv: bool = True):
+        """One request's resumable state as (meta, sections): prompt and
+        generated tokens, the sampling knobs and seed, the remaining
+        deadline, the chain (its generator's state, "torch_generator")
+        and, for a decoding slot, its position and KV. An importer
+        resuming from it emits the tokens this engine would have, greedy
+        and sampled. Call with the step loop paused, or from the thread
+        that calls step()."""
+        meta = {
+            "kind": "request", "chain": "torch.Generator",
+            "prompt": [int(t) for t in np.asarray(req.prompt).tolist()],
+            "generated": [int(t) for t in req.generated],
+            "logprobs": [float(x) for x in req.logprobs],
+            "prompt_logprobs": [float(x) for x in req.prompt_logprobs],
+            "max_new_tokens": int(req.max_new_tokens),
+            "temperature": float(req.temperature),
+            "top_k": int(req.top_k), "top_p": float(req.top_p),
+            "eod": None if req.eod is None else int(req.eod),
+            "seed": int(req.seed), "spec": bool(req.spec),
+        }
+        if req._deadline is not None:
+            meta["deadline_remaining_s"] = round(
+                max(req._deadline - time.monotonic(), 0.001), 6)
+        sections = {}
+        slot = next((i for i, s in enumerate(self.slots) if s is req), None)
+        mid_prefill = (slot is not None and hasattr(self, "prefill_queue")
+                       and slot in self.prefill_queue.slots)
+        state = None
+        if slot is not None and not mid_prefill:
+            gen = self.generators[slot]
+            state = gen.get_state() if gen is not None else None
+            meta["position"] = int(self.lengths[slot])
+            if include_kv:
+                kv = self._export_slot_kv(slot)
+                if kv is not None:
+                    meta["kv"], kv_sections = kv
+                    sections.update(kv_sections)
+        elif req.resume_key is not None:
+            # queued after a preemption: the chain survives in the request
+            state = req.resume_key
+        if state is not None:
+            sections["torch_generator"] = state.cpu().numpy().copy()
+            meta["generator_device"] = self.device.type
+        self.stats["kv_exports"] += 1
+        self._m_kv_exports.inc()
+        return meta, sections
+
+    def export_all_requests(self, include_kv: bool = True):
+        """Atomically REMOVE every active and queued request and return
+        [(live request, meta, sections)]. The engine is empty afterwards;
+        the caller completes or fails each returned request (their
+        waiters still block on req.done)."""
+        out = []
+        with self.paused():
+            for i in range(self.num_slots):
+                req = self.slots[i]
+                if req is None or req.done.is_set():
+                    continue
+                meta, sections = self.export_request_state(
+                    req, include_kv=include_kv)
+                self._clear_slot(i)
+                out.append((req, meta, sections))
+            self._m_active.set(self.num_active)
+            with self._cv:
+                queued = list(self._queue)
+                self._queue.clear()
+                self._m_queue.set(0)
+            for req in queued:
+                if not req.done.is_set():
+                    meta, sections = self.export_request_state(
+                        req, include_kv=False)
+                    out.append((req, meta, sections))
+        return out
+
+    def _kv_import_compatible(self, kv: dict):
+        """(ok, reason): whether a transferred KV state can be installed
+        directly into this engine's caches (else recompute-resume)."""
+        if self.mesh is not None:
+            return False, "direct KV install on mesh engines is not wired"
+        if self._has_draft_model():
+            return False, "draft-model cache migration is not wired"
+        geo = self._kv_geometry()
+        for k in ("layers", "kv_heads", "head_dim"):
+            if int(kv.get(k, -1)) != geo[k]:
+                return False, f"geometry mismatch on {k}"
+        codec = kv.get("codec")
+        if codec == "int8-native":
+            if not self.kv_cache_int8:
+                return False, "int8-native transfer into a float cache"
+        elif codec == "raw":
+            if self.kv_cache_int8:
+                return False, "raw transfer into an int8 cache"
+            if kv.get("dtype") != geo["dtype"]:
+                return False, "cache dtype mismatch"
+        else:
+            return False, f"codec {codec!r} is not installed exactly"
+        if int(kv["length"]) + self._capacity_margin() >= self.max_seq_len:
+            return False, "migrated context exceeds this engine's capacity"
+        return True, ""
+
+    def _free_slot_for_import(self) -> Optional[int]:
+        return next((i for i in range(self.num_slots)
+                     if self.slots[i] is None), None)
+
+    def _install_request_kv(self, req: Request, kv: dict, sections) -> bool:
+        """Write the transferred KV into a free slot's cache rows, in
+        place. False: no free slot (the caller recompute-resumes)."""
+        i = self._free_slot_for_import()
+        if i is None:
+            return False
+        length = int(kv["length"])
+        for cache, leaf in zip(self.caches,
+                               self._decode_kv_sections(kv, sections)):
+            cache[:, i, :length].copy_(leaf)
+        self._arm_imported_slot(i, req, length)
+        return True
+
+    def _arm_imported_slot(self, i: int, req: Request, length: int) -> None:
+        """The slot bookkeeping of an installed import: the request goes
+        on decoding at its position with its chain, no prefill."""
+        req.submit_time = time.monotonic()
+        if req.deadline_s is not None:
+            req._deadline = req.submit_time + req.deadline_s
+        self.slots[i] = req
+        self.lengths[i] = length
+        self.last_tok[i] = int(req.generated[-1])
+        self.temps[i] = req.temperature
+        self.top_ks[i] = req.top_k
+        self.top_ps[i] = req.top_p
+        self.generators[i] = self._generator(req)
+        self.spec_on[i] = bool(req.spec)
+        self._carry_dirty = True
+        self.stats["admitted"] += 1
+        self._m_admitted.inc()
+        self._m_active.set(self.num_active)
+        self.last_progress_time = time.monotonic()
+        with self._cv:
+            self._cv.notify_all()
+
+    def import_request_state(self, meta: dict, sections,
+                             allow_inexact: bool = False):
+        """Rebuild a migrated request here. Returns (req, path): path
+        "kv_import" when the KV was installed and decoding continues at
+        the migrated position, "recompute" when the request re-enters
+        through submit() and teacher-forces prompt + generated. Journals
+        a serve_migrate row (stage "import") naming the path. Raises
+        ValueError for a sampled request whose chain this engine cannot
+        resume (the JAX package's key, or another device type's
+        generator state): it is refused, never re-sampled."""
+        from megatron_tpu_torch.telemetry import journal
+
+        req = Request(
+            prompt=np.asarray(meta["prompt"], np.int32),
+            max_new_tokens=int(meta["max_new_tokens"]),
+            temperature=float(meta.get("temperature", 0.0)),
+            top_k=int(meta.get("top_k", 0)),
+            top_p=float(meta.get("top_p", 0.0)),
+            eod=meta.get("eod"), seed=int(meta.get("seed", 0)),
+            deadline_s=meta.get("deadline_remaining_s"),
+            spec=bool(meta.get("spec", True)))
+        req.generated = [int(t) for t in meta.get("generated", [])]
+        req.logprobs = [float(x) for x in meta.get("logprobs", [])]
+        req.prompt_logprobs = [float(x) for x in
+                               meta.get("prompt_logprobs", [])]
+        if req.generated and len(req.generated) >= req.max_new_tokens:
+            raise ValueError("migrated request is already complete")
+        if req.temperature > 0:
+            if meta.get("chain") != "torch.Generator":
+                raise ValueError(
+                    "a sampled request whose sampling chain is the JAX "
+                    "package's PRNG key cannot continue on this engine "
+                    "without re-sampling; greedy requests migrate")
+            if "torch_generator" in sections:
+                if meta.get("generator_device") != self.device.type:
+                    raise ValueError(
+                        f"the sampled request's generator state is a "
+                        f"{meta.get('generator_device')} generator's; "
+                        f"this engine samples on {self.device.type}")
+                req.resume_key = torch.from_numpy(
+                    np.array(sections["torch_generator"], np.uint8))
+        kv = meta.get("kv")
+        path, reason = "recompute", ""
+        if kv is None:
+            reason = "no KV in transfer"
+        elif not req.generated or (req.temperature > 0
+                                   and req.resume_key is None):
+            reason = "no decode state rode along"
+        elif int(kv["length"]) != len(req.prompt) + len(req.generated) - 1:
+            reason = "inconsistent migrated position"
+        elif not (kv.get("exact") or allow_inexact):
+            reason = f"lossy wire codec {kv.get('codec')}"
+        else:
+            ok, reason = self._kv_import_compatible(kv)
+            if ok:
+                with self.paused():
+                    if self._install_request_kv(req, kv, sections):
+                        path = "kv_import"
+                    else:
+                        reason = "no free slot/pages for a direct install"
+        if path == "recompute":
+            self.submit(req)
+        self.stats["kv_imports"] += 1
+        self._m_kv_imports.inc(path=path)
+        j = journal.get_global_journal()
+        if j is not None:
+            fields = {"stage": "import", "path": path,
+                      "prompt_len": len(req.prompt),
+                      "generated": len(req.generated)}
+            if kv is not None:
+                fields["codec"] = kv.get("codec")
+                fields["exact"] = bool(kv.get("exact"))
+            if reason:
+                fields["fallback_reason"] = reason
+            j.emit("serve_migrate", **fields)
+        return req, path
+
+    def capture_trace(self, out_dir: str, ticks: int = 4,
+                      timeout_s: float = 30.0) -> dict:
+        """A torch.profiler capture of `ticks` decode ticks under live
+        traffic (the server's /admin/profile), driven from the caller's
+        thread: the profiler starts and stops while the step loop is
+        parked between ticks, and the loop parks again once the window's
+        last tick ran, so the trace (a Chrome trace in out_dir whose
+        decode_tick ranges mark the ticks, as the loop's --profile window
+        writes them) holds exactly `ticks` ticks. An idle engine makes no
+        ticks: the window closes at timeout_s with what it saw
+        ("complete" says which)."""
+        import os
+
+        from torch.profiler import (
+            ProfilerActivity, _ExperimentalConfig, profile,
+        )
+
+        if not _PROFILE_LOCK.acquire(blocking=False):
+            raise RuntimeError("a profiler capture is already in progress "
+                               "(the profiler traces the whole process)")
+        try:
+            os.makedirs(out_dir, exist_ok=True)
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            # the step loop is another thread: its ranges are recorded
+            # only with profile_all_threads
+            prof = profile(activities=acts, experimental_config=(
+                _ExperimentalConfig(profile_all_threads=True)))
+            with self.paused():
+                prof.start()
+                start_ticks = self.stats["ticks"]
+                self._tick_limit = start_ticks + int(ticks)
+            t0 = time.monotonic()
+            try:
+                while (self.stats["ticks"] < self._tick_limit
+                       and time.monotonic() - t0 < timeout_s):
+                    time.sleep(0.002)
+                with self.paused():
+                    prof.stop()
+                    captured = self.stats["ticks"] - start_ticks
+            finally:
+                with self._cv:
+                    self._tick_limit = None
+                    self._cv.notify_all()
+            trace = os.path.join(
+                out_dir, f"decode_trace_{int(time.time() * 1e3)}.json")
+            prof.export_chrome_trace(trace)
+        finally:
+            _PROFILE_LOCK.release()
+        return {"dir": out_dir, "trace": trace, "ticks": int(captured),
+                "requested_ticks": int(ticks),
+                "complete": captured >= ticks,
+                "wall_s": round(time.monotonic() - t0, 3)}
+
     # ----- driving ---------------------------------------------------------
 
     def run_until_idle(self) -> None:
@@ -1331,10 +1729,24 @@ class InferenceEngine:
         def loop():
             while True:
                 with self._cv:
-                    while (not self._stop and self.num_active == 0
-                           and not self._queue
-                           and self._pending_params is None):
+                    while (not self._stop
+                           and (self._pause_count > 0
+                                or (self._tick_limit is not None
+                                    and self.stats["ticks"]
+                                    >= self._tick_limit)
+                                or (self.num_active == 0
+                                    and not self._queue
+                                    and self._pending_params is None))):
+                        if self._pause_count > 0 or (
+                                self._tick_limit is not None
+                                and self.stats["ticks"] >= self._tick_limit):
+                            # a migration pause or a capture's last tick:
+                            # park between ticks and tell the waiter
+                            self._paused_evt.set()
+                            self._cv.wait(timeout=0.5)
+                            continue
                         self._cv.wait()
+                    self._paused_evt.clear()
                     if self._stop:
                         return
                 try:

@@ -78,8 +78,16 @@ engine's rule), and int8 pools are cut the same way.
 compress_collectives runs the chunk and the tick through the compressed
 TP collectives (the slot engine's), each chunk counted at its static
 wire price. Context-parallel paging is the subclass in
-inference/context_parallel/. Not ported: migration and prefix
-export/import.
+inference/context_parallel/.
+
+State migration (the slot engine's export/import, inference/engine.py)
+gathers a slot's pages into the canonical [L, T, H, D] layout, and an
+import allocates pages and writes each page IN PLACE into the pools the
+captured tick reads, publishes the slot's table row and re-enters the
+prompt's full pages into the radix tree. export_prefix_state and
+import_prefix_state move a radix-cached prefix's pages between replicas
+(the fleet's prefix directory), so a prompt primed on one replica hits
+on another without a prefill.
 """
 
 from __future__ import annotations
@@ -758,6 +766,122 @@ class PagedInferenceEngine(InferenceEngine):
             self._carry_dirty = True
         self._decode_step(d["rows"])
         return len(d["rows"])
+
+    # ----- state migration (fleet/migration.py) ----------------------------
+
+    def _gather_pages(self, pages: List[int], length: int):
+        """The pools' rows of `pages`, in order, as canonical [L, T, ...]
+        leaves cut to `length` positions."""
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        out = []
+        for leaf in self.caches:
+            g = leaf[:, idx]                              # [L, n, ps, ...]
+            out.append(g.reshape(g.shape[0], -1, *g.shape[3:])[:, :length])
+        return out
+
+    def _export_slot_kv(self, i: int):
+        """Slot i's pages in the canonical layout; None when a page of
+        the span is gone (the sliding window released it to scratch):
+        nothing exact to ship, so the importer recompute-resumes (the
+        window mask is a function of position)."""
+        length = int(self.lengths[i])
+        if length <= 0:
+            return None
+        n_pages = -(-length // self.page_size)
+        row = self._pending_rows.get(i, self.tables[i])
+        pages = [int(p) for p in row[:n_pages]]
+        if any(p == SCRATCH_PAGE for p in pages):
+            return None
+        return self._pack_kv_sections(self._gather_pages(pages, length),
+                                      length)
+
+    def _write_pages(self, pages: List[int], leaves) -> None:
+        """Canonical leaves [L, T, ...] into `pages` of the pools, in
+        place (positions past T keep what the page held: never read)."""
+        ps = self.page_size
+        for cache, leaf in zip(self.caches, leaves):
+            for j, pg in enumerate(pages):
+                block = leaf[:, j * ps:(j + 1) * ps]
+                cache[:, pg, :block.shape[1]].copy_(block)
+
+    def _install_request_kv(self, req: Request, kv: dict, sections) -> bool:
+        """Paged install: allocate the span's pages, write them, publish
+        the table row, and put the prompt's full pages in the radix tree
+        (so requests sharing the prompt hit on this replica too)."""
+        i = self._free_slot_for_import()
+        if i is None:
+            return False
+        length = int(kv["length"])
+        ps = self.page_size
+        n_pages = -(-length // ps)
+        pages = self._alloc_pages(n_pages)
+        if pages is None:
+            return False
+        self._write_pages(pages, self._decode_kv_sections(kv, sections))
+        row = np.full(self.max_pages, SCRATCH_PAGE, np.int32)
+        row[:n_pages] = pages
+        self.tables[i] = row
+        self._table_dirty = True
+        self._admit_counter += 1
+        self._admit_seq[i] = self._admit_counter
+        self._arm_imported_slot(i, req, length)
+        p0 = len(req.prompt)
+        if p0 >= ps and req.prompt_logprobs:
+            self.prefix_cache.insert(req.prompt, [int(p) for p in
+                                                  row[:p0 // ps]],
+                                     req.prompt_logprobs)
+        self._m_pages_free.set(self.pool.free_pages)
+        return True
+
+    def export_prefix_state(self, tokens):
+        """The radix-cached whole-page prefix of `tokens` as (meta,
+        sections) of kind "prefix", or None when nothing is cached."""
+        toks = [int(t) for t in tokens]
+        with self.paused():
+            pages, lps = self.prefix_cache.lookup(toks)
+            if not pages:
+                return None
+            span = len(pages) * self.page_size
+            kv_meta, sections = self._pack_kv_sections(
+                self._gather_pages([int(p) for p in pages], span), span)
+        meta = {"kind": "prefix", "tokens": toks[:span], "kv": kv_meta}
+        # the per-node logprob slices concatenate back into the
+        # (position - 1)-indexed prompt_logprobs of tokens[1:span]
+        sections["prefix_logprobs"] = (
+            np.concatenate([np.asarray(x, np.float32) for x in lps])
+            if lps else np.zeros(0, np.float32))
+        return meta, sections
+
+    def import_prefix_state(self, meta: dict, sections) -> int:
+        """Install a replicated prefix's pages into the pool and the
+        radix tree. Returns the pages added (0: incompatible, or already
+        cached here)."""
+        kv = meta.get("kv") or {}
+        ok, _ = self._kv_import_compatible(kv)
+        if not ok or not kv.get("exact"):
+            return 0
+        toks = [int(t) for t in meta.get("tokens", [])]
+        span = int(kv.get("length", 0))
+        ps = self.page_size
+        if span <= 0 or span % ps or span > len(toks):
+            return 0
+        n_pages = span // ps
+        with self.paused():
+            have, _ = self.prefix_cache.lookup(toks)
+            if len(have) >= n_pages:
+                return 0            # the local copy stays authoritative
+            pages = self._alloc_pages(n_pages)
+            if pages is None:
+                return 0
+            self._write_pages(pages, self._decode_kv_sections(kv, sections))
+            lps = np.asarray(sections.get("prefix_logprobs",
+                                          np.zeros(0)), np.float32)
+            added = self.prefix_cache.insert(toks[:span], pages, lps)
+            # the tree retained its own references: drop the
+            # allocation's, so the pages are cache-only (evictable)
+            self.pool.release(pages)
+            self._m_pages_free.set(self.pool.free_pages)
+        return added
 
     def _retire(self, i: int):
         # base _retire -> _clear_slot releases this slot's page refs;

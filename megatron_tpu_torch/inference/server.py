@@ -41,14 +41,40 @@ Probes and the control plane:
                          has work but makes no progress
   GET  /admin/status     ready/draining/reloading/weights_version and the
                          engine's stats
-  POST /admin/drain      {"timeout_s": F}: stop admitting (new /api
-                         requests answer 503 + Retry-After) and wait for
-                         the engine and any one-shot request to finish
+  POST /admin/drain      {"timeout_s": F, "handoff": [urls]?}: stop
+                         admitting (new /api requests answer 503 +
+                         Retry-After); with handoff peers (the field, or
+                         the server's peers) migrate the requests in
+                         flight and queued to them, else wait for the
+                         engine and any one-shot request to finish
   POST /admin/readmit    {}: resume admission
   POST /admin/reload     {"load": DIR?, "iteration": N?}: hot weight
                          reload from a manifest-verified checkpoint
                          (inference/fleet/reload.py) swapped in between
                          decode ticks; 409 when no checkpoint verifies
+  POST /admin/import     <binary frame>: a migrated request's state
+                         (inference/fleet/migration.py), run to
+                         completion here, its output returned; 409 on a
+                         torn or corrupt frame
+  POST /admin/export_prefix {"tokens": [...]}: a radix-cached prefix's
+                         pages as a binary frame (404 when not cached)
+  POST /admin/import_prefix <binary frame>: install exported prefix
+                         pages into this replica's radix cache
+  POST /admin/register_prefix {"tokens": [...]}: make a prefix radix-
+                         resident (one greedy token primes it if not)
+  POST /admin/profile    {"steps": N, "timeout_s": F?, "dir": D?}: a
+                         torch.profiler capture of N decode ticks under
+                         live traffic into profile_dir (--serve_profile_
+                         dir), as the loop's --profile window writes it
+                         (decode_tick ranges); 409 while another runs
+
+A drain with handoff walks each request down the JAX server's ladder:
+migrate (the whole state, KV included, to a peer's /admin/import; the
+peer finishes it and the client's response is completed from the
+peer's output), recompute (the same frame without the KV), retry (no
+peer took it: the request fails as overloaded, a 503 the fleet router
+re-runs) and reject (the drain budget is spent: 504). Greedy and seeded
+requests resume token-identically (the engines' migration).
 
 Parallel serving (a MeshRuntime as `mesh` and a
 parallel/distributed.ServingChannel): one GenerationService per rank,
@@ -70,9 +96,7 @@ generation through the ContextParallelEngine
 (inference/context_parallel/); the one-shot paths (scoring, beam search,
 engine_slots 0) are refused there with a 400.
 
-Not ported yet: KV migration and prefix export/import (/admin/import,
-/admin/export_prefix, /admin/import_prefix, /admin/register_prefix),
-on-demand profiling (/admin/profile) and context-parallel lanes.
+Not ported yet: context-parallel lanes (--serve_cp_lanes).
 """
 
 from __future__ import annotations
@@ -107,6 +131,7 @@ from megatron_tpu_torch.inference.generation import (
 from megatron_tpu_torch.inference.paging import PagedInferenceEngine
 from megatron_tpu_torch.inference.speculative import SpecConfig
 from megatron_tpu_torch.models.params import empty_params
+from megatron_tpu_torch.ops.flash import flash_template
 from megatron_tpu_torch.ops.weight_quant import (
     quantize_params_for_serving, quantized_mode,
 )
@@ -153,7 +178,8 @@ class GenerationService:
                  cp_serving: bool = False, cp_collectives: str = "dense",
                  cp_comm_policy: Optional[str] = None,
                  cp_geometry: str = "ring", cp_subgroup: int = 0,
-                 cp_overlap: bool = True):
+                 cp_overlap: bool = True, peers: Optional[list] = None,
+                 profile_dir: Optional[str] = None):
         """engine_slots > 0 builds the engine (kv_paging: the paged one,
         with page_size-token pages, prefill_chunk-token chunks and a pool
         of num_pages pages) and its step-loop thread; 0 serves one
@@ -182,7 +208,8 @@ class GenerationService:
         refused), with cp_collectives ("dense" | "int8" | "fp8") the ring
         hop's transport, cp_comm_policy its site policy, cp_geometry
         "ring" or "2d" (cp_subgroup = cp_head), cp_overlap the overlapped
-        ring schedule."""
+        ring schedule. peers: the base URLs a drain hands its requests
+        off to; profile_dir: /admin/profile's default output directory."""
         if engine_slots < 0:
             raise ValueError("engine_slots must be >= 0 (0: one-shot)")
         if speculative is not None and not engine_slots:
@@ -218,6 +245,19 @@ class GenerationService:
             label_names=("status",))
         self._m_latency = self.metrics.histogram(
             "server_request_seconds", "API request wall time")
+        self.peers = [str(p).rstrip("/") for p in (peers or [])]
+        self.profile_dir = profile_dir or os.path.join("runs",
+                                                      "serve_profile")
+        self._m_migrations = self.metrics.counter(
+            "server_migrations_total",
+            "request handoffs by degradation-ladder outcome",
+            label_names=("outcome",))
+        # migration frames' wire bytes, apart from the engine's
+        # TP-collective byte counters
+        self._m_migrate_bytes = self.metrics.counter(
+            "server_migrate_wire_bytes_total",
+            "KV-state migration wire bytes (manifest cost model)",
+            label_names=("direction",))
         self.engine = None
         if cp_serving and not (engine_slots and kv_paging):
             raise ValueError("context-parallel serving runs over the paged "
@@ -329,15 +369,33 @@ class GenerationService:
         detail["ok"] = ok
         return ok, detail
 
-    def drain(self, timeout_s: float = 30.0) -> bool:
+    @staticmethod
+    def _journal(kind: str, **fields) -> None:
+        from megatron_tpu_torch.telemetry import journal
+
+        j = journal.get_global_journal()
+        if j is not None:
+            j.emit(kind, **fields)
+
+    def drain(self, timeout_s: float = 30.0,
+              handoff_urls: Optional[list] = None) -> bool:
         """Stop admitting (new /api requests answer 503 + Retry-After) and
         wait for the work in flight: the engine's requests, then any
         one-shot request (beam search, scoring, the engine-less path)
         under self.lock. True when drained within timeout_s. Probes and
-        admin requests keep answering; readmit() undoes it."""
+        admin requests keep answering; readmit() undoes it. With handoff
+        peers (handoff_urls, else the server's peers) the engine's
+        requests in flight and queued are migrated to them first
+        (migrate_out) instead of waited on."""
         with self._admin_lock:
             self.draining = True
+            peers = [str(p).rstrip("/") for p in
+                     (handoff_urls if handoff_urls else self.peers)]
+            self._journal("serve_drain_begin", timeout_s=timeout_s,
+                          handoff_peers=len(peers))
             deadline = time.monotonic() + timeout_s
+            if peers and self.engine is not None:
+                self.migrate_out(peers, timeout_s=timeout_s)
             drained = (self.engine.wait_idle(
                 timeout=max(deadline - time.monotonic(), 0.001))
                 if self.engine is not None else True)
@@ -346,12 +404,225 @@ class GenerationService:
                     timeout=max(deadline - time.monotonic(), 0.001))
                 if drained:
                     self.lock.release()
+            self._journal("serve_drain_done", drained=drained)
             return drained
 
     def readmit(self) -> None:
         """Resume admission after a drain."""
         with self._admin_lock:
             self.draining = False
+            self._journal("serve_readmit")
+
+    # ----- KV-state migration ------------------------------------------------
+
+    def migrate_out(self, peers: list, timeout_s: float = 30.0) -> dict:
+        """Hand every engine request in flight or queued to a peer:
+        export_all_requests empties the engine (the waiters stay blocked
+        on req.done), then each request walks the ladder (_handoff_one)
+        and its waiter is completed or failed. Returns {outcome: count}."""
+        if self.mesh is not None:
+            raise ValueError("a drain's handoff exports a one-rank "
+                             "engine's requests (not wired above one rank)")
+        deadline = time.monotonic() + timeout_s
+        exported = self.engine.export_all_requests()
+        outcomes: dict = {}
+        for req, meta, sections in exported:
+            budget = max(deadline - time.monotonic(), 0.0)
+            outcome = self._handoff_one(req, meta, sections, peers, budget)
+            outcomes[outcome] = outcomes.get(outcome, 0) + 1
+            self._m_migrations.inc(outcome=outcome)
+        if exported:
+            self._journal("serve_handoff", requests=len(exported),
+                          peers=len(peers), **outcomes)
+        return outcomes
+
+    def _handoff_one(self, req, meta: dict, sections: dict, peers: list,
+                     budget_s: float) -> str:
+        """One request down the ladder (the module docstring): migrate,
+        recompute, retry, reject. Each rung's attempt is journaled
+        (serve_migrate stage "handoff") and the outcome (stage
+        "handoff_done"). Returns the outcome's label."""
+        from megatron_tpu_torch.inference.fleet import migration
+        from megatron_tpu_torch.training import resilience
+
+        deadline = time.monotonic() + budget_s
+
+        def _done(outcome: str) -> str:
+            self._journal("serve_migrate", stage="handoff_done",
+                          outcome=outcome, prompt_len=len(req.prompt),
+                          generated=len(req.generated))
+            return outcome
+
+        rungs = []
+        if "kv" in meta:
+            rungs.append(("migrate", meta, sections))
+        rungs.append(("recompute",
+                      {k: v for k, v in meta.items() if k != "kv"},
+                      {k: v for k, v in sections.items()
+                       if not k.startswith("kv_")}))
+        for rung, m, sec in rungs:
+            if deadline - time.monotonic() <= 0:
+                break
+            blob = migration.pack_state(m, sec)
+            # migrate_fail:N tears the first N outbound frames: the
+            # peer's crc check rejects each, and the ladder goes on
+            blob = resilience.maybe_corrupt("migrate_fail", blob)
+            for peer in peers:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                t0 = time.monotonic()
+                status, body = migration.post_blob(
+                    peer + "/admin/import", blob, timeout=remaining)
+                ok = status == 200 and isinstance(body, dict)
+                fields = {"stage": "handoff", "rung": rung, "ok": ok,
+                          "peer": peer, "status": status,
+                          "wire_bytes": len(blob),
+                          "wall_s": round(time.monotonic() - t0, 3)}
+                if not ok:
+                    err = (body or {}).get("message") or (
+                        body or {}).get("error")
+                    if err:
+                        fields["error"] = str(err)[:200]
+                self._journal("serve_migrate", **fields)
+                if not ok:
+                    continue
+                self._m_migrate_bytes.inc(len(blob), direction="out")
+                req.generated[:] = [int(t) for t in
+                                    body.get("generated", [])]
+                if body.get("logprobs") is not None:
+                    req.logprobs[:] = [float(x) for x in body["logprobs"]]
+                plp = body.get("prompt_logprobs")
+                if plp and not req.prompt_logprobs:
+                    req.prompt_logprobs = [float(x) for x in plp]
+                req._finish()
+                return _done("migrated" if body.get("path") == "kv_import"
+                             else "recomputed")
+        if time.monotonic() >= deadline:
+            self._journal("serve_migrate", stage="handoff", rung="reject",
+                          ok=False, reason="drain budget spent")
+            self.engine._fail_timeout(req, "migrating")
+            return _done("rejected")
+        self._journal("serve_migrate", stage="handoff", rung="retry",
+                      ok=True)
+        req.overloaded = True
+        req._finish("handoff failed on every peer; the request is "
+                    "retryable (the fleet router re-runs it: greedy and "
+                    "seeded requests replay identically)")
+        return _done("retried")
+
+    def import_state(self, blob: bytes) -> dict:
+        """POST /admin/import: verify the frame (a torn one raises
+        MigrationIntegrityError before the engine is touched), rebuild
+        the request in the engine (KV install or recompute-resume), run
+        it to completion and return its output for the exporter."""
+        from megatron_tpu_torch.inference.fleet import migration
+
+        if self.engine is None:
+            raise ValueError("state import needs the continuous-batching "
+                             "engine (engine_slots > 0)")
+        if self.draining:
+            raise ServiceDrainingError(
+                "server is draining; migrate elsewhere")
+        meta, sections = migration.unpack_state(blob)
+        if meta.get("kind") != "request":
+            raise ValueError(
+                f"expected a request-state frame, got {meta.get('kind')!r}")
+        self._m_migrate_bytes.inc(len(blob), direction="in")
+        req, path = self.engine.import_request_state(meta, sections)
+        budget = meta.get("deadline_remaining_s")
+        if budget is None:
+            budget = self.request_timeout or 60.0
+        if not req.done.wait(timeout=float(budget) + 5.0):
+            raise RequestTimeoutError("imported request did not complete "
+                                      "within its migrated deadline")
+        if req.timed_out:
+            raise RequestTimeoutError(req.error or "deadline exceeded")
+        if req.error:
+            raise ValueError(req.error)
+        return {"path": path,
+                "generated": [int(t) for t in req.generated],
+                "logprobs": [float(x) for x in req.logprobs],
+                "prompt_logprobs": [float(x) for x in req.prompt_logprobs]}
+
+    def _paged_engine(self):
+        if self.engine is None or not hasattr(self.engine,
+                                              "export_prefix_state"):
+            raise ValueError("prefix export/import needs the paged engine "
+                             "(kv_paging)")
+        return self.engine
+
+    def export_prefix_blob(self, tokens: list) -> Optional[bytes]:
+        """A cached prefix's pages as a frame (/admin/export_prefix);
+        None when the radix cache holds nothing of it (404)."""
+        from megatron_tpu_torch.inference.fleet import migration
+
+        out = self._paged_engine().export_prefix_state(
+            [int(t) for t in tokens])
+        if out is None:
+            return None
+        blob = migration.pack_state(*out)
+        self._m_migrate_bytes.inc(len(blob), direction="out")
+        return blob
+
+    def import_prefix_blob(self, blob: bytes) -> dict:
+        """/admin/import_prefix: install a prefix frame into the radix
+        cache, so the next prompt sharing it hits here."""
+        from megatron_tpu_torch.inference.fleet import migration
+
+        eng = self._paged_engine()
+        meta, sections = migration.unpack_state(blob)
+        if meta.get("kind") != "prefix":
+            raise ValueError(
+                f"expected a prefix frame, got {meta.get('kind')!r}")
+        self._m_migrate_bytes.inc(len(blob), direction="in")
+        pages = eng.import_prefix_state(meta, sections)
+        self._journal("serve_prefix_import", pages=pages,
+                      wire_bytes=len(blob))
+        return {"pages": pages}
+
+    def register_prefix(self, tokens: list) -> dict:
+        """/admin/register_prefix: make a prefix (a system prompt)
+        radix-resident here, priming it with one greedy token if it is
+        not; the router then fans its pages out (replicate_prefix)."""
+        eng = self._paged_engine()
+        toks = [int(t) for t in tokens]
+        if not toks:
+            raise ValueError("tokens: non-empty int list required")
+        pages, _ = eng.prefix_cache.lookup(toks)
+        if len(pages) < len(toks) // eng.page_size:
+            eng.generate(np.array([toks], np.int32),
+                         np.array([len(toks)], np.int32), max_new_tokens=1)
+            pages, _ = eng.prefix_cache.lookup(toks)
+        self._journal("serve_prefix_register", tokens=len(toks),
+                      pages=len(pages))
+        return {"pages": len(pages), "tokens": len(toks)}
+
+    def profile(self, steps: int = 4, timeout_s: float = 30.0,
+                out_dir: Optional[str] = None) -> dict:
+        """/admin/profile: a torch.profiler capture of `steps` decode
+        ticks under live traffic (engine.capture_trace), journaled
+        (profile_begin / profile_end, or profile_aborted)."""
+        if self.engine is None:
+            raise ValueError("on-demand profiling needs the continuous-"
+                             "batching engine (engine_slots > 0)")
+        steps = int(steps)
+        if not 1 <= steps <= 10_000:
+            raise ValueError("steps must be in [1, 10000]")
+        timeout_s = float(timeout_s)
+        if not 0 < timeout_s <= 600:
+            raise ValueError("timeout_s must be in (0, 600]")
+        out = out_dir or self.profile_dir
+        self._journal("profile_begin", source="admin", dir=out, steps=steps)
+        try:
+            result = self.engine.capture_trace(out, ticks=steps,
+                                               timeout_s=timeout_s)
+        except BaseException as e:  # noqa: BLE001 - journaled, re-raised
+            self._journal("profile_aborted", source="admin",
+                          reason=type(e).__name__, flushed=False)
+            raise
+        self._journal("profile_end", source="admin", **result)
+        return result
 
     def reload(self, load: Optional[str] = None,
                iteration: Optional[int] = None,
@@ -416,6 +687,10 @@ class GenerationService:
                "weights_version": self.weights_version}
         if self.engine is not None:
             out["engine"] = dict(self.engine.stats)
+        # the flash kernels' launches in this process (a fleet's chip
+        # check sums them over its replicas); a captured tick's replays
+        # are added by the engine (inference/cuda_graph.py)
+        out["kernel_launches"] = flash_template.launch_counts()
         return out
 
     # ----- requests --------------------------------------------------------
@@ -517,6 +792,17 @@ def make_handler(service: GenerationService):
             length = int(self.headers.get("Content-Length", 0))
             return json.loads(self.rfile.read(length) or b"{}")
 
+        def _read_body(self) -> bytes:
+            return self.rfile.read(int(self.headers.get("Content-Length",
+                                                        0)))
+
+        def _reply_blob(self, blob: bytes):
+            self.send_response(200)
+            self.send_header("Content-Type", "application/octet-stream")
+            self.send_header("Content-Length", str(len(blob)))
+            self.end_headers()
+            self.wfile.write(blob)
+
         def _handle(self):
             path = self.path.split("?", 1)[0]
             if path.startswith("/admin/"):
@@ -553,6 +839,30 @@ def make_handler(service: GenerationService):
                 service._m_latency.observe(time.monotonic() - t0)
 
         def _handle_admin(self, path: str):
+            from megatron_tpu_torch.inference.fleet.migration import (
+                MigrationIntegrityError,
+            )
+
+            retry = (("Retry-After", str(RETRY_AFTER_SECONDS)),)
+            if path in ("/admin/import", "/admin/import_prefix"):
+                # migration frames are binary, never read through JSON
+                try:
+                    blob = self._read_body()
+                    self._reply(200, service.import_state(blob)
+                                if path == "/admin/import"
+                                else service.import_prefix_blob(blob))
+                except MigrationIntegrityError as e:
+                    # torn or corrupt: the exporter's ladder goes on
+                    self._reply(409, {"message": str(e), "torn": True})
+                except ServiceDrainingError as e:
+                    self._reply(503, {"message": str(e)}, headers=retry)
+                except RequestTimeoutError as e:
+                    self._reply(504, {"message": str(e), "timeout": True})
+                except ValueError as e:
+                    self._reply(400, {"message": str(e)})
+                except Exception as e:  # noqa: BLE001 - must not die
+                    self._reply(500, {"message": f"admin failed: {e}"})
+                return
             try:
                 req = self._read_json()
                 if not isinstance(req, dict):
@@ -563,7 +873,8 @@ def make_handler(service: GenerationService):
                 return
             try:
                 if path == "/admin/drain":
-                    drained = service.drain(float(req.get("timeout_s", 30.0)))
+                    drained = service.drain(float(req.get("timeout_s", 30.0)),
+                                            handoff_urls=req.get("handoff"))
                     self._reply(200, {"drained": drained, "draining": True})
                 elif path == "/admin/readmit":
                     service.readmit()
@@ -572,9 +883,31 @@ def make_handler(service: GenerationService):
                     version = service.reload(load=req.get("load"),
                                              iteration=req.get("iteration"))
                     self._reply(200, {"version": version})
+                elif path == "/admin/profile":
+                    try:
+                        self._reply(200, service.profile(
+                            steps=int(req.get("steps", 4)),
+                            timeout_s=float(req.get("timeout_s", 30.0)),
+                            out_dir=req.get("dir")))
+                    except RuntimeError as e:
+                        # another capture owns the profiler: conflict
+                        self._reply(409, {"message": str(e)})
+                elif path == "/admin/export_prefix":
+                    blob = service.export_prefix_blob(req.get("tokens")
+                                                      or [])
+                    if blob is None:
+                        self._reply(404, {"message": "prefix not cached "
+                                                     "here"})
+                    else:
+                        self._reply_blob(blob)
+                elif path == "/admin/register_prefix":
+                    self._reply(200, service.register_prefix(
+                        req.get("tokens") or []))
                 else:
-                    self._reply(404, {"message": "POST /admin/"
-                                      "{drain,readmit,reload}"})
+                    self._reply(404, {"message": "POST /admin/{drain,"
+                                      "readmit,reload,profile,import,"
+                                      "export_prefix,import_prefix,"
+                                      "register_prefix}"})
             except NoValidCheckpointError as e:
                 # an operator or checkpoint problem, not a server fault
                 self._reply(409, {"message": str(e)})
@@ -632,7 +965,8 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
                drain_timeout: float = 30.0, warmup: bool = False,
                reload_dir: Optional[str] = None,
                weights_version: Optional[int] = None, mesh=None,
-               channel=None, cuda_graph: bool = True, **engine_kw) -> None:
+               channel=None, cuda_graph: bool = True,
+               port_file: Optional[str] = None, **engine_kw) -> None:
     """Serve until ``server.shutdown()`` or a signal; port=0 binds an
     ephemeral port. In-process callers may pass `service_out` (a list
     that receives (service, server)) and `ready` (set once listening).
@@ -644,8 +978,11 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
     once with 128 + signum. warmup=True runs GenerationService.warmup()
     on a side thread, so /healthz and /readyz answer meanwhile. At more
     than one rank this is rank 0's (the other ranks run
-    GenerationService.follow). engine_kw: GenerationService's
-    compressed-collective and context-parallel keywords."""
+    GenerationService.follow). port_file: the bound port is published
+    there as {"port", "pid"} (written whole, then renamed), for a parent
+    that bound port 0 (inference/fleet/replica.py). engine_kw:
+    GenerationService's compressed-collective, context-parallel, peers
+    and profile_dir keywords."""
     service = GenerationService(
         cfg, params, tokenizer, engine_slots=engine_slots,
         engine_max_seq_len=engine_max_seq_len, device=device,
@@ -658,6 +995,11 @@ def run_server(cfg: ModelConfig, params: Any, tokenizer,
         **engine_kw)
     server = ThreadingHTTPServer((host, port), make_handler(service))
     bound_port = server.server_address[1]
+    if port_file:
+        tmp = port_file + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"port": bound_port, "pid": os.getpid()}, f)
+        os.replace(tmp, port_file)
     if service_out is not None:
         service_out.extend([service, server])
 

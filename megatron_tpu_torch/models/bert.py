@@ -21,6 +21,12 @@ parallel/mappings.cls_row and are computed whole on every tensor rank.
 Above one data rank the MLM loss is each rank's share of the global
 microbatch's masked mean (language_model.batch_mean), as the JAX loss
 over the global batch weighs every masked token alike.
+
+The config defaults hidden and attention dropout to 0.1, as the JAX
+package's does; a training pass given a dropout key (parallel/
+random.py) draws them in the encoder (language_model.lm_forward), and
+the classification heads add the pooled state's (models/
+classification.py).
 """
 
 from __future__ import annotations
@@ -47,8 +53,7 @@ def bert_config(
     seq_length: int = 512,
     **kw,
 ) -> ModelConfig:
-    """The JAX package's BERT config, except that dropout defaults to 0.0:
-    the port has no dropout (ModelConfig.validate)."""
+    """The JAX package's BERT config (hidden and attention dropout 0.1)."""
     base = dict(
         num_layers=num_layers, hidden_size=hidden_size,
         num_attention_heads=num_attention_heads, vocab_size=vocab_size,
@@ -58,6 +63,7 @@ def bert_config(
         use_bias_linear=True, use_bias_qkv=True,
         tie_embed_logits=True, attn_mask_type="padding",
         num_tokentypes=2, bert_binary_head=True,
+        hidden_dropout=0.1, attention_dropout=0.1,
     )
     base.update(kw)
     cfg = ModelConfig(**base).validate()
@@ -85,13 +91,15 @@ def pooled(params: Dict[str, Any], hidden: torch.Tensor,
 def encoder_hidden(cfg: ModelConfig, params: Dict[str, Any],
                    tokens: torch.Tensor, padding_mask: torch.Tensor,
                    tokentype_ids: Optional[torch.Tensor] = None,
-                   recompute: str = "none", mesh=None) -> torch.Tensor:
+                   recompute: str = "none", mesh=None,
+                   dropout_key=None) -> torch.Tensor:
     """The encoder's final-normed hidden states [B, S, h], under
     sequence parallelism this rank's chunk [B, S/tp, h] (the module
     docstring)."""
     return lm_forward(cfg, params, tokens, attention_mask=padding_mask,
                       tokentype_ids=tokentype_ids, recompute=recompute,
-                      return_hidden=True, mesh=mesh, head_input=False)
+                      return_hidden=True, mesh=mesh, head_input=False,
+                      dropout_key=dropout_key)
 
 
 def bert_forward(
@@ -102,12 +110,13 @@ def bert_forward(
     tokentype_ids: Optional[torch.Tensor] = None,
     recompute: str = "none",
     mesh=None,
+    dropout_key=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns (mlm_logits [B, S, V], binary_logits [B, 2] or None);
     under tensor parallelism the logits are this rank's vocab columns
     [B, S, V/tp]."""
     hidden = encoder_hidden(cfg, params, tokens, padding_mask,
-                            tokentype_ids, recompute, mesh)
+                            tokentype_ids, recompute, mesh, dropout_key)
     mh = params["mlm_head"]
     h = F.gelu(hidden @ mh["dense_w"] + mh["dense_b"], approximate="none")
     h = layernorm(h, mh["norm_scale"], mh["norm_bias"], cfg.layernorm_epsilon)
@@ -127,6 +136,7 @@ def bert_loss(
     batch: Dict[str, torch.Tensor],
     recompute: str = "none",
     mesh=None,
+    dropout_key=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: tokens, padding_mask, tokentype_ids, labels (the MLM
     targets), loss_mask (1 at masked positions), is_random (the binary
@@ -135,7 +145,7 @@ def bert_loss(
     logits, binary_logits = bert_forward(
         cfg, params, batch["tokens"], batch["padding_mask"] > 0,
         tokentype_ids=batch.get("tokentype_ids"), recompute=recompute,
-        mesh=mesh)
+        mesh=mesh, dropout_key=dropout_key)
     mlm_loss = batch_mean(_ce(logits, batch["labels"], mesh)[1],
                           batch["loss_mask"], mesh)
     total = mlm_loss

@@ -134,24 +134,31 @@ def load_biencoder_params(cfg: ModelConfig, load: Optional[str],
 def embed_text(cfg: ModelConfig, tower: Dict[str, Any],
                tokens: torch.Tensor,          # [B, S]
                padding_mask: torch.Tensor,    # [B, S] True = real
-               recompute: str = "none", mesh=None) -> torch.Tensor:
+               recompute: str = "none", mesh=None,
+               dropout_key=None) -> torch.Tensor:
     """[B, ict_head_size]: the ict_head of the [CLS] hidden state."""
     hidden = encoder_hidden(cfg, tower, tokens, padding_mask,
-                            recompute=recompute, mesh=mesh)
+                            recompute=recompute, mesh=mesh,
+                            dropout_key=dropout_key)
     return cls_row(hidden, mesh) @ tower[HEAD]["w"] + tower[HEAD]["b"]
 
 
 def biencoder_forward(cfg: ModelConfig, params: Dict[str, Any],
                       query_tokens, query_pad_mask, context_tokens,
-                      context_pad_mask, recompute: str = "none", mesh=None
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(query embeddings, context embeddings) of this rank's rows."""
+                      context_pad_mask, recompute: str = "none", mesh=None,
+                      dropout_key=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(query embeddings, context embeddings) of this rank's rows; with
+    a dropout key the towers draw under its split (query, context), as
+    the JAX towers do."""
     qt = params.get("shared", params.get("query"))
     ct = params.get("shared", params.get("context"))
+    kq = kc = None
+    if dropout_key is not None:
+        kq, kc = dropout_key.split(2)
     return (embed_text(cfg, qt, query_tokens, query_pad_mask, recompute,
-                       mesh),
+                       mesh, kq),
             embed_text(cfg, ct, context_tokens, context_pad_mask, recompute,
-                       mesh))
+                       mesh, kc))
 
 
 def biencoder_loss(
@@ -162,6 +169,7 @@ def biencoder_loss(
     topk: Tuple[int, ...] = (1, 5),
     recompute: str = "none",
     mesh=None,
+    dropout_key=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: query_tokens, query_pad_mask, context_tokens,
     context_pad_mask. The in-batch softmax with diagonal labels over the
@@ -170,7 +178,7 @@ def biencoder_loss(
     q, c = biencoder_forward(
         cfg, params, batch["query_tokens"], batch["query_pad_mask"] > 0,
         batch["context_tokens"], batch["context_pad_mask"] > 0, recompute,
-        mesh)
+        mesh, dropout_key)
     q, c = gather_batch(q, mesh), gather_batch(c, mesh)
     scores = q.float() @ c.float().t()
     if score_scaling:

@@ -23,6 +23,7 @@ from megatron_tpu_torch.models.params import (
     tree_from_numpy,
 )
 from megatron_tpu_torch.ops.cross_entropy import cross_entropy_loss
+from megatron_tpu_torch.parallel.random import dropout
 from megatron_tpu_torch.parallel.sharding import P
 
 HEAD = "classification_head"
@@ -67,11 +68,19 @@ def cls_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                            cfg.dtype)
 
 
+#: the pooled state's dropout fold of the pass's key (the JAX package's)
+POOLED_FOLD = 0xC1A55
+
+
 def _pooled(cfg, params, tokens, padding_mask, tokentype_ids, recompute,
-            mesh=None):
+            mesh=None, dropout_key=None):
     hidden = encoder_hidden(cfg, params, tokens, padding_mask, tokentype_ids,
-                            recompute, mesh)
-    return pooled(params, hidden, mesh)
+                            recompute, mesh, dropout_key)
+    out = pooled(params, hidden, mesh)
+    if cfg.hidden_dropout > 0 and dropout_key is not None:
+        out = dropout(out, cfg.hidden_dropout,
+                      dropout_key.fold_in(POOLED_FOLD), mesh, "rows")
+    return out
 
 
 def classification_forward(
@@ -82,11 +91,12 @@ def classification_forward(
     tokentype_ids: Optional[torch.Tensor] = None,
     recompute: str = "none",
     mesh=None,
+    dropout_key=None,
 ) -> torch.Tensor:
     """[B, num_classes] logits."""
     head = params[HEAD]
     return (_pooled(cfg, params, tokens, padding_mask, tokentype_ids,
-                    recompute, mesh) @ head["w"] + head["b"])
+                    recompute, mesh, dropout_key) @ head["w"] + head["b"])
 
 
 def multichoice_forward(
@@ -97,6 +107,7 @@ def multichoice_forward(
     tokentype_ids: Optional[torch.Tensor] = None,
     recompute: str = "none",
     mesh=None,
+    dropout_key=None,
 ) -> torch.Tensor:
     """[B, C] per-choice scores (the head is [h, 1])."""
     b, c, s = tokens.shape
@@ -106,7 +117,8 @@ def multichoice_forward(
 
     head = params[HEAD]
     scores = (_pooled(cfg, params, flat(tokens), flat(padding_mask),
-                      flat(tokentype_ids), recompute, mesh) @ head["w"]
+                      flat(tokentype_ids), recompute, mesh, dropout_key)
+              @ head["w"]
               + head["b"])
     return scores.reshape(b, c)
 
@@ -117,12 +129,13 @@ def classification_logits(
     batch: Dict[str, torch.Tensor],
     recompute: str = "none",
     mesh=None,
+    dropout_key=None,
 ) -> torch.Tensor:
     """Rank-3 tokens are multiple choice, rank 2 classification."""
     fwd = (multichoice_forward if batch["tokens"].dim() == 3
            else classification_forward)
     return fwd(cfg, params, batch["tokens"], batch["padding_mask"] > 0,
-               batch.get("tokentype_ids"), recompute, mesh)
+               batch.get("tokentype_ids"), recompute, mesh, dropout_key)
 
 
 def classification_loss(
@@ -131,11 +144,13 @@ def classification_loss(
     batch: Dict[str, torch.Tensor],
     recompute: str = "none",
     mesh=None,
+    dropout_key=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: tokens, padding_mask, tokentype_ids, label. Returns (CE,
     {"loss", "accuracy"}). mesh: tensor and sequence parallelism (the
     head is computed whole on every tensor rank, models/bert.py)."""
-    logits = classification_logits(cfg, params, batch, recompute, mesh)
+    logits = classification_logits(cfg, params, batch, recompute, mesh,
+                                   dropout_key)
     loss, _ = cross_entropy_loss(logits[:, None, :], batch["label"][:, None])
     acc = (logits.argmax(-1) == batch["label"]).float().mean()
     return loss, {"loss": loss, "accuracy": acc}

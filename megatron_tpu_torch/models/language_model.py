@@ -48,6 +48,13 @@ A MoE model's layers each return a router aux loss; lm_loss adds their
 sum to the CE (return_moe_aux on lm_forward gives it to other callers).
 A weight-quantized serving tree (ops/weight_quant.py) embeds through
 take_rows and projects through deq, as the JAX package does.
+
+Dropout (a training pass given a parallel/random.DropoutKey): the
+embedding's output at hidden_dropout under key.fold_in(0xE0B), then
+layer l under key.fold_in(l), l the global layer index, at its rate of
+_layer_dropout_rates (the LIMA ramp hidden_dropout * l / (L - 1) with
+lima_dropout), as the JAX lm_forward draws them. Evaluation and
+serving pass no key and draw nothing.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from __future__ import annotations
 import functools
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -70,6 +78,7 @@ from megatron_tpu_torch.ops.weight_quant import deq, take_rows
 from megatron_tpu_torch.parallel.mappings import (
     all_reduce, enter_tp, exit_tp, sp_slice,
 )
+from megatron_tpu_torch.parallel.random import dropout
 from megatron_tpu_torch.quant.collectives import gather_logits
 
 
@@ -78,6 +87,35 @@ def _layers(tree: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
     per_leaf = {k: (_layers(v, n) if isinstance(v, dict) else v.unbind(0))
                 for k, v in tree.items()}
     return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
+
+
+#: the embedding dropout's fold of the pass's key (the JAX package's)
+EMBED_FOLD = 0xE0B
+
+
+def _layer_dropout_rates(cfg: ModelConfig) -> np.ndarray:
+    """Per-layer hidden-dropout rates [L], float32 as the JAX package
+    computes them: LIMA ramps linearly from 0 at the first layer to
+    hidden_dropout at the last (ref transformer.py:994-1001)."""
+    L = cfg.num_layers
+    if cfg.lima_dropout and L > 1:
+        return cfg.hidden_dropout * np.arange(L, dtype=np.float32) / (L - 1)
+    return np.full((L,), cfg.hidden_dropout, dtype=np.float32)
+
+
+def dropout_on(cfg: ModelConfig, key) -> bool:
+    """Whether a pass with `key` draws any mask (the JAX `train` gate)."""
+    return key is not None and (cfg.hidden_dropout > 0
+                                or cfg.attention_dropout > 0)
+
+
+def embed_dropout(cfg: ModelConfig, x: torch.Tensor, key, mesh=None
+                  ) -> torch.Tensor:
+    """The embedding's dropout at hidden_dropout under `key` (the JAX
+    embed_tokens'); None or a zero rate: x."""
+    if key is None or cfg.hidden_dropout <= 0:
+        return x
+    return dropout(x, cfg.hidden_dropout, key, mesh)
 
 
 def context_positions(tokens: torch.Tensor, positions, mesh):
@@ -201,6 +239,7 @@ def lm_forward(
     cp_comm=None,
     tokentype_ids: Optional[torch.Tensor] = None,   # [B, S] (BERT segments)
     head_input: bool = True,
+    dropout_key=None,
 ):
     """Forward pass to logits [B, S, V] (or, with return_hidden, the
     final-normed hidden states [B, S, h]); with return_moe_aux, (that,
@@ -246,7 +285,8 @@ def lm_forward(
     (with return_hidden): the final-normed hidden states as the last
     layer leaves them, before the LM head's tensor-parallel entry (this
     rank's sequence chunk under sequence parallelism), for heads of
-    their own (models/bert.py)."""
+    their own (models/bert.py). dropout_key: a training pass's
+    parallel/random.DropoutKey (the module docstring)."""
     if return_moe_aux and kv_caches is not None:
         raise ValueError("return_moe_aux with kv_caches is ambiguous: "
                          "decode paths don't train the router")
@@ -265,8 +305,11 @@ def lm_forward(
     elif kv_caches is None:
         positions = context_positions(tokens, positions, mesh)
 
+    train = dropout_on(cfg, dropout_key)
     x = embed_tokens(cfg, params, tokens, positions, mesh=mesh,
                      tokentype_ids=tokentype_ids)
+    if train:
+        x = embed_dropout(cfg, x, dropout_key.fold_in(EMBED_FOLD), mesh)
 
     if rope is None and cfg.position_embedding_type == "rotary":
         if kv_caches is not None and page_table is not None:
@@ -281,6 +324,7 @@ def lm_forward(
                                cfg.rope_scaling_factor, device=x.device)
 
     layers = []
+    rates = _layer_dropout_rates(cfg)
     for i, lp in enumerate(_layers(params["layers"], cfg.num_layers)):
         cache = None if kv_caches is None else tuple(c[i]
                                                      for c in kv_caches)
@@ -291,7 +335,9 @@ def lm_forward(
             recompute_core=recompute_granularity(recompute) == "selective",
             page_table=page_table, page_write_start=page_write_start,
             page_write_end=page_write_end, mesh=mesh, tp_comm=tp_comm,
-            cp_comm=cp_comm))
+            cp_comm=cp_comm,
+            dropout_key=dropout_key.fold_in(i) if train else None,
+            hidden_dropout_rate=rates[i]))
     x, moe_aux = run_layers(layers, x, recompute)
 
     x = final_hidden_norm(cfg, params, x)
@@ -407,13 +453,15 @@ def chunked_lm_loss_tokens(cfg: ModelConfig, params: Dict[str, Any],
 
 def lm_loss(cfg: ModelConfig, params: Dict[str, Any],
             batch: Dict[str, torch.Tensor], recompute: str = "none",
-            mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            mesh=None, dropout_key=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training loss on a batch dict with keys tokens [B, S], labels
     [B, S], optional loss_mask [B, S] and position_ids: per-token CE
     weighted by loss_mask. Returns (mean, {"lm_loss", "ntokens"}); a MoE
     model returns mean + the router aux loss, and aux["moe_aux_loss"]
     (lm_loss stays the pure CE). mesh: tensor parallelism (the
-    vocab-parallel CE)."""
+    vocab-parallel CE). dropout_key: the microbatch's key path (dropout
+    on)."""
     moe = cfg.num_experts is not None
     S = batch["tokens"].shape[1]
     # unchunked when the chunk does not tile this batch's sequence;
@@ -423,7 +471,7 @@ def lm_loss(cfg: ModelConfig, params: Dict[str, Any],
     out = lm_forward(cfg, params, batch["tokens"],
                      positions=batch.get("position_ids"),
                      recompute=recompute, return_hidden=chunked, mesh=mesh,
-                     return_moe_aux=moe)
+                     return_moe_aux=moe, dropout_key=dropout_key)
     out, moe_aux = out if moe else (out, None)
     loss_mask = batch.get("loss_mask")
     if mesh is not None and mesh.cp > 1:

@@ -320,12 +320,15 @@ def t5_loss(
     batch: Dict[str, torch.Tensor],
     recompute: str = "none",
     mesh=None,
+    dropout_key=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: enc_tokens, enc_padding_mask, dec_tokens, labels, loss_mask.
     Returns (masked CE of the decoder's predictions, {"lm_loss"}); under
     tensor parallelism the vocab-parallel CE; above one data rank this
     rank's share of the global microbatch's masked mean
-    (language_model.batch_mean)."""
+    (language_model.batch_mean). dropout_key is taken and unused: T5
+    applies no dropout whatever the config says, as the JAX package's
+    T5 draws none."""
     logits = t5_forward(cfg, params, batch["enc_tokens"], batch["dec_tokens"],
                         batch["enc_padding_mask"] > 0, recompute, mesh)
     loss = batch_mean(_ce(logits, batch["labels"], mesh)[1],

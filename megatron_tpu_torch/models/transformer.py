@@ -38,7 +38,17 @@ the JAX package) go through ops/fp8.maybe_fp8_matmul, their amax agreed
 over the ranks that shard each operand. Under context parallelism
 (mesh.cp > 1) x is this rank's piece of the sequence and the core
 attention gets the mesh (ops/attention.py's context-parallel dispatch);
-positions are global. Dropout is not ported.
+positions are global.
+
+Dropout (training; parallel/random.py): block_forward splits its key
+path in three, as the JAX block does: the attention probabilities'
+(attention_dropout, the dense path), then the attention output's and
+the MLP output's (hidden_dropout, or the layer's LIMA rate), each drawn
+after the branch's tensor-parallel reduction and bias, so a rank masks
+its block of the logical tensor. Whether a hidden site draws is gated
+on cfg.hidden_dropout > 0 whatever the layer's rate. The parallel
+(Falcon) block then reduces its two branches apart: each has its own
+mask.
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ from megatron_tpu_torch.ops.normalization import norm_forward
 from megatron_tpu_torch.ops.rotary import apply_rotary_emb
 from megatron_tpu_torch.ops.weight_quant import deq
 from megatron_tpu_torch.parallel.mappings import enter_tp, exit_tp
+from megatron_tpu_torch.parallel.random import dropout
 from megatron_tpu_torch.quant.collectives import tp_reduce
 
 #: (k, v), or the int8 form (k_q, v_q, k_scale, v_scale)
@@ -85,6 +96,7 @@ def attention_block(
     page_write_end: Optional[int] = None,
     mesh=None,
     cp_comm=None,
+    attn_dropout_key=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (out [B, S, h], kv_cache): out is the output
     projection's row-parallel partial sums, without its bias "bo"
@@ -120,7 +132,11 @@ def attention_block(
     cp_comm (a quant.CpComm; context-parallel serving): kv_cache is this
     rank's stripe of the paged pools and page_table its local table
     [B, mpl]; the write and the attention are
-    inference/context_parallel/ring_kv.paged_ring_attention's."""
+    inference/context_parallel/ring_kv.paged_ring_attention's.
+
+    attn_dropout_key (a parallel/random.DropoutKey; training): dropout of
+    the attention probabilities at cfg.attention_dropout, which takes
+    the dense attention path."""
     x = enter_tp(x, mesh)
     b, s, _ = x.shape
     D = cfg.head_dim
@@ -255,6 +271,10 @@ def attention_block(
         flash_bwd=cfg.flash_bwd,
         page_table=page_table,
         context=mesh if mesh is not None and mesh.cp > 1 else None,
+        dropout=(cfg.attention_dropout if attn_dropout_key is not None
+                 else 0.0),
+        dropout_key=attn_dropout_key,
+        dropout_mesh=mesh,
     )
     if recompute_core and torch.is_grad_enabled():
         ctx = checkpoint(core, q, k, v, use_reentrant=False)
@@ -320,6 +340,8 @@ def block_forward(
     mesh=None,
     tp_comm=None,
     cp_comm=None,
+    dropout_key=None,
+    hidden_dropout_rate=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache], torch.Tensor]:
     """One decoder layer -> (y, kv_cache, moe_aux): pre-LN, parallel
     attention (Falcon) or post-LN, as the config says; moe_aux is the
@@ -337,7 +359,23 @@ def block_forward(
     tp_comm (a quant.TpComm; serving): the reductions at the sites it
     covers run through quant/collectives.compressed_psum, the parallel
     form's one reduction at the "attn_out" site's decision. cp_comm:
-    context-parallel serving (attention_block)."""
+    context-parallel serving (attention_block).
+
+    dropout_key (a parallel/random.DropoutKey; training) turns dropout
+    on (the module docstring); hidden_dropout_rate is the layer's rate
+    (the LIMA ramp's), cfg.hidden_dropout when None."""
+    if dropout_key is not None:
+        k_attn, k_hidden1, k_hidden2 = dropout_key.split(3)
+    else:
+        k_attn = k_hidden1 = k_hidden2 = None
+    if cfg.hidden_dropout <= 0:
+        k_hidden1 = k_hidden2 = None
+    rate = (cfg.hidden_dropout if hidden_dropout_rate is None
+            else hidden_dropout_rate)
+
+    def drop(t, key):
+        return dropout(t, rate, key, mesh)
+
     # post-LN: no pre-norm; the layer ends with its own norm, the ln1 slot
     normed = x if cfg.use_post_ln else _norm(cfg, lp["ln1"], x)
     bo = lp["attn"].get("bo")
@@ -346,26 +384,30 @@ def block_forward(
         kv_cache=kv_cache, cache_index=cache_index,
         padding_mask=padding_mask, recompute_core=recompute_core,
         page_table=page_table, page_write_start=page_write_start,
-        page_write_end=page_write_end, mesh=mesh, cp_comm=cp_comm)
+        page_write_end=page_write_end, mesh=mesh, cp_comm=cp_comm,
+        attn_dropout_key=k_attn if cfg.attention_dropout > 0 else None)
     if cfg.parallel_attn:
         # the MLP reads ln1(x) (Falcon-7B) or its own ln_mlp(x)
         # (Falcon-40B); one residual add for both branches
         mlp_in = (_norm(cfg, lp["ln_mlp"], x) if cfg.parallel_layernorm
                   else normed)
         res = normed if cfg.apply_residual_post_ln else x
-        if cfg.num_experts is None:
+        if cfg.num_experts is None and k_hidden1 is None:
             out = _row_out(attn_out + mlp_block(cfg, lp["mlp"], mlp_in, mesh),
                            mesh, tp_comm, "attn_out", bo,
                            lp["mlp"].get("b_out"))
             return res + out, kv_cache, _no_aux(x)
         mlp_out, moe_aux = _ffn(cfg, lp, mlp_in, mesh, tp_comm)
-        return (res + _row_out(attn_out, mesh, tp_comm, "attn_out", bo)
-                + mlp_out, kv_cache, moe_aux)
-    y = (normed if cfg.apply_residual_post_ln else x) + _row_out(
-        attn_out, mesh, tp_comm, "attn_out", bo)
+        attn_out = drop(_row_out(attn_out, mesh, tp_comm, "attn_out", bo),
+                        k_hidden1)
+        return (res + attn_out + drop(mlp_out, k_hidden2), kv_cache,
+                moe_aux)
+    y = (normed if cfg.apply_residual_post_ln else x) + drop(_row_out(
+        attn_out, mesh, tp_comm, "attn_out", bo), k_hidden1)
     normed2 = _norm(cfg, lp["ln2"], y)
     mlp_out, moe_aux = _ffn(cfg, lp, normed2, mesh, tp_comm)
-    y = (normed2 if cfg.apply_residual_post_ln else y) + mlp_out
+    y = (normed2 if cfg.apply_residual_post_ln else y) + drop(mlp_out,
+                                                              k_hidden2)
     if cfg.use_post_ln:
         y = _norm(cfg, lp["ln1"], y)
     return y, kv_cache, moe_aux

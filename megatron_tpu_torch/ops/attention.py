@@ -34,7 +34,9 @@ over the whole sequence:
     "pallas" the flash kernels at delta = c * S/cp, Sq = S/cp, Skv = S;
   * "ring": ops/ring_attention.py (zig-zag or contiguous);
   * "ulysses": ops/ulysses.py (the all-to-alls around flash_mha).
-Padding masks and dropout have no context-parallel path and raise. At
+Padding masks and attention dropout have no context-parallel path and
+raise (the JAX package warns and runs its dense path over the gathered
+sequence). At
 cp 1, "ring" and "ulysses" are the "pallas" route, as the JAX package's
 rings and Ulysses run one hop of its kernels there.
 
@@ -51,6 +53,7 @@ import torch
 
 from megatron_tpu_torch.ops.flash import flash_template
 from megatron_tpu_torch.parallel.mappings import gather_context
+from megatron_tpu_torch.parallel.random import keep_mask
 
 
 def _mask_allowed(q_len: int, kv_len: int, mask_type: str,
@@ -77,7 +80,7 @@ def attention(
     sliding_window: Optional[int] = None,
     padding_mask: Optional[torch.Tensor] = None,  # [B, Skv] True = keep
     dropout: float = 0.0,
-    dropout_generator: Optional[torch.Generator] = None,
+    dropout_key=None,
     q_offset: int = 0,
     impl: str = "xla",
     softmax_fp32: bool = True,
@@ -85,6 +88,7 @@ def attention(
     flash_bwd: bool = True,
     page_table: Optional[torch.Tensor] = None,  # [B, max_pages] int32
     context=None,
+    dropout_mesh=None,
 ) -> torch.Tensor:
     """Scaled dot-product attention with GQA. Returns [B, Sq, Hq, D].
 
@@ -104,12 +108,26 @@ def attention(
     and the paths below compute the same values.
 
     context: the mesh of a context-parallel pass (the module docstring);
-    None or cp 1 is the one-sequence path."""
+    None or cp 1 is the one-sequence path.
+
+    dropout, dropout_key (a parallel/random.DropoutKey): dropout of the
+    probabilities [B, Hkv, G, Sq, Skv] on the dense path, the kept ones
+    divided by 1 - dropout, as the JAX package does; dropout_mesh: the
+    mesh whose rank's block of the logical mask this call draws (its
+    batch rows and its kv heads under tensor parallelism)."""
     if impl in ("ring", "ulysses") and (context is None or context.cp == 1):
         impl = "pallas"
     if context is not None and context.cp > 1:
+        if dropout > 0.0:
+            # the JAX package warns and runs its dense path over the
+            # gathered sequence, the O(S^2) scores context parallelism
+            # was chosen to avoid
+            raise ValueError(
+                "attention dropout under context parallelism: no "
+                "context-parallel path draws it; drop --attention_dropout "
+                "or run at cp 1")
         if (kv_lengths is not None or page_table is not None
-                or padding_mask is not None or dropout > 0.0
+                or padding_mask is not None
                 or q.shape[1] != k.shape[1] or q_offset):
             raise ValueError(
                 "context parallelism covers training's full-sequence "
@@ -195,8 +213,10 @@ def attention(
 
     probs = torch.softmax(scores, dim=-1)
     if dropout > 0.0:
-        keep = torch.rand(probs.shape, generator=dropout_generator,
-                          device=probs.device) >= dropout
+        if dropout_key is None:
+            raise ValueError("attention dropout requires a key")
+        keep = keep_mask(dropout_key, probs.shape, dropout, probs.device,
+                         dropout_mesh, "probs")
         probs = torch.where(keep, probs / (1.0 - dropout), 0.0)
 
     probs = probs.to(v.dtype)

@@ -134,16 +134,21 @@ class NQSupervisedDataset:
         return item
 
 
-def _embed_candidates(cfg, params, batch, mesh=None):
+def _embed_candidates(cfg, params, batch, mesh=None, dropout_key=None):
     """(q [B, D], positives [B, D], negatives [B*N, D] or None) of this
-    rank's rows."""
+    rank's rows; a dropout key splits into the pair's and the
+    negatives' (the JAX package's)."""
     from megatron_tpu_torch.models.biencoder import (
         biencoder_forward, embed_text,
     )
 
+    k_pair = kn = None
+    if dropout_key is not None:
+        k_pair, kn = dropout_key.split(2)
     q, c = biencoder_forward(
         cfg, params, batch["query_tokens"], batch["query_pad_mask"] > 0,
-        batch["context_tokens"], batch["context_pad_mask"] > 0, mesh=mesh)
+        batch["context_tokens"], batch["context_pad_mask"] > 0, mesh=mesh,
+        dropout_key=k_pair)
     neg = None
     if "neg_context_tokens" in batch:
         ct = params.get("shared", params.get("context"))
@@ -151,7 +156,7 @@ def _embed_candidates(cfg, params, batch, mesh=None):
         B, N, S = nt.shape
         neg = embed_text(cfg, ct, nt.reshape(B * N, S),
                          batch["neg_context_pad_mask"].reshape(B * N, S) > 0,
-                         mesh=mesh)
+                         mesh=mesh, dropout_key=kn)
     return q, c, neg
 
 
@@ -166,11 +171,12 @@ def _scores(cfg, q, c, neg, score_scaling):
 
 
 def orqa_loss(cfg, params, batch, score_scaling: bool = False,
-              topk: Tuple[int, ...] = (1, 5, 20), mesh=None):
+              topk: Tuple[int, ...] = (1, 5, 20), mesh=None,
+              dropout_key=None):
     """The softmax retrieval loss over the batch's positives and
     negatives (every batch rank's, the module docstring); aux has the
     loss and the top-k accuracies in percent."""
-    q, c, neg = _embed_candidates(cfg, params, batch, mesh)
+    q, c, neg = _embed_candidates(cfg, params, batch, mesh, dropout_key)
     q, c = gather_batch(q, mesh), gather_batch(c, mesh)
     if neg is not None:
         neg = gather_batch(neg, mesh)
@@ -240,9 +246,9 @@ def finetune_orqa(cfg, train_ds, valid_ds, *, ict_head_size: int = 128,
     from megatron_tpu_torch.tasks.finetune_utils import _epoch_iter
     from megatron_tpu_torch.training.pretrain import run_task_loop, task_loop
 
-    def loss_fn(model_cfg, p, b, mesh=None):
+    def loss_fn(model_cfg, p, b, mesh=None, dropout_key=None):
         return orqa_loss(model_cfg, p, b, score_scaling=score_scaling,
-                         topk=tuple(topk), mesh=mesh)
+                         topk=tuple(topk), mesh=mesh, dropout_key=dropout_key)
 
     # one microbatch: the in-batch softmax takes the whole global batch
     loop = task_loop(

@@ -100,8 +100,9 @@ def _main(args, cfg, log):
     recompute = cfg.training.recompute_granularity
     loop = task_loop(
         cfg, log=log, device=local_device(args.device),
-        loss_fn=lambda mc, p, b, mesh=None: bert_loss(
-            mc, p, b, recompute=recompute, mesh=mesh))
+        loss_fn=lambda mc, p, b, mesh=None, dropout_key=None: bert_loss(
+            mc, p, b, recompute=recompute, mesh=mesh,
+            dropout_key=dropout_key))
     return run_task_loop(loop, train_iter_factory)
 
 

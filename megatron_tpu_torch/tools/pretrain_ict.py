@@ -78,10 +78,11 @@ def loop_hooks(args, cfg):
     topk = tuple(args.retriever_report_topk_accuracies)
     recompute = cfg.training.recompute_granularity
 
-    def loss_fn(mc, p, b, mesh=None):
+    def loss_fn(mc, p, b, mesh=None, dropout_key=None):
         return biencoder_loss(mc, p, b,
                               score_scaling=args.retriever_score_scaling,
-                              topk=topk, recompute=recompute, mesh=mesh)
+                              topk=topk, recompute=recompute, mesh=mesh,
+                              dropout_key=dropout_key)
 
     return dict(
         init_params_fn=lambda mc, seed, device: biencoder_init_params(

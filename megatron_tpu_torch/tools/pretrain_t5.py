@@ -99,8 +99,9 @@ def loop_hooks(cfg):
     return dict(
         init_params_fn=t5_init_params,
         param_specs_fn=functools.partial(t5_param_specs, pipeline=pp),
-        loss_fn=lambda mc, p, b, mesh=None: t5_loss(
-            mc, p, b, recompute=recompute, mesh=mesh),
+        loss_fn=lambda mc, p, b, mesh=None, dropout_key=None: t5_loss(
+            mc, p, b, recompute=recompute, mesh=mesh,
+            dropout_key=dropout_key),
         pipeline_loss_factory=T5Pipeline if pp else None)
 
 

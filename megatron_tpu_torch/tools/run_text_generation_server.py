@@ -130,6 +130,11 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=5000)
+    p.add_argument("--serve_profile_dir", default=None,
+                   help="output dir of POST /admin/profile's on-demand "
+                        "torch.profiler captures (default "
+                        "runs/serve_profile); read a capture with "
+                        "tools/trace_report")
     p.add_argument("--serve_num_slots", type=int, default=8,
                    help="KV-cache slots of the continuous-batching engine; "
                         "0 serves one request at a time through the "
@@ -543,7 +548,8 @@ def _serve(args, mesh, channel, server_kwargs):
               cp_comm_policy=args.serve_cp_comm_policy,
               cp_geometry=args.serve_cp_geometry,
               cp_subgroup=args.serve_cp_subgroup,
-              cp_overlap=args.serve_cp_overlap == "on")
+              cp_overlap=args.serve_cp_overlap == "on",
+              profile_dir=args.serve_profile_dir)
     if mesh is not None:
         kw.update(mesh=mesh, channel=channel, cuda_graph=False)
         if mesh.pp > 1:

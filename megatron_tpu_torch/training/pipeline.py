@@ -37,7 +37,12 @@ megatron/schedules.py does:
     train_step.py's policy names; block:N counts the chunk's layers);
   * under context parallelism a stage's activations are its context
     piece's (S/cp, or S/(cp*tp) under sequence parallelism), and the
-    last stage's loss is the piece's share (language_model.loss_mean).
+    last stage's loss is the piece's share (language_model.loss_mean);
+  * dropout follows the JAX pipeline's key paths, which differ from its
+    one-device ones at the embedding: microbatch m embeds under
+    key.fold_in(0xE0B).fold_in(m), and layer l (global) draws under
+    key.fold_in(m).fold_in(l); a replayed forward (recompute) draws the
+    same masks, as they are functions of the path.
 """
 
 from __future__ import annotations
@@ -49,8 +54,9 @@ import torch
 
 from megatron_tpu_torch.config import ModelConfig
 from megatron_tpu_torch.models.language_model import (
-    _ce, _layers, context_positions, embed_tokens, final_hidden_norm,
-    lm_logits, loss_mean, recompute_granularity, run_layers, token_losses,
+    EMBED_FOLD, _ce, _layer_dropout_rates, _layers, context_positions,
+    dropout_on, embed_dropout, embed_tokens, final_hidden_norm, lm_logits,
+    loss_mean, recompute_granularity, run_layers, token_losses,
 )
 from megatron_tpu_torch.models.params import vpp_place_indices
 from megatron_tpu_torch.models.transformer import block_forward
@@ -98,27 +104,37 @@ class Pipeline:
         return self.mesh.is_last_stage and c == self.V - 1
 
     def _forward(self, params, batch, rope, m: int, c: int,
-                 x: Optional[torch.Tensor], metrics=()):
+                 x: Optional[torch.Tensor], metrics=(), dropout_key=None):
         """Chunk c on microbatch m: (its output activation, or on the
         last virtual stage the microbatch's mean CE; the router aux loss
         of its layers, a zero for a dense model). With `metrics` (names
         of training/metrics.py) the last stage computes the logits whole
         (this rank's vocab block) and adds the microbatch's metric sums
-        to self.metric_sums."""
+        to self.metric_sums. dropout_key: the step's key path (the
+        module docstring)."""
         cfg, mesh = self.cfg, self.mesh
+        train = dropout_on(cfg, dropout_key)
         mbs = batch["tokens"].shape[0] // self.M
         mb = {k: v[m * mbs:(m + 1) * mbs] for k, v in batch.items()}
         positions = context_positions(mb["tokens"], mb.get("position_ids"),
                                       mesh)
         if self._first(c):
             x = embed_tokens(cfg, params, mb["tokens"], positions, mesh=mesh)
+            if train:
+                x = embed_dropout(
+                    cfg, x, dropout_key.fold_in(EMBED_FOLD).fold_in(m), mesh)
         lo = c * self.Lv
         chunk = _slice_tree(params["layers"], lo, lo + self.Lv)
         selective = recompute_granularity(self.recompute) == "selective"
+        first = (c * self.pp + mesh.pp_rank) * self.Lv   # global index
+        rates = _layer_dropout_rates(cfg)
         layers = [functools.partial(
             block_forward, cfg, lp, rope=rope, positions=positions,
-            recompute_core=selective, mesh=mesh)
-            for lp in _layers(chunk, self.Lv)]
+            recompute_core=selective, mesh=mesh,
+            dropout_key=(dropout_key.fold_in(m).fold_in(first + j)
+                         if train else None),
+            hidden_dropout_rate=rates[first + j])
+            for j, lp in enumerate(_layers(chunk, self.Lv))]
         x, aux = run_layers(layers, x, self.recompute)
         if not self._last(c):
             return x, aux
@@ -206,20 +222,23 @@ class Pipeline:
 
     def forward_backward(self, params, batch: Dict[str, torch.Tensor],
                          scale: Optional[torch.Tensor],
-                         on_backward: Callable[[], None]
+                         on_backward: Callable[[], None],
+                         dropout_key=None
                          ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """Forward and backward of every microbatch through this stage.
         Returns this stage's share of each microbatch's loss (the last
         stage's CE plus the router aux loss of the stage's layers) and
         of its router aux loss, detached: summed over the pipe group
-        they are the microbatch's loss and aux loss."""
+        they are the microbatch's loss and aux loss. dropout_key: the
+        step's key path (dropout on)."""
         rope = self._rope(batch)
         dev = batch[self.TOKENS].device
         losses = [torch.zeros((), device=dev) for _ in range(self.M)]
         auxes = [torch.zeros((), device=dev) for _ in range(self.M)]
 
         def fwd(m, c, x):
-            out, aux = self._forward(params, batch, rope, m, c, x)
+            out, aux = self._forward(params, batch, rope, m, c, x,
+                                     dropout_key=dropout_key)
             auxes[m] = auxes[m] + aux.detach()
             losses[m] = losses[m] + aux.detach()
             if self._last(c):

@@ -198,7 +198,8 @@ class TrainLoop:
                  param_specs_fn: Optional[Callable] = None,
                  loss_fn: Optional[Callable] = None,
                  fixed_num_microbatches: Optional[int] = None,
-                 pipeline_loss_factory: Optional[Callable] = None):
+                 pipeline_loss_factory: Optional[Callable] = None,
+                 mask_source: Optional[Callable] = None):
         """The task hooks (the JAX loop's) let the encoder families reuse
         the loop: init_params_fn(model_cfg, seed, device) builds a
         parameter tree of their own (T5's stacks, a task head), whole;
@@ -208,8 +209,9 @@ class TrainLoop:
         and places its optimizer state and checkpoint blocks;
         loss_fn(model_cfg, params, batch, mesh=mesh) -> (loss, aux)
         swaps the objective (the mesh gives it tensor and sequence
-        parallelism and the batch group; evaluation runs it under
-        no_grad: the port has no dropout to turn off), and
+        parallelism and the batch group; with dropout on a training
+        step passes it dropout_key=, the microbatch's key path;
+        evaluation passes none and runs it under no_grad), and
         fixed_num_microbatches pins the microbatch count whatever the
         batch (ICT's in-batch softmax needs the whole global batch as
         negatives; at dp > 1 each rank's microbatch is its part of it).
@@ -217,7 +219,9 @@ class TrainLoop:
         recompute) builds the pipe schedule a task loss runs through at
         pp > 1 (T5's, training/t5_pipeline.T5Pipeline); a loss_fn at
         pp > 1 without one is refused, as the JAX loop refuses it.
-        Checkpoints save and load whatever tree the state holds."""
+        Checkpoints save and load whatever tree the state holds.
+        mask_source: the dropout masks' source (parallel/random.py;
+        None: the default generator source)."""
         if mesh is not None and mesh.world_size > 1 and (
                 init_params_fn is not None or loss_fn is not None):
             if init_params_fn is not None and param_specs_fn is None:
@@ -241,6 +245,7 @@ class TrainLoop:
         self._multi = mesh is not None and mesh.world_size > 1
         self.loss_fn = loss_fn
         self.pipeline_loss_factory = pipeline_loss_factory
+        self.mask_source = mask_source
         self.fixed_num_microbatches = fixed_num_microbatches
         self.is_rank0 = mesh is None or mesh.rank == 0
         self.log = log if self.is_rank0 else (lambda msg: None)
@@ -965,7 +970,8 @@ class TrainLoop:
                                    train_iters=t.train_iters,
                                    loss_fn=self.loss_fn, mesh=self.mesh,
                                    tree=self.tree,
-                                   pipeline_factory=self.pipeline_loss_factory)
+                                   pipeline_factory=self.pipeline_loss_factory,
+                                   mask_source=self.mask_source)
             self._step_cache[num_microbatches] = step
         return step
 

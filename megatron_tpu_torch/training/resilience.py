@@ -37,13 +37,14 @@ megatron_tpu/training/resilience.py).
 
     and the serving faults the engines read in their tick loop and at
     admission (inference/engine.py): kill_replica:N, hang_replica:N,
-    slow_tick:MS, reject_admission, preempt_replica:N.
+    slow_tick:MS, reject_admission, preempt_replica:N, and the server's
+    migrate_fail:N (maybe_corrupt: the first N outbound KV-state
+    migration frames are torn; the importer's crc check rejects each and
+    the exporter walks down its migrate -> recompute -> retry ladder,
+    inference/server.py).
 
   * batch_fingerprint (the JAX package's crc32 string for the same numpy
     batch) and bitwise tree comparison over torch tensors.
-
-Not ported (ROADMAP.md): migrate_fail (maybe_corrupt), which needs the
-fleet's KV migration.
 
 The variable is re-parsed when its value changes, so tests can
 monkeypatch it without reimporting.
@@ -177,6 +178,32 @@ def maybe_signal(kind: str, iteration: int,
         sys.stderr.flush()
         _journal_fault(kind, iteration=iteration, signal=name)
         os.kill(os.getpid(), signum)
+
+
+_corrupt_counts: Dict[str, int] = {}
+
+
+def maybe_corrupt(kind: str, blob: bytes) -> bytes:
+    """Truncate `blob` for the first N occurrences of the fault (form
+    kind:N): a torn wire transfer, which the receiver's integrity check
+    (crc + committed payload length) must reject. The count is
+    process-wide, so migrate_fail:2 tears exactly the first two
+    transfers a replica attempts."""
+    args = fault_args(kind)
+    if args is None:
+        return blob
+    limit = args[0] if args else 1
+    seen = _corrupt_counts.get(kind, 0)
+    if seen >= limit:
+        return blob
+    _corrupt_counts[kind] = seen + 1
+    sys.stderr.write(f"MEGATRON_TPU_FAULT: {kind} corrupting transfer "
+                     f"{seen + 1}/{limit} ({len(blob)} bytes)\n")
+    sys.stderr.flush()
+    _journal_fault(kind, transfer=seen + 1, bytes=len(blob))
+    # drop the final third: the manifest header usually survives, the
+    # payload does not (the torn-TCP shape)
+    return blob[:max(len(blob) - max(len(blob) // 3, 1), 0)]
 
 
 def host_fault_active(kind: str, host: int, iteration: int) -> bool:

@@ -113,7 +113,9 @@ class T5Pipeline(Pipeline):
         return self._count
 
     def _forward(self, params, batch, rope, m: int, c: int,
-                 x: Optional[torch.Tensor], metrics=()):
+                 x: Optional[torch.Tensor], metrics=(), dropout_key=None):
+        # T5 applies no dropout, whatever the config says (the JAX
+        # package's t5.py draws none): the key is taken and unused
         cfg, mesh = self.cfg, self.mesh
         mbs = batch["enc_tokens"].shape[0] // self.M
         mb = {k: v[m * mbs:(m + 1) * mbs] for k, v in batch.items()}
@@ -149,10 +151,12 @@ class T5Pipeline(Pipeline):
                                            h.shape[2]))], dim=1)
         return torch.cat([h, enc_out], dim=1), zero
 
-    def forward_backward(self, params, batch, scale, on_backward):
+    def forward_backward(self, params, batch, scale, on_backward,
+                         dropout_key=None):
         self._count = None
         self._token_count(batch)    # the batch group's one collective
-        return super().forward_backward(params, batch, scale, on_backward)
+        return super().forward_backward(params, batch, scale, on_backward,
+                                        dropout_key)
 
     def forward_only(self, params, batch: Dict[str, torch.Tensor],
                      metrics=()) -> Optional[torch.Tensor]:

@@ -41,6 +41,13 @@ accumulators. After the accumulation, reduce_grads:
     all-to-all), then divided by dp, the number of losses the global
     loss averages; under ZeRO-1 the sum is a reduce-scatter into this
     rank's optimizer shard over the same group.
+Dropout (the model config's rates above 0): microbatch i of the step
+at state.step trains under the key path RngStreams(seed).dropout(step)
+.fold_in(i) (parallel/random.py), the JAX step's; the pipeline takes
+the step's key and folds the microbatch in its own way
+(training/pipeline.py). Reading the step costs one host read a step
+with dropout on; a replayed, rolled-back or resumed step draws the
+masks it drew before, as they are functions of the seed and the step.
 The loss metric is the mean over the batch ranks of the microbatch
 losses (each pipeline stage's share summed over the pipe group: the
 last stage's CE and every stage's router loss; each context rank's share
@@ -63,6 +70,7 @@ from megatron_tpu_torch.parallel.mappings import all_reduce, reduce_scatter
 from megatron_tpu_torch.parallel.mesh import (
     AXIS_CONTEXT, AXIS_PIPE, AXIS_TENSOR, BATCH_AXES,
 )
+from megatron_tpu_torch.parallel.random import RngStreams
 from megatron_tpu_torch.parallel.sharding import spec_axes, zero1_axes
 from megatron_tpu_torch.training.optimizer import (
     TrainState, nest_paths, leaf_paths, make_optimizer_step, tree_map,
@@ -133,6 +141,7 @@ def make_train_step(
     mesh=None,
     tree=None,
     pipeline_factory: Optional[Callable] = None,
+    mask_source: Optional[Callable] = None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
               Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build train_step(state, batch) -> (state, metrics).
@@ -151,15 +160,22 @@ def make_train_step(
     microbatches, a MoE model's router aux loss included), grad_norm, lr,
     skipped, skip_streak (+ loss_scale with an fp16 scaler, and
     moe_aux_loss, the aux part's mean, for a MoE model). mesh: a multi-rank run (the module docstring); the
-    batch is then this data rank's rows and state.params its slices."""
+    batch is then this data rank's rows and state.params its slices.
+    With dropout on, loss_fn is called with dropout_key= the
+    microbatch's key path (the module docstring), whose masks
+    mask_source draws (parallel/random.RngStreams; None: the default
+    generator source)."""
     from megatron_tpu_torch.models.params import leaf_layout
 
     recompute = train_cfg.recompute_granularity
     if (loss_fn is not None and mesh is not None and mesh.pp > 1
             and pipeline_factory is None):
         raise ValueError(TASK_LOSS_PP_REFUSAL)
-    loss_fn = loss_fn or (lambda cfg, p, b, mesh=None: lm_loss(
-        cfg, p, b, recompute=recompute, mesh=mesh))
+    loss_fn = loss_fn or (lambda cfg, p, b, mesh=None, dropout_key=None:
+                          lm_loss(cfg, p, b, recompute=recompute, mesh=mesh,
+                                  dropout_key=dropout_key))
+    drop = model_cfg.hidden_dropout > 0 or model_cfg.attention_dropout > 0
+    streams = RngStreams(train_cfg.seed, mask_source=mask_source)
     multi = mesh is not None and mesh.world_size > 1
     layout = (leaf_layout(model_cfg, mesh, opt_cfg.use_distributed_optimizer,
                           tree=tree)
@@ -203,14 +219,17 @@ def make_train_step(
                     a.add_(p.grad)
                     p.grad = None
 
+        key = streams.dropout(int(state.step)) if drop else None
         if pipeline is not None:
             losses, moe_aux = pipeline.forward_backward(
-                state.params, batch, scale, accumulate)
+                state.params, batch, scale, accumulate, dropout_key=key)
         else:
             losses, moe_aux = [], []
             for i in range(n):
                 mb = {k: v[i * mbs:(i + 1) * mbs] for k, v in batch.items()}
-                loss, aux = loss_fn(model_cfg, state.params, mb, mesh=mesh)
+                kw = {} if key is None else {"dropout_key": key.fold_in(i)}
+                loss, aux = loss_fn(model_cfg, state.params, mb, mesh=mesh,
+                                    **kw)
                 (loss * scale if scale is not None else loss).backward()
                 accumulate()
                 losses.append(loss.detach())

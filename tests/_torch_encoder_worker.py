@@ -178,16 +178,20 @@ def bert_loop(cfg, tree_np, batches, save=None):
     return {"losses": _losses(logs), "params": params}
 
 
-def bert_run_config(micro, parallel, zero1, save=None, load=None):
+def bert_run_config(micro, parallel, zero1, save=None, load=None,
+                    dropout=0.0, iters=3):
+    """BERT's run config; dropout: hidden and attention dropout (0.0:
+    the JAX loop the losses are held to draws none)."""
     from megatron_tpu_torch import config as C
     from megatron_tpu_torch.models.bert import bert_config
 
     return C.RunConfig(
-        model=bert_config(**BERT_KW),
+        model=bert_config(**BERT_KW, hidden_dropout=dropout,
+                          attention_dropout=dropout),
         optimizer=C.OptimizerConfig(lr=1e-3, lr_decay_style="constant",
                                     use_distributed_optimizer=zero1),
         training=C.TrainingConfig(micro_batch_size=micro, global_batch_size=8,
-                                  train_iters=3, log_interval=1, seed=5,
+                                  train_iters=iters, log_interval=1, seed=5,
                                   save=save, load=load),
         parallel=C.ParallelConfig(**parallel))
 
@@ -221,6 +225,20 @@ def cases(data, out):
         bert_run_config(2, dict(tensor_parallel=2, sequence_parallel=True),
                         True, save=os.path.join(out, "bert_tp2")),
         bert_np, bert_batches)
+
+    # BERT at dropout 0.1, tp2 + SP + ZeRO-1 (dp 2): the default masks,
+    # each rank's block of the one-process mask; then the same run saved
+    # at step 2 and resumed (the masks are functions of seed and step)
+    tp2_sp = dict(tensor_parallel=2, sequence_parallel=True)
+    res["bert_dropout"] = bert_loop(
+        bert_run_config(2, tp2_sp, True, dropout=0.1), bert_np,
+        bert_batches)
+    resume = os.path.join(out, "bert_dropout")
+    bert_loop(bert_run_config(2, tp2_sp, True, save=resume, dropout=0.1,
+                              iters=2), bert_np, bert_batches)
+    res["bert_dropout_resumed"] = bert_loop(
+        bert_run_config(2, tp2_sp, True, load=resume, dropout=0.1), bert_np,
+        bert_batches)
 
     # BERT's loss and grads at tp2 + SP (dp 2), one microbatch: the
     # loop's Adam would hide a leaf's gradient off by a constant factor

@@ -33,6 +33,10 @@ GPT2_MODEL = dict(MATRIX_MODEL, num_kv_heads=None,
 GLOBAL_BATCH = 8
 STEPS = 2
 SEED = 0
+# hidden and attention dropout on the matrix model, the LIMA ramp over
+# the global layer index
+DROPOUT_MODEL = dict(MATRIX_MODEL, hidden_dropout=0.1, attention_dropout=0.1,
+                     lima_dropout=True)
 
 
 def free_port() -> int:
@@ -57,7 +61,8 @@ def configs(case: dict):
     model = ModelConfig(**case.get("model", MATRIX_MODEL)).validate()
     opt = OptimizerConfig(lr=1e-3, lr_decay_style="constant",
                           use_distributed_optimizer=case.get("zero1", False))
-    train = TrainingConfig(micro_batch_size=1, global_batch_size=GLOBAL_BATCH,
+    train = TrainingConfig(micro_batch_size=case.get("micro", 1),
+                           global_batch_size=GLOBAL_BATCH,
                            train_iters=STEPS,
                            recompute_granularity=case.get("recompute",
                                                           "full"))
@@ -83,9 +88,24 @@ def flat_numpy(tree, prefix=""):
     return out
 
 
+def table_source(path):
+    """A dropout mask source serving the masks the parent computed with
+    the JAX package (tests/_torch_jax_masks.mask_table), by key path."""
+    table = dict(np.load(path))
+
+    def source(key, shape, rate, device):
+        keep = table[repr(key.path())]
+        assert keep.shape == tuple(shape), (key.path(), keep.shape, shape)
+        return torch.from_numpy(keep).to(device)
+
+    return source
+
+
 def single_process_steps(case: dict, batch=None):
     """The port's one-process step on the same weights and batch: the
-    yardstick of every case."""
+    yardstick of every case. A case with "one_micro" rows takes
+    microbatches of that many rows (the ranks' global microbatch: a
+    dropout mask is the global microbatch's)."""
     from megatron_tpu_torch.training.optimizer import (
         init_train_state, leaf_paths,
     )
@@ -97,7 +117,8 @@ def single_process_steps(case: dict, batch=None):
     for _, p in leaf_paths(params):
         p.requires_grad_(True)
     state = init_train_state(opt, params)
-    step = make_train_step(model, opt, train, GLOBAL_BATCH, STEPS)
+    step = make_train_step(model, opt, train,
+                           GLOBAL_BATCH // case.get("one_micro", 1), STEPS)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     losses, norms = [], []
     for _ in range(STEPS):
@@ -157,10 +178,13 @@ _MESHES: dict = {}
 
 
 def parallel_steps(case: dict, batch=None):
-    """The case on this world (every rank calls it)."""
+    """The case on this world (every rank calls it). "rank_rows": a
+    rank's rows are its part of each global microbatch (the loop's
+    data/samplers.rank_rows) instead of one contiguous block;
+    "mask_table": the dropout masks come from that table."""
     import torch.distributed as dist
 
-    from megatron_tpu_torch.data.samplers import context_piece
+    from megatron_tpu_torch.data.samplers import context_piece, rank_rows
     from megatron_tpu_torch.models.params import leaf_layout
     from megatron_tpu_torch.parallel.distributed import host_batch_slice
     from megatron_tpu_torch.parallel.mesh import (
@@ -188,10 +212,15 @@ def parallel_steps(case: dict, batch=None):
                              layout=leaf_layout(model, mesh,
                                                 opt.use_distributed_optimizer))
     n_micro = (hi - lo) // train.micro_batch_size
-    step = make_train_step(model, opt, train, n_micro, STEPS, mesh=mesh)
-    tb = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
-          context_piece({k: v[lo:hi] for k, v in batch.items()},
-                        mesh).items()}
+    source = (table_source(case["mask_table"]) if "mask_table" in case
+              else None)
+    step = make_train_step(model, opt, train, n_micro, STEPS, mesh=mesh,
+                           mask_source=source)
+    mine = (next(rank_rows(iter([batch]), mesh, train.micro_batch_size))
+            if case.get("rank_rows") else
+            context_piece({k: v[lo:hi] for k, v in batch.items()}, mesh))
+    tb = {k: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in mine.items()}
     losses, norms = [], []
     for _ in range(STEPS):
         state, m = step(state, tb)

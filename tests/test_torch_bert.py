@@ -121,8 +121,10 @@ def test_trainloop_bert_three_steps_match_jax():
     jcfg = jconfig.RunConfig(
         model=_jcfg(), optimizer=jconfig.OptimizerConfig(**opt),
         training=jconfig.TrainingConfig(micro_batch_size=1, **train))
+    # the JAX loss_fn takes no key, so both sides run without dropout
     tcfg = tconfig.RunConfig(
-        model=bert.bert_config(**KW),
+        model=bert.bert_config(**KW, hidden_dropout=0.0,
+                               attention_dropout=0.0),
         optimizer=tconfig.OptimizerConfig(**opt),
         training=tconfig.TrainingConfig(micro_batch_size=8, **train))
     batches = [_batch(seed=s, b=8) for s in range(3)]

@@ -67,6 +67,14 @@ values and gradients (zig-zag causal, a window of 4096, GQA 32/8, and
 the contiguous ring at S % 2cp != 0). fp8_matmul's torch._scaled_mm
 route matches its plain fp32 products at a small and at a Llama-2-7B
 product shape.
+
+Dropout and migration on the card: the default mask source (a Philox
+generator on the card, seeded from the key path's hash) keeps 1 - rate
+of the positions within 4 sigma and draws the same mask for the same
+path; a request exported mid-decode and imported into a captured
+engine (dense and paged: the KV written in place into the tensors the
+graph reads), then decoded by graph replay, emits the tokens of an
+uninterrupted captured engine, greedy and sampled.
 """
 
 import dataclasses
@@ -1760,3 +1768,65 @@ def test_sideband_exits_76_out_of_a_blocked_gloo_collective(gen):
     blocked = float(out0.split("blocked ")[1].split()[0])
     print(f"exit 76 {exited - blocked:.2f} s after the block began")
     assert exited - blocked <= 5 + 10
+
+
+def test_philox_mask_source_keep_rate_and_determinism(gen):
+    import math
+
+    from megatron_tpu_torch.parallel.random import (
+        RngStreams, default_mask_source,
+    )
+
+    key = RngStreams(1234).dropout(7).fold_in(2).fold_in(5).split(3)[1]
+    shape, rate = (16, 2048, 512), 0.1
+    dev = torch.device("cuda")
+    m = default_mask_source(key, shape, rate, dev)
+    assert m.device.type == "cuda" and m.dtype == torch.bool
+    n = m.numel()
+    sigma = math.sqrt(rate * (1 - rate) / n)
+    assert abs(float(m.float().mean()) - (1 - rate)) < 4 * sigma
+    assert torch.equal(m, default_mask_source(key, shape, rate, dev))
+    assert not torch.equal(m, default_mask_source(key.fold_in(0), shape,
+                                                  rate, dev))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_import_into_a_captured_engine_replays_the_uninterrupted_tokens(
+        gen, paged, temperature):
+    """Export mid-decode from one captured engine, import into another
+    (its KV written in place into the graph's tensors), and decode by
+    replay: the tokens of an uninterrupted captured engine."""
+    import numpy as np
+
+    from megatron_tpu_torch.inference.engine import Request
+    from megatron_tpu_torch.inference.fleet.migration import (
+        pack_state, unpack_state,
+    )
+
+    cfg, params = _serving_model()
+    prompt = np.asarray(_PROMPTS[1], np.int32)
+
+    def request():
+        return Request(prompt=prompt.copy(), max_new_tokens=24,
+                       temperature=temperature, seed=5)
+
+    solo = _engine(cfg, params, paged)
+    want = solo.submit(request())
+    solo.run_until_idle()
+    src = _engine(cfg, params, paged)
+    r = src.submit(request())
+    for _ in range(6):
+        src.step()
+    assert not r.done.is_set()
+    dst = _engine(cfg, params, paged)
+    assert dst.capture_seconds is not None
+    caches = [c.data_ptr() for c in dst.caches]
+    req, path = dst.import_request_state(
+        *unpack_state(pack_state(*src.export_request_state(r))))
+    assert path == "kv_import"
+    assert [c.data_ptr() for c in dst.caches] == caches
+    dst.run_until_idle()
+    torch.cuda.synchronize()
+    assert req.error is None and req.generated == want.generated
+    assert dst.stats["decode_recompiles"] == 0

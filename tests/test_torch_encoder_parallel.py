@@ -324,6 +324,9 @@ def runs(tmp_path_factory):
     ref = {"jax_bert": jax_bert_train()}
     ref["bert_one"] = EW.bert_loop(
         EW.bert_run_config(4, {}, False), _flat(jinit), bert_batches)
+    ref["bert_one_dropout"] = EW.bert_loop(
+        EW.bert_run_config(4, {}, False, dropout=0.1), _flat(jinit),
+        bert_batches)
     jbcfg = jbert.bert_config(**EW.BERT_KW, hidden_dropout=0.0,
                               attention_dropout=0.0)
     ref["bert_grads"] = _jax_grads(
@@ -350,6 +353,34 @@ def test_bert_tp2_sp_zero1_loop_equals_one_process_and_jax(runs):
     for path, x in ref["bert_one"]["params"].items():
         np.testing.assert_allclose(g["params"][path], x, atol=1e-5,
                                    err_msg=path)
+
+
+def test_bert_dropout_at_tp2_sp_zero1_equals_one_process(runs):
+    """BERT at hidden and attention dropout 0.1 with the default mask
+    source: each rank draws its block of the one-process masks (its rows
+    of the global microbatch, its sequence piece, its kv heads), so three
+    TrainLoop steps at tp2 + SP + ZeRO-1 (dp 2) equal one process's at a
+    micro-batch of the ranks' four rows: losses within 1e-5 relative,
+    params within 1e-5."""
+    got, ref, _ = runs
+    g, want = got["bert_dropout"], ref["bert_one_dropout"]
+    assert len(g["losses"]) == 3
+    np.testing.assert_allclose(g["losses"], want["losses"], rtol=1e-5)
+    assert abs(g["losses"][0] - ref["bert_one"]["losses"][0]) > 1e-4
+    for path, x in want["params"].items():
+        np.testing.assert_allclose(g["params"][path], x, atol=1e-5,
+                                   err_msg=path)
+
+
+def test_a_resumed_dropout_run_equals_the_uninterrupted_one(runs):
+    """The tp2 + SP dropout run saved at step 2 and resumed at the same
+    topology: its third step's loss and its final params are bitwise the
+    uninterrupted run's (checkpoints keep the seed and the step only)."""
+    got, _, _ = runs
+    whole, resumed = got["bert_dropout"], got["bert_dropout_resumed"]
+    assert resumed["losses"] == whole["losses"][2:]
+    for path, x in whole["params"].items():
+        assert np.array_equal(resumed["params"][path], x), path
 
 
 def test_bert_tp2_state_loads_bitwise_at_world_1_and_into_classification(

@@ -226,7 +226,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "telemetry.perfetto", "tools.trace_report", "tools.comm_report",
         "tools.telemetry_report", "training.aot", "tools.hbm_check",
         "training.coordination", "tools.checkpoint_util",
-        "tools.verify_correctness")]
+        "tools.verify_correctness", "parallel.random",
+        "inference.fleet.scrape", "inference.fleet.migration",
+        "inference.fleet.router", "inference.fleet.replica")]
     code = (
         "import importlib, pkgutil, sys\n"
         "import megatron_tpu_torch as pkg\n"

@@ -290,7 +290,8 @@ def test_finetune_orqa_three_steps_equal_jax(tmp_path, monkeypatch):
         lambda mc, seed, head, shared, dev: bi.biencoder_params_from_numpy(
             jinit, mc, device=dev))
     tcfg = tconfig.RunConfig(
-        model=bi.biencoder_config(**cfg_kw),
+        model=bi.biencoder_config(**cfg_kw, hidden_dropout=0.0,
+                                  attention_dropout=0.0),
         optimizer=tconfig.OptimizerConfig(**opt_kw),
         training=tconfig.TrainingConfig(**train_kw))
     train, dev = _datasets(tmp_path, ft)

@@ -17,7 +17,10 @@ composed reduce-scatter and host path, and the native *_single
 collectives) and a two-way p2p, the vocab-parallel cross-entropy with
 label smoothing and z_loss against cross_entropy_loss, and two training
 cases held to the port's single-process step: dp2 with ZeRO-1, and a
-tied-embedding GPT-2 at pp2 (the embedding group's gradient sum); a
+tied-embedding GPT-2 at pp2 (the embedding group's gradient sum); tp2 +
+SP and dp2 + ZeRO-1 at dropout 0.1 against one process with the default
+mask source, and pp2 at dropout 0.1 against the JAX pipeline with the
+JAX masks injected; a
 posted send that its caller overwrites before the wait arrives as
 posted; and the sharded layout's two-phase commit with a coordinator
 on each rank (both hosts stage, rank 0 commits; a poisoned peer aborts
@@ -320,20 +323,113 @@ TRAIN_CASES = {
     "dp2_zero1": dict(parallel={}, zero1=True),
     "gpt2_tied_pp2": dict(parallel=dict(pipeline_parallel=2),
                           model=W.GPT2_MODEL),
+    # dropout 0.1 (and the LIMA ramp): a rank draws its block of the
+    # one-process mask with the default source: the tensor ranks the
+    # same hidden mask (sequence pieces under SP) and their kv heads'
+    # attention mask; the data ranks their rows of the global
+    # microbatch (two rows, one a rank)
+    "tp2_sp_dropout": dict(parallel=dict(tensor_parallel=2,
+                                         sequence_parallel=True),
+                           model=W.DROPOUT_MODEL),
+    "dp2_zero1_dropout": dict(parallel={}, zero1=True, rank_rows=True,
+                              one_micro=2, model=W.DROPOUT_MODEL),
 }
+# pp2 at dropout 0.1 with the JAX package's masks along the JAX
+# pipeline's key paths: two microbatches of four rows, as
+# make_pipeline_loss_fn runs them
+PP2_DROPOUT = dict(parallel=dict(pipeline_parallel=2), micro=4,
+                   model=W.DROPOUT_MODEL)
+
+
+def _pp2_mask_sites(model):
+    """Every (key, shape, rate) the port's pp2 pipeline draws in the
+    case's steps: microbatch m embeds under fold_in(0xE0B).fold_in(m),
+    layer l draws under fold_in(m).fold_in(l).split(3): the attention
+    probabilities', then the two hidden sites'."""
+    from megatron_tpu_torch.models.language_model import _layer_dropout_rates
+    from megatron_tpu_torch.parallel.random import RngStreams
+
+    cfg = tconfig.ModelConfig(**model).validate()
+    mbs, S, h = PP2_DROPOUT["micro"], cfg.seq_length, cfg.hidden_size
+    nkv = cfg.n_kv_heads
+    probs = (mbs, nkv, cfg.num_attention_heads // nkv, S, S)
+    rates = _layer_dropout_rates(cfg)
+    sites = []
+    for step in range(W.STEPS):
+        key = RngStreams(tconfig.TrainingConfig().seed).dropout(step)
+        for m in range(W.GLOBAL_BATCH // mbs):
+            sites.append((key.fold_in(0xE0B).fold_in(m), (mbs, S, h),
+                          cfg.hidden_dropout))
+            for layer in range(cfg.num_layers):
+                k_attn, k1, k2 = key.fold_in(m).fold_in(layer).split(3)
+                sites += [(k_attn, probs, cfg.attention_dropout),
+                          (k1, (mbs, S, h), rates[layer]),
+                          (k2, (mbs, S, h), rates[layer])]
+    return sites
+
+
+def _jax_pp2_dropout_steps():
+    """The JAX jitted train step through make_pipeline_loss_fn on the
+    fake mesh (pipe 2), its own dropout keys, from the port's weights."""
+    import jax
+    import jax.numpy as jnp
+
+    from megatron_tpu.training.optimizer import init_train_state
+    from megatron_tpu.training.train_step import make_train_step as j_step
+
+    model = jconfig.ModelConfig(**W.DROPOUT_MODEL).validate()
+    rt = jmesh.build_mesh(jconfig.ParallelConfig(pipeline_parallel=2))
+    opt = jconfig.OptimizerConfig(lr=1e-3, lr_decay_style="constant")
+    train = jconfig.TrainingConfig(micro_batch_size=1, global_batch_size=8,
+                                   train_iters=W.STEPS,
+                                   recompute_granularity="full")
+    tree = {}
+    for path, v in W.flat_numpy(W.full_params(
+            W.configs(PP2_DROPOUT)[0])).items():
+        node = tree
+        parts = path.split("/")
+        for k in parts[:-1]:
+            node = node.setdefault(k, {})
+        node[parts[-1]] = jnp.asarray(v)
+    params = jsharding.shard_tree(rt, tree, jparams.param_specs(model))
+    n_micro = W.GLOBAL_BATCH // PP2_DROPOUT["micro"]
+    loss_fn = jpipeline.make_pipeline_loss_fn(model, rt.mesh, 2, n_micro,
+                                              recompute="full")
+    step = j_step(model, opt, train, num_microbatches=n_micro,
+                  train_iters=W.STEPS, pipeline_loss_fn=loss_fn)
+    state = init_train_state(opt, params)
+    batch = {k: jnp.asarray(v) for k, v in W.make_batch(
+        W.DROPOUT_MODEL).items()}
+    losses, norms = [], []
+    with jax.sharding.set_mesh(rt.mesh):
+        jstep = jax.jit(step).lower(state, batch).compile(
+            {"xla_backend_optimization_level": 0})
+        for _ in range(W.STEPS):
+            state, m = jstep(state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    return {"losses": losses, "grad_norms": norms}
 
 
 @pytest.fixture(scope="module")
 def world2(tmp_path_factory):
+    from _torch_jax_masks import mask_table
+
+    table = str(tmp_path_factory.mktemp("masks") / "pp2.npz")
+    np.savez(table, **mask_table(_pp2_mask_sites(W.DROPOUT_MODEL)))
     jobs = [("mappings", "mappings", None), ("comm", "comm", None),
             ("cross_entropy", "cross_entropy", None),
             ("p2p_snapshot", "p2p_snapshot", None),
             ("coordinated_save", "coordinated_save",
              str(tmp_path_factory.mktemp("coordinated")))]
     jobs += [(name, "train", case) for name, case in TRAIN_CASES.items()]
+    jobs.append(("pp2_dropout", "train", dict(PP2_DROPOUT,
+                                              mask_table=table)))
     jobs.append(("live_contract", "call",
                  ("_torch_tracing_worker:live_contract", {})))
-    return W.World(2, jobs).results()
+    world = W.World(2, jobs)
+    jax_ref = _jax_pp2_dropout_steps()      # while the ranks run
+    return dict(world.results(), jax_pp2_dropout=jax_ref)
 
 
 def test_sharded_save_commits_two_phase_over_hosts(world2):
@@ -389,6 +485,19 @@ def test_vocab_parallel_cross_entropy_matches_plain(world2, variant):
 @pytest.mark.parametrize("name", sorted(TRAIN_CASES))
 def test_two_rank_training_equals_the_single_process_step(world2, name):
     W.check_against_single_process(world2[name], TRAIN_CASES[name])
+
+
+def test_pp2_dropout_equals_the_jax_pipeline(world2):
+    """pp2 with hidden and attention dropout 0.1 and the LIMA ramp, fed
+    the JAX package's masks along the JAX pipeline's key paths (which
+    differ from its one-device paths at the embedding): the two steps'
+    losses within 1e-4 and grad norms within 1e-4 relative of the JAX
+    jitted step through make_pipeline_loss_fn."""
+    got, want = world2["pp2_dropout"], world2["jax_pp2_dropout"]
+    assert got["ranks_agree"]
+    np.testing.assert_allclose(got["losses"], want["losses"], atol=1e-4)
+    np.testing.assert_allclose(got["grad_norms"], want["grad_norms"],
+                               rtol=1e-4)
 
 
 def test_live_profile_window_holds_the_tp2_sp_contract(world2):

@@ -278,9 +278,11 @@ def test_admin_status_and_unknown_paths(params):
         assert body["weights_version"] == 3
         assert body["engine"]["timeouts"] == 0
         assert body["engine"]["weight_reloads"] == 0
-        status, body, _ = _call(srv.url + "/admin/profile", {})
+        status, body, _ = _call(srv.url + "/admin/nope", {})
         assert status == 404
-        assert body["message"] == "POST /admin/{drain,readmit,reload}"
+        assert body["message"] == ("POST /admin/{drain,readmit,reload,"
+                                   "profile,import,export_prefix,"
+                                   "import_prefix,register_prefix}")
         assert _call(srv.url + "/admin/reload", {})[0] == 400  # no dir
         status, body, _ = _call(srv.url + "/api", {
             "prompts": ["3 4"], "tokens_to_generate": 2})

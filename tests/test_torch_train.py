@@ -342,7 +342,7 @@ def test_five_train_steps_with_two_microbatches_match_jax(tiny):
 def test_training_config_fields_and_flops_match_jax():
     """The ported OptimizerConfig / TrainingConfig fields carry the JAX
     package's names and defaults, flops_per_token_fwd its formula, and
-    dropout (not ported) is refused loudly."""
+    the dropout fields the JAX ModelConfig's names and defaults."""
     for tcls, jcls in ((tconfig.OptimizerConfig, jconfig.OptimizerConfig),
                        (tconfig.TrainingConfig, jconfig.TrainingConfig)):
         t, j = tcls(), jcls()
@@ -356,9 +356,12 @@ def test_training_config_fields_and_flops_match_jax():
         assert t.flops_per_token_fwd() == j.flops_per_token_fwd() > 0
         assert t.flops_per_token_fwd(1000) == j.flops_per_token_fwd(1000)
     tiny = presets.tiny(**KW)
-    for field in ("hidden_dropout", "attention_dropout"):
-        with pytest.raises(ValueError, match="dropout"):
-            dataclasses.replace(tiny, **{field: 0.1}).validate()
+    jtiny = j_presets.tiny(**KW)
+    for field in ("hidden_dropout", "attention_dropout", "lima_dropout"):
+        assert getattr(tiny, field) == getattr(jtiny, field), field
+    drop = dict(hidden_dropout=0.1, attention_dropout=0.1, lima_dropout=True)
+    assert dataclasses.replace(tiny, **drop).validate().lima_dropout
+    dataclasses.replace(jtiny, **drop).validate()
     with pytest.raises(ValueError, match="ce_chunk_size"):
         dataclasses.replace(tiny, ce_chunk_size=5).validate()
     # block:N / uniform:N are ported; their malformed forms are refused
